@@ -1,0 +1,43 @@
+"""Minimal datamodule interface: a datamodule yields ``(inputs, targets,
+meta)`` batches of tensors on its device.
+
+* ``inputs``  -- (B, L, J, 2|3) float32
+* ``targets`` -- dict of (B, ...) tensors
+* ``meta``    -- dict; includes ``age_gender_idx`` (B,) int64 for the
+  projection's reference-skeleton gather
+"""
+from typing import Any, Dict, Iterator, Optional, Tuple, Type
+
+from ...skeletons.base import Skeleton
+from ...skeletons.carla import CARLA_SKELETON
+from ...utils.device import DeviceLike, resolve_device
+
+Batch = Tuple[Any, Dict[str, Any], Dict[str, Any]]
+
+
+class BaseDataModule:
+    def __init__(self,
+                 batch_size: int = 64,
+                 clip_length: int = 30,
+                 data_nodes: Type[Skeleton] = CARLA_SKELETON,
+                 input_nodes: Optional[Type[Skeleton]] = None,
+                 transform: str = "hips_neck",
+                 needs_confidence: bool = False,
+                 device: DeviceLike = None,
+                 **kwargs) -> None:
+        self.batch_size = batch_size
+        self.clip_length = clip_length
+        self.data_nodes = data_nodes
+        self.input_nodes = input_nodes or data_nodes
+        self.transform = transform
+        self.needs_confidence = needs_confidence
+        self.device = resolve_device(device)
+
+    def train_batches(self, seed: int = 0) -> Iterator[Batch]:
+        raise NotImplementedError
+
+    def val_batches(self) -> Iterator[Batch]:
+        raise NotImplementedError
+
+    def test_batches(self) -> Iterator[Batch]:
+        raise NotImplementedError

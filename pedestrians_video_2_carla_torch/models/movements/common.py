@@ -1,0 +1,96 @@
+"""Shared movements-model base: an ``nn.Module`` carrying skeleton and
+output-type config, plus the seeded layer inits."""
+import math
+from typing import Optional, Type
+
+import numpy as np
+import torch
+from torch import nn
+
+from ...flows.output_types import MovementsModelOutputType
+from ...skeletons.base import Skeleton
+from ...skeletons.carla import CARLA_SKELETON
+from ..base import format_movements_output, movements_output_features
+
+
+def _uniform_(tensor: torch.Tensor, bound: float,
+              generator: Optional[torch.Generator]) -> None:
+    """Fill ``tensor`` with U(-bound, bound) drawn from ``generator`` (on the
+    generator's device), whatever device the tensor is on."""
+    device = generator.device if generator is not None else tensor.device
+    draw = torch.empty(tensor.shape, dtype=tensor.dtype, device=device)
+    draw.uniform_(-bound, bound, generator=generator)
+    with torch.no_grad():
+        tensor.copy_(draw)
+
+
+def torch_dense_init_(layer: nn.Linear,
+                      generator: Optional[torch.Generator] = None) -> None:
+    """``nn.Linear``'s own default init, from an explicit generator:
+    kaiming-uniform(a=sqrt(5)) weight = U(+-1/sqrt(fan_in)), and bias
+    U(+-1/sqrt(fan_in))."""
+    bound = 1.0 / math.sqrt(layer.in_features)
+    _uniform_(layer.weight, bound, generator)
+    _uniform_(layer.bias, bound, generator)
+
+
+#: per-joint identity value of each raw output representation
+_IDENTITY_FEATURES = {
+    MovementsModelOutputType.pose_changes: (1., 0., 0., 0., 1., 0.),
+    MovementsModelOutputType.relative_rot: (1., 0., 0., 0., 1., 0.),
+    MovementsModelOutputType.absolute_loc: (0., 0., 0.),
+    MovementsModelOutputType.absolute_loc_rot:
+        (0., 0., 0., 1., 0., 0., 0., 1., 0.),
+    MovementsModelOutputType.pose_2d: (0., 0.),
+}
+
+
+def identity_head_init_(layer: nn.Linear,
+                        output_type: MovementsModelOutputType,
+                        kernel_scale: float = 0.1,
+                        generator: Optional[torch.Generator] = None) -> None:
+    """Output-head init that lands in the identity neighbourhood of the
+    output representation: weight U(+-kernel_scale/sqrt(fan_in)), bias the
+    identity value tiled per joint (the 6D identity rotation for
+    pose_changes / relative_rot; a zero 6D vector would Gram-Schmidt to a
+    zero matrix)."""
+    ident = np.asarray(_IDENTITY_FEATURES[output_type], np.float32)
+    if layer.out_features % len(ident):
+        raise ValueError(f"head width {layer.out_features} is not a multiple "
+                         f"of {len(ident)}")
+    _uniform_(layer.weight, kernel_scale / math.sqrt(layer.in_features),
+              generator)
+    with torch.no_grad():
+        layer.bias.copy_(torch.from_numpy(
+            np.tile(ident, layer.out_features // len(ident))))
+
+
+class MovementsModel(nn.Module):
+    """Base of movements models: ``input_nodes`` / ``output_nodes`` /
+    ``movements_output_type`` config and the output formatting."""
+    needs_targets = False
+
+    def __init__(self, input_nodes: Type[Skeleton] = CARLA_SKELETON,
+                 output_nodes: Type[Skeleton] = CARLA_SKELETON,
+                 movements_output_type: MovementsModelOutputType =
+                 MovementsModelOutputType.pose_changes) -> None:
+        super().__init__()
+        self.input_nodes = input_nodes
+        self.output_nodes = output_nodes
+        self.movements_output_type = movements_output_type
+
+    @property
+    def output_type(self) -> MovementsModelOutputType:
+        return self.movements_output_type
+
+    @property
+    def eval_slice(self):
+        """Frame slice valid for evaluation."""
+        return slice(None)
+
+    @property
+    def output_features(self) -> int:
+        return movements_output_features(self.movements_output_type)
+
+    def format_output(self, outputs):
+        return format_movements_output(outputs, self.movements_output_type)

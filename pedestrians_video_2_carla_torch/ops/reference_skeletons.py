@@ -1,0 +1,44 @@
+"""Absolute poses of the four CARLA reference skeletons, and denormalization
+of predicted 3D poses onto them (the ``absolute_loc*`` movements outputs)."""
+from functools import lru_cache
+
+import torch
+
+from ..skeletons.carla import CARLA_SKELETON, reference_poses_tensor
+from . import kinematics as K
+from . import normalization as N
+
+
+@lru_cache(maxsize=None)
+def reference_absolute_tensors():
+    """FK of the four reference skeletons: float32 numpy
+    ``(abs_loc (4, 26, 3), abs_rot (4, 26, 3, 3))``."""
+    rel_loc, rel_rot = reference_poses_tensor()
+    abs_loc, abs_rot = K.forward_kinematics(torch.from_numpy(rel_loc),
+                                            torch.from_numpy(rel_rot))
+    return abs_loc.numpy(), abs_rot.numpy()
+
+
+def _hips_neck_ss(reference: torch.Tensor, ndim_target: int) -> N.ShiftScale:
+    ss = N.hips_neck_shift_scale(reference, CARLA_SKELETON)
+    # broadcast (B, C)/(B,) reference shift/scale over the clip dimension
+    while ss.shift.ndim < ndim_target - 1:
+        ss = N.ShiftScale(ss.shift[:, None], ss.scale[:, None])
+    return ss
+
+
+def denormalize_from_abs(frames: torch.Tensor,
+                         age_gender_idx: torch.Tensor,
+                         autonormalize: bool = False) -> torch.Tensor:
+    """Scale/shift (optionally self-normalized) 3D poses onto the reference
+    skeleton size of each clip's age/gender.
+
+    :param frames: (B, L, J, 3) pose coordinates.
+    :param age_gender_idx: (B,) int index into AGE_GENDER_KEYS.
+    """
+    if autonormalize:
+        ss = N.hips_neck_shift_scale(frames, CARLA_SKELETON)
+        frames = N.normalize(frames, ss, dim=3)
+    ref = torch.as_tensor(reference_absolute_tensors()[0],
+                          device=frames.device)[age_gender_idx]
+    return N.denormalize(frames, _hips_neck_ss(ref, frames.ndim), dim=3)

@@ -1,0 +1,98 @@
+"""Skeleton registry and cross-skeleton joint mapping (the port's copy of
+the JAX package's ``skeletons/base.py``, cut to what the pose-lifting
+slice uses). Mappings resolve to static numpy index arrays (or
+``slice(None)``) that index tensors directly."""
+from enum import IntEnum
+from functools import lru_cache
+from typing import Dict, List, Optional, Tuple, Type
+
+import numpy as np
+
+
+class Skeleton(IntEnum):
+    """Base class for skeleton joint enums: members are joint names, values
+    are tensor indices along the joint dimension."""
+
+    @classmethod
+    def get_neck_point(cls) -> "Skeleton":
+        raise NotImplementedError()
+
+    @classmethod
+    def get_hips_point(cls):
+        """A single joint or a list of joints whose mean is the hips point."""
+        raise NotImplementedError()
+
+    @classmethod
+    def get_hips_indices(cls) -> np.ndarray:
+        hips = cls.get_hips_point()
+        if isinstance(hips, (list, tuple)):
+            return np.asarray([h.value for h in hips], dtype=np.int64)
+        return np.asarray([hips.value], dtype=np.int64)
+
+    @classmethod
+    def get_neck_indices(cls) -> np.ndarray:
+        neck = cls.get_neck_point()
+        if isinstance(neck, (list, tuple)):
+            return np.asarray([n.value for n in neck], dtype=np.int64)
+        return np.asarray([neck.value], dtype=np.int64)
+
+
+SKELETONS: Dict[str, Type[Skeleton]] = {}
+#: skeleton class -> list of (CARLA_SKELETON member, skeleton member) pairs
+MAPPINGS: Dict[Type[Skeleton], List[Tuple[Skeleton, Skeleton]]] = {}
+
+
+def register_skeleton(name: str, skeleton: Type[Skeleton],
+                      mapping: Optional[List[Tuple[Skeleton, Skeleton]]] = None):
+    SKELETONS[name] = skeleton
+    if mapping is not None:
+        MAPPINGS[skeleton] = mapping
+
+
+@lru_cache(maxsize=None)
+def get_common_indices(input_nodes: Optional[Type[Skeleton]] = None,
+                       output_nodes: Optional[Type[Skeleton]] = None):
+    """Index pairs aligning two skeletons through CARLA_SKELETON as the pivot:
+    ``(output_indices, input_indices)`` such that
+    ``output_pose[..., output_indices, :]`` corresponds joint by joint to
+    ``input_pose[..., input_indices, :]``."""
+    if (input_nodes == output_nodes) \
+            or (input_nodes is not None and input_nodes not in MAPPINGS) \
+            or (output_nodes is not None and output_nodes not in MAPPINGS):
+        return slice(None), slice(None)
+
+    if input_nodes is not None:
+        input_carla_indices, input_indices = zip(
+            *[(c.value, o.value) for (c, o) in MAPPINGS[input_nodes]])
+        if output_nodes is None:
+            return (np.asarray(input_carla_indices, dtype=np.int64),
+                    np.asarray(input_indices, dtype=np.int64))
+
+    if output_nodes is not None:
+        output_carla_indices, output_indices = zip(
+            *[(c.value, o.value) for (c, o) in MAPPINGS[output_nodes]])
+        if input_nodes is None:
+            return (np.asarray(output_indices, dtype=np.int64),
+                    np.asarray(output_carla_indices, dtype=np.int64))
+
+    common = set(input_carla_indices).intersection(output_carla_indices)
+    filtered_input = sorted(
+        [(c, i) for (c, i) in zip(input_carla_indices, input_indices) if c in common])
+    filtered_output = sorted(
+        [(c, o) for (c, o) in zip(output_carla_indices, output_indices) if c in common])
+
+    return (np.asarray([x[1] for x in filtered_output], dtype=np.int64),
+            np.asarray([x[1] for x in filtered_input], dtype=np.int64))
+
+
+def common_hips_index(input_nodes: Optional[Type[Skeleton]],
+                      input_indices) -> Optional[int]:
+    """Position of the hips joint within the common-joint axis produced by
+    :func:`get_common_indices`; ``None`` when hips is a multi-joint point."""
+    hips = input_nodes.get_hips_point()
+    if isinstance(hips, (list, tuple)):
+        return None
+    if isinstance(input_indices, slice):
+        return int(hips)
+    idx = list(input_indices)
+    return idx.index(int(hips)) if int(hips) in idx else None

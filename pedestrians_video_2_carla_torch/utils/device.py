@@ -1,0 +1,22 @@
+"""Device selection for the port's entry points."""
+from typing import Optional, Union
+
+import torch
+
+DeviceLike = Optional[Union[str, torch.device]]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """The device an entry point runs on.
+
+    ``None`` means the CUDA card; with no card present that raises instead of
+    carrying on quietly on the CPU. The CPU is used only when asked for by
+    name (``device="cpu"``), as the CPU tests do.
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on "
+                "the CPU explicitly")
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)

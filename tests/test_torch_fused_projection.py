@@ -1,0 +1,159 @@
+"""Port parity for the fused FK + projection: the plain PyTorch version and
+the ``"fused"`` route (which runs the plain version for CPU tensors) against
+the JAX package's Pallas kernel (interpret mode on the CPU, as
+tests/ops/test_pallas_fused.py runs it) and its XLA reference; the autograd
+wrapper's gradients against ``jax.grad``; input checks; and, on a CUDA card
+only, the CUDA kernel against the plain version."""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pedestrians_video_2_carla_tpu.ops import camera as JC
+from pedestrians_video_2_carla_tpu.ops.pallas.fused_projection import (
+    fused_projection as j_fused_projection, fused_projection_pallas,
+    fused_projection_reference as j_reference)
+from pedestrians_video_2_carla_tpu.skeletons.carla import reference_poses_tensor
+
+from pedestrians_video_2_carla_torch.ops import camera as TC
+from pedestrians_video_2_carla_torch.ops import fused_projection as FP
+from pedestrians_video_2_carla_torch.ops.projection import ProjectionModule
+
+from .ops.np_reference import random_rotation_matrices
+
+B, L = 5, 4
+
+
+def _inputs(rng, batch=B, clip=L):
+    agi = rng.integers(0, 4, size=batch)
+    locs, rots = reference_poses_tensor()
+    changes = random_rotation_matrices(rng, (batch, clip, 26)).astype(np.float32)
+    return changes, locs[agi], rots[agi]
+
+
+def _t(*arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_case():
+    """One seeded batch and the JAX Pallas kernel's output on it. Interpret
+    mode takes seconds per call on the CPU, so the parametrized cases below
+    share this one call."""
+    changes, locs, rots = _inputs(np.random.default_rng(22742))
+    pallas = np.asarray(fused_projection_pallas(
+        jnp.asarray(changes), jnp.asarray(locs), jnp.asarray(rots),
+        JC.make_camera()))
+    return changes, locs, rots, pallas
+
+
+@pytest.mark.parametrize("port_fn", [FP.fused_projection_reference,
+                                     FP.fused_projection],
+                         ids=["plain", "fused_route"])
+def test_matches_jax_pallas_and_reference(port_fn):
+    changes, locs, rots, pallas = _pallas_case()
+    port = port_fn(*_t(changes, locs, rots), TC.make_camera()).numpy()
+    assert port.shape == (B, L, 26, 3)
+    ref = np.asarray(j_reference(changes, locs, rots, JC.make_camera()))
+    np.testing.assert_allclose(port, pallas, atol=1e-3)   # pixels
+    np.testing.assert_allclose(port, ref, atol=1e-4)
+
+
+@pytest.mark.parametrize("batch,clip", [(3, 4), (1, 1), (7, 2)])
+def test_ragged_batch_and_clip(rng, batch, clip):
+    # no padding to a block in the port: any B and L go straight through
+    changes, locs, rots = _inputs(rng, batch, clip)
+    port = FP.fused_projection(*_t(changes, locs, rots), TC.make_camera())
+    assert port.shape == (batch, clip, 26, 3)
+    ref = np.asarray(j_reference(changes, locs, rots, JC.make_camera()))
+    np.testing.assert_allclose(port.numpy(), ref, atol=1e-4)
+
+
+def test_gradients_match_jax(rng):
+    """All three cotangents, with the scaled tolerance of the JAX package's
+    kernel-gradient test (test_pallas_fused.py). A short clip: the JAX
+    forward runs the kernel in interpret mode."""
+    changes, locs, rots = _inputs(rng, 2, 2)
+    tensors = [t.requires_grad_(True) for t in _t(changes, locs, rots)]
+    out = FP.fused_projection(*tensors, TC.make_camera())
+    torch.sin(out[..., :2] * 0.01).sum().backward()
+
+    j_cam = JC.make_camera()  # outside the jit: nondiff args are no tracers
+
+    def loss(c, l, r):
+        return jnp.sum(jnp.sin(
+            j_fused_projection(c, l, r, j_cam)[..., :2] * 0.01))
+    refs = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
+        jnp.asarray(changes), jnp.asarray(locs), jnp.asarray(rots))
+    for t, ref in zip(tensors, refs):
+        ref = np.asarray(ref)
+        scale = max(float(np.abs(ref).max()), 1e-8)
+        np.testing.assert_allclose(t.grad.numpy() / scale, ref / scale,
+                                   rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("bad", ["float64", "joints", "rel_loc", "rel_rot",
+                                 "rank"])
+def test_rejects_bad_inputs(rng, bad):
+    changes, locs, rots = _t(*_inputs(rng))
+    if bad == "float64":
+        changes = changes.double()
+    elif bad == "joints":
+        changes = changes[:, :, :25]
+    elif bad == "rel_loc":
+        locs = locs[:-1]
+    elif bad == "rel_rot":
+        rots = rots[..., :2]
+    else:
+        changes = changes[0]
+    with pytest.raises((TypeError, ValueError)):
+        FP.fused_projection(changes, locs, rots, TC.make_camera())
+
+
+def test_kernel_wrapper_never_runs_on_the_cpu(rng):
+    # no quiet fallback: the CUDA wrapper refuses CPU tensors
+    with pytest.raises(ValueError, match="CUDA"):
+        FP.fused_projection_cuda(*_t(*_inputs(rng)), TC.make_camera())
+    assert FP.fused_projection_cuda.launches == 0
+
+
+def test_projection_kernel_names():
+    assert ProjectionModule(kernel="fused").kernel == "fused"
+    with pytest.raises(NotImplementedError):
+        ProjectionModule(kernel="pallas_train")
+    with pytest.raises(ValueError):
+        ProjectionModule(kernel="xla")
+
+
+def test_library_path_follows_the_source(tmp_path, monkeypatch):
+    # the build is keyed by the source: an edited .cu gets a new library
+    first = FP.library_path()
+    src = tmp_path / "fused_projection.cu"
+    src.write_bytes(FP._SOURCE.read_bytes() + b"\n// edited\n")
+    monkeypatch.setattr(FP, "_SOURCE", src)
+    assert FP.library_path() != first
+    assert FP.library_path().parent == FP.BUILD_DIR
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,clip", [(1024, 16), (1000, 16), (5, 16),
+                                        (64, 1)])
+def test_cuda_kernel_matches_plain(rng, cuda_device, batch, clip):
+    args = tuple(t.to(cuda_device) for t in _t(*_inputs(rng, batch, clip)))
+    cam = TC.make_camera()
+    out = FP.fused_projection_cuda(*args, cam)
+    ref = FP.fused_projection_reference(*args, cam)
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    assert float(err[..., :2].max()) <= 1e-3      # pixels
+    assert float(err[..., 2].max()) <= 1e-4       # metres

@@ -1,0 +1,87 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package,
+its entry points refuse to fall back to the CPU when no card is present,
+and chip_smoke.py fails (printing no result) without a card or without the
+rest of the repository."""
+import os
+import pkgutil
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import pedestrians_video_2_carla_torch as port
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pedestrians_video_2_carla_tpu")
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        port.__path__, prefix="pedestrians_video_2_carla_torch."))
+
+
+def test_port_imports_no_jax_in_a_fresh_process():
+    code = (
+        "import importlib, sys\n"
+        f"for name in {_port_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print('BAD', bad)\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "BAD []" in proc.stdout
+
+
+def test_port_sources_name_no_jax():
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax)\b|"
+        r"pedestrians_video_2_carla_tpu", re.M)
+    root = os.path.dirname(port.__file__)
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith((".py", ".cu")):
+                path = os.path.join(dirpath, f)
+                with open(path) as fh:
+                    assert not pattern.search(fh.read()), path
+
+
+def test_entry_points_refuse_a_missing_card(monkeypatch):
+    from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
+        Carla2D3DDataModule
+    from pedestrians_video_2_carla_torch.flows.pose_lifting import \
+        PoseLiftingFlow
+    from pedestrians_video_2_carla_torch.models.jax_import import \
+        import_flow_params
+    from pedestrians_video_2_carla_torch.models.movements.linear_ae import \
+        LinearAE
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PoseLiftingFlow(LinearAE())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Carla2D3DDataModule(batch_size=2, clip_length=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        import_flow_params({"movements": {}})
+    # asked for by name, the CPU works
+    assert PoseLiftingFlow(LinearAE(), device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("alone", [False, True],
+                         ids=["no_card", "script_alone"])
+def test_chip_smoke_fails_without_card_or_repo(tmp_path, alone):
+    script = os.path.join(REPO, "chip_smoke.py")
+    cwd = REPO
+    if alone:
+        cwd = str(tmp_path)
+        shutil.copy(script, cwd)
+        script = os.path.join(cwd, "chip_smoke.py")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, script], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
