@@ -16,6 +16,12 @@ Batch = Tuple[Any, Dict[str, Any], Dict[str, Any]]
 
 
 class BaseDataModule:
+    #: subclasses that generate infinite train streams say so (the trainer
+    #: then bounds an epoch when ``limit_train_batches`` is not given)
+    @classmethod
+    def uses_infinite_train_set(cls) -> bool:
+        return False
+
     def __init__(self,
                  batch_size: int = 64,
                  clip_length: int = 30,
@@ -41,3 +47,27 @@ class BaseDataModule:
 
     def test_batches(self) -> Iterator[Batch]:
         raise NotImplementedError
+
+    # -- sizes (None = unknown/infinite) ----------------------------------
+    @property
+    def train_set_size(self) -> Optional[int]:
+        return None
+
+    @property
+    def val_set_size(self) -> Optional[int]:
+        return None
+
+    @property
+    def test_set_size(self) -> Optional[int]:
+        return None
+
+    @property
+    def hparams(self) -> Dict[str, Any]:
+        return {
+            "data_module_name": type(self).__name__,
+            "batch_size": self.batch_size,
+            "clip_length": self.clip_length,
+            "data_nodes": self.data_nodes.__name__,
+            "input_nodes": self.input_nodes.__name__,
+            "transform": self.transform,
+        }

@@ -153,6 +153,10 @@ class Carla2D3DDataModule(BaseDataModule):
     """Infinite synthetic train stream + fixed-seed val/test sets, generated
     on the datamodule's device."""
 
+    @classmethod
+    def uses_infinite_train_set(cls) -> bool:
+        return True
+
     def __init__(self, val_set_size: int = 64, test_set_size: int = 64,
                  random_changes_each_frame: int = 3,
                  max_change_in_deg: float = 5.0,
@@ -209,3 +213,12 @@ class Carla2D3DDataModule(BaseDataModule):
     @property
     def test_set_size(self):
         return max(1, self._test_size // self.batch_size) * self.batch_size
+
+    @property
+    def hparams(self):
+        return {**super().hparams,
+                "random_changes_each_frame": self.config.random_changes_each_frame,
+                "max_change_in_deg": self.config.max_change_in_deg,
+                "noise": self.config.noise,
+                "missing_joint_probabilities":
+                    list(self.config.missing_joint_probabilities)}

@@ -1,5 +1,6 @@
 """Pose-lifting flow: 2D clip -> movements model -> FK + projection -> 2D/3D
-losses (reference ``modules/flow/pose_lifting.py:25-195``). Eval half only."""
+losses (reference ``modules/flow/pose_lifting.py:25-195``). The metrics of
+the JAX flow (``get_metrics``) are not ported yet."""
 from ..ops import normalization as N
 from ..ops.kinematics import world_from_changes
 from ..ops.projection import ProjectionModule, projection_state_for
@@ -14,6 +15,12 @@ class PoseLiftingFlow(BaseFlow):
             trajectory_output_type=self.trajectory_model.output_type,
             kernel=self.projection_kernel,
         )
+
+    @property
+    def crucial_keys(self):
+        return [self.outputs_key, "relative_pose_loc", "relative_pose_rot",
+                "absolute_pose_loc", "absolute_pose_rot",
+                "world_loc", "world_rot"]
 
     def _inner_step(self, params, batch, training):
         inputs, targets, meta = batch

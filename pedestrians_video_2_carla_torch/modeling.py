@@ -1,0 +1,143 @@
+"""Command line for the ported path, with the JAX package's flag names:
+
+    python -m pedestrians_video_2_carla_torch --flow=pose_lifting --mode=train \
+        --data_module_name=Carla2D3D --movements_model_name=LinearAE \
+        --loss_modes loc_2d_3d --projection_kernel fused_train ...
+
+Logs and checkpoints go to ``<root_dir>/logs/<flow>/<run_name>/``. It runs
+on the card unless ``--device cpu`` is given. A flow, data module, model,
+mode or loss that the JAX package has but the port does not yet raises
+``NotImplementedError`` naming ``ROADMAP.md``.
+"""
+import argparse
+import os
+import sys
+import time
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from .data.carla.carla_2d3d import Carla2D3DDataModule
+from .flows.pose_lifting import PoseLiftingFlow
+from .losses import LossModes
+from .models.base import OptimizerSettings
+from .models.movements import MOVEMENTS_MODELS
+from .ops.projection import KERNELS
+from .training.trainer import Trainer, TrainerConfig
+
+DEFAULT_SEED = 22742
+
+FLOWS = {"pose_lifting": PoseLiftingFlow}
+DATA_MODULES = {"Carla2D3D": Carla2D3DDataModule}
+MODES = ("train", "test")
+
+
+def boolean(v) -> bool:
+    """The JAX CLI's boolean flag values: yes/true/t/y/1, no/false/f/n/0."""
+    if str(v).lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if str(v).lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError(f"Boolean value expected, got {v!r}.")
+
+
+def _ported(kind: str, name: str, available) -> None:
+    if name not in available:
+        raise NotImplementedError(
+            f"{kind} {name!r} is not ported to PyTorch yet (ported: "
+            f"{sorted(available)}; see ROADMAP.md)")
+
+
+def make_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="pedestrians_video_2_carla_torch",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    parser.add_argument("--flow", default="pose_lifting")
+    parser.add_argument("--mode", default="train")
+    parser.add_argument("--data_module_name", default="Carla2D3D")
+    parser.add_argument("--movements_model_name", default="LinearAE")
+    parser.add_argument("--seed", type=int, default=DEFAULT_SEED)
+    parser.add_argument("--root_dir", default="outputs")
+    parser.add_argument("--run_name", default=None)
+    parser.add_argument("--ckpt_path", default=None)
+    parser.add_argument("--device", default=None,
+                        help="cuda (the default) or cpu")
+
+    group = parser.add_argument_group("Trainer")
+    group.add_argument("--max_epochs", type=int, default=1)
+    group.add_argument("--limit_train_batches", type=int, default=None)
+    group.add_argument("--limit_val_batches", type=int, default=None)
+    group.add_argument("--limit_test_batches", type=int, default=None)
+    group.add_argument("--log_every_n_steps", type=int, default=50)
+    group.add_argument("--detect_anomaly", type=boolean, nargs="?",
+                       const=True, default=False)
+
+    group = parser.add_argument_group("DataModule")
+    group.add_argument("--batch_size", type=int, default=64)
+    group.add_argument("--clip_length", type=int, default=30)
+    group.add_argument("--val_set_size", type=int, default=64)
+    group.add_argument("--test_set_size", type=int, default=64)
+
+    group = parser.add_argument_group("Flow")
+    group.add_argument("--loss_modes", nargs="+", default=[])
+    group.add_argument("--projection_kernel", default="plain",
+                       choices=list(KERNELS),
+                       help="plain = PyTorch ops (JAX 'xla'); fused = the "
+                            "serving CUDA kernel (JAX 'pallas'); fused_train "
+                            "= the training CUDA kernels, forward and "
+                            "backward (JAX 'pallas_train')")
+
+    group = parser.add_argument_group("movements optimizer")
+    group.add_argument("--movements_lr", type=float, default=None)
+    return parser
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+    args = make_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    _ported("flow", args.flow, FLOWS)
+    _ported("mode", args.mode, MODES)
+    _ported("data module", args.data_module_name, DATA_MODULES)
+    _ported("movements model", args.movements_model_name, MOVEMENTS_MODELS)
+    for mode in args.loss_modes:
+        _ported("loss mode", mode, LossModes.__members__)
+
+    config = TrainerConfig(
+        max_epochs=args.max_epochs,
+        limit_train_batches=args.limit_train_batches,
+        limit_val_batches=args.limit_val_batches,
+        limit_test_batches=args.limit_test_batches,
+        log_every_n_steps=args.log_every_n_steps,
+        seed=args.seed,
+        logs_dir=os.path.join(args.root_dir, "logs", args.flow),
+        run_name=args.run_name or f"{args.data_module_name}-"
+                                  f"{time.strftime('%Y%m%d-%H%M%S')}",
+        detect_anomaly=args.detect_anomaly,
+        device=args.device)
+
+    model = MOVEMENTS_MODELS[args.movements_model_name](
+        generator=torch.Generator().manual_seed(args.seed))
+    flow = FLOWS[args.flow](
+        model, loss_modes=args.loss_modes,
+        movements_optimizer=OptimizerSettings.from_kwargs("movements",
+                                                          vars(args)),
+        projection_kernel=args.projection_kernel, device=args.device)
+    dm = DATA_MODULES[args.data_module_name](
+        batch_size=args.batch_size, clip_length=args.clip_length,
+        val_set_size=args.val_set_size, test_set_size=args.test_set_size,
+        seed=args.seed, device=args.device)
+    trainer = Trainer(flow, dm, config)
+
+    results: Dict[str, Any] = {"trainer": trainer, "flow": flow, "dm": dm}
+    if args.ckpt_path:
+        trainer.restore(args.ckpt_path, weights_only=(args.mode != "train"))
+    if args.mode == "train":
+        trainer.fit()
+        results["val_metrics"] = trainer.evaluate(
+            "val", config.limit_val_batches)
+    else:
+        results["test_metrics"] = trainer.test()
+    return results
+
+
+def run():
+    main()

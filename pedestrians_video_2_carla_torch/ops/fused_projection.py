@@ -1,29 +1,41 @@
-"""Fused pose-changes -> FK -> camera projection: the CUDA kernel of
-``csrc/fused_projection.cu``, its plain PyTorch version, and the autograd
-wrapper around both.
+"""Fused pose-changes -> FK -> camera projection: the CUDA kernels of
+``csrc/fused_projection.cu`` (forward only, for serving) and
+``csrc/fused_projection_train.cu`` (a forward and a hand-written backward,
+for training), their plain PyTorch versions, and the autograd wrappers.
 
-The kernel replaces the TPU kernel ``_kernel`` of the JAX package's
-``ops/pallas/fused_projection.py`` (``fused_projection_pallas``). On an H100
-it is bound by memory: about 21.7 MB at B=1024, L=16, 6.5 us at 3.35 TB/s.
-Its design (one warp per clip, a lane per bone, the FK walked level by level
-through shared memory) is described in the source.
+The kernels replace the TPU kernels of the JAX package's
+``ops/pallas/fused_projection.py``:
+  * ``fused_projection_cuda`` replaces ``_kernel`` (``fused_projection_pallas``);
+  * ``fused_projection_train_cuda_fwd`` replaces ``_fwd_train_kernel``
+    (``_train_fwd_slabs``);
+  * ``fused_projection_train_cuda_bwd`` replaces ``_bwd_train_kernel``
+    (``_train_bwd``).
+On an H100 memory bounds all three: at B=1024, L=16 they move about 21.7,
+42.2 and 58.8 MB (6.5, 12.6 and 17.5 us at 3.35 TB/s). Their design (one warp
+per clip, a lane per bone, the FK walked level by level through shared
+memory) is described in the sources.
 
-``fused_projection`` launches the kernel for CUDA tensors and runs the plain
-version for CPU tensors; there is no fallback from one to the other. Its
-backward re-runs the plain version under autograd, exactly as the JAX
-package's custom VJP does.
+``fused_projection`` and ``fused_projection_train`` launch the kernels for
+CUDA tensors and run the plain versions for CPU tensors; there is no
+fallback from one to the other. ``fused_projection``'s backward re-runs the
+plain version under autograd, as the JAX package's custom VJP does;
+``fused_projection_train``'s backward is the backward kernel on the card and
+autograd of the plain version on the CPU.
 
-The library is built with ``nvcc`` at first use, from the checkout's own
-source, into ``build/torch_kernels/`` beside the package, keyed by a hash of
-the source and the flags (an edited ``.cu`` rebuilds).
+Each library is built with ``nvcc`` at first use, from the checkout's own
+source, into ``build/torch_kernels/`` beside the package, keyed by the
+source's name and a hash of the source and the flags (an edited ``.cu``
+rebuilds).
 """
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,16 +44,19 @@ from ..skeletons.carla import BONE_DEPTHS, PARENTS
 from . import camera as C
 from . import kinematics as K
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fused_projection.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_SOURCE = _CSRC / "fused_projection.cu"
+_TRAIN_SOURCE = _CSRC / "fused_projection_train.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: the tree, as the kernel's C interface takes it
+#: the tree, as the kernels' C interface takes it
 _PARENTS = np.ascontiguousarray(PARENTS, dtype=np.int32)
 _DEPTHS = np.ascontiguousarray(BONE_DEPTHS, dtype=np.int32)
 
-_lib = None
+#: loaded libraries: "serve" and "train"
+_libs = {}
 
 
 def _nvcc() -> str:
@@ -53,22 +68,25 @@ def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
         raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build csrc/fused_projection.cu")
+                           "build the kernels of csrc/")
     return path
 
 
-def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
+def library_path(source: Optional[Path] = None) -> Path:
+    """Where the library for ``source`` (default: the serving kernel's) and
+    the current flags lives."""
+    source = _SOURCE if source is None else source
     digest = hashlib.sha256(
-        _SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"fused_projection-{digest[:16]}.so"
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
 
 
-def build_library() -> Path:
-    """Compile the kernel library unless this source's build exists. The
-    compiler's output (``-Xptxas -v``: registers, shared memory, spills) is
-    kept beside it as ``.log``. Raises on any failure."""
-    path = library_path()
+def build_library(source: Optional[Path] = None) -> Path:
+    """Compile ``source`` (default: the serving kernel's) unless its build
+    exists. The compiler's output (``-Xptxas -v``: registers, shared memory,
+    spills) is kept beside it as ``.log``. Raises on any failure."""
+    source = _SOURCE if source is None else source
+    path = library_path(source)
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -76,7 +94,7 @@ def build_library() -> Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
             capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             raise RuntimeError(
@@ -89,17 +107,32 @@ def build_library() -> Path:
     return path
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        fn = lib.pv2c_fused_projection
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 \
-            + [ctypes.c_void_p] * 2 + [ctypes.c_int] \
-            + [ctypes.c_void_p] * 2
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+#: each library's C functions and their argument types
+_SIGNATURES = {
+    "serve": {
+        "pv2c_fused_projection":
+            [_PTR] * 4 + [_INT] * 2 + [_PTR] * 2 + [_INT] + [_PTR] * 2},
+    "train": {
+        "pv2c_fused_projection_train_fwd":
+            [_PTR] * 6 + [_INT] * 2 + [_PTR] * 2 + [_INT] + [_PTR] * 2,
+        "pv2c_fused_projection_train_bwd":
+            [_PTR] * 9 + [_INT] * 2 + [_PTR] * 2 + [_INT] + [_PTR] * 2},
+}
+
+
+def _library(which: str):
+    """The loaded library of the serving (``"serve"``) or the training
+    (``"train"``) kernels, built at first use."""
+    if which not in _libs:
+        source = {"serve": _SOURCE, "train": _TRAIN_SOURCE}[which]
+        lib = ctypes.CDLL(str(build_library(source)))
+        for name, argtypes in _SIGNATURES[which].items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _libs[which] = lib
+    return _libs[which]
 
 
 def _check_inputs(pose_changes, rel_loc, rel_rot):
@@ -125,37 +158,50 @@ def _check_inputs(pose_changes, rel_loc, rel_rot):
                              f"{pose_changes.device}")
 
 
+def _check_cuda(fn_name: str, **tensors) -> None:
+    """A kernel takes contiguous float32 tensors on one CUDA device."""
+    device = next(iter(tensors.values())).device
+    if device.type != "cuda":
+        raise ValueError(f"{fn_name} needs CUDA tensors, got {device}")
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, not {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(fn, device: torch.device, *args) -> None:
+    """Call a C launcher on the current stream of ``device``: tensor
+    arguments go as device pointers, then the tree and the camera."""
+    *tensors, B, L, camera = args
+    consts = (ctypes.c_float * 18)(*camera.constants())
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(t.data_ptr() for t in tensors), B, L,
+                 _PARENTS.ctypes.data, _DEPTHS.ctypes.data, len(_PARENTS),
+                 ctypes.cast(consts, ctypes.c_void_p), stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+
+
 def fused_projection_cuda(pose_changes: torch.Tensor, rel_loc: torch.Tensor,
                           rel_rot: torch.Tensor,
                           camera: C.PinholeCamera) -> torch.Tensor:
-    """Launch the CUDA kernel: (B, L, J, 3, 3), (B, J, 3), (B, J, 3, 3)
+    """Launch the serving kernel: (B, L, J, 3, 3), (B, J, 3), (B, J, 3, 3)
     float32 contiguous CUDA tensors -> (B, L, J, 3). Adds one to
     ``fused_projection_cuda.launches`` per launch."""
     _check_inputs(pose_changes, rel_loc, rel_rot)
-    if pose_changes.device.type != "cuda":
-        raise ValueError("fused_projection_cuda needs CUDA tensors, got "
-                         f"{pose_changes.device}")
-    for name, t in (("pose_changes", pose_changes), ("rel_loc", rel_loc),
-                    ("rel_rot", rel_rot)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_cuda("fused_projection_cuda", pose_changes=pose_changes,
+                rel_loc=rel_loc, rel_rot=rel_rot)
     B, L, J = pose_changes.shape[:3]
     out = torch.empty((B, L, J, 3), dtype=torch.float32,
                       device=pose_changes.device)
     if out.numel() == 0:
         return out
-    lib = _library()
-    consts = (ctypes.c_float * 18)(*camera.constants())
-    with torch.cuda.device(pose_changes.device):
-        stream = torch.cuda.current_stream(pose_changes.device).cuda_stream
-        err = lib.pv2c_fused_projection(
-            pose_changes.data_ptr(), rel_loc.data_ptr(), rel_rot.data_ptr(),
-            out.data_ptr(), B, L,
-            _PARENTS.ctypes.data, _DEPTHS.ctypes.data, J,
-            ctypes.cast(consts, ctypes.c_void_p), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_projection kernel launch failed: CUDA "
-                           f"error {err}")
+    _launch(_library("serve").pv2c_fused_projection, pose_changes.device,
+            pose_changes, rel_loc, rel_rot, out, B, L, camera)
     fused_projection_cuda.launches += 1
     return out
 
@@ -204,3 +250,139 @@ def fused_projection(pose_changes: torch.Tensor, rel_loc: torch.Tensor,
     """(B, L, 26, 3, 3), (B, 26, 3), (B, 26, 3, 3) float32 -> projections
     (B, L, 26, 3) = (x_screen, y_screen, depth)."""
     return FusedProjection.apply(pose_changes, rel_loc, rel_rot, camera)
+
+
+# ---------------------------------------------------------------------------
+# Training: kernel forward AND kernel backward.
+#
+# The forward also writes the absolute pose locations (so the 3D losses need
+# no other FK) and the carried relative rotation of every frame (the
+# backward's residuals). The backward is the hand-written transpose: frames
+# in reverse carrying the rotation cotangent, FK replayed per frame from the
+# stored state, the tree walked deepest level first.
+# ---------------------------------------------------------------------------
+
+def fused_projection_train_reference(pose_changes, rel_loc, rel_rot,
+                                     camera: C.PinholeCamera
+                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version: ``(proj, abs_loc)``, each (B, L, J, 3).
+    Its backward is plain autograd."""
+    _, abs_loc, _ = K.relative_pose_over_clip(pose_changes, rel_loc, rel_rot)
+    return C.project_pose(camera, abs_loc), abs_loc
+
+
+def fused_projection_train_cuda_fwd(pose_changes: torch.Tensor,
+                                    rel_loc: torch.Tensor,
+                                    rel_rot: torch.Tensor,
+                                    camera: C.PinholeCamera
+                                    ) -> Tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+    """Launch the training forward kernel: (B, L, J, 3, 3), (B, J, 3),
+    (B, J, 3, 3) float32 contiguous CUDA tensors -> ``(proj (B, L, J, 3),
+    abs_loc (B, L, J, 3), states (B, L, J, 9))``. Adds one to
+    ``fused_projection_train_cuda_fwd.launches`` per launch."""
+    _check_inputs(pose_changes, rel_loc, rel_rot)
+    _check_cuda("fused_projection_train_cuda_fwd", pose_changes=pose_changes,
+                rel_loc=rel_loc, rel_rot=rel_rot)
+    B, L, J = pose_changes.shape[:3]
+    empty = functools.partial(torch.empty, dtype=torch.float32,
+                              device=pose_changes.device)
+    proj, abs_loc, states = empty((B, L, J, 3)), empty((B, L, J, 3)), \
+        empty((B, L, J, 9))
+    if proj.numel() == 0:
+        return proj, abs_loc, states
+    _launch(_library("train").pv2c_fused_projection_train_fwd,
+            pose_changes.device, pose_changes, rel_loc, rel_rot,
+            proj, abs_loc, states, B, L, camera)
+    fused_projection_train_cuda_fwd.launches += 1
+    return proj, abs_loc, states
+
+
+fused_projection_train_cuda_fwd.launches = 0
+
+
+def fused_projection_train_cuda_bwd(pose_changes: torch.Tensor,
+                                    rel_loc: torch.Tensor,
+                                    rel_rot: torch.Tensor,
+                                    states: torch.Tensor,
+                                    g_proj: torch.Tensor,
+                                    g_abs: torch.Tensor,
+                                    camera: C.PinholeCamera
+                                    ) -> Tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+    """Launch the training backward kernel on the forward's inputs, its
+    ``states`` and the cotangents of ``proj`` and ``abs_loc`` (all float32
+    contiguous CUDA tensors) -> ``(d_pose_changes (B, L, J, 3, 3),
+    d_rel_loc (B, J, 3), d_rel_rot (B, J, 3, 3))``. Adds one to
+    ``fused_projection_train_cuda_bwd.launches`` per launch."""
+    _check_inputs(pose_changes, rel_loc, rel_rot)
+    B, L, J = pose_changes.shape[:3]
+    for name, t, shape in (("states", states, (B, L, J, 9)),
+                           ("g_proj", g_proj, (B, L, J, 3)),
+                           ("g_abs", g_abs, (B, L, J, 3))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    _check_cuda("fused_projection_train_cuda_bwd", pose_changes=pose_changes,
+                rel_loc=rel_loc, rel_rot=rel_rot, states=states,
+                g_proj=g_proj, g_abs=g_abs)
+    d_changes = torch.empty_like(pose_changes)
+    if d_changes.numel() == 0:
+        return d_changes, torch.zeros_like(rel_loc), torch.zeros_like(rel_rot)
+    d_rel_loc, d_rel_rot = torch.empty_like(rel_loc), torch.empty_like(rel_rot)
+    _launch(_library("train").pv2c_fused_projection_train_bwd,
+            pose_changes.device, pose_changes, rel_loc, rel_rot, states,
+            g_proj, g_abs, d_changes, d_rel_loc, d_rel_rot, B, L, camera)
+    fused_projection_train_cuda_bwd.launches += 1
+    return d_changes, d_rel_loc, d_rel_rot
+
+
+fused_projection_train_cuda_bwd.launches = 0
+
+
+class FusedProjectionTrain(torch.autograd.Function):
+    """Kernel forward and kernel backward (CUDA), or the plain forward and
+    autograd of it (CPU), as the JAX package's ``fused_projection_train``
+    custom VJP."""
+
+    @staticmethod
+    def forward(ctx, pose_changes, rel_loc, rel_rot, camera):
+        _check_inputs(pose_changes, rel_loc, rel_rot)
+        # an output that no loss used gets a zero cotangent, not None
+        ctx.set_materialize_grads(True)
+        ctx.camera = camera
+        inputs = tuple(t.contiguous()
+                       for t in (pose_changes, rel_loc, rel_rot))
+        if pose_changes.device.type == "cuda":
+            proj, abs_loc, states = fused_projection_train_cuda_fwd(
+                *inputs, camera)
+            ctx.save_for_backward(*inputs, states)
+            return proj, abs_loc
+        if pose_changes.device.type != "cpu":
+            raise ValueError(
+                f"fused_projection_train runs on cuda or cpu, not "
+                f"{pose_changes.device}")
+        ctx.save_for_backward(*inputs)
+        return fused_projection_train_reference(*inputs, camera)
+
+    @staticmethod
+    def backward(ctx, g_proj, g_abs):
+        saved = ctx.saved_tensors
+        if saved[0].device.type == "cuda":
+            grads = fused_projection_train_cuda_bwd(
+                *saved, g_proj.contiguous(), g_abs.contiguous(), ctx.camera)
+        else:
+            inputs = [t.detach().requires_grad_(True) for t in saved]
+            with torch.enable_grad():
+                outs = fused_projection_train_reference(*inputs, ctx.camera)
+                grads = torch.autograd.grad(outs, inputs, (g_proj, g_abs))
+        return (*grads, None)
+
+
+def fused_projection_train(pose_changes: torch.Tensor, rel_loc: torch.Tensor,
+                           rel_rot: torch.Tensor, camera: C.PinholeCamera
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Trainable fused FK + projection: (B, L, 26, 3, 3), (B, 26, 3),
+    (B, 26, 3, 3) float32 -> ``(projections (B, L, 26, 3), abs_loc
+    (B, L, 26, 3))``: the screen projections and the absolute pose
+    locations (P3D pose space), both tensors the 2D + 3D losses consume."""
+    return FusedProjectionTrain.apply(pose_changes, rel_loc, rel_rot, camera)

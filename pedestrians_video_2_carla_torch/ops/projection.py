@@ -3,8 +3,12 @@ placement -> 2D screen projection, batched over (batch, frame).
 
 ``kernel="plain"`` is the JAX package's ``"xla"``: PyTorch ops on component
 planes. ``kernel="fused"`` is its ``"pallas"``: the projections of the
-pose_changes output with an identity world track go through the CUDA kernel
-of ``ops/fused_projection.py``. The other outputs (absolute pose, rotations)
+pose_changes output with an identity world track go through the serving
+CUDA kernel of ``ops/fused_projection.py``. ``kernel="fused_train"`` is its
+``"pallas_train"``: on that same path the projections AND the absolute pose
+locations come from the training kernels (forward and hand-written
+backward), so the 2D and 3D losses' gradients both run through the backward
+kernel. The other outputs (rotations, and for ``"fused"`` the absolute pose)
 still come from the plane path, which runs eagerly here; under ``jit`` the
 JAX package drops whatever the caller does not consume.
 """
@@ -18,11 +22,11 @@ from ..flows.output_types import (MovementsModelOutputType,
 from ..skeletons.carla import reference_poses_tensor
 from . import camera as C
 from . import kinematics as K
-from .fused_projection import fused_projection
+from .fused_projection import fused_projection, fused_projection_train
 from .kinematics import _pack9, _unpack9
 from .reference_skeletons import denormalize_from_abs
 
-KERNELS = ("plain", "fused")
+KERNELS = ("plain", "fused", "fused_train")
 
 
 class ProjectionState(NamedTuple):
@@ -63,10 +67,6 @@ class ProjectionModule:
         self.movements_output_type = movements_output_type
         self.trajectory_output_type = trajectory_output_type
         self.camera = camera if camera is not None else C.make_camera()
-        if kernel == "pallas_train":
-            raise NotImplementedError(
-                "the trainable fused kernel (JAX 'pallas_train') is not "
-                "ported yet")
         if kernel not in KERNELS:
             raise ValueError(f"unknown projection kernel {kernel!r}; "
                              f"expected one of {KERNELS}")
@@ -141,8 +141,14 @@ class ProjectionModule:
         w_loc = None if identity_world else world_loc
         w_rot = None if identity_world else world_rot
 
-        if (self.kernel == "fused" and identity_world
-                and mot == MovementsModelOutputType.pose_changes):
+        kernel_path = (identity_world
+                       and mot == MovementsModelOutputType.pose_changes)
+        if self.kernel == "fused_train" and kernel_path:
+            # the kernel's abs_loc replaces the plane path's, so loc_3d's
+            # gradient runs through the backward kernel as well
+            projections, absolute_loc = fused_projection_train(
+                pose_inputs, state.rel_loc, state.rel_rot, self.camera)
+        elif self.kernel == "fused" and kernel_path:
             projections = fused_projection(
                 pose_inputs, state.rel_loc, state.rel_rot, self.camera)
         elif abs_loc_planes is not None:

@@ -1,0 +1,117 @@
+"""Checkpointing: best-so-far saving and resume, with the JAX package's
+layout (``ModelCheckpoint(monitor='val_loss/primary', mode=min,
+save_top_k=1)`` in the reference): ``best-step<N>.pt`` for the lowest
+``val_loss/primary``, ``best.json`` naming it with that value, and
+``last.pt``.
+
+An archive is the port's own format: ``torch.save`` of ``{"params",
+"optimizer", "step"}`` (the parameter dict, the optimizer's
+``state_dict()`` and the step count), loaded with ``weights_only=True``.
+Saves are synchronous: the host copy and the file write finish before
+``save`` returns. Every file is written to a temporary name and
+``os.replace``d into place, so a crash never leaves a torn checkpoint.
+"""
+import json
+import os
+from typing import Dict, Optional
+
+import torch
+
+from ..flows.base import FlowState
+
+SUFFIX = ".pt"
+#: the metric whose lowest value makes the best checkpoint
+MONITOR = "val_loss/primary"
+
+
+def _snapshot(state: FlowState) -> Dict:
+    """A host copy of everything a resumed run needs."""
+    return {"params": {name: {k: v.detach().cpu().clone()
+                              for k, v in tree.items()}
+                       for name, tree in state.params.items()},
+            "optimizer": _to_cpu(state.optimizer.state_dict()),
+            "step": int(state.step)}
+
+
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().clone()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def _write(path: str, obj) -> None:
+    """Atomic write: temp file + rename."""
+    tmp = path + ".tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+class CheckpointManager:
+    def __init__(self, dirpath: str):
+        self.dirpath = dirpath
+        self.best_value: Optional[float] = None
+        self.best_path: Optional[str] = None
+        os.makedirs(dirpath, exist_ok=True)
+
+    def wait(self) -> None:
+        """Saves are synchronous: nothing is ever pending."""
+
+    def save(self, state: FlowState, metrics: Dict[str, float],
+             step: int) -> bool:
+        """End-of-validation save: ``last``, and ``best`` when
+        ``val_loss/primary`` fell (``save_top_k=1``: the previous best is
+        removed). Returns whether a new best was saved."""
+        snapshot = _snapshot(state)
+        value = metrics.get(MONITOR)
+        improved = value is not None and (self.best_value is None
+                                          or value < self.best_value)
+        if improved:
+            prev = self.best_path
+            self.best_value = float(value)
+            self.best_path = os.path.join(self.dirpath, f"best-step{step}")
+            # the new best first: a failed write leaves the previous best
+            # (and its best.json) intact
+            _write(self.best_path + SUFFIX, snapshot)
+            meta_tmp = os.path.join(self.dirpath, "best.json.tmp")
+            with open(meta_tmp, "w") as f:
+                json.dump({"path": self.best_path, "step": step,
+                           MONITOR: self.best_value}, f)
+            os.replace(meta_tmp, os.path.join(self.dirpath, "best.json"))
+            if prev and prev != self.best_path \
+                    and os.path.exists(prev + SUFFIX):
+                os.remove(prev + SUFFIX)
+        _write(os.path.join(self.dirpath, "last") + SUFFIX, snapshot)
+        return improved
+
+    def restore(self, state: FlowState, path: Optional[str] = None,
+                weights_only: bool = False) -> FlowState:
+        """Load a checkpoint (default: the best) into ``state``,
+        in place: the parameters, and unless ``weights_only`` the optimizer
+        state and the step count. ``path`` may name the archive with or
+        without its ``.pt``."""
+        if path is None:
+            with open(os.path.join(self.dirpath, "best.json")) as f:
+                path = json.load(f)["path"]
+        if not path.endswith(SUFFIX):
+            path = path + SUFFIX
+        data = torch.load(path, map_location="cpu", weights_only=True)
+        if set(data["params"]) != set(state.params):
+            raise ValueError(f"{path}: models {sorted(data['params'])}, "
+                             f"expected {sorted(state.params)}")
+        with torch.no_grad():
+            for name, tree in state.params.items():
+                loaded = data["params"][name]
+                if set(loaded) != set(tree):
+                    raise ValueError(
+                        f"{path}: {name} holds {sorted(loaded)}, expected "
+                        f"{sorted(tree)}")
+                for k, v in tree.items():
+                    v.copy_(loaded[k])
+        if not weights_only:
+            state.optimizer.load_state_dict(data["optimizer"])
+            state.step = int(data["step"])
+        return state

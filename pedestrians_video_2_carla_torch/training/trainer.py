@@ -1,0 +1,194 @@
+"""Training loop on one card: the flow's train step over a datamodule's
+batches, validation with checkpointing on ``val_loss/primary``, and scalar
+logging (the JAX package's ``training/trainer.py``, streamed epoch only).
+
+The port has no mesh, no host->device prefetcher (Carla2D3D batches are
+made on the card), no device-resident scan and no video logger. Logs stay
+on the device between log intervals; the host synchronises once per log
+interval and once per evaluation pass.
+"""
+import itertools
+import json
+import math
+import os
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..flows.base import BaseFlow, FlowState
+from ..utils.device import DeviceLike, resolve_device
+from .checkpoint import CheckpointManager
+from .loggers import MetricsLogger
+
+
+@dataclass
+class TrainerConfig:
+    max_epochs: int = 1
+    limit_train_batches: Optional[int] = None
+    limit_val_batches: Optional[int] = None
+    limit_test_batches: Optional[int] = None
+    log_every_n_steps: int = 50
+    check_val_every_n_epoch: int = 1
+    seed: int = 22742
+    logs_dir: str = "outputs/logs"
+    run_name: str = "run"
+    #: Lightning's --detect_anomaly: at every log interval, abort with a
+    #: report if a logged loss or a parameter is not finite
+    detect_anomaly: bool = False
+    #: the card unless the caller asks for the CPU (``"cpu"``); the flow and
+    #: the datamodule must be on the same device
+    device: DeviceLike = None
+
+
+def _to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Scalar tensors -> floats, in one device->host copy."""
+    if not tensors:
+        return {}
+    values = torch.stack([v.detach().float().reshape(())
+                          for v in tensors.values()]).tolist()
+    return dict(zip(tensors, values))
+
+
+class Trainer:
+    def __init__(self, flow: BaseFlow, datamodule, config: TrainerConfig):
+        self.device = resolve_device(config.device)
+        for name, obj in (("flow", flow), ("datamodule", datamodule)):
+            if obj.device != self.device:
+                raise ValueError(f"the {name} is on {obj.device}, the "
+                                 f"trainer on {self.device}")
+        self.flow = flow
+        self.dm = datamodule
+        self.config = config
+        self.state: Optional[FlowState] = None
+        self.log_dir = os.path.join(config.logs_dir, config.run_name)
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.logger = MetricsLogger(self.log_dir)
+        self.checkpoints = CheckpointManager(
+            os.path.join(self.log_dir, "checkpoints"))
+
+    def _init_state(self) -> None:
+        if self.state is None:  # keep a state restored via --ckpt_path
+            self.state = self.flow.init_state()
+
+    def _resolve_train_batches(self) -> Optional[int]:
+        """Steps per epoch: ``limit_train_batches``, or for an infinite
+        train stream four validation sets' worth of batches."""
+        limit = self.config.limit_train_batches
+        if limit is None and self.dm.uses_infinite_train_set():
+            val_size = self.dm.val_set_size or self.dm.batch_size
+            limit = int(math.ceil(4 * val_size / self.dm.batch_size))
+        return limit
+
+    # ------------------------------------------------------------------
+    def fit(self) -> FlowState:
+        self._init_state()
+        counts = self.flow.param_counts(self.state)
+        print("  | model      | params\n  " + "\n  ".join(
+            f"| {k:<10} | {v:,}" for k, v in counts.items()))
+        self.logger.log_hparams({
+            **self.dm.hparams, **{f"params/{k}": v for k, v in counts.items()}})
+
+        limit = self._resolve_train_batches()
+        global_step = 0
+        summary: Dict[str, Any] = {}
+        for epoch in range(self.config.max_epochs):
+            epoch_start = time.perf_counter()
+            last_logs, global_step = self._fit_epoch_streamed(
+                limit, global_step, epoch)
+            summary = {"epoch": epoch,
+                       "epoch_time_s": time.perf_counter() - epoch_start}
+            if last_logs is not None:
+                summary.update(_to_host(last_logs))
+            if (epoch + 1) % self.config.check_val_every_n_epoch == 0:
+                val_metrics = self.evaluate("val",
+                                            self.config.limit_val_batches)
+                summary.update(val_metrics)
+                self.checkpoints.save(self.state, val_metrics,
+                                      step=global_step)
+            self.logger.log_scalars(global_step, summary)
+        self.checkpoints.wait()
+        return self.state
+
+    def _fit_epoch_streamed(self, limit, global_step: int, epoch: int):
+        """One train step per batch of the datamodule's stream. Only the
+        latest step's logs are kept, on the device."""
+        train_iter = self.dm.train_batches(self.config.seed + epoch)
+        if limit is not None:
+            train_iter = itertools.islice(train_iter, limit)
+        last_logs = None
+        for batch in train_iter:
+            self.state, logs = self.flow.training_step(self.state, batch)
+            global_step += 1
+            last_logs = logs
+            if global_step % self.config.log_every_n_steps == 0:
+                host_logs = _to_host(logs)
+                self.logger.log_scalars(
+                    global_step,
+                    {**host_logs, **self.flow.current_lrs(self.state)})
+                if self.config.detect_anomaly:
+                    self._check_anomaly(host_logs, global_step)
+        return last_logs, global_step
+
+    def _check_anomaly(self, host_logs: Dict[str, float],
+                       global_step: int) -> None:
+        """--detect_anomaly: abort with a report when a logged loss or any
+        parameter is not finite (a masked loss can look finite while the
+        parameters are already NaN)."""
+        bad_losses = [k for k, v in host_logs.items() if not math.isfinite(v)]
+        bad_params = [f"{name}.{k}"
+                      for name, tree in self.state.params.items()
+                      for k, v in tree.items()
+                      if not bool(torch.isfinite(v).all())]
+        if not bad_losses and not bad_params:
+            return
+        report = {"step": global_step, "non_finite_losses": bad_losses,
+                  "non_finite_params": bad_params[:50]}
+        with open(os.path.join(self.log_dir, "anomaly.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        raise RuntimeError(
+            f"detect_anomaly: non-finite at step {global_step}: "
+            f"losses={bad_losses} params={bad_params[:5]}"
+            f"{'...' if len(bad_params) > 5 else ''} "
+            f"(full report in {self.log_dir}/anomaly.json)")
+
+    # ------------------------------------------------------------------
+    def evaluate(self, stage: str = "val",
+                 limit: Optional[int] = None) -> Dict[str, float]:
+        """``<stage>_loss/<mode>`` averages over the val or test batches,
+        and ``<stage>_loss/primary``. The sums stay on the device; the host
+        reads them once at the end."""
+        self._init_state()
+        batches = self.dm.val_batches() if stage == "val" \
+            else self.dm.test_batches()
+        if limit is not None:
+            batches = itertools.islice(batches, limit)
+        loss_sums: Dict[str, torch.Tensor] = {}
+        count = 0
+        for batch in batches:
+            loss_dict, _, _ = self.flow.eval_step(self.state.params, batch)
+            for k, v in loss_dict.items():
+                loss_sums[k] = v if k not in loss_sums else loss_sums[k] + v
+            count += 1
+        results: Dict[str, float] = {}
+        if count:
+            for k, v in _to_host(loss_sums).items():
+                results[f"{stage}_loss/{k}"] = v / count
+            primary = next((f"{stage}_loss/{m.name}"
+                            for m in self.flow.requested_loss_modes
+                            if f"{stage}_loss/{m.name}" in results), None)
+            if primary:
+                results[f"{stage}_loss/primary"] = results[primary]
+        return results
+
+    def test(self) -> Dict[str, float]:
+        results = self.evaluate("test", self.config.limit_test_batches)
+        self.logger.log_scalars(-1, results)
+        return results
+
+    def restore(self, path: str, weights_only: bool = False) -> None:
+        """Load a checkpoint into the trainer's state; ``weights_only``
+        keeps a fresh optimizer state and step count."""
+        self._init_state()
+        self.checkpoints.restore(self.state, path, weights_only=weights_only)

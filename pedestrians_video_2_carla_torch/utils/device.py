@@ -13,10 +13,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     carrying on quietly on the CPU. The CPU is used only when asked for by
     name (``device="cpu"``), as the CPU tests do.
     """
-    if device is None:
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and device.index is None:
+        # name the card, so that devices compare equal however they were asked for
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run on "
                 "the CPU explicitly")
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device

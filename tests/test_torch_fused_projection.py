@@ -122,10 +122,11 @@ def test_kernel_wrapper_never_runs_on_the_cpu(rng):
 
 def test_projection_kernel_names():
     assert ProjectionModule(kernel="fused").kernel == "fused"
-    with pytest.raises(NotImplementedError):
-        ProjectionModule(kernel="pallas_train")
-    with pytest.raises(ValueError):
-        ProjectionModule(kernel="xla")
+    assert ProjectionModule(kernel="fused_train").kernel == "fused_train"
+    # the JAX package's names are not the port's
+    for jax_name in ("xla", "pallas", "pallas_train"):
+        with pytest.raises(ValueError):
+            ProjectionModule(kernel=jax_name)
 
 
 def test_library_path_follows_the_source(tmp_path, monkeypatch):
@@ -157,3 +158,41 @@ def test_cuda_kernel_matches_plain(rng, cuda_device, batch, clip):
     err = (out - ref).abs()
     assert float(err[..., :2].max()) <= 1e-3      # pixels
     assert float(err[..., 2].max()) <= 1e-4       # metres
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,clip", [(1024, 16), (1000, 16), (5, 16),
+                                        (64, 1), (5, 2)])
+def test_cuda_train_forward_matches_plain(rng, cuda_device, batch, clip):
+    args = tuple(t.to(cuda_device) for t in _t(*_inputs(rng, batch, clip)))
+    cam = TC.make_camera()
+    proj, abs_loc, states = FP.fused_projection_train_cuda_fwd(*args, cam)
+    ref_proj, ref_abs = FP.fused_projection_train_reference(*args, cam)
+    torch.cuda.synchronize()
+    err = (proj - ref_proj).abs()
+    assert float(err[..., :2].max()) <= 1e-3      # pixels
+    assert float(err[..., 2].max()) <= 1e-4       # metres
+    assert float((abs_loc - ref_abs).abs().max()) <= 1e-5
+    assert states.shape == (batch, clip, 26, 9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,clip", [(1024, 16), (1000, 16), (5, 16),
+                                        (64, 1), (5, 2)])
+def test_cuda_train_backward_matches_plain(rng, cuda_device, batch, clip):
+    args = tuple(t.to(cuda_device) for t in _t(*_inputs(rng, batch, clip)))
+    cam = TC.make_camera()
+    g_proj = torch.from_numpy(rng.standard_normal(
+        (batch, clip, 26, 3)).astype(np.float32)).to(cuda_device)
+    g_abs = torch.from_numpy(rng.standard_normal(
+        (batch, clip, 26, 3)).astype(np.float32)).to(cuda_device)
+    _, _, states = FP.fused_projection_train_cuda_fwd(*args, cam)
+    grads = FP.fused_projection_train_cuda_bwd(*args, states, g_proj, g_abs,
+                                               cam)
+    inputs = [t.clone().requires_grad_(True) for t in args]
+    refs = torch.autograd.grad(FP.fused_projection_train_reference(
+        *inputs, cam), inputs, (g_proj, g_abs))
+    for g, ref in zip(grads, refs):
+        scale = max(float(ref.abs().max()), 1e-8)
+        torch.testing.assert_close(g / scale, ref / scale, rtol=1e-4,
+                                   atol=1e-5)

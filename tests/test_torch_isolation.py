@@ -48,9 +48,18 @@ def test_port_sources_name_no_jax():
                 path = os.path.join(dirpath, f)
                 with open(path) as fh:
                     assert not pattern.search(fh.read()), path
+    # chip_smoke.py names the TPU kernels' file and line it replaces, but
+    # imports nothing of JAX or of the JAX package, in any form
+    imports = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|"
+        r"pedestrians_video_2_carla_tpu)\b|"
+        r"(import_module|__import__)\(\s*[\"'](jax|flax|optax|"
+        r"pedestrians_video_2_carla_tpu)", re.M)
+    with open(os.path.join(REPO, "chip_smoke.py")) as fh:
+        assert not imports.search(fh.read())
 
 
-def test_entry_points_refuse_a_missing_card(monkeypatch):
+def test_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
     from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
         Carla2D3DDataModule
     from pedestrians_video_2_carla_torch.flows.pose_lifting import \
@@ -60,9 +69,20 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     from pedestrians_video_2_carla_torch.models.movements.linear_ae import \
         LinearAE
 
+    from pedestrians_video_2_carla_torch import modeling
+    from pedestrians_video_2_carla_torch.training.trainer import (
+        Trainer, TrainerConfig)
+
+    flow = PoseLiftingFlow(LinearAE(), device="cpu")
+    dm = Carla2D3DDataModule(batch_size=2, clip_length=2, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         PoseLiftingFlow(LinearAE())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(flow, dm, TrainerConfig(logs_dir=str(tmp_path)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        modeling.main(["--flow=pose_lifting", "--mode=train",
+                       f"--root_dir={tmp_path}"])
     with pytest.raises(RuntimeError, match="CUDA"):
         Carla2D3DDataModule(batch_size=2, clip_length=2)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -190,6 +190,38 @@ def test_deformation():
 
 # -- routes ------------------------------------------------------------------
 
+def test_fused_train_route_takes_the_kernels_abs_loc(monkeypatch):
+    """On the identity-world pose_changes path the "fused_train" route calls
+    the trainable kernel once per step, and both its outputs (projections
+    and absolute pose) replace the plane path's."""
+    calls = []
+    real = TP.fused_projection_train
+
+    def spy(*args):
+        calls.append(args[0].shape)
+        proj, abs_loc = real(*args)
+        return proj, abs_loc + 1.0  # a marker the plane path cannot give
+    monkeypatch.setattr(TP, "fused_projection_train", spy)
+
+    cfg = TD.Carla2D3DConfig(batch_size=2, clip_length=3)
+    batch = TD.render_batch(
+        cfg, TD.draw_batch(cfg, torch.Generator().manual_seed(0), "cpu"))
+    flows = {k: PoseLiftingFlow(LinearAE(), loss_modes=["loc_2d_3d"],
+                                projection_kernel=k, device="cpu")
+             for k in ("plain", "fused_train")}
+    params = flows["plain"].init_params()
+    _, plain, _ = flows["plain"].eval_step(params, batch)
+    assert calls == []
+    _, fused, _ = flows["fused_train"].eval_step(params, batch)
+    assert len(calls) == 1
+    torch.testing.assert_close(fused["absolute_pose_loc"],
+                               plain["absolute_pose_loc"] + 1.0)
+    torch.testing.assert_close(fused["projection_2d"], plain["projection_2d"])
+    state = flows["fused_train"].init_state(params)
+    flows["fused_train"].training_step(state, batch)
+    assert len(calls) == 2
+
+
 def test_routes_data_plane_path_flow_fused_kernel(monkeypatch):
     """Data generation passes world changes, so it never takes the fused
     kernel even when asked to; the flow with ZeroTrajectory passes None, so
@@ -270,7 +302,8 @@ def _jax_case(kernel):
 
 
 @pytest.mark.parametrize("port_kernel,jax_kernel",
-                         [("plain", "xla"), ("fused", "pallas")])
+                         [("plain", "xla"), ("fused", "pallas"),
+                          ("fused_train", "pallas_train")])
 def test_slice_matches_jax_flow(port_kernel, jax_kernel):
     j_params, j_batch, j_losses, j_preds = _jax_case(jax_kernel)
     flow = PoseLiftingFlow(LinearAE(), loss_modes=["loc_2d_3d"],
@@ -307,6 +340,10 @@ def test_flow_config_errors():
         PoseLiftingFlow(LinearAE(), precision="bf16", device="cpu")
     with pytest.raises(KeyError):
         PoseLiftingFlow(LinearAE(), loss_modes=["heatmaps"], device="cpu")
-    with pytest.raises(NotImplementedError):
-        PoseLiftingFlow(LinearAE(), projection_kernel="pallas_train",
-                        device="cpu")
+    # the JAX names of the kernels are not the port's
+    for jax_name in ("xla", "pallas", "pallas_train"):
+        with pytest.raises(ValueError):
+            PoseLiftingFlow(LinearAE(), projection_kernel=jax_name,
+                            device="cpu")
+    assert PoseLiftingFlow(LinearAE(), projection_kernel="fused_train",
+                           device="cpu").projection.kernel == "fused_train"
