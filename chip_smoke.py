@@ -5,7 +5,7 @@
 Phases, each printing one JSON line:
   1. device       -- requires CUDA; the card's name and power limit
                      (nvidia-smi).
-  2. build        -- builds both kernel libraries with nvcc from this
+  2. build        -- builds the four kernel libraries with nvcc from this
                      checkout's csrc/ (sm_90a), in parallel; their ptxas
                      summaries.
   3. kernel       -- the serving kernel against its plain PyTorch version on
@@ -43,6 +43,32 @@ Phases, each printing one JSON line:
                      the plane outputs the "fused_train" step computes (its
                      ratio to the step estimates the plane path's share; it
                      is not measured inside the step).
+  8. kernel_spatial  -- PoseFormer's spatial-stack kernel against its plain
+                     version on seeded weights (LayerNorms away from ones
+                     and zeros): J=26, E=32, 8 heads, depth 4, N in {4096,
+                     4093, 5}. Bar: max |kernel - plain| <= 1e-5 x max
+                     |plain| (the card shows under 1e-6).
+  9. kernel_temporal -- the temporal-block kernel against its plain version
+                     through fused_temporal_block: T=9, D=832, 8 heads,
+                     hidden 1664, N in {2048, 2045, 3}; the depth-4
+                     fused_temporal_stack against 4 plain blocks. Same bar.
+ 10. serve_poseformer -- Carla2D3D test batches (B=256, L=16) ->
+                     PoseFormer(clip_length=16) (seeded init, published
+                     widths) -> PoseLiftingFlow(loc_2d_3d) ->
+                     make_inference_fn, 8 requests; 1 spatial and 4
+                     temporal launches per request and no fused-projection
+                     launch; outputs finite over the eval slice and equal to
+                     the same model through the plain stage functions (1e-3
+                     px on x, y; 1e-4 elsewhere); eval_step's loc_2d_3d
+                     equal to rtol 1e-4; a backward through the model
+                     raises NotImplementedError.
+ 11. timing_poseformer -- CUDA-event medians of both kernels (L2 cold and
+                     warm), their plain versions and their library
+                     yardsticks (torch.nn.TransformerEncoderLayer stacks,
+                     first held to the plain versions within the kernel
+                     bar); the host-clock median of a request and a
+                     CUDA-event split of it into spatial stage, temporal
+                     stage and the rest; each kernel's bound.
 Then the card line, the kernels line, and the contract line last. Any
 failure raises and ends the run with a non-zero exit.
 """
@@ -67,6 +93,17 @@ ABS_TOL = 1e-5                          # abs_loc, metres
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5       # gradients over their largest value
 TRAIN_STEPS, VAL_BATCHES, PARITY_STEPS = 20, 2, 3
 LR = 1e-3
+#: PoseFormer serving: the JAX bench's serving shape (bench.py:753), the
+#: published widths, and the bar of both transformer kernels against their
+#: plain versions (sums over K <= 1664 in another order than cuBLAS's; the
+#: card shows under 1e-6)
+PF_BATCH = 256
+PF_JOINTS, PF_EMB, PF_HEADS, PF_DEPTH, PF_RF = 26, 32, 8, 4, 9
+PF_DIM = PF_JOINTS * PF_EMB
+KERNEL_BAR = 1e-5
+#: kernel-check sizes: the main path's N (B*L frames, B*W windows) and
+#: ragged ones
+SPATIAL_NS, TEMPORAL_NS = (4096, 4093, 5), (2048, 2045, 3)
 #: H100 memory rates (NVIDIA data sheets), bytes/s, and the float32 (non
 #: tensor-core) peak of the SXM part, FLOP/s
 HBM_RATE = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
@@ -99,12 +136,17 @@ def phase_device():
 
 
 def phase_build():
+    from pedestrians_video_2_carla_torch.ops import cuda_build
     from pedestrians_video_2_carla_torch.ops import fused_projection as FP
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_spatial_transformer as FS
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_temporal_transformer as FT
 
     t0 = time.perf_counter()
-    sources = (FP._SOURCE, FP._TRAIN_SOURCE)
+    sources = (FP._SOURCE, FP._TRAIN_SOURCE, FS._SOURCE, FT._SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
-        paths = list(pool.map(FP.build_library, sources))
+        paths = list(pool.map(cuda_build.build_library, sources))
     libraries = {}
     for path in paths:
         log = path.with_suffix(".log")
@@ -116,19 +158,25 @@ def phase_build():
           "ptxas": libraries})
 
 
-def kernel_counts():
+def kernel_wrappers():
     from pedestrians_video_2_carla_torch.ops import fused_projection as FP
-    return {"fused_projection": FP.fused_projection_cuda.launches,
-            "fused_projection_train_fwd":
-                FP.fused_projection_train_cuda_fwd.launches,
-            "fused_projection_train_bwd":
-                FP.fused_projection_train_cuda_bwd.launches}
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_spatial_transformer as FS
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_temporal_transformer as FT
+    return {"fused_projection": FP.fused_projection_cuda,
+            "fused_projection_train_fwd": FP.fused_projection_train_cuda_fwd,
+            "fused_projection_train_bwd": FP.fused_projection_train_cuda_bwd,
+            "fused_spatial_stack": FS.fused_spatial_stack_cuda,
+            "fused_temporal_block": FT.fused_temporal_block_cuda}
+
+
+def kernel_counts():
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 def reset_kernel_counts():
-    from pedestrians_video_2_carla_torch.ops import fused_projection as FP
-    for fn in (FP.fused_projection_cuda, FP.fused_projection_train_cuda_fwd,
-               FP.fused_projection_train_cuda_bwd):
+    for fn in kernel_wrappers().values():
         fn.launches = 0
 
 
@@ -349,7 +397,8 @@ def phase_train(dm):
         counts = kernel_counts()
         expected = {"fused_projection": 0,
                     "fused_projection_train_fwd": TRAIN_STEPS + VAL_BATCHES,
-                    "fused_projection_train_bwd": TRAIN_STEPS}
+                    "fused_projection_train_bwd": TRAIN_STEPS,
+                    "fused_spatial_stack": 0, "fused_temporal_block": 0}
         if counts != expected:
             raise AssertionError(f"train launches {counts}, expected "
                                  f"{expected}")
@@ -645,15 +694,377 @@ def phase_timing_train(dm, card, hbm_rate):
                     "plain_ms": times["plain_bwd_ms"], **bounds["bwd"]}}
 
 
-def kernel_entry(name, source, line, launches, max_err, times):
+def random_block_weights(rng, dim, lead=()):
+    """One transformer block's weights in nn.Linear layout (each with the
+    leading ``lead`` axes), LayerNorm scales and biases away from ones and
+    zeros, on the card."""
+    hidden = 2 * dim
+
+    def w(*shape, scale, shift=0.0):
+        return torch.from_numpy((shift + scale * rng.standard_normal(
+            lead + shape)).astype(np.float32)).cuda()
+    return [w(dim, scale=0.2, shift=1.0), w(dim, scale=0.2),
+            w(3 * dim, dim, scale=dim ** -0.5), w(3 * dim, scale=0.1),
+            w(dim, dim, scale=dim ** -0.5), w(dim, scale=0.1),
+            w(dim, scale=0.2, shift=1.0), w(dim, scale=0.2),
+            w(hidden, dim, scale=dim ** -0.5), w(hidden, scale=0.1),
+            w(dim, hidden, scale=hidden ** -0.5), w(dim, scale=0.1)]
+
+
+def bar_err(out, ref):
+    """(max |out - ref|, that over max |ref|)."""
+    err = float((out - ref).abs().max())
+    return err, err / max(float(ref.abs().max()), 1e-30)
+
+
+def phase_kernel_spatial():
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_spatial_transformer as FS
+
+    rng = np.random.default_rng(SEED + 3)
+    weights = random_block_weights(rng, PF_EMB, lead=(PF_DEPTH,)) + [
+        torch.from_numpy((1 + 0.2 * rng.standard_normal(PF_EMB)).astype(
+            np.float32)).cuda(),
+        torch.from_numpy((0.2 * rng.standard_normal(PF_EMB)).astype(
+            np.float32)).cuda()]
+    worst = 0.0
+    for n in SPATIAL_NS:
+        x = torch.from_numpy(rng.standard_normal(
+            (n, PF_JOINTS, PF_EMB)).astype(np.float32)).cuda()
+        out = FS.fused_spatial_stack_cuda(x, weights, PF_HEADS)
+        ref = FS.spatial_stack_reference(x, weights, PF_HEADS)
+        torch.cuda.synchronize()
+        err, scaled = bar_err(out, ref)
+        finite = bool(torch.isfinite(out).all())
+        emit({"phase": "kernel_spatial", "N": n, "max_abs_err": err,
+              "max_abs_err_over_max_abs_plain": scaled, "finite": finite})
+        if not (scaled <= KERNEL_BAR and finite):
+            raise AssertionError(f"spatial kernel disagrees with its plain "
+                                 f"version at N={n}: {scaled} of max |plain|")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_kernel_temporal():
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_temporal_transformer as FT
+
+    rng = np.random.default_rng(SEED + 4)
+    blocks = [random_block_weights(rng, PF_DIM) for _ in range(PF_DEPTH)]
+    worst = 0.0
+
+    def check(what, n, out, ref):
+        torch.cuda.synchronize()
+        err, scaled = bar_err(out, ref)
+        finite = bool(torch.isfinite(out).all())
+        emit({"phase": "kernel_temporal", "entry": what, "N": n,
+              "max_abs_err": err, "max_abs_err_over_max_abs_plain": scaled,
+              "finite": finite})
+        if not (scaled <= KERNEL_BAR and finite):
+            raise AssertionError(f"temporal {what} disagrees with its plain "
+                                 f"version at N={n}: {scaled} of max |plain|")
+        return err
+
+    with torch.no_grad():
+        for n in TEMPORAL_NS:
+            x = torch.from_numpy(rng.standard_normal(
+                (n, PF_RF, PF_DIM)).astype(np.float32)).cuda()
+            out = FT.fused_temporal_block(x, blocks[0], PF_HEADS)
+            ref = FT.temporal_block_reference(x, blocks[0], PF_HEADS)
+            worst = max(worst, check("fused_temporal_block", n, out, ref))
+        n = TEMPORAL_NS[0]
+        x = torch.from_numpy(rng.standard_normal(
+            (n, PF_RF, PF_DIM)).astype(np.float32)).cuda()
+        out = FT.fused_temporal_stack(x, blocks, PF_HEADS)
+        ref = x
+        for weights in blocks:
+            ref = FT.temporal_block_reference(ref, weights, PF_HEADS)
+        worst = max(worst, check("fused_temporal_stack", n, out, ref))
+    return worst
+
+
+def plain_temporal_stack(x, weights_list, num_heads):
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_temporal_transformer as FT
+    for weights in weights_list:
+        x = FT.temporal_block_reference(x, weights, num_heads)
+    return x
+
+
+class stage_functions:
+    """Swap the PoseFormer module's two stage functions for ``spatial`` and
+    ``temporal`` (the model itself offers no switch)."""
+
+    def __init__(self, spatial, temporal):
+        self.swap = {"fused_spatial_stack": spatial,
+                     "fused_temporal_stack": temporal}
+
+    def __enter__(self):
+        from pedestrians_video_2_carla_torch.models.movements import \
+            pose_former as PF
+        self.saved = {k: getattr(PF, k) for k in self.swap}
+        for k, v in self.swap.items():
+            setattr(PF, k, v)
+
+    def __exit__(self, *exc):
+        from pedestrians_video_2_carla_torch.models.movements import \
+            pose_former as PF
+        for k, v in self.saved.items():
+            setattr(PF, k, v)
+
+
+def phase_serve_poseformer(batches):
+    from pedestrians_video_2_carla_torch.flows.pose_lifting import \
+        PoseLiftingFlow
+    from pedestrians_video_2_carla_torch.models.movements.pose_former import \
+        PoseFormer
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_spatial_transformer as FS
+    from pedestrians_video_2_carla_torch.serving import make_inference_fn
+
+    model = PoseFormer(clip_length=CLIP,
+                       generator=torch.Generator().manual_seed(SEED))
+    flow = PoseLiftingFlow(model, loss_modes=["loc_2d_3d"])
+    params = flow.init_params()
+    infer = make_inference_fn(flow, params)
+
+    reset_kernel_counts()
+    served = []
+    for i, (inputs, _, meta) in enumerate(batches):
+        served.append(infer(inputs, meta["age_gender_idx"]))
+        counts = kernel_counts()
+        if (counts["fused_spatial_stack"], counts["fused_temporal_block"]) \
+                != (i + 1, PF_DEPTH * (i + 1)):
+            raise AssertionError(f"request {i}: launches {counts}")
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    if any(v for k, v in counts.items() if k.startswith("fused_projection")):
+        raise AssertionError(f"PoseFormer serving launched a projection "
+                             f"kernel: {counts}")
+
+    keep = model.eval_slice
+    W = keep.stop - keep.start
+    worst_xy = worst_other = 0.0
+    with stage_functions(FS.spatial_stack_reference, plain_temporal_stack):
+        for preds, (inputs, _, meta) in zip(served, batches):
+            for k in ("absolute_pose_loc", "projection_2d"):
+                if preds[k].shape[:2] != (PF_BATCH, W) or \
+                        not torch.isfinite(preds[k]).all():
+                    raise AssertionError(
+                        f"{k}: shape {tuple(preds[k].shape)} or not finite")
+            ref = infer(inputs, meta["age_gender_idx"])
+            for k, v in preds.items():
+                if k == "projection_2d":
+                    worst_xy = max(worst_xy, float(
+                        (v[..., :2] - ref[k][..., :2]).abs().max()))
+                    worst_other = max(worst_other, float(
+                        (v[..., 2] - ref[k][..., 2]).abs().max()))
+                else:
+                    worst_other = max(worst_other,
+                                      float((v - ref[k]).abs().max()))
+        plain_losses = [float(flow.eval_step(params, b)[0]["loc_2d_3d"])
+                        for b in batches[:2]]
+    if worst_xy > XY_TOL_PX or worst_other > DEPTH_TOL:
+        raise AssertionError(f"kernel stages vs plain stages: xy {worst_xy} "
+                             f"px, other {worst_other}")
+    losses = []
+    for batch, b in zip(batches[:2], plain_losses):
+        a = float(flow.eval_step(params, batch)[0]["loc_2d_3d"])
+        if not (np.isfinite(a) and abs(a - b) <= LOSS_RTOL * abs(b)):
+            raise AssertionError(f"loc_2d_3d kernels {a} vs plain {b}")
+        losses.append((a, b))
+
+    # the kernels' backward is the next slice: a backward through the
+    # model on the card raises
+    inputs = batches[0][0][:16]
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params["movements"].items()}
+    out = torch.func.functional_call(model, leaves, (inputs,))
+    try:
+        out.sum().backward()
+    except NotImplementedError as e:
+        backward = str(e)
+    else:
+        raise AssertionError("a backward through PoseFormer did not raise")
+    emit({"phase": "serve_poseformer", "B": PF_BATCH, "L": CLIP,
+          "requests": len(batches), "launches": counts,
+          "eval_slice": [keep.start, keep.stop],
+          "max_abs_err_xy_px_vs_plain": worst_xy,
+          "max_abs_err_other_vs_plain": worst_other,
+          "loc_2d_3d_kernels_vs_plain": losses,
+          "backward_raises": backward})
+    return flow, params, counts
+
+
+def encoder_layer(dim, weights):
+    """torch.nn.TransformerEncoderLayer loaded with one block's weights: it
+    computes the same pre-norm block (the library yardstick). It runs in
+    training mode, which with dropout 0 is the same function: the eval-mode
+    fast path (torch._transformer_encoder_layer_fwd) on the H100 is 3.2e-4
+    of max |out| away from a float64 reference of the spatial stack, the
+    kernel, the plain version and the training-mode layer under 1e-6."""
+    (ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b,
+     ln2_s, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b) = weights
+    layer = torch.nn.TransformerEncoderLayer(
+        dim, nhead=PF_HEADS, dim_feedforward=fc1_w.shape[0], dropout=0.0,
+        activation="gelu", layer_norm_eps=1e-5, batch_first=True,
+        norm_first=True).cuda().train()
+    with torch.no_grad():
+        for p, w in ((layer.self_attn.in_proj_weight, qkv_w),
+                     (layer.self_attn.in_proj_bias, qkv_b),
+                     (layer.self_attn.out_proj.weight, proj_w),
+                     (layer.self_attn.out_proj.bias, proj_b),
+                     (layer.linear1.weight, fc1_w), (layer.linear1.bias, fc1_b),
+                     (layer.linear2.weight, fc2_w), (layer.linear2.bias, fc2_b),
+                     (layer.norm1.weight, ln1_s), (layer.norm1.bias, ln1_b),
+                     (layer.norm2.weight, ln2_s), (layer.norm2.bias, ln2_b)):
+            p.copy_(w)
+    return layer
+
+
+def phase_timing_poseformer(flow, params, batches, card, hbm_rate):
+    from pedestrians_video_2_carla_torch.ops import flops as F
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_spatial_transformer as FS
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_temporal_transformer as FT
+    from pedestrians_video_2_carla_torch.serving import make_inference_fn
+
+    model = flow.movements_model
+    inputs, _, meta = batches[0]
+    B, L = inputs.shape[:2]
+    W = L - PF_RF + 1
+    with torch.no_grad():
+        xs = (model.Spatial_patch_to_embedding(inputs[..., :2])
+              + model.Spatial_pos_embed).reshape(B * L, PF_JOINTS, PF_EMB)
+        ws = [w.detach().contiguous() for w in model.spatial_weights()]
+        s = FS.fused_spatial_stack_cuda(xs, ws, PF_HEADS)
+        xt = (s.reshape(B, L, PF_DIM).unfold(1, PF_RF, 1).transpose(2, 3)
+              + model.Temporal_pos_embed).reshape(B * W, PF_RF, PF_DIM)
+        xt = xt.contiguous()
+        wt = [w.detach() for w in model.temporal_weights()[0]]
+
+        spatial_lib = torch.nn.Sequential(
+            *(encoder_layer(PF_EMB, [w[d] for w in ws[:12]])
+              for d in range(PF_DEPTH)),
+            torch.nn.LayerNorm(PF_EMB, eps=1e-5).cuda())
+        spatial_lib[-1].weight.copy_(ws[12])
+        spatial_lib[-1].bias.copy_(ws[13])
+        temporal_lib = encoder_layer(PF_DIM, wt)
+        # the yardsticks compute the kernels' function: held to the plain
+        # versions within the kernel bar before they are timed
+        for name, lib, plain in (
+                ("spatial", spatial_lib(xs),
+                 FS.spatial_stack_reference(xs, ws, PF_HEADS)),
+                ("temporal", temporal_lib(xt),
+                 FT.temporal_block_reference(xt, wt, PF_HEADS))):
+            _, scaled = bar_err(lib, plain)
+            if scaled > KERNEL_BAR:
+                raise AssertionError(f"{name} TransformerEncoderLayer vs the "
+                                     f"plain version: {scaled}")
+
+        scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32,
+                              device="cuda")
+
+        def flush_l2():  # 256 MB write: far more than the 50 MB L2
+            scratch.zero_()
+
+        cases = {
+            "spatial": (lambda: FS.fused_spatial_stack_cuda(xs, ws, PF_HEADS),
+                        lambda: FS.spatial_stack_reference(xs, ws, PF_HEADS),
+                        lambda: spatial_lib(xs)),
+            "temporal": (lambda: FT.fused_temporal_block_cuda(xt, wt,
+                                                              PF_HEADS),
+                         lambda: FT.temporal_block_reference(xt, wt,
+                                                             PF_HEADS),
+                         lambda: temporal_lib(xt))}
+        times = {}
+        for name, (kernel, plain, lib) in cases.items():
+            times[name] = {"ms_cold_l2": cuda_median_ms(kernel, flush=flush_l2),
+                           "ms_warm_l2": cuda_median_ms(kernel),
+                           "plain_ms": cuda_median_ms(plain),
+                           "library_ms": cuda_median_ms(lib)}
+
+    # bounds: each input read once and each output written once, against
+    # the matmul FLOPs (ops/flops.py, attention included) at the fp32 peak
+    n_weights_s = sum(w.numel() for w in ws)
+    n_weights_t = sum(w.numel() for w in wt)
+    work = {"spatial": (4 * (2 * xs.numel() + n_weights_s),
+                        PF_DEPTH * F.transformer_block_matmul_flops(
+                            xs.shape[0] * PF_JOINTS, PF_EMB, 2.0, PF_JOINTS)),
+            "temporal": (4 * (2 * xt.numel() + n_weights_t),
+                         F.transformer_block_matmul_flops(
+                             xt.shape[0] * PF_RF, PF_DIM, 2.0, PF_RF))}
+    for name, (nbytes, nflop) in work.items():
+        t_bytes, t_flop = nbytes / hbm_rate, nflop / FP32_PEAK
+        times[name].update(
+            bytes=nbytes, flop=nflop, bound_ms=max(t_bytes, t_flop) * 1e3,
+            bound_by="bytes" if t_bytes >= t_flop else "operations")
+
+    infer = make_inference_fn(flow, params)
+    agi = meta["age_gender_idx"]
+    request = host_median_ms(lambda: infer(inputs, agi))
+
+    # a CUDA-event split of one request: spatial stage, temporal stage and
+    # the rest (model glue, LayerNorms, head, projection, normalization)
+    from pedestrians_video_2_carla_torch.models.movements import \
+        pose_former as PF
+    marks = {}
+
+    def timed(name, fn):
+        def run(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            marks[name] = (start, end)
+            return out
+        return run
+
+    splits = []
+    with stage_functions(timed("spatial", PF.fused_spatial_stack),
+                         timed("temporal", PF.fused_temporal_stack)):
+        for _ in range(TIMING_RUNS):
+            torch.cuda._sleep(2_000_000)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            infer(inputs, agi)
+            end.record()
+            end.synchronize()
+            total = start.elapsed_time(end)
+            sp = marks["spatial"][0].elapsed_time(marks["spatial"][1])
+            tp = marks["temporal"][0].elapsed_time(marks["temporal"][1])
+            splits.append((total, sp, tp, total - sp - tp))
+    split = dict(zip(("request_ms", "spatial_stage_ms", "temporal_stage_ms",
+                      "rest_ms"),
+                     (statistics.median(c) for c in zip(*splits))))
+    emit({"phase": "timing_poseformer", "card": card, "B": B, "L": L,
+          "kernels": times, "request_ms_host": request,
+          "request_split_cuda_events": split,
+          "method": "kernels, plain versions and TransformerEncoderLayer "
+                    "yardsticks: CUDA events, median of %d single calls "
+                    "after 3 warm-up calls, cold = 256 MB scratch write "
+                    "before each call; request: host clock to "
+                    "torch.cuda.synchronize(), median of %d; split: CUDA "
+                    "events around the request and the two stage calls, "
+                    "medians of %d" % ((TIMING_RUNS,) * 3)})
+    return {name: {"ms": t["ms_cold_l2"], "plain_ms": t["plain_ms"],
+                   "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+                   "bound_by": t["bound_by"]} for name, t in times.items()}
+
+
+def kernel_entry(name, source, replaces, launches, max_err, times):
+    """One entry of the kernels line; ``replaces`` is the TPU kernel's
+    ``file:line`` under the JAX package's ops/pallas/."""
     return {"name": name, "route": "cuda",
             "source": f"pedestrians_video_2_carla_torch/csrc/{source}",
-            "replaces": "pedestrians_video_2_carla_tpu/ops/pallas/"
-                        f"fused_projection.py:{line}",
+            "replaces": f"pedestrians_video_2_carla_tpu/ops/pallas/{replaces}",
             "launches": launches, "max_abs_err": max_err,
             "ms": times["ms"], "plain_ms": times["plain_ms"],
             "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
-            "library_ms": None}
+            "library_ms": times.get("library_ms")}
 
 
 def main():
@@ -676,18 +1087,35 @@ def main():
     times = phase_timing(flow_f, flow_p, params, batches, card, hbm_rate)
     train_times = phase_timing_train(dm, card, hbm_rate)
 
+    err_spatial = phase_kernel_spatial()
+    err_temporal = phase_kernel_temporal()
+    pf_dm = Carla2D3DDataModule(batch_size=PF_BATCH, clip_length=CLIP,
+                                test_set_size=REQUESTS * PF_BATCH, seed=SEED)
+    pf_batches = list(pf_dm.test_batches())
+    pf_flow, pf_params, pf_counts = phase_serve_poseformer(pf_batches)
+    pf_times = phase_timing_poseformer(pf_flow, pf_params, pf_batches, card,
+                                       hbm_rate)
+
     print(card, flush=True)
     emit({"kernels": [
-        kernel_entry("fused_projection", "fused_projection.cu", 328,
-                     launches, max_err, times),
+        kernel_entry("fused_projection", "fused_projection.cu",
+                     "fused_projection.py:328", launches, max_err, times),
         kernel_entry("fused_projection_train_fwd",
-                     "fused_projection_train.cu", 458,
+                     "fused_projection_train.cu", "fused_projection.py:458",
                      train_counts["fused_projection_train_fwd"], err_fwd,
                      train_times["fwd"]),
         kernel_entry("fused_projection_train_bwd",
-                     "fused_projection_train.cu", 538,
+                     "fused_projection_train.cu", "fused_projection.py:538",
                      train_counts["fused_projection_train_bwd"], err_bwd,
                      train_times["bwd"]),
+        kernel_entry("fused_spatial_stack", "fused_spatial_transformer.cu",
+                     "fused_spatial_transformer.py:398",
+                     pf_counts["fused_spatial_stack"], err_spatial,
+                     pf_times["spatial"]),
+        kernel_entry("fused_temporal_block", "fused_temporal_transformer.cu",
+                     "fused_temporal_transformer.py:947 and :524",
+                     pf_counts["fused_temporal_block"], err_temporal,
+                     pf_times["temporal"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

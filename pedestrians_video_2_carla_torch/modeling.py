@@ -4,12 +4,16 @@
         --data_module_name=Carla2D3D --movements_model_name=LinearAE \
         --loss_modes loc_2d_3d --projection_kernel fused_train ...
 
-Logs and checkpoints go to ``<root_dir>/logs/<flow>/<run_name>/``. It runs
+The chosen movements model's constructor arguments are flags as well
+(``--receptive_frames``, ``--depth``, ...; ``--clip_length`` feeds both the
+data module and the model), as the JAX CLI adds one per model field. Logs
+and checkpoints go to ``<root_dir>/logs/<flow>/<run_name>/``. It runs
 on the card unless ``--device cpu`` is given. A flow, data module, model,
 mode or loss that the JAX package has but the port does not yet raises
 ``NotImplementedError`` naming ``ROADMAP.md``.
 """
 import argparse
+import inspect
 import os
 import sys
 import time
@@ -48,7 +52,37 @@ def _ported(kind: str, name: str, available) -> None:
             f"{sorted(available)}; see ROADMAP.md)")
 
 
-def make_parser() -> argparse.ArgumentParser:
+#: model constructor arguments that are not flags
+_NOT_FLAGS = ("generator", "input_nodes", "output_nodes",
+              "movements_output_type")
+
+
+def model_params(model_cls) -> Dict[str, Any]:
+    """The constructor arguments of ``model_cls`` that flags set (those with
+    a bool, int, float or str default), and their defaults."""
+    return {name: p.default for name, p in
+            inspect.signature(model_cls.__init__).parameters.items()
+            if name not in _NOT_FLAGS
+            and isinstance(p.default, (bool, int, float, str))}
+
+
+def add_model_args(parser: argparse.ArgumentParser, model_cls) -> None:
+    """A flag for each of ``model_params(model_cls)``, as the JAX CLI adds
+    one per model field; a name another group has already (``clip_length``
+    of the data module) is left to that flag, which then feeds the model
+    too."""
+    group = parser.add_argument_group(model_cls.__name__)
+    for name, default in model_params(model_cls).items():
+        kind = boolean if isinstance(default, bool) else type(default)
+        try:
+            group.add_argument(f"--{name}", type=kind, default=default)
+        except argparse.ArgumentError:
+            pass
+
+
+def make_parser(argv: Optional[List[str]] = None) -> argparse.ArgumentParser:
+    """The CLI's parser; the movements model named in ``argv`` adds its
+    own flags."""
     parser = argparse.ArgumentParser(
         prog="pedestrians_video_2_carla_torch",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
@@ -89,11 +123,16 @@ def make_parser() -> argparse.ArgumentParser:
 
     group = parser.add_argument_group("movements optimizer")
     group.add_argument("--movements_lr", type=float, default=None)
+
+    chosen, _ = parser.parse_known_args(argv)
+    if chosen.movements_model_name in MOVEMENTS_MODELS:
+        add_model_args(parser, MOVEMENTS_MODELS[chosen.movements_model_name])
     return parser
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
-    args = make_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    argv = sys.argv[1:] if argv is None else argv
+    args = make_parser(argv).parse_args(argv)
     _ported("flow", args.flow, FLOWS)
     _ported("mode", args.mode, MODES)
     _ported("data module", args.data_module_name, DATA_MODULES)
@@ -114,8 +153,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         detect_anomaly=args.detect_anomaly,
         device=args.device)
 
-    model = MOVEMENTS_MODELS[args.movements_model_name](
-        generator=torch.Generator().manual_seed(args.seed))
+    model_cls = MOVEMENTS_MODELS[args.movements_model_name]
+    model = model_cls(generator=torch.Generator().manual_seed(args.seed),
+                      **{k: getattr(args, k) for k in model_params(model_cls)})
     flow = FLOWS[args.flow](
         model, loss_modes=args.loss_modes,
         movements_optimizer=OptimizerSettings.from_kwargs("movements",

@@ -4,7 +4,9 @@ JAX package's flows hold them) -> the port's ``state_dict``s.
 The mirror image of the JAX package's ``models/torch_import.py``: a flax
 ``Dense_i/kernel`` of shape (in, out) becomes ``Dense_i.weight`` of shape
 (out, in), ``Dense_i/bias`` becomes ``Dense_i.bias``, and any other leaf
-keeps its dotted path.
+keeps its dotted path. A PoseFormer tree maps onto the public PoseFormer
+checkpoint's names (:func:`import_pose_former`), the inverse of the JAX
+package's ``models/torch_import.py::import_pose_former``.
 """
 from typing import Any, Dict, Mapping
 
@@ -42,13 +44,103 @@ def import_linear_ae(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return flax_to_state_dict(flax_params)
 
 
+#: a flax PoseFormer block's leaves -> the port's names under the block
+_POSE_FORMER_BLOCK = {
+    ("LayerNorm_0", "scale"): "norm1.weight",
+    ("LayerNorm_0", "bias"): "norm1.bias",
+    ("_Attention_0", "qkv", "kernel"): "attn.qkv.weight",
+    ("_Attention_0", "qkv", "bias"): "attn.qkv.bias",
+    ("_Attention_0", "proj", "kernel"): "attn.proj.weight",
+    ("_Attention_0", "proj", "bias"): "attn.proj.bias",
+    ("LayerNorm_1", "scale"): "norm2.weight",
+    ("LayerNorm_1", "bias"): "norm2.bias",
+    ("_Mlp_0", "Dense_0", "kernel"): "mlp.fc1.weight",
+    ("_Mlp_0", "Dense_0", "bias"): "mlp.fc1.bias",
+    ("_Mlp_0", "Dense_1", "kernel"): "mlp.fc2.weight",
+    ("_Mlp_0", "Dense_1", "bias"): "mlp.fc2.bias",
+}
+#: the flax PoseFormer's other leaves -> the port's names
+_POSE_FORMER_TOP = {
+    ("spatial_patch_embed", "kernel"): "Spatial_patch_to_embedding.weight",
+    ("spatial_patch_embed", "bias"): "Spatial_patch_to_embedding.bias",
+    ("spatial_pos_embed",): "Spatial_pos_embed",
+    ("spatial_norm", "scale"): "Spatial_norm.weight",
+    ("spatial_norm", "bias"): "Spatial_norm.bias",
+    ("temporal_pos_embed",): "Temporal_pos_embed",
+    ("temporal_norm", "scale"): "Temporal_norm.weight",
+    ("temporal_norm", "bias"): "Temporal_norm.bias",
+    ("weighted_mean",): "weighted_mean.weight",
+    ("weighted_mean_bias",): "weighted_mean.bias",
+    ("head_norm", "scale"): "head.0.weight",
+    ("head_norm", "bias"): "head.0.bias",
+    ("head", "kernel"): "head.1.weight",
+    ("head", "bias"): "head.1.bias",
+}
+_STAGES = {"spatial_block_": "Spatial_blocks", "temporal_block_": "blocks"}
+
+
+def _leaves(tree: Mapping[str, Any], path=()):
+    for name, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaves(value, path + (name,))
+        else:
+            yield path + (name,), np.asarray(value)
+
+
+def _pose_former_name(path) -> str:
+    for flax_prefix, port_prefix in _STAGES.items():
+        index = path[0][len(flax_prefix):]
+        if path[0].startswith(flax_prefix) and index.isdigit() \
+                and path[1:] in _POSE_FORMER_BLOCK:
+            return f"{port_prefix}.{int(index)}.{_POSE_FORMER_BLOCK[path[1:]]}"
+    if path in _POSE_FORMER_TOP:
+        return _POSE_FORMER_TOP[path]
+    raise ValueError(f"unknown PoseFormer leaf {'/'.join(path)}")
+
+
+def import_pose_former(flax_params: Mapping[str, Any]
+                       ) -> Dict[str, torch.Tensor]:
+    """A flax ``PoseFormer`` / ``PoseFormerRot`` tree (the same tree on the
+    JAX package's xla and pallas paths) -> the port's state_dict, in the
+    public PoseFormer checkpoint's names. Dense kernels are transposed to
+    nn.Linear weights; ``spatial_pos_embed`` (1, 1, J, emb) becomes
+    (1, J, emb) and ``weighted_mean`` (rf,) the Conv1d weight (1, rf, 1).
+    An unknown or a missing leaf raises."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _leaves(flax_params):
+        name = _pose_former_name(path)
+        if path[-1] == "kernel":
+            value = value.T
+        elif path == ("spatial_pos_embed",):
+            value = value.reshape(value.shape[-3:])
+        elif path == ("weighted_mean",):
+            value = value.reshape(1, -1, 1)
+        out[name] = torch.from_numpy(np.array(value, dtype=np.float32))
+    depth = sum(n.startswith("spatial_block_") for n in flax_params)
+    expected = set(_POSE_FORMER_TOP.values()) | {
+        f"{stage}.{i}.{leaf}" for stage in _STAGES.values()
+        for i in range(depth) for leaf in _POSE_FORMER_BLOCK.values()}
+    if set(out) != expected:
+        raise ValueError(
+            f"not a PoseFormer parameter tree: missing "
+            f"{sorted(expected - set(out))}, unexpected "
+            f"{sorted(set(out) - expected)}")
+    return out
+
+
 def import_flow_params(flax_params: Mapping[str, Any],
                        device: DeviceLike = None
                        ) -> Dict[str, Dict[str, torch.Tensor]]:
     """A JAX flow's ``state.params`` ``{"movements": ..., "trajectory":
     ...}`` -> the port's flow parameter dict, on ``device`` (the card unless
-    asked otherwise)."""
+    asked otherwise). A PoseFormer tree goes through
+    :func:`import_pose_former`, any other through
+    :func:`flax_to_state_dict`."""
     device = resolve_device(device)
-    return {name: {k: v.to(device) for k, v in
-                   flax_to_state_dict(tree).items()}
+
+    def bridge(tree):
+        if "spatial_patch_embed" in tree:
+            return import_pose_former(tree)
+        return flax_to_state_dict(tree)
+    return {name: {k: v.to(device) for k, v in bridge(tree).items()}
             for name, tree in flax_params.items()}

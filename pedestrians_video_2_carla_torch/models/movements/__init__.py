@@ -1,4 +1,7 @@
-"""Movements models (``LinearAE`` so far)."""
+"""Movements models (``LinearAE``, ``PoseFormer`` and ``PoseFormerRot`` so
+far)."""
 from .linear_ae import LinearAE
+from .pose_former import PoseFormer, PoseFormerRot
 
-MOVEMENTS_MODELS = {m.__name__: m for m in [LinearAE]}
+MOVEMENTS_MODELS = {m.__name__: m for m in [LinearAE, PoseFormer,
+                                            PoseFormerRot]}

@@ -1,7 +1,7 @@
 """Shared movements-model base: an ``nn.Module`` carrying skeleton and
 output-type config, plus the seeded layer inits."""
 import math
-from typing import Optional, Type
+from typing import Callable, Optional, Type
 
 import numpy as np
 import torch
@@ -17,11 +17,41 @@ def _uniform_(tensor: torch.Tensor, bound: float,
               generator: Optional[torch.Generator]) -> None:
     """Fill ``tensor`` with U(-bound, bound) drawn from ``generator`` (on the
     generator's device), whatever device the tensor is on."""
+    _fill_(tensor, lambda t: t.uniform_(-bound, bound, generator=generator),
+           generator)
+
+
+def _fill_(tensor: torch.Tensor, draw_: Callable[[torch.Tensor], None],
+           generator: Optional[torch.Generator]) -> None:
+    """Fill ``tensor`` with ``draw_`` applied on the generator's device."""
     device = generator.device if generator is not None else tensor.device
     draw = torch.empty(tensor.shape, dtype=tensor.dtype, device=device)
-    draw.uniform_(-bound, bound, generator=generator)
+    draw_(draw)
     with torch.no_grad():
         tensor.copy_(draw)
+
+
+def trunc_normal_(tensor: torch.Tensor, std: float,
+                  generator: Optional[torch.Generator] = None) -> None:
+    """N(0, std^2) truncated at +-2 std, as flax's ``truncated_normal``
+    draws it (without its variance correction)."""
+    _fill_(tensor, lambda t: nn.init.trunc_normal_(
+        t, std=std, a=-2 * std, b=2 * std, generator=generator), generator)
+
+
+def lecun_normal_(tensor: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> None:
+    """flax's default Dense kernel init: a truncated normal of variance
+    1 / fan_in (the second axis of an nn.Linear weight)."""
+    # 0.8796... is the std of a unit normal truncated at +-2
+    trunc_normal_(tensor, math.sqrt(1.0 / tensor.shape[1]) / .87962566103423978,
+                  generator)
+
+
+def normal_(tensor: torch.Tensor, std: float,
+            generator: Optional[torch.Generator] = None) -> None:
+    _fill_(tensor, lambda t: t.normal_(0.0, std, generator=generator),
+           generator)
 
 
 def torch_dense_init_(layer: nn.Linear,

@@ -1,0 +1,187 @@
+"""PoseFormer (Zheng et al., ICCV'21): a spatial transformer over the joints
+of each frame, then a temporal transformer over each window of
+``receptive_frames`` frames, predicting the window centre's 3D pose
+(reference ``modules/movements/pose_former/pose_former.py``).
+
+As in the JAX package, the spatial stage runs once per distinct frame (B*L
+sequences), and only then are the frame embeddings gathered into the
+L - rf + 1 sliding windows, batch-major (n = b*W + w). The spatial stack
+always runs through ``ops/fused_spatial_transformer.py`` and every temporal
+block through ``ops/fused_temporal_transformer.py``: CUDA kernels on the
+card, their plain versions on the CPU. Dropout is not implemented (the
+kernels have none) and the kernels' backward is not ported yet, so these
+models serve and evaluate but do not train (see ``ROADMAP.md``).
+
+Parameter names are those of the public PoseFormer checkpoint
+(``Spatial_blocks.i.attn.qkv.weight``, ``blocks.i.mlp.fc1.bias``, ...);
+``models/jax_import.py::import_pose_former`` maps a flax tree onto them.
+``PoseFormerRot`` is the 6D-rotations variant.
+"""
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from ...flows.output_types import MovementsModelOutputType
+from ...ops.fused_spatial_transformer import fused_spatial_stack
+from ...ops.fused_temporal_transformer import fused_temporal_stack
+from ...ops.rotations import rotation_6d_to_matrix
+from ...ops.transformer import LN_EPS, layer_norm
+from .common import MovementsModel, lecun_normal_, normal_, trunc_normal_
+
+
+class _Attention(nn.Module):
+    """Packed qkv projection (rows [q; k; v] x (head, dim)) and proj."""
+
+    def __init__(self, dim: int) -> None:
+        super().__init__()
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+
+
+class _Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int) -> None:
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+
+class _Block(nn.Module):
+    """The parameters of one pre-norm block; the kernels compute it."""
+
+    def __init__(self, dim: int, hidden: int) -> None:
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.attn = _Attention(dim)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.mlp = _Mlp(dim, hidden)
+
+    def weights(self) -> Tuple[torch.Tensor, ...]:
+        """In the order of ``ops/transformer.py::BLOCK_WEIGHTS``."""
+        return (self.norm1.weight, self.norm1.bias,
+                self.attn.qkv.weight, self.attn.qkv.bias,
+                self.attn.proj.weight, self.attn.proj.bias,
+                self.norm2.weight, self.norm2.bias,
+                self.mlp.fc1.weight, self.mlp.fc1.bias,
+                self.mlp.fc2.weight, self.mlp.fc2.bias)
+
+
+class PoseFormer(MovementsModel):
+    """Predicts absolute joint locations (B, L, J, 3); the first and last
+    ``receptive_frames // 2`` frames, which no window centres on, stay
+    zeros and ``eval_slice`` leaves them out. ``clip_length`` only sets
+    ``eval_slice``, as in the JAX model."""
+    OUTPUT_TYPE = MovementsModelOutputType.absolute_loc
+
+    def __init__(self, clip_length: int = 30, receptive_frames: int = 9,
+                 single_joint_embeddings_size: int = 32, depth: int = 4,
+                 num_heads: int = 8, mlp_ratio: float = 2.0,
+                 drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
+                 generator: Optional[torch.Generator] = None,
+                 **kwargs) -> None:
+        if drop_rate > 0 or attn_drop_rate > 0:
+            raise NotImplementedError(
+                "PoseFormer's transformer kernels implement no dropout; "
+                "dropout is not ported (see ROADMAP.md)")
+        super().__init__(movements_output_type=self.OUTPUT_TYPE, **kwargs)
+        self.clip_length = clip_length
+        self.receptive_frames = receptive_frames
+        self.num_heads = num_heads
+        joints = len(self.input_nodes)
+        emb = single_joint_embeddings_size
+        dim = joints * emb
+        self.Spatial_patch_to_embedding = nn.Linear(2, emb)
+        self.Spatial_pos_embed = nn.Parameter(torch.zeros(1, joints, emb))
+        self.Spatial_blocks = nn.ModuleList(
+            _Block(emb, int(emb * mlp_ratio)) for _ in range(depth))
+        self.Spatial_norm = nn.LayerNorm(emb, eps=LN_EPS)
+        self.Temporal_pos_embed = nn.Parameter(
+            torch.zeros(1, receptive_frames, dim))
+        self.blocks = nn.ModuleList(
+            _Block(dim, int(dim * mlp_ratio)) for _ in range(depth))
+        self.Temporal_norm = nn.LayerNorm(dim, eps=LN_EPS)
+        # the reference's Conv1d(rf, 1, 1): weight (1, rf, 1), bias (1,)
+        self.weighted_mean = nn.Conv1d(receptive_frames, 1, 1)
+        self.head = nn.Sequential(
+            nn.LayerNorm(dim, eps=LN_EPS),
+            nn.Linear(dim, joints * self.output_features))
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Seeded init in the flax model's families: Dense kernels
+        lecun-normal and biases zero, position embeddings truncated
+        N(0, 0.02), the weighted mean N(0, 0.02) with a zero bias,
+        LayerNorms ones and zeros."""
+        for module in self.modules():
+            if isinstance(module, nn.Linear):
+                lecun_normal_(module.weight, generator)
+                nn.init.zeros_(module.bias)
+            elif isinstance(module, nn.LayerNorm):
+                nn.init.ones_(module.weight)
+                nn.init.zeros_(module.bias)
+        trunc_normal_(self.Spatial_pos_embed, 0.02, generator)
+        trunc_normal_(self.Temporal_pos_embed, 0.02, generator)
+        normal_(self.weighted_mean.weight, 0.02, generator)
+        nn.init.zeros_(self.weighted_mean.bias)
+
+    @property
+    def eval_slice(self):
+        shift = self.receptive_frames // 2
+        return slice(shift, self.clip_length - self.receptive_frames
+                     + shift + 1)
+
+    def spatial_weights(self) -> List[torch.Tensor]:
+        """The 14 weights of ``fused_spatial_stack``: each block weight
+        stacked over depth, then the final LayerNorm."""
+        per_block = [b.weights() for b in self.Spatial_blocks]
+        return [torch.stack(ws) for ws in zip(*per_block)] + [
+            self.Spatial_norm.weight, self.Spatial_norm.bias]
+
+    def temporal_weights(self) -> List[Tuple[torch.Tensor, ...]]:
+        return [b.weights() for b in self.blocks]
+
+    def forward(self, x: torch.Tensor, targets=None, training: bool = False):
+        B, L, J, _ = x.shape
+        rf = self.receptive_frames
+        W = L - rf + 1
+        if W < 1:
+            raise ValueError(f"clips of {L} frames are shorter than the "
+                             f"receptive field ({rf} frames)")
+        emb = self.Spatial_pos_embed.shape[-1]
+
+        # spatial stage: joints as tokens, once per distinct frame
+        s = self.Spatial_patch_to_embedding(x[..., :2]) + self.Spatial_pos_embed
+        s = fused_spatial_stack(s.reshape(B * L, J, emb),
+                                self.spatial_weights(), self.num_heads)
+
+        # temporal stage: the frames of each window as tokens
+        windows = s.reshape(B, L, J * emb).unfold(1, rf, 1)  # (B, W, D, rf)
+        t = windows.transpose(2, 3) + self.Temporal_pos_embed
+        t = fused_temporal_stack(t.reshape(B * W, rf, J * emb),
+                                 self.temporal_weights(), self.num_heads)
+        t = layer_norm(t, self.Temporal_norm.weight, self.Temporal_norm.bias)
+        pooled = torch.einsum("nfd,f->nd", t,
+                              self.weighted_mean.weight.reshape(rf)) \
+            + self.weighted_mean.bias
+        norm, linear = self.head
+        out = F.linear(layer_norm(pooled, norm.weight, norm.bias),
+                       linear.weight, linear.bias)
+
+        # window centres to their frames; the edge frames stay zeros
+        shift = rf // 2
+        full = out.new_zeros((B, L, J, self.output_features))
+        full[:, shift:shift + W] = out.reshape(B, W, J, self.output_features)
+        return self._finalize(full)
+
+    def _finalize(self, out: torch.Tensor):
+        return out
+
+
+class PoseFormerRot(PoseFormer):
+    """PoseFormer predicting relative joint rotations: 6 features per joint
+    -> (B, L, J, 3, 3) rotation matrices."""
+    OUTPUT_TYPE = MovementsModelOutputType.relative_rot
+
+    def _finalize(self, out: torch.Tensor):
+        return rotation_6d_to_matrix(out)

@@ -1,0 +1,112 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface, at first use, and loaded with ``ctypes``. The
+library goes into ``build/torch_kernels/`` beside the package, keyed by the
+source's name and a hash of the source and the flags (an edited ``.cu``
+rebuilds). Nothing here runs when a module is imported.
+"""
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, List
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: ctypes argument types: device pointers and the stream as ``c_void_p``
+#: (a plain int would be cut to 32 bits), sizes as ``c_int``
+PTR, INT = ctypes.c_void_p, ctypes.c_int
+
+#: loaded libraries, by source path
+_loaded: Dict[Path, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """nvcc of $CUDA_HOME (or $CUDA_PATH), else of $PATH, else of the
+    toolkit's default install prefix."""
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                           "build the kernels of csrc/")
+    return path
+
+
+def library_path(source: Path) -> Path:
+    """Where the library for ``source`` and the current flags lives."""
+    digest = hashlib.sha256(
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
+
+
+def build_library(source: Path) -> Path:
+    """Compile ``source`` unless its build exists. The compiler's output
+    (``-Xptxas -v``: registers, shared memory, spills) is kept beside it as
+    ``.log``. Raises on any failure."""
+    path = library_path(source)
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+            capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
+
+
+def load_library(source: Path, signatures: Dict[str, List]) -> ctypes.CDLL:
+    """The library of ``source``, built at first use in this process (a
+    launch then costs no hashing), with each C function of ``signatures``
+    given its argument types; every one returns a CUDA error code."""
+    if source not in _loaded:
+        lib = ctypes.CDLL(str(build_library(source)))
+        for name, argtypes in signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _loaded[source] = lib
+    return _loaded[source]
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise if a C launcher returned a CUDA error (a refused launch never
+    runs, and a later synchronisation would not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def check_cuda_tensors(fn_name: str, **tensors) -> torch.device:
+    """A kernel takes contiguous float32 tensors on one CUDA device; returns
+    that device."""
+    device = next(iter(tensors.values())).device
+    if device.type != "cuda":
+        raise ValueError(f"{fn_name} needs CUDA tensors, got {device}")
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, not {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return device

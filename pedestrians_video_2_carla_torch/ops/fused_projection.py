@@ -23,17 +23,10 @@ plain version under autograd, as the JAX package's custom VJP does;
 autograd of the plain version on the CPU.
 
 Each library is built with ``nvcc`` at first use, from the checkout's own
-source, into ``build/torch_kernels/`` beside the package, keyed by the
-source's name and a hash of the source and the flags (an edited ``.cu``
-rebuilds).
+source (``ops/cuda_build.py``).
 """
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -42,72 +35,25 @@ import torch
 
 from ..skeletons.carla import BONE_DEPTHS, PARENTS
 from . import camera as C
+from . import cuda_build
 from . import kinematics as K
+from .cuda_build import INT as _INT, PTR as _PTR
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCE = _CSRC / "fused_projection.cu"
-_TRAIN_SOURCE = _CSRC / "fused_projection_train.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_SOURCE = cuda_build.CSRC / "fused_projection.cu"
+_TRAIN_SOURCE = cuda_build.CSRC / "fused_projection_train.cu"
+BUILD_DIR = cuda_build.BUILD_DIR
 
 #: the tree, as the kernels' C interface takes it
 _PARENTS = np.ascontiguousarray(PARENTS, dtype=np.int32)
 _DEPTHS = np.ascontiguousarray(BONE_DEPTHS, dtype=np.int32)
 
-#: loaded libraries: "serve" and "train"
-_libs = {}
-
-
-def _nvcc() -> str:
-    """nvcc of $CUDA_HOME (or $CUDA_PATH), else of $PATH, else of the
-    toolkit's default install prefix."""
-    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
-        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
-            return os.path.join(home, "bin", "nvcc")
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build the kernels of csrc/")
-    return path
-
 
 def library_path(source: Optional[Path] = None) -> Path:
     """Where the library for ``source`` (default: the serving kernel's) and
     the current flags lives."""
-    source = _SOURCE if source is None else source
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
+    return cuda_build.library_path(_SOURCE if source is None else source)
 
 
-def build_library(source: Optional[Path] = None) -> Path:
-    """Compile ``source`` (default: the serving kernel's) unless its build
-    exists. The compiler's output (``-Xptxas -v``: registers, shared memory,
-    spills) is kept beside it as ``.log``. Raises on any failure."""
-    source = _SOURCE if source is None else source
-    path = library_path(source)
-    if path.exists():
-        return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
-            capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return path
-
-
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
 #: each library's C functions and their argument types
 _SIGNATURES = {
     "serve": {
@@ -124,15 +70,8 @@ _SIGNATURES = {
 def _library(which: str):
     """The loaded library of the serving (``"serve"``) or the training
     (``"train"``) kernels, built at first use."""
-    if which not in _libs:
-        source = {"serve": _SOURCE, "train": _TRAIN_SOURCE}[which]
-        lib = ctypes.CDLL(str(build_library(source)))
-        for name, argtypes in _SIGNATURES[which].items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _libs[which] = lib
-    return _libs[which]
+    source = {"serve": _SOURCE, "train": _TRAIN_SOURCE}[which]
+    return cuda_build.load_library(source, _SIGNATURES[which])
 
 
 def _check_inputs(pose_changes, rel_loc, rel_rot):
@@ -158,32 +97,17 @@ def _check_inputs(pose_changes, rel_loc, rel_rot):
                              f"{pose_changes.device}")
 
 
-def _check_cuda(fn_name: str, **tensors) -> None:
-    """A kernel takes contiguous float32 tensors on one CUDA device."""
-    device = next(iter(tensors.values())).device
-    if device.type != "cuda":
-        raise ValueError(f"{fn_name} needs CUDA tensors, got {device}")
-    for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, not {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def _launch(fn, device: torch.device, *args) -> None:
     """Call a C launcher on the current stream of ``device``: tensor
     arguments go as device pointers, then the tree and the camera."""
     *tensors, B, L, camera = args
     consts = (ctypes.c_float * 18)(*camera.constants())
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*(t.data_ptr() for t in tensors), B, L,
                  _PARENTS.ctypes.data, _DEPTHS.ctypes.data, len(_PARENTS),
-                 ctypes.cast(consts, ctypes.c_void_p), stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+                 ctypes.cast(consts, ctypes.c_void_p),
+                 torch.cuda.current_stream(device).cuda_stream)
+    cuda_build.check_launch(err, fn.__name__)
 
 
 def fused_projection_cuda(pose_changes: torch.Tensor, rel_loc: torch.Tensor,
@@ -193,8 +117,9 @@ def fused_projection_cuda(pose_changes: torch.Tensor, rel_loc: torch.Tensor,
     float32 contiguous CUDA tensors -> (B, L, J, 3). Adds one to
     ``fused_projection_cuda.launches`` per launch."""
     _check_inputs(pose_changes, rel_loc, rel_rot)
-    _check_cuda("fused_projection_cuda", pose_changes=pose_changes,
-                rel_loc=rel_loc, rel_rot=rel_rot)
+    cuda_build.check_cuda_tensors("fused_projection_cuda",
+                                  pose_changes=pose_changes, rel_loc=rel_loc,
+                                  rel_rot=rel_rot)
     B, L, J = pose_changes.shape[:3]
     out = torch.empty((B, L, J, 3), dtype=torch.float32,
                       device=pose_changes.device)
@@ -282,8 +207,9 @@ def fused_projection_train_cuda_fwd(pose_changes: torch.Tensor,
     abs_loc (B, L, J, 3), states (B, L, J, 9))``. Adds one to
     ``fused_projection_train_cuda_fwd.launches`` per launch."""
     _check_inputs(pose_changes, rel_loc, rel_rot)
-    _check_cuda("fused_projection_train_cuda_fwd", pose_changes=pose_changes,
-                rel_loc=rel_loc, rel_rot=rel_rot)
+    cuda_build.check_cuda_tensors("fused_projection_train_cuda_fwd",
+                                  pose_changes=pose_changes, rel_loc=rel_loc,
+                                  rel_rot=rel_rot)
     B, L, J = pose_changes.shape[:3]
     empty = functools.partial(torch.empty, dtype=torch.float32,
                               device=pose_changes.device)
@@ -322,9 +248,10 @@ def fused_projection_train_cuda_bwd(pose_changes: torch.Tensor,
                            ("g_abs", g_abs, (B, L, J, 3))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    _check_cuda("fused_projection_train_cuda_bwd", pose_changes=pose_changes,
-                rel_loc=rel_loc, rel_rot=rel_rot, states=states,
-                g_proj=g_proj, g_abs=g_abs)
+    cuda_build.check_cuda_tensors("fused_projection_train_cuda_bwd",
+                                  pose_changes=pose_changes, rel_loc=rel_loc,
+                                  rel_rot=rel_rot, states=states,
+                                  g_proj=g_proj, g_abs=g_abs)
     d_changes = torch.empty_like(pose_changes)
     if d_changes.numel() == 0:
         return d_changes, torch.zeros_like(rel_loc), torch.zeros_like(rel_rot)

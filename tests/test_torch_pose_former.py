@@ -1,0 +1,228 @@
+"""Port parity for the PoseFormer serving slice: the flax -> PyTorch weight
+bridge, ``PoseFormer`` and ``PoseFormerRot`` against the JAX models on both
+their xla and pallas paths (interpret mode on the CPU), and the slice (the
+pose-lifting flow's ``eval_step`` losses and ``make_inference_fn``
+predictions) against the JAX flow with the same weights and batch; the
+configurations that are not ported raise; the CLI serves the model."""
+import functools
+import math
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from pedestrians_video_2_carla_tpu.data.carla import carla_2d3d as JD
+from pedestrians_video_2_carla_tpu.flows.pose_lifting import \
+    PoseLiftingFlow as JPoseLiftingFlow
+from pedestrians_video_2_carla_tpu.losses import LossModes as JLossModes
+from pedestrians_video_2_carla_tpu.models.base import OptimizerSettings
+from pedestrians_video_2_carla_tpu.models.movements.pose_former import (
+    PoseFormer as JPoseFormer, PoseFormerRot as JPoseFormerRot)
+
+from pedestrians_video_2_carla_torch import modeling
+from pedestrians_video_2_carla_torch.flows.pose_lifting import PoseLiftingFlow
+from pedestrians_video_2_carla_torch.models.jax_import import (
+    import_flow_params, import_pose_former)
+from pedestrians_video_2_carla_torch.models.movements.pose_former import (
+    PoseFormer, PoseFormerRot)
+from pedestrians_video_2_carla_torch.serving import make_inference_fn
+
+B, L = 2, 5
+#: a small PoseFormer: frame_dim 26 x 8 = 208, MLP hidden 416
+SMALL = dict(clip_length=L, receptive_frames=3,
+             single_joint_embeddings_size=8, depth=2, num_heads=4)
+ATOL = 1e-5
+
+
+def _close(port, ref, atol, rtol=0.0, msg=""):
+    np.testing.assert_allclose(np.asarray(port), np.asarray(ref),
+                               atol=atol, rtol=rtol, err_msg=msg)
+
+
+class _JRaw(JPoseFormerRot):
+    """The JAX PoseFormerRot's 6D output, before Gram-Schmidt."""
+
+    def _finalize(self, out):
+        return out
+
+
+class _Raw(PoseFormerRot):
+    def _finalize(self, out):
+        return out
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_model_case(name, path):
+    """Input, params and output of a JAX model ("PoseFormer",
+    "PoseFormerRot" or the raw "_JRaw") on the "xla" or "pallas" path."""
+    cls = {"PoseFormer": JPoseFormer, "PoseFormerRot": JPoseFormerRot,
+           "_JRaw": _JRaw}[name]
+    x = np.random.default_rng(22742).standard_normal(
+        (B, L, 26, 2)).astype(np.float32)
+    model = cls(**SMALL, spatial_kernel=path, temporal_kernel=path)
+    variables = model.init(jax.random.PRNGKey(3), x)
+    return x, jax.device_get(variables["params"]), np.asarray(
+        model.apply(variables, x))
+
+
+def _port_output(cls, params, x):
+    model = cls(**SMALL)
+    model.load_state_dict(import_pose_former(params))
+    with torch.no_grad():
+        return model(torch.from_numpy(x)).numpy()
+
+
+@pytest.mark.parametrize("path", ["xla", "pallas"])
+def test_pose_former_matches_jax(path):
+    x, params, ref = _jax_model_case("PoseFormer", path)
+    out = _port_output(PoseFormer, params, x)
+    assert out.shape == ref.shape == (B, L, 26, 3)
+    _close(out, ref, ATOL)
+
+
+@pytest.mark.parametrize("path", ["xla", "pallas"])
+def test_pose_former_rot_matches_jax(path):
+    # the 6D output to 1e-5 on both paths
+    x, params, raw = _jax_model_case("_JRaw", path)
+    _close(_port_output(_Raw, params, x), raw, ATOL)
+    # the rotation matrices: Gram-Schmidt divides 6D differences of a few
+    # 1e-6 by the 6D vectors' norms (down to about 0.4 here), and XLA's and
+    # PyTorch's rsqrt differ by ulps; the JAX package's own xla and pallas
+    # paths differ by 1.4e-5 on this input, so the bar here is 3e-5
+    x, params, ref = _jax_model_case("PoseFormerRot", path)
+    out = _port_output(PoseFormerRot, params, x)
+    assert out.shape == ref.shape == (B, L, 26, 3, 3)
+    _close(out, ref, 3e-5)
+
+
+def test_bridge_names_every_parameter():
+    _, params, _ = _jax_model_case("PoseFormer", "xla")
+    state_dict = import_pose_former(params)
+    model = PoseFormer(**SMALL)
+    assert set(state_dict) == set(model.state_dict())
+    for k, v in model.state_dict().items():
+        assert state_dict[k].shape == v.shape, k
+    assert state_dict["Spatial_blocks.1.attn.qkv.weight"].shape == (24, 8)
+    assert state_dict["blocks.0.mlp.fc1.weight"].shape == (416, 208)
+    np.testing.assert_array_equal(
+        state_dict["blocks.1.attn.qkv.weight"].numpy(),
+        params["temporal_block_1"]["_Attention_0"]["qkv"]["kernel"].T)
+
+
+def test_bridge_rejects_unknown_and_missing_leaves():
+    _, params, _ = _jax_model_case("PoseFormer", "xla")
+    extra = dict(params, spatial_block_0=dict(
+        params["spatial_block_0"], LayerNorm_2={"scale": np.ones(8)}))
+    with pytest.raises(ValueError, match="unknown"):
+        import_pose_former(extra)
+    missing = dict(params)
+    del missing["head_norm"]
+    with pytest.raises(ValueError, match="missing"):
+        import_pose_former(missing)
+    missing = dict(params, temporal_block_1=dict(params["temporal_block_1"]))
+    del missing["temporal_block_1"]["_Mlp_0"]
+    with pytest.raises(ValueError, match="missing"):
+        import_pose_former(missing)
+
+
+def test_seeded_init_and_eval_slice():
+    def make(seed, cls=PoseFormer):
+        return cls(**SMALL, generator=torch.Generator().manual_seed(seed))
+    a, b, c = make(7), make(7), make(8)
+    for (name, p), q, r in zip(a.state_dict().items(),
+                               b.state_dict().values(),
+                               c.state_dict().values()):
+        assert torch.equal(p, q), name
+    assert not torch.equal(a.Temporal_pos_embed, c.Temporal_pos_embed)
+    w = a.state_dict()["blocks.0.attn.qkv.weight"]
+    assert float(w.abs().max()) <= 2 / 0.87962566103423978 / math.sqrt(208)
+    assert abs(float(w.std()) * math.sqrt(208) - 1) < 0.05  # lecun normal
+    assert make(0, PoseFormerRot).head[1].out_features == 26 * 6
+
+    j = JPoseFormer(clip_length=16)
+    model = PoseFormer(clip_length=16, depth=1)
+    assert model.eval_slice == j.eval_slice == slice(4, 12)
+    x = torch.randn(2, 16, 26, 2)
+    with torch.no_grad():
+        out = model(x)
+    assert out.shape == (2, 16, 26, 3)
+    assert not out[:, :4].any() and not out[:, 12:].any()
+    assert out[:, 4:12].abs().min() > 0
+
+
+def test_what_is_not_ported_raises():
+    for kw in (dict(drop_rate=0.1), dict(attn_drop_rate=0.1)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            PoseFormer(**SMALL, **kw)
+    model = PoseFormer(**SMALL)
+    out = model(torch.randn(B, L, 26, 2))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        out.sum().backward()
+    with pytest.raises(ValueError, match="receptive field"):
+        model(torch.randn(B, 2, 26, 2))
+
+
+# -- the whole slice ---------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _jax_flow_case():
+    batch = jax.device_get(JD.generate_batch(
+        jax.random.PRNGKey(0), JD.Carla2D3DConfig(batch_size=B,
+                                                  clip_length=L)))
+    flow = JPoseLiftingFlow(movements_model=JPoseFormer(**SMALL),
+                            loss_modes=[JLossModes.loc_2d_3d],
+                            movements_optimizer=OptimizerSettings(lr=1e-3))
+    state = flow.init_state(jax.random.PRNGKey(1), batch)
+    losses, preds, _ = jax.device_get(jax.jit(flow.eval_step)(state, batch))
+    return jax.device_get(state.params), batch, losses, preds
+
+
+def _to_torch(tree):
+    if isinstance(tree, dict):
+        return {k: _to_torch(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree))
+
+
+def test_slice_matches_jax_flow():
+    j_params, j_batch, j_losses, j_preds = _jax_flow_case()
+    flow = PoseLiftingFlow(PoseFormer(**SMALL), loss_modes=["loc_2d_3d"],
+                           device="cpu")
+    params = import_flow_params(j_params, device="cpu")
+    batch = (_to_torch(j_batch[0]), _to_torch(j_batch[1]),
+             _to_torch(j_batch[2]))
+
+    losses, _, _ = flow.eval_step(params, batch)
+    assert set(losses) == set(j_losses) == {"loc_2d", "loc_3d", "loc_2d_3d"}
+    for k, ref in j_losses.items():
+        _close(losses[k], ref, atol=0, rtol=1e-4, msg=k)
+
+    preds = make_inference_fn(flow, params)(batch[0],
+                                            batch[2]["age_gender_idx"])
+    assert set(preds) == {k for k, v in j_preds.items() if v is not None}
+    for k, v in preds.items():
+        ref = j_preds[k]
+        assert v.shape == ref.shape, k
+        assert torch.isfinite(v).all(), k
+        if k == "projection_2d":
+            _close(v[..., :2], ref[..., :2], atol=1e-3, msg=k)
+            _close(v[..., 2], ref[..., 2], atol=1e-4, msg=k)
+        else:
+            _close(v, ref, atol=1e-4, msg=k)
+
+
+def test_cli_serves_pose_former(tmp_path):
+    result = modeling.main([
+        "--mode=test", "--movements_model_name=PoseFormer", "--device=cpu",
+        "--batch_size=2", "--clip_length=5", "--test_set_size=4",
+        "--receptive_frames=3", "--single_joint_embeddings_size=8",
+        "--depth=1", "--num_heads=2", "--loss_modes", "loc_2d_3d",
+        f"--root_dir={tmp_path}", "--run_name=pf"])
+    model = result["flow"].movements_model
+    assert isinstance(model, PoseFormer)
+    assert (model.clip_length, model.receptive_frames, len(model.blocks),
+            model.num_heads) == (5, 3, 1, 2)
+    assert model.eval_slice == slice(1, 4)
+    metrics = result["test_metrics"]
+    assert {"test_loss/loc_2d_3d", "test_loss/primary"} <= set(metrics)
+    assert all(math.isfinite(v) for v in metrics.values())

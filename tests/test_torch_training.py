@@ -507,7 +507,7 @@ def test_cli_test_mode_evaluates_a_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     "--flow=autoencoder", "--mode=predict", "--data_module_name=JAADOpenPose",
-    "--movements_model_name=PoseFormer", "--loss_modes=rot_3d"])
+    "--movements_model_name=VideoPose3D", "--loss_modes=rot_3d"])
 def test_cli_names_what_is_not_ported(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         modeling.main([flag, "--device=cpu"])
