@@ -60,8 +60,7 @@ Phases, each printing one JSON line:
                      launch; outputs finite over the eval slice and equal to
                      the same model through the plain stage functions (1e-3
                      px on x, y; 1e-4 elsewhere); eval_step's loc_2d_3d
-                     equal to rtol 1e-4; a backward through the model
-                     raises NotImplementedError.
+                     equal to rtol 1e-4; no backward kernel launched.
  11. timing_poseformer -- CUDA-event medians of both kernels (L2 cold and
                      warm), their plain versions and their library
                      yardsticks (torch.nn.TransformerEncoderLayer stacks,
@@ -69,6 +68,31 @@ Phases, each printing one JSON line:
                      bar); the host-clock median of a request and a
                      CUDA-event split of it into spatial stage, temporal
                      stage and the rest; each kernel's bound.
+ 12. kernel_spatial_bwd -- the spatial stack's backward kernel against
+                     autograd of its plain version, seeded weights and
+                     cotangents, N in {16384, 16381, 5}: dx and each weight
+                     gradient over its largest magnitude within rtol 1e-4 /
+                     atol 1e-5; two launches give the same bits.
+ 13. kernel_temporal_bwd -- the same checks for the temporal block's
+                     backward (T=9, D=832, 8 heads, N in {8192, 8189, 3}) and
+                     for autograd through the depth-4 fused_temporal_stack.
+ 14. train_poseformer -- Trainer.fit of PoseLiftingFlow(PoseFormer(
+                     clip_length=16), loc_2d_3d), AdamW lr 1e-3, on Carla2D3D
+                     (B=1024, L=16): 10 steps and 2 validation batches; per
+                     step 1 spatial + 4 temporal forward and 1 spatial + 4
+                     temporal backward launches, no projection kernel;
+                     logged losses finite, the last 3 train losses below the
+                     first; the last checkpoint restores exactly. Then the
+                     fit's 10 training_steps again, of the kernel flow and
+                     of the same model through the plain stage functions,
+                     from the same params on the same batches: losses equal
+                     to rtol 1e-4 at every step.
+ 15. timing_poseformer_train -- CUDA-event medians of both backward kernels
+                     (L2 cold and warm), autograd of their plain versions and
+                     the backward of TransformerEncoderLayer yardsticks;
+                     each kernel's bound; the host-clock median of a B=1024
+                     training_step and a CUDA-event split of it (forward,
+                     spatial backward, temporal backward, the rest).
 Then the card line, the kernels line, and the contract line last. Any
 failure raises and ends the run with a non-zero exit.
 """
@@ -92,6 +116,7 @@ LOSS_RTOL = 1e-4
 ABS_TOL = 1e-5                          # abs_loc, metres
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5       # gradients over their largest value
 TRAIN_STEPS, VAL_BATCHES, PARITY_STEPS = 20, 2, 3
+PF_TIMING_RUNS = 10
 LR = 1e-3
 #: PoseFormer serving: the JAX bench's serving shape (bench.py:753), the
 #: published widths, and the bar of both transformer kernels against their
@@ -104,6 +129,14 @@ KERNEL_BAR = 1e-5
 #: kernel-check sizes: the main path's N (B*L frames, B*W windows) and
 #: ragged ones
 SPATIAL_NS, TEMPORAL_NS = (4096, 4093, 5), (2048, 2045, 3)
+#: PoseFormer training: the JAX bench's train shape (bench.py:645-662,
+#: B=1024, L=16), its steps, and the backward kernels' check sizes (the
+#: train step's N and ragged ones)
+PF_TRAIN_STEPS = 10
+SPATIAL_BWD_NS, TEMPORAL_BWD_NS = (16384, 16381, 5), (8192, 8189, 3)
+SPATIAL_NAMES = ("x", "ln1_s", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
+                 "ln2_s", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b",
+                 "lnf_s", "lnf_b")
 #: H100 memory rates (NVIDIA data sheets), bytes/s, and the float32 (non
 #: tensor-core) peak of the SXM part, FLOP/s
 HBM_RATE = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
@@ -168,7 +201,9 @@ def kernel_wrappers():
             "fused_projection_train_fwd": FP.fused_projection_train_cuda_fwd,
             "fused_projection_train_bwd": FP.fused_projection_train_cuda_bwd,
             "fused_spatial_stack": FS.fused_spatial_stack_cuda,
-            "fused_temporal_block": FT.fused_temporal_block_cuda}
+            "fused_temporal_block": FT.fused_temporal_block_cuda,
+            "fused_spatial_stack_bwd": FS.fused_spatial_stack_cuda_bwd,
+            "fused_temporal_block_bwd": FT.fused_temporal_block_cuda_bwd}
 
 
 def kernel_counts():
@@ -398,7 +433,9 @@ def phase_train(dm):
         expected = {"fused_projection": 0,
                     "fused_projection_train_fwd": TRAIN_STEPS + VAL_BATCHES,
                     "fused_projection_train_bwd": TRAIN_STEPS,
-                    "fused_spatial_stack": 0, "fused_temporal_block": 0}
+                    "fused_spatial_stack": 0, "fused_temporal_block": 0,
+                    "fused_spatial_stack_bwd": 0,
+                    "fused_temporal_block_bwd": 0}
         if counts != expected:
             raise AssertionError(f"train launches {counts}, expected "
                                  f"{expected}")
@@ -711,6 +748,16 @@ def random_block_weights(rng, dim, lead=()):
             w(dim, hidden, scale=hidden ** -0.5), w(dim, scale=0.1)]
 
 
+def random_spatial_weights(rng):
+    """The spatial stack's 14 weights (depth PF_DEPTH), LayerNorms away
+    from ones and zeros, on the card."""
+    return random_block_weights(rng, PF_EMB, lead=(PF_DEPTH,)) + [
+        torch.from_numpy((1 + 0.2 * rng.standard_normal(PF_EMB)).astype(
+            np.float32)).cuda(),
+        torch.from_numpy((0.2 * rng.standard_normal(PF_EMB)).astype(
+            np.float32)).cuda()]
+
+
 def bar_err(out, ref):
     """(max |out - ref|, that over max |ref|)."""
     err = float((out - ref).abs().max())
@@ -722,11 +769,7 @@ def phase_kernel_spatial():
         fused_spatial_transformer as FS
 
     rng = np.random.default_rng(SEED + 3)
-    weights = random_block_weights(rng, PF_EMB, lead=(PF_DEPTH,)) + [
-        torch.from_numpy((1 + 0.2 * rng.standard_normal(PF_EMB)).astype(
-            np.float32)).cuda(),
-        torch.from_numpy((0.2 * rng.standard_normal(PF_EMB)).astype(
-            np.float32)).cuda()]
+    weights = random_spatial_weights(rng)
     worst = 0.0
     for n in SPATIAL_NS:
         x = torch.from_numpy(rng.standard_normal(
@@ -838,9 +881,10 @@ def phase_serve_poseformer(batches):
             raise AssertionError(f"request {i}: launches {counts}")
     torch.cuda.synchronize()
     counts = kernel_counts()
-    if any(v for k, v in counts.items() if k.startswith("fused_projection")):
-        raise AssertionError(f"PoseFormer serving launched a projection "
-                             f"kernel: {counts}")
+    if any(v for k, v in counts.items()
+           if k.startswith("fused_projection") or k.endswith("_bwd")):
+        raise AssertionError(f"PoseFormer serving launched a projection or "
+                             f"a backward kernel: {counts}")
 
     keep = model.eval_slice
     W = keep.stop - keep.start
@@ -874,25 +918,12 @@ def phase_serve_poseformer(batches):
             raise AssertionError(f"loc_2d_3d kernels {a} vs plain {b}")
         losses.append((a, b))
 
-    # the kernels' backward is the next slice: a backward through the
-    # model on the card raises
-    inputs = batches[0][0][:16]
-    leaves = {k: v.detach().clone().requires_grad_(True)
-              for k, v in params["movements"].items()}
-    out = torch.func.functional_call(model, leaves, (inputs,))
-    try:
-        out.sum().backward()
-    except NotImplementedError as e:
-        backward = str(e)
-    else:
-        raise AssertionError("a backward through PoseFormer did not raise")
     emit({"phase": "serve_poseformer", "B": PF_BATCH, "L": CLIP,
           "requests": len(batches), "launches": counts,
           "eval_slice": [keep.start, keep.stop],
           "max_abs_err_xy_px_vs_plain": worst_xy,
           "max_abs_err_other_vs_plain": worst_other,
-          "loc_2d_3d_kernels_vs_plain": losses,
-          "backward_raises": backward})
+          "loc_2d_3d_kernels_vs_plain": losses})
     return flow, params, counts
 
 
@@ -922,6 +953,19 @@ def encoder_layer(dim, weights):
     return layer
 
 
+def spatial_encoder_stack(ws):
+    """The spatial stack's library yardstick: PF_DEPTH
+    TransformerEncoderLayers and a LayerNorm loaded with its 14 weights."""
+    stack = torch.nn.Sequential(
+        *(encoder_layer(PF_EMB, [w[d] for w in ws[:12]])
+          for d in range(PF_DEPTH)),
+        torch.nn.LayerNorm(PF_EMB, eps=1e-5).cuda())
+    with torch.no_grad():
+        stack[-1].weight.copy_(ws[12])
+        stack[-1].bias.copy_(ws[13])
+    return stack
+
+
 def phase_timing_poseformer(flow, params, batches, card, hbm_rate):
     from pedestrians_video_2_carla_torch.ops import flops as F
     from pedestrians_video_2_carla_torch.ops import \
@@ -944,12 +988,7 @@ def phase_timing_poseformer(flow, params, batches, card, hbm_rate):
         xt = xt.contiguous()
         wt = [w.detach() for w in model.temporal_weights()[0]]
 
-        spatial_lib = torch.nn.Sequential(
-            *(encoder_layer(PF_EMB, [w[d] for w in ws[:12]])
-              for d in range(PF_DEPTH)),
-            torch.nn.LayerNorm(PF_EMB, eps=1e-5).cuda())
-        spatial_lib[-1].weight.copy_(ws[12])
-        spatial_lib[-1].bias.copy_(ws[13])
+        spatial_lib = spatial_encoder_stack(ws)
         temporal_lib = encoder_layer(PF_DIM, wt)
         # the yardsticks compute the kernels' function: held to the plain
         # versions within the kernel bar before they are timed
@@ -1055,6 +1094,365 @@ def phase_timing_poseformer(flow, params, batches, card, hbm_rate):
                    "bound_by": t["bound_by"]} for name, t in times.items()}
 
 
+def check_grads(phase, what, n, names, got, again, ref):
+    """Each gradient against autograd of the plain version (over its
+    largest magnitude: rtol 1e-4, atol 1e-5) and a second launch's bits;
+    emits the worst and returns the largest absolute error."""
+    torch.cuda.synchronize()
+    scaled, errs, bad = {}, {}, []
+    for name, a, r in zip(names, got, ref):
+        scaled[name], ok = scaled_err(a, r)
+        errs[name] = float((a - r).abs().max())
+        if not (ok and torch.isfinite(a).all()):
+            bad.append(name)
+    same = again is None or all(torch.equal(a, b) for a, b in zip(got, again))
+    emit({"phase": phase, "entry": what, "N": n,
+          "max_scaled_err": max(scaled.values()),
+          "worst": max(scaled, key=scaled.get),
+          "max_abs_err": max(errs.values()), "scaled_err": scaled,
+          "same_bits_twice": same})
+    if bad or not same:
+        raise AssertionError(
+            f"{what} backward at N={n}: {bad} outside rtol {GRAD_RTOL} / "
+            f"atol {GRAD_ATOL} of autograd of the plain version ({scaled}); "
+            f"same bits twice: {same}")
+    return max(errs.values())
+
+
+def plain_grads(fn, inputs, g):
+    """Autograd of ``fn`` over fresh leaves of ``inputs``, cotangent g."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    return torch.autograd.grad(fn(leaves), leaves, g)
+
+
+def phase_kernel_spatial_bwd():
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_spatial_transformer as FS
+
+    rng = np.random.default_rng(SEED + 5)
+    weights = random_spatial_weights(rng)
+    worst = 0.0
+    for n in SPATIAL_BWD_NS:
+        x, g = (torch.from_numpy(rng.standard_normal(
+            (n, PF_JOINTS, PF_EMB)).astype(np.float32)).cuda()
+            for _ in range(2))
+        dx, dws = FS.fused_spatial_stack_cuda_bwd(x, weights, g, PF_HEADS)
+        dx2, dws2 = FS.fused_spatial_stack_cuda_bwd(x, weights, g, PF_HEADS)
+        ref = plain_grads(lambda t: FS.spatial_stack_reference(
+            t[0], t[1:], PF_HEADS), [x, *weights], g)
+        worst = max(worst, check_grads(
+            "kernel_spatial_bwd", "fused_spatial_stack_cuda_bwd", n,
+            SPATIAL_NAMES, [dx, *dws], [dx2, *dws2], ref))
+    return worst
+
+
+def phase_kernel_temporal_bwd():
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_temporal_transformer as FT
+
+    rng = np.random.default_rng(SEED + 6)
+    blocks = [random_block_weights(rng, PF_DIM) for _ in range(PF_DEPTH)]
+    names = SPATIAL_NAMES[:13]
+    worst = 0.0
+    for n in TEMPORAL_BWD_NS:
+        x, g = (torch.from_numpy(rng.standard_normal(
+            (n, PF_RF, PF_DIM)).astype(np.float32)).cuda() for _ in range(2))
+        _, saved = FT.fused_temporal_block_cuda(x, blocks[0], PF_HEADS,
+                                                keep=True)
+        dx, dws = FT.fused_temporal_block_cuda_bwd(x, blocks[0], saved, g,
+                                                   PF_HEADS)
+        dx2, dws2 = FT.fused_temporal_block_cuda_bwd(x, blocks[0], saved, g,
+                                                     PF_HEADS)
+        del saved
+        ref = plain_grads(lambda t: FT.temporal_block_reference(
+            t[0], t[1:], PF_HEADS), [x, *blocks[0]], g)
+        worst = max(worst, check_grads(
+            "kernel_temporal_bwd", "fused_temporal_block_cuda_bwd", n, names,
+            [dx, *dws], [dx2, *dws2], ref))
+        del ref
+    # autograd through the depth-4 stack: kernel forward and backward
+    n = TEMPORAL_BWD_NS[0]
+    x, g = (torch.from_numpy(rng.standard_normal(
+        (n, PF_RF, PF_DIM)).astype(np.float32)).cuda() for _ in range(2))
+    flat = [x] + [w for ws in blocks for w in ws]
+
+    def unflat(t):
+        return t[0], [t[1 + 12 * b:13 + 12 * b] for b in range(PF_DEPTH)]
+    got = plain_grads(lambda t: FT.fused_temporal_stack(*unflat(t),
+                                                        PF_HEADS), flat, g)
+    ref = plain_grads(lambda t: plain_temporal_stack(*unflat(t), PF_HEADS),
+                      flat, g)
+    stack_names = ["x"] + [f"{b}.{k}" for b in range(PF_DEPTH)
+                           for k in names[1:]]
+    worst = max(worst, check_grads(
+        "kernel_temporal_bwd", "fused_temporal_stack (autograd)", n,
+        stack_names, got, None, ref))
+    return worst
+
+
+def make_pf_train_flow():
+    from pedestrians_video_2_carla_torch.flows.pose_lifting import \
+        PoseLiftingFlow
+    from pedestrians_video_2_carla_torch.models.base import OptimizerSettings
+    from pedestrians_video_2_carla_torch.models.movements.pose_former import \
+        PoseFormer
+
+    model = PoseFormer(clip_length=CLIP,
+                       generator=torch.Generator().manual_seed(SEED))
+    return PoseLiftingFlow(model, loss_modes=["loc_2d_3d"],
+                           movements_optimizer=OptimizerSettings(lr=LR))
+
+
+def phase_train_poseformer(dm):
+    """PoseFormer's training path through the port's Trainer, then the
+    per-step agreement of the kernel stages and the plain ones."""
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_spatial_transformer as FS
+    from pedestrians_video_2_carla_torch.training.trainer import (
+        Trainer, TrainerConfig)
+
+    flow = make_pf_train_flow()
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(flow, dm, TrainerConfig(
+            max_epochs=1, limit_train_batches=PF_TRAIN_STEPS,
+            limit_val_batches=VAL_BATCHES, log_every_n_steps=1, seed=SEED,
+            logs_dir=tmp, run_name="pf"))
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        state = trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = kernel_counts()
+        batches = PF_TRAIN_STEPS + VAL_BATCHES
+        expected = {"fused_projection": 0, "fused_projection_train_fwd": 0,
+                    "fused_projection_train_bwd": 0,
+                    "fused_spatial_stack": batches,
+                    "fused_temporal_block": PF_DEPTH * batches,
+                    "fused_spatial_stack_bwd": PF_TRAIN_STEPS,
+                    "fused_temporal_block_bwd": PF_DEPTH * PF_TRAIN_STEPS}
+        if counts != expected:
+            raise AssertionError(f"PoseFormer train launches {counts}, "
+                                 f"expected {expected}")
+        run = os.path.join(tmp, "pf")
+        ckpts = os.path.join(run, "checkpoints")
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        bad = {k: v for r in records for k, v in r.items()
+               if "_loss/" in k and not np.isfinite(v)}
+        if bad:
+            raise AssertionError(f"non-finite logged losses {bad}")
+        steps = [r["train_loss/primary"] for r in records
+                 if "lr-movements" in r]
+        if len(steps) != PF_TRAIN_STEPS:
+            raise AssertionError(f"{len(steps)} step records, expected "
+                                 f"{PF_TRAIN_STEPS}")
+        if not max(steps[-3:]) < steps[0]:
+            raise AssertionError(f"train loss did not fall: {steps}")
+        val = records[-1]["val_loss/primary"]
+        restored = flow.init_state()
+        trainer.checkpoints.restore(restored, os.path.join(ckpts, "last"))
+        opt, opt_back = (st.optimizer.state_dict()["state"]
+                         for st in (state, restored))
+        same = all(torch.equal(restored.params[n][k], v)
+                   for n, tree in state.params.items()
+                   for k, v in tree.items()) and all(
+            torch.equal(torch.as_tensor(v), torch.as_tensor(opt_back[i][k]))
+            for i, st in opt.items() for k, v in st.items())
+        if not (same and restored.step == state.step == PF_TRAIN_STEPS):
+            raise AssertionError("the last checkpoint does not restore the "
+                                 "trained params and AdamW state")
+        del state, restored, trainer
+
+    # the kernel stages and the plain ones, step by step from the same params
+    # over the fit's batches
+    params = flow.init_params()
+    states = {"kernels": flow.init_state(params),
+              "plain": flow.init_state(params)}
+    stream = dm.train_batches(SEED)
+    worst, per_step = 0.0, []
+    for _ in range(PF_TRAIN_STEPS):
+        batch = next(stream)
+        _, logs_k = flow.training_step(states["kernels"], batch)
+        with stage_functions(FS.spatial_stack_reference,
+                             plain_temporal_stack):
+            _, logs_p = flow.training_step(states["plain"], batch)
+        row = {}
+        for k in logs_p:
+            a, b = float(logs_k[k]), float(logs_p[k])
+            rel = abs(a - b) / abs(b)
+            if not rel <= LOSS_RTOL:
+                raise AssertionError(f"{k}: kernels {a} vs plain {b}")
+            worst = max(worst, rel)
+            row[k] = [a, b]
+        per_step.append(row)
+    emit({"phase": "train_poseformer", "B": BATCH, "L": CLIP,
+          "steps": PF_TRAIN_STEPS, "val_batches": VAL_BATCHES,
+          "launches": counts, "fit_seconds": fit_s,
+          "train_loss_primary": steps, "val_loss_primary": val,
+          "restored_equal": same, "kernels_vs_plain_losses": per_step,
+          "kernels_vs_plain_max_rel": worst})
+    return counts
+
+
+def phase_timing_poseformer_train(dm, card, hbm_rate):
+    from pedestrians_video_2_carla_torch.losses import primary_loss
+    from pedestrians_video_2_carla_torch.ops import flops as F
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_spatial_transformer as FS
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_temporal_transformer as FT
+
+    flow = make_pf_train_flow()
+    model = flow.movements_model
+    batch = next(dm.train_batches(SEED + 7))
+    inputs = batch[0]
+    B, L = inputs.shape[:2]
+    W = L - PF_RF + 1
+    rng = np.random.default_rng(SEED + 8)
+
+    def randn(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda()
+    with torch.no_grad():
+        xs = (model.Spatial_patch_to_embedding(inputs[..., :2])
+              + model.Spatial_pos_embed).reshape(B * L, PF_JOINTS, PF_EMB)
+        ws = [w.detach().contiguous() for w in model.spatial_weights()]
+        s = FS.fused_spatial_stack_cuda(xs, ws, PF_HEADS)
+        xt = (s.reshape(B, L, PF_DIM).unfold(1, PF_RF, 1).transpose(2, 3)
+              + model.Temporal_pos_embed).reshape(B * W, PF_RF, PF_DIM)
+        xt = xt.contiguous()
+        wt = [w.detach() for w in model.temporal_weights()[0]]
+        _, saved = FT.fused_temporal_block_cuda(xt, wt, PF_HEADS, keep=True)
+    gs, gt = randn(tuple(xs.shape)), randn(tuple(xt.shape))
+
+    def graph(fn, inputs):
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        return fn(leaves), leaves
+    plain_s = graph(lambda t: FS.spatial_stack_reference(t[0], t[1:],
+                                                         PF_HEADS), [xs, *ws])
+    plain_t = graph(lambda t: FT.temporal_block_reference(t[0], t[1:],
+                                                          PF_HEADS), [xt, *wt])
+    spatial_lib = spatial_encoder_stack(ws)
+    temporal_lib = encoder_layer(PF_DIM, wt)
+    lib_s = graph(lambda t: spatial_lib(t[0]), [xs])
+    lib_t = graph(lambda t: temporal_lib(t[0]), [xt])
+    lib_s = (lib_s[0], lib_s[1] + list(spatial_lib.parameters()))
+    lib_t = (lib_t[0], lib_t[1] + list(temporal_lib.parameters()))
+
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+
+    def flush_l2():  # 256 MB write: far more than the 50 MB L2
+        scratch.zero_()
+
+    def backward_of(out_leaves, g):
+        out, leaves = out_leaves
+        return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+    cases = {
+        "spatial": (lambda: FS.fused_spatial_stack_cuda_bwd(xs, ws, gs,
+                                                            PF_HEADS),
+                    backward_of(plain_s, gs), backward_of(lib_s, gs)),
+        "temporal": (lambda: FT.fused_temporal_block_cuda_bwd(
+            xt, wt, saved, gt, PF_HEADS),
+                     backward_of(plain_t, gt), backward_of(lib_t, gt))}
+    times = {}
+    for name, (kernel, plain, lib) in cases.items():
+        times[name] = {"ms_cold_l2": cuda_median_ms(kernel, flush=flush_l2),
+                       "ms_warm_l2": cuda_median_ms(kernel),
+                       "plain_ms": cuda_median_ms(plain),
+                       "library_ms": cuda_median_ms(lib)}
+    del cases, plain_s, plain_t, lib_s, lib_t
+
+    # bounds: inputs read once (x, g, the weights; the temporal block's saved
+    # scratch), outputs written once (dx, the weight gradients), against the
+    # backward's matmul FLOPs (ops/flops.py) at the fp32 peak
+    n_ws = sum(w.numel() for w in ws)
+    n_wt = sum(w.numel() for w in wt)
+    work = {"spatial": (4 * (3 * xs.numel() + 2 * n_ws),
+                        PF_DEPTH * F.transformer_block_backward_flops(
+                            xs.shape[0] * PF_JOINTS, PF_EMB, 2.0, PF_JOINTS)),
+            "temporal": (4 * (3 * xt.numel() + sum(t.numel() for t in saved)
+                              + 2 * n_wt),
+                         F.transformer_block_backward_flops(
+                             xt.shape[0] * PF_RF, PF_DIM, 2.0, PF_RF))}
+    for name, (nbytes, nflop) in work.items():
+        t_bytes, t_flop = nbytes / hbm_rate, nflop / FP32_PEAK
+        times[name].update(
+            bytes=nbytes, flop=nflop, bound_ms=max(t_bytes, t_flop) * 1e3,
+            bound_by="bytes" if t_bytes >= t_flop else "operations")
+    del saved
+
+    state = flow.init_state()
+    step_ms = host_median_ms(lambda: flow.training_step(state, batch),
+                             runs=PF_TIMING_RUNS)
+
+    # a CUDA-event split of a step: the body of BaseFlow.training_step with
+    # events between its parts, and around the stages' autograd backward
+    marks = {"spatial": [], "temporal": []}
+
+    def timed(name, fn):
+        def run(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            marks[name].append((start, end))
+            return out
+        return run
+    classes = (FS.FusedSpatialStack, FT.FusedTemporalBlock)
+    saved_fns = [cls.backward for cls in classes]
+    for cls, name, fn in zip(classes, ("spatial", "temporal"), saved_fns):
+        cls.backward = staticmethod(timed(name, fn))
+    splits = []
+    try:
+        for _ in range(PF_TIMING_RUNS):
+            for v in marks.values():
+                v.clear()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            sliced = flow._inner_step(state.params, batch, training=True)
+            losses = flow._compute_losses(sliced, sliced["targets"])
+            _, primary = primary_loss(losses, flow.requested_loss_modes)
+            ev[1].record()
+            state.optimizer.zero_grad(set_to_none=True)
+            primary.backward()
+            ev[2].record()
+            state.optimizer.step()
+            ev[3].record()
+            ev[3].synchronize()
+            sp = sum(a.elapsed_time(b) for a, b in marks["spatial"])
+            tp = sum(a.elapsed_time(b) for a, b in marks["temporal"])
+            total = ev[0].elapsed_time(ev[3])
+            fwd = ev[0].elapsed_time(ev[1])
+            splits.append((total, fwd, sp, tp, total - fwd - sp - tp,
+                           ev[1].elapsed_time(ev[2]) - sp - tp,
+                           ev[2].elapsed_time(ev[3])))
+    finally:
+        for cls, fn in zip(classes, saved_fns):
+            cls.backward = staticmethod(fn)
+    split = dict(zip(("step_ms", "forward_ms", "spatial_backward_ms",
+                      "temporal_backward_ms", "rest_ms",
+                      "rest_of_backward_ms", "adamw_ms"),
+                     (statistics.median(c) for c in zip(*splits))))
+    emit({"phase": "timing_poseformer_train", "card": card, "B": B, "L": L,
+          "backward_kernels": times, "train_step_ms_host": step_ms,
+          "train_step_split_cuda_events": split,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "method": "backward kernels, autograd of the plain versions and "
+                    "of TransformerEncoderLayer yardsticks (timed around "
+                    "torch.autograd.grad alone): CUDA events, median of %d "
+                    "single calls after 3 warm-up calls, cold = 256 MB "
+                    "scratch write before each call; train step: host clock "
+                    "to torch.cuda.synchronize(), median of %d; split: the "
+                    "body of training_step with CUDA events between its "
+                    "parts and around each stage's autograd backward, "
+                    "medians "
+                    "of %d" % (TIMING_RUNS, PF_TIMING_RUNS, PF_TIMING_RUNS)})
+    return {name: {"ms": t["ms_cold_l2"], "plain_ms": t["plain_ms"],
+                   "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+                   "bound_by": t["bound_by"]} for name, t in times.items()}
+
+
 def kernel_entry(name, source, replaces, launches, max_err, times):
     """One entry of the kernels line; ``replaces`` is the TPU kernel's
     ``file:line`` under the JAX package's ops/pallas/."""
@@ -1095,6 +1493,11 @@ def main():
     pf_flow, pf_params, pf_counts = phase_serve_poseformer(pf_batches)
     pf_times = phase_timing_poseformer(pf_flow, pf_params, pf_batches, card,
                                        hbm_rate)
+    del pf_flow, pf_params, pf_batches, pf_dm
+    err_spatial_bwd = phase_kernel_spatial_bwd()
+    err_temporal_bwd = phase_kernel_temporal_bwd()
+    pf_train_counts = phase_train_poseformer(dm)
+    pf_train_times = phase_timing_poseformer_train(dm, card, hbm_rate)
 
     print(card, flush=True)
     emit({"kernels": [
@@ -1116,6 +1519,15 @@ def main():
                      "fused_temporal_transformer.py:947 and :524",
                      pf_counts["fused_temporal_block"], err_temporal,
                      pf_times["temporal"]),
+        kernel_entry("fused_spatial_stack_bwd", "fused_spatial_transformer.cu",
+                     "fused_spatial_transformer.py:415",
+                     pf_train_counts["fused_spatial_stack_bwd"],
+                     err_spatial_bwd, pf_train_times["spatial"]),
+        kernel_entry("fused_temporal_block_bwd",
+                     "fused_temporal_transformer.cu",
+                     "fused_temporal_transformer.py:974 and :566",
+                     pf_train_counts["fused_temporal_block_bwd"],
+                     err_temporal_bwd, pf_train_times["temporal"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -7,10 +7,12 @@ As in the JAX package, the spatial stage runs once per distinct frame (B*L
 sequences), and only then are the frame embeddings gathered into the
 L - rf + 1 sliding windows, batch-major (n = b*W + w). The spatial stack
 always runs through ``ops/fused_spatial_transformer.py`` and every temporal
-block through ``ops/fused_temporal_transformer.py``: CUDA kernels on the
-card, their plain versions on the CPU. Dropout is not implemented (the
-kernels have none) and the kernels' backward is not ported yet, so these
-models serve and evaluate but do not train (see ``ROADMAP.md``).
+block through ``ops/fused_temporal_transformer.py``: CUDA kernels, forward
+and backward, on the card; their plain versions and autograd of them on the
+CPU. Serving, evaluation and training (``training=True``) run the same
+kernels. Dropout raises: the kernels have none, and its counterpart (the
+JAX package sends ``drop_rate > 0`` training to plain flax blocks) is not
+ported yet (see ``ROADMAP.md``).
 
 Parameter names are those of the public PoseFormer checkpoint
 (``Spatial_blocks.i.attn.qkv.weight``, ``blocks.i.mlp.fc1.bias``, ...);

@@ -1,7 +1,8 @@
 """Analytic FLOP counts of the transformer kernels: the port's own copy of
 what it needs of the JAX package's ``ops/pallas/flops.py`` (the port
-imports nothing of that package). ``chip_smoke.py`` bounds the
-spatial-stack and temporal-block kernels with them.
+imports nothing of that package), and the backward's count.
+``chip_smoke.py`` bounds the spatial-stack and temporal-block kernels,
+forward and backward, with them.
 
 FLOP convention: 1 multiply-accumulate = 2 FLOPs.
 """
@@ -24,3 +25,42 @@ def transformer_block_matmul_flops(n_tokens: int, dim: int,
         flops_per_token += 4 * seq_len * dim
     return int(n_tokens * flops_per_token)
 
+
+def transformer_block_backward_flops(n_tokens: int, dim: int,
+                                     mlp_ratio: float = 2.0,
+                                     seq_len: Optional[int] = None) -> int:
+    """Matmul FLOPs of ONE block's backward pass, dx and dW: each dense
+    projection twice (dX = dY W and dW = dY^T X), (16 + 8r) * D^2 FLOPs per
+    token; and, when ``seq_len`` is given, four attention products (dP =
+    dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T Q) against the forward's two,
+    8 * seq_len * D FLOPs per token."""
+    flops_per_token = 2 * (8 + 4 * mlp_ratio) * dim * dim
+    if seq_len is not None:
+        flops_per_token += 8 * seq_len * dim
+    return int(n_tokens * flops_per_token)
+
+
+def poseformer_kernel_train_flops(batch: int, clip_length: int = 16,
+                                  receptive_frames: int = 9, joints: int = 26,
+                                  embed_dim: int = 32, depth: int = 4,
+                                  mlp_ratio: float = 2.0,
+                                  include_attention: bool = False) -> int:
+    """Analytic matmul FLOPs of the spatial + temporal kernels in one
+    PoseFormer TRAIN step (fwd + dx + dW ~ 3x the forward).
+
+    The spatial stage runs ``depth`` blocks over ``batch * L`` windows of
+    ``joints`` tokens at ``embed_dim``; the temporal stage runs ``depth``
+    blocks over ``batch * (L - rf + 1)`` windows of ``receptive_frames``
+    tokens at ``joints * embed_dim`` (models/movements/pose_former.py).
+    Attention score/value FLOPs are excluded by default, so the count is a
+    lower bound.
+    """
+    seq_s = joints if include_attention else None
+    seq_t = receptive_frames if include_attention else None
+    fwd = depth * (
+        transformer_block_matmul_flops(
+            batch * clip_length * joints, embed_dim, mlp_ratio, seq_s)
+        + transformer_block_matmul_flops(
+            batch * (clip_length - receptive_frames + 1) * receptive_frames,
+            joints * embed_dim, mlp_ratio, seq_t))
+    return int(3 * fwd)

@@ -1,10 +1,10 @@
 """One transformer block of PoseFormer's temporal stage (rf window tokens of
-frame_dim = J x emb features) as a CUDA entry, ``csrc/
-fused_temporal_transformer.cu``, with its plain PyTorch version and its
-autograd wrapper, and the token-major entries ``fused_temporal_block`` and
-``fused_temporal_stack``.
+frame_dim = J x emb features) as CUDA entries, ``csrc/
+fused_temporal_transformer.cu`` (a forward and a hand-written backward),
+with their plain PyTorch version and the autograd wrapper, and the
+token-major entries ``fused_temporal_block`` and ``fused_temporal_stack``.
 
-The entry replaces the TPU kernels ``_fwd_kernel_tl`` (the default
+The forward entry replaces the TPU kernels ``_fwd_kernel_tl`` (the default
 token-leading layout) and ``_fwd_kernel`` (the legacy padded layout) of the
 JAX package's ``ops/pallas/fused_temporal_transformer.py``: one function in
 two TPU layouts, one counterpart here. On an H100 operations bound it: at
@@ -12,12 +12,17 @@ B=256, L=16 a block does 204.7 GFLOP (3.06 ms at the fp32 peak) against
 145 MB of traffic. It is a fixed sequence of seven launches (row
 statistics, four GEMMs with fused LayerNorm / GELU / residual, attention),
 described in the source; ``fused_temporal_block_cuda.launches`` counts entry
-calls, one per transformer block.
+calls, one per transformer block. The backward entry replaces the two
+halves of ``_bwd_impl_slab_tl`` and ``_bwd_impl_slab`` (1,637.6 GFLOP a
+block at B=1024, L=16, a 24.44 ms bound); ``fused_temporal_block_cuda_bwd
+.launches`` counts its calls. When a gradient is needed the forward keeps
+its scratch (row statistics, qkv, attention output, x2, the hidden before
+and after GELU) for it; serving keeps nothing and allocates no pre-GELU
+buffer.
 
 The wrappers launch the kernels for CUDA tensors and run the plain version
-for CPU tensors; there is no fallback from one to the other. The backward
-is not ported yet (the PoseFormer training slice, see ``ROADMAP.md``) and
-raises.
+(and autograd of it) for CPU tensors; there is no fallback from one to the
+other.
 
 The weights of a block are the 12-tuple ``BLOCK_WEIGHTS`` of
 ``ops/transformer.py`` in nn.Linear layout, qkv rows in [q; k; v] x (head,
@@ -25,18 +30,21 @@ dim) order.
 """
 import ctypes
 import functools
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
 from . import cuda_build
 from .cuda_build import INT as _INT, PTR as _PTR
-from .transformer import block_reference, check_block_weights
+from .transformer import block_reference, check_block_weights, plain_backward
 
 _SOURCE = cuda_build.CSRC / "fused_temporal_transformer.cu"
 _SIGNATURES = {
     "pv2c_fused_temporal_block":
-        [_PTR] * 19 + [_INT] * 5 + [ctypes.c_float, _PTR],
+        [_PTR] * 20 + [_INT] * 5 + [ctypes.c_float, _PTR],
+    "pv2c_fused_temporal_block_bwd":
+        [_PTR] * 27 + [_INT] * 5 + [ctypes.c_float, _PTR],
+    "pv2c_temporal_block_bwd_part_floats": [_INT] * 4,
 }
 
 #: the kernels' compiled limits (csrc/fused_temporal_transformer.cu)
@@ -68,71 +76,159 @@ def temporal_block_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return block_reference(x, weights, num_heads)
 
 
+def _check_limits(x, tensors, num_heads, hidden) -> None:
+    T, D = x.shape[1:]
+    if T > MAX_TOKENS or D // num_heads > MAX_HEAD_WIDTH or D % 8 \
+            or hidden % 8:
+        raise ValueError(
+            f"the temporal kernel takes T <= {MAX_TOKENS}, head width <= "
+            f"{MAX_HEAD_WIDTH} and widths that are multiples of 8; got T={T}, "
+            f"D={D}, {num_heads} heads, hidden {hidden}")
+    if any(t.data_ptr() % 16 for t in (x, *tensors)):
+        raise ValueError("the temporal kernel needs 16-byte aligned tensors")
+
+
+def _library():
+    return cuda_build.load_library(_SOURCE, _SIGNATURES)
+
+
 def fused_temporal_block_cuda(x: torch.Tensor,
                               weights: Sequence[torch.Tensor],
-                              num_heads: int) -> torch.Tensor:
+                              num_heads: int, keep: bool = False):
     """Launch the block on float32 contiguous CUDA tensors: (N, T, D) ->
-    (N, T, D). Adds one to ``fused_temporal_block_cuda.launches`` per
-    call."""
+    (N, T, D); with ``keep``, ``(out, saved)``, ``saved`` the scratch the
+    backward takes (stats (4 N T), qkv (N T, 3D), attn (N T, D), x2
+    (N T, D), h (N T, hidden) before GELU, mlp (N T, hidden) after). Adds
+    one to ``fused_temporal_block_cuda.launches`` per call."""
     hidden = check_block(x, weights, num_heads)
     device = cuda_build.check_cuda_tensors(
         "fused_temporal_block_cuda", x=x,
         **{f"weights[{i}]": w for i, w in enumerate(weights)})
     N, T, D = x.shape
-    hd = D // num_heads
-    if T > MAX_TOKENS or hd > MAX_HEAD_WIDTH or D % 8 or hidden % 8:
-        raise ValueError(
-            f"the temporal kernel takes T <= {MAX_TOKENS}, head width <= "
-            f"{MAX_HEAD_WIDTH} and widths that are multiples of 8; got T={T}, "
-            f"D={D}, {num_heads} heads, hidden {hidden}")
-    if any(t.data_ptr() % 16 for t in (x, *weights)):
-        raise ValueError("the temporal kernel needs 16-byte aligned tensors")
+    _check_limits(x, weights, num_heads, hidden)
     out = torch.empty_like(x)
     M = N * T
-    if M == 0:
-        return out
     empty = functools.partial(torch.empty, dtype=torch.float32, device=device)
-    scratch = (empty(4 * M), empty((M, 3 * D)), empty((M, D)), empty((M, D)),
-               empty((M, hidden)))
-    lib = cuda_build.load_library(_SOURCE, _SIGNATURES)
-    with torch.cuda.device(device):
-        err = lib.pv2c_fused_temporal_block(
-            x.data_ptr(), out.data_ptr(), *(w.data_ptr() for w in weights),
-            *(s.data_ptr() for s in scratch), N, T, D, num_heads, hidden,
-            float(hd) ** -0.5, torch.cuda.current_stream(device).cuda_stream)
-    cuda_build.check_launch(err, "pv2c_fused_temporal_block")
-    fused_temporal_block_cuda.launches += 1
-    return out
+    stats, qkv, attn, x2, mlp = (empty(4 * M), empty((M, 3 * D)),
+                                 empty((M, D)), empty((M, D)),
+                                 empty((M, hidden)))
+    h = empty((M, hidden)) if keep else None
+    if M:
+        with torch.cuda.device(device):
+            err = _library().pv2c_fused_temporal_block(
+                x.data_ptr(), out.data_ptr(),
+                *(w.data_ptr() for w in weights),
+                *(t.data_ptr() for t in (stats, qkv, attn, x2, mlp)),
+                None if h is None else h.data_ptr(), N, T, D, num_heads,
+                hidden, float(D // num_heads) ** -0.5,
+                torch.cuda.current_stream(device).cuda_stream)
+        cuda_build.check_launch(err, "pv2c_fused_temporal_block")
+        fused_temporal_block_cuda.launches += 1
+    return (out, (stats, qkv, attn, x2, h, mlp)) if keep else out
 
 
 fused_temporal_block_cuda.launches = 0
 
 
+def fused_temporal_block_cuda_bwd(x: torch.Tensor,
+                                  weights: Sequence[torch.Tensor],
+                                  saved: Sequence[torch.Tensor],
+                                  g: torch.Tensor, num_heads: int
+                                  ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Launch the backward on float32 contiguous CUDA tensors: the forward's
+    input x (N, T, D), its weights, the ``saved`` scratch of
+    ``fused_temporal_block_cuda(..., keep=True)`` and the output's
+    cotangent g -> ``(dx, [12 weight gradients])``, each in its weight's
+    shape. Adds one to ``fused_temporal_block_cuda_bwd.launches`` per
+    call."""
+    hidden = check_block(x, weights, num_heads)
+    N, T, D = x.shape
+    M = N * T
+    shapes = ((4 * M,), (M, 3 * D), (M, D), (M, D), (M, hidden), (M, hidden))
+    if len(saved) != len(shapes) or g.shape != x.shape:
+        raise ValueError("the backward takes the forward's six saved tensors "
+                         "and a cotangent of x's shape")
+    for name, t, shape in zip(("stats", "qkv", "attn", "x2", "h", "mlp"),
+                              saved, shapes):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    device = cuda_build.check_cuda_tensors(
+        "fused_temporal_block_cuda_bwd", x=x, g=g,
+        **{f"weights[{i}]": w for i, w in enumerate(weights)},
+        **{f"saved[{i}]": t for i, t in enumerate(saved)})
+    _check_limits(x, (g, *weights, *saved), num_heads, hidden)
+    sizes = [w.numel() for w in weights]
+    if M == 0:
+        return torch.zeros_like(x), [torch.zeros_like(w) for w in weights]
+    empty = functools.partial(torch.empty, dtype=torch.float32, device=device)
+    dx, flat = torch.empty_like(x), empty(sum(sizes))
+    scratch = (empty((M, hidden)), empty((M, D)), empty((M, D)),
+               empty((M, 3 * D)))
+    lib = _library()
+    with torch.cuda.device(device):
+        floats = lib.pv2c_temporal_block_bwd_part_floats(N, T, D, hidden)
+        if floats < 0:
+            cuda_build.check_launch(-floats,
+                                    "pv2c_temporal_block_bwd_part_floats")
+        part = empty(floats)
+        err = lib.pv2c_fused_temporal_block_bwd(
+            x.data_ptr(), *(w.data_ptr() for w in weights),
+            *(t.data_ptr() for t in saved), g.data_ptr(), dx.data_ptr(),
+            flat.data_ptr(), *(t.data_ptr() for t in scratch),
+            part.data_ptr(), N, T, D, num_heads, hidden,
+            float(D // num_heads) ** -0.5,
+            torch.cuda.current_stream(device).cuda_stream)
+    cuda_build.check_launch(err, "pv2c_fused_temporal_block_bwd")
+    fused_temporal_block_cuda_bwd.launches += 1
+    return dx, [t.view_as(w) for t, w in zip(flat.split(sizes), weights)]
+
+
+fused_temporal_block_cuda_bwd.launches = 0
+
+
 class FusedTemporalBlock(torch.autograd.Function):
-    """Kernel forward (CUDA) or plain forward (CPU). No backward yet."""
+    """Kernel forward and kernel backward (CUDA), or the plain forward and
+    autograd of it (CPU), as the JAX package's custom VJP. ``keep``: a
+    gradient will be asked for, so the kernel forward keeps its scratch."""
 
     @staticmethod
-    def forward(ctx, x, num_heads, *weights):
+    def forward(ctx, x, num_heads, keep, *weights):
+        ctx.num_heads = num_heads
         if x.device.type == "cuda":
-            return fused_temporal_block_cuda(x, weights, num_heads)
+            if not keep:
+                return fused_temporal_block_cuda(x, weights, num_heads)
+            out, saved = fused_temporal_block_cuda(x, weights, num_heads,
+                                                   keep=True)
+            ctx.save_for_backward(x, *weights, *saved)
+            return out
         if x.device.type != "cpu":
             raise ValueError(f"fused_temporal_block runs on cuda or cpu, not "
                              f"{x.device}")
         check_block(x, weights, num_heads)
+        ctx.save_for_backward(x, *weights)
         return temporal_block_reference(x, weights, num_heads)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "the temporal block's backward kernel is not ported yet "
-            "(PoseFormer training, see ROADMAP.md)")
+    def backward(ctx, g):
+        x, *rest = ctx.saved_tensors
+        weights, saved = rest[:12], rest[12:]
+        if x.device.type == "cuda":
+            dx, dws = fused_temporal_block_cuda_bwd(
+                x, weights, saved, g.contiguous(), ctx.num_heads)
+        else:
+            dx, dws = plain_backward(temporal_block_reference, x, weights, g,
+                                     ctx.num_heads)
+        return (dx, None, None, *dws)
 
 
 def fused_temporal_block(x: torch.Tensor, weights: Sequence[torch.Tensor],
                          num_heads: int) -> torch.Tensor:
     """One pre-norm transformer block on (N, T, D) float32 window tokens,
-    fused; ``weights`` as the module docstring says."""
-    return FusedTemporalBlock.apply(x.contiguous(), num_heads,
+    fused; ``weights`` as the module docstring says. Differentiable in x
+    and every weight."""
+    keep = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, *weights))
+    return FusedTemporalBlock.apply(x.contiguous(), num_heads, keep,
                                     *(w.contiguous() for w in weights))
 
 

@@ -59,6 +59,19 @@ def block_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return x + F.linear(h, fc2_w, fc2_b)
 
 
+def plain_backward(reference, x: torch.Tensor,
+                   weights: Sequence[torch.Tensor], g: torch.Tensor,
+                   num_heads: int):
+    """Autograd of a kernel's plain version ``reference(x, weights,
+    num_heads)`` with cotangent g: ``(dx, [weight grads])``, the backward
+    of the kernel entries on CPU tensors."""
+    leaves = [t.detach().requires_grad_(True) for t in (x, *weights)]
+    with torch.enable_grad():
+        out = reference(leaves[0], leaves[1:], num_heads)
+        dx, *dws = torch.autograd.grad(out, leaves, g)
+    return dx, dws
+
+
 def check_block_weights(weights: Sequence[torch.Tensor], dim: int,
                         stacked: bool = False) -> int:
     """Check one block's weights (``stacked``: a leading depth axis on

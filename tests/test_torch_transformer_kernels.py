@@ -4,8 +4,9 @@ run the plain versions for CPU tensors), against the JAX package's Pallas
 kernels (interpret mode on the CPU, as tests/ops/test_pallas_spatial.py and
 test_pallas_temporal.py run them) and their XLA references, at atol 1e-5
 (the JAX kernel tests' forward bar); the FLOP formulas against the JAX
-package's; input checks; the backward that is not ported yet; and, on a
-CUDA card only, the kernels against their plain versions."""
+package's; input checks; and, on a CUDA card only, the kernels against
+their plain versions. The backward's parity is in
+``test_torch_pose_former_training.py``."""
 import functools
 
 import jax.numpy as jnp
@@ -143,23 +144,6 @@ def test_kernel_wrappers_never_run_on_the_cpu():
         FT.fused_temporal_block_cuda(_t(xt), wt[0], H_T)
     assert FS.fused_spatial_stack_cuda.launches == 0
     assert FT.fused_temporal_block_cuda.launches == 0
-
-
-@pytest.mark.parametrize("stage", ["spatial", "temporal"])
-def test_backward_is_not_ported(stage):
-    # the kernels' backward is the next slice: no autograd of the plain
-    # version in its place
-    if stage == "spatial":
-        x, weights, _, _ = _spatial_case()
-        fn, heads = FS.fused_spatial_stack, H_S
-    else:
-        x, weights, _, _, _ = _temporal_case()
-        fn, heads = FT.fused_temporal_block, H_T
-        weights = weights[0]
-    leaf = _t(x).requires_grad_(True)
-    out = fn(leaf, weights, heads)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        out.sum().backward()
 
 
 def test_wrappers_check_their_inputs():
