@@ -5,7 +5,7 @@
 Phases, each printing one JSON line:
   1. device       -- requires CUDA; the card's name and power limit
                      (nvidia-smi).
-  2. build        -- builds the four kernel libraries with nvcc from this
+  2. build        -- builds the five kernel libraries with nvcc from this
                      checkout's csrc/ (sm_90a), in parallel; their ptxas
                      summaries.
   3. kernel       -- the serving kernel against its plain PyTorch version on
@@ -93,6 +93,40 @@ Phases, each printing one JSON line:
                      each kernel's bound; the host-clock median of a B=1024
                      training_step and a CUDA-event split of it (forward,
                      spatial backward, temporal backward, the rest).
+ 16. kernel_graph_gru, kernel_graph_lstm -- the graph-GRU and graph-LSTM
+                     scan kernels against their plain versions on seeded
+                     inputs: B in {256, 253, 5} at L=16, J=26, H=128, k=2;
+                     k=1; k=3 with H=3; L=1; the dense form (J=1, H=64, no
+                     graph matrices). Bar: max |kernel - plain| <= 1e-5.
+ 17. kernel_graph_gru_bwd, kernel_graph_lstm_bwd -- their backward kernels
+                     against autograd of the plain versions with seeded
+                     cotangents (the LSTM with and without the cell states'
+                     cotangent): each gradient over its largest magnitude
+                     within rtol 1e-4 / atol 1e-5; two launches give the
+                     same bits.
+ 18. train_classification -- Trainer.fit of ClassificationFlow(GConvGRU())
+                     (H=128, k=2, dropout 0.2, graph_kernel="auto"), AdamW lr
+                     1e-3, Carla2D3D B=256, L=16: 20 steps and 2 validation
+                     batches; 2 forward scan entries per step and validation
+                     batch, 2 backward entries per step; logged losses
+                     finite, validation metrics present, the last checkpoint
+                     restores exactly. 20 steps on one repeated batch
+                     (dropout off, lr 1e-4) lower the loss. With dropout off, "fused" and "plain" flows
+                     step by step from the same params: losses to rtol 1e-4.
+                     Short fits of GConvLSTM and LSTM(rnn_kernel="fused")
+                     launch the LSTM kernels.
+ 19. serve_classification -- 8 eval_steps at B=256: 2 forward entries each,
+                     no backward launch, logits equal to the plain model's
+                     within 1e-5.
+ 20. timing_classification -- CUDA-event medians (L2 cold and warm) of the
+                     four scan kernels at the main path's shape (and the LSTM
+                     pair at the dense form), their plain versions, each
+                     kernel's bound from ops/flops.py; torch.nn.LSTM (cuDNN)
+                     as the dense form's library yardstick, first held to
+                     the plain version; host-clock medians of a
+                     training_step and an eval_step; a CUDA-event split of
+                     the step (input convolutions, scans forward, scans
+                     backward, AdamW, the rest).
 Then the card line, the kernels line, and the contract line last. Any
 failure raises and ends the run with a non-zero exit.
 """
@@ -137,6 +171,20 @@ SPATIAL_BWD_NS, TEMPORAL_BWD_NS = (16384, 16381, 5), (8192, 8189, 3)
 SPATIAL_NAMES = ("x", "ln1_s", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
                  "ln2_s", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b",
                  "lnf_s", "lnf_b")
+#: crossing classification: the JAX bench's shape (bench.py:699-750: B=256,
+#: L=16), GConvGRU's widths, and the (B, L, J, H, k) of the scan kernels'
+#: checks: the main path's and ragged ones, k=1, k=3 with H=3, one frame,
+#: and the dense LSTM form (J=1, H=64)
+CLS_BATCH, CLS_J, CLS_H, CLS_K = 256, 26, 128, 2
+CLS_TRAIN_STEPS, CLS_SHORT_STEPS, CLS_PARITY_STEPS = 20, 3, 5
+REPEAT_LR = 1e-4
+CLS_MAIN = (CLS_BATCH, CLIP, CLS_J, CLS_H, CLS_K)
+CLS_DENSE = (CLS_BATCH, CLIP, 1, 64, 1)
+GRAPH_SHAPES = (CLS_MAIN, (253, CLIP, CLS_J, CLS_H, CLS_K),
+                (5, CLIP, CLS_J, CLS_H, CLS_K), (CLS_BATCH, CLIP, CLS_J, CLS_H, 1),
+                (CLS_BATCH, CLIP, CLS_J, 3, 3), (CLS_BATCH, 1, CLS_J, CLS_H, CLS_K),
+                CLS_DENSE)
+SCAN_BAR = 1e-5
 #: H100 memory rates (NVIDIA data sheets), bytes/s, and the float32 (non
 #: tensor-core) peak of the SXM part, FLOP/s
 HBM_RATE = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
@@ -170,6 +218,7 @@ def phase_device():
 
 def phase_build():
     from pedestrians_video_2_carla_torch.ops import cuda_build
+    from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
     from pedestrians_video_2_carla_torch.ops import fused_projection as FP
     from pedestrians_video_2_carla_torch.ops import \
         fused_spatial_transformer as FS
@@ -177,7 +226,8 @@ def phase_build():
         fused_temporal_transformer as FT
 
     t0 = time.perf_counter()
-    sources = (FP._SOURCE, FP._TRAIN_SOURCE, FS._SOURCE, FT._SOURCE)
+    sources = (FP._SOURCE, FP._TRAIN_SOURCE, FS._SOURCE, FT._SOURCE,
+               FG._SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         paths = list(pool.map(cuda_build.build_library, sources))
     libraries = {}
@@ -192,6 +242,7 @@ def phase_build():
 
 
 def kernel_wrappers():
+    from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
     from pedestrians_video_2_carla_torch.ops import fused_projection as FP
     from pedestrians_video_2_carla_torch.ops import \
         fused_spatial_transformer as FS
@@ -203,11 +254,20 @@ def kernel_wrappers():
             "fused_spatial_stack": FS.fused_spatial_stack_cuda,
             "fused_temporal_block": FT.fused_temporal_block_cuda,
             "fused_spatial_stack_bwd": FS.fused_spatial_stack_cuda_bwd,
-            "fused_temporal_block_bwd": FT.fused_temporal_block_cuda_bwd}
+            "fused_temporal_block_bwd": FT.fused_temporal_block_cuda_bwd,
+            "graph_gru_scan": FG.graph_gru_scan_cuda_fwd,
+            "graph_gru_scan_bwd": FG.graph_gru_scan_cuda_bwd,
+            "graph_lstm_scan": FG.graph_lstm_scan_cuda_fwd,
+            "graph_lstm_scan_bwd": FG.graph_lstm_scan_cuda_bwd}
 
 
 def kernel_counts():
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def expected_counts(**launched):
+    """Every wrapper's count at 0 but the named ones."""
+    return {**dict.fromkeys(kernel_wrappers(), 0), **launched}
 
 
 def reset_kernel_counts():
@@ -430,12 +490,9 @@ def phase_train(dm):
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         counts = kernel_counts()
-        expected = {"fused_projection": 0,
-                    "fused_projection_train_fwd": TRAIN_STEPS + VAL_BATCHES,
-                    "fused_projection_train_bwd": TRAIN_STEPS,
-                    "fused_spatial_stack": 0, "fused_temporal_block": 0,
-                    "fused_spatial_stack_bwd": 0,
-                    "fused_temporal_block_bwd": 0}
+        expected = expected_counts(
+            fused_projection_train_fwd=TRAIN_STEPS + VAL_BATCHES,
+            fused_projection_train_bwd=TRAIN_STEPS)
         if counts != expected:
             raise AssertionError(f"train launches {counts}, expected "
                                  f"{expected}")
@@ -882,7 +939,8 @@ def phase_serve_poseformer(batches):
     torch.cuda.synchronize()
     counts = kernel_counts()
     if any(v for k, v in counts.items()
-           if k.startswith("fused_projection") or k.endswith("_bwd")):
+           if k.startswith(("fused_projection", "graph_"))
+           or k.endswith("_bwd")):
         raise AssertionError(f"PoseFormer serving launched a projection or "
                              f"a backward kernel: {counts}")
 
@@ -1224,12 +1282,11 @@ def phase_train_poseformer(dm):
         fit_s = time.perf_counter() - t0
         counts = kernel_counts()
         batches = PF_TRAIN_STEPS + VAL_BATCHES
-        expected = {"fused_projection": 0, "fused_projection_train_fwd": 0,
-                    "fused_projection_train_bwd": 0,
-                    "fused_spatial_stack": batches,
-                    "fused_temporal_block": PF_DEPTH * batches,
-                    "fused_spatial_stack_bwd": PF_TRAIN_STEPS,
-                    "fused_temporal_block_bwd": PF_DEPTH * PF_TRAIN_STEPS}
+        expected = expected_counts(
+            fused_spatial_stack=batches,
+            fused_temporal_block=PF_DEPTH * batches,
+            fused_spatial_stack_bwd=PF_TRAIN_STEPS,
+            fused_temporal_block_bwd=PF_DEPTH * PF_TRAIN_STEPS)
         if counts != expected:
             raise AssertionError(f"PoseFormer train launches {counts}, "
                                  f"expected {expected}")
@@ -1453,6 +1510,481 @@ def phase_timing_poseformer_train(dm, card, hbm_rate):
                    "bound_by": t["bound_by"]} for name, t in times.items()}
 
 
+def graph_case(rng, cell, shape):
+    """Seeded inputs of one scan call on the card: xg, the Chebyshev
+    matrices of GConvGRU's operator (none for k=1 or the dense form), the
+    hidden-side weights, and one cotangent per output."""
+    from pedestrians_video_2_carla_torch.models.classification.gnn import \
+        laplacian_op
+    from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
+    from pedestrians_video_2_carla_torch.skeletons.carla import CARLA_SKELETON
+
+    B, L, J, H, k = shape
+    op = laplacian_op(CARLA_SKELETON) if J == CLS_J else np.zeros((J, J))
+    cheb = torch.from_numpy(FG.cheb_matrices(op, k)).cuda()
+
+    def randn(*s, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(s)).astype(
+            np.float32)).cuda()
+    gates, groups = (3, (2, 1)) if cell == "gru" else (4, (4,))
+    xg = randn(L, B, J, gates * H)
+    weights = [randn(H, k * g * H, scale=H ** -0.5) for g in groups]
+    cots = [randn(L, B, J, H) for _ in range(1 if cell == "gru" else 2)]
+    return xg, cheb, weights, cots
+
+
+def scan_functions(cell):
+    """(kernel forward -> tuple of outputs, plain version -> tuple)."""
+    from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
+    if cell == "gru":
+        return (lambda xg, cheb, *w: (FG.graph_gru_scan_cuda_fwd(
+                    xg, cheb, *w),),
+                lambda xg, cheb, *w: (FG.graph_gru_scan_reference(
+                    xg, cheb, *w),))
+    return FG.graph_lstm_scan_cuda_fwd, FG.graph_lstm_scan_reference
+
+
+def phase_kernel_graph(cell):
+    rng = np.random.default_rng(SEED + (9 if cell == "gru" else 10))
+    kernel, plain = scan_functions(cell)
+    worst = 0.0
+    for shape in GRAPH_SHAPES:
+        xg, cheb, weights, _ = graph_case(rng, cell, shape)
+        with torch.no_grad():
+            outs = kernel(xg, cheb, *weights)
+            refs = plain(xg, cheb, *weights)
+        torch.cuda.synchronize()
+        err = max(float((o - r).abs().max()) for o, r in zip(outs, refs))
+        finite = all(bool(torch.isfinite(o).all()) for o in outs)
+        emit({"phase": f"kernel_graph_{cell}", "B_L_J_H_k": shape,
+              "max_abs_err": err, "finite": finite})
+        if not (err <= SCAN_BAR and finite):
+            raise AssertionError(f"graph-{cell} scan kernel disagrees with "
+                                 f"its plain version at {shape}: {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_kernel_graph_bwd(cell):
+    from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
+
+    rng = np.random.default_rng(SEED + (11 if cell == "gru" else 12))
+    _, plain = scan_functions(cell)
+    worst = 0.0
+    for shape in GRAPH_SHAPES:
+        xg, cheb, weights, cots = graph_case(rng, cell, shape)
+        with torch.no_grad():
+            outs = plain(xg, cheb, *weights)
+        # the LSTM with the cell states' cotangent, and without
+        for used in ((1,) if cell == "gru" else (2, 1)):
+            def launch():
+                if cell == "gru":
+                    return FG.graph_gru_scan_cuda_bwd(xg, cheb, *weights,
+                                                      outs[0], cots[0])
+                return FG.graph_lstm_scan_cuda_bwd(
+                    xg, cheb, *weights, *outs, cots[0],
+                    cots[1] if used == 2 else None)
+            got, again = launch(), launch()
+            ref = plain_grads(lambda t: plain(t[0], cheb, *t[1:])[:used],
+                              [xg, *weights], cots[:used])
+            names = ("dxg", "dwzr", "dwh") if cell == "gru" else ("dxg", "dw")
+            what = f"graph_{cell}_scan_cuda_bwd" + (
+                " (ys and cs cotangents)" if used == 2 else "")
+            worst = max(worst, check_grads(
+                f"kernel_graph_{cell}_bwd", what, list(shape), names, got,
+                again, ref))
+    return worst
+
+
+def make_cls_flow(name="GConvGRU", lr=LR, **model_kwargs):
+    from pedestrians_video_2_carla_torch.flows.classification import \
+        ClassificationFlow
+    from pedestrians_video_2_carla_torch.models.base import OptimizerSettings
+    from pedestrians_video_2_carla_torch.models.classification import \
+        CLASSIFICATION_MODELS
+
+    model = CLASSIFICATION_MODELS[name](
+        generator=torch.Generator().manual_seed(SEED), **model_kwargs)
+    return ClassificationFlow(
+        model, classification_optimizer=OptimizerSettings(lr=lr), seed=SEED)
+
+
+def fit_classifier(flow, dm, steps, val_batches, run_name, expected):
+    """Trainer.fit of a classification flow: counted launches, finite
+    logged losses, validation metrics, an exact restore. Returns (counts,
+    the step records' losses, the last epoch record, seconds)."""
+    from pedestrians_video_2_carla_torch.training.trainer import (
+        Trainer, TrainerConfig)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(flow, dm, TrainerConfig(
+            max_epochs=1, limit_train_batches=steps,
+            limit_val_batches=val_batches, log_every_n_steps=1, seed=SEED,
+            logs_dir=tmp, run_name=run_name))
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        state = trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = kernel_counts()
+        if counts != expected_counts(**expected):
+            raise AssertionError(f"{run_name} launches {counts}, expected "
+                                 f"{expected}")
+        run = os.path.join(tmp, run_name)
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        bad = {k: v for r in records for k, v in r.items()
+               if "_loss/" in k and not np.isfinite(v)}
+        if bad:
+            raise AssertionError(f"non-finite logged losses {bad}")
+        losses = [r["train_loss/primary"] for r in records
+                  if "lr-classification" in r]
+        if len(losses) != steps:
+            raise AssertionError(f"{len(losses)} step records, expected "
+                                 f"{steps}")
+        last = records[-1]
+        missing = [k for k in ("val_loss/primary", "val_Accuracy",
+                               "val_Precision", "val_Recall", "val_F1Score",
+                               "val_ConfusionMatrix", "val_AUROC")
+                   if k not in last]
+        if missing or int(np.sum(last["val_ConfusionMatrix"])) \
+                != val_batches * dm.batch_size:
+            raise AssertionError(f"validation metrics: missing {missing}, "
+                                 f"matrix {last.get('val_ConfusionMatrix')}")
+        restored = flow.init_state()
+        trainer.checkpoints.restore(
+            restored, os.path.join(run, "checkpoints", "last"))
+        opt, opt_back = (st.optimizer.state_dict()["state"]
+                         for st in (state, restored))
+        same = all(torch.equal(restored.params[n][k], v)
+                   for n, tree in state.params.items()
+                   for k, v in tree.items()) and all(
+            torch.equal(torch.as_tensor(v), torch.as_tensor(opt_back[i][k]))
+            for i, st in opt.items() for k, v in st.items())
+        if not (same and restored.step == state.step == steps):
+            raise AssertionError("the last checkpoint does not restore the "
+                                 "trained params and AdamW state")
+    return counts, losses, last, fit_s
+
+
+def phase_train_classification(dm):
+    """The classification training path through the port's Trainer; then a
+    repeated batch, the fused and plain routes step by step, and short fits
+    of the two models that run the LSTM kernels."""
+    flow = make_cls_flow()
+    model = flow.classification_model
+    if (model.hidden_size, model.k, model.p_dropout, model.graph_kernel) \
+            != (CLS_H, CLS_K, 0.2, "auto"):
+        raise AssertionError("GConvGRU's defaults changed")
+    batches = CLS_TRAIN_STEPS + VAL_BATCHES
+    counts, losses, last, fit_s = fit_classifier(
+        flow, dm, CLS_TRAIN_STEPS, VAL_BATCHES, "cls",
+        {"graph_gru_scan": 2 * batches,
+         "graph_gru_scan_bwd": 2 * CLS_TRAIN_STEPS})
+
+    # the labels are coin flips, so a stream of fresh batches teaches
+    # nothing; one repeated batch is learnt. Dropout off and lr 1e-4, so
+    # that Adam's first steps (about lr a parameter, whatever the gradient)
+    # do not overshoot: the loss then falls from the first step on
+    learner = make_cls_flow(p_dropout=0.0, lr=REPEAT_LR)
+    state = learner.init_state()
+    batch = next(dm.train_batches(SEED + 3))
+    repeated = [float(learner.training_step(state, batch)[1][
+        "train_loss/primary"]) for _ in range(CLS_TRAIN_STEPS)]
+    if not (np.isfinite(repeated).all()
+            and np.mean(repeated[-3:]) < repeated[0]):
+        raise AssertionError(f"a repeated batch was not learnt: {repeated}")
+
+    # dropout off: the fused and plain routes from the same params
+    routes = {r: make_cls_flow(p_dropout=0.0, graph_kernel=r)
+              for r in ("fused", "plain")}
+    params = routes["fused"].init_params()
+    states = {r: f.init_state(params) for r, f in routes.items()}
+    stream = dm.train_batches(SEED)
+    worst, per_step = 0.0, []
+    reset_kernel_counts()
+    for _ in range(CLS_PARITY_STEPS):
+        batch = next(stream)
+        a, b = (float(routes[r].training_step(states[r], batch)[1][
+            "train_loss/primary"]) for r in ("fused", "plain"))
+        rel = abs(a - b) / abs(b)
+        if not rel <= LOSS_RTOL:
+            raise AssertionError(f"fused {a} vs plain {b}")
+        worst = max(worst, rel)
+        per_step.append([a, b])
+    if kernel_counts() != expected_counts(
+            graph_gru_scan=2 * CLS_PARITY_STEPS,
+            graph_gru_scan_bwd=2 * CLS_PARITY_STEPS):
+        raise AssertionError(f"the plain route launched a kernel: "
+                             f"{kernel_counts()}")
+
+    # the LSTM kernels on real paths: GConvLSTM's two layers, and the LSTM
+    # classifier's two dense layers
+    lstm_expected = {"graph_lstm_scan": 2 * (CLS_SHORT_STEPS + 1),
+                     "graph_lstm_scan_bwd": 2 * CLS_SHORT_STEPS}
+    lstm_counts = {}
+    for run_name, short in (
+            ("GConvLSTM", make_cls_flow("GConvLSTM")),
+            ("LSTM", make_cls_flow("LSTM", rnn_kernel="fused"))):
+        c, short_losses, _, _ = fit_classifier(
+            short, dm, CLS_SHORT_STEPS, 1, run_name, lstm_expected)
+        lstm_counts[run_name] = {k: v for k, v in c.items() if v}
+        lstm_counts[run_name]["train_loss_primary"] = short_losses
+    emit({"phase": "train_classification", "B": dm.batch_size, "L": CLIP,
+          "steps": CLS_TRAIN_STEPS, "val_batches": VAL_BATCHES,
+          "launches": {k: v for k, v in counts.items() if v},
+          "fit_seconds": fit_s, "train_loss_primary": losses,
+          "val": {k: v for k, v in last.items()
+                  if k.startswith("val_") and not isinstance(v, list)},
+          "val_confusion_matrix": last["val_ConfusionMatrix"],
+          "restored_equal": True, "repeated_batch_losses": repeated,
+          "fused_vs_plain_losses": per_step,
+          "fused_vs_plain_max_rel": worst, "lstm_fits": lstm_counts})
+    lstm_total = {k: sum(c[k] for c in lstm_counts.values())
+                  for k in lstm_expected}
+    return {**counts, **lstm_total}
+
+
+def phase_serve_classification(dm):
+    """Eval steps of the default flow (eval_step is what serves a
+    classifier: clips in, logits out) against the plain route's."""
+    flow = make_cls_flow()
+    plain = make_cls_flow(graph_kernel="plain")
+    params = flow.init_params()
+    batches = list(dm.test_batches())
+    reset_kernel_counts()
+    served = []
+    for i, batch in enumerate(batches):
+        served.append(flow.eval_step(params, batch))
+        counts = kernel_counts()
+        if counts != expected_counts(graph_gru_scan=2 * (i + 1)):
+            raise AssertionError(f"request {i}: launches {counts}")
+    torch.cuda.synchronize()
+    worst, losses = 0.0, []
+    for (loss, preds, _), batch in zip(served, batches):
+        ref_loss, ref, _ = plain.eval_step(params, batch)
+        logits = preds["crossing_logits"]
+        if logits.shape != (dm.batch_size, 2) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"logits {tuple(logits.shape)} or not "
+                                 f"finite")
+        worst = max(worst, float(
+            (logits - ref["crossing_logits"]).abs().max()))
+        losses.append((float(loss["primary"]), float(ref_loss["primary"])))
+    if worst > SCAN_BAR:
+        raise AssertionError(f"fused vs plain logits: {worst}")
+    emit({"phase": "serve_classification", "B": dm.batch_size, "L": CLIP,
+          "requests": len(batches), "launches": counts["graph_gru_scan"],
+          "max_abs_err_logits_vs_plain": worst,
+          "loss_fused_vs_plain": losses[:2]})
+    return counts["graph_gru_scan"]
+
+
+def scan_bound(cell, shape, hbm_rate, backward=False, with_dcs=False):
+    from pedestrians_video_2_carla_torch.ops import flops as F
+
+    B, L, J, H, k = shape
+    nflop = F.graph_scan_flops(cell, B, L, J, H, k, backward)
+    nbytes = F.graph_scan_bytes(cell, B, L, J, H, k, backward, with_dcs)
+    t_bytes, t_flop = nbytes / hbm_rate, nflop / FP32_PEAK
+    return {"bytes": nbytes, "flop": nflop,
+            "bound_ms": max(t_bytes, t_flop) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_flop else "operations"}
+
+
+def time_scan(cell, shape, flush, hbm_rate, rng):
+    """CUDA-event medians of one cell's forward and backward kernels at
+    ``shape``, of the plain version and autograd of it, and the bounds."""
+    from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
+
+    kernel, plain = scan_functions(cell)
+    xg, cheb, weights, cots = graph_case(rng, cell, shape)
+    with torch.no_grad():
+        outs = kernel(xg, cheb, *weights)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (xg, *weights)]
+    graph = plain(leaves[0], cheb, *leaves[1:])
+
+    def fwd():
+        with torch.no_grad():
+            kernel(xg, cheb, *weights)
+
+    def bwd():
+        if cell == "gru":
+            FG.graph_gru_scan_cuda_bwd(xg, cheb, *weights, outs[0], cots[0])
+        else:
+            FG.graph_lstm_scan_cuda_bwd(xg, cheb, *weights, *outs, *cots)
+
+    def plain_fwd():
+        with torch.no_grad():
+            plain(xg, cheb, *weights)
+
+    def plain_bwd():
+        torch.autograd.grad(graph, leaves, cots, retain_graph=True)
+    with_dcs = cell == "lstm"
+    return {
+        "fwd": {"ms_cold_l2": cuda_median_ms(fwd, flush=flush),
+                "ms_warm_l2": cuda_median_ms(fwd),
+                "plain_ms": cuda_median_ms(plain_fwd),
+                **scan_bound(cell, shape, hbm_rate)},
+        "bwd": {"ms_cold_l2": cuda_median_ms(bwd, flush=flush),
+                "ms_warm_l2": cuda_median_ms(bwd),
+                "plain_ms": cuda_median_ms(plain_bwd),
+                **scan_bound(cell, shape, hbm_rate, True, with_dcs)}}
+
+
+def time_library_lstm(flush, rng):
+    """torch.nn.LSTM (cuDNN, one layer) as the dense LSTM form's library
+    yardstick: fed the scan's own input, the gate pre-activations, through
+    an identity input weight (its gate order is the scan's, i|f|g|o), the
+    scan's hidden weights, zero biases. Held to the plain version within
+    the scan's bar, then timed forward and backward (torch.autograd.grad
+    alone)."""
+    from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
+
+    B, L, _, H, _ = CLS_DENSE
+    xg, cheb, (w,), cots = graph_case(rng, "lstm", CLS_DENSE)
+    lib = torch.nn.LSTM(4 * H, H, num_layers=1).cuda()
+    with torch.no_grad():
+        lib.weight_ih_l0.copy_(torch.eye(4 * H))
+        lib.weight_hh_l0.copy_(w.t())
+        lib.bias_ih_l0.zero_()
+        lib.bias_hh_l0.zero_()
+    x = xg[:, :, 0].contiguous().requires_grad_(True)
+    out, _ = lib(x)
+    ref, _ = FG.graph_lstm_scan_reference(xg, cheb, w)
+    err = float((out.detach() - ref[:, :, 0]).abs().max())
+    if err > SCAN_BAR:
+        raise AssertionError(f"torch.nn.LSTM vs the plain version: {err}")
+    leaves = [x, lib.weight_hh_l0]
+    g = cots[0][:, :, 0].contiguous()
+
+    def fwd():
+        with torch.no_grad():
+            lib(x)
+
+    def bwd():
+        torch.autograd.grad(out, leaves, g, retain_graph=True)
+    return {"fwd_ms": cuda_median_ms(fwd, flush=flush),
+            "bwd_ms": cuda_median_ms(bwd, flush=flush),
+            "max_abs_err_vs_plain": err}
+
+
+def phase_timing_classification(dm, card, hbm_rate):
+    from pedestrians_video_2_carla_torch.models.classification import \
+        gnn as TG
+    from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
+
+    rng = np.random.default_rng(SEED + 13)
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+
+    def flush_l2():  # 256 MB write: far more than the 50 MB L2
+        scratch.zero_()
+
+    times = {"gru": time_scan("gru", CLS_MAIN, flush_l2, hbm_rate, rng),
+             "lstm": time_scan("lstm", CLS_MAIN, flush_l2, hbm_rate, rng),
+             "lstm_dense": time_scan("lstm", CLS_DENSE, flush_l2, hbm_rate,
+                                     rng)}
+    library = time_library_lstm(flush_l2, rng)
+    torch.cuda.empty_cache()
+
+    flow = make_cls_flow()
+    batch = next(dm.train_batches(SEED + 7))
+    state = flow.init_state()
+    params = flow.init_params()
+    step_ms = host_median_ms(lambda: flow.training_step(state, batch))
+    eval_ms = host_median_ms(lambda: flow.eval_step(params, batch))
+
+    # a CUDA-event split of a step: the body of training_step with events
+    # between its parts, around each layer (input convolutions + scan),
+    # each scan entry, and each scan's autograd backward
+    marks = {"layer": [], "scan": [], "scan_bwd": []}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            marks[name].append((start, end))
+            return out
+        return run
+    model_cls = type(flow.classification_model)
+    saved = (model_cls._layer_fused, TG.graph_gru_scan,
+             FG.GraphGRUScan.backward)
+    model_cls._layer_fused = timed("layer", saved[0])
+    TG.graph_gru_scan = timed("scan", saved[1])
+    FG.GraphGRUScan.backward = staticmethod(timed("scan_bwd", saved[2]))
+    splits = []
+    try:
+        for _ in range(TIMING_RUNS):
+            for v in marks.values():
+                v.clear()
+            inputs, targets, _ = batch
+            torch.cuda._sleep(2_000_000)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            loss = flow._loss(flow._apply(state.params, inputs, True),
+                              targets)
+            ev[1].record()
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            ev[2].record()
+            state.optimizer.step()
+            ev[3].record()
+            ev[3].synchronize()
+            spent = {k: sum(a.elapsed_time(b) for a, b in v)
+                     for k, v in marks.items()}
+            total = ev[0].elapsed_time(ev[3])
+            adamw = ev[2].elapsed_time(ev[3])
+            convs = spent["layer"] - spent["scan"]
+            splits.append((total, ev[0].elapsed_time(ev[1]),
+                           ev[1].elapsed_time(ev[2]), convs, spent["scan"],
+                           spent["scan_bwd"], adamw,
+                           total - convs - spent["scan"] - spent["scan_bwd"]
+                           - adamw))
+    finally:
+        model_cls._layer_fused, TG.graph_gru_scan = saved[:2]
+        FG.GraphGRUScan.backward = staticmethod(saved[2])
+    split = dict(zip(("step_ms", "forward_ms", "backward_ms",
+                      "input_convs_forward_ms", "scans_forward_ms",
+                      "scans_backward_ms", "adamw_ms", "rest_ms"),
+                     (statistics.median(c) for c in zip(*splits))))
+    emit({"phase": "timing_classification", "card": card,
+          "B_L_J_H_k": CLS_MAIN, "dense_B_L_J_H_k": CLS_DENSE,
+          "kernels": times, "library_lstm_dense": library,
+          "train_step_ms_host": step_ms, "eval_step_ms_host": eval_ms,
+          "train_step_split_cuda_events": split,
+          "method": "kernels, plain versions (autograd of them for the "
+                    "backward, timed around torch.autograd.grad alone) and "
+                    "torch.nn.LSTM: CUDA events, median of %d single calls "
+                    "after 3 warm-up calls, cold = 256 MB scratch write "
+                    "before each call; steps: host clock to "
+                    "torch.cuda.synchronize(), median of %d; split: the "
+                    "body of training_step with CUDA events between its "
+                    "parts, around each layer and scan entry and each "
+                    "scan's autograd backward, medians of %d"
+                    % ((TIMING_RUNS,) * 3)})
+
+    def entry(t, library_ms=None, **extra):
+        return {"ms": t["ms_cold_l2"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": library_ms, **extra}
+    graph = times["lstm"]
+    return {"gru_fwd": entry(times["gru"]["fwd"]),
+            "gru_bwd": entry(times["gru"]["bwd"]),
+            # the LSTM pair at the dense form, where a library call exists;
+            # the graph form (GConvLSTM's layer) beside it
+            "lstm_fwd": entry(times["lstm_dense"]["fwd"], library["fwd_ms"],
+                              shape_B_L_J_H_k=CLS_DENSE,
+                              graph_form_ms=graph["fwd"]["ms_cold_l2"],
+                              graph_form_bound_ms=graph["fwd"]["bound_ms"]),
+            "lstm_bwd": entry(times["lstm_dense"]["bwd"], library["bwd_ms"],
+                              shape_B_L_J_H_k=CLS_DENSE,
+                              graph_form_ms=graph["bwd"]["ms_cold_l2"],
+                              graph_form_bound_ms=graph["bwd"]["bound_ms"])}
+
+
 def kernel_entry(name, source, replaces, launches, max_err, times):
     """One entry of the kernels line; ``replaces`` is the TPU kernel's
     ``file:line`` under the JAX package's ops/pallas/."""
@@ -1462,13 +1994,12 @@ def kernel_entry(name, source, replaces, launches, max_err, times):
             "launches": launches, "max_abs_err": max_err,
             "ms": times["ms"], "plain_ms": times["plain_ms"],
             "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
-            "library_ms": times.get("library_ms")}
+            "library_ms": times.get("library_ms"),
+            **{k: v for k, v in times.items() if k.startswith(
+                ("shape_", "graph_form_"))}}
 
 
-def main():
-    card, hbm_rate = phase_device()
-    phase_build()
-
+def group_lifting(card, hbm_rate):
     from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
         Carla2D3DDataModule
 
@@ -1484,6 +2015,22 @@ def main():
     train_counts = phase_train(dm)
     times = phase_timing(flow_f, flow_p, params, batches, card, hbm_rate)
     train_times = phase_timing_train(dm, card, hbm_rate)
+    return [
+        kernel_entry("fused_projection", "fused_projection.cu",
+                     "fused_projection.py:328", launches, max_err, times),
+        kernel_entry("fused_projection_train_fwd",
+                     "fused_projection_train.cu", "fused_projection.py:458",
+                     train_counts["fused_projection_train_fwd"], err_fwd,
+                     train_times["fwd"]),
+        kernel_entry("fused_projection_train_bwd",
+                     "fused_projection_train.cu", "fused_projection.py:538",
+                     train_counts["fused_projection_train_bwd"], err_bwd,
+                     train_times["bwd"])]
+
+
+def group_poseformer(card, hbm_rate):
+    from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
+        Carla2D3DDataModule
 
     err_spatial = phase_kernel_spatial()
     err_temporal = phase_kernel_temporal()
@@ -1496,21 +2043,11 @@ def main():
     del pf_flow, pf_params, pf_batches, pf_dm
     err_spatial_bwd = phase_kernel_spatial_bwd()
     err_temporal_bwd = phase_kernel_temporal_bwd()
+    dm = Carla2D3DDataModule(batch_size=BATCH, clip_length=CLIP,
+                             val_set_size=VAL_BATCHES * BATCH, seed=SEED)
     pf_train_counts = phase_train_poseformer(dm)
     pf_train_times = phase_timing_poseformer_train(dm, card, hbm_rate)
-
-    print(card, flush=True)
-    emit({"kernels": [
-        kernel_entry("fused_projection", "fused_projection.cu",
-                     "fused_projection.py:328", launches, max_err, times),
-        kernel_entry("fused_projection_train_fwd",
-                     "fused_projection_train.cu", "fused_projection.py:458",
-                     train_counts["fused_projection_train_fwd"], err_fwd,
-                     train_times["fwd"]),
-        kernel_entry("fused_projection_train_bwd",
-                     "fused_projection_train.cu", "fused_projection.py:538",
-                     train_counts["fused_projection_train_bwd"], err_bwd,
-                     train_times["bwd"]),
+    return [
         kernel_entry("fused_spatial_stack", "fused_spatial_transformer.cu",
                      "fused_spatial_transformer.py:398",
                      pf_counts["fused_spatial_stack"], err_spatial,
@@ -1527,8 +2064,44 @@ def main():
                      "fused_temporal_transformer.cu",
                      "fused_temporal_transformer.py:974 and :566",
                      pf_train_counts["fused_temporal_block_bwd"],
-                     err_temporal_bwd, pf_train_times["temporal"]),
-    ]})
+                     err_temporal_bwd, pf_train_times["temporal"])]
+
+
+def group_classification(card, hbm_rate):
+    from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
+        Carla2D3DDataModule
+
+    errs = {"gru_fwd": phase_kernel_graph("gru"),
+            "lstm_fwd": phase_kernel_graph("lstm"),
+            "gru_bwd": phase_kernel_graph_bwd("gru"),
+            "lstm_bwd": phase_kernel_graph_bwd("lstm")}
+    torch.cuda.empty_cache()
+    dm = Carla2D3DDataModule(batch_size=CLS_BATCH, clip_length=CLIP,
+                             test_set_size=REQUESTS * CLS_BATCH,
+                             val_set_size=VAL_BATCHES * CLS_BATCH, seed=SEED)
+    counts = phase_train_classification(dm)
+    phase_serve_classification(dm)
+    times = phase_timing_classification(dm, card, hbm_rate)
+    names = {"gru_fwd": ("graph_gru_scan", 251),
+             "gru_bwd": ("graph_gru_scan_bwd", 291),
+             "lstm_fwd": ("graph_lstm_scan", 442),
+             "lstm_bwd": ("graph_lstm_scan_bwd", 486)}
+    return [kernel_entry(name, "fused_graph_gru.cu",
+                         f"fused_graph_gru.py:{line}", counts[name],
+                         errs[key], times[key])
+            for key, (name, line) in names.items()]
+
+
+def main():
+    card, hbm_rate = phase_device()
+    phase_build()
+    kernels = []
+    for group in (group_lifting, group_poseformer, group_classification):
+        kernels += group(card, hbm_rate)
+        torch.cuda.empty_cache()
+
+    print(card, flush=True)
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,162 @@
+"""Crossing/action classification flow (reference
+``modules/flow/classification.py:41-596``): classifier -> logits ->
+cross-entropy (or binary cross-entropy) loss, the confusion-matrix metric
+stack, one label per clip.
+
+As the other flows, it applies its model functionally to an explicit
+parameter dict, here ``{"classification": state_dict}``, and trains it with
+one AdamW group. The prevalent-class baseline (``initial_preds`` and the
+initial metrics) is not ported yet (see ``ROADMAP.md``).
+"""
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch.func import functional_call
+from torch.nn import functional as F
+
+from ..metrics.base import MetricCollection
+from ..metrics.classification import (AUROC, Accuracy, ConfusionMatrixMetric,
+                                      F1Score, PRCurve, Precision, ROCCurve,
+                                      Recall)
+from ..models.base import OptimizerSettings, make_adamw
+from ..models.classification import CLASSIFICATION_MODELS
+from ..utils.device import DeviceLike, resolve_device
+from .base import BaseFlow, FlowState, Params
+from .output_types import ClassificationModelOutputType
+
+DEFAULT_SEED = 22742
+
+
+class ClassificationFlow:
+    def __init__(self,
+                 classification_model: Optional[torch.nn.Module] = None,
+                 classification_targets_key: str = "crossing",
+                 classification_average: str = "macro",
+                 num_classes: int = 2,
+                 classification_optimizer: Optional[OptimizerSettings] = None,
+                 gradient_clip_val: float = 0.0,
+                 precision: str = "32",
+                 seed: int = DEFAULT_SEED,
+                 device: DeviceLike = None) -> None:
+        self.device = resolve_device(device)
+        if str(precision) in ("16", "bf16"):
+            raise NotImplementedError(
+                "the port runs in float32 only; bf16 is not ported yet (see "
+                "ROADMAP.md)")
+        if str(precision) != "32":
+            raise ValueError(f"unknown precision {precision!r}")
+        if gradient_clip_val and gradient_clip_val > 0:
+            raise NotImplementedError(
+                "gradient clipping is not ported yet (see ROADMAP.md)")
+        if classification_model is None:
+            classification_model = self.get_default_models()[
+                "classification"](generator=torch.Generator().manual_seed(seed))
+        self.classification_model = classification_model.to(self.device)
+        self.targets_key = classification_targets_key
+        self.outputs_key = classification_targets_key + "_logits"
+        self.num_classes = num_classes
+        self.classification_optimizer = classification_optimizer \
+            or OptimizerSettings()
+        #: draws the dropout masks of the training steps, on the flow's device
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+        if classification_average == "benchmark":
+            # the PedestrianActionBenchmark protocol (reference
+            # ``classification.py:59-75``)
+            self.average = {"Accuracy": "micro", "Precision": "none",
+                            "Recall": "none", "F1Score": "none"}
+        else:
+            self.average = {k: classification_average for k in
+                            ("Accuracy", "Precision", "Recall", "F1Score")}
+        self.binary = (num_classes == 2 and self.classification_model.
+                       output_type == ClassificationModelOutputType.binary)
+        #: the flow has one loss and no loss modes
+        self.requested_loss_modes = []
+        self.metrics = MetricCollection(self.get_metrics())
+
+    @classmethod
+    def get_default_models(cls):
+        return {"classification": CLASSIFICATION_MODELS["LSTM"]}
+
+    @property
+    def needs_confidence(self) -> bool:
+        return getattr(self.classification_model, "needs_confidence", False)
+
+    def get_metrics(self) -> Dict[str, Any]:
+        kw = dict(preds_key=self.outputs_key, targets_key=self.targets_key,
+                  num_classes=self.num_classes, binary=self.binary)
+        hist_kw = dict(preds_key=self.outputs_key,
+                       targets_key=self.targets_key, binary=self.binary)
+        metrics = {
+            "Accuracy": Accuracy(average=self.average["Accuracy"], **kw),
+            "Precision": Precision(average=self.average["Precision"], **kw),
+            "Recall": Recall(average=self.average["Recall"], **kw),
+            "F1Score": F1Score(average=self.average["F1Score"], **kw),
+            "ConfusionMatrix": ConfusionMatrixMetric(**kw),
+        }
+        if self.num_classes <= 2:
+            # the score-histogram metrics are binary curves (positive-class
+            # probability); with more classes they would quietly become a
+            # class-1-vs-rest curve, so they are left out instead
+            metrics.update({"AUROC": AUROC(**hist_kw),
+                            "ROC": ROCCurve(**hist_kw),
+                            "PRCurve": PRCurve(**hist_kw)})
+        return metrics
+
+    # -- parameters and state -------------------------------------------------
+    def init_params(self) -> Params:
+        """The model's current (seeded-init) parameters, on the flow's
+        device, as the parameter dict the steps take."""
+        return {"classification": {
+            k: v.detach() for k, v in
+            self.classification_model.state_dict().items()}}
+
+    def init_state(self, params: Optional[Params] = None) -> FlowState:
+        """A training state over copies of ``params`` (default: the model's
+        own seeded init): AdamW with the one group "classification"."""
+        params = self.init_params() if params is None else params
+        params = {name: {k: v.detach().to(self.device).clone()
+                         .requires_grad_(True) for k, v in tree.items()}
+                  for name, tree in params.items()}
+        optimizer = make_adamw({"classification": (
+            self.classification_optimizer,
+            params["classification"].values())})
+        return FlowState(params=params, optimizer=optimizer, step=0)
+
+    current_lrs = staticmethod(BaseFlow.current_lrs)
+    param_counts = staticmethod(BaseFlow.param_counts)
+
+    # -- steps ----------------------------------------------------------------
+    def _apply(self, params: Params, inputs, training: bool) -> torch.Tensor:
+        return functional_call(
+            self.classification_model, params["classification"], (inputs,),
+            {"training": training,
+             "generator": self.generator if training else None})
+
+    def _loss(self, logits: torch.Tensor, targets) -> torch.Tensor:
+        labels = targets[self.targets_key].reshape(-1)
+        if self.binary:
+            return F.binary_cross_entropy_with_logits(
+                logits.reshape(-1), labels.to(logits.dtype))
+        return F.cross_entropy(logits, labels.long())
+
+    def training_step(self, state: FlowState, batch
+                      ) -> Tuple[FlowState, Dict[str, torch.Tensor]]:
+        """One AdamW step on ``batch``, in place; returns the state and
+        ``{"train_loss/primary": loss}`` (a tensor on the device)."""
+        inputs, targets, _ = batch
+        loss = self._loss(self._apply(state.params, inputs, True), targets)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return state, {"train_loss/primary": loss.detach()}
+
+    @torch.no_grad()
+    def eval_step(self, params: Params, batch):
+        """-> (loss dict, preds, targets) for metric accumulation."""
+        inputs, targets, _ = batch
+        logits = self._apply(params, inputs, False)
+        loss = self._loss(logits, targets)
+        return ({"classification": loss, "primary": loss},
+                {self.outputs_key: logits}, targets)

@@ -4,8 +4,12 @@
         --data_module_name=Carla2D3D --movements_model_name=LinearAE \
         --loss_modes loc_2d_3d --projection_kernel fused_train ...
 
-The chosen movements model's constructor arguments are flags as well
-(``--receptive_frames``, ``--depth``, ...; ``--clip_length`` feeds both the
+    python -m pedestrians_video_2_carla_torch --flow=classification \
+        --classification_model_name=GConvGRU --graph_kernel fused ...
+
+The chosen model's constructor arguments are flags as well
+(``--receptive_frames``, ``--depth``, ``--hidden_size``, ``--k``,
+``--graph_kernel``, ``--rnn_kernel``, ...; ``--clip_length`` feeds both the
 data module and the model), as the JAX CLI adds one per model field. Logs
 and checkpoints go to ``<root_dir>/logs/<flow>/<run_name>/``. It runs
 on the card unless ``--device cpu`` is given. A flow, data module, model,
@@ -22,16 +26,19 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from .data.carla.carla_2d3d import Carla2D3DDataModule
+from .flows.classification import ClassificationFlow
 from .flows.pose_lifting import PoseLiftingFlow
 from .losses import LossModes
 from .models.base import OptimizerSettings
+from .models.classification import CLASSIFICATION_MODELS
 from .models.movements import MOVEMENTS_MODELS
 from .ops.projection import KERNELS
 from .training.trainer import Trainer, TrainerConfig
 
 DEFAULT_SEED = 22742
 
-FLOWS = {"pose_lifting": PoseLiftingFlow}
+FLOWS = {"pose_lifting": PoseLiftingFlow,
+         "classification": ClassificationFlow}
 DATA_MODULES = {"Carla2D3D": Carla2D3DDataModule}
 MODES = ("train", "test")
 
@@ -54,7 +61,7 @@ def _ported(kind: str, name: str, available) -> None:
 
 #: model constructor arguments that are not flags
 _NOT_FLAGS = ("generator", "input_nodes", "output_nodes",
-              "movements_output_type")
+              "movements_output_type", "needs_confidence")
 
 
 def model_params(model_cls) -> Dict[str, Any]:
@@ -81,8 +88,9 @@ def add_model_args(parser: argparse.ArgumentParser, model_cls) -> None:
 
 
 def make_parser(argv: Optional[List[str]] = None) -> argparse.ArgumentParser:
-    """The CLI's parser; the movements model named in ``argv`` adds its
-    own flags."""
+    """The CLI's parser; the model named in ``argv`` (the classifier for
+    ``--flow=classification``, else the movements model) adds its own
+    flags."""
     parser = argparse.ArgumentParser(
         prog="pedestrians_video_2_carla_torch",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
@@ -90,6 +98,7 @@ def make_parser(argv: Optional[List[str]] = None) -> argparse.ArgumentParser:
     parser.add_argument("--mode", default="train")
     parser.add_argument("--data_module_name", default="Carla2D3D")
     parser.add_argument("--movements_model_name", default="LinearAE")
+    parser.add_argument("--classification_model_name", default="LSTM")
     parser.add_argument("--seed", type=int, default=DEFAULT_SEED)
     parser.add_argument("--root_dir", default="outputs")
     parser.add_argument("--run_name", default=None)
@@ -121,13 +130,29 @@ def make_parser(argv: Optional[List[str]] = None) -> argparse.ArgumentParser:
                             "= the training CUDA kernels, forward and "
                             "backward (JAX 'pallas_train')")
 
-    group = parser.add_argument_group("movements optimizer")
+    group = parser.add_argument_group("ClassificationFlow")
+    group.add_argument("--classification_targets_key", default="crossing")
+    group.add_argument("--classification_average", default="macro",
+                       choices=["micro", "macro", "weighted", "none",
+                                "benchmark"])
+    group.add_argument("--num_classes", type=int, default=2)
+
+    group = parser.add_argument_group("optimizers")
     group.add_argument("--movements_lr", type=float, default=None)
+    group.add_argument("--classification_lr", type=float, default=None)
 
     chosen, _ = parser.parse_known_args(argv)
-    if chosen.movements_model_name in MOVEMENTS_MODELS:
-        add_model_args(parser, MOVEMENTS_MODELS[chosen.movements_model_name])
+    models, name = chosen_model(chosen)
+    if name in models:
+        add_model_args(parser, models[name])
     return parser
+
+
+def chosen_model(args):
+    """(the registry, the name) of the model the chosen flow trains."""
+    if args.flow == "classification":
+        return CLASSIFICATION_MODELS, args.classification_model_name
+    return MOVEMENTS_MODELS, args.movements_model_name
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
@@ -136,7 +161,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     _ported("flow", args.flow, FLOWS)
     _ported("mode", args.mode, MODES)
     _ported("data module", args.data_module_name, DATA_MODULES)
-    _ported("movements model", args.movements_model_name, MOVEMENTS_MODELS)
+    models, model_name = chosen_model(args)
+    _ported("classification model" if args.flow == "classification"
+            else "movements model", model_name, models)
     for mode in args.loss_modes:
         _ported("loss mode", mode, LossModes.__members__)
 
@@ -153,17 +180,30 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         detect_anomaly=args.detect_anomaly,
         device=args.device)
 
-    model_cls = MOVEMENTS_MODELS[args.movements_model_name]
-    model = model_cls(generator=torch.Generator().manual_seed(args.seed),
-                      **{k: getattr(args, k) for k in model_params(model_cls)})
-    flow = FLOWS[args.flow](
-        model, loss_modes=args.loss_modes,
-        movements_optimizer=OptimizerSettings.from_kwargs("movements",
-                                                          vars(args)),
-        projection_kernel=args.projection_kernel, device=args.device)
+    model_cls = models[model_name]
+    model_kwargs = {k: getattr(args, k) for k in model_params(model_cls)}
+    generator = torch.Generator().manual_seed(args.seed)
+    if args.flow == "classification":
+        flow = ClassificationFlow(
+            model_cls(generator=generator, num_classes=args.num_classes,
+                      **model_kwargs),
+            classification_targets_key=args.classification_targets_key,
+            classification_average=args.classification_average,
+            num_classes=args.num_classes,
+            classification_optimizer=OptimizerSettings.from_kwargs(
+                "classification", vars(args)),
+            seed=args.seed, device=args.device)
+    else:
+        flow = FLOWS[args.flow](
+            model_cls(generator=generator, **model_kwargs),
+            loss_modes=args.loss_modes,
+            movements_optimizer=OptimizerSettings.from_kwargs("movements",
+                                                              vars(args)),
+            projection_kernel=args.projection_kernel, device=args.device)
     dm = DATA_MODULES[args.data_module_name](
         batch_size=args.batch_size, clip_length=args.clip_length,
         val_set_size=args.val_set_size, test_set_size=args.test_set_size,
+        needs_confidence=getattr(flow, "needs_confidence", False),
         seed=args.seed, device=args.device)
     trainer = Trainer(flow, dm, config)
 

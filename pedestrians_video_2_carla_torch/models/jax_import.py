@@ -128,19 +128,39 @@ def import_pose_former(flax_params: Mapping[str, Any]
     return out
 
 
+def import_classification(flax_params: Mapping[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """A flax classifier tree -> the port's state_dict. The graph-recurrent
+    family's gate parameters (``rnn1_z_wx0``, ...) keep their names and
+    their (in, out) shapes; Dense kernels, and the recurrent cells'
+    ``i*`` / ``h*`` kernels under ``OptimizedLSTMCell_i`` / ``GRUCell_i``,
+    transpose to nn.Linear weights. The same tree serves the JAX package's
+    xla and pallas routes. A tree that is no classifier's raises."""
+    known = ("rnn", "Dense_", "OptimizedLSTMCell_", "GRUCell_")
+    unknown = [n for n in flax_params if not n.startswith(known)]
+    if unknown or not any(n.startswith("Dense_") for n in flax_params):
+        raise ValueError(f"not a ported classifier's parameter tree: "
+                         f"{sorted(flax_params)}")
+    return {k: v.to(torch.float32)
+            for k, v in flax_to_state_dict(flax_params).items()}
+
+
 def import_flow_params(flax_params: Mapping[str, Any],
                        device: DeviceLike = None
                        ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """A JAX flow's ``state.params`` ``{"movements": ..., "trajectory":
-    ...}`` -> the port's flow parameter dict, on ``device`` (the card unless
-    asked otherwise). A PoseFormer tree goes through
-    :func:`import_pose_former`, any other through
+    """A JAX flow's ``state.params`` (``{"movements": ..., "trajectory":
+    ...}`` or ``{"classification": ...}``) -> the port's flow parameter
+    dict, on ``device`` (the card unless asked otherwise). A classifier's
+    tree goes through :func:`import_classification`, a PoseFormer tree
+    through :func:`import_pose_former`, any other through
     :func:`flax_to_state_dict`."""
     device = resolve_device(device)
 
-    def bridge(tree):
+    def bridge(name, tree):
+        if name == "classification":
+            return import_classification(tree)
         if "spatial_patch_embed" in tree:
             return import_pose_former(tree)
         return flax_to_state_dict(tree)
-    return {name: {k: v.to(device) for k, v in bridge(tree).items()}
+    return {name: {k: v.to(device) for k, v in bridge(name, tree).items()}
             for name, tree in flax_params.items()}

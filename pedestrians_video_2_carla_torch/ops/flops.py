@@ -1,8 +1,8 @@
 """Analytic FLOP counts of the transformer kernels: the port's own copy of
 what it needs of the JAX package's ``ops/pallas/flops.py`` (the port
-imports nothing of that package), and the backward's count.
-``chip_smoke.py`` bounds the spatial-stack and temporal-block kernels,
-forward and backward, with them.
+imports nothing of that package), and the backward's count; and the FLOP
+and byte counts of the graph-GRU and graph-LSTM scans. ``chip_smoke.py``
+bounds the kernels, forward and backward, with them.
 
 FLOP convention: 1 multiply-accumulate = 2 FLOPs.
 """
@@ -64,3 +64,49 @@ def poseformer_kernel_train_flops(batch: int, clip_length: int = 16,
             batch * (clip_length - receptive_frames + 1) * receptive_frames,
             joints * embed_dim, mlp_ratio, seq_t))
     return int(3 * fwd)
+
+
+#: gates of a graph scan's cell, and gates per hidden-side product
+SCAN_GATES = {"gru": 3, "lstm": 4}
+
+
+def graph_scan_flops(cell: str, batch: int, clip_length: int, joints: int,
+                     hidden: int, k: int, backward: bool = False) -> int:
+    """FLOPs of one graph-GRU or graph-LSTM scan (``ops/fused_graph_gru
+    .py``), forward or backward, counting the cheaper order of the
+    hidden-side convolution (the graph applied to the H-wide operand, then
+    one product).
+
+    Forward, per row (a joint of a clip in a frame): the hidden products,
+    2 k H G H; the graph applied to the carry, 2 (k - 1) J H, once for the
+    LSTM and twice for the GRU (h and r h). The backward recomputes the
+    gates (the forward's count), carries dh through da W^T (the hidden
+    products' count again) and the transposed graph (the graph's count
+    again), and sums the weight gradients over all rows (the hidden
+    products' count a third time). Elementwise gating is left out."""
+    gates = SCAN_GATES[cell]
+    rows = batch * clip_length * joints
+    products = 2 * k * hidden * gates * hidden
+    graph = 2 * (k - 1) * joints * hidden * (2 if cell == "gru" else 1)
+    per_row = 3 * products + 2 * graph if backward else products + graph
+    return int(rows * per_row)
+
+
+def graph_scan_bytes(cell: str, batch: int, clip_length: int, joints: int,
+                     hidden: int, k: int, backward: bool = False,
+                     with_dcs: bool = False) -> int:
+    """Bytes a graph scan must move in float32: each input read once and
+    each output written once. Forward: xg in, ys (and the LSTM's cs) out,
+    the weights and graph matrices in. Backward: xg, ys (cs), dys (dcs
+    where the caller used cs) and the weights in, dxg and the weight
+    gradients out."""
+    gates = SCAN_GATES[cell]
+    rows = batch * clip_length * joints
+    states = 2 if cell == "lstm" else 1
+    weights = k * hidden * gates * hidden + (k - 1) * joints * joints
+    if backward:
+        floats = rows * (2 * gates * hidden + hidden * (
+            states + 1 + (1 if with_dcs else 0))) + 2 * weights
+    else:
+        floats = rows * (gates * hidden + states * hidden) + weights
+    return int(4 * floats)

@@ -1,0 +1,414 @@
+"""The frame recurrences of the graph-convolutional GRU and LSTM layers of
+the classification GNNs (``models/classification/gnn.py``) and of the dense
+LSTM (``models/rnn.py``) as CUDA entries, ``csrc/fused_graph_gru.cu`` (a
+forward and a hand-written backward each), with their plain PyTorch
+versions and the autograd wrappers.
+
+They replace the four TPU kernels of the JAX package's
+``ops/pallas/fused_graph_gru.py`` (``_fwd_kernel``, ``_bwd_kernel``,
+``_lstm_fwd_kernel``, ``_lstm_bwd_kernel``). The input-side graph
+convolutions of a layer do not depend on the carry, so the caller computes
+them for the whole clip (``xg``, both biases folded in); only the
+hidden-side products and the gating run here, frame after frame. On an H100
+operations bound both scans: at B=256, L=16, J=26, H=128, k=2 a GRU layer's
+forward is 22.3 GFLOP against 0.22 GB of traffic (``ops/flops.py``).
+
+Layouts are the natural ones (the TPU's interleaved slabs and Kronecker
+constants are not carried over): ``xg`` is (L, B, J, G H), frame-major, with
+G = 3 gates z|r|h for the GRU and 4 gates i|f|c|o for the LSTM; ``cheb``
+holds the Chebyshev matrices T_1 .. T_{k-1} of the (J, J) graph operator,
+(k - 1, J, J) (T_0 = I is implied; k = 1 takes an empty (0, J, J) tensor);
+hidden-side weights are (H, k G' H) with columns ordered by Chebyshev order
+n, then gate, as the TPU kernels take them. The outputs are every frame's
+hidden (and cell) state, (L, B, J, H). A dense LSTM is the case J = 1,
+k = 1.
+
+The wrappers launch the kernels for CUDA tensors and run the plain version
+(and autograd of it) for CPU tensors; there is no fallback from one to the
+other. ``graph_gru_scan_cuda_fwd.launches`` etc. count entry calls; an entry
+is a fixed sequence of launches (forward: 1; GRU backward: 5; LSTM
+backward: 3), described in the source.
+"""
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import cuda_build
+from .cuda_build import INT as _INT, PTR as _PTR
+
+_SOURCE = cuda_build.CSRC / "fused_graph_gru.cu"
+_SIGNATURES = {
+    "pv2c_graph_gru_scan_fwd": [_PTR] * 5 + [_INT] * 5 + [_PTR],
+    "pv2c_graph_gru_scan_bwd": [_PTR] * 14 + [_INT] * 5 + [_PTR],
+    "pv2c_graph_lstm_scan_fwd": [_PTR] * 5 + [_INT] * 5 + [_PTR],
+    "pv2c_graph_lstm_scan_bwd": [_PTR] * 12 + [_INT] * 5 + [_PTR],
+    "pv2c_graph_scan_part_floats": [_INT] * 6,
+}
+GRU_GATES, LSTM_GATES = 3, 4
+
+
+def cheb_matrices(op: np.ndarray, k: int) -> np.ndarray:
+    """T_1(op) .. T_{k-1}(op), the Chebyshev polynomials of the (J, J)
+    graph operator (T_1 = op, T_n = 2 op T_{n-1} - T_{n-2}), stacked as
+    (k - 1, J, J) float32; the recurrence runs in float64. T_0 = I is
+    implied; k = 1 gives an empty (0, J, J) array."""
+    op = np.asarray(op, np.float64)
+    ts = [np.eye(op.shape[0]), op]
+    for _ in range(max(0, k - 2)):
+        ts.append(2.0 * op @ ts[-1] - ts[-2])
+    return np.stack(ts[:max(k, 1)])[1:].astype(np.float32)
+
+
+def _check_scan(xg: torch.Tensor, cheb: torch.Tensor, weights, gates: int
+                ) -> Tuple[int, int, int, int, int]:
+    """Shapes and types of a scan call; returns (L, B, J, H, k).
+    ``weights``: ((name, tensor, gates in its group), ...)."""
+    if xg.ndim != 4 or xg.shape[-1] % gates:
+        raise ValueError(f"xg must be (L, B, J, {gates} H), got "
+                         f"{tuple(xg.shape)}")
+    L, B, J, GH = xg.shape
+    H = GH // gates
+    if cheb.ndim != 3 or tuple(cheb.shape[1:]) != (J, J):
+        raise ValueError(f"cheb must be (k - 1, {J}, {J}), got "
+                         f"{tuple(cheb.shape)}")
+    k = cheb.shape[0] + 1
+    if L < 1:
+        raise ValueError("a scan needs at least one frame")
+    for name, w, group in weights:
+        if tuple(w.shape) != (H, k * group * H):
+            raise ValueError(f"{name} must be ({H}, {k * group * H}), got "
+                             f"{tuple(w.shape)}")
+    for t in (xg, cheb, *(w for _, w, _ in weights)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"the graph scans run in float32, got {t.dtype}")
+        if t.device != xg.device:
+            raise ValueError(f"tensors on {t.device} and {xg.device}")
+    return L, B, J, H, k
+
+
+def _graph_apply(cheb: torch.Tensor, hw: torch.Tensor, width: int
+                 ) -> torch.Tensor:
+    """sum_n T_n hw[..., n-th block of ``width`` columns] over n = 0 ..
+    k - 1 on (B, J, k width) ``hw``."""
+    out = hw[..., :width]
+    for n in range(1, cheb.shape[0] + 1):
+        out = out + torch.einsum(
+            "ij,bjc->bic", cheb[n - 1], hw[..., n * width:(n + 1) * width])
+    return out
+
+
+def graph_gru_scan_reference(xg: torch.Tensor, cheb: torch.Tensor,
+                             wzr: torch.Tensor, wh: torch.Tensor
+                             ) -> torch.Tensor:
+    """The plain PyTorch version of the GRU scan: a loop over frames.
+    xg (L, B, J, 3H), cheb (k-1, J, J), wzr (H, k 2H), wh (H, k H) ->
+    ys (L, B, J, H)."""
+    L, B, J, H, _ = _check_scan(xg, cheb, (("wzr", wzr, 2), ("wh", wh, 1)),
+                                GRU_GATES)
+    h = xg.new_zeros((B, J, H))
+    ys = []
+    for t in range(L):
+        zr = torch.sigmoid(xg[t, ..., :2 * H]
+                           + _graph_apply(cheb, h @ wzr, 2 * H))
+        z, r = zr[..., :H], zr[..., H:]
+        ht = torch.tanh(xg[t, ..., 2 * H:]
+                        + _graph_apply(cheb, (r * h) @ wh, H))
+        h = z * h + (1.0 - z) * ht
+        ys.append(h)
+    return torch.stack(ys)
+
+
+def graph_lstm_scan_reference(xg: torch.Tensor, cheb: torch.Tensor,
+                              w: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the LSTM scan. xg (L, B, J, 4H) in gate
+    order i|f|c|o, cheb (k-1, J, J), w (H, k 4H) -> (ys, cs), each
+    (L, B, J, H)."""
+    L, B, J, H, _ = _check_scan(xg, cheb, (("w", w, 4),), LSTM_GATES)
+    h = xg.new_zeros((B, J, H))
+    c = xg.new_zeros((B, J, H))
+    ys, cs = [], []
+    for t in range(L):
+        acts = xg[t] + _graph_apply(cheb, h @ w, 4 * H)
+        i = torch.sigmoid(acts[..., :H])
+        f = torch.sigmoid(acts[..., H:2 * H])
+        g = torch.tanh(acts[..., 2 * H:3 * H])
+        o = torch.sigmoid(acts[..., 3 * H:])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        ys.append(h)
+        cs.append(c)
+    return torch.stack(ys), torch.stack(cs)
+
+
+# -- the kernels' weight layout ---------------------------------------------
+def _stack(w: torch.Tensor, k: int) -> torch.Tensor:
+    """(H, k GH) with columns (n, gate, unit) -> (k H, GH) with rows
+    (n, unit): the operand of [h | T_1 h | ...] (rows, k H), which is how
+    the kernels contract (the graph applied to the H-wide carry first)."""
+    H = w.shape[0]
+    return w.reshape(H, k, -1).permute(1, 0, 2).reshape(k * H, -1).contiguous()
+
+
+def _unstack(ws: torch.Tensor, k: int) -> torch.Tensor:
+    """The inverse of :func:`_stack`."""
+    H = ws.shape[0] // k
+    return ws.reshape(k, H, -1).permute(1, 0, 2).reshape(H, -1).contiguous()
+
+
+def _library():
+    return cuda_build.load_library(_SOURCE, _SIGNATURES)
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _part(lib, device, L, B, J, H, k, gates) -> torch.Tensor:
+    floats = lib.pv2c_graph_scan_part_floats(L, B, J, H, k, gates)
+    if floats < 0:
+        cuda_build.check_launch(-floats, "pv2c_graph_scan_part_floats")
+    return torch.empty(floats, dtype=torch.float32, device=device)
+
+
+def graph_gru_scan_cuda_fwd(xg: torch.Tensor, cheb: torch.Tensor,
+                            wzr: torch.Tensor, wh: torch.Tensor
+                            ) -> torch.Tensor:
+    """Launch the GRU scan on float32 contiguous CUDA tensors -> ys
+    (L, B, J, H). Adds one to ``graph_gru_scan_cuda_fwd.launches`` per
+    call."""
+    L, B, J, H, k = _check_scan(xg, cheb, (("wzr", wzr, 2), ("wh", wh, 1)),
+                                GRU_GATES)
+    device = cuda_build.check_cuda_tensors(
+        "graph_gru_scan_cuda_fwd", xg=xg, cheb=cheb, wzr=wzr, wh=wh)
+    ys = torch.empty((L, B, J, H), dtype=torch.float32, device=device)
+    if ys.numel():
+        wzr_s, wh_s = _stack(wzr, k), _stack(wh, k)
+        with torch.cuda.device(device):
+            err = _library().pv2c_graph_gru_scan_fwd(
+                xg.data_ptr(), cheb.data_ptr(), wzr_s.data_ptr(),
+                wh_s.data_ptr(), ys.data_ptr(), L, B, J, H, k,
+                _stream(device))
+        cuda_build.check_launch(err, "pv2c_graph_gru_scan_fwd")
+        graph_gru_scan_cuda_fwd.launches += 1
+    return ys
+
+
+graph_gru_scan_cuda_fwd.launches = 0
+
+
+def graph_gru_scan_cuda_bwd(xg: torch.Tensor, cheb: torch.Tensor,
+                            wzr: torch.Tensor, wh: torch.Tensor,
+                            ys: torch.Tensor, dys: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Launch the GRU scan's backward on float32 contiguous CUDA tensors:
+    the forward's inputs, its output ys and the cotangent dys ->
+    ``(dxg, dwzr, dwh)``, each in its primal's shape. Adds one to
+    ``graph_gru_scan_cuda_bwd.launches`` per call."""
+    L, B, J, H, k = _check_scan(xg, cheb, (("wzr", wzr, 2), ("wh", wh, 1)),
+                                GRU_GATES)
+    if tuple(ys.shape) != (L, B, J, H) or dys.shape != ys.shape:
+        raise ValueError(f"ys and dys must be {(L, B, J, H)}, got "
+                         f"{tuple(ys.shape)} and {tuple(dys.shape)}")
+    device = cuda_build.check_cuda_tensors(
+        "graph_gru_scan_cuda_bwd", xg=xg, cheb=cheb, wzr=wzr, wh=wh, ys=ys,
+        dys=dys)
+    if not ys.numel():
+        return (torch.zeros_like(xg), torch.zeros_like(wzr),
+                torch.zeros_like(wh))
+    empty = functools.partial(torch.empty, dtype=torch.float32, device=device)
+    wzr_s, wh_s = _stack(wzr, k), _stack(wh, k)
+    wzr_t, wh_t = wzr_s.t().contiguous(), wh_s.t().contiguous()
+    dxg = torch.empty_like(xg)
+    # the expanded operands [h_prev | T_n h_prev] and [r h_prev | T_n ..] of
+    # every frame, which the weight-gradient products read back
+    sa, sb = empty((L * B * J, k * H)), empty((L * B * J, k * H))
+    dwzr_s, dwh_s = empty((k * H, 2 * H)), empty((k * H, H))
+    lib = _library()
+    with torch.cuda.device(device):
+        part = _part(lib, device, L, B, J, H, k, GRU_GATES)
+        err = lib.pv2c_graph_gru_scan_bwd(
+            xg.data_ptr(), cheb.data_ptr(), wzr_s.data_ptr(),
+            wh_s.data_ptr(), wzr_t.data_ptr(), wh_t.data_ptr(),
+            ys.data_ptr(), dys.data_ptr(), dxg.data_ptr(), sa.data_ptr(),
+            sb.data_ptr(), part.data_ptr(), dwzr_s.data_ptr(),
+            dwh_s.data_ptr(), L, B, J, H, k, _stream(device))
+    cuda_build.check_launch(err, "pv2c_graph_gru_scan_bwd")
+    graph_gru_scan_cuda_bwd.launches += 1
+    return dxg, _unstack(dwzr_s, k), _unstack(dwh_s, k)
+
+
+graph_gru_scan_cuda_bwd.launches = 0
+
+
+def graph_lstm_scan_cuda_fwd(xg: torch.Tensor, cheb: torch.Tensor,
+                             w: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the LSTM scan on float32 contiguous CUDA tensors ->
+    ``(ys, cs)``, each (L, B, J, H). Adds one to
+    ``graph_lstm_scan_cuda_fwd.launches`` per call."""
+    L, B, J, H, k = _check_scan(xg, cheb, (("w", w, 4),), LSTM_GATES)
+    device = cuda_build.check_cuda_tensors(
+        "graph_lstm_scan_cuda_fwd", xg=xg, cheb=cheb, w=w)
+    ys = torch.empty((L, B, J, H), dtype=torch.float32, device=device)
+    cs = torch.empty_like(ys)
+    if ys.numel():
+        w_s = _stack(w, k)
+        with torch.cuda.device(device):
+            err = _library().pv2c_graph_lstm_scan_fwd(
+                xg.data_ptr(), cheb.data_ptr(), w_s.data_ptr(),
+                ys.data_ptr(), cs.data_ptr(), L, B, J, H, k, _stream(device))
+        cuda_build.check_launch(err, "pv2c_graph_lstm_scan_fwd")
+        graph_lstm_scan_cuda_fwd.launches += 1
+    return ys, cs
+
+
+graph_lstm_scan_cuda_fwd.launches = 0
+
+
+def graph_lstm_scan_cuda_bwd(xg: torch.Tensor, cheb: torch.Tensor,
+                             w: torch.Tensor, ys: torch.Tensor,
+                             cs: torch.Tensor, dys: torch.Tensor,
+                             dcs: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the LSTM scan's backward on float32 contiguous CUDA tensors:
+    the forward's inputs, its outputs (ys, cs), the cotangent dys and,
+    where the caller used cs, its cotangent dcs -> ``(dxg, dw)``. Adds one
+    to ``graph_lstm_scan_cuda_bwd.launches`` per call."""
+    L, B, J, H, k = _check_scan(xg, cheb, (("w", w, 4),), LSTM_GATES)
+    given = {"ys": ys, "cs": cs, "dys": dys}
+    if dcs is not None:
+        given["dcs"] = dcs
+    for name, t in given.items():
+        if tuple(t.shape) != (L, B, J, H):
+            raise ValueError(f"{name} must be {(L, B, J, H)}, got "
+                             f"{tuple(t.shape)}")
+    device = cuda_build.check_cuda_tensors(
+        "graph_lstm_scan_cuda_bwd", xg=xg, cheb=cheb, w=w, **given)
+    if not ys.numel():
+        return torch.zeros_like(xg), torch.zeros_like(w)
+    empty = functools.partial(torch.empty, dtype=torch.float32, device=device)
+    w_s = _stack(w, k)
+    w_t = w_s.t().contiguous()
+    dxg = torch.empty_like(xg)
+    sa = empty((L * B * J, k * H))
+    dw_s = empty((k * H, 4 * H))
+    lib = _library()
+    with torch.cuda.device(device):
+        part = _part(lib, device, L, B, J, H, k, LSTM_GATES)
+        err = lib.pv2c_graph_lstm_scan_bwd(
+            xg.data_ptr(), cheb.data_ptr(), w_s.data_ptr(), w_t.data_ptr(),
+            ys.data_ptr(), cs.data_ptr(), dys.data_ptr(),
+            None if dcs is None else dcs.data_ptr(), dxg.data_ptr(),
+            sa.data_ptr(), part.data_ptr(), dw_s.data_ptr(), L, B, J, H, k,
+            _stream(device))
+    cuda_build.check_launch(err, "pv2c_graph_lstm_scan_bwd")
+    graph_lstm_scan_cuda_bwd.launches += 1
+    return dxg, _unstack(dw_s, k)
+
+
+graph_lstm_scan_cuda_bwd.launches = 0
+
+
+def _plain_backward(reference, inputs, cotangents):
+    """Autograd of a plain version over fresh leaves of ``inputs``: the
+    backward of the entries on CPU tensors. A ``None`` cotangent is that
+    output unused."""
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    with torch.enable_grad():
+        outs = reference(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        used = [(o, g) for o, g in zip(outs, cotangents) if g is not None]
+        return torch.autograd.grad([o for o, _ in used], leaves,
+                                   [g for _, g in used])
+
+
+def _check_device(name: str, t: torch.Tensor) -> bool:
+    """True on the card, False on the CPU; any other device raises."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {t.device}")
+    return t.device.type == "cuda"
+
+
+class GraphGRUScan(torch.autograd.Function):
+    """Kernel forward and kernel backward (CUDA), or the plain forward and
+    autograd of it (CPU), as the JAX package's custom VJP. The graph
+    matrices get no gradient."""
+
+    @staticmethod
+    def forward(ctx, xg, cheb, wzr, wh):
+        if _check_device("graph_gru_scan", xg):
+            ys = graph_gru_scan_cuda_fwd(xg, cheb, wzr, wh)
+        else:
+            ys = graph_gru_scan_reference(xg, cheb, wzr, wh)
+        ctx.save_for_backward(xg, cheb, wzr, wh, ys)
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        xg, cheb, wzr, wh, ys = ctx.saved_tensors
+        if xg.device.type == "cuda":
+            dxg, dwzr, dwh = graph_gru_scan_cuda_bwd(
+                xg, cheb, wzr, wh, ys, dys.contiguous())
+        else:
+            dxg, dwzr, dwh = _plain_backward(
+                lambda a, b, c: graph_gru_scan_reference(a, cheb, b, c),
+                (xg, wzr, wh), (dys,))
+        return dxg, None, dwzr, dwh
+
+
+class GraphLSTMScan(torch.autograd.Function):
+    """As :class:`GraphGRUScan`, for the LSTM scan; both outputs (ys, cs)
+    are differentiable."""
+
+    @staticmethod
+    def forward(ctx, xg, cheb, w):
+        if _check_device("graph_lstm_scan", xg):
+            ys, cs = graph_lstm_scan_cuda_fwd(xg, cheb, w)
+        else:
+            ys, cs = graph_lstm_scan_reference(xg, cheb, w)
+        ctx.save_for_backward(xg, cheb, w, ys, cs)
+        ctx.set_materialize_grads(False)
+        return ys, cs
+
+    @staticmethod
+    def backward(ctx, dys, dcs):
+        xg, cheb, w, ys, cs = ctx.saved_tensors
+        if dys is None and dcs is None:
+            return None, None, None
+        if xg.device.type == "cuda":
+            dys = torch.zeros_like(ys) if dys is None else dys.contiguous()
+            dxg, dw = graph_lstm_scan_cuda_bwd(
+                xg, cheb, w, ys, cs, dys,
+                None if dcs is None else dcs.contiguous())
+        else:
+            dxg, dw = _plain_backward(
+                lambda a, b: graph_lstm_scan_reference(a, cheb, b),
+                (xg, w), (dys, dcs))
+        return dxg, None, dw
+
+
+def graph_gru_scan(xg: torch.Tensor, cheb: torch.Tensor, wzr: torch.Tensor,
+                   wh: torch.Tensor) -> torch.Tensor:
+    """The graph-GRU frame recurrence, fused: xg (L, B, J, 3H) input-side
+    gate pre-activations (z|r|h, both biases folded in), cheb (k-1, J, J),
+    wzr (H, k 2H) with columns (n, z|r), wh (H, k H) with columns by n ->
+    every frame's hidden state (L, B, J, H), the carry starting at zero.
+    Differentiable in xg, wzr and wh."""
+    return GraphGRUScan.apply(xg.contiguous(), cheb.contiguous(),
+                              wzr.contiguous(), wh.contiguous())
+
+
+def graph_lstm_scan(xg: torch.Tensor, cheb: torch.Tensor, w: torch.Tensor,
+                    with_c: bool = False):
+    """The graph-LSTM frame recurrence, fused: xg (L, B, J, 4H) (i|f|c|o,
+    both biases folded in), cheb (k-1, J, J), w (H, k 4H) with columns
+    (n, i|f|c|o) -> the hidden states (L, B, J, H), and with ``with_c`` the
+    cell states as well, ``(ys, cs)``. J = 1 with an empty cheb is a dense
+    LSTM over B rows. Differentiable in xg and w."""
+    ys, cs = GraphLSTMScan.apply(xg.contiguous(), cheb.contiguous(),
+                                 w.contiguous())
+    return (ys, cs) if with_c else ys

@@ -1,6 +1,6 @@
 """Skeleton registry and cross-skeleton joint mapping (the port's copy of
-the JAX package's ``skeletons/base.py``, cut to what the pose-lifting
-slice uses). Mappings resolve to static numpy index arrays (or
+the JAX package's ``skeletons/base.py``, cut to what the ported slices
+use). Mappings resolve to static numpy index arrays (or
 ``slice(None)``) that index tensors directly."""
 from enum import IntEnum
 from functools import lru_cache
@@ -12,6 +12,36 @@ import numpy as np
 class Skeleton(IntEnum):
     """Base class for skeleton joint enums: members are joint names, values
     are tensor indices along the joint dimension."""
+
+    @classmethod
+    def get_edges(cls) -> List[Tuple["Skeleton", "Skeleton"]]:
+        raise NotImplementedError()
+
+    @classmethod
+    def get_edge_index(cls) -> np.ndarray:
+        """Graph connectivity as a (2, 2*E) int array (both edge
+        directions), for the dense-adjacency GNN layers."""
+        edges = cls.get_edges()
+        src = [a.value for (a, b) in edges] + [b.value for (a, b) in edges]
+        dst = [b.value for (a, b) in edges] + [a.value for (a, b) in edges]
+        return np.asarray([src, dst], dtype=np.int32)
+
+    @classmethod
+    def get_adjacency_matrix(cls, normalized: bool = True,
+                             self_loops: bool = True) -> np.ndarray:
+        """Dense (J, J) float32 adjacency, optionally with self loops and
+        the symmetric normalization D^-1/2 A D^-1/2."""
+        n = len(cls)
+        adj = np.zeros((n, n), dtype=np.float32)
+        ei = cls.get_edge_index()
+        adj[ei[0], ei[1]] = 1.0
+        if self_loops:
+            adj = adj + np.eye(n, dtype=np.float32)
+        if normalized:
+            deg = adj.sum(axis=-1)
+            d = 1.0 / np.sqrt(np.maximum(deg, 1e-12))
+            adj = adj * d[:, None] * d[None, :]
+        return adj
 
     @classmethod
     def get_neck_point(cls) -> "Skeleton":

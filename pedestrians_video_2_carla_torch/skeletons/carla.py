@@ -47,6 +47,9 @@ TOPO_LEVELS: List[np.ndarray] = [
     np.nonzero(BONE_DEPTHS == d)[0].astype(np.int32)
     for d in range(int(BONE_DEPTHS.max()) + 1)]
 
+CARLA_SKELETON.get_edges = classmethod(lambda cls: [
+    (CARLA_SKELETON(int(PARENTS[i])), CARLA_SKELETON(i))
+    for i in range(NUM_BONES) if PARENTS[i] >= 0])
 CARLA_SKELETON.get_neck_point = classmethod(lambda cls: CARLA_SKELETON.crl_neck__C)
 CARLA_SKELETON.get_hips_point = classmethod(lambda cls: CARLA_SKELETON.crl_hips__C)
 

@@ -2,10 +2,12 @@
 batches, validation with checkpointing on ``val_loss/primary``, and scalar
 logging (the JAX package's ``training/trainer.py``, streamed epoch only).
 
-The port has no mesh, no host->device prefetcher (Carla2D3D batches are
-made on the card), no device-resident scan and no video logger. Logs stay
-on the device between log intervals; the host synchronises once per log
-interval and once per evaluation pass.
+A flow with a metric collection (the classification flow) has its
+metrics accumulated over every evaluation pass and logged beside the
+losses. The port has no mesh, no host->device prefetcher (Carla2D3D
+batches are made on the card), no device-resident scan and no video
+logger. Logs stay on the device between log intervals; the host
+synchronises once per log interval and once per evaluation pass.
 """
 import itertools
 import json
@@ -49,6 +51,21 @@ def _to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, float]:
     values = torch.stack([v.detach().float().reshape(())
                           for v in tensors.values()]).tolist()
     return dict(zip(tensors, values))
+
+
+def _flatten_metrics(computed: Dict[str, Any], stage: str) -> Dict[str, Any]:
+    """Computed metrics -> log entries: scalars as floats, curves and
+    matrices as lists."""
+    def host(v):
+        return float(v) if v.ndim == 0 else v.tolist()
+    out = {}
+    for name, value in computed.items():
+        if isinstance(value, dict):
+            for k, v in value.items():
+                out[f"{stage}_{name}/{k}"] = host(v)
+        else:
+            out[f"{stage}_{name}"] = host(value)
+    return out
 
 
 class Trainer:
@@ -155,34 +172,46 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def evaluate(self, stage: str = "val",
-                 limit: Optional[int] = None) -> Dict[str, float]:
-        """``<stage>_loss/<mode>`` averages over the val or test batches,
-        and ``<stage>_loss/primary``. The sums stay on the device; the host
-        reads them once at the end."""
+                 limit: Optional[int] = None) -> Dict[str, Any]:
+        """``<stage>_loss/<name>`` averages over the val or test batches and
+        ``<stage>_loss/primary`` (the flow's own ``primary`` entry, else its
+        first requested loss mode); where the flow has a metric collection,
+        ``<stage>_<Metric>`` as well (a scalar as a float, a curve or a
+        matrix as a list, a dict-valued metric as
+        ``<stage>_<Metric>/<key>``). Sums and metric states stay on the
+        device; the host reads them once at the end."""
         self._init_state()
         batches = self.dm.val_batches() if stage == "val" \
             else self.dm.test_batches()
         if limit is not None:
             batches = itertools.islice(batches, limit)
+        collection = getattr(self.flow, "metrics", None)
+        mstate = collection.init_state(self.device) if collection else None
         loss_sums: Dict[str, torch.Tensor] = {}
         count = 0
         for batch in batches:
-            loss_dict, _, _ = self.flow.eval_step(self.state.params, batch)
+            loss_dict, preds, targets = self.flow.eval_step(
+                self.state.params, batch)
             for k, v in loss_dict.items():
                 loss_sums[k] = v if k not in loss_sums else loss_sums[k] + v
+            if collection:
+                mstate = collection.update(mstate, preds, targets)
             count += 1
-        results: Dict[str, float] = {}
+        results: Dict[str, Any] = {}
         if count:
             for k, v in _to_host(loss_sums).items():
                 results[f"{stage}_loss/{k}"] = v / count
             primary = next((f"{stage}_loss/{m.name}"
                             for m in self.flow.requested_loss_modes
                             if f"{stage}_loss/{m.name}" in results), None)
-            if primary:
+            if primary and f"{stage}_loss/primary" not in results:
                 results[f"{stage}_loss/primary"] = results[primary]
+            if collection:
+                results.update(_flatten_metrics(collection.compute(mstate),
+                                                stage))
         return results
 
-    def test(self) -> Dict[str, float]:
+    def test(self) -> Dict[str, Any]:
         results = self.evaluate("test", self.config.limit_test_batches)
         self.logger.log_scalars(-1, results)
         return results

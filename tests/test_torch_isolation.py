@@ -59,9 +59,28 @@ def test_port_sources_name_no_jax():
         assert not imports.search(fh.read())
 
 
+def test_port_has_the_classification_slice_and_packages_its_kernel():
+    """The classification slice's modules are part of what the isolation
+    checks walk, and the packaging names the new sub-packages' files."""
+    modules = _port_modules()
+    for name in ("ops.fused_graph_gru", "flows.classification",
+                 "models.classification.gnn",
+                 "models.classification.recurrent", "models.rnn",
+                 "metrics.base", "metrics.classification"):
+        assert f"pedestrians_video_2_carla_torch.{name}" in modules
+    root = os.path.dirname(port.__file__)
+    assert os.path.exists(os.path.join(root, "csrc", "fused_graph_gru.cu"))
+    with open(os.path.join(REPO, "pyproject.toml")) as fh:
+        packaging = fh.read()
+    assert "pedestrians_video_2_carla_torch*" in packaging
+    assert "csrc/*.cu" in packaging
+
+
 def test_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
     from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
         Carla2D3DDataModule
+    from pedestrians_video_2_carla_torch.flows.classification import \
+        ClassificationFlow
     from pedestrians_video_2_carla_torch.flows.pose_lifting import \
         PoseLiftingFlow
     from pedestrians_video_2_carla_torch.models.jax_import import \
@@ -83,6 +102,14 @@ def test_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         modeling.main(["--flow=pose_lifting", "--mode=train",
                        f"--root_dir={tmp_path}"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ClassificationFlow()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        modeling.main(["--flow=classification",
+                       "--classification_model_name=GConvGRU",
+                       f"--root_dir={tmp_path}"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        import_flow_params({"classification": {}})
     with pytest.raises(RuntimeError, match="CUDA"):
         Carla2D3DDataModule(batch_size=2, clip_length=2)
     with pytest.raises(RuntimeError, match="CUDA"):
