@@ -46,12 +46,16 @@ Phases, each printing one JSON line:
   8. kernel_spatial  -- PoseFormer's spatial-stack kernel against its plain
                      version on seeded weights (LayerNorms away from ones
                      and zeros): J=26, E=32, 8 heads, depth 4, N in {4096,
-                     4093, 5}. Bar: max |kernel - plain| <= 1e-5 x max
-                     |plain| (the card shows under 1e-6).
+                     4093, 5}; E=32 with 1 head (head width 32) and E=64
+                     with hidden 128 at N in {1024, 1021}; the library's
+                     shared-memory sizes against the wrapper's copies. Bar:
+                     max |kernel - plain| <= 1e-5 x max |plain| (the card
+                     shows under 1e-6).
   9. kernel_temporal -- the temporal-block kernel against its plain version
                      through fused_temporal_block: T=9, D=832, 8 heads,
                      hidden 1664, N in {2048, 2045, 3}; the depth-4
-                     fused_temporal_stack against 4 plain blocks. Same bar.
+                     fused_temporal_stack against 4 plain blocks; T=27 and
+                     T=81 at N in {256, 253}. Same bar.
  10. serve_poseformer -- Carla2D3D test batches (B=256, L=16) ->
                      PoseFormer(clip_length=16) (seeded init, published
                      widths) -> PoseLiftingFlow(loc_2d_3d) ->
@@ -68,14 +72,17 @@ Phases, each printing one JSON line:
                      bar); the host-clock median of a request and a
                      CUDA-event split of it into spatial stage, temporal
                      stage and the rest; each kernel's bound.
- 12. kernel_spatial_bwd -- the spatial stack's backward kernel against
+ 12. kernel_spatial_bwd -- the spatial stack's backward kernels against
                      autograd of its plain version, seeded weights and
-                     cotangents, N in {16384, 16381, 5}: dx and each weight
-                     gradient over its largest magnitude within rtol 1e-4 /
-                     atol 1e-5; two launches give the same bits.
+                     cotangents, N in {16384, 16381, 5} and the two F1
+                     shapes of phase 8, from the residuals the training
+                     forward keeps: dx and each weight gradient over
+                     its largest magnitude within rtol 1e-4 / atol 1e-5;
+                     two launches give the same bits.
  13. kernel_temporal_bwd -- the same checks for the temporal block's
-                     backward (T=9, D=832, 8 heads, N in {8192, 8189, 3}) and
-                     for autograd through the depth-4 fused_temporal_stack.
+                     backward (T=9, D=832, 8 heads, N in {8192, 8189, 3};
+                     T=27 and 81 at N in {256, 253}) and for autograd
+                     through the depth-4 fused_temporal_stack.
  14. train_poseformer -- Trainer.fit of PoseLiftingFlow(PoseFormer(
                      clip_length=16), loc_2d_3d), AdamW lr 1e-3, on Carla2D3D
                      (B=1024, L=16): 10 steps and 2 validation batches; per
@@ -90,9 +97,22 @@ Phases, each printing one JSON line:
  15. timing_poseformer_train -- CUDA-event medians of both backward kernels
                      (L2 cold and warm), autograd of their plain versions and
                      the backward of TransformerEncoderLayer yardsticks;
-                     each kernel's bound; the host-clock median of a B=1024
-                     training_step and a CUDA-event split of it (forward,
-                     spatial backward, temporal backward, the rest).
+                     each kernel's bound (row 9's at the 3xTF32 rate its
+                     products run at); each backward kernel and its
+                     library yardstick in 10 alternating pairs (medians of
+                     each and of their ratio); the host-clock median of a
+                     B=1024 training_step and a CUDA-event split of it
+                     (forward, spatial backward, temporal backward, the
+                     rest).
+     profile_poseformer_train -- a torch.profiler trace of 3 such steps:
+                     the device busy share of the traced window, the top
+                     device operations, the share of rows 5 and 9.
+     poseformer_rf81 -- PoseFormer(clip_length=81, receptive_frames=81) on
+                     Carla2D3D (B=64): 2 requests (1 spatial + 4 temporal
+                     launches each, outputs finite, eval_step's loc_2d_3d
+                     equal to the plain stage functions' to rtol 1e-4) and
+                     2 training steps (launch counts, losses equal to the
+                     plain stage functions' to rtol 1e-4).
  16. kernel_graph_gru, kernel_graph_lstm -- the graph-GRU and graph-LSTM
                      scan kernels against their plain versions on seeded
                      inputs: B in {256, 253, 5} at L=16, J=26, H=128, k=2;
@@ -168,6 +188,18 @@ SPATIAL_NS, TEMPORAL_NS = (4096, 4093, 5), (2048, 2045, 3)
 #: train step's N and ragged ones)
 PF_TRAIN_STEPS = 10
 SPATIAL_BWD_NS, TEMPORAL_BWD_NS = (16384, 16381, 5), (8192, 8189, 3)
+#: F1 coverage: the temporal kernels at PoseFormer's published receptive
+#: fields 27 and 81 (D=832, 8 heads) at a main-path and a ragged number of
+#: windows; the spatial kernels at E=32 with one head (head width 32) and at
+#: E=64 with hidden 128, main-path and ragged frames; a short PoseFormer path
+#: at rf 81 (Carla2D3D, B=64, clips of 81 frames: one window a clip)
+WIDE_TS, WIDE_NS = (27, 81), (256, 253)
+SPATIAL_WIDE = ((32, 1), (64, 8))          # (E, heads), hidden 2E
+SPATIAL_WIDE_NS = (1024, 1021)
+RF81_BATCH, RF81_CLIP, RF81_RF, RF81_STEPS, RF81_REQUESTS = 64, 81, 81, 2, 2
+#: kernel-vs-library timing pairs (rows 5 and 9), and the steps of the
+#: profiler trace of PoseFormer's training_step
+TIMING_PAIRS, PROFILE_STEPS = 10, 3
 SPATIAL_NAMES = ("x", "ln1_s", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
                  "ln2_s", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b",
                  "lnf_s", "lnf_b")
@@ -189,9 +221,19 @@ SCAN_BAR = 1e-5
 #: tensor-core) peak of the SXM part, FLOP/s
 HBM_RATE = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
 FP32_PEAK = 67e12
+#: the rate the temporal block's backward products run at: 3xTF32 in the
+#: tensor cores (495 TFLOP/s dense TF32, NVIDIA's data sheet; three TF32
+#: products for each fp32 one)
+TF32X3_PEAK = 495e12 / 3
+
+
+_T0 = time.perf_counter()
 
 
 def emit(obj):
+    """One JSON line; phase lines carry the seconds since the start."""
+    if "phase" in obj:
+        obj = {**obj, "t": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -228,17 +270,23 @@ def phase_build():
     t0 = time.perf_counter()
     sources = (FP._SOURCE, FP._TRAIN_SOURCE, FS._SOURCE, FT._SOURCE,
                FG._SOURCE)
+
+    def build(source):
+        t = time.perf_counter()
+        path = cuda_build.build_library(source)
+        return path, time.perf_counter() - t
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
-        paths = list(pool.map(cuda_build.build_library, sources))
-    libraries = {}
-    for path in paths:
+        built = list(pool.map(build, sources))
+    libraries, seconds = {}, {}
+    for path, secs in built:
+        seconds[path.name] = secs
         log = path.with_suffix(".log")
         log = log.read_text() if log.exists() else ""
         libraries[path.name] = [ln.strip() for ln in log.splitlines()
                                 if "registers" in ln or "spill" in ln
                                 or "Compiling entry" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": libraries})
+          "seconds_each": seconds, "ptxas": libraries})
 
 
 def kernel_wrappers():
@@ -557,27 +605,47 @@ def phase_train(dm):
     return counts
 
 
+def cuda_call_ms(fn, flush=None):
+    """One call between two CUDA events; ``flush`` (if given) runs first. A
+    ~1 ms device sleep ahead of the call keeps the card busy while the host
+    enqueues it, so a call whose launches outrun the host is timed on the
+    device alone; a host-bound call still shows its host time."""
+    torch.cuda._sleep(2_000_000)
+    if flush is not None:
+        flush()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def cuda_median_ms(fn, runs=TIMING_RUNS, flush=None):
-    """Median over ``runs`` single calls, each between two CUDA events, after
-    a warm-up; ``flush`` (if given) runs before each timed call. A ~1 ms
-    device sleep ahead of each call keeps the card busy while the host
-    enqueues the call, so a call whose launches outrun the host is timed on
-    the device alone; a host-bound call still shows its host time."""
+    """Median over ``runs`` single calls (``cuda_call_ms``) after a
+    warm-up."""
     for _ in range(3):
         fn()
-    times = []
-    for _ in range(runs):
-        torch.cuda._sleep(2_000_000)
-        if flush is not None:
-            flush()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(cuda_call_ms(fn, flush) for _ in range(runs))
+
+
+def paired_ms(kernel, library, flush, pairs=TIMING_PAIRS):
+    """Kernel and library yardstick in alternating single calls (kernel,
+    library, library, kernel, ...) within one process on one card: the
+    median of each and of their ratio."""
+    for fn in (kernel, library):
+        for _ in range(3):
+            fn()
+    k, lib = [], []
+    for i in range(pairs):
+        order = ((kernel, k), (library, lib)) if i % 2 == 0 else \
+            ((library, lib), (kernel, k))
+        for fn, out in order:
+            out.append(cuda_call_ms(fn, flush))
+    return {"pairs": pairs, "kernel_ms_median": statistics.median(k),
+            "library_ms_median": statistics.median(lib),
+            "ratio_median": statistics.median(a / b for a, b in zip(k, lib))}
 
 
 def host_median_ms(fn, runs=TIMING_RUNS):
@@ -805,14 +873,48 @@ def random_block_weights(rng, dim, lead=()):
             w(dim, hidden, scale=hidden ** -0.5), w(dim, scale=0.1)]
 
 
-def random_spatial_weights(rng):
-    """The spatial stack's 14 weights (depth PF_DEPTH), LayerNorms away
-    from ones and zeros, on the card."""
-    return random_block_weights(rng, PF_EMB, lead=(PF_DEPTH,)) + [
-        torch.from_numpy((1 + 0.2 * rng.standard_normal(PF_EMB)).astype(
+def random_spatial_weights(rng, emb=PF_EMB):
+    """The spatial stack's 14 weights (depth PF_DEPTH, hidden 2 emb),
+    LayerNorms away from ones and zeros, on the card."""
+    return random_block_weights(rng, emb, lead=(PF_DEPTH,)) + [
+        torch.from_numpy((1 + 0.2 * rng.standard_normal(emb)).astype(
             np.float32)).cuda(),
-        torch.from_numpy((0.2 * rng.standard_normal(PF_EMB)).astype(
+        torch.from_numpy((0.2 * rng.standard_normal(emb)).astype(
             np.float32)).cuda()]
+
+
+def spatial_cases(main_ns, wide_ns):
+    """(N, E, heads) of the spatial checks: the main path's widths at
+    ``main_ns``, then each SPATIAL_WIDE shape at ``wide_ns``."""
+    return [(n, PF_EMB, PF_HEADS) for n in main_ns] + [
+        (n, e, h) for e, h in SPATIAL_WIDE for n in wide_ns]
+
+
+def check_spatial_layouts():
+    """The wrapper's copies of the kernels' shared-memory layouts against
+    the library's, at every shape the checks run; returns the tiles."""
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_spatial_transformer as FS
+
+    lib, tiles = FS._library(), {}
+    for emb, heads in ((PF_EMB, PF_HEADS),) + SPATIAL_WIDE:
+        hid = 2 * emb
+        fwd, rows, frames = FS.kernel_tiles(PF_JOINTS, emb, heads, hid)
+        pairs = ((lib.pv2c_spatial_stack_smem_bytes(PF_JOINTS, emb, heads,
+                                                    hid, fwd),
+                  FS.forward_smem_bytes(PF_JOINTS, emb, hid, fwd)),
+                 (lib.pv2c_spatial_mlp_bwd_smem_bytes(emb, hid, rows),
+                  FS.mlp_bwd_smem_bytes(emb, hid, rows)),
+                 (lib.pv2c_spatial_attn_bwd_smem_bytes(PF_JOINTS, emb, heads,
+                                                       frames),
+                  FS.attn_bwd_smem_bytes(PF_JOINTS, emb, heads, frames)))
+        if any(a != b for a, b in pairs):
+            raise AssertionError(f"E={emb}, {heads} heads: shared memory "
+                                 f"library vs wrapper {pairs}")
+        tiles[f"E{emb}_H{heads}"] = {
+            "forward_frames": fwd, "mlp_bwd_rows": rows,
+            "attn_bwd_frames": frames, "smem_bytes": [a for a, _ in pairs]}
+    return tiles
 
 
 def bar_err(out, ref):
@@ -825,23 +927,29 @@ def phase_kernel_spatial():
     from pedestrians_video_2_carla_torch.ops import \
         fused_spatial_transformer as FS
 
+    emit({"phase": "kernel_spatial", "tiles": check_spatial_layouts()})
     rng = np.random.default_rng(SEED + 3)
-    weights = random_spatial_weights(rng)
+    weights = {}
     worst = 0.0
-    for n in SPATIAL_NS:
+    for n, emb, heads in spatial_cases(SPATIAL_NS, SPATIAL_WIDE_NS):
+        if emb not in weights:
+            weights[emb] = random_spatial_weights(rng, emb)
         x = torch.from_numpy(rng.standard_normal(
-            (n, PF_JOINTS, PF_EMB)).astype(np.float32)).cuda()
-        out = FS.fused_spatial_stack_cuda(x, weights, PF_HEADS)
-        ref = FS.spatial_stack_reference(x, weights, PF_HEADS)
+            (n, PF_JOINTS, emb)).astype(np.float32)).cuda()
+        out = FS.fused_spatial_stack_cuda(x, weights[emb], heads)
+        ref = FS.spatial_stack_reference(x, weights[emb], heads)
         torch.cuda.synchronize()
         err, scaled = bar_err(out, ref)
         finite = bool(torch.isfinite(out).all())
-        emit({"phase": "kernel_spatial", "N": n, "max_abs_err": err,
-              "max_abs_err_over_max_abs_plain": scaled, "finite": finite})
+        emit({"phase": "kernel_spatial", "N": n, "E": emb, "heads": heads,
+              "max_abs_err": err, "max_abs_err_over_max_abs_plain": scaled,
+              "finite": finite})
         if not (scaled <= KERNEL_BAR and finite):
             raise AssertionError(f"spatial kernel disagrees with its plain "
-                                 f"version at N={n}: {scaled} of max |plain|")
-        worst = max(worst, err)
+                                 f"version at N={n}, E={emb}, {heads} heads: "
+                                 f"{scaled} of max |plain|")
+        if emb == PF_EMB and heads == PF_HEADS:
+            worst = max(worst, err)
     return worst
 
 
@@ -880,6 +988,14 @@ def phase_kernel_temporal():
         for weights in blocks:
             ref = FT.temporal_block_reference(ref, weights, PF_HEADS)
         worst = max(worst, check("fused_temporal_stack", n, out, ref))
+        # PoseFormer's published receptive fields (F1)
+        for T in WIDE_TS:
+            for n in WIDE_NS:
+                x = torch.from_numpy(rng.standard_normal(
+                    (n, T, PF_DIM)).astype(np.float32)).cuda()
+                out = FT.fused_temporal_block(x, blocks[0], PF_HEADS)
+                ref = FT.temporal_block_reference(x, blocks[0], PF_HEADS)
+                check(f"fused_temporal_block T={T}", n, out, ref)
     return worst
 
 
@@ -1188,19 +1304,28 @@ def phase_kernel_spatial_bwd():
         fused_spatial_transformer as FS
 
     rng = np.random.default_rng(SEED + 5)
-    weights = random_spatial_weights(rng)
+    weights = {}
     worst = 0.0
-    for n in SPATIAL_BWD_NS:
+    for n, emb, heads in spatial_cases(SPATIAL_BWD_NS, SPATIAL_WIDE_NS):
+        if emb not in weights:
+            weights[emb] = random_spatial_weights(rng, emb)
+        ws = weights[emb]
         x, g = (torch.from_numpy(rng.standard_normal(
-            (n, PF_JOINTS, PF_EMB)).astype(np.float32)).cuda()
+            (n, PF_JOINTS, emb)).astype(np.float32)).cuda()
             for _ in range(2))
-        dx, dws = FS.fused_spatial_stack_cuda_bwd(x, weights, g, PF_HEADS)
-        dx2, dws2 = FS.fused_spatial_stack_cuda_bwd(x, weights, g, PF_HEADS)
+        # from the residuals the training forward keeps
+        _, saved = FS.fused_spatial_stack_cuda(x, ws, heads, keep=True)
+        dx, dws = FS.fused_spatial_stack_cuda_bwd(x, ws, saved, g, heads)
+        dx2, dws2 = FS.fused_spatial_stack_cuda_bwd(x, ws, saved, g, heads)
+        del saved
         ref = plain_grads(lambda t: FS.spatial_stack_reference(
-            t[0], t[1:], PF_HEADS), [x, *weights], g)
-        worst = max(worst, check_grads(
-            "kernel_spatial_bwd", "fused_spatial_stack_cuda_bwd", n,
-            SPATIAL_NAMES, [dx, *dws], [dx2, *dws2], ref))
+            t[0], t[1:], heads), [x, *ws], g)
+        err = check_grads(
+            "kernel_spatial_bwd", f"fused_spatial_stack_cuda_bwd E={emb} "
+            f"heads={heads}", n, SPATIAL_NAMES, [dx, *dws], [dx2, *dws2],
+            ref)
+        if emb == PF_EMB and heads == PF_HEADS:
+            worst = max(worst, err)
     return worst
 
 
@@ -1228,6 +1353,23 @@ def phase_kernel_temporal_bwd():
             "kernel_temporal_bwd", "fused_temporal_block_cuda_bwd", n, names,
             [dx, *dws], [dx2, *dws2], ref))
         del ref
+    # PoseFormer's published receptive fields (F1)
+    for T in WIDE_TS:
+        for n in WIDE_NS:
+            x, g = (torch.from_numpy(rng.standard_normal(
+                (n, T, PF_DIM)).astype(np.float32)).cuda() for _ in range(2))
+            _, saved = FT.fused_temporal_block_cuda(x, blocks[0], PF_HEADS,
+                                                    keep=True)
+            dx, dws = FT.fused_temporal_block_cuda_bwd(x, blocks[0], saved, g,
+                                                       PF_HEADS)
+            dx2, dws2 = FT.fused_temporal_block_cuda_bwd(x, blocks[0], saved,
+                                                         g, PF_HEADS)
+            del saved
+            ref = plain_grads(lambda t: FT.temporal_block_reference(
+                t[0], t[1:], PF_HEADS), [x, *blocks[0]], g)
+            check_grads("kernel_temporal_bwd",
+                        f"fused_temporal_block_cuda_bwd T={T}", n, names,
+                        [dx, *dws], [dx2, *dws2], ref)
     # autograd through the depth-4 stack: kernel forward and backward
     n = TEMPORAL_BWD_NS[0]
     x, g = (torch.from_numpy(rng.standard_normal(
@@ -1374,7 +1516,7 @@ def phase_timing_poseformer_train(dm, card, hbm_rate):
         xs = (model.Spatial_patch_to_embedding(inputs[..., :2])
               + model.Spatial_pos_embed).reshape(B * L, PF_JOINTS, PF_EMB)
         ws = [w.detach().contiguous() for w in model.spatial_weights()]
-        s = FS.fused_spatial_stack_cuda(xs, ws, PF_HEADS)
+        s, saved_s = FS.fused_spatial_stack_cuda(xs, ws, PF_HEADS, keep=True)
         xt = (s.reshape(B, L, PF_DIM).unfold(1, PF_RF, 1).transpose(2, 3)
               + model.Temporal_pos_embed).reshape(B * W, PF_RF, PF_DIM)
         xt = xt.contiguous()
@@ -1405,8 +1547,8 @@ def phase_timing_poseformer_train(dm, card, hbm_rate):
         out, leaves = out_leaves
         return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
     cases = {
-        "spatial": (lambda: FS.fused_spatial_stack_cuda_bwd(xs, ws, gs,
-                                                            PF_HEADS),
+        "spatial": (lambda: FS.fused_spatial_stack_cuda_bwd(xs, ws, saved_s,
+                                                            gs, PF_HEADS),
                     backward_of(plain_s, gs), backward_of(lib_s, gs)),
         "temporal": (lambda: FT.fused_temporal_block_cuda_bwd(
             xt, wt, saved, gt, PF_HEADS),
@@ -1417,26 +1559,34 @@ def phase_timing_poseformer_train(dm, card, hbm_rate):
                        "ms_warm_l2": cuda_median_ms(kernel),
                        "plain_ms": cuda_median_ms(plain),
                        "library_ms": cuda_median_ms(lib)}
+    # kernel and library yardstick in alternating pairs (ROADMAP K0)
+    pairs = {name: paired_ms(kernel, lib, flush_l2)
+             for name, (kernel, _, lib) in cases.items()}
     del cases, plain_s, plain_t, lib_s, lib_t
 
-    # bounds: inputs read once (x, g, the weights; the temporal block's saved
-    # scratch), outputs written once (dx, the weight gradients), against the
-    # backward's matmul FLOPs (ops/flops.py) at the fp32 peak
+    # bounds: inputs read once (x, g, the weights, the saved residuals of
+    # the forward), outputs written once (dx, the weight gradients), against
+    # the backward's matmul FLOPs (ops/flops.py) at the peak of the units
+    # the products run on: the fp32 CUDA cores (spatial), 3xTF32 in the
+    # tensor cores (temporal)
     n_ws = sum(w.numel() for w in ws)
     n_wt = sum(w.numel() for w in wt)
-    work = {"spatial": (4 * (3 * xs.numel() + 2 * n_ws),
+    work = {"spatial": (4 * (3 * xs.numel() + sum(t.numel() for t in saved_s)
+                             + 2 * n_ws),
                         PF_DEPTH * F.transformer_block_backward_flops(
                             xs.shape[0] * PF_JOINTS, PF_EMB, 2.0, PF_JOINTS)),
             "temporal": (4 * (3 * xt.numel() + sum(t.numel() for t in saved)
                               + 2 * n_wt),
                          F.transformer_block_backward_flops(
                              xt.shape[0] * PF_RF, PF_DIM, 2.0, PF_RF))}
+    peaks = {"spatial": FP32_PEAK, "temporal": TF32X3_PEAK}
     for name, (nbytes, nflop) in work.items():
-        t_bytes, t_flop = nbytes / hbm_rate, nflop / FP32_PEAK
+        t_bytes, t_flop = nbytes / hbm_rate, nflop / peaks[name]
         times[name].update(
-            bytes=nbytes, flop=nflop, bound_ms=max(t_bytes, t_flop) * 1e3,
+            bytes=nbytes, flop=nflop, peak_flop_per_s=peaks[name],
+            bound_ms=max(t_bytes, t_flop) * 1e3,
             bound_by="bytes" if t_bytes >= t_flop else "operations")
-    del saved
+    del saved, saved_s
 
     state = flow.init_state()
     step_ms = host_median_ms(lambda: flow.training_step(state, batch),
@@ -1492,7 +1642,8 @@ def phase_timing_poseformer_train(dm, card, hbm_rate):
                       "rest_of_backward_ms", "adamw_ms"),
                      (statistics.median(c) for c in zip(*splits))))
     emit({"phase": "timing_poseformer_train", "card": card, "B": B, "L": L,
-          "backward_kernels": times, "train_step_ms_host": step_ms,
+          "backward_kernels": times, "kernel_vs_library_pairs": pairs,
+          "train_step_ms_host": step_ms,
           "train_step_split_cuda_events": split,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "method": "backward kernels, autograd of the plain versions and "
@@ -1503,11 +1654,179 @@ def phase_timing_poseformer_train(dm, card, hbm_rate):
                     "to torch.cuda.synchronize(), median of %d; split: the "
                     "body of training_step with CUDA events between its "
                     "parts and around each stage's autograd backward, "
-                    "medians "
-                    "of %d" % (TIMING_RUNS, PF_TIMING_RUNS, PF_TIMING_RUNS)})
+                    "medians of %d; pairs: kernel and library alternating, "
+                    "cold, medians of %d each and of their ratio"
+                    % (TIMING_RUNS, PF_TIMING_RUNS, PF_TIMING_RUNS,
+                       TIMING_PAIRS)})
     return {name: {"ms": t["ms_cold_l2"], "plain_ms": t["plain_ms"],
                    "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
                    "bound_by": t["bound_by"]} for name, t in times.items()}
+
+
+def phase_poseformer_rf81():
+    """PoseFormer at its published receptive field of 81 frames (fault F1 of
+    the temporal kernels' 16-token limit): requests and training steps
+    through the kernels, held to the plain stage functions."""
+    from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
+        Carla2D3DDataModule
+    from pedestrians_video_2_carla_torch.flows.pose_lifting import \
+        PoseLiftingFlow
+    from pedestrians_video_2_carla_torch.models.base import OptimizerSettings
+    from pedestrians_video_2_carla_torch.models.movements.pose_former import \
+        PoseFormer
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_spatial_transformer as FS
+    from pedestrians_video_2_carla_torch.serving import make_inference_fn
+
+    model = PoseFormer(clip_length=RF81_CLIP, receptive_frames=RF81_RF,
+                       generator=torch.Generator().manual_seed(SEED))
+    flow = PoseLiftingFlow(model, loss_modes=["loc_2d_3d"],
+                           movements_optimizer=OptimizerSettings(lr=LR))
+    dm = Carla2D3DDataModule(batch_size=RF81_BATCH, clip_length=RF81_CLIP,
+                             test_set_size=RF81_REQUESTS * RF81_BATCH,
+                             seed=SEED)
+    batches = list(dm.test_batches())
+    params = flow.init_params()
+    infer = make_inference_fn(flow, params)
+    reset_kernel_counts()
+    served = [infer(inputs, meta["age_gender_idx"])
+              for inputs, _, meta in batches]
+    torch.cuda.synchronize()
+    serve_counts = kernel_counts()
+    expected = expected_counts(
+        fused_spatial_stack=RF81_REQUESTS,
+        fused_temporal_block=PF_DEPTH * RF81_REQUESTS)
+    if serve_counts != expected:
+        raise AssertionError(f"rf 81 serving launches {serve_counts}, "
+                             f"expected {expected}")
+    # outputs finite over the eval slice (one frame a clip), their distance
+    # to the plain stages' reported; eval_step's losses held to rtol 1e-4
+    errs = {}
+    with stage_functions(FS.spatial_stack_reference, plain_temporal_stack):
+        for preds, (inputs, _, meta) in zip(served, batches):
+            ref = infer(inputs, meta["age_gender_idx"])
+            for k, v in preds.items():
+                if v.shape[:2] != (RF81_BATCH, 1) or \
+                        not torch.isfinite(v).all():
+                    raise AssertionError(f"rf 81 {k}: shape "
+                                         f"{tuple(v.shape)} or not finite")
+                errs[k] = max(errs.get(k, 0.0),
+                              float((v - ref[k]).abs().max()))
+        plain_losses = [float(flow.eval_step(params, b)[0]["loc_2d_3d"])
+                        for b in batches]
+    eval_losses = []
+    for batch, b in zip(batches, plain_losses):
+        a = float(flow.eval_step(params, batch)[0]["loc_2d_3d"])
+        if not (np.isfinite(a) and abs(a - b) <= LOSS_RTOL * abs(b)):
+            raise AssertionError(f"rf 81 eval loc_2d_3d kernels {a} vs plain "
+                                 f"{b}")
+        eval_losses.append([a, b])
+
+    states = {"kernels": flow.init_state(params),
+              "plain": flow.init_state(params)}
+    stream = dm.train_batches(SEED)
+    reset_kernel_counts()
+    per_step, worst = [], 0.0
+    for _ in range(RF81_STEPS):
+        batch = next(stream)
+        _, logs_k = flow.training_step(states["kernels"], batch)
+        with stage_functions(FS.spatial_stack_reference,
+                             plain_temporal_stack):
+            _, logs_p = flow.training_step(states["plain"], batch)
+        row = {}
+        for k in logs_p:
+            a, b = float(logs_k[k]), float(logs_p[k])
+            rel = abs(a - b) / abs(b)
+            if not (np.isfinite(a) and rel <= LOSS_RTOL):
+                raise AssertionError(f"rf 81 {k}: kernels {a} vs plain {b}")
+            worst = max(worst, rel)
+            row[k] = [a, b]
+        per_step.append(row)
+    torch.cuda.synchronize()
+    train_counts = kernel_counts()
+    expected = expected_counts(
+        fused_spatial_stack=RF81_STEPS,
+        fused_temporal_block=PF_DEPTH * RF81_STEPS,
+        fused_spatial_stack_bwd=RF81_STEPS,
+        fused_temporal_block_bwd=PF_DEPTH * RF81_STEPS)
+    if train_counts != expected:
+        raise AssertionError(f"rf 81 training launches {train_counts}, "
+                             f"expected {expected}")
+    emit({"phase": "poseformer_rf81", "B": RF81_BATCH, "L": RF81_CLIP,
+          "receptive_frames": RF81_RF, "requests": RF81_REQUESTS,
+          "serve_launches": serve_counts, "max_abs_err_vs_plain": errs,
+          "eval_loc_2d_3d_kernels_vs_plain": eval_losses,
+          "steps": RF81_STEPS, "train_launches": train_counts,
+          "kernels_vs_plain_losses": per_step,
+          "kernels_vs_plain_max_rel": worst})
+
+
+#: kernel names (substrings of the profiler's) of rows 5 and 9
+ROW5_KERNELS = ("spatial_final_ln_bwd_kernel", "spatial_mlp_bwd_kernel",
+                "spatial_attn_bwd_kernel", "reduce_partials_kernel")
+ROW9_KERNELS = ("gemm_bwd_kernel", "ln_apply_kernel", "ln_bwd_rows_kernel",
+                "attention_bwd_kernel", "reduce_segments_kernel")
+
+
+def phase_profile_poseformer_train(dm, card):
+    """A torch.profiler trace of PROFILE_STEPS PoseFormer training_steps at
+    B=1024, L=16: the device busy share of the traced window (the union of
+    the device kernels' intervals over the window from the first to the
+    last event), the top device operations, and the share of rows 5 and 9."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flow = make_pf_train_flow()
+    state = flow.init_state()
+    batch = next(dm.train_batches(SEED + 9))
+    for _ in range(2):
+        flow.training_step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS):
+            flow.training_step(state, batch)
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    device = [e for e in events
+              if getattr(e, "device_type", None) is not None
+              and e.device_type.name == "CUDA"]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    t0 = min(e.time_range.start for e in events)
+    t1 = max(e.time_range.end for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    window_us = t1 - t0
+    by_name = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start)
+    total = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+
+    def share(names):
+        return sum(v for k, v in by_name.items()
+                   if any(n in k for n in names)) / max(window_us, 1e-9)
+    emit({"phase": "profile_poseformer_train", "card": card, "B": BATCH,
+          "L": CLIP, "steps": PROFILE_STEPS, "window_ms": window_us / 1e3,
+          "device_events": len(device),
+          "device_busy_share": busy / window_us if device else None,
+          "device_ms": total / 1e3,
+          "top_device_ops_ms": [[k[:80], v / 1e3] for k, v in top],
+          "row5_spatial_bwd_share": share(ROW5_KERNELS),
+          "row9_temporal_bwd_share": share(ROW9_KERNELS),
+          "method": "torch.profiler (CPU and CUDA activities) around %d "
+                    "training_steps after 2 warm-up steps; busy share: union "
+                    "of the device events' intervals over the window from "
+                    "the first to the last event; row shares: their kernels' "
+                    "device time over that window" % PROFILE_STEPS})
 
 
 def graph_case(rng, cell, shape):
@@ -2047,6 +2366,10 @@ def group_poseformer(card, hbm_rate):
                              val_set_size=VAL_BATCHES * BATCH, seed=SEED)
     pf_train_counts = phase_train_poseformer(dm)
     pf_train_times = phase_timing_poseformer_train(dm, card, hbm_rate)
+    phase_profile_poseformer_train(dm, card)
+    del dm
+    torch.cuda.empty_cache()
+    phase_poseformer_rf81()
     return [
         kernel_entry("fused_spatial_stack", "fused_spatial_transformer.cu",
                      "fused_spatial_transformer.py:398",

@@ -44,8 +44,9 @@ namespace {
 constexpr int kBM = 128, kBN = 128, kBK = 8, kPad = 4;
 constexpr int kGemmThreads = 256;
 constexpr int kStatsThreads = 256;
-constexpr int kMaxT = 16;     // tokens per window
+constexpr int kMaxT = 81;     // tokens per window (T x T scores per block)
 constexpr int kMaxHd = 128;   // head width
+constexpr int kMaxSmem = 232448;  // shared memory of one thread block
 constexpr int kAttnThreads = 128;
 constexpr float kEps = 1e-5f;
 constexpr float kSqrtHalf = 0.70710678118654752440f;
@@ -203,14 +204,15 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmArgs g) {
 }
 
 // One thread block per (window, head). qkv: (N*T) x 3D rows [q | k | v],
-// heads in (head, dim) order -> o: (N*T) x D.
+// heads in (head, dim) order -> o: (N*T) x D. Dynamic shared memory: q, k,
+// v (T x hd each) and p (T x T), attn_fwd_bytes.
 __global__ void __launch_bounds__(kAttnThreads)
     attention_kernel(const float* __restrict__ qkv, float* __restrict__ o,
                      int T, int D, int H, float scale) {
-  __shared__ float q[kMaxT * kMaxHd], k[kMaxT * kMaxHd], v[kMaxT * kMaxHd];
-  __shared__ float p[kMaxT * kMaxT];
+  extern __shared__ __align__(16) float smem[];
   const int n = blockIdx.x / H, h = blockIdx.x % H;
   const int hd = D / H;
+  float *q = smem, *k = q + T * hd, *v = k + T * hd, *p = v + T * hd;
   const float* base = qkv + static_cast<size_t>(n) * T * 3 * D + h * hd;
   for (int idx = threadIdx.x; idx < T * hd; idx += kAttnThreads) {
     const int t = idx / hd, c = idx % hd;
@@ -248,6 +250,14 @@ __global__ void __launch_bounds__(kAttnThreads)
   }
 }
 
+int attn_fwd_bytes(int T, int hd) {
+  return static_cast<int>(sizeof(float) * (3 * T * hd + T * T));
+}
+
+int attn_bwd_bytes(int T, int hd) {
+  return static_cast<int>(sizeof(float) * (4 * T * hd + 2 * T * T));
+}
+
 template <bool LN, int EPI>
 cudaError_t gemm(const GemmArgs& g, cudaStream_t stream) {
   const dim3 grid((g.N + kBN - 1) / kBN, (g.M + kBM - 1) / kBM);
@@ -265,262 +275,392 @@ cudaError_t gemm(const GemmArgs& g, cudaStream_t stream) {
 //
 // Bound on an H100 SXM: operations. dx + dW are twice the forward's dense
 // products and four attention products against two: at B=1024, L=16 a
-// block sees 73,728 tokens x 22,211,072 FLOP = 1,637.6 GFLOP, 24.44 ms at
-// the 67 TFLOP/s fp32 peak.
+// block sees 73,728 tokens x 22,211,072 FLOP = 1,637.6 GFLOP. The products
+// run in the tensor cores as 3xTF32 (below): three TF32 products for each
+// fp32 one, so the bound is 1,637.6 GFLOP at 495 / 3 TFLOP/s, 9.92 ms (at
+// the 67 TFLOP/s fp32 peak of the CUDA cores it would be 24.44 ms).
 //
 // Design. The forward keeps, when a gradient is needed, its LayerNorm row
 // statistics, qkv, the attention output, x2, the pre-GELU hidden h and
 // gelu(h) (about 2.2 GB a block at B=1024; the TPU kernel recomputes them
-// from x and x2 in VMEM instead). The backward is a fixed sequence of
+// from x and x2 in VMEM instead). The backward is a fixed sequence of 13
 // launches on the caller's stream, in the TPU kernel's order (the MLP half,
 // then the attention half):
+//   y1 = LN1(x), y2 = LN2(x2) (one launch);
 //   dh = (du W2) * GELU'(h), dW2 = du^T gelu(h), dy2 = dh W1,
-//   dW1 = dh^T LN2(x2), dx2 = du + LN2'(dy2); do = dx2 Wp, dWp = dx2^T o,
-//   attention backward -> dqkv, dy1 = dqkv Wqkv, dWqkv = dqkv^T LN1(x),
-//   dx = dx2 + LN1'(dy1); the biases' and LayerNorms' gradients are column
-//   sums.
-// Products: dX = dY W is the forward's 128 x 128 tile GEMM with W read
-// row-wise (K = the layer's outputs); dW = dY^T X reduces over all M rows
-// into a small output (49 to 140 tiles), so it is split over M into enough
-// parts to fill the card, each part's sum written to its own slice, and the
-// slices summed in a fixed order by a second launch. Column sums go the
-// same way (64 row chunks, then a fixed-order sum). No atomics: two
-// backward calls give the same bits. LayerNorm's input of dW1 and dWqkv is
-// rebuilt from x2 and x on load, with the forward's statistics. Attention
-// backward, one thread block per (window, head): the probabilities
-// recomputed from qkv, ds = p (dp - sum_j dp p), dq scaled by hd^-0.5.
+//   dW1 = dh^T y2, dx2 = du + LN2'(dy2); do = dx2 Wp, dWp = dx2^T o,
+//   attention backward -> dqkv, dy1 = dqkv Wqkv, dWqkv = dqkv^T y1,
+//   dx = dx2 + LN1'(dy1); then one launch sums every split part.
+// An earlier design (29 launches: an fp32 128 x 128 x 8 GEMM on the CUDA
+// cores with a register prefetch and two barriers a k-step, split-K dW
+// with separate column-sum and reduce launches) took 63.4 ms a block, 2.6x
+// its fp32 bound; the same launches with the fp32 GEMM below took 46.7 ms.
+// Here every product is one GEMM template: 128 x 128 output tiles, k-steps
+// of 16 through a 3-stage cp.async ring in shared memory (54 KB: two
+// thread blocks an SM), so that the loads of k-step s + 2 fly while k-step
+// s is multiplied, with one barrier a k-step; 8 warps, each a 64 x 32 tile
+// of mma.sync m16n8k8 TF32 products. Each fp32 operand is split into a TF32
+// value and a TF32 remainder, and a b = a_small b_big + a_big b_small +
+// a_big b_big (3xTF32), which keeps fp32's accuracy: the three products of
+// each 8-deep step are summed in the tensor cores (which round towards
+// zero) and then added to the running fp32 sum with round-to-nearest, so
+// that the tensor cores' rounding does not grow with K. dX = dY W reads
+// dY's tile row-major and W as stored; dW = dY^T X reads both k-major (rows
+// padded by 8 floats: the fragment reads hit 32 banks). The bias gradients
+// are the column sums of dY: the dW products multiply dY^T by X with a
+// column of ones appended (written into the ring beside the copies), so the
+// sums come out of the same tiles. GELU' is the dh product's epilogue; the
+// LayerNorm backward launches carry the LayerNorm vectors' column sums (a
+// warp per row, each warp's sums in its own row of shared memory). The dW
+// products split the rows into the fewest parts that fill the card's waves
+// to 90 % (two thread blocks an SM); each split writes its own part, and
+// the last launch sums the parts in a fixed order. No atomics: two backward
+// calls give the same bits. Attention backward, one thread block per
+// (window, head): the probabilities recomputed from qkv, ds = p (dp - sum_j
+// dp p), dq scaled by hd^-0.5; T x T scores in dynamic shared memory, T <=
+// 81.
 
-constexpr int kSumChunks = 64;  // row chunks of a column sum
 constexpr float kInvSqrt2Pi = 0.39894228040143267794f;
+constexpr int kBK2 = 16;               // k-step of the backward GEMM
+constexpr int kStages = 3;             // cp.async ring depth
+constexpr int kLdRow = kBK2 + 4;       // row-major A tile: row stride
+constexpr int kLdCol = kBN + 8;        // k-major tiles: row stride
+constexpr int kLnThreads = 256;
 
 __device__ __forceinline__ float dgelu(float v) {
   return 0.5f * (1.0f + erff(v * kSqrtHalf)) + v * expf(-0.5f * v * v) *
                                                    kInvSqrt2Pi;
 }
 
+// 16 bytes global -> shared, asynchronously; zeros when !ok (src is then
+// not read).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// x = big + small to about 2^-22 of |x| (the 3xTF32 split): big is x
+// rounded to TF32's 10 mantissa bits, its low 13 bits zero, so that x - big
+// is exact; the tensor cores read small's top 19 bits.
+__device__ __forceinline__ void split_tf32(float x, unsigned& big,
+                                           unsigned& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// d += a b on one 16 x 8 x 8 tile in the tensor cores, TF32 inputs and an
+// fp32 sum; a, b and d in the fragment layout of the PTX ISA's
+// mma.m16n8k8 (g = lane / 4, t = lane % 4): a = A[g][t], A[g + 8][t],
+// A[g][t + 4], A[g + 8][t + 4]; b = B[t][g], B[t + 4][g]; d = D[g][2t],
+// D[g][2t + 1], D[g + 8][2t], D[g + 8][2t + 1].
+__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a,
+                                         const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 enum BwdMode { kNN, kTN };
 enum BwdEpilogue { kSet, kDGelu };
 
-struct BwdGemmArgs {
-  const float* A;  // kNN: M x K; kTN: K x M
+struct Gemm {
+  const float* A;  // kNN: M x K (row-major); kTN: K x M
   const float* B;  // K x N
-  float* C;        // M x N; kTN: one M x N slice per split
+  float* C;        // M x N; kTN: one M x N part per split
+  float* bias;     // kTN: one part of M column sums of A per split, or null
+  const float* aux;  // kDGelu: the pre-activation, M x N
   int M, N, K;
-  const float* aux;                      // kDGelu: the pre-activation, M x N
-  const float *mu, *inv, *gamma, *beta;  // LN: LayerNorm of B's rows
-  int k_split;                           // kTN: rows of K per split
+  int k_split;     // kTN: rows of K per split (blockIdx.z)
 };
 
-// kNN: C = epi(A B); kTN: C[split] = A^T B over split's rows of K (LN: of
-// LN(B)). N, M (kTN) multiples of 4, K (kNN) a multiple of 8, pointers
-// 16-byte aligned. Tiles, thread layout and inner loop as gemm_kernel.
-template <int MODE, bool LN, int EPI>
-__global__ void __launch_bounds__(kGemmThreads)
-    gemm_bwd_kernel(BwdGemmArgs g) {
-  __shared__ __align__(16) float As[kBK][kBM + kPad];
-  __shared__ __align__(16) float Bs[kBK][kBN + kPad];
+__host__ __device__ inline int gemm_stage_floats(int mode) {
+  return (mode == kNN ? kBM * kLdRow : kBK2 * kLdCol) + kBK2 * kLdCol;
+}
+
+// kNN: C = epi(A B); kTN: C[split] = A^T B over the split's rows of K, and
+// with bias, bias[split] = the column sums of A over them (B's column N
+// read as ones). M, N multiples of 4, K (kNN) a multiple of 4, pointers
+// 16-byte aligned.
+template <int MODE, int EPI>
+__global__ void __launch_bounds__(kGemmThreads, 2) gemm_bwd_kernel(Gemm g) {
+  extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
   const int kbeg = MODE == kTN ? blockIdx.z * g.k_split : 0;
   const int kend = MODE == kTN ? min(g.K, kbeg + g.k_split) : g.K;
+  const int steps = (kend - kbeg + kBK2 - 1) / kBK2;
+  const int a_floats = MODE == kNN ? kBM * kLdRow : kBK2 * kLdCol;
+  const int stage = a_floats + kBK2 * kLdCol;
+  const bool ones = MODE == kTN && g.bias != nullptr && n0 <= g.N &&
+                    g.N < n0 + kBN;
 
-  // kNN's A: a float4 along k of row m0 + arow, stored transposed; rows of
-  // B (and kTN's A): a float4 of row k0 + rk at column rc, stored as is
-  const int arow = tid >> 1, ak = (tid & 1) * 4;
-  const int rk = tid >> 5, rc = (tid & 31) * 4;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 av, bv;
-  auto load = [&](int k0) {
-    const int k = k0 + rk;
-    if (MODE == kNN) {
-      av = m0 + arow < g.M
-               ? __ldg(reinterpret_cast<const float4*>(
-                     g.A + static_cast<size_t>(m0 + arow) * g.K + k0 + ak))
-               : zero;
-    } else {
-      av = k < kend && m0 + rc < g.M
-               ? __ldg(reinterpret_cast<const float4*>(
-                     g.A + static_cast<size_t>(k) * g.M + m0 + rc))
-               : zero;
-    }
-    const bool b_ok = k < kend && n0 + rc < g.N;
-    bv = b_ok ? __ldg(reinterpret_cast<const float4*>(
-                    g.B + static_cast<size_t>(k) * g.N + n0 + rc))
-              : zero;
-    if (LN && b_ok) {
-      const float m = g.mu[k], iv = g.inv[k];
-      const float4 s = __ldg(reinterpret_cast<const float4*>(g.gamma + n0 + rc));
-      const float4 b = __ldg(reinterpret_cast<const float4*>(g.beta + n0 + rc));
-      bv.x = (bv.x - m) * iv * s.x + b.x;
-      bv.y = (bv.y - m) * iv * s.y + b.y;
-      bv.z = (bv.z - m) * iv * s.z + b.z;
-      bv.w = (bv.w - m) * iv * s.w + b.w;
+  // one k-step's tiles into ring slot s: 512 16-byte chunks each of A and
+  // B, 2 a thread
+  auto load = [&](int s, int k0) {
+    float* As = smem + s * stage;
+    float* Bs = As + a_floats;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = tid + i * kGemmThreads;
+      if (MODE == kNN) {
+        const int r = c >> 2, kc = (c & 3) * 4;
+        const bool ok = m0 + r < g.M && k0 + kc < kend;
+        cp_async16(As + r * kLdRow + kc,
+                   ok ? g.A + static_cast<size_t>(m0 + r) * g.K + k0 + kc
+                      : g.A,
+                   ok);
+      } else {
+        const int r = c >> 5, col = (c & 31) * 4;
+        const bool ok = k0 + r < kend && m0 + col < g.M;
+        cp_async16(As + r * kLdCol + col,
+                   ok ? g.A + static_cast<size_t>(k0 + r) * g.M + m0 + col
+                      : g.A,
+                   ok);
+      }
+      const int r = c >> 5, col = (c & 31) * 4;
+      float* dst = Bs + r * kLdCol + col;
+      if (ones && n0 + col == g.N) {
+        dst[0] = k0 + r < kend ? 1.f : 0.f;
+        dst[1] = dst[2] = dst[3] = 0.f;
+      } else {
+        const bool ok = k0 + r < kend && n0 + col < g.N;
+        cp_async16(dst,
+                   ok ? g.B + static_cast<size_t>(k0 + r) * g.N + n0 + col
+                      : g.B,
+                   ok);
+      }
     }
   };
-  auto store = [&]() {
-    if (MODE == kNN) {
-      As[ak + 0][arow] = av.x;
-      As[ak + 1][arow] = av.y;
-      As[ak + 2][arow] = av.z;
-      As[ak + 3][arow] = av.w;
-    } else {
-      *reinterpret_cast<float4*>(&As[rk][rc]) = av;
-    }
-    *reinterpret_cast<float4*>(&Bs[rk][rc]) = bv;
-  };
 
-  const int ty = tid >> 4, tx = tid & 15;
-  float acc[8][8];
+  // 8 warps as 2 (rows) x 4 (columns), each a 64 x 32 tile of 4 x 4
+  // mma tiles of 16 x 8
+  const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  float acc[4][4][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
 
-  load(kbeg);
-  store();
-  __syncthreads();
-  for (int k0 = kbeg; k0 < kend; k0 += kBK) {
-    const bool more = k0 + kBK < kend;
-    if (more) load(k0 + kBK);
 #pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      float a[8], b[8];
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[k][64 + tx * 4]);
-      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-      b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) load(s, kbeg + s * kBK2);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // k-step `step` has landed; slot step - 1 is free
+    const int next = step + kStages - 1;
+    if (next < steps) load(next % kStages, kbeg + next * kBK2);
+    cp_async_commit();
+    const float* As = smem + (step % kStages) * stage;
+    const float* Bs = As + a_floats;
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+    for (int ks = 0; ks < kBK2; ks += 8) {
+      unsigned bb[4][2], bs[4][2];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-    if (more) {
-      store();
-      __syncthreads();
+      for (int j = 0; j < 4; ++j) {
+        const int n = wn + j * 8 + gq;
+        split_tf32(Bs[(ks + tq) * kLdCol + n], bb[j][0], bs[j][0]);
+        split_tf32(Bs[(ks + tq + 4) * kLdCol + n], bb[j][1], bs[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = wm + i * 16 + gq;
+        float a[4];
+        if (MODE == kNN) {
+          a[0] = As[m * kLdRow + ks + tq];
+          a[1] = As[(m + 8) * kLdRow + ks + tq];
+          a[2] = As[m * kLdRow + ks + tq + 4];
+          a[3] = As[(m + 8) * kLdRow + ks + tq + 4];
+        } else {
+          a[0] = As[(ks + tq) * kLdCol + m];
+          a[1] = As[(ks + tq) * kLdCol + m + 8];
+          a[2] = As[(ks + tq + 4) * kLdCol + m];
+          a[3] = As[(ks + tq + 4) * kLdCol + m + 8];
+        }
+        unsigned ab[4], as[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) split_tf32(a[c], ab[c], as[c]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // the three products of this k-step summed in the tensor cores
+          // (the small ones first), then added to the running sum in fp32
+          // with round-to-nearest: the tensor cores round their sums
+          // towards zero, an error that would grow with K if the running
+          // sum went through them
+          float t[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(t, as, bb[j]);
+          mma_tf32(t, ab, bs[j]);
+          mma_tf32(t, ab, bb[j]);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[i][j][c] += t[c];
+        }
+      }
     }
   }
+  cp_async_wait<0>();
 
   float* C = g.C;
   if (MODE == kTN) C += static_cast<size_t>(blockIdx.z) * g.M * g.N;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= g.M) continue;
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int n = n0 + h * 64 + tx * 4;
-      if (n >= g.N) continue;
-      const size_t at = static_cast<size_t>(m) * g.N + n;
-      float4 v = make_float4(acc[i][4 * h], acc[i][4 * h + 1],
-                             acc[i][4 * h + 2], acc[i][4 * h + 3]);
-      if (EPI == kDGelu) {
-        const float4 p = __ldg(reinterpret_cast<const float4*>(g.aux + at));
-        v = make_float4(v.x * dgelu(p.x), v.y * dgelu(p.y), v.z * dgelu(p.z),
-                        v.w * dgelu(p.w));
+      const int m = m0 + wm + i * 16 + gq + 8 * h;
+      if (m >= g.M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + wn + j * 8 + 2 * tq;  // and n + 1 (N is even)
+        float2 v = make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        if (n >= g.N) {
+          if (ones && n == g.N)
+            g.bias[static_cast<size_t>(blockIdx.z) * g.M + m] = v.x;
+          continue;
+        }
+        const size_t at = static_cast<size_t>(m) * g.N + n;
+        if (EPI == kDGelu) {
+          const float2 p = __ldg(reinterpret_cast<const float2*>(g.aux + at));
+          v = make_float2(v.x * dgelu(p.x), v.y * dgelu(p.y));
+        }
+        *reinterpret_cast<float2*>(C + at) = v;
       }
-      *reinterpret_cast<float4*>(C + at) = v;
     }
-  }
 }
 
-// Partial column sums of dy (rows x ncol) over row chunk blockIdx.y:
-// s1[chunk][c] = sum_r dy[r][c]; LN: s2[chunk][c] = sum_r dy[r][c]
-// (x[r][c] - mu[r]) inv[r].
-template <bool LN>
-__global__ void column_sums_kernel(const float* __restrict__ dy,
-                                   const float* __restrict__ x,
-                                   const float* __restrict__ mu,
-                                   const float* __restrict__ inv, int rows,
-                                   int ncol, int chunk, float* __restrict__ s1,
-                                   float* __restrict__ s2) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= ncol) return;
-  const int r1 = min(rows, (blockIdx.y + 1) * chunk);
-  float sb = 0.f, ss = 0.f;
-  for (int r = blockIdx.y * chunk; r < r1; ++r) {
-    const size_t at = static_cast<size_t>(r) * ncol + c;
-    const float v = __ldg(dy + at);
-    sb += v;
-    if (LN) ss = fmaf(v, (__ldg(x + at) - mu[r]) * inv[r], ss);
-  }
-  s1[blockIdx.y * ncol + c] = sb;
-  if (LN) s2[blockIdx.y * ncol + c] = ss;
+template <int MODE, int EPI>
+cudaError_t gemm_bwd(const Gemm& g, int splits, cudaStream_t stream) {
+  const int bytes = static_cast<int>(sizeof(float) * kStages *
+                                     gemm_stage_floats(MODE));
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_bwd_kernel<MODE, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return err;
+  const int cols = g.N + (MODE == kTN && g.bias != nullptr ? 1 : 0);
+  const dim3 grid((cols + kBN - 1) / kBN, (g.M + kBM - 1) / kBM, splits);
+  gemm_bwd_kernel<MODE, EPI><<<grid, kGemmThreads, bytes, stream>>>(g);
+  return cudaGetLastError();
 }
 
-// out[e] = sum over p < parts, in order, of part[p][e] (row length len).
-__global__ void reduce_partials_kernel(const float* __restrict__ part,
-                                       int parts, int len,
-                                       float* __restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= len) return;
-  float s = 0.f;
-  for (int p = 0; p < parts; ++p) s += part[static_cast<size_t>(p) * len + e];
-  out[e] = s;
+// y1 = LN1(x), y2 = LN2(x2) (blockIdx.y selects) with the forward's
+// statistics; M x D each, D a multiple of 4.
+struct LnApply {
+  const float *x, *mu, *inv, *s, *b;
+  float* y;
+};
+
+__global__ void ln_apply_kernel(LnApply p0, LnApply p1, int M, int D) {
+  const LnApply& p = blockIdx.y == 0 ? p0 : p1;
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int d4 = D / 4;
+  if (i >= static_cast<size_t>(M) * d4) return;
+  const int r = static_cast<int>(i / d4), c = static_cast<int>(i % d4) * 4;
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p.x) + i);
+  const float4 s = __ldg(reinterpret_cast<const float4*>(p.s + c));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p.b + c));
+  const float m = p.mu[r], iv = p.inv[r];
+  reinterpret_cast<float4*>(p.y)[i] =
+      make_float4((v.x - m) * iv * s.x + b.x, (v.y - m) * iv * s.y + b.y,
+                  (v.z - m) * iv * s.z + b.z, (v.w - m) * iv * s.w + b.w);
 }
 
-// One warp per row (K a multiple of 4): with xh = (x - mu) inv and dxh =
-// dy s, out = res + inv (dxh - mean(dxh) - xh mean(dxh xh)).
-__global__ void __launch_bounds__(kStatsThreads)
+// LayerNorm backward, one warp per row (rows warp + k x (warps of the
+// grid)); D a multiple of 4. With xh = (x - mu) inv and dxh = dy s,
+// out = res + inv (dxh - mean(dxh) - xh mean(dxh xh)); the thread block's
+// sums of dy xh and dy per column go to part[blockIdx.x] (2D floats), each
+// warp gathering its rows' in its own row of shared memory (kWarps x 2D).
+__global__ void __launch_bounds__(kLnThreads)
     ln_bwd_rows_kernel(const float* __restrict__ dy,
                        const float* __restrict__ x,
                        const float* __restrict__ mu,
                        const float* __restrict__ inv,
                        const float* __restrict__ s,
                        const float* __restrict__ res, float* __restrict__ out,
-                       int M, int K) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (kStatsThreads / 32) + (threadIdx.x >> 5);
-  if (row >= M) return;
-  const size_t base = static_cast<size_t>(row) * K;
-  const float4* d4 = reinterpret_cast<const float4*>(dy + base);
-  const float4* x4 = reinterpret_cast<const float4*>(x + base);
+                       float* __restrict__ part, int M, int D) {
+  extern __shared__ __align__(16) float red[];
+  constexpr int kWarps = kLnThreads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int d4 = D / 4;
+  float4* mine = reinterpret_cast<float4*>(red + warp * 2 * D);
+  for (int c = lane; c < 2 * d4; c += 32)
+    mine[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
   const float4* s4 = reinterpret_cast<const float4*>(s);
-  const float m = mu[row], iv = inv[row];
-  float s1 = 0.f, s2 = 0.f;
-  for (int k = lane; k < K / 4; k += 32) {
-    const float4 d = __ldg(d4 + k), v = __ldg(x4 + k), sc = __ldg(s4 + k);
-    const float e0 = d.x * sc.x, e1 = d.y * sc.y, e2 = d.z * sc.z,
-                e3 = d.w * sc.w;
-    s1 += (e0 + e1) + (e2 + e3);
-    s2 += fmaf(e0, (v.x - m) * iv, e1 * ((v.y - m) * iv)) +
-          fmaf(e2, (v.z - m) * iv, e3 * ((v.w - m) * iv));
+  for (int row = blockIdx.x * kWarps + warp; row < M;
+       row += gridDim.x * kWarps) {
+    const size_t base = static_cast<size_t>(row) * D;
+    const float4* d4p = reinterpret_cast<const float4*>(dy + base);
+    const float4* x4p = reinterpret_cast<const float4*>(x + base);
+    const float m = mu[row], iv = inv[row];
+    float s1 = 0.f, s2 = 0.f;
+    for (int k = lane; k < d4; k += 32) {
+      const float4 d = __ldg(d4p + k), v = __ldg(x4p + k), sc = __ldg(s4 + k);
+      const float e0 = d.x * sc.x, e1 = d.y * sc.y, e2 = d.z * sc.z,
+                  e3 = d.w * sc.w;
+      s1 += (e0 + e1) + (e2 + e3);
+      s2 += fmaf(e0, (v.x - m) * iv, e1 * ((v.y - m) * iv)) +
+            fmaf(e2, (v.z - m) * iv, e3 * ((v.w - m) * iv));
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+    }
+    const float m1 = s1 / D, m2 = s2 / D;
+    const float4* r4 = reinterpret_cast<const float4*>(res + base);
+    float4* o4 = reinterpret_cast<float4*>(out + base);
+    for (int k = lane; k < d4; k += 32) {
+      const float4 d = __ldg(d4p + k), v = __ldg(x4p + k), sc = __ldg(s4 + k),
+                   r = __ldg(r4 + k);
+      const float4 xh = make_float4((v.x - m) * iv, (v.y - m) * iv,
+                                    (v.z - m) * iv, (v.w - m) * iv);
+      o4[k] = make_float4(r.x + iv * (d.x * sc.x - m1 - xh.x * m2),
+                          r.y + iv * (d.y * sc.y - m1 - xh.y * m2),
+                          r.z + iv * (d.z * sc.z - m1 - xh.z * m2),
+                          r.w + iv * (d.w * sc.w - m1 - xh.w * m2));
+      float4 a = mine[k];
+      mine[k] = make_float4(fmaf(d.x, xh.x, a.x), fmaf(d.y, xh.y, a.y),
+                            fmaf(d.z, xh.z, a.z), fmaf(d.w, xh.w, a.w));
+      a = mine[d4 + k];
+      mine[d4 + k] = make_float4(a.x + d.x, a.y + d.y, a.z + d.z, a.w + d.w);
+    }
   }
-  for (int o = 16; o > 0; o >>= 1) {
-    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-  }
-  const float m1 = s1 / K, m2 = s2 / K;
-  const float4* r4 = reinterpret_cast<const float4*>(res + base);
-  float4* o4 = reinterpret_cast<float4*>(out + base);
-  for (int k = lane; k < K / 4; k += 32) {
-    const float4 d = __ldg(d4 + k), v = __ldg(x4 + k), sc = __ldg(s4 + k),
-                 r = __ldg(r4 + k);
-    o4[k] = make_float4(
-        r.x + iv * (d.x * sc.x - m1 - (v.x - m) * iv * m2),
-        r.y + iv * (d.y * sc.y - m1 - (v.y - m) * iv * m2),
-        r.z + iv * (d.z * sc.z - m1 - (v.z - m) * iv * m2),
-        r.w + iv * (d.w * sc.w - m1 - (v.w - m) * iv * m2));
+  __syncthreads();
+  for (int c = threadIdx.x; c < 2 * D; c += kLnThreads) {
+    float v = 0.f;
+    for (int w = 0; w < kWarps; ++w) v += red[w * 2 * D + c];
+    part[static_cast<size_t>(blockIdx.x) * 2 * D + c] = v;
   }
 }
 
 // Attention backward, one thread block per (window, head): qkv rows [q | k
 // | v] and do (N*T) x D -> dqkv (N*T) x 3D, the probabilities recomputed as
-// attention_kernel computes them.
+// attention_kernel computes them. Dynamic shared memory: q, k, v, do (T x
+// hd each), p and ds (T x T), attn_bwd_bytes.
 __global__ void __launch_bounds__(kAttnThreads)
     attention_bwd_kernel(const float* __restrict__ qkv,
                          const float* __restrict__ dout,
                          float* __restrict__ dqkv, int T, int D, int H,
                          float scale) {
-  __shared__ float q[kMaxT * kMaxHd], k[kMaxT * kMaxHd], v[kMaxT * kMaxHd],
-      dov[kMaxT * kMaxHd];
-  __shared__ float p[kMaxT * kMaxT], ds[kMaxT * kMaxT];
+  extern __shared__ __align__(16) float smem[];
   const int n = blockIdx.x / H, h = blockIdx.x % H;
   const int hd = D / H;
+  float *q = smem, *k = q + T * hd, *v = k + T * hd, *dov = v + T * hd,
+        *p = dov + T * hd, *ds = p + T * T;
   const float* base = qkv + static_cast<size_t>(n) * T * 3 * D + h * hd;
   const float* dbase = dout + static_cast<size_t>(n) * T * D + h * hd;
   for (int idx = threadIdx.x; idx < T * hd; idx += kAttnThreads) {
@@ -577,76 +717,69 @@ __global__ void __launch_bounds__(kAttnThreads)
   }
 }
 
-template <int MODE, bool LN, int EPI>
-cudaError_t gemm_bwd(const BwdGemmArgs& g, int splits, cudaStream_t stream) {
-  const dim3 grid((g.N + kBN - 1) / kBN, (g.M + kBM - 1) / kBM, splits);
-  gemm_bwd_kernel<MODE, LN, EPI><<<grid, kGemmThreads, 0, stream>>>(g);
-  return cudaGetLastError();
+// out[e] = sum over p < parts, in order, of part[p stride + e], e < len,
+// for each segment (blockIdx.y).
+struct Segment {
+  const float* part;
+  float* out;
+  int parts, len, stride;
+};
+constexpr int kMaxSegments = 12;
+struct Segments {
+  Segment s[kMaxSegments];
+};
+
+__global__ void reduce_segments_kernel(Segments segs) {
+  const Segment& sg = segs.s[blockIdx.y];
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= sg.len) return;
+  float v = 0.f;
+  for (int p = 0; p < sg.parts; ++p)
+    v += sg.part[static_cast<size_t>(p) * sg.stride + e];
+  sg.out[e] = v;
 }
 
-// How a weight gradient of rows x cols over K summed rows is split: parts
-// enough for about two waves of the card, at least 512 rows each.
+// How a weight gradient of rows x cols (+ a bias column) over K summed rows
+// is split: the fewest parts (at least 1024 rows each) whose thread blocks
+// fill the card's waves (two thread blocks an SM) to 90 % or more, else the
+// count that fills them best, so that the last wave is not left mostly
+// empty.
 void split_k(int rows, int cols, int K, int sms, int* splits, int* k_split) {
-  const int tiles = ((rows + kBM - 1) / kBM) * ((cols + kBN - 1) / kBN);
-  int s = (2 * sms + tiles - 1) / tiles;
-  const int most = K / (kBK * 64) > 1 ? K / (kBK * 64) : 1;
-  s = s < 1 ? 1 : (s > most ? most : s);
-  *k_split = (((K + s - 1) / s) + kBK - 1) / kBK * kBK;
+  const int tiles = ((rows + kBM - 1) / kBM) * ((cols + 1 + kBN - 1) / kBN);
+  const int slots = 2 * sms;
+  const int most = K / (kBK2 * 64) > 1 ? K / (kBK2 * 64) : 1;
+  int best = 1;
+  double best_fill = 0.0;
+  for (int s = 1; s <= most; ++s) {
+    const int blocks = tiles * s;
+    const double fill = static_cast<double>(blocks) /
+                        (static_cast<double>((blocks + slots - 1) / slots) *
+                         slots);
+    if (fill > best_fill + 1e-9) {
+      best_fill = fill;
+      best = s;
+    }
+    if (fill >= 0.9) break;
+  }
+  *k_split = (((K + best - 1) / best) + kBK2 - 1) / kBK2 * kBK2;
   *splits = (K + *k_split - 1) / *k_split;
 }
 
-// dW (rows x cols) = A^T B (LN: A^T LN(B)) over K rows: split, then the
-// fixed-order sum of the parts into out. part holds splits x rows x cols.
-template <bool LN>
-cudaError_t weight_grad(const float* A, const float* B, int rows, int cols,
-                        int K, const float* mu, const float* inv,
-                        const float* gamma, const float* beta, float* part,
-                        float* out, int sms, cudaStream_t stream) {
-  int splits, k_split;
-  split_k(rows, cols, K, sms, &splits, &k_split);
-  cudaError_t err = gemm_bwd<kTN, LN, kSet>(
-      BwdGemmArgs{A, B, part, rows, cols, K, nullptr, mu, inv, gamma, beta,
-                  k_split},
-      splits, stream);
-  if (err != cudaSuccess) return err;
-  reduce_partials_kernel<<<(rows * cols + 255) / 256, 256, 0, stream>>>(
-      part, splits, rows * cols, out);
-  return cudaGetLastError();
-}
+// Thread blocks of the LayerNorm backward launches (their partial rows).
+int ln_grid(int sms) { return 2 * sms; }
 
-// out_b = sum_r dy[r]; LN: out_s = sum_r dy[r] xh[r] as well. part holds
-// 2 x kSumChunks x ncol.
-template <bool LN>
-cudaError_t column_grads(const float* dy, int M, int ncol, const float* x,
-                         const float* mu, const float* inv, float* part,
-                         float* out_b, float* out_s, cudaStream_t stream) {
-  const int chunk = (M + kSumChunks - 1) / kSumChunks;
-  float* part_s = part + kSumChunks * ncol;
-  column_sums_kernel<LN><<<dim3((ncol + 255) / 256, kSumChunks), 256, 0,
-                           stream>>>(dy, x, mu, inv, M, ncol, chunk, part,
-                                     part_s);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  reduce_partials_kernel<<<(ncol + 255) / 256, 256, 0, stream>>>(
-      part, kSumChunks, ncol, out_b);
-  if (LN)
-    reduce_partials_kernel<<<(ncol + 255) / 256, 256, 0, stream>>>(
-        part_s, kSumChunks, ncol, out_s);
-  return cudaGetLastError();
-}
-
-// Floats of the backward's `part` scratch for M rows: the largest split
-// weight gradient, or the column sums' parts.
+// The backward's `part` scratch for M rows, in floats: each weight
+// gradient's split parts and bias parts, then the two LayerNorm launches'
+// partial rows. shapes[i] = (rows, cols) of dW2, dW1, dWp, dWqkv.
 int part_floats(int M, int D, int hidden, int sms) {
   const int shapes[4][2] = {{D, hidden}, {hidden, D}, {D, D}, {3 * D, D}};
-  int most = 2 * kSumChunks * (3 * D > hidden ? 3 * D : hidden);
+  long total = 2L * ln_grid(sms) * 2 * D;
   for (const auto& rc : shapes) {
     int splits, k_split;
     split_k(rc[0], rc[1], M, sms, &splits, &k_split);
-    const int need = splits * rc[0] * rc[1];
-    most = need > most ? need : most;
+    total += static_cast<long>(splits) * rc[0] * (rc[1] + 1);
   }
-  return most;
+  return static_cast<int>(total);
 }
 
 cudaError_t sm_count(int* sms) {
@@ -657,8 +790,9 @@ cudaError_t sm_count(int* sms) {
 }
 
 bool valid(int n, int T, int D, int H, int hidden) {
-  return T <= kMaxT && D >= 8 && D % 8 == 0 && hidden >= 8 &&
+  return T >= 1 && T <= kMaxT && D >= 8 && D % 8 == 0 && hidden >= 8 &&
          hidden % 8 == 0 && H >= 1 && D % H == 0 && D / H <= kMaxHd &&
+         attn_bwd_bytes(T, D / H) <= kMaxSmem &&
          (n * T + kBM - 1) / kBM <= 65535;
 }
 
@@ -670,9 +804,11 @@ extern "C" {
 // nn.Linear layout: qkv_w (3D, D), proj_w (D, D), fc1_w (hidden, D), fc2_w
 // (D, hidden). Scratch: stats (4 n T), qkv (n T, 3D), attn (n T, D), x2
 // (n T, D), mlp (n T, hidden), and h (n T, hidden), the pre-GELU hidden,
-// which only training keeps (nullptr: not written). Requires T <= 16, D and
-// hidden multiples of 8, D / H <= 128 and 16-byte aligned pointers.
-// Launches seven kernels on `stream`; returns the first CUDA error, or 0.
+// which only training keeps (nullptr: not written). Requires T <= 81, D and
+// hidden multiples of 8, D / H <= 128, the attention backward's T x T and
+// 4 T x D / H floats within one thread block's shared memory, and 16-byte
+// aligned pointers. Launches seven kernels on `stream`; returns the first
+// CUDA error, or 0.
 int pv2c_fused_temporal_block(
     const float* x, float* out, const float* ln1_s, const float* ln1_b,
     const float* qkv_w, const float* qkv_b, const float* proj_w,
@@ -688,7 +824,11 @@ int pv2c_fused_temporal_block(
   float *mu1 = stats, *inv1 = stats + M, *mu2 = stats + 2 * M,
         *inv2 = stats + 3 * M;
   const int stats_blocks = (M + kStatsThreads / 32 - 1) / (kStatsThreads / 32);
-  cudaError_t err;
+  const int attn_bytes = attn_fwd_bytes(T, D / H);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
 
   row_stats_kernel<<<stats_blocks, kStatsThreads, 0, stream>>>(x, M, D, mu1,
                                                                inv1);
@@ -697,8 +837,8 @@ int pv2c_fused_temporal_block(
                                     D, mu1, inv1, ln1_s, ln1_b},
                            stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_kernel<<<n * H, kAttnThreads, 0, stream>>>(qkv, attn, T, D, H,
-                                                        scale);
+  attention_kernel<<<n * H, kAttnThreads, attn_bytes, stream>>>(
+      qkv, attn, T, D, H, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   err = gemm<false, kResidual>(GemmArgs{attn, proj_w, proj_b, x, x2, M, D, D,
                                         nullptr, nullptr, nullptr, nullptr},
@@ -731,9 +871,9 @@ int pv2c_temporal_block_bwd_part_floats(int n, int T, int D, int hidden) {
 // the scratch it filled (stats, qkv, attn, x2, h, mlp; h written) and the
 // output's cotangent g: dx (n, T, D) and grads, the 12 weight gradients
 // flat, each in its weight's layout, in the weights' order. Scratch: dh
-// (n T, hidden), dy (n T, D), dx2 (n T, D), dqkv (n T, 3D) and part
+// (n T, hidden), dy, dx2, y1, y2 (n T, D each), dqkv (n T, 3D) and part
 // (pv2c_temporal_block_bwd_part_floats). Requirements as the forward's.
-// Launches its kernels on `stream`; returns the first CUDA error, or 0.
+// Launches 13 kernels on `stream`; returns the first CUDA error, or 0.
 int pv2c_fused_temporal_block_bwd(
     const float* x, const float* ln1_s, const float* ln1_b,
     const float* qkv_w, const float* qkv_b, const float* proj_w,
@@ -742,12 +882,16 @@ int pv2c_fused_temporal_block_bwd(
     const float* fc2_b, const float* stats, const float* qkv,
     const float* attn, const float* x2, const float* h, const float* mlp,
     const float* g, float* dx, float* grads, float* dh, float* dy,
-    float* dx2, float* dqkv, float* part, int n, int T, int D, int H,
-    int hidden, float scale, cudaStream_t stream) {
+    float* dx2, float* dqkv, float* y1, float* y2, float* part, int n, int T,
+    int D, int H, int hidden, float scale, cudaStream_t stream) {
   const int M = n * T, G = hidden;
   if (M <= 0) return 0;
   if (!valid(n, T, D, H, hidden))
     return static_cast<int>(cudaErrorInvalidValue);
+  (void)qkv_b;
+  (void)proj_b;
+  (void)fc1_b;
+  (void)fc2_b;
   const float *mu1 = stats, *inv1 = stats + M, *mu2 = stats + 2 * M,
               *inv2 = stats + 3 * M;
   // the gradients' offsets in grads, in the weights' order
@@ -763,64 +907,106 @@ int pv2c_fused_temporal_block_bwd(
   float* g_fc1_b = g_fc1_w + G * D;
   float* g_fc2_w = g_fc1_b + G;
   float* g_fc2_b = g_fc2_w + D * G;
-  const int rows_blocks =
-      (M + kStatsThreads / 32 - 1) / (kStatsThreads / 32);
   int sms = 0;
   cudaError_t err = sm_count(&sms);
-#define PV2C_STEP(call)                                        \
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int lg = ln_grid(sms);
+
+  // part: each dW's split parts and bias parts, then the LayerNorm parts
+  Segments segs{};
+  int nseg = 0;
+  float* free_part = part;
+  struct WGrad {
+    float *w, *b;
+    int splits, k_split;
+  };
+  auto wgrad = [&](int rows, int cols, float* out_w, float* out_b) {
+    WGrad r;
+    split_k(rows, cols, M, sms, &r.splits, &r.k_split);
+    r.w = free_part;
+    r.b = r.w + static_cast<size_t>(r.splits) * rows * cols;
+    free_part = r.b + static_cast<size_t>(r.splits) * rows;
+    segs.s[nseg++] = Segment{r.w, out_w, r.splits, rows * cols, rows * cols};
+    segs.s[nseg++] = Segment{r.b, out_b, r.splits, rows, rows};
+    return r;
+  };
+  const WGrad w2 = wgrad(D, G, g_fc2_w, g_fc2_b);
+  const WGrad w1 = wgrad(G, D, g_fc1_w, g_fc1_b);
+  const WGrad wp = wgrad(D, D, g_proj_w, g_proj_b);
+  const WGrad wq = wgrad(3 * D, D, g_qkv_w, g_qkv_b);
+  float* ln2_part = free_part;
+  float* ln1_part = ln2_part + static_cast<size_t>(lg) * 2 * D;
+  segs.s[nseg++] = Segment{ln2_part, g_ln2_s, lg, D, 2 * D};
+  segs.s[nseg++] = Segment{ln2_part + D, g_ln2_b, lg, D, 2 * D};
+  segs.s[nseg++] = Segment{ln1_part, g_ln1_s, lg, D, 2 * D};
+  segs.s[nseg++] = Segment{ln1_part + D, g_ln1_b, lg, D, 2 * D};
+
+  const int ln_bytes = static_cast<int>(sizeof(float) * (kLnThreads / 32) *
+                                        2 * D);
+  const int abytes = attn_bwd_bytes(T, D / H);
+  err = cudaFuncSetAttribute(ln_bwd_rows_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             ln_bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attention_bwd_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               abytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+#define PV2C_STEP(call) \
   if (err == cudaSuccess) err = (call)
 
-  // MLP half: du = g
-  PV2C_STEP((gemm_bwd<kNN, false, kDGelu>(
-      BwdGemmArgs{g, fc2_w, dh, M, G, D, h, nullptr, nullptr, nullptr,
-                  nullptr, 0},
-      1, stream)));
-  PV2C_STEP(weight_grad<false>(g, mlp, D, G, M, nullptr, nullptr, nullptr,
-                               nullptr, part, g_fc2_w, sms, stream));
-  PV2C_STEP(column_grads<false>(g, M, D, nullptr, nullptr, nullptr, part,
-                                g_fc2_b, nullptr, stream));
-  PV2C_STEP((gemm_bwd<kNN, false, kSet>(
-      BwdGemmArgs{dh, fc1_w, dy, M, D, G, nullptr, nullptr, nullptr, nullptr,
-                  nullptr, 0},
-      1, stream)));
-  PV2C_STEP(weight_grad<true>(dh, x2, G, D, M, mu2, inv2, ln2_s, ln2_b, part,
-                              g_fc1_w, sms, stream));
-  PV2C_STEP(column_grads<false>(dh, M, G, nullptr, nullptr, nullptr, part,
-                                g_fc1_b, nullptr, stream));
-  PV2C_STEP(column_grads<true>(dy, M, D, x2, mu2, inv2, part, g_ln2_b,
-                               g_ln2_s, stream));
+  // the LayerNorms' outputs, the dW1 and dWqkv products' X
+  const int apply_blocks = (M * (D / 4) + 255) / 256;
   if (err == cudaSuccess) {
-    ln_bwd_rows_kernel<<<rows_blocks, kStatsThreads, 0, stream>>>(
-        dy, x2, mu2, inv2, ln2_s, g, dx2, M, D);
+    ln_apply_kernel<<<dim3(apply_blocks, 2), 256, 0, stream>>>(
+        LnApply{x, mu1, inv1, ln1_s, ln1_b, y1},
+        LnApply{x2, mu2, inv2, ln2_s, ln2_b, y2}, M, D);
+    err = cudaGetLastError();
+  }
+  // MLP half: du = g
+  PV2C_STEP((gemm_bwd<kNN, kDGelu>(
+      Gemm{g, fc2_w, dh, nullptr, h, M, G, D, 0}, 1, stream)));
+  PV2C_STEP((gemm_bwd<kTN, kSet>(
+      Gemm{g, mlp, w2.w, w2.b, nullptr, D, G, M, w2.k_split}, w2.splits,
+      stream)));
+  PV2C_STEP((gemm_bwd<kNN, kSet>(
+      Gemm{dh, fc1_w, dy, nullptr, nullptr, M, D, G, 0}, 1, stream)));
+  PV2C_STEP((gemm_bwd<kTN, kSet>(
+      Gemm{dh, y2, w1.w, w1.b, nullptr, G, D, M, w1.k_split}, w1.splits,
+      stream)));
+  if (err == cudaSuccess) {
+    ln_bwd_rows_kernel<<<lg, kLnThreads, ln_bytes, stream>>>(
+        dy, x2, mu2, inv2, ln2_s, g, dx2, ln2_part, M, D);
     err = cudaGetLastError();
   }
   // attention half: da = dx2
-  PV2C_STEP((gemm_bwd<kNN, false, kSet>(
-      BwdGemmArgs{dx2, proj_w, dy, M, D, D, nullptr, nullptr, nullptr,
-                  nullptr, nullptr, 0},
-      1, stream)));
-  PV2C_STEP(weight_grad<false>(dx2, attn, D, D, M, nullptr, nullptr, nullptr,
-                               nullptr, part, g_proj_w, sms, stream));
-  PV2C_STEP(column_grads<false>(dx2, M, D, nullptr, nullptr, nullptr, part,
-                                g_proj_b, nullptr, stream));
+  PV2C_STEP((gemm_bwd<kNN, kSet>(
+      Gemm{dx2, proj_w, dy, nullptr, nullptr, M, D, D, 0}, 1, stream)));
+  PV2C_STEP((gemm_bwd<kTN, kSet>(
+      Gemm{dx2, attn, wp.w, wp.b, nullptr, D, D, M, wp.k_split}, wp.splits,
+      stream)));
   if (err == cudaSuccess) {
-    attention_bwd_kernel<<<n * H, kAttnThreads, 0, stream>>>(qkv, dy, dqkv, T,
-                                                             D, H, scale);
+    attention_bwd_kernel<<<n * H, kAttnThreads, abytes, stream>>>(
+        qkv, dy, dqkv, T, D, H, scale);
     err = cudaGetLastError();
   }
-  PV2C_STEP((gemm_bwd<kNN, false, kSet>(
-      BwdGemmArgs{dqkv, qkv_w, dy, M, D, 3 * D, nullptr, nullptr, nullptr,
-                  nullptr, nullptr, 0},
-      1, stream)));
-  PV2C_STEP(weight_grad<true>(dqkv, x, 3 * D, D, M, mu1, inv1, ln1_s, ln1_b,
-                              part, g_qkv_w, sms, stream));
-  PV2C_STEP(column_grads<false>(dqkv, M, 3 * D, nullptr, nullptr, nullptr,
-                                part, g_qkv_b, nullptr, stream));
-  PV2C_STEP(column_grads<true>(dy, M, D, x, mu1, inv1, part, g_ln1_b,
-                               g_ln1_s, stream));
+  PV2C_STEP((gemm_bwd<kNN, kSet>(
+      Gemm{dqkv, qkv_w, dy, nullptr, nullptr, M, D, 3 * D, 0}, 1, stream)));
+  PV2C_STEP((gemm_bwd<kTN, kSet>(
+      Gemm{dqkv, y1, wq.w, wq.b, nullptr, 3 * D, D, M, wq.k_split},
+      wq.splits, stream)));
   if (err == cudaSuccess) {
-    ln_bwd_rows_kernel<<<rows_blocks, kStatsThreads, 0, stream>>>(
-        dy, x, mu1, inv1, ln1_s, dx2, dx, M, D);
+    ln_bwd_rows_kernel<<<lg, kLnThreads, ln_bytes, stream>>>(
+        dy, x, mu1, inv1, ln1_s, dx2, dx, ln1_part, M, D);
+    err = cudaGetLastError();
+  }
+  // every part, summed in order
+  int longest = 0;
+  for (int i = 0; i < nseg; ++i)
+    longest = segs.s[i].len > longest ? segs.s[i].len : longest;
+  if (err == cudaSuccess) {
+    reduce_segments_kernel<<<dim3((longest + 255) / 256, nseg), 256, 0,
+                             stream>>>(segs);
     err = cudaGetLastError();
   }
 #undef PV2C_STEP

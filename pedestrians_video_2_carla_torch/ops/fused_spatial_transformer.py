@@ -9,9 +9,12 @@ H100 operations bound it: at B=256, L=16 it does 8.40 GFLOP (125 us at the
 fp32 peak) against about 27 MB of traffic; its design (a few frames per
 thread block, resident in shared memory through the whole stack) is
 described in the source. The backward replaces ``_bwd_kernel``
-(``_fused_bwd_impl``): dx and the 14 weight gradients, the forward
-recomputed from x in the same launch (67.18 GFLOP at B=1024, L=16, a 1.00
-ms bound), per-block partial weight gradients summed in a fixed order.
+(``_fused_bwd_impl``): dx and the 14 weight gradients (67.18 GFLOP at
+B=1024, L=16, a 1.00 ms bound) from the residuals the training forward
+keeps, two launches per depth block in reverse, per-thread-block partial
+weight gradients summed in a fixed order. The shared-memory layouts and the
+tiles they allow are mirrored here (``kernel_tiles``), so that the limits
+are known without a card.
 
 ``fused_spatial_stack`` launches the kernels for CUDA tensors and runs the
 plain version (and autograd of it) for CPU tensors; there is no fallback
@@ -35,19 +38,75 @@ from .transformer import (block_reference, check_block_weights, layer_norm,
 _SOURCE = cuda_build.CSRC / "fused_spatial_transformer.cu"
 _SIGNATURES = {
     "pv2c_fused_spatial_stack":
-        [_PTR] * 16 + [_INT] * 6 + [ctypes.c_float, _PTR],
-    "pv2c_spatial_stack_smem_bytes": [_INT] * 4,
+        [_PTR] * 22 + [_INT] * 7 + [ctypes.c_float, _PTR],
+    "pv2c_spatial_stack_smem_bytes": [_INT] * 5,
+    "pv2c_spatial_mlp_bwd_smem_bytes": [_INT] * 3,
+    "pv2c_spatial_attn_bwd_smem_bytes": [_INT] * 4,
     "pv2c_fused_spatial_stack_bwd":
-        [_PTR] * 20 + [_INT] * 7 + [ctypes.c_float, _PTR],
-    "pv2c_spatial_stack_bwd_smem_bytes": [_INT] * 4,
-    "pv2c_spatial_stack_bwd_grid": [_INT] * 5,
+        [_PTR] * 25 + [_INT] * 9 + [ctypes.c_float, _PTR],
+    "pv2c_spatial_stack_bwd_grid": [_INT] * 6,
 }
 
-#: the kernel's compiled limits (csrc/fused_spatial_transformer.cu)
+#: the kernels' compiled limits (csrc/fused_spatial_transformer.cu)
 MAX_TOKENS = 32
-MAX_HEAD_WIDTH = 16
-#: shared memory a thread block may use on an H100 (sm_90)
+MAX_HEAD_WIDTH = 32
+MAX_WIDTH = 128
+#: shared memory a thread block may use on an H100 (sm_90), and the most
+#: each of two thread blocks on one SM may use (233,472 bytes an SM, less
+#: 1 KB a thread block, halved)
 MAX_SMEM_BYTES = 232448
+TWO_PER_SM_BYTES = 115712
+#: the tiles tried, largest first: the forward's and the attention half's
+#: frames a thread block, the MLP half's rows
+FRAME_TILES = (4, 3, 2, 1)
+ROW_TILES = (128, 96, 64, 32, 16, 8, 4)
+_WPAD = 8
+
+
+def _pad4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def forward_smem_bytes(J: int, E: int, hidden: int, frames: int) -> int:
+    """Shared memory of one forward thread block at ``frames`` frames (the
+    source's ``layout_of``)."""
+    rows = _pad4(frames * J)
+    floats = (2 * rows * E + rows * max(3 * E, hidden)
+              + E * (3 * E + _WPAD) + E * (E + _WPAD) + E * (hidden + _WPAD)
+              + hidden * (E + _WPAD) + _pad4(9 * E + hidden) + 2 * rows)
+    return 4 * floats
+
+
+def mlp_bwd_smem_bytes(E: int, hidden: int, rows: int) -> int:
+    """Shared memory of one thread block of the backward's MLP half at
+    ``rows`` rows (``mlp_layout``)."""
+    floats = (2 * rows * E + 2 * rows * hidden + _pad4(rows)
+              + hidden * (E + _WPAD) + E * (hidden + _WPAD) + 2 * E
+              + _pad4(2 * E * hidden + E + hidden) + 16 * E)
+    return 4 * floats
+
+
+def attn_bwd_smem_bytes(J: int, E: int, num_heads: int, frames: int) -> int:
+    """Shared memory of one thread block of the backward's attention half
+    at ``frames`` frames (``attn_layout``)."""
+    rows = _pad4(frames * J)
+    floats = (10 * rows * E + _pad4(rows) + _pad4(3 * frames * num_heads * J)
+              + 4 * E * (E + _WPAD) + 2 * E
+              + _pad4(4 * E * E + 4 * E) + 16 * E)
+    return 4 * floats
+
+
+def _pick(tiles, size, what, limits=(TWO_PER_SM_BYTES, MAX_SMEM_BYTES)):
+    """The largest tile within the first of ``limits`` that any tile meets
+    (by default: room for a second thread block on the SM, else room for
+    one)."""
+    for limit in limits:
+        for t in tiles:
+            if size(t) <= limit:
+                return t
+    raise ValueError(f"{what} needs {size(tiles[-1])} bytes of shared memory "
+                     f"per thread block at its smallest tile, more than "
+                     f"{MAX_SMEM_BYTES}")
 
 
 def _library():
@@ -85,49 +144,74 @@ def spatial_stack_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return layer_norm(x, lnf_s, lnf_b)
 
 
-def _check_limits(x, weights, num_heads, hidden, smem_bytes) -> None:
-    """The kernels' compiled limits, alignment and shared memory
-    (``smem_bytes``: the library's size function of the entry)."""
-    J, E = x.shape[1:]
-    if J > MAX_TOKENS or E // num_heads > MAX_HEAD_WIDTH or E % 4 \
-            or hidden % 4:
+def kernel_tiles(J: int, E: int, num_heads: int,
+                 hidden: int) -> Tuple[int, int, int]:
+    """The kernels' compiled limits; returns their tiles: (frames a
+    thread block of the forward, rows a tile of the backward's MLP half,
+    frames a tile of its attention half). Raises ValueError for a shape
+    the kernels do not take."""
+    if J > MAX_TOKENS or E > MAX_WIDTH or E // num_heads > MAX_HEAD_WIDTH \
+            or E % 4 or hidden % 4:
         raise ValueError(
-            f"the spatial kernel takes J <= {MAX_TOKENS}, head width <= "
-            f"{MAX_HEAD_WIDTH} and widths that are multiples of 4; got J={J}, "
-            f"E={E}, {num_heads} heads, hidden {hidden}")
-    if any(t.data_ptr() % 16 for t in (x, *weights)):
+            f"the spatial kernel takes J <= {MAX_TOKENS}, E <= {MAX_WIDTH}, "
+            f"head width <= {MAX_HEAD_WIDTH} and widths that are multiples "
+            f"of 4; got J={J}, E={E}, {num_heads} heads, hidden {hidden}")
+    return (_pick(FRAME_TILES,
+                  lambda f: forward_smem_bytes(J, E, hidden, f),
+                  "the spatial forward", limits=(MAX_SMEM_BYTES,)),
+            _pick(ROW_TILES, lambda r: mlp_bwd_smem_bytes(E, hidden, r),
+                  "the spatial backward's MLP half"),
+            _pick(FRAME_TILES,
+                  lambda f: attn_bwd_smem_bytes(J, E, num_heads, f),
+                  "the spatial backward's attention half"))
+
+
+def _check_aligned(tensors) -> None:
+    if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("the spatial kernel needs 16-byte aligned tensors")
-    smem = smem_bytes(J, E, num_heads, hidden)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"J={J}, E={E}, hidden {hidden} need {smem} bytes of "
-                         f"shared memory per block, more than {MAX_SMEM_BYTES}")
+
+
+#: the residuals the training forward keeps per depth block (``saved``)
+SAVED = ("stats", "qkv", "o", "x2", "h", "xs")
+
+
+def saved_shapes(depth: int, M: int, E: int, hidden: int):
+    """Shapes of the ``saved`` tensors for M = N J token rows: the
+    LayerNorm statistics (mu1, inv1, mu2, inv2), qkv, the attention output,
+    x2, the pre-GELU hidden and the block's output."""
+    return [(depth, 4, M), (depth, M, 3 * E), (depth, M, E), (depth, M, E),
+            (depth, M, hidden), (depth, M, E)]
 
 
 def fused_spatial_stack_cuda(x: torch.Tensor, weights: Sequence[torch.Tensor],
-                             num_heads: int) -> torch.Tensor:
+                             num_heads: int, keep: bool = False):
     """Launch the kernel on float32 contiguous CUDA tensors: (N, J, E) ->
-    (N, J, E). Adds one to ``fused_spatial_stack_cuda.launches`` per
-    launch."""
+    (N, J, E); with ``keep``, ``(out, saved)``, ``saved`` the residuals the
+    backward takes (``SAVED``, about 260 floats a token row and depth
+    block). Adds one to ``fused_spatial_stack_cuda.launches`` per launch."""
     hidden = check_stack(x, weights, num_heads)
     device = cuda_build.check_cuda_tensors(
         "fused_spatial_stack_cuda", x=x,
         **{f"weights[{i}]": w for i, w in enumerate(weights)})
     N, J, E = x.shape
     depth = weights[0].shape[0]
-    lib = _library()
-    _check_limits(x, weights, num_heads, hidden,
-                  lib.pv2c_spatial_stack_smem_bytes)
+    frames, _, _ = kernel_tiles(J, E, num_heads, hidden)
+    _check_aligned((x, *weights))
     out = torch.empty_like(x)
-    if N == 0:
-        return out
-    with torch.cuda.device(device):
-        err = lib.pv2c_fused_spatial_stack(
-            x.data_ptr(), out.data_ptr(), *(w.data_ptr() for w in weights),
-            N, J, E, num_heads, hidden, depth, float(E // num_heads) ** -0.5,
-            torch.cuda.current_stream(device).cuda_stream)
-    cuda_build.check_launch(err, "pv2c_fused_spatial_stack")
-    fused_spatial_stack_cuda.launches += 1
-    return out
+    saved = [torch.empty(s, dtype=torch.float32, device=device)
+             for s in saved_shapes(depth, N * J, E, hidden)] if keep else None
+    if N:
+        lib = _library()
+        with torch.cuda.device(device):
+            err = lib.pv2c_fused_spatial_stack(
+                x.data_ptr(), out.data_ptr(), *(w.data_ptr() for w in weights),
+                *(t.data_ptr() for t in saved) if keep else (None,) * 6,
+                N, J, E, num_heads, hidden, depth, frames,
+                float(E // num_heads) ** -0.5,
+                torch.cuda.current_stream(device).cuda_stream)
+        cuda_build.check_launch(err, "pv2c_fused_spatial_stack")
+        fused_spatial_stack_cuda.launches += 1
+    return (out, saved) if keep else out
 
 
 fused_spatial_stack_cuda.launches = 0
@@ -135,12 +219,15 @@ fused_spatial_stack_cuda.launches = 0
 
 def fused_spatial_stack_cuda_bwd(x: torch.Tensor,
                                  weights: Sequence[torch.Tensor],
+                                 saved: Sequence[torch.Tensor],
                                  g: torch.Tensor, num_heads: int
                                  ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """Launch the backward kernel on float32 contiguous CUDA tensors: the
-    forward's input x (N, J, E), its weights and the output's cotangent g
-    -> ``(dx, [14 weight gradients])``, each gradient in its weight's shape.
-    Adds one to ``fused_spatial_stack_cuda_bwd.launches`` per launch."""
+    """Launch the backward on float32 contiguous CUDA tensors: the
+    forward's input x (N, J, E), its weights, the ``saved`` residuals of
+    ``fused_spatial_stack_cuda(..., keep=True)`` and the output's cotangent
+    g -> ``(dx, [14 weight gradients])``, each gradient in its weight's
+    shape. Adds one to ``fused_spatial_stack_cuda_bwd.launches`` per
+    call."""
     hidden = check_stack(x, weights, num_heads)
     if g.shape != x.shape:
         raise ValueError(f"g must be {tuple(x.shape)}, got {tuple(g.shape)}")
@@ -149,24 +236,32 @@ def fused_spatial_stack_cuda_bwd(x: torch.Tensor,
         **{f"weights[{i}]": w for i, w in enumerate(weights)})
     N, J, E = x.shape
     depth = weights[0].shape[0]
-    lib = _library()
-    _check_limits(x, (g, *weights), num_heads, hidden,
-                  lib.pv2c_spatial_stack_bwd_smem_bytes)
-    empty = functools.partial(torch.empty, dtype=torch.float32, device=device)
+    _, rows, frames = kernel_tiles(J, E, num_heads, hidden)
+    _check_aligned((x, g, *weights))
+    shapes = saved_shapes(depth, N * J, E, hidden)
+    if len(saved) != len(shapes) or any(
+            tuple(t.shape) != s for t, s in zip(saved, shapes)):
+        raise ValueError(f"saved must be tensors of shapes {shapes}")
+    cuda_build.check_cuda_tensors(
+        "fused_spatial_stack_cuda_bwd",
+        **dict(zip(SAVED, saved)))
     sizes = [w.numel() for w in weights]
     if N == 0:
         return torch.zeros_like(x), [torch.zeros_like(w) for w in weights]
+    empty = functools.partial(torch.empty, dtype=torch.float32, device=device)
     dx, flat = torch.empty_like(x), empty(sum(sizes))
+    lib = _library()
     with torch.cuda.device(device):
-        grid = lib.pv2c_spatial_stack_bwd_grid(N, J, E, num_heads, hidden)
+        grid = lib.pv2c_spatial_stack_bwd_grid(J, E, num_heads, hidden, rows,
+                                               frames)
         if grid < 1:
             cuda_build.check_launch(-grid, "pv2c_spatial_stack_bwd_grid")
-        xs, part = empty((depth, N, J, E)), empty((grid, sum(sizes)))
+        part = empty((grid, sum(sizes)))
         err = lib.pv2c_fused_spatial_stack_bwd(
             x.data_ptr(), g.data_ptr(), dx.data_ptr(),
-            *(w.data_ptr() for w in weights), xs.data_ptr(), part.data_ptr(),
-            flat.data_ptr(), N, J, E, num_heads, hidden, depth, grid,
-            float(E // num_heads) ** -0.5,
+            *(w.data_ptr() for w in weights), *(t.data_ptr() for t in saved),
+            part.data_ptr(), flat.data_ptr(), N, J, E, num_heads, hidden,
+            depth, grid, rows, frames, float(E // num_heads) ** -0.5,
             torch.cuda.current_stream(device).cuda_stream)
     cuda_build.check_launch(err, "pv2c_fused_spatial_stack_bwd")
     fused_spatial_stack_cuda_bwd.launches += 1
@@ -178,31 +273,38 @@ fused_spatial_stack_cuda_bwd.launches = 0
 
 class FusedSpatialStack(torch.autograd.Function):
     """Kernel forward and kernel backward (CUDA), or the plain forward and
-    autograd of it (CPU), as the JAX package's custom VJP; only x and the
-    weights are kept for the backward."""
+    autograd of it (CPU), as the JAX package's custom VJP. ``keep``: a
+    gradient will be asked for, so the kernel forward keeps the residuals
+    the backward takes."""
 
     @staticmethod
-    def forward(ctx, x, num_heads, *weights):
+    def forward(ctx, x, num_heads, keep, *weights):
         ctx.num_heads = num_heads
-        ctx.save_for_backward(x, *weights)
         if x.device.type == "cuda":
-            return fused_spatial_stack_cuda(x, weights, num_heads)
+            if not keep:
+                return fused_spatial_stack_cuda(x, weights, num_heads)
+            out, saved = fused_spatial_stack_cuda(x, weights, num_heads,
+                                                  keep=True)
+            ctx.save_for_backward(x, *weights, *saved)
+            return out
         if x.device.type != "cpu":
             raise ValueError(f"fused_spatial_stack runs on cuda or cpu, not "
                              f"{x.device}")
         check_stack(x, weights, num_heads)
+        ctx.save_for_backward(x, *weights)
         return spatial_stack_reference(x, weights, num_heads)
 
     @staticmethod
     def backward(ctx, g):
-        x, *weights = ctx.saved_tensors
+        x, *rest = ctx.saved_tensors
+        weights, saved = rest[:14], rest[14:]
         if x.device.type == "cuda":
-            dx, dws = fused_spatial_stack_cuda_bwd(x, weights, g.contiguous(),
-                                                   ctx.num_heads)
+            dx, dws = fused_spatial_stack_cuda_bwd(
+                x, weights, saved, g.contiguous(), ctx.num_heads)
         else:
             dx, dws = plain_backward(spatial_stack_reference, x, weights, g,
                                      ctx.num_heads)
-        return (dx, None, *dws)
+        return (dx, None, None, *dws)
 
 
 def fused_spatial_stack(x: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -210,5 +312,7 @@ def fused_spatial_stack(x: torch.Tensor, weights: Sequence[torch.Tensor],
     """depth x pre-norm block + final LayerNorm on (N, J, E) float32 token
     rows, fused; ``weights`` as the module docstring says. Differentiable
     in x and every weight."""
-    return FusedSpatialStack.apply(x.contiguous(), num_heads,
+    keep = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, *weights))
+    return FusedSpatialStack.apply(x.contiguous(), num_heads, keep,
                                    *(w.contiguous() for w in weights))

@@ -14,11 +14,14 @@ statistics, four GEMMs with fused LayerNorm / GELU / residual, attention),
 described in the source; ``fused_temporal_block_cuda.launches`` counts entry
 calls, one per transformer block. The backward entry replaces the two
 halves of ``_bwd_impl_slab_tl`` and ``_bwd_impl_slab`` (1,637.6 GFLOP a
-block at B=1024, L=16, a 24.44 ms bound); ``fused_temporal_block_cuda_bwd
-.launches`` counts its calls. When a gradient is needed the forward keeps
-its scratch (row statistics, qkv, attention output, x2, the hidden before
-and after GELU) for it; serving keeps nothing and allocates no pre-GELU
-buffer.
+block at B=1024, L=16): a fixed sequence of 13 launches whose products run
+as 3xTF32 in the tensor cores (a 9.92 ms bound at that rate), described in
+the source; ``fused_temporal_block_cuda_bwd.launches`` counts its calls.
+When a gradient is needed the forward keeps its scratch (row statistics,
+qkv, attention output, x2, the hidden before and after GELU) for it;
+serving keeps nothing and allocates no pre-GELU buffer. Windows of up to
+81 tokens (PoseFormer's published receptive fields 27 and 81): attention
+sizes its shared memory per call, mirrored here (``check_limits``).
 
 The wrappers launch the kernels for CUDA tensors and run the plain version
 (and autograd of it) for CPU tensors; there is no fallback from one to the
@@ -43,13 +46,22 @@ _SIGNATURES = {
     "pv2c_fused_temporal_block":
         [_PTR] * 20 + [_INT] * 5 + [ctypes.c_float, _PTR],
     "pv2c_fused_temporal_block_bwd":
-        [_PTR] * 27 + [_INT] * 5 + [ctypes.c_float, _PTR],
+        [_PTR] * 29 + [_INT] * 5 + [ctypes.c_float, _PTR],
     "pv2c_temporal_block_bwd_part_floats": [_INT] * 4,
 }
 
-#: the kernels' compiled limits (csrc/fused_temporal_transformer.cu)
-MAX_TOKENS = 16
+#: the kernels' compiled limits (csrc/fused_temporal_transformer.cu), and
+#: the shared memory one thread block may use on an H100 (sm_90)
+MAX_TOKENS = 81
 MAX_HEAD_WIDTH = 128
+MAX_SMEM_BYTES = 232448
+
+
+def attention_smem_bytes(T: int, head_width: int) -> int:
+    """Dynamic shared memory of one thread block (a window and a head) of
+    the attention backward, the larger of the two attention launches: q, k,
+    v and do of T x head_width, the T x T probabilities and ds."""
+    return 4 * (4 * T * head_width + 2 * T * T)
 
 
 def check_block(x: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -76,14 +88,25 @@ def temporal_block_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return block_reference(x, weights, num_heads)
 
 
-def _check_limits(x, tensors, num_heads, hidden) -> None:
-    T, D = x.shape[1:]
-    if T > MAX_TOKENS or D // num_heads > MAX_HEAD_WIDTH or D % 8 \
-            or hidden % 8:
+def check_limits(T: int, D: int, num_heads: int, hidden: int) -> None:
+    """The kernels' limits on a block's shape; raises ValueError for one
+    they do not take."""
+    hd = D // num_heads
+    if T > MAX_TOKENS or hd > MAX_HEAD_WIDTH or D % 8 or hidden % 8:
         raise ValueError(
             f"the temporal kernel takes T <= {MAX_TOKENS}, head width <= "
             f"{MAX_HEAD_WIDTH} and widths that are multiples of 8; got T={T}, "
             f"D={D}, {num_heads} heads, hidden {hidden}")
+    smem = attention_smem_bytes(T, hd)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"T={T} at head width {hd} needs {smem} bytes of "
+                         f"shared memory for the attention backward, more "
+                         f"than {MAX_SMEM_BYTES}")
+
+
+def _check_limits(x, tensors, num_heads, hidden) -> None:
+    T, D = x.shape[1:]
+    check_limits(T, D, num_heads, hidden)
     if any(t.data_ptr() % 16 for t in (x, *tensors)):
         raise ValueError("the temporal kernel needs 16-byte aligned tensors")
 
@@ -163,7 +186,7 @@ def fused_temporal_block_cuda_bwd(x: torch.Tensor,
     empty = functools.partial(torch.empty, dtype=torch.float32, device=device)
     dx, flat = torch.empty_like(x), empty(sum(sizes))
     scratch = (empty((M, hidden)), empty((M, D)), empty((M, D)),
-               empty((M, 3 * D)))
+               empty((M, 3 * D)), empty((M, D)), empty((M, D)))
     lib = _library()
     with torch.cuda.device(device):
         floats = lib.pv2c_temporal_block_bwd_part_floats(N, T, D, hidden)

@@ -178,8 +178,9 @@ def test_temporal_stack_grads_match_jax():
 
 def test_backward_wrappers_never_run_on_the_cpu():
     x, weights, g, _, _ = _spatial_grad_case(5)
+    saved = [torch.zeros(s) for s in FS.saved_shapes(DEPTH, 5 * J, E, 2 * E)]
     with pytest.raises(ValueError, match="CUDA"):
-        FS.fused_spatial_stack_cuda_bwd(_t(x), weights, _t(g), H_S)
+        FS.fused_spatial_stack_cuda_bwd(_t(x), weights, saved, _t(g), H_S)
     xt, gt, blocks = _temporal_weights()
     M = N_T * T
     saved = [torch.zeros(s) for s in ((4 * M,), (M, 3 * D), (M, D), (M, D),
@@ -403,8 +404,9 @@ def test_cuda_spatial_backward_matches_plain(rng, cuda_device, n):
                _to_port(_block_weights(rng, 32, lead=(4,)))] + [
         cuda((1 + 0.2 * rng.standard_normal(32)).astype(np.float32)),
         cuda((0.2 * rng.standard_normal(32)).astype(np.float32))]
-    dx, dws = FS.fused_spatial_stack_cuda_bwd(x, weights, g, 8)
-    again = FS.fused_spatial_stack_cuda_bwd(x, weights, g, 8)
+    _, saved = FS.fused_spatial_stack_cuda(x, weights, 8, keep=True)
+    dx, dws = FS.fused_spatial_stack_cuda_bwd(x, weights, saved, g, 8)
+    again = FS.fused_spatial_stack_cuda_bwd(x, weights, saved, g, 8)
     ref = _port_grads(lambda x, w: FS.spatial_stack_reference(x, w, 8),
                       x, weights, g)
     torch.cuda.synchronize()
