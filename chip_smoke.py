@@ -117,13 +117,16 @@ Phases, each printing one JSON line:
                      scan kernels against their plain versions on seeded
                      inputs: B in {256, 253, 5} at L=16, J=26, H=128, k=2;
                      k=1; k=3 with H=3; L=1; the dense form (J=1, H=64, no
-                     graph matrices). Bar: max |kernel - plain| <= 1e-5.
+                     graph matrices); the GRU's training forward (keep) too,
+                     its outputs and residuals against the plain forward
+                     with residuals. Bar: max |kernel - plain| <= 1e-5.
  17. kernel_graph_gru_bwd, kernel_graph_lstm_bwd -- their backward kernels
                      against autograd of the plain versions with seeded
-                     cotangents (the LSTM with and without the cell states'
-                     cotangent): each gradient over its largest magnitude
-                     within rtol 1e-4 / atol 1e-5; two launches give the
-                     same bits.
+                     cotangents (the GRU's from the residuals of its
+                     training forward kernel; the LSTM with and without the
+                     cell states' cotangent): each gradient over its
+                     largest magnitude within rtol 1e-4 / atol 1e-5; two
+                     launches give the same bits.
  18. train_classification -- Trainer.fit of ClassificationFlow(GConvGRU())
                      (H=128, k=2, dropout 0.2, graph_kernel="auto"), AdamW lr
                      1e-3, Carla2D3D B=256, L=16: 20 steps and 2 validation
@@ -140,13 +143,20 @@ Phases, each printing one JSON line:
                      within 1e-5.
  20. timing_classification -- CUDA-event medians (L2 cold and warm) of the
                      four scan kernels at the main path's shape (and the LSTM
-                     pair at the dense form), their plain versions, each
-                     kernel's bound from ops/flops.py; torch.nn.LSTM (cuDNN)
-                     as the dense form's library yardstick, first held to
-                     the plain version; host-clock medians of a
+                     pair at the dense form; the GRU's training forward;
+                     rows 10 and 11 beside their earlier design's times),
+                     their plain versions, each kernel's bound from
+                     ops/flops.py (the GRU's at the 3xTF32 rate and the
+                     fp32 peak); torch.nn.LSTM (cuDNN) as the dense form's
+                     library yardstick, first held to the plain version;
+                     host-clock medians of a
                      training_step and an eval_step; a CUDA-event split of
                      the step (input convolutions, scans forward, scans
                      backward, AdamW, the rest).
+     profile_classification_train -- a torch.profiler trace of 3 such
+                     steps: device busy share, top device operations, the
+                     shares of rows 10 and 11, row 11 split into its reverse
+                     scan and its weight-gradient products.
 Then the card line, the kernels line, and the contract line last. Any
 failure raises and ends the run with a non-zero exit.
 """
@@ -216,6 +226,15 @@ GRAPH_SHAPES = (CLS_MAIN, (253, CLIP, CLS_J, CLS_H, CLS_K),
                 (5, CLIP, CLS_J, CLS_H, CLS_K), (CLS_BATCH, CLIP, CLS_J, CLS_H, 1),
                 (CLS_BATCH, CLIP, CLS_J, 3, 3), (CLS_BATCH, 1, CLS_J, CLS_H, CLS_K),
                 CLS_DENSE)
+#: the GRU kernels past the main path's widths (GRU only: the LSTM kernels
+#: keep their own, narrower range): hidden 256 at k=2 and 128 at k=3 (one
+#: clip a thread block), hidden 320 (the reverse scan on the 128-column
+#: weight ring); hidden 448 for the forward alone (its 128-column ring; the
+#: reverse scan does not fit there)
+GRU_WIDE_SHAPES = ((CLS_BATCH, CLIP, CLS_J, 256, 2),
+                   (CLS_BATCH, CLIP, CLS_J, 128, 3), (64, CLIP, CLS_J, 320, 2))
+GRU_WIDE_FORWARD_SHAPES = ((32, CLIP, CLS_J, 448, 2),)
+GRU_RINGS = {128, 256}
 SCAN_BAR = 1e-5
 #: H100 memory rates (NVIDIA data sheets), bytes/s, and the float32 (non
 #: tensor-core) peak of the SXM part, FLOP/s
@@ -1268,10 +1287,11 @@ def phase_timing_poseformer(flow, params, batches, card, hbm_rate):
                    "bound_by": t["bound_by"]} for name, t in times.items()}
 
 
-def check_grads(phase, what, n, names, got, again, ref):
+def check_grads(phase, what, n, names, got, again, ref, **extra):
     """Each gradient against autograd of the plain version (over its
     largest magnitude: rtol 1e-4, atol 1e-5) and a second launch's bits;
-    emits the worst and returns the largest absolute error."""
+    emits the worst (with ``extra``) and returns the largest absolute
+    error."""
     torch.cuda.synchronize()
     scaled, errs, bad = {}, {}, []
     for name, a, r in zip(names, got, ref):
@@ -1284,7 +1304,7 @@ def check_grads(phase, what, n, names, got, again, ref):
           "max_scaled_err": max(scaled.values()),
           "worst": max(scaled, key=scaled.get),
           "max_abs_err": max(errs.values()), "scaled_err": scaled,
-          "same_bits_twice": same})
+          "same_bits_twice": same, **extra})
     if bad or not same:
         raise AssertionError(
             f"{what} backward at N={n}: {bad} outside rtol {GRAD_RTOL} / "
@@ -1768,23 +1788,22 @@ ROW9_KERNELS = ("gemm_bwd_kernel", "ln_apply_kernel", "ln_bwd_rows_kernel",
                 "attention_bwd_kernel", "reduce_segments_kernel")
 
 
-def phase_profile_poseformer_train(dm, card):
-    """A torch.profiler trace of PROFILE_STEPS PoseFormer training_steps at
-    B=1024, L=16: the device busy share of the traced window (the union of
+def profile_steps(step):
+    """A torch.profiler trace of PROFILE_STEPS calls of ``step`` after 2
+    warm-up calls: the traced window, the device busy share (the union of
     the device kernels' intervals over the window from the first to the
-    last event), the top device operations, and the share of rows 5 and 9."""
+    last event), the device time by operation name, and a function giving
+    the share of the window taken by the operations whose names hold any
+    of the given strings."""
     from torch.profiler import ProfilerActivity, profile
 
-    flow = make_pf_train_flow()
-    state = flow.init_state()
-    batch = next(dm.train_batches(SEED + 9))
     for _ in range(2):
-        flow.training_step(state, batch)
+        step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILE_STEPS):
-            flow.training_step(state, batch)
+            step()
         torch.cuda.synchronize()
     events = list(prof.events())
     device = [e for e in events
@@ -1808,25 +1827,34 @@ def phase_profile_poseformer_train(dm, card):
     for e in device:
         by_name[e.name] = by_name.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start)
-    total = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
 
     def share(names):
         return sum(v for k, v in by_name.items()
                    if any(n in k for n in names)) / max(window_us, 1e-9)
+    return {"steps": PROFILE_STEPS, "window_ms": window_us / 1e3,
+            "device_events": len(device),
+            "device_busy_share": busy / window_us if device else None,
+            "device_ms": sum(by_name.values()) / 1e3,
+            "top_device_ops_ms": [[k[:80], v / 1e3] for k, v in top],
+            "method": "torch.profiler (CPU and CUDA activities) around %d "
+                      "steps after 2 warm-up steps; busy share: union of the "
+                      "device events' intervals over the window from the "
+                      "first to the last event; row shares: their kernels' "
+                      "device time over that window" % PROFILE_STEPS}, share
+
+
+def phase_profile_poseformer_train(dm, card):
+    """A torch.profiler trace of PoseFormer training_steps at B=1024, L=16:
+    busy share, top device operations, the share of rows 5 and 9."""
+    flow = make_pf_train_flow()
+    state = flow.init_state()
+    batch = next(dm.train_batches(SEED + 9))
+    trace, share = profile_steps(lambda: flow.training_step(state, batch))
     emit({"phase": "profile_poseformer_train", "card": card, "B": BATCH,
-          "L": CLIP, "steps": PROFILE_STEPS, "window_ms": window_us / 1e3,
-          "device_events": len(device),
-          "device_busy_share": busy / window_us if device else None,
-          "device_ms": total / 1e3,
-          "top_device_ops_ms": [[k[:80], v / 1e3] for k, v in top],
+          "L": CLIP, **trace,
           "row5_spatial_bwd_share": share(ROW5_KERNELS),
-          "row9_temporal_bwd_share": share(ROW9_KERNELS),
-          "method": "torch.profiler (CPU and CUDA activities) around %d "
-                    "training_steps after 2 warm-up steps; busy share: union "
-                    "of the device events' intervals over the window from "
-                    "the first to the last event; row shares: their kernels' "
-                    "device time over that window" % PROFILE_STEPS})
+          "row9_temporal_bwd_share": share(ROW9_KERNELS)})
 
 
 def graph_case(rng, cell, shape):
@@ -1863,43 +1891,87 @@ def scan_functions(cell):
     return FG.graph_lstm_scan_cuda_fwd, FG.graph_lstm_scan_reference
 
 
+def gru_plan(shape, backward, rings):
+    """The GRU kernel's launch plan at ``shape`` (clips a thread block,
+    weight ring width, shared memory bytes); its ring width goes into
+    ``rings``."""
+    from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
+
+    B, _, J, H, k = shape
+    plan = FG.graph_gru_plan(B, J, H, k, backward)
+    rings.add(plan[1])
+    return {"plan_clips_ring_smem": plan}
+
+
+def check_gru_rings(phase, rings):
+    if rings != GRU_RINGS:
+        raise AssertionError(f"{phase} ran the weight rings {sorted(rings)}, "
+                             f"expected {sorted(GRU_RINGS)}")
+
+
 def phase_kernel_graph(cell):
+    """The forward kernels against their plain versions at every
+    GRAPH_SHAPES entry; for the GRU also at wider shapes (both weight ring
+    widths), and the training forward (``keep``): its outputs and its
+    residuals against the plain forward with residuals."""
+    from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
+
     rng = np.random.default_rng(SEED + (9 if cell == "gru" else 10))
     kernel, plain = scan_functions(cell)
-    worst = 0.0
-    for shape in GRAPH_SHAPES:
+    worst, rings = 0.0, set()
+    shapes = GRAPH_SHAPES + (GRU_WIDE_SHAPES + GRU_WIDE_FORWARD_SHAPES
+                             if cell == "gru" else ())
+    for shape in shapes:
         xg, cheb, weights, _ = graph_case(rng, cell, shape)
         with torch.no_grad():
             outs = kernel(xg, cheb, *weights)
             refs = plain(xg, cheb, *weights)
+            if cell == "gru":
+                ys, res = FG.graph_gru_scan_cuda_fwd(xg, cheb, *weights,
+                                                     keep=True)
+                ref_ys, ref_res = FG.graph_gru_scan_keep_reference(
+                    xg, cheb, *weights)
+                outs, refs = (*outs, ys, *res), (*refs, ref_ys, *ref_res)
         torch.cuda.synchronize()
-        err = max(float((o - r).abs().max()) for o, r in zip(outs, refs))
+        errs = [float((o - r).abs().max()) for o, r in zip(outs, refs)]
+        err = max(errs)
         finite = all(bool(torch.isfinite(o).all()) for o in outs)
         emit({"phase": f"kernel_graph_{cell}", "B_L_J_H_k": shape,
-              "max_abs_err": err, "finite": finite})
+              "max_abs_err": err, "finite": finite,
+              **({"keep_ys_gates_sa_sb_err": errs[1:],
+                  **gru_plan(shape, False, rings)} if cell == "gru"
+                 else {})})
         if not (err <= SCAN_BAR and finite):
             raise AssertionError(f"graph-{cell} scan kernel disagrees with "
-                                 f"its plain version at {shape}: {err}")
+                                 f"its plain version at {shape}: {errs}")
         worst = max(worst, err)
+    if cell == "gru":
+        check_gru_rings("kernel_graph_gru", rings)
     return worst
 
 
 def phase_kernel_graph_bwd(cell):
+    """The backward kernels against autograd of the plain versions; the
+    GRU's from the residuals of its training forward kernel."""
     from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
 
     rng = np.random.default_rng(SEED + (11 if cell == "gru" else 12))
     _, plain = scan_functions(cell)
-    worst = 0.0
-    for shape in GRAPH_SHAPES:
+    worst, rings = 0.0, set()
+    for shape in GRAPH_SHAPES + (GRU_WIDE_SHAPES if cell == "gru" else ()):
         xg, cheb, weights, cots = graph_case(rng, cell, shape)
         with torch.no_grad():
-            outs = plain(xg, cheb, *weights)
+            if cell == "gru":
+                _, res = FG.graph_gru_scan_cuda_fwd(xg, cheb, *weights,
+                                                    keep=True)
+            else:
+                outs = plain(xg, cheb, *weights)
         # the LSTM with the cell states' cotangent, and without
         for used in ((1,) if cell == "gru" else (2, 1)):
             def launch():
                 if cell == "gru":
-                    return FG.graph_gru_scan_cuda_bwd(xg, cheb, *weights,
-                                                      outs[0], cots[0])
+                    return FG.graph_gru_scan_cuda_bwd(cheb, *weights, res,
+                                                      cots[0])
                 return FG.graph_lstm_scan_cuda_bwd(
                     xg, cheb, *weights, *outs, cots[0],
                     cots[1] if used == 2 else None)
@@ -1911,7 +1983,10 @@ def phase_kernel_graph_bwd(cell):
                 " (ys and cs cotangents)" if used == 2 else "")
             worst = max(worst, check_grads(
                 f"kernel_graph_{cell}_bwd", what, list(shape), names, got,
-                again, ref))
+                again, ref, **(gru_plan(shape, True, rings)
+                               if cell == "gru" else {})))
+    if cell == "gru":
+        check_gru_rings("kernel_graph_gru_bwd", rings)
     return worst
 
 
@@ -2099,27 +2174,50 @@ def phase_serve_classification(dm):
     return counts["graph_gru_scan"]
 
 
-def scan_bound(cell, shape, hbm_rate, backward=False, with_dcs=False):
+def scan_bound(cell, shape, hbm_rate, backward=False, with_dcs=False,
+               keep=False):
+    """The scan's bound from ops/flops.py at the fp32 peak; the GRU's,
+    whose products run in 3xTF32, also at that rate (``bound_ms_3xtf32``,
+    which the kernels line takes)."""
     from pedestrians_video_2_carla_torch.ops import flops as F
 
     B, L, J, H, k = shape
     nflop = F.graph_scan_flops(cell, B, L, J, H, k, backward)
-    nbytes = F.graph_scan_bytes(cell, B, L, J, H, k, backward, with_dcs)
+    nbytes = F.graph_scan_bytes(cell, B, L, J, H, k, backward, with_dcs, keep)
     t_bytes, t_flop = nbytes / hbm_rate, nflop / FP32_PEAK
-    return {"bytes": nbytes, "flop": nflop,
-            "bound_ms": max(t_bytes, t_flop) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_flop else "operations"}
+    out = {"bytes": nbytes, "flop": nflop,
+           "bound_ms": max(t_bytes, t_flop) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_flop else "operations"}
+    if cell == "gru":
+        t_tc = nflop / TF32X3_PEAK
+        out.update(bound_ms_fp32_peak=out["bound_ms"],
+                   bound_ms_3xtf32=max(t_bytes, t_tc) * 1e3,
+                   bound_ms=max(t_bytes, t_tc) * 1e3,
+                   bound_by="bytes" if t_bytes >= t_tc else "operations")
+    return out
+
+
+#: rows 10 and 11 at CLS_MAIN as recorded for their earlier design (fp32 on
+#: the CUDA cores, a backward that recomputed the forward; NVIDIA H100 80GB
+#: HBM3 at 700 W, cold L2; PERF.md): not measured by this script, so they go
+#: on the timing_classification line beside this run's times, never on the
+#: kernels line
+GRU_RECORDED_MS = {"fwd": 2.217, "bwd": 5.562}
 
 
 def time_scan(cell, shape, flush, hbm_rate, rng):
     """CUDA-event medians of one cell's forward and backward kernels at
-    ``shape``, of the plain version and autograd of it, and the bounds."""
+    ``shape`` (the GRU's training forward too, and its backward from that
+    forward's residuals), of the plain version and autograd of it, and the
+    bounds."""
     from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
 
     kernel, plain = scan_functions(cell)
     xg, cheb, weights, cots = graph_case(rng, cell, shape)
     with torch.no_grad():
         outs = kernel(xg, cheb, *weights)
+        if cell == "gru":
+            _, res = FG.graph_gru_scan_cuda_fwd(xg, cheb, *weights, keep=True)
     leaves = [t.detach().clone().requires_grad_(True) for t in (xg, *weights)]
     graph = plain(leaves[0], cheb, *leaves[1:])
 
@@ -2127,9 +2225,12 @@ def time_scan(cell, shape, flush, hbm_rate, rng):
         with torch.no_grad():
             kernel(xg, cheb, *weights)
 
+    def fwd_keep():
+        FG.graph_gru_scan_cuda_fwd(xg, cheb, *weights, keep=True)
+
     def bwd():
         if cell == "gru":
-            FG.graph_gru_scan_cuda_bwd(xg, cheb, *weights, outs[0], cots[0])
+            FG.graph_gru_scan_cuda_bwd(cheb, *weights, res, cots[0])
         else:
             FG.graph_lstm_scan_cuda_bwd(xg, cheb, *weights, *outs, *cots)
 
@@ -2140,7 +2241,7 @@ def time_scan(cell, shape, flush, hbm_rate, rng):
     def plain_bwd():
         torch.autograd.grad(graph, leaves, cots, retain_graph=True)
     with_dcs = cell == "lstm"
-    return {
+    out = {
         "fwd": {"ms_cold_l2": cuda_median_ms(fwd, flush=flush),
                 "ms_warm_l2": cuda_median_ms(fwd),
                 "plain_ms": cuda_median_ms(plain_fwd),
@@ -2149,6 +2250,14 @@ def time_scan(cell, shape, flush, hbm_rate, rng):
                 "ms_warm_l2": cuda_median_ms(bwd),
                 "plain_ms": cuda_median_ms(plain_bwd),
                 **scan_bound(cell, shape, hbm_rate, True, with_dcs)}}
+    if cell == "gru":
+        out["fwd_keep"] = {"ms_cold_l2": cuda_median_ms(fwd_keep, flush=flush),
+                           "ms_warm_l2": cuda_median_ms(fwd_keep),
+                           **scan_bound(cell, shape, hbm_rate, keep=True)}
+        if tuple(shape) == CLS_MAIN:
+            for key, was in GRU_RECORDED_MS.items():
+                out[key]["earlier_design_recorded_ms"] = was
+    return out
 
 
 def time_library_lstm(flush, rng):
@@ -2289,9 +2398,15 @@ def phase_timing_classification(dm, card, hbm_rate):
         return {"ms": t["ms_cold_l2"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": library_ms, **extra}
-    graph = times["lstm"]
-    return {"gru_fwd": entry(times["gru"]["fwd"]),
-            "gru_bwd": entry(times["gru"]["bwd"]),
+    graph, gru = times["lstm"], times["gru"]
+    return {"gru_fwd": entry(gru["fwd"],
+                             bound_ms_fp32_peak=gru["fwd"][
+                                 "bound_ms_fp32_peak"],
+                             keep_ms=gru["fwd_keep"]["ms_cold_l2"],
+                             keep_bound_ms=gru["fwd_keep"]["bound_ms"]),
+            "gru_bwd": entry(gru["bwd"],
+                             bound_ms_fp32_peak=gru["bwd"][
+                                 "bound_ms_fp32_peak"]),
             # the LSTM pair at the dense form, where a library call exists;
             # the graph form (GConvLSTM's layer) beside it
             "lstm_fwd": entry(times["lstm_dense"]["fwd"], library["fwd_ms"],
@@ -2302,6 +2417,29 @@ def phase_timing_classification(dm, card, hbm_rate):
                               shape_B_L_J_H_k=CLS_DENSE,
                               graph_form_ms=graph["bwd"]["ms_cold_l2"],
                               graph_form_bound_ms=graph["bwd"]["bound_ms"])}
+
+
+#: the device kernels of rows 10 and 11 (names as the profiler shows them);
+#: row 11 split into its reverse scan and its weight-gradient products
+ROW10_KERNELS = ("gru_scan_fwd",)
+ROW11_SCAN_KERNELS = ("gru_scan_bwd",)
+ROW11_DW_KERNELS = ("gru_dw", "reduce_two")
+
+
+def phase_profile_classification_train(dm, card):
+    """A torch.profiler trace of GConvGRU training_steps at B=256, L=16:
+    busy share, top device operations, the share of rows 10 and 11, and
+    row 11 split into its reverse scan and its dW products."""
+    flow = make_cls_flow()
+    state = flow.init_state()
+    batch = next(dm.train_batches(SEED + 7))
+    trace, share = profile_steps(lambda: flow.training_step(state, batch))
+    emit({"phase": "profile_classification_train", "card": card,
+          "B_L_J_H_k": CLS_MAIN, **trace,
+          "row10_scan_fwd_share": share(ROW10_KERNELS),
+          "row11_scan_bwd_share": share(ROW11_SCAN_KERNELS + ROW11_DW_KERNELS),
+          "row11_reverse_scan_share": share(ROW11_SCAN_KERNELS),
+          "row11_dw_share": share(ROW11_DW_KERNELS)})
 
 
 def kernel_entry(name, source, replaces, launches, max_err, times):
@@ -2315,7 +2453,7 @@ def kernel_entry(name, source, replaces, launches, max_err, times):
             "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
             "library_ms": times.get("library_ms"),
             **{k: v for k, v in times.items() if k.startswith(
-                ("shape_", "graph_form_"))}}
+                ("shape_", "graph_form_", "keep_", "bound_ms_"))}}
 
 
 def group_lifting(card, hbm_rate):
@@ -2405,6 +2543,7 @@ def group_classification(card, hbm_rate):
     counts = phase_train_classification(dm)
     phase_serve_classification(dm)
     times = phase_timing_classification(dm, card, hbm_rate)
+    phase_profile_classification_train(dm, card)
     names = {"gru_fwd": ("graph_gru_scan", 251),
              "gru_bwd": ("graph_gru_scan_bwd", 291),
              "lstm_fwd": ("graph_lstm_scan", 442),

@@ -14,38 +14,52 @@
 //         h' = z h + (1 - z) h~
 //   LSTM  a = xg + [h | T_1 h | ..] W;  i, f, o = sigmoid, g = tanh
 //         c' = f c + i g;  h' = o tanh(c')
-// The weights arrive "stacked": (k H, G H) with rows (n, unit), so that the
-// graph is applied to the H-wide carry first and one product follows (the
-// same sum as the TPU kernel's sum_n T_n (h W_n), at half the graph work).
+// The graph is applied to the H-wide carry first and one product follows
+// (the same sum as the TPU kernel's sum_n T_n (h W_n), at half the graph
+// work): the LSTM's weights arrive "stacked", (k H, G H) with rows (n,
+// unit); the GRU reads the caller's (H, k G H) weights in place (see "The
+// operand's column order").
 //
-// What bounds it on an H100: operations. At B=256, L=16, J=26, H=128, k=2 a
-// GRU layer's forward is 22.3 GFLOP (0.33 ms at the fp32 peak) against 0.22
-// GB of traffic (0.07 ms). The recurrence is sequential over frames and
-// independent across clips, so a thread block owns a few clips (2 at that
-// shape: 52 rows, 128 thread blocks for 132 SMs), keeps their carry in shared
-// memory and loops over all frames inside one launch: no launch and no trip
-// of the carry through device memory per frame. The weights (up to 512 KB)
-// do not fit beside the activations; they stream from L2 in 16-row tiles,
-// prefetched into registers while the previous tile is multiplied. A thread
-// owns a 4-row x 8-column tile of each product; with several gates in one
-// product its 8 columns are the gates of the same units, so the gating runs
-// on the accumulators without an exchange. The ragged last thread block
-// (B not a multiple of the clips per block) masks its rows.
+// What bounds them on an H100: operations. At B=256, L=16, J=26, H=128, k=2
+// a GRU layer's forward is 22.4 GFLOP (0.33 ms at the fp32 peak, 0.14 ms at
+// the 3xTF32 rate) against 0.22 GB of traffic (0.07 ms). The recurrence is
+// sequential over frames and independent across clips, so a thread block
+// owns a few clips (2 at that shape: 52 rows, 128 thread blocks for 132
+// SMs), keeps their carry in shared memory and loops over all frames inside
+// one launch: no launch and no trip of the carry through device memory per
+// frame. The weights (up to 512 KB) do not fit beside the activations; they
+// stream from L2.
 //
-// The backward walks the frames in reverse with dh (and dc) in shared memory,
-// recomputes the gates from ys[t-1] (and cs), writes dxg, and carries dh
-// through P = da W^T, dh += P_0 + sum_n T_n^T P_n. The weight gradients sum
-// over all L B J rows: the scan writes each frame's expanded operand
-// [h | T_n h] to device memory, and a split-K product dW = S^T dxg follows
-// (128 x 128 tiles, the row range cut into slices, each slice summed by one
-// thread block, the slices then summed in a fixed order by a second launch).
-// No float atomics anywhere: the same bits on every launch.
+// The GRU (rows 10 and 11; see "The GRU scans on the tensor cores" below)
+// runs its products on the tensor cores in 3xTF32, 16 warps a thread block,
+// the weight tiles through a cp.async ring; its training forward keeps the
+// gates and the expanded operands, so that its backward runs two products a
+// frame instead of four, and its weight gradients are one 3xTF32 split-K
+// launch and one fixed-order sum.
 //
-// Numerics: 1 / (1 + expf(-x)), tanhf, fmaf sums, no fast math.
+// The LSTM (rows 12 and 13) runs on the CUDA cores: 256 threads, each a
+// 4-row x 8-column tile of a product, the weight tiles (16 rows) prefetched
+// into registers while the previous tile is multiplied; with several gates
+// in one product a thread's 8 columns are the gates of the same units, so
+// the gating runs on the accumulators without an exchange. Its backward
+// walks the frames in reverse with dh and dc in shared memory, recomputes
+// the gates from ys[t-1] and cs, writes dxg, and carries dh through P = da
+// W^T, dh = P_0 + sum_n T_n^T P_n; the scan writes each frame's expanded
+// operand [h | T_n h], and a split-K product dW = S^T dxg follows (128 x 128
+// tiles, the slices summed in a fixed order by a second launch).
+//
+// The ragged last thread block (B not a multiple of the clips per block)
+// masks its rows. No float atomics anywhere: the same bits on every launch.
+//
+// Numerics: 1 / (1 + expf(-x)), tanhf, fmaf sums, no fast math; the GRU's
+// products in 3xTF32 (fp32 accuracy, mma_tf32.cuh).
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <algorithm>
+#include <cstdint>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -254,137 +268,6 @@ __device__ __forceinline__ void fill_operand(const Block& b, int J, int H,
 }
 
 __global__ void __launch_bounds__(kThreads)
-gru_scan_fwd_kernel(const float* __restrict__ xg,
-                    const float* __restrict__ cheb,
-                    const float* __restrict__ wzr,
-                    const float* __restrict__ wh, float* __restrict__ ys,
-                    int L, int B, int J, int H, int k, int C) {
-  extern __shared__ __align__(16) float smem[];
-  const Block b = block_setup(smem, cheb, B, J, H, k, C);
-  const int R = b.R, KH = b.KH, RH = C * J * H;
-  float* hb = b.rest;    // the carry
-  float* zb = hb + RH;   // z
-  float* rhb = zb + RH;  // r h
-  for (int i = threadIdx.x; i < R * H; i += kThreads) hb[i] = 0.f;
-  __syncthreads();
-  for (int t = 0; t < L; ++t) {
-    const size_t at = static_cast<size_t>(t) * b.rows + b.row0;
-    const float* x = xg + at * 3 * H;
-    float* y = ys + at * H;
-    fill_operand(b, J, H, k, hb, nullptr, nullptr);
-    block_gemm<2>(
-        b.S, KH, R, KH, wzr, 2 * H, H, H, b.wt,
-        [&](int row, int u, float* v) {
-          v[0] = x[row * 3 * H + u];
-          v[1] = x[row * 3 * H + H + u];
-        },
-        [&](int row, int u, const float* v) {
-          zb[row * H + u] = sigmoid(v[0]);
-          rhb[row * H + u] = sigmoid(v[1]) * hb[row * H + u];
-        });
-    __syncthreads();
-    fill_operand(b, J, H, k, rhb, nullptr, nullptr);
-    block_gemm<1>(
-        b.S, KH, R, KH, wh, H, 0, H, b.wt,
-        [&](int row, int u, float* v) { v[0] = x[row * 3 * H + 2 * H + u]; },
-        [&](int row, int u, const float* v) {
-          const float ht = tanhf(v[0]), z = zb[row * H + u];
-          const float hn = z * hb[row * H + u] + (1.f - z) * ht;
-          hb[row * H + u] = hn;
-          y[row * H + u] = hn;
-        });
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-gru_scan_bwd_kernel(const float* __restrict__ xg,
-                    const float* __restrict__ cheb,
-                    const float* __restrict__ wzr,
-                    const float* __restrict__ wh,
-                    const float* __restrict__ wzr_t,
-                    const float* __restrict__ wh_t,
-                    const float* __restrict__ ys,
-                    const float* __restrict__ dys, float* __restrict__ dxg,
-                    float* __restrict__ sa, float* __restrict__ sb, int L,
-                    int B, int J, int H, int k, int C) {
-  extern __shared__ __align__(16) float smem[];
-  const Block b = block_setup(smem, cheb, B, J, H, k, C);
-  const int R = b.R, KH = b.KH, RH = C * J * H;
-  float* da = b.rest;     // (R, 2H): da_z | z, later da_r
-  float* rb = da + 2 * RH;  // r
-  float* dahb = rb + RH;  // da_h
-  float* dhb = dahb + RH;  // the dh carry
-  for (int i = threadIdx.x; i < R * H; i += kThreads) dhb[i] = 0.f;
-  __syncthreads();
-  for (int t = L - 1; t >= 0; --t) {
-    const size_t at = static_cast<size_t>(t) * b.rows + b.row0;
-    const float* x = xg + at * 3 * H;
-    float* dx = dxg + at * 3 * H;
-    const float* dy = dys + at * H;
-    // frame 0's previous hidden state is the zero start, not ys[-1]
-    const float* hp = t > 0 ? ys + (at - b.rows) * H : nullptr;
-    fill_operand(b, J, H, k, hp, nullptr, sa + at * KH);
-    block_gemm<2>(
-        b.S, KH, R, KH, wzr, 2 * H, H, H, b.wt,
-        [&](int row, int u, float* v) {
-          v[0] = x[row * 3 * H + u];
-          v[1] = x[row * 3 * H + H + u];
-        },
-        [&](int row, int u, const float* v) {
-          da[row * 2 * H + H + u] = sigmoid(v[0]);
-          rb[row * H + u] = sigmoid(v[1]);
-        });
-    __syncthreads();
-    fill_operand(b, J, H, k, hp, rb, sb + at * KH);
-    block_gemm<1>(
-        b.S, KH, R, KH, wh, H, 0, H, b.wt,
-        [&](int row, int u, float* v) { v[0] = x[row * 3 * H + 2 * H + u]; },
-        [&](int row, int u, const float* v) {
-          const int at_u = row * H + u;
-          const float ht = tanhf(v[0]), z = da[row * 2 * H + H + u];
-          const float h_prev = hp ? hp[at_u] : 0.f;
-          const float dh = dy[at_u] + dhb[at_u];
-          const float da_z = dh * (h_prev - ht) * z * (1.f - z);
-          const float da_h = dh * (1.f - z) * (1.f - ht * ht);
-          da[row * 2 * H + u] = da_z;
-          dahb[at_u] = da_h;
-          dhb[at_u] = dh * z;
-          dx[row * 3 * H + u] = da_z;
-          dx[row * 3 * H + 2 * H + u] = da_h;
-        });
-    __syncthreads();
-    // P = da_h Wh^T into S; d(r h) = P_0 + sum_n T_n^T P_n
-    block_gemm<1>(
-        dahb, H, R, H, wh_t, KH, 0, KH, b.wt,
-        [&](int, int, float*) {},
-        [&](int row, int q, const float* v) { b.S[row * KH + q] = v[0]; });
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < R * H; idx += kThreads) {
-      const int row = idx / H, u = idx - row * H;
-      const float drh = gather_graph_t(b.S, KH, row, u, J, H, k, b.Tm);
-      const float r = rb[idx], h_prev = hp ? hp[idx] : 0.f;
-      const float da_r = drh * h_prev * r * (1.f - r);
-      da[row * 2 * H + H + u] = da_r;  // z is used up
-      dx[row * 3 * H + H + u] = da_r;
-      dhb[idx] += drh * r;
-    }
-    __syncthreads();
-    // P = [da_z | da_r] Wzr^T into S; dh += P_0 + sum_n T_n^T P_n
-    block_gemm<1>(
-        da, 2 * H, R, 2 * H, wzr_t, KH, 0, KH, b.wt,
-        [&](int, int, float*) {},
-        [&](int row, int q, const float* v) { b.S[row * KH + q] = v[0]; });
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < R * H; idx += kThreads) {
-      const int row = idx / H, u = idx - row * H;
-      dhb[idx] += gather_graph_t(b.S, KH, row, u, J, H, k, b.Tm);
-    }
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
 lstm_scan_fwd_kernel(const float* __restrict__ xg,
                      const float* __restrict__ cheb,
                      const float* __restrict__ w, float* __restrict__ ys,
@@ -582,6 +465,791 @@ __global__ void reduce_parts_kernel(const float* __restrict__ part, int splits,
   out[i] = sum;
 }
 
+// ---------------------------------------------------------------------------
+// The GRU scans on the tensor cores (rows 10 and 11).
+//
+// A thread block of 16 warps owns C clips (R = C J rows) and runs all L
+// frames of them in one launch, the carry in shared memory. Each
+// hidden-side product is a block product in 3xTF32 (mma_tf32.cuh): the A
+// operand (R rows, row stride its depth rounded up to 32, + 4, so that the
+// fragment reads meet 32 banks) in shared memory, read in tiles of 64 rows
+// (rows past R read row R - 1 and their sums are dropped); the weights read
+// straight from the caller's tensors (see "The operand's column order"),
+// streaming from L2 through a 2-stage cp.async ring of 32-deep tiles with
+// one barrier a tile, zeros past their edges; the outputs in 64 x NT tiles, each warp 32 x NT/8
+// of them as 2 x NT/64 mma tiles of 16 x 8. A tile's products are summed in
+// the tensor cores over its 32 rows, then added to the fp32 sums outside
+// them. The first tile of a product is put in flight as soon as the
+// previous product has left the ring, so its loads overlap the gating and
+// the graph products in between. The graph products (T_n applied to the
+// carry, and T_n^T to the cotangents in the backward) run on the tensor
+// cores too, as small block-diagonal products (graph_product).
+//
+// On an H100 the products are issue-bound, not tensor-core-bound (a frame
+// keeps most of its time with the mma instructions taken out): loading and
+// splitting the fragments and the sums outside the tensor cores set the
+// pace, so a k-step is 32 rows deep (one barrier and one exit from the
+// tensor cores per 32 rows). The ring's widest tile NT is 256 columns, or
+// 128 where a thread block's shared memory cannot hold one clip beside the
+// wider ring (large H or k).
+constexpr int kGThreads = 512;  // 16 warps: 2 along the rows, 8 along the columns
+constexpr int kGWarpsN = kGThreads / 64;  // warps along the columns
+constexpr int kGRows = 64;      // rows of a block tile
+constexpr int kGKT = 32;        // depth of a weight tile
+constexpr int kGStages = 2;     // the ring's depth
+constexpr int kGWide = 256;     // columns of the widest block tile
+constexpr int kGPad = 32;       // an operand's depth is read in steps of this
+
+__host__ __device__ inline int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+__host__ __device__ inline int kpad(int K) { return round_up(K, kGPad); }
+
+// The row stride of the backward's cotangent operand [da_z | da_r], whose
+// second half first holds da_h (read kpad(H) deep from column H).
+__host__ __device__ inline int bwd_da_ld(int H) {
+  const int wide = kpad(2 * H), shifted = H + kpad(H);
+  return round_up(wide > shifted ? wide : shifted, kGPad) + 4;
+}
+
+// The operand's column order. The expanded operand [h | T_1 h | ..] keeps
+// its columns unit-major: column i k + n is (T_n h)[:, i]. The caller's
+// hidden-side weight (H, k N), columns (n, gate, unit), read as a (k H, N)
+// row-major matrix, then has row i k + n = row i of W_n: the product's
+// weight as it lies in memory, nothing copied, padded or gathered, and the
+// weight gradients come out in the caller's layout too. The ring's loads put
+// zeros past the matrix's edges.
+
+// How a ring slot holds a weight tile, and where a product's column n at
+// depth d of the tile is:
+//   kByDepth:  32 rows of depth x NT columns, row stride NT + 8;
+//   kZR:       as kByDepth over wzr, whose product column 2u is
+//              z of unit u and 2u + 1 its r (the accumulator pair of a
+//              thread then holds both gates of one unit): the tile's z
+//              columns, then 4 floats on its r columns;
+//   kByColumn: NT columns x 32 of depth, row stride 36: the transposed
+//              weight of the backward, each column a run of a weight row.
+// Each layout's fragment reads meet 32 banks.
+enum TileLayout { kByDepth, kZR, kByColumn };
+
+template <int NT, int LAYOUT>
+__host__ __device__ constexpr int slot_at(int n, int d) {
+  if (LAYOUT == kByColumn) return n * (kGKT + 4) + d;
+  if (LAYOUT == kZR) return d * (NT + 8) + (n & 1) * (NT / 2 + 4) + (n >> 1);
+  return d * (NT + 8) + n;
+}
+
+// Floats of a ring slot: the forward's tiles are by depth, the backward's
+// by column.
+template <int NT>
+__host__ __device__ constexpr int fwd_slot() { return kGKT * (NT + 8); }
+template <int NT>
+__host__ __device__ constexpr int bwd_slot() { return NT * (kGKT + 4); }
+
+// Ring slot s % kGStages (slot floats each) <- the weight tile of step s of
+// a block product over W, K deep and N columns (row-major: K x N by depth,
+// N x K by column, kZR's N = 2H): ceil(K / 32) steps a column tile, column
+// tiles of NT, row tiles outermost (they reload the same tiles). vec:
+// 16-byte copies (H a multiple of 4, W 16-byte aligned), else 4-byte ones.
+template <int NT, int LAYOUT>
+__device__ __forceinline__ void load_step(float* ring, int slot, int s,
+                                          const float* __restrict__ W, int K,
+                                          int N, int ks, int ct, bool vec) {
+  const int k0 = (s % ks) * kGKT, n0 = ((s / ks) % ct) * NT;
+  float* dst = ring + (s % kGStages) * slot;
+  // the tile as runs of contiguous source floats
+  constexpr int kRuns = LAYOUT == kByColumn ? NT : kGKT;
+  constexpr int kLen = LAYOUT == kByColumn ? kGKT : NT;
+  constexpr int kLd = LAYOUT == kByColumn ? kGKT + 4 : NT + 8;
+  const int step = vec ? 4 : 1;
+  for (int e = threadIdx.x * step; e < kRuns * kLen; e += kGThreads * step) {
+    const int r = e / kLen, c = e - r * kLen;
+    size_t from;  // the source float
+    int at = c;   // the slot column
+    bool ok;
+    if (LAYOUT == kByColumn) {
+      ok = n0 + r < N && k0 + c < K;
+      from = static_cast<size_t>(n0 + r) * K + k0 + c;
+    } else if (LAYOUT == kZR) {
+      const int half = c >= NT / 2, u = n0 / 2 + c - half * (NT / 2);
+      ok = k0 + r < K && 2 * u < N;
+      from = static_cast<size_t>(k0 + r) * N + half * (N / 2) + u;
+      at = c + 4 * half;
+    } else {
+      ok = k0 + r < K && n0 + c < N;
+      from = static_cast<size_t>(k0 + r) * N + n0 + c;
+    }
+    float* d = dst + r * kLd + at;
+    const float* src = ok ? W + from : W;
+    if (vec)
+      cp_async16(d, src, ok);
+    else
+      cp_async4(d, src, ok);
+  }
+}
+
+__device__ __forceinline__ int row_tiles(int R) {
+  return (R + kGRows - 1) / kGRows;
+}
+
+// The first kGStages - 1 steps of a block product over W for R rows, in
+// flight. Every thread calls it, after a barrier that freed the ring.
+template <int NT, int LAYOUT>
+__device__ __forceinline__ void product_prologue(float* ring, int slot,
+                                                 const float* __restrict__ W,
+                                                 int K, int N, int R,
+                                                 bool vec) {
+  const int ks = (K + kGKT - 1) / kGKT, ct = (N + NT - 1) / NT;
+  const int total = row_tiles(R) * ct * ks;
+#pragma unroll
+  for (int s = 0; s < kGStages - 1; ++s) {
+    if (s < total) load_step<NT, LAYOUT>(ring, slot, s, W, K, N, ks, ct, vec);
+    cp_async_commit();
+  }
+}
+
+// init + A W for the block: A (R x K, row stride lda, finite up to column
+// kpad(K)) in shared memory, W (K x N) in device memory with its prologue
+// in flight. init(row, col, v0, v1) sets the starting values of columns col
+// and col + 1 (col even) of a row (its loads fly while the tile is
+// multiplied), epi(row, col, v0, v1) takes their sums; both for every row
+// of the row tiles and every column of the column tiles (they mask). epi
+// runs per tile while other warps may still multiply later tiles, so it
+// must not write A.
+template <int NT, int LAYOUT, class Init, class Epi>
+__device__ __forceinline__ void block_product(const float* A, int lda, int R,
+                                              const float* __restrict__ W,
+                                              int K, int N, float* ring,
+                                              int slot, bool vec, Init init,
+                                              Epi epi) {
+  constexpr int WN = NT / kGWarpsN;  // columns of a warp
+  constexpr int NJ = WN / 8;         // its mma tiles of 8 columns
+  constexpr int kDeep4 = slot_at<NT, LAYOUT>(0, 4);  // 4 deeper in the slot
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp / kGWarpsN) * 32, wn = (warp % kGWarpsN) * WN;
+  const int ks = (K + kGKT - 1) / kGKT, ct = (N + NT - 1) / NT;
+  const int total = row_tiles(R) * ct * ks;
+  float acc[2][NJ][4];
+  for (int s = 0; s < total; ++s) {
+    float part[2][NJ][4];  // this k-step's products, summed in the tensor cores
+    const int kstep = s % ks, tile = s / ks;
+    const int r0 = (tile / ct) * kGRows, n0 = (tile % ct) * NT;
+    if (kstep == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            init(r0 + wm + i * 16 + g + 8 * h, n0 + wn + j * 8 + 2 * t,
+                 acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+    }
+    cp_async_wait<kGStages - 2>();
+    __syncthreads();  // step s has landed; step s - 1's slot is free
+    if (s + kGStages - 1 < total)
+      load_step<NT, LAYOUT>(ring, slot, s + kGStages - 1, W, K, N, ks, ct,
+                            vec);
+    cp_async_commit();
+    const float* Bs = ring + (s % kGStages) * slot;
+    // the A rows of this thread's fragments; rows past R read row R - 1
+    const float* arow[2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        arow[i][h] = A + min(r0 + wm + i * 16 + g + 8 * h, R - 1) * lda +
+                     kstep * kGKT + t;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[i][j][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kGKT; kk += 8) {
+      unsigned bb[NJ][2], bs[NJ][2];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float* b = Bs + slot_at<NT, LAYOUT>(wn + j * 8 + g, kk + t);
+        split_tf32(b[0], bb[j][0], bs[j][0]);
+        split_tf32(b[kDeep4], bb[j][1], bs[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        unsigned ab[4], as[4];
+        split_tf32(arow[i][0][kk], ab[0], as[0]);
+        split_tf32(arow[i][1][kk], ab[1], as[1]);
+        split_tf32(arow[i][0][kk + 4], ab[2], as[2]);
+        split_tf32(arow[i][1][kk + 4], ab[3], as[3]);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          mma_tf32(part[i][j], as, bb[j]);
+          mma_tf32(part[i][j], ab, bs[j]);
+          mma_tf32(part[i][j], ab, bb[j]);
+        }
+      }
+    }
+    // the k-step's sums leave the tensor cores (which round towards zero)
+    // for the running fp32 sums, rounded to nearest
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] += part[i][j][c];
+    if (kstep == ks - 1) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            epi(r0 + wm + i * 16 + g + 8 * h, n0 + wn + j * 8 + 2 * t,
+                acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+    }
+  }
+}
+
+// The graph matrices in shared memory for the GRU scans: T_1 .. T_{k-1},
+// each zero-padded to Jm x Jm (Jm = J rounded up to 16) with row stride
+// Jm + 4.
+__host__ __device__ inline int graph_rows(int J) { return round_up(J, 16); }
+
+__device__ __forceinline__ void load_graph(float* Tp, const float* cheb,
+                                           int J, int k) {
+  const int Jm = graph_rows(J), lt = Jm + 4;
+  for (int idx = threadIdx.x; idx < (k - 1) * Jm * lt; idx += kGThreads) {
+    const int n = idx / (Jm * lt), rem = idx - n * Jm * lt;
+    const int i = rem / lt, j = rem - i * lt;
+    Tp[idx] = i < J && j < J ? cheb[(n * J + i) * J + j] : 0.f;
+  }
+}
+
+// The graph convolution of the GRU scans on the tensor cores (3xTF32), clip
+// by clip in 16 x 8 output tiles, each warp kGGraphTiles tiles at a time
+// (independent chains of products), on operands in the unit-major column
+// order (column u k + n):
+//   !TRANS: S[c J + i][u k + n] = sum_j T_n[i][j] S[c J + j][u k] for n =
+//           1 .. k - 1 (the operand's expansion from the carry in the
+//           columns u k);
+//   TRANS:  S[c J + i][u k] += sum_n sum_j T_n[j][i] S[c J + j][u k + n]
+//           (the cotangent of the expansion's source, in place: each tile
+//           reads only its own part of the columns u k).
+// For rows < R (whole clips) and units < H. Ends with a barrier.
+constexpr int kGGraphTiles = 4;
+
+template <bool TRANS>
+__device__ __forceinline__ void graph_product(float* S, int ld, int R, int J,
+                                              int H, int k,
+                                              const float* Tp) {
+  if (k == 1) {
+    __syncthreads();
+    return;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int Jm = graph_rows(J), lt = Jm + 4, Jk = round_up(J, 8);
+  const int mt = Jm / 16, nt = (H + 7) / 8, clips = R / J;
+  const int per_n = clips * mt * nt;
+  const int units = TRANS ? per_n : (k - 1) * per_n;
+  constexpr int kTiles = kGGraphTiles, kWarps = kGThreads / 32;
+  for (int base = warp * kTiles; base < units; base += kWarps * kTiles) {
+    int n[kTiles], m0[kTiles], u0[kTiles];
+    float* Sc[kTiles];
+    float acc[kTiles][4];
+#pragma unroll
+    for (int q = 0; q < kTiles; ++q) {
+      const int unit = min(base + q, units - 1);  // a repeat is not written
+      n[q] = TRANS ? 1 : 1 + unit / per_n;
+      const int rem = TRANS ? unit : unit - (n[q] - 1) * per_n;
+      Sc[q] = S + (rem / (mt * nt)) * J * ld;
+      m0[q] = ((rem / nt) % mt) * 16;
+      u0[q] = (rem % nt) * 8;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = m0[q] + g + 8 * h, u = u0[q] + 2 * t;
+        const bool in = TRANS && i < J;
+        acc[q][2 * h] = in && u < H ? Sc[q][i * ld + u * k] : 0.f;
+        acc[q][2 * h + 1] = in && u + 1 < H ? Sc[q][i * ld + (u + 1) * k] : 0.f;
+      }
+    }
+    for (int nn = 1; nn < (TRANS ? k : 2); ++nn) {
+      for (int kk = 0; kk < Jk; kk += 8) {
+#pragma unroll
+        for (int q = 0; q < kTiles; ++q) {
+          const float* T = Tp + ((TRANS ? nn : n[q]) - 1) * Jm * lt;
+          const int m = m0[q] + g;
+          float a[4];
+          if (TRANS) {  // A[i][j] = T[j][i]
+            a[0] = T[(kk + t) * lt + m];
+            a[1] = T[(kk + t) * lt + m + 8];
+            a[2] = T[(kk + t + 4) * lt + m];
+            a[3] = T[(kk + t + 4) * lt + m + 8];
+          } else {
+            a[0] = T[m * lt + kk + t];
+            a[1] = T[(m + 8) * lt + kk + t];
+            a[2] = T[m * lt + kk + t + 4];
+            a[3] = T[(m + 8) * lt + kk + t + 4];
+          }
+          // rows past the clip multiply zeros of T; read them (and units
+          // past H) as zeros too
+          const bool uok = u0[q] + g < H;
+          const float* src = Sc[q] + (u0[q] + g) * k + (TRANS ? nn : 0);
+          const float b0 = uok && kk + t < J ? src[(kk + t) * ld] : 0.f;
+          const float b1 = uok && kk + t + 4 < J ? src[(kk + t + 4) * ld] : 0.f;
+          unsigned ab[4], as[4], bb[2], bs[2];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split_tf32(a[e], ab[e], as[e]);
+          split_tf32(b0, bb[0], bs[0]);
+          split_tf32(b1, bb[1], bs[1]);
+          mma_3xtf32(acc[q], ab, as, bb, bs);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kTiles; ++q) {
+      if (base + q >= units) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = m0[q] + g + 8 * h;
+        if (i >= J) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int u = u0[q] + 2 * t + e;
+          if (u < H) Sc[q][i * ld + u * k + (TRANS ? 0 : n[q])] = acc[q][2 * h + e];
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// dst[row][c] <- src[row][c] for R rows of W columns (row strides ldd and
+// lds); vec: W and both strides multiples of 4, both 16-byte aligned.
+__device__ __forceinline__ void copy_rows(float* dst, int ldd,
+                                          const float* src, int lds, int R,
+                                          int W, bool vec) {
+  if (vec) {
+    const int q = W / 4;
+    for (int i = threadIdx.x; i < R * q; i += kGThreads) {
+      const int row = i / q, c = (i - row * q) * 4;
+      *reinterpret_cast<float4*>(dst + static_cast<size_t>(row) * ldd + c) =
+          *reinterpret_cast<const float4*>(src + static_cast<size_t>(row) * lds + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < R * W; i += kGThreads) {
+      const int row = i / W, c = i - row * W;
+      dst[static_cast<size_t>(row) * ldd + c] =
+          src[static_cast<size_t>(row) * lds + c];
+    }
+  }
+}
+
+// S[row][u k] <- src[row][u] (row strides ld and H) for R rows, H units:
+// the carry (or r h) into the expanded operand's order-0 columns; a warp a
+// row at a time.
+__device__ __forceinline__ void put_units(float* S, int ld, int k,
+                                          const float* src, int R, int H) {
+  for (int row = threadIdx.x >> 5; row < R; row += kGThreads / 32)
+    for (int u = threadIdx.x & 31; u < H; u += 32)
+      S[row * ld + u * k] = src[row * H + u];
+}
+
+// Shared memory of a GRU scan with C clips a thread block and a ring of NT
+// columns: the ring; the operand (C J rows of kpad(k H) + 4: forward [h |
+// T_n h], then [r h | T_n r h]; backward a transposed product's output);
+// forward: C J x H buffers for the carry, r h and, with the 256-column
+// ring, z (the 128-column one parks z in ys); backward: the cotangents
+// [da_z | da_r] (C J x bwd_da_ld(H)) and the dh carry (C J x H); the graph
+// matrices.
+size_t gru_smem_bytes(int C, int J, int H, int k, bool bwd, int NT) {
+  const size_t ring = kGStages * (bwd ? NT * (kGKT + 4) : kGKT * (NT + 8));
+  const size_t fwd_units = NT == kGWide ? 3 : 2;
+  const size_t per_row =
+      kpad(k * H) + 4 + (bwd ? bwd_da_ld(H) + H : fwd_units * H);
+  return sizeof(float) *
+         (ring + static_cast<size_t>(C) * J * per_row +
+          static_cast<size_t>(k - 1) * graph_rows(J) * (graph_rows(J) + 4));
+}
+
+// How a GRU scan is launched: C clips a thread block, the ring's widest
+// tile NT, the shared memory. Clips: enough thread blocks to cover the SMs
+// first, then up to a 64-row tile, within the shared memory; the 256-column
+// ring where one clip fits beside it, else the 128-column one; C = 0 if one
+// clip fits beside neither. At B=256, J=26, H=128, k=2 on 132 SMs: 2 clips
+// (52 of the 64 tile rows; 128 thread blocks of 16 warps, one an SM, as
+// the shared memory allows no more), NT = 256.
+struct GruPlan {
+  int C, NT;
+  size_t bytes;
+};
+
+GruPlan plan_gru(int B, int J, int H, int k, bool bwd, int sms) {
+  for (int NT = kGWide; NT >= kGWide / 2; NT /= 2) {
+    int C = std::max(1, std::min(kGRows / J, (B + sms - 1) / sms));
+    while (C > 1 && gru_smem_bytes(C, J, H, k, bwd, NT) > kMaxSmemBytes) --C;
+    const size_t bytes = gru_smem_bytes(C, J, H, k, bwd, NT);
+    if (bytes <= kMaxSmemBytes) return {C, NT, bytes};
+  }
+  return {0, 0, 0};
+}
+
+// The forward. Per frame: S = [h | T_n h] (the carry put into S and
+// expanded; columns unit-major, as all operands here); z, r = sigmoid(x +
+// S Wzr), with r h and z kept (with the 128-column ring, which is for
+// shapes whose shared memory is short, z is parked in the frame's ys and
+// read back by the thread that overwrites it with h'); S = [r h | T_n r h];
+// h~ = tanh(x + S Wh) and h' = z h + (1 - z) h~ written over the carry.
+// KEEP (a gradient will be asked for): also gates (L, B, J, 3H) = z | r |
+// h~ and both expanded operands of every frame, sa and sb (L B J x k H,
+// columns unit-major), which the backward reads instead of recomputing.
+template <bool KEEP, int NT>
+__global__ void __launch_bounds__(kGThreads, 1)
+gru_scan_fwd_kernel(const float* __restrict__ xg,
+                    const float* __restrict__ cheb,
+                    const float* __restrict__ wzr,
+                    const float* __restrict__ wh, float* __restrict__ ys,
+                    float* __restrict__ gates, float* __restrict__ sa,
+                    float* __restrict__ sb, int L, int B, int J, int H, int k,
+                    int C, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int b0 = blockIdx.x * C;
+  const int R = min(C, B - b0) * J, rows = B * J, row0 = b0 * J;
+  const int KH = k * H, ld = kpad(KH) + 4, CJH = C * J * H;
+  constexpr int slot = fwd_slot<NT>();
+  float* ring = smem;
+  float* S = ring + kGStages * slot;  // the operand of the product
+  constexpr bool kZShared = NT == kGWide;
+  float* hb = S + C * J * ld;         // the carry h
+  float* rh = hb + CJH;               // r h
+  float* zb = rh + CJH;               // z (kZShared)
+  float* Tm = zb + (kZShared ? CJH : 0);
+  load_graph(Tm, cheb, J, k);
+  for (int i = threadIdx.x; i < C * J * ld + CJH; i += kGThreads) S[i] = 0.f;
+  __syncthreads();
+  product_prologue<NT, kZR>(ring, slot, wzr, KH, 2 * H, R, vec);
+  for (int t = 0; t < L; ++t) {
+    const size_t at = static_cast<size_t>(t) * rows + row0;
+    const float* x = xg + at * 3 * H;
+    if (t > 0) {  // (frame 0's operand is the zeros S starts with)
+      put_units(S, ld, k, hb, R, H);
+      __syncthreads();
+      graph_product<false>(S, ld, R, J, H, k, Tm);
+    }
+    if (KEEP) copy_rows(sa + at * KH, KH, S, ld, R, KH, vec);
+    block_product<NT, kZR>(
+        S, ld, R, wzr, KH, 2 * H, ring, slot, vec,
+        [&](int row, int col, float& vz, float& vr) {
+          const int u = col >> 1;
+          const bool in = row < R && u < H;
+          vz = in ? x[row * 3 * H + u] : 0.f;
+          vr = in ? x[row * 3 * H + H + u] : 0.f;
+        },
+        [&](int row, int col, float vz, float vr) {
+          const int u = col >> 1;
+          if (row < R && u < H) {
+            const float z = sigmoid(vz);
+            const float r = sigmoid(vr);
+            if (kZShared)
+              zb[row * H + u] = z;
+            else
+              ys[(at + row) * H + u] = z;
+            rh[row * H + u] = r * hb[row * H + u];
+            if (KEEP) {
+              gates[(at + row) * 3 * H + u] = z;
+              gates[(at + row) * 3 * H + H + u] = r;
+            }
+          }
+        });
+    __syncthreads();  // r h and z are written; S and the ring are free
+    product_prologue<NT / 2, kByDepth>(ring, slot, wh, KH, H, R, vec);
+    put_units(S, ld, k, rh, R, H);
+    __syncthreads();
+    graph_product<false>(S, ld, R, J, H, k, Tm);
+    if (KEEP) copy_rows(sb + at * KH, KH, S, ld, R, KH, vec);
+    block_product<NT / 2, kByDepth>(
+        S, ld, R, wh, KH, H, ring, slot, vec,
+        [&](int row, int col, float& v0, float& v1) {
+          const float* xh = x + row * 3 * H + 2 * H;
+          v0 = row < R && col < H ? xh[col] : 0.f;
+          v1 = row < R && col + 1 < H ? xh[col + 1] : 0.f;
+        },
+        [&](int row, int col, float v0, float v1) {
+          if (row >= R) return;
+          const float v[2] = {v0, v1};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int u = col + e;
+            if (u < H) {
+              const float ht = tanhf(v[e]);
+              const float z = kZShared ? zb[row * H + u] : ys[(at + row) * H + u];
+              const float h = hb[row * H + u];
+              const float hn = z * h + (1.f - z) * ht;
+              hb[row * H + u] = hn;
+              ys[(at + row) * H + u] = hn;
+              if (KEEP) gates[(at + row) * 3 * H + 2 * H + u] = ht;
+            }
+          }
+        });
+    __syncthreads();  // the carry is complete; S and the ring are free
+    if (t + 1 < L) product_prologue<NT, kZR>(ring, slot, wzr, KH, 2 * H, R, vec);
+  }
+}
+
+// The reverse scan, from the forward's residuals (nothing recomputed). Per
+// frame, in reverse: dh = dy + the carry (+ the last frame's P'_0 + sum_n
+// T_n^T P'_n); da_z, da_h -> dxg; P = da_h Wh^T; d(r h) = P_0 + sum_n T_n^T
+// P_n; da_r -> dxg; P' = [da_z | da_r] Wzr^T. Two dependent products a frame
+// (the old design recomputed the forward's two first), dh in shared memory;
+// P's columns unit-major (P_n of unit u in column u k + n).
+template <int NT>
+__global__ void __launch_bounds__(kGThreads, 1)
+gru_scan_bwd_kernel(const float* __restrict__ cheb,
+                    const float* __restrict__ wzr,
+                    const float* __restrict__ wh,
+                    const float* __restrict__ gates,
+                    const float* __restrict__ sa,
+                    const float* __restrict__ dys, float* __restrict__ dxg,
+                    int L, int B, int J, int H, int k, int C, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int b0 = blockIdx.x * C;
+  const int R = min(C, B - b0) * J, rows = B * J, row0 = b0 * J;
+  const int KH = k * H, ldp = kpad(KH) + 4, ldd = bwd_da_ld(H);
+  constexpr int slot = bwd_slot<NT>();
+  float* ring = smem;
+  float* P = ring + kGStages * slot;  // a transposed product's output
+  float* da = P + C * J * ldp;        // [da_z | da_r] (da_h before da_r)
+  float* dhb = da + C * J * ldd;      // the dh carry
+  float* Tm = dhb + C * J * H;
+  load_graph(Tm, cheb, J, k);
+  for (int i = threadIdx.x; i < C * J * (ldp + ldd + H); i += kGThreads)
+    P[i] = 0.f;
+  __syncthreads();
+  product_prologue<NT, kByColumn>(ring, slot, wh, H, KH, R, vec);
+  const auto zero = [](int, int, float& v0, float& v1) { v0 = v1 = 0.f; };
+  const auto keep_p = [&](int row, int col, float v0, float v1) {
+    if (row < R) {
+      if (col < KH) P[row * ldp + col] = v0;
+      if (col + 1 < KH) P[row * ldp + col + 1] = v1;
+    }
+  };
+  for (int t = L - 1; t >= 0; --t) {
+    const size_t at = static_cast<size_t>(t) * rows + row0;
+    const float* gt = gates + at * 3 * H;
+    const float* hp = sa + at * KH;  // the previous hidden state: sa[:, u k]
+    const float* dy = dys + at * H;
+    float* dx = dxg + at * 3 * H;
+    // the residuals through the read-only path, several rows' loads in
+    // flight at once
+#pragma unroll 4
+    for (int idx = threadIdx.x; idx < R * H; idx += kGThreads) {
+      const int row = idx / H, u = idx - row * H;
+      float dh = __ldg(dy + idx) + dhb[idx];
+      if (t < L - 1) dh += P[row * ldp + u * k];
+      const float z = __ldg(gt + row * 3 * H + u);
+      const float ht = __ldg(gt + row * 3 * H + 2 * H + u);
+      const float h = __ldg(hp + row * KH + u * k);
+      const float da_z = dh * (h - ht) * z * (1.f - z);
+      const float da_h = dh * (1.f - z) * (1.f - ht * ht);
+      dhb[idx] = dh * z;
+      dx[row * 3 * H + u] = da_z;
+      dx[row * 3 * H + 2 * H + u] = da_h;
+      da[row * ldd + u] = da_z;
+      da[row * ldd + H + u] = da_h;
+    }
+    __syncthreads();
+    block_product<NT, kByColumn>(da + H, ldd, R, wh, H, KH, ring, slot, vec,
+                                 zero, keep_p);
+    __syncthreads();  // P is complete; the ring is free
+    product_prologue<NT, kByColumn>(ring, slot, wzr, 2 * H, KH, R, vec);
+    graph_product<true>(P, ldp, R, J, H, k, Tm);
+#pragma unroll 4
+    for (int idx = threadIdx.x; idx < R * H; idx += kGThreads) {
+      const int row = idx / H, u = idx - row * H;
+      const float drh = P[row * ldp + u * k];
+      const float r = __ldg(gt + row * 3 * H + H + u);
+      const float h = __ldg(hp + row * KH + u * k);
+      const float da_r = drh * h * r * (1.f - r);
+      dx[row * 3 * H + H + u] = da_r;
+      da[row * ldd + H + u] = da_r;
+      dhb[idx] += drh * r;
+    }
+    __syncthreads();
+    block_product<NT, kByColumn>(da, ldd, R, wzr, 2 * H, KH, ring, slot, vec,
+                                 zero, keep_p);
+    __syncthreads();  // P' is complete; the ring is free
+    if (t > 0) {
+      product_prologue<NT, kByColumn>(ring, slot, wh, H, KH, R, vec);
+      graph_product<true>(P, ldp, R, J, H, k, Tm);
+    }
+  }
+}
+
+// One problem of the weight-gradient launch: part[split] (M x N) = A^T Bm
+// over the split's rows; A (rows x M, row stride lda), Bm (rows x N, row
+// stride ldb).
+struct DwProblem {
+  const float* A;
+  const float* Bm;
+  float* part;
+  int lda, M, ldb, N;
+};
+
+constexpr int kDwThreads = 256;  // 8 warps: 2 (M) x 4 (N), each 64 x 32
+constexpr int kDwTile = 128;
+constexpr int kDwLd = kDwTile + 8;  // k-major tiles: the fragment reads meet
+                                    // 32 banks
+constexpr int kDwKT = 16;          // depth of a k-step
+constexpr int kDwStages = 3;       // the ring's depth
+constexpr int kDwStage = 2 * kDwKT * kDwLd;
+constexpr int kDwSmemBytes = kDwStages * kDwStage * sizeof(float);
+
+// Both weight gradients of the GRU in one launch (blockIdx.x: p0's 128 x 128
+// tiles, then p1's; blockIdx.y: the split of the rows), 3xTF32 products
+// through a 3-stage cp.async ring. VEC: both operands' rows, strides and
+// widths multiples of 4 floats (16-byte copies), else 4-byte copies.
+template <bool VEC>
+__global__ void __launch_bounds__(kDwThreads, 2)
+gru_dw_kernel(DwProblem p0, DwProblem p1, int tiles0, int rows, int chunk) {
+  extern __shared__ __align__(16) float smem[];
+  const bool first = static_cast<int>(blockIdx.x) < tiles0;
+  const DwProblem p = first ? p0 : p1;
+  const int tile = first ? blockIdx.x : blockIdx.x - tiles0;
+  const int tn = (p.N + kDwTile - 1) / kDwTile;
+  const int m0 = (tile / tn) * kDwTile, n0 = (tile % tn) * kDwTile;
+  const int kbeg = blockIdx.y * chunk, kend = min(rows, kbeg + chunk);
+  const int steps = kend > kbeg ? (kend - kbeg + kDwKT - 1) / kDwKT : 0;
+  const int tid = threadIdx.x;
+
+  // 4 floats of a row of X (row stride ld, width W) from column col on
+  const auto copy4 = [](float* dst, const float* X, size_t at, int ld, int W,
+                        int col, bool in) {
+    if (VEC) {
+      const bool ok = in && col < W;
+      cp_async16(dst, ok ? X + at * ld + col : X, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = in && col + e < W;
+        cp_async4(dst + e, ok ? X + at * ld + col + e : X, ok);
+      }
+    }
+  };
+  auto load = [&](int slot, int k0) {
+    float* As = smem + slot * kDwStage;
+    float* Bs = As + kDwKT * kDwLd;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = tid + i * kDwThreads;
+      const int r = c >> 5, col = (c & 31) * 4;
+      const bool in = k0 + r < kend;
+      const size_t at = static_cast<size_t>(k0 + r);
+      copy4(As + r * kDwLd + col, p.A, at, p.lda, p.M, m0 + col, in);
+      copy4(Bs + r * kDwLd + col, p.Bm, at, p.ldb, p.N, n0 + col, in);
+    }
+  };
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kDwStages - 1; ++s) {
+    if (s < steps) load(s, kbeg + s * kDwKT);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kDwStages - 2>();
+    __syncthreads();  // k-step `step` has landed; slot step - 1 is free
+    const int next = step + kDwStages - 1;
+    if (next < steps) load(next % kDwStages, kbeg + next * kDwKT);
+    cp_async_commit();
+    const float* As = smem + (step % kDwStages) * kDwStage;
+    const float* Bs = As + kDwKT * kDwLd;
+#pragma unroll
+    for (int ks = 0; ks < kDwKT; ks += 8) {
+      unsigned bb[4][2], bs[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = wn + j * 8 + g;
+        split_tf32(Bs[(ks + t) * kDwLd + n], bb[j][0], bs[j][0]);
+        split_tf32(Bs[(ks + t + 4) * kDwLd + n], bb[j][1], bs[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = wm + i * 16 + g;
+        unsigned ab[4], as[4];
+        split_tf32(As[(ks + t) * kDwLd + m], ab[0], as[0]);
+        split_tf32(As[(ks + t) * kDwLd + m + 8], ab[1], as[1]);
+        split_tf32(As[(ks + t + 4) * kDwLd + m], ab[2], as[2]);
+        split_tf32(As[(ks + t + 4) * kDwLd + m + 8], ab[3], as[3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_3xtf32(acc[i][j], ab, as, bb[j], bs[j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  float* out = p.part + static_cast<size_t>(blockIdx.y) * p.M * p.N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + i * 16 + g + 8 * h;
+      if (m >= p.M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + wn + j * 8 + 2 * t;
+        if (n < p.N) out[static_cast<size_t>(m) * p.N + n] = acc[i][j][2 * h];
+        if (n + 1 < p.N)
+          out[static_cast<size_t>(m) * p.N + n + 1] = acc[i][j][2 * h + 1];
+      }
+    }
+}
+
+// out0 and out1 = the sums of their parts (splits of count0 and count1
+// floats), each in the order of the splits.
+__global__ void reduce_two_kernel(const float* __restrict__ part0, int count0,
+                                  float* __restrict__ out0,
+                                  const float* __restrict__ part1, int count1,
+                                  float* __restrict__ out1, int splits) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const float* part = part0;
+  float* out = out0;
+  int count = count0;
+  if (i >= count0) {
+    i -= count0;
+    part = part1;
+    out = out1;
+    count = count1;
+  }
+  if (i >= count) return;
+  float sum = 0.f;
+  for (int z = 0; z < splits; ++z)
+    sum += part[static_cast<size_t>(z) * count + i];
+  out[i] = sum;
+}
+
+// Splits of the rows for the GRU's weight gradients: two thread blocks an
+// SM over both products' tiles, each split at least 256 rows.
+int gru_dw_splits(int rows, int KH, int H, int sms) {
+  const int tm = (KH + kDwTile - 1) / kDwTile;
+  const int tiles = tm * ((2 * H + kDwTile - 1) / kDwTile) +
+                    tm * ((H + kDwTile - 1) / kDwTile);
+  return std::max(1, std::min(2 * sms / tiles, (rows + 255) / 256));
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 cudaError_t sm_count(int* sms) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -640,10 +1308,8 @@ bool valid(int L, int B, int J, int H, int k) {
   return L >= 1 && B >= 1 && J >= 1 && H >= 1 && k >= 1;
 }
 
-// C J x H buffers beside S: forward GRU h, z, r h; backward GRU da (2), r,
-// da_h, dh; forward LSTM h, c; backward LSTM da (4), dh, dc.
-constexpr int kGruFwdUnits = 3, kGruBwdUnits = 5, kLstmFwdUnits = 2,
-              kLstmBwdUnits = 6;
+// C J x H buffers beside S: forward LSTM h, c; backward LSTM da (4), dh, dc.
+constexpr int kLstmFwdUnits = 2, kLstmBwdUnits = 6;
 
 template <class Kernel>
 cudaError_t prepare(Kernel kernel, int B, int J, int H, int k, int units,
@@ -664,21 +1330,55 @@ cudaError_t prepare(Kernel kernel, int B, int J, int H, int k, int units,
 extern "C" {
 
 // The GRU scan: xg (L, B, J, 3H) gate pre-activations z|r|h, cheb (k-1, J, J)
-// the matrices T_1 .. T_{k-1}, wzr (k H, 2H) and wh (k H, H) the stacked
-// hidden-side weights -> ys (L, B, J, H). float32, contiguous. One launch on
-// `stream`; returns the first CUDA error, or 0.
+// the matrices T_1 .. T_{k-1}, wzr (H, k 2H) and wh (H, k H) the
+// hidden-side weights as the caller holds them (columns by Chebyshev order,
+// then gate) -> ys (L, B, J, H). With gates, sa and sb (all three or
+// none): the residuals the backward reads (KEEP), gates (L, B, J, 3H) and
+// sa, sb (L B J, k H; columns unit-major). float32, contiguous. One launch on `stream`; returns
+// the first CUDA error, or 0.
 int pv2c_graph_gru_scan_fwd(const float* xg, const float* cheb,
-                            const float* wzr, const float* wh, float* ys, int L,
-                            int B, int J, int H, int k, cudaStream_t stream) {
+                            const float* wzr, const float* wh, float* ys,
+                            float* gates, float* sa, float* sb, int L, int B,
+                            int J, int H, int k, cudaStream_t stream) {
   if (!valid(L, B, J, H, k)) return static_cast<int>(cudaErrorInvalidValue);
-  int C = 0;
-  size_t bytes = 0;
-  cudaError_t err =
-      prepare(gru_scan_fwd_kernel, B, J, H, k, kGruFwdUnits, &C, &bytes);
+  const bool keep = gates != nullptr;
+  if (keep != (sa != nullptr) || keep != (sb != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gru_scan_fwd_kernel<<<(B + C - 1) / C, kThreads, bytes, stream>>>(
-      xg, cheb, wzr, wh, ys, L, B, J, H, k, C);
+  const GruPlan plan = plan_gru(B, J, H, k, false, sms);
+  if (plan.C == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = H % 4 == 0 && aligned16(wzr) && aligned16(wh) &&
+                   (!keep || (aligned16(sa) && aligned16(sb)));
+  auto kernel = plan.NT == kGWide
+                    ? (keep ? gru_scan_fwd_kernel<true, kGWide>
+                            : gru_scan_fwd_kernel<false, kGWide>)
+                    : (keep ? gru_scan_fwd_kernel<true, kGWide / 2>
+                            : gru_scan_fwd_kernel<false, kGWide / 2>);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(plan.bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(B + plan.C - 1) / plan.C, kGThreads, plan.bytes, stream>>>(
+      xg, cheb, wzr, wh, ys, gates, sa, sb, L, B, J, H, k, plan.C, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// How the GRU scan (bwd = 0) or its reverse scan (bwd = 1) is launched on
+// the current device at this shape: plan[0] clips a thread block, plan[1]
+// the ring's widest tile, plan[2] the shared memory bytes; zeros where one
+// clip does not fit. Returns a CUDA error, or 0.
+int pv2c_graph_gru_plan(int B, int J, int H, int k, int bwd, int* plan) {
+  if (!valid(1, B, J, H, k)) return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const GruPlan p = plan_gru(B, J, H, k, bwd != 0, sms);
+  plan[0] = p.C;
+  plan[1] = p.NT;
+  plan[2] = static_cast<int>(p.bytes);
+  return 0;
 }
 
 // Floats of the backward's `part` scratch, for gates = 3 (GRU) or 4 (LSTM),
@@ -688,46 +1388,66 @@ int pv2c_graph_scan_part_floats(int L, int B, int J, int H, int k, int gates) {
   const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return -static_cast<int>(err);
   const int rows = L * B * J, KH = k * H;
-  size_t floats = gates == 4 ? dw_part_floats(rows, KH, 4 * H, sms)
-                             : std::max(dw_part_floats(rows, KH, 2 * H, sms),
-                                        dw_part_floats(rows, KH, H, sms));
+  const size_t floats =
+      gates == 4 ? dw_part_floats(rows, KH, 4 * H, sms)
+                 : static_cast<size_t>(gru_dw_splits(rows, KH, H, sms)) * KH *
+                       3 * H;
   if (floats > 0x7fffffff) return -static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(floats);
 }
 
-// The GRU scan's backward on its inputs, its output ys and the cotangent
-// dys: dxg (L, B, J, 3H), dwzr (k H, 2H) and dwh (k H, H), stacked as the
-// weights. wzr_t (2H, k H) and wh_t (H, k H) are the stacked weights
-// transposed. Scratch: sa and sb (L B J, k H) each, part
-// (pv2c_graph_scan_part_floats). Five launches on `stream` (the reverse
-// scan, then two weight-gradient products of two launches each); returns the
-// first CUDA error, or 0.
-int pv2c_graph_gru_scan_bwd(const float* xg, const float* cheb,
-                            const float* wzr, const float* wh,
-                            const float* wzr_t, const float* wh_t,
-                            const float* ys, const float* dys, float* dxg,
-                            float* sa, float* sb, float* part, float* dwzr,
-                            float* dwh, int L, int B, int J, int H, int k,
-                            cudaStream_t stream) {
+// The GRU scan's backward from the residuals of the KEEP forward (gates, sa,
+// sb) and the cotangent dys: dxg (L, B, J, 3H), dwzr (H, k 2H) and dwh
+// (H, k H), in the weights' own layout. Scratch: part
+// (pv2c_graph_scan_part_floats). Three launches on `stream` (the reverse
+// scan, both weight-gradient products, the sum of their splits); returns
+// the first CUDA error, or 0.
+int pv2c_graph_gru_scan_bwd(const float* cheb, const float* wzr,
+                            const float* wh, const float* gates,
+                            const float* sa, const float* sb,
+                            const float* dys, float* dxg, float* part,
+                            float* dwzr, float* dwh, int L, int B, int J,
+                            int H, int k, cudaStream_t stream) {
   if (!valid(L, B, J, H, k)) return static_cast<int>(cudaErrorInvalidValue);
-  int C = 0, sms = 0;
-  size_t bytes = 0;
-  cudaError_t err =
-      prepare(gru_scan_bwd_kernel, B, J, H, k, kGruBwdUnits, &C, &bytes);
-  if (err == cudaSuccess) err = sm_count(&sms);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gru_scan_bwd_kernel<<<(B + C - 1) / C, kThreads, bytes, stream>>>(
-      xg, cheb, wzr, wh, wzr_t, wh_t, ys, dys, dxg, sa, sb, L, B, J, H, k, C);
+  const GruPlan plan = plan_gru(B, J, H, k, true, sms);
+  if (plan.C == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = H % 4 == 0 && aligned16(wzr) && aligned16(wh) &&
+                   aligned16(sa) && aligned16(sb) && aligned16(dxg);
+  auto kernel = plan.NT == kGWide ? gru_scan_bwd_kernel<kGWide>
+                                  : gru_scan_bwd_kernel<kGWide / 2>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(plan.bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(B + plan.C - 1) / plan.C, kGThreads, plan.bytes, stream>>>(
+      cheb, wzr, wh, gates, sa, dys, dxg, L, B, J, H, k, plan.C, vec);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const int rows = L * B * J, KH = k * H;
-  err = weight_grad(sa, KH, KH, dxg, 3 * H, 2 * H, rows, part, dwzr, sms,
-                    stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = weight_grad(sb, KH, KH, dxg + 2 * H, 3 * H, H, rows, part, dwh, sms,
-                    stream);
-  return static_cast<int>(err);
-}
 
+  const int rows = L * B * J, KH = k * H;
+  const int splits = gru_dw_splits(rows, KH, H, sms);
+  const int chunk = round_up((rows + splits - 1) / splits, kDwKT);
+  const int tm = (KH + kDwTile - 1) / kDwTile;
+  const int tiles0 = tm * ((2 * H + kDwTile - 1) / kDwTile);
+  const int tiles1 = tm * ((H + kDwTile - 1) / kDwTile);
+  const DwProblem p0{sa, dxg, part, KH, KH, 3 * H, 2 * H};
+  const DwProblem p1{sb, dxg + 2 * H,
+                     part + static_cast<size_t>(splits) * KH * 2 * H, KH, KH,
+                     3 * H, H};
+  auto dw = vec ? gru_dw_kernel<true> : gru_dw_kernel<false>;
+  err = cudaFuncSetAttribute(dw, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kDwSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dw<<<dim3(tiles0 + tiles1, splits), kDwThreads, kDwSmemBytes, stream>>>(
+      p0, p1, tiles0, rows, chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int count0 = KH * 2 * H, count1 = KH * H;
+  reduce_two_kernel<<<(count0 + count1 + 255) / 256, 256, 0, stream>>>(
+      p0.part, count0, dwzr, p1.part, count1, dwh, splits);
+  return static_cast<int>(cudaGetLastError());
+}
 // The LSTM scan: xg (L, B, J, 4H) gate pre-activations i|f|c|o, w (k H, 4H)
 // stacked -> ys and cs (L, B, J, H). One launch on `stream`.
 int pv2c_graph_lstm_scan_fwd(const float* xg, const float* cheb,

@@ -39,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "mma_tf32.cuh"
+
 namespace {
 
 constexpr int kBM = 128, kBN = 128, kBK = 8, kPad = 4;
@@ -332,47 +334,6 @@ __device__ __forceinline__ float dgelu(float v) {
                                                    kInvSqrt2Pi;
 }
 
-// 16 bytes global -> shared, asynchronously; zeros when !ok (src is then
-// not read).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// x = big + small to about 2^-22 of |x| (the 3xTF32 split): big is x
-// rounded to TF32's 10 mantissa bits, its low 13 bits zero, so that x - big
-// is exact; the tensor cores read small's top 19 bits.
-__device__ __forceinline__ void split_tf32(float x, unsigned& big,
-                                           unsigned& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-// d += a b on one 16 x 8 x 8 tile in the tensor cores, TF32 inputs and an
-// fp32 sum; a, b and d in the fragment layout of the PTX ISA's
-// mma.m16n8k8 (g = lane / 4, t = lane % 4): a = A[g][t], A[g + 8][t],
-// A[g][t + 4], A[g + 8][t + 4]; b = B[t][g], B[t + 4][g]; d = D[g][2t],
-// D[g][2t + 1], D[g + 8][2t], D[g + 8][2t + 1].
-__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a,
-                                         const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 enum BwdMode { kNN, kTN };
 enum BwdEpilogue { kSet, kDGelu };
 
@@ -504,12 +465,7 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_bwd_kernel(Gemm g) {
           // with round-to-nearest: the tensor cores round their sums
           // towards zero, an error that would grow with K if the running
           // sum went through them
-          float t[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_tf32(t, as, bb[j]);
-          mma_tf32(t, ab, bs[j]);
-          mma_tf32(t, ab, bb[j]);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[i][j][c] += t[c];
+          mma_3xtf32(acc[i][j], ab, as, bb[j], bs[j]);
         }
       }
     }

@@ -3,12 +3,13 @@
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, at first use, and loaded with ``ctypes``. The
 library goes into ``build/torch_kernels/`` beside the package, keyed by the
-source's name and a hash of the source and the flags (an edited ``.cu``
-rebuilds). Nothing here runs when a module is imported.
+source's name and a hash of the source, the headers it includes from
+``csrc/`` and the flags (an edited ``.cu`` or ``.cuh`` rebuilds). Nothing here runs when a module is imported.
 """
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -43,10 +44,20 @@ def nvcc() -> str:
     return path
 
 
+def _local_headers(source: Path) -> List[Path]:
+    """The headers beside ``source`` that it includes (``#include "x"``)."""
+    names = re.findall(r'^\s*#\s*include\s+"([^"]+)"', source.read_text(),
+                       re.MULTILINE)
+    return [source.parent / name for name in names]
+
+
 def library_path(source: Path) -> Path:
-    """Where the library for ``source`` and the current flags lives."""
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where the library for ``source``, the headers it includes from its
+    own directory and the current flags lives: an edited header rebuilds
+    every source that includes it."""
+    blob = b"".join([source.read_bytes()] + [
+        h.read_bytes() for h in _local_headers(source)])
+    digest = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
 
 

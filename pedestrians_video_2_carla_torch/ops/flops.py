@@ -79,34 +79,48 @@ def graph_scan_flops(cell: str, batch: int, clip_length: int, joints: int,
 
     Forward, per row (a joint of a clip in a frame): the hidden products,
     2 k H G H; the graph applied to the carry, 2 (k - 1) J H, once for the
-    LSTM and twice for the GRU (h and r h). The backward recomputes the
-    gates (the forward's count), carries dh through da W^T (the hidden
-    products' count again) and the transposed graph (the graph's count
-    again), and sums the weight gradients over all rows (the hidden
-    products' count a third time). Elementwise gating is left out."""
+    LSTM and twice for the GRU (h and r h). Backward: dh through da W^T
+    (the hidden products' count) and the transposed graph (the graph's
+    count), and the weight gradients over all rows (the hidden products'
+    count again); the LSTM's backward also recomputes its gates (the
+    forward's count once more), the GRU's reads them from the residuals its
+    training forward kept. Elementwise gating is left out."""
     gates = SCAN_GATES[cell]
     rows = batch * clip_length * joints
     products = 2 * k * hidden * gates * hidden
     graph = 2 * (k - 1) * joints * hidden * (2 if cell == "gru" else 1)
-    per_row = 3 * products + 2 * graph if backward else products + graph
+    if not backward:
+        per_row = products + graph
+    elif cell == "gru":
+        per_row = 2 * products + graph
+    else:
+        per_row = 3 * products + 2 * graph
     return int(rows * per_row)
 
 
 def graph_scan_bytes(cell: str, batch: int, clip_length: int, joints: int,
                      hidden: int, k: int, backward: bool = False,
-                     with_dcs: bool = False) -> int:
+                     with_dcs: bool = False, keep: bool = False) -> int:
     """Bytes a graph scan must move in float32: each input read once and
     each output written once. Forward: xg in, ys (and the LSTM's cs) out,
-    the weights and graph matrices in. Backward: xg, ys (cs), dys (dcs
-    where the caller used cs) and the weights in, dxg and the weight
-    gradients out."""
+    the weights and graph matrices in; the GRU's training forward (``keep``)
+    also writes its residuals, the gates (3H a row) and both expanded
+    operands (k H a row each). Backward: dys (dcs where the caller used cs)
+    and the weights in, dxg and the weight gradients out; the GRU reads its
+    residuals, the LSTM xg and ys, cs."""
     gates = SCAN_GATES[cell]
+    H = hidden
     rows = batch * clip_length * joints
-    states = 2 if cell == "lstm" else 1
-    weights = k * hidden * gates * hidden + (k - 1) * joints * joints
-    if backward:
-        floats = rows * (2 * gates * hidden + hidden * (
-            states + 1 + (1 if with_dcs else 0))) + 2 * weights
+    weights = k * H * gates * H + (k - 1) * joints * joints
+    residuals = 3 * H + 2 * k * H
+    if backward and cell == "gru":
+        floats = rows * (residuals + H + 3 * H) + 2 * weights
+    elif backward:
+        floats = rows * (2 * gates * H + H * (3 + (1 if with_dcs else 0))) \
+            + 2 * weights
     else:
-        floats = rows * (gates * hidden + states * hidden) + weights
+        states = 2 if cell == "lstm" else 1
+        floats = rows * (gates * H + states * H) + weights
+        if keep and cell == "gru":
+            floats += rows * residuals
     return int(4 * floats)

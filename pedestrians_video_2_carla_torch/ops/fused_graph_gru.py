@@ -26,11 +26,18 @@ k = 1.
 The wrappers launch the kernels for CUDA tensors and run the plain version
 (and autograd of it) for CPU tensors; there is no fallback from one to the
 other. ``graph_gru_scan_cuda_fwd.launches`` etc. count entry calls; an entry
-is a fixed sequence of launches (forward: 1; GRU backward: 5; LSTM
+is a fixed sequence of launches (forward: 1; GRU backward: 3; LSTM
 backward: 3), described in the source.
+
+The GRU's training forward (``keep``) also writes the residuals its
+backward reads instead of recomputing the forward (:class:`GRUResiduals`):
+the gates z | r | h~ and both expanded operands of every frame. The GRU
+kernels read the weights as the caller holds them and write the weight
+gradients in the same layout; their tiling and padding live in the source
+alone.
 """
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,11 +47,12 @@ from .cuda_build import INT as _INT, PTR as _PTR
 
 _SOURCE = cuda_build.CSRC / "fused_graph_gru.cu"
 _SIGNATURES = {
-    "pv2c_graph_gru_scan_fwd": [_PTR] * 5 + [_INT] * 5 + [_PTR],
-    "pv2c_graph_gru_scan_bwd": [_PTR] * 14 + [_INT] * 5 + [_PTR],
+    "pv2c_graph_gru_scan_fwd": [_PTR] * 8 + [_INT] * 5 + [_PTR],
+    "pv2c_graph_gru_scan_bwd": [_PTR] * 11 + [_INT] * 5 + [_PTR],
     "pv2c_graph_lstm_scan_fwd": [_PTR] * 5 + [_INT] * 5 + [_PTR],
     "pv2c_graph_lstm_scan_bwd": [_PTR] * 12 + [_INT] * 5 + [_PTR],
     "pv2c_graph_scan_part_floats": [_INT] * 6,
+    "pv2c_graph_gru_plan": [_INT] * 5 + [_PTR],
 }
 GRU_GATES, LSTM_GATES = 3, 4
 
@@ -120,6 +128,112 @@ def graph_gru_scan_reference(xg: torch.Tensor, cheb: torch.Tensor,
     return torch.stack(ys)
 
 
+class GRUResiduals(NamedTuple):
+    """What the GRU's training forward keeps for its backward: ``gates``
+    (L, B, J, 3H), z | r | h~ of every frame; ``sa`` and ``sb``
+    (L B J, k H), every frame's expanded operands of h_prev and of
+    r h_prev in the kernels' unit-major column order (:func:`_expand`)."""
+    gates: torch.Tensor
+    sa: torch.Tensor
+    sb: torch.Tensor
+
+
+def _expand(cheb: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """The expanded operand of the GRU kernels: (B, J, H) -> (B, J, k H),
+    column u k + n = (T_n h)[..., u] (unit-major), so that the caller's
+    (H, k N) weight read as ``w.reshape(k H, N)`` multiplies it (its row
+    u k + n is row u of W_n)."""
+    return torch.stack([h] + [torch.einsum("ij,bjc->bic", t, h)
+                              for t in cheb], dim=-1).flatten(-2)
+
+
+def _graph_apply_t(cheb: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The cotangent of :func:`_expand`'s source from that of its output:
+    (B, J, k H) unit-major -> sum_n T_n^T p_n, (B, J, H)."""
+    p = p.unflatten(-1, (-1, cheb.shape[0] + 1))
+    out = p[..., 0]
+    for n in range(1, cheb.shape[0] + 1):
+        out = out + torch.einsum("ji,bjc->bic", cheb[n - 1], p[..., n])
+    return out
+
+
+def graph_gru_scan_keep_reference(xg: torch.Tensor, cheb: torch.Tensor,
+                                  wzr: torch.Tensor, wh: torch.Tensor
+                                  ) -> Tuple[torch.Tensor, GRUResiduals]:
+    """The plain version of the GRU's training forward: the scan through
+    the expanded operands and the weights as the kernel reads them,
+    -> ``(ys, GRUResiduals)``."""
+    L, B, J, H, k = _check_scan(xg, cheb, (("wzr", wzr, 2), ("wh", wh, 1)),
+                                GRU_GATES)
+    wzr_v, wh_v = wzr.reshape(k * H, 2 * H), wh.reshape(k * H, H)
+    h = xg.new_zeros((B, J, H))
+    ys, gates, sa, sb = [], [], [], []
+    for t in range(L):
+        a = _expand(cheb, h)
+        zr = torch.sigmoid(xg[t, ..., :2 * H] + a @ wzr_v)
+        z, r = zr[..., :H], zr[..., H:]
+        b = _expand(cheb, r * h)
+        ht = torch.tanh(xg[t, ..., 2 * H:] + b @ wh_v)
+        h = z * h + (1.0 - z) * ht
+        ys.append(h)
+        gates.append(torch.cat([z, r, ht], dim=-1))
+        sa.append(a)
+        sb.append(b)
+
+    def rows(ops):
+        return torch.stack(ops).reshape(L * B * J, k * H)
+    return torch.stack(ys), GRUResiduals(torch.stack(gates), rows(sa),
+                                         rows(sb))
+
+
+def _check_residuals(res: GRUResiduals, L: int, B: int, J: int, H: int,
+                     k: int) -> None:
+    shapes = {"gates": (L, B, J, 3 * H), "sa": (L * B * J, k * H),
+              "sb": (L * B * J, k * H)}
+    for name, want in shapes.items():
+        got = tuple(getattr(res, name).shape)
+        if got != want:
+            raise ValueError(f"residual {name} must be {want}, got {got}")
+
+
+def graph_gru_scan_bwd_reference(cheb: torch.Tensor, wzr: torch.Tensor,
+                                 wh: torch.Tensor, res: GRUResiduals,
+                                 dys: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """The plain version of the GRU's backward from the training forward's
+    residuals, frame by frame in reverse as the kernel runs it: two
+    transposed products a frame (da_h Wh^T, then [da_z | da_r] Wzr^T, the
+    weights read as ``w.reshape(k H, N)``), nothing of the forward
+    recomputed, then dW = S^T da over all rows -> ``(dxg, dwzr, dwh)``,
+    each in its primal's shape."""
+    L, B, J, H = dys.shape
+    k = cheb.shape[0] + 1
+    _check_residuals(res, L, B, J, H, k)
+    KH = k * H
+    wzr_v, wh_v = wzr.reshape(KH, 2 * H), wh.reshape(KH, H)
+    sa = res.sa.reshape(L, B, J, KH)
+    sb = res.sb.reshape(L, B, J, KH)
+    dh = dys.new_zeros((B, J, H))
+    dxg = []
+    for t in reversed(range(L)):
+        z, r, ht = res.gates[t].split(H, dim=-1)
+        h = sa[t, ..., ::k]
+        dh = dh + dys[t]
+        da_z = dh * (h - ht) * z * (1.0 - z)
+        da_h = dh * (1.0 - z) * (1.0 - ht * ht)
+        drh = _graph_apply_t(cheb, da_h @ wh_v.t())
+        da_r = drh * h * r * (1.0 - r)
+        dh = dh * z + drh * r + _graph_apply_t(
+            cheb, torch.cat([da_z, da_r], dim=-1) @ wzr_v.t())
+        dxg.append(torch.cat([da_z, da_r, da_h], dim=-1))
+    dxg = torch.stack(dxg[::-1])
+    flat = dxg.reshape(L * B * J, 3 * H)
+    dwzr = sa.reshape(-1, KH).t() @ flat[:, :2 * H]
+    dwh = sb.reshape(-1, KH).t() @ flat[:, 2 * H:]
+    return dxg, dwzr.reshape(wzr.shape), dwh.reshape(wh.shape)
+
+
 def graph_lstm_scan_reference(xg: torch.Tensor, cheb: torch.Tensor,
                               w: torch.Tensor
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -173,72 +287,86 @@ def _part(lib, device, L, B, J, H, k, gates) -> torch.Tensor:
     return torch.empty(floats, dtype=torch.float32, device=device)
 
 
+def graph_gru_plan(B: int, J: int, H: int, k: int, backward: bool = False,
+                   device=None) -> Tuple[int, int, int]:
+    """How the GRU scan (or its reverse scan) is launched at this shape on
+    a CUDA device: (clips a thread block, the weight ring's widest tile,
+    shared memory bytes), zeros where one clip does not fit (the launch
+    then raises)."""
+    plan = torch.zeros(3, dtype=torch.int32)
+    with torch.cuda.device(device):
+        err = _library().pv2c_graph_gru_plan(B, J, H, k, int(backward),
+                                             plan.data_ptr())
+    cuda_build.check_launch(err, "pv2c_graph_gru_plan")
+    return tuple(int(v) for v in plan)
+
+
 def graph_gru_scan_cuda_fwd(xg: torch.Tensor, cheb: torch.Tensor,
-                            wzr: torch.Tensor, wh: torch.Tensor
-                            ) -> torch.Tensor:
+                            wzr: torch.Tensor, wh: torch.Tensor,
+                            keep: bool = False):
     """Launch the GRU scan on float32 contiguous CUDA tensors -> ys
-    (L, B, J, H). Adds one to ``graph_gru_scan_cuda_fwd.launches`` per
-    call."""
+    (L, B, J, H); with ``keep``, ``(ys, GRUResiduals)`` for
+    :func:`graph_gru_scan_cuda_bwd`. Adds one to
+    ``graph_gru_scan_cuda_fwd.launches`` per call."""
     L, B, J, H, k = _check_scan(xg, cheb, (("wzr", wzr, 2), ("wh", wh, 1)),
                                 GRU_GATES)
     device = cuda_build.check_cuda_tensors(
         "graph_gru_scan_cuda_fwd", xg=xg, cheb=cheb, wzr=wzr, wh=wh)
-    ys = torch.empty((L, B, J, H), dtype=torch.float32, device=device)
+    empty = functools.partial(torch.empty, dtype=torch.float32, device=device)
+    ys = empty((L, B, J, H))
+    res = GRUResiduals(empty((L, B, J, 3 * H)), empty((L * B * J, k * H)),
+                       empty((L * B * J, k * H))) if keep else None
     if ys.numel():
-        wzr_s, wh_s = _stack(wzr, k), _stack(wh, k)
         with torch.cuda.device(device):
             err = _library().pv2c_graph_gru_scan_fwd(
-                xg.data_ptr(), cheb.data_ptr(), wzr_s.data_ptr(),
-                wh_s.data_ptr(), ys.data_ptr(), L, B, J, H, k,
-                _stream(device))
+                xg.data_ptr(), cheb.data_ptr(), wzr.data_ptr(),
+                wh.data_ptr(), ys.data_ptr(),
+                *((t.data_ptr() for t in res) if keep else (None,) * 3),
+                L, B, J, H, k, _stream(device))
         cuda_build.check_launch(err, "pv2c_graph_gru_scan_fwd")
         graph_gru_scan_cuda_fwd.launches += 1
-    return ys
+    return (ys, res) if keep else ys
 
 
 graph_gru_scan_cuda_fwd.launches = 0
 
 
-def graph_gru_scan_cuda_bwd(xg: torch.Tensor, cheb: torch.Tensor,
-                            wzr: torch.Tensor, wh: torch.Tensor,
-                            ys: torch.Tensor, dys: torch.Tensor
+def graph_gru_scan_cuda_bwd(cheb: torch.Tensor, wzr: torch.Tensor,
+                            wh: torch.Tensor, res: GRUResiduals,
+                            dys: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """Launch the GRU scan's backward on float32 contiguous CUDA tensors:
-    the forward's inputs, its output ys and the cotangent dys ->
-    ``(dxg, dwzr, dwh)``, each in its primal's shape. Adds one to
-    ``graph_gru_scan_cuda_bwd.launches`` per call."""
-    L, B, J, H, k = _check_scan(xg, cheb, (("wzr", wzr, 2), ("wh", wh, 1)),
-                                GRU_GATES)
-    if tuple(ys.shape) != (L, B, J, H) or dys.shape != ys.shape:
-        raise ValueError(f"ys and dys must be {(L, B, J, H)}, got "
-                         f"{tuple(ys.shape)} and {tuple(dys.shape)}")
+    the graph matrices, the weights, the residuals of
+    ``graph_gru_scan_cuda_fwd(..., keep=True)`` and the cotangent dys
+    (L, B, J, H) -> ``(dxg, dwzr, dwh)``, each in its primal's shape. Adds
+    one to ``graph_gru_scan_cuda_bwd.launches`` per call."""
+    if dys.ndim != 4:
+        raise ValueError(f"dys must be (L, B, J, H), got {tuple(dys.shape)}")
+    L, B, J, H = dys.shape
+    k = cheb.shape[0] + 1
+    _check_scan(res.gates, cheb, (("wzr", wzr, 2), ("wh", wh, 1)), GRU_GATES)
+    _check_residuals(res, L, B, J, H, k)
     device = cuda_build.check_cuda_tensors(
-        "graph_gru_scan_cuda_bwd", xg=xg, cheb=cheb, wzr=wzr, wh=wh, ys=ys,
-        dys=dys)
-    if not ys.numel():
-        return (torch.zeros_like(xg), torch.zeros_like(wzr),
+        "graph_gru_scan_cuda_bwd", dys=dys, cheb=cheb, wzr=wzr, wh=wh,
+        gates=res.gates, sa=res.sa, sb=res.sb)
+    if not dys.numel():
+        return (torch.zeros_like(res.gates), torch.zeros_like(wzr),
                 torch.zeros_like(wh))
-    empty = functools.partial(torch.empty, dtype=torch.float32, device=device)
-    wzr_s, wh_s = _stack(wzr, k), _stack(wh, k)
-    wzr_t, wh_t = wzr_s.t().contiguous(), wh_s.t().contiguous()
-    dxg = torch.empty_like(xg)
-    # the expanded operands [h_prev | T_n h_prev] and [r h_prev | T_n ..] of
-    # every frame, which the weight-gradient products read back
-    sa, sb = empty((L * B * J, k * H)), empty((L * B * J, k * H))
-    dwzr_s, dwh_s = empty((k * H, 2 * H)), empty((k * H, H))
+    dxg = torch.empty_like(res.gates)
+    dwzr, dwh = torch.empty_like(wzr), torch.empty_like(wh)
     lib = _library()
     with torch.cuda.device(device):
         part = _part(lib, device, L, B, J, H, k, GRU_GATES)
         err = lib.pv2c_graph_gru_scan_bwd(
-            xg.data_ptr(), cheb.data_ptr(), wzr_s.data_ptr(),
-            wh_s.data_ptr(), wzr_t.data_ptr(), wh_t.data_ptr(),
-            ys.data_ptr(), dys.data_ptr(), dxg.data_ptr(), sa.data_ptr(),
-            sb.data_ptr(), part.data_ptr(), dwzr_s.data_ptr(),
-            dwh_s.data_ptr(), L, B, J, H, k, _stream(device))
+            cheb.data_ptr(), wzr.data_ptr(), wh.data_ptr(),
+            res.gates.data_ptr(), res.sa.data_ptr(), res.sb.data_ptr(),
+            dys.data_ptr(), dxg.data_ptr(), part.data_ptr(),
+            dwzr.data_ptr(), dwh.data_ptr(), L, B, J, H, k,
+            _stream(device))
     cuda_build.check_launch(err, "pv2c_graph_gru_scan_bwd")
     graph_gru_scan_cuda_bwd.launches += 1
-    return dxg, _unstack(dwzr_s, k), _unstack(dwh_s, k)
+    return dxg, dwzr, dwh
 
 
 graph_gru_scan_cuda_bwd.launches = 0
@@ -335,29 +463,36 @@ def _check_device(name: str, t: torch.Tensor) -> bool:
 
 class GraphGRUScan(torch.autograd.Function):
     """Kernel forward and kernel backward (CUDA), or the plain forward and
-    autograd of it (CPU), as the JAX package's custom VJP. The graph
-    matrices get no gradient."""
+    autograd of it (CPU), as the JAX package's custom VJP. ``keep``: a
+    gradient will be asked for, so the kernel forward keeps the residuals
+    its backward reads. The graph matrices get no gradient."""
 
     @staticmethod
-    def forward(ctx, xg, cheb, wzr, wh):
-        if _check_device("graph_gru_scan", xg):
-            ys = graph_gru_scan_cuda_fwd(xg, cheb, wzr, wh)
-        else:
-            ys = graph_gru_scan_reference(xg, cheb, wzr, wh)
-        ctx.save_for_backward(xg, cheb, wzr, wh, ys)
+    def forward(ctx, xg, cheb, keep, wzr, wh):
+        ctx.fused = _check_device("graph_gru_scan", xg)
+        if ctx.fused:
+            if not keep:
+                return graph_gru_scan_cuda_fwd(xg, cheb, wzr, wh)
+            ys, res = graph_gru_scan_cuda_fwd(xg, cheb, wzr, wh, keep=True)
+            ctx.save_for_backward(cheb, wzr, wh, *res)
+            return ys
+        ys = graph_gru_scan_reference(xg, cheb, wzr, wh)
+        ctx.save_for_backward(xg, cheb, wzr, wh)
         return ys
 
     @staticmethod
     def backward(ctx, dys):
-        xg, cheb, wzr, wh, ys = ctx.saved_tensors
-        if xg.device.type == "cuda":
+        saved = ctx.saved_tensors
+        if ctx.fused:
+            cheb, wzr, wh, *res = saved
             dxg, dwzr, dwh = graph_gru_scan_cuda_bwd(
-                xg, cheb, wzr, wh, ys, dys.contiguous())
+                cheb, wzr, wh, GRUResiduals(*res), dys.contiguous())
         else:
+            xg, cheb, wzr, wh = saved
             dxg, dwzr, dwh = _plain_backward(
                 lambda a, b, c: graph_gru_scan_reference(a, cheb, b, c),
                 (xg, wzr, wh), (dys,))
-        return dxg, None, dwzr, dwh
+        return dxg, None, None, dwzr, dwh
 
 
 class GraphLSTMScan(torch.autograd.Function):
@@ -366,7 +501,8 @@ class GraphLSTMScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xg, cheb, w):
-        if _check_device("graph_lstm_scan", xg):
+        ctx.fused = _check_device("graph_lstm_scan", xg)
+        if ctx.fused:
             ys, cs = graph_lstm_scan_cuda_fwd(xg, cheb, w)
         else:
             ys, cs = graph_lstm_scan_reference(xg, cheb, w)
@@ -379,7 +515,7 @@ class GraphLSTMScan(torch.autograd.Function):
         xg, cheb, w, ys, cs = ctx.saved_tensors
         if dys is None and dcs is None:
             return None, None, None
-        if xg.device.type == "cuda":
+        if ctx.fused:
             dys = torch.zeros_like(ys) if dys is None else dys.contiguous()
             dxg, dw = graph_lstm_scan_cuda_bwd(
                 xg, cheb, w, ys, cs, dys,
@@ -398,7 +534,9 @@ def graph_gru_scan(xg: torch.Tensor, cheb: torch.Tensor, wzr: torch.Tensor,
     wzr (H, k 2H) with columns (n, z|r), wh (H, k H) with columns by n ->
     every frame's hidden state (L, B, J, H), the carry starting at zero.
     Differentiable in xg, wzr and wh."""
-    return GraphGRUScan.apply(xg.contiguous(), cheb.contiguous(),
+    keep = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xg, wzr, wh))
+    return GraphGRUScan.apply(xg.contiguous(), cheb.contiguous(), keep,
                               wzr.contiguous(), wh.contiguous())
 
 

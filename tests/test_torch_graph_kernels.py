@@ -2,9 +2,13 @@
 port's plain versions against the JAX package's Pallas kernels in interpret
 mode (``ops/pallas/fused_graph_gru.py``: ``graph_gru_scan``,
 ``graph_lstm_scan``), forward and ``jax.vjp``, on the same numpy-seeded
-inputs; the Chebyshev matrices; the autograd wrappers' CPU route; the FLOP
-and byte counts; the CUDA wrappers refuse CPU tensors; and, on a CUDA card
-only, the kernels against their plain versions.
+inputs; the GRU's training forward with residuals and its backward from
+them (the algorithm the CUDA kernels run) against the same; the Chebyshev
+matrices; the autograd wrappers' CPU route; the weight layout the GRU
+kernels read;
+the FLOP and byte counts; the CUDA wrappers refuse CPU tensors; the build
+key follows the included header; and, on a CUDA card only, the kernels
+against their plain versions.
 
 The JAX kernels take the TPU's slab layout (4 clips interleaved under each
 joint, Kronecker graph constants); the port takes (L, B, J, G H) and the
@@ -161,6 +165,137 @@ def test_scan_gradients_match_jax_vjp(cell, shape, cotangents):
         _scaled_close(g.numpy(), r, name)
 
 
+@pytest.mark.parametrize("shape", ["k2", "k3_h3", "k1"])
+def test_gru_residual_path_matches_jax(shape):
+    """The GRU's plain training forward with residuals, and its plain
+    backward from them (two transposed products a frame, nothing of the
+    forward recomputed: the recurrence the CUDA kernels run), against the
+    Pallas kernel and ``jax.vjp`` of it."""
+    B, L, H, k = SHAPES[shape]
+    xg, (wzr, wh), (dys,) = _inputs("gru", shape)
+    t = torch.from_numpy
+    cheb = _cheb(k)
+    ys, res = G.graph_gru_scan_keep_reference(t(xg), cheb, t(wzr), t(wh))
+    (ref_ys,), grads = _jax_scan("gru", shape)
+    np.testing.assert_allclose(ys.numpy(), ref_ys, rtol=0, atol=FWD_ATOL)
+    got = G.graph_gru_scan_bwd_reference(cheb, t(wzr), t(wh), res, t(dys))
+    for name, g, r in zip(("dxg", "dwzr", "dwh"), got, grads["all"]):
+        assert tuple(g.shape) == r.shape
+        _scaled_close(g.numpy(), r, name)
+
+
+def test_gru_residual_layout():
+    """What the training forward keeps: z, r, h~ in (0, 1), (0, 1) and
+    (-1, 1); sa the previous hidden state expanded (h and T_1 h, zero
+    before the first frame), sb the same of r h, both k H columns wide,
+    unit-major (column u k + n holds T_n's unit u)."""
+    B, L, H, k = SHAPES["k2"]
+    xg, (wzr, wh), _ = _inputs("gru", "k2")
+    cheb = _cheb(k)
+    ys, res = G.graph_gru_scan_keep_reference(
+        torch.from_numpy(xg), cheb, torch.from_numpy(wzr),
+        torch.from_numpy(wh))
+    assert tuple(res.gates.shape) == (L, B, J, 3 * H)
+    assert tuple(res.sa.shape) == tuple(res.sb.shape) == (L * B * J, k * H)
+    z, r, ht = res.gates.split(H, dim=-1)
+    assert bool(((z > 0) & (z < 1) & (r > 0) & (r < 1)).all())
+    assert bool((ht.abs() < 1).all())
+    sa = res.sa.reshape(L, B, J, k * H)
+    sb = res.sb.reshape(L, B, J, k * H)
+    assert not bool(sa[0].any())
+    h_prev = ys[:-1]
+    np.testing.assert_allclose(sa[1:, ..., 0::2].numpy(), h_prev.numpy(),
+                               atol=1e-6)
+    np.testing.assert_allclose(
+        sa[1:, ..., 1::2].numpy(),
+        torch.einsum("ij,lbjc->lbic", cheb[0], h_prev).numpy(), atol=1e-6)
+    np.testing.assert_allclose(sb[1:, ..., 0::2].numpy(),
+                               (r[1:] * h_prev).numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("H,k", [(16, 2), (3, 3), (128, 1)])
+def test_gru_kernel_weight_layouts(H, k):
+    """The GRU kernels read the weights as the caller holds them: the
+    (H, k N) weight as a (k H, N) row-major matrix, whose row u k + n is
+    row u of W_n, times the expanded operand in unit-major order (column
+    u k + n = T_n's unit u) is the scan's sum_n T_n (h W_n); the weight
+    gradient S^T da comes out in the caller's layout."""
+    rng = np.random.default_rng(H + k)
+    cheb = _cheb(k)
+    h = torch.from_numpy(rng.standard_normal((2, J, H)).astype(np.float32))
+    expanded = G._expand(cheb, h)
+    assert tuple(expanded.shape) == (2, J, k * H)
+    for u in range(H):
+        for n in range(k):
+            want = h[..., u] if n == 0 else torch.einsum(
+                "ij,bj->bi", cheb[n - 1], h[..., u])
+            np.testing.assert_allclose(expanded[..., u * k + n].numpy(),
+                                       want.numpy(), atol=1e-6)
+    for N in (2 * H, H):
+        w = torch.from_numpy(rng.standard_normal((H, k * N)).astype(
+            np.float32))
+        view = w.reshape(k * H, N)
+        for u in range(H):
+            for n in range(k):
+                assert torch.equal(view[u * k + n], w[u, n * N:(n + 1) * N])
+        np.testing.assert_allclose((expanded @ view).numpy(),
+                                   G._graph_apply(cheb, h @ w, N).numpy(),
+                                   atol=1e-4)
+        da = torch.from_numpy(rng.standard_normal((2, J, N)).astype(
+            np.float32))
+        grad = expanded.reshape(-1, k * H).t() @ da.reshape(-1, N)
+        want = torch.autograd.grad(
+            G._graph_apply(cheb, h @ w.requires_grad_(True), N), w, da)[0]
+        np.testing.assert_allclose(grad.reshape(H, k * N).numpy(),
+                                   want.numpy(), atol=1e-4)
+
+
+def test_gru_autograd_keeps_residuals_only_for_a_gradient(monkeypatch):
+    """The autograd wrapper asks the kernel route for the residuals only
+    when a gradient will be asked for (the training forward); eval and
+    ``torch.no_grad`` take the plain forward. Shown on CPU tensors with the
+    kernel route forced and the CUDA entries swapped for their plain
+    versions."""
+    calls = []
+
+    def fwd(xg, cheb, wzr, wh, keep=False):
+        calls.append(keep)
+        if keep:
+            return G.graph_gru_scan_keep_reference(xg, cheb, wzr, wh)
+        return G.graph_gru_scan_reference(xg, cheb, wzr, wh)
+    monkeypatch.setattr(G, "_check_device", lambda name, t: True)
+    monkeypatch.setattr(G, "graph_gru_scan_cuda_fwd", fwd)
+    monkeypatch.setattr(G, "graph_gru_scan_cuda_bwd",
+                        G.graph_gru_scan_bwd_reference)
+    xg, (wzr, wh), (dys,) = _inputs("gru", "k2")
+    cheb = _cheb(2)
+    leaves = [torch.from_numpy(a).requires_grad_(True)
+              for a in (xg, wzr, wh)]
+    with torch.no_grad():
+        G.graph_gru_scan(leaves[0], cheb, *leaves[1:])
+    out = G.graph_gru_scan(leaves[0], cheb, *leaves[1:])
+    assert calls == [False, True]
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(dys))
+    want = torch.autograd.grad(
+        G.graph_gru_scan_reference(leaves[0], cheb, *leaves[1:]), leaves,
+        torch.from_numpy(dys))
+    for g, w in zip(got, want):
+        _scaled_close(g.numpy(), w.numpy(), "gradient")
+
+
+def test_library_path_follows_an_included_header(tmp_path):
+    """An edited ``.cuh`` that a source includes rebuilds that source."""
+    header = G._SOURCE.parent / "mma_tf32.cuh"
+    assert f'#include "{header.name}"' in G._SOURCE.read_text()
+    src = tmp_path / G._SOURCE.name
+    src.write_text(G._SOURCE.read_text())
+    (tmp_path / header.name).write_text(header.read_text())
+    first = cuda_build.library_path(src)
+    assert first == cuda_build.library_path(G._SOURCE)
+    (tmp_path / header.name).write_text(header.read_text() + "\n// edited\n")
+    assert cuda_build.library_path(src) != first
+
+
 def test_autograd_wrapper_equals_autograd_of_plain():
     """On CPU tensors the Functions are the plain versions, forward and
     backward, bit for bit."""
@@ -236,10 +371,25 @@ def test_flop_and_byte_counts():
     rows = 256 * 16 * 26
     fwd = TF.graph_scan_flops("gru", 256, 16, 26, 128, 2)
     assert fwd == rows * (2 * 256 * 384 + 2 * 2 * 26 * 128)
+    # the backward reads the gates from the training forward's residuals:
+    # the hidden products twice (dh through da W^T, dW), the transposed
+    # graph once per product (as the forward's graph term)
     assert TF.graph_scan_flops("gru", 256, 16, 26, 128, 2, backward=True) \
-        == rows * (3 * 2 * 256 * 384 + 2 * 2 * 2 * 26 * 128)
+        == rows * (2 * 2 * 256 * 384 + 2 * 2 * 26 * 128)
     assert TF.graph_scan_bytes("gru", 256, 16, 26, 128, 2) \
         == 4 * (rows * 512 + 256 * 384 + 26 * 26)
+    # the training forward also writes the residuals: gates 3H = 384 and
+    # two expanded operands k H = 256 each a row
+    assert TF.graph_scan_bytes("gru", 256, 16, 26, 128, 2, keep=True) \
+        == 4 * (rows * (512 + 384 + 2 * 256) + 256 * 384 + 26 * 26)
+    # the backward: residuals (896), dys (128) in, dxg (384) out a row;
+    # the weights in and their gradients out
+    assert TF.graph_scan_bytes("gru", 256, 16, 26, 128, 2, backward=True) \
+        == 4 * (rows * (896 + 128 + 384) + 2 * (256 * 384 + 26 * 26))
+    # the LSTM's backward still recomputes its gates: three times the
+    # products, twice the graph
+    assert TF.graph_scan_flops("lstm", 256, 16, 26, 128, 2, backward=True) \
+        == rows * (3 * 2 * 256 * 512 + 2 * 2 * 26 * 128)
     # the dense LSTM form: no graph term
     assert TF.graph_scan_flops("lstm", 256, 16, 1, 64, 1) \
         == 256 * 16 * 2 * 64 * 256
@@ -254,8 +404,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     cheb = _cheb(2)
     with pytest.raises(ValueError, match="CUDA"):
         G.graph_gru_scan_cuda_fwd(t(xg), cheb, t(wzr), t(wh))
+    _, res = G.graph_gru_scan_keep_reference(t(xg), cheb, t(wzr), t(wh))
     with pytest.raises(ValueError, match="CUDA"):
-        G.graph_gru_scan_cuda_bwd(t(xg), cheb, t(wzr), t(wh), t(dys), t(dys))
+        G.graph_gru_scan_cuda_bwd(cheb, t(wzr), t(wh), res, t(dys))
     lx, (w,), (dy, dc) = _inputs("lstm", "k2")
     with pytest.raises(ValueError, match="CUDA"):
         G.graph_lstm_scan_cuda_fwd(t(lx), cheb, t(w))
@@ -308,3 +459,77 @@ def test_cuda_scan_matches_plain(cuda_device, cell, shape):
     want = torch.autograd.grad(refs, leaves, cots)
     for g, r in zip(got, want):
         _scaled_close(g.cpu().numpy(), r.cpu().numpy(), "gradient")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_cuda_gru_keep_forward_matches_plain(cuda_device, shape):
+    """The training forward kernel's outputs and residuals against the
+    plain forward with residuals."""
+    xg, weights, _ = _inputs("gru", shape)
+    cheb = _cheb(SHAPES[shape][3]).to(cuda_device)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (xg, *weights)]
+    ys, res = G.graph_gru_scan_cuda_fwd(args[0], cheb, *args[1:], keep=True)
+    ref_ys, ref_res = G.graph_gru_scan_keep_reference(args[0], cheb,
+                                                      *args[1:])
+    for got, want in zip((ys, *res), (ref_ys, *ref_res)):
+        assert float((got - want).abs().max()) <= FWD_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_cuda_gru_backward_from_residuals_matches_plain(cuda_device, shape):
+    """The backward kernel from the training forward kernel's residuals
+    against the plain backward from the same residuals; the same bits
+    twice."""
+    xg, weights, (dys,) = _inputs("gru", shape)
+    cheb = _cheb(SHAPES[shape][3]).to(cuda_device)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (xg, *weights)]
+    dys = torch.from_numpy(dys).to(cuda_device)
+    _, res = G.graph_gru_scan_cuda_fwd(args[0], cheb, *args[1:], keep=True)
+    got = G.graph_gru_scan_cuda_bwd(cheb, *args[1:], res, dys)
+    again = G.graph_gru_scan_cuda_bwd(cheb, *args[1:], res, dys)
+    want = G.graph_gru_scan_bwd_reference(cheb, *args[1:], res, dys)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        _scaled_close(g.cpu().numpy(), w.cpu().numpy(), "gradient")
+
+
+#: (B, L, J, H, k) past the main path's widths: hidden 256 and k=3 with
+#: hidden 128 (one clip a thread block), hidden 320 (the reverse scan on
+#: the 128-column weight ring); hidden 448 for the forward alone (its
+#: 128-column ring; the reverse scan does not fit there)
+CUDA_WIDE_SHAPES = [(4, 3, J, 256, 2), (4, 3, J, 128, 3), (2, 3, J, 320, 2)]
+CUDA_WIDE_FORWARD_SHAPES = [(2, 3, J, 448, 2)]
+
+
+def _wide_case(shape, device):
+    B, L, _, H, k = shape
+    rng = np.random.default_rng(H + k)
+
+    def rnd(*s, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(s)).astype(
+            np.float32)).to(device)
+    return (rnd(L, B, J, 3 * H), _cheb(k).to(device),
+            rnd(H, k * 2 * H, scale=H ** -0.5), rnd(H, k * H, scale=H ** -0.5),
+            rnd(L, B, J, H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CUDA_WIDE_SHAPES + CUDA_WIDE_FORWARD_SHAPES)
+def test_cuda_gru_wide_shapes_match_plain(cuda_device, shape):
+    """The GRU kernels at widths past the main path's: the forward (and,
+    where it fits, the backward) against the plain versions."""
+    B, L, _, H, k = shape
+    xg, cheb, wzr, wh, dys = _wide_case(shape, cuda_device)
+    ys, res = G.graph_gru_scan_cuda_fwd(xg, cheb, wzr, wh, keep=True)
+    ref_ys, ref_res = G.graph_gru_scan_keep_reference(xg, cheb, wzr, wh)
+    for got, want in zip((ys, *res), (ref_ys, *ref_res)):
+        assert float((got - want).abs().max()) <= FWD_ATOL
+    if shape in CUDA_WIDE_FORWARD_SHAPES:
+        assert G.graph_gru_plan(B, J, H, k, backward=True)[0] == 0
+        return
+    got = G.graph_gru_scan_cuda_bwd(cheb, wzr, wh, res, dys)
+    want = G.graph_gru_scan_bwd_reference(cheb, wzr, wh, res, dys)
+    for g, w in zip(got, want):
+        _scaled_close(g.cpu().numpy(), w.cpu().numpy(), "gradient")
