@@ -5,7 +5,7 @@
 Phases, each printing one JSON line:
   1. device       -- requires CUDA; the card's name and power limit
                      (nvidia-smi).
-  2. build        -- builds the five kernel libraries with nvcc from this
+  2. build        -- builds the six kernel libraries with nvcc from this
                      checkout's csrc/ (sm_90a), in parallel; their ptxas
                      summaries.
   3. kernel       -- the serving kernel against its plain PyTorch version on
@@ -119,14 +119,23 @@ Phases, each printing one JSON line:
                      k=1; k=3 with H=3; L=1; the dense form (J=1, H=64, no
                      graph matrices); the GRU's training forward (keep) too,
                      its outputs and residuals against the plain forward
-                     with residuals. Bar: max |kernel - plain| <= 1e-5.
+                     with residuals. The dense LSTM kernels (k=1,
+                     csrc/fused_dense_lstm.cu) at DENSE_LSTM_SHAPES: the
+                     dense form, B in {253, 5}, L=1, J=26, H=36; their
+                     training forward (ys, cs, gates) against the plain one,
+                     the same bits twice, the weight also read as a stacked
+                     weight's transpose. Bar: max |kernel - plain| <= 1e-5.
  17. kernel_graph_gru_bwd, kernel_graph_lstm_bwd -- their backward kernels
                      against autograd of the plain versions with seeded
                      cotangents (the GRU's from the residuals of its
                      training forward kernel; the LSTM with and without the
-                     cell states' cotangent): each gradient over its
-                     largest magnitude within rtol 1e-4 / atol 1e-5; two
-                     launches give the same bits.
+                     cell states' cotangent; the dense LSTM kernels from
+                     their training forward's residuals at
+                     DENSE_LSTM_SHAPES): each gradient over its largest
+                     magnitude within rtol 1e-4 / atol 1e-5; two launches
+                     give the same bits. The route's boundary through
+                     graph_lstm_scan: H=64 launches the dense kernels, H=65
+                     the graph-form ones, both against the plain version.
  18. train_classification -- Trainer.fit of ClassificationFlow(GConvGRU())
                      (H=128, k=2, dropout 0.2, graph_kernel="auto"), AdamW lr
                      1e-3, Carla2D3D B=256, L=16: 20 steps and 2 validation
@@ -136,23 +145,32 @@ Phases, each printing one JSON line:
                      restores exactly. 20 steps on one repeated batch
                      (dropout off, lr 1e-4) lower the loss. With dropout off, "fused" and "plain" flows
                      step by step from the same params: losses to rtol 1e-4.
-                     Short fits of GConvLSTM and LSTM(rnn_kernel="fused")
-                     launch the LSTM kernels.
+                     Short fits of GConvLSTM (the graph-form LSTM kernels)
+                     and LSTM(rnn_kernel="fused") (the dense kernels) count
+                     their launches.
  19. serve_classification -- 8 eval_steps at B=256: 2 forward entries each,
                      no backward launch, logits equal to the plain model's
                      within 1e-5.
  20. timing_classification -- CUDA-event medians (L2 cold and warm) of the
-                     four scan kernels at the main path's shape (and the LSTM
-                     pair at the dense form; the GRU's training forward;
+                     four scan kernels at the main path's shape (and the
+                     graph-form LSTM pair at the dense form; the GRU's
+                     training forward;
                      rows 10 and 11 beside their earlier design's times),
                      their plain versions, each kernel's bound from
                      ops/flops.py (the GRU's at the 3xTF32 rate and the
-                     fp32 peak); torch.nn.LSTM (cuDNN) as the dense form's
-                     library yardstick, first held to the plain version;
-                     host-clock medians of a
-                     training_step and an eval_step; a CUDA-event split of
-                     the step (input convolutions, scans forward, scans
-                     backward, AdamW, the rest).
+                     fp32 peak); the dense LSTM kernels at the dense form
+                     (forward, training forward, backward) with
+                     torch.nn.LSTM (cuDNN) as their library yardstick, first
+                     held to the plain version, alone and in 10 alternating
+                     pairs; the identity input products that yardstick
+                     runs beyond the kernels, alone; one LSTM layer at the
+                     classifier's input widths, the dense kernels' layer
+                     against cuDNN's in 10 alternating pairs;
+                     host-clock medians of a training_step and an eval_step,
+                     and of the LSTM classifier's (hidden 64, 2 layers) on
+                     the dense kernels and on the plain loop; a CUDA-event
+                     split of the step (input convolutions, scans forward,
+                     scans backward, AdamW, the rest).
      profile_classification_train -- a torch.profiler trace of 3 such
                      steps: device busy share, top device operations, the
                      shares of rows 10 and 11, row 11 split into its reverse
@@ -236,6 +254,21 @@ GRU_WIDE_SHAPES = ((CLS_BATCH, CLIP, CLS_J, 256, 2),
 GRU_WIDE_FORWARD_SHAPES = ((32, CLIP, CLS_J, 448, 2),)
 GRU_RINGS = {128, 256}
 SCAN_BAR = 1e-5
+#: the dense LSTM kernels (k = 1, csrc/fused_dense_lstm.cu) at the dense
+#: form, ragged B, one frame, k = 1 at GConvLSTM's J = 26 and a width that
+#: pads to 8 units; H = 64 is the widest the dense route takes and H = 65
+#: the next (the graph-form kernels run it, through the same entry)
+DENSE_LSTM_SHAPES = (CLS_DENSE, (253, CLIP, 1, 64, 1), (5, CLIP, 1, 64, 1),
+                     (CLS_BATCH, 1, 1, 64, 1), (CLS_BATCH, CLIP, CLS_J, 64, 1),
+                     (CLS_BATCH, CLIP, 1, 36, 1))
+DENSE_LSTM_MAX_H = 64
+DENSE_LSTM_PAST = (CLS_BATCH, CLIP, 1, DENSE_LSTM_MAX_H + 1, 1)
+#: the LSTM classifier's layer input widths (26 joints x 2 coordinates,
+#: then the hidden width), at which one layer on the dense kernels meets
+#: torch.nn.LSTM; the two layers' outputs agree within LAYER_BAR (two fp32
+#: input products summed in different orders)
+DENSE_LAYER_INPUTS = (2 * CLS_J, CLS_DENSE[3])
+LAYER_BAR = 1e-4
 #: H100 memory rates (NVIDIA data sheets), bytes/s, and the float32 (non
 #: tensor-core) peak of the SXM part, FLOP/s
 HBM_RATE = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
@@ -288,7 +321,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     sources = (FP._SOURCE, FP._TRAIN_SOURCE, FS._SOURCE, FT._SOURCE,
-               FG._SOURCE)
+               FG._SOURCE, FG._DENSE_SOURCE)
 
     def build(source):
         t = time.perf_counter()
@@ -325,7 +358,9 @@ def kernel_wrappers():
             "graph_gru_scan": FG.graph_gru_scan_cuda_fwd,
             "graph_gru_scan_bwd": FG.graph_gru_scan_cuda_bwd,
             "graph_lstm_scan": FG.graph_lstm_scan_cuda_fwd,
-            "graph_lstm_scan_bwd": FG.graph_lstm_scan_cuda_bwd}
+            "graph_lstm_scan_bwd": FG.graph_lstm_scan_cuda_bwd,
+            "dense_lstm_scan": FG.dense_lstm_scan_cuda_fwd,
+            "dense_lstm_scan_bwd": FG.dense_lstm_scan_cuda_bwd}
 
 
 def kernel_counts():
@@ -1990,6 +2025,109 @@ def phase_kernel_graph_bwd(cell):
     return worst
 
 
+def phase_kernel_dense_lstm():
+    """The dense LSTM kernels' training forward (ys, cs, gates) and plain
+    forward against the plain training forward at DENSE_LSTM_SHAPES, the
+    plain forward reading the weight as a stacked weight's transpose; two
+    launches give the same bits."""
+    from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
+
+    rng = np.random.default_rng(SEED + 14)
+    worst = 0.0
+    for shape in DENSE_LSTM_SHAPES:
+        B, _, J, H, _ = shape
+        xg, _, (w,), _ = graph_case(rng, "lstm", shape)
+        with torch.no_grad():
+            refs = FG.dense_lstm_scan_keep_reference(xg, w)
+            keep = FG.dense_lstm_scan_cuda_fwd(xg, w, keep=True)
+            again = FG.dense_lstm_scan_cuda_fwd(xg, w, keep=True)
+            plain = FG.dense_lstm_scan_cuda_fwd(xg, w.t().contiguous().t())
+        torch.cuda.synchronize()
+        errs = [float((o - r).abs().max())
+                for o, r in zip((*keep, *plain), (*refs, *refs[:2]))]
+        same = all(torch.equal(a, b) for a, b in zip(keep, again))
+        finite = all(bool(torch.isfinite(o).all()) for o in (*keep, *plain))
+        emit({"phase": "kernel_graph_lstm", "entry": "dense_lstm_scan_cuda_fwd",
+              "B_L_J_H_k": shape, "max_abs_err": max(errs),
+              "keep_ys_cs_gates_err": errs[:3],
+              "transposed_weight_ys_cs_err": errs[3:], "same_bits_twice": same,
+              "finite": finite,
+              "plan_fwd_bwd_rows_smem_blocks": FG.dense_lstm_plan(B, J, H)})
+        if not (max(errs) <= SCAN_BAR and same and finite):
+            raise AssertionError(f"dense LSTM forward at {shape}: {errs}, "
+                                 f"same bits {same}, finite {finite}")
+        worst = max(worst, max(errs))
+    return worst
+
+
+def check_dense_route():
+    """The route's boundary through the autograd entry graph_lstm_scan:
+    H = DENSE_LSTM_MAX_H on the dense kernels, the next H on the
+    graph-form kernels; outputs and gradients against the plain version."""
+    from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
+
+    rng = np.random.default_rng(SEED + 15)
+    worst = 0.0
+    for shape, route in ((CLS_DENSE, "dense"), (DENSE_LSTM_PAST, "graph")):
+        B, _, J, H, _ = shape
+        taken = FG.dense_lstm_plan(B, J, H)[0] > 0
+        if taken != (route == "dense"):
+            raise AssertionError(f"H={H}: dense route taken {taken}")
+        xg, cheb, (w,), cots = graph_case(rng, "lstm", shape)
+        leaves = [t.clone().requires_grad_(True) for t in (xg, w)]
+        reset_kernel_counts()
+        outs = FG.graph_lstm_scan(leaves[0], cheb, leaves[1], with_c=True)
+        got = torch.autograd.grad(outs, leaves, cots)
+        counts = {k: v for k, v in kernel_counts().items() if v}
+        if counts != {f"{route}_lstm_scan": 1, f"{route}_lstm_scan_bwd": 1}:
+            raise AssertionError(f"H={H} launched {counts}")
+        refs = FG.graph_lstm_scan_reference(xg, cheb, w)
+        err = max(float((o.detach() - r).abs().max())
+                  for o, r in zip(outs, refs))
+        if not err <= SCAN_BAR:
+            raise AssertionError(f"graph_lstm_scan at H={H}: {err}")
+        ref = plain_grads(lambda t: FG.graph_lstm_scan_reference(
+            t[0], cheb, t[1]), [xg, w], cots)
+        worst = max(worst, check_grads(
+            "kernel_graph_lstm_bwd", f"graph_lstm_scan ({route} route)",
+            list(shape), ("dxg", "dw"), got, None, ref, launches=counts,
+            forward_max_abs_err=err))
+    return worst
+
+
+def phase_kernel_dense_lstm_bwd():
+    """The dense LSTM's backward kernels from the training forward
+    kernel's residuals against autograd of the plain version, with and
+    without the cell states' cotangent, the same bits twice (and with the
+    weight read as a stacked weight's transpose at the dense form); then
+    the route's boundary."""
+    from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
+
+    rng = np.random.default_rng(SEED + 16)
+    worst = 0.0
+    for shape in DENSE_LSTM_SHAPES:
+        xg, cheb, (w,), cots = graph_case(rng, "lstm", shape)
+        with torch.no_grad():
+            ys, cs, gates = FG.dense_lstm_scan_cuda_fwd(xg, w, keep=True)
+        for used in (2, 1):
+            dcs = cots[1] if used == 2 else None
+
+            def launch(weight=w):
+                return FG.dense_lstm_scan_cuda_bwd(weight, gates, ys, cs,
+                                                   cots[0], dcs)
+            got = launch()
+            again = launch(w.t().contiguous().t()) if shape == CLS_DENSE \
+                else launch()
+            ref = plain_grads(lambda t: FG.graph_lstm_scan_reference(
+                t[0], cheb, t[1])[:used], [xg, w], cots[:used])
+            what = "dense_lstm_scan_cuda_bwd" + (
+                " (ys and cs cotangents)" if used == 2 else "")
+            worst = max(worst, check_grads(
+                "kernel_graph_lstm_bwd", what, list(shape), ("dxg", "dw"),
+                got, again, ref))
+    return max(worst, check_dense_route())
+
+
 def make_cls_flow(name="GConvGRU", lr=LR, **model_kwargs):
     from pedestrians_video_2_carla_torch.flows.classification import \
         ClassificationFlow
@@ -2112,18 +2250,21 @@ def phase_train_classification(dm):
         raise AssertionError(f"the plain route launched a kernel: "
                              f"{kernel_counts()}")
 
-    # the LSTM kernels on real paths: GConvLSTM's two layers, and the LSTM
-    # classifier's two dense layers
-    lstm_expected = {"graph_lstm_scan": 2 * (CLS_SHORT_STEPS + 1),
-                     "graph_lstm_scan_bwd": 2 * CLS_SHORT_STEPS}
-    lstm_counts = {}
-    for run_name, short in (
-            ("GConvLSTM", make_cls_flow("GConvLSTM")),
-            ("LSTM", make_cls_flow("LSTM", rnn_kernel="fused"))):
+    # the LSTM kernels on real paths: GConvLSTM's two layers (k=2: the
+    # graph-form kernels), and the LSTM classifier's two dense layers (the
+    # dense kernels)
+    lstm_counts, lstm_total = {}, {}
+    for run_name, short, entry in (
+            ("GConvLSTM", make_cls_flow("GConvLSTM"), "graph_lstm_scan"),
+            ("LSTM", make_cls_flow("LSTM", rnn_kernel="fused"),
+             "dense_lstm_scan")):
+        expected = {entry: 2 * (CLS_SHORT_STEPS + 1),
+                    f"{entry}_bwd": 2 * CLS_SHORT_STEPS}
         c, short_losses, _, _ = fit_classifier(
-            short, dm, CLS_SHORT_STEPS, 1, run_name, lstm_expected)
+            short, dm, CLS_SHORT_STEPS, 1, run_name, expected)
         lstm_counts[run_name] = {k: v for k, v in c.items() if v}
         lstm_counts[run_name]["train_loss_primary"] = short_losses
+        lstm_total.update({k: c[k] for k in expected})
     emit({"phase": "train_classification", "B": dm.batch_size, "L": CLIP,
           "steps": CLS_TRAIN_STEPS, "val_batches": VAL_BATCHES,
           "launches": {k: v for k, v in counts.items() if v},
@@ -2134,8 +2275,6 @@ def phase_train_classification(dm):
           "restored_equal": True, "repeated_batch_losses": repeated,
           "fused_vs_plain_losses": per_step,
           "fused_vs_plain_max_rel": worst, "lstm_fits": lstm_counts})
-    lstm_total = {k: sum(c[k] for c in lstm_counts.values())
-                  for k in lstm_expected}
     return {**counts, **lstm_total}
 
 
@@ -2175,20 +2314,21 @@ def phase_serve_classification(dm):
 
 
 def scan_bound(cell, shape, hbm_rate, backward=False, with_dcs=False,
-               keep=False):
-    """The scan's bound from ops/flops.py at the fp32 peak; the GRU's,
-    whose products run in 3xTF32, also at that rate (``bound_ms_3xtf32``,
-    which the kernels line takes)."""
+               keep=False, dense=False):
+    """The scan's bound from ops/flops.py at the fp32 peak; the GRU's and
+    the dense LSTM's, whose products run in 3xTF32, also at that rate
+    (``bound_ms_3xtf32``, which the kernels line takes)."""
     from pedestrians_video_2_carla_torch.ops import flops as F
 
     B, L, J, H, k = shape
-    nflop = F.graph_scan_flops(cell, B, L, J, H, k, backward)
-    nbytes = F.graph_scan_bytes(cell, B, L, J, H, k, backward, with_dcs, keep)
+    nflop = F.graph_scan_flops(cell, B, L, J, H, k, backward, dense)
+    nbytes = F.graph_scan_bytes(cell, B, L, J, H, k, backward, with_dcs, keep,
+                                dense)
     t_bytes, t_flop = nbytes / hbm_rate, nflop / FP32_PEAK
     out = {"bytes": nbytes, "flop": nflop,
            "bound_ms": max(t_bytes, t_flop) * 1e3,
            "bound_by": "bytes" if t_bytes >= t_flop else "operations"}
-    if cell == "gru":
+    if cell == "gru" or dense:
         t_tc = nflop / TF32X3_PEAK
         out.update(bound_ms_fp32_peak=out["bound_ms"],
                    bound_ms_3xtf32=max(t_bytes, t_tc) * 1e3,
@@ -2260,17 +2400,17 @@ def time_scan(cell, shape, flush, hbm_rate, rng):
     return out
 
 
-def time_library_lstm(flush, rng):
+def library_lstm(xg, cheb, w, cots):
     """torch.nn.LSTM (cuDNN, one layer) as the dense LSTM form's library
     yardstick: fed the scan's own input, the gate pre-activations, through
     an identity input weight (its gate order is the scan's, i|f|g|o), the
     scan's hidden weights, zero biases. Held to the plain version within
-    the scan's bar, then timed forward and backward (torch.autograd.grad
-    alone)."""
+    the scan's bar; returns its forward and its backward
+    (torch.autograd.grad alone, both cotangents) as calls, and the
+    error."""
     from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
 
-    B, L, _, H, _ = CLS_DENSE
-    xg, cheb, (w,), cots = graph_case(rng, "lstm", CLS_DENSE)
+    H = w.shape[0]
     lib = torch.nn.LSTM(4 * H, H, num_layers=1).cuda()
     with torch.no_grad():
         lib.weight_ih_l0.copy_(torch.eye(4 * H))
@@ -2292,9 +2432,132 @@ def time_library_lstm(flush, rng):
 
     def bwd():
         torch.autograd.grad(out, leaves, g, retain_graph=True)
-    return {"fwd_ms": cuda_median_ms(fwd, flush=flush),
-            "bwd_ms": cuda_median_ms(bwd, flush=flush),
-            "max_abs_err_vs_plain": err}
+    return fwd, bwd, err
+
+
+def time_dense_lstm(flush, hbm_rate, rng):
+    """The dense LSTM kernels at CLS_DENSE: CUDA-event medians of the
+    forward, the training forward (``keep``) and the backward from its
+    residuals (both cotangents), L2 cold and warm; the plain version and
+    autograd of it; the bounds at the 3xTF32 rate; torch.nn.LSTM (cuDNN),
+    alone and in TIMING_PAIRS alternating pairs with each kernel; the
+    products of that yardstick's identity input weight alone (its forward's
+    x W_ih^T, its backward's dx and dW_ih: (L B, 4H) x (4H, 4H) each),
+    which the kernels do not run; the layer comparison of
+    ``time_dense_lstm_layers``."""
+    from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
+
+    B, _, J, H, _ = CLS_DENSE
+    xg, cheb, (w,), cots = graph_case(rng, "lstm", CLS_DENSE)
+    with torch.no_grad():
+        ys, cs, gates = FG.dense_lstm_scan_cuda_fwd(xg, w, keep=True)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (xg, w)]
+    graph = FG.graph_lstm_scan_reference(leaves[0], cheb, leaves[1])
+    lib_fwd, lib_bwd, lib_err = library_lstm(xg, cheb, w, cots)
+
+    def fwd():
+        FG.dense_lstm_scan_cuda_fwd(xg, w)
+
+    def fwd_keep():
+        FG.dense_lstm_scan_cuda_fwd(xg, w, keep=True)
+
+    def bwd():
+        FG.dense_lstm_scan_cuda_bwd(w, gates, ys, cs, *cots)
+
+    def plain_fwd():
+        with torch.no_grad():
+            FG.graph_lstm_scan_reference(xg, cheb, w)
+
+    def plain_bwd():
+        torch.autograd.grad(graph, leaves, cots, retain_graph=True)
+
+    a = xg.reshape(-1, 4 * H)
+    eye = torch.eye(4 * H, device=a.device)
+
+    def input_fwd():
+        torch.mm(a, eye)
+
+    def input_bwd():
+        torch.mm(a, eye)
+        torch.mm(a.t(), a)
+    return {
+        "plan_fwd_bwd_rows_smem_blocks": FG.dense_lstm_plan(B, J, H),
+        "fwd": {"ms_cold_l2": cuda_median_ms(fwd, flush=flush),
+                "ms_warm_l2": cuda_median_ms(fwd),
+                "plain_ms": cuda_median_ms(plain_fwd),
+                "library_ms": cuda_median_ms(lib_fwd, flush=flush),
+                "paired_vs_library": paired_ms(fwd, lib_fwd, flush),
+                **scan_bound("lstm", CLS_DENSE, hbm_rate, dense=True)},
+        "fwd_keep": {"ms_cold_l2": cuda_median_ms(fwd_keep, flush=flush),
+                     "ms_warm_l2": cuda_median_ms(fwd_keep),
+                     **scan_bound("lstm", CLS_DENSE, hbm_rate, keep=True,
+                                  dense=True)},
+        "bwd": {"ms_cold_l2": cuda_median_ms(bwd, flush=flush),
+                "ms_warm_l2": cuda_median_ms(bwd),
+                "plain_ms": cuda_median_ms(plain_bwd),
+                "library_ms": cuda_median_ms(lib_bwd, flush=flush),
+                "paired_vs_library": paired_ms(bwd, lib_bwd, flush),
+                **scan_bound("lstm", CLS_DENSE, hbm_rate, True, True,
+                             dense=True)},
+        "library_identity_input_products_ms": {
+            "fwd": cuda_median_ms(input_fwd, flush=flush),
+            "bwd": cuda_median_ms(input_bwd, flush=flush)},
+        "library_max_abs_err_vs_plain": lib_err,
+        "layer_vs_library": time_dense_lstm_layers(flush, rng)}
+
+
+def time_dense_lstm_layers(flush, rng):
+    """One LSTM layer at B=256, L=16, H=64 for each of DENSE_LAYER_INPUTS:
+    HoistedLSTM(kernel="fused") (the hoisted input product, the bias, the
+    dense kernels) against torch.nn.LSTM (cuDNN, no TF32) holding the same
+    weights, both at the layer's real input width, so that neither runs
+    work the other does not. Forward under no_grad, backward
+    torch.autograd.grad to the input and every weight, each in
+    TIMING_PAIRS alternating pairs; the outputs held within LAYER_BAR."""
+    from pedestrians_video_2_carla_torch.models.rnn import HoistedLSTM
+
+    B, L, _, H, _ = CLS_DENSE
+    out = {}
+    for width in DENSE_LAYER_INPUTS:
+        gen = torch.Generator().manual_seed(SEED + width)
+        layer = HoistedLSTM(width, H, kernel="fused", generator=gen).cuda()
+        lib = torch.nn.LSTM(width, H, batch_first=True).cuda()
+        with torch.no_grad():
+            lib.weight_ih_l0.copy_(layer._stacked("i"))
+            lib.weight_hh_l0.copy_(layer._stacked("h"))
+            lib.bias_ih_l0.zero_()
+            lib.bias_hh_l0.copy_(torch.cat(
+                [getattr(layer, f"h{g}").bias for g in layer.GATES]))
+        x = torch.from_numpy(rng.standard_normal((B, L, width)).astype(
+            np.float32)).cuda().requires_grad_(True)
+        g = torch.from_numpy(rng.standard_normal((B, L, H)).astype(
+            np.float32)).cuda()
+        ys = layer(x)[1]
+        ref = lib(x)[0]
+        err = float((ys.detach() - ref.detach()).abs().max())
+        if err > LAYER_BAR:
+            raise AssertionError(f"dense LSTM layer vs torch.nn.LSTM at "
+                                 f"input width {width}: {err}")
+        ours = [x, *layer.parameters()]
+        theirs = [x, *lib.parameters()]
+
+        def fwd():
+            with torch.no_grad():
+                layer(x)
+
+        def lib_fwd():
+            with torch.no_grad():
+                lib(x)
+
+        def bwd():
+            torch.autograd.grad(ys, ours, g, retain_graph=True)
+
+        def lib_bwd():
+            torch.autograd.grad(ref, theirs, g, retain_graph=True)
+        out[width] = {"fwd": paired_ms(fwd, lib_fwd, flush),
+                      "bwd": paired_ms(bwd, lib_bwd, flush),
+                      "max_abs_err_vs_library": err}
+    return out
 
 
 def phase_timing_classification(dm, card, hbm_rate):
@@ -2312,7 +2575,7 @@ def phase_timing_classification(dm, card, hbm_rate):
              "lstm": time_scan("lstm", CLS_MAIN, flush_l2, hbm_rate, rng),
              "lstm_dense": time_scan("lstm", CLS_DENSE, flush_l2, hbm_rate,
                                      rng)}
-    library = time_library_lstm(flush_l2, rng)
+    dense = time_dense_lstm(flush_l2, hbm_rate, rng)
     torch.cuda.empty_cache()
 
     flow = make_cls_flow()
@@ -2321,6 +2584,23 @@ def phase_timing_classification(dm, card, hbm_rate):
     params = flow.init_params()
     step_ms = host_median_ms(lambda: flow.training_step(state, batch))
     eval_ms = host_median_ms(lambda: flow.eval_step(params, batch))
+
+    # the LSTM classifier (published widths: hidden 64, 2 layers, dropout
+    # 0.25) on the dense kernels and on the plain loop
+    lstm_path = {}
+    for route in ("fused", "plain"):
+        lstm_flow = make_cls_flow("LSTM", rnn_kernel=route)
+        model = lstm_flow.classification_model
+        if (model.hidden_size, model.num_layers, model.p_dropout) \
+                != (64, 2, 0.25):
+            raise AssertionError("the LSTM classifier's defaults changed")
+        lstm_state = lstm_flow.init_state()
+        lstm_params = lstm_flow.init_params()
+        lstm_path[route] = {
+            "train_step_ms_host": host_median_ms(
+                lambda: lstm_flow.training_step(lstm_state, batch)),
+            "eval_step_ms_host": host_median_ms(
+                lambda: lstm_flow.eval_step(lstm_params, batch))}
 
     # a CUDA-event split of a step: the body of training_step with events
     # between its parts, around each layer (input convolutions + scan),
@@ -2380,8 +2660,9 @@ def phase_timing_classification(dm, card, hbm_rate):
                      (statistics.median(c) for c in zip(*splits))))
     emit({"phase": "timing_classification", "card": card,
           "B_L_J_H_k": CLS_MAIN, "dense_B_L_J_H_k": CLS_DENSE,
-          "kernels": times, "library_lstm_dense": library,
+          "kernels": times, "dense_lstm": dense,
           "train_step_ms_host": step_ms, "eval_step_ms_host": eval_ms,
+          "lstm_classifier_steps": lstm_path,
           "train_step_split_cuda_events": split,
           "method": "kernels, plain versions (autograd of them for the "
                     "backward, timed around torch.autograd.grad alone) and "
@@ -2407,23 +2688,37 @@ def phase_timing_classification(dm, card, hbm_rate):
             "gru_bwd": entry(gru["bwd"],
                              bound_ms_fp32_peak=gru["bwd"][
                                  "bound_ms_fp32_peak"]),
-            # the LSTM pair at the dense form, where a library call exists;
-            # the graph form (GConvLSTM's layer) beside it
-            "lstm_fwd": entry(times["lstm_dense"]["fwd"], library["fwd_ms"],
-                              shape_B_L_J_H_k=CLS_DENSE,
-                              graph_form_ms=graph["fwd"]["ms_cold_l2"],
-                              graph_form_bound_ms=graph["fwd"]["bound_ms"]),
-            "lstm_bwd": entry(times["lstm_dense"]["bwd"], library["bwd_ms"],
-                              shape_B_L_J_H_k=CLS_DENSE,
-                              graph_form_ms=graph["bwd"]["ms_cold_l2"],
-                              graph_form_bound_ms=graph["bwd"]["bound_ms"])}
+            # the graph-form LSTM pair at GConvLSTM's layer (no PyTorch call
+            # computes it), the graph-form kernels' time at the dense shape
+            # beside it (their route before the dense kernels)
+            "lstm_fwd": entry(graph["fwd"], shape_B_L_J_H_k=CLS_MAIN,
+                              graph_form_dense_shape_ms=times["lstm_dense"][
+                                  "fwd"]["ms_cold_l2"]),
+            "lstm_bwd": entry(graph["bwd"], shape_B_L_J_H_k=CLS_MAIN,
+                              graph_form_dense_shape_ms=times["lstm_dense"][
+                                  "bwd"]["ms_cold_l2"]),
+            # the dense pair, with cuDNN as the library call
+            "dense_lstm_fwd": entry(
+                dense["fwd"], dense["fwd"]["library_ms"],
+                shape_B_L_J_H_k=CLS_DENSE,
+                bound_ms_fp32_peak=dense["fwd"]["bound_ms_fp32_peak"],
+                keep_ms=dense["fwd_keep"]["ms_cold_l2"],
+                keep_bound_ms=dense["fwd_keep"]["bound_ms"],
+                paired_ratio_vs_library=dense["fwd"]["paired_vs_library"][
+                    "ratio_median"]),
+            "dense_lstm_bwd": entry(
+                dense["bwd"], dense["bwd"]["library_ms"],
+                shape_B_L_J_H_k=CLS_DENSE,
+                bound_ms_fp32_peak=dense["bwd"]["bound_ms_fp32_peak"],
+                paired_ratio_vs_library=dense["bwd"]["paired_vs_library"][
+                    "ratio_median"])}
 
 
 #: the device kernels of rows 10 and 11 (names as the profiler shows them);
 #: row 11 split into its reverse scan and its weight-gradient products
 ROW10_KERNELS = ("gru_scan_fwd",)
 ROW11_SCAN_KERNELS = ("gru_scan_bwd",)
-ROW11_DW_KERNELS = ("gru_dw", "reduce_two")
+ROW11_DW_KERNELS = ("dw_tf32", "reduce_two")
 
 
 def phase_profile_classification_train(dm, card):
@@ -2453,7 +2748,7 @@ def kernel_entry(name, source, replaces, launches, max_err, times):
             "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
             "library_ms": times.get("library_ms"),
             **{k: v for k, v in times.items() if k.startswith(
-                ("shape_", "graph_form_", "keep_", "bound_ms_"))}}
+                ("shape_", "graph_form_", "keep_", "bound_ms_", "paired_"))}}
 
 
 def group_lifting(card, hbm_rate):
@@ -2534,8 +2829,10 @@ def group_classification(card, hbm_rate):
 
     errs = {"gru_fwd": phase_kernel_graph("gru"),
             "lstm_fwd": phase_kernel_graph("lstm"),
+            "dense_lstm_fwd": phase_kernel_dense_lstm(),
             "gru_bwd": phase_kernel_graph_bwd("gru"),
-            "lstm_bwd": phase_kernel_graph_bwd("lstm")}
+            "lstm_bwd": phase_kernel_graph_bwd("lstm"),
+            "dense_lstm_bwd": phase_kernel_dense_lstm_bwd()}
     torch.cuda.empty_cache()
     dm = Carla2D3DDataModule(batch_size=CLS_BATCH, clip_length=CLIP,
                              test_set_size=REQUESTS * CLS_BATCH,
@@ -2547,8 +2844,11 @@ def group_classification(card, hbm_rate):
     names = {"gru_fwd": ("graph_gru_scan", 251),
              "gru_bwd": ("graph_gru_scan_bwd", 291),
              "lstm_fwd": ("graph_lstm_scan", 442),
-             "lstm_bwd": ("graph_lstm_scan_bwd", 486)}
-    return [kernel_entry(name, "fused_graph_gru.cu",
+             "lstm_bwd": ("graph_lstm_scan_bwd", 486),
+             "dense_lstm_fwd": ("dense_lstm_scan", 442),
+             "dense_lstm_bwd": ("dense_lstm_scan_bwd", 486)}
+    return [kernel_entry(name, "fused_dense_lstm.cu" if name.startswith(
+                             "dense") else "fused_graph_gru.cu",
                          f"fused_graph_gru.py:{line}", counts[name],
                          errs[key], times[key])
             for key, (name, line) in names.items()]

@@ -12,8 +12,10 @@ loads through ``models/jax_import.py``.
 
 ``HoistedLSTM(kernel="fused")`` runs the recurrence through
 ``ops/fused_graph_gru.py::graph_lstm_scan`` with no graph matrices and one
-"joint" (a plain dense LSTM over the batch rows): the CUDA kernels on the
-card, their plain version on the CPU. ``"auto"`` keeps the loop in PyTorch
+"joint" (a plain dense LSTM over the batch rows): the dense LSTM kernels on
+the card (``csrc/fused_dense_lstm.cu``, up to H = 64, which read the stacked
+hidden weight's transpose in place; wider layers take the graph-form
+kernels), their plain version on the CPU. ``"auto"`` keeps the loop in PyTorch
 ops, as the JAX package's ``auto`` keeps its scan; an explicit
 ``initial_carry`` always takes the loop.
 """

@@ -1,8 +1,8 @@
 """The frame recurrences of the graph-convolutional GRU and LSTM layers of
 the classification GNNs (``models/classification/gnn.py``) and of the dense
-LSTM (``models/rnn.py``) as CUDA entries, ``csrc/fused_graph_gru.cu`` (a
-forward and a hand-written backward each), with their plain PyTorch
-versions and the autograd wrappers.
+LSTM (``models/rnn.py``) as CUDA entries (a forward and a hand-written
+backward each), with their plain PyTorch versions and the autograd
+wrappers.
 
 They replace the four TPU kernels of the JAX package's
 ``ops/pallas/fused_graph_gru.py`` (``_fwd_kernel``, ``_bwd_kernel``,
@@ -10,8 +10,8 @@ They replace the four TPU kernels of the JAX package's
 convolutions of a layer do not depend on the carry, so the caller computes
 them for the whole clip (``xg``, both biases folded in); only the
 hidden-side products and the gating run here, frame after frame. On an H100
-operations bound both scans: at B=256, L=16, J=26, H=128, k=2 a GRU layer's
-forward is 22.3 GFLOP against 0.22 GB of traffic (``ops/flops.py``).
+operations bound the graph scans: at B=256, L=16, J=26, H=128, k=2 a GRU
+layer's forward is 22.3 GFLOP against 0.22 GB of traffic (``ops/flops.py``).
 
 Layouts are the natural ones (the TPU's interleaved slabs and Kronecker
 constants are not carried over): ``xg`` is (L, B, J, G H), frame-major, with
@@ -20,21 +20,31 @@ holds the Chebyshev matrices T_1 .. T_{k-1} of the (J, J) graph operator,
 (k - 1, J, J) (T_0 = I is implied; k = 1 takes an empty (0, J, J) tensor);
 hidden-side weights are (H, k G' H) with columns ordered by Chebyshev order
 n, then gate, as the TPU kernels take them. The outputs are every frame's
-hidden (and cell) state, (L, B, J, H). A dense LSTM is the case J = 1,
-k = 1.
+hidden (and cell) state, (L, B, J, H).
+
+Routes on the card:
+- the GRU (rows 10, 11): ``csrc/fused_graph_gru.cu``, 3xTF32 tensor-core
+  products; its training forward (``keep``) writes the residuals its
+  backward reads (:class:`GRUResiduals`): z | r | h~ and both expanded
+  operands of every frame. It reads the weights as the caller holds them.
+- the LSTM at k = 1 (no graph term: a dense LSTM over the B J rows; the
+  case J = 1 is ``models/rnn.py``'s), where :func:`dense_lstm_plan` takes
+  the width (H <= 64): ``csrc/fused_dense_lstm.cu``, the weights resident
+  in registers, 3xTF32 tensor-core products; its training
+  forward keeps the activated gates, so its backward recomputes nothing.
+  It reads the weight as given or as the transpose of a contiguous (4H, H)
+  tensor (a stacked ``nn.Linear`` weight), without a copy.
+- the LSTM otherwise (k >= 2, or wider H): ``csrc/fused_graph_gru.cu``'s
+  LSTM kernels, on the CUDA cores, the weights stacked by the wrapper; the
+  backward recomputes the gates.
+The route is chosen from the shape before any launch, never because a
+launch failed.
 
 The wrappers launch the kernels for CUDA tensors and run the plain version
 (and autograd of it) for CPU tensors; there is no fallback from one to the
 other. ``graph_gru_scan_cuda_fwd.launches`` etc. count entry calls; an entry
-is a fixed sequence of launches (forward: 1; GRU backward: 3; LSTM
-backward: 3), described in the source.
-
-The GRU's training forward (``keep``) also writes the residuals its
-backward reads instead of recomputing the forward (:class:`GRUResiduals`):
-the gates z | r | h~ and both expanded operands of every frame. The GRU
-kernels read the weights as the caller holds them and write the weight
-gradients in the same layout; their tiling and padding live in the source
-alone.
+is a fixed sequence of launches (forward: 1; backward: 3), described in the
+sources.
 """
 import functools
 from typing import NamedTuple, Optional, Tuple
@@ -46,6 +56,7 @@ from . import cuda_build
 from .cuda_build import INT as _INT, PTR as _PTR
 
 _SOURCE = cuda_build.CSRC / "fused_graph_gru.cu"
+_DENSE_SOURCE = cuda_build.CSRC / "fused_dense_lstm.cu"
 _SIGNATURES = {
     "pv2c_graph_gru_scan_fwd": [_PTR] * 8 + [_INT] * 5 + [_PTR],
     "pv2c_graph_gru_scan_bwd": [_PTR] * 11 + [_INT] * 5 + [_PTR],
@@ -53,6 +64,14 @@ _SIGNATURES = {
     "pv2c_graph_lstm_scan_bwd": [_PTR] * 12 + [_INT] * 5 + [_PTR],
     "pv2c_graph_scan_part_floats": [_INT] * 6,
     "pv2c_graph_gru_plan": [_INT] * 5 + [_PTR],
+}
+_DENSE_SIGNATURES = {
+    "pv2c_dense_lstm_plan": [_INT] * 4 + [_PTR],
+    "pv2c_dense_lstm_scan_fwd": [_PTR, _PTR, _INT] + [_PTR] * 3 + [_INT] * 4
+    + [_PTR],
+    "pv2c_dense_lstm_part_floats": [_INT] * 4,
+    "pv2c_dense_lstm_scan_bwd": [_PTR, _INT] + [_PTR] * 8 + [_INT] * 4
+    + [_PTR],
 }
 GRU_GATES, LSTM_GATES = 3, 4
 
@@ -257,6 +276,74 @@ def graph_lstm_scan_reference(xg: torch.Tensor, cheb: torch.Tensor,
     return torch.stack(ys), torch.stack(cs)
 
 
+def _check_dense(xg: torch.Tensor, w: torch.Tensor
+                 ) -> Tuple[int, int, int, int]:
+    """Shapes and types of a dense scan call (k = 1); returns (L, B, J,
+    H)."""
+    J = xg.shape[2] if xg.ndim == 4 else 1
+    return _check_scan(xg, xg.new_zeros((0, J, J)), (("w", w, 4),),
+                       LSTM_GATES)[:4]
+
+
+def dense_lstm_scan_keep_reference(xg: torch.Tensor, w: torch.Tensor
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """The plain version of the dense LSTM's training forward (k = 1): xg
+    (L, B, J, 4H), w (H, 4H) -> ``(ys, cs, gates)``, gates (L, B, J, 4H)
+    the activated i | f | g | o of every frame, which the backward reads
+    instead of recomputing them."""
+    L, B, J, H = _check_dense(xg, w)
+    h = xg.new_zeros((B, J, H))
+    c = xg.new_zeros((B, J, H))
+    ys, cs, gates = [], [], []
+    for t in range(L):
+        acts = xg[t] + h @ w
+        i, f, o = (torch.sigmoid(acts[..., n * H:(n + 1) * H])
+                   for n in (0, 1, 3))
+        g = torch.tanh(acts[..., 2 * H:3 * H])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        ys.append(h)
+        cs.append(c)
+        gates.append(torch.cat([i, f, g, o], dim=-1))
+    return torch.stack(ys), torch.stack(cs), torch.stack(gates)
+
+
+def dense_lstm_scan_bwd_reference(w: torch.Tensor, gates: torch.Tensor,
+                                  ys: torch.Tensor, cs: torch.Tensor,
+                                  dys: torch.Tensor,
+                                  dcs: Optional[torch.Tensor] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the dense LSTM's backward from the training
+    forward's gates, ys and cs, frame by frame in reverse as the kernel
+    runs it: one transposed product a frame (dh = dys[t] + da[t+1] W^T),
+    the gating backward with dc carried (plus ``dcs`` where the caller used
+    cs), nothing of the forward recomputed; then dW = sum over frames
+    t >= 1 of ys[t-1]^T da[t] -> ``(dxg, dw)``."""
+    L, B, J, H = dys.shape
+    dh_next = dys.new_zeros((B, J, H))
+    dc_next = dys.new_zeros((B, J, H))
+    das = []
+    for t in reversed(range(L)):
+        i, f, g, o = gates[t].split(H, dim=-1)
+        dh = dys[t] + dh_next
+        tc = torch.tanh(cs[t])
+        dc = dh * o * (1.0 - tc * tc) + dc_next
+        if dcs is not None:
+            dc = dc + dcs[t]
+        c_prev = cs[t - 1] if t > 0 else torch.zeros_like(dc)
+        da = torch.cat([dc * g * i * (1.0 - i),
+                        dc * c_prev * f * (1.0 - f),
+                        dc * i * (1.0 - g * g),
+                        dh * tc * o * (1.0 - o)], dim=-1)
+        dc_next = dc * f
+        dh_next = da @ w.t()
+        das.append(da)
+    dxg = torch.stack(das[::-1])
+    dw = ys[:-1].reshape(-1, H).t() @ dxg[1:].reshape(-1, 4 * H)
+    return dxg, dw
+
+
 # -- the kernels' weight layout ---------------------------------------------
 def _stack(w: torch.Tensor, k: int) -> torch.Tensor:
     """(H, k GH) with columns (n, gate, unit) -> (k H, GH) with rows
@@ -441,6 +528,120 @@ def graph_lstm_scan_cuda_bwd(xg: torch.Tensor, cheb: torch.Tensor,
 graph_lstm_scan_cuda_bwd.launches = 0
 
 
+def _dense_library():
+    return cuda_build.load_library(_DENSE_SOURCE, _DENSE_SIGNATURES)
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_plan(B: int, J: int, H: int, k: int, index: int
+                ) -> Tuple[int, ...]:
+    plan = torch.zeros(6, dtype=torch.int32)
+    with torch.cuda.device(index):
+        err = _dense_library().pv2c_dense_lstm_plan(B, J, H, k,
+                                                    plan.data_ptr())
+    cuda_build.check_launch(err, "pv2c_dense_lstm_plan")
+    return tuple(int(v) for v in plan)
+
+
+def dense_lstm_plan(B: int, J: int, H: int, k: int = 1, device=None
+                    ) -> Tuple[int, ...]:
+    """How the dense LSTM kernels are launched at this shape on a CUDA
+    device: (forward rows a thread block, its shared memory bytes, its
+    thread blocks, the same three of the backward), all zeros where the
+    dense route does not take the shape (k != 1, or H > 64, where the
+    weights no longer fit a thread's registers; the graph-form kernels run
+    it then)."""
+    index = torch.device("cuda" if device is None else device).index
+    return _dense_plan(B, J, H, k, torch.cuda.current_device()
+                       if index is None else index)
+
+
+def _weight_transposed(fn_name: str, w: torch.Tensor) -> int:
+    """How the dense kernels read the weight: 0 for a contiguous (H, 4H)
+    tensor, 1 for the transpose of a contiguous (4H, H) one (read in
+    place); anything else raises."""
+    if w.is_contiguous():
+        return 0
+    if w.t().is_contiguous():
+        return 1
+    raise ValueError(f"{fn_name}: w must be contiguous or the transpose of "
+                     "a contiguous tensor")
+
+
+def dense_lstm_scan_cuda_fwd(xg: torch.Tensor, w: torch.Tensor,
+                             keep: bool = False):
+    """Launch the dense LSTM scan (k = 1) on float32 CUDA tensors: xg
+    (L, B, J, 4H) contiguous, w (H, 4H) contiguous or the transpose of a
+    contiguous (4H, H) -> ``(ys, cs)``; with ``keep`` ``(ys, cs, gates)``
+    for :func:`dense_lstm_scan_cuda_bwd`. Raises where
+    :func:`dense_lstm_plan` does not take the shape. Adds one to
+    ``dense_lstm_scan_cuda_fwd.launches`` per call."""
+    L, B, J, H = _check_dense(xg, w)
+    wt = _weight_transposed("dense_lstm_scan_cuda_fwd", w)
+    device = cuda_build.check_cuda_tensors("dense_lstm_scan_cuda_fwd", xg=xg,
+                                           w=w.t() if wt else w)
+    empty = functools.partial(torch.empty, dtype=torch.float32, device=device)
+    ys, cs = empty((L, B, J, H)), empty((L, B, J, H))
+    gates = empty((L, B, J, 4 * H)) if keep else None
+    if ys.numel():
+        with torch.cuda.device(device):
+            err = _dense_library().pv2c_dense_lstm_scan_fwd(
+                xg.data_ptr(), w.data_ptr(), wt, ys.data_ptr(), cs.data_ptr(),
+                gates.data_ptr() if keep else None, L, B, J, H,
+                _stream(device))
+        cuda_build.check_launch(err, "pv2c_dense_lstm_scan_fwd")
+        dense_lstm_scan_cuda_fwd.launches += 1
+    return (ys, cs, gates) if keep else (ys, cs)
+
+
+dense_lstm_scan_cuda_fwd.launches = 0
+
+
+def dense_lstm_scan_cuda_bwd(w: torch.Tensor, gates: torch.Tensor,
+                             ys: torch.Tensor, cs: torch.Tensor,
+                             dys: torch.Tensor,
+                             dcs: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dense LSTM scan's backward on float32 CUDA tensors: the
+    weight (as :func:`dense_lstm_scan_cuda_fwd` takes it), the ``keep``
+    forward's gates, ys and cs, the cotangent dys and, where the caller
+    used cs, its cotangent dcs -> ``(dxg, dw)``, dw (H, 4H) contiguous.
+    Adds one to ``dense_lstm_scan_cuda_bwd.launches`` per call."""
+    L, B, J, H = _check_dense(gates, w)
+    given = {"ys": ys, "cs": cs, "dys": dys}
+    if dcs is not None:
+        given["dcs"] = dcs
+    for name, t in given.items():
+        if tuple(t.shape) != (L, B, J, H):
+            raise ValueError(f"{name} must be {(L, B, J, H)}, got "
+                             f"{tuple(t.shape)}")
+    wt = _weight_transposed("dense_lstm_scan_cuda_bwd", w)
+    device = cuda_build.check_cuda_tensors(
+        "dense_lstm_scan_cuda_bwd", gates=gates, w=w.t() if wt else w,
+        **given)
+    dw = torch.empty((H, 4 * H), dtype=torch.float32, device=device)
+    if not ys.numel():
+        return torch.zeros_like(gates), dw.zero_()
+    dxg = torch.empty_like(gates)
+    lib = _dense_library()
+    with torch.cuda.device(device):
+        floats = lib.pv2c_dense_lstm_part_floats(L, B, J, H)
+        if floats < 0:
+            cuda_build.check_launch(-floats, "pv2c_dense_lstm_part_floats")
+        part = torch.empty(floats, dtype=torch.float32, device=device)
+        err = lib.pv2c_dense_lstm_scan_bwd(
+            w.data_ptr(), wt, gates.data_ptr(), ys.data_ptr(), cs.data_ptr(),
+            dys.data_ptr(), None if dcs is None else dcs.data_ptr(),
+            dxg.data_ptr(), part.data_ptr(), dw.data_ptr(), L, B, J, H,
+            _stream(device))
+    cuda_build.check_launch(err, "pv2c_dense_lstm_scan_bwd")
+    dense_lstm_scan_cuda_bwd.launches += 1
+    return dxg, dw
+
+
+dense_lstm_scan_cuda_bwd.launches = 0
+
+
 def _plain_backward(reference, inputs, cotangents):
     """Autograd of a plain version over fresh leaves of ``inputs``: the
     backward of the entries on CPU tensors. A ``None`` cotangent is that
@@ -497,34 +698,52 @@ class GraphGRUScan(torch.autograd.Function):
 
 class GraphLSTMScan(torch.autograd.Function):
     """As :class:`GraphGRUScan`, for the LSTM scan; both outputs (ys, cs)
-    are differentiable."""
+    are differentiable. On the card k = 1 takes the dense kernels where
+    :func:`dense_lstm_plan` takes the shape (their training forward, with
+    ``keep``, keeps the gates), else the graph-form kernels."""
 
     @staticmethod
-    def forward(ctx, xg, cheb, w):
+    def forward(ctx, xg, cheb, keep, w):
         ctx.fused = _check_device("graph_lstm_scan", xg)
+        L, B, J, H, k = _check_scan(xg, cheb, (("w", w, 4),), LSTM_GATES)
+        ctx.dense = ctx.fused and k == 1 and \
+            dense_lstm_plan(B, J, H, k, xg.device)[0] > 0
+        ctx.set_materialize_grads(False)
+        if ctx.dense:
+            if not (w.is_contiguous() or w.t().is_contiguous()):
+                w = w.contiguous()
+            if not keep:
+                return dense_lstm_scan_cuda_fwd(xg, w)
+            ys, cs, gates = dense_lstm_scan_cuda_fwd(xg, w, keep=True)
+            ctx.save_for_backward(w, gates, ys, cs)
+            return ys, cs
+        w = w.contiguous()
         if ctx.fused:
             ys, cs = graph_lstm_scan_cuda_fwd(xg, cheb, w)
         else:
             ys, cs = graph_lstm_scan_reference(xg, cheb, w)
         ctx.save_for_backward(xg, cheb, w, ys, cs)
-        ctx.set_materialize_grads(False)
         return ys, cs
 
     @staticmethod
     def backward(ctx, dys, dcs):
-        xg, cheb, w, ys, cs = ctx.saved_tensors
         if dys is None and dcs is None:
-            return None, None, None
+            return None, None, None, None
+        dcs = None if dcs is None else dcs.contiguous()
+        if ctx.dense:
+            w, gates, ys, cs = ctx.saved_tensors
+            dys = torch.zeros_like(ys) if dys is None else dys.contiguous()
+            dxg, dw = dense_lstm_scan_cuda_bwd(w, gates, ys, cs, dys, dcs)
+            return dxg, None, None, dw
+        xg, cheb, w, ys, cs = ctx.saved_tensors
         if ctx.fused:
             dys = torch.zeros_like(ys) if dys is None else dys.contiguous()
-            dxg, dw = graph_lstm_scan_cuda_bwd(
-                xg, cheb, w, ys, cs, dys,
-                None if dcs is None else dcs.contiguous())
+            dxg, dw = graph_lstm_scan_cuda_bwd(xg, cheb, w, ys, cs, dys, dcs)
         else:
             dxg, dw = _plain_backward(
                 lambda a, b: graph_lstm_scan_reference(a, cheb, b),
                 (xg, w), (dys, dcs))
-        return dxg, None, dw
+        return dxg, None, None, dw
 
 
 def graph_gru_scan(xg: torch.Tensor, cheb: torch.Tensor, wzr: torch.Tensor,
@@ -546,7 +765,10 @@ def graph_lstm_scan(xg: torch.Tensor, cheb: torch.Tensor, w: torch.Tensor,
     both biases folded in), cheb (k-1, J, J), w (H, k 4H) with columns
     (n, i|f|c|o) -> the hidden states (L, B, J, H), and with ``with_c`` the
     cell states as well, ``(ys, cs)``. J = 1 with an empty cheb is a dense
-    LSTM over B rows. Differentiable in xg and w."""
-    ys, cs = GraphLSTMScan.apply(xg.contiguous(), cheb.contiguous(),
-                                 w.contiguous())
+    LSTM over B rows. Differentiable in xg and w. The transpose of a
+    contiguous (4H, H) w (a stacked ``nn.Linear`` weight) is read in place
+    where the dense kernels take the shape."""
+    keep = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xg, w))
+    ys, cs = GraphLSTMScan.apply(xg.contiguous(), cheb.contiguous(), keep, w)
     return (ys, cs) if with_c else ys

@@ -5,8 +5,10 @@ mode (``ops/pallas/fused_graph_gru.py``: ``graph_gru_scan``,
 inputs; the GRU's training forward with residuals and its backward from
 them (the algorithm the CUDA kernels run) against the same; the Chebyshev
 matrices; the autograd wrappers' CPU route; the weight layout the GRU
-kernels read;
-the FLOP and byte counts; the CUDA wrappers refuse CPU tensors; the build
+kernels read; the dense LSTM's training forward with gates and its
+backward from them (the algorithm of ``csrc/fused_dense_lstm.cu``) against
+the Pallas kernel at k = 1 and ``jax.vjp``; the LSTM wrapper's route and
+residuals; the FLOP and byte counts; the CUDA wrappers refuse CPU tensors; the build
 key follows the included header; and, on a CUDA card only, the kernels
 against their plain versions.
 
@@ -119,7 +121,7 @@ def test_cheb_matrices_match_jax(k):
 
 @pytest.mark.parametrize("cell,shape", [
     ("gru", "k2"), ("gru", "k3_h3"), ("gru", "k1"), ("lstm", "k2"),
-    ("lstm", "k3_h3")])
+    ("lstm", "k3_h3"), ("lstm", "k1")])
 def test_plain_scan_matches_jax_kernel(cell, shape):
     xg, weights, _ = _inputs(cell, shape)
     outs = _port_reference(cell)(
@@ -141,7 +143,7 @@ def _scaled_close(got, ref, what):
 @pytest.mark.parametrize("cell,shape,cotangents", [
     ("gru", "k2", "all"), ("gru", "k3_h3", "all"), ("gru", "k1", "all"),
     ("lstm", "k2", "all"), ("lstm", "k2", "ys_only"),
-    ("lstm", "k3_h3", "all")])
+    ("lstm", "k3_h3", "all"), ("lstm", "k1", "all")])
 def test_scan_gradients_match_jax_vjp(cell, shape, cotangents):
     """The entries' gradients on the CPU (autograd of the plain versions,
     through the autograd wrappers) against ``jax.vjp`` of the Pallas
@@ -283,13 +285,110 @@ def test_gru_autograd_keeps_residuals_only_for_a_gradient(monkeypatch):
         _scaled_close(g.numpy(), w.numpy(), "gradient")
 
 
+def test_dense_lstm_keep_forward_matches_jax():
+    """The dense LSTM's plain training forward (k = 1): ys and cs against
+    the Pallas kernel, and the gates it keeps equal to the activations of
+    xg + ys[t-1] W from the kernel's own ys."""
+    B, L, H, _ = SHAPES["k1"]
+    xg, (w,), _ = _inputs("lstm", "k1")
+    ys, cs, gates = G.dense_lstm_scan_keep_reference(torch.from_numpy(xg),
+                                                     torch.from_numpy(w))
+    (ref_ys, ref_cs), _ = _jax_scan("lstm", "k1")
+    np.testing.assert_allclose(ys.numpy(), ref_ys, rtol=0, atol=FWD_ATOL)
+    np.testing.assert_allclose(cs.numpy(), ref_cs, rtol=0, atol=FWD_ATOL)
+    assert tuple(gates.shape) == (L, B, J, 4 * H)
+    h_prev = np.concatenate([np.zeros_like(ref_ys[:1]), ref_ys[:-1]])
+    acts = xg + h_prev @ w
+    sig = 1.0 / (1.0 + np.exp(-acts))
+    want = np.concatenate([sig[..., :2 * H], np.tanh(acts[..., 2 * H:3 * H]),
+                           sig[..., 3 * H:]], axis=-1)
+    np.testing.assert_allclose(gates.numpy(), want, rtol=0, atol=FWD_ATOL)
+
+
+@pytest.mark.parametrize("cotangents", ["all", "ys_only"])
+def test_dense_lstm_backward_from_residuals_matches_jax_vjp(cotangents):
+    """The dense LSTM's plain backward from the training forward's gates,
+    ys and cs (one transposed product a frame, nothing of the forward
+    recomputed, dW from ys shifted by a frame: the recurrence of its CUDA
+    kernels) against ``jax.vjp`` of the Pallas kernel at k = 1, with the
+    cell states' cotangent and without."""
+    xg, (w,), (dys, dcs) = _inputs("lstm", "k1")
+    t = torch.from_numpy
+    ys, cs, gates = G.dense_lstm_scan_keep_reference(t(xg), t(w))
+    got = G.dense_lstm_scan_bwd_reference(
+        t(w), gates, ys, cs, t(dys), t(dcs) if cotangents == "all" else None)
+    _, grads = _jax_scan("lstm", "k1")
+    for name, g, r in zip(("dxg", "dw"), got, grads[cotangents]):
+        assert tuple(g.shape) == r.shape
+        _scaled_close(g.numpy(), r, name)
+
+
+def test_lstm_autograd_routes_and_keeps_gates_only_for_a_gradient(
+        monkeypatch):
+    """On the card (forced here on CPU tensors, the CUDA entries swapped
+    for their plain versions) k = 1 takes the dense entries where the plan
+    takes the shape: the gates are kept only when a gradient will be asked
+    for, and the gradient is that of the plain scan; a stacked weight's
+    transpose reaches the dense entry uncopied. k = 2, and k = 1 where the
+    plan refuses the width, take the graph-form entries."""
+    calls = []
+
+    def dense_fwd(xg, w, keep=False):
+        calls.append(("dense", keep, w.is_contiguous()))
+        ys, cs, gates = G.dense_lstm_scan_keep_reference(xg, w)
+        return (ys, cs, gates) if keep else (ys, cs)
+
+    def graph_fwd(xg, cheb, w):
+        calls.append(("graph", cheb.shape[0] + 1))
+        return G.graph_lstm_scan_reference(xg, cheb, w)
+
+    def graph_bwd(xg, cheb, w, ys, cs, dys, dcs=None):
+        return G._plain_backward(
+            lambda a, b: G.graph_lstm_scan_reference(a, cheb, b), (xg, w),
+            (dys, dcs))
+    taken_h = []
+    monkeypatch.setattr(G, "_check_device", lambda name, t: True)
+    monkeypatch.setattr(G, "dense_lstm_plan", lambda B, J, H, k, device: (
+        (16,) * 6 if k == 1 and H in taken_h else (0,) * 6))
+    monkeypatch.setattr(G, "dense_lstm_scan_cuda_fwd", dense_fwd)
+    monkeypatch.setattr(G, "dense_lstm_scan_cuda_bwd",
+                        G.dense_lstm_scan_bwd_reference)
+    monkeypatch.setattr(G, "graph_lstm_scan_cuda_fwd", graph_fwd)
+    monkeypatch.setattr(G, "graph_lstm_scan_cuda_bwd", graph_bwd)
+
+    xg, (w,), (dys, dcs) = _inputs("lstm", "k1")
+    H = w.shape[0]
+    taken_h.append(H)
+    cheb = _cheb(1)
+    x = torch.from_numpy(xg).requires_grad_(True)
+    stacked = torch.from_numpy(np.ascontiguousarray(w.T)).requires_grad_(True)
+    with torch.no_grad():
+        G.graph_lstm_scan(x, cheb, stacked.t())
+    outs = G.graph_lstm_scan(x, cheb, stacked.t(), with_c=True)
+    assert calls == [("dense", False, False), ("dense", True, False)]
+    cots = (torch.from_numpy(dys), torch.from_numpy(dcs))
+    got = torch.autograd.grad(outs, (x, stacked), cots)
+    want = torch.autograd.grad(
+        G.graph_lstm_scan_reference(x, cheb, stacked.t()), (x, stacked), cots)
+    for g, r in zip(got, want):
+        _scaled_close(g.numpy(), r.numpy(), "gradient")
+
+    calls.clear()
+    taken_h.clear()                 # the plan refuses this width: graph form
+    G.graph_lstm_scan(x, cheb, stacked.t())
+    lx, (lw,), _ = _inputs("lstm", "k2")
+    G.graph_lstm_scan(torch.from_numpy(lx), _cheb(2), torch.from_numpy(lw))
+    assert calls == [("graph", 1), ("graph", 2)]
+
+
 def test_library_path_follows_an_included_header(tmp_path):
     """An edited ``.cuh`` that a source includes rebuilds that source."""
     header = G._SOURCE.parent / "mma_tf32.cuh"
     assert f'#include "{header.name}"' in G._SOURCE.read_text()
     src = tmp_path / G._SOURCE.name
     src.write_text(G._SOURCE.read_text())
-    (tmp_path / header.name).write_text(header.read_text())
+    for included in cuda_build._local_headers(G._SOURCE):
+        (tmp_path / included.name).write_text(included.read_text())
     first = cuda_build.library_path(src)
     assert first == cuda_build.library_path(G._SOURCE)
     (tmp_path / header.name).write_text(header.read_text() + "\n// edited\n")
@@ -396,6 +495,18 @@ def test_flop_and_byte_counts():
     assert TF.graph_scan_bytes("lstm", 4, 2, 1, 8, 1, backward=True,
                                with_dcs=True) \
         == 4 * (8 * (64 + 32) + 2 * 8 * 32)
+    # its dense route (k = 1) reads the kept gates instead: the products
+    # twice (dh through da W^T, dW), as many bytes (gates in xg's place);
+    # the training forward writes the gates, 4H a row
+    assert TF.graph_scan_flops("lstm", 256, 16, 1, 64, 1, backward=True,
+                               dense=True) == 256 * 16 * 2 * 2 * 64 * 256
+    assert TF.graph_scan_bytes("lstm", 4, 2, 1, 8, 1, backward=True,
+                               with_dcs=True, dense=True) \
+        == 4 * (8 * (64 + 32) + 2 * 8 * 32)
+    assert TF.graph_scan_bytes("lstm", 4, 2, 1, 8, 1, keep=True, dense=True) \
+        == 4 * (8 * (32 + 16 + 32) + 8 * 32)
+    assert TF.graph_scan_bytes("lstm", 4, 2, 1, 8, 1, keep=True) \
+        == 4 * (8 * (32 + 16) + 8 * 32)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -413,8 +524,18 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         G.graph_lstm_scan_cuda_bwd(t(lx), cheb, t(w), t(dy), t(dy), t(dy),
                                    t(dc))
+    dx, (dw_,), (ddy, ddc) = _inputs("lstm", "k1")
+    with pytest.raises(ValueError, match="CUDA"):
+        G.dense_lstm_scan_cuda_fwd(t(dx), t(dw_))
+    ys, cs, gates = G.dense_lstm_scan_keep_reference(t(dx), t(dw_))
+    with pytest.raises(ValueError, match="CUDA"):
+        G.dense_lstm_scan_cuda_bwd(t(dw_), gates, ys, cs, t(ddy), t(ddc))
+    with pytest.raises(ValueError, match="transpose"):   # neither layout
+        G.dense_lstm_scan_cuda_fwd(t(dx), torch.zeros(2 * dw_.shape[0],
+                                                      dw_.shape[1])[::2])
     for fn in (G.graph_gru_scan_cuda_fwd, G.graph_gru_scan_cuda_bwd,
-               G.graph_lstm_scan_cuda_fwd, G.graph_lstm_scan_cuda_bwd):
+               G.graph_lstm_scan_cuda_fwd, G.graph_lstm_scan_cuda_bwd,
+               G.dense_lstm_scan_cuda_fwd, G.dense_lstm_scan_cuda_bwd):
         assert fn.launches == 0
 
 
@@ -423,10 +544,13 @@ def test_kernel_source_is_packaged_and_keyed():
     path = cuda_build.library_path(G._SOURCE)
     assert path.parent == cuda_build.BUILD_DIR
     assert path.name.startswith("fused_graph_gru-")
-    source = G._SOURCE.read_text()
-    assert "atomicAdd" not in source
-    for name in G._SIGNATURES:
-        assert f"int {name}(" in source
+    for src, signatures in ((G._SOURCE, G._SIGNATURES),
+                            (G._DENSE_SOURCE, G._DENSE_SIGNATURES)):
+        assert cuda_build.library_path(src).name.startswith(src.stem + "-")
+        source = src.read_text()
+        assert "atomicAdd" not in source
+        for name in signatures:
+            assert f"int {name}(" in source
 
 
 # -- on a CUDA card only -----------------------------------------------------
@@ -533,3 +657,51 @@ def test_cuda_gru_wide_shapes_match_plain(cuda_device, shape):
     want = G.graph_gru_scan_bwd_reference(cheb, wzr, wh, res, dys)
     for g, w in zip(got, want):
         _scaled_close(g.cpu().numpy(), w.cpu().numpy(), "gradient")
+
+
+#: (L, B, J, H) of the dense LSTM kernels on the card: the classifier's
+#: dense shape (B=256, L=16, H=64), a ragged B, k = 1 at J = 26, a width
+#: that pads to 8 units
+CUDA_DENSE_SHAPES = [(16, 256, 1, 64), (16, 253, 1, 64), (4, 5, 26, 64),
+                     (3, 7, 1, 36)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CUDA_DENSE_SHAPES)
+def test_cuda_dense_lstm_matches_plain(cuda_device, shape):
+    """The dense LSTM kernels against their plain versions: the training
+    forward (ys, cs, gates), and the backward from its residuals with and
+    without the cell states' cotangent, the same bits twice; the weight
+    read as given and as a stacked weight's transpose."""
+    L, B, J_, H = shape
+    rng = np.random.default_rng(L * B + H)
+
+    def rnd(*s, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(s)).astype(
+            np.float32)).to(cuda_device)
+    xg, w = rnd(L, B, J_, 4 * H), rnd(H, 4 * H, scale=H ** -0.5)
+    dys, dcs = rnd(L, B, J_, H), rnd(L, B, J_, H)
+    assert G.dense_lstm_plan(B, J_, H)[0] > 0
+    refs = G.dense_lstm_scan_keep_reference(xg, w)
+    for weight in (w, w.t().contiguous().t()):
+        outs = G.dense_lstm_scan_cuda_fwd(xg, weight, keep=True)
+        for got, want in zip(outs, refs):
+            assert float((got - want).abs().max()) <= FWD_ATOL
+        for d in (dcs, None):
+            ys, cs, gates = outs
+            got = G.dense_lstm_scan_cuda_bwd(weight, gates, ys, cs, dys, d)
+            again = G.dense_lstm_scan_cuda_bwd(weight, gates, ys, cs, dys, d)
+            want = G.dense_lstm_scan_bwd_reference(w, refs[2], refs[0],
+                                                   refs[1], dys, d)
+            for g, a, r in zip(got, again, want):
+                assert torch.equal(g, a)
+                _scaled_close(g.cpu().numpy(), r.cpu().numpy(), "gradient")
+
+
+@pytest.mark.cuda
+def test_cuda_dense_route_boundary(cuda_device):
+    """H = 64 is the widest the dense kernels take; H = 65 runs on the
+    graph-form kernels, through the same entry."""
+    assert G.dense_lstm_plan(256, 1, 64)[0] > 0
+    assert G.dense_lstm_plan(256, 1, 65) == (0,) * 6
+    assert G.dense_lstm_plan(256, 1, 64, k=2) == (0,) * 6
