@@ -117,9 +117,13 @@ Phases, each printing one JSON line:
                      scan kernels against their plain versions on seeded
                      inputs: B in {256, 253, 5} at L=16, J=26, H=128, k=2;
                      k=1; k=3 with H=3; L=1; the dense form (J=1, H=64, no
-                     graph matrices); the GRU's training forward (keep) too,
-                     its outputs and residuals against the plain forward
-                     with residuals. The dense LSTM kernels (k=1,
+                     graph matrices); wider shapes (GRU_WIDE_*,
+                     LSTM_WIDE_*: the LSTM at the widest hidden the earlier
+                     graph-form kernels trained and ran at each k, and at
+                     J=1, H=128 and 256), every weight ring and tiling run;
+                     the training forward (keep) too, its outputs and
+                     residuals against the plain forward with residuals,
+                     each line with its launch plan. The dense LSTM kernels (k=1,
                      csrc/fused_dense_lstm.cu) at DENSE_LSTM_SHAPES: the
                      dense form, B in {253, 5}, L=1, J=26, H=36; their
                      training forward (ys, cs, gates) against the plain one,
@@ -127,9 +131,11 @@ Phases, each printing one JSON line:
                      weight's transpose. Bar: max |kernel - plain| <= 1e-5.
  17. kernel_graph_gru_bwd, kernel_graph_lstm_bwd -- their backward kernels
                      against autograd of the plain versions with seeded
-                     cotangents (the GRU's from the residuals of its
-                     training forward kernel; the LSTM with and without the
-                     cell states' cotangent; the dense LSTM kernels from
+                     cotangents, from the residuals of their training
+                     forward kernels (the LSTM with and without the cell
+                     states' cotangent, and also against its plain backward
+                     from the same residuals; at the wider shapes too); the
+                     dense LSTM kernels from
                      their training forward's residuals at
                      DENSE_LSTM_SHAPES): each gradient over its largest
                      magnitude within rtol 1e-4 / atol 1e-5; two launches
@@ -153,22 +159,26 @@ Phases, each printing one JSON line:
                      within 1e-5.
  20. timing_classification -- CUDA-event medians (L2 cold and warm) of the
                      four scan kernels at the main path's shape (and the
-                     graph-form LSTM pair at the dense form; the GRU's
-                     training forward;
-                     rows 10 and 11 beside their earlier design's times),
-                     their plain versions, each kernel's bound from
-                     ops/flops.py (the GRU's at the 3xTF32 rate and the
-                     fp32 peak); the dense LSTM kernels at the dense form
+                     graph-form LSTM pair at the dense form), their training
+                     forwards (keep), rows 10 to 13 beside their earlier
+                     design's times, their plain versions, each kernel's
+                     bound from ops/flops.py (at the 3xTF32 rate and the
+                     fp32 peak); the graph-form LSTM kernels at k=1 past
+                     the dense width (J=1, H=128) and the dense LSTM
+                     kernels at the dense form
                      (forward, training forward, backward) with
                      torch.nn.LSTM (cuDNN) as their library yardstick, first
                      held to the plain version, alone and in 10 alternating
                      pairs; the identity input products that yardstick
                      runs beyond the kernels, alone; one LSTM layer at the
-                     classifier's input widths, the dense kernels' layer
-                     against cuDNN's in 10 alternating pairs;
-                     host-clock medians of a training_step and an eval_step,
-                     and of the LSTM classifier's (hidden 64, 2 layers) on
-                     the dense kernels and on the plain loop; a CUDA-event
+                     classifier's input widths (hidden 64: 52 and 64; hidden
+                     128: 52 and 128), the port's layer against cuDNN's in
+                     10 alternating pairs; host-clock medians of a
+                     training_step and an eval_step, of the LSTM
+                     classifier's (hidden 64, 2 layers) on the dense kernels
+                     and on the plain loop, and of GConvLSTM's (hidden 128,
+                     k=2) on the graph-form kernels and on the plain loop;
+                     a CUDA-event
                      split of the step (input convolutions, scans forward,
                      scans backward, AdamW, the rest).
      profile_classification_train -- a torch.profiler trace of 3 such
@@ -244,15 +254,34 @@ GRAPH_SHAPES = (CLS_MAIN, (253, CLIP, CLS_J, CLS_H, CLS_K),
                 (5, CLIP, CLS_J, CLS_H, CLS_K), (CLS_BATCH, CLIP, CLS_J, CLS_H, 1),
                 (CLS_BATCH, CLIP, CLS_J, 3, 3), (CLS_BATCH, 1, CLS_J, CLS_H, CLS_K),
                 CLS_DENSE)
-#: the GRU kernels past the main path's widths (GRU only: the LSTM kernels
-#: keep their own, narrower range): hidden 256 at k=2 and 128 at k=3 (one
-#: clip a thread block), hidden 320 (the reverse scan on the 128-column
-#: weight ring); hidden 448 for the forward alone (its 128-column ring; the
-#: reverse scan does not fit there)
+#: the GRU kernels past the main path's widths: hidden 256 at k=2 and 128
+#: at k=3 (one clip a thread block), hidden 320 (the reverse scan on the
+#: 128-column weight ring); hidden 448 for the forward alone (its
+#: 128-column ring; the reverse scan does not fit there)
 GRU_WIDE_SHAPES = ((CLS_BATCH, CLIP, CLS_J, 256, 2),
                    (CLS_BATCH, CLIP, CLS_J, 128, 3), (64, CLIP, CLS_J, 320, 2))
 GRU_WIDE_FORWARD_SHAPES = ((32, CLIP, CLS_J, 448, 2),)
 GRU_RINGS = {128, 256}
+#: the graph-form LSTM kernels past the main path's widths: the widest
+#: hidden that the earlier graph-form kernels trained at J=26 for k = 1, 2,
+#: 3 (308, 266, 233: the reverse scan on its 64-column ring), and, forward
+#: alone, the widest they ran (718, 532, 420: the narrow tiling); J=1 at
+#: hidden 128 and 256 (the few-rows tiling, k = 1 past the dense kernels).
+#: Every tiling of each kernel must run: (ring width, rows of a block tile)
+LSTM_WIDE_SHAPES = ((64, CLIP, CLS_J, 308, 1), (64, CLIP, CLS_J, 266, 2),
+                    (64, CLIP, CLS_J, 233, 3), (CLS_BATCH, CLIP, 1, 128, 1),
+                    (CLS_BATCH, CLIP, 1, 256, 1))
+LSTM_WIDE_FORWARD_SHAPES = ((16, CLIP, CLS_J, 718, 1),
+                            (16, CLIP, CLS_J, 532, 2),
+                            (16, CLIP, CLS_J, 420, 3))
+LSTM_TILINGS = {"fwd": {(256, 64), (128, 64), (512, 16)},
+                "bwd": {(128, 64), (64, 64), (128, 16)}}
+#: k = 1 past the dense kernels' width (J=1, hidden 128: the LSTM
+#: classifier or a Seq2Seq layer at --hidden_size 128), where torch.nn.LSTM
+#: (cuDNN) computes the same recurrence, and the input widths of the layer
+#: comparison there
+CLS_WIDE = (CLS_BATCH, CLIP, 1, 128, 1)
+WIDE_LAYER_INPUTS = (2 * CLS_J, CLS_WIDE[3])
 SCAN_BAR = 1e-5
 #: the dense LSTM kernels (k = 1, csrc/fused_dense_lstm.cu) at the dense
 #: form, ragged B, one frame, k = 1 at GConvLSTM's J = 26 and a width that
@@ -1944,19 +1973,37 @@ def check_gru_rings(phase, rings):
                              f"expected {sorted(GRU_RINGS)}")
 
 
+def lstm_plan(shape, backward, tilings):
+    """The graph-form LSTM kernel's launch plan at ``shape`` (clips a thread
+    block, ring width, shared memory bytes, rows of a block tile); its
+    tiling (ring width, rows) goes into ``tilings``."""
+    from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
+
+    B, _, J, H, k = shape
+    plan = FG.graph_lstm_plan(B, J, H, k, backward)
+    tilings.add((plan[1], plan[3]))
+    return {"plan_clips_ring_smem_rows": plan}
+
+
+def check_lstm_tilings(phase, which, tilings):
+    if tilings != LSTM_TILINGS[which]:
+        raise AssertionError(f"{phase} ran the tilings {sorted(tilings)}, "
+                             f"expected {sorted(LSTM_TILINGS[which])}")
+
+
 def phase_kernel_graph(cell):
     """The forward kernels against their plain versions at every
-    GRAPH_SHAPES entry; for the GRU also at wider shapes (both weight ring
-    widths), and the training forward (``keep``): its outputs and its
+    GRAPH_SHAPES entry and at wider shapes (every weight ring, every
+    tiling), and the training forward (``keep``): its outputs and its
     residuals against the plain forward with residuals."""
     from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
 
     rng = np.random.default_rng(SEED + (9 if cell == "gru" else 10))
     kernel, plain = scan_functions(cell)
-    worst, rings = 0.0, set()
-    shapes = GRAPH_SHAPES + (GRU_WIDE_SHAPES + GRU_WIDE_FORWARD_SHAPES
-                             if cell == "gru" else ())
-    for shape in shapes:
+    worst, tilings = 0.0, set()
+    wide = (GRU_WIDE_SHAPES + GRU_WIDE_FORWARD_SHAPES if cell == "gru" else
+            LSTM_WIDE_SHAPES + LSTM_WIDE_FORWARD_SHAPES)
+    for shape in GRAPH_SHAPES + wide:
         xg, cheb, weights, _ = graph_case(rng, cell, shape)
         with torch.no_grad():
             outs = kernel(xg, cheb, *weights)
@@ -1967,61 +2014,91 @@ def phase_kernel_graph(cell):
                 ref_ys, ref_res = FG.graph_gru_scan_keep_reference(
                     xg, cheb, *weights)
                 outs, refs = (*outs, ys, *res), (*refs, ref_ys, *ref_res)
+                plan = gru_plan(shape, False, tilings)
+            else:
+                *kept, res = FG.graph_lstm_scan_cuda_fwd(xg, cheb, *weights,
+                                                         keep=True)
+                *ref_kept, ref_res = FG.graph_lstm_scan_keep_reference(
+                    xg, cheb, *weights)
+                outs = (*outs, *kept, *res)
+                refs = (*refs, *ref_kept, *ref_res)
+                plan = lstm_plan(shape, False, tilings)
         torch.cuda.synchronize()
         errs = [float((o - r).abs().max()) for o, r in zip(outs, refs)]
         err = max(errs)
         finite = all(bool(torch.isfinite(o).all()) for o in outs)
+        kept_names = "ys_gates_sa_sb" if cell == "gru" else "ys_cs_gates_sa"
         emit({"phase": f"kernel_graph_{cell}", "B_L_J_H_k": shape,
               "max_abs_err": err, "finite": finite,
-              **({"keep_ys_gates_sa_sb_err": errs[1:],
-                  **gru_plan(shape, False, rings)} if cell == "gru"
-                 else {})})
+              f"keep_{kept_names}_err": errs[1 if cell == "gru" else 2:],
+              **plan})
         if not (err <= SCAN_BAR and finite):
             raise AssertionError(f"graph-{cell} scan kernel disagrees with "
                                  f"its plain version at {shape}: {errs}")
         worst = max(worst, err)
     if cell == "gru":
-        check_gru_rings("kernel_graph_gru", rings)
+        check_gru_rings("kernel_graph_gru", tilings)
+    else:
+        check_lstm_tilings("kernel_graph_lstm", "fwd", tilings)
     return worst
 
 
 def phase_kernel_graph_bwd(cell):
-    """The backward kernels against autograd of the plain versions; the
-    GRU's from the residuals of its training forward kernel."""
+    """The backward kernels, from the residuals of the training forward
+    kernel, against autograd of the plain versions (the LSTM with and
+    without the cell states' cotangent, and also against its plain backward
+    from the same residuals), at GRAPH_SHAPES and the wider shapes."""
     from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
 
     rng = np.random.default_rng(SEED + (11 if cell == "gru" else 12))
     _, plain = scan_functions(cell)
-    worst, rings = 0.0, set()
-    for shape in GRAPH_SHAPES + (GRU_WIDE_SHAPES if cell == "gru" else ()):
+    worst, tilings = 0.0, set()
+    wide = GRU_WIDE_SHAPES if cell == "gru" else LSTM_WIDE_SHAPES
+    for shape in GRAPH_SHAPES + wide:
         xg, cheb, weights, cots = graph_case(rng, cell, shape)
         with torch.no_grad():
             if cell == "gru":
                 _, res = FG.graph_gru_scan_cuda_fwd(xg, cheb, *weights,
                                                     keep=True)
+                plan = gru_plan(shape, True, tilings)
             else:
-                outs = plain(xg, cheb, *weights)
-        # the LSTM with the cell states' cotangent, and without
+                _, cs, res = FG.graph_lstm_scan_cuda_fwd(xg, cheb, *weights,
+                                                         keep=True)
+                plan = lstm_plan(shape, True, tilings)
         for used in ((1,) if cell == "gru" else (2, 1)):
+            dcs = cots[1] if used == 2 else None
+
             def launch():
                 if cell == "gru":
                     return FG.graph_gru_scan_cuda_bwd(cheb, *weights, res,
                                                       cots[0])
-                return FG.graph_lstm_scan_cuda_bwd(
-                    xg, cheb, *weights, *outs, cots[0],
-                    cots[1] if used == 2 else None)
+                return FG.graph_lstm_scan_cuda_bwd(cheb, *weights, res, cs,
+                                                   cots[0], dcs)
             got, again = launch(), launch()
             ref = plain_grads(lambda t: plain(t[0], cheb, *t[1:])[:used],
                               [xg, *weights], cots[:used])
             names = ("dxg", "dwzr", "dwh") if cell == "gru" else ("dxg", "dw")
+            extra = dict(plan)
+            if cell == "lstm":  # the same residuals through the plain backward
+                from_res = FG.graph_lstm_scan_bwd_reference(
+                    cheb, *weights, res, cs, cots[0], dcs)
+                extra["vs_plain_from_residuals_scaled_err"] = {
+                    n: scaled_err(a, r)[0]
+                    for n, a, r in zip(names, got, from_res)}
+                if not all(scaled_err(a, r)[1]
+                           for a, r in zip(got, from_res)):
+                    raise AssertionError(
+                        f"graph_lstm_scan_cuda_bwd at {shape} vs the plain "
+                        f"backward from its residuals: {extra}")
             what = f"graph_{cell}_scan_cuda_bwd" + (
                 " (ys and cs cotangents)" if used == 2 else "")
             worst = max(worst, check_grads(
                 f"kernel_graph_{cell}_bwd", what, list(shape), names, got,
-                again, ref, **(gru_plan(shape, True, rings)
-                               if cell == "gru" else {})))
+                again, ref, **extra))
     if cell == "gru":
-        check_gru_rings("kernel_graph_gru_bwd", rings)
+        check_gru_rings("kernel_graph_gru_bwd", tilings)
+    else:
+        check_lstm_tilings("kernel_graph_lstm_bwd", "bwd", tilings)
     return worst
 
 
@@ -2315,49 +2392,44 @@ def phase_serve_classification(dm):
 
 def scan_bound(cell, shape, hbm_rate, backward=False, with_dcs=False,
                keep=False, dense=False):
-    """The scan's bound from ops/flops.py at the fp32 peak; the GRU's and
-    the dense LSTM's, whose products run in 3xTF32, also at that rate
-    (``bound_ms_3xtf32``, which the kernels line takes)."""
+    """The scan's bound from ops/flops.py at the 3xTF32 rate its products
+    run at (``bound_ms``, which the kernels line takes), and at the fp32
+    peak beside it."""
     from pedestrians_video_2_carla_torch.ops import flops as F
 
     B, L, J, H, k = shape
-    nflop = F.graph_scan_flops(cell, B, L, J, H, k, backward, dense)
+    nflop = F.graph_scan_flops(cell, B, L, J, H, k, backward)
     nbytes = F.graph_scan_bytes(cell, B, L, J, H, k, backward, with_dcs, keep,
                                 dense)
-    t_bytes, t_flop = nbytes / hbm_rate, nflop / FP32_PEAK
-    out = {"bytes": nbytes, "flop": nflop,
-           "bound_ms": max(t_bytes, t_flop) * 1e3,
-           "bound_by": "bytes" if t_bytes >= t_flop else "operations"}
-    if cell == "gru" or dense:
-        t_tc = nflop / TF32X3_PEAK
-        out.update(bound_ms_fp32_peak=out["bound_ms"],
-                   bound_ms_3xtf32=max(t_bytes, t_tc) * 1e3,
-                   bound_ms=max(t_bytes, t_tc) * 1e3,
-                   bound_by="bytes" if t_bytes >= t_tc else "operations")
-    return out
+    t_bytes = nbytes / hbm_rate
+    t_tc, t_fp32 = nflop / TF32X3_PEAK, nflop / FP32_PEAK
+    return {"bytes": nbytes, "flop": nflop,
+            "bound_ms": max(t_bytes, t_tc) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_tc else "operations",
+            "bound_ms_fp32_peak": max(t_bytes, t_fp32) * 1e3}
 
 
-#: rows 10 and 11 at CLS_MAIN as recorded for their earlier design (fp32 on
+#: rows 10 to 13 at CLS_MAIN as recorded for their earlier design (fp32 on
 #: the CUDA cores, a backward that recomputed the forward; NVIDIA H100 80GB
 #: HBM3 at 700 W, cold L2; PERF.md): not measured by this script, so they go
 #: on the timing_classification line beside this run's times, never on the
 #: kernels line
-GRU_RECORDED_MS = {"fwd": 2.217, "bwd": 5.562}
+RECORDED_MS = {"gru": {"fwd": 2.217, "bwd": 5.562},
+               "lstm": {"fwd": 2.478, "bwd": 5.878}}
 
 
 def time_scan(cell, shape, flush, hbm_rate, rng):
-    """CUDA-event medians of one cell's forward and backward kernels at
-    ``shape`` (the GRU's training forward too, and its backward from that
-    forward's residuals), of the plain version and autograd of it, and the
-    bounds."""
+    """CUDA-event medians of one cell's forward kernel, its training
+    forward (``keep``) and its backward from that forward's residuals at
+    ``shape``, of the plain version and autograd of it, and the bounds."""
     from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
 
     kernel, plain = scan_functions(cell)
+    fwd_entry = FG.graph_gru_scan_cuda_fwd if cell == "gru" else \
+        FG.graph_lstm_scan_cuda_fwd
     xg, cheb, weights, cots = graph_case(rng, cell, shape)
     with torch.no_grad():
-        outs = kernel(xg, cheb, *weights)
-        if cell == "gru":
-            _, res = FG.graph_gru_scan_cuda_fwd(xg, cheb, *weights, keep=True)
+        kept = fwd_entry(xg, cheb, *weights, keep=True)
     leaves = [t.detach().clone().requires_grad_(True) for t in (xg, *weights)]
     graph = plain(leaves[0], cheb, *leaves[1:])
 
@@ -2366,13 +2438,14 @@ def time_scan(cell, shape, flush, hbm_rate, rng):
             kernel(xg, cheb, *weights)
 
     def fwd_keep():
-        FG.graph_gru_scan_cuda_fwd(xg, cheb, *weights, keep=True)
+        fwd_entry(xg, cheb, *weights, keep=True)
 
     def bwd():
         if cell == "gru":
-            FG.graph_gru_scan_cuda_bwd(cheb, *weights, res, cots[0])
+            FG.graph_gru_scan_cuda_bwd(cheb, *weights, kept[1], cots[0])
         else:
-            FG.graph_lstm_scan_cuda_bwd(xg, cheb, *weights, *outs, *cots)
+            FG.graph_lstm_scan_cuda_bwd(cheb, *weights, kept[2], kept[1],
+                                        *cots)
 
     def plain_fwd():
         with torch.no_grad():
@@ -2386,17 +2459,16 @@ def time_scan(cell, shape, flush, hbm_rate, rng):
                 "ms_warm_l2": cuda_median_ms(fwd),
                 "plain_ms": cuda_median_ms(plain_fwd),
                 **scan_bound(cell, shape, hbm_rate)},
+        "fwd_keep": {"ms_cold_l2": cuda_median_ms(fwd_keep, flush=flush),
+                     "ms_warm_l2": cuda_median_ms(fwd_keep),
+                     **scan_bound(cell, shape, hbm_rate, keep=True)},
         "bwd": {"ms_cold_l2": cuda_median_ms(bwd, flush=flush),
                 "ms_warm_l2": cuda_median_ms(bwd),
                 "plain_ms": cuda_median_ms(plain_bwd),
                 **scan_bound(cell, shape, hbm_rate, True, with_dcs)}}
-    if cell == "gru":
-        out["fwd_keep"] = {"ms_cold_l2": cuda_median_ms(fwd_keep, flush=flush),
-                           "ms_warm_l2": cuda_median_ms(fwd_keep),
-                           **scan_bound(cell, shape, hbm_rate, keep=True)}
-        if tuple(shape) == CLS_MAIN:
-            for key, was in GRU_RECORDED_MS.items():
-                out[key]["earlier_design_recorded_ms"] = was
+    if tuple(shape) == CLS_MAIN:
+        for key, was in RECORDED_MS[cell].items():
+            out[key]["earlier_design_recorded_ms"] = was
     return out
 
 
@@ -2435,34 +2507,41 @@ def library_lstm(xg, cheb, w, cots):
     return fwd, bwd, err
 
 
-def time_dense_lstm(flush, hbm_rate, rng):
-    """The dense LSTM kernels at CLS_DENSE: CUDA-event medians of the
-    forward, the training forward (``keep``) and the backward from its
+def time_lstm_vs_cudnn(shape, dense, flush, hbm_rate, rng, layer_inputs):
+    """The LSTM kernels of one route at a J=1, k=1 ``shape`` (``dense``:
+    csrc/fused_dense_lstm.cu; else the graph form): CUDA-event medians of
+    the forward, the training forward (``keep``) and the backward from its
     residuals (both cotangents), L2 cold and warm; the plain version and
     autograd of it; the bounds at the 3xTF32 rate; torch.nn.LSTM (cuDNN),
     alone and in TIMING_PAIRS alternating pairs with each kernel; the
     products of that yardstick's identity input weight alone (its forward's
     x W_ih^T, its backward's dx and dW_ih: (L B, 4H) x (4H, 4H) each),
     which the kernels do not run; the layer comparison of
-    ``time_dense_lstm_layers``."""
+    ``time_lstm_layers`` at ``layer_inputs``."""
     from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
 
-    B, _, J, H, _ = CLS_DENSE
-    xg, cheb, (w,), cots = graph_case(rng, "lstm", CLS_DENSE)
+    B, _, J, H, k = shape
+    xg, cheb, (w,), cots = graph_case(rng, "lstm", shape)
     with torch.no_grad():
-        ys, cs, gates = FG.dense_lstm_scan_cuda_fwd(xg, w, keep=True)
+        if dense:
+            ys, cs, gates = FG.dense_lstm_scan_cuda_fwd(xg, w, keep=True)
+        else:
+            _, cs, res = FG.graph_lstm_scan_cuda_fwd(xg, cheb, w, keep=True)
     leaves = [t.detach().clone().requires_grad_(True) for t in (xg, w)]
     graph = FG.graph_lstm_scan_reference(leaves[0], cheb, leaves[1])
     lib_fwd, lib_bwd, lib_err = library_lstm(xg, cheb, w, cots)
 
-    def fwd():
-        FG.dense_lstm_scan_cuda_fwd(xg, w)
-
-    def fwd_keep():
-        FG.dense_lstm_scan_cuda_fwd(xg, w, keep=True)
+    def fwd(keep=False):
+        if dense:
+            FG.dense_lstm_scan_cuda_fwd(xg, w, keep=keep)
+        else:
+            FG.graph_lstm_scan_cuda_fwd(xg, cheb, w, keep=keep)
 
     def bwd():
-        FG.dense_lstm_scan_cuda_bwd(w, gates, ys, cs, *cots)
+        if dense:
+            FG.dense_lstm_scan_cuda_bwd(w, gates, ys, cs, *cots)
+        else:
+            FG.graph_lstm_scan_cuda_bwd(cheb, w, res, cs, *cots)
 
     def plain_fwd():
         with torch.no_grad():
@@ -2480,45 +2559,51 @@ def time_dense_lstm(flush, hbm_rate, rng):
     def input_bwd():
         torch.mm(a, eye)
         torch.mm(a.t(), a)
+    plan = {"plan_fwd_bwd_rows_smem_blocks": FG.dense_lstm_plan(B, J, H)} \
+        if dense else {"plan_fwd": FG.graph_lstm_plan(B, J, H, k),
+                       "plan_bwd": FG.graph_lstm_plan(B, J, H, k, True)}
     return {
-        "plan_fwd_bwd_rows_smem_blocks": FG.dense_lstm_plan(B, J, H),
+        "B_L_J_H_k": shape, **plan,
         "fwd": {"ms_cold_l2": cuda_median_ms(fwd, flush=flush),
                 "ms_warm_l2": cuda_median_ms(fwd),
                 "plain_ms": cuda_median_ms(plain_fwd),
                 "library_ms": cuda_median_ms(lib_fwd, flush=flush),
                 "paired_vs_library": paired_ms(fwd, lib_fwd, flush),
-                **scan_bound("lstm", CLS_DENSE, hbm_rate, dense=True)},
-        "fwd_keep": {"ms_cold_l2": cuda_median_ms(fwd_keep, flush=flush),
-                     "ms_warm_l2": cuda_median_ms(fwd_keep),
-                     **scan_bound("lstm", CLS_DENSE, hbm_rate, keep=True,
-                                  dense=True)},
+                **scan_bound("lstm", shape, hbm_rate, dense=dense)},
+        "fwd_keep": {"ms_cold_l2": cuda_median_ms(lambda: fwd(True),
+                                                  flush=flush),
+                     "ms_warm_l2": cuda_median_ms(lambda: fwd(True)),
+                     **scan_bound("lstm", shape, hbm_rate, keep=True,
+                                  dense=dense)},
         "bwd": {"ms_cold_l2": cuda_median_ms(bwd, flush=flush),
                 "ms_warm_l2": cuda_median_ms(bwd),
                 "plain_ms": cuda_median_ms(plain_bwd),
                 "library_ms": cuda_median_ms(lib_bwd, flush=flush),
                 "paired_vs_library": paired_ms(bwd, lib_bwd, flush),
-                **scan_bound("lstm", CLS_DENSE, hbm_rate, True, True,
-                             dense=True)},
+                **scan_bound("lstm", shape, hbm_rate, True, True,
+                             dense=dense)},
         "library_identity_input_products_ms": {
             "fwd": cuda_median_ms(input_fwd, flush=flush),
             "bwd": cuda_median_ms(input_bwd, flush=flush)},
         "library_max_abs_err_vs_plain": lib_err,
-        "layer_vs_library": time_dense_lstm_layers(flush, rng)}
+        "layer_vs_library": time_lstm_layers(shape, layer_inputs, flush,
+                                             rng)}
 
 
-def time_dense_lstm_layers(flush, rng):
-    """One LSTM layer at B=256, L=16, H=64 for each of DENSE_LAYER_INPUTS:
-    HoistedLSTM(kernel="fused") (the hoisted input product, the bias, the
-    dense kernels) against torch.nn.LSTM (cuDNN, no TF32) holding the same
-    weights, both at the layer's real input width, so that neither runs
-    work the other does not. Forward under no_grad, backward
-    torch.autograd.grad to the input and every weight, each in
-    TIMING_PAIRS alternating pairs; the outputs held within LAYER_BAR."""
+def time_lstm_layers(shape, widths, flush, rng):
+    """One LSTM layer at ``shape``'s B, L and H for each input width in
+    ``widths``: HoistedLSTM(kernel="fused") (the hoisted input product with
+    the biases, the scan kernels of the route its width takes) against
+    torch.nn.LSTM (cuDNN, no TF32) holding the same weights, both at the
+    layer's real input width, so that neither runs work the other does not.
+    Forward under no_grad, backward torch.autograd.grad to the input and
+    every weight, each in TIMING_PAIRS alternating pairs; the outputs held
+    within LAYER_BAR."""
     from pedestrians_video_2_carla_torch.models.rnn import HoistedLSTM
 
-    B, L, _, H, _ = CLS_DENSE
+    B, L, _, H, _ = shape
     out = {}
-    for width in DENSE_LAYER_INPUTS:
+    for width in widths:
         gen = torch.Generator().manual_seed(SEED + width)
         layer = HoistedLSTM(width, H, kernel="fused", generator=gen).cuda()
         lib = torch.nn.LSTM(width, H, batch_first=True).cuda()
@@ -2536,8 +2621,8 @@ def time_dense_lstm_layers(flush, rng):
         ref = lib(x)[0]
         err = float((ys.detach() - ref.detach()).abs().max())
         if err > LAYER_BAR:
-            raise AssertionError(f"dense LSTM layer vs torch.nn.LSTM at "
-                                 f"input width {width}: {err}")
+            raise AssertionError(f"LSTM layer vs torch.nn.LSTM at hidden {H}"
+                                 f", input width {width}: {err}")
         ours = [x, *layer.parameters()]
         theirs = [x, *lib.parameters()]
 
@@ -2575,7 +2660,10 @@ def phase_timing_classification(dm, card, hbm_rate):
              "lstm": time_scan("lstm", CLS_MAIN, flush_l2, hbm_rate, rng),
              "lstm_dense": time_scan("lstm", CLS_DENSE, flush_l2, hbm_rate,
                                      rng)}
-    dense = time_dense_lstm(flush_l2, hbm_rate, rng)
+    dense = time_lstm_vs_cudnn(CLS_DENSE, True, flush_l2, hbm_rate, rng,
+                               DENSE_LAYER_INPUTS)
+    wide = time_lstm_vs_cudnn(CLS_WIDE, False, flush_l2, hbm_rate, rng,
+                              WIDE_LAYER_INPUTS)
     torch.cuda.empty_cache()
 
     flow = make_cls_flow()
@@ -2601,6 +2689,18 @@ def phase_timing_classification(dm, card, hbm_rate):
                 lambda: lstm_flow.training_step(lstm_state, batch)),
             "eval_step_ms_host": host_median_ms(
                 lambda: lstm_flow.eval_step(lstm_params, batch))}
+
+    # GConvLSTM (hidden 128, k=2, 2 layers: the graph-form LSTM kernels)
+    # on the kernels and on the plain loop
+    gconv_lstm = {}
+    for route in ("fused", "plain"):
+        gl_flow = make_cls_flow("GConvLSTM", graph_kernel=route)
+        gl_state, gl_params = gl_flow.init_state(), gl_flow.init_params()
+        gconv_lstm[route] = {
+            "train_step_ms_host": host_median_ms(
+                lambda: gl_flow.training_step(gl_state, batch)),
+            "eval_step_ms_host": host_median_ms(
+                lambda: gl_flow.eval_step(gl_params, batch))}
 
     # a CUDA-event split of a step: the body of training_step with events
     # between its parts, around each layer (input convolutions + scan),
@@ -2660,9 +2760,10 @@ def phase_timing_classification(dm, card, hbm_rate):
                      (statistics.median(c) for c in zip(*splits))))
     emit({"phase": "timing_classification", "card": card,
           "B_L_J_H_k": CLS_MAIN, "dense_B_L_J_H_k": CLS_DENSE,
-          "kernels": times, "dense_lstm": dense,
+          "kernels": times, "dense_lstm": dense, "graph_lstm_k1": wide,
           "train_step_ms_host": step_ms, "eval_step_ms_host": eval_ms,
           "lstm_classifier_steps": lstm_path,
+          "gconv_lstm_steps": gconv_lstm,
           "train_step_split_cuda_events": split,
           "method": "kernels, plain versions (autograd of them for the "
                     "backward, timed around torch.autograd.grad alone) and "
@@ -2680,6 +2781,12 @@ def phase_timing_classification(dm, card, hbm_rate):
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": library_ms, **extra}
     graph, gru = times["lstm"], times["gru"]
+
+    def k1_entry(t):
+        return {"k1_shape_B_L_J_H_k": CLS_WIDE, "k1_ms": t["ms_cold_l2"],
+                "k1_bound_ms": t["bound_ms"], "k1_library_ms": t["library_ms"],
+                "k1_paired_ratio_vs_library": t["paired_vs_library"][
+                    "ratio_median"]}
     return {"gru_fwd": entry(gru["fwd"],
                              bound_ms_fp32_peak=gru["fwd"][
                                  "bound_ms_fp32_peak"],
@@ -2689,14 +2796,20 @@ def phase_timing_classification(dm, card, hbm_rate):
                              bound_ms_fp32_peak=gru["bwd"][
                                  "bound_ms_fp32_peak"]),
             # the graph-form LSTM pair at GConvLSTM's layer (no PyTorch call
-            # computes it), the graph-form kernels' time at the dense shape
-            # beside it (their route before the dense kernels)
-            "lstm_fwd": entry(graph["fwd"], shape_B_L_J_H_k=CLS_MAIN,
-                              graph_form_dense_shape_ms=times["lstm_dense"][
-                                  "fwd"]["ms_cold_l2"]),
-            "lstm_bwd": entry(graph["bwd"], shape_B_L_J_H_k=CLS_MAIN,
-                              graph_form_dense_shape_ms=times["lstm_dense"][
-                                  "bwd"]["ms_cold_l2"]),
+            # computes it), with its time at the dense shape and, at k = 1
+            # past the dense width, beside cuDNN's
+            "lstm_fwd": entry(
+                graph["fwd"], shape_B_L_J_H_k=CLS_MAIN,
+                bound_ms_fp32_peak=graph["fwd"]["bound_ms_fp32_peak"],
+                keep_ms=graph["fwd_keep"]["ms_cold_l2"],
+                keep_bound_ms=graph["fwd_keep"]["bound_ms"],
+                graph_form_dense_shape_ms=times["lstm_dense"]["fwd"][
+                    "ms_cold_l2"], **k1_entry(wide["fwd"])),
+            "lstm_bwd": entry(
+                graph["bwd"], shape_B_L_J_H_k=CLS_MAIN,
+                bound_ms_fp32_peak=graph["bwd"]["bound_ms_fp32_peak"],
+                graph_form_dense_shape_ms=times["lstm_dense"]["bwd"][
+                    "ms_cold_l2"], **k1_entry(wide["bwd"])),
             # the dense pair, with cuDNN as the library call
             "dense_lstm_fwd": entry(
                 dense["fwd"], dense["fwd"]["library_ms"],
@@ -2748,7 +2861,8 @@ def kernel_entry(name, source, replaces, launches, max_err, times):
             "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
             "library_ms": times.get("library_ms"),
             **{k: v for k, v in times.items() if k.startswith(
-                ("shape_", "graph_form_", "keep_", "bound_ms_", "paired_"))}}
+                ("shape_", "graph_form_", "keep_", "bound_ms_", "paired_",
+                 "k1_"))}}
 
 
 def group_lifting(card, hbm_rate):

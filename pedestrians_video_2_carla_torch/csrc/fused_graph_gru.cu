@@ -2,7 +2,7 @@
 // (classification GNNs), forward and backward, for sm_90a, float32. The
 // LSTM at k = 1 (no graph term: a dense LSTM over the B J rows) runs on the
 // kernels of fused_dense_lstm.cu where its width fits them (H <= 64); this
-// file's LSTM kernels take k >= 2 and the wider H.
+// file's LSTM kernels take k >= 2 and the wider H (the graph form).
 //
 // Replaces the TPU kernels _fwd_kernel, _bwd_kernel, _lstm_fwd_kernel and
 // _lstm_bwd_kernel of the JAX package's ops/pallas/fused_graph_gru.py (the
@@ -18,44 +18,32 @@
 //         c' = f c + i g;  h' = o tanh(c')
 // The graph is applied to the H-wide carry first and one product follows
 // (the same sum as the TPU kernel's sum_n T_n (h W_n), at half the graph
-// work): the LSTM's weights arrive "stacked", (k H, G H) with rows (n,
-// unit); the GRU reads the caller's (H, k G H) weights in place (see "The
-// operand's column order").
+// work). Every kernel reads the caller's (H, k G H) weights in place (see
+// "The operand's column order").
 //
 // What bounds them on an H100: operations. At B=256, L=16, J=26, H=128, k=2
-// a GRU layer's forward is 22.4 GFLOP (0.33 ms at the fp32 peak, 0.14 ms at
-// the 3xTF32 rate) against 0.22 GB of traffic (0.07 ms). The recurrence is
-// sequential over frames and independent across clips, so a thread block
-// owns a few clips (2 at that shape: 52 rows, 128 thread blocks for 132
-// SMs), keeps their carry in shared memory and loops over all frames inside
-// one launch: no launch and no trip of the carry through device memory per
-// frame. The weights (up to 512 KB) do not fit beside the activations; they
-// stream from L2.
+// a GRU layer's forward is 22.4 GFLOP (0.14 ms at the 3xTF32 rate) against
+// 0.22 GB of traffic (0.07 ms), an LSTM layer's 28.6 GFLOP (0.17 ms). The
+// recurrence is sequential over frames and independent across clips, so a
+// thread block owns a few clips (2 at that shape: 52 rows, 128 thread
+// blocks for 132 SMs), keeps their carry in shared memory and loops over
+// all frames inside one launch: no launch and no trip of the carry through
+// device memory per frame. The weights (up to 512 KB) do not fit beside the
+// activations; they stream from L2.
 //
-// The GRU (rows 10 and 11; see "The GRU scans on the tensor cores" below)
-// runs its products on the tensor cores in 3xTF32, 16 warps a thread block,
-// the weight tiles through a cp.async ring; its training forward keeps the
-// gates and the expanded operands, so that its backward runs two products a
-// frame instead of four, and its weight gradients are one 3xTF32 split-K
-// launch and one fixed-order sum.
-//
-// The graph-form LSTM (rows 12 and 13 at k >= 2, and at k = 1 for H > 64)
-// runs on the CUDA cores: 256 threads, each a
-// 4-row x 8-column tile of a product, the weight tiles (16 rows) prefetched
-// into registers while the previous tile is multiplied; with several gates
-// in one product a thread's 8 columns are the gates of the same units, so
-// the gating runs on the accumulators without an exchange. Its backward
-// walks the frames in reverse with dh and dc in shared memory, recomputes
-// the gates from ys[t-1] and cs, writes dxg, and carries dh through P = da
-// W^T, dh = P_0 + sum_n T_n^T P_n; the scan writes each frame's expanded
-// operand [h | T_n h], and a split-K product dW = S^T dxg follows (128 x 128
-// tiles, the slices summed in a fixed order by a second launch).
+// Both cells (see "The scans on the tensor cores" below) run their products
+// in 3xTF32 on the tensor cores, 16 warps a thread block, the weight tiles
+// through a cp.async ring; their training forwards keep the activated gates
+// and the expanded operands, so that the backward recomputes no forward
+// product (the GRU runs two products a frame instead of four, the LSTM one
+// instead of two), and the weight gradients are one 3xTF32 split-K launch
+// and one fixed-order sum (dw_tf32.cuh).
 //
 // The ragged last thread block (B not a multiple of the clips per block)
 // masks its rows. No float atomics anywhere: the same bits on every launch.
 //
-// Numerics: 1 / (1 + expf(-x)), tanhf, fmaf sums, no fast math; the GRU's
-// products in 3xTF32 (fp32 accuracy, mma_tf32.cuh).
+// Numerics: 1 / (1 + expf(-x)), tanhf, no fast math; the products in 3xTF32
+// (fp32 accuracy, mma_tf32.cuh).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -67,438 +55,44 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTM = 4, kTN = 8;   // a thread's tile of a product
-constexpr int kBM = 16 * kTM;     // rows of a thread block's tile
-constexpr int kBN = 16 * kTN;     // columns of a thread block's tile
-constexpr int kKT = 16;           // depth of a weight tile
-constexpr int kWtFloats = kKT * kBN;
-constexpr int kLoads = kWtFloats / kThreads;  // tile elements per thread
-constexpr int kMaxSmemBytes = 232448;         // 227 KB, a block's limit
-
-constexpr int kDT = 128;  // the weight-gradient product's tile, 8 x 8 a thread
-constexpr int kDK = 16;
-constexpr int kDLoads = kDK * kDT / kThreads;
+constexpr int kMaxSmemBytes = 232448;  // 227 KB, a block's limit
 
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
 }
 
-// A thread's kLoads elements of the weight tile at depth k0 for the units
-// from u0 on (every gate's), zeros outside the matrix.
-template <int G>
-__device__ __forceinline__ void fetch_tile(float (&pre)[kLoads],
-                                           const float* __restrict__ W, int k0,
-                                           int K, int u0, int N, int ldw,
-                                           int gs) {
-  constexpr int U = 16 * (kTN / G);
-#pragma unroll
-  for (int s = 0; s < kLoads; ++s) {
-    const int e = threadIdx.x + s * kThreads;
-    const int kg = k0 + e / kBN, lin = e % kBN;
-    const int g = lin / U, u = u0 + lin % U;
-    pre[s] = (kg < K && u < N) ? W[static_cast<size_t>(kg) * ldw + g * gs + u]
-                               : 0.f;
-  }
-}
-
-// acc(R x G gates x N units) = init + A (R x K, shared memory) * W, then
-// epi. W is (K x .) row-major in device memory with leading dimension ldw,
-// gate g's unit u in column g * gs + u. Thread (ty, tx) owns rows r0 + 4 ty
-// + i and, in every gate, units u0 + tx UT + uu (UT = 8 / G): init(row, u, v)
-// fills v[G] with the starting values and epi(row, u, v) takes the sums, for
-// rows < R and units < N only. W tiles go through wt (kWtFloats). The caller
-// has A complete (a barrier behind it) and puts a barrier after the call
-// before anyone reads what epi wrote.
-template <int G, class Init, class Epi>
-__device__ __forceinline__ void block_gemm(const float* A, int lda, int R,
-                                           int K, const float* __restrict__ W,
-                                           int ldw, int gs, int N, float* wt,
-                                           Init init, Epi epi) {
-  constexpr int UT = kTN / G;
-  constexpr int U = 16 * UT;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  for (int r0 = 0; r0 < R; r0 += kBM) {
-    int arow[kTM];
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) arow[i] = min(r0 + ty * kTM + i, R - 1) * lda;
-    for (int u0 = 0; u0 < N; u0 += U) {
-      float acc[kTM][kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-        const int row = r0 + ty * kTM + i;
-#pragma unroll
-        for (int uu = 0; uu < UT; ++uu) {
-          const int u = u0 + tx * UT + uu;
-          float v[G];
-#pragma unroll
-          for (int g = 0; g < G; ++g) v[g] = 0.f;
-          if (row < R && u < N) init(row, u, v);
-#pragma unroll
-          for (int g = 0; g < G; ++g) acc[i][g * UT + uu] = v[g];
-        }
-      }
-      float pre[kLoads];
-      fetch_tile<G>(pre, W, 0, K, u0, N, ldw, gs);
-      for (int k0 = 0; k0 < K; k0 += kKT) {
-        __syncthreads();  // the previous tile is consumed
-#pragma unroll
-        for (int s = 0; s < kLoads; ++s) {
-          const int e = tid + s * kThreads;
-          const int kk = e / kBN, lin = e % kBN;
-          const int g = lin / U, ul = lin % U;
-          wt[kk * kBN + (ul / UT) * kTN + g * UT + ul % UT] = pre[s];
-        }
-        __syncthreads();
-        // the next tile's loads fly while this one is multiplied (past the
-        // last tile every element is out of range: no load)
-        fetch_tile<G>(pre, W, k0 + kKT, K, u0, N, ldw, gs);
-        const int kmax = min(kKT, K - k0);
-#pragma unroll
-        for (int kk = 0; kk < kKT; ++kk) {
-          if (kk < kmax) {
-            float a[kTM];
-#pragma unroll
-            for (int i = 0; i < kTM; ++i) a[i] = A[arow[i] + k0 + kk];
-            const float4 b0 =
-                *reinterpret_cast<const float4*>(wt + kk * kBN + tx * kTN);
-            const float4 b1 =
-                *reinterpret_cast<const float4*>(wt + kk * kBN + tx * kTN + 4);
-            const float b[kTN] = {b0.x, b0.y, b0.z, b0.w,
-                                  b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-            for (int i = 0; i < kTM; ++i)
-#pragma unroll
-              for (int j = 0; j < kTN; ++j)
-                acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-        const int row = r0 + ty * kTM + i;
-#pragma unroll
-        for (int uu = 0; uu < UT; ++uu) {
-          const int u = u0 + tx * UT + uu;
-          if (row < R && u < N) {
-            float v[G];
-#pragma unroll
-            for (int g = 0; g < G; ++g) v[g] = acc[i][g * UT + uu];
-            epi(row, u, v);
-          }
-        }
-      }
-    }
-  }
-}
-
-// S[:, n H + u] = sum_j T_n[j_row, j] S[clip's row j, u] for n = 1 .. k-1,
-// from S[:, :H], which is complete (a barrier behind it). Tm holds T_1 ..
-// T_{k-1}. Ends with a barrier.
-__device__ __forceinline__ void expand_graph(float* S, int lds, int R, int J,
-                                             int H, int k, const float* Tm) {
-  const int per = R * H;
-  for (int idx = threadIdx.x; idx < per * (k - 1); idx += kThreads) {
-    const int n = idx / per, rem = idx - n * per;
-    const int row = rem / H, u = rem - row * H;
-    const int c0 = (row / J) * J, jr = row - c0;
-    const float* t = Tm + (n * J + jr) * J;
-    const float* src = S + c0 * lds + u;
-    float sum = 0.f;
-    for (int j = 0; j < J; ++j) sum = fmaf(t[j], src[j * lds], sum);
-    S[row * lds + (n + 1) * H + u] = sum;
-  }
-  __syncthreads();
-}
-
-// P[row, u] + sum_{n >= 1} sum_j T_n[j, j_row] P[clip's row j, n H + u]: the
-// transposed graph applied to the k column blocks of P, summed.
-__device__ __forceinline__ float gather_graph_t(const float* P, int ldp,
-                                                int row, int u, int J, int H,
-                                                int k, const float* Tm) {
-  const int c0 = (row / J) * J, jr = row - c0;
-  float sum = P[row * ldp + u];
-  for (int n = 1; n < k; ++n) {
-    const float* t = Tm + (n - 1) * J * J + jr;
-    const float* src = P + c0 * ldp + n * H + u;
-    for (int j = 0; j < J; ++j) sum = fmaf(t[j * J], src[j * ldp], sum);
-  }
-  return sum;
-}
-
-// What every scan kernel starts with: its clips, the carve of shared memory
-// that all four share (weight tile, graph matrices, the expanded operand S),
-// and the graph matrices loaded.
-struct Block {
-  int R, KH, rows, row0;
-  float *wt, *Tm, *S, *rest;
-};
-
-__device__ __forceinline__ Block block_setup(float* smem, const float* cheb,
-                                             int B, int J, int H, int k,
-                                             int C) {
-  Block b;
-  const int b0 = blockIdx.x * C;
-  b.R = min(C, B - b0) * J;
-  b.KH = k * H;
-  b.rows = B * J;
-  b.row0 = b0 * J;
-  const int tfloats = ((k - 1) * J * J + 3) & ~3;
-  b.wt = smem;
-  b.Tm = b.wt + kWtFloats;
-  b.S = b.Tm + tfloats;
-  b.rest = b.S + C * J * b.KH;
-  for (int i = threadIdx.x; i < (k - 1) * J * J; i += kThreads)
-    b.Tm[i] = cheb[i];
-  return b;
-}
-
-// S[:, :H] = src (R x H, contiguous) times mul (or 1), or zeros without src;
-// then the graph expansion; then, with dump, the whole of S to device memory.
-__device__ __forceinline__ void fill_operand(const Block& b, int J, int H,
-                                             int k, const float* src,
-                                             const float* mul, float* dump) {
-  for (int idx = threadIdx.x; idx < b.R * H; idx += kThreads) {
-    const int row = idx / H, u = idx - row * H;
-    float v = src ? src[idx] : 0.f;
-    if (mul) v *= mul[idx];
-    b.S[row * b.KH + u] = v;
-  }
-  __syncthreads();
-  expand_graph(b.S, b.KH, b.R, J, H, k, b.Tm);
-  if (dump)
-    for (int idx = threadIdx.x; idx < b.R * b.KH; idx += kThreads)
-      dump[idx] = b.S[idx];
-}
-
-__global__ void __launch_bounds__(kThreads)
-lstm_scan_fwd_kernel(const float* __restrict__ xg,
-                     const float* __restrict__ cheb,
-                     const float* __restrict__ w, float* __restrict__ ys,
-                     float* __restrict__ cs, int L, int B, int J, int H, int k,
-                     int C) {
-  extern __shared__ __align__(16) float smem[];
-  const Block b = block_setup(smem, cheb, B, J, H, k, C);
-  const int R = b.R, KH = b.KH, RH = C * J * H;
-  float* hb = b.rest;
-  float* cb = hb + RH;
-  for (int i = threadIdx.x; i < R * H; i += kThreads) hb[i] = cb[i] = 0.f;
-  __syncthreads();
-  for (int t = 0; t < L; ++t) {
-    const size_t at = static_cast<size_t>(t) * b.rows + b.row0;
-    const float* x = xg + at * 4 * H;
-    float* y = ys + at * H;
-    float* c_out = cs + at * H;
-    fill_operand(b, J, H, k, hb, nullptr, nullptr);
-    // the products read S, a copy of the carry, so hb is updated in place
-    block_gemm<4>(
-        b.S, KH, R, KH, w, 4 * H, H, H, b.wt,
-        [&](int row, int u, float* v) {
-#pragma unroll
-          for (int g = 0; g < 4; ++g) v[g] = x[row * 4 * H + g * H + u];
-        },
-        [&](int row, int u, const float* v) {
-          const int at_u = row * H + u;
-          const float i = sigmoid(v[0]), f = sigmoid(v[1]), g = tanhf(v[2]),
-                      o = sigmoid(v[3]);
-          const float c = f * cb[at_u] + i * g;
-          const float h = o * tanhf(c);
-          cb[at_u] = c;
-          hb[at_u] = h;
-          y[at_u] = h;
-          c_out[at_u] = c;
-        });
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-lstm_scan_bwd_kernel(const float* __restrict__ xg,
-                     const float* __restrict__ cheb,
-                     const float* __restrict__ w,
-                     const float* __restrict__ w_t,
-                     const float* __restrict__ ys,
-                     const float* __restrict__ cs,
-                     const float* __restrict__ dys,
-                     const float* __restrict__ dcs, float* __restrict__ dxg,
-                     float* __restrict__ sa, int L, int B, int J, int H, int k,
-                     int C) {
-  extern __shared__ __align__(16) float smem[];
-  const Block b = block_setup(smem, cheb, B, J, H, k, C);
-  const int R = b.R, KH = b.KH, RH = C * J * H;
-  float* da = b.rest;       // (R, 4H)
-  float* dhb = da + 4 * RH;  // the dh carry
-  float* dcb = dhb + RH;    // the dc carry
-  for (int i = threadIdx.x; i < R * H; i += kThreads) dhb[i] = dcb[i] = 0.f;
-  __syncthreads();
-  for (int t = L - 1; t >= 0; --t) {
-    const size_t at = static_cast<size_t>(t) * b.rows + b.row0;
-    const float* x = xg + at * 4 * H;
-    float* dx = dxg + at * 4 * H;
-    const float* dy = dys + at * H;
-    const float* dc_in = dcs ? dcs + at * H : nullptr;
-    const float* c_now = cs + at * H;
-    // frame 0's previous states are the zero start
-    const float* hp = t > 0 ? ys + (at - b.rows) * H : nullptr;
-    const float* cp = t > 0 ? cs + (at - b.rows) * H : nullptr;
-    fill_operand(b, J, H, k, hp, nullptr, sa + at * KH);
-    block_gemm<4>(
-        b.S, KH, R, KH, w, 4 * H, H, H, b.wt,
-        [&](int row, int u, float* v) {
-#pragma unroll
-          for (int g = 0; g < 4; ++g) v[g] = x[row * 4 * H + g * H + u];
-        },
-        [&](int row, int u, const float* v) {
-          const int at_u = row * H + u;
-          const float i = sigmoid(v[0]), f = sigmoid(v[1]), g = tanhf(v[2]),
-                      o = sigmoid(v[3]);
-          const float tc = tanhf(c_now[at_u]);
-          const float dh = dy[at_u] + dhb[at_u];
-          float dc = dh * o * (1.f - tc * tc) + dcb[at_u];
-          if (dc_in) dc += dc_in[at_u];
-          const float c_prev = cp ? cp[at_u] : 0.f;
-          const float d[4] = {dc * g * i * (1.f - i),
-                              dc * c_prev * f * (1.f - f),
-                              dc * i * (1.f - g * g),
-                              dh * tc * o * (1.f - o)};
-          dcb[at_u] = dc * f;
-#pragma unroll
-          for (int gate = 0; gate < 4; ++gate) {
-            da[row * 4 * H + gate * H + u] = d[gate];
-            dx[row * 4 * H + gate * H + u] = d[gate];
-          }
-        });
-    __syncthreads();
-    // P = da W^T into S; dh = P_0 + sum_n T_n^T P_n
-    block_gemm<1>(
-        da, 4 * H, R, 4 * H, w_t, KH, 0, KH, b.wt,
-        [&](int, int, float*) {},
-        [&](int row, int q, const float* v) { b.S[row * KH + q] = v[0]; });
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < R * H; idx += kThreads) {
-      const int row = idx / H, u = idx - row * H;
-      dhb[idx] = gather_graph_t(b.S, KH, row, u, J, H, k, b.Tm);
-    }
-    __syncthreads();
-  }
-}
-
-// A thread's elements of the 16-row tiles of A and Bm from row r0 on, zeros
-// from row hi on and outside the matrices.
-__device__ __forceinline__ void dw_fetch(float (&pa)[kDLoads],
-                                         float (&pb)[kDLoads],
-                                         const float* __restrict__ A, int lda,
-                                         int M, int m0,
-                                         const float* __restrict__ Bm, int ldb,
-                                         int N, int n0, int r0, int hi) {
-#pragma unroll
-  for (int s = 0; s < kDLoads; ++s) {
-    const int e = threadIdx.x + s * kThreads;
-    const int row = r0 + e / kDT, c = e % kDT;
-    const bool in = row < hi;
-    pa[s] = (in && m0 + c < M) ? A[static_cast<size_t>(row) * lda + m0 + c]
-                               : 0.f;
-    pb[s] = (in && n0 + c < N) ? Bm[static_cast<size_t>(row) * ldb + n0 + c]
-                               : 0.f;
-  }
-}
-
-// One slice of a weight gradient: part[z] (M x N) = sum over the rows
-// [z chunk, (z + 1) chunk) of A[row, :M]^T Bm[row, :N]. A thread block takes a
-// 128 x 128 tile, a thread 8 x 8 of it.
-__global__ void __launch_bounds__(kThreads)
-dw_gemm_kernel(const float* __restrict__ A, int lda, int M,
-               const float* __restrict__ Bm, int ldb, int N, int rows,
-               int chunk, float* __restrict__ part) {
-  __shared__ __align__(16) float As[kDK][kDT];
-  __shared__ __align__(16) float Bs[kDK][kDT];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * kDT, n0 = blockIdx.x * kDT;
-  const int lo = blockIdx.z * chunk, hi = min(rows, lo + chunk);
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  float pa[kDLoads], pb[kDLoads];
-  dw_fetch(pa, pb, A, lda, M, m0, Bm, ldb, N, n0, lo, hi);
-  for (int r0 = lo; r0 < hi; r0 += kDK) {
-    __syncthreads();
-#pragma unroll
-    for (int s = 0; s < kDLoads; ++s) {
-      const int e = tid + s * kThreads;
-      As[e / kDT][e % kDT] = pa[s];
-      Bs[e / kDT][e % kDT] = pb[s];
-    }
-    __syncthreads();
-    dw_fetch(pa, pb, A, lda, M, m0, Bm, ldb, N, n0, r0 + kDK, hi);
-#pragma unroll
-    for (int kk = 0; kk < kDK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 8]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * 8 + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 8]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 8 + 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-    }
-  }
-  float* out = part + static_cast<size_t>(blockIdx.z) * M * N;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + ty * 8 + i;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + tx * 8 + j;
-      if (m < M && n < N) out[static_cast<size_t>(m) * N + n] = acc[i][j];
-    }
-  }
-}
-
-// out[i] = part[0][i] + part[1][i] + ..., in that order.
-__global__ void reduce_parts_kernel(const float* __restrict__ part, int splits,
-                                    int count, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  float sum = 0.f;
-  for (int z = 0; z < splits; ++z)
-    sum += part[static_cast<size_t>(z) * count + i];
-  out[i] = sum;
-}
-
 // ---------------------------------------------------------------------------
-// The GRU scans on the tensor cores (rows 10 and 11).
+// The scans on the tensor cores.
 //
 // A thread block of 16 warps owns C clips (R = C J rows) and runs all L
 // frames of them in one launch, the carry in shared memory. Each
 // hidden-side product is a block product in 3xTF32 (mma_tf32.cuh): the A
 // operand (R rows, row stride its depth rounded up to 32, + 4, so that the
-// fragment reads meet 32 banks) in shared memory, read in tiles of 64 rows
-// (rows past R read row R - 1 and their sums are dropped); the weights read
-// straight from the caller's tensors (see "The operand's column order"),
-// streaming from L2 through a 2-stage cp.async ring of 32-deep tiles with
-// one barrier a tile, zeros past their edges; the outputs in 64 x NT tiles, each warp 32 x NT/8
-// of them as 2 x NT/64 mma tiles of 16 x 8. A tile's products are summed in
-// the tensor cores over its 32 rows, then added to the fp32 sums outside
-// them. The first tile of a product is put in flight as soon as the
-// previous product has left the ring, so its loads overlap the gating and
-// the graph products in between. The graph products (T_n applied to the
-// carry, and T_n^T to the cotangents in the backward) run on the tensor
-// cores too, as small block-diagonal products (graph_product).
+// fragment reads meet 32 banks) in shared memory, read in row tiles of 64
+// rows (16 in the LSTM's few-rows tiling; rows past R read row R - 1 and
+// their sums are dropped); the weights read straight from the caller's
+// tensors (see "The operand's column order"), streaming from L2 through a
+// 2-stage cp.async ring of 32-deep tiles with one barrier a tile, zeros
+// past their edges; the outputs in RT x NT tiles, the warps laid out over
+// them as a Tiling says, each warp's part in mma tiles of 16 x 8. A tile's
+// products are summed in the tensor cores over its 32 rows, then added to
+// the fp32 sums outside them. The first tile of a product is put in flight
+// as soon as the previous product has left the ring, so its loads overlap
+// the gating and the graph products in between. The graph products (T_n
+// applied to the carry, and T_n^T to the cotangents in the backward) run
+// on the tensor cores too, as small block-diagonal products
+// (graph_product).
 //
 // On an H100 the products are issue-bound, not tensor-core-bound (a frame
 // keeps most of its time with the mma instructions taken out): loading and
 // splitting the fragments and the sums outside the tensor cores set the
 // pace, so a k-step is 32 rows deep (one barrier and one exit from the
 // tensor cores per 32 rows). The ring's widest tile NT is 256 columns, or
-// 128 where a thread block's shared memory cannot hold one clip beside the
-// wider ring (large H or k).
-constexpr int kGThreads = 512;  // 16 warps: 2 along the rows, 8 along the columns
-constexpr int kGWarpsN = kGThreads / 64;  // warps along the columns
-constexpr int kGRows = 64;      // rows of a block tile
+// narrower where a thread block's shared memory cannot hold one clip beside
+// the wider ring (large H or k).
+constexpr int kGThreads = 512;  // 16 warps
+constexpr int kGWarps = kGThreads / 32;
+constexpr int kGRows = 64;      // rows of a block tile (but the few-rows one)
 constexpr int kGKT = 32;        // depth of a weight tile
 constexpr int kGStages = 2;     // the ring's depth
 constexpr int kGWide = 256;     // columns of the widest block tile
@@ -533,9 +127,15 @@ __host__ __device__ inline int bwd_da_ld(int H) {
 //              thread then holds both gates of one unit): the tile's z
 //              columns, then 4 floats on its r columns;
 //   kByColumn: NT columns x 32 of depth, row stride 36: the transposed
-//              weight of the backward, each column a run of a weight row.
+//              weight of the backward, each column a run of a weight row;
+//   kGates:    as kByDepth over the LSTM's w (N = 4H, gate-major), whose
+//              product column c of a tile is gate (c / 8) % 4 of unit
+//              (tile's first unit) + 8 (c / 32) + c % 8: a warp's 32
+//              columns are its 4 mma tiles, one gate each, of the same 8
+//              units, so that a thread's accumulators hold all four gates
+//              of its units.
 // Each layout's fragment reads meet 32 banks.
-enum TileLayout { kByDepth, kZR, kByColumn };
+enum TileLayout { kByDepth, kZR, kByColumn, kGates };
 
 template <int NT, int LAYOUT>
 __host__ __device__ constexpr int slot_at(int n, int d) {
@@ -553,9 +153,10 @@ __host__ __device__ constexpr int bwd_slot() { return NT * (kGKT + 4); }
 
 // Ring slot s % kGStages (slot floats each) <- the weight tile of step s of
 // a block product over W, K deep and N columns (row-major: K x N by depth,
-// N x K by column, kZR's N = 2H): ceil(K / 32) steps a column tile, column
-// tiles of NT, row tiles outermost (they reload the same tiles). vec:
-// 16-byte copies (H a multiple of 4, W 16-byte aligned), else 4-byte ones.
+// N x K by column, kZR's N = 2H, kGates' 4H): ceil(K / 32) steps a column
+// tile, column tiles of NT, row tiles outermost (they reload the same
+// tiles). vec: 16-byte copies (H a multiple of 4, W 16-byte aligned), else
+// 4-byte ones.
 template <int NT, int LAYOUT>
 __device__ __forceinline__ void load_step(float* ring, int slot, int s,
                                           const float* __restrict__ W, int K,
@@ -580,6 +181,10 @@ __device__ __forceinline__ void load_step(float* ring, int slot, int s,
       ok = k0 + r < K && 2 * u < N;
       from = static_cast<size_t>(k0 + r) * N + half * (N / 2) + u;
       at = c + 4 * half;
+    } else if (LAYOUT == kGates) {
+      const int u = n0 / 4 + (c >> 5) * 8 + (c & 7), gate = (c >> 3) & 3;
+      ok = k0 + r < K && u < N / 4;
+      from = static_cast<size_t>(k0 + r) * N + gate * (N / 4) + u;
     } else {
       ok = k0 + r < K && n0 + c < N;
       from = static_cast<size_t>(k0 + r) * N + n0 + c;
@@ -615,40 +220,59 @@ __device__ __forceinline__ void product_prologue(float* ring, int slot,
 
 // init + A W for the block: A (R x K, row stride lda, finite up to column
 // kpad(K)) in shared memory, W (K x N) in device memory with its prologue
-// in flight. init(row, col, v0, v1) sets the starting values of columns col
-// and col + 1 (col even) of a row (its loads fly while the tile is
-// multiplied), epi(row, col, v0, v1) takes their sums; both for every row
-// of the row tiles and every column of the column tiles (they mask). epi
-// runs per tile while other warps may still multiply later tiles, so it
-// must not write A.
-template <int NT, int LAYOUT, class Init, class Epi>
+// in flight. The tiling: WARPS_N warps along the NT columns of a block
+// tile, the others along its rows, MI mma tiles of 16 rows each: row tiles
+// of RT = 16 MI (16 / WARPS_N) rows (64 but for the LSTM's few-rows
+// tiling's 16). init(row, col, v0, v1) sets the starting values of columns
+// col and col + 1 (col even) of a row (its loads fly while the tile is
+// multiplied), epi(row, col, v0, v1) takes their sums; kGates: init(row,
+// unit, v) and epi(row, unit, v) with v[4] the gates i, f, g, o of a unit.
+// Both for every row of the row tiles and every column (unit) of the column
+// tiles (they mask). epi runs per tile while other warps may still multiply
+// later tiles, so it must not write A.
+template <int NT, int LAYOUT, int WARPS_N = 8, int MI = 2, class Init,
+          class Epi>
 __device__ __forceinline__ void block_product(const float* A, int lda, int R,
                                               const float* __restrict__ W,
                                               int K, int N, float* ring,
                                               int slot, bool vec, Init init,
                                               Epi epi) {
-  constexpr int WN = NT / kGWarpsN;  // columns of a warp
+  constexpr int WN = NT / WARPS_N;   // columns of a warp
   constexpr int NJ = WN / 8;         // its mma tiles of 8 columns
+  constexpr int RT = 16 * MI * (kGWarps / WARPS_N);  // rows of a row tile
   constexpr int kDeep4 = slot_at<NT, LAYOUT>(0, 4);  // 4 deeper in the slot
+  static_assert(LAYOUT != kGates || NJ == 4, "a warp holds the four gates");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp / kGWarpsN) * 32, wn = (warp % kGWarpsN) * WN;
+  const int wm = (warp / WARPS_N) * 16 * MI, wn = (warp % WARPS_N) * WN;
   const int ks = (K + kGKT - 1) / kGKT, ct = (N + NT - 1) / NT;
-  const int total = row_tiles(R) * ct * ks;
-  float acc[2][NJ][4];
+  const int total = (R + RT - 1) / RT * ct * ks;
+  float acc[MI][NJ][4];
   for (int s = 0; s < total; ++s) {
-    float part[2][NJ][4];  // this k-step's products, summed in the tensor cores
+    float part[MI][NJ][4];  // this k-step's products, summed in the tensor cores
     const int kstep = s % ks, tile = s / ks;
-    const int r0 = (tile / ct) * kGRows, n0 = (tile % ct) * NT;
+    const int r0 = (tile / ct) * RT, n0 = (tile % ct) * NT;
     if (kstep == 0) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j)
+        for (int h = 0; h < 2; ++h) {
+          const int row = r0 + wm + i * 16 + g + 8 * h;
+          if constexpr (LAYOUT == kGates) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
-            init(r0 + wm + i * 16 + g + 8 * h, n0 + wn + j * 8 + 2 * t,
-                 acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+            for (int e = 0; e < 2; ++e) {
+              float v[4];
+              init(row, (n0 + wn) / 4 + 2 * t + e, v);
+#pragma unroll
+              for (int j = 0; j < 4; ++j) acc[i][j][2 * h + e] = v[j];
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+              init(row, n0 + wn + j * 8 + 2 * t, acc[i][j][2 * h],
+                   acc[i][j][2 * h + 1]);
+          }
+        }
     }
     cp_async_wait<kGStages - 2>();
     __syncthreads();  // step s has landed; step s - 1's slot is free
@@ -658,15 +282,15 @@ __device__ __forceinline__ void block_product(const float* A, int lda, int R,
     cp_async_commit();
     const float* Bs = ring + (s % kGStages) * slot;
     // the A rows of this thread's fragments; rows past R read row R - 1
-    const float* arow[2][2];
+    const float* arow[MI][2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         arow[i][h] = A + min(r0 + wm + i * 16 + g + 8 * h, R - 1) * lda +
                      kstep * kGKT + t;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -681,7 +305,7 @@ __device__ __forceinline__ void block_product(const float* A, int lda, int R,
         split_tf32(b[kDeep4], bb[j][1], bs[j][1]);
       }
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
+      for (int i = 0; i < MI; ++i) {
         unsigned ab[4], as[4];
         split_tf32(arow[i][0][kk], ab[0], as[0]);
         split_tf32(arow[i][1][kk], ab[1], as[1]);
@@ -698,25 +322,36 @@ __device__ __forceinline__ void block_product(const float* A, int lda, int R,
     // the k-step's sums leave the tensor cores (which round towards zero)
     // for the running fp32 sums, rounded to nearest
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[i][j][c] += part[i][j][c];
     if (kstep == ks - 1) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j)
+        for (int h = 0; h < 2; ++h) {
+          const int row = r0 + wm + i * 16 + g + 8 * h;
+          if constexpr (LAYOUT == kGates) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
-            epi(r0 + wm + i * 16 + g + 8 * h, n0 + wn + j * 8 + 2 * t,
-                acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+            for (int e = 0; e < 2; ++e) {
+              const float v[4] = {acc[i][0][2 * h + e], acc[i][1][2 * h + e],
+                                  acc[i][2][2 * h + e], acc[i][3][2 * h + e]};
+              epi(row, (n0 + wn) / 4 + 2 * t + e, v);
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+              epi(row, n0 + wn + j * 8 + 2 * t, acc[i][j][2 * h],
+                  acc[i][j][2 * h + 1]);
+          }
+        }
     }
   }
 }
 
-// The graph matrices in shared memory for the GRU scans: T_1 .. T_{k-1},
+// The graph matrices in shared memory for the scans: T_1 .. T_{k-1},
 // each zero-padded to Jm x Jm (Jm = J rounded up to 16) with row stride
 // Jm + 4.
 __host__ __device__ inline int graph_rows(int J) { return round_up(J, 16); }
@@ -731,7 +366,7 @@ __device__ __forceinline__ void load_graph(float* Tp, const float* cheb,
   }
 }
 
-// The graph convolution of the GRU scans on the tensor cores (3xTF32), clip
+// The graph convolution of the scans on the tensor cores (3xTF32), clip
 // by clip in 16 x 8 output tiles, each warp kGGraphTiles tiles at a time
 // (independent chains of products), on operands in the unit-major column
 // order (column u k + n):
@@ -1091,10 +726,250 @@ gru_scan_bwd_kernel(const float* __restrict__ cheb,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The graph-form LSTM scans (rows 12 and 13 at k >= 2, and at k = 1 past the
+// dense kernels' width).
+//
+// One product a frame, a = x + [h | T_n h] W, with W (H, k 4H) read in place
+// as a (k H, 4H) matrix (kGates: a thread's accumulators hold the four
+// gates of its units, so the gating runs on them); c stays in shared memory
+// across frames. The training forward (KEEP) writes the activated gates
+// and every frame's expanded operand; the reverse scan reads them, carries
+// dh and dc on chip and runs one product a frame, P = da W^T (W read by
+// column), dh = P_0 + sum_n T_n^T P_n; then dW = S^T dxg in one split-K
+// launch and a fixed-order sum.
+//
+// Three tilings (block_product): the wide one, 256-column tiles, 8 warps
+// along them, 2 m16 tiles a warp along the 64 rows; the narrow one, 128
+// columns, 4 warps along them, 1 m16 tile a warp, where one clip's shared
+// memory does not fit beside the wide ring (the forward then keeps h in ys
+// instead of shared memory); the few-rows one, 512 columns (the backward:
+// 128), all 16 warps along them, one 16-row tile, where a 64-row tile
+// would hold 16 rows or fewer (small J B: a J = 1 LSTM layer), at a quarter
+// of the wide tiling's tensor-core work a frame. The backward's ring is by
+// column, its widths 128 or 64 (a 256-column one does not fit beside two
+// clips at GConvLSTM's layer, and two clips a thread block, not one, cover
+// the SMs there).
+struct LstmTiling {
+  int NT, warps_n, mi;
+};
+
+__host__ __device__ constexpr LstmTiling lstm_tiling(bool bwd, int v) {
+  return bwd ? (v == 0   ? LstmTiling{128, 8, 2}
+                : v == 1 ? LstmTiling{64, 8, 2}
+                         : LstmTiling{128, 16, 1})
+             : (v == 0   ? LstmTiling{256, 8, 2}
+                : v == 1 ? LstmTiling{128, 4, 1}
+                         : LstmTiling{512, 16, 1});
+}
+constexpr int kFewRows = 2;   // the few-rows tiling's index
+constexpr int kFewRowsMax = 16;
+
+// Shared memory of a graph-form LSTM scan with C clips a thread block and
+// tiling v: the ring; the operand (C J rows of kpad(k H) + 4: forward [h |
+// T_n h], backward the transposed product's output P); forward: c and,
+// but in the narrow tiling, h (C J x H each); backward: the cotangents da
+// (C J x kpad(4H) + 4) and the dc carry (C J x H); the graph matrices.
+size_t lstm_smem_bytes(int C, int J, int H, int k, bool bwd, int v) {
+  const int NT = lstm_tiling(bwd, v).NT;
+  const size_t ring = kGStages * (bwd ? NT * (kGKT + 4) : kGKT * (NT + 8));
+  const size_t per_row = kpad(k * H) + 4 +
+                         (bwd ? kpad(4 * H) + 4 + H : (v == 1 ? 1 : 2) * H);
+  return sizeof(float) *
+         (ring + static_cast<size_t>(C) * J * per_row +
+          static_cast<size_t>(k - 1) * graph_rows(J) * (graph_rows(J) + 4));
+}
+
+// How a graph-form LSTM scan is launched: C clips a thread block, the
+// tiling, the shared memory. As many clips as cover the SMs, up to a
+// 64-row tile, in the widest tiling that fits, fewer clips only where no
+// tiling fits; the few-rows tiling first where those clips hold 16 rows or
+// fewer. C = 0 if one clip fits in none. At B=256, J=26, H=128, k=2 on 132
+// SMs: 2 clips, the wide tiling forward, the 128-column ring backward; at
+// J=1, H=128: 2 rows a thread block in the few-rows tiling (the gating and
+// the backward's elementwise work a frame spread over 128 SMs: 10-16 %
+// faster than 16 rows on 16 SMs, PERF.md).
+struct LstmPlan {
+  int C, v;
+  size_t bytes;
+};
+
+LstmPlan plan_lstm(int B, int J, int H, int k, bool bwd, int sms) {
+  const int want = std::max(1, std::min(kGRows / J, (B + sms - 1) / sms));
+  const bool few = want * J <= kFewRowsMax;
+  const int order[3] = {few ? kFewRows : 0, few ? 0 : 1, few ? 1 : -1};
+  for (int C = want; C >= 1; --C)
+    for (const int v : order) {
+      if (v < 0) continue;
+      const size_t bytes = lstm_smem_bytes(C, J, H, k, bwd, v);
+      if (bytes <= kMaxSmemBytes) return {C, v, bytes};
+    }
+  return {0, 0, 0};
+}
+
+// The forward. Per frame: S = [h | T_n h] (the carry put into S and
+// expanded, columns unit-major); a = x + S W on the tensor cores, the
+// gating on the accumulators: c' = f c + i g over c in shared memory, h' =
+// o tanh(c') into the carry (the narrow tiling: into ys, read back the
+// next frame), ys and cs. KEEP (a gradient will be asked for): also gates
+// (L, B, J, 4H) = i | f | g | o and the expanded operand sa (L B J x k H,
+// columns unit-major) of every frame, which the backward reads instead of
+// recomputing.
+template <bool KEEP, int V>
+__global__ void __launch_bounds__(kGThreads, 1)
+lstm_scan_fwd_kernel(const float* __restrict__ xg,
+                     const float* __restrict__ cheb,
+                     const float* __restrict__ w, float* __restrict__ ys,
+                     float* __restrict__ cs, float* __restrict__ gates,
+                     float* __restrict__ sa, int L, int B, int J, int H, int k,
+                     int C, bool vec) {
+  constexpr LstmTiling kT = lstm_tiling(false, V);
+  constexpr int NT = kT.NT;
+  constexpr bool kHShared = V != 1;
+  extern __shared__ __align__(16) float smem[];
+  const int b0 = blockIdx.x * C;
+  const int R = min(C, B - b0) * J, rows = B * J, row0 = b0 * J;
+  const int KH = k * H, ld = kpad(KH) + 4, CJH = C * J * H;
+  constexpr int slot = fwd_slot<NT>();
+  float* ring = smem;
+  float* S = ring + kGStages * slot;  // the operand of the product
+  float* cb = S + C * J * ld;         // the carry c
+  float* hb = cb + CJH;               // the carry h (kHShared)
+  float* Tm = hb + (kHShared ? CJH : 0);
+  load_graph(Tm, cheb, J, k);
+  for (int i = threadIdx.x; i < C * J * ld + CJH; i += kGThreads) S[i] = 0.f;
+  __syncthreads();
+  product_prologue<NT, kGates>(ring, slot, w, KH, 4 * H, R, vec);
+  for (int t = 0; t < L; ++t) {
+    const size_t at = static_cast<size_t>(t) * rows + row0;
+    const float* x = xg + at * 4 * H;
+    if (t > 0) {  // (frame 0's operand is the zeros S starts with)
+      put_units(S, ld, k, kHShared ? hb : ys + (at - rows) * H, R, H);
+      __syncthreads();
+      graph_product<false>(S, ld, R, J, H, k, Tm);
+    }
+    if (KEEP) copy_rows(sa + at * KH, KH, S, ld, R, KH, vec);
+    block_product<NT, kGates, kT.warps_n, kT.mi>(
+        S, ld, R, w, KH, 4 * H, ring, slot, vec,
+        [&](int row, int u, float* v) {
+          const bool in = row < R && u < H;
+#pragma unroll
+          for (int gate = 0; gate < 4; ++gate)
+            v[gate] = in ? x[row * 4 * H + gate * H + u] : 0.f;
+        },
+        [&](int row, int u, const float* v) {
+          if (row >= R || u >= H) return;
+          const float i = sigmoid(v[0]), f = sigmoid(v[1]), g = tanhf(v[2]),
+                      o = sigmoid(v[3]);
+          const int idx = row * H + u;
+          const float c = f * cb[idx] + i * g;
+          const float h = o * tanhf(c);
+          cb[idx] = c;
+          if (kHShared) hb[idx] = h;
+          ys[at * H + idx] = h;
+          cs[at * H + idx] = c;
+          if (KEEP) {
+            float* gt = gates + (at + row) * 4 * H + u;
+            gt[0] = i;
+            gt[H] = f;
+            gt[2 * H] = g;
+            gt[3 * H] = o;
+          }
+        });
+    __syncthreads();  // the carries are complete; S and the ring are free
+    if (t + 1 < L) product_prologue<NT, kGates>(ring, slot, w, KH, 4 * H, R, vec);
+  }
+}
+
+// The reverse scan, from the forward's residuals (nothing recomputed). Per
+// frame, in reverse: dh = dy + the carry (the next frame's P_0 + sum_n
+// T_n^T P_n); dc = dh o (1 - tanh(c)^2) + the carry (+ dcs); da from the
+// kept gates, c and the previous c -> dxg and shared memory; dc f carried;
+// P = da W^T (W by column, P's columns unit-major), then the transposed
+// graph on P. One product a frame, the carries in shared memory.
+template <int V>
+__global__ void __launch_bounds__(kGThreads, 1)
+lstm_scan_bwd_kernel(const float* __restrict__ cheb,
+                     const float* __restrict__ w,
+                     const float* __restrict__ gates,
+                     const float* __restrict__ cs,
+                     const float* __restrict__ dys,
+                     const float* __restrict__ dcs, float* __restrict__ dxg,
+                     int L, int B, int J, int H, int k, int C, bool vec) {
+  constexpr LstmTiling kT = lstm_tiling(true, V);
+  constexpr int NT = kT.NT;
+  extern __shared__ __align__(16) float smem[];
+  const int b0 = blockIdx.x * C;
+  const int R = min(C, B - b0) * J, rows = B * J, row0 = b0 * J;
+  const int KH = k * H, ldp = kpad(KH) + 4, ldd = kpad(4 * H) + 4;
+  constexpr int slot = bwd_slot<NT>();
+  float* ring = smem;
+  float* P = ring + kGStages * slot;  // the transposed product's output
+  float* da = P + C * J * ldp;        // the cotangents of a
+  float* dcb = da + C * J * ldd;      // the dc carry
+  float* Tm = dcb + C * J * H;
+  load_graph(Tm, cheb, J, k);
+  for (int i = threadIdx.x; i < C * J * (ldp + ldd + H); i += kGThreads)
+    P[i] = 0.f;
+  __syncthreads();
+  product_prologue<NT, kByColumn>(ring, slot, w, 4 * H, KH, R, vec);
+  for (int t = L - 1; t >= 0; --t) {
+    const size_t at = static_cast<size_t>(t) * rows + row0;
+    const float* gt = gates + at * 4 * H;
+    const float* c_now = cs + at * H;
+    const float* c_prev = t > 0 ? cs + (at - rows) * H : nullptr;
+    const float* dy = dys + at * H;
+    const float* dc_in = dcs ? dcs + at * H : nullptr;
+    float* dx = dxg + at * 4 * H;
+    // the residuals through the read-only path, several rows' loads in
+    // flight at once
+#pragma unroll 4
+    for (int idx = threadIdx.x; idx < R * H; idx += kGThreads) {
+      const int row = idx / H, u = idx - row * H;
+      const float* g4 = gt + row * 4 * H + u;
+      const float i = __ldg(g4), f = __ldg(g4 + H), g = __ldg(g4 + 2 * H),
+                  o = __ldg(g4 + 3 * H);
+      const float tc = tanhf(__ldg(c_now + idx));
+      const float dh = __ldg(dy + idx) + P[row * ldp + u * k];
+      float dc = dh * o * (1.f - tc * tc) + dcb[idx];
+      if (dc_in) dc += __ldg(dc_in + idx);
+      const float cp = c_prev ? __ldg(c_prev + idx) : 0.f;
+      const float d[4] = {dc * g * i * (1.f - i), dc * cp * f * (1.f - f),
+                          dc * i * (1.f - g * g), dh * tc * o * (1.f - o)};
+      dcb[idx] = dc * f;
+#pragma unroll
+      for (int gate = 0; gate < 4; ++gate) {
+        dx[row * 4 * H + gate * H + u] = d[gate];
+        da[row * ldd + gate * H + u] = d[gate];
+      }
+    }
+    __syncthreads();
+    block_product<NT, kByColumn, kT.warps_n, kT.mi>(
+        da, ldd, R, w, 4 * H, KH, ring, slot, vec,
+        [](int, int, float& v0, float& v1) { v0 = v1 = 0.f; },
+        [&](int row, int col, float v0, float v1) {
+          if (row < R) {
+            if (col < KH) P[row * ldp + col] = v0;
+            if (col + 1 < KH) P[row * ldp + col + 1] = v1;
+          }
+        });
+    __syncthreads();  // P is complete; the ring is free
+    if (t > 0) {
+      product_prologue<NT, kByColumn>(ring, slot, w, 4 * H, KH, R, vec);
+      graph_product<true>(P, ldp, R, J, H, k, Tm);
+    }
+  }
+}
+
 // Splits of the rows for the GRU's weight gradients, over both products'
 // tiles.
 int gru_dw_splits(int rows, int KH, int H, int sms) {
   return dw_tf32_splits(rows, dw_tiles(KH, 2 * H) + dw_tiles(KH, H), sms);
+}
+
+// The same for the LSTM's one weight gradient.
+int lstm_dw_splits(int rows, int KH, int H, int sms) {
+  return dw_tf32_splits(rows, dw_tiles(KH, 4 * H), sms);
 }
 
 bool aligned16(const void* p) {
@@ -1108,72 +983,20 @@ cudaError_t sm_count(int* sms) {
   return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
 }
 
-// Slices of a weight-gradient product: about two thread blocks per SM over
-// all tiles, each slice at least 256 rows.
-int dw_splits(int rows, int M, int N, int sms) {
-  const int tiles = ((M + kDT - 1) / kDT) * ((N + kDT - 1) / kDT);
-  const int by_rows = (rows + 255) / 256;
-  return std::max(1, std::min(2 * sms / tiles, by_rows));
-}
-
-size_t dw_part_floats(int rows, int M, int N, int sms) {
-  return static_cast<size_t>(dw_splits(rows, M, N, sms)) * M * N;
-}
-
-// dW (M x N) = A[:, :M]^T Bm[:, :N] over `rows` rows: the slices, then their
-// sum in a fixed order.
-cudaError_t weight_grad(const float* A, int lda, int M, const float* Bm,
-                        int ldb, int N, int rows, float* part, float* out,
-                        int sms, cudaStream_t stream) {
-  const int splits = dw_splits(rows, M, N, sms);
-  int chunk = (rows + splits - 1) / splits;
-  chunk = (chunk + kDK - 1) / kDK * kDK;
-  const dim3 grid((N + kDT - 1) / kDT, (M + kDT - 1) / kDT, splits);
-  dw_gemm_kernel<<<grid, kThreads, 0, stream>>>(A, lda, M, Bm, ldb, N, rows,
-                                                chunk, part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int count = M * N;
-  reduce_parts_kernel<<<(count + 255) / 256, 256, 0, stream>>>(part, splits,
-                                                               count, out);
-  return cudaGetLastError();
-}
-
-// Shared memory of a scan kernel with C clips a thread block: the weight
-// tile, the graph matrices, S (C J x k H) and `units` more C J x H buffers.
-size_t scan_smem_bytes(int C, int J, int H, int k, int units) {
-  const size_t tfloats = ((k - 1) * J * J + 3) & ~3;
-  return sizeof(float) * (kWtFloats + tfloats
-                          + static_cast<size_t>(C) * J * H * (k + units));
-}
-
-// Clips per thread block: enough thread blocks to cover the SMs first, then
-// up to a 64-row tile, within the shared memory; 0 if one clip does not fit.
-int pick_clips(int B, int J, int H, int k, int units, int sms) {
-  int C = std::max(1, std::min(kBM / J, (B + sms - 1) / sms));
-  while (C > 1 && scan_smem_bytes(C, J, H, k, units) > kMaxSmemBytes) --C;
-  return scan_smem_bytes(C, J, H, k, units) <= kMaxSmemBytes ? C : 0;
-}
-
 bool valid(int L, int B, int J, int H, int k) {
   return L >= 1 && B >= 1 && J >= 1 && H >= 1 && k >= 1;
 }
 
-// C J x H buffers beside S: forward LSTM h, c; backward LSTM da (4), dh, dc.
-constexpr int kLstmFwdUnits = 2, kLstmBwdUnits = 6;
-
-template <class Kernel>
-cudaError_t prepare(Kernel kernel, int B, int J, int H, int k, int units,
-                    int* C, size_t* bytes) {
-  int sms = 0;
-  cudaError_t err = sm_count(&sms);
+// Launches a scan kernel with its shared memory; returns the first error.
+template <class Kernel, class... Args>
+cudaError_t launch_scan(Kernel kernel, int blocks, size_t bytes,
+                        cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  *C = pick_clips(B, J, H, k, units, sms);
-  if (*C == 0) return cudaErrorInvalidValue;
-  *bytes = scan_smem_bytes(*C, J, H, k, units);
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*bytes));
+  kernel<<<blocks, kGThreads, bytes, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1207,13 +1030,9 @@ int pv2c_graph_gru_scan_fwd(const float* xg, const float* cheb,
                             : gru_scan_fwd_kernel<false, kGWide>)
                     : (keep ? gru_scan_fwd_kernel<true, kGWide / 2>
                             : gru_scan_fwd_kernel<false, kGWide / 2>);
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(plan.bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<(B + plan.C - 1) / plan.C, kGThreads, plan.bytes, stream>>>(
-      xg, cheb, wzr, wh, ys, gates, sa, sb, L, B, J, H, k, plan.C, vec);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_scan(
+      kernel, (B + plan.C - 1) / plan.C, plan.bytes, stream, xg, cheb, wzr,
+      wh, ys, gates, sa, sb, L, B, J, H, k, plan.C, vec));
 }
 
 // How the GRU scan (bwd = 0) or its reverse scan (bwd = 1) is launched on
@@ -1240,7 +1059,8 @@ int pv2c_graph_scan_part_floats(int L, int B, int J, int H, int k, int gates) {
   if (err != cudaSuccess) return -static_cast<int>(err);
   const int rows = L * B * J, KH = k * H;
   const size_t floats =
-      gates == 4 ? dw_part_floats(rows, KH, 4 * H, sms)
+      gates == 4 ? static_cast<size_t>(lstm_dw_splits(rows, KH, H, sms)) *
+                       KH * 4 * H
                  : static_cast<size_t>(gru_dw_splits(rows, KH, H, sms)) * KH *
                        3 * H;
   if (floats > 0x7fffffff) return -static_cast<int>(cudaErrorInvalidValue);
@@ -1269,13 +1089,10 @@ int pv2c_graph_gru_scan_bwd(const float* cheb, const float* wzr,
                    aligned16(sa) && aligned16(sb) && aligned16(dxg);
   auto kernel = plan.NT == kGWide ? gru_scan_bwd_kernel<kGWide>
                                   : gru_scan_bwd_kernel<kGWide / 2>;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(plan.bytes));
+  err = launch_scan(kernel, (B + plan.C - 1) / plan.C, plan.bytes, stream,
+                    cheb, wzr, wh, gates, sa, dys, dxg, L, B, J, H, k, plan.C,
+                    vec);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<(B + plan.C - 1) / plan.C, kGThreads, plan.bytes, stream>>>(
-      cheb, wzr, wh, gates, sa, dys, dxg, L, B, J, H, k, plan.C, vec);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
   const int rows = L * B * J, KH = k * H;
   const int splits = gru_dw_splits(rows, KH, H, sms);
@@ -1297,46 +1114,100 @@ int pv2c_graph_gru_scan_bwd(const float* cheb, const float* wzr,
       p0.part, count0, dwzr, p1.part, count1, dwh, splits);
   return static_cast<int>(cudaGetLastError());
 }
-// The LSTM scan: xg (L, B, J, 4H) gate pre-activations i|f|c|o, w (k H, 4H)
-// stacked -> ys and cs (L, B, J, H). One launch on `stream`.
-int pv2c_graph_lstm_scan_fwd(const float* xg, const float* cheb,
-                             const float* w, float* ys, float* cs, int L,
-                             int B, int J, int H, int k, cudaStream_t stream) {
-  if (!valid(L, B, J, H, k)) return static_cast<int>(cudaErrorInvalidValue);
-  int C = 0;
-  size_t bytes = 0;
-  cudaError_t err =
-      prepare(lstm_scan_fwd_kernel, B, J, H, k, kLstmFwdUnits, &C, &bytes);
+
+// How the graph-form LSTM scan (bwd = 0) or its reverse scan (bwd = 1) is
+// launched on the current device at this shape: plan[0] clips a thread
+// block, plan[1] the ring's widest tile, plan[2] the shared memory bytes,
+// plan[3] the rows of a block tile (64, or 16 in the few-rows tiling);
+// zeros where one clip does not fit. Returns a CUDA error, or 0.
+int pv2c_graph_lstm_plan(int B, int J, int H, int k, int bwd, int* plan) {
+  if (!valid(1, B, J, H, k)) return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  lstm_scan_fwd_kernel<<<(B + C - 1) / C, kThreads, bytes, stream>>>(
-      xg, cheb, w, ys, cs, L, B, J, H, k, C);
-  return static_cast<int>(cudaGetLastError());
+  const LstmPlan p = plan_lstm(B, J, H, k, bwd != 0, sms);
+  plan[0] = p.C;
+  plan[1] = p.C ? lstm_tiling(bwd != 0, p.v).NT : 0;
+  plan[2] = static_cast<int>(p.bytes);
+  plan[3] = p.C ? (p.v == kFewRows ? kFewRowsMax : kGRows) : 0;
+  return 0;
 }
 
-// The LSTM scan's backward on its inputs, its outputs (ys, cs), the
-// cotangent dys and, unless nullptr, the cell states' cotangent dcs: dxg
-// (L, B, J, 4H) and dw (k H, 4H), stacked. w_t (4H, k H) is the stacked
-// weight transposed. Scratch: sa (L B J, k H), part. Three launches on
-// `stream`.
-int pv2c_graph_lstm_scan_bwd(const float* xg, const float* cheb,
-                             const float* w, const float* w_t, const float* ys,
-                             const float* cs, const float* dys,
-                             const float* dcs, float* dxg, float* sa,
-                             float* part, float* dw, int L, int B, int J,
+// The graph-form LSTM scan: xg (L, B, J, 4H) gate pre-activations i|f|c|o,
+// cheb (k-1, J, J), w (H, k 4H) as the caller holds it (columns by
+// Chebyshev order, then gate) -> ys and cs (L, B, J, H). With gates and sa
+// (both or neither): the residuals the backward reads (KEEP), gates (L, B,
+// J, 4H) = i|f|g|o activated and sa (L B J, k H; columns unit-major).
+// float32, contiguous. One launch on `stream`; returns the first CUDA
+// error, or 0.
+int pv2c_graph_lstm_scan_fwd(const float* xg, const float* cheb,
+                             const float* w, float* ys, float* cs,
+                             float* gates, float* sa, int L, int B, int J,
                              int H, int k, cudaStream_t stream) {
   if (!valid(L, B, J, H, k)) return static_cast<int>(cudaErrorInvalidValue);
-  int C = 0, sms = 0;
-  size_t bytes = 0;
-  cudaError_t err =
-      prepare(lstm_scan_bwd_kernel, B, J, H, k, kLstmBwdUnits, &C, &bytes);
-  if (err == cudaSuccess) err = sm_count(&sms);
+  const bool keep = gates != nullptr;
+  if (keep != (sa != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  lstm_scan_bwd_kernel<<<(B + C - 1) / C, kThreads, bytes, stream>>>(
-      xg, cheb, w, w_t, ys, cs, dys, dcs, dxg, sa, L, B, J, H, k, C);
+  const LstmPlan plan = plan_lstm(B, J, H, k, false, sms);
+  if (plan.C == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = H % 4 == 0 && aligned16(w) && (!keep || aligned16(sa));
+  decltype(&lstm_scan_fwd_kernel<true, 0>) kernels[2][3] = {
+      {lstm_scan_fwd_kernel<false, 0>, lstm_scan_fwd_kernel<false, 1>,
+       lstm_scan_fwd_kernel<false, 2>},
+      {lstm_scan_fwd_kernel<true, 0>, lstm_scan_fwd_kernel<true, 1>,
+       lstm_scan_fwd_kernel<true, 2>}};
+  return static_cast<int>(launch_scan(
+      kernels[keep][plan.v], (B + plan.C - 1) / plan.C, plan.bytes, stream,
+      xg, cheb, w, ys, cs, gates, sa, L, B, J, H, k, plan.C, vec));
+}
+
+// The graph-form LSTM scan's backward from the residuals of the KEEP
+// forward (gates, sa), its cell states cs, the cotangent dys and, unless
+// nullptr, the cell states' cotangent dcs: dxg (L, B, J, 4H) and dw
+// (H, k 4H), in the weight's own layout. Scratch: part
+// (pv2c_graph_scan_part_floats). Three launches on `stream` (the reverse
+// scan, the weight-gradient product, the sum of its splits); returns the
+// first CUDA error, or 0.
+int pv2c_graph_lstm_scan_bwd(const float* cheb, const float* w,
+                             const float* gates, const float* sa,
+                             const float* cs, const float* dys,
+                             const float* dcs, float* dxg, float* part,
+                             float* dw, int L, int B, int J, int H, int k,
+                             cudaStream_t stream) {
+  if (!valid(L, B, J, H, k)) return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const LstmPlan plan = plan_lstm(B, J, H, k, true, sms);
+  if (plan.C == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec =
+      H % 4 == 0 && aligned16(w) && aligned16(sa) && aligned16(dxg);
+  decltype(&lstm_scan_bwd_kernel<0>) kernels[3] = {
+      lstm_scan_bwd_kernel<0>, lstm_scan_bwd_kernel<1>,
+      lstm_scan_bwd_kernel<2>};
+  err = launch_scan(kernels[plan.v], (B + plan.C - 1) / plan.C, plan.bytes,
+                    stream, cheb, w, gates, cs, dys, dcs, dxg, L, B, J, H, k,
+                    plan.C, vec);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int rows = L * B * J, KH = k * H, count = KH * 4 * H;
+  const int splits = lstm_dw_splits(rows, KH, H, sms);
+  const int chunk = round_up((rows + splits - 1) / splits, kDwKT);
+  const int tiles = dw_tiles(KH, 4 * H);
+  const DwProblem p{sa, dxg, part, KH, KH, 4 * H, 4 * H};
+  auto dw_kernel = vec ? dw_tf32_kernel<true> : dw_tf32_kernel<false>;
+  err = cudaFuncSetAttribute(dw_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kDwSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dw_kernel<<<dim3(tiles, splits), kDwThreads, kDwSmemBytes, stream>>>(
+      p, p, tiles, rows, chunk);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const int rows = L * B * J, KH = k * H;
-  err = weight_grad(sa, KH, KH, dxg, 4 * H, 4 * H, rows, part, dw, sms, stream);
-  return static_cast<int>(err);
+  reduce_two_kernel<<<(count + 255) / 256, 256, 0, stream>>>(
+      part, count, dw, part, 0, dw, splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -15,7 +15,9 @@ loads through ``models/jax_import.py``.
 "joint" (a plain dense LSTM over the batch rows): the dense LSTM kernels on
 the card (``csrc/fused_dense_lstm.cu``, up to H = 64, which read the stacked
 hidden weight's transpose in place; wider layers take the graph-form
-kernels), their plain version on the CPU. ``"auto"`` keeps the loop in PyTorch
+kernels, which copy it once), their plain version on the CPU. The hidden
+biases ride in the hoisted input product, taken frame-major, so the scan's
+input is that product's output, uncopied. ``"auto"`` keeps the loop in PyTorch
 ops, as the JAX package's ``auto`` keeps its scan; an explicit
 ``initial_carry`` always takes the loop.
 """
@@ -81,9 +83,12 @@ class _Hoisted(nn.Module):
 
     def _frames(self, x: torch.Tensor, bias=None) -> torch.Tensor:
         """The hoisted input projection, frame-major and in processing
-        order: (B, L, E) -> (L, B, G H)."""
-        gx = F.linear(x, self._stacked("i"), bias).transpose(0, 1)
-        return gx.flip(0) if self.reverse else gx
+        order: (B, L, E) -> (L, B, G H), contiguous. The product runs on the
+        frame-major (and, with ``reverse``, flipped) input, the narrow side,
+        so that its output needs no copy."""
+        xt = x.transpose(0, 1)
+        return F.linear(xt.flip(0) if self.reverse else xt,
+                        self._stacked("i"), bias)
 
 
 class HoistedLSTM(_Hoisted):
@@ -99,12 +104,13 @@ class HoistedLSTM(_Hoisted):
                                               torch.Tensor]] = None):
         B, L, _ = x.shape
         H = self.features
-        gx = self._frames(x)                                  # (L, B, 4H)
-        w_h = self._stacked("h")                              # (4H, H)
+        # the hidden biases folded into the input product's
         b_h = torch.cat([getattr(self, f"h{g}").bias for g in self.GATES])
+        gx = self._frames(x, b_h)                             # (L, B, 4H)
+        w_h = self._stacked("h")                              # (4H, H)
         if self.kernel == "fused" and initial_carry is None:
             cheb = x.new_zeros((0, 1, 1))
-            ys, cs = graph_lstm_scan((gx + b_h).unsqueeze(2), cheb, w_h.t(),
+            ys, cs = graph_lstm_scan(gx.unsqueeze(2), cheb, w_h.t(),
                                      with_c=True)
             return (cs[-1, :, 0], ys[-1, :, 0]), ys[:, :, 0].transpose(0, 1)
         if initial_carry is None:
@@ -113,7 +119,7 @@ class HoistedLSTM(_Hoisted):
             c, h = initial_carry
         hs = []
         for t in range(L):
-            gi, gf, gg, go = (F.linear(h, w_h, b_h) + gx[t]).split(H, dim=-1)
+            gi, gf, gg, go = (F.linear(h, w_h) + gx[t]).split(H, dim=-1)
             c = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gg)
             h = torch.sigmoid(go) * torch.tanh(c)
             hs.append(h)

@@ -71,8 +71,7 @@ SCAN_GATES = {"gru": 3, "lstm": 4}
 
 
 def graph_scan_flops(cell: str, batch: int, clip_length: int, joints: int,
-                     hidden: int, k: int, backward: bool = False,
-                     dense: bool = False) -> int:
+                     hidden: int, k: int, backward: bool = False) -> int:
     """FLOPs of one graph-GRU or graph-LSTM scan (``ops/fused_graph_gru
     .py``), forward or backward, counting the cheaper order of the
     hidden-side convolution (the graph applied to the H-wide operand, then
@@ -83,20 +82,13 @@ def graph_scan_flops(cell: str, batch: int, clip_length: int, joints: int,
     LSTM and twice for the GRU (h and r h). Backward: dh through da W^T
     (the hidden products' count) and the transposed graph (the graph's
     count), and the weight gradients over all rows (the hidden products'
-    count again); the LSTM's graph-form backward also recomputes its gates
-    (the forward's count once more), the GRU's and the LSTM's ``dense``
-    route (k = 1, ``csrc/fused_dense_lstm.cu``) read them from what their
-    training forwards kept. Elementwise gating is left out."""
+    count again). Every backward reads the gates its training forward kept
+    and recomputes none of them. Elementwise gating is left out."""
     gates = SCAN_GATES[cell]
     rows = batch * clip_length * joints
     products = 2 * k * hidden * gates * hidden
     graph = 2 * (k - 1) * joints * hidden * (2 if cell == "gru" else 1)
-    if not backward:
-        per_row = products + graph
-    elif cell == "gru" or dense:
-        per_row = 2 * products + graph
-    else:
-        per_row = 3 * products + 2 * graph
+    per_row = 2 * products + graph if backward else products + graph
     return int(rows * per_row)
 
 
@@ -106,13 +98,14 @@ def graph_scan_bytes(cell: str, batch: int, clip_length: int, joints: int,
                      dense: bool = False) -> int:
     """Bytes a graph scan must move in float32: each input read once and
     each output written once. Forward: xg in, ys (and the LSTM's cs) out,
-    the weights and graph matrices in; the GRU's training forward (``keep``)
-    also writes its residuals, the gates (3H a row) and both expanded
-    operands (k H a row each), and the LSTM's ``dense`` route (k = 1) the
-    activated gates (4H a row). Backward: dys (dcs where the caller used
-    cs) and the weights in, dxg and the weight gradients out; the GRU reads
-    its residuals, the LSTM ys, cs and xg (the dense route: the gates in
-    xg's place, as many floats)."""
+    the weights and graph matrices in; the training forward (``keep``) also
+    writes its residuals: the GRU's gates (3H a row) and both expanded
+    operands (k H a row each), the graph-form LSTM's activated gates (4H a
+    row) and expanded operand (k H), the ``dense`` route's (k = 1) gates
+    alone. Backward: dys (dcs where the caller used cs) and the weights in,
+    dxg and the weight gradients out; the GRU reads its residuals, the
+    LSTM its gates (4H), cs and the expanded operand (the dense route: ys
+    in its place, H a row)."""
     gates = SCAN_GATES[cell]
     H = hidden
     rows = batch * clip_length * joints
@@ -121,13 +114,14 @@ def graph_scan_bytes(cell: str, batch: int, clip_length: int, joints: int,
     if backward and cell == "gru":
         floats = rows * (residuals + H + 3 * H) + 2 * weights
     elif backward:
-        floats = rows * (2 * gates * H + H * (3 + (1 if with_dcs else 0))) \
-            + 2 * weights
+        operand = H if dense else k * H
+        floats = rows * (2 * gates * H + H * (2 + (1 if with_dcs else 0))
+                         + operand) + 2 * weights
     else:
         states = 2 if cell == "lstm" else 1
         floats = rows * (gates * H + states * H) + weights
         if keep and cell == "gru":
             floats += rows * residuals
-        elif keep and dense:
-            floats += rows * gates * H
+        elif keep:
+            floats += rows * (gates * H + (0 if dense else k * H))
     return int(4 * floats)

@@ -34,9 +34,13 @@ Routes on the card:
   forward keeps the activated gates, so its backward recomputes nothing.
   It reads the weight as given or as the transpose of a contiguous (4H, H)
   tensor (a stacked ``nn.Linear`` weight), without a copy.
-- the LSTM otherwise (k >= 2, or wider H): ``csrc/fused_graph_gru.cu``'s
-  LSTM kernels, on the CUDA cores, the weights stacked by the wrapper; the
-  backward recomputes the gates.
+- the LSTM otherwise (the graph form: k >= 2, or wider H):
+  ``csrc/fused_graph_gru.cu``'s LSTM kernels, on the GRU's tensor-core
+  design (3xTF32 products, the caller's weight read in place); its training
+  forward (``keep``) writes the residuals its backward reads
+  (:class:`LSTMResiduals`): the activated gates and the expanded operand of
+  every frame. At k = 1 a stacked weight's transpose is copied once per
+  call (``w.contiguous()``; H x 4H floats).
 The route is chosen from the shape before any launch, never because a
 launch failed.
 
@@ -60,10 +64,11 @@ _DENSE_SOURCE = cuda_build.CSRC / "fused_dense_lstm.cu"
 _SIGNATURES = {
     "pv2c_graph_gru_scan_fwd": [_PTR] * 8 + [_INT] * 5 + [_PTR],
     "pv2c_graph_gru_scan_bwd": [_PTR] * 11 + [_INT] * 5 + [_PTR],
-    "pv2c_graph_lstm_scan_fwd": [_PTR] * 5 + [_INT] * 5 + [_PTR],
-    "pv2c_graph_lstm_scan_bwd": [_PTR] * 12 + [_INT] * 5 + [_PTR],
+    "pv2c_graph_lstm_scan_fwd": [_PTR] * 7 + [_INT] * 5 + [_PTR],
+    "pv2c_graph_lstm_scan_bwd": [_PTR] * 10 + [_INT] * 5 + [_PTR],
     "pv2c_graph_scan_part_floats": [_INT] * 6,
     "pv2c_graph_gru_plan": [_INT] * 5 + [_PTR],
+    "pv2c_graph_lstm_plan": [_INT] * 5 + [_PTR],
 }
 _DENSE_SIGNATURES = {
     "pv2c_dense_lstm_plan": [_INT] * 4 + [_PTR],
@@ -205,14 +210,15 @@ def graph_gru_scan_keep_reference(xg: torch.Tensor, cheb: torch.Tensor,
                                          rows(sb))
 
 
-def _check_residuals(res: GRUResiduals, L: int, B: int, J: int, H: int,
-                     k: int) -> None:
-    shapes = {"gates": (L, B, J, 3 * H), "sa": (L * B * J, k * H),
-              "sb": (L * B * J, k * H)}
-    for name, want in shapes.items():
-        got = tuple(getattr(res, name).shape)
-        if got != want:
-            raise ValueError(f"residual {name} must be {want}, got {got}")
+def _check_residuals(res, L: int, B: int, J: int, H: int, k: int) -> None:
+    """Shapes of a :class:`GRUResiduals` or :class:`LSTMResiduals`: the
+    gates (L, B, J, G H), each expanded operand (L B J, k H)."""
+    gates = GRU_GATES if isinstance(res, GRUResiduals) else LSTM_GATES
+    for name, t in res._asdict().items():
+        want = (L, B, J, gates * H) if name == "gates" else (L * B * J, k * H)
+        if tuple(t.shape) != want:
+            raise ValueError(f"residual {name} must be {want}, got "
+                             f"{tuple(t.shape)}")
 
 
 def graph_gru_scan_bwd_reference(cheb: torch.Tensor, wzr: torch.Tensor,
@@ -285,19 +291,30 @@ def _check_dense(xg: torch.Tensor, w: torch.Tensor
                        LSTM_GATES)[:4]
 
 
-def dense_lstm_scan_keep_reference(xg: torch.Tensor, w: torch.Tensor
+class LSTMResiduals(NamedTuple):
+    """What the graph-form LSTM's training forward keeps for its backward:
+    ``gates`` (L, B, J, 4H), the activated i | f | g | o of every frame;
+    ``sa`` (L B J, k H), every frame's expanded operand of h_prev in the
+    kernels' unit-major column order (:func:`_expand`)."""
+    gates: torch.Tensor
+    sa: torch.Tensor
+
+
+def graph_lstm_scan_keep_reference(xg: torch.Tensor, cheb: torch.Tensor,
+                                   w: torch.Tensor
                                    ) -> Tuple[torch.Tensor, torch.Tensor,
-                                              torch.Tensor]:
-    """The plain version of the dense LSTM's training forward (k = 1): xg
-    (L, B, J, 4H), w (H, 4H) -> ``(ys, cs, gates)``, gates (L, B, J, 4H)
-    the activated i | f | g | o of every frame, which the backward reads
-    instead of recomputing them."""
-    L, B, J, H = _check_dense(xg, w)
+                                              LSTMResiduals]:
+    """The plain version of the LSTM's training forward: the scan through
+    the expanded operand and the weight as the kernels read it, ``w
+    .reshape(k H, 4H)`` -> ``(ys, cs, LSTMResiduals)``."""
+    L, B, J, H, k = _check_scan(xg, cheb, (("w", w, 4),), LSTM_GATES)
+    w_v = w.reshape(k * H, 4 * H)
     h = xg.new_zeros((B, J, H))
     c = xg.new_zeros((B, J, H))
-    ys, cs, gates = [], [], []
+    ys, cs, gates, sa = [], [], [], []
     for t in range(L):
-        acts = xg[t] + h @ w
+        a = _expand(cheb, h)
+        acts = xg[t] + a @ w_v
         i, f, o = (torch.sigmoid(acts[..., n * H:(n + 1) * H])
                    for n in (0, 1, 3))
         g = torch.tanh(acts[..., 2 * H:3 * H])
@@ -306,20 +323,32 @@ def dense_lstm_scan_keep_reference(xg: torch.Tensor, w: torch.Tensor
         ys.append(h)
         cs.append(c)
         gates.append(torch.cat([i, f, g, o], dim=-1))
-    return torch.stack(ys), torch.stack(cs), torch.stack(gates)
+        sa.append(a)
+    return torch.stack(ys), torch.stack(cs), LSTMResiduals(
+        torch.stack(gates), torch.stack(sa).reshape(L * B * J, k * H))
 
 
-def dense_lstm_scan_bwd_reference(w: torch.Tensor, gates: torch.Tensor,
-                                  ys: torch.Tensor, cs: torch.Tensor,
-                                  dys: torch.Tensor,
-                                  dcs: Optional[torch.Tensor] = None
-                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version of the dense LSTM's backward from the training
-    forward's gates, ys and cs, frame by frame in reverse as the kernel
-    runs it: one transposed product a frame (dh = dys[t] + da[t+1] W^T),
-    the gating backward with dc carried (plus ``dcs`` where the caller used
-    cs), nothing of the forward recomputed; then dW = sum over frames
-    t >= 1 of ys[t-1]^T da[t] -> ``(dxg, dw)``."""
+def dense_lstm_scan_keep_reference(xg: torch.Tensor, w: torch.Tensor
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """The plain version of the dense LSTM's training forward (k = 1): xg
+    (L, B, J, 4H), w (H, 4H) -> ``(ys, cs, gates)``, the graph form's
+    without its expanded operand (at k = 1 it is ys a frame back, which the
+    dense backward reads in place)."""
+    J = _check_dense(xg, w)[2]
+    ys, cs, res = graph_lstm_scan_keep_reference(xg, xg.new_zeros((0, J, J)),
+                                                 w)
+    return ys, cs, res.gates
+
+
+def _lstm_reverse(cheb: torch.Tensor, w_v: torch.Tensor, gates: torch.Tensor,
+                  cs: torch.Tensor, dys: torch.Tensor,
+                  dcs: Optional[torch.Tensor]) -> torch.Tensor:
+    """The LSTM's reverse scan from the kept gates and cs, frame by frame
+    as the kernels run it: the gating backward with dc carried (plus
+    ``dcs`` where the caller used cs), then one transposed product a frame,
+    dh = sum_n T_n^T (da W^T)_n (``w_v`` the (k H, 4H) weight), nothing of
+    the forward recomputed -> dxg (L, B, J, 4H)."""
     L, B, J, H = dys.shape
     dh_next = dys.new_zeros((B, J, H))
     dc_next = dys.new_zeros((B, J, H))
@@ -337,26 +366,41 @@ def dense_lstm_scan_bwd_reference(w: torch.Tensor, gates: torch.Tensor,
                         dc * i * (1.0 - g * g),
                         dh * tc * o * (1.0 - o)], dim=-1)
         dc_next = dc * f
-        dh_next = da @ w.t()
+        dh_next = _graph_apply_t(cheb, da @ w_v.t())
         das.append(da)
-    dxg = torch.stack(das[::-1])
+    return torch.stack(das[::-1])
+
+
+def graph_lstm_scan_bwd_reference(cheb: torch.Tensor, w: torch.Tensor,
+                                  res: LSTMResiduals, cs: torch.Tensor,
+                                  dys: torch.Tensor,
+                                  dcs: Optional[torch.Tensor] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the graph-form LSTM's backward from the
+    training forward's residuals and cs (:func:`_lstm_reverse`, the weight
+    read as ``w.reshape(k H, 4H)``), then dW = S^T dxg over all rows ->
+    ``(dxg, dw)``, dw in w's shape."""
+    L, B, J, H = dys.shape
+    k = cheb.shape[0] + 1
+    _check_residuals(res, L, B, J, H, k)
+    dxg = _lstm_reverse(cheb, w.reshape(k * H, 4 * H), res.gates, cs, dys,
+                        dcs)
+    dw = res.sa.t() @ dxg.reshape(-1, 4 * H)
+    return dxg, dw.reshape(w.shape)
+
+
+def dense_lstm_scan_bwd_reference(w: torch.Tensor, gates: torch.Tensor,
+                                  ys: torch.Tensor, cs: torch.Tensor,
+                                  dys: torch.Tensor,
+                                  dcs: Optional[torch.Tensor] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the dense LSTM's backward from the training
+    forward's gates, ys and cs: :func:`_lstm_reverse` at k = 1, then dW =
+    sum over frames t >= 1 of ys[t-1]^T da[t] -> ``(dxg, dw)``."""
+    L, B, J, H = dys.shape
+    dxg = _lstm_reverse(dys.new_zeros((0, J, J)), w, gates, cs, dys, dcs)
     dw = ys[:-1].reshape(-1, H).t() @ dxg[1:].reshape(-1, 4 * H)
     return dxg, dw
-
-
-# -- the kernels' weight layout ---------------------------------------------
-def _stack(w: torch.Tensor, k: int) -> torch.Tensor:
-    """(H, k GH) with columns (n, gate, unit) -> (k H, GH) with rows
-    (n, unit): the operand of [h | T_1 h | ...] (rows, k H), which is how
-    the kernels contract (the graph applied to the H-wide carry first)."""
-    H = w.shape[0]
-    return w.reshape(H, k, -1).permute(1, 0, 2).reshape(k * H, -1).contiguous()
-
-
-def _unstack(ws: torch.Tensor, k: int) -> torch.Tensor:
-    """The inverse of :func:`_stack`."""
-    H = ws.shape[0] // k
-    return ws.reshape(k, H, -1).permute(1, 0, 2).reshape(H, -1).contiguous()
 
 
 def _library():
@@ -459,42 +503,67 @@ def graph_gru_scan_cuda_bwd(cheb: torch.Tensor, wzr: torch.Tensor,
 graph_gru_scan_cuda_bwd.launches = 0
 
 
+def graph_lstm_plan(B: int, J: int, H: int, k: int, backward: bool = False,
+                    device=None) -> Tuple[int, int, int, int]:
+    """How the graph-form LSTM scan (or its reverse scan) is launched at
+    this shape on a CUDA device: (clips a thread block, the weight ring's
+    widest tile, shared memory bytes, rows of a block tile: 64, or 16 in
+    the few-rows tiling), zeros where one clip does not fit (the launch
+    then raises)."""
+    plan = torch.zeros(4, dtype=torch.int32)
+    with torch.cuda.device(device):
+        err = _library().pv2c_graph_lstm_plan(B, J, H, k, int(backward),
+                                              plan.data_ptr())
+    cuda_build.check_launch(err, "pv2c_graph_lstm_plan")
+    return tuple(int(v) for v in plan)
+
+
 def graph_lstm_scan_cuda_fwd(xg: torch.Tensor, cheb: torch.Tensor,
-                             w: torch.Tensor
-                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the LSTM scan on float32 contiguous CUDA tensors ->
-    ``(ys, cs)``, each (L, B, J, H). Adds one to
+                             w: torch.Tensor, keep: bool = False):
+    """Launch the graph-form LSTM scan on float32 contiguous CUDA tensors
+    -> ``(ys, cs)``, each (L, B, J, H); with ``keep``, ``(ys, cs,
+    LSTMResiduals)`` for :func:`graph_lstm_scan_cuda_bwd`. Adds one to
     ``graph_lstm_scan_cuda_fwd.launches`` per call."""
     L, B, J, H, k = _check_scan(xg, cheb, (("w", w, 4),), LSTM_GATES)
     device = cuda_build.check_cuda_tensors(
         "graph_lstm_scan_cuda_fwd", xg=xg, cheb=cheb, w=w)
-    ys = torch.empty((L, B, J, H), dtype=torch.float32, device=device)
-    cs = torch.empty_like(ys)
+    empty = functools.partial(torch.empty, dtype=torch.float32, device=device)
+    ys, cs = empty((L, B, J, H)), empty((L, B, J, H))
+    res = LSTMResiduals(empty((L, B, J, 4 * H)),
+                        empty((L * B * J, k * H))) if keep else None
     if ys.numel():
-        w_s = _stack(w, k)
         with torch.cuda.device(device):
             err = _library().pv2c_graph_lstm_scan_fwd(
-                xg.data_ptr(), cheb.data_ptr(), w_s.data_ptr(),
-                ys.data_ptr(), cs.data_ptr(), L, B, J, H, k, _stream(device))
+                xg.data_ptr(), cheb.data_ptr(), w.data_ptr(), ys.data_ptr(),
+                cs.data_ptr(),
+                *((t.data_ptr() for t in res) if keep else (None,) * 2),
+                L, B, J, H, k, _stream(device))
         cuda_build.check_launch(err, "pv2c_graph_lstm_scan_fwd")
         graph_lstm_scan_cuda_fwd.launches += 1
-    return ys, cs
+    return (ys, cs, res) if keep else (ys, cs)
 
 
 graph_lstm_scan_cuda_fwd.launches = 0
 
 
-def graph_lstm_scan_cuda_bwd(xg: torch.Tensor, cheb: torch.Tensor,
-                             w: torch.Tensor, ys: torch.Tensor,
-                             cs: torch.Tensor, dys: torch.Tensor,
+def graph_lstm_scan_cuda_bwd(cheb: torch.Tensor, w: torch.Tensor,
+                             res: LSTMResiduals, cs: torch.Tensor,
+                             dys: torch.Tensor,
                              dcs: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the LSTM scan's backward on float32 contiguous CUDA tensors:
-    the forward's inputs, its outputs (ys, cs), the cotangent dys and,
-    where the caller used cs, its cotangent dcs -> ``(dxg, dw)``. Adds one
-    to ``graph_lstm_scan_cuda_bwd.launches`` per call."""
-    L, B, J, H, k = _check_scan(xg, cheb, (("w", w, 4),), LSTM_GATES)
-    given = {"ys": ys, "cs": cs, "dys": dys}
+    """Launch the graph-form LSTM scan's backward on float32 contiguous
+    CUDA tensors: the graph matrices, the weight, the residuals of
+    ``graph_lstm_scan_cuda_fwd(..., keep=True)``, its cell states cs, the
+    cotangent dys and, where the caller used cs, its cotangent dcs ->
+    ``(dxg, dw)``, each in its primal's shape. Adds one to
+    ``graph_lstm_scan_cuda_bwd.launches`` per call."""
+    if dys.ndim != 4:
+        raise ValueError(f"dys must be (L, B, J, H), got {tuple(dys.shape)}")
+    L, B, J, H = dys.shape
+    k = cheb.shape[0] + 1
+    _check_scan(res.gates, cheb, (("w", w, 4),), LSTM_GATES)
+    _check_residuals(res, L, B, J, H, k)
+    given = {"cs": cs, "dys": dys}
     if dcs is not None:
         given["dcs"] = dcs
     for name, t in given.items():
@@ -502,27 +571,23 @@ def graph_lstm_scan_cuda_bwd(xg: torch.Tensor, cheb: torch.Tensor,
             raise ValueError(f"{name} must be {(L, B, J, H)}, got "
                              f"{tuple(t.shape)}")
     device = cuda_build.check_cuda_tensors(
-        "graph_lstm_scan_cuda_bwd", xg=xg, cheb=cheb, w=w, **given)
-    if not ys.numel():
-        return torch.zeros_like(xg), torch.zeros_like(w)
-    empty = functools.partial(torch.empty, dtype=torch.float32, device=device)
-    w_s = _stack(w, k)
-    w_t = w_s.t().contiguous()
-    dxg = torch.empty_like(xg)
-    sa = empty((L * B * J, k * H))
-    dw_s = empty((k * H, 4 * H))
+        "graph_lstm_scan_cuda_bwd", cheb=cheb, w=w, gates=res.gates,
+        sa=res.sa, **given)
+    if not dys.numel():
+        return torch.zeros_like(res.gates), torch.zeros_like(w)
+    dxg = torch.empty_like(res.gates)
+    dw = torch.empty_like(w)
     lib = _library()
     with torch.cuda.device(device):
         part = _part(lib, device, L, B, J, H, k, LSTM_GATES)
         err = lib.pv2c_graph_lstm_scan_bwd(
-            xg.data_ptr(), cheb.data_ptr(), w_s.data_ptr(), w_t.data_ptr(),
-            ys.data_ptr(), cs.data_ptr(), dys.data_ptr(),
+            cheb.data_ptr(), w.data_ptr(), res.gates.data_ptr(),
+            res.sa.data_ptr(), cs.data_ptr(), dys.data_ptr(),
             None if dcs is None else dcs.data_ptr(), dxg.data_ptr(),
-            sa.data_ptr(), part.data_ptr(), dw_s.data_ptr(), L, B, J, H, k,
-            _stream(device))
+            part.data_ptr(), dw.data_ptr(), L, B, J, H, k, _stream(device))
     cuda_build.check_launch(err, "pv2c_graph_lstm_scan_bwd")
     graph_lstm_scan_cuda_bwd.launches += 1
-    return dxg, _unstack(dw_s, k)
+    return dxg, dw
 
 
 graph_lstm_scan_cuda_bwd.launches = 0
@@ -699,8 +764,9 @@ class GraphGRUScan(torch.autograd.Function):
 class GraphLSTMScan(torch.autograd.Function):
     """As :class:`GraphGRUScan`, for the LSTM scan; both outputs (ys, cs)
     are differentiable. On the card k = 1 takes the dense kernels where
-    :func:`dense_lstm_plan` takes the shape (their training forward, with
-    ``keep``, keeps the gates), else the graph-form kernels."""
+    :func:`dense_lstm_plan` takes the shape, else the graph-form kernels;
+    with ``keep`` either training forward keeps its residuals (the dense
+    one its gates)."""
 
     @staticmethod
     def forward(ctx, xg, cheb, keep, w):
@@ -709,6 +775,9 @@ class GraphLSTMScan(torch.autograd.Function):
         ctx.dense = ctx.fused and k == 1 and \
             dense_lstm_plan(B, J, H, k, xg.device)[0] > 0
         ctx.set_materialize_grads(False)
+        if not ctx.fused:
+            ctx.save_for_backward(xg, cheb, w)
+            return graph_lstm_scan_reference(xg, cheb, w)
         if ctx.dense:
             if not (w.is_contiguous() or w.t().is_contiguous()):
                 w = w.contiguous()
@@ -718,11 +787,10 @@ class GraphLSTMScan(torch.autograd.Function):
             ctx.save_for_backward(w, gates, ys, cs)
             return ys, cs
         w = w.contiguous()
-        if ctx.fused:
-            ys, cs = graph_lstm_scan_cuda_fwd(xg, cheb, w)
-        else:
-            ys, cs = graph_lstm_scan_reference(xg, cheb, w)
-        ctx.save_for_backward(xg, cheb, w, ys, cs)
+        if not keep:
+            return graph_lstm_scan_cuda_fwd(xg, cheb, w)
+        ys, cs, res = graph_lstm_scan_cuda_fwd(xg, cheb, w, keep=True)
+        ctx.save_for_backward(cheb, w, cs, *res)
         return ys, cs
 
     @staticmethod
@@ -730,19 +798,20 @@ class GraphLSTMScan(torch.autograd.Function):
         if dys is None and dcs is None:
             return None, None, None, None
         dcs = None if dcs is None else dcs.contiguous()
-        if ctx.dense:
-            w, gates, ys, cs = ctx.saved_tensors
-            dys = torch.zeros_like(ys) if dys is None else dys.contiguous()
-            dxg, dw = dense_lstm_scan_cuda_bwd(w, gates, ys, cs, dys, dcs)
-            return dxg, None, None, dw
-        xg, cheb, w, ys, cs = ctx.saved_tensors
-        if ctx.fused:
-            dys = torch.zeros_like(ys) if dys is None else dys.contiguous()
-            dxg, dw = graph_lstm_scan_cuda_bwd(xg, cheb, w, ys, cs, dys, dcs)
-        else:
+        if not ctx.fused:
+            xg, cheb, w = ctx.saved_tensors
             dxg, dw = _plain_backward(
                 lambda a, b: graph_lstm_scan_reference(a, cheb, b),
                 (xg, w), (dys, dcs))
+        elif ctx.dense:
+            w, gates, ys, cs = ctx.saved_tensors
+            dys = torch.zeros_like(ys) if dys is None else dys.contiguous()
+            dxg, dw = dense_lstm_scan_cuda_bwd(w, gates, ys, cs, dys, dcs)
+        else:
+            cheb, w, cs, *res = ctx.saved_tensors
+            dys = torch.zeros_like(cs) if dys is None else dys.contiguous()
+            dxg, dw = graph_lstm_scan_cuda_bwd(cheb, w, LSTMResiduals(*res),
+                                               cs, dys, dcs)
         return dxg, None, None, dw
 
 

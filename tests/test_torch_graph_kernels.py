@@ -3,12 +3,13 @@ port's plain versions against the JAX package's Pallas kernels in interpret
 mode (``ops/pallas/fused_graph_gru.py``: ``graph_gru_scan``,
 ``graph_lstm_scan``), forward and ``jax.vjp``, on the same numpy-seeded
 inputs; the GRU's training forward with residuals and its backward from
-them (the algorithm the CUDA kernels run) against the same; the Chebyshev
-matrices; the autograd wrappers' CPU route; the weight layout the GRU
-kernels read; the dense LSTM's training forward with gates and its
-backward from them (the algorithm of ``csrc/fused_dense_lstm.cu``) against
-the Pallas kernel at k = 1 and ``jax.vjp``; the LSTM wrapper's route and
-residuals; the FLOP and byte counts; the CUDA wrappers refuse CPU tensors; the build
+them (the algorithm the CUDA kernels run) against the same, and the
+graph-form LSTM's likewise; the Chebyshev matrices; the autograd wrappers'
+CPU route; the weight layout both cells' kernels read; the dense LSTM's
+training forward with gates and its backward from them (the algorithm of
+``csrc/fused_dense_lstm.cu``) against the Pallas kernel at k = 1 and
+``jax.vjp``; the LSTM wrapper's route and residuals; the FLOP and byte
+counts; the CUDA wrappers refuse CPU tensors; the build
 key follows the included header; and, on a CUDA card only, the kernels
 against their plain versions.
 
@@ -215,11 +216,9 @@ def test_gru_residual_layout():
                                (r[1:] * h_prev).numpy(), atol=1e-6)
 
 
-@pytest.mark.parametrize("H,k", [(16, 2), (3, 3), (128, 1)])
-def test_gru_kernel_weight_layouts(H, k):
-    """The GRU kernels read the weights as the caller holds them: the
-    (H, k N) weight as a (k H, N) row-major matrix, whose row u k + n is
-    row u of W_n, times the expanded operand in unit-major order (column
+def _check_weight_layout(H, k, widths):
+    """The (H, k N) weight as a (k H, N) row-major matrix, whose row u k + n
+    is row u of W_n, times the expanded operand in unit-major order (column
     u k + n = T_n's unit u) is the scan's sum_n T_n (h W_n); the weight
     gradient S^T da comes out in the caller's layout."""
     rng = np.random.default_rng(H + k)
@@ -233,7 +232,7 @@ def test_gru_kernel_weight_layouts(H, k):
                 "ij,bj->bi", cheb[n - 1], h[..., u])
             np.testing.assert_allclose(expanded[..., u * k + n].numpy(),
                                        want.numpy(), atol=1e-6)
-    for N in (2 * H, H):
+    for N in widths:
         w = torch.from_numpy(rng.standard_normal((H, k * N)).astype(
             np.float32))
         view = w.reshape(k * H, N)
@@ -250,6 +249,21 @@ def test_gru_kernel_weight_layouts(H, k):
             G._graph_apply(cheb, h @ w.requires_grad_(True), N), w, da)[0]
         np.testing.assert_allclose(grad.reshape(H, k * N).numpy(),
                                    want.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("H,k", [(16, 2), (3, 3), (128, 1)])
+def test_gru_kernel_weight_layouts(H, k):
+    """The GRU kernels read both weights as the caller holds them
+    (:func:`_check_weight_layout`, N = 2H and H)."""
+    _check_weight_layout(H, k, (2 * H, H))
+
+
+@pytest.mark.parametrize("H,k", [(16, 2), (3, 3), (128, 1)])
+def test_lstm_kernel_weight_layouts(H, k):
+    """The graph-form LSTM kernels read w (H, k 4H) as the caller holds it,
+    ``w.reshape(k H, 4H)`` (:func:`_check_weight_layout`, N = 4H), where
+    the earlier kernels took a restacked copy."""
+    _check_weight_layout(H, k, (4 * H,))
 
 
 def test_gru_autograd_keeps_residuals_only_for_a_gradient(monkeypatch):
@@ -323,14 +337,62 @@ def test_dense_lstm_backward_from_residuals_matches_jax_vjp(cotangents):
         _scaled_close(g.numpy(), r, name)
 
 
+@pytest.mark.parametrize("shape", ["k2", "k3_h3", "k1"])
+def test_lstm_keep_forward_matches_jax(shape):
+    """The graph-form LSTM's plain training forward (the algorithm of its
+    CUDA kernels): ys and cs against the Pallas kernel; the gates it keeps
+    are the activations of xg + S W, with S the expanded operand it keeps
+    (unit-major, the previous frame's hidden state, zero at frame 0)."""
+    B, L, H, k = SHAPES[shape]
+    xg, (w,), _ = _inputs("lstm", shape)
+    cheb = _cheb(k)
+    ys, cs, res = G.graph_lstm_scan_keep_reference(torch.from_numpy(xg),
+                                                   cheb, torch.from_numpy(w))
+    (ref_ys, ref_cs), _ = _jax_scan("lstm", shape)
+    np.testing.assert_allclose(ys.numpy(), ref_ys, rtol=0, atol=FWD_ATOL)
+    np.testing.assert_allclose(cs.numpy(), ref_cs, rtol=0, atol=FWD_ATOL)
+    assert tuple(res.gates.shape) == (L, B, J, 4 * H)
+    assert tuple(res.sa.shape) == (L * B * J, k * H)
+    sa = res.sa.reshape(L, B, J, k * H)
+    assert not bool(sa[0].any())
+    np.testing.assert_allclose(sa[1:, ..., ::k].numpy(), ref_ys[:-1],
+                               rtol=0, atol=FWD_ATOL)
+    acts = xg + sa.numpy() @ w.reshape(k * H, 4 * H)
+    sig = 1.0 / (1.0 + np.exp(-acts))
+    want = np.concatenate([sig[..., :2 * H], np.tanh(acts[..., 2 * H:3 * H]),
+                           sig[..., 3 * H:]], axis=-1)
+    np.testing.assert_allclose(res.gates.numpy(), want, rtol=0,
+                               atol=FWD_ATOL)
+
+
+@pytest.mark.parametrize("shape", ["k2", "k3_h3", "k1"])
+@pytest.mark.parametrize("cotangents", ["all", "ys_only"])
+def test_lstm_backward_from_residuals_matches_jax_vjp(shape, cotangents):
+    """The graph-form LSTM's plain backward from the training forward's
+    residuals and cs (one transposed product a frame, then the transposed
+    graph, nothing of the forward recomputed; dW = S^T dxg in the caller's
+    layout) against ``jax.vjp`` of the Pallas kernel, with the cell states'
+    cotangent and without."""
+    xg, (w,), (dys, dcs) = _inputs("lstm", shape)
+    t = torch.from_numpy
+    cheb = _cheb(SHAPES[shape][3])
+    _, cs, res = G.graph_lstm_scan_keep_reference(t(xg), cheb, t(w))
+    got = G.graph_lstm_scan_bwd_reference(
+        cheb, t(w), res, cs, t(dys), t(dcs) if cotangents == "all" else None)
+    _, grads = _jax_scan("lstm", shape)
+    for name, g, r in zip(("dxg", "dw"), got, grads[cotangents]):
+        assert tuple(g.shape) == r.shape
+        _scaled_close(g.numpy(), r, name)
+
+
 def test_lstm_autograd_routes_and_keeps_gates_only_for_a_gradient(
         monkeypatch):
     """On the card (forced here on CPU tensors, the CUDA entries swapped
     for their plain versions) k = 1 takes the dense entries where the plan
-    takes the shape: the gates are kept only when a gradient will be asked
-    for, and the gradient is that of the plain scan; a stacked weight's
-    transpose reaches the dense entry uncopied. k = 2, and k = 1 where the
-    plan refuses the width, take the graph-form entries."""
+    takes the shape, and k = 2, and k = 1 where the plan refuses the width,
+    the graph-form entries. Either route keeps its residuals only when a
+    gradient will be asked for, and its gradient is that of the plain scan;
+    a stacked weight's transpose reaches the dense entry uncopied."""
     calls = []
 
     def dense_fwd(xg, w, keep=False):
@@ -338,14 +400,10 @@ def test_lstm_autograd_routes_and_keeps_gates_only_for_a_gradient(
         ys, cs, gates = G.dense_lstm_scan_keep_reference(xg, w)
         return (ys, cs, gates) if keep else (ys, cs)
 
-    def graph_fwd(xg, cheb, w):
-        calls.append(("graph", cheb.shape[0] + 1))
-        return G.graph_lstm_scan_reference(xg, cheb, w)
-
-    def graph_bwd(xg, cheb, w, ys, cs, dys, dcs=None):
-        return G._plain_backward(
-            lambda a, b: G.graph_lstm_scan_reference(a, cheb, b), (xg, w),
-            (dys, dcs))
+    def graph_fwd(xg, cheb, w, keep=False):
+        calls.append(("graph", cheb.shape[0] + 1, keep))
+        ys, cs, res = G.graph_lstm_scan_keep_reference(xg, cheb, w)
+        return (ys, cs, res) if keep else (ys, cs)
     taken_h = []
     monkeypatch.setattr(G, "_check_device", lambda name, t: True)
     monkeypatch.setattr(G, "dense_lstm_plan", lambda B, J, H, k, device: (
@@ -354,7 +412,16 @@ def test_lstm_autograd_routes_and_keeps_gates_only_for_a_gradient(
     monkeypatch.setattr(G, "dense_lstm_scan_cuda_bwd",
                         G.dense_lstm_scan_bwd_reference)
     monkeypatch.setattr(G, "graph_lstm_scan_cuda_fwd", graph_fwd)
-    monkeypatch.setattr(G, "graph_lstm_scan_cuda_bwd", graph_bwd)
+    monkeypatch.setattr(G, "graph_lstm_scan_cuda_bwd",
+                        G.graph_lstm_scan_bwd_reference)
+
+    def grads_match(x, cheb, leaf, w, cots):
+        outs = G.graph_lstm_scan(x, cheb, w, with_c=True)
+        got = torch.autograd.grad(outs, (x, leaf), cots)
+        want = torch.autograd.grad(G.graph_lstm_scan_reference(x, cheb, w),
+                                   (x, leaf), cots)
+        for g, r in zip(got, want):
+            _scaled_close(g.numpy(), r.numpy(), "gradient")
 
     xg, (w,), (dys, dcs) = _inputs("lstm", "k1")
     H = w.shape[0]
@@ -362,23 +429,25 @@ def test_lstm_autograd_routes_and_keeps_gates_only_for_a_gradient(
     cheb = _cheb(1)
     x = torch.from_numpy(xg).requires_grad_(True)
     stacked = torch.from_numpy(np.ascontiguousarray(w.T)).requires_grad_(True)
+    cots = (torch.from_numpy(dys), torch.from_numpy(dcs))
     with torch.no_grad():
         G.graph_lstm_scan(x, cheb, stacked.t())
-    outs = G.graph_lstm_scan(x, cheb, stacked.t(), with_c=True)
+    grads_match(x, cheb, stacked, stacked.t(), cots)
     assert calls == [("dense", False, False), ("dense", True, False)]
-    cots = (torch.from_numpy(dys), torch.from_numpy(dcs))
-    got = torch.autograd.grad(outs, (x, stacked), cots)
-    want = torch.autograd.grad(
-        G.graph_lstm_scan_reference(x, cheb, stacked.t()), (x, stacked), cots)
-    for g, r in zip(got, want):
-        _scaled_close(g.numpy(), r.numpy(), "gradient")
 
     calls.clear()
     taken_h.clear()                 # the plan refuses this width: graph form
-    G.graph_lstm_scan(x, cheb, stacked.t())
-    lx, (lw,), _ = _inputs("lstm", "k2")
-    G.graph_lstm_scan(torch.from_numpy(lx), _cheb(2), torch.from_numpy(lw))
-    assert calls == [("graph", 1), ("graph", 2)]
+    with torch.no_grad():
+        G.graph_lstm_scan(x, cheb, stacked.t())
+    grads_match(x, cheb, stacked, stacked.t(), cots)
+    lx, (lw,), (ldy, ldc) = _inputs("lstm", "k2")
+    lx, lw = (torch.from_numpy(a).requires_grad_(True) for a in (lx, lw))
+    with torch.no_grad():
+        G.graph_lstm_scan(lx, _cheb(2), lw)
+    grads_match(lx, _cheb(2), lw, lw,
+                (torch.from_numpy(ldy), torch.from_numpy(ldc)))
+    assert calls == [("graph", 1, False), ("graph", 1, True),
+                     ("graph", 2, False), ("graph", 2, True)]
 
 
 def test_library_path_follows_an_included_header(tmp_path):
@@ -431,27 +500,6 @@ def test_dense_lstm_form_matches_a_plain_loop():
         np.testing.assert_allclose(cs[t, :, 0].numpy(), c.numpy(), atol=1e-6)
 
 
-def test_stacked_weight_layout_round_trips():
-    rng = np.random.default_rng(3)
-    H, k = 5, 3
-    w = torch.from_numpy(rng.standard_normal((H, k * 2 * H)).astype(
-        np.float32))
-    stacked = G._stack(w, k)
-    assert stacked.shape == (k * H, 2 * H)
-    for n in range(k):
-        assert torch.equal(stacked[n * H:(n + 1) * H],
-                           w[:, n * 2 * H:(n + 1) * 2 * H])
-    assert torch.equal(G._unstack(stacked, k), w)
-    # [h | T_1 h | ..] W_stacked == sum_n T_n (h W_n)
-    h = torch.from_numpy(rng.standard_normal((2, J, H)).astype(np.float32))
-    cheb = _cheb(k)
-    expanded = torch.cat([h] + [torch.einsum("ij,bjc->bic", t, h)
-                                for t in cheb], dim=-1)
-    np.testing.assert_allclose(
-        (expanded @ stacked).numpy(),
-        G._graph_apply(cheb, h @ w, 2 * H).numpy(), atol=1e-5)
-
-
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 def test_scan_shape_checks(cell):
     xg, weights, _ = _inputs(cell, "k2")
@@ -485,28 +533,45 @@ def test_flop_and_byte_counts():
     # the weights in and their gradients out
     assert TF.graph_scan_bytes("gru", 256, 16, 26, 128, 2, backward=True) \
         == 4 * (rows * (896 + 128 + 384) + 2 * (256 * 384 + 26 * 26))
-    # the LSTM's backward still recomputes its gates: three times the
-    # products, twice the graph
+    # the graph-form LSTM's backward reads the gates its training forward
+    # kept: the products twice (dh through da W^T, dW), the transposed graph
+    # once (its forward's count)
+    assert TF.graph_scan_flops("lstm", 256, 16, 26, 128, 2) \
+        == rows * (2 * 256 * 512 + 2 * 26 * 128)
     assert TF.graph_scan_flops("lstm", 256, 16, 26, 128, 2, backward=True) \
-        == rows * (3 * 2 * 256 * 512 + 2 * 2 * 26 * 128)
+        == rows * (2 * 2 * 256 * 512 + 2 * 26 * 128)
+    # its training forward writes the gates (4H = 512) and the expanded
+    # operand (k H = 256) a row beside xg (512) in, ys and cs (256) out;
+    # its backward reads the gates, the operand, cs and dys (512 + 256 +
+    # 128 + 128), with dcs 128 more, and writes dxg (512)
+    weights = 256 * 512 + 26 * 26
+    assert TF.graph_scan_bytes("lstm", 256, 16, 26, 128, 2) \
+        == 4 * (rows * 768 + weights)
+    assert TF.graph_scan_bytes("lstm", 256, 16, 26, 128, 2, keep=True) \
+        == 4 * (rows * (768 + 768) + weights)
+    assert TF.graph_scan_bytes("lstm", 256, 16, 26, 128, 2, backward=True,
+                               with_dcs=True) \
+        == 4 * (rows * (512 + 256 + 128 + 128 + 128 + 512) + 2 * weights)
     # the dense LSTM form: no graph term
     assert TF.graph_scan_flops("lstm", 256, 16, 1, 64, 1) \
         == 256 * 16 * 2 * 64 * 256
     assert TF.graph_scan_bytes("lstm", 4, 2, 1, 8, 1, backward=True,
                                with_dcs=True) \
         == 4 * (8 * (64 + 32) + 2 * 8 * 32)
-    # its dense route (k = 1) reads the kept gates instead: the products
-    # twice (dh through da W^T, dW), as many bytes (gates in xg's place);
-    # the training forward writes the gates, 4H a row
-    assert TF.graph_scan_flops("lstm", 256, 16, 1, 64, 1, backward=True,
-                               dense=True) == 256 * 16 * 2 * 2 * 64 * 256
+    # its backward, as every route's, reads the kept gates: the products
+    # twice (dh through da W^T, dW); the dense route reads ys where the graph
+    # form reads the expanded operand, as many floats at k = 1; the dense
+    # training forward writes the gates, 4H a row, the graph form's also
+    # the operand, k H
+    assert TF.graph_scan_flops("lstm", 256, 16, 1, 64, 1, backward=True) \
+        == 256 * 16 * 2 * 2 * 64 * 256
     assert TF.graph_scan_bytes("lstm", 4, 2, 1, 8, 1, backward=True,
                                with_dcs=True, dense=True) \
         == 4 * (8 * (64 + 32) + 2 * 8 * 32)
     assert TF.graph_scan_bytes("lstm", 4, 2, 1, 8, 1, keep=True, dense=True) \
         == 4 * (8 * (32 + 16 + 32) + 8 * 32)
     assert TF.graph_scan_bytes("lstm", 4, 2, 1, 8, 1, keep=True) \
-        == 4 * (8 * (32 + 16) + 8 * 32)
+        == 4 * (8 * (32 + 16 + 32 + 8) + 8 * 32)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -520,10 +585,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         G.graph_gru_scan_cuda_bwd(cheb, t(wzr), t(wh), res, t(dys))
     lx, (w,), (dy, dc) = _inputs("lstm", "k2")
     with pytest.raises(ValueError, match="CUDA"):
-        G.graph_lstm_scan_cuda_fwd(t(lx), cheb, t(w))
+        G.graph_lstm_scan_cuda_fwd(t(lx), cheb, t(w), keep=True)
+    _, lcs, lres = G.graph_lstm_scan_keep_reference(t(lx), cheb, t(w))
     with pytest.raises(ValueError, match="CUDA"):
-        G.graph_lstm_scan_cuda_bwd(t(lx), cheb, t(w), t(dy), t(dy), t(dy),
-                                   t(dc))
+        G.graph_lstm_scan_cuda_bwd(cheb, t(w), lres, lcs, t(dy), t(dc))
     dx, (dw_,), (ddy, ddc) = _inputs("lstm", "k1")
     with pytest.raises(ValueError, match="CUDA"):
         G.dense_lstm_scan_cuda_fwd(t(dx), t(dw_))
@@ -705,3 +770,50 @@ def test_cuda_dense_route_boundary(cuda_device):
     assert G.dense_lstm_plan(256, 1, 64)[0] > 0
     assert G.dense_lstm_plan(256, 1, 65) == (0,) * 6
     assert G.dense_lstm_plan(256, 1, 64, k=2) == (0,) * 6
+
+
+#: (B, L, J, H, k) of the graph-form LSTM kernels past the file's shapes:
+#: the few-rows tiling (J = 1, H = 128), the 64-column reverse-scan ring
+#: (H = 266, k = 2), and, forward alone, the narrow tiling (H = 532, k = 2)
+CUDA_LSTM_WIDE_SHAPES = [(6, 3, 1, 128, 1), (4, 3, J, 266, 2)]
+CUDA_LSTM_WIDE_FORWARD_SHAPES = [(3, 2, J, 532, 2)]
+
+
+def _lstm_case(shape, device):
+    B, L, J_, H, k = shape
+    rng = np.random.default_rng(H + k)
+
+    def rnd(*s, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(s)).astype(
+            np.float32)).to(device)
+    cheb = (_cheb(k) if J_ == J else torch.zeros(k - 1, J_, J_)).to(device)
+    return (rnd(L, B, J_, 4 * H), cheb, rnd(H, k * 4 * H, scale=H ** -0.5),
+            rnd(L, B, J_, H), rnd(L, B, J_, H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(B, L, J, H, k) for B, L, H, k in
+                                   SHAPES.values()]
+                         + CUDA_LSTM_WIDE_SHAPES
+                         + CUDA_LSTM_WIDE_FORWARD_SHAPES)
+def test_cuda_lstm_keep_forward_and_backward_match_plain(cuda_device, shape):
+    """The graph-form LSTM kernels: the training forward's outputs and
+    residuals against the plain forward with residuals, and (where the
+    reverse scan runs) the backward from them against the plain backward,
+    with and without the cell states' cotangent, the same bits twice."""
+    B, L, _, H, k = shape
+    xg, cheb, w, dys, dcs = _lstm_case(shape, cuda_device)
+    ys, cs, res = G.graph_lstm_scan_cuda_fwd(xg, cheb, w, keep=True)
+    refs = G.graph_lstm_scan_keep_reference(xg, cheb, w)
+    for got, want in zip((ys, cs, *res), (*refs[:2], *refs[2])):
+        assert float((got - want).abs().max()) <= FWD_ATOL
+    if shape in CUDA_LSTM_WIDE_FORWARD_SHAPES:
+        return
+    for d in (dcs, None):
+        got = G.graph_lstm_scan_cuda_bwd(cheb, w, res, cs, dys, d)
+        again = G.graph_lstm_scan_cuda_bwd(cheb, w, res, cs, dys, d)
+        want = G.graph_lstm_scan_bwd_reference(cheb, w, refs[2], refs[1], dys,
+                                               d)
+        for g, a, r in zip(got, again, want):
+            assert torch.equal(g, a)
+            _scaled_close(g.cpu().numpy(), r.cpu().numpy(), "gradient")
