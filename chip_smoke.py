@@ -7,7 +7,10 @@ Phases, each printing one JSON line:
                      (nvidia-smi).
   2. build        -- builds the six kernel libraries with nvcc from this
                      checkout's csrc/ (sm_90a), in parallel; their ptxas
-                     summaries.
+                     summaries; that the temporal forward's products are
+                     tensor-core code (its three GEMM entries and no
+                     CUDA-core GEMM among the library's entries, and each
+                     entry's HMMA instructions in the SASS, by cuobjdump).
   3. kernel       -- the serving kernel against its plain PyTorch version on
                      the card, on seeded random rotations: B in {1024, 1000,
                      5} at L=16, and L=1 once. Bounds: 1e-3 px on x and y,
@@ -51,27 +54,49 @@ Phases, each printing one JSON line:
                      shared-memory sizes against the wrapper's copies. Bar:
                      max |kernel - plain| <= 1e-5 x max |plain| (the card
                      shows under 1e-6).
-  9. kernel_temporal -- the temporal-block kernel against its plain version
+  9. kernel_temporal -- the forward GEMM's shared memory, the library's
+                     against the wrapper's copy (FORWARD_GEMM); the
+                     temporal-block kernel against its plain version
                      through fused_temporal_block: T=9, D=832, 8 heads,
-                     hidden 1664, N in {2048, 2045, 3}; the depth-4
-                     fused_temporal_stack against 4 plain blocks; T=27 and
-                     T=81 at N in {256, 253}. Same bar.
+                     hidden 1664, N in {2048, 2045, 3}, two launches the
+                     same bits; its training forward (keep): the output and
+                     the kept scratch (stats, qkv, attn, x2, h, mlp) against
+                     temporal_block_keep_reference, the same bits twice;
+                     the depth-4 fused_temporal_stack against 4 plain
+                     blocks; T=27 and T=81 at N in {256, 253}, keep too.
+                     Same bar.
  10. serve_poseformer -- Carla2D3D test batches (B=256, L=16) ->
                      PoseFormer(clip_length=16) (seeded init, published
-                     widths) -> PoseLiftingFlow(loc_2d_3d) ->
-                     make_inference_fn, 8 requests; 1 spatial and 4
-                     temporal launches per request and no fused-projection
-                     launch; outputs finite over the eval slice and equal to
-                     the same model through the plain stage functions (1e-3
-                     px on x, y; 1e-4 elsewhere); eval_step's loc_2d_3d
-                     equal to rtol 1e-4; no backward kernel launched.
+                     widths, both stage switches "auto") ->
+                     PoseLiftingFlow(loc_2d_3d) -> make_inference_fn, 8
+                     requests; 1 spatial and 4 temporal launches per request
+                     and no fused-projection launch; outputs finite over the
+                     eval slice and equal to the same model on its plain
+                     route (both switches "plain"; 1e-3 px on x, y; 1e-4
+                     elsewhere); eval_step's loc_2d_3d equal to rtol 1e-4;
+                     no backward kernel launched.
  11. timing_poseformer -- CUDA-event medians of both kernels (L2 cold and
-                     warm), their plain versions and their library
-                     yardsticks (torch.nn.TransformerEncoderLayer stacks,
-                     first held to the plain versions within the kernel
-                     bar); the host-clock median of a request and a
-                     CUDA-event split of it into spatial stage, temporal
-                     stage and the rest; each kernel's bound.
+                     warm; row 8's training forward too), their plain
+                     versions and their library yardsticks
+                     (torch.nn.TransformerEncoderLayer stacks, first held to
+                     the plain versions within the kernel bar); row 8 and
+                     its yardstick in 10 alternating pairs; row 8's seven
+                     launches split by a torch.profiler trace; the
+                     host-clock and CUDA-event medians of a request and the
+                     device time of its spatial and temporal kernels and
+                     the rest (a profiled run); each kernel's bound (row
+                     8's at the 3xTF32 rate its products run at, and at the
+                     fp32 peak).
+     f6_poseformer -- fault F6: PoseFormer(drop_rate=0.1) under "auto"
+                     takes 2 training steps (B=256) on the plain blocks (no
+                     kernel launched, losses finite), "fused" refuses such a
+                     step, and an eval step launches both kernels and
+                     agrees with the plain route's; a shape that the
+                     temporal kernel refuses (1 head) and one that both
+                     refuse (embeddings 6 in 3 heads) run eval steps under
+                     "auto" (the spatial kernel in the first, no kernel in
+                     the second) that agree with the plain route's, and
+                     "fused" raises on them.
  12. kernel_spatial_bwd -- the spatial stack's backward kernels against
                      autograd of its plain version, seeded weights and
                      cotangents, N in {16384, 16381, 5} and the two F1
@@ -91,7 +116,7 @@ Phases, each printing one JSON line:
                      logged losses finite, the last 3 train losses below the
                      first; the last checkpoint restores exactly. Then the
                      fit's 10 training_steps again, of the kernel flow and
-                     of the same model through the plain stage functions,
+                     of the same model on its plain route,
                      from the same params on the same batches: losses equal
                      to rtol 1e-4 at every step.
  15. timing_poseformer_train -- CUDA-event medians of both backward kernels
@@ -100,19 +125,20 @@ Phases, each printing one JSON line:
                      each kernel's bound (row 9's at the 3xTF32 rate its
                      products run at); each backward kernel and its
                      library yardstick in 10 alternating pairs (medians of
-                     each and of their ratio); the host-clock median of a
+                     each and of their ratio); row 9's 13 launches split by
+                     a torch.profiler trace; the host-clock median of a
                      B=1024 training_step and a CUDA-event split of it
                      (forward, spatial backward, temporal backward, the
                      rest).
      profile_poseformer_train -- a torch.profiler trace of 3 such steps:
                      the device busy share of the traced window, the top
-                     device operations, the share of rows 5 and 9.
+                     device operations, the share of rows 5, 8 and 9.
      poseformer_rf81 -- PoseFormer(clip_length=81, receptive_frames=81) on
                      Carla2D3D (B=64): 2 requests (1 spatial + 4 temporal
                      launches each, outputs finite, eval_step's loc_2d_3d
-                     equal to the plain stage functions' to rtol 1e-4) and
-                     2 training steps (launch counts, losses equal to the
-                     plain stage functions' to rtol 1e-4).
+                     equal to the plain route's to rtol 1e-4) and 2
+                     training steps (launch counts, losses equal to the
+                     plain route's to rtol 1e-4).
  16. kernel_graph_gru, kernel_graph_lstm -- the graph-GRU and graph-LSTM
                      scan kernels against their plain versions on seeded
                      inputs: B in {256, 253, 5} at L=16, J=26, H=128, k=2;
@@ -157,6 +183,14 @@ Phases, each printing one JSON line:
  19. serve_classification -- 8 eval_steps at B=256: 2 forward entries each,
                      no backward launch, logits equal to the plain model's
                      within 1e-5.
+     f6_graph     -- fault F6: GConvGRU at hidden 384 and GConvLSTM at
+                     hidden 320 (k=2, J=26: widths whose forward the scan
+                     kernels' launch plans take but whose reverse scan they
+                     refuse, checked from the plans) train a step under
+                     "auto" with no scan kernel launched, serve an eval step
+                     on the forward kernel (logits equal to the plain
+                     route's within 1e-5), and "fused" raises before any
+                     launch.
  20. timing_classification -- CUDA-event medians (L2 cold and warm) of the
                      four scan kernels at the main path's shape (and the
                      graph-form LSTM pair at the dense form), their training
@@ -190,6 +224,7 @@ failure raises and ends the run with a non-zero exit.
 """
 import json
 import os
+import re
 import statistics
 import subprocess
 import tempfile
@@ -235,6 +270,20 @@ WIDE_TS, WIDE_NS = (27, 81), (256, 253)
 SPATIAL_WIDE = ((32, 1), (64, 8))          # (E, heads), hidden 2E
 SPATIAL_WIDE_NS = (1024, 1021)
 RF81_BATCH, RF81_CLIP, RF81_RF, RF81_STEPS, RF81_REQUESTS = 64, 81, 81, 2, 2
+#: fault F6 on the card: PoseFormer training steps with dropout under
+#: "auto", and shapes a stage's kernel refuses (name, model arguments, the
+#: launches of one evaluation step): one head (the temporal head width 832
+#: is past 128) and embeddings of 6 in 3 heads (widths that are not
+#: multiples of 4 and 8); graph classifiers at widths the scan kernels
+#: run forward but do not train at J=26 (name, hidden, k, the plan
+#: function, the forward entry's counter)
+F6_PF_STEPS = 2
+F6_PF_SHAPES = (
+    ("heads1", dict(num_heads=1), dict(fused_spatial_stack=1)),
+    ("emb6", dict(single_joint_embeddings_size=6, num_heads=3), {}))
+F6_GRAPH_SHAPES = (("GConvGRU", 384, 2, "graph_gru_plan", "graph_gru_scan"),
+                   ("GConvLSTM", 320, 2, "graph_lstm_plan",
+                    "graph_lstm_scan"))
 #: kernel-vs-library timing pairs (rows 5 and 9), and the steps of the
 #: profiler trace of PoseFormer's training_step
 TIMING_PAIRS, PROFILE_STEPS = 10, 3
@@ -366,8 +415,40 @@ def phase_build():
         libraries[path.name] = [ln.strip() for ln in log.splitlines()
                                 if "registers" in ln or "spill" in ln
                                 or "Compiling entry" in ln]
+    temporal = next(p for p, _ in built if p.name.startswith(
+        FT._SOURCE.stem + "-"))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "seconds_each": seconds, "ptxas": libraries})
+          "seconds_each": seconds, "ptxas": libraries,
+          "temporal_forward_tensor_cores": forward_gemm_sass(temporal)})
+
+
+def forward_gemm_sass(library):
+    """That the temporal forward's products run on the tensor cores: its
+    library holds the forward GEMM's entries and no CUDA-core GEMM
+    (ptxas's entry list), and, where the toolkit has cuobjdump, each
+    forward GEMM entry's count of tensor-core instructions (HMMA) in the
+    built SASS."""
+    log = library.with_suffix(".log").read_text()
+    entries = re.findall(r"Compiling entry function '(\w+)'", log)
+    fwd = [e for e in entries if "gemm_fwd_kernel" in e]
+    if len(fwd) != 3 or any("gemm_kernel" in e for e in entries):
+        raise AssertionError(f"temporal library entries: {entries}")
+    from pedestrians_video_2_carla_torch.ops import cuda_build
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {"gemm_fwd_entries": len(fwd), "hmma": "no cuobjdump"}
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    hmma, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = line.split("Function :")[1].strip()
+        elif current in fwd and "HMMA" in line:
+            hmma[current] = hmma.get(current, 0) + 1
+    if sorted(hmma) != sorted(fwd):
+        raise AssertionError(f"forward GEMM entries without HMMA: {hmma}")
+    return {"gemm_fwd_entries": len(fwd),
+            "hmma_per_entry": sorted(hmma.values())}
 
 
 def kernel_wrappers():
@@ -1040,6 +1121,13 @@ def phase_kernel_temporal():
     from pedestrians_video_2_carla_torch.ops import \
         fused_temporal_transformer as FT
 
+    smem = (FT._library().pv2c_temporal_fwd_gemm_smem_bytes(),
+            FT.forward_gemm_smem_bytes())
+    emit({"phase": "kernel_temporal", "forward_gemm": FT.FORWARD_GEMM,
+          "smem_bytes_library_vs_wrapper": smem})
+    if smem[0] != smem[1]:
+        raise AssertionError(f"forward GEMM shared memory: library vs "
+                             f"wrapper {smem}")
     rng = np.random.default_rng(SEED + 4)
     blocks = [random_block_weights(rng, PF_DIM) for _ in range(PF_DEPTH)]
     worst = 0.0
@@ -1056,13 +1144,43 @@ def phase_kernel_temporal():
                                  f"version at N={n}: {scaled} of max |plain|")
         return err
 
+    def check_keep(T, n):
+        """The training forward: its output and each tensor of its kept
+        scratch against the plain version's, the same bits twice."""
+        x = torch.from_numpy(rng.standard_normal(
+            (n, T, PF_DIM)).astype(np.float32)).cuda()
+        out, saved = FT.fused_temporal_block_cuda(x, blocks[0], PF_HEADS,
+                                                  keep=True)
+        again = FT.fused_temporal_block_cuda(x, blocks[0], PF_HEADS,
+                                             keep=True)
+        ref, ref_saved = FT.temporal_block_keep_reference(x, blocks[0],
+                                                          PF_HEADS)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, got, want in zip(("out",) + FT_SAVED, (out, *saved),
+                                   (ref, *ref_saved)):
+            errs[name] = bar_err(got, want)[1]
+        same = torch.equal(out, again[0]) and all(
+            torch.equal(a, b) for a, b in zip(saved, again[1]))
+        emit({"phase": "kernel_temporal", "entry": "keep", "T": T, "N": n,
+              "max_abs_err_over_max_abs_plain": errs, "same_bits": same})
+        if max(errs.values()) > KERNEL_BAR or not same:
+            raise AssertionError(f"temporal keep forward at T={T}, N={n}: "
+                                 f"{errs}, same bits {same}")
+        return bar_err(out, ref)[0]
+
     with torch.no_grad():
         for n in TEMPORAL_NS:
             x = torch.from_numpy(rng.standard_normal(
                 (n, PF_RF, PF_DIM)).astype(np.float32)).cuda()
             out = FT.fused_temporal_block(x, blocks[0], PF_HEADS)
+            again = FT.fused_temporal_block(x, blocks[0], PF_HEADS)
             ref = FT.temporal_block_reference(x, blocks[0], PF_HEADS)
             worst = max(worst, check("fused_temporal_block", n, out, ref))
+            if not torch.equal(out, again):
+                raise AssertionError(f"temporal forward at N={n}: two "
+                                     f"launches differ")
+            worst = max(worst, check_keep(PF_RF, n))
         n = TEMPORAL_NS[0]
         x = torch.from_numpy(rng.standard_normal(
             (n, PF_RF, PF_DIM)).astype(np.float32)).cuda()
@@ -1079,6 +1197,7 @@ def phase_kernel_temporal():
                 out = FT.fused_temporal_block(x, blocks[0], PF_HEADS)
                 ref = FT.temporal_block_reference(x, blocks[0], PF_HEADS)
                 check(f"fused_temporal_block T={T}", n, out, ref)
+                check_keep(T, n)
     return worst
 
 
@@ -1090,26 +1209,75 @@ def plain_temporal_stack(x, weights_list, num_heads):
     return x
 
 
-class stage_functions:
-    """Swap the PoseFormer module's two stage functions for ``spatial`` and
-    ``temporal`` (the model itself offers no switch)."""
+class stage_routes:
+    """Set both stage switches of a PoseFormer (``spatial_kernel``,
+    ``temporal_kernel``) to ``route`` for the block, then restore them."""
 
-    def __init__(self, spatial, temporal):
-        self.swap = {"fused_spatial_stack": spatial,
-                     "fused_temporal_stack": temporal}
+    def __init__(self, model, route):
+        self.model, self.route = model, route
 
     def __enter__(self):
-        from pedestrians_video_2_carla_torch.models.movements import \
-            pose_former as PF
-        self.saved = {k: getattr(PF, k) for k in self.swap}
-        for k, v in self.swap.items():
-            setattr(PF, k, v)
+        self.saved = (self.model.spatial_kernel, self.model.temporal_kernel)
+        self.model.spatial_kernel = self.model.temporal_kernel = self.route
 
     def __exit__(self, *exc):
-        from pedestrians_video_2_carla_torch.models.movements import \
-            pose_former as PF
-        for k, v in self.saved.items():
-            setattr(PF, k, v)
+        self.model.spatial_kernel, self.model.temporal_kernel = self.saved
+
+
+#: the device kernels of rows 8 (the temporal forward, in launch order) and
+#: 9 (its backward), names as the profiler shows them (substrings)
+ROW8_STEPS = ("ln1", "qkv", "attention", "proj", "ln2", "fc1", "fc2")
+#: the scratch the training forward keeps for row 9
+FT_SAVED = ("stats", "qkv", "attn", "x2", "h", "mlp")
+#: the card's idle time (us) between two kernels that cuts a profiled run
+#: of synchronised calls into calls (a call's launches run back to back)
+LAUNCH_GAP_US = 20.0
+ROW8_KERNELS = ("ln_fwd_kernel", "gemm_fwd_kernel", "attention_kernel")
+ROW9_STEPS = ("ln_apply", "dh", "dW2", "dy2", "dW1", "ln2_bwd", "do", "dWp",
+              "attention_bwd", "dy1", "dWqkv", "ln1_bwd", "reduce")
+
+
+def launch_split(fn, steps, calls=PF_TIMING_RUNS):
+    """A torch.profiler trace of ``calls`` calls of ``fn`` (after 2 warm-up
+    calls; a synchronisation after each), whose device kernels come in
+    launch order ``len(steps)`` a call: the trace is cut into calls where
+    the card idles between two kernels for more than LAUNCH_GAP_US, and per
+    step of the calls traced whole, the kernel's name and the median of its
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+    kernels = sorted(
+        (e for e in prof.events()
+         if getattr(e, "device_type", None) is not None
+         and e.device_type.name == "CUDA" and "emcpy" not in e.name
+         and "emset" not in e.name),
+        key=lambda e: e.time_range.start)
+    runs, run = [], []
+    for e in kernels:
+        if run and e.time_range.start - run[-1].time_range.end > \
+                LAUNCH_GAP_US:
+            runs.append(run)
+            run = []
+        run.append(e)
+    runs.append(run)
+    whole = [r for r in runs if len(r) == len(steps)]
+    if len(whole) < calls // 2:
+        raise AssertionError(
+            f"{len(whole)} of {calls} calls traced whole ({len(steps)} "
+            f"kernels a call): {[len(r) for r in runs]}")
+    return {"calls_traced_whole": len(whole), **{
+        step: {"kernel": whole[0][i].name[:90],
+               "ms": statistics.median((r[i].time_range.end
+                                        - r[i].time_range.start) / 1e3
+                                       for r in whole)}
+        for i, step in enumerate(steps)}}
 
 
 def phase_serve_poseformer(batches):
@@ -1117,8 +1285,6 @@ def phase_serve_poseformer(batches):
         PoseLiftingFlow
     from pedestrians_video_2_carla_torch.models.movements.pose_former import \
         PoseFormer
-    from pedestrians_video_2_carla_torch.ops import \
-        fused_spatial_transformer as FS
     from pedestrians_video_2_carla_torch.serving import make_inference_fn
 
     model = PoseFormer(clip_length=CLIP,
@@ -1146,7 +1312,7 @@ def phase_serve_poseformer(batches):
     keep = model.eval_slice
     W = keep.stop - keep.start
     worst_xy = worst_other = 0.0
-    with stage_functions(FS.spatial_stack_reference, plain_temporal_stack):
+    with stage_routes(model, "plain"):
         for preds, (inputs, _, meta) in zip(served, batches):
             for k in ("absolute_pose_loc", "projection_2d"):
                 if preds[k].shape[:2] != (PF_BATCH, W) or \
@@ -1182,6 +1348,141 @@ def phase_serve_poseformer(batches):
           "max_abs_err_other_vs_plain": worst_other,
           "loc_2d_3d_kernels_vs_plain": losses})
     return flow, params, counts
+
+
+def phase_f6_poseformer(dm):
+    """Fault F6 on the card: PoseFormer's "auto" takes a stage's kernels
+    only where they take the step. With drop_rate 0.1, training steps run
+    the plain blocks (no kernel launched) and evaluation the kernels;
+    "fused" refuses the training step; shapes a stage's kernel refuses run
+    that stage on the plain blocks, and the outputs agree with the plain
+    route's."""
+    from pedestrians_video_2_carla_torch.flows.pose_lifting import \
+        PoseLiftingFlow
+    from pedestrians_video_2_carla_torch.models.base import OptimizerSettings
+    from pedestrians_video_2_carla_torch.models.movements.pose_former import \
+        PoseFormer
+
+    def make(**kw):
+        model = PoseFormer(clip_length=CLIP,
+                           generator=torch.Generator().manual_seed(SEED),
+                           **kw)
+        return model, PoseLiftingFlow(
+            model, loss_modes=["loc_2d_3d"],
+            movements_optimizer=OptimizerSettings(lr=LR), seed=SEED)
+
+    stream = dm.train_batches(SEED)
+    batches = [next(stream) for _ in range(F6_PF_STEPS)]
+    model, flow = make(drop_rate=0.1)
+    state = flow.init_state()
+    reset_kernel_counts()
+    losses = [float(flow.training_step(state, b)[1]["train_loss/primary"])
+              for b in batches]
+    torch.cuda.synchronize()
+    train_counts = kernel_counts()
+    if train_counts != expected_counts() or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"dropout training under auto: launches "
+                             f"{train_counts}, losses {losses}")
+    with stage_routes(model, "fused"):
+        try:
+            flow.training_step(state, batches[0])
+            raise AssertionError("fused trained with dropout")
+        except ValueError as e:
+            refusal = str(e)
+    params = {k: {n: v.detach() for n, v in tree.items()}
+              for k, tree in state.params.items()}
+    reset_kernel_counts()
+    loss = float(flow.eval_step(params, batches[0])[0]["loc_2d_3d"])
+    eval_counts = kernel_counts()
+    with stage_routes(model, "plain"):
+        plain = float(flow.eval_step(params, batches[0])[0]["loc_2d_3d"])
+    if eval_counts != expected_counts(fused_spatial_stack=1,
+                                      fused_temporal_block=PF_DEPTH) or \
+            not abs(loss - plain) <= LOSS_RTOL * abs(plain):
+        raise AssertionError(f"dropout eval under auto: launches "
+                             f"{eval_counts}, loss {loss} vs plain {plain}")
+    refused = {}
+    for name, kw, launched in F6_PF_SHAPES:
+        model, flow = make(**kw)
+        params = flow.init_params()
+        reset_kernel_counts()
+        a = float(flow.eval_step(params, batches[0])[0]["loc_2d_3d"])
+        counts = kernel_counts()
+        with stage_routes(model, "plain"):
+            b = float(flow.eval_step(params, batches[0])[0]["loc_2d_3d"])
+        with stage_routes(model, "fused"):
+            try:
+                flow.eval_step(params, batches[0])
+                raise AssertionError(f"fused took the shape {kw}")
+            except ValueError:
+                pass
+        want = expected_counts(**launched)
+        if counts != want or not abs(a - b) <= LOSS_RTOL * abs(b):
+            raise AssertionError(f"{name} under auto: launches {counts} "
+                                 f"(expected {want}), loss {a} vs plain {b}")
+        refused[name] = {"launches": {k: v for k, v in counts.items() if v},
+                         "loc_2d_3d_auto_vs_plain": [a, b]}
+    emit({"phase": "f6_poseformer", "B": dm.batch_size, "L": CLIP,
+          "dropout_train_losses": losses,
+          "dropout_train_launches": {k: v for k, v in train_counts.items()
+                                     if v},
+          "dropout_eval_launches": {k: v for k, v in eval_counts.items()
+                                    if v},
+          "dropout_eval_loc_2d_3d_vs_plain": [loss, plain],
+          "fused_refuses": refusal[:80], "refused_shapes": refused})
+
+
+def phase_f6_graph(dm):
+    """Fault F6 on the card: a graph classifier whose width the scan
+    kernels' training launch plans refuse trains under "auto" on the plain
+    route (no scan kernel launched) and serves on the forward kernel where
+    its plan takes the width; "fused" raises before any launch."""
+    from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
+
+    batch = next(dm.train_batches(SEED))
+    rows = {}
+    for name, H, k, plan, entry in F6_GRAPH_SHAPES:
+        B, J = dm.batch_size, CLS_J
+        fwd, bwd = (getattr(FG, plan)(B, J, H, k, backward)[0]
+                    for backward in (False, True))
+        if not (fwd > 0 and bwd == 0):
+            raise AssertionError(f"{name} H={H} k={k}: plans {fwd}, {bwd}; "
+                                 f"the phase wants a width only the "
+                                 f"forward takes")
+        flow = make_cls_flow(name, hidden_size=H, k=k)
+        state = flow.init_state()
+        reset_kernel_counts()
+        _, logs = flow.training_step(state, batch)
+        loss = float(logs["train_loss/primary"])
+        torch.cuda.synchronize()
+        train_counts = kernel_counts()
+        params = {k_: {n: v.detach() for n, v in tree.items()}
+                  for k_, tree in state.params.items()}
+        logits = flow.eval_step(params, batch)[1]["crossing_logits"]
+        eval_counts = kernel_counts()
+        ref = make_cls_flow(name, hidden_size=H, k=k, graph_kernel="plain"
+                            ).eval_step(params, batch)[1]["crossing_logits"]
+        err = float((logits - ref).abs().max())
+        fused = make_cls_flow(name, hidden_size=H, k=k, graph_kernel="fused")
+        reset_kernel_counts()
+        try:
+            fused.training_step(fused.init_state(), batch)
+            raise AssertionError(f"{name} H={H}: fused trained past its "
+                                 f"plan")
+        except ValueError:
+            pass
+        if train_counts != expected_counts() or not np.isfinite(loss) or \
+                eval_counts != expected_counts(**{entry: 2}) or \
+                err > SCAN_BAR or kernel_counts() != expected_counts():
+            raise AssertionError(
+                f"{name} H={H} k={k} under auto: train launches "
+                f"{train_counts}, loss {loss}, eval launches {eval_counts}, "
+                f"logits vs plain {err}")
+        rows[f"{name}_H{H}_k{k}"] = {
+            "plan_fwd_bwd": [fwd, bwd], "train_loss": loss,
+            "eval_launches": eval_counts[entry],
+            "max_abs_err_logits_vs_plain": err}
+    emit({"phase": "f6_graph", "B": dm.batch_size, "L": CLIP, **rows})
 
 
 def encoder_layer(dim, weights):
@@ -1281,8 +1582,21 @@ def phase_timing_poseformer(flow, params, batches, card, hbm_rate):
                            "plain_ms": cuda_median_ms(plain),
                            "library_ms": cuda_median_ms(lib)}
 
+        # row 8 against its library yardstick in alternating pairs, its
+        # training forward (keep), and where a block's time goes
+        pairs = paired_ms(cases["temporal"][0], cases["temporal"][2],
+                          flush_l2)
+        times["temporal"]["keep_ms"] = cuda_median_ms(
+            lambda: FT.fused_temporal_block_cuda(xt, wt, PF_HEADS, keep=True),
+            flush=flush_l2)
+        split8 = launch_split(
+            lambda: FT.fused_temporal_block_cuda(xt, wt, PF_HEADS), ROW8_STEPS)
+        del cases, spatial_lib, temporal_lib
+
     # bounds: each input read once and each output written once, against
-    # the matmul FLOPs (ops/flops.py, attention included) at the fp32 peak
+    # the matmul FLOPs (ops/flops.py, attention included) at the peak of the
+    # units the products run on: the fp32 CUDA cores (spatial), 3xTF32 in
+    # the tensor cores (temporal; its fp32-peak bound beside)
     n_weights_s = sum(w.numel() for w in ws)
     n_weights_t = sum(w.numel() for w in wt)
     work = {"spatial": (4 * (2 * xs.numel() + n_weights_s),
@@ -1291,64 +1605,64 @@ def phase_timing_poseformer(flow, params, batches, card, hbm_rate):
             "temporal": (4 * (2 * xt.numel() + n_weights_t),
                          F.transformer_block_matmul_flops(
                              xt.shape[0] * PF_RF, PF_DIM, 2.0, PF_RF))}
+    peaks = {"spatial": FP32_PEAK, "temporal": TF32X3_PEAK}
     for name, (nbytes, nflop) in work.items():
-        t_bytes, t_flop = nbytes / hbm_rate, nflop / FP32_PEAK
+        t_bytes, t_flop = nbytes / hbm_rate, nflop / peaks[name]
         times[name].update(
-            bytes=nbytes, flop=nflop, bound_ms=max(t_bytes, t_flop) * 1e3,
+            bytes=nbytes, flop=nflop, peak_flop_per_s=peaks[name],
+            bound_ms=max(t_bytes, t_flop) * 1e3,
             bound_by="bytes" if t_bytes >= t_flop else "operations")
+    nbytes, nflop = work["temporal"]
+    times["temporal"]["bound_ms_fp32_peak"] = max(
+        nbytes / hbm_rate, nflop / FP32_PEAK) * 1e3
+    times["temporal"]["paired_with_library"] = pairs
+    times["temporal"]["launch_split"] = split8
 
     infer = make_inference_fn(flow, params)
     agi = meta["age_gender_idx"]
     request = host_median_ms(lambda: infer(inputs, agi))
+    request_ms = cuda_median_ms(lambda: infer(inputs, agi))
 
-    # a CUDA-event split of one request: spatial stage, temporal stage and
-    # the rest (model glue, LayerNorms, head, projection, normalization)
-    from pedestrians_video_2_carla_torch.models.movements import \
-        pose_former as PF
-    marks = {}
-
-    def timed(name, fn):
-        def run(*args):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args)
-            end.record()
-            marks[name] = (start, end)
-            return out
-        return run
-
-    splits = []
-    with stage_functions(timed("spatial", PF.fused_spatial_stack),
-                         timed("temporal", PF.fused_temporal_stack)):
-        for _ in range(TIMING_RUNS):
-            torch.cuda._sleep(2_000_000)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
+    # where a request's device time goes: the stages' kernels (a profiler
+    # trace of requests), the rest (glue, LayerNorms, head, projection)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PF_TIMING_RUNS):
             infer(inputs, agi)
-            end.record()
-            end.synchronize()
-            total = start.elapsed_time(end)
-            sp = marks["spatial"][0].elapsed_time(marks["spatial"][1])
-            tp = marks["temporal"][0].elapsed_time(marks["temporal"][1])
-            splits.append((total, sp, tp, total - sp - tp))
-    split = dict(zip(("request_ms", "spatial_stage_ms", "temporal_stage_ms",
-                      "rest_ms"),
-                     (statistics.median(c) for c in zip(*splits))))
+        torch.cuda.synchronize()
+    by_stage = {"spatial": 0.0, "temporal": 0.0, "rest": 0.0}
+    for e in prof.events():
+        if getattr(e, "device_type", None) is None or \
+                e.device_type.name != "CUDA":
+            continue
+        stage = "spatial" if "spatial_stack_kernel" in e.name else \
+            "temporal" if any(k in e.name for k in ROW8_KERNELS) else "rest"
+        by_stage[stage] += (e.time_range.end - e.time_range.start) / 1e3
+    split = {"request_ms": request_ms,
+             **{f"{k}_kernels_ms": v / PF_TIMING_RUNS
+                for k, v in by_stage.items()}}
     emit({"phase": "timing_poseformer", "card": card, "B": B, "L": L,
           "kernels": times, "request_ms_host": request,
-          "request_split_cuda_events": split,
+          "request_split": split,
           "method": "kernels, plain versions and TransformerEncoderLayer "
                     "yardsticks: CUDA events, median of %d single calls "
                     "after 3 warm-up calls, cold = 256 MB scratch write "
-                    "before each call; request: host clock to "
-                    "torch.cuda.synchronize(), median of %d; split: CUDA "
-                    "events around the request and the two stage calls, "
-                    "medians of %d" % ((TIMING_RUNS,) * 3)})
+                    "before each call; pairs: kernel and library "
+                    "alternating, cold, medians of %d each and of their "
+                    "ratio; launch split: torch.profiler device times, "
+                    "medians of %d calls; request: host clock to "
+                    "torch.cuda.synchronize(), median of %d, and CUDA "
+                    "events; split: device time of the stages' kernels "
+                    "over %d profiled requests, per request"
+                    % (TIMING_RUNS, TIMING_PAIRS, PF_TIMING_RUNS,
+                       TIMING_RUNS, PF_TIMING_RUNS)})
     return {name: {"ms": t["ms_cold_l2"], "plain_ms": t["plain_ms"],
                    "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
-                   "bound_by": t["bound_by"]} for name, t in times.items()}
+                   "bound_by": t["bound_by"],
+                   **{k: v for k, v in t.items()
+                      if k in ("keep_ms", "bound_ms_fp32_peak",
+                               "paired_with_library")}}
+            for name, t in times.items()}
 
 
 def check_grads(phase, what, n, names, got, again, ref, **extra):
@@ -1490,8 +1804,6 @@ def make_pf_train_flow():
 def phase_train_poseformer(dm):
     """PoseFormer's training path through the port's Trainer, then the
     per-step agreement of the kernel stages and the plain ones."""
-    from pedestrians_video_2_carla_torch.ops import \
-        fused_spatial_transformer as FS
     from pedestrians_video_2_carla_torch.training.trainer import (
         Trainer, TrainerConfig)
 
@@ -1556,8 +1868,7 @@ def phase_train_poseformer(dm):
     for _ in range(PF_TRAIN_STEPS):
         batch = next(stream)
         _, logs_k = flow.training_step(states["kernels"], batch)
-        with stage_functions(FS.spatial_stack_reference,
-                             plain_temporal_stack):
+        with stage_routes(flow.movements_model, "plain"):
             _, logs_p = flow.training_step(states["plain"], batch)
         row = {}
         for k in logs_p:
@@ -1646,6 +1957,8 @@ def phase_timing_poseformer_train(dm, card, hbm_rate):
     # kernel and library yardstick in alternating pairs (ROADMAP K0)
     pairs = {name: paired_ms(kernel, lib, flush_l2)
              for name, (kernel, _, lib) in cases.items()}
+    times["temporal"]["launch_split"] = launch_split(cases["temporal"][0],
+                                                     ROW9_STEPS)
     del cases, plain_s, plain_t, lib_s, lib_t
 
     # bounds: inputs read once (x, g, the weights, the saved residuals of
@@ -1750,7 +2063,7 @@ def phase_timing_poseformer_train(dm, card, hbm_rate):
 def phase_poseformer_rf81():
     """PoseFormer at its published receptive field of 81 frames (fault F1 of
     the temporal kernels' 16-token limit): requests and training steps
-    through the kernels, held to the plain stage functions."""
+    through the kernels, held to the plain route."""
     from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
         Carla2D3DDataModule
     from pedestrians_video_2_carla_torch.flows.pose_lifting import \
@@ -1758,8 +2071,6 @@ def phase_poseformer_rf81():
     from pedestrians_video_2_carla_torch.models.base import OptimizerSettings
     from pedestrians_video_2_carla_torch.models.movements.pose_former import \
         PoseFormer
-    from pedestrians_video_2_carla_torch.ops import \
-        fused_spatial_transformer as FS
     from pedestrians_video_2_carla_torch.serving import make_inference_fn
 
     model = PoseFormer(clip_length=RF81_CLIP, receptive_frames=RF81_RF,
@@ -1786,7 +2097,7 @@ def phase_poseformer_rf81():
     # outputs finite over the eval slice (one frame a clip), their distance
     # to the plain stages' reported; eval_step's losses held to rtol 1e-4
     errs = {}
-    with stage_functions(FS.spatial_stack_reference, plain_temporal_stack):
+    with stage_routes(model, "plain"):
         for preds, (inputs, _, meta) in zip(served, batches):
             ref = infer(inputs, meta["age_gender_idx"])
             for k, v in preds.items():
@@ -1814,8 +2125,7 @@ def phase_poseformer_rf81():
     for _ in range(RF81_STEPS):
         batch = next(stream)
         _, logs_k = flow.training_step(states["kernels"], batch)
-        with stage_functions(FS.spatial_stack_reference,
-                             plain_temporal_stack):
+        with stage_routes(model, "plain"):
             _, logs_p = flow.training_step(states["plain"], batch)
         row = {}
         for k in logs_p:
@@ -1918,6 +2228,7 @@ def phase_profile_poseformer_train(dm, card):
     emit({"phase": "profile_poseformer_train", "card": card, "B": BATCH,
           "L": CLIP, **trace,
           "row5_spatial_bwd_share": share(ROW5_KERNELS),
+          "row8_temporal_fwd_share": share(ROW8_KERNELS),
           "row9_temporal_bwd_share": share(ROW9_KERNELS)})
 
 
@@ -2906,7 +3217,9 @@ def group_poseformer(card, hbm_rate):
     pf_flow, pf_params, pf_counts = phase_serve_poseformer(pf_batches)
     pf_times = phase_timing_poseformer(pf_flow, pf_params, pf_batches, card,
                                        hbm_rate)
-    del pf_flow, pf_params, pf_batches, pf_dm
+    del pf_flow, pf_params, pf_batches
+    phase_f6_poseformer(pf_dm)
+    del pf_dm
     err_spatial_bwd = phase_kernel_spatial_bwd()
     err_temporal_bwd = phase_kernel_temporal_bwd()
     dm = Carla2D3DDataModule(batch_size=BATCH, clip_length=CLIP,
@@ -2953,6 +3266,7 @@ def group_classification(card, hbm_rate):
                              val_set_size=VAL_BATCHES * CLS_BATCH, seed=SEED)
     counts = phase_train_classification(dm)
     phase_serve_classification(dm)
+    phase_f6_graph(dm)
     times = phase_timing_classification(dm, card, hbm_rate)
     phase_profile_classification_train(dm, card)
     names = {"gru_fwd": ("graph_gru_scan", 251),

@@ -1,7 +1,7 @@
 // ONE pre-norm transformer block of PoseFormer's temporal stage (LayerNorm
 // -> packed-qkv multi-head attention -> proj -> residual -> LayerNorm ->
 // fc1 -> exact GELU -> fc2 -> residual) on (N, T, D) token-major windows,
-// fp32 on the CUDA cores.
+// in float32: the products as 3xTF32 in the tensor cores.
 //
 // Replaces the TPU kernels `_fwd_kernel_tl` (`_fwd_impl_slab_tl`, the
 // token-leading default layout) and `_fwd_kernel` (`_fwd_impl_slab`, the
@@ -12,30 +12,48 @@
 //
 // Bound on an H100 SXM: operations. At B=256, L=16 a block sees N = 2048
 // windows of T=9 tokens x D=832 (hidden 1664, 8 heads of 104): 18,432
-// tokens x 11,105,536 FLOP = 204.7 GFLOP, 3.06 ms at the 67 TFLOP/s fp32
-// peak, against 123 MB of activations in and out and 22 MB of weights
-// (43 us at 3.35 TB/s).
+// tokens x 11,105,536 FLOP = 204.7 GFLOP. The products run as 3xTF32 (three
+// TF32 products for each fp32 one, at fp32's accuracy), so the bound is
+// 204.7 GFLOP at 495 / 3 TFLOP/s, 1.24 ms (3.06 ms at the 67 TFLOP/s fp32
+// peak of the CUDA cores), against 145 MB of activations in and out and
+// weights (43 us at 3.35 TB/s), plus about 245 MB that the two LayerNorm
+// passes read and write (about 73 us).
 //
 // Design. The intermediates do not fit on chip (one 64-row tile of the
 // residual stream is 213 KB, its qkv 639 KB), so the entry is a fixed
 // sequence of seven launches on the caller's stream, intermediates in
 // buffers the wrapper allocates:
-//   (a) LN1 row statistics; the qkv GEMM normalises A as it loads it;
-//   (b) attention, one thread block per (window, head): T x T scores,
-//       max-subtracted softmax, x V;
-//   (c) the proj GEMM with a bias + residual epilogue (x2);
-//   (d) LN2 row statistics; the fc1 GEMM with the LayerNorm on load and a
-//       bias + GELU epilogue;
-//   (e) the fc2 GEMM with a bias + residual epilogue.
-// The GEMM is one template, C = A W^T with W in nn.Linear layout (out, in):
-// 128 x 128 output tiles, k-steps of 8 through shared memory (stored
-// k-major, rows padded by 4 floats so the transposing stores hit 32 banks),
-// the next k-step prefetched into registers, 8 x 8 outputs per thread from
-// float4 shared loads (64 FMAs per 4 loads). The TPU kernel's head-
-// interleave permutation of the qkv columns is not carried over: it exists
-// so that a (q, k) score tile is one (8, 128) vreg. LayerNorm uses flax's
-// statistics, var = max(mean(x^2) - mean(x)^2, 0), eps 1e-5; GELU is exact
-// (erff). Ragged M and N are masked.
+//   (a) y1 = LN1(x) and its row statistics (a warp a row), into `out`,
+//       which is free until (g) writes it;
+//   (b) qkv = y1 Wqkv^T + b;
+//   (c) attention, one thread block per (window, head): T x T scores,
+//       max-subtracted softmax, x V (the CUDA cores: 0.55 GFLOP a block);
+//   (d) x2 = x + o Wp^T + b;
+//   (e) y2 = LN2(x2) and its statistics, into `out` again (y1 is dead);
+//   (f) mlp = GELU(y2 W1^T + b), and the pre-GELU h when training;
+//   (g) out = x2 + mlp W2^T + b.
+// The four products are one GEMM template, C = A W^T with W in nn.Linear
+// layout (out, in): both operands K-contiguous, so both tiles are staged
+// row-major (a tile row is one output row or column, kFBK floats of K, the
+// row stride padded by 4 floats so that a warp's fragment reads hit 32
+// banks), and the W tile is exactly the `col` B operand of
+// mma.sync.m16n8k8.row.col. 128 x 128 output tiles, k-steps of kFBK
+// through a kFStages-deep cp.async ring in shared memory (the loads of
+// k-step s + kFStages - 1 fly while k-step s is multiplied, one barrier a
+// k-step), warps of kFWM x kFWN tiles of m16n8k8 TF32 products. Each fp32
+// operand is split into a TF32 value and a TF32 remainder and a b = a_small
+// b_big + a_big b_small + a_big b_big: the three products of each 8-deep
+// step are summed in the tensor cores (which round towards zero), then added
+// to the running fp32 sum with round-to-nearest, so the tensor cores'
+// rounding does not grow with K (fc2's K is 1664; mma_tf32.cuh). The
+// epilogues: bias (qkv), bias + residual (proj, fc2), bias + exact GELU
+// (erff), writing the pre-GELU h as well when given (fc1). LayerNorm uses
+// flax's statistics, var = max(mean(x^2) - mean(x)^2, 0), eps 1e-5. Ragged
+// M and N are masked. The TPU kernel's head-interleave permutation of the
+// qkv columns is not carried over: it exists so that a (q, k) score tile is
+// one (8, 128) vreg. The earlier design (the same seven launches with an
+// fp32 128 x 128 x 8 GEMM on the CUDA cores, LayerNorm applied as A was
+// loaded) took 5.85 ms a block at B=256.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -43,7 +61,7 @@
 
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kBK = 8, kPad = 4;
+constexpr int kBM = 128, kBN = 128;
 constexpr int kGemmThreads = 256;
 constexpr int kStatsThreads = 256;
 constexpr int kMaxT = 81;     // tokens per window (T x T scores per block)
@@ -53,22 +71,51 @@ constexpr int kAttnThreads = 128;
 constexpr float kEps = 1e-5f;
 constexpr float kSqrtHalf = 0.70710678118654752440f;
 
+// The forward GEMM's plan (mirrored in ops/fused_temporal_transformer.py,
+// FORWARD_GEMM): thread-block tile, warp tile, k-step, ring depth, thread
+// blocks an SM.
+constexpr int kFBM = 128, kFBN = 128;
+constexpr int kFWM = 64, kFWN = 64;
+constexpr int kFBK = 32;
+constexpr int kFStages = 3;
+constexpr int kFMinBlocks = 2;
+constexpr int kFWarps = (kFBM / kFWM) * (kFBN / kFWN);
+constexpr int kFThreads = 32 * kFWarps;
+constexpr int kFLd = kFBK + 4;  // staged tile row stride
+constexpr int kFStageFloats = (kFBM + kFBN) * kFLd;  // an A and a W tile
+constexpr int kFSmemBytes = 4 * kFStages * kFStageFloats;
+static_assert(kFBK % 8 == 0 && kFBM % kFWM == 0 && kFBN % kFWN == 0 &&
+                  kFWM % 16 == 0 && kFWN % 16 == 0,
+              "forward GEMM plan");
+
 __device__ __forceinline__ float gelu(float v) {
   return 0.5f * v * (1.0f + erff(v * kSqrtHalf));
 }
 
-// One warp per row of x (M x K, K a multiple of 4): mean and rsqrt(var +
-// eps) with var = max(mean(x^2) - mean^2, 0).
+// (v - mu) inv s + b on four features of a row
+__device__ __forceinline__ float4 ln_apply4(float4 v, float mu, float inv,
+                                            float4 s, float4 b) {
+  return make_float4((v.x - mu) * inv * s.x + b.x,
+                     (v.y - mu) * inv * s.y + b.y,
+                     (v.z - mu) * inv * s.z + b.z,
+                     (v.w - mu) * inv * s.w + b.w);
+}
+
+// y = LN(x) over rows of D (a multiple of 4), one warp a row, with the
+// row's mean and rsqrt(var + eps), var = max(mean(x^2) - mean^2, 0).
 __global__ void __launch_bounds__(kStatsThreads)
-    row_stats_kernel(const float* __restrict__ x, int M, int K,
-                     float* __restrict__ mu, float* __restrict__ inv) {
+    ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ s,
+                  const float* __restrict__ b, int M, int D,
+                  float* __restrict__ mu, float* __restrict__ inv,
+                  float* __restrict__ y) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (kStatsThreads / 32) + (threadIdx.x >> 5);
   if (row >= M) return;
-  const float4* xr =
-      reinterpret_cast<const float4*>(x + static_cast<size_t>(row) * K);
+  const int d4 = D / 4;
+  const size_t base = static_cast<size_t>(row) * D;
+  const float4* xr = reinterpret_cast<const float4*>(x + base);
   float sum = 0.f, sq = 0.f;
-  for (int k = lane; k < K / 4; k += 32) {
+  for (int k = lane; k < d4; k += 32) {
     const float4 v = __ldg(xr + k);
     sum += (v.x + v.y) + (v.z + v.w);
     sq += fmaf(v.x, v.x, v.y * v.y) + fmaf(v.z, v.z, v.w * v.w);
@@ -77,132 +124,144 @@ __global__ void __launch_bounds__(kStatsThreads)
     sum += __shfl_xor_sync(0xffffffffu, sum, o);
     sq += __shfl_xor_sync(0xffffffffu, sq, o);
   }
+  const float m = sum / D;
+  const float iv = rsqrtf(fmaxf(sq / D - m * m, 0.f) + kEps);
   if (lane == 0) {
-    const float m = sum / K;
     mu[row] = m;
-    inv[row] = rsqrtf(fmaxf(sq / K - m * m, 0.f) + kEps);
+    inv[row] = iv;
   }
+  const float4* s4 = reinterpret_cast<const float4*>(s);
+  const float4* b4 = reinterpret_cast<const float4*>(b);
+  float4* yr = reinterpret_cast<float4*>(y + base);
+  for (int k = lane; k < d4; k += 32)
+    yr[k] = ln_apply4(__ldg(xr + k), m, iv, __ldg(s4 + k), __ldg(b4 + k));
 }
 
-enum Epilogue { kStore, kGelu, kResidual };
+enum Epilogue { kBias, kGelu, kResidual };
 
-struct GemmArgs {
-  const float* A;      // M x K
+struct FwdGemm {
+  const float* A;      // M x K, row-major
   const float* W;      // N x K (nn.Linear layout)
   const float* bias;   // N
   const float* R;      // M x N residual (kResidual)
   float* C;            // M x N
+  float* H;            // kGelu: the pre-activation as well, if not null
   int M, N, K;
-  const float *mu, *inv, *gamma, *beta;  // LayerNorm of A's rows (LN)
-  float* H = nullptr;  // kGelu: the pre-activation as well, if given
 };
 
-// C = epi(LN?(A) W^T + bias). K a multiple of 8, N of 4, pointers 16-byte
+// C = epi(A W^T + bias). K a multiple of 8, N of 8, pointers 16-byte
 // aligned.
-template <bool LN, int EPI>
-__global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmArgs g) {
-  __shared__ __align__(16) float As[kBK][kBM + kPad];
-  __shared__ __align__(16) float Ws[kBK][kBN + kPad];
+template <int EPI>
+__global__ void __launch_bounds__(kFThreads, kFMinBlocks)
+    gemm_fwd_kernel(FwdGemm g) {
+  extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * kFBM, n0 = blockIdx.x * kFBN;
+  const int steps = (g.K + kFBK - 1) / kFBK;
 
-  // loader: one float4 of A and one of W per thread and k-step
-  const int lrow = tid >> 1, lk = (tid & 1) * 4;
-  const bool a_ok = m0 + lrow < g.M, w_ok = n0 + lrow < g.N;
-  const float* a_src =
-      g.A + static_cast<size_t>(a_ok ? m0 + lrow : 0) * g.K + lk;
-  const float* w_src =
-      g.W + static_cast<size_t>(w_ok ? n0 + lrow : 0) * g.K + lk;
-  float a_mu = 0.f, a_inv = 0.f;
-  if (LN && a_ok) {
-    a_mu = g.mu[m0 + lrow];
-    a_inv = g.inv[m0 + lrow];
-  }
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 av, wv;
-  auto load = [&](int k0) {
-    av = a_ok ? __ldg(reinterpret_cast<const float4*>(a_src + k0)) : zero;
-    wv = w_ok ? __ldg(reinterpret_cast<const float4*>(w_src + k0)) : zero;
-    if (LN && a_ok) {
-      const float4 s = __ldg(reinterpret_cast<const float4*>(g.gamma + k0 + lk));
-      const float4 b = __ldg(reinterpret_cast<const float4*>(g.beta + k0 + lk));
-      av.x = (av.x - a_mu) * a_inv * s.x + b.x;
-      av.y = (av.y - a_mu) * a_inv * s.y + b.y;
-      av.z = (av.z - a_mu) * a_inv * s.z + b.z;
-      av.w = (av.w - a_mu) * a_inv * s.w + b.w;
+  // one k-step's tiles into ring slot s: rows of kFBK floats in 16-byte
+  // chunks, zeros past M, N or K
+  auto load = [&](int s, int k0) {
+    float* As = smem + s * kFStageFloats;
+    float* Ws = As + kFBM * kFLd;
+    constexpr int kChunks = kFBK / 4;
+    for (int c = tid; c < (kFBM + kFBN) * kChunks; c += kFThreads) {
+      const int r = c / kChunks, kc = (c % kChunks) * 4;
+      const bool is_a = r < kFBM;
+      const int row = is_a ? m0 + r : n0 + r - kFBM;
+      const bool ok = row < (is_a ? g.M : g.N) && k0 + kc < g.K;
+      const float* src = is_a ? g.A : g.W;
+      cp_async16((is_a ? As + r * kFLd : Ws + (r - kFBM) * kFLd) + kc,
+                 ok ? src + static_cast<size_t>(row) * g.K + k0 + kc : src,
+                 ok);
     }
   };
-  auto store = [&]() {
-    As[lk + 0][lrow] = av.x;
-    As[lk + 1][lrow] = av.y;
-    As[lk + 2][lrow] = av.z;
-    As[lk + 3][lrow] = av.w;
-    Ws[lk + 0][lrow] = wv.x;
-    Ws[lk + 1][lrow] = wv.y;
-    Ws[lk + 2][lrow] = wv.z;
-    Ws[lk + 3][lrow] = wv.w;
-  };
 
-  // compute: rows ty*4 + {0..3} and 64 + ty*4 + {0..3}, columns likewise
-  const int ty = tid >> 4, tx = tid & 15;
-  float acc[8][8];
+  constexpr int kMT = kFWM / 16, kNT = kFWN / 8;
+  const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int wm = (warp / (kFBN / kFWN)) * kFWM;
+  const int wn = (warp % (kFBN / kFWN)) * kFWN;
+  float acc[kMT][kNT][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < kMT; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
 
-  load(0);
-  store();
-  __syncthreads();
-  for (int k0 = 0; k0 < g.K; k0 += kBK) {
-    const bool more = k0 + kBK < g.K;
-    if (more) load(k0 + kBK);
 #pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      float a[8], b[8];
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Ws[k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Ws[k][64 + tx * 4]);
-      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-      b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+  for (int s = 0; s < kFStages - 1; ++s) {
+    if (s < steps) load(s, s * kFBK);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kFStages - 2>();
+    __syncthreads();  // k-step `step` has landed; slot step - 1 is free
+    const int next = step + kFStages - 1;
+    if (next < steps) load(next % kFStages, next * kFBK);
+    cp_async_commit();
+    const float* As = smem + (step % kFStages) * kFStageFloats;
+    const float* Ws = As + kFBM * kFLd;
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+    for (int ks = 0; ks < kFBK; ks += 8) {
+      unsigned bb[kNT][2], bs[kNT][2];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-    if (more) {
-      store();
-      __syncthreads();
+      for (int j = 0; j < kNT; ++j) {
+        const float* w = Ws + (wn + j * 8 + gq) * kFLd + ks + tq;
+        split_tf32(w[0], bb[j][0], bs[j][0]);
+        split_tf32(w[4], bb[j][1], bs[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) {
+        const float* a = As + (wm + i * 16 + gq) * kFLd + ks + tq;
+        unsigned ab[4], as[4];
+        split_tf32(a[0], ab[0], as[0]);
+        split_tf32(a[8 * kFLd], ab[1], as[1]);
+        split_tf32(a[4], ab[2], as[2]);
+        split_tf32(a[8 * kFLd + 4], ab[3], as[3]);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+          mma_3xtf32(acc[i][j], ab, as, bb[j], bs[j]);
+      }
     }
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= g.M) continue;
+  for (int i = 0; i < kMT; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int n = n0 + h * 64 + tx * 4;
-      if (n >= g.N) continue;
-      const float4 bv = __ldg(reinterpret_cast<const float4*>(g.bias + n));
-      float4 v = make_float4(acc[i][4 * h] + bv.x, acc[i][4 * h + 1] + bv.y,
-                             acc[i][4 * h + 2] + bv.z,
-                             acc[i][4 * h + 3] + bv.w);
-      const size_t at = static_cast<size_t>(m) * g.N + n;
-      if (EPI == kGelu) {
-        if (g.H != nullptr) *reinterpret_cast<float4*>(g.H + at) = v;
-        v = make_float4(gelu(v.x), gelu(v.y), gelu(v.z), gelu(v.w));
-      } else if (EPI == kResidual) {
-        const float4 r = __ldg(reinterpret_cast<const float4*>(g.R + at));
-        v = make_float4(r.x + v.x, r.y + v.y, r.z + v.z, r.w + v.w);
+      const int m = m0 + wm + i * 16 + gq + 8 * h;
+      if (m >= g.M) continue;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int n = n0 + wn + j * 8 + 2 * tq;  // and n + 1 (N is even)
+        if (n >= g.N) continue;
+        const float2 bv = __ldg(reinterpret_cast<const float2*>(g.bias + n));
+        float2 v = make_float2(acc[i][j][2 * h] + bv.x,
+                               acc[i][j][2 * h + 1] + bv.y);
+        const size_t at = static_cast<size_t>(m) * g.N + n;
+        if (EPI == kGelu) {
+          if (g.H != nullptr) *reinterpret_cast<float2*>(g.H + at) = v;
+          v = make_float2(gelu(v.x), gelu(v.y));
+        } else if (EPI == kResidual) {
+          const float2 r = __ldg(reinterpret_cast<const float2*>(g.R + at));
+          v = make_float2(r.x + v.x, r.y + v.y);
+        }
+        *reinterpret_cast<float2*>(g.C + at) = v;
       }
-      *reinterpret_cast<float4*>(g.C + at) = v;
     }
-  }
+}
+
+template <int EPI>
+cudaError_t gemm_fwd(const FwdGemm& g, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_fwd_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kFSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((g.N + kFBN - 1) / kFBN, (g.M + kFBM - 1) / kFBM);
+  gemm_fwd_kernel<EPI><<<grid, kFThreads, kFSmemBytes, stream>>>(g);
+  return cudaGetLastError();
 }
 
 // One thread block per (window, head). qkv: (N*T) x 3D rows [q | k | v],
@@ -258,13 +317,6 @@ int attn_fwd_bytes(int T, int hd) {
 
 int attn_bwd_bytes(int T, int hd) {
   return static_cast<int>(sizeof(float) * (4 * T * hd + 2 * T * T));
-}
-
-template <bool LN, int EPI>
-cudaError_t gemm(const GemmArgs& g, cudaStream_t stream) {
-  const dim3 grid((g.N + kBN - 1) / kBN, (g.M + kBM - 1) / kBM);
-  gemm_kernel<LN, EPI><<<grid, kGemmThreads, 0, stream>>>(g);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -529,10 +581,7 @@ __global__ void ln_apply_kernel(LnApply p0, LnApply p1, int M, int D) {
   const float4 v = __ldg(reinterpret_cast<const float4*>(p.x) + i);
   const float4 s = __ldg(reinterpret_cast<const float4*>(p.s + c));
   const float4 b = __ldg(reinterpret_cast<const float4*>(p.b + c));
-  const float m = p.mu[r], iv = p.inv[r];
-  reinterpret_cast<float4*>(p.y)[i] =
-      make_float4((v.x - m) * iv * s.x + b.x, (v.y - m) * iv * s.y + b.y,
-                  (v.z - m) * iv * s.z + b.z, (v.w - m) * iv * s.w + b.w);
+  reinterpret_cast<float4*>(p.y)[i] = ln_apply4(v, p.mu[r], p.inv[r], s, b);
 }
 
 // LayerNorm backward, one warp per row (rows warp + k x (warps of the
@@ -756,15 +805,16 @@ bool valid(int n, int T, int D, int H, int hidden) {
 
 extern "C" {
 
-// One block on x (n, T, D) -> out (n, T, D), float32 contiguous. Weights in
-// nn.Linear layout: qkv_w (3D, D), proj_w (D, D), fc1_w (hidden, D), fc2_w
-// (D, hidden). Scratch: stats (4 n T), qkv (n T, 3D), attn (n T, D), x2
-// (n T, D), mlp (n T, hidden), and h (n T, hidden), the pre-GELU hidden,
-// which only training keeps (nullptr: not written). Requires T <= 81, D and
-// hidden multiples of 8, D / H <= 128, the attention backward's T x T and
-// 4 T x D / H floats within one thread block's shared memory, and 16-byte
-// aligned pointers. Launches seven kernels on `stream`; returns the first
-// CUDA error, or 0.
+// One block on x (n, T, D) -> out (n, T, D), float32 contiguous, out not
+// x. Weights in nn.Linear layout: qkv_w (3D, D), proj_w (D, D), fc1_w
+// (hidden, D), fc2_w (D, hidden). Scratch: stats (4 n T), qkv (n T, 3D),
+// attn (n T, D), x2 (n T, D), mlp (n T, hidden), and h (n T, hidden), the
+// pre-GELU hidden, which only training keeps (nullptr: not written); out
+// holds the LayerNorms' outputs until the last launch. Requires T <= 81, D
+// and hidden multiples of 8, D / H <= 128, the attention backward's T x T
+// and 4 T x D / H floats within one thread block's shared memory, and
+// 16-byte aligned pointers. Launches seven kernels on `stream`; returns the
+// first CUDA error, or 0.
 int pv2c_fused_temporal_block(
     const float* x, float* out, const float* ln1_s, const float* ln1_b,
     const float* qkv_w, const float* qkv_b, const float* proj_w,
@@ -775,44 +825,48 @@ int pv2c_fused_temporal_block(
     cudaStream_t stream) {
   const int M = n * T;
   if (M <= 0) return 0;
-  if (!valid(n, T, D, H, hidden))
+  if (!valid(n, T, D, H, hidden) || out == x)
     return static_cast<int>(cudaErrorInvalidValue);
   float *mu1 = stats, *inv1 = stats + M, *mu2 = stats + 2 * M,
         *inv2 = stats + 3 * M;
-  const int stats_blocks = (M + kStatsThreads / 32 - 1) / (kStatsThreads / 32);
+  float* y = out;  // y1, then y2: each dead before the next is written
+  const int ln_blocks = (M + kStatsThreads / 32 - 1) / (kStatsThreads / 32);
   const int attn_bytes = attn_fwd_bytes(T, D / H);
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       attn_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
+#define PV2C_STEP(call) \
+  if (err == cudaSuccess) err = (call)
 
-  row_stats_kernel<<<stats_blocks, kStatsThreads, 0, stream>>>(x, M, D, mu1,
-                                                               inv1);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  err = gemm<true, kStore>(GemmArgs{x, qkv_w, qkv_b, nullptr, qkv, M, 3 * D,
-                                    D, mu1, inv1, ln1_s, ln1_b},
-                           stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attention_kernel<<<n * H, kAttnThreads, attn_bytes, stream>>>(
-      qkv, attn, T, D, H, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  err = gemm<false, kResidual>(GemmArgs{attn, proj_w, proj_b, x, x2, M, D, D,
-                                        nullptr, nullptr, nullptr, nullptr},
-                               stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  row_stats_kernel<<<stats_blocks, kStatsThreads, 0, stream>>>(x2, M, D, mu2,
-                                                               inv2);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  err = gemm<true, kGelu>(GemmArgs{x2, fc1_w, fc1_b, nullptr, mlp, M, hidden,
-                                   D, mu2, inv2, ln2_s, ln2_b, h},
-                          stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = gemm<false, kResidual>(GemmArgs{mlp, fc2_w, fc2_b, x2, out, M, D,
-                                        hidden, nullptr, nullptr, nullptr,
-                                        nullptr},
-                               stream);
+  ln_fwd_kernel<<<ln_blocks, kStatsThreads, 0, stream>>>(x, ln1_s, ln1_b, M,
+                                                         D, mu1, inv1, y);
+  err = cudaGetLastError();
+  PV2C_STEP(gemm_fwd<kBias>(
+      FwdGemm{y, qkv_w, qkv_b, nullptr, qkv, nullptr, M, 3 * D, D}, stream));
+  if (err == cudaSuccess) {
+    attention_kernel<<<n * H, kAttnThreads, attn_bytes, stream>>>(
+        qkv, attn, T, D, H, scale);
+    err = cudaGetLastError();
+  }
+  PV2C_STEP(gemm_fwd<kResidual>(
+      FwdGemm{attn, proj_w, proj_b, x, x2, nullptr, M, D, D}, stream));
+  if (err == cudaSuccess) {
+    ln_fwd_kernel<<<ln_blocks, kStatsThreads, 0, stream>>>(
+        x2, ln2_s, ln2_b, M, D, mu2, inv2, y);
+    err = cudaGetLastError();
+  }
+  PV2C_STEP(gemm_fwd<kGelu>(
+      FwdGemm{y, fc1_w, fc1_b, nullptr, mlp, h, M, hidden, D}, stream));
+  PV2C_STEP(gemm_fwd<kResidual>(
+      FwdGemm{mlp, fc2_w, fc2_b, x2, out, nullptr, M, D, hidden}, stream));
+#undef PV2C_STEP
   return static_cast<int>(err);
 }
+
+// Shared memory of one forward GEMM thread block, in bytes (the wrapper's
+// copy of the plan is checked against it).
+int pv2c_temporal_fwd_gemm_smem_bytes() { return kFSmemBytes; }
 
 // Floats of the backward's `part` scratch (below), on the current device.
 // Returns minus a CUDA error code on failure.

@@ -8,6 +8,7 @@ from the models' own seeded init (:meth:`BaseFlow.init_params`) or from the
 flax weight bridge (``models/jax_import.py``). Training carries them in a
 :class:`FlowState` with their AdamW optimizer and the step count.
 """
+import inspect
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -22,6 +23,8 @@ from ..utils.device import DeviceLike, resolve_device
 from .output_types import MovementsModelOutputType
 
 Params = Dict[str, Dict[str, torch.Tensor]]
+
+DEFAULT_SEED = 22742
 
 
 @dataclass
@@ -48,6 +51,7 @@ class BaseFlow:
                  precision: str = "32",
                  gradient_clip_val: float = 0.0,
                  projection_kernel: str = "plain",
+                 seed: int = DEFAULT_SEED,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         if str(precision) in ("16", "bf16"):
@@ -78,6 +82,12 @@ class BaseFlow:
         self.projection_kernel = projection_kernel
         self.outputs_key = "projection_2d" if transform in (None, "none") \
             else "projection_2d_transformed"
+        #: draws the dropout masks of the training steps, on the flow's
+        #: device, for the models whose forward takes a ``generator``
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._takes_generator = [
+            m for m in (self.movements_model, self.trajectory_model)
+            if "generator" in inspect.signature(m.forward).parameters]
 
     # -- parameters --------------------------------------------------------
     def init_params(self) -> Params:
@@ -119,8 +129,10 @@ class BaseFlow:
 
     # -- model application -------------------------------------------------
     def _apply_model(self, model, params, inputs, targets, training: bool):
-        return functional_call(model, params, (inputs, targets),
-                               {"training": training})
+        kwargs = {"training": training}
+        if training and any(model is m for m in self._takes_generator):
+            kwargs["generator"] = self.generator
+        return functional_call(model, params, (inputs, targets), kwargs)
 
     def _inner_step(self, params: Params, batch, training: bool):
         """-> sliced dict. Flow-specific."""

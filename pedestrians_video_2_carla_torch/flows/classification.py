@@ -21,10 +21,8 @@ from ..metrics.classification import (AUROC, Accuracy, ConfusionMatrixMetric,
 from ..models.base import OptimizerSettings, make_adamw
 from ..models.classification import CLASSIFICATION_MODELS
 from ..utils.device import DeviceLike, resolve_device
-from .base import BaseFlow, FlowState, Params
+from .base import DEFAULT_SEED, BaseFlow, FlowState, Params
 from .output_types import ClassificationModelOutputType
-
-DEFAULT_SEED = 22742
 
 
 class ClassificationFlow:

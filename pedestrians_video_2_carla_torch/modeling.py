@@ -199,7 +199,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             loss_modes=args.loss_modes,
             movements_optimizer=OptimizerSettings.from_kwargs("movements",
                                                               vars(args)),
-            projection_kernel=args.projection_kernel, device=args.device)
+            projection_kernel=args.projection_kernel, seed=args.seed,
+            device=args.device)
     dm = DATA_MODULES[args.data_module_name](
         batch_size=args.batch_size, clip_length=args.clip_length,
         val_set_size=args.val_set_size, test_set_size=args.test_set_size,

@@ -11,7 +11,7 @@ from torch import nn
 from ...flows.output_types import ClassificationModelOutputType
 from ...skeletons.base import Skeleton
 from ...skeletons.carla import CARLA_SKELETON
-from ..movements.common import _fill_, trunc_normal_
+from ..movements.common import _fill_, dropout, trunc_normal_  # noqa: F401
 
 
 class ClassificationModel(nn.Module):
@@ -50,15 +50,3 @@ def orthogonal_(tensor: torch.Tensor,
     """flax's ``orthogonal`` init, drawn from ``generator``."""
     _fill_(tensor, lambda t: nn.init.orthogonal_(t, generator=generator),
            generator)
-
-
-def dropout(x: torch.Tensor, p: float, training: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout with the mask drawn from ``generator`` (on x's
-    device); the identity when not training or p = 0."""
-    if not training or p <= 0.0:
-        return x
-    if generator is None:
-        raise ValueError("dropout in training needs a generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
-    return x * keep / (1.0 - p)

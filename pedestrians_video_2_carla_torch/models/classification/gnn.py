@@ -15,7 +15,11 @@ that recurrence runs:
     backward, on the card, their plain versions on the CPU; both biases fold
     into the clip-level pre-activations, and the layers hand frame-major
     (L, B, J, H) tensors to each other with no relayout;
-  * ``"auto"``: fused on the card when ``hidden_size >= 32``, else plain.
+  * ``"auto"``: fused on the card when ``hidden_size >= 32`` and the scan
+    kernels' launch plans (``graph_gru_plan``, ``graph_lstm_plan``,
+    ``dense_lstm_plan``) take the layer's shape, forward and, when a
+    gradient will be taken, backward; else plain. The choice is made from
+    the plans before any launch; ``"fused"`` raises where they refuse.
 Dropout sits outside the recurrence, so the fused route trains as well.
 
 Parameters carry the flax model's names and (in, out) shapes
@@ -32,12 +36,17 @@ from torch import nn
 from torch.nn import functional as F
 
 from ...flows.output_types import ClassificationModelOutputType
-from ...ops.fused_graph_gru import (cheb_matrices, graph_gru_scan,
-                                    graph_lstm_scan)
+from ...ops.fused_graph_gru import (cheb_matrices, dense_lstm_plan,
+                                    graph_gru_plan, graph_gru_scan,
+                                    graph_lstm_plan, graph_lstm_scan)
 from ..movements.common import lecun_normal_
 from .common import ClassificationModel, dropout, lecun_normal_in_out_
 
 GRAPH_KERNELS = ("auto", "plain", "fused")
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    return x.device.type == "cuda"
 
 
 def normalized_adjacency(skeleton, self_loops: bool = True) -> np.ndarray:
@@ -140,9 +149,35 @@ class _GraphGatedRecurrent(ClassificationModel):
                           for g in self.GATES], dim=1)
 
     def _use_fused(self, x: torch.Tensor) -> bool:
-        if self.graph_kernel == "auto":
-            return x.device.type == "cuda" and self.hidden_size >= 32
-        return self.graph_kernel == "fused"
+        """The route of the recurrence on (B, L, J, C) ``x`` (see the module
+        docstring); on the card it asks the launch plans, never a launch."""
+        if self.graph_kernel == "plain":
+            return False
+        on_card = _on_card(x)
+        if self.graph_kernel == "auto" and not (on_card and
+                                                self.hidden_size >= 32):
+            return False
+        if not on_card:
+            return True
+        B, J = x.shape[0], x.shape[2]
+        weight = self._gate(self.LAYERS[0], self.GATES[0], "wh")[0]
+        keep = torch.is_grad_enabled() and (x.requires_grad
+                                            or weight.requires_grad)
+        if self._plans_take(B, J, keep, x.device):
+            return True
+        if self.graph_kernel == "fused":
+            raise ValueError(
+                f"graph_kernel='fused': the scan kernels take no "
+                f"{'training ' if keep else ''}launch at hidden_size "
+                f"{self.hidden_size}, k={self.k} for {B} clips of {J} "
+                f"joints on this card (launch plan zero); use 'auto' or "
+                f"'plain'")
+        return False
+
+    def _plans_take(self, B: int, J: int, keep: bool, device) -> bool:
+        """Whether the scan kernels' launch plans take a layer of this
+        shape: the forward's and, with ``keep``, the backward's."""
+        raise NotImplementedError
 
     # -- plain route ----------------------------------------------------------
     def _hidden_weights(self, layer: str) -> Dict[str, Tuple[torch.Tensor,
@@ -224,6 +259,11 @@ class _GraphGRUCell:
         h_new = z * h + (1 - z) * h_tilde
         return h_new, h_new
 
+    def _plans_take(self, B, J, keep, device):
+        return all(graph_gru_plan(B, J, self.hidden_size, self.k, backward,
+                                  device)[0] > 0
+                   for backward in ((False, True) if keep else (False,)))
+
     def _scan(self, layer, xg):
         wz, wr = self._gate(layer, "z", "wh"), self._gate(layer, "r", "wh")
         wzr = torch.cat([torch.cat([wz[n], wr[n]], dim=1)
@@ -284,6 +324,15 @@ class GConvLSTM(_GraphGatedRecurrent):
         c_new = f * c + i * g
         h_new = o * torch.tanh(c_new)
         return (h_new, c_new), h_new
+
+    def _plans_take(self, B, J, keep, device):
+        H, k = self.hidden_size, self.k
+        if k == 1:      # the route graph_lstm_scan takes: dense where it fits
+            dense = dense_lstm_plan(B, J, H, k, device)
+            if dense[0] > 0:
+                return not keep or dense[3] > 0
+        return all(graph_lstm_plan(B, J, H, k, backward, device)[0] > 0
+                   for backward in ((False, True) if keep else (False,)))
 
     def _scan(self, layer, xg):
         per_gate = [self._gate(layer, g, "wh") for g in self.GATES]

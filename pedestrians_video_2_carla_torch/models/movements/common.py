@@ -1,5 +1,6 @@
 """Shared movements-model base: an ``nn.Module`` carrying skeleton and
-output-type config, plus the seeded layer inits."""
+output-type config, plus the seeded layer inits and dropout from an
+explicit generator."""
 import math
 from typing import Callable, Optional, Type
 
@@ -29,6 +30,18 @@ def _fill_(tensor: torch.Tensor, draw_: Callable[[torch.Tensor], None],
     draw_(draw)
     with torch.no_grad():
         tensor.copy_(draw)
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with the mask drawn from ``generator`` (on x's
+    device); the identity when not training or p = 0."""
+    if not training or p <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return x * keep / (1.0 - p)
 
 
 def trunc_normal_(tensor: torch.Tensor, std: float,

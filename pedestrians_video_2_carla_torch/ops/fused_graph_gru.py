@@ -424,12 +424,24 @@ def graph_gru_plan(B: int, J: int, H: int, k: int, backward: bool = False,
     a CUDA device: (clips a thread block, the weight ring's widest tile,
     shared memory bytes), zeros where one clip does not fit (the launch
     then raises)."""
-    plan = torch.zeros(3, dtype=torch.int32)
-    with torch.cuda.device(device):
-        err = _library().pv2c_graph_gru_plan(B, J, H, k, int(backward),
-                                             plan.data_ptr())
-    cuda_build.check_launch(err, "pv2c_graph_gru_plan")
+    return _scan_plan("pv2c_graph_gru_plan", 3, B, J, H, k, bool(backward),
+                      _device_index(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_plan(entry: str, size: int, B: int, J: int, H: int, k: int,
+               backward: bool, index: int) -> Tuple[int, ...]:
+    plan = torch.zeros(size, dtype=torch.int32)
+    with torch.cuda.device(index):
+        err = getattr(_library(), entry)(B, J, H, k, int(backward),
+                                         plan.data_ptr())
+    cuda_build.check_launch(err, entry)
     return tuple(int(v) for v in plan)
+
+
+def _device_index(device) -> int:
+    index = torch.device("cuda" if device is None else device).index
+    return torch.cuda.current_device() if index is None else index
 
 
 def graph_gru_scan_cuda_fwd(xg: torch.Tensor, cheb: torch.Tensor,
@@ -510,12 +522,8 @@ def graph_lstm_plan(B: int, J: int, H: int, k: int, backward: bool = False,
     widest tile, shared memory bytes, rows of a block tile: 64, or 16 in
     the few-rows tiling), zeros where one clip does not fit (the launch
     then raises)."""
-    plan = torch.zeros(4, dtype=torch.int32)
-    with torch.cuda.device(device):
-        err = _library().pv2c_graph_lstm_plan(B, J, H, k, int(backward),
-                                              plan.data_ptr())
-    cuda_build.check_launch(err, "pv2c_graph_lstm_plan")
-    return tuple(int(v) for v in plan)
+    return _scan_plan("pv2c_graph_lstm_plan", 4, B, J, H, k, bool(backward),
+                      _device_index(device))
 
 
 def graph_lstm_scan_cuda_fwd(xg: torch.Tensor, cheb: torch.Tensor,
@@ -616,9 +624,7 @@ def dense_lstm_plan(B: int, J: int, H: int, k: int = 1, device=None
     dense route does not take the shape (k != 1, or H > 64, where the
     weights no longer fit a thread's registers; the graph-form kernels run
     it then)."""
-    index = torch.device("cuda" if device is None else device).index
-    return _dense_plan(B, J, H, k, torch.cuda.current_device()
-                       if index is None else index)
+    return _dense_plan(B, J, H, k, _device_index(device))
 
 
 def _weight_transposed(fn_name: str, w: torch.Tensor) -> int:

@@ -8,20 +8,24 @@ The forward entry replaces the TPU kernels ``_fwd_kernel_tl`` (the default
 token-leading layout) and ``_fwd_kernel`` (the legacy padded layout) of the
 JAX package's ``ops/pallas/fused_temporal_transformer.py``: one function in
 two TPU layouts, one counterpart here. On an H100 operations bound it: at
-B=256, L=16 a block does 204.7 GFLOP (3.06 ms at the fp32 peak) against
-145 MB of traffic. It is a fixed sequence of seven launches (row
-statistics, four GEMMs with fused LayerNorm / GELU / residual, attention),
-described in the source; ``fused_temporal_block_cuda.launches`` counts entry
+B=256, L=16 a block does 204.7 GFLOP against 145 MB of traffic, and its
+four products run as 3xTF32 in the tensor cores, at fp32's accuracy: a
+1.24 ms bound at that rate (3.06 ms at the fp32 peak). It is a fixed
+sequence of seven launches (each LayerNorm with its statistics, the four
+products as one GEMM template with bias / residual / GELU epilogues,
+attention), described in the source; the GEMM's tile plan is mirrored here
+(``FORWARD_GEMM``); ``fused_temporal_block_cuda.launches`` counts entry
 calls, one per transformer block. The backward entry replaces the two
 halves of ``_bwd_impl_slab_tl`` and ``_bwd_impl_slab`` (1,637.6 GFLOP a
 block at B=1024, L=16): a fixed sequence of 13 launches whose products run
 as 3xTF32 in the tensor cores (a 9.92 ms bound at that rate), described in
 the source; ``fused_temporal_block_cuda_bwd.launches`` counts its calls.
 When a gradient is needed the forward keeps its scratch (row statistics,
-qkv, attention output, x2, the hidden before and after GELU) for it;
-serving keeps nothing and allocates no pre-GELU buffer. Windows of up to
-81 tokens (PoseFormer's published receptive fields 27 and 81): attention
-sizes its shared memory per call, mirrored here (``check_limits``).
+qkv, attention output, x2, the hidden before and after GELU) for it
+(``temporal_block_keep_reference`` is its plain version); serving keeps
+nothing and allocates no pre-GELU buffer. Windows of up to 81 tokens
+(PoseFormer's published receptive fields 27 and 81): attention sizes its
+shared memory per call, mirrored here (``check_limits``).
 
 The wrappers launch the kernels for CUDA tensors and run the plain version
 (and autograd of it) for CPU tensors; there is no fallback from one to the
@@ -36,10 +40,12 @@ import functools
 from typing import List, Sequence, Tuple
 
 import torch
+from torch.nn import functional as F
 
 from . import cuda_build
 from .cuda_build import INT as _INT, PTR as _PTR
-from .transformer import block_reference, check_block_weights, plain_backward
+from .transformer import (LN_EPS, attention_heads, block_reference,
+                          check_block_weights, plain_backward)
 
 _SOURCE = cuda_build.CSRC / "fused_temporal_transformer.cu"
 _SIGNATURES = {
@@ -48,6 +54,7 @@ _SIGNATURES = {
     "pv2c_fused_temporal_block_bwd":
         [_PTR] * 29 + [_INT] * 5 + [ctypes.c_float, _PTR],
     "pv2c_temporal_block_bwd_part_floats": [_INT] * 4,
+    "pv2c_temporal_fwd_gemm_smem_bytes": [],
 }
 
 #: the kernels' compiled limits (csrc/fused_temporal_transformer.cu), and
@@ -55,6 +62,21 @@ _SIGNATURES = {
 MAX_TOKENS = 81
 MAX_HEAD_WIDTH = 128
 MAX_SMEM_BYTES = 232448
+#: shared memory of one H100 SM, and what the hardware keeps of it for each
+#: thread block
+SM_SMEM_BYTES, BLOCK_RESERVED_BYTES = 233472, 1024
+
+#: the forward GEMM's plan (the source's kF* constants): thread-block tile,
+#: warp tile, k-step, cp.async ring depth, thread blocks an SM
+FORWARD_GEMM = {"block": (128, 128), "warp": (64, 64), "k_step": 32,
+                "stages": 3, "blocks_per_sm": 2}
+
+
+def forward_gemm_smem_bytes() -> int:
+    """Dynamic shared memory of one forward GEMM thread block: the ring's
+    stages of an A and a W tile, rows padded by 4 floats."""
+    plan = FORWARD_GEMM
+    return 4 * plan["stages"] * sum(plan["block"]) * (plan["k_step"] + 4)
 
 
 def attention_smem_bytes(T: int, head_width: int) -> int:
@@ -86,6 +108,39 @@ def temporal_block_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
                              num_heads: int) -> torch.Tensor:
     """The plain PyTorch version: (N, T, D) -> (N, T, D)."""
     return block_reference(x, weights, num_heads)
+
+
+def temporal_block_keep_reference(x: torch.Tensor,
+                                  weights: Sequence[torch.Tensor],
+                                  num_heads: int):
+    """The plain version of the training forward: ``(out, saved)``, saved
+    the scratch ``fused_temporal_block_cuda(..., keep=True)`` keeps, in its
+    layout: stats (mu1, inv1, mu2, inv2 of the M = N T rows, 4 M), qkv
+    (M, 3D), the attention output before proj (M, D), x2 (M, D), the
+    pre-GELU hidden h and GELU(h) (M, hidden)."""
+    (ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b,
+     ln2_s, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b) = weights
+    N, T, D = x.shape
+    M = N * T
+
+    def ln(v, s, b):
+        mu = v.mean(-1, keepdim=True)
+        inv = torch.rsqrt(((v * v).mean(-1, keepdim=True) - mu * mu
+                           ).clamp_min(0.0) + LN_EPS)
+        return (v - mu) * inv * s + b, mu.reshape(M), inv.reshape(M)
+
+    y1, mu1, inv1 = ln(x, ln1_s, ln1_b)
+    qkv = F.linear(y1, qkv_w, qkv_b)
+    attn = attention_heads(y1, qkv_w, qkv_b, num_heads)
+    x2 = x + F.linear(attn, proj_w, proj_b)
+    y2, mu2, inv2 = ln(x2, ln2_s, ln2_b)
+    h = F.linear(y2, fc1_w, fc1_b)
+    mlp = F.gelu(h)
+    out = x2 + F.linear(mlp, fc2_w, fc2_b)
+    saved = (torch.cat([mu1, inv1, mu2, inv2]), qkv.reshape(M, 3 * D),
+             attn.reshape(M, D), x2.reshape(M, D), h.reshape(M, -1),
+             mlp.reshape(M, -1))
+    return out, saved
 
 
 def check_limits(T: int, D: int, num_heads: int, hidden: int) -> None:

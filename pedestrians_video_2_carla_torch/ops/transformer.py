@@ -7,8 +7,13 @@ plain version.
 Weights are in PyTorch's ``nn.Linear`` layout, (out, in): the transpose of
 flax's kernels, as the weight bridge (``models/jax_import.py``) gives them.
 The qkv rows are in [q; k; v] x (head, dim) order.
+
+``drop``, where given, is dropout at the flax block's positions (JAX
+``models/movements/pose_former.py``): ``drop(t, "attn")`` on the attention
+probabilities, ``drop(t, "out")`` after proj, after GELU and after fc2.
+The kernels implement none; PoseFormer's plain route passes it.
 """
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 from torch.nn import functional as F
@@ -20,6 +25,8 @@ LN_EPS = 1e-5
 #: ln1_s (D,), ln1_b (D,), qkv_w (3D, D), qkv_b (3D,), proj_w (D, D),
 #: proj_b (D,), ln2_s (D,), ln2_b (D,), fc1_w (HID, D), fc1_b (HID,),
 #: fc2_w (D, HID), fc2_b (D,)
+Drop = Callable[[torch.Tensor, str], torch.Tensor]
+
 BLOCK_WEIGHTS = ("ln1_s", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
                  "ln2_s", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
 
@@ -33,30 +40,42 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (x - mu) * torch.rsqrt(var + eps) * scale + bias
 
 
-def attention(y: torch.Tensor, qkv_w, qkv_b, proj_w, proj_b,
-              num_heads: int) -> torch.Tensor:
-    """Multi-head self-attention over the tokens of (N, T, D) ``y``, with
-    q scaled by hd^-0.5 before the product, as the JAX model."""
+def no_dropout(t: torch.Tensor, kind: str) -> torch.Tensor:
+    return t
+
+
+def attention_heads(y: torch.Tensor, qkv_w, qkv_b, num_heads: int,
+                    drop: Drop = no_dropout) -> torch.Tensor:
+    """Multi-head self-attention over the tokens of (N, T, D) ``y`` before
+    the output projection, with q scaled by hd^-0.5 before the product, as
+    the JAX model."""
     N, T, D = y.shape
     hd = D // num_heads
     qkv = F.linear(y, qkv_w, qkv_b).reshape(N, T, 3, num_heads, hd)
     q, k, v = qkv.permute(2, 0, 3, 1, 4)            # each (N, H, T, hd)
-    probs = torch.softmax((q * float(hd) ** -0.5) @ k.transpose(-2, -1),
-                          dim=-1)
-    out = (probs @ v).transpose(1, 2).reshape(N, T, D)
-    return F.linear(out, proj_w, proj_b)
+    probs = drop(torch.softmax((q * float(hd) ** -0.5) @ k.transpose(-2, -1),
+                               dim=-1), "attn")
+    return (probs @ v).transpose(1, 2).reshape(N, T, D)
+
+
+def attention(y: torch.Tensor, qkv_w, qkv_b, proj_w, proj_b,
+              num_heads: int, drop: Drop = no_dropout) -> torch.Tensor:
+    """:func:`attention_heads`, then the output projection."""
+    return F.linear(attention_heads(y, qkv_w, qkv_b, num_heads, drop),
+                    proj_w, proj_b)
 
 
 def block_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
-                    num_heads: int) -> torch.Tensor:
+                    num_heads: int, drop: Drop = no_dropout) -> torch.Tensor:
     """One pre-norm block on (N, T, D) ``x``; ``weights`` as
     :data:`BLOCK_WEIGHTS`."""
     (ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b,
      ln2_s, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b) = weights
-    x = x + attention(layer_norm(x, ln1_s, ln1_b), qkv_w, qkv_b, proj_w,
-                      proj_b, num_heads)
-    h = F.gelu(F.linear(layer_norm(x, ln2_s, ln2_b), fc1_w, fc1_b))
-    return x + F.linear(h, fc2_w, fc2_b)
+    x = x + drop(attention(layer_norm(x, ln1_s, ln1_b), qkv_w, qkv_b,
+                           proj_w, proj_b, num_heads, drop), "out")
+    h = drop(F.gelu(F.linear(layer_norm(x, ln2_s, ln2_b), fc1_w, fc1_b)),
+             "out")
+    return x + drop(F.linear(h, fc2_w, fc2_b), "out")
 
 
 def plain_backward(reference, x: torch.Tensor,

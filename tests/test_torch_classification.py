@@ -157,6 +157,86 @@ def test_fused_route_takes_the_scan_entry(name, entry, calls, monkeypatch):
     assert len(seen) == calls
 
 
+def _plan_stub(size, refuse):
+    """A launch-plan function of ``size`` numbers that gives zeros for the
+    passes in ``refuse`` ("fwd", "bwd") and ones otherwise."""
+    def plan(B, J, H, k, backward=False, device=None):
+        return (0,) * size if ("bwd" if backward else "fwd") in refuse \
+            else (1,) * size
+    return plan
+
+
+def _dense_plan_stub(refuse):
+    """dense_lstm_plan's six numbers: the forward's three, the backward's."""
+    def plan(B, J, H, k=1, device=None):
+        return tuple(0 if p in refuse else 1 for p in ("fwd",) * 3
+                     + ("bwd",) * 3)
+    return plan
+
+
+@pytest.mark.parametrize("name,k,plans", [
+    ("GConvGRU", 2, ("graph_gru_plan",)),
+    ("GConvLSTM", 2, ("graph_lstm_plan",)),
+    ("GConvLSTM", 1, ("dense_lstm_plan", "graph_lstm_plan"))])
+def test_auto_route_follows_the_launch_plans(name, k, plans, monkeypatch):
+    """On the card, "auto" takes the scan kernels only where the launch
+    plans take the layer's shape (the forward's, and the backward's when a
+    gradient will be taken), and "fused" raises where they do not; the
+    choice is made from the plans alone (stubbed here, with the card's test
+    forced true on CPU tensors, where the entries run their plain
+    versions)."""
+    entry = "graph_lstm_scan" if name == "GConvLSTM" else "graph_gru_scan"
+    seen, asked = [], []
+    orig = getattr(TG, entry)
+    monkeypatch.setattr(TG, entry, lambda *a, **kw: (seen.append(1),
+                                                     orig(*a, **kw))[1])
+    monkeypatch.setattr(TG, "_on_card", lambda x: True)
+    x = torch.from_numpy(_case("GConvGRU")[0])
+
+    def model(route):
+        return CLASSIFICATION_MODELS[name](
+            hidden_size=32, k=k, graph_kernel=route,
+            generator=torch.Generator().manual_seed(0))
+
+    def stub(refuse, dense_refuse=("fwd", "bwd")):
+        seen.clear()
+        for plan in plans:
+            if plan == "dense_lstm_plan":
+                fn = _dense_plan_stub(dense_refuse)
+            else:
+                fn = _plan_stub(4 if "lstm" in plan else 3, refuse)
+            monkeypatch.setattr(TG, plan, lambda *a, fn=fn, plan=plan, **kw:
+                                (asked.append(plan), fn(*a, **kw))[1])
+
+    stub(())                            # the plans take both passes
+    model("auto")(x).sum().backward()
+    assert len(seen) == 2
+    stub(("bwd",))                      # the reverse scan does not fit
+    model("auto")(x).sum().backward()
+    assert len(seen) == 0
+    with torch.no_grad():               # serving needs the forward alone
+        model("auto")(x)
+    assert len(seen) == 2
+    with pytest.raises(ValueError, match="launch plan zero"):
+        model("fused")(x)
+    stub(("fwd", "bwd"))
+    with torch.no_grad():
+        model("auto")(x)
+        with pytest.raises(ValueError, match="launch plan zero"):
+            model("fused")(x)
+    assert len(seen) == 0
+    assert set(asked) == set(plans)
+    if "dense_lstm_plan" in plans:      # k = 1: the dense route's plan rules
+        stub(("fwd", "bwd"), dense_refuse=())
+        model("auto")(x).sum().backward()
+        assert len(seen) == 2
+        stub((), dense_refuse=("bwd",))
+        model("auto")(x).sum().backward()
+        assert len(seen) == 0
+    model("plain")(x)
+    assert len(seen) == 0
+
+
 def test_lstm_classifier_fused_route_is_the_dense_scan(monkeypatch):
     from pedestrians_video_2_carla_torch.models import rnn as TR
     seen = []

@@ -116,6 +116,58 @@ def test_temporal_stack_matches_jax():
     np.testing.assert_allclose(out, stack, rtol=0, atol=ATOL)
 
 
+def test_temporal_keep_reference_is_the_forward_with_its_scratch():
+    """The plain training forward (the CUDA forward's ``keep`` scratch in
+    its layout) gives the JAX kernel's output, and its scratch holds what
+    row 9's backward reads: the LayerNorm statistics, qkv, the attention
+    output before proj, x2, h and GELU(h)."""
+    x, weights, block, _, _ = _temporal_case()
+    (ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b,
+     ln2_s, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b) = weights[0]
+    out, saved = FT.temporal_block_keep_reference(_t(x), weights[0], H_T)
+    np.testing.assert_allclose(out.numpy(), block, rtol=0, atol=ATOL)
+    stats, qkv, attn, x2, h, mlp = saved
+    M = N_T * T
+    assert [tuple(t.shape) for t in saved] == [
+        (4 * M,), (M, 3 * D), (M, D), (M, D), (M, 2 * D), (M, 2 * D)]
+    rows = _t(x).reshape(M, D)
+    mu1, inv1, mu2, inv2 = stats.reshape(4, M, 1)
+    close = functools.partial(torch.testing.assert_close, rtol=0, atol=ATOL)
+    close(mu1, rows.mean(-1, keepdim=True))
+    close(mu2, x2.mean(-1, keepdim=True))
+    close(inv2, torch.rsqrt(x2.var(-1, unbiased=False, keepdim=True)
+                            + 1e-5))
+    close(qkv, ((rows - mu1) * inv1 * ln1_s + ln1_b) @ qkv_w.T + qkv_b)
+    close(x2, rows + attn @ proj_w.T + proj_b)
+    close(h, ((x2 - mu2) * inv2 * ln2_s + ln2_b) @ fc1_w.T + fc1_b)
+    close(mlp, torch.nn.functional.gelu(h))
+    close(out.reshape(M, D), x2 + mlp @ fc2_w.T + fc2_b)
+
+
+def test_forward_gemm_plan_mirrors_the_source():
+    """The wrapper's copy of the forward GEMM's plan is the source's, and
+    two of its thread blocks fit an SM's shared memory."""
+    import re
+    src = FT._SOURCE.read_text()
+
+    def const(name):
+        return int(re.search(rf"\b{name} = (\d+)", src).group(1))
+    plan = FT.FORWARD_GEMM
+    assert plan["block"] == (const("kFBM"), const("kFBN"))
+    assert plan["warp"] == (const("kFWM"), const("kFWN"))
+    assert (plan["k_step"], plan["stages"], plan["blocks_per_sm"]) == (
+        const("kFBK"), const("kFStages"), const("kFMinBlocks"))
+    assert set(plan) == {"block", "warp", "k_step", "stages",
+                         "blocks_per_sm"}
+    smem = FT.forward_gemm_smem_bytes()
+    assert smem == 4 * 3 * 256 * 36 == 110592
+    assert plan["blocks_per_sm"] * (smem + FT.BLOCK_RESERVED_BYTES) \
+        <= FT.SM_SMEM_BYTES
+    # a third thread block would not fit: the launch bounds ask for two
+    assert (plan["blocks_per_sm"] + 1) * (smem + FT.BLOCK_RESERVED_BYTES) \
+        > FT.SM_SMEM_BYTES
+
+
 @pytest.mark.parametrize("shape", [
     dict(n_tokens=106496, dim=32, seq_len=26),
     dict(n_tokens=18432, dim=832, seq_len=9),
@@ -199,6 +251,19 @@ def test_cuda_spatial_matches_plain(rng, cuda_device, n):
     ref = FS.spatial_stack_reference(x, weights, 8)
     torch.cuda.synchronize()
     assert _scaled_err(out, ref) <= KERNEL_BAR
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2048, 2045, 3])
+def test_cuda_temporal_keep_matches_plain(rng, cuda_device, n):
+    x = torch.from_numpy(rng.standard_normal((n, 9, 832)).astype(
+        np.float32)).to(cuda_device)
+    weights = [w.to(cuda_device) for w in _to_port(_block_weights(rng, 832))]
+    out, saved = FT.fused_temporal_block_cuda(x, weights, 8, keep=True)
+    ref, ref_saved = FT.temporal_block_keep_reference(x, weights, 8)
+    torch.cuda.synchronize()
+    for got, want in zip((out, *saved), (ref, *ref_saved)):
+        assert _scaled_err(got, want) <= KERNEL_BAR
 
 
 @pytest.mark.cuda
