@@ -6,7 +6,9 @@ Phases, each printing one JSON line:
   1. device       -- requires CUDA; the card's name and power limit
                      (nvidia-smi).
   2. build        -- builds the six kernel libraries with nvcc from this
-                     checkout's csrc/ (sm_90a), in parallel; their ptxas
+                     checkout's csrc/ (sm_90a), and the instrumented copy
+                     of the spatial source (spatial_phase_split), in
+                     parallel; their ptxas
                      summaries; that the temporal forward's products are
                      tensor-core code (its three GEMM entries and no
                      CUDA-core GEMM among the library's entries, and each
@@ -18,10 +20,13 @@ Phases, each printing one JSON line:
   4. kernel_train -- the training forward kernel against its plain version
                      (1e-3 px, 1e-4 depth, 1e-5 abs_loc) and the backward
                      kernel against autograd of the plain version with
-                     seeded cotangents (each gradient over its largest
-                     magnitude: rtol 1e-4, atol 1e-5), at B in {1024, 1000,
-                     5} with L=16, B=1024 with L=1 and B=5 with L=2; two
-                     backward launches give the same bits.
+                     seeded cotangents and against its own plain version
+                     (the kernel's algorithm: per-frame tree terms, then the
+                     carry; each gradient over its largest magnitude: rtol
+                     1e-4, atol 1e-5), at B in {1024, 1000, 5} with L=16
+                     (longer than one of the backward's chunks), B=1024
+                     with L=1 and B=5 with L=2; two backward launches give
+                     the same bits.
   5. serve        -- the port's serving path at full width: Carla2D3D test
                      batches (B=1024, L=16) -> LinearAE (seeded init) ->
                      PoseLiftingFlow(projection_kernel="fused") ->
@@ -49,11 +54,17 @@ Phases, each printing one JSON line:
   8. kernel_spatial  -- PoseFormer's spatial-stack kernel against its plain
                      version on seeded weights (LayerNorms away from ones
                      and zeros): J=26, E=32, 8 heads, depth 4, N in {4096,
-                     4093, 5}; E=32 with 1 head (head width 32) and E=64
-                     with hidden 128 at N in {1024, 1021}; the library's
-                     shared-memory sizes against the wrapper's copies. Bar:
-                     max |kernel - plain| <= 1e-5 x max |plain| (the card
-                     shows under 1e-6).
+                     4093, 5}; E=32 with 1 head (head width 32), E=64 with
+                     hidden 128 and E=20 with 5 heads, hidden 40 (widths 4
+                     mod 8: the products' zero-padded k-edge) at N in
+                     {1024, 1021}; at the edge of its shared memory (J=32,
+                     E=12, 3 heads and hidden 864, 1 head and hidden 860; X
+                     and Y rows at stride E) at N=67, serving and the
+                     training forward the same output; the library's
+                     shared-memory sizes against the wrapper's copies at
+                     all these shapes. Bar: max |kernel -
+                     plain| <= 1e-5 x max |plain| (the card shows under
+                     1e-6).
   9. kernel_temporal -- the forward GEMM's shared memory, the library's
                      against the wrapper's copy (FORWARD_GEMM); the
                      temporal-block kernel against its plain version
@@ -84,9 +95,15 @@ Phases, each printing one JSON line:
                      launches split by a torch.profiler trace; the
                      host-clock and CUDA-event medians of a request and the
                      device time of its spatial and temporal kernels and
-                     the rest (a profiled run); each kernel's bound (row
-                     8's at the 3xTF32 rate its products run at, and at the
-                     fp32 peak).
+                     the rest (a profiled run); each kernel's bound at the
+                     3xTF32 rate, and with all of it at the fp32 peak (row
+                     4: also with its attention there, where it runs). Then
+                     spatial_phase_split: row 4's phases (load, waiting,
+                     staging, LN1, qkv, attention, proj, LN2, fc1, fc2,
+                     final LayerNorm, store) from the clock64() stamps of
+                     an instrumented copy of its source (built with the
+                     libraries; the same output bits), as shares of its
+                     time.
      f6_poseformer -- fault F6: PoseFormer(drop_rate=0.1) under "auto"
                      takes 2 training steps (B=256) on the plain blocks (no
                      kernel launched, losses finite), "fused" refuses such a
@@ -126,10 +143,11 @@ Phases, each printing one JSON line:
                      products run at); each backward kernel and its
                      library yardstick in 10 alternating pairs (medians of
                      each and of their ratio); row 9's 13 launches split by
-                     a torch.profiler trace; the host-clock median of a
-                     B=1024 training_step and a CUDA-event split of it
-                     (forward, spatial backward, temporal backward, the
-                     rest).
+                     a torch.profiler trace; row 4's training forward
+                     (keep) at B=1024 beside its bound (the residuals it
+                     writes); the host-clock median of a B=1024
+                     training_step and a CUDA-event split of it (forward,
+                     spatial backward, temporal backward, the rest).
      profile_poseformer_train -- a torch.profiler trace of 3 such steps:
                      the device busy share of the traced window, the top
                      device operations, the share of rows 5, 8 and 9.
@@ -222,9 +240,11 @@ Phases, each printing one JSON line:
 Then the card line, the kernels line, and the contract line last. Any
 failure raises and ends the run with a non-zero exit.
 """
+import ctypes
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import tempfile
@@ -267,8 +287,46 @@ SPATIAL_BWD_NS, TEMPORAL_BWD_NS = (16384, 16381, 5), (8192, 8189, 3)
 #: E=64 with hidden 128, main-path and ragged frames; a short PoseFormer path
 #: at rf 81 (Carla2D3D, B=64, clips of 81 frames: one window a clip)
 WIDE_TS, WIDE_NS = (27, 81), (256, 253)
-SPATIAL_WIDE = ((32, 1), (64, 8))          # (E, heads), hidden 2E
+SPATIAL_WIDE = ((32, 1), (64, 8), (20, 5))  # (E, heads), hidden 2E
 SPATIAL_WIDE_NS = (1024, 1021)
+#: shapes at the edge of row 4's shared memory (J, E, heads, hidden): one
+#: frame a thread block in the layout without the padding (X and Y rows at
+#: stride E), at a ragged number of frames
+SPATIAL_EDGE, SPATIAL_EDGE_N = ((32, 12, 3, 864), (32, 12, 1, 860)), 67
+#: row 4's phase split: a copy of a forward source with a clock64() stamp by
+#: lane 0 of each warp at the forward kernel's start, after every barrier of
+#: block_fwd and of the kernel, and at its end (instrument_spatial_forward);
+#: the phases that a depth block's stamps end, by the forward's design
+#: ("warp": a warp a frame, warp barriers; "block": the earlier CUDA-core
+#: design, thread-block barriers only) and by keep, between "load" and
+#: "final_ln", "store"
+SPLIT_SLOTS = 64
+SPLIT_PHASES = {
+    "warp": dict.fromkeys((False, True), (
+        "wait", "stage", "ln1", "qkv", "attention", "proj", "ln2", "fc1",
+        "fc2")),
+    "block": {False: ("stage", "ln1", "qkv", "attention", "proj", "ln2",
+                      "fc1_gelu", "fc2"),
+              True: ("stage", "ln1", "qkv", "attention", "proj", "ln2",
+                     "fc1", "gelu_h", "fc2", "xs")}}
+_SPLIT_SECTION = (
+    "template <int HD>\n__device__ void block_fwd(",
+    "// ---------------------------------------------------------------------------\n// Backward")
+_SPLIT_TOP = "  extern __shared__ __align__(16) float smem[];\n"
+_SPLIT_HELPERS = """
+__device__ long long* g_split_clk = nullptr;
+__shared__ int g_split_i[32];
+__device__ __forceinline__ void split_stamp() {
+  const int w = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0 && g_split_clk != nullptr)
+    g_split_clk[(blockIdx.x * 32 + w) * %d + g_split_i[w]++] = clock64();
+}
+""" % SPLIT_SLOTS
+_SPLIT_SET = """
+extern "C" int pv2c_split_set(long long* clk) {
+  return static_cast<int>(cudaMemcpyToSymbol(g_split_clk, &clk, sizeof(clk)));
+}
+"""
 RF81_BATCH, RF81_CLIP, RF81_RF, RF81_STEPS, RF81_REQUESTS = 64, 81, 81, 2, 2
 #: fault F6 on the card: PoseFormer training steps with dropout under
 #: "auto", and shapes a stage's kernel refuses (name, model arguments, the
@@ -351,7 +409,7 @@ LAYER_BAR = 1e-4
 #: tensor-core) peak of the SXM part, FLOP/s
 HBM_RATE = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
 FP32_PEAK = 67e12
-#: the rate the temporal block's backward products run at: 3xTF32 in the
+#: the rate the transformer kernels' dense products run at: 3xTF32 in the
 #: tensor cores (495 TFLOP/s dense TF32, NVIDIA's data sheet; three TF32
 #: products for each fp32 one)
 TF32X3_PEAK = 495e12 / 3
@@ -399,7 +457,8 @@ def phase_build():
 
     t0 = time.perf_counter()
     sources = (FP._SOURCE, FP._TRAIN_SOURCE, FS._SOURCE, FT._SOURCE,
-               FG._SOURCE, FG._DENSE_SOURCE)
+               FG._SOURCE, FG._DENSE_SOURCE,
+               spatial_split_source(FS._SOURCE)[0])  # row 4's phase split
 
     def build(source):
         t = time.perf_counter()
@@ -572,11 +631,19 @@ def phase_kernel_train(camera):
             *args, states, g_proj, g_abs, camera)
         refs = torch.autograd.grad((ref_proj, ref_abs), inputs,
                                    (g_proj, g_abs))
+        # and its plain version: the kernel's algorithm (per-frame tree
+        # terms, then the carry) on the same states
+        algo = FP.fused_projection_train_bwd_reference(
+            *args, states, g_proj, g_abs, camera)
         torch.cuda.synchronize()
         bwd = {}
         for name, g, r in zip(("pose_changes", "rel_loc", "rel_rot"),
                               grads, refs):
             bwd[name] = scaled_err(g, r) + (float((g - r).abs().max()),)
+        for name, g, r in zip(("pose_changes", "rel_loc", "rel_rot"),
+                              grads, algo):
+            bwd[name + "_vs_algorithm"] = scaled_err(g, r) + (
+                float((g - r).abs().max()),)
         same_bits = all(torch.equal(a, b) for a, b in zip(grads, again))
         finite = all(bool(torch.isfinite(t).all())
                      for t in (proj, abs_loc, states, *grads))
@@ -1020,11 +1087,11 @@ def phase_timing_train(dm, card, hbm_rate):
                     "plain_ms": times["plain_bwd_ms"], **bounds["bwd"]}}
 
 
-def random_block_weights(rng, dim, lead=()):
+def random_block_weights(rng, dim, lead=(), hidden=None):
     """One transformer block's weights in nn.Linear layout (each with the
-    leading ``lead`` axes), LayerNorm scales and biases away from ones and
-    zeros, on the card."""
-    hidden = 2 * dim
+    leading ``lead`` axes; hidden 2 dim unless given), LayerNorm scales and
+    biases away from ones and zeros, on the card."""
+    hidden = 2 * dim if hidden is None else hidden
 
     def w(*shape, scale, shift=0.0):
         return torch.from_numpy((shift + scale * rng.standard_normal(
@@ -1037,10 +1104,11 @@ def random_block_weights(rng, dim, lead=()):
             w(dim, hidden, scale=hidden ** -0.5), w(dim, scale=0.1)]
 
 
-def random_spatial_weights(rng, emb=PF_EMB):
-    """The spatial stack's 14 weights (depth PF_DEPTH, hidden 2 emb),
-    LayerNorms away from ones and zeros, on the card."""
-    return random_block_weights(rng, emb, lead=(PF_DEPTH,)) + [
+def random_spatial_weights(rng, emb=PF_EMB, hidden=None):
+    """The spatial stack's 14 weights (depth PF_DEPTH, hidden 2 emb unless
+    given), LayerNorms away from ones and zeros, on the card."""
+    return random_block_weights(rng, emb, lead=(PF_DEPTH,),
+                                hidden=hidden) + [
         torch.from_numpy((1 + 0.2 * rng.standard_normal(emb)).astype(
             np.float32)).cuda(),
         torch.from_numpy((0.2 * rng.standard_normal(emb)).astype(
@@ -1061,21 +1129,21 @@ def check_spatial_layouts():
         fused_spatial_transformer as FS
 
     lib, tiles = FS._library(), {}
-    for emb, heads in ((PF_EMB, PF_HEADS),) + SPATIAL_WIDE:
-        hid = 2 * emb
-        fwd, rows, frames = FS.kernel_tiles(PF_JOINTS, emb, heads, hid)
-        pairs = ((lib.pv2c_spatial_stack_smem_bytes(PF_JOINTS, emb, heads,
-                                                    hid, fwd),
-                  FS.forward_smem_bytes(PF_JOINTS, emb, hid, fwd)),
+    for J, emb, heads, hid in [(PF_JOINTS, e, h, 2 * e) for e, h in (
+            (PF_EMB, PF_HEADS),) + SPATIAL_WIDE] + list(SPATIAL_EDGE):
+        fwd, rows, frames = FS.kernel_tiles(J, emb, heads, hid)
+        pairs = ((lib.pv2c_spatial_stack_smem_bytes(J, emb, heads, hid, fwd),
+                  FS.forward_smem_bytes(J, emb, hid, fwd)),
                  (lib.pv2c_spatial_mlp_bwd_smem_bytes(emb, hid, rows),
                   FS.mlp_bwd_smem_bytes(emb, hid, rows)),
-                 (lib.pv2c_spatial_attn_bwd_smem_bytes(PF_JOINTS, emb, heads,
+                 (lib.pv2c_spatial_attn_bwd_smem_bytes(J, emb, heads,
                                                        frames),
-                  FS.attn_bwd_smem_bytes(PF_JOINTS, emb, heads, frames)))
+                  FS.attn_bwd_smem_bytes(J, emb, heads, frames)))
         if any(a != b for a, b in pairs):
-            raise AssertionError(f"E={emb}, {heads} heads: shared memory "
-                                 f"library vs wrapper {pairs}")
-        tiles[f"E{emb}_H{heads}"] = {
+            raise AssertionError(f"J={J}, E={emb}, {heads} heads, hidden "
+                                 f"{hid}: shared memory library vs wrapper "
+                                 f"{pairs}")
+        tiles[f"J{J}_E{emb}_H{heads}_hidden{hid}"] = {
             "forward_frames": fwd, "mlp_bwd_rows": rows,
             "attn_bwd_frames": frames, "smem_bytes": [a for a, _ in pairs]}
     return tiles
@@ -1114,6 +1182,25 @@ def phase_kernel_spatial():
                                  f"{scaled} of max |plain|")
         if emb == PF_EMB and heads == PF_HEADS:
             worst = max(worst, err)
+    # the edge shapes, serving and the training forward (the same output)
+    for J, emb, heads, hid in SPATIAL_EDGE:
+        ws = random_spatial_weights(rng, emb, hid)
+        x = torch.from_numpy(rng.standard_normal(
+            (SPATIAL_EDGE_N, J, emb)).astype(np.float32)).cuda()
+        out = FS.fused_spatial_stack_cuda(x, ws, heads)
+        kept, _ = FS.fused_spatial_stack_cuda(x, ws, heads, keep=True)
+        ref = FS.spatial_stack_reference(x, ws, heads)
+        torch.cuda.synchronize()
+        err, scaled = bar_err(out, ref)
+        finite, same = bool(torch.isfinite(out).all()), torch.equal(out, kept)
+        emit({"phase": "kernel_spatial", "N": SPATIAL_EDGE_N, "J": J,
+              "E": emb, "heads": heads, "hidden": hid, "max_abs_err": err,
+              "max_abs_err_over_max_abs_plain": scaled, "finite": finite,
+              "keep_same_output": same})
+        if not (scaled <= KERNEL_BAR and finite and same):
+            raise AssertionError(f"spatial kernel at J={J}, E={emb}, hidden "
+                                 f"{hid}: {scaled} of max |plain|, finite "
+                                 f"{finite}, keep's output the same {same}")
     return worst
 
 
@@ -1591,30 +1678,47 @@ def phase_timing_poseformer(flow, params, batches, card, hbm_rate):
             flush=flush_l2)
         split8 = launch_split(
             lambda: FT.fused_temporal_block_cuda(xt, wt, PF_HEADS), ROW8_STEPS)
-        del cases, spatial_lib, temporal_lib
+        # row 4's phases: the stamps of its instrumented copy, which
+        # computes the same bits
+        split4, stamped = spatial_phase_split(
+            *spatial_split_source(FS._SOURCE), xs, ws, PF_HEADS,
+            FS.kernel_tiles(PF_JOINTS, PF_EMB, PF_HEADS, 2 * PF_EMB)[0],
+            False, times["spatial"]["ms_cold_l2"])
+        if not torch.equal(stamped, s):
+            raise AssertionError("row 4's instrumented copy computes other "
+                                 "bits than the kernel")
+        del cases, spatial_lib, temporal_lib, stamped
+    emit({"phase": "spatial_phase_split", "card": card, "N": xs.shape[0],
+          **split4, "method": "clock64() of lane 0 of each warp at the "
+          "kernel's start, after each barrier and at its end, in an "
+          "instrumented copy of the source (instrument_spatial_forward), "
+          "summed over the warps of live frames; each phase's share of the "
+          "sum times the kernel's cold-L2 time"})
 
     # bounds: each input read once and each output written once, against
-    # the matmul FLOPs (ops/flops.py, attention included) at the peak of the
-    # units the products run on: the fp32 CUDA cores (spatial), 3xTF32 in
-    # the tensor cores (temporal; its fp32-peak bound beside)
+    # the matmul FLOPs (ops/flops.py, attention included) at the card's
+    # rate for fp32-accurate products, 3xTF32 on the tensor cores; beside
+    # it, each kernel's bound with all of it at the fp32 peak, and row 4's
+    # with its attention at the fp32 peak (the CUDA cores it runs on)
     n_weights_s = sum(w.numel() for w in ws)
     n_weights_t = sum(w.numel() for w in wt)
-    work = {"spatial": (4 * (2 * xs.numel() + n_weights_s),
-                        PF_DEPTH * F.transformer_block_matmul_flops(
-                            xs.shape[0] * PF_JOINTS, PF_EMB, 2.0, PF_JOINTS)),
+    dense_s, attn_s = spatial_flops(xs.shape[0], F)
+    work = {"spatial": (4 * (2 * xs.numel() + n_weights_s), dense_s + attn_s),
             "temporal": (4 * (2 * xt.numel() + n_weights_t),
                          F.transformer_block_matmul_flops(
                              xt.shape[0] * PF_RF, PF_DIM, 2.0, PF_RF))}
-    peaks = {"spatial": FP32_PEAK, "temporal": TF32X3_PEAK}
     for name, (nbytes, nflop) in work.items():
-        t_bytes, t_flop = nbytes / hbm_rate, nflop / peaks[name]
+        t_bytes, t_flop = nbytes / hbm_rate, nflop / TF32X3_PEAK
         times[name].update(
-            bytes=nbytes, flop=nflop, peak_flop_per_s=peaks[name],
+            bytes=nbytes, flop=nflop,
             bound_ms=max(t_bytes, t_flop) * 1e3,
-            bound_by="bytes" if t_bytes >= t_flop else "operations")
-    nbytes, nflop = work["temporal"]
-    times["temporal"]["bound_ms_fp32_peak"] = max(
-        nbytes / hbm_rate, nflop / FP32_PEAK) * 1e3
+            bound_by="bytes" if t_bytes >= t_flop else "operations",
+            bound_ms_fp32_peak=max(t_bytes, nflop / FP32_PEAK) * 1e3)
+    times["spatial"].update(
+        dense_flop=dense_s, attention_flop=attn_s,
+        bound_ms_by_unit=max(work["spatial"][0] / hbm_rate,
+                             dense_s / TF32X3_PEAK
+                             + attn_s / FP32_PEAK) * 1e3)
     times["temporal"]["paired_with_library"] = pairs
     times["temporal"]["launch_split"] = split8
 
@@ -1661,8 +1765,128 @@ def phase_timing_poseformer(flow, params, batches, card, hbm_rate):
                    "bound_by": t["bound_by"],
                    **{k: v for k, v in t.items()
                       if k in ("keep_ms", "bound_ms_fp32_peak",
-                               "paired_with_library")}}
+                               "bound_ms_by_unit", "paired_with_library")}}
             for name, t in times.items()}
+
+
+def spatial_flops(frames, F):
+    """The spatial stack's forward FLOPs at ``frames`` frames: its dense
+    products and its attention products (ops/flops.py)."""
+    tokens = frames * PF_JOINTS
+    dense = PF_DEPTH * F.transformer_block_matmul_flops(tokens, PF_EMB, 2.0)
+    total = PF_DEPTH * F.transformer_block_matmul_flops(tokens, PF_EMB, 2.0,
+                                                        PF_JOINTS)
+    return dense, total - dense
+
+
+def instrument_spatial_forward(text):
+    """A row 4 source (this one or an earlier design's) with the phase
+    stamps (SPLIT_PHASES); returns it and the forward's design."""
+    for anchor in _SPLIT_SECTION + ("namespace {\n",):
+        if text.count(anchor) != 1:
+            raise ValueError(f"{anchor!r} is not one place of the source")
+    head, rest = text.split(_SPLIT_SECTION[0])
+    fwd, tail = rest.split(_SPLIT_SECTION[1])
+    if fwd.count(_SPLIT_TOP) != 1:
+        raise ValueError("the forward kernel's start is not one place")
+    design = "warp" if "__syncwarp();" in fwd else "block"
+    for barrier in ("__syncthreads();", "__syncwarp();"):
+        fwd = fwd.replace(barrier, barrier + " split_stamp();")
+    fwd = fwd.replace(_SPLIT_TOP, _SPLIT_TOP + (
+        "  if ((threadIdx.x & 31) == 0) g_split_i[threadIdx.x >> 5] = 0;\n"
+        "  split_stamp();\n"))
+    end = fwd.rindex("\n}")
+    fwd = fwd[:end] + "\n  split_stamp();" + fwd[end:]
+    head = head.replace("namespace {\n", "namespace {\n" + _SPLIT_HELPERS)
+    return (head + _SPLIT_SECTION[0] + fwd + _SPLIT_SECTION[1] + tail
+            + _SPLIT_SET, design)
+
+
+def spatial_split_source(source):
+    """The instrumented copy of row 4's ``source`` (with the headers it
+    includes) under build/spatial_split/; returns its path and the
+    forward's design."""
+    from pedestrians_video_2_carla_torch.ops import cuda_build
+
+    text, design = instrument_spatial_forward(source.read_text())
+    d = cuda_build.BUILD_DIR.parent / "spatial_split"
+    d.mkdir(parents=True, exist_ok=True)
+    copy = d / source.name
+    copy.write_text(text)
+    for header in cuda_build._local_headers(source):
+        shutil.copy(header, d / header.name)
+    return copy, design
+
+
+def spatial_library(source):
+    """ctypes handle of the library built from a row 4 source (this one,
+    an earlier design's or an instrumented copy; their C entry is the
+    same)."""
+    from pedestrians_video_2_carla_torch.ops import cuda_build
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_spatial_transformer as FS
+
+    lib = ctypes.CDLL(str(cuda_build.build_library(source)))
+    lib.pv2c_fused_spatial_stack.argtypes = FS._SIGNATURES[
+        "pv2c_fused_spatial_stack"]
+    return lib
+
+
+def spatial_launch(lib, x, ws, heads, frames, keep):
+    """One launch of a row 4 library's C entry at ``frames`` frames a
+    thread block (with ``keep``, into fresh residuals); returns the
+    output."""
+    from pedestrians_video_2_carla_torch.ops import cuda_build
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_spatial_transformer as FS
+
+    N, J, E = x.shape
+    depth, hidden = ws[0].shape[0], ws[8].shape[1]
+    out = torch.empty_like(x)
+    saved = [torch.empty(s, dtype=torch.float32, device="cuda")
+             for s in FS.saved_shapes(depth, N * J, E, hidden)] if keep \
+        else [None] * 6
+    cuda_build.check_launch(lib.pv2c_fused_spatial_stack(
+        x.data_ptr(), out.data_ptr(), *(w.data_ptr() for w in ws),
+        *(t if t is None else t.data_ptr() for t in saved), N, J, E, heads,
+        hidden, depth, frames, float(E // heads) ** -0.5,
+        torch.cuda.current_stream().cuda_stream), "pv2c_fused_spatial_stack")
+    return out
+
+
+def spatial_phase_split(copy, design, x, ws, heads, frames, keep, ms):
+    """Row 4's phases: one launch of the library of the instrumented
+    ``copy`` (spatial_split_source) with the stamps on; each phase's cycles
+    summed over the warps of live frames and over depth blocks, its share
+    of all, and that share of ``ms``. Returns that and the launch's
+    output."""
+    from pedestrians_video_2_carla_torch.ops import cuda_build
+
+    lib = spatial_library(copy)
+    lib.pv2c_split_set.argtypes = [cuda_build.PTR]
+    grid = (x.shape[0] + frames - 1) // frames
+    clk = torch.zeros((grid * 32, SPLIT_SLOTS), dtype=torch.int64,
+                      device="cuda")
+    cuda_build.check_launch(lib.pv2c_split_set(clk.data_ptr()),
+                            "pv2c_split_set")
+    out = spatial_launch(lib, x, ws, heads, frames, keep)
+    torch.cuda.synchronize()
+    cuda_build.check_launch(lib.pv2c_split_set(None), "pv2c_split_set")
+    names = (["load"] + list(SPLIT_PHASES[design][keep]) * ws[0].shape[0]
+             + ["final_ln", "store"])
+    stamps = len(names) + 1
+    if bool((clk[:, stamps:] != 0).any()):
+        raise AssertionError(f"more than {stamps} stamps a warp: "
+                             f"SPLIT_PHASES does not match {copy}")
+    full = clk[(clk[:, :stamps] != 0).all(1), :stamps]
+    cycles = {}
+    for name, c in zip(names, torch.diff(full, dim=1).sum(0).tolist()):
+        cycles[name] = cycles.get(name, 0) + c
+    total = sum(cycles.values())
+    return {"design": design, "keep": keep, "warps": full.shape[0],
+            "cycles": cycles,
+            "share": {k: c / total for k, c in cycles.items()},
+            "ms": {k: ms * c / total for k, c in cycles.items()}}, out
 
 
 def check_grads(phase, what, n, names, got, again, ref, **extra):
@@ -1907,16 +2131,34 @@ def phase_timing_poseformer_train(dm, card, hbm_rate):
     def randn(shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).cuda()
+
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+
+    def flush_l2():  # 256 MB write: far more than the 50 MB L2
+        scratch.zero_()
+
     with torch.no_grad():
         xs = (model.Spatial_patch_to_embedding(inputs[..., :2])
               + model.Spatial_pos_embed).reshape(B * L, PF_JOINTS, PF_EMB)
         ws = [w.detach().contiguous() for w in model.spatial_weights()]
+        # row 4's training forward, which writes the backward's residuals
+        keep_ms = cuda_median_ms(lambda: FS.fused_spatial_stack_cuda(
+            xs, ws, PF_HEADS, keep=True), flush=flush_l2)
         s, saved_s = FS.fused_spatial_stack_cuda(xs, ws, PF_HEADS, keep=True)
         xt = (s.reshape(B, L, PF_DIM).unfold(1, PF_RF, 1).transpose(2, 3)
               + model.Temporal_pos_embed).reshape(B * W, PF_RF, PF_DIM)
         xt = xt.contiguous()
         wt = [w.detach() for w in model.temporal_weights()[0]]
         _, saved = FT.fused_temporal_block_cuda(xt, wt, PF_HEADS, keep=True)
+    # its bound: the residuals it writes, against its FLOPs at the 3xTF32
+    # rate
+    dense_s, attn_s = spatial_flops(xs.shape[0], F)
+    keep_bytes = 4 * (2 * xs.numel() + sum(w.numel() for w in ws)
+                      + sum(t.numel() for t in saved_s))
+    keep_t = (keep_bytes / hbm_rate, (dense_s + attn_s) / TF32X3_PEAK)
+    keep = {"ms": keep_ms, "bytes": keep_bytes, "flop": dense_s + attn_s,
+            "bound_ms": max(keep_t) * 1e3,
+            "bound_by": "bytes" if keep_t[0] >= keep_t[1] else "operations"}
     gs, gt = randn(tuple(xs.shape)), randn(tuple(xt.shape))
 
     def graph(fn, inputs):
@@ -1932,11 +2174,6 @@ def phase_timing_poseformer_train(dm, card, hbm_rate):
     lib_t = graph(lambda t: temporal_lib(t[0]), [xt])
     lib_s = (lib_s[0], lib_s[1] + list(spatial_lib.parameters()))
     lib_t = (lib_t[0], lib_t[1] + list(temporal_lib.parameters()))
-
-    scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-
-    def flush_l2():  # 256 MB write: far more than the 50 MB L2
-        scratch.zero_()
 
     def backward_of(out_leaves, g):
         out, leaves = out_leaves
@@ -2040,6 +2277,7 @@ def phase_timing_poseformer_train(dm, card, hbm_rate):
                      (statistics.median(c) for c in zip(*splits))))
     emit({"phase": "timing_poseformer_train", "card": card, "B": B, "L": L,
           "backward_kernels": times, "kernel_vs_library_pairs": pairs,
+          "spatial_forward_keep": keep,
           "train_step_ms_host": step_ms,
           "train_step_split_cuda_events": split,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -2055,9 +2293,11 @@ def phase_timing_poseformer_train(dm, card, hbm_rate):
                     "cold, medians of %d each and of their ratio"
                     % (TIMING_RUNS, PF_TIMING_RUNS, PF_TIMING_RUNS,
                        TIMING_PAIRS)})
-    return {name: {"ms": t["ms_cold_l2"], "plain_ms": t["plain_ms"],
-                   "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
-                   "bound_by": t["bound_by"]} for name, t in times.items()}
+    out = {name: {"ms": t["ms_cold_l2"], "plain_ms": t["plain_ms"],
+                  "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+                  "bound_by": t["bound_by"]} for name, t in times.items()}
+    out["spatial_keep"] = keep
+    return out
 
 
 def phase_poseformer_rf81():
@@ -3226,6 +3466,10 @@ def group_poseformer(card, hbm_rate):
                              val_set_size=VAL_BATCHES * BATCH, seed=SEED)
     pf_train_counts = phase_train_poseformer(dm)
     pf_train_times = phase_timing_poseformer_train(dm, card, hbm_rate)
+    keep = pf_train_times.pop("spatial_keep")
+    pf_times["spatial"].update(keep_ms_b1024=keep["ms"],
+                               keep_bound_ms_b1024=keep["bound_ms"],
+                               keep_bound_by_b1024=keep["bound_by"])
     phase_profile_poseformer_train(dm, card)
     del dm
     torch.cuda.empty_cache()

@@ -1,40 +1,47 @@
 // PoseFormer's spatial transformer stack: depth x pre-norm block (LayerNorm
 // -> packed-qkv multi-head attention -> proj -> residual -> LayerNorm -> fc1
-// -> exact GELU -> fc2 -> residual) and the final LayerNorm, forward in one
-// launch and backward in 2 x depth + 2 launches, fp32 on the CUDA cores.
+// -> exact GELU -> fc2 -> residual) and the final LayerNorm. Forward in one
+// launch, its dense products in 3xTF32 on the tensor cores; backward in
+// 2 x depth + 2 launches, fp32 on the CUDA cores.
 //
 // Forward: replaces the TPU kernel `_fwd_kernel` of the JAX package's
 // ops/pallas/fused_spatial_transformer.py (`_fused_fwd_impl`, entry
 // `fused_spatial_stack`).
 //
 // Bound on an H100 SXM: operations. At B=256, L=16 the stack sees N = 4096
-// frames of J=26 tokens x E=32: 4 blocks of 19,712 FLOP per token are
-// 8.40 GFLOP, 125 us at the 67 TFLOP/s fp32 peak, against about 27 MB of
-// activations and weights in and out (8 us at 3.35 TB/s).
+// frames of J=26 tokens x E=32, 8.40 GFLOP in 4 blocks (6.98 of it the
+// dense products, 1.42 attention): 51 us at 165 TFLOP/s, 3xTF32's rate on
+// the tensor cores, the card's rate for fp32-accurate products (attention
+// runs on the CUDA cores here, 21 us at their 67 TFLOP/s fp32 peak),
+// against about 27 MB of activations and weights in and out (8 us at 3.35
+// TB/s). Training also writes the backward's residuals, 260 floats a row
+// and depth block (1.8 GB at B=1024: 0.53 ms).
 //
-// Design. A thread block owns `frames` frames (4 at E=32: 104 token rows;
-// the wrapper picks 4 down to 1 so that the layout fits 227 KB). Their
-// residual stream, the LayerNorm output and the qkv / MLP-hidden scratch
-// stay in shared memory through all depth blocks and the final LayerNorm,
-// so the activations are read once and written once (the TPU kernel's
-// design, without its transposed (E, J, N) slab and 128-lane blocks, which
-// exist for the TPU's (8, 128) tiling). Each depth block's weights are
-// staged into shared memory transposed, [in][out + 8]: the padding puts the
-// staging stores of a warp (8 outputs x 4 inputs) on 32 distinct banks. The
-// dense layers are register-tiled, 4 rows x 4 outputs per thread, with
-// float4 shared loads (64 FMAs per 8 loads). Attention runs one thread per
-// (frame, head, query) with the <= 32 scores in registers and a
-// max-subtracted softmax; neighbouring threads take neighbouring heads, so
-// that a warp's reads of a token row spread over the banks. The kernel is
-// compiled twice: for head widths up to 4 with a head's columns in
-// registers (PoseFormer's E=32 with 8 heads), and for any head width up to
-// 32 with a loop over them.
-// LayerNorm uses flax's statistics, var = max(mean(x^2) - mean(x)^2, 0), eps 1e-5; GELU is
-// exact (erff). The ragged edge (N not a multiple of frames) is zero-filled
-// on load and not stored. For training the forward also writes, per depth
-// block, what the backward needs (see below).
+// Design. A warp owns a frame: its J rows of the residual stream X, of Y
+// (LayerNorm output, then attention output) and of Z (qkv, then the MLP
+// hidden) stay in shared memory through all depth blocks and the final
+// LayerNorm, so the activations are read once and written once, and the
+// steps of a block need only __syncwarp(). LayerNorm runs a lane a row; the
+// four products as m16n8k8 3xTF32 mma.sync tiles, the frame's rows as two
+// m-tiles, A from the resident activations, B from the weights as
+// nn.Linear stores them, bias, GELU and the residual add in the epilogue;
+// attention a lane a (head, 2 queries) at head width 4, keys and values read
+// as float4, scores in registers. A thread block of 4 frames (fewer where
+// shared memory is short) stages each depth block's weights once for its
+// warps with cp.async, two barriers a depth block, two thread blocks an SM.
+// The kernel is compiled twice: head width 4, and any head width up to 32.
+// The design before (a thread block of 4 frames, every product a CUDA-core
+// 4 x 4 register tile between thread-block barriers, attention a thread a
+// (head, query)) spent 45 % of its 0.99 ms in attention, 20 % in
+// LayerNorms, 23 % in the products and 10 % staging weights
+// (tools/spatial_fwd_split.py).
+// LayerNorm uses flax's statistics, var = max(mean(x^2) - mean(x)^2, 0),
+// eps 1e-5; GELU is exact (erff). For training the forward also writes,
+// per depth block, what the backward needs (see below).
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -77,27 +84,6 @@ __host__ __device__ inline int pad4(int v) { return (v + 3) & ~3; }
 // head's columns in registers, or 0, any width up to 32 in a loop.
 __host__ __device__ inline int hd_class(int hd) { return hd <= 4 ? 4 : 0; }
 
-// Offsets into dynamic shared memory, in floats; each a multiple of 4.
-struct Layout {
-  int x, y, z, wqkv, wproj, wfc1, wfc2, vec, st, total;
-};
-
-__host__ __device__ inline Layout layout_of(int rows, int E, int hidden) {
-  Layout l;
-  const int zw = 3 * E > hidden ? 3 * E : hidden;
-  l.x = 0;                                        // residual stream
-  l.y = l.x + rows * E;                           // LayerNorm / attention out
-  l.z = l.y + rows * E;                           // qkv, then MLP hidden
-  l.wqkv = l.z + rows * zw;
-  l.wproj = l.wqkv + E * (3 * E + kWPad);
-  l.wfc1 = l.wproj + E * (E + kWPad);
-  l.wfc2 = l.wfc1 + E * (hidden + kWPad);
-  l.vec = l.wfc2 + hidden * (E + kWPad);          // biases and LN vectors
-  l.st = l.vec + pad4(9 * E + hidden);            // LayerNorm mean, inv
-  l.total = l.st + 2 * rows;
-  return l;
-}
-
 __device__ __forceinline__ float gelu(float v) {
   return 0.5f * v * (1.0f + erff(v * kSqrtHalf));
 }
@@ -105,22 +91,6 @@ __device__ __forceinline__ float gelu(float v) {
 __device__ __forceinline__ float dgelu(float v) {
   return 0.5f * (1.0f + erff(v * kSqrtHalf)) + v * expf(-0.5f * v * v) *
                                                    kInvSqrt2Pi;
-}
-
-// w: [nout][k] (nn.Linear layout, global) -> wt: [k][nout + kWPad] (shared).
-// A warp stores an 8 (out) x 4 (in) tile: with nout a multiple of 32 the
-// row stride is 8 banks apart, so the 32 stores hit 32 banks.
-__device__ void stage_transposed(const float* __restrict__ w, float* wt,
-                                 int nout, int k) {
-  const int ld = nout + kWPad;
-  const int lane = threadIdx.x & 31;
-  const int tiles_k = (k + 3) / 4;
-  const int tiles = ((nout + 7) / 8) * tiles_k;
-  for (int t = threadIdx.x >> 5; t < tiles; t += kWarps) {
-    const int o = (t / tiles_k) * 8 + (lane >> 2);
-    const int i = (t % tiles_k) * 4 + (lane & 3);
-    if (o < nout && i < k) wt[i * ld + o] = __ldg(w + o * k + i);
-  }
 }
 
 __device__ void stage(const float* __restrict__ src, float* dst, int count) {
@@ -134,57 +104,21 @@ __device__ void stage_rows(const float* __restrict__ w, float* dst, int rows,
     dst[(i / cols) * (cols + kWPad) + i % cols] = __ldg(w + i);
 }
 
-// dst[0, count) = src[0, count) with float4 copies (count a multiple of 4).
-__device__ void copy4(const float* src, float* dst, int count) {
-  for (int i = threadIdx.x; i < count / 4; i += kThreads)
-    reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(src)[i];
-}
-
 __device__ void copy1(const float* src, float* dst, int count) {
   for (int i = threadIdx.x; i < count; i += kThreads) dst[i] = src[i];
 }
 
-// One warp per row: out = (x - mean) * rsqrt(var + eps) * s + b; with mu
-// and inv given, each row's mean and rsqrt(var + eps) as well.
-__device__ void layer_norm_rows(const float* in, float* out, int rows, int E,
-                                const float* s, const float* b,
-                                float* mu = nullptr, float* inv = nullptr) {
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < rows; r += kWarps) {
-    const float* xr = in + r * E;
-    float sum = 0.f, sq = 0.f;
-    for (int k = lane; k < E; k += 32) {
-      const float v = xr[k];
-      sum += v;
-      sq = fmaf(v, v, sq);
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      sq += __shfl_xor_sync(0xffffffffu, sq, o);
-    }
-    const float m = sum / E;
-    const float iv = rsqrtf(fmaxf(sq / E - m * m, 0.f) + kEps);
-    if (mu != nullptr && lane == 0) {
-      mu[r] = m;
-      inv[r] = iv;
-    }
-    float* yr = out + r * E;
-    for (int k = lane; k < E; k += 32) yr[k] = (xr[k] - m) * iv * s[k] + b[k];
-  }
-}
+enum Epilogue { kStore, kDGelu };
 
-enum Epilogue { kStore, kGelu, kAdd, kDGelu };
-
-// out[r][o] (row stride nout) = epi(sum_i in[r][i] wt[i][o] + bias[o]) for
-// r < rows (a multiple of 4), bias nullptr for none; kAdd adds it to out
-// (the residual), kDGelu multiplies it by GELU'(out) (out holds the
-// pre-activation). With wt a weight w[out][in] staged as is, the product is
-// the backward's dX = dY w. Thread `first` takes the first 4 x 4 task, so
-// that a product can share a phase with work on the threads before it.
+// The backward's dX products: out[r][o] (row stride nout) = epi(sum_i
+// in[r][i] wt[i][o]) for r < rows (a multiple of 4), wt a weight w[out][in]
+// staged as is ([out][in + kWPad]), so that the product is dX = dY w;
+// kDGelu multiplies it by GELU'(out) (out holds the pre-activation).
+// Thread `first` takes the first 4 x 4 task, so that a product can share a
+// phase with work on the threads before it.
 template <int EPI>
 __device__ void dense(const float* in, int k, const float* wt, int nout,
-                      const float* bias, float* out, int rows,
-                      int first = 0) {
+                      float* out, int rows, int first = 0) {
   const int ld = nout + kWPad;
   const int col_groups = nout >> 2;
   const int tasks = (rows >> 2) * col_groups;
@@ -220,20 +154,11 @@ __device__ void dense(const float* in, int k, const float* wt, int nout,
         }
       }
     }
-    const float4 bv = bias != nullptr
-                          ? *reinterpret_cast<const float4*>(bias + c0)
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      float4 v = make_float4(acc[i][0] + bv.x, acc[i][1] + bv.y,
-                             acc[i][2] + bv.z, acc[i][3] + bv.w);
+      float4 v = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
       float4* dst = reinterpret_cast<float4*>(out + (r0 + i) * nout + c0);
-      if (EPI == kGelu) {
-        v = make_float4(gelu(v.x), gelu(v.y), gelu(v.z), gelu(v.w));
-      } else if (EPI == kAdd) {
-        const float4 r = *dst;
-        v = make_float4(r.x + v.x, r.y + v.y, r.z + v.z, r.w + v.w);
-      } else if (EPI == kDGelu) {
+      if (EPI == kDGelu) {
         const float4 h = *dst;
         v = make_float4(v.x * dgelu(h.x), v.y * dgelu(h.y), v.z * dgelu(h.z),
                         v.w * dgelu(h.w));
@@ -243,101 +168,423 @@ __device__ void dense(const float* in, int k, const float* wt, int nout,
   }
 }
 
-// z: qkv rows [q | k | v] (row stride 3E, heads in (head, dim) order) of the
-// block's d.frames frames -> o: attention output rows (row stride E). HD:
-// the head width held in registers (4, E / H at most), or 0: any head
-// width, the head's columns in a loop over shared memory.
-template <int HD>
-__device__ void attention(const float* z, float* o, const Dims& d) {
-  const int E = d.E, J = d.J, hd = E / d.H, ldz = 3 * E;
-  const int tasks = d.frames * d.H * J;
-  for (int task = threadIdx.x; task < tasks; task += kThreads) {
-    const int f = task / (d.H * J), rem = task % (d.H * J);
-    const int i = rem / d.H, h = rem % d.H;
-    const float* frame = z + f * J * ldz + h * hd;
-    const float* qi = frame + i * ldz;
-    float q[HD > 0 ? HD : 1];
-    if constexpr (HD > 0) {
-#pragma unroll
-      for (int c = 0; c < HD; ++c) q[c] = c < hd ? qi[c] * d.scale : 0.f;
+// ---------------------------------------------------------------------------
+// Forward: one warp a frame, the dense products on 3xTF32 tensor cores.
+
+constexpr int kFwdMaxWarps = 8;  // frames (warps) a thread block, at most
+constexpr int kNC = 4;           // n-tiles (of 8 columns) a warp sums at once
+constexpr int kQB = 2;           // queries a lane holds (head width 4)
+constexpr int kKG = 4;           // keys a group (of kMaxJ)
+constexpr float kLog2e = 1.44269504088896340736f;
+
+// The forward's widths: the products run on 8-deep k-steps and 8-wide
+// n-tiles, so E, 3E and hidden are rounded up to 8 (the weights staged with
+// zero rows and columns there, the activations with zero columns); every
+// row stride is 4 mod 8 floats, so that a warp's reads of an m16n8k8
+// fragment (8 rows x 4 columns) and a lane's float4 reads of its own row
+// (8 rows a quarter-warp) hit 32 distinct banks. A shape whose layout would
+// not fit in shared memory so (only at the edge of the shapes the kernel
+// takes, one frame a thread block) drops those 4 floats of each row, takes
+// the bank conflicts, and keeps X and Y at stride E: a product's k-columns
+// past E then read the next row's first columns (or, past Y's last row, Z's
+// first, zeroed at the start), finite values that meet the weights' zero
+// columns, and the residual stores stop at E.
+struct FwdDims {
+  int n, J, E, H, hidden, depth;
+  int frames;    // frames (warps) a thread block
+  int ke, kh;    // E and hidden rounded up to 8
+  int nq;        // 3E rounded up to 8
+  int ldx, ldz;  // row strides of X and Y (ke + 4, or E) and of Z
+  int ky;        // columns of X and Y written: ke (zeros past E), or E
+  int ldw;       // row stride of the staged qkv_w, proj_w, fc1_w (ke + 4)
+  int ldh;       // row stride of the staged fc2_w (kh + 4)
+  float qscale;  // hd^-0.5 log2(e): scores in the base-2 domain
+};
+
+__host__ __device__ inline int round8(int v) { return (v + 7) & ~7; }
+
+constexpr int kMaxSmem = 232448;  // bytes a thread block, on an H100
+
+__host__ __device__ inline int fwd_total(const FwdDims& d);
+
+FwdDims fwd_dims(int n, int J, int E, int H, int hidden, int depth,
+                 int frames, float scale) {
+  FwdDims d;
+  d.n = n;
+  d.J = J;
+  d.E = E;
+  d.H = H;
+  d.hidden = hidden;
+  d.depth = depth;
+  d.frames = frames;
+  d.ke = round8(E);
+  d.kh = round8(hidden);
+  d.nq = round8(3 * E);
+  d.qscale = scale * kLog2e;
+  for (int pad = 4; pad >= 0; pad -= 4) {
+    d.ldx = pad > 0 ? d.ke + pad : E;
+    d.ky = pad > 0 ? d.ke : E;
+    d.ldw = d.ke + pad;
+    d.ldz = (d.nq > d.kh ? d.nq : d.kh) + pad;
+    d.ldh = d.kh + pad;
+    if (4 * fwd_total(d) <= kMaxSmem) break;
+  }
+  return d;
+}
+
+// Offsets into dynamic shared memory, in floats; each a multiple of 4. Per
+// warp (frame) its J rows of X (the residual stream), Y (LayerNorm output,
+// then attention output) and Z (qkv, then the MLP hidden); then the depth
+// block's weights as nn.Linear stores them ([out][in], rows padded; of
+// fc2_w only its E rows, before fc1_w, so that fc2's product columns past E
+// read fc1_w's first rows and, like all residual columns past E, are not
+// stored), and its vectors. A product reads kMaxJ rows of its A operand
+// (two m-tiles),
+// and attention kMaxJ rows of keys and values, J of them real: the rows
+// past J read the buffer after them (past the last warp's Z, the weights),
+// and give rows of the product that are never stored, and keys that are
+// masked.
+struct FwdLayout {
+  int warp;                       // floats a warp
+  int wqkv, wproj, wfc1, wfc2;    // the weights
+  int vec;                        // ln1_s, ln1_b, qkv_b, proj_b, ln2_s,
+                                  // ln2_b, fc1_b, fc2_b (vec_at)
+  int total;
+};
+
+__host__ __device__ inline FwdLayout fwd_layout(const FwdDims& d) {
+  FwdLayout l;
+  l.warp = d.J * (2 * d.ldx + d.ldz);
+  l.wqkv = d.frames * l.warp;
+  l.wproj = l.wqkv + d.nq * d.ldw;
+  l.wfc2 = l.wproj + d.ke * d.ldw;
+  l.wfc1 = l.wfc2 + d.E * d.ldh;
+  l.vec = l.wfc1 + d.kh * d.ldw;
+  const int end = l.vec + 6 * d.ke + d.nq + d.kh;
+  const int reach = l.wqkv + (kMaxJ - d.J) * d.ldz;
+  l.total = end > reach ? end : reach;
+  return l;
+}
+
+__host__ __device__ inline int fwd_total(const FwdDims& d) {
+  return fwd_layout(d).total;
+}
+
+// Where each vector of a depth block starts at l.vec (k: 0 ln1_s, 1 ln1_b,
+// 2 qkv_b, 3 proj_b, 4 ln2_s, 5 ln2_b, 6 fc1_b, 7 fc2_b).
+__host__ __device__ inline int vec_at(const FwdDims& d, int k) {
+  const int at[8] = {0, d.ke, 2 * d.ke, 2 * d.ke + d.nq, 3 * d.ke + d.nq,
+                     4 * d.ke + d.nq, 5 * d.ke + d.nq,
+                     5 * d.ke + d.nq + d.kh};
+  return at[k];
+}
+
+// w: rows x cols (global, 16-byte aligned, cols a multiple of 4) -> dst
+// [rows][ld] (shared), 16 bytes a cp.async; the thread's (row, column)
+// stepped on without a division a copy.
+__device__ void stage_async(const float* __restrict__ w, float* dst, int rows,
+                            int cols, int ld) {
+  const int per = cols / 4, step_r = blockDim.x / per,
+            step_c = 4 * (blockDim.x % per);
+  int r = threadIdx.x / per, c = 4 * (threadIdx.x % per);
+  for (; r < rows; r += step_r, c += step_c) {
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+      if (r >= rows) break;
     }
-    float s[kMaxJ];
-    float m = -INFINITY;
+    cp_async16(dst + r * ld + c, w + r * cols + c, true);
+  }
+}
+
+// Stage depth block b's weights and vectors (the zero padding is set once,
+// before the first block).
+__device__ void stage_fwd(const Weights& w, int b, const FwdDims& d,
+                          const FwdLayout& l, float* smem) {
+  const int E = d.E, HID = d.hidden;
+  const size_t bE = static_cast<size_t>(b) * E;
+  stage_async(w.qkv_w + bE * 3 * E, smem + l.wqkv, 3 * E, E, d.ldw);
+  stage_async(w.proj_w + bE * E, smem + l.wproj, E, E, d.ldw);
+  stage_async(w.fc1_w + bE * HID, smem + l.wfc1, HID, E, d.ldw);
+  stage_async(w.fc2_w + bE * HID, smem + l.wfc2, E, HID, d.ldh);
+  float* v = smem + l.vec;
+  stage_async(w.ln1_s + bE, v + vec_at(d, 0), 1, E, 0);
+  stage_async(w.ln1_b + bE, v + vec_at(d, 1), 1, E, 0);
+  stage_async(w.qkv_b + 3 * bE, v + vec_at(d, 2), 1, 3 * E, 0);
+  stage_async(w.proj_b + bE, v + vec_at(d, 3), 1, E, 0);
+  stage_async(w.ln2_s + bE, v + vec_at(d, 4), 1, E, 0);
+  stage_async(w.ln2_b + bE, v + vec_at(d, 5), 1, E, 0);
+  stage_async(w.fc1_b + static_cast<size_t>(b) * HID, v + vec_at(d, 6), 1,
+              HID, 0);
+  stage_async(w.fc2_b + bE, v + vec_at(d, 7), 1, E, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+// A lane a row: Y[r][c] = LayerNorm(X[r])[c] s[c] + b[c] for the frame's J
+// rows and c < cols (ky in the blocks, where s and b are zero past E, so
+// Y's padding stays zero); with mu given, each row's mean and rsqrt(var +
+// eps) out as well.
+__device__ void ln_lane_rows(const float* X, float* Y, const float* s,
+                             const float* b, const FwdDims& d, int cols,
+                             float* mu = nullptr, float* inv = nullptr) {
+  const int r = threadIdx.x & 31;
+  if (r >= d.J) return;
+  const float* xr = X + r * d.ldx;
+  float sum = 0.f, sq = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < d.E; c += 4) {
+    const float4 v = ld4(xr + c);
+    sum += (v.x + v.y) + (v.z + v.w);
+    sq = fmaf(v.x, v.x, fmaf(v.y, v.y, fmaf(v.z, v.z, fmaf(v.w, v.w, sq))));
+  }
+  const float m = sum / d.E;
+  const float iv = rsqrtf(fmaxf(sq / d.E - m * m, 0.f) + kEps);
+  if (mu != nullptr) {
+    mu[r] = m;
+    inv[r] = iv;
+  }
+  float* yr = Y + r * d.ldx;
+#pragma unroll 4
+  for (int c = 0; c < cols; c += 4) {
+    const float4 v = ld4(xr + c), sc = ld4(s + c), bc = ld4(b + c);
+    st4(yr + c, make_float4((v.x - m) * iv * sc.x + bc.x,
+                            (v.y - m) * iv * sc.y + bc.y,
+                            (v.z - m) * iv * sc.z + bc.z,
+                            (v.w - m) * iv * sc.w + bc.w));
+  }
+}
+
+enum FwdEpilogue { kQkv, kResidual, kHidden };
+
+// The warp's product out[r][c] = epi(sum_k A[r][k] W[c][k] + bias[c]) over
+// the frame's rows r < J and the N columns (N and K multiples of 8; W
+// staged [N][ldw], A's rows of stride lda) in 3xTF32 on m16n8k8 tiles: the
+// frame's two m-tiles and NC n-tiles of 8 columns at a time, branch-free
+// inside the k-loop. kQkv stores, kHidden stores GELU of it, kResidual
+// adds it to out's columns c < cols. With keep given, the stored value
+// (kHidden: before GELU; kResidual: the sum) also goes to keep[r][c] (row
+// stride and columns `cols`, the unpadded width).
+template <int EPI, int NC>
+__device__ void product_cols(const float* A, int lda, int K, const float* W,
+                             int ldw, int n0, const float* bias, float* out,
+                             int ldo, const FwdDims& d, float* keep,
+                             int cols) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float acc[2][NC][4];
 #pragma unroll
-    for (int j = 0; j < kMaxJ; ++j) {
-      s[j] = 0.f;
-      if (j < J) {
-        const float* kr = frame + j * ldz + E;
-        float acc = 0.f;
-        if constexpr (HD > 0) {
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-          for (int c = 0; c < HD; ++c)
-            if (c < hd) acc = fmaf(q[c], kr[c], acc);
-        } else {
-          for (int c = 0; c < hd; ++c)
-            acc = fmaf(qi[c] * d.scale, kr[c], acc);
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[m][j][c] = 0.f;
+  const float* a = A + g * lda + t;
+  const float* w = W + (n0 + g) * ldw + t;
+#pragma unroll 4
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    unsigned ab[2][4], as[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const float* am = a + 16 * m * lda + k0;
+      split_tf32(am[0], ab[m][0], as[m][0]);
+      split_tf32(am[8 * lda], ab[m][1], as[m][1]);
+      split_tf32(am[4], ab[m][2], as[m][2]);
+      split_tf32(am[8 * lda + 4], ab[m][3], as[m][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const float* wj = w + 8 * j * ldw + k0;
+      unsigned bb[2], bs[2];
+      split_tf32(wj[0], bb[0], bs[0]);
+      split_tf32(wj[4], bb[1], bs[1]);
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+        mma_3xtf32(acc[m][j], ab[m], as[m], bb, bs);
+    }
+  }
+  // the epilogue's arithmetic on every row, its memory on rows < J (and
+  // the residual's on columns < cols)
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int c = n0 + 8 * j + 2 * t;
+    const float b0 = bias[c], b1 = bias[c + 1];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * m + g + 8 * h;
+        const bool real = r < d.J;
+        const bool put = real && (EPI != kResidual || c < cols);
+        float2 v = make_float2(acc[m][j][2 * h] + b0,
+                               acc[m][j][2 * h + 1] + b1);
+        float2* o = reinterpret_cast<float2*>(out + r * ldo + c);
+        if (EPI == kResidual) {
+          const float2 x = put ? *o : make_float2(0.f, 0.f);
+          v = make_float2(x.x + v.x, x.y + v.y);
         }
-        s[j] = acc;
-        m = fmaxf(m, acc);
+        if (keep != nullptr && c < cols && real)
+          *reinterpret_cast<float2*>(keep + r * cols + c) = v;
+        if (EPI == kHidden) v = make_float2(gelu(v.x), gelu(v.y));
+        if (put) *o = v;
       }
-    }
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxJ; ++j)
-      if (j < J) {
-        s[j] = expf(s[j] - m);
-        sum += s[j];
-      }
-#pragma unroll
-    for (int j = 0; j < kMaxJ; ++j)
-      if (j < J) s[j] = s[j] / sum;
-    float* dst = o + (f * J + i) * E + h * hd;
-    for (int c = 0; c < hd; ++c) {
-      float acc = 0.f;
-#pragma unroll
-      for (int j = 0; j < kMaxJ; ++j)
-        if (j < J) acc = fmaf(s[j], frame[j * ldz + 2 * E + c], acc);
-      dst[c] = acc;
     }
   }
 }
 
-// Stage depth block b's weights: the four dense kernels transposed, the
-// vectors at vec (ln1_s, ln1_b, qkv_b, proj_b, ln2_s, ln2_b, fc1_b, fc2_b at
-// 0, E, 2E, 5E, 6E, 7E, 8E, 8E + hidden).
-__device__ void stage_block(const Weights& w, int b, const Dims& d,
-                            float* wqkv, float* wproj, float* wfc1,
-                            float* wfc2, float* vec) {
-  const int E = d.E, HID = d.hidden;
-  stage_transposed(w.qkv_w + static_cast<size_t>(b) * 3 * E * E, wqkv, 3 * E,
-                   E);
-  stage_transposed(w.proj_w + static_cast<size_t>(b) * E * E, wproj, E, E);
-  stage_transposed(w.fc1_w + static_cast<size_t>(b) * HID * E, wfc1, HID, E);
-  stage_transposed(w.fc2_w + static_cast<size_t>(b) * E * HID, wfc2, E, HID);
-  stage(w.ln1_s + b * E, vec, E);
-  stage(w.ln1_b + b * E, vec + E, E);
-  stage(w.qkv_b + b * 3 * E, vec + 2 * E, 3 * E);
-  stage(w.proj_b + b * E, vec + 5 * E, E);
-  stage(w.ln2_s + b * E, vec + 6 * E, E);
-  stage(w.ln2_b + b * E, vec + 7 * E, E);
-  stage(w.fc1_b + b * HID, vec + 8 * E, HID);
-  stage(w.fc2_b + b * E, vec + 8 * E + HID, E);
+// product_cols over all N columns: kNC n-tiles at a time, then one.
+template <int EPI>
+__device__ void warp_product(const float* A, int lda, int K, const float* W,
+                             int ldw, int N, const float* bias, float* out,
+                             int ldo, const FwdDims& d, float* keep,
+                             int cols) {
+  int n0 = 0;
+  for (; n0 + 8 * kNC <= N; n0 += 8 * kNC)
+    product_cols<EPI, kNC>(A, lda, K, W, ldw, n0, bias, out, ldo, d, keep,
+                           cols);
+  for (; n0 < N; n0 += 8)
+    product_cols<EPI, 1>(A, lda, K, W, ldw, n0, bias, out, ldo, d, keep,
+                         cols);
 }
 
-// Where one tile's residuals of depth block b go (Saved, at row row0);
-// qkv == nullptr when serving.
-struct Keep {
+// Attention over one frame: Z holds its rows [q | k | v] (row stride ldz,
+// heads in (head, dim) order), the output goes to Y (row stride ldx) and,
+// with keep given, to keep (row stride E). HD = 4: a lane takes one head
+// and kQB queries, so that each key's and value's float4 serves kQB of
+// them, with their scores in registers; HD = 0: any head width, a lane per
+// (head, query) and the head's columns in a loop. Scores are taken in the
+// base-2 domain (q scaled by hd^-0.5 log2 e) and the softmax's sum divides
+// the output.
+template <int HD>
+__device__ void attention_warp(const float* Z, float* Y, const FwdDims& d,
+                               float* keep) {
+  const int lane = threadIdx.x & 31;
+  const int E = d.E, J = d.J, H = d.H, ldz = d.ldz;
+  if constexpr (HD == 4) {
+    const int groups = (J + kQB - 1) / kQB;
+    for (int task = lane; task < H * groups; task += 32) {
+      const int h = task % H, i0 = (task / H) * kQB;
+      float4 q[kQB];
+#pragma unroll
+      for (int u = 0; u < kQB; ++u) {
+        const float4 v = i0 + u < J ? ld4(Z + (i0 + u) * ldz + 4 * h)
+                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+        q[u] = make_float4(v.x * d.qscale, v.y * d.qscale, v.z * d.qscale,
+                           v.w * d.qscale);
+      }
+      // keys in groups of kKG, the groups past J skipped (a branch the
+      // whole warp takes), within a group branch-free: keys past J masked
+      // (score -inf, value 0), their rows read from the buffer after Z
+      float s[kQB][kMaxJ], m[kQB], sum[kQB];
+#pragma unroll
+      for (int u = 0; u < kQB; ++u) m[u] = -INFINITY;
+#pragma unroll
+      for (int j0 = 0; j0 < kMaxJ; j0 += kKG) {
+        if (j0 >= J) break;
+#pragma unroll
+        for (int j = j0; j < j0 + kKG; ++j) {
+          const float4 k = ld4(Z + j * ldz + E + 4 * h);
+#pragma unroll
+          for (int u = 0; u < kQB; ++u) {
+            const float sc = fmaf(q[u].x, k.x, fmaf(q[u].y, k.y,
+                                  fmaf(q[u].z, k.z, q[u].w * k.w)));
+            s[u][j] = j < J ? sc : -INFINITY;
+            m[u] = fmaxf(m[u], s[u][j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kQB; ++u) sum[u] = 0.f;
+      float4 o[kQB];
+#pragma unroll
+      for (int u = 0; u < kQB; ++u) o[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int j0 = 0; j0 < kMaxJ; j0 += kKG) {
+        if (j0 >= J) break;
+#pragma unroll
+        for (int j = j0; j < j0 + kKG; ++j) {
+          float4 v = ld4(Z + j * ldz + 2 * E + 4 * h);
+          if (j >= J) v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int u = 0; u < kQB; ++u) {
+            const float p = exp2f(s[u][j] - m[u]);
+            sum[u] += p;
+            o[u].x = fmaf(p, v.x, o[u].x);
+            o[u].y = fmaf(p, v.y, o[u].y);
+            o[u].z = fmaf(p, v.z, o[u].z);
+            o[u].w = fmaf(p, v.w, o[u].w);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kQB; ++u) {
+        const int i = i0 + u;
+        if (i >= J) continue;
+        const float r = 1.f / sum[u];
+        const float4 v = make_float4(o[u].x * r, o[u].y * r, o[u].z * r,
+                                     o[u].w * r);
+        st4(Y + i * d.ldx + 4 * h, v);
+        if (keep != nullptr) st4(keep + i * E + 4 * h, v);
+      }
+    }
+  } else {
+    const int hd = E / H;
+    for (int task = lane; task < H * J; task += 32) {
+      const int h = task % H, i = task / H;
+      const float* qi = Z + i * ldz + h * hd;
+      float s[kMaxJ];
+      float m = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kMaxJ; ++j) {
+        s[j] = 0.f;
+        if (j < J) {
+          const float* kr = Z + j * ldz + E + h * hd;
+          float acc = 0.f;
+          for (int c = 0; c < hd; ++c)
+            acc = fmaf(qi[c] * d.qscale, kr[c], acc);
+          s[j] = acc;
+          m = fmaxf(m, acc);
+        }
+      }
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kMaxJ; ++j)
+        if (j < J) {
+          s[j] = exp2f(s[j] - m);
+          sum += s[j];
+        }
+      const float r = 1.f / sum;
+      for (int c = 0; c < hd; ++c) {
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < kMaxJ; ++j)
+          if (j < J) acc = fmaf(s[j], Z[j * ldz + 2 * E + h * hd + c], acc);
+        Y[i * d.ldx + h * hd + c] = acc * r;
+        if (keep != nullptr) keep[i * E + h * hd + c] = acc * r;
+      }
+    }
+  }
+}
+
+// Where frame f's residuals of depth block b go (Saved, at row f J), or
+// all nullptr when serving.
+struct FwdKeep {
   float *mu1, *inv1, *qkv, *o, *x2, *mu2, *inv2, *h, *xs;
-  int real;  // the tile's real rows
 };
 
-__device__ Keep keep_of(const Saved& sv, int b, int row0, int real,
-                        const Dims& d) {
-  Keep k{};
+__device__ FwdKeep fwd_keep(const Saved& sv, int b, int f, const FwdDims& d) {
+  FwdKeep k{};
   if (sv.qkv == nullptr) return k;
   const size_t M = static_cast<size_t>(d.n) * d.J;
-  const size_t at = b * M + row0;
-  float* st = sv.stats + 4 * b * M + row0;
+  const size_t at = b * M + static_cast<size_t>(f) * d.J;
+  float* st = sv.stats + 4 * b * M + static_cast<size_t>(f) * d.J;
   k.mu1 = st;
   k.inv1 = st + M;
   k.mu2 = st + 2 * M;
@@ -347,96 +594,85 @@ __device__ Keep keep_of(const Saved& sv, int b, int row0, int real,
   k.x2 = sv.x2 + at * d.E;
   k.h = sv.h + at * d.hidden;
   k.xs = sv.xs + at * d.E;
-  k.real = real;
   return k;
 }
 
-// One pre-norm block on the residual rows X in place (HD: the compiled head
-// width); Y (rows x E) and Z
-// (rows x max(3E, hidden)) are scratch, mu / inv a row's LayerNorm
-// statistics. Starts and ends without a barrier. With k.qkv given, each
-// residual is copied out (real rows only) while the next step runs.
+// One pre-norm block on the warp's frame (X in place; Y, Z scratch), its
+// residuals out when keeping; only __syncwarp between the steps.
 template <int HD>
-__device__ void block_fwd(float* X, float* Y, float* Z, float* mu, float* inv,
-                          const float* wqkv, const float* wproj,
-                          const float* wfc1, const float* wfc2,
-                          const float* vec, const Dims& d, const Keep& k) {
-  const int E = d.E, HID = d.hidden;
-  const bool keep = k.qkv != nullptr;
-  layer_norm_rows(X, Y, d.rows, E, vec, vec + E, mu, inv);
-  __syncthreads();
-  if (keep) {
-    copy1(mu, k.mu1, k.real);
-    copy1(inv, k.inv1, k.real);
-  }
-  dense<kStore>(Y, E, wqkv, 3 * E, vec + 2 * E, Z, d.rows);
-  __syncthreads();
-  if (keep) copy4(Z, k.qkv, k.real * 3 * E);
-  attention<HD>(Z, Y, d);
-  __syncthreads();
-  if (keep) copy4(Y, k.o, k.real * E);
-  dense<kAdd>(Y, E, wproj, E, vec + 5 * E, X, d.rows);
-  __syncthreads();
-  if (keep) copy4(X, k.x2, k.real * E);
-  layer_norm_rows(X, Y, d.rows, E, vec + 6 * E, vec + 7 * E, mu, inv);
-  __syncthreads();
-  if (keep) {
-    copy1(mu, k.mu2, k.real);
-    copy1(inv, k.inv2, k.real);
-    dense<kStore>(Y, E, wfc1, HID, vec + 8 * E, Z, d.rows);
-    __syncthreads();
-    // the pre-GELU hidden out, then GELU in place (one thread per element)
-    for (int i = threadIdx.x; i < d.rows * HID; i += kThreads) {
-      const float v = Z[i];
-      if (i < k.real * HID) k.h[i] = v;
-      Z[i] = gelu(v);
-    }
-  } else {
-    dense<kGelu>(Y, E, wfc1, HID, vec + 8 * E, Z, d.rows);
-  }
-  __syncthreads();
-  dense<kAdd>(Z, HID, wfc2, E, vec + 8 * E + HID, X, d.rows);
-  if (keep) {
-    __syncthreads();
-    copy4(X, k.xs, k.real * E);
-  }
+__device__ void block_fwd(float* X, float* Y, float* Z, const float* smem,
+                          const FwdLayout& l, const FwdDims& d,
+                          const FwdKeep& k) {
+  const float* v = smem + l.vec;
+  ln_lane_rows(X, Y, v + vec_at(d, 0), v + vec_at(d, 1), d, d.ky, k.mu1,
+               k.inv1);
+  __syncwarp();
+  warp_product<kQkv>(Y, d.ldx, d.ke, smem + l.wqkv, d.ldw, d.nq,
+                     v + vec_at(d, 2), Z, d.ldz, d, k.qkv, 3 * d.E);
+  __syncwarp();
+  attention_warp<HD>(Z, Y, d, k.o);
+  __syncwarp();
+  warp_product<kResidual>(Y, d.ldx, d.ke, smem + l.wproj, d.ldw, d.ke,
+                          v + vec_at(d, 3), X, d.ldx, d, k.x2, d.E);
+  __syncwarp();
+  ln_lane_rows(X, Y, v + vec_at(d, 4), v + vec_at(d, 5), d, d.ky, k.mu2,
+               k.inv2);
+  __syncwarp();
+  warp_product<kHidden>(Y, d.ldx, d.ke, smem + l.wfc1, d.ldw, d.kh,
+                        v + vec_at(d, 6), Z, d.ldz, d, k.h, d.hidden);
+  __syncwarp();
+  warp_product<kResidual>(Z, d.ldz, d.kh, smem + l.wfc2, d.ldh, d.ke,
+                          v + vec_at(d, 7), X, d.ldx, d, k.xs, d.E);
+  __syncwarp();
 }
 
+// A thread block of d.frames warps, a frame each; the depth blocks' weights
+// staged in turn, shared by the warps.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFwdMaxWarps * 32)
     spatial_stack_kernel(const float* __restrict__ x, float* __restrict__ out,
-                         Weights w, Saved sv, Dims d) {
+                         Weights w, Saved sv, FwdDims d) {
   extern __shared__ __align__(16) float smem[];
-  const Layout l = layout_of(d.rows, d.E, d.hidden);
-  float* X = smem + l.x;
-  float* Y = smem + l.y;
-  const int E = d.E;
-  const int f0 = blockIdx.x * d.frames;
-  const int frames = min(d.frames, d.n - f0);
-  const int real = frames * d.J * E;  // floats of this block's frames
+  const FwdLayout l = fwd_layout(d);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int f = blockIdx.x * d.frames + warp;
+  const bool live = f < d.n;
+  float* X = smem + warp * l.warp;
+  float* Y = X + d.J * d.ldx;
+  float* Z = Y + d.J * d.ldx;
+  const int E = d.E, J = d.J, per = d.ky / 4;
 
-  const float4* src =
-      reinterpret_cast<const float4*>(x + static_cast<size_t>(f0) * d.J * E);
-  for (int i = threadIdx.x; i < d.rows * E / 4; i += kThreads)
-    reinterpret_cast<float4*>(X)[i] =
-        4 * i < real ? __ldg(src + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+  // the weights' and vectors' zero padding, once
+  for (int i = l.wqkv + threadIdx.x; i < l.total; i += blockDim.x)
+    smem[i] = 0.f;
+  if (lane < d.ke - d.ky) Z[lane] = 0.f;  // read past Y's last row
+  if (live) {
+    const float* src = x + static_cast<size_t>(f) * J * E;
+    for (int i = lane; i < J * per; i += 32) {
+      const int r = i / per, c = 4 * (i % per);
+      st4(X + r * d.ldx + c,
+          c < E ? __ldg(reinterpret_cast<const float4*>(src + r * E + c))
+                : make_float4(0.f, 0.f, 0.f, 0.f));
+    }
+  }
+  __syncwarp();
 
   for (int b = 0; b < d.depth; ++b) {
-    __syncthreads();  // the previous block is done with the staged weights
-    stage_block(w, b, d, smem + l.wqkv, smem + l.wproj, smem + l.wfc1,
-                smem + l.wfc2, smem + l.vec);
+    __syncthreads();  // every warp is done with the previous weights
+    stage_fwd(w, b, d, l, smem);
     __syncthreads();
-    block_fwd<HD>(X, Y, smem + l.z, smem + l.st, smem + l.st + d.rows,
-              smem + l.wqkv, smem + l.wproj, smem + l.wfc1, smem + l.wfc2,
-              smem + l.vec, d, keep_of(sv, b, f0 * d.J, frames * d.J, d));
+    if (live) block_fwd<HD>(X, Y, Z, smem, l, d, fwd_keep(sv, b, f, d));
   }
-  __syncthreads();
-  layer_norm_rows(X, Y, frames * d.J, E, w.lnf_s, w.lnf_b);
-  __syncthreads();
-  float4* dst =
-      reinterpret_cast<float4*>(out + static_cast<size_t>(f0) * d.J * E);
-  for (int i = threadIdx.x; i < real / 4; i += kThreads)
-    dst[i] = reinterpret_cast<const float4*>(Y)[i];
+  if (!live) return;
+  // the final LayerNorm (its vectors read from global memory) to Y, then
+  // out coalesced
+  ln_lane_rows(X, Y, w.lnf_s, w.lnf_b, d, E);
+  __syncwarp();
+  float* dst = out + static_cast<size_t>(f) * J * E;
+  for (int i = lane; i < J * (E / 4); i += 32) {
+    const int r = i / (E / 4), c = 4 * (i % (E / 4));
+    st4(dst + r * E + c, ld4(Y + r * d.ldx + c));
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -995,10 +1231,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
     // dW2 reads gelu(h) in A while dh replaces h in Hs
     dense_dw<false>(G, E, A, HID, dW2, E, HID, R, db2);
-    dense<kDGelu>(G, E, w2, HID, nullptr, Hs, R);  // dh
+    dense<kDGelu>(G, E, w2, HID, Hs, R);  // dh
     __syncthreads();
     dense_dw<true>(Hs, HID, XH, E, dW1, HID, E, R, db1, vec, vec + E);
-    dense<kStore>(Hs, HID, w1, E, nullptr, A, R);  // dy2
+    dense<kStore>(Hs, HID, w1, E, A, R);  // dy2
     __syncthreads();
     ln_bwd_rows(A, XH, inv, vec, G, a.dx + r0 * E, real, E, ps, pb);
   }
@@ -1054,7 +1290,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
     // dWp on the first 128 threads (E = 32), do on those after them
     dense_dw<false>(DX2, E, O, E, dWp, E, E, R, dbp);
-    dense<kStore>(DX2, E, wp, E, nullptr, DO, R, E * E / 8);
+    dense<kStore>(DX2, E, wp, E, DO, R, E * E / 8);
     __syncthreads();
     attention_bwd_rows<HD>(QKV, DO, DQKV, att, d);
     __syncthreads();
@@ -1062,7 +1298,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
     dense_dw<true>(DQKV, 3 * E, XH, E, dWqkv, 3 * E, E, R, dbqkv, vec,
                    vec + E);
-    dense<kStore>(DQKV, 3 * E, wq, E, nullptr, O, R, E * E / 8);  // dy1
+    dense<kStore>(DQKV, 3 * E, wq, E, O, R, E * E / 8);  // dy1
     __syncthreads();
     ln_bwd_rows(O, XH, inv, vec, DX2, a.dx + r0 * E, real, E, ps, pb);
   }
@@ -1094,8 +1330,9 @@ bool valid(int J, int E, int H, int hidden, int depth) {
 }
 
 int fwd_bytes(int J, int E, int hidden, int frames) {
-  return static_cast<int>(sizeof(float) *
-                          layout_of(pad4(frames * J), E, hidden).total);
+  return static_cast<int>(
+      sizeof(float) * fwd_layout(fwd_dims(0, J, E, 1, hidden, 0, frames, 0.f))
+                          .total);
 }
 
 int mlp_bytes(int E, int hidden, int rows) {
@@ -1115,11 +1352,11 @@ cudaError_t set_smem(const void* kernel, int bytes) {
 
 // The kernels with attention, compiled twice (each its own register
 // allocation): the instance for head width hd.
-typedef void (*FwdKernel)(const float*, float*, Weights, Saved, Dims);
+typedef void (*FwdKernel)(const float*, float*, Weights, Saved, FwdDims);
 typedef void (*AttnBwdKernel)(BwdArgs, Dims, int);
 
 FwdKernel fwd_kernel(int hd) {
-  return hd_class(hd) == 4 ? spatial_stack_kernel<4> : spatial_stack_kernel<0>;
+  return hd == 4 ? spatial_stack_kernel<4> : spatial_stack_kernel<0>;
 }
 
 AttnBwdKernel attn_bwd_kernel(int hd) {
@@ -1153,9 +1390,9 @@ int pv2c_spatial_attn_bwd_smem_bytes(int J, int E, int H, int frames) {
 // depth in nn.Linear layout (qkv_w (depth, 3E, E), proj_w (depth, E, E),
 // fc1_w (depth, hidden, E), fc2_w (depth, E, hidden), vectors (depth, .));
 // lnf_s, lnf_b (E,). stats, qkv, o, x2, h, xs: the residuals the backward
-// takes (see Saved), or all nullptr. Requires J <= 32, E <= 128 and hidden
-// multiples of 4, E / H <= 32, `frames` frames a thread block and 16-byte
-// aligned pointers. Returns a CUDA error code.
+// takes (see Saved), or all nullptr. Requires J <= 32,
+// E <= 128 and hidden multiples of 4, E / H <= 32, 1 to 8 frames a thread
+// block and 16-byte aligned pointers. Returns a CUDA error code.
 int pv2c_fused_spatial_stack(
     const float* x, float* out, const float* ln1_s, const float* ln1_b,
     const float* qkv_w, const float* qkv_b, const float* proj_w,
@@ -1166,9 +1403,9 @@ int pv2c_fused_spatial_stack(
     int H, int hidden, int depth, int frames, float scale,
     cudaStream_t stream) {
   if (n <= 0) return 0;
-  if (!valid(J, E, H, hidden, depth) || frames < 1)
+  if (!valid(J, E, H, hidden, depth) || frames < 1 || frames > kFwdMaxWarps)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Dims d{n, J, E, H, hidden, depth, frames, pad4(frames * J), scale};
+  const FwdDims d = fwd_dims(n, J, E, H, hidden, depth, frames, scale);
   const Weights w{ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s,
                   ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, lnf_s, lnf_b};
   const Saved sv{stats, qkv, o, x2, h, xs};
@@ -1176,8 +1413,8 @@ int pv2c_fused_spatial_stack(
   const FwdKernel kernel = fwd_kernel(E / H);
   cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<(n + frames - 1) / frames, kThreads, bytes, stream>>>(x, out, w,
-                                                                 sv, d);
+  kernel<<<(n + frames - 1) / frames, 32 * frames, bytes, stream>>>(
+      x, out, w, sv, d);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,6 +20,15 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                "l"(src), "r"(ok ? 16 : 0));
 }
 
+// 16 bytes global -> shared, asynchronously, of which the first `bytes` (0
+// to 16) are read and the rest zero-filled.
+__device__ __forceinline__ void cp_async16_part(float* dst, const float* src,
+                                                int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+
 // 4 bytes global -> shared, asynchronously; zero when !ok.
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool ok) {

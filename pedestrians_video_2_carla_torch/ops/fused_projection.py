@@ -11,9 +11,10 @@ The kernels replace the TPU kernels of the JAX package's
   * ``fused_projection_train_cuda_bwd`` replaces ``_bwd_train_kernel``
     (``_train_bwd``).
 On an H100 memory bounds all three: at B=1024, L=16 they move about 21.7,
-42.2 and 58.8 MB (6.5, 12.6 and 17.5 us at 3.35 TB/s). Their design (one warp
-per clip, a lane per bone, the FK walked level by level through shared
-memory) is described in the sources.
+42.2 and 58.8 MB (6.5, 12.6 and 17.5 us at 3.35 TB/s). Their designs (the
+forwards: one warp per clip, a lane per bone, the FK walked level by level
+through shared memory; the backward: the frames' tree terms in parallel,
+then the rotation carry) are described in the sources.
 
 ``fused_projection`` and ``fused_projection_train`` launch the kernels for
 CUDA tensors and run the plain versions for CPU tensors; there is no
@@ -182,9 +183,10 @@ def fused_projection(pose_changes: torch.Tensor, rel_loc: torch.Tensor,
 #
 # The forward also writes the absolute pose locations (so the 3D losses need
 # no other FK) and the carried relative rotation of every frame (the
-# backward's residuals). The backward is the hand-written transpose: frames
-# in reverse carrying the rotation cotangent, FK replayed per frame from the
-# stored state, the tree walked deepest level first.
+# backward's residuals). The backward is the hand-written transpose: each
+# frame's tree terms (FK replayed from the stored state, the tree walked
+# deepest level first), frames in parallel, then the rotation cotangent
+# carried over the frames in reverse.
 # ---------------------------------------------------------------------------
 
 def fused_projection_train_reference(pose_changes, rel_loc, rel_rot,
@@ -194,6 +196,85 @@ def fused_projection_train_reference(pose_changes, rel_loc, rel_rot,
     Its backward is plain autograd."""
     _, abs_loc, _ = K.relative_pose_over_clip(pose_changes, rel_loc, rel_rot)
     return C.project_pose(camera, abs_loc), abs_loc
+
+
+#: (clip, frame) units a chunk of the backward kernel
+#: (``csrc/fused_projection_train.cu``, kUnits): a longer clip runs in
+#: chunks, the rotation carry passed from one to the next
+TRAIN_BWD_UNITS = 10
+
+
+def fused_projection_train_bwd_reference(pose_changes, rel_loc, rel_rot,
+                                         states, g_proj, g_abs,
+                                         camera: C.PinholeCamera
+                                         ) -> Tuple[torch.Tensor,
+                                                    torch.Tensor,
+                                                    torch.Tensor]:
+    """The backward kernel's algorithm in plain PyTorch: the same inputs
+    and outputs as ``fused_projection_train_cuda_bwd``. First each frame's
+    tree terms, frames independent of each other: the FK replayed from the
+    forward's ``states`` S_t, the projection transposed, the tree walked
+    from the last bone to the root, giving T_t (the cotangent of S_t from
+    frame t, (B, J, 3, 3)) and frame t's share of d_rel_loc. Then the
+    rotation carry over the frames in reverse: dS_t = T_t + carry,
+    d_pose_changes_t = dS_t S_{t-1}^T, carry = C_t^T dS_t (S_{-1} =
+    rel_rot), d_rel_rot the last carry, d_rel_loc the shares summed from
+    the last frame to the first."""
+    B, L, J = pose_changes.shape[:3]
+    S = states.reshape(B, L, J, 3, 3)
+    loc = rel_loc[:, None].expand(B, L, J, 3)
+    r = camera.R.to(S)
+    fx, fy = camera.focal
+    # the FK replay, parents first (a parent's index is below its child's)
+    abs_rot, abs_loc = [None] * J, [None] * J
+    for j in range(J):
+        p = int(PARENTS[j])
+        if p < 0:
+            abs_rot[j], abs_loc[j] = S[:, :, j], loc[:, :, j]
+        else:
+            abs_rot[j] = S[:, :, j] @ abs_rot[p]
+            abs_loc[j] = (loc[:, :, j, None] @ abs_rot[p])[..., 0, :] \
+                + abs_loc[p]
+    al = torch.stack(abs_loc, 2)
+    # the projection transposed: pose axes (x, y, z) -> world (y, -x, z),
+    # view v = w R + T, pinhole
+    w = torch.stack((al[..., 1], -al[..., 0], al[..., 2]), -1)
+    v = w @ r + camera.T.to(S)
+    inv_z = 1.0 / v[..., 2]
+    dv = torch.stack((-(fx * inv_z) * g_proj[..., 0],
+                      -(fy * inv_z) * g_proj[..., 1],
+                      g_proj[..., 2] + (fx * v[..., 0] * g_proj[..., 0]
+                                        + fy * v[..., 1] * g_proj[..., 1])
+                      * (inv_z * inv_z)), -1)
+    dw = dv @ r.transpose(0, 1)
+    dal = list((g_abs + torch.stack((-dw[..., 1], dw[..., 0], dw[..., 2]),
+                                    -1)).unbind(2))
+    # the tree transposed, children (higher indices) before their parents
+    dar = [torch.zeros_like(S[:, :, 0]) for _ in range(J)]
+    tree, share = [None] * J, [None] * J
+    for j in reversed(range(J)):
+        p = int(PARENTS[j])
+        if p < 0:
+            tree[j], share[j] = dar[j], dal[j]
+            continue
+        pr = abs_rot[p]
+        share[j] = (pr @ dal[j][..., None])[..., 0]
+        tree[j] = dar[j] @ pr.transpose(-1, -2)
+        dal[p] = dal[p] + dal[j]
+        dar[p] = dar[p] + (loc[:, :, j, :, None] * dal[j][..., None, :]
+                           + S[:, :, j].transpose(-1, -2) @ dar[j])
+    tree, share = torch.stack(tree, 2), torch.stack(share, 2)
+    # the carry, last frame first
+    d_changes = torch.empty_like(S)
+    carry = torch.zeros_like(rel_rot)
+    d_rel_loc = torch.zeros_like(rel_loc)
+    for t in reversed(range(L)):
+        ds = tree[:, t] + carry
+        prev = S[:, t - 1] if t > 0 else rel_rot
+        d_changes[:, t] = ds @ prev.transpose(-1, -2)
+        carry = pose_changes[:, t].transpose(-1, -2) @ ds
+        d_rel_loc = d_rel_loc + share[:, t]
+    return d_changes, d_rel_loc, carry
 
 
 def fused_projection_train_cuda_fwd(pose_changes: torch.Tensor,

@@ -5,10 +5,12 @@ backward, with their plain PyTorch version and the autograd wrapper.
 
 The forward replaces the TPU kernel ``_fwd_kernel`` of the JAX package's
 ``ops/pallas/fused_spatial_transformer.py`` (``fused_spatial_stack``). On an
-H100 operations bound it: at B=256, L=16 it does 8.40 GFLOP (125 us at the
-fp32 peak) against about 27 MB of traffic; its design (a few frames per
-thread block, resident in shared memory through the whole stack) is
-described in the source. The backward replaces ``_bwd_kernel``
+H100 operations bound it: at B=256, L=16 it does 8.40 GFLOP (51 us at the
+3xTF32 rate of the tensor cores, where its dense products run; its
+attention runs on the CUDA cores) against about 27 MB of traffic;
+its design (a warp a frame, resident in shared memory through the whole
+stack, the products as ``mma.sync`` tiles) is described in the source.
+The backward replaces ``_bwd_kernel``
 (``_fused_bwd_impl``): dx and the 14 weight gradients (67.18 GFLOP at
 B=1024, L=16, a 1.00 ms bound) from the residuals the training forward
 keeps, two launches per depth block in reverse, per-thread-block partial
@@ -26,7 +28,7 @@ final LayerNorm's scale and bias (E,).
 """
 import ctypes
 import functools
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,8 +58,10 @@ MAX_WIDTH = 128
 #: 1 KB a thread block, halved)
 MAX_SMEM_BYTES = 232448
 TWO_PER_SM_BYTES = 115712
-#: the tiles tried, largest first: the forward's and the attention half's
-#: frames a thread block, the MLP half's rows
+#: the tiles tried, largest first: the forward's frames (warps) a thread
+#: block, the backward's attention half's frames a thread block and its MLP
+#: half's rows
+FORWARD_TILES = (4, 3, 2, 1)
 FRAME_TILES = (4, 3, 2, 1)
 ROW_TILES = (128, 96, 64, 32, 16, 8, 4)
 _WPAD = 8
@@ -67,14 +71,27 @@ def _pad4(v: int) -> int:
     return (v + 3) & ~3
 
 
-def forward_smem_bytes(J: int, E: int, hidden: int, frames: int) -> int:
+def _round8(v: int) -> int:
+    return (v + 7) & ~7
+
+
+def forward_smem_bytes(J: int, E: int, hidden: int, frames: int,
+                       pad: Optional[int] = None) -> int:
     """Shared memory of one forward thread block at ``frames`` frames (the
-    source's ``layout_of``)."""
-    rows = _pad4(frames * J)
-    floats = (2 * rows * E + rows * max(3 * E, hidden)
-              + E * (3 * E + _WPAD) + E * (E + _WPAD) + E * (hidden + _WPAD)
-              + hidden * (E + _WPAD) + _pad4(9 * E + hidden) + 2 * rows)
-    return 4 * floats
+    source's ``fwd_layout``: each frame's X, Y and Z rows, then the
+    weights and vectors, rows ``pad`` floats wider than their 8-rounded
+    widths, X's and Y's E wide at ``pad`` 0; by default 4, or 0 where that
+    layout would not fit, as the source picks)."""
+    ke, kh, nq = _round8(E), _round8(hidden), _round8(3 * E)
+    for p in (4, 0) if pad is None else (pad,):
+        ldx = ke + p if p else E
+        ldw, ldz, ldh = ke + p, max(nq, kh) + p, kh + p
+        act = frames * J * (2 * ldx + ldz)
+        end = act + (nq + ke + kh) * ldw + E * ldh + 6 * ke + nq + kh
+        reach = act + (MAX_TOKENS - J) * ldz
+        if 4 * max(end, reach) <= MAX_SMEM_BYTES:
+            break
+    return 4 * max(end, reach)
 
 
 def mlp_bwd_smem_bytes(E: int, hidden: int, rows: int) -> int:
@@ -97,9 +114,8 @@ def attn_bwd_smem_bytes(J: int, E: int, num_heads: int, frames: int) -> int:
 
 
 def _pick(tiles, size, what, limits=(TWO_PER_SM_BYTES, MAX_SMEM_BYTES)):
-    """The largest tile within the first of ``limits`` that any tile meets
-    (by default: room for a second thread block on the SM, else room for
-    one)."""
+    """The largest tile within the first of ``limits`` that any tile meets:
+    room for a second thread block on the SM, else room for one."""
     for limit in limits:
         for t in tiles:
             if size(t) <= limit:
@@ -146,8 +162,8 @@ def spatial_stack_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
 def kernel_tiles(J: int, E: int, num_heads: int,
                  hidden: int) -> Tuple[int, int, int]:
-    """The kernels' compiled limits; returns their tiles: (frames a
-    thread block of the forward, rows a tile of the backward's MLP half,
+    """The kernels' compiled limits; returns their tiles: (frames (warps)
+    a thread block of the forward, rows a tile of the backward's MLP half,
     frames a tile of its attention half). Raises ValueError for a shape
     the kernels do not take."""
     if J > MAX_TOKENS or E > MAX_WIDTH or E // num_heads > MAX_HEAD_WIDTH \
@@ -156,9 +172,14 @@ def kernel_tiles(J: int, E: int, num_heads: int,
             f"the spatial kernel takes J <= {MAX_TOKENS}, E <= {MAX_WIDTH}, "
             f"head width <= {MAX_HEAD_WIDTH} and widths that are multiples "
             f"of 4; got J={J}, E={E}, {num_heads} heads, hidden {hidden}")
-    return (_pick(FRAME_TILES,
-                  lambda f: forward_smem_bytes(J, E, hidden, f),
-                  "the spatial forward", limits=(MAX_SMEM_BYTES,)),
+    if forward_smem_bytes(J, E, hidden, 1, pad=4) <= MAX_SMEM_BYTES:
+        fwd = _pick(FORWARD_TILES,
+                    lambda f: forward_smem_bytes(J, E, hidden, f, pad=4),
+                    "the spatial forward")
+    else:  # one frame in the layout without the padding
+        fwd = _pick((1,), lambda f: forward_smem_bytes(J, E, hidden, f),
+                    "the spatial forward", limits=(MAX_SMEM_BYTES,))
+    return (fwd,
             _pick(ROW_TILES, lambda r: mlp_bwd_smem_bytes(E, hidden, r),
                   "the spatial backward's MLP half"),
             _pick(FRAME_TILES,

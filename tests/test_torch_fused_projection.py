@@ -15,11 +15,13 @@ import torch
 from pedestrians_video_2_carla_tpu.ops import camera as JC
 from pedestrians_video_2_carla_tpu.ops.pallas.fused_projection import (
     fused_projection as j_fused_projection, fused_projection_pallas,
-    fused_projection_reference as j_reference)
+    fused_projection_reference as j_reference,
+    fused_projection_train as j_fused_projection_train)
 from pedestrians_video_2_carla_tpu.skeletons.carla import reference_poses_tensor
 
 from pedestrians_video_2_carla_torch.ops import camera as TC
 from pedestrians_video_2_carla_torch.ops import fused_projection as FP
+from pedestrians_video_2_carla_torch.ops import kinematics as K
 from pedestrians_video_2_carla_torch.ops.projection import ProjectionModule
 
 from .ops.np_reference import random_rotation_matrices
@@ -93,6 +95,75 @@ def test_gradients_match_jax(rng):
         scale = max(float(np.abs(ref).max()), 1e-8)
         np.testing.assert_allclose(t.grad.numpy() / scale, ref / scale,
                                    rtol=1e-4, atol=1e-5)
+
+
+def _train_bwd_case(batch, clip, seed=5):
+    """Seeded inputs of the training backward: the forward's inputs, its
+    states (the plain carry) and the two cotangents, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    changes, locs, rots = _inputs(rng, batch, clip)
+    states = K.accumulate_pose_changes(*_t(changes, rots)).reshape(
+        batch, clip, 26, 9).numpy()
+    g_proj, g_abs = (rng.standard_normal((batch, clip, 26, 3)).astype(
+        np.float32) for _ in range(2))
+    return changes, locs, rots, states, g_proj, g_abs
+
+
+def _assert_grads_close(got, refs):
+    """Each gradient within 1e-4 of its largest magnitude (atol 1e-5 on
+    that scale), the JAX kernel-gradient test's bar."""
+    for g, ref in zip(got, refs):
+        ref = np.asarray(ref)
+        scale = max(float(np.abs(ref).max()), 1e-8)
+        np.testing.assert_allclose(np.asarray(g) / scale, ref / scale,
+                                   rtol=1e-4, atol=1e-5)
+
+
+#: a clip longer than one of the backward kernel's chunks
+_LONG_CLIP = FP.TRAIN_BWD_UNITS + 1
+
+
+@pytest.mark.parametrize("batch,clip", [(1, 1), (1, 2), (1, 5), (3, 1),
+                                        (3, 2), (3, 5), (2, _LONG_CLIP)])
+def test_train_backward_decomposition_matches_autograd(batch, clip):
+    # the backward kernel's algorithm (per-frame tree terms, then the carry)
+    # against autograd of the plain forward
+    changes, locs, rots, states, g_proj, g_abs = _train_bwd_case(batch, clip)
+    cam = TC.make_camera()
+    got = FP.fused_projection_train_bwd_reference(
+        *_t(changes, locs, rots, states, g_proj, g_abs), cam)
+    assert [tuple(g.shape) for g in got] == [
+        changes.shape, locs.shape, rots.shape]
+    inputs = [t.requires_grad_(True) for t in _t(changes, locs, rots)]
+    refs = torch.autograd.grad(
+        FP.fused_projection_train_reference(*inputs, cam), inputs,
+        _t(g_proj, g_abs))
+    _assert_grads_close([g.numpy() for g in got], [r.numpy() for r in refs])
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_train_bwd_case():
+    """The JAX package's training backward (its Pallas kernel, in
+    interpret mode on the CPU) at B=3 and a clip longer than one of the
+    port's chunks. One call (about 20 s) for the cases below: the clips are
+    independent, so B=1 is the first clip's slice."""
+    case = _train_bwd_case(3, _LONG_CLIP)
+    changes, locs, rots, _, g_proj, g_abs = case
+    cam = JC.make_camera()
+    _, vjp = jax.vjp(lambda c, l, r: j_fused_projection_train(c, l, r, cam),
+                     jnp.asarray(changes), jnp.asarray(locs),
+                     jnp.asarray(rots))
+    return case, [np.asarray(g) for g in vjp((jnp.asarray(g_proj),
+                                                jnp.asarray(g_abs)))]
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_train_backward_decomposition_matches_jax(batch):
+    (changes, locs, rots, states, g_proj, g_abs), refs = _jax_train_bwd_case()
+    got = FP.fused_projection_train_bwd_reference(
+        *_t(*(a[:batch] for a in (changes, locs, rots, states, g_proj,
+                                  g_abs))), TC.make_camera())
+    _assert_grads_close([g.numpy() for g in got], [r[:batch] for r in refs])
 
 
 @pytest.mark.parametrize("bad", ["float64", "joints", "rel_loc", "rel_rot",
@@ -196,3 +267,18 @@ def test_cuda_train_backward_matches_plain(rng, cuda_device, batch, clip):
         scale = max(float(ref.abs().max()), 1e-8)
         torch.testing.assert_close(g / scale, ref / scale, rtol=1e-4,
                                    atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,clip", [(1024, 16), (3, 5), (1, 1),
+                                        (3, _LONG_CLIP), (64, 81)])
+def test_cuda_train_backward_matches_decomposition(cuda_device, batch, clip):
+    # the kernel against its plain version, the same algorithm
+    arrays = _train_bwd_case(batch, clip)
+    args = tuple(t.to(cuda_device) for t in _t(*arrays))
+    cam = TC.make_camera()
+    grads = FP.fused_projection_train_cuda_bwd(*args, cam)
+    refs = FP.fused_projection_train_bwd_reference(*args, cam)
+    torch.cuda.synchronize()
+    _assert_grads_close([g.cpu().numpy() for g in grads],
+                        [r.cpu().numpy() for r in refs])

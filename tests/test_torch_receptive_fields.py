@@ -150,18 +150,36 @@ def test_temporal_attention_smem_at_rf81():
     (26, 32, 1, 64, (4, 96, 2)),    # one head of width 32
     (25, 32, 8, 64, (4, 96, 2)),    # BODY_25's points
     (26, 64, 8, 128, (2, 32, 1)),   # fewer frames a thread block
+    (26, 20, 5, 40, (4, 128, 4)),   # widths 4 mod 8: zero-padded k-edge
 ])
 def test_spatial_tiles(J, E, heads, hidden, tiles):
     assert FS.kernel_tiles(J, E, heads, hidden) == tiles
     fwd, rows, frames = tiles
-    assert FS.forward_smem_bytes(J, E, hidden, fwd) <= FS.MAX_SMEM_BYTES
-    if fwd < FS.FRAME_TILES[0]:   # the next larger tile would not fit
+    # the forward: one frame a warp, two thread blocks an SM where they fit
+    assert FS.forward_smem_bytes(J, E, hidden, fwd) <= (
+        FS.TWO_PER_SM_BYTES if E <= 32 else FS.MAX_SMEM_BYTES)
+    if fwd < FS.FORWARD_TILES[0]:   # the next larger tile would not fit
         assert FS.forward_smem_bytes(J, E, hidden, fwd + 1) > \
             FS.MAX_SMEM_BYTES
     for size in (FS.mlp_bwd_smem_bytes(E, hidden, rows),
                  FS.attn_bwd_smem_bytes(J, E, heads, frames)):
-        assert size <= (FS.TWO_PER_SM_BYTES if E == 32 else
+        assert size <= (FS.TWO_PER_SM_BYTES if E <= 32 else
                         FS.MAX_SMEM_BYTES)
+
+
+@pytest.mark.parametrize("J,E,heads,hidden,tiles", [
+    (32, 12, 3, 864, (1, 4, 4)),
+    (32, 12, 3, 860, (1, 4, 4)),
+    (32, 4, 1, 1172, (1, 8, 4)),
+])
+def test_spatial_edge_tiles(J, E, heads, hidden, tiles):
+    # shapes at the edge of the forward's shared memory, which the earlier
+    # CUDA-core forward took: one frame a thread block, only in the layout
+    # without the padding (X and Y rows at stride E)
+    assert FS.kernel_tiles(J, E, heads, hidden) == tiles
+    assert FS.forward_smem_bytes(J, E, hidden, 1) <= FS.MAX_SMEM_BYTES
+    assert FS.forward_smem_bytes(J, E, hidden, 2) > FS.MAX_SMEM_BYTES
+    assert FS.forward_smem_bytes(J, E, hidden, 1, pad=4) > FS.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("J, E, heads, hidden", [

@@ -33,10 +33,11 @@ T, D, H_T, N_T = 3, 208, 4, 7         # temporal: frame_dim 26 x 8
 KERNEL_BAR = 1e-5                     # max |kernel - plain| / max |plain|
 
 
-def _block_weights(rng, dim, lead=()):
+def _block_weights(rng, dim, lead=(), hidden=None):
     """One block's weights in the JAX layout (Dense kernels (in, out)),
-    with LayerNorm scales and biases away from ones and zeros."""
-    hidden = 2 * dim
+    hidden 2 dim unless given, with LayerNorm scales and biases away from
+    ones and zeros."""
+    hidden = 2 * dim if hidden is None else hidden
 
     def w(*shape, scale):
         return (rng.standard_normal(lead + shape) * scale).astype(np.float32)
@@ -251,6 +252,46 @@ def test_cuda_spatial_matches_plain(rng, cuda_device, n):
     ref = FS.spatial_stack_reference(x, weights, 8)
     torch.cuda.synchronize()
     assert _scaled_err(out, ref) <= KERNEL_BAR
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emb,heads", [(20, 5), (32, 1), (64, 8)])
+def test_cuda_spatial_wide_shapes_match_plain(rng, cuda_device, emb, heads):
+    # widths 4 mod 8 (the products' zero-padded k-edge), head width 32, and
+    # fewer frames a thread block; hidden 2 emb; the training forward too
+    x = torch.from_numpy(rng.standard_normal((1021, 26, emb)).astype(
+        np.float32)).to(cuda_device)
+    blocks = _to_port(_block_weights(rng, emb, lead=(4,)))
+    weights = [w.to(cuda_device) for w in blocks] + [
+        torch.ones(emb, device=cuda_device),
+        torch.zeros(emb, device=cuda_device)]
+    out = FS.fused_spatial_stack_cuda(x, weights, heads)
+    kept, _ = FS.fused_spatial_stack_cuda(x, weights, heads, keep=True)
+    ref = FS.spatial_stack_reference(x, weights, heads)
+    torch.cuda.synchronize()
+    assert _scaled_err(out, ref) <= KERNEL_BAR
+    assert torch.equal(out, kept)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("J,emb,heads,hidden",
+                         [(32, 12, 3, 864), (32, 12, 1, 860)])
+def test_cuda_spatial_edge_shapes_match_plain(rng, cuda_device, J, emb, heads,
+                                              hidden):
+    # one frame a thread block at the edge of the forward's shared memory,
+    # X and Y rows at stride E
+    x = torch.from_numpy(rng.standard_normal((67, J, emb)).astype(
+        np.float32)).to(cuda_device)
+    blocks = _to_port(_block_weights(rng, emb, lead=(4,), hidden=hidden))
+    weights = [w.to(cuda_device) for w in blocks] + [
+        torch.ones(emb, device=cuda_device),
+        torch.zeros(emb, device=cuda_device)]
+    out = FS.fused_spatial_stack_cuda(x, weights, heads)
+    kept, _ = FS.fused_spatial_stack_cuda(x, weights, heads, keep=True)
+    ref = FS.spatial_stack_reference(x, weights, heads)
+    torch.cuda.synchronize()
+    assert _scaled_err(out, ref) <= KERNEL_BAR
+    assert torch.equal(out, kept)
 
 
 @pytest.mark.cuda
