@@ -6,27 +6,32 @@ Phases, each printing one JSON line:
   1. device       -- requires CUDA; the card's name and power limit
                      (nvidia-smi).
   2. build        -- builds the six kernel libraries with nvcc from this
-                     checkout's csrc/ (sm_90a), and the instrumented copy
-                     of the spatial source (spatial_phase_split), in
-                     parallel; their ptxas
+                     checkout's csrc/ (sm_90a), and the instrumented copies
+                     of the spatial source (spatial_phase_split) and of the
+                     projection's serving source
+                     (projection_fwd_phase_split), in parallel; their ptxas
                      summaries; that the temporal forward's products are
                      tensor-core code (its three GEMM entries and no
                      CUDA-core GEMM among the library's entries, and each
                      entry's HMMA instructions in the SASS, by cuobjdump).
-  3. kernel       -- the serving kernel against its plain PyTorch version on
-                     the card, on seeded random rotations: B in {1024, 1000,
-                     5} at L=16, and L=1 once. Bounds: 1e-3 px on x and y,
-                     1e-4 on depth.
+  3. kernel       -- the serving kernel against its plain PyTorch version
+                     and against its algorithm in plain PyTorch
+                     (fused_projection_fwd_algorithm) on the card, on seeded
+                     random rotations: B in {1024, 1000, 5} at L=16, B=1024
+                     at L=1 and 81, B=3 at L=81 (FWD_SHAPES: clips longer
+                     than one chunk), and views off a 16-byte boundary
+                     (VIEW_SHAPE). Bounds: 1e-3 px on x and y, 1e-4 on
+                     depth.
   4. kernel_train -- the training forward kernel against its plain version
-                     (1e-3 px, 1e-4 depth, 1e-5 abs_loc) and the backward
+                     and its algorithm (1e-3 px, 1e-4 depth, 1e-5 abs_loc;
+                     the states' error printed) and the backward
                      kernel against autograd of the plain version with
                      seeded cotangents and against its own plain version
                      (the kernel's algorithm: per-frame tree terms, then the
                      carry; each gradient over its largest magnitude: rtol
-                     1e-4, atol 1e-5), at B in {1024, 1000, 5} with L=16
-                     (longer than one of the backward's chunks), B=1024
-                     with L=1 and B=5 with L=2; two backward launches give
-                     the same bits.
+                     1e-4, atol 1e-5), at FWD_SHAPES, B=5 with L=2 and
+                     VIEW_SHAPE's views; two
+                     backward launches give the same bits.
   5. serve        -- the port's serving path at full width: Carla2D3D test
                      batches (B=1024, L=16) -> LinearAE (seeded init) ->
                      PoseLiftingFlow(projection_kernel="fused") ->
@@ -44,8 +49,14 @@ Phases, each printing one JSON line:
                      trained params. Then 3 training_steps of the
                      "fused_train" and the "plain" flow from the same params
                      on the same batches: losses equal to rtol 1e-4.
-  7. timing       -- CUDA-event medians: the kernels (L2 cold and warm),
-                     their plain versions, the eager plane path; host-clock
+  7. timing       -- CUDA-event medians: the kernels (L2 cold and warm; the
+                     forwards also at B=1024 for L in {1, 16, 81}, beside
+                     their bounds), their plain versions, the eager plane
+                     path; then projection_fwd_phase_split: the serving
+                     kernel's phases (staging, carry, FK and projection,
+                     copy out) at those shapes, from the clock64() cycles
+                     of an instrumented copy of its source (the same output
+                     bits), as shares of its time; host-clock
                      medians: a serving request of both flows, a
                      training_step of both flows, and a standalone call of
                      the plane outputs the "fused_train" step computes (its
@@ -328,6 +339,19 @@ extern "C" int pv2c_split_set(long long* clk) {
 }
 """
 RF81_BATCH, RF81_CLIP, RF81_RF, RF81_STEPS, RF81_REQUESTS = 64, 81, 81, 2, 2
+#: the projection forwards' (rows 1 and 2) check shapes: the main path's,
+#: ragged batches, one frame a clip and clips longer than one of the
+#: kernels' chunks; and the clip lengths they are timed at, B=1024
+FWD_SHAPES = ((BATCH, CLIP), (1000, CLIP), (5, CLIP), (BATCH, 1),
+              (BATCH, 81), (3, 81))
+FWD_TIMED_CLIPS = (1, CLIP, 81)
+#: and a batch of views that start off a 16-byte boundary (the kernels
+#: stage with 16-byte copies; their wrappers copy such views)
+VIEW_SHAPE = (4, 1)
+#: rows 1 and 2's phase split: the cycles that thread 0 of each thread
+#: block of an instrumented copy of the serving source (PV2C_FK_SPLIT) adds
+#: up by phase (csrc/fk_forward.cuh)
+FK_SPLIT_PHASES = ("stage", "carry", "fk", "copy_out")
 #: fault F6 on the card: PoseFormer training steps with dropout under
 #: "auto", and shapes a stage's kernel refuses (name, model arguments, the
 #: launches of one evaluation step): one head (the temporal head width 832
@@ -458,7 +482,8 @@ def phase_build():
     t0 = time.perf_counter()
     sources = (FP._SOURCE, FP._TRAIN_SOURCE, FS._SOURCE, FT._SOURCE,
                FG._SOURCE, FG._DENSE_SOURCE,
-               spatial_split_source(FS._SOURCE)[0])  # row 4's phase split
+               spatial_split_source(FS._SOURCE)[0],  # row 4's phase split
+               fk_split_source(FP._SOURCE))          # row 1's
 
     def build(source):
         t = time.perf_counter()
@@ -568,27 +593,53 @@ def kernel_inputs(rng, B, L, device):
     return changes, state.rel_loc, state.rel_rot
 
 
+def proj_errs(out, ref):
+    """max |out - ref| on x and y (pixels) and on depth."""
+    err = (out - ref).abs()
+    return float(err[..., :2].max()), float(err[..., 2].max())
+
+
+def fwd_cases(extra=()):
+    """The projection kernels' check cases: (B, L, views) for FWD_SHAPES
+    and ``extra``, then VIEW_SHAPE as views."""
+    return [(B, L, False) for B, L in FWD_SHAPES + extra] + [
+        (*VIEW_SHAPE, True)]
+
+
+def fwd_inputs(rng, B, L, views):
+    """kernel_inputs on the card, or views of a batch one clip larger that
+    start one clip in (936 and 312 bytes: off a 16-byte boundary)."""
+    if not views:
+        return kernel_inputs(rng, B, L, "cuda")
+    return tuple(t[1:] for t in kernel_inputs(rng, B + 1, L, "cuda"))
+
+
 def phase_kernel(camera):
     from pedestrians_video_2_carla_torch.ops import fused_projection as FP
 
     rng = np.random.default_rng(SEED)
     worst = 0.0
-    for B, L in ((1024, 16), (1000, 16), (5, 16), (BATCH, 1)):
-        args = kernel_inputs(rng, B, L, "cuda")
+    for B, L, views in fwd_cases():
+        args = fwd_inputs(rng, B, L, views)
         out = FP.fused_projection_cuda(*args, camera)
         ref = FP.fused_projection_reference(*args, camera)
+        # and the kernel's algorithm in plain PyTorch
+        algo = FP.fused_projection_fwd_algorithm(*args, camera)
         torch.cuda.synchronize()
-        err = (out - ref).abs()
-        err_xy = float(err[..., :2].max())
-        err_z = float(err[..., 2].max())
-        emit({"phase": "kernel", "B": B, "L": L, "max_abs_err_xy_px": err_xy,
-              "max_abs_err_depth": err_z, "finite": bool(
-                  torch.isfinite(out).all())})
-        if not (err_xy <= XY_TOL_PX and err_z <= DEPTH_TOL
-                and torch.isfinite(out).all()):
+        err_xy, err_z = proj_errs(out, ref)
+        algo_xy, algo_z = proj_errs(out, algo)
+        finite = bool(torch.isfinite(out).all())
+        emit({"phase": "kernel", "B": B, "L": L, "views": views,
+              "max_abs_err_xy_px": err_xy,
+              "max_abs_err_depth": err_z,
+              "vs_algorithm_max_abs_err_xy_px": algo_xy,
+              "vs_algorithm_max_abs_err_depth": algo_z, "finite": finite})
+        if not (max(err_xy, algo_xy) <= XY_TOL_PX
+                and max(err_z, algo_z) <= DEPTH_TOL and finite):
             raise AssertionError(
-                f"kernel disagrees with its plain version at B={B}, L={L}: "
-                f"xy {err_xy} px, depth {err_z}")
+                f"kernel disagrees with its plain version or its algorithm "
+                f"at B={B}, L={L}: xy {err_xy} / {algo_xy} px, depth "
+                f"{err_z} / {algo_z}")
         worst = max(worst, err_xy, err_z)
     return worst
 
@@ -608,20 +659,24 @@ def phase_kernel_train(camera):
 
     rng = np.random.default_rng(SEED + 1)
     worst_fwd = worst_bwd = 0.0
-    for B, L in ((1024, 16), (1000, 16), (5, 16), (BATCH, 1), (5, 2)):
-        args = kernel_inputs(rng, B, L, "cuda")
+    for B, L, views in fwd_cases(((5, 2),)):
+        args = fwd_inputs(rng, B, L, views)
         proj, abs_loc, states = FP.fused_projection_train_cuda_fwd(
             *args, camera)
         inputs = [t.clone().requires_grad_(True) for t in args]
         ref_proj, ref_abs = FP.fused_projection_train_reference(
             *inputs, camera)
         ref = (ref_proj.detach(), ref_abs.detach())
-        err_xy = float((proj - ref[0])[..., :2].abs().max())
-        err_z = float((proj - ref[0])[..., 2].abs().max())
+        err_xy, err_z = proj_errs(proj, ref[0])
         err_abs = float((abs_loc - ref[1]).abs().max())
         err_state = float((states.reshape(B, L, 26, 3, 3)
                            - K.accumulate_pose_changes(*args[::2])
                            ).abs().max())
+        # and the kernel's algorithm in plain PyTorch
+        algo = FP.fused_projection_fwd_algorithm(*args, camera, train=True)
+        algo_xy, algo_z = proj_errs(proj, algo[0])
+        algo_abs = float((abs_loc - algo[1]).abs().max())
+        algo_state = float((states - algo[2]).abs().max())
 
         g_proj, g_abs = (torch.from_numpy(rng.standard_normal(
             (B, L, 26, 3)).astype(np.float32)).cuda() for _ in range(2))
@@ -647,20 +702,25 @@ def phase_kernel_train(camera):
         same_bits = all(torch.equal(a, b) for a, b in zip(grads, again))
         finite = all(bool(torch.isfinite(t).all())
                      for t in (proj, abs_loc, states, *grads))
-        emit({"phase": "kernel_train", "B": B, "L": L,
+        emit({"phase": "kernel_train", "B": B, "L": L, "views": views,
               "fwd_max_abs_err_xy_px": err_xy,
               "fwd_max_abs_err_depth": err_z,
               "fwd_max_abs_err_abs_loc": err_abs,
               "fwd_max_abs_err_states": err_state,
+              "fwd_vs_algorithm_max_abs_err": {
+                  "xy_px": algo_xy, "depth": algo_z, "abs_loc": algo_abs,
+                  "states": algo_state},
               "bwd_max_scaled_err": {k: v[0] for k, v in bwd.items()},
               "bwd_max_abs_err": {k: v[2] for k, v in bwd.items()},
               "bwd_same_bits_twice": same_bits, "finite": finite})
-        if not (err_xy <= XY_TOL_PX and err_z <= DEPTH_TOL
-                and err_abs <= ABS_TOL and finite):
+        if not (max(err_xy, algo_xy) <= XY_TOL_PX
+                and max(err_z, algo_z) <= DEPTH_TOL
+                and max(err_abs, algo_abs) <= ABS_TOL and finite):
             raise AssertionError(
                 f"training forward kernel disagrees with its plain version "
-                f"at B={B}, L={L}: xy {err_xy} px, depth {err_z}, abs_loc "
-                f"{err_abs}")
+                f"or its algorithm at B={B}, L={L}: xy {err_xy} / {algo_xy} "
+                f"px, depth {err_z} / {algo_z}, abs_loc {err_abs} / "
+                f"{algo_abs}")
         bad = [k for k, v in bwd.items() if not v[1]]
         if bad or not same_bits:
             raise AssertionError(
@@ -908,15 +968,9 @@ def phase_timing(flow_f, flow_p, params, batches, card, hbm_rate):
         state = projection_state_for(meta["age_gender_idx"])
     args = (pose_changes, state.rel_loc, state.rel_rot)
     B, L, J = pose_changes.shape[:3]
-
-    # the least time: each input read once, the output written once
-    nbytes = 4 * (B * L * J * 9 + B * J * 3 + B * J * 9 + B * L * J * 3)
-    # per (clip, frame): compose 26 x 27 FMAs, FK 25 x 36 FMAs, projection
-    # 26 x (9 FMAs + 3 adds + 1 div + 6 ops); an FMA counts as 2 operations
-    nflop = B * L * (2 * (J * 27 + (J - 1) * 36 + J * 9) + J * 10)
-    bound_ms = max(nbytes / hbm_rate, nflop / FP32_PEAK) * 1e3
-    bound_by = "bytes" if nbytes / hbm_rate >= nflop / FP32_PEAK \
-        else "operations"
+    bound = serve_bound(B, L, J, hbm_rate)
+    nbytes, nflop = bound["bytes"], bound["flop"]
+    bound_ms, bound_by = bound["bound_ms"], bound["bound_by"]
 
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
 
@@ -939,6 +993,10 @@ def phase_timing(flow_f, flow_p, params, batches, card, hbm_rate):
             K.fk_planes(loc, rel9)
         plane = cuda_median_ms(plane_path)
 
+        shapes = time_forward_shapes(FP.fused_projection_cuda, camera,
+                                     flush_l2, hbm_rate, train=False)
+    projection_fwd_phase_split(camera, shapes)
+
     infer_f = make_inference_fn(flow_f, params)
     infer_p = make_inference_fn(flow_p, params)
     agi = meta["age_gender_idx"]
@@ -948,7 +1006,7 @@ def phase_timing(flow_f, flow_p, params, batches, card, hbm_rate):
           "kernel_ms_cold_l2": kernel_cold, "kernel_ms_warm_l2": kernel_warm,
           "plain_ms": plain, "bound_us": bound_ms * 1e3,
           "bound_by": bound_by, "bytes": nbytes, "flop": nflop,
-          "eager_plane_path_ms": plane,
+          "eager_plane_path_ms": plane, **shapes,
           "request_ms_fused": request_fused,
           "request_ms_plain": request_plain,
           "method": "CUDA events, median of %d single calls after 3 warm-up "
@@ -956,7 +1014,106 @@ def phase_timing(flow_f, flow_p, params, batches, card, hbm_rate):
                     "requests: host clock to torch.cuda.synchronize()"
                     % TIMING_RUNS})
     return {"ms": kernel_cold, "plain_ms": plain, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, **shapes}
+
+
+def serve_bound(B, L, J, hbm_rate):
+    """The least time of the serving kernel (row 1) at (B, L, J): each input
+    read once and the output written once over the memory rate, against its
+    float32 operations over the fp32 peak."""
+    nbytes = 4 * (B * L * J * 9 + B * J * 3 + B * J * 9 + B * L * J * 3)
+    # per (clip, frame): compose 26 x 27 FMAs, FK 25 x 36 FMAs, projection
+    # 26 x (9 FMAs + 3 adds + 1 div + 6 ops); an FMA counts as 2 operations
+    nflop = B * L * (2 * (J * 27 + (J - 1) * 36 + J * 9) + J * 10)
+    t_bytes, t_flop = nbytes / hbm_rate, nflop / FP32_PEAK
+    return {"bytes": nbytes, "flop": nflop,
+            "bound_ms": max(t_bytes, t_flop) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_flop else "operations"}
+
+
+def time_forward_shapes(fn, camera, flush, hbm_rate, train):
+    """Row 1 (``fused_projection_cuda``) or row 2
+    (``fused_projection_train_cuda_fwd``, ``train``) on seeded rotations at
+    B=1024 and each of FWD_TIMED_CLIPS: CUDA-event medians, L2 cold and
+    warm, beside the bound."""
+    rng = np.random.default_rng(SEED + 5)
+    out = {}
+    for L in FWD_TIMED_CLIPS:
+        args = kernel_inputs(rng, BATCH, L, "cuda")
+        J = args[0].shape[2]
+        bound = train_bounds(BATCH, L, J, hbm_rate)["fwd"] if train \
+            else serve_bound(BATCH, L, J, hbm_rate)
+        out[f"shape_B{BATCH}_L{L}"] = {
+            "ms_cold_l2": cuda_median_ms(lambda: fn(*args, camera),
+                                         flush=flush),
+            "ms_warm_l2": cuda_median_ms(lambda: fn(*args, camera)),
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+    return out
+
+
+def fk_split_source(source):
+    """The instrumented copy of row 1's ``source`` (PV2C_FK_SPLIT defined:
+    csrc/fk_forward.cuh), with the headers it includes, under
+    build/fk_split/."""
+    from pedestrians_video_2_carla_torch.ops import cuda_build
+
+    d = cuda_build.BUILD_DIR.parent / "fk_split"
+    d.mkdir(parents=True, exist_ok=True)
+    copy = d / source.name
+    copy.write_text("#define PV2C_FK_SPLIT\n" + source.read_text())
+    for header in cuda_build._local_headers(source):
+        shutil.copy(header, d / header.name)
+    return copy
+
+
+def projection_fwd_phase_split(camera, shapes):
+    """Row 1's phases at B=1024 and each of FWD_TIMED_CLIPS: one launch of
+    the instrumented copy (fk_split_source) with its counter on, each
+    phase's share of the thread blocks' cycles, and that share of the
+    kernel's cold-L2 time in ``shapes``. The copy's output must be the
+    kernel's, bit for bit."""
+    from pedestrians_video_2_carla_torch.ops import cuda_build
+    from pedestrians_video_2_carla_torch.ops import fused_projection as FP
+
+    lib = ctypes.CDLL(str(cuda_build.build_library(
+        fk_split_source(FP._SOURCE))))
+    entry = lib.pv2c_fused_projection
+    entry.argtypes = FP._SIGNATURES["serve"]["pv2c_fused_projection"]
+    lib.pv2c_fk_split_set.argtypes = [cuda_build.PTR]
+    rng = np.random.default_rng(SEED + 6)
+    split = {}
+    for L in FWD_TIMED_CLIPS:
+        args = kernel_inputs(rng, BATCH, L, "cuda")
+        out = torch.empty(args[0].shape[:3] + (3,), device="cuda")
+        cycles = torch.zeros(len(FK_SPLIT_PHASES), dtype=torch.int64,
+                             device="cuda")
+        cuda_build.check_launch(lib.pv2c_fk_split_set(cycles.data_ptr()),
+                                "pv2c_fk_split_set")
+        FP._launch(entry, out.device, *args, out, BATCH, L, camera)
+        torch.cuda.synchronize()
+        cuda_build.check_launch(lib.pv2c_fk_split_set(None),
+                                "pv2c_fk_split_set")
+        same = torch.equal(out, FP.fused_projection_cuda(*args, camera))
+        total = float(cycles.sum())
+        ms = shapes[f"shape_B{BATCH}_L{L}"]["ms_cold_l2"]
+        blocks = -(-BATCH // FP.fwd_plan(L)[0])
+        split[f"L{L}"] = {
+            "share": {k: c / total for k, c in zip(FK_SPLIT_PHASES,
+                                                   cycles.tolist())},
+            "cycles_a_thread_block": {
+                k: c / blocks for k, c in zip(FK_SPLIT_PHASES,
+                                              cycles.tolist())},
+            "us": {k: 1e3 * ms * c / total for k, c in zip(
+                FK_SPLIT_PHASES, cycles.tolist())},
+            "same_bits": same}
+        if not same:
+            raise AssertionError(f"the instrumented copy of row 1 differs "
+                                 f"from the kernel at L={L}")
+    emit({"phase": "projection_fwd_phase_split", "B": BATCH, **split,
+          "method": "clock64() cycles by thread 0 of each thread block, "
+                    "summed by phase over the thread blocks of one launch "
+                    "of an instrumented copy, as shares of the sum; us = "
+                    "share x the kernel's cold-L2 median"})
 
 
 def train_bounds(B, L, J, hbm_rate):
@@ -1041,6 +1198,8 @@ def phase_timing_train(dm, card, hbm_rate):
         o = FP.fused_projection_train_reference(*x, camera)
         torch.autograd.grad(o, x, (g_proj, g_abs))
 
+    shapes = time_forward_shapes(FP.fused_projection_train_cuda_fwd, camera,
+                                 flush_l2, hbm_rate, train=True)
     times = {"fwd_ms_cold_l2": cuda_median_ms(fwd, flush=flush_l2),
              "fwd_ms_warm_l2": cuda_median_ms(fwd),
              "bwd_ms_cold_l2": cuda_median_ms(bwd, flush=flush_l2),
@@ -1068,7 +1227,7 @@ def phase_timing_train(dm, card, hbm_rate):
         steps[name] = host_median_ms(lambda: f.training_step(st, batch))
     plane = host_median_ms(plane_outputs)
     emit({"phase": "timing_train", "card": card, "B": B, "L": L, **times,
-          "bounds": bounds,
+          "bounds": bounds, "fwd_shapes": shapes,
           "train_step_ms_fused_train": steps["fused_train"],
           "train_step_ms_plain": steps["plain"],
           "eager_plane_path_ms_standalone": plane,
@@ -1082,7 +1241,8 @@ def phase_timing_train(dm, card, hbm_rate):
                     "measurement inside the step" % (TIMING_RUNS,
                                                      TIMING_RUNS)})
     return {"fwd": {"ms": times["fwd_ms_cold_l2"],
-                    "plain_ms": times["plain_fwd_ms"], **bounds["fwd"]},
+                    "plain_ms": times["plain_fwd_ms"], **bounds["fwd"],
+                    **shapes},
             "bwd": {"ms": times["bwd_ms_cold_l2"],
                     "plain_ms": times["plain_bwd_ms"], **bounds["bwd"]}}
 

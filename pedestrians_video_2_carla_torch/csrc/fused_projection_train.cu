@@ -3,7 +3,7 @@
 //
 // Replace the TPU kernels of the JAX package's
 // ops/pallas/fused_projection.py reached through `fused_projection_train`:
-//   * fused_projection_train_fwd_kernel replaces `_fwd_train_kernel`
+//   * fk_forward_kernel<true> (fk_forward.cuh) replaces `_fwd_train_kernel`
 //     (`pl.pallas_call` in `_train_fwd_slabs`);
 //   * fused_projection_train_bwd_kernel replaces `_bwd_train_kernel`
 //     (`pl.pallas_call` in `_train_bwd`).
@@ -26,25 +26,18 @@
 // 42.2 MB and writes 16.6 MB (58.8 MB, 17.5 us). Their arithmetic (about
 // 64 and 163 MFLOP) takes 1 and 2.4 us at the float32 peak.
 //
-// Forward design: the serving kernel's layout. One warp per clip; lane
-// j < J owns bone j for the whole clip and carries 9 rotation floats in
-// registers.
-//   * The TPU kernels grid over (batch block, frame) and carry the rotation
-//     recurrence (forward) or its cotangent (backward) in VMEM from one grid
-//     step to the next; grid steps run in order there. CUDA blocks run in no
-//     order, so the forward's warp loops over its clip's frames itself, the
-//     carry in registers.
-//   * The FK walks the tree level by level through shared memory, with
-//     __syncwarp() between levels (a clip never leaves its warp).
-//   * The batch is not padded: a warp past the batch returns at once, and
-//     lanes >= J only take part in the warp barriers.
+// Forward: fk_forward_kernel<true> of fk_forward.cuh, the serving kernel's
+// template, which also writes abs_loc and the states (chunks of clips
+// staged by cp.async, the carry a thread a (clip, bone), then the FK level
+// by level, a thread a (frame, bone) of a level; the design is described
+// there).
 // The backward's design (frames in parallel, then the carry) is described
 // at its kernel. Its tree walks add a bone's children in a fixed order
 // (descending bone index, as the JAX kernel's reversed loop does) and it
 // uses no atomics: every run gives the same bits, the same as the earlier
 // warp-a-clip backward's.
-// The tree (parents, depths, children) is an argument built from the
-// skeleton's structure.json; the camera is 18 float constants.
+// The backward's tree (parents, depths, children) is an argument built from
+// the skeleton's structure.json; the camera is 18 float constants.
 //
 // The order of operations follows the TPU kernels. nvcc contracts
 // multiply-adds into FMAs, so results differ from the plain PyTorch version
@@ -53,12 +46,14 @@
 
 #include <cuda_runtime.h>
 
+// fk_forward.cuh includes mma_tf32.cuh; it stands here too because the
+// build hashes (ops/cuda_build.py) the headers a source names itself.
 #include "mma_tf32.cuh"
+#include "fk_forward.cuh"
 
 namespace {
 
 constexpr int kMaxBones = 32;
-constexpr int kWarpsPerBlock = 4;
 
 struct Tree {
   int parent[kMaxBones];
@@ -73,139 +68,9 @@ struct Tree {
   int widest;                  // the most bones on one level
 };
 
-struct Camera {
-  float r[9];  // world->view rotation, row-major (row-vector convention)
-  float t[3];
-  float fx, fy, px, py, w, h;
-};
-
-// One frame's FK for the calling lane's bone, level by level:
-//   abs_rot[b] = state[b] @ abs_rot[parent],
-//   abs_loc[b] = loc[b] @ abs_rot[parent] + abs_loc[parent].
-// Every lane of the warp calls it (the barriers are warp-wide). Returns the
-// bone's absolute location in `al` and its parent's absolute rotation in
-// `pr` (left unset for the root).
-__device__ __forceinline__ void fk_frame(const Tree& tree, int lane,
-                                         int depth, int parent,
-                                         const float (&state)[9],
-                                         const float (&loc)[3],
-                                         float (*s_rot)[9], float (*s_loc)[3],
-                                         float (&al)[3], float (&pr)[9]) {
-  for (int d = 0; d < tree.num_levels; ++d) {
-    if (depth == d) {
-      float ar[9];
-      if (d == 0) {
-#pragma unroll
-        for (int i = 0; i < 9; ++i) ar[i] = state[i];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) al[i] = loc[i];
-      } else {
-        float pl[3];
-#pragma unroll
-        for (int i = 0; i < 9; ++i) pr[i] = s_rot[parent][i];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) pl[i] = s_loc[parent][i];
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-#pragma unroll
-          for (int j = 0; j < 3; ++j)
-            ar[i * 3 + j] = state[i * 3 + 0] * pr[0 + j]
-                          + state[i * 3 + 1] * pr[3 + j]
-                          + state[i * 3 + 2] * pr[6 + j];
-#pragma unroll
-        for (int j = 0; j < 3; ++j)
-          al[j] = loc[0] * pr[j] + loc[1] * pr[3 + j] + loc[2] * pr[6 + j]
-                + pl[j];
-      }
-#pragma unroll
-      for (int i = 0; i < 9; ++i) s_rot[lane][i] = ar[i];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) s_loc[lane][i] = al[i];
-    }
-    __syncwarp();
-  }
-}
-
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-fused_projection_train_fwd_kernel(const float* __restrict__ changes,
-                                  const float* __restrict__ rel_loc,
-                                  const float* __restrict__ rel_rot,
-                                  float* __restrict__ proj,
-                                  float* __restrict__ abs_loc,
-                                  float* __restrict__ states,
-                                  int batch, int clip_length,
-                                  const __grid_constant__ Tree tree,
-                                  const __grid_constant__ Camera cam) {
-  __shared__ float s_rot[kWarpsPerBlock][kMaxBones][9];
-  __shared__ float s_loc[kWarpsPerBlock][kMaxBones][3];
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long clip = (long long)blockIdx.x * kWarpsPerBlock + warp;
-  if (clip >= batch) return;  // uniform over the warp
-
-  const int J = tree.num_bones;
-  const bool active = lane < J;
-  const int parent = active ? tree.parent[lane] : 0;
-  const int depth = active ? tree.depth[lane] : -1;
-
-  float loc[3], state[9], next[9];
-  const long long frame0 = (clip * clip_length * J + lane);  // (clip, 0, lane)
-  if (active) {
-#pragma unroll
-    for (int i = 0; i < 3; ++i) loc[i] = rel_loc[(clip * J + lane) * 3 + i];
-#pragma unroll
-    for (int i = 0; i < 9; ++i) state[i] = rel_rot[(clip * J + lane) * 9 + i];
-#pragma unroll
-    for (int i = 0; i < 9; ++i) next[i] = changes[frame0 * 9 + i];
-  }
-
-  for (int t = 0; t < clip_length; ++t) {
-    const long long row = frame0 + (long long)t * J;  // (clip, t, lane)
-    float c[9];
-#pragma unroll
-    for (int i = 0; i < 9; ++i) c[i] = next[i];
-    if (active && t + 1 < clip_length) {
-#pragma unroll
-      for (int i = 0; i < 9; ++i) next[i] = changes[(row + J) * 9 + i];
-    }
-
-    // S_t = C_t @ S_{t-1} (row-vector composition)
-    if (active) {
-      float s[9];
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j < 3; ++j)
-          s[i * 3 + j] = c[i * 3 + 0] * state[0 + j]
-                       + c[i * 3 + 1] * state[3 + j]
-                       + c[i * 3 + 2] * state[6 + j];
-#pragma unroll
-      for (int i = 0; i < 9; ++i) {
-        state[i] = s[i];
-        states[row * 9 + i] = s[i];
-      }
-    }
-
-    float al[3], pr[9];
-    fk_frame(tree, lane, depth, parent, state, loc, s_rot[warp], s_loc[warp],
-             al, pr);
-
-    if (active) {
-#pragma unroll
-      for (int i = 0; i < 3; ++i) abs_loc[row * 3 + i] = al[i];
-      // P3D pose -> world axes: (x, y, z) -> (y, -x, z); view + pinhole
-      const float wx = al[1], wy = -al[0], wz = al[2];
-      const float vx = wx * cam.r[0] + wy * cam.r[3] + wz * cam.r[6] + cam.t[0];
-      const float vy = wx * cam.r[1] + wy * cam.r[4] + wz * cam.r[7] + cam.t[1];
-      const float vz = wx * cam.r[2] + wy * cam.r[5] + wz * cam.r[8] + cam.t[2];
-      const float inv_z = 1.0f / vz;
-      proj[row * 3 + 0] = cam.w - (cam.fx * vx * inv_z + cam.px);
-      proj[row * 3 + 1] = cam.h - (cam.fy * vy * inv_z + cam.py);
-      proj[row * 3 + 2] = vz;
-    }
-  }
-}
+using fk::Camera;
+using fk::round4;
+using fk::stage_range;
 
 // The backward: frame-parallel tree terms, then the rotation carry.
 //
@@ -262,8 +127,6 @@ __host__ __device__ inline BwdPlan bwd_plan(int clip_length, int num_bones) {
   if (p.clips < 1) p.clips = 1;
   return p;
 }
-
-__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
 
 // Offsets into dynamic shared memory, in floats (each a multiple of 4):
 // the staged ranges (4 floats of slack each way for the alignment: states,
@@ -355,24 +218,6 @@ __device__ __forceinline__ void carry_inputs(
 #pragma unroll
     for (int i = 0; i < 9; ++i) sn[i] = prev[i];
   }
-}
-
-// Stage floats [a, a + count) of src (total floats in all, 16-byte aligned)
-// into dst with 16-byte copies from the 16-byte boundary at or below a,
-// reading nothing past total; returns where element a landed in dst.
-__device__ int stage_range(float* dst, const float* __restrict__ src,
-                           long long a, int count, long long total) {
-  const long long a0 = a & ~3LL;
-  const int off = static_cast<int>(a - a0);
-  const int vecs = (off + count + 3) / 4;
-  for (int i = threadIdx.x; i < vecs; i += blockDim.x) {
-    const long long e = a0 + 4LL * i;
-    const long long left = total - e;
-    cp_async16_part(dst + 4 * i, src + e,
-                    left >= 4 ? 16 : (left > 0 ? 4 * static_cast<int>(left)
-                                               : 0));
-  }
-  return off;
 }
 
 __global__ void __launch_bounds__(kBwdWarps * 32)
@@ -684,19 +529,6 @@ int make_tree(const int* parents, const int* depths, int num_bones,
   return 0;
 }
 
-Camera make_camera(const float* camera) {
-  Camera cam;
-  for (int i = 0; i < 9; ++i) cam.r[i] = camera[i];
-  for (int i = 0; i < 3; ++i) cam.t[i] = camera[9 + i];
-  cam.fx = camera[12];
-  cam.fy = camera[13];
-  cam.px = camera[14];
-  cam.py = camera[15];
-  cam.w = camera[16];
-  cam.h = camera[17];
-  return cam;
-}
-
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Pointers to device memory for the
@@ -708,17 +540,9 @@ extern "C" int pv2c_fused_projection_train_fwd(
     float* proj, float* abs_loc, float* states, int batch, int clip_length,
     const int* parents, const int* depths, int num_bones,
     const float* camera, void* stream) {
-  Tree tree;
-  const int err = make_tree(parents, depths, num_bones, &tree);
-  if (err != 0) return err;
-  if (batch < 0 || clip_length < 0) return (int)cudaErrorInvalidValue;
-  if (batch == 0 || clip_length == 0) return 0;
-  const int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  fused_projection_train_fwd_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                                      static_cast<cudaStream_t>(stream)>>>(
-      changes, rel_loc, rel_rot, proj, abs_loc, states, batch, clip_length,
-      tree, make_camera(camera));
-  return (int)cudaGetLastError();
+  return fk::launch_forward<true>(changes, rel_loc, rel_rot, proj, abs_loc,
+                                  states, batch, clip_length, parents, depths,
+                                  num_bones, camera, stream);
 }
 
 extern "C" int pv2c_fused_projection_train_bwd(
@@ -745,6 +569,6 @@ extern "C" int pv2c_fused_projection_train_bwd(
   fused_projection_train_bwd_kernel<<<blocks, kBwdWarps * 32, bytes,
                                       static_cast<cudaStream_t>(stream)>>>(
       changes, rel_loc, rel_rot, states, g_proj, g_abs, d_changes, d_rel_loc,
-      d_rel_rot, batch, clip_length, tree, make_camera(camera));
+      d_rel_rot, batch, clip_length, tree, fk::make_camera(camera));
   return (int)cudaGetLastError();
 }

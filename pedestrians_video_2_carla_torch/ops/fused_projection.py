@@ -11,10 +11,13 @@ The kernels replace the TPU kernels of the JAX package's
   * ``fused_projection_train_cuda_bwd`` replaces ``_bwd_train_kernel``
     (``_train_bwd``).
 On an H100 memory bounds all three: at B=1024, L=16 they move about 21.7,
-42.2 and 58.8 MB (6.5, 12.6 and 17.5 us at 3.35 TB/s). Their designs (the
-forwards: one warp per clip, a lane per bone, the FK walked level by level
-through shared memory; the backward: the frames' tree terms in parallel,
-then the rotation carry) are described in the sources.
+42.2 and 58.8 MB (6.5, 12.6 and 17.5 us at 3.35 TB/s). Their designs are
+described in the sources. The two forwards are one template
+(``csrc/fk_forward.cuh``): chunks of clips staged by ``cp.async``, the
+rotation carry a thread a (clip, bone), then the FK level by level, a thread
+a (frame, bone) of a level (``fused_projection_fwd_algorithm`` is that
+algorithm in plain PyTorch, ``fwd_plan`` its chunk plan). The backward computes the frames' tree terms
+in parallel, then the carry (``fused_projection_train_bwd_reference``).
 
 ``fused_projection`` and ``fused_projection_train`` launch the kernels for
 CUDA tensors and run the plain versions for CPU tensors; there is no
@@ -98,6 +101,13 @@ def _check_inputs(pose_changes, rel_loc, rel_rot):
                              f"{pose_changes.device}")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data does not start on a 16-byte
+    boundary (a view into a larger tensor): the kernels stage their inputs
+    with 16-byte copies from such boundaries."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(fn, device: torch.device, *args) -> None:
     """Call a C launcher on the current stream of ``device``: tensor
     arguments go as device pointers, then the tree and the camera."""
@@ -127,7 +137,8 @@ def fused_projection_cuda(pose_changes: torch.Tensor, rel_loc: torch.Tensor,
     if out.numel() == 0:
         return out
     _launch(_library("serve").pv2c_fused_projection, pose_changes.device,
-            pose_changes, rel_loc, rel_rot, out, B, L, camera)
+            *map(_aligned, (pose_changes, rel_loc, rel_rot)), out, B, L,
+            camera)
     fused_projection_cuda.launches += 1
     return out
 
@@ -140,6 +151,71 @@ def fused_projection_reference(pose_changes, rel_loc, rel_rot,
     """The plain PyTorch version: numerical reference and backward."""
     _, abs_loc, _ = K.relative_pose_over_clip(pose_changes, rel_loc, rel_rot)
     return C.project_pose(camera, abs_loc)
+
+
+#: the forward kernels' chunk plan (``csrc/fk_forward.cuh``: kUnits,
+#: kLongFrames, kMaxClips, kThreads): at most FWD_UNITS (clip, frame) units
+#: a chunk, FWD_LONG_FRAMES frames a chunk of a longer clip, FWD_MAX_CLIPS
+#: clips in a thread block of FWD_THREADS threads
+FWD_UNITS, FWD_LONG_FRAMES, FWD_MAX_CLIPS, FWD_THREADS = 32, 16, 8, 256
+
+
+def fwd_plan(clip_length: int) -> Tuple[int, int]:
+    """The forward kernels' ``(clips a thread block, frames a chunk)`` at
+    ``clip_length`` >= 1 (``fk::plan``): a clip of at most FWD_UNITS frames
+    is one chunk, shared with the clips that fit beside it; a longer one
+    has a thread block to itself and runs in chunks of FWD_LONG_FRAMES
+    frames, the carry passed from one to the next."""
+    if clip_length <= FWD_UNITS:
+        return min(FWD_UNITS // clip_length, FWD_MAX_CLIPS), clip_length
+    return 1, FWD_LONG_FRAMES
+
+
+def tree_levels(parents=PARENTS) -> Tuple[Tuple[Tuple[int, int], ...], ...]:
+    """The bones level by level (by depth, then index), each with its
+    parent (-1 for a root): the forward kernels' tree (``fk::make_tree``)."""
+    depth = []
+    for p in (int(p) for p in parents):
+        depth.append(depth[p] + 1 if p >= 0 else 0)
+    return tuple(tuple((j, int(parents[j])) for j in range(len(depth))
+                       if depth[j] == d) for d in range(max(depth) + 1))
+
+
+def fused_projection_fwd_algorithm(pose_changes, rel_loc, rel_rot,
+                                   camera: C.PinholeCamera,
+                                   train: bool = False):
+    """The forward kernels' algorithm in plain PyTorch, with the inputs and
+    outputs of ``fused_projection_cuda`` (``train=False``) or of
+    ``fused_projection_train_cuda_fwd`` (``train=True``: ``(proj, abs_loc,
+    states)``). First the rotation carry, S_t = C_t @ S_{t-1} (S_{-1} =
+    rel_rot), in the chunks of ``fwd_plan``, the carry passed from one to
+    the next. Then the FK of every frame at once, level by level
+    (``tree_levels``): abs_loc[b] = loc[b] @ abs_rot[parent] +
+    abs_loc[parent] and abs_rot[b] = S[b] @ abs_rot[parent]; then the
+    projection of abs_loc."""
+    B, L, J = pose_changes.shape[:3]
+    _, frames = fwd_plan(max(L, 1))
+    states = torch.empty_like(pose_changes)
+    carry = rel_rot
+    for t0 in range(0, L, frames):
+        for t in range(t0, min(t0 + frames, L)):
+            carry = pose_changes[:, t] @ carry
+            states[:, t] = carry
+    loc = rel_loc[:, None].expand(B, L, J, 3)
+    abs_rot, abs_loc = [None] * J, [None] * J
+    for level in tree_levels():
+        for b, p in level:
+            if p < 0:
+                abs_rot[b], abs_loc[b] = states[:, :, b], loc[:, :, b]
+                continue
+            abs_loc[b] = (loc[:, :, b, None] @ abs_rot[p])[..., 0, :] \
+                + abs_loc[p]
+            abs_rot[b] = states[:, :, b] @ abs_rot[p]
+    abs_loc = torch.stack(abs_loc, 2)
+    proj = C.project_pose(camera, abs_loc)
+    if train:
+        return proj, abs_loc, states.reshape(B, L, J, 9)
+    return proj
 
 
 class FusedProjection(torch.autograd.Function):
@@ -299,7 +375,8 @@ def fused_projection_train_cuda_fwd(pose_changes: torch.Tensor,
     if proj.numel() == 0:
         return proj, abs_loc, states
     _launch(_library("train").pv2c_fused_projection_train_fwd,
-            pose_changes.device, pose_changes, rel_loc, rel_rot,
+            pose_changes.device,
+            *map(_aligned, (pose_changes, rel_loc, rel_rot)),
             proj, abs_loc, states, B, L, camera)
     fused_projection_train_cuda_fwd.launches += 1
     return proj, abs_loc, states
@@ -338,8 +415,10 @@ def fused_projection_train_cuda_bwd(pose_changes: torch.Tensor,
         return d_changes, torch.zeros_like(rel_loc), torch.zeros_like(rel_rot)
     d_rel_loc, d_rel_rot = torch.empty_like(rel_loc), torch.empty_like(rel_rot)
     _launch(_library("train").pv2c_fused_projection_train_bwd,
-            pose_changes.device, pose_changes, rel_loc, rel_rot, states,
-            g_proj, g_abs, d_changes, d_rel_loc, d_rel_rot, B, L, camera)
+            pose_changes.device,
+            *map(_aligned, (pose_changes, rel_loc, rel_rot, states, g_proj,
+                            g_abs)),
+            d_changes, d_rel_loc, d_rel_rot, B, L, camera)
     fused_projection_train_cuda_bwd.launches += 1
     return d_changes, d_rel_loc, d_rel_rot
 

@@ -1,10 +1,15 @@
 """Port parity for the fused FK + projection: the plain PyTorch version and
 the ``"fused"`` route (which runs the plain version for CPU tensors) against
 the JAX package's Pallas kernel (interpret mode on the CPU, as
-tests/ops/test_pallas_fused.py runs it) and its XLA reference; the autograd
-wrapper's gradients against ``jax.grad``; input checks; and, on a CUDA card
-only, the CUDA kernel against the plain version."""
+tests/ops/test_pallas_fused.py runs it) and its XLA reference; the forward
+kernels' algorithm in plain PyTorch against the JAX serving and training
+kernels, and its chunk plan against the CUDA source's constants; the
+autograd wrapper's gradients against ``jax.grad``; input checks; and, on a
+CUDA card only, the CUDA kernels against the plain version and the
+algorithm."""
 import functools
+import re
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -14,15 +19,19 @@ import torch
 
 from pedestrians_video_2_carla_tpu.ops import camera as JC
 from pedestrians_video_2_carla_tpu.ops.pallas.fused_projection import (
+    _train_fwd as j_train_fwd,
     fused_projection as j_fused_projection, fused_projection_pallas,
     fused_projection_reference as j_reference,
     fused_projection_train as j_fused_projection_train)
 from pedestrians_video_2_carla_tpu.skeletons.carla import reference_poses_tensor
 
 from pedestrians_video_2_carla_torch.ops import camera as TC
+from pedestrians_video_2_carla_torch.ops import cuda_build
 from pedestrians_video_2_carla_torch.ops import fused_projection as FP
 from pedestrians_video_2_carla_torch.ops import kinematics as K
 from pedestrians_video_2_carla_torch.ops.projection import ProjectionModule
+from pedestrians_video_2_carla_torch.skeletons.carla import (BONE_DEPTHS,
+                                                             PARENTS)
 
 from .ops.np_reference import random_rotation_matrices
 
@@ -166,6 +175,107 @@ def test_train_backward_decomposition_matches_jax(batch):
     _assert_grads_close([g.numpy() for g in got], [r[:batch] for r in refs])
 
 
+#: the forward algorithm's cases against the JAX kernels: clips longer than
+#: one chunk (the carry passed from chunk to chunk), one frame a clip with
+#: more clips than a thread block takes, and ``_pallas_case``'s batch (fewer
+#: clips than a thread block takes)
+_FWD_CASES = {"long": (2, FP.FWD_UNITS + 1), "one_frame":
+              (FP.FWD_MAX_CLIPS + 1, 1), "ragged": (B, L)}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fwd_case(name):
+    """Seeded inputs, the JAX serving kernel's projections on them and the
+    JAX training kernel's ``(proj, abs_loc, states)``, in interpret mode,
+    one call each (about 3 to 10 s). The serving kernel's body holds the
+    whole clip, and its interpret-mode compile grows past minutes at a few
+    dozen frames, so the long case holds the serving algorithm to the
+    training kernel's projections, the same function."""
+    if name == "ragged":
+        changes, locs, rots, pallas = _pallas_case()
+    else:
+        batch, clip = _FWD_CASES[name]
+        changes, locs, rots = _inputs(np.random.default_rng(31), batch, clip)
+        pallas = None if name == "long" else np.asarray(
+            fused_projection_pallas(jnp.asarray(changes), jnp.asarray(locs),
+                                    jnp.asarray(rots), JC.make_camera()))
+    (proj, abs_loc), residuals = j_train_fwd(
+        jnp.asarray(changes), jnp.asarray(locs), jnp.asarray(rots),
+        JC.make_camera())
+    # the states' slabs (L, 9, J, padded B) -> (B, L, J, 9)
+    states = np.asarray(jnp.transpose(residuals[3], (3, 0, 2, 1)))
+    trained = (np.asarray(proj), np.asarray(abs_loc),
+               states[:changes.shape[0]])
+    return (changes, locs, rots), \
+        trained[0] if pallas is None else pallas, trained
+
+
+def _assert_proj_close(got, ref):
+    np.testing.assert_allclose(got[..., :2], ref[..., :2], atol=1e-3)  # px
+    np.testing.assert_allclose(got[..., 2], ref[..., 2], atol=1e-4)
+
+
+@pytest.mark.parametrize("case", list(_FWD_CASES))
+def test_fwd_algorithm_matches_jax_serving_kernel(case):
+    # the serving kernel's algorithm (chunked carry, FK level by level)
+    inputs, pallas, _ = _jax_fwd_case(case)
+    got = FP.fused_projection_fwd_algorithm(*_t(*inputs),
+                                            TC.make_camera()).numpy()
+    assert got.shape == pallas.shape
+    _assert_proj_close(got, pallas)
+
+
+@pytest.mark.parametrize("case", list(_FWD_CASES))
+def test_fwd_algorithm_matches_jax_training_kernel(case):
+    # the training forward's: proj, abs_loc and the carried states, which
+    # are also the plane algebra's accumulate_pose_changes
+    inputs, _, (proj, abs_loc, states) = _jax_fwd_case(case)
+    changes, locs, rots = _t(*inputs)
+    got = FP.fused_projection_fwd_algorithm(changes, locs, rots,
+                                            TC.make_camera(), train=True)
+    _assert_proj_close(got[0].numpy(), proj)
+    np.testing.assert_allclose(got[1].numpy(), abs_loc, atol=1e-5)
+    np.testing.assert_allclose(got[2].numpy(), states, atol=1e-5)
+    carried = K.accumulate_pose_changes(changes, rots)
+    np.testing.assert_allclose(
+        got[2].numpy(), carried.reshape(got[2].shape).numpy(), atol=1e-5)
+
+
+def test_fwd_plan_mirror_matches_the_source():
+    # the plan's constants as csrc/fk_forward.cuh has them, and the plan
+    text = (cuda_build.CSRC / "fk_forward.cuh").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", text))
+    assert (FP.FWD_UNITS, FP.FWD_LONG_FRAMES, FP.FWD_MAX_CLIPS,
+            FP.FWD_THREADS) == tuple(int(consts[k]) for k in (
+                "kUnits", "kLongFrames", "kMaxClips", "kThreads"))
+    for clip in range(1, 3 * FP.FWD_UNITS):
+        clips, frames = FP.fwd_plan(clip)
+        if clip <= FP.FWD_UNITS:   # whole clips a chunk
+            assert frames == clip
+            assert clips == min(FP.FWD_UNITS // clip, FP.FWD_MAX_CLIPS)
+        else:                      # a thread block a clip, chunk by chunk
+            assert (clips, frames) == (1, FP.FWD_LONG_FRAMES)
+
+
+def test_tree_levels_follow_the_skeleton():
+    levels = FP.tree_levels()
+    assert sorted(b for level in levels for b, _ in level) == list(range(26))
+    for d, level in enumerate(levels):
+        assert [b for b, _ in level] == sorted(b for b, _ in level)
+        for b, p in level:
+            assert (BONE_DEPTHS[b], PARENTS[b]) == (d, p)
+
+
+def test_misaligned_views_are_copied_to_an_aligned_start():
+    # the kernels stage their inputs with 16-byte copies
+    x = torch.arange(40, dtype=torch.float32)
+    assert FP._aligned(x) is x
+    view = x[1:]
+    assert view.data_ptr() % 16 != 0
+    copy = FP._aligned(view)
+    assert copy.data_ptr() % 16 == 0 and torch.equal(copy, view)
+
+
 @pytest.mark.parametrize("bad", ["float64", "joints", "rel_loc", "rel_rot",
                                  "rank"])
 def test_rejects_bad_inputs(rng, bad):
@@ -205,6 +315,8 @@ def test_library_path_follows_the_source(tmp_path, monkeypatch):
     first = FP.library_path()
     src = tmp_path / "fused_projection.cu"
     src.write_bytes(FP._SOURCE.read_bytes() + b"\n// edited\n")
+    for header in cuda_build._local_headers(FP._SOURCE):  # its includes
+        shutil.copy(header, tmp_path / header.name)
     monkeypatch.setattr(FP, "_SOURCE", src)
     assert FP.library_path() != first
     assert FP.library_path().parent == FP.BUILD_DIR
@@ -281,4 +393,43 @@ def test_cuda_train_backward_matches_decomposition(cuda_device, batch, clip):
     refs = FP.fused_projection_train_bwd_reference(*args, cam)
     torch.cuda.synchronize()
     _assert_grads_close([g.cpu().numpy() for g in grads],
+                        [r.cpu().numpy() for r in refs])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,clip", [(1024, 16), (1024, 1), (1024, 81),
+                                        (3, 81)])
+def test_cuda_forwards_match_algorithm_and_plain(rng, cuda_device, batch,
+                                                 clip):
+    args = tuple(t.to(cuda_device) for t in _t(*_inputs(rng, batch, clip)))
+    cam = TC.make_camera()
+    out = FP.fused_projection_cuda(*args, cam)
+    proj, abs_loc, states = FP.fused_projection_train_cuda_fwd(*args, cam)
+    algo = FP.fused_projection_fwd_algorithm(*args, cam, train=True)
+    plain = FP.fused_projection_reference(*args, cam)
+    torch.cuda.synchronize()
+    for got in (out, proj):
+        for ref in (algo[0], plain):
+            err = (got - ref).abs()
+            assert float(err[..., :2].max()) <= 1e-3      # pixels
+            assert float(err[..., 2].max()) <= 1e-4       # metres
+    assert float((abs_loc - algo[1]).abs().max()) <= 1e-5
+    assert float((states - algo[2]).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_take_misaligned_views(rng, cuda_device):
+    # views 936 and 312 bytes into their storage: the wrappers copy them
+    args = tuple(t.to(cuda_device)[1:] for t in _t(*_inputs(rng, 5, 1)))
+    assert all(t.data_ptr() % 16 for t in args)
+    cam = TC.make_camera()
+    plain = FP.fused_projection_reference(*args, cam)
+    proj, _, states = FP.fused_projection_train_cuda_fwd(*args, cam)
+    g = torch.ones_like(proj)
+    grads = FP.fused_projection_train_cuda_bwd(*args, states, g, g, cam)
+    refs = FP.fused_projection_train_bwd_reference(*args, states, g, g, cam)
+    torch.cuda.synchronize()
+    for got in (FP.fused_projection_cuda(*args, cam), proj):
+        assert float((got - plain)[..., :2].abs().max()) <= 1e-3
+    _assert_grads_close([x.cpu().numpy() for x in grads],
                         [r.cpu().numpy() for r in refs])
