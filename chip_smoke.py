@@ -248,10 +248,60 @@ Phases, each printing one JSON line:
                      steps: device busy share, top device operations, the
                      shares of rows 10 and 11, row 11 split into its reverse
                      scan and its weight-gradient products.
-Then the card line, the kernels line, and the contract line last. Any
-failure raises and ends the run with a non-zero exit.
+ 21. serve_autoencoder -- BASELINE config 2 (bench.py:685-696):
+                     Seq2SeqEmbeddings (hidden 64, 2 layers, dropout 0.2,
+                     embeddings 64, no_force; seeded init), pose_2d outputs,
+                     AutoencoderFlow(loc_2d), Carla2D3D test batches (B=256,
+                     L=16) -> make_inference_fn, 8 requests with
+                     rnn_kernel="fused": 2 dense LSTM forward launches a
+                     request (the encoder's layers), none else; outputs
+                     finite and equal to the rnn_kernel="plain" model's on
+                     the same weights within 1e-5 of max |plain|; eval_step's
+                     loc_2d and metrics equal to rtol 1e-4.
+ 22. train_autoencoder -- Trainer.fit of config 2 (AdamW lr 1e-3), 10 steps
+                     and 2 validation batches, fused and plain from the same
+                     weights and generator seed (the dropout masks the
+                     same), the fused fit twice: 2 dense forward (keep) and
+                     2 dense backward launches a step (the top layer's
+                     backward fed the decoder's cotangents of its final c
+                     and h alone), 2 forward launches a validation batch,
+                     none on the plain route; losses equal to rtol 1e-4,
+                     the fused fit's the same bits twice; val MSE, PCKhn@01,
+                     PCK@005 and the baseline's MJR equal within 1e-5; the
+                     last checkpoint restores params and AdamW state
+                     exactly; one training_step's gradients through the
+                     kernels against the plain route's (rtol 1e-4 / atol
+                     1e-5 of each leaf's largest).
+ 23. timing_autoencoder -- host-clock and CUDA-event medians of config 2's
+                     training_step and request, fused and plain; a
+                     CUDA-event split of each step (the encoder: its
+                     input products and scans; the scans alone; the decoder
+                     loop; the rest of the forward; the scans' backward;
+                     the rest of the backward; AdamW) and request; the dense
+                     LSTM kernels at this shape (training forward and
+                     backward with the cell states' cotangent) beside their
+                     bounds from ops/flops.py.
+ 24. train_options -- LinearAE (config 1, B=1024, L=16), loc_2d_loc_rot_3d,
+                     gradient_clip_val 1.0, the movements optimizer on
+                     StepLR (step_size 1, gamma 0.5) over 2-step epochs:
+                     Trainer.fit of 2 epochs with projection_kernel
+                     "fused_train" and "plain" from the same weights; the
+                     losses, the lrs current_lrs reports (they move at the
+                     epoch's edge) and the validation pose metrics (MPJPE,
+                     MRPE, FB_*) equal to rtol 1e-4; rows 2 and 3 launched
+                     (4 + 2 forward, 4 backward), none on the plain route.
+     cli_options  -- the CLI (modeling.main) on the card, 2 steps and a
+                     validation batch each at B=64, L=16, clipped, the
+                     three LR schedules in turn: config 2 on both encoder
+                     routes, LinearAE with each new loss mode on both
+                     projection routes; finite losses and metrics.
+Then the card line, the kernels line (config 2's and the train-options
+phase's launches beside the dense LSTM and projection-training entries),
+and the contract line last. Any failure raises and ends the run with a
+non-zero exit.
 """
 import ctypes
+import functools
 import json
 import os
 import re
@@ -429,6 +479,14 @@ DENSE_LSTM_PAST = (CLS_BATCH, CLIP, 1, DENSE_LSTM_MAX_H + 1, 1)
 #: input products summed in different orders)
 DENSE_LAYER_INPUTS = (2 * CLS_J, CLS_DENSE[3])
 LAYER_BAR = 1e-4
+#: BASELINE config 2 (bench.py:685-696): Seq2SeqEmbeddings at its published
+#: widths, pose_2d outputs, loc_2d, B=256, L=16; its fit's steps and
+#: validation batches; the bar of the fused route's outputs and metrics
+#: against the plain route's (of max |plain|)
+AE_BATCH, AE_TRAIN_STEPS, AE_VAL_BATCHES, AE_LAYERS = 256, 10, 2, 2
+AE_BAR = 1e-5
+#: the training-options phase: config 1 over 2-step epochs, 2 epochs
+OPT_EPOCH_STEPS, OPT_EPOCHS = 2, 2
 #: H100 memory rates (NVIDIA data sheets), bytes/s, and the float32 (non
 #: tensor-core) peak of the SXM part, FLOP/s
 HBM_RATE = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
@@ -3561,6 +3619,543 @@ def phase_profile_classification_train(dm, card):
           "row11_dw_share": share(ROW11_DW_KERNELS)})
 
 
+def make_ae_flow(kernel):
+    """BASELINE config 2's flow with the encoder on ``kernel``'s route."""
+    from pedestrians_video_2_carla_torch.flows.autoencoder import \
+        AutoencoderFlow
+    from pedestrians_video_2_carla_torch.flows.output_types import \
+        MovementsModelOutputType
+    from pedestrians_video_2_carla_torch.models.base import OptimizerSettings
+    from pedestrians_video_2_carla_torch.models.movements.seq2seq import \
+        Seq2SeqEmbeddings
+
+    model = Seq2SeqEmbeddings(
+        movements_output_type=MovementsModelOutputType.pose_2d,
+        rnn_kernel=kernel, generator=torch.Generator().manual_seed(SEED))
+    if (model.hidden_size, model.num_layers, model.p_dropout,
+            model.single_joint_embeddings_size, model.teacher_mode) \
+            != (64, AE_LAYERS, 0.2, 64, "no_force"):
+        raise AssertionError("Seq2SeqEmbeddings' defaults changed")
+    return AutoencoderFlow(model, loss_modes=["loc_2d"],
+                           movements_optimizer=OptimizerSettings(lr=LR),
+                           seed=SEED)
+
+
+def phase_serve_autoencoder(batches):
+    from pedestrians_video_2_carla_torch.serving import make_inference_fn
+
+    t0 = time.perf_counter()
+    flow, plain = make_ae_flow("fused"), make_ae_flow("plain")
+    params = flow.init_params()
+    infer, infer_p = (make_inference_fn(f, params) for f in (flow, plain))
+    reset_kernel_counts()
+    served = []
+    for i, (inputs, _, meta) in enumerate(batches):
+        served.append(infer(inputs, meta["age_gender_idx"]))
+        if kernel_counts() != expected_counts(
+                dense_lstm_scan=AE_LAYERS * (i + 1)):
+            raise AssertionError(f"request {i}: launches {kernel_counts()}")
+    torch.cuda.synchronize()
+    launches = kernel_counts()["dense_lstm_scan"]
+    key = flow.outputs_key
+    worst = 0.0
+    for preds, (inputs, _, meta) in zip(served, batches):
+        out = preds[key]
+        if out.shape != (AE_BATCH, CLIP, 26, 2) or \
+                not torch.isfinite(out).all():
+            raise AssertionError(f"{key}: {tuple(out.shape)} or not finite")
+        worst = max(worst, bar_err(
+            out, infer_p(inputs, meta["age_gender_idx"])[key])[1])
+    if worst > AE_BAR:
+        raise AssertionError(f"fused vs plain outputs: {worst}")
+    rows = []
+    for batch in batches[:2]:
+        row = {}
+        for route, f in (("fused", flow), ("plain", plain)):
+            loss, preds, targets = f.eval_step(params, batch)
+            metrics = f.metrics.compute(f.metrics.update(
+                f.metrics.init_state(f.device), preds, targets))
+            row[route] = {"loc_2d": float(loss["loc_2d"]),
+                          **{k: float(v) for k, v in metrics.items()}}
+        for k, b in row["plain"].items():
+            a = row["fused"][k]
+            if not (np.isfinite(a) and abs(a - b) <= LOSS_RTOL * abs(b)):
+                raise AssertionError(f"{k}: fused {a} vs plain {b}")
+        rows.append(row)
+    emit({"phase": "serve_autoencoder", "B": AE_BATCH, "L": CLIP,
+          "requests": len(batches), "launches": launches,
+          "max_err_over_max_plain": worst,
+          "eval_fused_vs_plain": rows, "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def fit_autoencoder(flow, dm, run_name, expected):
+    """Trainer.fit of config 2: counted launches, the step losses, the last
+    epoch record, the baseline's metrics, and an exact restore."""
+    from pedestrians_video_2_carla_torch.training.trainer import (
+        Trainer, TrainerConfig)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(flow, dm, TrainerConfig(
+            max_epochs=1, limit_train_batches=AE_TRAIN_STEPS,
+            limit_val_batches=AE_VAL_BATCHES, log_every_n_steps=1,
+            seed=SEED, logs_dir=tmp, run_name=run_name))
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        state = trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = kernel_counts()
+        if counts != expected_counts(**expected):
+            raise AssertionError(f"{run_name} launches {counts}, expected "
+                                 f"{expected}")
+        run = os.path.join(tmp, run_name)
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        with open(os.path.join(run, "hparams.json")) as f:
+            initial = {k: v for k, v in json.load(f).items()
+                       if k.startswith("initial_")}
+        losses = [r["train_loss/primary"] for r in records
+                  if "lr-movements" in r]
+        last = records[-1]
+        bad = [k for r in records for k, v in r.items()
+               if "_loss/" in k and not np.isfinite(v)]
+        if bad or len(losses) != AE_TRAIN_STEPS or "initial_MJR" \
+                not in initial or any(f"val_{m}" not in last for m in (
+                    "MSE", "PCKhn@01", "PCK@005")):
+            raise AssertionError(f"{run_name}: non-finite {bad}, {len(losses)}"
+                                 f" steps, initial {initial}, last {last}")
+        restored = flow.init_state()
+        trainer.checkpoints.restore(restored,
+                                    os.path.join(run, "checkpoints", "last"))
+        opt, opt_back = (st.optimizer.state_dict()["state"]
+                         for st in (state, restored))
+        same = all(torch.equal(restored.params[n][k], v)
+                   for n, tree in state.params.items()
+                   for k, v in tree.items()) and all(
+            torch.equal(torch.as_tensor(v), torch.as_tensor(opt_back[i][k]))
+            for i, st in opt.items() for k, v in st.items())
+        if not (same and restored.step == state.step == AE_TRAIN_STEPS):
+            raise AssertionError(f"{run_name}: the last checkpoint does not "
+                                 f"restore the params and AdamW state")
+    return {"counts": {k: v for k, v in counts.items() if v},
+            "losses": losses, "initial": initial, "fit_s": fit_s,
+            "val": {k: v for k, v in last.items() if k.startswith("val_")}}
+
+
+def phase_train_autoencoder(dm):
+    t0 = time.perf_counter()
+    batches = AE_TRAIN_STEPS + AE_VAL_BATCHES
+    fused = {"dense_lstm_scan": AE_LAYERS * batches,
+             "dense_lstm_scan_bwd": AE_LAYERS * AE_TRAIN_STEPS}
+    fits = {"fused": fit_autoencoder(make_ae_flow("fused"), dm, "ae", fused),
+            "fused_again": fit_autoencoder(make_ae_flow("fused"), dm,
+                                           "ae_again", fused),
+            "plain": fit_autoencoder(make_ae_flow("plain"), dm, "ae_plain",
+                                     {})}
+    if fits["fused"]["losses"] != fits["fused_again"]["losses"]:
+        raise AssertionError("the fused fit did not repeat its losses")
+    worst = 0.0
+    for a, b in zip(fits["fused"]["losses"], fits["plain"]["losses"]):
+        worst = max(worst, abs(a - b) / abs(b))
+    if worst > LOSS_RTOL:
+        raise AssertionError(f"fused vs plain losses {worst}")
+    # losses to rtol 1e-4, the metrics (MSE, the PCKs, MJR) within 1e-5
+    metric_err = 0.0
+    for group in ("val", "initial"):
+        for k, b in fits["plain"][group].items():
+            a = fits["fused"][group][k]
+            if "_loss/" in k:
+                ok = abs(a - b) <= LOSS_RTOL * abs(b)
+            else:
+                metric_err = max(metric_err, abs(a - b))
+                ok = abs(a - b) <= AE_BAR
+            if not (ok and np.isfinite(a)):
+                raise AssertionError(f"{k}: fused {a} vs plain {b}")
+
+    # one training_step's gradients through the kernels and the plain loop,
+    # from the same weights, batch and dropout masks
+    routes = {r: make_ae_flow(r) for r in ("fused", "plain")}
+    params = routes["fused"].init_params()
+    states = {r: f.init_state(params) for r, f in routes.items()}
+    batch = next(dm.train_batches(SEED + 5))
+    for r, f in routes.items():
+        f.training_step(states[r], batch)
+    grads = {}
+    for k, p in states["fused"].params["movements"].items():
+        grads[k], ok = scaled_err(
+            p.grad, states["plain"].params["movements"][k].grad)
+        if not ok:
+            raise AssertionError(f"gradient {k}: {grads[k]}")
+    emit({"phase": "train_autoencoder", "B": AE_BATCH, "L": CLIP,
+          "steps": AE_TRAIN_STEPS, "val_batches": AE_VAL_BATCHES,
+          "launches": fits["fused"]["counts"],
+          "fit_seconds": {r: v["fit_s"] for r, v in fits.items()},
+          "train_loss_primary": {r: fits[r]["losses"]
+                                 for r in ("fused", "plain")},
+          "fused_vs_plain_max_rel": worst, "same_bits_twice": True,
+          "val": {r: fits[r]["val"] for r in ("fused", "plain")},
+          "initial": fits["fused"]["initial"],
+          "metrics_max_err": metric_err, "restored_equal": True,
+          "step_grad_max_scaled_err": max(grads.values()),
+          "seconds": time.perf_counter() - t0})
+    return fits["fused"]["counts"]
+
+
+def ae_step_split(flow, state, batch, params, fused):
+    """CUDA-event split of config 2's training_step (its body with events
+    between forward, backward and AdamW) and of a request (the model's
+    forward under no_grad), around the encoder (input products and
+    scans), each scan entry, each decoder step and, on the fused route,
+    each scan's backward. Medians of TIMING_RUNS."""
+    from pedestrians_video_2_carla_torch.models import rnn as R
+    from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
+
+    model = flow.movements_model
+    marks = {"encoder": [], "scan": [], "decoder": [], "scan_bwd": []}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            marks[name].append((start, end))
+            return out
+        return run
+    saved = (R.graph_lstm_scan, FG.GraphLSTMScan.backward)
+    model._encode = timed("encoder", model._encode)
+    model.decoder.step = timed("decoder", model.decoder.step)
+    R.graph_lstm_scan = timed("scan", saved[0])
+    FG.GraphLSTMScan.backward = staticmethod(timed("scan_bwd", saved[1]))
+    steps, requests = [], []
+    try:
+        for _ in range(TIMING_RUNS):
+            for v in marks.values():
+                v.clear()
+            torch.cuda._sleep(2_000_000)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            sliced = flow._inner_step(state.params, batch, training=True)
+            loss = flow._compute_losses(sliced, sliced["targets"])["loc_2d"]
+            ev[1].record()
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            ev[2].record()
+            state.optimizer.step()
+            ev[3].record()
+            ev[3].synchronize()
+            spent = {k: sum(a.elapsed_time(b) for a, b in v)
+                     for k, v in marks.items()}
+            forward = ev[0].elapsed_time(ev[1])
+            backward = ev[1].elapsed_time(ev[2])
+            steps.append((ev[0].elapsed_time(ev[3]), forward,
+                          spent["encoder"], spent["scan"], spent["decoder"],
+                          forward - spent["encoder"] - spent["decoder"],
+                          backward, spent["scan_bwd"],
+                          backward - spent["scan_bwd"],
+                          ev[2].elapsed_time(ev[3])))
+            for v in marks.values():
+                v.clear()
+            torch.cuda._sleep(2_000_000)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            with torch.no_grad():
+                flow._inner_step(params, batch, training=False)
+            end.record()
+            end.synchronize()
+            spent = {k: sum(a.elapsed_time(b) for a, b in v)
+                     for k, v in marks.items()}
+            total = start.elapsed_time(end)
+            requests.append((total, spent["encoder"], spent["scan"],
+                             spent["decoder"],
+                             total - spent["encoder"] - spent["decoder"]))
+    finally:
+        del model._encode, model.decoder.step
+        R.graph_lstm_scan = saved[0]
+        FG.GraphLSTMScan.backward = staticmethod(saved[1])
+    step = dict(zip(("step_ms", "forward_ms", "encoder_ms",
+                     "encoder_scans_ms", "decoder_loop_ms",
+                     "forward_rest_ms", "backward_ms", "scans_backward_ms",
+                     "backward_rest_ms", "adamw_ms"),
+                    (statistics.median(c) for c in zip(*steps))))
+    request = dict(zip(("request_ms", "encoder_ms", "encoder_scans_ms",
+                        "decoder_loop_ms", "rest_ms"),
+                       (statistics.median(c) for c in zip(*requests))))
+    if not fused:
+        # the plain route's scans are the loop's ops inside the encoder,
+        # their backward autograd of them inside the rest of the backward
+        for split in (step, request):
+            del split["encoder_scans_ms"]
+        del step["scans_backward_ms"]
+    return step, request
+
+
+def paired_host_ms(fns, pairs=2 * TIMING_PAIRS):
+    """Two callables (a dict of two) in alternating single calls (a, b, b,
+    a, ...), host clock to torch.cuda.synchronize(): each one's median,
+    the median of the first's time over the second's, and the share of
+    pairs the first won."""
+    (name_a, a), (name_b, b) = fns.items()
+    for fn in (a, b):
+        for _ in range(3):
+            fn()
+    times = {name_a: [], name_b: []}
+    for i in range(pairs):
+        for name, fn in ((name_a, a), (name_b, b))[::1 if i % 2 == 0 else -1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    ratios = [x / y for x, y in zip(times[name_a], times[name_b])]
+    return {"pairs": pairs,
+            **{f"{k}_ms_median": statistics.median(v)
+               for k, v in times.items()},
+            f"{name_a}_over_{name_b}_median": statistics.median(ratios),
+            f"{name_a}_wins": sum(r < 1 for r in ratios) / pairs}
+
+
+def phase_timing_autoencoder(dm, card, hbm_rate):
+    from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
+    from pedestrians_video_2_carla_torch.serving import make_inference_fn
+
+    t0 = time.perf_counter()
+    batch = next(dm.train_batches(SEED + 9))
+    inputs, _, meta = next(dm.test_batches())
+    routes, steps, requests = {}, {}, {}
+    for route in ("fused", "plain"):
+        flow = make_ae_flow(route)
+        state, params = flow.init_state(), flow.init_params()
+        infer = make_inference_fn(flow, params)
+        steps[route] = functools.partial(flow.training_step, state, batch)
+        requests[route] = functools.partial(infer, inputs,
+                                            meta["age_gender_idx"])
+        split_step, split_request = ae_step_split(flow, state, batch,
+                                                  params, route == "fused")
+        trace, share = profile_steps(steps[route])
+        routes[route] = {
+            "train_step_ms_host": host_median_ms(steps[route]),
+            "train_step_ms_cuda_events": cuda_median_ms(steps[route]),
+            "request_ms_host": host_median_ms(requests[route]),
+            "request_ms_cuda_events": cuda_median_ms(requests[route]),
+            "train_step_split_cuda_events": split_step,
+            "request_split_cuda_events": split_request,
+            "train_step_profile": {**trace,
+                                   "dense_kernels_share": share(
+                                       ("dense_lstm", "dw_tf32",
+                                        "reduce_two"))}}
+    pairs = {"train_step": paired_host_ms(steps),
+             "request": paired_host_ms(requests)}
+
+    # the dense kernels at this path's shape (its encoder layers: J=1,
+    # H=64, B=256, L=16), beside their bounds
+    rng = np.random.default_rng(SEED + 17)
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    xg, _, (w,), cots = graph_case(rng, "lstm", CLS_DENSE)
+    with torch.no_grad():
+        ys, cs, gates = FG.dense_lstm_scan_cuda_fwd(xg, w, keep=True)
+    dense = {
+        "fwd_keep": {"ms_cold_l2": cuda_median_ms(
+            lambda: FG.dense_lstm_scan_cuda_fwd(xg, w, keep=True),
+            flush=scratch.zero_),
+            **scan_bound("lstm", CLS_DENSE, hbm_rate, keep=True,
+                         dense=True)},
+        "bwd_with_dcs": {"ms_cold_l2": cuda_median_ms(
+            lambda: FG.dense_lstm_scan_cuda_bwd(w, gates, ys, cs, *cots),
+            flush=scratch.zero_),
+            **scan_bound("lstm", CLS_DENSE, hbm_rate, True, True,
+                         dense=True)}}
+    emit({"phase": "timing_autoencoder", "card": card, "B": AE_BATCH,
+          "L": CLIP, "routes": routes, "fused_vs_plain_pairs": pairs,
+          "dense_kernels_B_L_J_H_k": CLS_DENSE, "dense_kernels": dense,
+          "method": "steps and requests: host clock to "
+                    "torch.cuda.synchronize() and CUDA events around one "
+                    "call, medians of %d after 3 warm-ups, and the two "
+                    "routes in %d alternating pairs (host clock); splits: "
+                    "CUDA events around the encoder, each scan entry, each "
+                    "decoder step and each scan backward, medians of %d "
+                    "(a host-bound stretch shows its host time); profile: "
+                    "torch.profiler over %d steps; kernels: CUDA events, "
+                    "cold L2 (256 MB scratch write before each call)"
+                    % (TIMING_RUNS, 2 * TIMING_PAIRS, TIMING_RUNS,
+                       PROFILE_STEPS), "seconds": time.perf_counter() - t0})
+    return routes, pairs
+
+
+def phase_train_options(card):
+    """LinearAE with the training options on both projection routes."""
+    from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
+        Carla2D3DDataModule
+    from pedestrians_video_2_carla_torch.flows.pose_lifting import \
+        PoseLiftingFlow
+    from pedestrians_video_2_carla_torch.models.base import OptimizerSettings
+    from pedestrians_video_2_carla_torch.models.movements.linear_ae import \
+        LinearAE
+    from pedestrians_video_2_carla_torch.training.trainer import (
+        Trainer, TrainerConfig)
+
+    t0 = time.perf_counter()
+    dm = Carla2D3DDataModule(batch_size=BATCH, clip_length=CLIP,
+                             val_set_size=BATCH, seed=SEED)
+    steps = OPT_EPOCH_STEPS * OPT_EPOCHS
+    runs, counts = {}, {}
+    for route in ("fused_train", "plain"):
+        flow = PoseLiftingFlow(
+            LinearAE(generator=torch.Generator().manual_seed(SEED)),
+            loss_modes=["loc_2d_loc_rot_3d"], gradient_clip_val=1.0,
+            movements_optimizer=OptimizerSettings(
+                lr=LR, enable_lr_scheduler=True, scheduler_type="StepLR",
+                scheduler_step_size=1, scheduler_gamma=0.5),
+            projection_kernel=route, seed=SEED)
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = Trainer(flow, dm, TrainerConfig(
+                max_epochs=OPT_EPOCHS, limit_train_batches=OPT_EPOCH_STEPS,
+                limit_val_batches=1, log_every_n_steps=1, seed=SEED,
+                logs_dir=tmp, run_name=route))
+            reset_kernel_counts()
+            trainer.fit()
+            torch.cuda.synchronize()
+            counts[route] = {k: v for k, v in kernel_counts().items() if v}
+            with open(os.path.join(tmp, route, "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+        if flow.steps_per_epoch != OPT_EPOCH_STEPS:
+            raise AssertionError(f"steps_per_epoch {flow.steps_per_epoch}")
+        runs[route] = {
+            "losses": [{k: v for k, v in r.items() if "_loss/" in k}
+                       for r in records if "lr-movements" in r],
+            "lrs": [r["lr-movements"] for r in records
+                    if "lr-movements" in r],
+            "val": [{k: v for k, v in r.items() if k.startswith("val_")}
+                    for r in records if "epoch" in r]}
+    expected = {"fused_train": {"fused_projection_train_fwd": steps
+                                + OPT_EPOCHS,
+                                "fused_projection_train_bwd": steps},
+                "plain": {}}
+    if counts != expected:
+        raise AssertionError(f"launches {counts}, expected {expected}")
+    a, b = runs["fused_train"], runs["plain"]
+    if a["lrs"] != b["lrs"] or a["lrs"] != [
+            LR * 0.5 ** (i // OPT_EPOCH_STEPS) for i in range(steps)]:
+        raise AssertionError(f"lrs {a['lrs']} vs {b['lrs']}")
+    worst = 0.0
+    for got, ref in zip(a["losses"] + a["val"], b["losses"] + b["val"]):
+        if set(got) != set(ref):
+            raise AssertionError(f"keys {sorted(got)} vs {sorted(ref)}")
+        for k, v in ref.items():
+            if not np.isfinite(got[k]):
+                raise AssertionError(f"{k} not finite")
+            worst = max(worst, abs(got[k] - v) / max(abs(v), 1e-30))
+    missing = [k for k in ("val_MPJPE", "val_MRPE", "val_FB_MPJPE",
+                           "val_FB_WeightedMPJPE", "val_FB_PA_MPJPE",
+                           "val_FB_N_MPJPE", "val_FB_MPJVE")
+               if k not in a["val"][-1]]
+    if worst > LOSS_RTOL or missing:
+        raise AssertionError(f"fused_train vs plain {worst}, missing "
+                             f"{missing}")
+    emit({"phase": "train_options", "card": card, "B": BATCH, "L": CLIP,
+          "steps": steps, "epoch_steps": OPT_EPOCH_STEPS,
+          "launches": counts["fused_train"], "lrs": a["lrs"],
+          "train_loss_primary": {r: [x["train_loss/primary"]
+                                     for x in v["losses"]]
+                                 for r, v in runs.items()},
+          "val_last": {r: v["val"][-1] for r, v in runs.items()},
+          "fused_train_vs_plain_max_rel": worst,
+          "seconds": time.perf_counter() - t0})
+    return counts["fused_train"]
+
+
+#: the CLI's new loss modes; a short CLI fit each on both projection routes
+CLI_LOSS_MODES = ("common_loc_2d", "rot_3d", "cum_pose_changes",
+                  "pose_changes", "loc_2d_loc_rot_3d",
+                  "weighted_loc_2d_loc_rot_3d", "loc_rot_3d",
+                  "per_joint_loc_2d")
+CLI_BATCH = 64
+
+
+def phase_cli_options():
+    """The CLI (``modeling.main``) on the card: config 2 on both encoder
+    routes, and LinearAE with each new loss mode on both projection routes,
+    each run clipped (``--gradient_clip_val``) and on one of the three LR
+    schedules in turn: 2 steps and a validation batch, B=64, L=16; finite
+    losses and metrics, the scheduled lr logged."""
+    from pedestrians_video_2_carla_torch import modeling
+    from pedestrians_video_2_carla_torch.models.base import SCHEDULER_TYPES
+
+    t0 = time.perf_counter()
+    common = [f"--batch_size={CLI_BATCH}", f"--clip_length={CLIP}",
+              f"--val_set_size={CLI_BATCH}", "--max_epochs=1",
+              "--limit_train_batches=2", "--log_every_n_steps=1",
+              "--gradient_clip_val=1.0", "--movements_enable_lr_scheduler"]
+    runs = [(f"config2_{route}", [
+        "--flow=autoencoder", "--movements_model_name=Seq2SeqEmbeddings",
+        "--movements_output_type=pose_2d", "--loss_modes", "loc_2d",
+        "--rnn_kernel", route], "val_MSE") for route in ("fused", "plain")]
+    runs += [(f"{mode}_{route}", [
+        "--movements_model_name=LinearAE", "--loss_modes", mode,
+        f"--projection_kernel={route}", "--loss_weights", "rot_3d=3.0",
+        "--loss_params_0=2.0", "--loss_params_25=1.0"], "val_MPJPE")
+        for mode in CLI_LOSS_MODES for route in ("fused_train", "plain")]
+    done = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, flags, metric) in enumerate(runs):
+            kind = SCHEDULER_TYPES[i % len(SCHEDULER_TYPES)]
+            out = modeling.main(common + flags + [
+                f"--movements_scheduler_type={kind}", f"--root_dir={tmp}",
+                f"--run_name={name}", f"--seed={SEED}"])
+            flow, val = out["flow"], out["val_metrics"]
+            lr = flow.current_lrs(out["trainer"].state)["lr-movements"]
+            if not (np.isfinite(val["val_loss/primary"])
+                    and np.isfinite(val[metric]) and lr > 0
+                    and out["trainer"].state.step == 2
+                    and flow.gradient_clip_val == 1.0):
+                raise AssertionError(f"CLI run {name}: {val}, lr {lr}")
+            done[name] = {"scheduler": kind, "lr": lr,
+                          "val_loss_primary": val["val_loss/primary"],
+                          metric: val[metric]}
+    emit({"phase": "cli_options", "B": CLI_BATCH, "L": CLIP,
+          "runs": done, "seconds": time.perf_counter() - t0})
+
+
+def group_autoencoder(card, hbm_rate):
+    """BASELINE config 2 on the dense LSTM kernels, and the training
+    options on config 1: -> extra keys for the kernels line's entries of
+    the kernels they launched."""
+    from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
+        Carla2D3DDataModule
+
+    dm = Carla2D3DDataModule(batch_size=AE_BATCH, clip_length=CLIP,
+                             test_set_size=REQUESTS * AE_BATCH,
+                             val_set_size=AE_VAL_BATCHES * AE_BATCH,
+                             seed=SEED)
+    t0 = time.perf_counter()
+    serve = phase_serve_autoencoder(list(dm.test_batches()))
+    train = phase_train_autoencoder(dm)
+    _, pairs = phase_timing_autoencoder(dm, card, hbm_rate)
+    options = phase_train_options(card)
+    phase_cli_options()
+    emit({"phase": "group_autoencoder", "seconds": time.perf_counter() - t0})
+    steps = {"config2_train_step_ms_fused": pairs["train_step"][
+                 "fused_ms_median"],
+             "config2_train_step_ms_plain": pairs["train_step"][
+                 "plain_ms_median"]}
+    return {"dense_lstm_scan": {
+                "launches_config2_serve": serve,
+                "launches_config2_train": train["dense_lstm_scan"], **steps},
+            "dense_lstm_scan_bwd": {
+                "launches_config2_serve": 0,
+                "launches_config2_train": train["dense_lstm_scan_bwd"],
+                **steps},
+            "fused_projection_train_fwd": {
+                "launches_train_options": options[
+                    "fused_projection_train_fwd"]},
+            "fused_projection_train_bwd": {
+                "launches_train_options": options[
+                    "fused_projection_train_bwd"]}}
+
+
 def kernel_entry(name, source, replaces, launches, max_err, times):
     """One entry of the kernels line; ``replaces`` is the TPU kernel's
     ``file:line`` under the JAX package's ops/pallas/."""
@@ -3693,6 +4288,9 @@ def main():
     for group in (group_lifting, group_poseformer, group_classification):
         kernels += group(card, hbm_rate)
         torch.cuda.empty_cache()
+    launches = group_autoencoder(card, hbm_rate)
+    for entry in kernels:
+        entry.update(launches.get(entry["name"], {}))
 
     print(card, flush=True)
     emit({"kernels": kernels})

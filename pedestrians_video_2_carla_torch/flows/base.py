@@ -1,4 +1,5 @@
-"""Base flow: model bundle + loss chain + the train and eval steps.
+"""Base flow: model bundle + loss chain + metrics + the train and eval
+steps.
 
 A flow owns its ``nn.Module`` models and its loss and optimizer
 configuration, and applies the models functionally
@@ -6,18 +7,22 @@ configuration, and applies the models functionally
 ``{"movements": state_dict, "trajectory": state_dict}``. The parameters come
 from the models' own seeded init (:meth:`BaseFlow.init_params`) or from the
 flax weight bridge (``models/jax_import.py``). Training carries them in a
-:class:`FlowState` with their AdamW optimizer and the step count.
+:class:`FlowState` with their AdamW optimizer, the LR schedules and the step
+count. An update clips the gradients by their global norm over every model
+(``gradient_clip_val``), sets each schedule's lr and steps AdamW, as the JAX
+package's ``clip_by_global_norm`` + ``multi_transform`` chain does.
 """
 import inspect
-from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch.func import functional_call
 
 from ..losses import (LossContext, LossModes, calculate_losses, primary_loss,
                       resolve_loss_modes)
-from ..models.base import OptimizerSettings, make_adamw
+from ..metrics.base import MetricCollection
+from ..models.base import LRSchedule, OptimizerSettings, make_adamw
 from ..models.trajectory.zero import ZeroTrajectory
 from ..utils.device import DeviceLike, resolve_device
 from .output_types import MovementsModelOutputType
@@ -30,11 +35,55 @@ DEFAULT_SEED = 22742
 @dataclass
 class FlowState:
     """What training carries from step to step: the parameter dict (leaves
-    that require grad), the AdamW optimizer over those leaves, and the
-    number of steps taken. ``training_step`` updates it in place."""
+    that require grad), the AdamW optimizer over those leaves, the LR
+    schedule of each parameter group that has one, and the number of steps
+    taken. ``training_step`` updates it in place."""
     params: Params
     optimizer: torch.optim.Optimizer
     step: int = 0
+    schedules: Dict[str, LRSchedule] = field(default_factory=dict)
+
+
+def make_schedules(settings: Dict[str, OptimizerSettings],
+                   steps_per_epoch: int) -> Dict[str, LRSchedule]:
+    """The LR schedule of each named group whose settings enable one."""
+    schedules = {name: s.schedule(steps_per_epoch)
+                 for name, s in settings.items()}
+    return {name: s for name, s in schedules.items() if s is not None}
+
+
+@torch.no_grad()
+def clip_by_global_norm(params: Iterable[torch.Tensor],
+                        max_norm: float) -> torch.Tensor:
+    """optax's ``clip_by_global_norm`` on the gradients of ``params``, in
+    place and without a host read: each gradient stays as it is where the
+    global norm is below ``max_norm``, else becomes ``g / norm * max_norm``
+    (``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6``
+    instead). Returns the norm."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    return norm
+
+
+def apply_update(state: FlowState, primary: torch.Tensor,
+                 gradient_clip_val: float = 0.0) -> None:
+    """The optimizer half of a training step, after the backward: clip
+    the gradients by their global norm over every model (where
+    ``gradient_clip_val > 0``), set each scheduled group's lr for this
+    step (ReduceLROnPlateau reads ``primary``), step AdamW, count the
+    step."""
+    if gradient_clip_val > 0:
+        clip_by_global_norm((p for tree in state.params.values()
+                             for p in tree.values()), gradient_clip_val)
+    for group in state.optimizer.param_groups:
+        schedule = state.schedules.get(group["name"])
+        if schedule is not None:
+            group["lr"] = schedule.lr(state.step, primary)
+    state.optimizer.step()
+    state.step += 1
 
 
 class BaseFlow:
@@ -44,6 +93,8 @@ class BaseFlow:
                  movements_model: torch.nn.Module,
                  trajectory_model: Optional[torch.nn.Module] = None,
                  loss_modes: Optional[List] = None,
+                 loss_weights: Optional[Dict[str, float]] = None,
+                 loss_params: Optional[List[float]] = None,
                  mask_missing_joints: bool = True,
                  movements_optimizer: Optional[OptimizerSettings] = None,
                  trajectory_optimizer: Optional[OptimizerSettings] = None,
@@ -51,6 +102,7 @@ class BaseFlow:
                  precision: str = "32",
                  gradient_clip_val: float = 0.0,
                  projection_kernel: str = "plain",
+                 steps_per_epoch: int = 1,
                  seed: int = DEFAULT_SEED,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
@@ -59,14 +111,16 @@ class BaseFlow:
                 "the port runs in float32 only; bf16 is not ported yet")
         if str(precision) != "32":
             raise ValueError(f"unknown precision {precision!r}")
-        if gradient_clip_val and gradient_clip_val > 0:
-            raise NotImplementedError(
-                "gradient clipping is not ported yet (see ROADMAP.md)")
+        #: global-norm gradient clipping over every model's gradients; 0 is
+        #: off
+        self.gradient_clip_val = float(gradient_clip_val or 0.0)
         self.movements_model = movements_model.to(self.device)
         self.trajectory_model = (trajectory_model if trajectory_model
                                  is not None else ZeroTrajectory()
                                  ).to(self.device)
         self.mask_missing_joints = mask_missing_joints
+        self.loss_weights = loss_weights or {}
+        self.loss_params = loss_params
 
         if not loss_modes:
             loss_modes = [LossModes.loc_2d]
@@ -75,6 +129,10 @@ class BaseFlow:
         self.losses_to_calculate = resolve_loss_modes(self.requested_loss_modes)
         self.movements_optimizer = movements_optimizer or OptimizerSettings()
         self.trajectory_optimizer = trajectory_optimizer or OptimizerSettings()
+        #: optimizer steps in an epoch: the LR schedules count their epochs
+        #: in it. The trainer sets it from the data module before
+        #: ``init_state``; 1 makes an epoch one step
+        self.steps_per_epoch = max(1, int(steps_per_epoch))
         self.transform = transform
         #: "plain" (PyTorch ops), "fused" (the serving CUDA kernel) or
         #: "fused_train" (the training CUDA kernels, forward and backward)
@@ -88,6 +146,40 @@ class BaseFlow:
         self._takes_generator = [
             m for m in (self.movements_model, self.trajectory_model)
             if "generator" in inspect.signature(m.forward).parameters]
+        self.metrics = MetricCollection(self.get_metrics())
+        self.initial_metrics = MetricCollection(
+            {**self.get_metrics(), **self.get_initial_metrics()})
+
+    # -- metrics -----------------------------------------------------------
+    def get_metrics(self) -> Dict[str, Any]:
+        """The metrics accumulated over every evaluation pass."""
+        return {}
+
+    def get_initial_metrics(self) -> Dict[str, Any]:
+        """Metrics only the fit-start baseline pass reports."""
+        return {}
+
+    def initial_preds(self, inputs, targets) -> Dict[str, Any]:
+        """The fit-start baseline's predictions: the inputs themselves."""
+        key = "projection_2d_deformed" \
+            if targets.get("projection_2d_deformed") is not None \
+            else "projection_2d"
+        return {"projection_2d": targets.get(key),
+                "projection_2d_transformed": inputs[..., :2]}
+
+    def on_epoch_start(self, epoch: int) -> bool:
+        """Per-epoch hook, which the trainer calls before each epoch: the
+        teacher-forcing ratio falls by ``teacher_force_drop`` an epoch
+        (from the second epoch on, for a model that forces). Returns
+        whether the model changed."""
+        model = self.movements_model
+        drop = getattr(model, "teacher_force_drop", 0.0)
+        ratio = getattr(model, "teacher_force_ratio", 0.0)
+        if drop and ratio and epoch > 0 \
+                and getattr(model, "teacher_mode", "no_force") != "no_force":
+            model.teacher_force_ratio = max(0.0, ratio - drop)
+            return True
+        return False
 
     # -- parameters --------------------------------------------------------
     def init_params(self) -> Params:
@@ -113,11 +205,22 @@ class BaseFlow:
                           params["movements"].values()),
             "trajectory": (self.trajectory_optimizer,
                            params["trajectory"].values())})
-        return FlowState(params=params, optimizer=optimizer, step=0)
+        return FlowState(params=params, optimizer=optimizer, step=0,
+                         schedules=make_schedules(
+                             self.optimizer_settings_map(),
+                             self.steps_per_epoch))
+
+    def optimizer_settings_map(self) -> Dict[str, OptimizerSettings]:
+        """Per-model optimizer settings, keyed like ``state.params``."""
+        return {"movements": self.movements_optimizer,
+                "trajectory": self.trajectory_optimizer}
 
     @staticmethod
     def current_lrs(state: FlowState) -> Dict[str, float]:
-        """Per-model learning rates, for step logging."""
+        """Per-model learning rates, for step logging: the lr the last
+        update took (before the first, the first's). The JAX package's
+        ``current_lrs`` gives the same for ReduceLROnPlateau and the next
+        update's for the step-based schedules."""
         return {f"lr-{group['name']}": group["lr"]
                 for group in state.optimizer.param_groups}
 
@@ -144,6 +247,7 @@ class BaseFlow:
             input_nodes=self.movements_model.input_nodes,
             output_nodes=self.movements_model.output_nodes,
             sliced=sliced, targets=targets,
+            loss_weights=self.loss_weights, loss_params=self.loss_params,
             mask_missing_joints=self.mask_missing_joints,
         )
         return calculate_losses(
@@ -153,7 +257,8 @@ class BaseFlow:
     def training_step(self, state: FlowState, batch
                       ) -> Tuple[FlowState, Dict[str, torch.Tensor]]:
         """One AdamW step on ``batch``, in place: forward, losses, the
-        primary loss's backward, the optimizer step, ``step += 1``. Returns
+        primary loss's backward, the update (:func:`apply_update`: clipping,
+        the schedules' lrs, AdamW), ``step += 1``. Returns
         the state and the logs ``train_loss/<mode>`` and
         ``train_loss/primary``, as tensors on the device (reading them
         synchronises with the card). The gradients stay in the parameters'
@@ -163,8 +268,7 @@ class BaseFlow:
         _, primary = primary_loss(loss_dict, self.requested_loss_modes)
         state.optimizer.zero_grad(set_to_none=True)
         primary.backward()
-        state.optimizer.step()
-        state.step += 1
+        apply_update(state, primary.detach(), self.gradient_clip_val)
         logs = {f"train_loss/{k}": v.detach() for k, v in loss_dict.items()}
         logs["train_loss/primary"] = primary.detach()
         return state, logs

@@ -5,7 +5,8 @@ stack, one label per clip.
 
 As the other flows, it applies its model functionally to an explicit
 parameter dict, here ``{"classification": state_dict}``, and trains it with
-one AdamW group. The prevalent-class baseline (``initial_preds`` and the
+one AdamW group (clipped by ``gradient_clip_val``, on its LR schedule if
+enabled). The prevalent-class baseline (``initial_preds`` and the
 initial metrics) is not ported yet (see ``ROADMAP.md``).
 """
 from typing import Any, Dict, Optional, Tuple
@@ -21,7 +22,8 @@ from ..metrics.classification import (AUROC, Accuracy, ConfusionMatrixMetric,
 from ..models.base import OptimizerSettings, make_adamw
 from ..models.classification import CLASSIFICATION_MODELS
 from ..utils.device import DeviceLike, resolve_device
-from .base import DEFAULT_SEED, BaseFlow, FlowState, Params
+from .base import (DEFAULT_SEED, BaseFlow, FlowState, Params, apply_update,
+                   make_schedules)
 from .output_types import ClassificationModelOutputType
 
 
@@ -34,6 +36,7 @@ class ClassificationFlow:
                  classification_optimizer: Optional[OptimizerSettings] = None,
                  gradient_clip_val: float = 0.0,
                  precision: str = "32",
+                 steps_per_epoch: int = 1,
                  seed: int = DEFAULT_SEED,
                  device: DeviceLike = None) -> None:
         self.device = resolve_device(device)
@@ -43,9 +46,11 @@ class ClassificationFlow:
                 "ROADMAP.md)")
         if str(precision) != "32":
             raise ValueError(f"unknown precision {precision!r}")
-        if gradient_clip_val and gradient_clip_val > 0:
-            raise NotImplementedError(
-                "gradient clipping is not ported yet (see ROADMAP.md)")
+        #: global-norm gradient clipping; 0 is off
+        self.gradient_clip_val = float(gradient_clip_val or 0.0)
+        #: optimizer steps in an epoch, for the LR schedule (set by the
+        #: trainer before ``init_state``)
+        self.steps_per_epoch = max(1, int(steps_per_epoch))
         if classification_model is None:
             classification_model = self.get_default_models()[
                 "classification"](generator=torch.Generator().manual_seed(seed))
@@ -119,7 +124,16 @@ class ClassificationFlow:
         optimizer = make_adamw({"classification": (
             self.classification_optimizer,
             params["classification"].values())})
-        return FlowState(params=params, optimizer=optimizer, step=0)
+        return FlowState(params=params, optimizer=optimizer, step=0,
+                         schedules=make_schedules(
+                             self.optimizer_settings_map(),
+                             self.steps_per_epoch))
+
+    def optimizer_settings_map(self) -> Dict[str, OptimizerSettings]:
+        return {"classification": self.classification_optimizer}
+
+    def on_epoch_start(self, epoch: int) -> bool:
+        return False
 
     current_lrs = staticmethod(BaseFlow.current_lrs)
     param_counts = staticmethod(BaseFlow.param_counts)
@@ -140,14 +154,14 @@ class ClassificationFlow:
 
     def training_step(self, state: FlowState, batch
                       ) -> Tuple[FlowState, Dict[str, torch.Tensor]]:
-        """One AdamW step on ``batch``, in place; returns the state and
+        """One AdamW step on ``batch``, in place (clipped and scheduled as
+        :func:`~.base.apply_update` says); returns the state and
         ``{"train_loss/primary": loss}`` (a tensor on the device)."""
         inputs, targets, _ = batch
         loss = self._loss(self._apply(state.params, inputs, True), targets)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        state.optimizer.step()
-        state.step += 1
+        apply_update(state, loss.detach(), self.gradient_clip_val)
         return state, {"train_loss/primary": loss.detach()}
 
     @torch.no_grad()

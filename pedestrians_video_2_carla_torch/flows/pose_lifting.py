@@ -1,6 +1,9 @@
 """Pose-lifting flow: 2D clip -> movements model -> FK + projection -> 2D/3D
-losses (reference ``modules/flow/pose_lifting.py:25-195``). The metrics of
-the JAX flow (``get_metrics``) are not ported yet."""
+losses and the 3D pose metrics (reference
+``modules/flow/pose_lifting.py:25-195``)."""
+from ..metrics.fb import (FB_MPJPE, FB_MPJVE, FB_N_MPJPE, FB_PA_MPJPE,
+                          FB_WeightedMPJPE)
+from ..metrics.pose import MPJPE, MRPE
 from ..ops import normalization as N
 from ..ops.kinematics import world_from_changes
 from ..ops.projection import ProjectionModule, projection_state_for
@@ -15,6 +18,19 @@ class PoseLiftingFlow(BaseFlow):
             trajectory_output_type=self.trajectory_model.output_type,
             kernel=self.projection_kernel,
         )
+
+    def get_metrics(self):
+        in_nodes = self.movements_model.input_nodes
+        out_nodes = self.movements_model.output_nodes
+        return {
+            "MPJPE": MPJPE(input_nodes=in_nodes),
+            "MRPE": MRPE(input_nodes=in_nodes, output_nodes=out_nodes),
+            "FB_MPJPE": FB_MPJPE(),
+            "FB_WeightedMPJPE": FB_WeightedMPJPE(),
+            "FB_PA_MPJPE": FB_PA_MPJPE(),
+            "FB_N_MPJPE": FB_N_MPJPE(),
+            "FB_MPJVE": FB_MPJVE(),
+        }
 
     @property
     def crucial_keys(self):

@@ -44,6 +44,22 @@ class MetricCollection:
         return {name: m.compute(state[name])
                 for name, m in self.metrics.items()}
 
+    def compute_moved(self, state: Dict[str, Any], device=None
+                      ) -> Dict[str, Any]:
+        """:meth:`compute`, without the metrics whose state never left its
+        init (their ``update`` found no input in any batch: an MPJPE fed 2D
+        predictions); those are absent, not a perfect 0."""
+        init = self.init_state(device)
+        computed = self.compute(state)
+        for name in list(computed):
+            if all(torch.equal(init[name][k], state[name][k])
+                   for k in init[name]):
+                del computed[name]
+        return computed
+
+    def __len__(self) -> int:
+        return len(self.metrics)
+
 
 def safe_div(num, den):
     """num / den with 0 where den <= 0. The guard denominator only kicks in

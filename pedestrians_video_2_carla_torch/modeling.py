@@ -7,10 +7,18 @@
     python -m pedestrians_video_2_carla_torch --flow=classification \
         --classification_model_name=GConvGRU --graph_kernel fused ...
 
+    python -m pedestrians_video_2_carla_torch --flow=autoencoder \
+        --movements_model_name=Seq2SeqEmbeddings \
+        --movements_output_type=pose_2d --loss_modes loc_2d \
+        --rnn_kernel fused ...
+
 The chosen model's constructor arguments are flags as well
 (``--receptive_frames``, ``--depth``, ``--hidden_size``, ``--k``,
 ``--graph_kernel``, ``--rnn_kernel``, ...; ``--clip_length`` feeds both the
-data module and the model), as the JAX CLI adds one per model field. Logs
+data module and the model), as the JAX CLI adds one per model field; so are
+the training options (``--gradient_clip_val``, ``--loss_weights``,
+``--loss_params_{i}``, ``--{prefix}_enable_lr_scheduler`` and the
+``--{prefix}_scheduler_*`` family). Logs
 and checkpoints go to ``<root_dir>/logs/<flow>/<run_name>/``. It runs
 on the card unless ``--device cpu`` is given. A flow, data module, model,
 mode or loss that the JAX package has but the port does not yet raises
@@ -26,19 +34,24 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from .data.carla.carla_2d3d import Carla2D3DDataModule
+from .flows.autoencoder import AutoencoderFlow
 from .flows.classification import ClassificationFlow
+from .flows.output_types import MovementsModelOutputType
 from .flows.pose_lifting import PoseLiftingFlow
 from .losses import LossModes
-from .models.base import OptimizerSettings
+from .models.base import SCHEDULER_TYPES, OptimizerSettings
 from .models.classification import CLASSIFICATION_MODELS
+from .models.classification.common import ClassificationModel
 from .models.movements import MOVEMENTS_MODELS
+from .models.movements.common import MovementsModel
 from .ops.projection import KERNELS
 from .training.trainer import Trainer, TrainerConfig
 
 DEFAULT_SEED = 22742
 
 FLOWS = {"pose_lifting": PoseLiftingFlow,
-         "classification": ClassificationFlow}
+         "classification": ClassificationFlow,
+         "autoencoder": AutoencoderFlow}
 DATA_MODULES = {"Carla2D3D": Carla2D3DDataModule}
 MODES = ("train", "test")
 
@@ -60,17 +73,27 @@ def _ported(kind: str, name: str, available) -> None:
 
 
 #: model constructor arguments that are not flags
-_NOT_FLAGS = ("generator", "input_nodes", "output_nodes",
-              "movements_output_type", "needs_confidence")
+_NOT_FLAGS = ("generator", "input_nodes", "output_nodes", "needs_confidence")
+#: the number of ``--loss_params_{i}`` flags: one per CARLA joint
+LOSS_PARAMS = 26
 
 
 def model_params(model_cls) -> Dict[str, Any]:
-    """The constructor arguments of ``model_cls`` that flags set (those with
-    a bool, int, float or str default), and their defaults."""
-    return {name: p.default for name, p in
-            inspect.signature(model_cls.__init__).parameters.items()
-            if name not in _NOT_FLAGS
-            and isinstance(p.default, (bool, int, float, str))}
+    """The constructor arguments of ``model_cls`` and of its bases up to
+    the framework's model bases (a Seq2Seq variant's own and Seq2Seq's)
+    that flags set (those with a bool, int, float or str default), and
+    their defaults (a subclass's default first)."""
+    params: Dict[str, Any] = {}
+    for cls in model_cls.__mro__:
+        if cls in (MovementsModel, ClassificationModel):
+            break
+        if "__init__" not in vars(cls):
+            continue
+        for name, p in inspect.signature(cls.__init__).parameters.items():
+            if name not in _NOT_FLAGS and name not in params \
+                    and isinstance(p.default, (bool, int, float, str)):
+                params[name] = p.default
+    return params
 
 
 def add_model_args(parser: argparse.ArgumentParser, model_cls) -> None:
@@ -114,6 +137,8 @@ def make_parser(argv: Optional[List[str]] = None) -> argparse.ArgumentParser:
     group.add_argument("--log_every_n_steps", type=int, default=50)
     group.add_argument("--detect_anomaly", type=boolean, nargs="?",
                        const=True, default=False)
+    group.add_argument("--gradient_clip_val", type=float, default=0.0,
+                       help="global-norm gradient clipping (0 = off)")
 
     group = parser.add_argument_group("DataModule")
     group.add_argument("--batch_size", type=int, default=64)
@@ -123,6 +148,13 @@ def make_parser(argv: Optional[List[str]] = None) -> argparse.ArgumentParser:
 
     group = parser.add_argument_group("Flow")
     group.add_argument("--loss_modes", nargs="+", default=[])
+    group.add_argument("--loss_weights", nargs="+", default=[],
+                       help="e.g. loc_2d=1.0 loc_3d=1.0 rot_3d=3.0")
+    group.add_argument("--mask_missing_joints", type=boolean, default=True)
+    group.add_argument("--movements_output_type", default="pose_changes",
+                       choices=[t.name for t in MovementsModelOutputType])
+    for i in range(LOSS_PARAMS):
+        group.add_argument(f"--loss_params_{i}", type=float, default=None)
     group.add_argument("--projection_kernel", default="plain",
                        choices=list(KERNELS),
                        help="plain = PyTorch ops (JAX 'xla'); fused = the "
@@ -138,14 +170,48 @@ def make_parser(argv: Optional[List[str]] = None) -> argparse.ArgumentParser:
     group.add_argument("--num_classes", type=int, default=2)
 
     group = parser.add_argument_group("optimizers")
-    group.add_argument("--movements_lr", type=float, default=None)
-    group.add_argument("--classification_lr", type=float, default=None)
+    for prefix in ("movements", "classification"):
+        add_optimizer_args(group, prefix)
 
     chosen, _ = parser.parse_known_args(argv)
     models, name = chosen_model(chosen)
     if name in models:
         add_model_args(parser, models[name])
     return parser
+
+
+def add_optimizer_args(group, prefix: str) -> None:
+    """``--{prefix}_lr``, ``--{prefix}_enable_lr_scheduler`` and the
+    ``--{prefix}_scheduler_*`` family, with the JAX CLI's defaults."""
+    group.add_argument(f"--{prefix}_lr", type=float, default=None)
+    group.add_argument(f"--{prefix}_enable_lr_scheduler", action="store_true")
+    group.add_argument(f"--{prefix}_scheduler_type",
+                       default="ReduceLROnPlateau",
+                       choices=list(SCHEDULER_TYPES))
+    group.add_argument(f"--{prefix}_scheduler_gamma", type=float,
+                       default=0.98)
+    group.add_argument(f"--{prefix}_scheduler_step_size", type=int,
+                       default=1)
+    group.add_argument(f"--{prefix}_scheduler_min_lr", type=float,
+                       default=1e-8)
+    group.add_argument(f"--{prefix}_scheduler_patience", type=int,
+                       default=50)
+    group.add_argument(f"--{prefix}_scheduler_cooldown", type=int,
+                       default=20)
+    group.add_argument(f"--{prefix}_weight_decay", type=float, default=1e-8)
+
+
+def loss_params(args) -> Optional[List[float]]:
+    """The ``--loss_params_{i}`` given, as a dense list (0 where a lower
+    index is missing); None when none is."""
+    given = {i: getattr(args, f"loss_params_{i}") for i in range(LOSS_PARAMS)
+             if getattr(args, f"loss_params_{i}") is not None}
+    if not given:
+        return None
+    out = [0.0] * (max(given) + 1)
+    for i, v in given.items():
+        out[i] = v
+    return out
 
 
 def chosen_model(args):
@@ -192,13 +258,24 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             num_classes=args.num_classes,
             classification_optimizer=OptimizerSettings.from_kwargs(
                 "classification", vars(args)),
+            gradient_clip_val=args.gradient_clip_val,
             seed=args.seed, device=args.device)
     else:
+        # a model whose output type is fixed takes no flag for it
+        mot = MovementsModelOutputType[args.movements_output_type]
+        supported = model_cls.supported_output_types()
+        if len(supported) > 1 and mot in supported:
+            model_kwargs["movements_output_type"] = mot
         flow = FLOWS[args.flow](
             model_cls(generator=generator, **model_kwargs),
             loss_modes=args.loss_modes,
+            loss_weights={k: float(v) for k, v in (
+                w.split("=") for w in args.loss_weights)},
+            loss_params=loss_params(args),
+            mask_missing_joints=args.mask_missing_joints,
             movements_optimizer=OptimizerSettings.from_kwargs("movements",
                                                               vars(args)),
+            gradient_clip_val=args.gradient_clip_val,
             projection_kernel=args.projection_kernel, seed=args.seed,
             device=args.device)
     dm = DATA_MODULES[args.data_module_name](

@@ -11,7 +11,8 @@ from torch import nn
 from ...flows.output_types import ClassificationModelOutputType
 from ...skeletons.base import Skeleton
 from ...skeletons.carla import CARLA_SKELETON
-from ..movements.common import _fill_, dropout, trunc_normal_  # noqa: F401
+from ..movements.common import (_fill_, dropout, orthogonal_,  # noqa: F401
+                               trunc_normal_)
 
 
 class ClassificationModel(nn.Module):
@@ -43,10 +44,3 @@ def lecun_normal_in_out_(tensor: torch.Tensor,
     # 0.8796... is the std of a unit normal truncated at +-2
     trunc_normal_(tensor, math.sqrt(1.0 / tensor.shape[0]) / .87962566103423978,
                   generator)
-
-
-def orthogonal_(tensor: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> None:
-    """flax's ``orthogonal`` init, drawn from ``generator``."""
-    _fill_(tensor, lambda t: nn.init.orthogonal_(t, generator=generator),
-           generator)

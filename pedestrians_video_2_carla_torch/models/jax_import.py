@@ -145,6 +145,31 @@ def import_classification(flax_params: Mapping[str, Any]
             for k, v in flax_to_state_dict(flax_params).items()}
 
 
+#: the top-level names of the Seq2Seq family's flax trees
+_SEQ2SEQ_TOP = ("OptimizedLSTMCell_", "decoder", "joint_embeddings",
+                "joint_embeddings_bias", "Dense_")
+
+
+def import_seq2seq(flax_params: Mapping[str, Any]
+                   ) -> Dict[str, torch.Tensor]:
+    """A flax Seq2Seq-family tree -> the port's state_dict: the encoder's
+    ``OptimizedLSTMCell_{n}`` layers and the scanned decoder's one set of
+    ``decoder/lstm_{layer}`` cells and ``decoder/fc_out`` (the cells'
+    ``i*`` / ``h*`` kernels and the Dense kernels transposed to nn.Linear
+    weights), ``joint_embeddings`` (J, 2, E) and ``joint_embeddings_bias``
+    as they are (Seq2SeqEmbeddings and the Residual variants), and the
+    ``Dense_i`` of Seq2SeqFlatEmbeddings. A tree with another top-level
+    name, or a decoder without ``fc_out``, raises."""
+    unknown = [n for n in flax_params if not n.startswith(_SEQ2SEQ_TOP)]
+    decoder = flax_params.get("decoder", {})
+    cells = [n for n in decoder if n.startswith("lstm_")]
+    if unknown or "fc_out" not in decoder \
+            or set(decoder) != set(cells) | {"fc_out"}:
+        raise ValueError(f"not a Seq2Seq parameter tree: "
+                         f"{sorted(flax_params)}, decoder {sorted(decoder)}")
+    return flax_to_state_dict(flax_params)
+
+
 def import_flow_params(flax_params: Mapping[str, Any],
                        device: DeviceLike = None
                        ) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -152,7 +177,9 @@ def import_flow_params(flax_params: Mapping[str, Any],
     ...}`` or ``{"classification": ...}``) -> the port's flow parameter
     dict, on ``device`` (the card unless asked otherwise). A classifier's
     tree goes through :func:`import_classification`, a PoseFormer tree
-    through :func:`import_pose_former`, any other through
+    through :func:`import_pose_former`, a Seq2Seq-family tree (it has a
+    ``decoder``) through :func:`import_seq2seq`, any other (LinearAE,
+    LSTM, Linear, ZeroMovements, the trajectory models) through
     :func:`flax_to_state_dict`."""
     device = resolve_device(device)
 
@@ -161,6 +188,8 @@ def import_flow_params(flax_params: Mapping[str, Any],
             return import_classification(tree)
         if "spatial_patch_embed" in tree:
             return import_pose_former(tree)
+        if "decoder" in tree:
+            return import_seq2seq(tree)
         return flax_to_state_dict(tree)
     return {name: {k: v.to(device) for k, v in bridge(name, tree).items()}
             for name, tree in flax_params.items()}

@@ -61,6 +61,13 @@ def lecun_normal_(tensor: torch.Tensor,
                   generator)
 
 
+def orthogonal_(tensor: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> None:
+    """flax's ``orthogonal`` init, drawn from ``generator``."""
+    _fill_(tensor, lambda t: nn.init.orthogonal_(t, generator=generator),
+           generator)
+
+
 def normal_(tensor: torch.Tensor, std: float,
             generator: Optional[torch.Generator] = None) -> None:
     _fill_(tensor, lambda t: t.normal_(0.0, std, generator=generator),
@@ -137,3 +144,7 @@ class MovementsModel(nn.Module):
 
     def format_output(self, outputs):
         return format_movements_output(outputs, self.movements_output_type)
+
+    @staticmethod
+    def supported_output_types():
+        return list(MovementsModelOutputType)

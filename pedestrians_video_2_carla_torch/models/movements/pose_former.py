@@ -104,6 +104,10 @@ class PoseFormer(MovementsModel):
     ``eval_slice``, as in the JAX model."""
     OUTPUT_TYPE = MovementsModelOutputType.absolute_loc
 
+    @classmethod
+    def supported_output_types(cls):
+        return [cls.OUTPUT_TYPE]
+
     def __init__(self, clip_length: int = 30, receptive_frames: int = 9,
                  single_joint_embeddings_size: int = 32, depth: int = 4,
                  num_heads: int = 8, mlp_ratio: float = 2.0,

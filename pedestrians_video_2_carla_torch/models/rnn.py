@@ -20,7 +20,14 @@ biases ride in the hoisted input product, taken frame-major, so the scan's
 input is that product's output, uncopied. ``"auto"`` keeps the loop in PyTorch
 ops, as the JAX package's ``auto`` keeps its scan; an explicit
 ``initial_carry`` always takes the loop.
+
+``init="torch"`` draws every kernel and bias from ``nn.LSTM``'s
+U(+-1/sqrt(H)) (the JAX package's ``torch_hoisted_lstm`` /
+``torch_lstm_cell``, which the Seq2Seq family uses) in place of flax's
+families. :class:`LSTMCell` is one step of the same layer, for the
+Seq2Seq decoder.
 """
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -28,10 +35,10 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops.fused_graph_gru import graph_lstm_scan
-from .classification.common import orthogonal_
-from .movements.common import lecun_normal_
+from .movements.common import _uniform_, lecun_normal_, orthogonal_
 
 RNN_KERNELS = ("auto", "plain", "fused")
+RNN_INITS = ("flax", "torch")
 
 
 def _check_kernel(kernel: str) -> None:
@@ -51,10 +58,13 @@ class _Hoisted(nn.Module):
     HIDDEN_BIAS = ""     # the gates whose hidden dense has a bias
 
     def __init__(self, in_features: int, features: int, reverse: bool = False,
-                 kernel: str = "auto",
+                 kernel: str = "auto", init: str = "flax",
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
         _check_kernel(kernel)
+        if init not in RNN_INITS:
+            raise ValueError(f"unknown init {init!r}; one of {RNN_INITS}")
+        self.init = init
         self.features = features
         self.reverse = reverse
         self.kernel = kernel
@@ -66,8 +76,13 @@ class _Hoisted(nn.Module):
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """flax's families: input kernels lecun-normal, recurrent kernels
-        orthogonal, biases zero."""
+        """flax's families (input kernels lecun-normal, recurrent kernels
+        orthogonal, biases zero), or with ``init="torch"`` every kernel and
+        bias U(+-1/sqrt(H))."""
+        if self.init == "torch":
+            for p in self.parameters():
+                _uniform_(p, 1.0 / math.sqrt(self.features), generator)
+            return
         for gate in self.GATES:
             lecun_normal_(getattr(self, f"i{gate}").weight, generator)
             orthogonal_(getattr(self, f"h{gate}").weight, generator)
@@ -124,6 +139,26 @@ class HoistedLSTM(_Hoisted):
             h = torch.sigmoid(go) * torch.tanh(c)
             hs.append(h)
         return (c, h), torch.stack(hs, dim=1)
+
+
+class LSTMCell(_Hoisted):
+    """One LSTM step with flax ``OptimizedLSTMCell``'s parameters and gate
+    order (``i{i,f,g,o}`` weight only, ``h{i,f,g,o}`` weight and bias):
+    ``(c, h), x -> (c', h'), h'``."""
+    GATES = "ifgo"
+    HIDDEN_BIAS = "ifgo"
+
+    def forward(self, carry: Tuple[torch.Tensor, torch.Tensor],
+                x: torch.Tensor):
+        c, h = carry
+        H = self.features
+        b_h = torch.cat([getattr(self, f"h{g}").bias for g in self.GATES])
+        y = F.linear(h, self._stacked("h"), b_h) \
+            + F.linear(x, self._stacked("i"))
+        gi, gf, gg, go = y.split(H, dim=-1)
+        c = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gg)
+        h = torch.sigmoid(go) * torch.tanh(c)
+        return (c, h), h
 
 
 class HoistedGRU(_Hoisted):

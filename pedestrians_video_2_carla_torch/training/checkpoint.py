@@ -5,8 +5,9 @@ save_top_k=1)`` in the reference): ``best-step<N>.pt`` for the lowest
 ``last.pt``.
 
 An archive is the port's own format: ``torch.save`` of ``{"params",
-"optimizer", "step"}`` (the parameter dict, the optimizer's
-``state_dict()`` and the step count), loaded with ``weights_only=True``.
+"optimizer", "schedules", "step"}`` (the parameter dict, the optimizer's
+``state_dict()``, the LR schedules' states and the step count), loaded
+with ``weights_only=True``.
 Saves are synchronous: the host copy and the file write finish before
 ``save`` returns. Every file is written to a temporary name and
 ``os.replace``d into place, so a crash never leaves a torn checkpoint.
@@ -30,6 +31,8 @@ def _snapshot(state: FlowState) -> Dict:
                               for k, v in tree.items()}
                        for name, tree in state.params.items()},
             "optimizer": _to_cpu(state.optimizer.state_dict()),
+            "schedules": {name: _to_cpu(s.state_dict())
+                          for name, s in state.schedules.items()},
             "step": int(state.step)}
 
 
@@ -91,7 +94,7 @@ class CheckpointManager:
                 weights_only: bool = False) -> FlowState:
         """Load a checkpoint (default: the best) into ``state``,
         in place: the parameters, and unless ``weights_only`` the optimizer
-        state and the step count. ``path`` may name the archive with or
+        state, the LR schedules' states and the step count. ``path`` may name the archive with or
         without its ``.pt``."""
         if path is None:
             with open(os.path.join(self.dirpath, "best.json")) as f:
@@ -113,5 +116,11 @@ class CheckpointManager:
                     v.copy_(loaded[k])
         if not weights_only:
             state.optimizer.load_state_dict(data["optimizer"])
+            schedules = data.get("schedules", {})
+            if set(schedules) != set(state.schedules):
+                raise ValueError(f"{path}: LR schedules {sorted(schedules)}, "
+                                 f"expected {sorted(state.schedules)}")
+            for name, schedule in state.schedules.items():
+                schedule.load_state_dict(schedules[name])
             state.step = int(data["step"])
         return state

@@ -2,9 +2,13 @@
 batches, validation with checkpointing on ``val_loss/primary``, and scalar
 logging (the JAX package's ``training/trainer.py``, streamed epoch only).
 
-A flow with a metric collection (the classification flow) has its
-metrics accumulated over every evaluation pass and logged beside the
-losses. The port has no mesh, no host->device prefetcher (Carla2D3D
+A flow with a metric collection has its metrics accumulated over every
+evaluation pass and logged beside the losses; a metric that no batch fed
+is left out. A fit starts with the flow's baseline pass (its initial
+metrics of the inputs taken as the predictions, over the validation set,
+into ``hparams.json``), sets the flow's ``steps_per_epoch`` (for the LR
+schedules) from the data module before the optimizer is built, and calls
+the flow's ``on_epoch_start`` before each epoch. The port has no mesh, no host->device prefetcher (Carla2D3D
 batches are made on the card), no device-resident scan and no video
 logger. Logs stay on the device between log intervals; the host
 synchronises once per log interval and once per evaluation pass.
@@ -87,6 +91,17 @@ class Trainer:
 
     def _init_state(self) -> None:
         if self.state is None:  # keep a state restored via --ckpt_path
+            # the LR schedules count epochs in steps, so the epoch's length
+            # goes to the flow before its optimizer is built, unless the
+            # flow was given one
+            if getattr(self.flow, "steps_per_epoch", None) == 1:
+                spe = self._resolve_train_batches()
+                if spe is None:
+                    n = self.dm.train_set_size
+                    if n and self.dm.batch_size:
+                        spe = n // self.dm.batch_size
+                if spe:
+                    self.flow.steps_per_epoch = max(1, int(spe))
             self.state = self.flow.init_state()
 
     def _resolve_train_batches(self) -> Optional[int]:
@@ -105,12 +120,14 @@ class Trainer:
         print("  | model      | params\n  " + "\n  ".join(
             f"| {k:<10} | {v:,}" for k, v in counts.items()))
         self.logger.log_hparams({
-            **self.dm.hparams, **{f"params/{k}": v for k, v in counts.items()}})
+            **self.dm.hparams, **self.initial_metrics(),
+            **{f"params/{k}": v for k, v in counts.items()}})
 
         limit = self._resolve_train_batches()
         global_step = 0
         summary: Dict[str, Any] = {}
         for epoch in range(self.config.max_epochs):
+            self.flow.on_epoch_start(epoch)
             epoch_start = time.perf_counter()
             last_logs, global_step = self._fit_epoch_streamed(
                 limit, global_step, epoch)
@@ -207,9 +224,27 @@ class Trainer:
             if primary and f"{stage}_loss/primary" not in results:
                 results[f"{stage}_loss/primary"] = results[primary]
             if collection:
-                results.update(_flatten_metrics(collection.compute(mstate),
-                                                stage))
+                results.update(_flatten_metrics(
+                    collection.compute_moved(mstate, self.device), stage))
         return results
+
+    def initial_metrics(self) -> Dict[str, Any]:
+        """``initial_<Metric>``: the flow's initial metrics over the
+        validation set, with the inputs taken as the predictions
+        (``flow.initial_preds``); empty for a flow without them."""
+        collection = getattr(self.flow, "initial_metrics", None)
+        if not collection:
+            return {}
+        mstate = collection.init_state(self.device)
+        batches = 0
+        for inputs, targets, _ in self.dm.val_batches():
+            mstate = collection.update(
+                mstate, self.flow.initial_preds(inputs, targets), targets)
+            batches += 1
+        if not batches:
+            return {}
+        return _flatten_metrics(collection.compute_moved(mstate, self.device),
+                                "initial")
 
     def test(self) -> Dict[str, Any]:
         results = self.evaluate("test", self.config.limit_test_batches)

@@ -457,14 +457,17 @@ def test_flow_defaults_loss_and_refusals():
         jnp.asarray([1.5, -0.5]), jnp.asarray([0.0, 1.0])).mean())
     np.testing.assert_allclose(float(flow._loss(one, labels)), ref, rtol=1e-6)
     for kwargs, match in ((dict(precision="bf16"), "bf16"),
-                          (dict(gradient_clip_val=1.0), "clipping")):
+                          (dict(precision="16"), "bf16")):
         with pytest.raises(NotImplementedError, match=match):
             ClassificationFlow(device="cpu", **kwargs)
+    # clipping and the LR schedules are ported (held against optax in
+    # tests/test_torch_train_options.py)
     scheduled = ClassificationFlow(
-        device="cpu", classification_optimizer=OptimizerSettings(
+        device="cpu", gradient_clip_val=1.0,
+        classification_optimizer=OptimizerSettings(
             enable_lr_scheduler=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scheduled.init_state()
+    assert scheduled.gradient_clip_val == 1.0
+    assert list(scheduled.init_state().schedules) == ["classification"]
     benchmark = ClassificationFlow(device="cpu",
                                    classification_average="benchmark")
     assert benchmark.average["Accuracy"] == "micro"

@@ -275,13 +275,19 @@ def test_training_step_updates_in_place_and_keeps_grads():
 
 
 def test_flow_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="clipping"):
-        _port_flow("plain", gradient_clip_val=1.0)
+    """bf16 and the heatmaps loss are not ported (clipping and the LR
+    schedules are: tests/test_torch_train_options.py holds them against
+    optax)."""
+    with pytest.raises(NotImplementedError, match="bf16"):
+        _port_flow("plain", precision="bf16")
+    with pytest.raises(KeyError, match="heatmaps"):
+        PoseLiftingFlow(LinearAE(), device="cpu", loss_modes=["heatmaps"])
     flow = PoseLiftingFlow(
-        LinearAE(), device="cpu",
+        LinearAE(), device="cpu", gradient_clip_val=1.0,
         movements_optimizer=OptimizerSettings(enable_lr_scheduler=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flow.init_state()
+    state = flow.init_state()
+    assert flow.gradient_clip_val == 1.0
+    assert list(state.schedules) == ["movements"]
 
 
 # -- the optimizer -------------------------------------------------------------
@@ -347,9 +353,11 @@ def test_optimizer_settings_match_jax():
     assert OptimizerSettings.from_kwargs("movements", kwargs) \
         .hparams("movements") == JOptimizerSettings.from_kwargs(
             "movements", kwargs).hparams("movements")
-    with pytest.raises(NotImplementedError):
-        OptimizerSettings(enable_lr_scheduler=True).make(
-            [torch.zeros(1, requires_grad=True)])
+    scheduled = OptimizerSettings(enable_lr_scheduler=True)
+    opt = scheduled.make([torch.zeros(1, requires_grad=True)])
+    assert opt.param_groups[0]["lr"] == 5e-2
+    assert scheduled.schedule(4).steps_per_epoch == 4
+    assert OptimizerSettings().schedule() is None
 
 
 # -- checkpoints ---------------------------------------------------------------
@@ -506,8 +514,9 @@ def test_cli_test_mode_evaluates_a_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    "--flow=autoencoder", "--mode=predict", "--data_module_name=JAADOpenPose",
-    "--movements_model_name=VideoPose3D", "--loss_modes=rot_3d"])
+    "--flow=pose_estimation", "--mode=predict",
+    "--data_module_name=JAADOpenPose", "--movements_model_name=VideoPose3D",
+    "--loss_modes=heatmaps"])
 def test_cli_names_what_is_not_ported(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         modeling.main([flag, "--device=cpu"])
