@@ -295,6 +295,38 @@ Phases, each printing one JSON line:
                      three LR schedules in turn: config 2 on both encoder
                      routes, LinearAE with each new loss mode on both
                      projection routes; finite losses and metrics.
+Then group_lifters (no kernel on its path; every count stays 0):
+ 25. serve_videopose3d -- BASELINE config 4 (bench.py:673-682):
+                     VideoPose3D (filter widths (3, 3, 3, 3), 1024
+                     channels, dropout 0.25; seeded init, running
+                     statistics drawn away from 0 / 1), PoseLiftingFlow
+                     (loc_2d), Carla2D3D test batches (B=64, L=81) ->
+                     make_inference_fn, 8 requests under torch's default
+                     TF32 flags (cuDNN TF32 on, matmul TF32 off; this
+                     run's flags restored after): each request's
+                     locations and projections within 1e-4 of max |ref|
+                     of the same model and weights in float64 on the CPU.
+ 26. train_videopose3d -- Trainer.fit of config 4 (AdamW lr 1e-3), 10 steps
+                     and 2 validation batches: finite losses, every running
+                     statistic moved and without grad, the eval output
+                     unlike the train-mode output on the same batch, the
+                     last checkpoint restoring params and running
+                     statistics exactly and the same eval bits after it.
+ 27. timing_videopose3d -- host-clock and CUDA-event medians of config 4's
+                     training_step and a request; a torch.profiler trace of
+                     3 steps (device busy share, top five device
+                     operations); the step's and the forward's FLOPs
+                     (ops/flops.py::video_pose_3d_flops) and bounds (at the
+                     CUDA cores' 67 TFLOP/s, or the bytes if larger), and
+                     each time over its bound.
+ 28. lifters_coverage -- a 3-step fit (and a validation batch) of each
+                     other new movements model at its published widths,
+                     B=256, L=16: Baseline3DPose, Baseline3DPoseRot,
+                     LinearAEResidual, LinearAEResidualLeaky on
+                     PoseLiftingFlow (loc_2d_3d), LinearAE2D,
+                     SimpleTransformer, SpatialGnn, GNNLinearAutoencoder,
+                     VariationalGcn on AutoencoderFlow (loc_2d): finite
+                     losses, one eval_step twice the same bits.
 Then the card line, the kernels line (config 2's and the train-options
 phase's launches beside the dense LSTM and projection-training entries),
 and the contract line last. Any failure raises and ends the run with a
@@ -487,6 +519,17 @@ AE_BATCH, AE_TRAIN_STEPS, AE_VAL_BATCHES, AE_LAYERS = 256, 10, 2, 2
 AE_BAR = 1e-5
 #: the training-options phase: config 1 over 2-step epochs, 2 epochs
 OPT_EPOCH_STEPS, OPT_EPOCHS = 2, 2
+#: BASELINE config 4 (bench.py:673-682): VideoPose3D at its published
+#: widths, loc_2d, B=64 clips of 81 frames; the serving bar against the same
+#: model in float64 on the CPU, of max |float64|
+VP_BATCH, VP_CLIP, VP_TRAIN_STEPS, VP_VAL_BATCHES = 64, 81, 10, 2
+VP_BAR = 1e-4
+#: the other new movements models' coverage fits: B=256, L=16, 3 steps
+LIFTERS_BATCH, LIFTERS_STEPS = 256, 3
+LIFTERS_AUTOENCODERS = ("LinearAE2D", "SimpleTransformer", "SpatialGnn",
+                        "GNNLinearAutoencoder", "VariationalGcn")
+LIFTERS_POSE = ("Baseline3DPose", "Baseline3DPoseRot", "LinearAEResidual",
+                "LinearAEResidualLeaky")
 #: H100 memory rates (NVIDIA data sheets), bytes/s, and the float32 (non
 #: tensor-core) peak of the SXM part, FLOP/s
 HBM_RATE = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
@@ -4156,6 +4199,322 @@ def group_autoencoder(card, hbm_rate):
                     "fused_projection_train_bwd"]}}
 
 
+def make_vp_flow(device=None, dtype=torch.float32):
+    """BASELINE config 4's flow: VideoPose3D (filter widths (3, 3, 3, 3),
+    1024 channels, dropout 0.25; seeded init) in PoseLiftingFlow with
+    loc_2d."""
+    from pedestrians_video_2_carla_torch.flows.pose_lifting import \
+        PoseLiftingFlow
+    from pedestrians_video_2_carla_torch.models.base import OptimizerSettings
+    from pedestrians_video_2_carla_torch.models.movements.video_pose_3d \
+        import VideoPose3D
+
+    model = VideoPose3D(generator=torch.Generator().manual_seed(SEED))
+    if (model.filter_widths, model.channels, model.p_dropout,
+            model.receptive_field) != ((3, 3, 3, 3), 1024, 0.25, VP_CLIP):
+        raise AssertionError("VideoPose3D's defaults changed")
+    return PoseLiftingFlow(model.to(dtype), loss_modes=["loc_2d"],
+                           movements_optimizer=OptimizerSettings(lr=LR),
+                           seed=SEED, device=device)
+
+
+def vp_params(flow):
+    """The flow's seeded params with running statistics drawn away from 0
+    and 1 (means N(0, 0.2), variances U(0.5, 2))."""
+    gen = torch.Generator().manual_seed(SEED + 23)
+    params = flow.init_params()
+    for k, v in params["movements"].items():
+        if k.endswith("running_mean"):
+            v.copy_(0.2 * torch.randn(v.shape, generator=gen))
+        elif k.endswith("running_var"):
+            v.copy_(0.5 + 1.5 * torch.rand(v.shape, generator=gen))
+    return params
+
+
+def phase_serve_videopose3d(batches):
+    """8 requests of config 4 under torch's default TF32 flags (cuDNN
+    TF32 on, matmul TF32 off), each held to the same model and weights in
+    float64 on the CPU."""
+    from pedestrians_video_2_carla_torch.serving import make_inference_fn
+
+    t0 = time.perf_counter()
+    flow = make_vp_flow()
+    params = vp_params(flow)
+    ref_flow = make_vp_flow("cpu", torch.float64)
+    ref_params = {n: {k: v.cpu().double() for k, v in tree.items()}
+                  for n, tree in params.items()}
+    infer = make_inference_fn(flow, params)
+    infer_ref = make_inference_fn(ref_flow, ref_params)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False    # torch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        reset_kernel_counts()
+        served = [infer(inputs, meta["age_gender_idx"])
+                  for inputs, _, meta in batches]
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    if counts != expected_counts():
+        raise AssertionError(f"config 4 launched kernels: {counts}")
+    worst = {}
+    for preds, (inputs, _, meta) in zip(served, batches):
+        ref = infer_ref(inputs.cpu().double(), meta["age_gender_idx"].cpu())
+        for key in ("absolute_pose_loc", "projection_2d",
+                    "projection_2d_transformed"):
+            out = preds[key]
+            if out.shape[:2] != (VP_BATCH, VP_CLIP) \
+                    or not torch.isfinite(out).all():
+                raise AssertionError(f"{key}: {tuple(out.shape)} or not "
+                                     f"finite")
+            err = float((out.cpu().double() - ref[key]).abs().max()
+                        / ref[key].abs().max())
+            worst[key] = max(worst.get(key, 0.0), err)
+    if max(worst.values()) > VP_BAR:
+        raise AssertionError(f"config 4 vs float64: {worst}")
+    emit({"phase": "serve_videopose3d", "B": VP_BATCH, "L": VP_CLIP,
+          "requests": len(batches),
+          "tf32_flags": {"cuda.matmul.allow_tf32": False,
+                         "cudnn.allow_tf32": True},
+          "max_err_over_max_f64": worst, "bar": VP_BAR,
+          "seconds": time.perf_counter() - t0})
+    return flow, params
+
+
+def vp_stats(tree):
+    return {k: v for k, v in tree.items() if "running_" in k}
+
+
+def phase_train_videopose3d(dm):
+    """Trainer.fit of config 4: finite losses, moved running statistics,
+    eval output against train-mode output, an exact checkpoint round
+    trip (running statistics included) and the same eval bits after it."""
+    from pedestrians_video_2_carla_torch.training.trainer import (
+        Trainer, TrainerConfig)
+
+    t0 = time.perf_counter()
+    flow = make_vp_flow()
+    start = vp_stats(flow.init_params()["movements"])
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(flow, dm, TrainerConfig(
+            max_epochs=1, limit_train_batches=VP_TRAIN_STEPS,
+            limit_val_batches=VP_VAL_BATCHES, log_every_n_steps=1,
+            seed=SEED, logs_dir=tmp, run_name="vp"))
+        reset_kernel_counts()
+        state = trainer.fit()
+        torch.cuda.synchronize()
+        if kernel_counts() != expected_counts():
+            raise AssertionError(f"config 4 launched {kernel_counts()}")
+        run = os.path.join(tmp, "vp")
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        losses = [r["train_loss/primary"] for r in records
+                  if "lr-movements" in r]
+        bad = [k for r in records for k, v in r.items()
+               if "_loss/" in k and not np.isfinite(v)]
+        if bad or len(losses) != VP_TRAIN_STEPS:
+            raise AssertionError(f"config 4 fit: non-finite {bad}, "
+                                 f"{len(losses)} steps")
+        tree = state.params["movements"]
+        stats = vp_stats(tree)
+        moved = {k: float((v - start[k]).abs().max())
+                 for k, v in stats.items()}
+        if len(stats) != 14 or min(moved.values()) <= 0.0 or any(
+                v.requires_grad for v in stats.values()):
+            raise AssertionError(f"running statistics: {moved}")
+        batch = next(dm.val_batches())
+        with torch.no_grad():
+            copy = {n: {k: v.detach().clone() for k, v in t.items()}
+                    for n, t in state.params.items()}
+            train_out = flow._inner_step(copy, batch, training=True)[
+                "absolute_pose_loc"]
+        loss, preds, _ = flow.eval_step(state.params, batch)
+        eval_vs_train = float((preds["absolute_pose_loc"]
+                               - train_out).abs().max())
+        if not eval_vs_train > 0.0:
+            raise AssertionError("eval and train-mode outputs are the same")
+        restored = flow.init_state()
+        trainer.checkpoints.restore(restored,
+                                    os.path.join(run, "checkpoints", "last"))
+        same = all(torch.equal(restored.params[n][k], v)
+                   for n, t in state.params.items() for k, v in t.items())
+        again, preds_again, _ = flow.eval_step(restored.params, batch)
+        if not (same and restored.step == VP_TRAIN_STEPS
+                and torch.equal(preds_again["absolute_pose_loc"],
+                                preds["absolute_pose_loc"])
+                and torch.equal(again["loc_2d"], loss["loc_2d"])):
+            raise AssertionError("config 4's checkpoint does not restore "
+                                 "exactly")
+    emit({"phase": "train_videopose3d", "B": VP_BATCH, "L": VP_CLIP,
+          "steps": VP_TRAIN_STEPS, "losses": losses,
+          "val": {k: v for k, v in records[-1].items()
+                  if k.startswith("val_")},
+          "running_stats_moved_min": min(moved.values()),
+          "eval_vs_train_max_abs": eval_vs_train,
+          "restore_exact": True, "seconds": time.perf_counter() - t0})
+
+
+def phase_timing_videopose3d(dm, flow, params, card, hbm_rate):
+    """Config 4's training_step and request, host clock and CUDA events;
+    a profiled window of 3 steps; the step's products against the fp32
+    peak."""
+    from torch.func import functional_call
+
+    from pedestrians_video_2_carla_torch.ops.flops import video_pose_3d_flops
+    from pedestrians_video_2_carla_torch.serving import make_inference_fn
+
+    t0 = time.perf_counter()
+    state = flow.init_state(params)
+    batch = next(dm.train_batches(SEED + 9))
+    inputs, _, meta = next(dm.test_batches())
+    infer = make_inference_fn(flow, params)
+    step = functools.partial(flow.training_step, state, batch)
+    request = functools.partial(infer, inputs, meta["age_gender_idx"])
+    model = flow.movements_model
+
+    def forward():       # the model alone, as a request runs it
+        with torch.no_grad():
+            functional_call(model, params["movements"], (inputs,))
+
+    def forward_backward():  # the model alone, as a step runs it
+        out = functional_call(model, state.params["movements"], (batch[0],),
+                              {"training": True, "generator": flow.generator})
+        out.sum().backward()
+    times = {"train_step_ms_host": host_median_ms(step),
+             "train_step_ms_cuda_events": cuda_median_ms(step),
+             "request_ms_host": host_median_ms(request),
+             "request_ms_cuda_events": cuda_median_ms(request),
+             "model_forward_ms_host": host_median_ms(forward),
+             "model_forward_ms_cuda_events": cuda_median_ms(forward),
+             "model_forward_backward_ms_host": host_median_ms(
+                 forward_backward),
+             "model_forward_backward_ms_cuda_events": cuda_median_ms(
+                 forward_backward),
+             "adamw_ms_cuda_events": cuda_median_ms(state.optimizer.step)}
+    profiles = {}
+    for name, fn in (("train_step", step), ("request", request)):
+        trace, _ = profile_steps(fn)
+        trace["top_device_ops_ms"] = trace["top_device_ops_ms"][:5]
+        trace["device_events_per_call"] = trace["device_events"] \
+            / PROFILE_STEPS
+        profiles[name] = trace
+    shape = (VP_BATCH, VP_CLIP, len(model.input_nodes), model.filter_widths,
+             model.channels)
+    flops = {"train_step": video_pose_3d_flops(*shape, train=True),
+             "forward": video_pose_3d_flops(*shape)}
+    # bytes: each input read and each output written once (the request:
+    # weights, clips in, locations out; the step: weights and AdamW's two
+    # moments read and written, clips in)
+    n_params = sum(p.numel() for p in model.parameters())
+    clips = VP_BATCH * VP_CLIP * len(model.input_nodes)
+    moved = {"train_step": 4 * (6 * n_params + 2 * clips),
+             "forward": 4 * (n_params + 2 * clips + 3 * clips)}
+    bounds = {k: max(v / FP32_PEAK, moved[k] / hbm_rate) * 1e3
+              for k, v in flops.items()}
+    emit({"phase": "timing_videopose3d", "card": card, "B": VP_BATCH,
+          "L": VP_CLIP, **times, "profiles": profiles, "gflop": {
+              k: v / 1e9 for k, v in flops.items()},
+          "bound_ms": bounds, "bound_by": "operations" if all(
+              flops[k] / FP32_PEAK > moved[k] / hbm_rate for k in flops)
+          else "bytes", "parameters": n_params,
+          "train_step_over_bound": times["train_step_ms_cuda_events"]
+          / bounds["train_step"],
+          "request_over_bound": times["request_ms_cuda_events"]
+          / bounds["forward"],
+          "tflops_train_step": flops["train_step"]
+          / times["train_step_ms_cuda_events"] / 1e9,
+          "method": "host clock to torch.cuda.synchronize() and CUDA events "
+                    "around one call, medians of %d after 3 warm-ups (the "
+                    "model alone through functional_call: a no-grad "
+                    "forward; a training forward and the backward of its "
+                    "sum; AdamW's step alone); profiles: torch.profiler "
+                    "over 3 calls; bounds: the larger of the dense products "
+                    "(ops/flops.py) at the CUDA cores' 67 TFLOP/s fp32 and "
+                    "the bytes over the memory rate" % TIMING_RUNS,
+          "seconds": time.perf_counter() - t0})
+    return times
+
+
+def phase_lifters_coverage():
+    """A 3-step fit of each other new movements model at B=256, L=16 (the
+    published widths): finite losses; one eval_step twice, the same
+    bits."""
+    from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
+        Carla2D3DDataModule
+    from pedestrians_video_2_carla_torch.flows.autoencoder import \
+        AutoencoderFlow
+    from pedestrians_video_2_carla_torch.flows.pose_lifting import \
+        PoseLiftingFlow
+    from pedestrians_video_2_carla_torch.models.base import OptimizerSettings
+    from pedestrians_video_2_carla_torch.models.movements import \
+        MOVEMENTS_MODELS
+    from pedestrians_video_2_carla_torch.training.trainer import (
+        Trainer, TrainerConfig)
+
+    t0 = time.perf_counter()
+    dm = Carla2D3DDataModule(batch_size=LIFTERS_BATCH, clip_length=CLIP,
+                             val_set_size=LIFTERS_BATCH, seed=SEED)
+    batch = next(dm.val_batches())
+    models = {}
+    for name in LIFTERS_POSE + LIFTERS_AUTOENCODERS:
+        model = MOVEMENTS_MODELS[name](
+            generator=torch.Generator().manual_seed(SEED))
+        pose = name in LIFTERS_POSE
+        flow = (PoseLiftingFlow if pose else AutoencoderFlow)(
+            model, loss_modes=["loc_2d_3d" if pose else "loc_2d"],
+            movements_optimizer=OptimizerSettings(lr=LR), seed=SEED)
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = Trainer(flow, dm, TrainerConfig(
+                max_epochs=1, limit_train_batches=LIFTERS_STEPS,
+                limit_val_batches=1, log_every_n_steps=1, seed=SEED,
+                logs_dir=tmp, run_name=name))
+            t = time.perf_counter()
+            state = trainer.fit()
+            torch.cuda.synchronize()
+            with open(os.path.join(tmp, name, "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+        losses = [r["train_loss/primary"] for r in records
+                  if "lr-movements" in r]
+        first, _, _ = flow.eval_step(state.params, batch)
+        second, _, _ = flow.eval_step(state.params, batch)
+        if len(losses) != LIFTERS_STEPS or not all(
+                np.isfinite(v) for r in records for k, v in r.items()
+                if "_loss/" in k) or any(
+                not torch.equal(first[k], second[k]) for k in first):
+            raise AssertionError(f"{name}: losses {losses}, eval "
+                                 f"{first} / {second}")
+        models[name] = {"losses": losses, "fit_s": time.perf_counter() - t,
+                        "params": flow.param_counts(state)["movements"],
+                        "running_stats": sum(
+                            not v.requires_grad for v in
+                            state.params["movements"].values())}
+    emit({"phase": "lifters_coverage", "B": LIFTERS_BATCH, "L": CLIP,
+          "models": models, "seconds": time.perf_counter() - t0})
+
+
+def group_lifters(card, hbm_rate):
+    """BASELINE config 4 (VideoPose3D at rf 81, no kernel on its path) and
+    the other new movements models."""
+    from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
+        Carla2D3DDataModule
+
+    t0 = time.perf_counter()
+    dm = Carla2D3DDataModule(batch_size=VP_BATCH, clip_length=VP_CLIP,
+                             test_set_size=REQUESTS * VP_BATCH,
+                             val_set_size=VP_VAL_BATCHES * VP_BATCH,
+                             seed=SEED)
+    flow, params = phase_serve_videopose3d(list(dm.test_batches()))
+    phase_train_videopose3d(dm)
+    phase_timing_videopose3d(dm, flow, params, card, hbm_rate)
+    del flow, params, dm
+    torch.cuda.empty_cache()
+    phase_lifters_coverage()
+    emit({"phase": "group_lifters", "seconds": time.perf_counter() - t0})
+
+
 def kernel_entry(name, source, replaces, launches, max_err, times):
     """One entry of the kernels line; ``replaces`` is the TPU kernel's
     ``file:line`` under the JAX package's ops/pallas/."""
@@ -4291,6 +4650,7 @@ def main():
     launches = group_autoencoder(card, hbm_rate)
     for entry in kernels:
         entry.update(launches.get(entry["name"], {}))
+    group_lifters(card, hbm_rate)
 
     print(card, flush=True)
     emit({"kernels": kernels})

@@ -6,11 +6,17 @@ configuration, and applies the models functionally
 (``torch.func.functional_call``) to an explicit parameter dict
 ``{"movements": state_dict, "trajectory": state_dict}``. The parameters come
 from the models' own seeded init (:meth:`BaseFlow.init_params`) or from the
-flax weight bridge (``models/jax_import.py``). Training carries them in a
-:class:`FlowState` with their AdamW optimizer, the LR schedules and the step
-count. An update clips the gradients by their global norm over every model
-(``gradient_clip_val``), sets each schedule's lr and steps AdamW, as the JAX
-package's ``clip_by_global_norm`` + ``multi_transform`` chain does.
+flax weight bridge (``models/jax_import.py``). A model's persistent buffers
+(BatchNorm's running statistics, the JAX package's ``mutables``) sit in the
+same dict beside its parameters: ``functional_call`` receives both, a
+training step updates the buffers in place, and evaluation and serving
+read them. Training carries the dict in a :class:`FlowState` with the
+AdamW optimizer of its parameters, the LR schedules and the step count;
+the buffers are no grad leaves (:func:`state_params`), so AdamW, the
+clip, ``param_counts`` and the trainer's anomaly check never see them. An
+update clips the gradients by their global norm over every model
+(``gradient_clip_val``), sets each schedule's lr and steps AdamW, as the
+JAX package's ``clip_by_global_norm`` + ``multi_transform`` chain does.
 """
 import inspect
 from dataclasses import dataclass, field
@@ -34,14 +40,45 @@ DEFAULT_SEED = 22742
 
 @dataclass
 class FlowState:
-    """What training carries from step to step: the parameter dict (leaves
-    that require grad), the AdamW optimizer over those leaves, the LR
+    """What training carries from step to step: the parameter dict (the
+    parameters are leaves that require grad, the models' running
+    statistics are not; :func:`state_params`), the AdamW optimizer over
+    the parameters, the LR
     schedule of each parameter group that has one, and the number of steps
     taken. ``training_step`` updates it in place."""
     params: Params
     optimizer: torch.optim.Optimizer
     step: int = 0
     schedules: Dict[str, LRSchedule] = field(default_factory=dict)
+
+
+def buffer_names(model: torch.nn.Module) -> set:
+    """The names of ``model``'s persistent buffers (in its
+    ``state_dict``): the running statistics a parameter dict carries
+    beside the parameters."""
+    persistent = model.state_dict().keys()
+    return {name for name, _ in model.named_buffers() if name in persistent}
+
+
+def state_params(params: Params, models: Dict[str, torch.nn.Module],
+                 device: torch.device) -> Params:
+    """Copies of ``params`` on ``device`` for a training state: each
+    model's parameters as grad leaves, its persistent buffers
+    (:func:`buffer_names`) as tensors without grad, which a training step
+    updates in place."""
+    out = {}
+    for name, tree in params.items():
+        buffers = buffer_names(models[name])
+        out[name] = {k: v.detach().to(device).clone()
+                     .requires_grad_(k not in buffers)
+                     for k, v in tree.items()}
+    return out
+
+
+def trained(tree: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+    """The leaves of a state's parameter dict that training updates through
+    AdamW: those that require grad (not the running statistics)."""
+    return [v for v in tree.values() if v.requires_grad]
 
 
 def make_schedules(settings: Dict[str, OptimizerSettings],
@@ -77,7 +114,7 @@ def apply_update(state: FlowState, primary: torch.Tensor,
     step."""
     if gradient_clip_val > 0:
         clip_by_global_norm((p for tree in state.params.values()
-                             for p in tree.values()), gradient_clip_val)
+                             for p in trained(tree)), gradient_clip_val)
     for group in state.optimizer.param_groups:
         schedule = state.schedules.get(group["name"])
         if schedule is not None:
@@ -183,8 +220,9 @@ class BaseFlow:
 
     # -- parameters --------------------------------------------------------
     def init_params(self) -> Params:
-        """The models' current (seeded-init) parameters, on the flow's
-        device, as the parameter dict the steps take."""
+        """The models' current (seeded-init) parameters and running
+        statistics (their ``state_dict``s), on the flow's device, as the
+        parameter dict the steps take."""
         return {"movements": {k: v.detach() for k, v in
                               self.movements_model.state_dict().items()},
                 "trajectory": {k: v.detach() for k, v in
@@ -193,18 +231,19 @@ class BaseFlow:
     # -- state -------------------------------------------------------------
     def init_state(self, params: Optional[Params] = None) -> FlowState:
         """A training state over copies of ``params`` (default: the models'
-        own seeded init): one AdamW over both models, a parameter group per
-        model with its own settings, as the JAX package's per-model
-        ``optax.multi_transform``."""
+        own seeded init): one AdamW over both models' parameters, a
+        parameter group per model with its own settings, as the JAX
+        package's per-model ``optax.multi_transform``; the running
+        statistics ride along without grad (:func:`state_params`)."""
         params = self.init_params() if params is None else params
-        params = {name: {k: v.detach().to(self.device).clone()
-                         .requires_grad_(True) for k, v in tree.items()}
-                  for name, tree in params.items()}
+        params = state_params(params, {"movements": self.movements_model,
+                                       "trajectory": self.trajectory_model},
+                              self.device)
         optimizer = make_adamw({
             "movements": (self.movements_optimizer,
-                          params["movements"].values()),
+                          trained(params["movements"])),
             "trajectory": (self.trajectory_optimizer,
-                           params["trajectory"].values())})
+                           trained(params["trajectory"]))})
         return FlowState(params=params, optimizer=optimizer, step=0,
                          schedules=make_schedules(
                              self.optimizer_settings_map(),
@@ -226,8 +265,9 @@ class BaseFlow:
 
     @staticmethod
     def param_counts(state: FlowState) -> Dict[str, int]:
-        """Per-model parameter counts."""
-        return {name: sum(v.numel() for v in tree.values())
+        """Per-model parameter counts (the running statistics left out, as
+        the JAX package counts ``state.params`` alone)."""
+        return {name: sum(v.numel() for v in trained(tree))
                 for name, tree in state.params.items()}
 
     # -- model application -------------------------------------------------

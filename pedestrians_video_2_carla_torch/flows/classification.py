@@ -23,7 +23,7 @@ from ..models.base import OptimizerSettings, make_adamw
 from ..models.classification import CLASSIFICATION_MODELS
 from ..utils.device import DeviceLike, resolve_device
 from .base import (DEFAULT_SEED, BaseFlow, FlowState, Params, apply_update,
-                   make_schedules)
+                   make_schedules, state_params, trained)
 from .output_types import ClassificationModelOutputType
 
 
@@ -116,14 +116,16 @@ class ClassificationFlow:
 
     def init_state(self, params: Optional[Params] = None) -> FlowState:
         """A training state over copies of ``params`` (default: the model's
-        own seeded init): AdamW with the one group "classification"."""
+        own seeded init): AdamW with the one group "classification" over
+        the model's parameters; persistent buffers ride along without grad
+        (:func:`~.base.state_params`)."""
         params = self.init_params() if params is None else params
-        params = {name: {k: v.detach().to(self.device).clone()
-                         .requires_grad_(True) for k, v in tree.items()}
-                  for name, tree in params.items()}
+        params = state_params(
+            params, {"classification": self.classification_model},
+            self.device)
         optimizer = make_adamw({"classification": (
             self.classification_optimizer,
-            params["classification"].values())})
+            trained(params["classification"]))})
         return FlowState(params=params, optimizer=optimizer, step=0,
                          schedules=make_schedules(
                              self.optimizer_settings_map(),

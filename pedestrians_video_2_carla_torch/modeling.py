@@ -19,7 +19,10 @@ data module and the model), as the JAX CLI adds one per model field; so are
 the training options (``--gradient_clip_val``, ``--loss_weights``,
 ``--loss_params_{i}``, ``--{prefix}_enable_lr_scheduler`` and the
 ``--{prefix}_scheduler_*`` family). Logs
-and checkpoints go to ``<root_dir>/logs/<flow>/<run_name>/``. It runs
+and checkpoints go to ``<root_dir>/logs/<flow>/<run_name>/``; a
+``--ckpt_path`` ending in ``.ckpt``, ``.pth`` or ``.pt`` that is not the
+port's own archive is a reference torch checkpoint, whose movements-model
+weights load through ``Trainer.restore_torch``. It runs
 on the card unless ``--device cpu`` is given. A flow, data module, model,
 mode or loss that the JAX package has but the port does not yet raises
 ``NotImplementedError`` naming ``ROADMAP.md``.
@@ -45,6 +48,7 @@ from .models.classification.common import ClassificationModel
 from .models.movements import MOVEMENTS_MODELS
 from .models.movements.common import MovementsModel
 from .ops.projection import KERNELS
+from .training.checkpoint import is_archive
 from .training.trainer import Trainer, TrainerConfig
 
 DEFAULT_SEED = 22742
@@ -214,6 +218,14 @@ def loss_params(args) -> Optional[List[float]]:
     return out
 
 
+def is_reference_checkpoint(path: str) -> bool:
+    """Whether ``--ckpt_path`` names a reference torch or Lightning
+    checkpoint (``.ckpt``, ``.pth``, or a ``.pt`` that is not the port's
+    own archive), whose movements-model weights alone load."""
+    return path.endswith((".ckpt", ".pth")) \
+        or (path.endswith(".pt") and not is_archive(path))
+
+
 def chosen_model(args):
     """(the registry, the name) of the model the chosen flow trains."""
     if args.flow == "classification":
@@ -287,7 +299,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
     results: Dict[str, Any] = {"trainer": trainer, "flow": flow, "dm": dm}
     if args.ckpt_path:
-        trainer.restore(args.ckpt_path, weights_only=(args.mode != "train"))
+        if is_reference_checkpoint(args.ckpt_path):
+            trainer.restore_torch(args.ckpt_path, args.movements_model_name)
+        else:
+            trainer.restore(args.ckpt_path,
+                            weights_only=(args.mode != "train"))
     if args.mode == "train":
         trainer.fit()
         results["val_metrics"] = trainer.evaluate(

@@ -4,34 +4,80 @@ JAX package's flows hold them) -> the port's ``state_dict``s.
 The mirror image of the JAX package's ``models/torch_import.py``: a flax
 ``Dense_i/kernel`` of shape (in, out) becomes ``Dense_i.weight`` of shape
 (out, in), ``Dense_i/bias`` becomes ``Dense_i.bias``, and any other leaf
-keeps its dotted path. A PoseFormer tree maps onto the public PoseFormer
-checkpoint's names (:func:`import_pose_former`), the inverse of the JAX
-package's ``models/torch_import.py::import_pose_former``.
+keeps its dotted path (the other layouts: :func:`flax_to_state_dict`). A
+flow's ``batch_stats`` become its BatchNorm layers' running statistics
+(:func:`batch_stats_to_state_dict`). A PoseFormer tree maps onto the public
+PoseFormer checkpoint's names (:func:`import_pose_former`), the inverse of
+the JAX package's ``models/torch_import.py::import_pose_former``.
 """
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from ..utils.device import DeviceLike, resolve_device
 
+#: flax ``MultiHeadDotProductAttention``'s projections (``DenseGeneral``)
+_ATTENTION = ("query", "key", "value", "out")
+
+
+def _weight(kernel: np.ndarray, attention: Optional[str], path: str
+            ) -> np.ndarray:
+    """A flax kernel -> the port's ``weight``: nn.Linear's (out, in) for a
+    Dense kernel (in, out) and for an attention projection's (query, key,
+    value: (in, heads, head_dim); out: (heads, head_dim, out)); Conv1d's
+    (out, in, width) for a temporal conv's (width, in, out)."""
+    if attention == "out":
+        return kernel.reshape(-1, kernel.shape[-1]).T
+    if attention is not None:
+        return kernel.reshape(kernel.shape[0], -1).T
+    if kernel.ndim not in (2, 3):
+        raise ValueError(f"{path}: no layout for a kernel of shape "
+                         f"{kernel.shape}")
+    return kernel.T
+
 
 def flax_to_state_dict(tree: Mapping[str, Any], prefix: str = ""
                        ) -> Dict[str, torch.Tensor]:
-    """Flatten a flax parameter tree into a PyTorch ``state_dict`` (CPU)."""
+    """Flatten a flax parameter tree into a PyTorch ``state_dict`` (CPU):
+    ``kernel`` -> ``weight`` in nn.Linear's or Conv1d's layout
+    (:func:`_weight`; an attention projection's (heads, head_dim) bias
+    flattened with it), a norm's ``scale`` -> ``weight``, any other leaf
+    under its dotted path."""
     out: Dict[str, torch.Tensor] = {}
+    parts = prefix.rstrip(".").split(".")
+    attention = parts[-1] if len(parts) > 1 and parts[-1] in _ATTENTION \
+        and parts[-2].startswith("MultiHeadDotProductAttention") else None
     for name, value in tree.items():
         path = f"{prefix}{name}"
         if isinstance(value, Mapping):
             out.update(flax_to_state_dict(value, prefix=f"{path}."))
-        elif name == "kernel":
-            kernel = np.asarray(value)
-            if kernel.ndim != 2:
-                raise ValueError(f"{path}: only Dense kernels (2-D) are "
-                                 f"bridged, got shape {kernel.shape}")
-            out[f"{prefix}weight"] = torch.from_numpy(kernel.T.copy())
+            continue
+        value = np.asarray(value)
+        if name == "kernel":
+            value, path = _weight(value, attention, path), f"{prefix}weight"
+        elif name == "scale":
+            path = f"{prefix}weight"
+        elif name == "bias" and attention is not None:
+            value = value.reshape(-1)
+        out[path] = torch.from_numpy(np.array(value))
+    return out
+
+
+def batch_stats_to_state_dict(tree: Mapping[str, Any], prefix: str = ""
+                              ) -> Dict[str, torch.Tensor]:
+    """A flax ``batch_stats`` tree -> the port's BatchNorm buffers:
+    ``<path>/mean`` -> ``<path>.running_mean``, ``var`` ->
+    ``running_var``. Any other leaf raises."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, value in tree.items():
+        if isinstance(value, Mapping):
+            out.update(batch_stats_to_state_dict(value, f"{prefix}{name}."))
+        elif name in ("mean", "var"):
+            out[f"{prefix}running_{name}"] = torch.from_numpy(
+                np.array(value))
         else:
-            out[path] = torch.from_numpy(np.array(value))
+            raise ValueError(f"{prefix}{name}: not a BatchNorm statistic")
     return out
 
 
@@ -171,16 +217,20 @@ def import_seq2seq(flax_params: Mapping[str, Any]
 
 
 def import_flow_params(flax_params: Mapping[str, Any],
-                       device: DeviceLike = None
+                       device: DeviceLike = None,
+                       mutables: Optional[Mapping[str, Any]] = None
                        ) -> Dict[str, Dict[str, torch.Tensor]]:
     """A JAX flow's ``state.params`` (``{"movements": ..., "trajectory":
-    ...}`` or ``{"classification": ...}``) -> the port's flow parameter
-    dict, on ``device`` (the card unless asked otherwise). A classifier's
-    tree goes through :func:`import_classification`, a PoseFormer tree
-    through :func:`import_pose_former`, a Seq2Seq-family tree (it has a
+    ...}`` or ``{"classification": ...}``) and, where given, its
+    ``state.mutables`` -> the port's flow parameter dict, on ``device`` (the
+    card unless asked otherwise). A classifier's tree goes through
+    :func:`import_classification`, a PoseFormer tree through
+    :func:`import_pose_former`, a Seq2Seq-family tree (it has a
     ``decoder``) through :func:`import_seq2seq`, any other (LinearAE,
-    LSTM, Linear, ZeroMovements, the trajectory models) through
-    :func:`flax_to_state_dict`."""
+    VideoPose3D, the transformer, the GNNs, the trajectory models) through
+    :func:`flax_to_state_dict`. A model's ``batch_stats`` join its
+    parameters as running statistics (:func:`batch_stats_to_state_dict`);
+    another mutable collection raises."""
     device = resolve_device(device)
 
     def bridge(name, tree):
@@ -191,5 +241,13 @@ def import_flow_params(flax_params: Mapping[str, Any],
         if "decoder" in tree:
             return import_seq2seq(tree)
         return flax_to_state_dict(tree)
-    return {name: {k: v.to(device) for k, v in bridge(name, tree).items()}
-            for name, tree in flax_params.items()}
+    out = {name: bridge(name, tree) for name, tree in flax_params.items()}
+    for name, collections in (mutables or {}).items():
+        unknown = set(collections) - {"batch_stats"}
+        if unknown:
+            raise ValueError(f"{name}: no port counterpart for the mutable "
+                             f"collections {sorted(unknown)}")
+        out[name].update(batch_stats_to_state_dict(
+            collections.get("batch_stats", {})))
+    return {name: {k: v.to(device) for k, v in tree.items()}
+            for name, tree in out.items()}

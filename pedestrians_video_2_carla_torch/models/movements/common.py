@@ -61,6 +61,51 @@ def lecun_normal_(tensor: torch.Tensor,
                   generator)
 
 
+def kaiming_normal_(tensor: torch.Tensor,
+                    generator: Optional[torch.Generator] = None) -> None:
+    """flax's ``nn.initializers.kaiming_normal()``: variance scaling 2.0 on
+    fan_in (the second axis of an nn.Linear weight), a truncated normal."""
+    trunc_normal_(tensor,
+                  math.sqrt(2.0 / tensor.shape[1]) / .87962566103423978,
+                  generator)
+
+
+class BatchNorm(nn.Module):
+    """flax's ``nn.BatchNorm`` over the last axis, reducing over every other
+    one. Training normalises by the batch's mean and biased variance
+    (``mean(x^2) - mean(x)^2``, clipped at 0: flax's fast variance) and
+    updates the running statistics in place, ``r = m r + (1 - m) stat``
+    with flax's momentum m; evaluation normalises by the running
+    statistics. ``weight`` / ``bias`` are flax's ``scale`` / ``bias``,
+    ``running_mean`` / ``running_var`` (persistent buffers) its
+    ``batch_stats`` ``mean`` / ``var``. ``nn.BatchNorm1d`` differs: it
+    keeps the unbiased variance and its momentum is 1 - m."""
+
+    def __init__(self, features: int, momentum: float = 0.99,
+                 epsilon: float = 1e-5) -> None:
+        super().__init__()
+        self.momentum, self.epsilon = momentum, epsilon
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+        if training:
+            axes = tuple(range(x.ndim - 1))
+            mean = x.mean(axes)
+            var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.epsilon) * self.weight) \
+            + self.bias
+
+
 def orthogonal_(tensor: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> None:
     """flax's ``orthogonal`` init, drawn from ``generator``."""
@@ -72,6 +117,17 @@ def normal_(tensor: torch.Tensor, std: float,
             generator: Optional[torch.Generator] = None) -> None:
     _fill_(tensor, lambda t: t.normal_(0.0, std, generator=generator),
            generator)
+
+
+def flax_dense(in_features: int, out_features: int,
+               generator: Optional[torch.Generator] = None,
+               init_: Callable = lecun_normal_) -> nn.Linear:
+    """An ``nn.Linear`` initialised as flax's ``nn.Dense``: ``init_`` on the
+    weight (flax's default lecun normal), the bias 0."""
+    layer = nn.Linear(in_features, out_features)
+    init_(layer.weight, generator)
+    nn.init.zeros_(layer.bias)
+    return layer
 
 
 def torch_dense_init_(layer: nn.Linear,
@@ -148,3 +204,16 @@ class MovementsModel(nn.Module):
     @staticmethod
     def supported_output_types():
         return list(MovementsModelOutputType)
+
+
+class FixedOutputModel(MovementsModel):
+    """A movements model with one output type, its class's
+    ``OUTPUT_TYPE``."""
+    OUTPUT_TYPE = MovementsModelOutputType.absolute_loc
+
+    def __init__(self, **kwargs) -> None:
+        super().__init__(movements_output_type=self.OUTPUT_TYPE, **kwargs)
+
+    @classmethod
+    def supported_output_types(cls):
+        return [cls.OUTPUT_TYPE]

@@ -48,7 +48,7 @@ from ...ops.fused_temporal_transformer import (check_limits,
                                                fused_temporal_stack)
 from ...ops.rotations import rotation_6d_to_matrix
 from ...ops.transformer import LN_EPS, block_reference, layer_norm
-from .common import (MovementsModel, dropout, lecun_normal_, normal_,
+from .common import (FixedOutputModel, dropout, lecun_normal_, normal_,
                      trunc_normal_)
 
 #: the stages' routes: the JAX model's "auto" | "pallas" | "xla"
@@ -97,16 +97,12 @@ class _Block(nn.Module):
                 self.mlp.fc2.weight, self.mlp.fc2.bias)
 
 
-class PoseFormer(MovementsModel):
+class PoseFormer(FixedOutputModel):
     """Predicts absolute joint locations (B, L, J, 3); the first and last
     ``receptive_frames // 2`` frames, which no window centres on, stay
     zeros and ``eval_slice`` leaves them out. ``clip_length`` only sets
     ``eval_slice``, as in the JAX model."""
     OUTPUT_TYPE = MovementsModelOutputType.absolute_loc
-
-    @classmethod
-    def supported_output_types(cls):
-        return [cls.OUTPUT_TYPE]
 
     def __init__(self, clip_length: int = 30, receptive_frames: int = 9,
                  single_joint_embeddings_size: int = 32, depth: int = 4,
@@ -124,7 +120,7 @@ class PoseFormer(MovementsModel):
             if kernel not in KERNELS:
                 raise ValueError(f"unknown {name} {kernel!r}; one of "
                                  f"{KERNELS}")
-        super().__init__(movements_output_type=self.OUTPUT_TYPE, **kwargs)
+        super().__init__(**kwargs)
         self.clip_length = clip_length
         self.receptive_frames = receptive_frames
         self.num_heads = num_heads

@@ -1,8 +1,9 @@
 """Analytic FLOP counts of the transformer kernels: the port's own copy of
 what it needs of the JAX package's ``ops/pallas/flops.py`` (the port
-imports nothing of that package), and the backward's count; and the FLOP
-and byte counts of the graph-GRU and graph-LSTM scans. ``chip_smoke.py``
-bounds the kernels, forward and backward, with them.
+imports nothing of that package), and the backward's count; the FLOP
+and byte counts of the graph-GRU and graph-LSTM scans; and the dense
+products of VideoPose3D (BASELINE config 4). ``chip_smoke.py`` bounds the
+kernels, forward and backward, and config 4's step with them.
 
 FLOP convention: 1 multiply-accumulate = 2 FLOPs.
 """
@@ -125,3 +126,38 @@ def graph_scan_bytes(cell: str, batch: int, clip_length: int, joints: int,
         elif keep:
             floats += rows * (gates * H + (0 if dense else k * H))
     return int(4 * floats)
+
+
+def video_pose_3d_flops(batch: int, clip_length: int, joints: int = 26,
+                        filter_widths=(3, 3, 3, 3), channels: int = 1024,
+                        train: bool = False) -> int:
+    """FLOPs of VideoPose3D's dense products (``models/movements/
+    video_pose_3d.py``), a forward or (``train``) a training step.
+
+    The input (2 J features a frame) is edge-padded to L + rf - 1 frames.
+    Each VALID conv of width w and dilation d over L_in frames gives
+    L_in - d (w - 1) frames at 2 w C_in C_out FLOPs a frame: the expand
+    conv (C_in = 2 J), then per residual block a width-w conv and a 1 x 1
+    conv (C x C); the ``shrink`` head is 2 C 3 J a frame over L frames. A
+    training step adds each product's weight gradient and its input
+    gradient, all but the expand conv's (its input needs none).
+    BatchNorm, ReLU and dropout are left out."""
+    rf = 1
+    for w in filter_widths:
+        rf *= w
+    frames = clip_length + rf - 1
+    expand = 0
+    forward = 0
+    dilation, c_in = 1, 2 * joints
+    for i, w in enumerate(filter_widths):
+        frames -= dilation * (w - 1)
+        conv = 2 * batch * frames * w * c_in * channels
+        if i == 0:
+            expand = conv
+        else:
+            conv += 2 * batch * frames * channels * channels   # the 1 x 1
+        forward += conv
+        dilation *= w
+        c_in = channels
+    forward += 2 * batch * clip_length * channels * 3 * joints
+    return int(3 * forward - expand if train else forward)

@@ -8,7 +8,8 @@ import torch
 
 def make_inference_fn(flow, params, output_keys=None
                       ) -> Callable[..., Dict[str, Any]]:
-    """Inference closure over ``params`` (a flow parameter dict):
+    """Inference closure over ``params`` (a flow parameter dict, the
+    models' running statistics included: evaluation normalises by them):
     ``infer(inputs, age_gender_idx) -> preds``. Runs on the flow's device
     (the card, unless the flow was built with ``device="cpu"``).
 

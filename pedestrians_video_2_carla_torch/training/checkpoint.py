@@ -5,9 +5,9 @@ save_top_k=1)`` in the reference): ``best-step<N>.pt`` for the lowest
 ``last.pt``.
 
 An archive is the port's own format: ``torch.save`` of ``{"params",
-"optimizer", "schedules", "step"}`` (the parameter dict, the optimizer's
-``state_dict()``, the LR schedules' states and the step count), loaded
-with ``weights_only=True``.
+"optimizer", "schedules", "step"}`` (the parameter dict with the models'
+running statistics, the optimizer's ``state_dict()``, the LR schedules'
+states and the step count), loaded with ``weights_only=True``.
 Saves are synchronous: the host copy and the file write finish before
 ``save`` returns. Every file is written to a temporary name and
 ``os.replace``d into place, so a crash never leaves a torn checkpoint.
@@ -34,6 +34,13 @@ def _snapshot(state: FlowState) -> Dict:
             "schedules": {name: _to_cpu(s.state_dict())
                           for name, s in state.schedules.items()},
             "step": int(state.step)}
+
+
+def is_archive(path: str) -> bool:
+    """Whether ``path`` is one of the port's own archives (``params`` and
+    ``step`` at its top), as against a reference torch checkpoint."""
+    data = torch.load(path, map_location="cpu", weights_only=True)
+    return isinstance(data, dict) and {"params", "step"} <= set(data)
 
 
 def _to_cpu(obj):
@@ -93,7 +100,8 @@ class CheckpointManager:
     def restore(self, state: FlowState, path: Optional[str] = None,
                 weights_only: bool = False) -> FlowState:
         """Load a checkpoint (default: the best) into ``state``,
-        in place: the parameters, and unless ``weights_only`` the optimizer
+        in place: the parameters and running statistics, and unless
+        ``weights_only`` the optimizer
         state, the LR schedules' states and the step count. ``path`` may name the archive with or
         without its ``.pt``."""
         if path is None:

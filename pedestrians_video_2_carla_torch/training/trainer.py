@@ -24,6 +24,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..flows.base import BaseFlow, FlowState
+from ..models.torch_import import import_torch_checkpoint
 from ..utils.device import DeviceLike, resolve_device
 from .checkpoint import CheckpointManager
 from .loggers import MetricsLogger
@@ -173,8 +174,8 @@ class Trainer:
         bad_losses = [k for k, v in host_logs.items() if not math.isfinite(v)]
         bad_params = [f"{name}.{k}"
                       for name, tree in self.state.params.items()
-                      for k, v in tree.items()
-                      if not bool(torch.isfinite(v).all())]
+                      for k, v in tree.items() if v.requires_grad
+                      and not bool(torch.isfinite(v).all())]
         if not bad_losses and not bad_params:
             return
         report = {"step": global_step, "non_finite_losses": bad_losses,
@@ -256,3 +257,24 @@ class Trainer:
         keeps a fresh optimizer state and step count."""
         self._init_state()
         self.checkpoints.restore(self.state, path, weights_only=weights_only)
+
+    def restore_torch(self, path: str, model_name: str) -> None:
+        """Load a reference torch or Lightning checkpoint's movements-model
+        weights (``LinearAE``, ``Seq2SeqEmbeddings``, ``VideoPose3D`` with
+        its running statistics, ``PoseFormer``:
+        ``models/torch_import.py``) into the trainer's state, in place; the
+        optimizer state and the step count stay fresh, as in the JAX
+        package's ``restore_torch``. Another model name, or a file that
+        does not fit the flow's model, raises."""
+        self._init_state()
+        loaded = import_torch_checkpoint(path, model_name)
+        tree = self.state.params.get("movements")
+        if tree is None or set(loaded) != set(tree) or any(
+                loaded[k].shape != v.shape for k, v in tree.items()):
+            raise ValueError(
+                f"{path}: {model_name}'s weights do not fit the flow's "
+                f"movements model ({sorted(loaded)} against "
+                f"{sorted(tree or {})})")
+        with torch.no_grad():
+            for k, v in tree.items():
+                v.copy_(loaded[k])

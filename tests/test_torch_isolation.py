@@ -76,6 +76,17 @@ def test_port_has_the_classification_slice_and_packages_its_kernel():
     assert "csrc/*.cu" in packaging
 
 
+def test_port_has_the_lifters_slice():
+    """Config 4's slice and the rest of the movements zoo are modules the
+    isolation checks walk."""
+    modules = _port_modules()
+    for name in ("video_pose_3d", "baseline_3d_pose", "linear_ae",
+                 "transformers", "spatial_gnn"):
+        assert f"pedestrians_video_2_carla_torch.models.movements.{name}" \
+            in modules
+    assert "pedestrians_video_2_carla_torch.models.torch_import" in modules
+
+
 def test_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
     from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
         Carla2D3DDataModule

@@ -513,10 +513,11 @@ def test_cli_test_mode_evaluates_a_checkpoint(tmp_path):
     assert tested["trainer"].state.step == 0  # weights only
 
 
-@pytest.mark.parametrize("flag", [
+@pytest.mark.parametrize("flags", [
     "--flow=pose_estimation", "--mode=predict",
-    "--data_module_name=JAADOpenPose", "--movements_model_name=VideoPose3D",
+    "--data_module_name=JAADOpenPose",
+    "--flow=classification --classification_model_name=GCNBestPaper",
     "--loss_modes=heatmaps"])
-def test_cli_names_what_is_not_ported(flag):
+def test_cli_names_what_is_not_ported(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        modeling.main([flag, "--device=cpu"])
+        modeling.main(flags.split() + ["--device=cpu"])
