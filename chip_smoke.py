@@ -327,10 +327,43 @@ Then group_lifters (no kernel on its path; every count stays 0):
                      SimpleTransformer, SpatialGnn, GNNLinearAutoencoder,
                      VariationalGcn on AutoencoderFlow (loc_2d): finite
                      losses, one eval_step twice the same bits.
-Then the card line, the kernels line (config 2's and the train-options
-phase's launches beside the dense LSTM and projection-training entries),
-and the contract line last. Any failure raises and ends the run with a
-non-zero exit.
+Then group_openpose (BASELINE config 3 on real-format labels): OpenPose
+BODY_25 clips made in numpy from the reference projections (mapped CARLA ->
+BODY_25 with map_pose, a walking motion, seeded noise, undetected joints;
+labelled by whether the legs swing), held in the port's Hdf5DataModule
+through add_subset (the card's machine has no h5py, pandas, PyYAML or
+matplotlib) on the card, remapped to the CARLA skeleton:
+ 29. preprocess_card -- process_batch on the card against the CPU for a
+                     deterministic configuration (hips_neck, BODY_25 ->
+                     CARLA, the confidence channel; atol 1e-5 beside rtol
+                     1e-6 for pixels, masks exact); with flip, rotation,
+                     noise and a dropped joint: the dropped joint zero with
+                     confidence 0, the clean targets without the noise,
+                     invert of the augmentation gets the pose back, the
+                     same bits twice; its time (CUDA events, host clock)
+                     and launches (torch.profiler) at B=256, L=16.
+ 30. train_openpose -- Trainer.fit of GConvGRU (hidden 128, k=2, 2 layers,
+                     dropout 0.2), flip and rotation on, 4 epochs of 16
+                     steps and 2 validation batches at B=256, L=16: rows 10
+                     and 11 counted (2 + 2 a step, 2 a validation batch),
+                     the fit-start baseline in hparams.json, finite losses,
+                     the last validation loss below ln 2 / 2 and below the
+                     first, an exact restore; then 3 training_steps of the
+                     fused and plain routes from the same weights on the
+                     same batches: losses to rtol 1e-4.
+ 31. serve_openpose -- 8 eval_steps, twice: 2 forward launches each, the
+                     same bits.
+ 32. gcn_coverage -- GCNBestPaper and GCNBestPaperTransformer: 3-step fits
+                     and a validation batch, an eval_step twice the same
+                     bits; no kernel launched.
+ 33. timing_openpose -- host-clock and CUDA-event medians of the step with
+                     its batch (slice, copies, process_batch), the
+                     training_step alone, the batch alone and an eval_step;
+                     process_batch's share of the step.
+Then the card line, the kernels line (config 2's, the train-options
+phase's and group_openpose's launches beside the dense LSTM, projection-
+training and graph-GRU entries), and the contract line last. Any failure
+raises and ends the run with a non-zero exit.
 """
 import ctypes
 import functools
@@ -530,6 +563,22 @@ LIFTERS_AUTOENCODERS = ("LinearAE2D", "SimpleTransformer", "SpatialGnn",
                         "GNNLinearAutoencoder", "VariationalGcn")
 LIFTERS_POSE = ("Baseline3DPose", "Baseline3DPoseRot", "LinearAEResidual",
                 "LinearAEResidualLeaky")
+#: BASELINE config 3 on real-format labels (group_openpose): OpenPose
+#: BODY_25 clips made from the reference projections (B=256, L=16) with a
+#: walking motion, seeded noise (px) and undetected joints (their share),
+#: labelled by whether the legs swing: the ankles' x distance over the
+#: clip, its standard deviation over the hips-neck length, above
+#: OP_SWING_THRESHOLD. A clip's swing amplitude over that length is drawn
+#: in OP_SWING_LOW or OP_SWING_HIGH, which the threshold parts with a
+#: margin. The subsets' sizes in batches, the fit's epochs, the parity
+#: steps and the bars: the card against the CPU (atol 1e-5 beside rtol
+#: 1e-6 for pixel values), the last validation loss below ln 2 / 2
+OP_SWING_LOW, OP_SWING_HIGH, OP_SWING_THRESHOLD = (0.0, 0.15), (0.5, 1.0), 0.4
+OP_NOISE_PX, OP_UNDETECTED = 1.5, 0.05
+OP_TRAIN_BATCHES, OP_VAL_BATCHES, OP_TEST_BATCHES = 16, 2, REQUESTS
+OP_EPOCHS, OP_PARITY_STEPS, OP_GCN_STEPS = 4, 3, 3
+OP_ATOL, OP_RTOL = 1e-5, 1e-6
+OP_LOSS_BAR = float(np.log(2.0) / 2)
 #: H100 memory rates (NVIDIA data sheets), bytes/s, and the float32 (non
 #: tensor-core) peak of the SXM part, FLOP/s
 HBM_RATE = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
@@ -3030,16 +3079,18 @@ def make_cls_flow(name="GConvGRU", lr=LR, **model_kwargs):
         model, classification_optimizer=OptimizerSettings(lr=lr), seed=SEED)
 
 
-def fit_classifier(flow, dm, steps, val_batches, run_name, expected):
-    """Trainer.fit of a classification flow: counted launches, finite
+def fit_classifier(flow, dm, steps, val_batches, run_name, expected,
+                   epochs=1):
+    """Trainer.fit of a classification flow, ``epochs`` of ``steps`` steps
+    and ``val_batches`` validation batches: counted launches, finite
     logged losses, validation metrics, an exact restore. Returns (counts,
-    the step records' losses, the last epoch record, seconds)."""
+    the step records' losses, the epoch records, seconds, hparams.json)."""
     from pedestrians_video_2_carla_torch.training.trainer import (
         Trainer, TrainerConfig)
 
     with tempfile.TemporaryDirectory() as tmp:
         trainer = Trainer(flow, dm, TrainerConfig(
-            max_epochs=1, limit_train_batches=steps,
+            max_epochs=epochs, limit_train_batches=steps,
             limit_val_batches=val_batches, log_every_n_steps=1, seed=SEED,
             logs_dir=tmp, run_name=run_name))
         reset_kernel_counts()
@@ -3060,9 +3111,11 @@ def fit_classifier(flow, dm, steps, val_batches, run_name, expected):
             raise AssertionError(f"non-finite logged losses {bad}")
         losses = [r["train_loss/primary"] for r in records
                   if "lr-classification" in r]
-        if len(losses) != steps:
+        if len(losses) != steps * epochs:
             raise AssertionError(f"{len(losses)} step records, expected "
-                                 f"{steps}")
+                                 f"{steps * epochs}")
+        with open(os.path.join(run, "hparams.json")) as f:
+            hparams = json.load(f)
         last = records[-1]
         missing = [k for k in ("val_loss/primary", "val_Accuracy",
                                "val_Precision", "val_Recall", "val_F1Score",
@@ -3082,10 +3135,11 @@ def fit_classifier(flow, dm, steps, val_batches, run_name, expected):
                    for k, v in tree.items()) and all(
             torch.equal(torch.as_tensor(v), torch.as_tensor(opt_back[i][k]))
             for i, st in opt.items() for k, v in st.items())
-        if not (same and restored.step == state.step == steps):
+        if not (same and restored.step == state.step == steps * epochs):
             raise AssertionError("the last checkpoint does not restore the "
                                  "trained params and AdamW state")
-    return counts, losses, last, fit_s
+    return (counts, losses, [r for r in records if "epoch" in r], fit_s,
+            hparams)
 
 
 def phase_train_classification(dm):
@@ -3098,10 +3152,11 @@ def phase_train_classification(dm):
             != (CLS_H, CLS_K, 0.2, "auto"):
         raise AssertionError("GConvGRU's defaults changed")
     batches = CLS_TRAIN_STEPS + VAL_BATCHES
-    counts, losses, last, fit_s = fit_classifier(
+    counts, losses, epochs, fit_s, _ = fit_classifier(
         flow, dm, CLS_TRAIN_STEPS, VAL_BATCHES, "cls",
         {"graph_gru_scan": 2 * batches,
          "graph_gru_scan_bwd": 2 * CLS_TRAIN_STEPS})
+    last = epochs[-1]
 
     # the labels are coin flips, so a stream of fresh batches teaches
     # nothing; one repeated batch is learnt. Dropout off and lr 1e-4, so
@@ -3149,7 +3204,7 @@ def phase_train_classification(dm):
              "dense_lstm_scan")):
         expected = {entry: 2 * (CLS_SHORT_STEPS + 1),
                     f"{entry}_bwd": 2 * CLS_SHORT_STEPS}
-        c, short_losses, _, _ = fit_classifier(
+        c, short_losses, _, _, _ = fit_classifier(
             short, dm, CLS_SHORT_STEPS, 1, run_name, expected)
         lstm_counts[run_name] = {k: v for k, v in c.items() if v}
         lstm_counts[run_name]["train_loss_primary"] = short_losses
@@ -4515,6 +4570,384 @@ def group_lifters(card, hbm_rate):
     emit({"phase": "group_lifters", "seconds": time.perf_counter() - t0})
 
 
+def openpose_clips(rng, n):
+    """``n`` OpenPose BODY_25 clips (CLIP frames) in pixels, in numpy: a
+    reference skeleton's projection (``ops/reference_skeletons.py``) mapped
+    CARLA -> BODY_25 with ``map_pose``, scaled, placed on a 1920 x 1080
+    frame and walked across it, its legs (and, against them, its arms)
+    swinging; seeded noise, undetected joints (zeros, confidence 0) and
+    the joints BODY_25 has and CARLA does not (ears, heels) at zero.
+    Returns (detections (n, L, 25, 3), the clean clips (n, L, 25, 2)
+    before noise and dropouts, targets {bboxes, crossing}, meta): the label
+    is whether the clip's legs swing (OP_SWING_THRESHOLD)."""
+    from pedestrians_video_2_carla_torch.ops.reference_skeletons import \
+        reference_projections
+    from pedestrians_video_2_carla_torch.skeletons import (
+        AGE_GENDER_KEYS, BODY_25_SKELETON as B25, CARLA_SKELETON, map_pose)
+
+    refs = map_pose(reference_projections()[..., :2], CARLA_SKELETON, B25)
+    detected = np.any(refs[0] != 0, axis=-1)              # (25,)
+    kind = rng.integers(0, len(AGE_GENDER_KEYS), n)
+    base = refs[kind]
+    hips, neck = base[:, int(B25.MidHip)], base[:, int(B25.Neck)]
+    scale = rng.uniform(0.5, 1.5, n)
+    length = np.linalg.norm(neck - hips, axis=-1) * scale  # hips-neck, px
+    swings = rng.uniform(size=n) < 0.5
+    amplitude = np.where(swings, rng.uniform(*OP_SWING_HIGH, n),
+                         rng.uniform(*OP_SWING_LOW, n)) * length
+    t = np.arange(CLIP)
+    swing = amplitude[:, None] * np.sin(
+        2 * np.pi * rng.uniform(0.05, 0.12, n)[:, None] * t
+        + rng.uniform(0, 2 * np.pi, n)[:, None])            # (n, L)
+    pose = np.repeat(((base - hips[:, None]) * scale[:, None, None])[:, None],
+                     CLIP, axis=1)                          # (n, L, 25, 2)
+    for side, sign in (("R", 1.0), ("L", -1.0)):
+        pose[..., int(B25[f"{side}Knee"]), 0] += 0.5 * sign * swing
+        for joint in ("Ankle", "BigToe", "SmallToe", "Heel"):
+            pose[..., int(B25[f"{side}{joint}"]), 0] += sign * swing
+        pose[..., int(B25[f"{side}Elbow"]), 0] -= 0.2 * sign * swing
+        pose[..., int(B25[f"{side}Wrist"]), 0] -= 0.4 * sign * swing
+    pose += rng.uniform((300.0, 300.0), (1620.0, 700.0), (n, 2))[:, None,
+                                                                 None]
+    pose[..., 0] += rng.uniform(-3.0, 3.0, n)[:, None, None] * t[:, None]
+    pose *= detected[:, None]
+    ankles = pose[..., int(B25.RAnkle), 0] - pose[..., int(B25.LAnkle), 0]
+    labels = (ankles.std(axis=1) / length > OP_SWING_THRESHOLD)
+    clean = pose.astype(np.float32)
+
+    seen = detected & (rng.uniform(size=pose.shape[:-1]) >= OP_UNDETECTED)
+    noisy = pose + rng.normal(0.0, OP_NOISE_PX, pose.shape)
+    confidence = rng.uniform(0.4, 1.0, pose.shape[:-1])
+    detections = np.concatenate([noisy, confidence[..., None]], axis=-1)
+    detections = (detections * seen[..., None]).astype(np.float32)
+    inf = np.where(seen[..., None], 0.0, np.inf)
+    bboxes = np.stack([(detections[..., :2] + inf).min(axis=-2),
+                       (detections[..., :2] - inf).max(axis=-2)], axis=-2)
+    ages, genders = zip(*(k.split("_") for k in AGE_GENDER_KEYS))
+    meta = {"age": np.asarray(ages)[kind], "gender": np.asarray(genders)[kind],
+            "clip_width": np.full(n, 1920, np.int32),
+            "clip_height": np.full(n, 1080, np.int32)}
+    targets = {"bboxes": bboxes.astype(np.float32),
+               "crossing": labels.astype(np.int32)}
+    return detections, clean, targets, meta
+
+
+def openpose_datamodule():
+    """The port's Hdf5DataModule on the card with in-memory subsets
+    (add_subset; the card's machine has no h5py): BODY_25 detections
+    remapped to the CARLA skeleton, hips_neck, flip and rotation in
+    training. Returns it and the test subset's clean clips."""
+    from pedestrians_video_2_carla_torch.data.base.hdf5_datamodule import \
+        Hdf5DataModule
+    from pedestrians_video_2_carla_torch.skeletons import (BODY_25_SKELETON,
+                                                           CARLA_SKELETON)
+
+    dm = Hdf5DataModule(batch_size=CLS_BATCH, clip_length=CLIP,
+                        data_nodes=BODY_25_SKELETON,
+                        input_nodes=CARLA_SKELETON, augment_flip=True,
+                        augment_rotate=True, seed=SEED,
+                        outputs_dir=tempfile.gettempdir())
+    rng = np.random.default_rng(SEED + 16)
+    for name, batches in (("train", OP_TRAIN_BATCHES),
+                          ("val", OP_VAL_BATCHES),
+                          ("test", OP_TEST_BATCHES)):
+        detections, clean, targets, meta = openpose_clips(
+            rng, batches * CLS_BATCH)
+        dm.add_subset(name, detections, targets, meta)
+    return dm, clean
+
+
+def device_launches(fn):
+    """The device kernels and copies of one call of ``fn`` (after a
+    warm-up), from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if getattr(e, "device_type", None) is not None
+             and e.device_type.name == "CUDA"]
+    copies = sum("emcpy" in n or "emset" in n for n in names)
+    return {"kernels": len(names) - copies, "copies_and_sets": copies}
+
+
+def preprocessing_close(got, ref):
+    """Max |a - b| of two outputs of process_batch and whether they agree
+    (OP_ATOL beside OP_RTOL); the presence or confidence channel exactly."""
+    worst, ok = 0.0, True
+    for a, b in zip(got, ref):
+        a, b = a.cpu().double(), b.cpu().double()
+        worst = max(worst, float((a - b).abs().max()))
+        ok &= bool(((a - b).abs() <= OP_ATOL + OP_RTOL * b.abs()).all())
+    return worst, ok
+
+
+def phase_preprocess_card(dm, clean):
+    """process_batch on the card: a deterministic configuration against the
+    same call on the CPU; flip, rotation, noise and missing joints by their
+    properties; its time and launches at B=256, L=16."""
+    from pedestrians_video_2_carla_torch.ops import augmentation as A
+    from pedestrians_video_2_carla_torch.ops import preprocessing as P
+    from pedestrians_video_2_carla_torch.skeletons import (BODY_25_SKELETON,
+                                                           CARLA_SKELETON)
+
+    projection_2d, targets, _ = dm._subsets["test"]
+    raw = torch.from_numpy(projection_2d[:CLS_BATCH])
+    det = P.PreprocessingConfig(data_nodes=BODY_25_SKELETON,
+                                input_nodes=CARLA_SKELETON,
+                                needs_confidence=True)
+    out, masks = {}, {}
+    for where, device in (("card", "cuda"), ("host", "cpu")):
+        inputs, tg = P.process_batch(None, raw.to(device), det)
+        out[where] = [inputs[..., :2]] + [tg[k] for k in sorted(tg)]
+        masks[where] = inputs[..., 2].cpu()
+    err, ok = preprocessing_close(out["card"], out["host"])
+    if not ok or not torch.equal(masks["card"], masks["host"]):
+        raise AssertionError(f"process_batch on the card vs the CPU: {err}")
+
+    # flip, rotation, noise and a joint that is always dropped (RWrist ->
+    # crl_hand__R), on the clean clips (no missing joints to move)
+    probs = [0.0] * len(BODY_25_SKELETON)
+    probs[int(BODY_25_SKELETON.RWrist)] = 1.0
+    rnd = P.PreprocessingConfig(
+        data_nodes=BODY_25_SKELETON, input_nodes=CARLA_SKELETON,
+        noise="gaussian", noise_param=3.0,
+        missing_joint_probabilities=tuple(probs), augment_flip=0.5,
+        augment_rotate=10.0, needs_confidence=True)
+    pose = torch.from_numpy(clean[:CLS_BATCH]).cuda()
+    bboxes = torch.from_numpy(targets["bboxes"][:CLS_BATCH]).cuda()
+    size = torch.tensor([[1920.0, 1080.0]], device="cuda").expand(
+        CLS_BATCH, 2)
+
+    def run(seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return P.process_batch(gen, pose, rnd, True, bboxes=bboxes,
+                               clip_size=size)
+    inputs, tg = run(SEED)
+    again, _ = run(SEED)
+    hand = int(CARLA_SKELETON.crl_hand__R)
+    deformed = tg["projection_2d_deformed"]
+    present = (deformed != 0).any(-1)
+    aug = A.AugmentPose(BODY_25_SKELETON, flip=0.5, rotate=10.0)
+    augmented, aug_bb, drawn = aug(
+        torch.Generator(device="cuda").manual_seed(SEED), pose,
+        bboxes=bboxes, clip_size=size)
+    back = aug.invert(augmented, drawn, bboxes=aug_bb, clip_size=size)
+    invert_err = float((back - pose).abs().max())
+    clean_err = float((tg["projection_2d"]
+                       - P.remap_nodes(augmented, rnd)).abs().max())
+    noise = (deformed - tg["projection_2d"])[present]
+    checks = {
+        "same_bits_twice": torch.equal(inputs, again),
+        "dropped_joint_confidence_0": bool((inputs[..., hand, 2] == 0).all()),
+        "dropped_joint_zero": bool((deformed[..., hand, :] == 0).all()),
+        "presence_channel": torch.equal(inputs[..., 2], present.float()),
+        "flips_drawn": torch.equal(drawn.is_flipped, tg["is_flipped"]),
+        "clean_targets_without_noise": clean_err <= 1e-3,
+        "invert_gets_pose_back": invert_err <= 1e-2,
+        "noise_std_near_3px": 2.5 < float(noise.std()) < 3.5,
+        "flip_rate": float(tg["is_flipped"].float().mean()),
+        "rotation_range": [float(tg["rotation"].min()),
+                           float(tg["rotation"].max())]}
+    failed = [k for k, v in checks.items() if v is False]
+    if failed or not 0.3 < checks["flip_rate"] < 0.7 or not (
+            -10 <= checks["rotation_range"][0] < -5
+            and 5 < checks["rotation_range"][1] <= 10):
+        raise AssertionError(f"random preprocessing: {checks}")
+
+    # time and launches: the fit's training and evaluation configurations
+    raw_d = raw.cuda()
+    bb_d = torch.from_numpy(targets["bboxes"][:CLS_BATCH]).cuda()
+    timed = {}
+    for name, training in (("train_flip_rotate", True), ("eval", False)):
+        def call():
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            P.process_batch(gen, raw_d, dm.preprocessing, training,
+                            bboxes=bb_d, clip_size=size)
+        timed[name] = {"cuda_event_ms": cuda_median_ms(call),
+                       "host_ms": host_median_ms(call),
+                       "launches": device_launches(call)}
+    emit({"phase": "preprocess_card", "B": CLS_BATCH, "L": CLIP,
+          "card_vs_cpu_max_abs": err, "masks_equal": True,
+          "invert_max_abs_px": invert_err, "clean_vs_augmented_max_abs_px":
+          clean_err, "noise_std_px": float(noise.std()), **checks,
+          "process_batch": timed})
+    return timed
+
+
+def phase_train_openpose(dm):
+    """Config 3's classifier fit on the labelled clips, with flip and
+    rotation; then the fused and plain routes step by step from the same
+    weights."""
+    flow = make_cls_flow()
+    steps = OP_TRAIN_BATCHES
+    expected = {"graph_gru_scan": 2 * OP_EPOCHS * (steps + OP_VAL_BATCHES),
+                "graph_gru_scan_bwd": 2 * OP_EPOCHS * steps}
+    counts, losses, epochs, fit_s, hparams = fit_classifier(
+        flow, dm, steps, OP_VAL_BATCHES, "openpose", expected,
+        epochs=OP_EPOCHS)
+    val = [e["val_loss/primary"] for e in epochs]
+    initial = {k: v for k, v in hparams.items() if k.startswith("initial_")
+               and not isinstance(v, list)}
+    if "initial_Accuracy" not in initial or int(np.sum(hparams[
+            "initial_ConfusionMatrix"])) != OP_VAL_BATCHES * CLS_BATCH:
+        raise AssertionError(f"the fit-start baseline: {hparams}")
+    if not (val[-1] < OP_LOSS_BAR and val[-1] < val[0]):
+        raise AssertionError(f"the classifier did not learn: validation "
+                             f"losses {val}")
+
+    routes = {r: make_cls_flow(graph_kernel=r) for r in ("fused", "plain")}
+    params = routes["fused"].init_params()
+    states = {r: f.init_state(params) for r, f in routes.items()}
+    stream = dm.train_batches(SEED + 1)
+    batches = [next(stream) for _ in range(OP_PARITY_STEPS)]
+    reset_kernel_counts()
+    per_step, worst = [], 0.0
+    for batch in batches:
+        a, b = (float(routes[r].training_step(states[r], batch)[1][
+            "train_loss/primary"]) for r in ("fused", "plain"))
+        rel = abs(a - b) / abs(b)
+        if not rel <= LOSS_RTOL:
+            raise AssertionError(f"fused {a} vs plain {b}")
+        worst = max(worst, rel)
+        per_step.append([a, b])
+    parity = kernel_counts()
+    if parity != expected_counts(graph_gru_scan=2 * OP_PARITY_STEPS,
+                                 graph_gru_scan_bwd=2 * OP_PARITY_STEPS):
+        raise AssertionError(f"parity steps' launches {parity}")
+    last = epochs[-1]
+    emit({"phase": "train_openpose", "B": CLS_BATCH, "L": CLIP,
+          "epochs": OP_EPOCHS, "steps_per_epoch": steps,
+          "val_batches": OP_VAL_BATCHES,
+          "train_clips_crossing_share": float(
+              dm._subsets["train"][1]["crossing"].mean()),
+          "launches": {k: v for k, v in counts.items() if v},
+          "fit_seconds": fit_s, "train_loss_primary": losses,
+          "val_loss_by_epoch": val, "loss_bar": OP_LOSS_BAR,
+          "initial": initial,
+          "val": {k: v for k, v in last.items()
+                  if k.startswith("val_") and not isinstance(v, list)},
+          "val_confusion_matrix": last["val_ConfusionMatrix"],
+          "restored_equal": True, "fused_vs_plain_losses": per_step,
+          "fused_vs_plain_max_rel": worst})
+    return counts
+
+
+def phase_serve_openpose(dm):
+    """eval_step (a classifier's serving call) on the test batches, twice:
+    2 forward launches each, the same bits both times."""
+    flow = make_cls_flow()
+    params = flow.init_params()
+    batches = list(dm.test_batches())
+    reset_kernel_counts()
+    runs = [[flow.eval_step(params, b)[1]["crossing_logits"]
+             for b in batches] for _ in range(2)]
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    if counts != expected_counts(graph_gru_scan=2 * 2 * len(batches)):
+        raise AssertionError(f"serving launches {counts}")
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    finite = all(bool(torch.isfinite(a).all()) and tuple(a.shape)
+                 == (CLS_BATCH, 2) for a in runs[0])
+    if not (same and finite):
+        raise AssertionError(f"serving: same bits {same}, finite {finite}")
+    emit({"phase": "serve_openpose", "B": CLS_BATCH, "L": CLIP,
+          "requests": len(batches), "passes": 2,
+          "launches": counts["graph_gru_scan"], "same_bits": True})
+    return counts["graph_gru_scan"]
+
+
+def phase_gcn_coverage(dm):
+    """GCNBestPaper and GCNBestPaperTransformer (no kernel on their path):
+    3-step fits and a validation batch at B=256, L=16, an eval_step twice
+    the same bits."""
+    out = {}
+    for name in ("GCNBestPaper", "GCNBestPaperTransformer"):
+        flow = make_cls_flow(name)
+        _, losses, epochs, fit_s, _ = fit_classifier(
+            flow, dm, OP_GCN_STEPS, 1, name, {})
+        params = flow.init_params()
+        batch = next(dm.val_batches())
+        a, b = (flow.eval_step(params, batch)[1]["crossing_logits"]
+                for _ in range(2))
+        if not (torch.equal(a, b) and tuple(a.shape) == (CLS_BATCH, 1)):
+            raise AssertionError(f"{name}: eval_step {tuple(a.shape)}, "
+                                 f"same bits {torch.equal(a, b)}")
+        out[name] = {"train_loss_primary": losses,
+                     "val_loss": epochs[-1]["val_loss/primary"],
+                     "fit_seconds": fit_s}
+    emit({"phase": "gcn_coverage", "B": CLS_BATCH, "L": CLIP,
+          "steps": OP_GCN_STEPS, "same_bits": True, **out})
+
+
+def phase_timing_openpose(dm, card, process_batch_times):
+    """Host-clock and CUDA-event medians of config 3's step (the batch made
+    from the subset, preprocessed on the card, and the training step) and
+    of an eval_step, with process_batch's share of the step."""
+    flow = make_cls_flow()
+    state = flow.init_state()
+    params = flow.init_params()
+    stream = iter(())
+
+    def next_batch():
+        nonlocal stream
+        try:
+            return next(stream)
+        except StopIteration:
+            stream = dm.train_batches(SEED + 2)
+            return next(stream)
+    batch = next_batch()
+    eval_batch = next(dm.val_batches())
+    step = {
+        "step_with_batch": lambda: flow.training_step(state, next_batch()),
+        "training_step": lambda: flow.training_step(state, batch),
+        "make_batch": next_batch,
+        "eval_step": lambda: flow.eval_step(params, eval_batch)}
+    times = {k: {"host_ms": host_median_ms(fn),
+                 "cuda_event_ms": cuda_median_ms(fn)}
+             for k, fn in step.items()}
+    pb = process_batch_times["train_flip_rotate"]
+    emit({"phase": "timing_openpose", "card": card, "B": CLS_BATCH,
+          "L": CLIP, **times,
+          "process_batch_share_of_step_host": pb["host_ms"]
+          / times["step_with_batch"]["host_ms"],
+          "process_batch_share_of_step_cuda_event": pb["cuda_event_ms"]
+          / times["step_with_batch"]["cuda_event_ms"],
+          "method": "medians of %d calls after 3 warm-ups; host clock with a "
+                    "synchronize after each call, CUDA events around one "
+                    "call after a device sleep; step_with_batch takes the "
+                    "next batch of the train stream (numpy slice, copies to "
+                    "the card, process_batch with flip and rotation) and "
+                    "trains on it" % TIMING_RUNS})
+    return times
+
+
+def group_openpose(card, hbm_rate):
+    """BASELINE config 3 on real-format labels: OpenPose BODY_25 clips in
+    the HDF5 datamodule's in-memory subsets, preprocessed on the card into
+    GConvGRU (rows 10-11) and the two GCN classifiers -> extra keys for
+    rows 10 and 11 of the kernels line."""
+    t0 = time.perf_counter()
+    dm, clean = openpose_datamodule()
+    pb = phase_preprocess_card(dm, clean)
+    counts = phase_train_openpose(dm)
+    served = phase_serve_openpose(dm)
+    phase_gcn_coverage(dm)
+    times = phase_timing_openpose(dm, card, pb)
+    emit({"phase": "group_openpose", "seconds": time.perf_counter() - t0})
+    step = {"config3_openpose_step_ms": times["step_with_batch"]["host_ms"],
+            "config3_process_batch_ms": pb["train_flip_rotate"]["host_ms"]}
+    return {"graph_gru_scan": {
+                "launches_openpose_train": counts["graph_gru_scan"],
+                "launches_openpose_serve": served, **step},
+            "graph_gru_scan_bwd": {
+                "launches_openpose_train": counts["graph_gru_scan_bwd"],
+                "launches_openpose_serve": 0, **step}}
+
+
 def kernel_entry(name, source, replaces, launches, max_err, times):
     """One entry of the kernels line; ``replaces`` is the TPU kernel's
     ``file:line`` under the JAX package's ops/pallas/."""
@@ -4651,6 +5084,13 @@ def main():
     for entry in kernels:
         entry.update(launches.get(entry["name"], {}))
     group_lifters(card, hbm_rate)
+    # config 3 on real-format labels: rows 10-11's launches on its path
+    # join their entries' counts
+    for name, extra in group_openpose(card, hbm_rate).items():
+        entry = next(e for e in kernels if e["name"] == name)
+        entry["launches"] += extra["launches_openpose_train"] \
+            + extra["launches_openpose_serve"]
+        entry.update(extra)
 
     print(card, flush=True)
     emit({"kernels": kernels})

@@ -8,11 +8,18 @@ meta)`` batches of tensors on its device.
 """
 from typing import Any, Dict, Iterator, Optional, Tuple, Type
 
+import numpy as np
+
 from ...skeletons.base import Skeleton
 from ...skeletons.carla import CARLA_SKELETON
 from ...utils.device import DeviceLike, resolve_device
 
 Batch = Tuple[Any, Dict[str, Any], Dict[str, Any]]
+
+
+def batch_seed(base: int, index: int) -> int:
+    """Independent seed of batch ``index`` of the stream ``base``."""
+    return int(np.random.SeedSequence([base, index]).generate_state(1)[0])
 
 
 class BaseDataModule:
@@ -38,6 +45,13 @@ class BaseDataModule:
         self.transform = transform
         self.needs_confidence = needs_confidence
         self.device = resolve_device(device)
+
+    # -- lifecycle ---------------------------------------------------------
+    def prepare_data(self) -> None:
+        """One-time preparation (subset extraction and caching)."""
+
+    def setup(self, stage: Optional[str] = None) -> None:
+        """Per-stage dataset construction."""
 
     def train_batches(self, seed: int = 0) -> Iterator[Batch]:
         raise NotImplementedError

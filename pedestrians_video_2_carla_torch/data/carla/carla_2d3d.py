@@ -20,7 +20,7 @@ from ...ops import normalization as N
 from ...ops.projection import ProjectionModule, projection_state_for
 from ...ops.rotations import euler_angles_to_matrix
 from ...skeletons.carla import AGE_GENDER_KEYS, CARLA_SKELETON
-from ..base.datamodule import BaseDataModule
+from ..base.datamodule import BaseDataModule, batch_seed
 
 
 @dataclass(frozen=True)
@@ -144,14 +144,11 @@ def generate_batch(cfg: Carla2D3DConfig, generator: torch.Generator,
     return render_batch(cfg, draw_batch(cfg, generator, device), generator)
 
 
-def _batch_seed(base: int, index: int) -> int:
-    """Independent seed of batch ``index`` of the stream ``base``."""
-    return int(np.random.SeedSequence([base, index]).generate_state(1)[0])
-
-
 class Carla2D3DDataModule(BaseDataModule):
     """Infinite synthetic train stream + fixed-seed val/test sets, generated
     on the datamodule's device."""
+
+    default_data_nodes = CARLA_SKELETON
 
     @classmethod
     def uses_infinite_train_set(cls) -> bool:
@@ -185,7 +182,7 @@ class Carla2D3DDataModule(BaseDataModule):
 
     def _batch(self, base: int, index: int):
         generator = torch.Generator(device=self.device)
-        generator.manual_seed(_batch_seed(base, index))
+        generator.manual_seed(batch_seed(base, index))
         return generate_batch(self.config, generator, self.device)
 
     def _batches_from(self, base: int, num_batches: int) -> Iterator:

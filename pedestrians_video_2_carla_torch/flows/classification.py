@@ -6,8 +6,9 @@ stack, one label per clip.
 As the other flows, it applies its model functionally to an explicit
 parameter dict, here ``{"classification": state_dict}``, and trains it with
 one AdamW group (clipped by ``gradient_clip_val``, on its LR schedule if
-enabled). The prevalent-class baseline (``initial_preds`` and the
-initial metrics) is not ported yet (see ``ROADMAP.md``).
+enabled). Its baseline, which the trainer logs at the start of a fit, is
+the prevalent class of each batch (``initial_preds``) under the same
+metrics (``initial_metrics``).
 """
 from typing import Any, Dict, Optional, Tuple
 
@@ -76,6 +77,7 @@ class ClassificationFlow:
         #: the flow has one loss and no loss modes
         self.requested_loss_modes = []
         self.metrics = MetricCollection(self.get_metrics())
+        self.initial_metrics = MetricCollection(self.get_metrics())
 
     @classmethod
     def get_default_models(cls):
@@ -105,6 +107,24 @@ class ClassificationFlow:
                             "ROC": ROCCurve(**hist_kw),
                             "PRCurve": PRCurve(**hist_kw)})
         return metrics
+
+    def initial_preds(self, inputs, targets) -> Dict[str, torch.Tensor]:
+        """The prevalent-class baseline: every clip of the batch gets the
+        batch's most frequent label (the lowest on a tie), as logits of
+        +-5 (one logit a clip for a binary model) or a one-hot of 5 / -5."""
+        labels = targets.get(self.targets_key)
+        if labels is None:
+            return {}
+        flat = labels.reshape(-1).long()
+        counts = torch.bincount(flat, minlength=self.num_classes)
+        prevalent = torch.argmax(counts[:self.num_classes])
+        ones = torch.ones(flat.shape[0], device=flat.device)
+        if self.binary:
+            logits = torch.where(prevalent == 1, 5.0, -5.0) * ones
+        else:
+            logits = F.one_hot(prevalent * ones.long(), self.num_classes) \
+                .float() * 10.0 - 5.0
+        return {self.outputs_key: logits}
 
     # -- parameters and state -------------------------------------------------
     def init_params(self) -> Params:

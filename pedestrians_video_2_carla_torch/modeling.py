@@ -22,7 +22,11 @@ the training options (``--gradient_clip_val``, ``--loss_weights``,
 and checkpoints go to ``<root_dir>/logs/<flow>/<run_name>/``; a
 ``--ckpt_path`` ending in ``.ckpt``, ``.pth`` or ``.pt`` that is not the
 port's own archive is a reference torch checkpoint, whose movements-model
-weights load through ``Trainer.restore_torch``. It runs
+weights load through ``Trainer.restore_torch``. The data
+modules are the JAX CLI's by name (``Carla2D3D``, ``JAADOpenPose``,
+``PIEOpenPose``, ``JAADBenchmark``, ``PIEBenchmark``; ``--subsets_dir``
+trains on an existing HDF5 subsets tree), with its DataModule flags. An
+unnamed run gets a directory of its own (``utils/naming.py``). It runs
 on the card unless ``--device cpu`` is given. A flow, data module, model,
 mode or loss that the JAX package has but the port does not yet raises
 ``NotImplementedError`` naming ``ROADMAP.md``.
@@ -31,12 +35,12 @@ import argparse
 import inspect
 import os
 import sys
-import time
 from typing import Any, Dict, List, Optional
 
 import torch
 
-from .data.carla.carla_2d3d import Carla2D3DDataModule
+from . import data as data_registry
+from .data.base.subsets_datamodule import SubsetsDataModule
 from .flows.autoencoder import AutoencoderFlow
 from .flows.classification import ClassificationFlow
 from .flows.output_types import MovementsModelOutputType
@@ -48,15 +52,17 @@ from .models.classification.common import ClassificationModel
 from .models.movements import MOVEMENTS_MODELS
 from .models.movements.common import MovementsModel
 from .ops.projection import KERNELS
+from .skeletons.base import get_skeleton_type_by_name
 from .training.checkpoint import is_archive
 from .training.trainer import Trainer, TrainerConfig
+from .utils.naming import unique_run_name
 
 DEFAULT_SEED = 22742
 
 FLOWS = {"pose_lifting": PoseLiftingFlow,
          "classification": ClassificationFlow,
          "autoencoder": AutoencoderFlow}
-DATA_MODULES = {"Carla2D3D": Carla2D3DDataModule}
+DATA_MODULES = data_registry.discover()
 MODES = ("train", "test")
 
 
@@ -78,7 +84,8 @@ def _ported(kind: str, name: str, available) -> None:
 
 #: model constructor arguments that are not flags
 _NOT_FLAGS = ("generator", "input_nodes", "output_nodes", "needs_confidence")
-#: the number of ``--loss_params_{i}`` flags: one per CARLA joint
+#: the number of ``--loss_params_{i}`` and
+#: ``--missing_joint_probabilities_{i}`` flags: one per CARLA joint
 LOSS_PARAMS = 26
 
 
@@ -144,11 +151,7 @@ def make_parser(argv: Optional[List[str]] = None) -> argparse.ArgumentParser:
     group.add_argument("--gradient_clip_val", type=float, default=0.0,
                        help="global-norm gradient clipping (0 = off)")
 
-    group = parser.add_argument_group("DataModule")
-    group.add_argument("--batch_size", type=int, default=64)
-    group.add_argument("--clip_length", type=int, default=30)
-    group.add_argument("--val_set_size", type=int, default=64)
-    group.add_argument("--test_set_size", type=int, default=64)
+    add_datamodule_args(parser)
 
     group = parser.add_argument_group("Flow")
     group.add_argument("--loss_modes", nargs="+", default=[])
@@ -167,7 +170,6 @@ def make_parser(argv: Optional[List[str]] = None) -> argparse.ArgumentParser:
                             "backward (JAX 'pallas_train')")
 
     group = parser.add_argument_group("ClassificationFlow")
-    group.add_argument("--classification_targets_key", default="crossing")
     group.add_argument("--classification_average", default="macro",
                        choices=["micro", "macro", "weighted", "none",
                                 "benchmark"])
@@ -182,6 +184,44 @@ def make_parser(argv: Optional[List[str]] = None) -> argparse.ArgumentParser:
     if name in models:
         add_model_args(parser, models[name])
     return parser
+
+
+def add_datamodule_args(parser: argparse.ArgumentParser) -> None:
+    """The JAX CLI's DataModule flags of the ported datamodules, with its
+    defaults; each datamodule takes the ones it knows."""
+    group = parser.add_argument_group("DataModule")
+    group.add_argument("--batch_size", type=int, default=64)
+    group.add_argument("--clip_length", type=int, default=30)
+    group.add_argument("--data_nodes", default=None,
+                       type=get_skeleton_type_by_name)
+    group.add_argument("--input_nodes", default=None,
+                       type=get_skeleton_type_by_name)
+    group.add_argument("--transform", default="hips_neck",
+                       choices=["hips_neck", "hips_neck_bbox", "bbox", "none"])
+    group.add_argument("--val_set_size", type=int, default=64)
+    group.add_argument("--test_set_size", type=int, default=64)
+    group.add_argument("--noise", default="zero",
+                       choices=["zero", "gaussian", "uniform"])
+    group.add_argument("--noise_param", type=float, default=1.0)
+    for i in range(LOSS_PARAMS):
+        group.add_argument(f"--missing_joint_probabilities_{i}", type=float,
+                           default=None)
+    group.add_argument("--datasets_dir", default="datasets")
+    group.add_argument("--outputs_dir", default="outputs")
+    group.add_argument("--subsets_dir", default=None)
+    group.add_argument("--clip_offset", type=int, default=None)
+    group.add_argument("--val_set_frac", type=float, default=0.2)
+    group.add_argument("--test_set_frac", type=float, default=0.2)
+    group.add_argument("--strong_points", type=float, default=0)
+    group.add_argument("--iou_threshold", type=float, default=0.1)
+    group.add_argument("--sample_type", default="beh", choices=["beh", "all"])
+    group.add_argument("--augment_flip", type=boolean, default=False)
+    group.add_argument("--augment_rotate", type=boolean, default=False)
+    group.add_argument("--balance_classes", type=boolean, default=False)
+    group.add_argument("--label_frames", type=float, default=-1)
+    group.add_argument("--classification_targets_key", default=None)
+    group.add_argument("--tte", nargs=2, type=int, default=[30, 60],
+                       help="the benchmark's time-to-event window")
 
 
 def add_optimizer_args(group, prefix: str) -> None:
@@ -205,11 +245,11 @@ def add_optimizer_args(group, prefix: str) -> None:
     group.add_argument(f"--{prefix}_weight_decay", type=float, default=1e-8)
 
 
-def loss_params(args) -> Optional[List[float]]:
-    """The ``--loss_params_{i}`` given, as a dense list (0 where a lower
-    index is missing); None when none is."""
-    given = {i: getattr(args, f"loss_params_{i}") for i in range(LOSS_PARAMS)
-             if getattr(args, f"loss_params_{i}") is not None}
+def flat_list(args, name: str) -> Optional[List[float]]:
+    """The ``--{name}_{i}`` given, as a dense list (0 where a lower index
+    is missing); None when none is."""
+    given = {i: getattr(args, f"{name}_{i}") for i in range(LOSS_PARAMS)
+             if getattr(args, f"{name}_{i}") is not None}
     if not given:
         return None
     out = [0.0] * (max(given) + 1)
@@ -245,27 +285,27 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     for mode in args.loss_modes:
         _ported("loss mode", mode, LossModes.__members__)
 
-    config = TrainerConfig(
-        max_epochs=args.max_epochs,
-        limit_train_batches=args.limit_train_batches,
-        limit_val_batches=args.limit_val_batches,
-        limit_test_batches=args.limit_test_batches,
-        log_every_n_steps=args.log_every_n_steps,
-        seed=args.seed,
-        logs_dir=os.path.join(args.root_dir, "logs", args.flow),
-        run_name=args.run_name or f"{args.data_module_name}-"
-                                  f"{time.strftime('%Y%m%d-%H%M%S')}",
-        detect_anomaly=args.detect_anomaly,
-        device=args.device)
-
+    # the JAX CLI's rule: the datamodule's own skeleton unless
+    # --data_nodes names one; the model reads --input_nodes, else that
+    dm_cls = DATA_MODULES[args.data_module_name]
+    data_nodes = args.data_nodes or getattr(dm_cls, "default_data_nodes",
+                                            None)
+    input_nodes = args.input_nodes or data_nodes
     model_cls = models[model_name]
     model_kwargs = {k: getattr(args, k) for k in model_params(model_cls)}
+    if input_nodes is not None:
+        takes = set().union(*(inspect.signature(c.__init__).parameters
+                              for c in model_cls.__mro__
+                              if "__init__" in vars(c)))
+        model_kwargs.update({k: input_nodes for k in
+                             ("input_nodes", "output_nodes") if k in takes})
     generator = torch.Generator().manual_seed(args.seed)
     if args.flow == "classification":
         flow = ClassificationFlow(
             model_cls(generator=generator, num_classes=args.num_classes,
                       **model_kwargs),
-            classification_targets_key=args.classification_targets_key,
+            classification_targets_key=args.classification_targets_key
+            or "crossing",
             classification_average=args.classification_average,
             num_classes=args.num_classes,
             classification_optimizer=OptimizerSettings.from_kwargs(
@@ -283,19 +323,61 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             loss_modes=args.loss_modes,
             loss_weights={k: float(v) for k, v in (
                 w.split("=") for w in args.loss_weights)},
-            loss_params=loss_params(args),
+            loss_params=flat_list(args, "loss_params"),
             mask_missing_joints=args.mask_missing_joints,
+            transform=args.transform,
             movements_optimizer=OptimizerSettings.from_kwargs("movements",
                                                               vars(args)),
             gradient_clip_val=args.gradient_clip_val,
             projection_kernel=args.projection_kernel, seed=args.seed,
             device=args.device)
-    dm = DATA_MODULES[args.data_module_name](
+
+    dm_kwargs = dict(
         batch_size=args.batch_size, clip_length=args.clip_length,
-        val_set_size=args.val_set_size, test_set_size=args.test_set_size,
+        transform=args.transform,
         needs_confidence=getattr(flow, "needs_confidence", False),
-        seed=args.seed, device=args.device)
+        val_set_size=args.val_set_size, test_set_size=args.test_set_size,
+        noise=args.noise, noise_param=args.noise_param,
+        missing_joint_probabilities=flat_list(
+            args, "missing_joint_probabilities"),
+        seed=args.seed, datasets_dir=args.datasets_dir,
+        outputs_dir=args.outputs_dir, subsets_dir=args.subsets_dir,
+        clip_offset=args.clip_offset, val_set_frac=args.val_set_frac,
+        test_set_frac=args.test_set_frac, strong_points=args.strong_points,
+        iou_threshold=args.iou_threshold, sample_type=args.sample_type,
+        augment_flip=args.augment_flip, augment_rotate=args.augment_rotate,
+        balance_classes=args.balance_classes, label_frames=args.label_frames,
+        num_classes=args.num_classes, tte=tuple(args.tte), device=args.device)
+    if args.classification_targets_key:
+        dm_kwargs["classification_targets_key"] = \
+            args.classification_targets_key
+    if data_nodes is not None:
+        dm_kwargs["data_nodes"] = data_nodes
+    if input_nodes is not None:
+        dm_kwargs["input_nodes"] = input_nodes
+    if args.subsets_dir:
+        # train and evaluate on an existing subsets tree, whichever
+        # datamodule wrote it
+        dm_cls = SubsetsDataModule
+    dm = dm_cls(**dm_kwargs)
+
+    logs_dir = os.path.join(args.root_dir, "logs", args.flow)
+    config = TrainerConfig(
+        max_epochs=args.max_epochs,
+        limit_train_batches=args.limit_train_batches,
+        limit_val_batches=args.limit_val_batches,
+        limit_test_batches=args.limit_test_batches,
+        log_every_n_steps=args.log_every_n_steps,
+        seed=args.seed,
+        logs_dir=logs_dir,
+        # an unnamed run reserves its own directory (never one in use)
+        run_name=args.run_name or unique_run_name(
+            logs_dir, prefix=f"{args.data_module_name}-"),
+        detect_anomaly=args.detect_anomaly,
+        device=args.device)
     trainer = Trainer(flow, dm, config)
+    dm.prepare_data()
+    dm.setup(args.mode)
 
     results: Dict[str, Any] = {"trainer": trainer, "flow": flow, "dm": dm}
     if args.ckpt_path:

@@ -1,9 +1,9 @@
 """Crossing/action classification models (reference
-``modules/classification/``): the dense-adjacency graph-recurrent family and
-the LSTM / GRU classifiers. ``GCNBestPaper`` and ``GCNBestPaperTransformer``
-are not ported yet (see ``ROADMAP.md``)."""
+``modules/classification/``): the dense-adjacency graph-recurrent family, the
+LSTM / GRU classifiers and the two GCN classifiers."""
 from .common import ClassificationModel
-from .gnn import DCRNN, GConvGRU, GConvLSTM, SpatialTemporalGNN, TGCN
+from .gnn import (DCRNN, GCNBestPaper, GCNBestPaperTransformer, GConvGRU,
+                  GConvLSTM, SpatialTemporalGNN, TGCN)
 from .recurrent import GRU, LSTM
 
 CLASSIFICATION_MODELS = {
@@ -13,5 +13,7 @@ CLASSIFICATION_MODELS = {
     "GConvGRU": GConvGRU,
     "LSTM": LSTM,
     "GRU": GRU,
+    "GCNBestPaper": GCNBestPaper,
+    "GCNBestPaperTransformer": GCNBestPaperTransformer,
     "SpatialTemporalGNN": SpatialTemporalGNN,
 }

@@ -1,8 +1,10 @@
 """Dense-adjacency graph classifiers (reference
 ``modules/classification/gnn/``: torch_geometric_temporal GConvGRU / DCRNN /
-TGCN / GConvLSTM recurrent graph layers). Skeleton graphs are tiny static
-26-node graphs, so a Chebyshev or GCN convolution is a dense (J, J) product
-batched over (batch, frame).
+TGCN / GConvLSTM recurrent graph layers, and the two GCN classifiers
+``GCNBestPaper`` and ``GCNBestPaperTransformer``). Skeleton graphs are tiny
+static 26-node graphs, so a Chebyshev or GCN convolution is a dense (J, J)
+product batched over (batch, frame); the GCN classifiers have no scan and
+run in plain PyTorch ops on every device.
 
 The input-side graph convolutions of every gate do not depend on the carry,
 so they run for the whole clip in one product; only the hidden-side
@@ -26,7 +28,8 @@ Parameters carry the flax model's names and (in, out) shapes
 (``rnn1_z_wx0``, ``rnn1_z_wh0``, ``rnn1_z_bx``, ``rnn1_z_bh``, ...; the
 Dense heads as ``Dense_i.weight`` / ``.bias`` in nn.Linear layout);
 ``models/jax_import.py::import_classification`` carries a flax tree over.
-Classification reads the mean-pooled node embeddings of the last frame.
+The recurrent classifiers read the mean-pooled node embeddings of the last
+frame.
 """
 from typing import Dict, List, Optional, Tuple
 
@@ -382,3 +385,90 @@ class SpatialTemporalGNN(_GraphGRUCell, _GraphGatedRecurrent):
         for dense in (self.Dense_0, self.Dense_1):
             h = F.relu(dropout(dense(h), self.p_dropout, training, generator))
         return self.Dense_2(h)
+
+
+class _GCNBestPaperBase(ClassificationModel):
+    """What the two GCN classifiers share: the unnormalised skeleton
+    adjacency with self loops, dropout 0.5, the seeded flax-family init
+    and the head (reference ``gnn/gcn_best_paper.py:13-59``, IEEE
+    8917118): node features reshaped to coordinate pairs, averaged over
+    the frames and the pairs, then over the pair's two coordinates, and a
+    Dense layer from the J joints to one binary logit. The graph products
+    are dense (J, J) matmuls."""
+    P_DROPOUT = 0.5
+
+    def __init__(self, generator: Optional[torch.Generator] = None,
+                 **kwargs) -> None:
+        super().__init__(**kwargs)
+        adj = self.input_nodes.get_adjacency_matrix(normalized=False,
+                                                    self_loops=True)
+        self.register_buffer("adj", torch.from_numpy(np.asarray(
+            adj, np.float32)), persistent=False)
+        self._build()
+        for name, p in self.named_parameters():
+            if name.endswith(".bias"):
+                nn.init.zeros_(p)
+            else:
+                lecun_normal_(p, generator)
+
+    @property
+    def output_type(self):
+        return ClassificationModelOutputType.binary
+
+    def _build(self) -> None:
+        raise NotImplementedError
+
+    def _propagate(self, x: torch.Tensor) -> torch.Tensor:
+        """A @ x over the joint axis of (..., J, C)."""
+        return torch.matmul(self.adj, x)
+
+    def _head(self, h: torch.Tensor, dense: nn.Linear) -> torch.Tensor:
+        B, L, J = h.shape[:3]
+        h = h.reshape(B, L, J, -1, 2).mean(dim=(1, 3)).mean(dim=-1)  # (B, J)
+        return dense(h)
+
+
+class GCNBestPaper(_GCNBestPaperBase):
+    """Two GCN convolutions (64, then 32 features; ReLU after dropout) on
+    the (x, y) coordinates, then the shared head."""
+
+    def _build(self) -> None:
+        self.Dense_0 = nn.Linear(2, 64)
+        self.Dense_1 = nn.Linear(64, 32)
+        self.Dense_2 = nn.Linear(len(self.input_nodes), 1)
+
+    def forward(self, x, targets=None, training: bool = False,
+                generator: Optional[torch.Generator] = None):
+        h = x[..., :2]
+        for dense in (self.Dense_0, self.Dense_1):
+            h = F.relu(dropout(dense(self._propagate(h)), self.P_DROPOUT,
+                               training, generator))
+        return self._head(h, self.Dense_2)
+
+
+class GCNBestPaperTransformer(_GCNBestPaperBase):
+    """A GCN convolution (64 features) and one head of attention over the
+    skeleton graph (32 features: queries, keys and values by Dense layers,
+    the logits of non-edges masked to -1e9), then the shared head
+    (reference ``gnn/gcn_best_paper_transformer.py``)."""
+    ATTENTION = 32
+
+    def _build(self) -> None:
+        self.Dense_0 = nn.Linear(2, 64)
+        self.Dense_1 = nn.Linear(64, self.ATTENTION)   # queries
+        self.Dense_2 = nn.Linear(64, self.ATTENTION)   # keys
+        self.Dense_3 = nn.Linear(64, self.ATTENTION)   # values
+        self.Dense_4 = nn.Linear(len(self.input_nodes), 1)
+
+    def forward(self, x, targets=None, training: bool = False,
+                generator: Optional[torch.Generator] = None):
+        h = self.Dense_0(self._propagate(x[..., :2]))
+        h = F.relu(dropout(h, self.P_DROPOUT, training, generator))
+        q, k, v = self.Dense_1(h), self.Dense_2(h), self.Dense_3(h)
+        logits = torch.matmul(q, k.transpose(-1, -2)) \
+            / float(np.sqrt(self.ATTENTION))
+        logits = torch.where(self.adj > 0, logits,
+                             torch.full_like(logits, -1e9))
+        h = torch.matmul(torch.softmax(logits, dim=-1), v)
+        h = F.relu(dropout(h, self.P_DROPOUT, training, generator))
+        return self._head(h, self.Dense_4)

@@ -4,6 +4,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from .tensors import device_constant
+
 
 def add_noise(generator: torch.Generator, projection_2d: torch.Tensor,
               noise: str = "zero", noise_param: float = 1.0) -> torch.Tensor:
@@ -29,9 +31,8 @@ def drop_joints(generator: torch.Generator, projection_2d: torch.Tensor,
                 missing_joint_probabilities: Sequence[float]) -> torch.Tensor:
     """Zero out joints with per-joint probabilities (missing-point encoding:
     exact zeros, including the confidence channel)."""
-    probs = torch.as_tensor(missing_joint_probabilities,
-                            dtype=projection_2d.dtype,
-                            device=projection_2d.device)
+    probs = device_constant(missing_joint_probabilities,
+                            projection_2d.device, projection_2d.dtype)
     u = torch.rand(projection_2d.shape[:-1], generator=generator,
                    dtype=projection_2d.dtype, device=projection_2d.device)
     missing = u < probs

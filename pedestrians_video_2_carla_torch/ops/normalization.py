@@ -1,12 +1,13 @@
-"""Pose normalization: hips-neck and bbox shift/scale extraction and
-(de)normalization, as pure functions on tensors. Extractors return
-``(shift (..., 2|3), scale (...))`` per frame; callers thread them through."""
+"""Pose normalization: hips-neck, bbox and hips-neck-with-bbox-fallback
+shift/scale extraction and (de)normalization, as pure functions on
+tensors. Extractors return ``(shift (..., 2|3), scale (...))`` per frame;
+callers thread them through."""
 from typing import NamedTuple, Tuple, Type
 
 import torch
 
 from ..skeletons.base import Skeleton
-from .tensors import get_bboxes, nan_to_zero
+from .tensors import device_constant, get_bboxes, nan_to_zero
 
 
 class ShiftScale(NamedTuple):
@@ -26,8 +27,10 @@ def _safe_norm(v: torch.Tensor, dim: int = -1,
 def hips_neck_shift_scale(sample: torch.Tensor,
                           skeleton: Type[Skeleton]) -> ShiftScale:
     """Shift = hips point (mean over hips joints), scale = ||neck - hips||."""
-    hips = sample[..., skeleton.get_hips_indices(), :].mean(dim=-2)
-    neck = sample[..., skeleton.get_neck_indices(), :].mean(dim=-2)
+    hips = sample[..., device_constant(skeleton.get_hips_indices(),
+                                       sample.device), :].mean(dim=-2)
+    neck = sample[..., device_constant(skeleton.get_neck_indices(),
+                                       sample.device), :].mean(dim=-2)
     scale = _safe_norm(neck - hips, dim=-1)
     return ShiftScale(hips, scale)
 
@@ -42,8 +45,39 @@ def bbox_shift_scale(sample: torch.Tensor,
     return ShiftScale(center, scale)
 
 
+#: the fallback's constants, measured on the CARLA reference skeletons
+FALLBACK_X_SHIFT = 0.0
+FALLBACK_Y_SHIFT = -0.1059
+FALLBACK_SCALE = 0.5748
+
+
+def hips_neck_bbox_fallback_shift_scale(sample: torch.Tensor,
+                                        skeleton: Type[Skeleton],
+                                        near_zero: float = 1e-5
+                                        ) -> ShiftScale:
+    """Hips-neck extraction, falling back to scaled-bbox estimates for the
+    frames whose hips and/or neck are missing: the shift a fixed offset
+    from the bbox centre, the scale a fixed fraction of the bbox's."""
+    hn = hips_neck_shift_scale(sample, skeleton)
+    neck = sample[..., device_constant(skeleton.get_neck_indices(),
+                                       sample.device), :].mean(dim=-2)
+    bb = bbox_shift_scale(sample, near_zero)
+
+    missing_hips = torch.all(hn.shift < near_zero, dim=-1)
+    missing_neck = torch.all(neck < near_zero, dim=-1)
+
+    offset = device_constant((FALLBACK_X_SHIFT, FALLBACK_Y_SHIFT),
+                             sample.device, sample.dtype)
+    fb_shift = bb.shift + bb.scale[..., None] * offset
+    shift = torch.where(missing_hips[..., None], fb_shift, hn.shift)
+    scale = torch.where(missing_hips | missing_neck,
+                        bb.scale * FALLBACK_SCALE, hn.scale)
+    return ShiftScale(shift, scale)
+
+
 EXTRACTORS = {
     "hips_neck": hips_neck_shift_scale,
+    "hips_neck_bbox": hips_neck_bbox_fallback_shift_scale,
     "bbox": lambda sample, skeleton, **kw: bbox_shift_scale(sample, **kw),
 }
 

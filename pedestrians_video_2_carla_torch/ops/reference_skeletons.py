@@ -1,10 +1,13 @@
-"""Absolute poses of the four CARLA reference skeletons, and denormalization
-of predicted 3D poses onto them (the ``absolute_loc*`` movements outputs)."""
+"""Absolute poses of the four CARLA reference skeletons, their screen
+projections, and denormalization of predicted 3D poses onto them (the
+``absolute_loc*`` movements outputs)."""
 from functools import lru_cache
 
+import numpy as np
 import torch
 
 from ..skeletons.carla import CARLA_SKELETON, reference_poses_tensor
+from . import camera as C
 from . import kinematics as K
 from . import normalization as N
 
@@ -17,6 +20,17 @@ def reference_absolute_tensors():
     abs_loc, abs_rot = K.forward_kinematics(torch.from_numpy(rel_loc),
                                             torch.from_numpy(rel_rot))
     return abs_loc.numpy(), abs_rot.numpy()
+
+
+@lru_cache(maxsize=None)
+def reference_projections() -> np.ndarray:
+    """Screen projections of the four reference skeletons, (4, 26, 3)
+    float32 numpy (x, y in pixels, depth), seen by a camera at (3.1, 0, 0)
+    looking at the origin (zero elevation)."""
+    abs_loc, _ = reference_absolute_tensors()
+    cam = C.make_camera(distance=3.1, shift=0.0, elevation=0.0,
+                        look_at=(0.0, 0.0, 0.0))
+    return C.project_pose(cam, torch.from_numpy(abs_loc)).numpy()
 
 
 def _hips_neck_ss(reference: torch.Tensor, ndim_target: int) -> N.ShiftScale:

@@ -1,8 +1,31 @@
 """Small tensor utilities, written mask-based (no boolean indexing), so the
 shapes never depend on the data."""
-from typing import Optional
+from functools import lru_cache
+from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
+
+
+@lru_cache(maxsize=None)
+def _constant(values: tuple, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
+
+
+def device_constant(values: Union[Sequence, np.ndarray, slice],
+                    device: torch.device,
+                    dtype: torch.dtype = torch.int64):
+    """A constant table (joint indices, per-joint probabilities) as a
+    tensor on ``device``, made once per (table, dtype, device) and shared:
+    callers never write to it. Building it from host values on every call
+    would be a blocking host -> card copy each time. A ``slice`` index is
+    returned as it is."""
+    if isinstance(values, slice):
+        return values
+    return _constant(tuple(np.asarray(values).tolist()), dtype,
+                     torch.device(device))
 
 
 def get_bboxes(sample: torch.Tensor, near_zero: float = 1e-5) -> torch.Tensor:
@@ -10,9 +33,8 @@ def get_bboxes(sample: torch.Tensor, near_zero: float = 1e-5) -> torch.Tensor:
     (ground truth ~0 means "not detected"). (..., J, C) -> (..., 2, C)
     stacked (min, max)."""
     missing = torch.all(sample[..., 0:2] < near_zero, dim=-1, keepdim=True)
-    inf = torch.tensor(float("inf"), dtype=sample.dtype, device=sample.device)
-    mins = torch.where(missing, inf, sample).amin(dim=-2)
-    maxs = torch.where(missing, -inf, sample).amax(dim=-2)
+    mins = sample.masked_fill(missing, float("inf")).amin(dim=-2)
+    maxs = sample.masked_fill(missing, float("-inf")).amax(dim=-2)
     return torch.stack([mins, maxs], dim=-2)
 
 

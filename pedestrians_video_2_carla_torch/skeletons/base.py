@@ -14,7 +14,16 @@ class Skeleton(IntEnum):
     are tensor indices along the joint dimension."""
 
     @classmethod
+    def get_colors(cls) -> Dict["Skeleton", Tuple[int, int, int, int]]:
+        raise NotImplementedError()
+
+    @classmethod
     def get_edges(cls) -> List[Tuple["Skeleton", "Skeleton"]]:
+        raise NotImplementedError()
+
+    @classmethod
+    def get_flip_mask(cls) -> Tuple[int, ...]:
+        """Joint permutation applied when the pose is mirrored left<->right."""
         raise NotImplementedError()
 
     @classmethod
@@ -79,6 +88,14 @@ def register_skeleton(name: str, skeleton: Type[Skeleton],
         MAPPINGS[skeleton] = mapping
 
 
+def get_skeleton_type_by_name(name: str) -> Type[Skeleton]:
+    return SKELETONS[name]
+
+
+def get_skeleton_name_by_type(skeleton: Type[Skeleton]) -> str:
+    return skeleton.__name__
+
+
 @lru_cache(maxsize=None)
 def get_common_indices(input_nodes: Optional[Type[Skeleton]] = None,
                        output_nodes: Optional[Type[Skeleton]] = None):
@@ -113,6 +130,19 @@ def get_common_indices(input_nodes: Optional[Type[Skeleton]] = None,
 
     return (np.asarray([x[1] for x in filtered_output], dtype=np.int64),
             np.asarray([x[1] for x in filtered_input], dtype=np.int64))
+
+
+def map_pose(pose: np.ndarray, data_nodes: Type[Skeleton],
+             input_nodes: Type[Skeleton], num_input_joints: Optional[int] = None):
+    """Remap a (..., J_data, C) numpy pose onto the ``input_nodes``
+    skeleton, zero-filling joints without a correspondence."""
+    if data_nodes == input_nodes:
+        return pose
+    out_idx, in_idx = get_common_indices(data_nodes, input_nodes)
+    n_out = num_input_joints or len(input_nodes)
+    out = np.zeros(pose.shape[:-2] + (n_out, pose.shape[-1]), dtype=pose.dtype)
+    out[..., out_idx, :] = pose[..., in_idx, :]
+    return out
 
 
 def common_hips_index(input_nodes: Optional[Type[Skeleton]],

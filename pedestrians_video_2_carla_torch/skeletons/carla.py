@@ -12,7 +12,7 @@ is also the bone-dimension order of every tensor. Exported:
 import json
 import os
 from functools import lru_cache
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -47,6 +47,15 @@ TOPO_LEVELS: List[np.ndarray] = [
     np.nonzero(BONE_DEPTHS == d)[0].astype(np.int32)
     for d in range(int(BONE_DEPTHS.max()) + 1)]
 
+def _carla_flip_mask() -> Tuple[int, ...]:
+    """Swap the __L and __R bones; __C bones and the root stay."""
+    swap = {"__L": "__R", "__R": "__L"}
+    return tuple(BONE_NAMES.index(name[:-3] + swap[name[-3:]])
+                 if name[-3:] in swap else i
+                 for i, name in enumerate(BONE_NAMES))
+
+
+CARLA_SKELETON.get_flip_mask = classmethod(lambda cls: _carla_flip_mask())
 CARLA_SKELETON.get_edges = classmethod(lambda cls: [
     (CARLA_SKELETON(int(PARENTS[i])), CARLA_SKELETON(i))
     for i in range(NUM_BONES) if PARENTS[i] >= 0])
@@ -107,3 +116,17 @@ def reference_poses_tensor():
     float32 numpy ``(rel_loc (4, 26, 3), rel_rot (4, 26, 3, 3))``."""
     locs, rots = zip(*[load_reference_pose(k) for k in AGE_GENDER_KEYS])
     return np.stack(locs), np.stack(rots)
+
+
+#: substitutions for dataset labels that CARLA has no walker for
+AGE_MAPPINGS = {"adult": "adult", "child": "child",
+                "senior": "adult", "young": "child"}
+GENDER_MAPPINGS = {"female": "female", "male": "male", "neutral": "female"}
+
+
+def age_gender_to_index(age, gender) -> int:
+    """(age, gender) strings -> an index into ``AGE_GENDER_KEYS``; unknown
+    or NaN values fall back to 'adult' / 'female'."""
+    age = AGE_MAPPINGS.get(str(age), "adult")
+    gender = GENDER_MAPPINGS.get(str(gender), "female")
+    return AGE_GENDER_KEYS.index(f"{age}_{gender}")

@@ -4,13 +4,14 @@ logging (the JAX package's ``training/trainer.py``, streamed epoch only).
 
 A flow with a metric collection has its metrics accumulated over every
 evaluation pass and logged beside the losses; a metric that no batch fed
-is left out. A fit starts with the flow's baseline pass (its initial
-metrics of the inputs taken as the predictions, over the validation set,
-into ``hparams.json``), sets the flow's ``steps_per_epoch`` (for the LR
+is left out; classification metrics are also drawn as PNGs
+(``training/plots.py``). A fit starts with the flow's baseline pass (its
+initial metrics of its baseline predictions, over the validation set, into
+``hparams.json``), sets the flow's ``steps_per_epoch`` (for the LR
 schedules) from the data module before the optimizer is built, and calls
-the flow's ``on_epoch_start`` before each epoch. The port has no mesh, no host->device prefetcher (Carla2D3D
-batches are made on the card), no device-resident scan and no video
-logger. Logs stay on the device between log intervals; the host
+the flow's ``on_epoch_start`` before each epoch. The port has no mesh, no
+host->device prefetcher (batches are made or preprocessed on the
+datamodule's device), no device-resident scan and no video logger. Logs stay on the device between log intervals; the host
 synchronises once per log interval and once per evaluation pass.
 """
 import itertools
@@ -18,6 +19,7 @@ import json
 import math
 import os
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
@@ -225,9 +227,28 @@ class Trainer:
             if primary and f"{stage}_loss/primary" not in results:
                 results[f"{stage}_loss/primary"] = results[primary]
             if collection:
-                results.update(_flatten_metrics(
-                    collection.compute_moved(mstate, self.device), stage))
+                computed = collection.compute_moved(mstate, self.device)
+                results.update(_flatten_metrics(computed, stage))
+                self._save_plots(computed, stage)
         return results
+
+    def _save_plots(self, computed: Dict[str, Any], stage: str) -> None:
+        """The classification plots of an evaluation pass (none for other
+        flows) under ``<log_dir>/plots``. Plotting never ends a run: a
+        failure, matplotlib missing among them, is a warning."""
+        if "ConfusionMatrix" not in computed:
+            return
+
+        def host(v):
+            return {k: host(x) for k, x in v.items()} \
+                if isinstance(v, dict) else v.detach().cpu().numpy()
+        try:
+            from .plots import save_classification_plots
+            save_classification_plots(
+                {k: host(v) for k, v in computed.items()},
+                os.path.join(self.log_dir, "plots"), stage, self.state.step)
+        except Exception as e:
+            warnings.warn(f"classification plots failed: {e!r}")
 
     def initial_metrics(self) -> Dict[str, Any]:
         """``initial_<Metric>``: the flow's initial metrics over the

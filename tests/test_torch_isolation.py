@@ -1,7 +1,10 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
-its entry points refuse to fall back to the CPU when no card is present,
-and chip_smoke.py fails (printing no result) without a card or without the
-rest of the repository."""
+what chip_smoke.py imports needs none of pandas, h5py, PyYAML and
+matplotlib (the card's machine has none of them), its entry points refuse
+to fall back to the CPU when no card is present, and chip_smoke.py fails
+(printing no result) without a card or without the rest of the
+repository."""
+import ast
 import os
 import pkgutil
 import re
@@ -87,6 +90,54 @@ def test_port_has_the_lifters_slice():
     assert "pedestrians_video_2_carla_torch.models.torch_import" in modules
 
 
+def test_port_has_the_openpose_slice():
+    """BASELINE config 3's data path and the rest of its slice: each module
+    at its JAX relative path, walked by the isolation checks."""
+    modules = _port_modules()
+    slice_ = ("skeletons.factory", "skeletons.openpose", "ops.augmentation",
+              "ops.preprocessing", "data.base.hdf5_utils",
+              "data.base.hdf5_datamodule", "data.base.subsets_datamodule",
+              "data.base.pandas_mixin", "data.base.classification_mixin",
+              "data.openpose.annotations", "data.openpose.datamodules",
+              "training.plots", "utils.naming")
+    for name in slice_:
+        assert f"pedestrians_video_2_carla_torch.{name}" in modules
+        path = name.replace(".", os.sep) + ".py"
+        assert os.path.exists(os.path.join(
+            REPO, "pedestrians_video_2_carla_tpu", path)), path
+
+
+#: what the card's machine lacks; the port imports them only where it reads
+#: or writes the data that needs them
+CPU_ONLY = ("pandas", "h5py", "yaml", "matplotlib")
+
+
+def _chip_smoke_imports():
+    """The port imports of chip_smoke.py, at any depth, as statements."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    return sorted({ast.unparse(node) for node in ast.walk(tree)
+                   if isinstance(node, (ast.Import, ast.ImportFrom))
+                   and "pedestrians_video_2_carla_torch" in ast.unparse(node)})
+
+
+def test_chip_smoke_imports_need_no_cpu_only_package():
+    statements = _chip_smoke_imports()
+    assert any("openpose" in s or "hdf5_datamodule" in s
+               for s in statements), statements
+    code = (
+        "import sys\n"
+        f"for name in {CPU_ONLY!r}:\n"
+        "    sys.modules[name] = None\n"
+        + "".join(f"{s}\n" for s in statements) +
+        "import chip_smoke\n"
+        "print('IMPORTED')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "IMPORTED" in proc.stdout
+
+
 def test_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
     from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
         Carla2D3DDataModule
@@ -125,6 +176,10 @@ def test_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
         Carla2D3DDataModule(batch_size=2, clip_length=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         import_flow_params({"movements": {}})
+    from pedestrians_video_2_carla_torch.data.openpose.datamodules import \
+        JAADOpenPoseDataModule
+    with pytest.raises(RuntimeError, match="CUDA"):
+        JAADOpenPoseDataModule(outputs_dir=str(tmp_path))
     # asked for by name, the CPU works
     assert PoseLiftingFlow(LinearAE(), device="cpu").device.type == "cpu"
 

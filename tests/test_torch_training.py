@@ -515,8 +515,8 @@ def test_cli_test_mode_evaluates_a_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     "--flow=pose_estimation", "--mode=predict",
-    "--data_module_name=JAADOpenPose",
-    "--flow=classification --classification_model_name=GCNBestPaper",
+    "--data_module_name=CarlaRecorded",
+    "--data_module_name=MPII",
     "--loss_modes=heatmaps"])
 def test_cli_names_what_is_not_ported(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
