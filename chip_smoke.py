@@ -360,10 +360,39 @@ matplotlib) on the card, remapped to the CARLA skeleton:
                      its batch (slice, copies, process_batch), the
                      training_step alone, the batch alone and an eval_step;
                      process_batch's share of the step.
+Then group_serving (serving export, serving.py): each artifact exported
+on the card (export_inference, torch.export), loaded back (load_inference)
+and served at full width, with the seconds of its export:
+ 34. serve_artifacts -- LinearAE on "fused" (B=1024, L=16), on "fused"
+                     with output_keys ("projection_2d",) and on
+                     "fused_train", PoseFormer config 5 ("auto", B=256),
+                     GConvGRU config 3, GConvLSTM and config 2's
+                     Seq2SeqEmbeddings on "fused" (B=256): 2 requests
+                     through each artifact, its kernels' counts (rows 1 /
+                     2 once, row 4 once and row 8 four times, rows 10 and
+                     12 twice a request; no other kernel) and its pv2c ops
+                     and node count in the program, outputs within 1e-6 of
+                     max |out| of make_inference_fn's on the same weights;
+                     the host-clock request through the artifact against
+                     the closure in 10 alternating pairs, with Python's
+                     garbage collections in them counted and timed, then
+                     10 more with the process's objects frozen out of the
+                     collector (a full collection of them takes a few
+                     hundred ms).
+ 35. serve_artifact_cpu -- a LinearAE "fused" artifact exported on the card
+                     at B=8, loaded with device="cpu" (the ops' plain
+                     versions): its outputs against the card's (1e-3 px,
+                     1e-5 elsewhere), no kernel launched.
+ 36. cli_serving -- modeling.main on the card in a temporary directory:
+                     a 2-step train, then --mode=predict and --mode=export
+                     from its checkpoint, for config 1 (LinearAE, "fused")
+                     and GConvGRU: finite predictions, an artifact that
+                     loads and serves what the closure does.
 Then the card line, the kernels line (config 2's, the train-options
-phase's and group_openpose's launches beside the dense LSTM, projection-
-training and graph-GRU entries), and the contract line last. Any failure
-raises and ends the run with a non-zero exit.
+phase's, group_openpose's and group_serving's launches beside the dense
+LSTM, projection-training, graph-GRU and the other forward entries), and
+the contract line last. Any failure raises and ends the run with a
+non-zero exit.
 """
 import ctypes
 import functools
@@ -4948,6 +4977,264 @@ def group_openpose(card, hbm_rate):
                 "launches_openpose_serve": 0, **step}}
 
 
+SERVE_REQUESTS = 2
+SERVE_BAR = 1e-6
+CPU_LOAD_BATCH = 8
+
+
+def artifact_cases():
+    """(name, flow, B, output_keys, launches a request by wrapper) of the
+    artifacts group_serving exports."""
+    from pedestrians_video_2_carla_torch.flows.pose_lifting import \
+        PoseLiftingFlow
+    from pedestrians_video_2_carla_torch.models.movements.pose_former import \
+        PoseFormer
+
+    flow_f, _ = make_flows()
+    pf = PoseLiftingFlow(PoseFormer(
+        clip_length=CLIP, generator=torch.Generator().manual_seed(SEED)),
+        loss_modes=["loc_2d_3d"])
+    return [
+        ("linear_ae_fused", flow_f, BATCH, None, {"fused_projection": 1}),
+        ("linear_ae_fused_projection_2d", flow_f, BATCH,
+         ("projection_2d",), {"fused_projection": 1}),
+        ("linear_ae_fused_train", make_train_flow("fused_train"), BATCH,
+         None, {"fused_projection_train_fwd": 1}),
+        ("poseformer", pf, PF_BATCH, None,
+         {"fused_spatial_stack": 1, "fused_temporal_block": PF_DEPTH}),
+        ("gconvgru", make_cls_flow(), CLS_BATCH, None,
+         {"graph_gru_scan": 2}),
+        ("gconvlstm", make_cls_flow("GConvLSTM"), CLS_BATCH, None,
+         {"graph_lstm_scan": 2}),
+        ("config2_seq2seq", make_ae_flow("fused"), AE_BATCH, None,
+         {"dense_lstm_scan": AE_LAYERS})]
+
+
+def program_ops(path):
+    """(node count, the pv2c ops by name) of an exported program."""
+    nodes = list(torch.export.load(path).graph.nodes)
+    ops = {}
+    for n in nodes:
+        if n.op == "call_function" and str(n.target).startswith("pv2c."):
+            name = str(n.target).split(".")[1]
+            ops[name] = ops.get(name, 0) + 1
+    return len(nodes), ops
+
+
+class GcWatch:
+    """Python's garbage collections while it is entered: how many, how
+    many full (generation 2), and their milliseconds."""
+
+    def __enter__(self):
+        import gc
+        self.count, self.full, self.ms, self._t = 0, 0, 0.0, 0.0
+        gc.callbacks.append(self._callback)
+        return self
+
+    def _callback(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+            return
+        self.count += 1
+        self.full += info["generation"] == 2
+        self.ms += (time.perf_counter() - self._t) * 1e3
+
+    def __exit__(self, *exc):
+        import gc
+        gc.callbacks.remove(self._callback)
+
+    def stats(self):
+        return {"collections": self.count, "full": self.full,
+                "ms": self.ms}
+
+
+def paired_gc(fns):
+    """``paired_host_ms`` of two callables in 10 pairs twice: as the
+    process stands (its collections counted), then with every object that
+    exists frozen out of the collector (``gc.freeze``), so that no full
+    collection of the process's few hundred thousand objects lands in a
+    call."""
+    import gc
+    with GcWatch() as watch:
+        pairs = paired_host_ms(fns, pairs=TIMING_PAIRS)
+    gc.collect()
+    gc.freeze()
+    try:
+        frozen = paired_host_ms(fns, pairs=TIMING_PAIRS)
+    finally:
+        gc.unfreeze()
+    return {**pairs, "gc": watch.stats(),
+            **{f"frozen_{k}": v for k, v in frozen.items() if k != "pairs"},
+            "objects": len(gc.get_objects())}
+
+
+def max_rel_err(got, ref):
+    """max |got - ref| over max |ref|, over the keys of ``ref``."""
+    if set(got) != set(ref):
+        raise AssertionError(f"keys {sorted(got)} vs {sorted(ref)}")
+    return max(float((got[k] - ref[k]).abs().max())
+               / max(float(ref[k].abs().max()), 1e-30) for k in ref)
+
+
+def phase_serve_artifacts(tmp):
+    """Each artifact of ``artifact_cases``: exported on the card, loaded,
+    its requests' launches and outputs checked, its request timed against
+    the closure's. -> launches through the artifacts by wrapper."""
+    from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
+        Carla2D3DDataModule
+    from pedestrians_video_2_carla_torch.serving import (export_inference,
+                                                         load_inference,
+                                                         make_inference_fn)
+
+    t0 = time.perf_counter()
+    through = dict.fromkeys(kernel_wrappers(), 0)
+    results = {}
+    for name, flow, B, keys, per_request in artifact_cases():
+        batches = list(Carla2D3DDataModule(
+            batch_size=B, clip_length=CLIP, seed=SEED,
+            test_set_size=SERVE_REQUESTS * B).test_batches())
+        params = flow.init_params()
+        infer = make_inference_fn(flow, params, output_keys=keys)
+        inputs, _, meta = batches[0]
+        agi = meta["age_gender_idx"]
+        path = os.path.join(tmp, f"{name}.pt2")
+        t = time.perf_counter()
+        export_inference(flow, params, inputs, agi, path, output_keys=keys)
+        export_s = time.perf_counter() - t
+        call, info = load_inference(path)
+        nodes, ops = program_ops(path)
+        reset_kernel_counts()
+        served = [call(x, m["age_gender_idx"]) for x, _, m in batches]
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        want = expected_counts(**{k: v * len(batches)
+                                  for k, v in per_request.items()})
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts}, want {want}")
+        for k, v in counts.items():
+            through[k] += v
+        err = max(max_rel_err(out, infer(x, m["age_gender_idx"]))
+                  for out, (x, _, m) in zip(served, batches))
+        for out in served:
+            if not all(torch.isfinite(v).all() for v in out.values()):
+                raise AssertionError(f"{name}: non-finite output")
+        if err > SERVE_BAR:
+            raise AssertionError(f"{name}: artifact vs closure {err}")
+        pairs = paired_gc({"artifact": lambda: call(inputs, agi),
+                           "closure": lambda: infer(inputs, agi)})
+        results[name] = {
+            "B": B, "L": CLIP, "output_keys": info["output_keys"],
+            "export_s": export_s, "nodes": nodes, "ops": ops,
+            "launches": {k: v for k, v in counts.items() if v},
+            "max_err_over_max_out": err, **pairs}
+        del flow, params, infer, call, batches
+        torch.cuda.empty_cache()
+    emit({"phase": "serve_artifacts", "requests": SERVE_REQUESTS,
+          "artifacts": results, "seconds": time.perf_counter() - t0})
+    return through
+
+
+def phase_serve_artifact_cpu(tmp):
+    """A card-made artifact served on the CPU (``device="cpu"``: its ops'
+    plain versions) against the card's outputs."""
+    from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
+        Carla2D3DDataModule
+    from pedestrians_video_2_carla_torch.serving import (export_inference,
+                                                         load_inference)
+
+    flow, _ = make_flows()
+    params = flow.init_params()
+    inputs, _, meta = next(iter(Carla2D3DDataModule(
+        batch_size=CPU_LOAD_BATCH, clip_length=CLIP, seed=SEED,
+        test_set_size=CPU_LOAD_BATCH).test_batches()))
+    path = export_inference(flow, params, inputs, meta["age_gender_idx"],
+                            os.path.join(tmp, "cpu_load.pt2"))
+    card_call, info = load_inference(path)
+    cpu_call, _ = load_inference(path, device="cpu")
+    card = card_call(inputs, meta["age_gender_idx"])
+    reset_kernel_counts()
+    cpu = cpu_call(inputs.cpu(), meta["age_gender_idx"].cpu())
+    if any(kernel_counts().values()):
+        raise AssertionError(f"the CPU program launched {kernel_counts()}")
+    worst_xy = worst = 0.0
+    for k, v in cpu.items():
+        if v.device.type != "cpu":
+            raise AssertionError(f"{k} on {v.device}")
+        d = (card[k].cpu() - v).abs()
+        if k == "projection_2d":
+            worst_xy = max(worst_xy, float(d[..., :2].max()))
+            d = d[..., 2:]
+        worst = max(worst, float(d.max()) / max(float(v.abs().max()), 1e-30))
+    if worst_xy > XY_TOL_PX or worst > KERNEL_BAR:
+        raise AssertionError(f"CPU vs card: xy {worst_xy} px, {worst}")
+    emit({"phase": "serve_artifact_cpu", "B": CPU_LOAD_BATCH, "L": CLIP,
+          "platforms": info["platforms"], "output_keys": info["output_keys"],
+          "max_abs_err_xy_px_vs_card": worst_xy,
+          "max_err_over_max_out_vs_card": worst})
+
+
+def phase_cli_serving(tmp):
+    """``modeling.main``'s predict and export modes on the card, from a
+    2-step fit's checkpoint, for config 1 and GConvGRU."""
+    from pedestrians_video_2_carla_torch import modeling
+    from pedestrians_video_2_carla_torch.serving import (load_inference,
+                                                         make_inference_fn)
+
+    t0 = time.perf_counter()
+    runs = {"config1": ["--movements_model_name=LinearAE", "--loss_modes",
+                        "loc_2d_3d", "--projection_kernel=fused"],
+            "gconvgru": ["--flow=classification",
+                         "--classification_model_name=GConvGRU"]}
+    done = {}
+    for name, flags in runs.items():
+        common = flags + [f"--batch_size={CLI_BATCH}", f"--clip_length={CLIP}",
+                          f"--val_set_size={CLI_BATCH}",
+                          f"--test_set_size={CLI_BATCH}", "--max_epochs=1",
+                          "--limit_train_batches=2", f"--root_dir={tmp}",
+                          f"--seed={SEED}"]
+        modeling.main(common + ["--mode=train", f"--run_name={name}"])
+        ckpt = os.path.join(tmp, "logs", "classification" if name ==
+                            "gconvgru" else "pose_lifting", name,
+                            "checkpoints", "last")
+        pred = modeling.main(common + [
+            "--mode=predict", f"--ckpt_path={ckpt}", "--predict_sets", "val",
+            "test", f"--run_name={name}-predict"])
+        for set_name, outputs in pred["predictions"].items():
+            if not outputs or not all(
+                    np.isfinite(v).all() for p, _, _ in outputs
+                    for v in p.values() if v is not None):
+                raise AssertionError(f"{name} {set_name}: predictions")
+        exp = modeling.main(common + ["--mode=export", f"--ckpt_path={ckpt}",
+                                      f"--run_name={name}-export"])
+        call, info = load_inference(exp["export_path"])
+        inputs, _, meta = next(iter(exp["dm"].val_batches()))
+        err = max_rel_err(
+            call(inputs, meta["age_gender_idx"]),
+            make_inference_fn(exp["flow"], exp["trainer"].state.params)(
+                inputs, meta["age_gender_idx"]))
+        if err > SERVE_BAR:
+            raise AssertionError(f"{name}: CLI artifact vs closure {err}")
+        done[name] = {"predict_batches": {k: len(v) for k, v in
+                                          pred["predictions"].items()},
+                      "export_output_keys": info["output_keys"],
+                      "max_err_over_max_out": err}
+    emit({"phase": "cli_serving", "B": CLI_BATCH, "L": CLIP, "runs": done,
+          "seconds": time.perf_counter() - t0})
+
+
+def group_serving(card, hbm_rate):
+    """Serving export on the card: -> the forward kernels' launches
+    through the artifacts, by kernels-line entry."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        through = phase_serve_artifacts(tmp)
+        phase_serve_artifact_cpu(tmp)
+        phase_cli_serving(tmp)
+    emit({"phase": "group_serving", "seconds": time.perf_counter() - t0})
+    return {name: {"launches_serving_artifacts": n}
+            for name, n in through.items() if n}
+
+
 def kernel_entry(name, source, replaces, launches, max_err, times):
     """One entry of the kernels line; ``replaces`` is the TPU kernel's
     ``file:line`` under the JAX package's ops/pallas/."""
@@ -5090,6 +5377,11 @@ def main():
         entry = next(e for e in kernels if e["name"] == name)
         entry["launches"] += extra["launches_openpose_train"] \
             + extra["launches_openpose_serve"]
+        entry.update(extra)
+    # the forward entries' launches through the exported artifacts
+    for name, extra in group_serving(card, hbm_rate).items():
+        entry = next(e for e in kernels if e["name"] == name)
+        entry["launches"] += extra["launches_serving_artifacts"]
         entry.update(extra)
 
     print(card, flush=True)

@@ -6,15 +6,30 @@ meta)`` batches of tensors on its device.
 * ``meta``    -- dict; includes ``age_gender_idx`` (B,) int64 for the
   projection's reference-skeleton gather
 """
-from typing import Any, Dict, Iterator, Optional, Tuple, Type
+import os
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Type
 
 import numpy as np
+import torch
 
 from ...skeletons.base import Skeleton
 from ...skeletons.carla import CARLA_SKELETON
 from ...utils.device import DeviceLike, resolve_device
 
 Batch = Tuple[Any, Dict[str, Any], Dict[str, Any]]
+
+
+def _concatenated(trees: List[Dict[str, np.ndarray]]
+                  ) -> Dict[str, np.ndarray]:
+    """The first tree's keys, each concatenated over the trees; a key that
+    some tree lacks, or whose arrays do not concatenate, is left out."""
+    out = {}
+    for k in trees[0]:
+        try:
+            out[k] = np.concatenate([t[k] for t in trees])
+        except (ValueError, KeyError):
+            continue
+    return out
 
 
 def batch_seed(base: int, index: int) -> int:
@@ -36,6 +51,7 @@ class BaseDataModule:
                  input_nodes: Optional[Type[Skeleton]] = None,
                  transform: str = "hips_neck",
                  needs_confidence: bool = False,
+                 outputs_dir: str = "outputs",
                  device: DeviceLike = None,
                  **kwargs) -> None:
         self.batch_size = batch_size
@@ -44,6 +60,7 @@ class BaseDataModule:
         self.input_nodes = input_nodes or data_nodes
         self.transform = transform
         self.needs_confidence = needs_confidence
+        self.outputs_dir = outputs_dir
         self.device = resolve_device(device)
 
     # -- lifecycle ---------------------------------------------------------
@@ -62,6 +79,12 @@ class BaseDataModule:
     def test_batches(self) -> Iterator[Batch]:
         raise NotImplementedError
 
+    def predict_batches(self, set_name: str) -> Iterator[Batch]:
+        """The batches ``Trainer.predict`` runs for ``set_name``."""
+        if set_name == "train":
+            return self.train_batches()
+        return self.val_batches() if set_name == "val" else self.test_batches()
+
     # -- sizes (None = unknown/infinite) ----------------------------------
     @property
     def train_set_size(self) -> Optional[int]:
@@ -74,6 +97,76 @@ class BaseDataModule:
     @property
     def test_set_size(self) -> Optional[int]:
         return None
+
+    # -- predictions as a dataset -----------------------------------------
+    def save_predictions(self, set_name: str, outputs, run_id: str = "run"
+                         ) -> str:
+        """Write the predicted 2D poses of ``Trainer.predict``'s ``outputs``
+        (``(preds, targets, meta)`` numpy trees), denormalised where the
+        targets carry the shift and scale, with their targets (but the
+        ``projection_2d*`` ones) and numeric metas, as
+        ``{set_name}.hdf5`` of an HDF5 subsets tree, and the set's size
+        into its ``dparams.yaml``, in the JAX package's layout: a
+        ``SubsetsDataModule`` (``--subsets_dir``) of either package trains
+        on it. Returns the tree's directory,
+        ``{outputs_dir}/{datamodule}Predictions/subsets/{digest}/{run_id}``.
+        ``h5py`` and ``yaml`` are imported here."""
+        import yaml
+
+        from ...ops import normalization as N
+        from .hdf5_utils import save_subset
+
+        digest = getattr(self, "settings_digest", "predictions")
+        save_dir = os.path.join(
+            self.outputs_dir, f"{type(self).__name__}Predictions",
+            "subsets", digest, run_id)
+        os.makedirs(save_dir, exist_ok=True)
+        if not outputs:
+            raise ValueError(
+                f"save_predictions({set_name!r}): Trainer.predict yielded no "
+                f"batches; nothing to save")
+        all_proj, all_targets, all_meta = [], [], []
+        for preds, targets, meta in outputs:
+            key = "projection_2d_transformed" \
+                if preds.get("projection_2d_transformed") is not None \
+                else "projection_2d"
+            pred_pose = np.asarray(preds[key])[..., :2]
+            if key == "projection_2d_transformed" \
+                    and targets.get("projection_2d_shift") is not None:
+                ss = N.ShiftScale(
+                    torch.from_numpy(np.asarray(
+                        targets["projection_2d_shift"])),
+                    torch.from_numpy(np.asarray(
+                        targets["projection_2d_scale"])))
+                pred_pose = N.denormalize(torch.from_numpy(pred_pose),
+                                          ss).numpy()
+            all_proj.append(pred_pose)
+            all_targets.append({
+                k: np.asarray(v) for k, v in targets.items()
+                if not k.startswith("projection_2d")
+                and hasattr(v, "shape")})
+            all_meta.append({k: np.asarray(v) for k, v in (meta or {}).items()
+                             if hasattr(v, "shape")})
+
+        projection_2d = np.concatenate(all_proj)
+        save_subset(os.path.join(save_dir, f"{set_name}.hdf5"),
+                    projection_2d, _concatenated(all_targets),
+                    _concatenated(all_meta))
+
+        # the set's size goes beside the others' already there
+        params_path = os.path.join(save_dir, "dparams.yaml")
+        sizes = {}
+        if os.path.exists(params_path):
+            with open(params_path) as f:
+                sizes = yaml.safe_load(f) or {}
+        sizes[f"{set_name}_set_size"] = int(len(projection_2d))
+        sizes.setdefault("data_module_name",
+                         f"{type(self).__name__}Predictions")
+        sizes.setdefault("clip_length", self.clip_length)
+        sizes.setdefault("data_nodes", self.data_nodes.__name__)
+        with open(params_path, "w") as f:
+            yaml.safe_dump(sizes, f)
+        return save_dir
 
     @property
     def hparams(self) -> Dict[str, Any]:

@@ -203,6 +203,17 @@ class Carla2D3DDataModule(BaseDataModule):
         return self._batches_from(self.seed + 2, self.test_set_size
                                   // self.batch_size)
 
+    def predict_batches(self, set_name: str) -> Iterator:
+        """For ``"train"`` a finite, reproducible slice of the train stream
+        (its first ``4 * val_set_size // batch_size`` batches, at least
+        one: the size of the trainer's epoch guard); else the set's
+        batches."""
+        if set_name == "train":
+            return self._batches_from(
+                self.seed + 1000,
+                max(1, 4 * self.val_set_size // self.batch_size))
+        return super().predict_batches(set_name)
+
     @property
     def val_set_size(self):
         return max(1, self._val_size // self.batch_size) * self.batch_size

@@ -28,13 +28,23 @@ modules are the JAX CLI's by name (``Carla2D3D``, ``JAADOpenPose``,
 trains on an existing HDF5 subsets tree), with its DataModule flags. An
 unnamed run gets a directory of its own (``utils/naming.py``). It runs
 on the card unless ``--device cpu`` is given. A flow, data module, model,
-mode or loss that the JAX package has but the port does not yet raises
-``NotImplementedError`` naming ``ROADMAP.md``.
+loss or renderer that the JAX package has but the port does not yet raises
+``NotImplementedError`` naming ``ROADMAP.md``; flags the chosen flow and
+model do not take are ignored with a warning, as in the JAX CLI.
+
+The JAX CLI's five modes: ``train`` and ``tune`` fit, then evaluate the
+validation set; ``test`` evaluates the test set; ``predict`` runs
+``Trainer.predict`` over each of ``--predict_sets`` (``results
+["predictions"]``); ``export`` writes ``<log_dir>/exported/model.pt2``
+(``serving.export_inference``, ``--export_keys``,
+``--export_polymorphic_batch``) from a batch of the data module. In every
+mode but ``train`` a ``--ckpt_path`` restores the weights alone.
 """
 import argparse
 import inspect
 import os
 import sys
+import warnings
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -52,6 +62,7 @@ from .models.classification.common import ClassificationModel
 from .models.movements import MOVEMENTS_MODELS
 from .models.movements.common import MovementsModel
 from .ops.projection import KERNELS
+from .serving import export_inference
 from .skeletons.base import get_skeleton_type_by_name
 from .training.checkpoint import is_archive
 from .training.trainer import Trainer, TrainerConfig
@@ -63,7 +74,7 @@ FLOWS = {"pose_lifting": PoseLiftingFlow,
          "classification": ClassificationFlow,
          "autoencoder": AutoencoderFlow}
 DATA_MODULES = data_registry.discover()
-MODES = ("train", "test")
+MODES = ("train", "tune", "test", "predict", "export")
 
 
 def boolean(v) -> bool:
@@ -131,6 +142,18 @@ def make_parser(argv: Optional[List[str]] = None) -> argparse.ArgumentParser:
     parser.add_argument("--flow", default="pose_lifting")
     parser.add_argument("--mode", default="train")
     parser.add_argument("--data_module_name", default="Carla2D3D")
+    parser.add_argument("--predict_sets", nargs="+", default=["test"])
+    parser.add_argument("--export_keys", nargs="+", default=None,
+                        help="restrict the --mode=export artifact's outputs "
+                             "(e.g. projection_2d)")
+    parser.add_argument("--export_polymorphic_batch", action="store_true",
+                        help="export the --mode=export artifact with a "
+                             "symbolic batch dimension: one artifact serves "
+                             "any batch size; requires --projection_kernel "
+                             "plain")
+    parser.add_argument("--renderers", nargs="*", default=["none"],
+                        help="only 'none': the renderers are not ported "
+                             "(ROADMAP.md M7)")
     parser.add_argument("--movements_model_name", default="LinearAE")
     parser.add_argument("--classification_model_name", default="LSTM")
     parser.add_argument("--seed", type=int, default=DEFAULT_SEED)
@@ -275,7 +298,11 @@ def chosen_model(args):
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     argv = sys.argv[1:] if argv is None else argv
-    args = make_parser(argv).parse_args(argv)
+    args, unknown = make_parser(argv).parse_known_args(argv)
+    if unknown:
+        # another flow's or model's flags: the chaining scripts pass one
+        # argument list through every stage
+        warnings.warn(f"ignoring unrecognized arguments: {unknown}")
     _ported("flow", args.flow, FLOWS)
     _ported("mode", args.mode, MODES)
     _ported("data module", args.data_module_name, DATA_MODULES)
@@ -284,6 +311,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             else "movements model", model_name, models)
     for mode in args.loss_modes:
         _ported("loss mode", mode, LossModes.__members__)
+    renderers = [r for r in args.renderers or [] if r != "none"]
+    if renderers:
+        raise NotImplementedError(
+            f"renderers {renderers} are not ported to PyTorch yet (only "
+            f"'none'; see ROADMAP.md M7)")
 
     # the JAX CLI's rule: the datamodule's own skeleton unless
     # --data_nodes names one; the model reads --input_nodes, else that
@@ -386,12 +418,26 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         else:
             trainer.restore(args.ckpt_path,
                             weights_only=(args.mode != "train"))
-    if args.mode == "train":
+    if args.mode in ("train", "tune"):
         trainer.fit()
         results["val_metrics"] = trainer.evaluate(
             "val", config.limit_val_batches)
-    else:
+    elif args.mode == "test":
         results["test_metrics"] = trainer.test()
+    elif args.mode == "predict":
+        results["predictions"] = {set_name: trainer.predict(set_name)
+                                  for set_name in args.predict_sets}
+    else:  # export: the (restored) weights baked into a serving artifact
+        trainer._init_state()
+        inputs, _, meta = next(iter(dm.val_batches()), None) \
+            or next(iter(dm.train_batches(args.seed)))
+        path = os.path.join(trainer.log_dir, "exported", "model.pt2")
+        results["export_path"] = export_inference(
+            flow, trainer.state.params, inputs, meta["age_gender_idx"],
+            path,
+            output_keys=tuple(args.export_keys) if args.export_keys else None,
+            polymorphic_batch=args.export_polymorphic_batch)
+        print(f"exported inference artifact: {path}")
     return results
 
 

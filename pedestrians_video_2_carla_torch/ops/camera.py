@@ -13,6 +13,7 @@ operations as the JAX package, and then used as Python floats: the
 projection is elementwise arithmetic over the batch planes, and the CUDA
 kernel receives the same 18 constants.
 """
+from functools import lru_cache
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -50,19 +51,22 @@ def look_at_view_transform(eye, at, up) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 class PinholeCamera(NamedTuple):
-    """Static camera parameters."""
+    """Static camera parameters. ``consts`` holds the projection's 18
+    constants as Python floats, computed once where the camera is made
+    (:func:`make_camera`, :func:`camera_from_constants`), so that
+    projecting reads no tensor values: under ``torch.export`` R and T
+    would be fake tensors."""
     R: torch.Tensor                   # (3, 3) world->view rotation (row-vector)
     T: torch.Tensor                   # (3,) world->view translation
     focal: Tuple[float, float]        # (fx, fy) pixels
     principal: Tuple[float, float]    # (px, py) pixels
     image_size: Tuple[int, int]       # (width, height)
+    consts: Tuple[float, ...]         # the 18 of constants()
 
     def constants(self) -> Tuple[float, ...]:
         """The 18 float constants of the projection, in the CUDA kernel's
         order: R row-major, T, fx, fy, px, py, W, H."""
-        return tuple(float(v) for v in (
-            *self.R.reshape(9).tolist(), *self.T.tolist(),
-            *self.focal, *self.principal, *self.image_size))
+        return self.consts
 
     def project_planes(self, x, y, z0):
         """3 (...) world component planes -> (x_screen, y_screen, depth)."""
@@ -98,8 +102,26 @@ def make_camera(distance: float = DEFAULT_CAMERA_DISTANCE,
     R, T = look_at_view_transform(eye=eye, at=look_at, up=(0.0, 0.0, -1.0))
     f = focal_px_from_fov(fov_deg)
     w, h = image_size
-    return PinholeCamera(R=R, T=T, focal=(f, f),
-                         principal=(w / 2.0, h / 2.0), image_size=(w, h))
+    focal, principal = (f, f), (w / 2.0, h / 2.0)
+    consts = tuple(float(v) for v in (
+        *R.reshape(9).tolist(), *T.tolist(), *focal, *principal, w, h))
+    return PinholeCamera(R=R, T=T, focal=focal, principal=principal,
+                         image_size=(w, h), consts=consts)
+
+
+@lru_cache(maxsize=None)
+def camera_from_constants(consts: Tuple[float, ...]) -> PinholeCamera:
+    """The camera of 18 constants in :meth:`PinholeCamera.constants`' order
+    (the float32 values of R and T round-trip exactly), made once per
+    tuple: the kernels' ``torch.library`` ops take a camera as its
+    constants."""
+    consts = tuple(float(v) for v in consts)
+    if len(consts) != 18:
+        raise ValueError(f"a camera has 18 constants, got {len(consts)}")
+    return PinholeCamera(
+        R=torch.tensor(consts[:9]).reshape(3, 3), T=torch.tensor(consts[9:12]),
+        focal=consts[12:14], principal=consts[14:16],
+        image_size=tuple(int(v) for v in consts[16:18]), consts=consts)
 
 
 def project_pose(camera: PinholeCamera,

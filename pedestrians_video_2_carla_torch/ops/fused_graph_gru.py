@@ -46,8 +46,11 @@ launch failed.
 
 The wrappers launch the kernels for CUDA tensors and run the plain version
 (and autograd of it) for CPU tensors; there is no fallback from one to the
-other. ``graph_gru_scan_cuda_fwd.launches`` etc. count entry calls; an entry
-is a fixed sequence of launches (forward: 1; backward: 3), described in the
+other. The serving forwards are the ``torch.library`` ops
+``pv2c::graph_gru_scan_fwd``, ``pv2c::graph_lstm_scan_fwd`` and
+``pv2c::dense_lstm_scan_fwd``, each one node of an exported program.
+``graph_gru_scan_cuda_fwd.launches`` etc. count entry calls; an entry is a
+fixed sequence of launches (forward: 1; backward: 3), described in the
 sources.
 """
 import functools
@@ -733,24 +736,94 @@ def _check_device(name: str, t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
+# The serving forwards as ``torch.library`` ops (one node each of an
+# exported graph): the kernel on the card, the plain version on the CPU,
+# the output shapes alone for fake tensors.
+
+def _scan_outputs(xg: torch.Tensor, H: int) -> torch.Tensor:
+    return xg.new_empty(tuple(xg.shape[:3]) + (H,))
+
+
+@torch.library.custom_op("pv2c::graph_gru_scan_fwd", mutates_args=(),
+                         device_types="cpu")
+def graph_gru_scan_fwd_op(xg: torch.Tensor, cheb: torch.Tensor,
+                          wzr: torch.Tensor, wh: torch.Tensor
+                          ) -> torch.Tensor:
+    """Row 10's serving entry: ``graph_gru_scan_cuda_fwd`` on the card,
+    the plain version on the CPU."""
+    return graph_gru_scan_reference(xg, cheb, wzr, wh)
+
+
+@graph_gru_scan_fwd_op.register_kernel("cuda")
+def _(xg, cheb, wzr, wh):
+    return graph_gru_scan_cuda_fwd(xg, cheb, wzr, wh)
+
+
+@graph_gru_scan_fwd_op.register_fake
+def _(xg, cheb, wzr, wh):
+    _check_scan(xg, cheb, (("wzr", wzr, 2), ("wh", wh, 1)), GRU_GATES)
+    return _scan_outputs(xg, wh.shape[0])
+
+
+@torch.library.custom_op("pv2c::graph_lstm_scan_fwd", mutates_args=(),
+                         device_types="cpu")
+def graph_lstm_scan_fwd_op(xg: torch.Tensor, cheb: torch.Tensor,
+                           w: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row 12's serving entry, graph form: ``graph_lstm_scan_cuda_fwd`` on
+    the card, the plain version on the CPU."""
+    return graph_lstm_scan_reference(xg, cheb, w)
+
+
+@graph_lstm_scan_fwd_op.register_kernel("cuda")
+def _(xg, cheb, w):
+    return graph_lstm_scan_cuda_fwd(xg, cheb, w)
+
+
+@graph_lstm_scan_fwd_op.register_fake
+def _(xg, cheb, w):
+    _check_scan(xg, cheb, (("w", w, 4),), LSTM_GATES)
+    return _scan_outputs(xg, w.shape[0]), _scan_outputs(xg, w.shape[0])
+
+
+@torch.library.custom_op("pv2c::dense_lstm_scan_fwd", mutates_args=(),
+                         device_types="cpu")
+def dense_lstm_scan_fwd_op(xg: torch.Tensor, w: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row 12's serving entry, dense form (k = 1): ``dense_lstm_scan_cuda_fwd``
+    on the card, the plain version on the CPU."""
+    J = _check_dense(xg, w)[2]
+    return graph_lstm_scan_reference(xg, xg.new_zeros((0, J, J)), w)
+
+
+@dense_lstm_scan_fwd_op.register_kernel("cuda")
+def _(xg, w):
+    return dense_lstm_scan_cuda_fwd(xg, w)
+
+
+@dense_lstm_scan_fwd_op.register_fake
+def _(xg, w):
+    _check_dense(xg, w)
+    return _scan_outputs(xg, w.shape[0]), _scan_outputs(xg, w.shape[0])
+
+
 class GraphGRUScan(torch.autograd.Function):
     """Kernel forward and kernel backward (CUDA), or the plain forward and
     autograd of it (CPU), as the JAX package's custom VJP. ``keep``: a
     gradient will be asked for, so the kernel forward keeps the residuals
-    its backward reads. The graph matrices get no gradient."""
+    its backward reads; without it the forward is
+    ``pv2c::graph_gru_scan_fwd``. The graph matrices get no gradient."""
 
     @staticmethod
     def forward(ctx, xg, cheb, keep, wzr, wh):
         ctx.fused = _check_device("graph_gru_scan", xg)
-        if ctx.fused:
-            if not keep:
-                return graph_gru_scan_cuda_fwd(xg, cheb, wzr, wh)
+        if keep and ctx.fused:
             ys, res = graph_gru_scan_cuda_fwd(xg, cheb, wzr, wh, keep=True)
             ctx.save_for_backward(cheb, wzr, wh, *res)
             return ys
-        ys = graph_gru_scan_reference(xg, cheb, wzr, wh)
-        ctx.save_for_backward(xg, cheb, wzr, wh)
-        return ys
+        if keep:
+            ctx.save_for_backward(xg, cheb, wzr, wh)
+        return graph_gru_scan_fwd_op(xg, cheb, wzr, wh)
 
     @staticmethod
     def backward(ctx, dys):
@@ -782,19 +855,20 @@ class GraphLSTMScan(torch.autograd.Function):
             dense_lstm_plan(B, J, H, k, xg.device)[0] > 0
         ctx.set_materialize_grads(False)
         if not ctx.fused:
-            ctx.save_for_backward(xg, cheb, w)
-            return graph_lstm_scan_reference(xg, cheb, w)
+            if keep:
+                ctx.save_for_backward(xg, cheb, w)
+            return graph_lstm_scan_fwd_op(xg, cheb, w)
         if ctx.dense:
             if not (w.is_contiguous() or w.t().is_contiguous()):
                 w = w.contiguous()
             if not keep:
-                return dense_lstm_scan_cuda_fwd(xg, w)
+                return dense_lstm_scan_fwd_op(xg, w)
             ys, cs, gates = dense_lstm_scan_cuda_fwd(xg, w, keep=True)
             ctx.save_for_backward(w, gates, ys, cs)
             return ys, cs
         w = w.contiguous()
         if not keep:
-            return graph_lstm_scan_cuda_fwd(xg, cheb, w)
+            return graph_lstm_scan_fwd_op(xg, cheb, w)
         ys, cs, res = graph_lstm_scan_cuda_fwd(xg, cheb, w, keep=True)
         ctx.save_for_backward(cheb, w, cs, *res)
         return ys, cs

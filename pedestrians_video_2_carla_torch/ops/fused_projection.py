@@ -21,7 +21,11 @@ in parallel, then the carry (``fused_projection_train_bwd_reference``).
 
 ``fused_projection`` and ``fused_projection_train`` launch the kernels for
 CUDA tensors and run the plain versions for CPU tensors; there is no
-fallback from one to the other. ``fused_projection``'s backward re-runs the
+fallback from one to the other. Their forwards are the ``torch.library``
+ops ``pv2c::fused_projection`` and ``pv2c::fused_projection_train_fwd``
+(the kernel on the card, the plain version on the CPU, the output shapes
+alone for fake tensors), so ``torch.export`` records each as one node of
+a serving program. ``fused_projection``'s backward re-runs the
 plain version under autograd, as the JAX package's custom VJP does;
 ``fused_projection_train``'s backward is the backward kernel on the card and
 autograd of the plain version on the CPU.
@@ -32,7 +36,7 @@ source (``ops/cuda_build.py``).
 import ctypes
 import functools
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -218,24 +222,46 @@ def fused_projection_fwd_algorithm(pose_changes, rel_loc, rel_rot,
     return proj
 
 
+# The forwards as ``torch.library`` ops, so that ``torch.export`` records
+# each as one node of the graph (a ctypes launch cannot be traced): the CUDA
+# kernel for CUDA tensors, the plain version for CPU tensors, and for fake
+# tensors the output shapes alone. The camera goes as its 18 constants.
+
+@torch.library.custom_op("pv2c::fused_projection", mutates_args=(),
+                         device_types="cpu")
+def fused_projection_op(pose_changes: torch.Tensor, rel_loc: torch.Tensor,
+                        rel_rot: torch.Tensor,
+                        camera: List[float]) -> torch.Tensor:
+    """Row 1's entry: ``fused_projection_cuda`` on the card, the plain
+    version on the CPU."""
+    return fused_projection_reference(
+        pose_changes, rel_loc, rel_rot, C.camera_from_constants(tuple(camera)))
+
+
+@fused_projection_op.register_kernel("cuda")
+def _(pose_changes, rel_loc, rel_rot, camera):
+    return fused_projection_cuda(pose_changes, rel_loc, rel_rot,
+                                 C.camera_from_constants(tuple(camera)))
+
+
+@fused_projection_op.register_fake
+def _(pose_changes, rel_loc, rel_rot, camera):
+    _check_inputs(pose_changes, rel_loc, rel_rot)
+    return pose_changes.new_empty(pose_changes.shape[:3] + (3,))
+
+
 class FusedProjection(torch.autograd.Function):
-    """Kernel forward (CUDA) or plain forward (CPU); the backward is autograd
-    of the plain version, as in the JAX package's custom VJP."""
+    """Kernel forward (CUDA) or plain forward (CPU), through
+    ``pv2c::fused_projection``; the backward is autograd of the plain
+    version, as in the JAX package's custom VJP."""
 
     @staticmethod
     def forward(ctx, pose_changes, rel_loc, rel_rot, camera):
         _check_inputs(pose_changes, rel_loc, rel_rot)
         ctx.camera = camera
         ctx.save_for_backward(pose_changes, rel_loc, rel_rot)
-        if pose_changes.device.type == "cuda":
-            return fused_projection_cuda(pose_changes, rel_loc, rel_rot,
-                                         camera)
-        if pose_changes.device.type != "cpu":
-            raise ValueError(
-                f"fused_projection runs on cuda or cpu, not "
-                f"{pose_changes.device}")
-        return fused_projection_reference(pose_changes, rel_loc, rel_rot,
-                                          camera)
+        return fused_projection_op(pose_changes, rel_loc, rel_rot,
+                                   list(camera.constants()))
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -426,10 +452,40 @@ def fused_projection_train_cuda_bwd(pose_changes: torch.Tensor,
 fused_projection_train_cuda_bwd.launches = 0
 
 
+@torch.library.custom_op("pv2c::fused_projection_train_fwd", mutates_args=(),
+                         device_types="cpu")
+def fused_projection_train_fwd_op(pose_changes: torch.Tensor,
+                                  rel_loc: torch.Tensor,
+                                  rel_rot: torch.Tensor, camera: List[float]
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Row 2's entry: ``fused_projection_train_cuda_fwd`` on the card; on
+    the CPU the plain version, with the carried rotations as ``states``."""
+    states, abs_loc, _ = K.relative_pose_over_clip(pose_changes, rel_loc,
+                                                   rel_rot)
+    proj = C.project_pose(C.camera_from_constants(tuple(camera)), abs_loc)
+    return proj, abs_loc, states.reshape(abs_loc.shape[:3] + (9,))
+
+
+@fused_projection_train_fwd_op.register_kernel("cuda")
+def _(pose_changes, rel_loc, rel_rot, camera):
+    return fused_projection_train_cuda_fwd(
+        pose_changes, rel_loc, rel_rot, C.camera_from_constants(tuple(camera)))
+
+
+@fused_projection_train_fwd_op.register_fake
+def _(pose_changes, rel_loc, rel_rot, camera):
+    _check_inputs(pose_changes, rel_loc, rel_rot)
+    shape = pose_changes.shape[:3]
+    return (pose_changes.new_empty(shape + (3,)),
+            pose_changes.new_empty(shape + (3,)),
+            pose_changes.new_empty(shape + (9,)))
+
+
 class FusedProjectionTrain(torch.autograd.Function):
     """Kernel forward and kernel backward (CUDA), or the plain forward and
     autograd of it (CPU), as the JAX package's ``fused_projection_train``
-    custom VJP."""
+    custom VJP; the forward is ``pv2c::fused_projection_train_fwd``."""
 
     @staticmethod
     def forward(ctx, pose_changes, rel_loc, rel_rot, camera):
@@ -439,17 +495,13 @@ class FusedProjectionTrain(torch.autograd.Function):
         ctx.camera = camera
         inputs = tuple(t.contiguous()
                        for t in (pose_changes, rel_loc, rel_rot))
+        proj, abs_loc, states = fused_projection_train_fwd_op(
+            *inputs, list(camera.constants()))
         if pose_changes.device.type == "cuda":
-            proj, abs_loc, states = fused_projection_train_cuda_fwd(
-                *inputs, camera)
             ctx.save_for_backward(*inputs, states)
-            return proj, abs_loc
-        if pose_changes.device.type != "cpu":
-            raise ValueError(
-                f"fused_projection_train runs on cuda or cpu, not "
-                f"{pose_changes.device}")
-        ctx.save_for_backward(*inputs)
-        return fused_projection_train_reference(*inputs, camera)
+        else:
+            ctx.save_for_backward(*inputs)
+        return proj, abs_loc
 
     @staticmethod
     def backward(ctx, g_proj, g_abs):

@@ -20,7 +20,8 @@ are known without a card.
 
 ``fused_spatial_stack`` launches the kernels for CUDA tensors and runs the
 plain version (and autograd of it) for CPU tensors; there is no fallback
-from one to the other.
+from one to the other. Its serving forward is the ``torch.library`` op
+``pv2c::fused_spatial_stack``, one node of an exported program.
 
 The weights are a 14-tuple: the 12 block weights of ``ops/transformer.py``
 (``BLOCK_WEIGHTS``, nn.Linear layout) each stacked over depth, then the
@@ -292,28 +293,46 @@ def fused_spatial_stack_cuda_bwd(x: torch.Tensor,
 fused_spatial_stack_cuda_bwd.launches = 0
 
 
+@torch.library.custom_op("pv2c::fused_spatial_stack", mutates_args=(),
+                         device_types="cpu")
+def fused_spatial_stack_op(x: torch.Tensor, weights: List[torch.Tensor],
+                           num_heads: int) -> torch.Tensor:
+    """Row 4's serving entry as a ``torch.library`` op (one node of an
+    exported graph): ``fused_spatial_stack_cuda`` on the card, the plain
+    version on the CPU."""
+    check_stack(x, weights, num_heads)
+    return spatial_stack_reference(x, weights, num_heads)
+
+
+@fused_spatial_stack_op.register_kernel("cuda")
+def _(x, weights, num_heads):
+    return fused_spatial_stack_cuda(x, weights, num_heads)
+
+
+@fused_spatial_stack_op.register_fake
+def _(x, weights, num_heads):
+    check_stack(x, weights, num_heads)
+    return torch.empty_like(x)
+
+
 class FusedSpatialStack(torch.autograd.Function):
     """Kernel forward and kernel backward (CUDA), or the plain forward and
     autograd of it (CPU), as the JAX package's custom VJP. ``keep``: a
     gradient will be asked for, so the kernel forward keeps the residuals
-    the backward takes."""
+    the backward takes; without it the forward is
+    ``pv2c::fused_spatial_stack``."""
 
     @staticmethod
     def forward(ctx, x, num_heads, keep, *weights):
         ctx.num_heads = num_heads
-        if x.device.type == "cuda":
-            if not keep:
-                return fused_spatial_stack_cuda(x, weights, num_heads)
+        if keep and x.device.type == "cuda":
             out, saved = fused_spatial_stack_cuda(x, weights, num_heads,
                                                   keep=True)
             ctx.save_for_backward(x, *weights, *saved)
             return out
-        if x.device.type != "cpu":
-            raise ValueError(f"fused_spatial_stack runs on cuda or cpu, not "
-                             f"{x.device}")
-        check_stack(x, weights, num_heads)
-        ctx.save_for_backward(x, *weights)
-        return spatial_stack_reference(x, weights, num_heads)
+        if keep:
+            ctx.save_for_backward(x, *weights)
+        return fused_spatial_stack_op(x, list(weights), num_heads)
 
     @staticmethod
     def backward(ctx, g):

@@ -29,7 +29,8 @@ shared memory per call, mirrored here (``check_limits``).
 
 The wrappers launch the kernels for CUDA tensors and run the plain version
 (and autograd of it) for CPU tensors; there is no fallback from one to the
-other.
+other. The serving forward is the ``torch.library`` op
+``pv2c::fused_temporal_block``, one node of an exported program.
 
 The weights of a block are the 12-tuple ``BLOCK_WEIGHTS`` of
 ``ops/transformer.py`` in nn.Linear layout, qkv rows in [q; k; v] x (head,
@@ -264,27 +265,45 @@ def fused_temporal_block_cuda_bwd(x: torch.Tensor,
 fused_temporal_block_cuda_bwd.launches = 0
 
 
+@torch.library.custom_op("pv2c::fused_temporal_block", mutates_args=(),
+                         device_types="cpu")
+def fused_temporal_block_op(x: torch.Tensor, weights: List[torch.Tensor],
+                            num_heads: int) -> torch.Tensor:
+    """Rows 6 and 8's serving entry as a ``torch.library`` op (one node of
+    an exported graph): ``fused_temporal_block_cuda`` on the card, the
+    plain version on the CPU."""
+    check_block(x, weights, num_heads)
+    return temporal_block_reference(x, weights, num_heads)
+
+
+@fused_temporal_block_op.register_kernel("cuda")
+def _(x, weights, num_heads):
+    return fused_temporal_block_cuda(x, weights, num_heads)
+
+
+@fused_temporal_block_op.register_fake
+def _(x, weights, num_heads):
+    check_block(x, weights, num_heads)
+    return torch.empty_like(x)
+
+
 class FusedTemporalBlock(torch.autograd.Function):
     """Kernel forward and kernel backward (CUDA), or the plain forward and
     autograd of it (CPU), as the JAX package's custom VJP. ``keep``: a
-    gradient will be asked for, so the kernel forward keeps its scratch."""
+    gradient will be asked for, so the kernel forward keeps its scratch;
+    without it the forward is ``pv2c::fused_temporal_block``."""
 
     @staticmethod
     def forward(ctx, x, num_heads, keep, *weights):
         ctx.num_heads = num_heads
-        if x.device.type == "cuda":
-            if not keep:
-                return fused_temporal_block_cuda(x, weights, num_heads)
+        if keep and x.device.type == "cuda":
             out, saved = fused_temporal_block_cuda(x, weights, num_heads,
                                                    keep=True)
             ctx.save_for_backward(x, *weights, *saved)
             return out
-        if x.device.type != "cpu":
-            raise ValueError(f"fused_temporal_block runs on cuda or cpu, not "
-                             f"{x.device}")
-        check_block(x, weights, num_heads)
-        ctx.save_for_backward(x, *weights)
-        return temporal_block_reference(x, weights, num_heads)
+        if keep:
+            ctx.save_for_backward(x, *weights)
+        return fused_temporal_block_op(x, list(weights), num_heads)
 
     @staticmethod
     def backward(ctx, g):

@@ -21,7 +21,7 @@ import os
 import time
 import warnings
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -58,6 +58,18 @@ def _to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, float]:
     values = torch.stack([v.detach().float().reshape(())
                           for v in tensors.values()]).tolist()
     return dict(zip(tensors, values))
+
+
+def _host_tree(tree):
+    """A dict (or sequence) of tensors -> the same of numpy arrays on the
+    host; other leaves, ``None`` among them, as they are."""
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_host_tree(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree
 
 
 def _flatten_metrics(computed: Dict[str, Any], stage: str) -> Dict[str, Any]:
@@ -272,6 +284,19 @@ class Trainer:
         results = self.evaluate("test", self.config.limit_test_batches)
         self.logger.log_scalars(-1, results)
         return results
+
+    def predict(self, set_name: str = "test") -> List[Tuple[Any, Any, Any]]:
+        """The flow's eval step over ``dm.predict_batches(set_name)``: one
+        ``(preds, targets, meta)`` of host numpy arrays per batch (a
+        prediction the flow leaves out stays ``None``), as the JAX
+        package's ``Trainer.predict`` gives them."""
+        self._init_state()
+        outputs = []
+        for batch in self.dm.predict_batches(set_name):
+            _, preds, targets = self.flow.eval_step(self.state.params, batch)
+            outputs.append(tuple(_host_tree(t)
+                                 for t in (preds, targets, batch[2])))
+        return outputs
 
     def restore(self, path: str, weights_only: bool = False) -> None:
         """Load a checkpoint into the trainer's state; ``weights_only``

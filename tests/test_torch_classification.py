@@ -712,7 +712,7 @@ def test_cli_trains_a_classifier_on_the_cpu(tmp_path, flags):
 
 @pytest.mark.parametrize("flag", ["--data_module_name=CarlaRecorded",
                                   "--data_module_name=AMASS",
-                                  "--mode=predict"])
+                                  "--data_module_name=MPII"])
 def test_cli_names_what_is_not_ported(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         modeling.main(["--flow=classification", flag, "--device=cpu",

@@ -271,7 +271,8 @@ def test_gru_autograd_keeps_residuals_only_for_a_gradient(monkeypatch):
     when a gradient will be asked for (the training forward); eval and
     ``torch.no_grad`` take the plain forward. Shown on CPU tensors with the
     kernel route forced and the CUDA entries swapped for their plain
-    versions."""
+    versions (the serving forward is the ``pv2c`` op, whose CUDA kernel is
+    the entry without ``keep``)."""
     calls = []
 
     def fwd(xg, cheb, wzr, wh, keep=False):
@@ -281,6 +282,7 @@ def test_gru_autograd_keeps_residuals_only_for_a_gradient(monkeypatch):
         return G.graph_gru_scan_reference(xg, cheb, wzr, wh)
     monkeypatch.setattr(G, "_check_device", lambda name, t: True)
     monkeypatch.setattr(G, "graph_gru_scan_cuda_fwd", fwd)
+    monkeypatch.setattr(G, "graph_gru_scan_fwd_op", fwd)
     monkeypatch.setattr(G, "graph_gru_scan_cuda_bwd",
                         G.graph_gru_scan_bwd_reference)
     xg, (wzr, wh), (dys,) = _inputs("gru", "k2")
@@ -392,7 +394,9 @@ def test_lstm_autograd_routes_and_keeps_gates_only_for_a_gradient(
     takes the shape, and k = 2, and k = 1 where the plan refuses the width,
     the graph-form entries. Either route keeps its residuals only when a
     gradient will be asked for, and its gradient is that of the plain scan;
-    a stacked weight's transpose reaches the dense entry uncopied."""
+    a stacked weight's transpose reaches the dense entry uncopied. The
+    serving forwards are the ``pv2c`` ops, whose CUDA kernels are the
+    entries without ``keep``."""
     calls = []
 
     def dense_fwd(xg, w, keep=False):
@@ -412,6 +416,8 @@ def test_lstm_autograd_routes_and_keeps_gates_only_for_a_gradient(
     monkeypatch.setattr(G, "dense_lstm_scan_cuda_bwd",
                         G.dense_lstm_scan_bwd_reference)
     monkeypatch.setattr(G, "graph_lstm_scan_cuda_fwd", graph_fwd)
+    monkeypatch.setattr(G, "dense_lstm_scan_fwd_op", dense_fwd)
+    monkeypatch.setattr(G, "graph_lstm_scan_fwd_op", graph_fwd)
     monkeypatch.setattr(G, "graph_lstm_scan_cuda_bwd",
                         G.graph_lstm_scan_bwd_reference)
 

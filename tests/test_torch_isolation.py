@@ -107,6 +107,35 @@ def test_port_has_the_openpose_slice():
             REPO, "pedestrians_video_2_carla_tpu", path)), path
 
 
+def test_port_has_the_serving_slice():
+    """Serving export and the three prediction-chaining scripts: each
+    module at its JAX relative path, walked by the isolation checks, and
+    importable in a fresh process with pandas, h5py, PyYAML and matplotlib
+    blocked (they are imported only where subsets are written or read)."""
+    modules = _port_modules()
+    slice_ = ("serving", "classification_finetuning",
+              "separated_classification", "replacement_metric_flow")
+    for name in slice_:
+        assert f"pedestrians_video_2_carla_torch.{name}" in modules
+        assert os.path.exists(os.path.join(
+            REPO, "pedestrians_video_2_carla_tpu", f"{name}.py")), name
+    code = (
+        "import importlib, sys\n"
+        f"for name in {CPU_ONLY!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"for name in {slice_!r}:\n"
+        "    importlib.import_module('pedestrians_video_2_carla_torch.' + "
+        "name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('IMPORTED')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "IMPORTED" in proc.stdout
+
+
 #: what the card's machine lacks; the port imports them only where it reads
 #: or writes the data that needs them
 CPU_ONLY = ("pandas", "h5py", "yaml", "matplotlib")
