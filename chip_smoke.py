@@ -388,10 +388,54 @@ and served at full width, with the seconds of its export:
                      from its checkpoint, for config 1 (LinearAE, "fused")
                      and GConvGRU: finite predictions, an artifact that
                      loads and serves what the closure does.
+Between group_poseformer and group_classification, group_bf16 (bf16 mixed
+precision: rows 4, 5, 8 and 9 in bf16, BASELINE config 5 with
+precision="bf16"):
+ 37. kernel_bf16 -- the bf16 kernels against their bf16 plain versions
+                     (which round where the kernels round) on the card:
+                     row 4 at B=256 and 1024 (L=16), row 8 at B=256 and
+                     1024 (rf 9) and at rf 81 (B=64), their training
+                     forwards' kept scratch, rows 5 and 9 at B=1024 from
+                     those residuals (dx and every weight gradient): each
+                     within 2e-2 of max |plain| (of its own largest for a
+                     gradient), the same bits twice; the bf16 forwards
+                     within 5e-2 of max |fp32| of the fp32 kernels on the
+                     same values; the bf16 GEMM's shared memory against
+                     the wrapper's copy.
+ 38. serve_poseformer_bf16 -- config 5 in bf16 (seed 22742), 8 requests at
+                     B=256 through make_inference_fn: 1 bf16 row-4 and 4
+                     bf16 row-8 launches a request and no other, float32
+                     outputs within 5e-2 of max |fp32| of the fp32 flow on
+                     the same weights; request time beside fp32's, host
+                     clock, 20 alternating pairs.
+ 39. serve_artifact_poseformer_bf16 -- the bf16 flow exported on the card
+                     (the casts inside the program, float32 in and out): 2
+                     requests with the same launches, the closure's bits;
+                     the request against the closure in pairs.
+ 40. train_poseformer_bf16 -- Trainer.fit of the bf16 flow, 10 steps and 2
+                     validation batches at B=1024, L=16: per step 1 + 4
+                     bf16 forward and 1 + 4 bf16 backward launches, finite
+                     losses that fall, float32 params and AdamW state; the
+                     step beside fp32's in 10 alternating pairs, and both
+                     steps' CUDA-event splits.
+ 41. timing_bf16 -- rows 4 and 8 at B=256, 5 and 9 at B=1024 in bf16:
+                     kernel (cold L2), bf16 plain version, bf16
+                     TransformerEncoderLayer yardstick and the kernel
+                     against it in 10 alternating pairs, row 9's launch
+                     split; bounds at bf16's dense 989 TFLOP/s against each
+                     tensor's bytes at its element size (row 5 also at the
+                     fp32 peak of the CUDA cores it runs on).
+ 42. coverage_bf16 -- 3 bf16 steps of config 4 (VideoPose3D, B=64, L=81;
+                     running statistics float32 and moved) and config 2 on
+                     rnn_kernel="auto" (the loop): finite losses, no
+                     kernel launched; rows 10-13 each refusing a bf16 CUDA
+                     tensor with a TypeError naming ROADMAP M5b step 4.
 Then the card line, the kernels line (config 2's, the train-options
 phase's, group_openpose's and group_serving's launches beside the dense
-LSTM, projection-training, graph-GRU and the other forward entries), and
-the contract line last. Any failure raises and ends the run with a
+LSTM, projection-training, graph-GRU and the other forward entries; the
+four bf16 rows as entries of their own, row4_bf16 ... row9_bf16, their
+launches those of the bf16 path of phases 38-40), and the contract line
+last. Any failure raises and ends the run with a
 non-zero exit.
 """
 import ctypes
@@ -465,7 +509,7 @@ SPLIT_PHASES = {
               True: ("stage", "ln1", "qkv", "attention", "proj", "ln2",
                      "fc1", "gelu_h", "fc2", "xs")}}
 _SPLIT_SECTION = (
-    "template <int HD>\n__device__ void block_fwd(",
+    "__device__ void block_fwd(",
     "// ---------------------------------------------------------------------------\n// Backward")
 _SPLIT_TOP = "  extern __shared__ __align__(16) float smem[];\n"
 _SPLIT_HELPERS = """
@@ -693,8 +737,10 @@ def forward_gemm_sass(library):
     built SASS."""
     log = library.with_suffix(".log").read_text()
     entries = re.findall(r"Compiling entry function '(\w+)'", log)
-    fwd = [e for e in entries if "gemm_fwd_kernel" in e]
-    if len(fwd) != 3 or any("gemm_kernel" in e for e in entries):
+    # the fp32 GEMM's three epilogues, and the bf16 GEMM's
+    fwd = [e for e in entries if "gemm_fwd_kernel" in e
+           or "gemm_fwd_bf16_kernel" in e]
+    if len(fwd) != 6 or any("gemm_kernel" in e for e in entries):
         raise AssertionError(f"temporal library entries: {entries}")
     from pedestrians_video_2_carla_torch.ops import cuda_build
     tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
@@ -710,7 +756,7 @@ def forward_gemm_sass(library):
             hmma[current] = hmma.get(current, 0) + 1
     if sorted(hmma) != sorted(fwd):
         raise AssertionError(f"forward GEMM entries without HMMA: {hmma}")
-    return {"gemm_fwd_entries": len(fwd),
+    return {"gemm_fwd_entries_fp32_and_bf16": len(fwd),
             "hmma_per_entry": sorted(hmma.values())}
 
 
@@ -748,6 +794,23 @@ def expected_counts(**launched):
 def reset_kernel_counts():
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "bf16_launches"):
+            fn.bf16_launches = 0
+
+
+#: the wrappers whose kernels also run bf16 (rows 4, 8, 5, 9), by the name
+#: of their bf16 entry on the kernels line
+BF16_ROWS = {"row4_bf16": "fused_spatial_stack",
+             "row8_bf16": "fused_temporal_block",
+             "row5_bf16": "fused_spatial_stack_bwd",
+             "row9_bf16": "fused_temporal_block_bwd"}
+
+
+def bf16_counts():
+    """The bf16 launches of rows 4, 8, 5 and 9 (a part of each wrapper's
+    ``launches``)."""
+    fns = kernel_wrappers()
+    return {row: fns[name].bf16_launches for row, name in BF16_ROWS.items()}
 
 
 def random_rotations(rng, shape):
@@ -1547,8 +1610,8 @@ def phase_kernel_temporal():
     from pedestrians_video_2_carla_torch.ops import \
         fused_temporal_transformer as FT
 
-    smem = (FT._library().pv2c_temporal_fwd_gemm_smem_bytes(),
-            FT.forward_gemm_smem_bytes())
+    smem = (FT._library().pv2c_temporal_fwd_gemm_smem_bytes(4),
+            FT.forward_gemm_smem_bytes(4))
     emit({"phase": "kernel_temporal", "forward_gemm": FT.FORWARD_GEMM,
           "smem_bytes_library_vs_wrapper": smem})
     if smem[0] != smem[1]:
@@ -2351,7 +2414,7 @@ def phase_kernel_temporal_bwd():
     return worst
 
 
-def make_pf_train_flow():
+def make_pf_train_flow(precision="32"):
     from pedestrians_video_2_carla_torch.flows.pose_lifting import \
         PoseLiftingFlow
     from pedestrians_video_2_carla_torch.models.base import OptimizerSettings
@@ -2361,7 +2424,8 @@ def make_pf_train_flow():
     model = PoseFormer(clip_length=CLIP,
                        generator=torch.Generator().manual_seed(SEED))
     return PoseLiftingFlow(model, loss_modes=["loc_2d_3d"],
-                           movements_optimizer=OptimizerSettings(lr=LR))
+                           movements_optimizer=OptimizerSettings(lr=LR),
+                           precision=precision)
 
 
 def phase_train_poseformer(dm):
@@ -2451,8 +2515,66 @@ def phase_train_poseformer(dm):
     return counts
 
 
-def phase_timing_poseformer_train(dm, card, hbm_rate):
+def train_step_split(flow, state, batch, runs=PF_TIMING_RUNS):
+    """A CUDA-event split of a PoseFormer step: the body of
+    BaseFlow.training_step with events between its parts, and around the
+    stages' autograd backward; medians of ``runs``."""
     from pedestrians_video_2_carla_torch.losses import primary_loss
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_spatial_transformer as FS
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_temporal_transformer as FT
+
+    marks = {"spatial": [], "temporal": []}
+
+    def timed(name, fn):
+        def run(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            marks[name].append((start, end))
+            return out
+        return run
+    classes = (FS.FusedSpatialStack, FT.FusedTemporalBlock)
+    saved_fns = [cls.backward for cls in classes]
+    for cls, name, fn in zip(classes, ("spatial", "temporal"), saved_fns):
+        cls.backward = staticmethod(timed(name, fn))
+    splits = []
+    try:
+        for _ in range(runs):
+            for v in marks.values():
+                v.clear()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            sliced = flow._inner_step(state.params, batch, training=True)
+            losses = flow._compute_losses(sliced, sliced["targets"])
+            _, primary = primary_loss(losses, flow.requested_loss_modes)
+            ev[1].record()
+            state.optimizer.zero_grad(set_to_none=True)
+            primary.backward()
+            ev[2].record()
+            state.optimizer.step()
+            ev[3].record()
+            ev[3].synchronize()
+            sp = sum(a.elapsed_time(b) for a, b in marks["spatial"])
+            tp = sum(a.elapsed_time(b) for a, b in marks["temporal"])
+            total = ev[0].elapsed_time(ev[3])
+            fwd = ev[0].elapsed_time(ev[1])
+            splits.append((total, fwd, sp, tp, total - fwd - sp - tp,
+                           ev[1].elapsed_time(ev[2]) - sp - tp,
+                           ev[2].elapsed_time(ev[3])))
+    finally:
+        for cls, fn in zip(classes, saved_fns):
+            cls.backward = staticmethod(fn)
+    return dict(zip(("step_ms", "forward_ms", "spatial_backward_ms",
+                     "temporal_backward_ms", "rest_ms",
+                     "rest_of_backward_ms", "adamw_ms"),
+                    (statistics.median(c) for c in zip(*splits))))
+
+
+def phase_timing_poseformer_train(dm, card, hbm_rate):
     from pedestrians_video_2_carla_torch.ops import flops as F
     from pedestrians_video_2_carla_torch.ops import \
         fused_spatial_transformer as FS
@@ -2565,55 +2687,7 @@ def phase_timing_poseformer_train(dm, card, hbm_rate):
     step_ms = host_median_ms(lambda: flow.training_step(state, batch),
                              runs=PF_TIMING_RUNS)
 
-    # a CUDA-event split of a step: the body of BaseFlow.training_step with
-    # events between its parts, and around the stages' autograd backward
-    marks = {"spatial": [], "temporal": []}
-
-    def timed(name, fn):
-        def run(*args):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args)
-            end.record()
-            marks[name].append((start, end))
-            return out
-        return run
-    classes = (FS.FusedSpatialStack, FT.FusedTemporalBlock)
-    saved_fns = [cls.backward for cls in classes]
-    for cls, name, fn in zip(classes, ("spatial", "temporal"), saved_fns):
-        cls.backward = staticmethod(timed(name, fn))
-    splits = []
-    try:
-        for _ in range(PF_TIMING_RUNS):
-            for v in marks.values():
-                v.clear()
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-            ev[0].record()
-            sliced = flow._inner_step(state.params, batch, training=True)
-            losses = flow._compute_losses(sliced, sliced["targets"])
-            _, primary = primary_loss(losses, flow.requested_loss_modes)
-            ev[1].record()
-            state.optimizer.zero_grad(set_to_none=True)
-            primary.backward()
-            ev[2].record()
-            state.optimizer.step()
-            ev[3].record()
-            ev[3].synchronize()
-            sp = sum(a.elapsed_time(b) for a, b in marks["spatial"])
-            tp = sum(a.elapsed_time(b) for a, b in marks["temporal"])
-            total = ev[0].elapsed_time(ev[3])
-            fwd = ev[0].elapsed_time(ev[1])
-            splits.append((total, fwd, sp, tp, total - fwd - sp - tp,
-                           ev[1].elapsed_time(ev[2]) - sp - tp,
-                           ev[2].elapsed_time(ev[3])))
-    finally:
-        for cls, fn in zip(classes, saved_fns):
-            cls.backward = staticmethod(fn)
-    split = dict(zip(("step_ms", "forward_ms", "spatial_backward_ms",
-                      "temporal_backward_ms", "rest_ms",
-                      "rest_of_backward_ms", "adamw_ms"),
-                     (statistics.median(c) for c in zip(*splits))))
+    split = train_step_split(flow, state, batch)
     emit({"phase": "timing_poseformer_train", "card": card, "B": B, "L": L,
           "backward_kernels": times, "kernel_vs_library_pairs": pairs,
           "spatial_forward_keep": keep,
@@ -3746,7 +3820,7 @@ def phase_profile_classification_train(dm, card):
           "row11_dw_share": share(ROW11_DW_KERNELS)})
 
 
-def make_ae_flow(kernel):
+def make_ae_flow(kernel, precision="32"):
     """BASELINE config 2's flow with the encoder on ``kernel``'s route."""
     from pedestrians_video_2_carla_torch.flows.autoencoder import \
         AutoencoderFlow
@@ -3765,7 +3839,7 @@ def make_ae_flow(kernel):
         raise AssertionError("Seq2SeqEmbeddings' defaults changed")
     return AutoencoderFlow(model, loss_modes=["loc_2d"],
                            movements_optimizer=OptimizerSettings(lr=LR),
-                           seed=SEED)
+                           seed=SEED, precision=precision)
 
 
 def phase_serve_autoencoder(batches):
@@ -4283,7 +4357,7 @@ def group_autoencoder(card, hbm_rate):
                     "fused_projection_train_bwd"]}}
 
 
-def make_vp_flow(device=None, dtype=torch.float32):
+def make_vp_flow(device=None, dtype=torch.float32, precision="32"):
     """BASELINE config 4's flow: VideoPose3D (filter widths (3, 3, 3, 3),
     1024 channels, dropout 0.25; seeded init) in PoseLiftingFlow with
     loc_2d."""
@@ -4299,7 +4373,7 @@ def make_vp_flow(device=None, dtype=torch.float32):
         raise AssertionError("VideoPose3D's defaults changed")
     return PoseLiftingFlow(model.to(dtype), loss_modes=["loc_2d"],
                            movements_optimizer=OptimizerSettings(lr=LR),
-                           seed=SEED, device=device)
+                           seed=SEED, device=device, precision=precision)
 
 
 def vp_params(flow):
@@ -5235,6 +5309,550 @@ def group_serving(card, hbm_rate):
             for name, n in through.items() if n}
 
 
+# -- bf16: config 5 and rows 4, 5, 8, 9 in bf16 --------------------------------
+
+#: the bf16 kernels against their bf16 plain versions (which round where
+#: the kernels round, and then differ by the order of fp32 sums and the
+#: bf16 roundings that order moves): outputs and dx within BF16_BAR of max
+#: |plain|, each weight gradient within it of its own largest; the bf16
+#: kernels against the fp32 kernels on the same (bf16) values within
+#: BF16_VS_FP32 of max |fp32|, the JAX bf16 kernel tests' bar
+#: (tests/ops/test_pallas_spatial.py:103-111)
+BF16_BAR, BF16_VS_FP32 = 2e-2, 5e-2
+#: bf16's dense tensor-core rate on an H100 SXM (NVIDIA's data sheet)
+BF16_PEAK = 989e12
+BF16_COVERAGE_STEPS = 3
+BF16_EXPORT_REQUESTS = 2
+
+
+def to_bf16(tensors):
+    return [t.to(torch.bfloat16).contiguous() for t in tensors]
+
+
+def bf16_randn(rng, shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+
+
+def bf16_check(report, worst, row, what, got, ref, again=None,
+               bar=BF16_BAR):
+    """got against ref over max |ref| (both as float32), finite, and the
+    same bits as ``again``; records into ``report`` and ``worst``."""
+    err, scaled = bar_err(got.float(), ref.float())
+    same = again is None or torch.equal(got, again)
+    finite = bool(torch.isfinite(got.float()).all())
+    report[f"{row} {what}"] = {"max_abs_err_over_max_abs_ref": scaled,
+                               "same_bits_twice": same}
+    if not (scaled <= bar and same and finite):
+        raise AssertionError(f"{row} {what}: {scaled} of max |ref| (bar "
+                             f"{bar}), same bits {same}, finite {finite}")
+    worst[row] = max(worst.get(row, 0.0), err)
+
+
+def phase_kernel_bf16():
+    """Rows 4, 5, 8 and 9 in bf16 at the main path's shapes against their
+    bf16 plain versions: outputs, dx and every weight gradient, the
+    training forwards' kept scratch, the same bits twice; the bf16 forwards
+    against the fp32 kernels on the same values. -> the largest absolute
+    error of each row."""
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_spatial_transformer as FS
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_temporal_transformer as FT
+
+    smem = (FT._library().pv2c_temporal_fwd_gemm_smem_bytes(2),
+            FT.forward_gemm_smem_bytes(2))
+    if smem[0] != smem[1]:
+        raise AssertionError(f"bf16 forward GEMM shared memory: library vs "
+                             f"wrapper {smem}")
+    rng = np.random.default_rng(SEED + 40)
+    ws = to_bf16(random_spatial_weights(rng))
+    wt = to_bf16(random_block_weights(rng, PF_DIM))
+    report, worst = {}, {}
+    with torch.no_grad():
+        # row 4: serving (B=256, L=16) and the training forward (B=1024)
+        for n in (PF_BATCH * CLIP, BATCH * CLIP):
+            x = bf16_randn(rng, (n, PF_JOINTS, PF_EMB))
+            out = FS.fused_spatial_stack_cuda(x, ws, PF_HEADS)
+            again = FS.fused_spatial_stack_cuda(x, ws, PF_HEADS)
+            bf16_check(report, worst, "row4_bf16", f"N={n}", out,
+                       FS.spatial_stack_reference(x, ws, PF_HEADS), again)
+            out32 = FS.fused_spatial_stack_cuda(
+                x.float(), [w.float() for w in ws], PF_HEADS)
+            bf16_check(report, worst, "row4_bf16", f"N={n} vs fp32 kernel",
+                       out, out32, bar=BF16_VS_FP32)
+            keep, _ = FS.fused_spatial_stack_cuda(x, ws, PF_HEADS, keep=True)
+            if not torch.equal(keep, out):
+                raise AssertionError("row 4 bf16: the training forward's "
+                                     "output differs from serving's")
+        # row 8: B=256 and B=1024 (8 windows a clip), and rf 81 (B=64)
+        for n, T in ((PF_BATCH * (CLIP - PF_RF + 1), PF_RF),
+                     (BATCH * (CLIP - PF_RF + 1), PF_RF), (RF81_BATCH, 81)):
+            x = bf16_randn(rng, (n, T, PF_DIM))
+            out = FT.fused_temporal_block_cuda(x, wt, PF_HEADS)
+            again = FT.fused_temporal_block_cuda(x, wt, PF_HEADS)
+            bf16_check(report, worst, "row8_bf16", f"N={n} T={T}", out,
+                       FT.temporal_block_reference(x, wt, PF_HEADS), again)
+            out32 = FT.fused_temporal_block_cuda(
+                x.float(), [w.float() for w in wt], PF_HEADS)
+            bf16_check(report, worst, "row8_bf16",
+                       f"N={n} T={T} vs fp32 kernel", out, out32,
+                       bar=BF16_VS_FP32)
+            out_k, saved = FT.fused_temporal_block_cuda(x, wt, PF_HEADS,
+                                                        keep=True)
+            ref_k, ref_saved = FT.temporal_block_keep_reference(x, wt,
+                                                                PF_HEADS)
+            for name, got, want in zip(("out",) + FT_SAVED, (out_k, *saved),
+                                       (ref_k, *ref_saved)):
+                bf16_check(report, worst, "row8_bf16",
+                           f"N={n} T={T} keep {name}", got, want)
+    # rows 5 and 9 at B=1024, L=16, from their training forwards' residuals
+    x = bf16_randn(rng, (BATCH * CLIP, PF_JOINTS, PF_EMB))
+    g = bf16_randn(rng, tuple(x.shape))
+    with torch.no_grad():
+        _, saved = FS.fused_spatial_stack_cuda(x, ws, PF_HEADS, keep=True)
+        dx, dws = FS.fused_spatial_stack_cuda_bwd(x, ws, saved, g, PF_HEADS)
+        dx2, dws2 = FS.fused_spatial_stack_cuda_bwd(x, ws, saved, g,
+                                                    PF_HEADS)
+    ref = plain_grads(lambda t: FS.spatial_stack_reference(
+        t[0], t[1:], PF_HEADS), [x, *ws], g)
+    for i, (a, b, r) in enumerate(zip((dx, *dws), (dx2, *dws2), ref)):
+        bf16_check(report, worst, "row5_bf16", SPATIAL_NAMES[i], a, r, b)
+    del saved, ref
+    x = bf16_randn(rng, (BATCH * (CLIP - PF_RF + 1), PF_RF, PF_DIM))
+    g = bf16_randn(rng, tuple(x.shape))
+    with torch.no_grad():
+        _, saved = FT.fused_temporal_block_cuda(x, wt, PF_HEADS, keep=True)
+        dx, dws = FT.fused_temporal_block_cuda_bwd(x, wt, saved, g, PF_HEADS)
+        dx2, dws2 = FT.fused_temporal_block_cuda_bwd(x, wt, saved, g,
+                                                     PF_HEADS)
+    ref = plain_grads(lambda t: FT.temporal_block_reference(
+        t[0], t[1:], PF_HEADS), [x, *wt], g)
+    for i, (a, b, r) in enumerate(zip((dx, *dws), (dx2, *dws2), ref)):
+        bf16_check(report, worst, "row9_bf16", SPATIAL_NAMES[i], a, r, b)
+    del saved, ref
+    torch.cuda.synchronize()
+    emit({"phase": "kernel_bf16", "bar": BF16_BAR,
+          "bar_vs_fp32_kernel": BF16_VS_FP32, "checks": report,
+          "worst_scaled": {row: max(v["max_abs_err_over_max_abs_ref"]
+                                    for k, v in report.items()
+                                    if k.startswith(row))
+                           for row in BF16_ROWS},
+          "smem_bytes_bf16_forward_gemm": smem})
+    return worst
+
+
+def phase_timing_bf16(card, hbm_rate):
+    """Rows 4, 5, 8 and 9 in bf16 at the main path's shapes: the kernel
+    (cold L2), its bf16 plain version, the bf16 TransformerEncoderLayer
+    yardstick and the kernel against it in alternating pairs; bounds at
+    bf16's dense tensor-core rate against each tensor's bytes."""
+    from pedestrians_video_2_carla_torch.ops import flops as F
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_spatial_transformer as FS
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_temporal_transformer as FT
+
+    rng = np.random.default_rng(SEED + 41)
+    ws = to_bf16(random_spatial_weights(rng))
+    wt = to_bf16(random_block_weights(rng, PF_DIM))
+    spatial_lib = spatial_encoder_stack(ws).to(torch.bfloat16)
+    temporal_lib = encoder_layer(PF_DIM, wt).to(torch.bfloat16)
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+
+    def flush_l2():  # 256 MB write: far more than the 50 MB L2
+        scratch.zero_()
+
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    def graph(fn, inputs):
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        return fn(leaves), leaves
+
+    def backward_of(out_leaves, g):
+        out, leaves = out_leaves
+        return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+    times = {}
+    xs = bf16_randn(rng, (PF_BATCH * CLIP, PF_JOINTS, PF_EMB))
+    xt = bf16_randn(rng, (PF_BATCH * (CLIP - PF_RF + 1), PF_RF, PF_DIM))
+    with torch.no_grad():
+        for name, lib, plain in (
+                ("row4_bf16", spatial_lib(xs),
+                 FS.spatial_stack_reference(xs, ws, PF_HEADS)),
+                ("row8_bf16", temporal_lib(xt),
+                 FT.temporal_block_reference(xt, wt, PF_HEADS))):
+            scaled = bar_err(lib.float(), plain.float())[1]
+            if scaled > BF16_VS_FP32:
+                raise AssertionError(f"{name}: the bf16 yardstick vs the "
+                                     f"plain version {scaled}")
+        dense_s, attn_s = spatial_flops(xs.shape[0], F)
+        forwards = {
+            "row4_bf16": (lambda: FS.fused_spatial_stack_cuda(xs, ws,
+                                                              PF_HEADS),
+                          lambda: FS.spatial_stack_reference(xs, ws,
+                                                             PF_HEADS),
+                          lambda: spatial_lib(xs),
+                          2 * nbytes(xs) + nbytes(*ws), dense_s + attn_s),
+            "row8_bf16": (lambda: FT.fused_temporal_block_cuda(xt, wt,
+                                                               PF_HEADS),
+                          lambda: FT.temporal_block_reference(xt, wt,
+                                                              PF_HEADS),
+                          lambda: temporal_lib(xt),
+                          2 * nbytes(xt) + nbytes(*wt),
+                          F.transformer_block_matmul_flops(
+                              xt.shape[0] * PF_RF, PF_DIM, 2.0, PF_RF))}
+        for name, (kernel, plain, lib, nb, nflop) in forwards.items():
+            times[name] = {"ms": cuda_median_ms(kernel, flush=flush_l2),
+                           "ms_warm_l2": cuda_median_ms(kernel),
+                           "plain_ms": cuda_median_ms(plain),
+                           "library_ms": cuda_median_ms(lib),
+                           "paired_with_library": paired_ms(kernel, lib,
+                                                            flush_l2),
+                           "bytes": nb, "flop": nflop}
+        del forwards
+    # the backwards at B=1024, L=16, from their training forwards' residuals
+    xs = bf16_randn(rng, (BATCH * CLIP, PF_JOINTS, PF_EMB))
+    xt = bf16_randn(rng, (BATCH * (CLIP - PF_RF + 1), PF_RF, PF_DIM))
+    gs, gt = bf16_randn(rng, tuple(xs.shape)), bf16_randn(rng, tuple(xt.shape))
+    with torch.no_grad():
+        _, saved_s = FS.fused_spatial_stack_cuda(xs, ws, PF_HEADS, keep=True)
+        _, saved_t = FT.fused_temporal_block_cuda(xt, wt, PF_HEADS, keep=True)
+    plain_s = graph(lambda t: FS.spatial_stack_reference(t[0], t[1:],
+                                                         PF_HEADS), [xs, *ws])
+    plain_t = graph(lambda t: FT.temporal_block_reference(t[0], t[1:],
+                                                          PF_HEADS), [xt, *wt])
+    lib_s = graph(lambda t: spatial_lib(t[0]), [xs])
+    lib_t = graph(lambda t: temporal_lib(t[0]), [xt])
+    lib_s = (lib_s[0], lib_s[1] + list(spatial_lib.parameters()))
+    lib_t = (lib_t[0], lib_t[1] + list(temporal_lib.parameters()))
+    backwards = {
+        "row5_bf16": (lambda: FS.fused_spatial_stack_cuda_bwd(
+            xs, ws, saved_s, gs, PF_HEADS), backward_of(plain_s, gs),
+            backward_of(lib_s, gs),
+            3 * nbytes(xs) + nbytes(*saved_s) + 2 * nbytes(*ws),
+            PF_DEPTH * F.transformer_block_backward_flops(
+                xs.shape[0] * PF_JOINTS, PF_EMB, 2.0, PF_JOINTS)),
+        "row9_bf16": (lambda: FT.fused_temporal_block_cuda_bwd(
+            xt, wt, saved_t, gt, PF_HEADS), backward_of(plain_t, gt),
+            backward_of(lib_t, gt),
+            3 * nbytes(xt) + nbytes(*saved_t) + 2 * nbytes(*wt),
+            F.transformer_block_backward_flops(xt.shape[0] * PF_RF, PF_DIM,
+                                               2.0, PF_RF))}
+    for name, (kernel, plain, lib, nb, nflop) in backwards.items():
+        times[name] = {"ms": cuda_median_ms(kernel, flush=flush_l2),
+                       "ms_warm_l2": cuda_median_ms(kernel),
+                       "plain_ms": cuda_median_ms(plain),
+                       "library_ms": cuda_median_ms(lib),
+                       "paired_with_library": paired_ms(kernel, lib,
+                                                        flush_l2),
+                       "bytes": nb, "flop": nflop}
+    times["row9_bf16"]["launch_split"] = launch_split(
+        backwards["row9_bf16"][0], ROW9_STEPS)
+    del backwards, plain_s, plain_t, lib_s, lib_t, saved_s, saved_t
+    for name, t in times.items():
+        t_bytes, t_flop = t["bytes"] / hbm_rate, t["flop"] / BF16_PEAK
+        t.update(bound_ms=max(t_bytes, t_flop) * 1e3,
+                 bound_by="bytes" if t_bytes >= t_flop else "operations")
+    # row 4's attention runs on the CUDA cores in fp32: its bound with
+    # that part at their peak, beside; row 5 runs all its products there,
+    # as the JAX kernel's backward does: its bound at that peak, beside
+    times["row4_bf16"].update(
+        dense_flop=dense_s, attention_flop=attn_s,
+        bound_ms_by_unit=max(times["row4_bf16"]["bytes"] / hbm_rate,
+                             dense_s / BF16_PEAK + attn_s / FP32_PEAK) * 1e3)
+    times["row5_bf16"]["bound_ms_fp32_cores"] = max(
+        times["row5_bf16"]["bytes"] / hbm_rate,
+        times["row5_bf16"]["flop"] / FP32_PEAK) * 1e3
+    emit({"phase": "timing_bf16", "card": card, "kernels": times,
+          "method": "bf16 kernels, their bf16 plain versions and bf16 "
+                    "TransformerEncoderLayer yardsticks (norm_first, GELU, "
+                    "dropout 0): CUDA events, median of %d single calls "
+                    "after 3 warm-up calls, cold = 256 MB scratch write "
+                    "before each call; pairs: kernel and library "
+                    "alternating, cold, %d each; bounds: ops/flops.py's "
+                    "FLOPs at %.0f TFLOP/s against each input read and "
+                    "each output written once at its element size"
+                    % (TIMING_RUNS, TIMING_PAIRS, BF16_PEAK / 1e12)})
+    return times
+
+
+def phase_config5_bf16(card):
+    """BASELINE config 5 in bf16 end to end on the card: serving at B=256
+    through the closure and an exported program, training at B=1024, L=16
+    through Trainer.fit; launches, outputs, losses, dtypes, and times in
+    alternating pairs with the fp32 flow. -> the bf16 launches of rows 4,
+    8, 5 and 9 on this path."""
+    from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
+        Carla2D3DDataModule
+    from pedestrians_video_2_carla_torch.flows.pose_lifting import \
+        PoseLiftingFlow
+    from pedestrians_video_2_carla_torch.models.movements.pose_former import \
+        PoseFormer
+    from pedestrians_video_2_carla_torch.serving import (
+        export_inference, load_inference, make_inference_fn)
+    from pedestrians_video_2_carla_torch.training.trainer import (
+        Trainer, TrainerConfig)
+
+    flows = {p: PoseLiftingFlow(
+        PoseFormer(clip_length=CLIP,
+                   generator=torch.Generator().manual_seed(SEED)),
+        loss_modes=["loc_2d_3d"], precision=p) for p in ("bf16", "32")}
+    params = flows["32"].init_params()
+    infer = {p: make_inference_fn(f, params) for p, f in flows.items()}
+    dm = Carla2D3DDataModule(batch_size=PF_BATCH, clip_length=CLIP,
+                             test_set_size=REQUESTS * PF_BATCH, seed=SEED)
+    batches = list(dm.test_batches())
+
+    # serving: the main path's counts from 0
+    reset_kernel_counts()
+    served = []
+    for i, (inputs, _, meta) in enumerate(batches):
+        served.append(infer["bf16"](inputs, meta["age_gender_idx"]))
+        b16 = bf16_counts()
+        if (b16["row4_bf16"], b16["row8_bf16"]) != (i + 1, PF_DEPTH * (i + 1)):
+            raise AssertionError(f"bf16 request {i}: launches {b16}")
+    torch.cuda.synchronize()
+    serve_counts, launches = kernel_counts(), bf16_counts()
+    if serve_counts != expected_counts(
+            fused_spatial_stack=len(batches),
+            fused_temporal_block=PF_DEPTH * len(batches)):
+        raise AssertionError(f"bf16 serving launched {serve_counts}")
+    worst = 0.0
+    for preds, (inputs, _, meta) in zip(served, batches):
+        ref = infer["32"](inputs, meta["age_gender_idx"])
+        for k, v in preds.items():
+            if v.dtype != torch.float32 or not torch.isfinite(v).all():
+                raise AssertionError(f"bf16 serving: {k} {v.dtype}, or not "
+                                     f"finite")
+        worst = max(worst, bar_err(preds["absolute_pose_loc"],
+                                   ref["absolute_pose_loc"])[1])
+    if worst > BF16_VS_FP32:
+        raise AssertionError(f"bf16 serving vs fp32: {worst} of max |fp32|")
+    inputs, _, meta = batches[0]
+    agi = meta["age_gender_idx"]
+    request_pairs = paired_host_ms(
+        {"bf16": lambda: infer["bf16"](inputs, agi),
+         "fp32": lambda: infer["32"](inputs, agi)})
+    emit({"phase": "serve_poseformer_bf16", "card": card, "B": PF_BATCH,
+          "L": CLIP, "requests": len(batches), "launches": serve_counts,
+          "bf16_launches": launches,
+          "absolute_pose_loc_vs_fp32_over_max": worst,
+          "request_ms_host_pairs": request_pairs})
+
+    # the exported bf16 program: the casts inside it, fp32 in and out
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = export_inference(flows["bf16"], params, inputs, agi,
+                                os.path.join(tmp, "pf_bf16.pt2"))
+        export_s = time.perf_counter() - t0
+        served_art, meta_json = load_inference(path)
+        program_ops_seen = program_ops(path)
+        reset_kernel_counts()
+        outs = [served_art(b[0], b[2]["age_gender_idx"])
+                for b in batches[:BF16_EXPORT_REQUESTS]]
+        torch.cuda.synchronize()
+        art = bf16_counts()
+        if (art["row4_bf16"], art["row8_bf16"]) != (
+                BF16_EXPORT_REQUESTS, PF_DEPTH * BF16_EXPORT_REQUESTS) or \
+                kernel_counts() != expected_counts(
+                    fused_spatial_stack=BF16_EXPORT_REQUESTS,
+                    fused_temporal_block=PF_DEPTH * BF16_EXPORT_REQUESTS):
+            raise AssertionError(f"the bf16 program launched {art}")
+        for k in launches:
+            launches[k] += art[k]
+        same = all(torch.equal(o[k], s[k]) for o, s in zip(outs, served)
+                   for k in s)
+        if not same or any(v.dtype != torch.float32 for o in outs
+                           for v in o.values()):
+            raise AssertionError("the bf16 program's outputs are not the "
+                                 "closure's bits in float32")
+        art_pairs = paired_host_ms(
+            {"artifact": lambda: served_art(inputs, agi),
+             "closure": lambda: infer["bf16"](inputs, agi)})
+        del served_art
+    emit({"phase": "serve_artifact_poseformer_bf16", "export_s": export_s,
+          "input_dtypes": meta_json["input_dtypes"], "ops": program_ops_seen,
+          "bf16_launches": art, "closure_bits": same,
+          "request_ms_host_pairs": art_pairs})
+    del served, outs, infer, batches, dm
+    torch.cuda.empty_cache()
+
+    # training at B=1024, L=16 through the Trainer
+    dm = Carla2D3DDataModule(batch_size=BATCH, clip_length=CLIP,
+                             val_set_size=VAL_BATCHES * BATCH, seed=SEED)
+    flow = make_pf_train_flow("bf16")
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(flow, dm, TrainerConfig(
+            max_epochs=1, limit_train_batches=PF_TRAIN_STEPS,
+            limit_val_batches=VAL_BATCHES, log_every_n_steps=1, seed=SEED,
+            logs_dir=tmp, run_name="pf_bf16"))
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        state = trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts, train = kernel_counts(), bf16_counts()
+        batches_run = PF_TRAIN_STEPS + VAL_BATCHES
+        expected = {"row4_bf16": batches_run,
+                    "row8_bf16": PF_DEPTH * batches_run,
+                    "row5_bf16": PF_TRAIN_STEPS,
+                    "row9_bf16": PF_DEPTH * PF_TRAIN_STEPS}
+        if train != expected or counts != expected_counts(
+                fused_spatial_stack=batches_run,
+                fused_temporal_block=PF_DEPTH * batches_run,
+                fused_spatial_stack_bwd=PF_TRAIN_STEPS,
+                fused_temporal_block_bwd=PF_DEPTH * PF_TRAIN_STEPS):
+            raise AssertionError(f"bf16 train launches {train} / {counts}, "
+                                 f"expected {expected}")
+        with open(os.path.join(tmp, "pf_bf16", "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        steps = [r["train_loss/primary"] for r in records
+                 if "lr-movements" in r]
+        val = records[-1]["val_loss/primary"]
+        if len(steps) != PF_TRAIN_STEPS or not np.isfinite(
+                steps + [val]).all() or not max(steps[-3:]) < steps[0]:
+            raise AssertionError(f"bf16 train losses {steps}, val {val}")
+        dtypes = {str(v.dtype) for tree in state.params.values()
+                  for v in tree.values()} | {
+            str(v.dtype) for st in state.optimizer.state.values()
+            for v in st.values() if torch.is_tensor(v) and v.numel() > 1}
+        if dtypes != {"torch.float32"}:
+            raise AssertionError(f"bf16 training state dtypes {dtypes}")
+        del trainer
+    for k in launches:
+        launches[k] += train[k]
+    # the step beside fp32's, host clock, alternating; and its split
+    batch = next(dm.train_batches(SEED + 7))
+    flow32 = make_pf_train_flow()
+    state32 = flow32.init_state(params)
+    state16 = flow.init_state(params)
+    step_pairs = paired_host_ms(
+        {"bf16": lambda: flow.training_step(state16, batch),
+         "fp32": lambda: flow32.training_step(state32, batch)},
+        pairs=TIMING_PAIRS)
+    split = train_step_split(flow, state16, batch)
+    split32 = train_step_split(flow32, state32, batch)
+    emit({"phase": "train_poseformer_bf16", "card": card, "B": BATCH,
+          "L": CLIP, "steps": PF_TRAIN_STEPS, "val_batches": VAL_BATCHES,
+          "launches": counts, "bf16_launches": train, "fit_seconds": fit_s,
+          "train_loss_primary": steps, "val_loss_primary": val,
+          "state_dtypes": sorted(dtypes),
+          "train_step_ms_host_pairs": step_pairs,
+          "train_step_split_cuda_events_bf16": split,
+          "train_step_split_cuda_events_fp32": split32,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches, {"request": request_pairs, "artifact": art_pairs,
+                      "step": step_pairs, "step_split": split}
+
+
+def phase_coverage_bf16():
+    """bf16 beyond config 5, a few steps each on the card: config 4
+    (VideoPose3D, B=64, L=81; no hand-written kernel on its path, its
+    products cuBLAS bf16), config 2 on rnn_kernel="auto" (the loop); and a
+    bf16 CUDA tensor at rows 10-13 raising TypeError (their bf16 form is
+    ROADMAP M5b step 4)."""
+    from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
+        Carla2D3DDataModule
+    from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
+
+    out = {}
+    cases = (("config4_videopose3d", lambda: make_vp_flow(
+                  precision="bf16"), VP_BATCH, VP_CLIP),
+             ("config2_auto", lambda: make_ae_flow("auto", "bf16"),
+              AE_BATCH, CLIP))
+    for name, make, B, L in cases:
+        flow = make()
+        dm = Carla2D3DDataModule(batch_size=B, clip_length=L, seed=SEED)
+        params = vp_params(flow) if name.startswith("config4") \
+            else flow.init_params()
+        state = flow.init_state(params)
+        stats = {k: v.clone() for k, v in state.params["movements"].items()
+                 if not v.requires_grad}
+        reset_kernel_counts()
+        stream = dm.train_batches(SEED)
+        losses = []
+        for _ in range(BF16_COVERAGE_STEPS):
+            _, logs = flow.training_step(state, next(stream))
+            losses.append(float(logs["train_loss/primary"]))
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        dtypes = {str(v.dtype) for v in state.params["movements"].values()}
+        moved = all(not torch.equal(state.params["movements"][k], v)
+                    for k, v in stats.items())
+        if not (np.isfinite(losses).all() and dtypes == {"torch.float32"}
+                and moved and not any(counts.values())):
+            raise AssertionError(f"bf16 {name}: losses {losses}, dtypes "
+                                 f"{dtypes}, statistics moved {moved}, "
+                                 f"launches {counts}")
+        out[name] = {"losses": losses, "running_statistics": len(stats),
+                     "statistics_moved": moved}
+        del flow, state, dm
+    # rows 10-13: a bf16 CUDA tensor raises, on every route
+    rng = np.random.default_rng(SEED + 42)
+    bf = torch.bfloat16
+    xg = bf16_randn(rng, (CLIP, 8, CLS_J, 3 * 16))
+    xl = bf16_randn(rng, (CLIP, 8, CLS_J, 4 * 16))
+    cheb = torch.from_numpy(FG.cheb_matrices(
+        np.eye(CLS_J, dtype=np.float32), 2)).cuda().to(bf)
+    w3 = bf16_randn(rng, (16, 2 * 2 * 16))
+    w1 = bf16_randn(rng, (16, 2 * 16))
+    w4 = bf16_randn(rng, (16, 2 * 4 * 16))
+    w4d = bf16_randn(rng, (16, 4 * 16))
+    refusals = {}
+    for name, call in (
+            ("graph_gru_scan", lambda: FG.graph_gru_scan(xg, cheb, w3, w1)),
+            ("graph_lstm_scan", lambda: FG.graph_lstm_scan(xl, cheb, w4)),
+            ("dense_lstm_scan", lambda: FG.graph_lstm_scan(
+                xl[:, :, :1], cheb[:0, :1, :1], w4d))):
+        try:
+            call()
+        except TypeError as err:
+            if "M5b step 4" not in str(err):
+                raise
+            refusals[name] = str(err)
+            continue
+        raise AssertionError(f"{name} took a bf16 CUDA tensor")
+    emit({"phase": "coverage_bf16", "steps": BF16_COVERAGE_STEPS, **out,
+          "rows_10_13_refuse_bf16": refusals})
+
+
+def group_bf16(card, hbm_rate):
+    """bf16 mixed precision on the card: rows 4, 5, 8 and 9 in bf16 against
+    their plain versions, config 5 in bf16 end to end, the rows' times,
+    and coverage. -> the four bf16 rows' kernels-line entries."""
+    t0 = time.perf_counter()
+    errs = phase_kernel_bf16()
+    torch.cuda.empty_cache()
+    launches, e2e = phase_config5_bf16(card)
+    torch.cuda.empty_cache()
+    times = phase_timing_bf16(card, hbm_rate)
+    torch.cuda.empty_cache()
+    phase_coverage_bf16()
+    torch.cuda.empty_cache()
+    emit({"phase": "group_bf16", "seconds": time.perf_counter() - t0})
+    where = {"row4_bf16": ("fused_spatial_transformer.cu",
+                           "fused_spatial_transformer.py:398"),
+             "row8_bf16": ("fused_temporal_transformer.cu",
+                           "fused_temporal_transformer.py:947 and :524"),
+             "row5_bf16": ("fused_spatial_transformer.cu",
+                           "fused_spatial_transformer.py:415"),
+             "row9_bf16": ("fused_temporal_transformer.cu",
+                           "fused_temporal_transformer.py:974 and :566")}
+    entries = []
+    for row, (source, replaces) in where.items():
+        t = times[row]
+        entry = kernel_entry(row, source, replaces, launches[row], errs[row],
+                             {k: t[k] for k in ("ms", "plain_ms",
+                                                "library_ms", "bound_ms",
+                                                "bound_by")})
+        entry["paired_with_library"] = t["paired_with_library"]
+        entries.append(entry)
+    entries[0]["config5_bf16"] = e2e
+    return entries
+
+
 def kernel_entry(name, source, replaces, launches, max_err, times):
     """One entry of the kernels line; ``replaces`` is the TPU kernel's
     ``file:line`` under the JAX package's ops/pallas/."""
@@ -5364,7 +5982,8 @@ def main():
     card, hbm_rate = phase_device()
     phase_build()
     kernels = []
-    for group in (group_lifting, group_poseformer, group_classification):
+    for group in (group_lifting, group_poseformer, group_bf16,
+                  group_classification):
         kernels += group(card, hbm_rate)
         torch.cuda.empty_cache()
     launches = group_autoencoder(card, hbm_rate)

@@ -38,10 +38,28 @@
 // LayerNorm uses flax's statistics, var = max(mean(x^2) - mean(x)^2, 0),
 // eps 1e-5; GELU is exact (erff). For training the forward also writes,
 // per depth block, what the backward needs (see below).
+//
+// bf16 (the `_bf16` entries; the kernels are templates on the storage type
+// S, float or bf16): x, the weights, the output, g, dx and the weight
+// gradients are bf16 in global memory, as the JAX kernels take and give
+// them under bf16 AMP. The kernels widen them to float32 as they stage
+// them (the same shared-memory layouts in both types), and compute as in
+// float32 but for the forward's products: each activation operand is
+// rounded to bf16 where the JAX kernel's `_dense` casts it, and the product
+// runs as one TF32 mma.sync pass, exact on bf16 values (mma_tf32.cuh),
+// instead of three. The residuals the training forward keeps stay float32,
+// as the JAX kernel's do, and so does the backward's arithmetic (the JAX
+// kernel's backward dots run in float32): the bf16 backward reads bf16
+// inputs, keeps its running dx in a float32 buffer through the depth
+// blocks and writes dx and the gradients (summed in float32) in bf16. Its
+// bound at B=1024, L=16 is the float32 one (67.18 GFLOP on the CUDA cores);
+// the forward's at B=256 is its 6.98 GFLOP of products at bf16's dense
+// 989 TFLOP/s beside the attention's 1.42 on the CUDA cores.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "mma_tf32.cuh"
+#include "storage.cuh"
 
 namespace {
 
@@ -55,10 +73,11 @@ constexpr float kEps = 1e-5f;
 constexpr float kSqrtHalf = 0.70710678118654752440f;
 constexpr float kInvSqrt2Pi = 0.39894228040143267794f;
 
+template <typename S>
 struct Weights {
-  const float *ln1_s, *ln1_b, *qkv_w, *qkv_b, *proj_w, *proj_b;
-  const float *ln2_s, *ln2_b, *fc1_w, *fc1_b, *fc2_w, *fc2_b;
-  const float *lnf_s, *lnf_b;
+  const S *ln1_s, *ln1_b, *qkv_w, *qkv_b, *proj_w, *proj_b;
+  const S *ln2_s, *ln2_b, *fc1_w, *fc1_b, *fc2_w, *fc2_b;
+  const S *lnf_s, *lnf_b;
 };
 
 // What the training forward keeps for the backward, per depth block b of M =
@@ -93,15 +112,17 @@ __device__ __forceinline__ float dgelu(float v) {
                                                    kInvSqrt2Pi;
 }
 
-__device__ void stage(const float* __restrict__ src, float* dst, int count) {
-  for (int i = threadIdx.x; i < count; i += kThreads) dst[i] = __ldg(src + i);
+template <typename S>
+__device__ void stage(const S* __restrict__ src, float* dst, int count) {
+  for (int i = threadIdx.x; i < count; i += kThreads) dst[i] = ldg1(src + i);
 }
 
 // w: [rows][cols] (global) -> [rows][cols + kWPad] (shared), as is.
-__device__ void stage_rows(const float* __restrict__ w, float* dst, int rows,
+template <typename S>
+__device__ void stage_rows(const S* __restrict__ w, float* dst, int rows,
                            int cols) {
   for (int i = threadIdx.x; i < rows * cols; i += kThreads)
-    dst[(i / cols) * (cols + kWPad) + i % cols] = __ldg(w + i);
+    dst[(i / cols) * (cols + kWPad) + i % cols] = ldg1(w + i);
 }
 
 __device__ void copy1(const float* src, float* dst, int count) {
@@ -297,9 +318,26 @@ __device__ void stage_async(const float* __restrict__ w, float* dst, int rows,
   }
 }
 
+// bf16 weights: rows x cols (cols a multiple of 4) widened into dst
+// [rows][ld], four elements a load.
+__device__ void stage_widen(const bf16* __restrict__ w, float* dst, int rows,
+                            int cols, int ld) {
+  const int per = cols / 4;
+  for (int i = threadIdx.x; i < rows * per; i += blockDim.x) {
+    const int r = i / per, c = 4 * (i % per);
+    *reinterpret_cast<float4*>(dst + r * ld + c) = ldg4(w + r * cols + c);
+  }
+}
+
+__device__ void stage_async(const bf16* __restrict__ w, float* dst, int rows,
+                            int cols, int ld) {
+  stage_widen(w, dst, rows, cols, ld);
+}
+
 // Stage depth block b's weights and vectors (the zero padding is set once,
-// before the first block).
-__device__ void stage_fwd(const Weights& w, int b, const FwdDims& d,
+// before the first block): float32 by cp.async, bf16 widened on the way.
+template <typename S>
+__device__ void stage_fwd(const Weights<S>& w, int b, const FwdDims& d,
                           const FwdLayout& l, float* smem) {
   const int E = d.E, HID = d.hidden;
   const size_t bE = static_cast<size_t>(b) * E;
@@ -372,8 +410,9 @@ enum FwdEpilogue { kQkv, kResidual, kHidden };
 // inside the k-loop. kQkv stores, kHidden stores GELU of it, kResidual
 // adds it to out's columns c < cols. With keep given, the stored value
 // (kHidden: before GELU; kResidual: the sum) also goes to keep[r][c] (row
-// stride and columns `cols`, the unpadded width).
-template <int EPI, int NC>
+// stride and columns `cols`, the unpadded width). BF: the bf16 form, A
+// rounded to bf16 and W (bf16 values) as they are, one TF32 pass.
+template <int EPI, int NC, bool BF>
 __device__ void product_cols(const float* A, int lda, int K, const float* W,
                              int ldw, int n0, const float* bias, float* out,
                              int ldo, const FwdDims& d, float* keep,
@@ -390,24 +429,44 @@ __device__ void product_cols(const float* A, int lda, int K, const float* W,
   const float* w = W + (n0 + g) * ldw + t;
 #pragma unroll 4
   for (int k0 = 0; k0 < K; k0 += 8) {
-    unsigned ab[2][4], as[2][4];
+    if constexpr (BF) {
+      unsigned ab[2][4];
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      const float* am = a + 16 * m * lda + k0;
-      split_tf32(am[0], ab[m][0], as[m][0]);
-      split_tf32(am[8 * lda], ab[m][1], as[m][1]);
-      split_tf32(am[4], ab[m][2], as[m][2]);
-      split_tf32(am[8 * lda + 4], ab[m][3], as[m][3]);
-    }
+      for (int m = 0; m < 2; ++m) {
+        const float* am = a + 16 * m * lda + k0;
+        ab[m][0] = tf32_of_bf16(am[0]);
+        ab[m][1] = tf32_of_bf16(am[8 * lda]);
+        ab[m][2] = tf32_of_bf16(am[4]);
+        ab[m][3] = tf32_of_bf16(am[8 * lda + 4]);
+      }
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const float* wj = w + 8 * j * ldw + k0;
-      unsigned bb[2], bs[2];
-      split_tf32(wj[0], bb[0], bs[0]);
-      split_tf32(wj[4], bb[1], bs[1]);
+      for (int j = 0; j < NC; ++j) {
+        const float* wj = w + 8 * j * ldw + k0;
+        const unsigned bb[2] = {__float_as_uint(wj[0]),
+                                __float_as_uint(wj[4])};
 #pragma unroll
-      for (int m = 0; m < 2; ++m)
-        mma_3xtf32(acc[m][j], ab[m], as[m], bb, bs);
+        for (int m = 0; m < 2; ++m) mma_tf32(acc[m][j], ab[m], bb);
+      }
+    } else {
+      unsigned ab[2][4], as[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const float* am = a + 16 * m * lda + k0;
+        split_tf32(am[0], ab[m][0], as[m][0]);
+        split_tf32(am[8 * lda], ab[m][1], as[m][1]);
+        split_tf32(am[4], ab[m][2], as[m][2]);
+        split_tf32(am[8 * lda + 4], ab[m][3], as[m][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const float* wj = w + 8 * j * ldw + k0;
+        unsigned bb[2], bs[2];
+        split_tf32(wj[0], bb[0], bs[0]);
+        split_tf32(wj[4], bb[1], bs[1]);
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+          mma_3xtf32(acc[m][j], ab[m], as[m], bb, bs);
+      }
     }
   }
   // the epilogue's arithmetic on every row, its memory on rows < J (and
@@ -440,18 +499,18 @@ __device__ void product_cols(const float* A, int lda, int K, const float* W,
 }
 
 // product_cols over all N columns: kNC n-tiles at a time, then one.
-template <int EPI>
+template <int EPI, bool BF>
 __device__ void warp_product(const float* A, int lda, int K, const float* W,
                              int ldw, int N, const float* bias, float* out,
                              int ldo, const FwdDims& d, float* keep,
                              int cols) {
   int n0 = 0;
   for (; n0 + 8 * kNC <= N; n0 += 8 * kNC)
-    product_cols<EPI, kNC>(A, lda, K, W, ldw, n0, bias, out, ldo, d, keep,
-                           cols);
+    product_cols<EPI, kNC, BF>(A, lda, K, W, ldw, n0, bias, out, ldo, d,
+                               keep, cols);
   for (; n0 < N; n0 += 8)
-    product_cols<EPI, 1>(A, lda, K, W, ldw, n0, bias, out, ldo, d, keep,
-                         cols);
+    product_cols<EPI, 1, BF>(A, lda, K, W, ldw, n0, bias, out, ldo, d, keep,
+                             cols);
 }
 
 // Attention over one frame: Z holds its rows [q | k | v] (row stride ldz,
@@ -599,7 +658,7 @@ __device__ FwdKeep fwd_keep(const Saved& sv, int b, int f, const FwdDims& d) {
 
 // One pre-norm block on the warp's frame (X in place; Y, Z scratch), its
 // residuals out when keeping; only __syncwarp between the steps.
-template <int HD>
+template <int HD, bool BF>
 __device__ void block_fwd(float* X, float* Y, float* Z, const float* smem,
                           const FwdLayout& l, const FwdDims& d,
                           const FwdKeep& k) {
@@ -607,31 +666,32 @@ __device__ void block_fwd(float* X, float* Y, float* Z, const float* smem,
   ln_lane_rows(X, Y, v + vec_at(d, 0), v + vec_at(d, 1), d, d.ky, k.mu1,
                k.inv1);
   __syncwarp();
-  warp_product<kQkv>(Y, d.ldx, d.ke, smem + l.wqkv, d.ldw, d.nq,
+  warp_product<kQkv, BF>(Y, d.ldx, d.ke, smem + l.wqkv, d.ldw, d.nq,
                      v + vec_at(d, 2), Z, d.ldz, d, k.qkv, 3 * d.E);
   __syncwarp();
   attention_warp<HD>(Z, Y, d, k.o);
   __syncwarp();
-  warp_product<kResidual>(Y, d.ldx, d.ke, smem + l.wproj, d.ldw, d.ke,
+  warp_product<kResidual, BF>(Y, d.ldx, d.ke, smem + l.wproj, d.ldw, d.ke,
                           v + vec_at(d, 3), X, d.ldx, d, k.x2, d.E);
   __syncwarp();
   ln_lane_rows(X, Y, v + vec_at(d, 4), v + vec_at(d, 5), d, d.ky, k.mu2,
                k.inv2);
   __syncwarp();
-  warp_product<kHidden>(Y, d.ldx, d.ke, smem + l.wfc1, d.ldw, d.kh,
+  warp_product<kHidden, BF>(Y, d.ldx, d.ke, smem + l.wfc1, d.ldw, d.kh,
                         v + vec_at(d, 6), Z, d.ldz, d, k.h, d.hidden);
   __syncwarp();
-  warp_product<kResidual>(Z, d.ldz, d.kh, smem + l.wfc2, d.ldh, d.ke,
+  warp_product<kResidual, BF>(Z, d.ldz, d.kh, smem + l.wfc2, d.ldh, d.ke,
                           v + vec_at(d, 7), X, d.ldx, d, k.xs, d.E);
   __syncwarp();
 }
 
 // A thread block of d.frames warps, a frame each; the depth blocks' weights
 // staged in turn, shared by the warps.
-template <int HD>
+template <int HD, typename S>
 __global__ void __launch_bounds__(kFwdMaxWarps * 32)
-    spatial_stack_kernel(const float* __restrict__ x, float* __restrict__ out,
-                         Weights w, Saved sv, FwdDims d) {
+    spatial_stack_kernel(const S* __restrict__ x, S* __restrict__ out,
+                         Weights<S> w, Saved sv, FwdDims d) {
+  constexpr bool kBf = IsBf16<S>::value;
   extern __shared__ __align__(16) float smem[];
   const FwdLayout l = fwd_layout(d);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -647,12 +707,11 @@ __global__ void __launch_bounds__(kFwdMaxWarps * 32)
     smem[i] = 0.f;
   if (lane < d.ke - d.ky) Z[lane] = 0.f;  // read past Y's last row
   if (live) {
-    const float* src = x + static_cast<size_t>(f) * J * E;
+    const S* src = x + static_cast<size_t>(f) * J * E;
     for (int i = lane; i < J * per; i += 32) {
       const int r = i / per, c = 4 * (i % per);
       st4(X + r * d.ldx + c,
-          c < E ? __ldg(reinterpret_cast<const float4*>(src + r * E + c))
-                : make_float4(0.f, 0.f, 0.f, 0.f));
+          c < E ? ldg4(src + r * E + c) : make_float4(0.f, 0.f, 0.f, 0.f));
     }
   }
   __syncwarp();
@@ -661,17 +720,32 @@ __global__ void __launch_bounds__(kFwdMaxWarps * 32)
     __syncthreads();  // every warp is done with the previous weights
     stage_fwd(w, b, d, l, smem);
     __syncthreads();
-    if (live) block_fwd<HD>(X, Y, Z, smem, l, d, fwd_keep(sv, b, f, d));
+    if (live) block_fwd<HD, kBf>(X, Y, Z, smem, l, d, fwd_keep(sv, b, f, d));
+  }
+  // the final LayerNorm to Y, then out coalesced; its vectors read from
+  // global memory (float32), or widened into the vectors' place (bf16)
+  const float *lnf_s, *lnf_b;
+  if constexpr (kBf) {
+    __syncthreads();  // every warp is done with the last block's vectors
+    float* v = smem + l.vec;
+    for (int i = threadIdx.x; i < E; i += blockDim.x) {
+      v[i] = ldg1(w.lnf_s + i);
+      v[E + i] = ldg1(w.lnf_b + i);
+    }
+    __syncthreads();
+    lnf_s = v;
+    lnf_b = v + E;
+  } else {
+    lnf_s = w.lnf_s;
+    lnf_b = w.lnf_b;
   }
   if (!live) return;
-  // the final LayerNorm (its vectors read from global memory) to Y, then
-  // out coalesced
-  ln_lane_rows(X, Y, w.lnf_s, w.lnf_b, d, E);
+  ln_lane_rows(X, Y, lnf_s, lnf_b, d, E);
   __syncwarp();
-  float* dst = out + static_cast<size_t>(f) * J * E;
+  S* dst = out + static_cast<size_t>(f) * J * E;
   for (int i = lane; i < J * (E / 4); i += 32) {
     const int r = i / (E / 4), c = 4 * (i % (E / 4));
-    st4(dst + r * E + c, ld4(Y + r * d.ldx + c));
+    st4g(dst + r * E + c, ld4(Y + r * d.ldx + c));
   }
 }
 
@@ -752,10 +826,11 @@ __device__ inline int grad_at(int k, int b, const Dims& d) {
   return d.depth * off + b * sz[k];
 }
 
+template <typename S>
 struct BwdArgs {
-  const float *x, *g;  // the forward's input and the output's cotangent
-  float* dx;           // the running gradient, in place
-  Weights w;
+  const S *x, *g;      // the forward's input and the output's cotangent
+  float* dx;           // the running gradient, in place (float32)
+  Weights<S> w;
   Saved sv;
   float* part;         // gridDim.x rows of `total` floats
   int total;
@@ -935,12 +1010,13 @@ __device__ void load_tile(const float* src, float* dst, int R, int real,
 
 // rows of x (width E) normalised with the saved statistics -> xh, and each
 // row's inv; zeros past row `real`.
-__device__ void load_normalised(const float* x, const float* mu,
+template <typename T>
+__device__ void load_normalised(const T* x, const float* mu,
                                 const float* inv_g, float* xh, float* inv,
                                 int R, int real, int E) {
   for (int i = threadIdx.x; i < R * E; i += kThreads) {
     const int r = i / E;
-    xh[i] = r < real ? (x[i] - mu[r]) * inv_g[r] : 0.f;
+    xh[i] = r < real ? (to_f(x[i]) - mu[r]) * inv_g[r] : 0.f;
   }
   for (int r = threadIdx.x; r < R; r += kThreads)
     inv[r] = r < real ? inv_g[r] : 0.f;
@@ -1128,13 +1204,17 @@ __device__ void attention_bwd_cols(const float* z, const float* dout,
 // The final LayerNorm's backward: dx = LN'(g) over all n J rows (a warp per
 // row, rows warp + k x (warps of the grid)), its statistics recomputed from
 // its input (the last block's output); lnf's sums to part.
+template <typename S>
 __global__ void __launch_bounds__(kThreads)
-    spatial_final_ln_bwd_kernel(BwdArgs a, Dims d) {
+    spatial_final_ln_bwd_kernel(BwdArgs<S> a, Dims d) {
   __shared__ float red[kWarps * 2 * kMaxE];
   const int E = d.E, lane = threadIdx.x & 31;
   const size_t M = static_cast<size_t>(d.n) * d.J;
-  const float* xf =
-      d.depth > 0 ? a.sv.xs + static_cast<size_t>(d.depth - 1) * M * E : a.x;
+  // the stack's last residual stream: the last block's output (float32),
+  // or x at depth 0
+  const float* xs_last =
+      d.depth > 0 ? a.sv.xs + static_cast<size_t>(d.depth - 1) * M * E
+                  : nullptr;
   float ps[kCols], pb[kCols];
 #pragma unroll
   for (int j = 0; j < kCols; ++j) ps[j] = pb[j] = 0.f;
@@ -1149,8 +1229,8 @@ __global__ void __launch_bounds__(kThreads)
       const int k = lane + 32 * j;
       xv[j] = gv[j] = 0.f;
       if (k < E) {
-        xv[j] = xf[r * E + k];
-        gv[j] = a.g[r * E + k];
+        xv[j] = xs_last != nullptr ? xs_last[r * E + k] : to_f(a.x[r * E + k]);
+        gv[j] = to_f(a.g[r * E + k]);
         sum += xv[j];
         sq = fmaf(xv[j], xv[j], sq);
       }
@@ -1167,7 +1247,7 @@ __global__ void __launch_bounds__(kThreads)
       const int k = lane + 32 * j;
       xv[j] = (xv[j] - mu) * iv;  // xh
       if (k < E) {
-        const float e = gv[j] * a.w.lnf_s[k];
+        const float e = gv[j] * to_f(a.w.lnf_s[k]);
         s1 += e;
         s2 = fmaf(e, xv[j], s2);
       }
@@ -1181,7 +1261,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kCols; ++j) {
       const int k = lane + 32 * j;
       if (k < E) {
-        a.dx[r * E + k] = iv * (gv[j] * a.w.lnf_s[k] - m1 - xv[j] * m2);
+        a.dx[r * E + k] =
+            iv * (gv[j] * to_f(a.w.lnf_s[k]) - m1 - xv[j] * m2);
         ps[j] = fmaf(gv[j], xv[j], ps[j]);
         pb[j] += gv[j];
       }
@@ -1193,8 +1274,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // The MLP half of depth block b (d.rows rows a tile).
+template <typename S>
 __global__ void __launch_bounds__(kThreads, 2)
-    spatial_mlp_bwd_kernel(BwdArgs a, Dims d, int b) {
+    spatial_mlp_bwd_kernel(BwdArgs<S> a, Dims d, int b) {
   extern __shared__ __align__(16) float smem[];
   const int E = d.E, HID = d.hidden, R = d.rows;
   const MlpLayout l = mlp_layout(R, E, HID);
@@ -1249,9 +1331,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // The attention half of depth block b (d.frames frames a tile).
-template <int HD>
+template <int HD, typename S>
 __global__ void __launch_bounds__(kThreads, 2)
-    spatial_attn_bwd_kernel(BwdArgs a, Dims d, int b) {
+    spatial_attn_bwd_kernel(BwdArgs<S> a, Dims d, int b) {
   extern __shared__ __align__(16) float smem[];
   const int E = d.E, R = d.rows, F = d.frames;
   const AttnLayout l = attn_layout(R, F, E, d.H, d.J);
@@ -1271,7 +1353,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   // rows past the tile's frames, which the attention passes never write
   for (int i = F * d.J * 3 * E + threadIdx.x; i < R * 3 * E; i += kThreads)
     DQKV[i] = 0.f;
-  const float* xin = b > 0 ? a.sv.xs + (b - 1) * M * E : a.x;
+  // the block's input: the previous block's output (float32), or x
+  const float* xin = b > 0 ? a.sv.xs + (b - 1) * M * E : nullptr;
   const float* mu1 = a.sv.stats + 4 * b * M;
   const float* inv1 = mu1 + M;
   float ps[kCols], pb[kCols];
@@ -1286,7 +1369,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     load_tile(a.dx + r0 * E, DX2, R, real, E);
     load_tile(a.sv.o + (b * M + r0) * E, O, R, real, E);
     load_tile(a.sv.qkv + (b * M + r0) * 3 * E, QKV, R, real, 3 * E);
-    load_normalised(xin + r0 * E, mu1 + r0, inv1 + r0, XH, inv, R, real, E);
+    if (xin != nullptr)
+      load_normalised(xin + r0 * E, mu1 + r0, inv1 + r0, XH, inv, R, real, E);
+    else
+      load_normalised(a.x + r0 * E, mu1 + r0, inv1 + r0, XH, inv, R, real,
+                      E);
     __syncthreads();
     // dWp on the first 128 threads (E = 32), do on those after them
     dense_dw<false>(DX2, E, O, E, dWp, E, E, R, dbp);
@@ -1313,14 +1400,15 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // out[e] = sum over p < parts, in order, of part[p][e] (row length len).
+template <typename S>
 __global__ void reduce_partials_kernel(const float* __restrict__ part,
                                        int parts, int len,
-                                       float* __restrict__ out) {
+                                       S* __restrict__ out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= len) return;
   float s = 0.f;
   for (int p = 0; p < parts; ++p) s += part[static_cast<size_t>(p) * len + e];
-  out[e] = s;
+  put(out + e, s);
 }
 
 bool valid(int J, int E, int H, int hidden, int depth) {
@@ -1352,16 +1440,79 @@ cudaError_t set_smem(const void* kernel, int bytes) {
 
 // The kernels with attention, compiled twice (each its own register
 // allocation): the instance for head width hd.
-typedef void (*FwdKernel)(const float*, float*, Weights, Saved, FwdDims);
-typedef void (*AttnBwdKernel)(BwdArgs, Dims, int);
+template <typename S>
+using FwdKernel = void (*)(const S*, S*, Weights<S>, Saved, FwdDims);
+template <typename S>
+using AttnBwdKernel = void (*)(BwdArgs<S>, Dims, int);
 
-FwdKernel fwd_kernel(int hd) {
-  return hd == 4 ? spatial_stack_kernel<4> : spatial_stack_kernel<0>;
+template <typename S>
+FwdKernel<S> fwd_kernel(int hd) {
+  return hd == 4 ? spatial_stack_kernel<4, S> : spatial_stack_kernel<0, S>;
 }
 
-AttnBwdKernel attn_bwd_kernel(int hd) {
-  return hd_class(hd) == 4 ? spatial_attn_bwd_kernel<4>
-                           : spatial_attn_bwd_kernel<0>;
+template <typename S>
+AttnBwdKernel<S> attn_bwd_kernel(int hd) {
+  return hd_class(hd) == 4 ? spatial_attn_bwd_kernel<4, S>
+                           : spatial_attn_bwd_kernel<0, S>;
+}
+
+template <typename S>
+int launch_fwd(const S* x, S* out, const Weights<S>& w, const Saved& sv,
+               int n, int J, int E, int H, int hidden, int depth, int frames,
+               float scale, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  if (!valid(J, E, H, hidden, depth) || frames < 1 || frames > kFwdMaxWarps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FwdDims d = fwd_dims(n, J, E, H, hidden, depth, frames, scale);
+  const int bytes = fwd_bytes(J, E, hidden, frames);
+  const FwdKernel<S> kernel = fwd_kernel<S>(E / H);
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(n + frames - 1) / frames, 32 * frames, bytes, stream>>>(
+      x, out, w, sv, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward's launches; dx_out is where the bf16 form writes dx (its
+// running dx in a.dx is float32), nullptr for float32.
+template <typename S>
+int launch_bwd(const BwdArgs<S>& a, S* grads, S* dx_out, int n, int J,
+               int E, int H, int hidden, int depth, int grid, int mlp_rows,
+               int attn_frames, float scale, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  if (!valid(J, E, H, hidden, depth) || grid < 1 || mlp_rows < 4 ||
+      mlp_rows % 4 || attn_frames < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Dims dm{n, J, E, H, hidden, depth, 0, mlp_rows, scale};
+  const Dims da{n, J, E, H, hidden, depth, attn_frames,
+                pad4(attn_frames * J), scale};
+  const int mb = mlp_bytes(E, hidden, mlp_rows);
+  const int ab = attn_bytes(J, E, H, attn_frames);
+  const AttnBwdKernel<S> attn = attn_bwd_kernel<S>(E / H);
+  cudaError_t err = set_smem(
+      reinterpret_cast<const void*>(spatial_mlp_bwd_kernel<S>), mb);
+  if (err == cudaSuccess)
+    err = set_smem(reinterpret_cast<const void*>(attn), ab);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  spatial_final_ln_bwd_kernel<S><<<grid, kThreads, 0, stream>>>(a, dm);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  for (int b = depth - 1; b >= 0; --b) {
+    spatial_mlp_bwd_kernel<S><<<grid, kThreads, mb, stream>>>(a, dm, b);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
+    attn<<<grid, kThreads, ab, stream>>>(a, da, b);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
+  }
+  reduce_partials_kernel<S><<<(a.total + 255) / 256, 256, 0, stream>>>(
+      a.part, grid, a.total, grads);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (dx_out != nullptr) {
+    const size_t count = static_cast<size_t>(n) * J * E;
+    to_storage_kernel<S><<<static_cast<unsigned>((count + 255) / 256), 256,
+                           0, stream>>>(a.dx, dx_out, count);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1371,7 +1522,8 @@ extern "C" {
 // Shared memory of one thread block, in bytes, of the forward at `frames`
 // frames a thread block, and of the backward's MLP half at `rows` rows and
 // attention half at `frames` frames (the wrapper picks the tiles with its
-// copy of these layouts, and checks them against these).
+// copy of these layouts, and checks them against these). The same in both
+// storage types: bf16 is widened as it is staged.
 int pv2c_spatial_stack_smem_bytes(int J, int E, int H, int hidden,
                                   int frames) {
   (void)H;
@@ -1402,24 +1554,35 @@ int pv2c_fused_spatial_stack(
     float* qkv, float* o, float* x2, float* h, float* xs, int n, int J, int E,
     int H, int hidden, int depth, int frames, float scale,
     cudaStream_t stream) {
-  if (n <= 0) return 0;
-  if (!valid(J, E, H, hidden, depth) || frames < 1 || frames > kFwdMaxWarps)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const FwdDims d = fwd_dims(n, J, E, H, hidden, depth, frames, scale);
-  const Weights w{ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s,
-                  ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, lnf_s, lnf_b};
-  const Saved sv{stats, qkv, o, x2, h, xs};
-  const int bytes = fwd_bytes(J, E, hidden, frames);
-  const FwdKernel kernel = fwd_kernel(E / H);
-  cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<(n + frames - 1) / frames, 32 * frames, bytes, stream>>>(
-      x, out, w, sv, d);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fwd<float>(
+      x, out,
+      Weights<float>{ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s,
+                     ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, lnf_s, lnf_b},
+      Saved{stats, qkv, o, x2, h, xs}, n, J, E, H, hidden, depth, frames,
+      scale, stream);
+}
+
+// The same with x, out and the weights in bf16 (the residuals float32).
+int pv2c_fused_spatial_stack_bf16(
+    const bf16* x, bf16* out, const bf16* ln1_s, const bf16* ln1_b,
+    const bf16* qkv_w, const bf16* qkv_b, const bf16* proj_w,
+    const bf16* proj_b, const bf16* ln2_s, const bf16* ln2_b,
+    const bf16* fc1_w, const bf16* fc1_b, const bf16* fc2_w,
+    const bf16* fc2_b, const bf16* lnf_s, const bf16* lnf_b, float* stats,
+    float* qkv, float* o, float* x2, float* h, float* xs, int n, int J, int E,
+    int H, int hidden, int depth, int frames, float scale,
+    cudaStream_t stream) {
+  return launch_fwd<bf16>(
+      x, out,
+      Weights<bf16>{ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s,
+                    ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, lnf_s, lnf_b},
+      Saved{stats, qkv, o, x2, h, xs}, n, J, E, H, hidden, depth, frames,
+      scale, stream);
 }
 
 // The backward's grid on the current device: the SMs times the thread
-// blocks of both halves that fit on one SM together (at least one). The
+// blocks of both halves that fit on one SM together (at least one), for
+// the float32 kernels (the bf16 ones differ only in their loads). The
 // wrapper sizes `part` with it. Returns minus a CUDA error code on failure.
 int pv2c_spatial_stack_bwd_grid(int J, int E, int H, int hidden,
                                 int mlp_rows, int attn_frames) {
@@ -1430,13 +1593,14 @@ int pv2c_spatial_stack_bwd_grid(int J, int E, int H, int hidden,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = set_smem(reinterpret_cast<const void*>(spatial_mlp_bwd_kernel), mb);
-  const AttnBwdKernel attn = attn_bwd_kernel(E / H);
+    err = set_smem(
+        reinterpret_cast<const void*>(spatial_mlp_bwd_kernel<float>), mb);
+  const AttnBwdKernel<float> attn = attn_bwd_kernel<float>(E / H);
   if (err == cudaSuccess)
     err = set_smem(reinterpret_cast<const void*>(attn), ab);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_mlp, spatial_mlp_bwd_kernel, kThreads, mb);
+        &per_mlp, spatial_mlp_bwd_kernel<float>, kThreads, mb);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_attn, attn,
                                                         kThreads, ab);
@@ -1463,39 +1627,37 @@ int pv2c_fused_spatial_stack_bwd(
     float* h, float* xs, float* part, float* grads, int n, int J, int E,
     int H, int hidden, int depth, int grid, int mlp_rows, int attn_frames,
     float scale, cudaStream_t stream) {
-  if (n <= 0) return 0;
-  if (!valid(J, E, H, hidden, depth) || grid < 1 || mlp_rows < 4 ||
-      mlp_rows % 4 || attn_frames < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
   const int total = depth * block_total(E, hidden) + 2 * E;
-  const BwdArgs a{x, g, dx,
-                  Weights{ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s,
-                          ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, lnf_s, lnf_b},
-                  Saved{stats, qkv, o, x2, h, xs}, part, total};
-  const Dims dm{n, J, E, H, hidden, depth, 0, mlp_rows, scale};
-  const Dims da{n, J, E, H, hidden, depth, attn_frames,
-                pad4(attn_frames * J), scale};
-  const int mb = mlp_bytes(E, hidden, mlp_rows);
-  const int ab = attn_bytes(J, E, H, attn_frames);
-  const AttnBwdKernel attn = attn_bwd_kernel(E / H);
-  cudaError_t err =
-      set_smem(reinterpret_cast<const void*>(spatial_mlp_bwd_kernel), mb);
-  if (err == cudaSuccess)
-    err = set_smem(reinterpret_cast<const void*>(attn), ab);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  spatial_final_ln_bwd_kernel<<<grid, kThreads, 0, stream>>>(a, dm);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  for (int b = depth - 1; b >= 0; --b) {
-    spatial_mlp_bwd_kernel<<<grid, kThreads, mb, stream>>>(a, dm, b);
-    if ((err = cudaGetLastError()) != cudaSuccess)
-      return static_cast<int>(err);
-    attn<<<grid, kThreads, ab, stream>>>(a, da, b);
-    if ((err = cudaGetLastError()) != cudaSuccess)
-      return static_cast<int>(err);
-  }
-  reduce_partials_kernel<<<(total + 255) / 256, 256, 0, stream>>>(
-      part, grid, total, grads);
-  return static_cast<int>(cudaGetLastError());
+  const BwdArgs<float> a{
+      x, g, dx,
+      Weights<float>{ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s,
+                     ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, lnf_s, lnf_b},
+      Saved{stats, qkv, o, x2, h, xs}, part, total};
+  return launch_bwd<float>(a, grads, nullptr, n, J, E, H, hidden, depth,
+                           grid, mlp_rows, attn_frames, scale, stream);
+}
+
+// The same with x, g, dx, the weights and grads in bf16 (the residuals
+// float32); dx_work (n, J, E) float32 scratch holds the running dx. One
+// launch more: dx_work to dx.
+int pv2c_fused_spatial_stack_bwd_bf16(
+    const bf16* x, const bf16* g, bf16* dx, float* dx_work,
+    const bf16* ln1_s, const bf16* ln1_b, const bf16* qkv_w,
+    const bf16* qkv_b, const bf16* proj_w, const bf16* proj_b,
+    const bf16* ln2_s, const bf16* ln2_b, const bf16* fc1_w,
+    const bf16* fc1_b, const bf16* fc2_w, const bf16* fc2_b,
+    const bf16* lnf_s, const bf16* lnf_b, float* stats, float* qkv, float* o,
+    float* x2, float* h, float* xs, float* part, bf16* grads, int n, int J,
+    int E, int H, int hidden, int depth, int grid, int mlp_rows,
+    int attn_frames, float scale, cudaStream_t stream) {
+  const int total = depth * block_total(E, hidden) + 2 * E;
+  const BwdArgs<bf16> a{
+      x, g, dx_work,
+      Weights<bf16>{ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s,
+                    ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, lnf_s, lnf_b},
+      Saved{stats, qkv, o, x2, h, xs}, part, total};
+  return launch_bwd<bf16>(a, grads, dx, n, J, E, H, hidden, depth, grid,
+                          mlp_rows, attn_frames, scale, stream);
 }
 
 }  // extern "C"

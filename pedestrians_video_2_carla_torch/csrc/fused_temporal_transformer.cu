@@ -54,10 +54,25 @@
 // one (8, 128) vreg. The earlier design (the same seven launches with an
 // fp32 128 x 128 x 8 GEMM on the CUDA cores, LayerNorm applied as A was
 // loaded) took 5.85 ms a block at B=256.
+//
+// bf16 (the `_bf16` entries; every kernel is a template on the storage type
+// S, float or bf16): x, the weights, the output and every buffer between
+// the launches are bf16 (y1, qkv, the attention output, x2, y2, GELU's
+// output, and h when training), as the JAX kernels keep their slabs and
+// residuals in the compute dtype; the LayerNorm statistics stay float32.
+// The GEMM's tiles are bf16 in shared memory (16-byte cp.async chunks of 8
+// elements, rows padded by 8, so a thread block takes 60 KB instead of 108
+// KB), widened to TF32 bits as the fragments are read, and each product is
+// one TF32 mma.sync pass, exact on bf16 values, its sum in fp32 in the
+// tensor cores (mma_tf32.cuh); LayerNorm, softmax, GELU and the residual
+// adds run in float32, as in the JAX kernel, and each stored value is
+// rounded to bf16 to nearest even. Bound at B=256 (the same 204.7 GFLOP at
+// bf16's dense 989 TFLOP/s): 0.207 ms.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "mma_tf32.cuh"
+#include "storage.cuh"
 
 namespace {
 
@@ -84,6 +99,15 @@ constexpr int kFThreads = 32 * kFWarps;
 constexpr int kFLd = kFBK + 4;  // staged tile row stride
 constexpr int kFStageFloats = (kFBM + kFBN) * kFLd;  // an A and a W tile
 constexpr int kFSmemBytes = 4 * kFStages * kFStageFloats;
+// The same in bf16: rows of kFBK elements padded by 8 (16 bytes)
+constexpr int kFLdBf = kFBK + 8;
+constexpr int kFStageBf = (kFBM + kFBN) * kFLdBf;
+constexpr int kFSmemBytesBf = 2 * kFStages * kFStageBf;
+
+template <typename S>
+constexpr int fwd_gemm_smem_bytes() {
+  return IsBf16<S>::value ? kFSmemBytesBf : kFSmemBytes;
+}
 static_assert(kFBK % 8 == 0 && kFBM % kFWM == 0 && kFBN % kFWN == 0 &&
                   kFWM % 16 == 0 && kFWN % 16 == 0,
               "forward GEMM plan");
@@ -103,20 +127,21 @@ __device__ __forceinline__ float4 ln_apply4(float4 v, float mu, float inv,
 
 // y = LN(x) over rows of D (a multiple of 4), one warp a row, with the
 // row's mean and rsqrt(var + eps), var = max(mean(x^2) - mean^2, 0).
+template <typename S>
 __global__ void __launch_bounds__(kStatsThreads)
-    ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ s,
-                  const float* __restrict__ b, int M, int D,
+    ln_fwd_kernel(const S* __restrict__ x, const S* __restrict__ s,
+                  const S* __restrict__ b, int M, int D,
                   float* __restrict__ mu, float* __restrict__ inv,
-                  float* __restrict__ y) {
+                  S* __restrict__ y) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (kStatsThreads / 32) + (threadIdx.x >> 5);
   if (row >= M) return;
   const int d4 = D / 4;
   const size_t base = static_cast<size_t>(row) * D;
-  const float4* xr = reinterpret_cast<const float4*>(x + base);
+  const S* xr = x + base;
   float sum = 0.f, sq = 0.f;
   for (int k = lane; k < d4; k += 32) {
-    const float4 v = __ldg(xr + k);
+    const float4 v = ldg4(xr + 4 * k);
     sum += (v.x + v.y) + (v.z + v.w);
     sq += fmaf(v.x, v.x, v.y * v.y) + fmaf(v.z, v.z, v.w * v.w);
   }
@@ -130,22 +155,22 @@ __global__ void __launch_bounds__(kStatsThreads)
     mu[row] = m;
     inv[row] = iv;
   }
-  const float4* s4 = reinterpret_cast<const float4*>(s);
-  const float4* b4 = reinterpret_cast<const float4*>(b);
-  float4* yr = reinterpret_cast<float4*>(y + base);
+  S* yr = y + base;
   for (int k = lane; k < d4; k += 32)
-    yr[k] = ln_apply4(__ldg(xr + k), m, iv, __ldg(s4 + k), __ldg(b4 + k));
+    st4g(yr + 4 * k, ln_apply4(ldg4(xr + 4 * k), m, iv, ldg4(s + 4 * k),
+                               ldg4(b + 4 * k)));
 }
 
 enum Epilogue { kBias, kGelu, kResidual };
 
+template <typename S>
 struct FwdGemm {
-  const float* A;      // M x K, row-major
-  const float* W;      // N x K (nn.Linear layout)
-  const float* bias;   // N
-  const float* R;      // M x N residual (kResidual)
-  float* C;            // M x N
-  float* H;            // kGelu: the pre-activation as well, if not null
+  const S* A;          // M x K, row-major
+  const S* W;          // N x K (nn.Linear layout)
+  const S* bias;       // N
+  const S* R;          // M x N residual (kResidual)
+  S* C;                // M x N
+  S* H;                // kGelu: the pre-activation as well, if not null
   int M, N, K;
 };
 
@@ -153,7 +178,7 @@ struct FwdGemm {
 // aligned.
 template <int EPI>
 __global__ void __launch_bounds__(kFThreads, kFMinBlocks)
-    gemm_fwd_kernel(FwdGemm g) {
+    gemm_fwd_kernel(FwdGemm<float> g) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int m0 = blockIdx.y * kFBM, n0 = blockIdx.x * kFBN;
@@ -253,34 +278,145 @@ __global__ void __launch_bounds__(kFThreads, kFMinBlocks)
     }
 }
 
+// The bf16 form of gemm_fwd_kernel: the same plan and epilogues, its tiles
+// bf16 in the ring (rows of kFBK elements padded by 8), each fragment
+// element widened to TF32 bits (exact) and one TF32 mma.sync a product,
+// summed in the tensor cores in fp32; the epilogue's arithmetic in fp32,
+// its stores rounded to bf16.
 template <int EPI>
-cudaError_t gemm_fwd(const FwdGemm& g, cudaStream_t stream) {
+__global__ void __launch_bounds__(kFThreads, kFMinBlocks)
+    gemm_fwd_bf16_kernel(FwdGemm<bf16> g) {
+  extern __shared__ __align__(16) float smem_bf[];
+  unsigned short* tiles = reinterpret_cast<unsigned short*>(smem_bf);
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * kFBM, n0 = blockIdx.x * kFBN;
+  const int steps = (g.K + kFBK - 1) / kFBK;
+
+  // one k-step's tiles into ring slot s: rows of kFBK elements in 16-byte
+  // chunks of 8, zeros past M, N or K
+  auto load = [&](int s, int k0) {
+    unsigned short* At = tiles + s * kFStageBf;
+    unsigned short* Wt = At + kFBM * kFLdBf;
+    constexpr int kChunks = kFBK / 8;
+    for (int c = tid; c < (kFBM + kFBN) * kChunks; c += kFThreads) {
+      const int r = c / kChunks, kc = (c % kChunks) * 8;
+      const bool is_a = r < kFBM;
+      const int row = is_a ? m0 + r : n0 + r - kFBM;
+      const bool ok = row < (is_a ? g.M : g.N) && k0 + kc < g.K;
+      const bf16* src = is_a ? g.A : g.W;
+      cp_async16(reinterpret_cast<float*>(
+                     (is_a ? At + r * kFLdBf : Wt + (r - kFBM) * kFLdBf) +
+                     kc),
+                 reinterpret_cast<const float*>(
+                     ok ? src + static_cast<size_t>(row) * g.K + k0 + kc
+                        : src),
+                 ok);
+    }
+  };
+
+  constexpr int kMT = kFWM / 16, kNT = kFWN / 8;
+  const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int wm = (warp / (kFBN / kFWN)) * kFWM;
+  const int wn = (warp % (kFBN / kFWN)) * kFWN;
+  float sums[kMT][kNT][4] = {};
+
+#pragma unroll
+  for (int s = 0; s < kFStages - 1; ++s) {
+    if (s < steps) load(s, s * kFBK);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kFStages - 2>();
+    __syncthreads();  // k-step `step` has landed; slot step - 1 is free
+    const int next = step + kFStages - 1;
+    if (next < steps) load(next % kFStages, next * kFBK);
+    cp_async_commit();
+    const unsigned short* At = tiles + (step % kFStages) * kFStageBf;
+    const unsigned short* Wt = At + kFBM * kFLdBf;
+#pragma unroll
+    for (int ks = 0; ks < kFBK; ks += 8) {
+      unsigned wb[kNT][2];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const unsigned short* w = Wt + (wn + j * 8 + gq) * kFLdBf + ks + tq;
+        wb[j][0] = static_cast<unsigned>(w[0]) << 16;
+        wb[j][1] = static_cast<unsigned>(w[4]) << 16;
+      }
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) {
+        const unsigned short* a = At + (wm + i * 16 + gq) * kFLdBf + ks + tq;
+        const unsigned ab[4] = {static_cast<unsigned>(a[0]) << 16,
+                                static_cast<unsigned>(a[8 * kFLdBf]) << 16,
+                                static_cast<unsigned>(a[4]) << 16,
+                                static_cast<unsigned>(a[8 * kFLdBf + 4])
+                                    << 16};
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) mma_tf32(sums[i][j], ab, wb[j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + i * 16 + gq + 8 * h;
+      if (m >= g.M) continue;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int n = n0 + wn + j * 8 + 2 * tq;  // and n + 1 (N is even)
+        if (n >= g.N) continue;
+        const float2 bv = ldg2(g.bias + n);
+        float2 v = make_float2(sums[i][j][2 * h] + bv.x,
+                               sums[i][j][2 * h + 1] + bv.y);
+        const size_t at = static_cast<size_t>(m) * g.N + n;
+        if (EPI == kGelu) {
+          if (g.H != nullptr) st2g(g.H + at, v);
+          v = make_float2(gelu(v.x), gelu(v.y));
+        } else if (EPI == kResidual) {
+          const float2 r = ldg2(g.R + at);
+          v = make_float2(r.x + v.x, r.y + v.y);
+        }
+        st2g(g.C + at, v);
+      }
+    }
+}
+
+template <int EPI, typename S>
+cudaError_t gemm_fwd(const FwdGemm<S>& g, cudaStream_t stream) {
+  constexpr int bytes = fwd_gemm_smem_bytes<S>();
+  void (*kernel)(FwdGemm<S>);
+  if constexpr (IsBf16<S>::value)
+    kernel = gemm_fwd_bf16_kernel<EPI>;
+  else
+    kernel = gemm_fwd_kernel<EPI>;
   cudaError_t err = cudaFuncSetAttribute(
-      gemm_fwd_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kFSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((g.N + kFBN - 1) / kFBN, (g.M + kFBM - 1) / kFBM);
-  gemm_fwd_kernel<EPI><<<grid, kFThreads, kFSmemBytes, stream>>>(g);
+  kernel<<<grid, kFThreads, bytes, stream>>>(g);
   return cudaGetLastError();
 }
 
 // One thread block per (window, head). qkv: (N*T) x 3D rows [q | k | v],
 // heads in (head, dim) order -> o: (N*T) x D. Dynamic shared memory: q, k,
 // v (T x hd each) and p (T x T), attn_fwd_bytes.
+template <typename S>
 __global__ void __launch_bounds__(kAttnThreads)
-    attention_kernel(const float* __restrict__ qkv, float* __restrict__ o,
+    attention_kernel(const S* __restrict__ qkv, S* __restrict__ o,
                      int T, int D, int H, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int n = blockIdx.x / H, h = blockIdx.x % H;
   const int hd = D / H;
   float *q = smem, *k = q + T * hd, *v = k + T * hd, *p = v + T * hd;
-  const float* base = qkv + static_cast<size_t>(n) * T * 3 * D + h * hd;
+  const S* base = qkv + static_cast<size_t>(n) * T * 3 * D + h * hd;
   for (int idx = threadIdx.x; idx < T * hd; idx += kAttnThreads) {
     const int t = idx / hd, c = idx % hd;
-    const float* row = base + static_cast<size_t>(t) * 3 * D + c;
-    q[idx] = __ldg(row) * scale;
-    k[idx] = __ldg(row + D);
-    v[idx] = __ldg(row + 2 * D);
+    const S* row = base + static_cast<size_t>(t) * 3 * D + c;
+    q[idx] = ldg1(row) * scale;
+    k[idx] = ldg1(row + D);
+    v[idx] = ldg1(row + 2 * D);
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < T * T; idx += kAttnThreads) {
@@ -302,12 +438,12 @@ __global__ void __launch_bounds__(kAttnThreads)
     for (int j = 0; j < T; ++j) row[j] = row[j] / sum;
   }
   __syncthreads();
-  float* dst = o + static_cast<size_t>(n) * T * D + h * hd;
+  S* dst = o + static_cast<size_t>(n) * T * D + h * hd;
   for (int idx = threadIdx.x; idx < T * hd; idx += kAttnThreads) {
     const int i = idx / hd, c = idx % hd;
     float acc = 0.f;
     for (int j = 0; j < T; ++j) acc = fmaf(p[i * T + j], v[j * hd + c], acc);
-    dst[static_cast<size_t>(i) * D + c] = acc;
+    put(dst + static_cast<size_t>(i) * D + c, acc);
   }
 }
 
@@ -389,41 +525,95 @@ __device__ __forceinline__ float dgelu(float v) {
 enum BwdMode { kNN, kTN };
 enum BwdEpilogue { kSet, kDGelu };
 
+// S: the operands' storage type; O: C's (float32, or S for dh).
+template <typename S, typename O>
 struct Gemm {
-  const float* A;  // kNN: M x K (row-major); kTN: K x M
-  const float* B;  // K x N
-  float* C;        // M x N; kTN: one M x N part per split
+  const S* A;      // kNN: M x K (row-major); kTN: K x M
+  const S* B;      // K x N
+  O* C;            // M x N; kTN: one M x N part per split
   float* bias;     // kTN: one part of M column sums of A per split, or null
-  const float* aux;  // kDGelu: the pre-activation, M x N
+  const S* aux;    // kDGelu: the pre-activation, M x N
   int M, N, K;
   int k_split;     // kTN: rows of K per split (blockIdx.z)
 };
 
-__host__ __device__ inline int gemm_stage_floats(int mode) {
-  return (mode == kNN ? kBM * kLdRow : kBK2 * kLdCol) + kBK2 * kLdCol;
+// The row-major A tile's row stride, in elements: 16 bytes of padding.
+template <typename S>
+__host__ __device__ constexpr int ld_row() {
+  return kBK2 + 16 / static_cast<int>(sizeof(S));
+}
+
+// Elements of a ring stage (an A and a B tile).
+template <typename S>
+__host__ __device__ inline int gemm_stage_elems(int mode) {
+  return (mode == kNN ? kBM * ld_row<S>() : kBK2 * kLdCol) + kBK2 * kLdCol;
 }
 
 // kNN: C = epi(A B); kTN: C[split] = A^T B over the split's rows of K, and
 // with bias, bias[split] = the column sums of A over them (B's column N
 // read as ones). M, N multiples of 4, K (kNN) a multiple of 4, pointers
-// 16-byte aligned.
-template <int MODE, int EPI>
-__global__ void __launch_bounds__(kGemmThreads, 2) gemm_bwd_kernel(Gemm g) {
-  extern __shared__ __align__(16) float smem[];
+// 16-byte aligned. S = bf16: bf16 tiles (M, N and K multiples of 8), one
+// TF32 pass a product, as in the forward.
+template <int MODE, int EPI, typename S, typename O>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+    gemm_bwd_kernel(Gemm<S, O> g) {
+  extern __shared__ __align__(16) float smem_f[];
+  constexpr bool kBf = IsBf16<S>::value;
+  constexpr int kLdR = ld_row<S>();
   const int tid = threadIdx.x;
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
   const int kbeg = MODE == kTN ? blockIdx.z * g.k_split : 0;
   const int kend = MODE == kTN ? min(g.K, kbeg + g.k_split) : g.K;
   const int steps = (kend - kbeg + kBK2 - 1) / kBK2;
-  const int a_floats = MODE == kNN ? kBM * kLdRow : kBK2 * kLdCol;
+  const int a_floats = MODE == kNN ? kBM * kLdR : kBK2 * kLdCol;
   const int stage = a_floats + kBK2 * kLdCol;
   const bool ones = MODE == kTN && g.bias != nullptr && n0 <= g.N &&
                     g.N < n0 + kBN;
+  S* smem = reinterpret_cast<S*>(smem_f);
 
-  // one k-step's tiles into ring slot s: 512 16-byte chunks each of A and
-  // B, 2 a thread
-  auto load = [&](int s, int k0) {
-    float* As = smem + s * stage;
+  // bf16: one k-step's tiles into ring slot s, 256 16-byte chunks (8
+  // elements) each of A and B, 1 a thread
+  auto load_bf = [&](int s, int k0) {
+    S* As = smem + s * stage;
+    S* Bs = As + a_floats;
+    const int c = tid;
+    if (MODE == kNN) {
+      const int r = c >> 1, kc = (c & 1) * 8;
+      const bool ok = m0 + r < g.M && k0 + kc < kend;
+      cp_async16(reinterpret_cast<float*>(As + r * kLdR + kc),
+                 reinterpret_cast<const float*>(
+                     ok ? g.A + static_cast<size_t>(m0 + r) * g.K + k0 + kc
+                        : g.A),
+                 ok);
+    } else {
+      const int r = c >> 4, col = (c & 15) * 8;
+      const bool ok = k0 + r < kend && m0 + col < g.M;
+      cp_async16(reinterpret_cast<float*>(As + r * kLdCol + col),
+                 reinterpret_cast<const float*>(
+                     ok ? g.A + static_cast<size_t>(k0 + r) * g.M + m0 + col
+                        : g.A),
+                 ok);
+    }
+    const int r = c >> 4, col = (c & 15) * 8;
+    S* dst = Bs + r * kLdCol + col;
+    if (ones && n0 + col == g.N) {
+      unsigned short* d16 = reinterpret_cast<unsigned short*>(dst);
+      d16[0] = k0 + r < kend ? 0x3f80 : 0;  // bf16 1.0
+      for (int e = 1; e < 8; ++e) d16[e] = 0;
+    } else {
+      const bool ok = k0 + r < kend && n0 + col < g.N;
+      cp_async16(reinterpret_cast<float*>(dst),
+                 reinterpret_cast<const float*>(
+                     ok ? g.B + static_cast<size_t>(k0 + r) * g.N + n0 + col
+                        : g.B),
+                 ok);
+    }
+  };
+
+  // float32: one k-step's tiles into ring slot s: 512 16-byte chunks each
+  // of A and B, 2 a thread
+  auto load_f32 = [&](int s, int k0) {
+    float* As = smem_f + s * stage;
     float* Bs = As + a_floats;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -432,15 +622,17 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_bwd_kernel(Gemm g) {
         const int r = c >> 2, kc = (c & 3) * 4;
         const bool ok = m0 + r < g.M && k0 + kc < kend;
         cp_async16(As + r * kLdRow + kc,
-                   ok ? g.A + static_cast<size_t>(m0 + r) * g.K + k0 + kc
-                      : g.A,
+                   reinterpret_cast<const float*>(
+                       ok ? g.A + static_cast<size_t>(m0 + r) * g.K + k0 + kc
+                          : g.A),
                    ok);
       } else {
         const int r = c >> 5, col = (c & 31) * 4;
         const bool ok = k0 + r < kend && m0 + col < g.M;
         cp_async16(As + r * kLdCol + col,
-                   ok ? g.A + static_cast<size_t>(k0 + r) * g.M + m0 + col
-                      : g.A,
+                   reinterpret_cast<const float*>(
+                       ok ? g.A + static_cast<size_t>(k0 + r) * g.M + m0 + col
+                          : g.A),
                    ok);
       }
       const int r = c >> 5, col = (c & 31) * 4;
@@ -451,11 +643,18 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_bwd_kernel(Gemm g) {
       } else {
         const bool ok = k0 + r < kend && n0 + col < g.N;
         cp_async16(dst,
-                   ok ? g.B + static_cast<size_t>(k0 + r) * g.N + n0 + col
-                      : g.B,
+                   reinterpret_cast<const float*>(
+                       ok ? g.B + static_cast<size_t>(k0 + r) * g.N + n0 + col
+                          : g.B),
                    ok);
       }
     }
+  };
+  auto load = [&](int s, int k0) {
+    if constexpr (kBf)
+      load_bf(s, k0);
+    else
+      load_f32(s, k0);
   };
 
   // 8 warps as 2 (rows) x 4 (columns), each a 64 x 32 tile of 4 x 4
@@ -481,7 +680,48 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_bwd_kernel(Gemm g) {
     const int next = step + kStages - 1;
     if (next < steps) load(next % kStages, kbeg + next * kBK2);
     cp_async_commit();
-    const float* As = smem + (step % kStages) * stage;
+    if constexpr (kBf) {
+      const unsigned short* Ab =
+          reinterpret_cast<const unsigned short*>(smem + (step % kStages) *
+                                                             stage);
+      const unsigned short* Bb = Ab + a_floats;
+#pragma unroll
+      for (int ks = 0; ks < kBK2; ks += 8) {
+        unsigned bb[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = wn + j * 8 + gq;
+          bb[j][0] = static_cast<unsigned>(Bb[(ks + tq) * kLdCol + n]) << 16;
+          bb[j][1] = static_cast<unsigned>(Bb[(ks + tq + 4) * kLdCol + n])
+                     << 16;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int m = wm + i * 16 + gq;
+          unsigned short a[4];
+          if (MODE == kNN) {
+            a[0] = Ab[m * kLdR + ks + tq];
+            a[1] = Ab[(m + 8) * kLdR + ks + tq];
+            a[2] = Ab[m * kLdR + ks + tq + 4];
+            a[3] = Ab[(m + 8) * kLdR + ks + tq + 4];
+          } else {
+            a[0] = Ab[(ks + tq) * kLdCol + m];
+            a[1] = Ab[(ks + tq) * kLdCol + m + 8];
+            a[2] = Ab[(ks + tq + 4) * kLdCol + m];
+            a[3] = Ab[(ks + tq + 4) * kLdCol + m + 8];
+          }
+          const unsigned ab[4] = {
+              static_cast<unsigned>(a[0]) << 16,
+              static_cast<unsigned>(a[1]) << 16,
+              static_cast<unsigned>(a[2]) << 16,
+              static_cast<unsigned>(a[3]) << 16};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], ab, bb[j]);
+        }
+      }
+      continue;
+    }
+    const float* As = smem_f + (step % kStages) * stage;
     const float* Bs = As + a_floats;
 #pragma unroll
     for (int ks = 0; ks < kBK2; ks += 8) {
@@ -524,7 +764,7 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_bwd_kernel(Gemm g) {
   }
   cp_async_wait<0>();
 
-  float* C = g.C;
+  O* C = g.C;
   if (MODE == kTN) C += static_cast<size_t>(blockIdx.z) * g.M * g.N;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -543,45 +783,49 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_bwd_kernel(Gemm g) {
         }
         const size_t at = static_cast<size_t>(m) * g.N + n;
         if (EPI == kDGelu) {
-          const float2 p = __ldg(reinterpret_cast<const float2*>(g.aux + at));
+          const float2 p = ldg2(g.aux + at);
           v = make_float2(v.x * dgelu(p.x), v.y * dgelu(p.y));
         }
-        *reinterpret_cast<float2*>(C + at) = v;
+        st2g(C + at, v);
       }
     }
 }
 
-template <int MODE, int EPI>
-cudaError_t gemm_bwd(const Gemm& g, int splits, cudaStream_t stream) {
-  const int bytes = static_cast<int>(sizeof(float) * kStages *
-                                     gemm_stage_floats(MODE));
+template <int MODE, int EPI, typename S, typename O>
+cudaError_t gemm_bwd(const Gemm<S, O>& g, int splits, cudaStream_t stream) {
+  const int bytes = static_cast<int>(sizeof(S) * kStages *
+                                     gemm_stage_elems<S>(MODE));
   cudaError_t err = cudaFuncSetAttribute(
-      gemm_bwd_kernel<MODE, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      gemm_bwd_kernel<MODE, EPI, S, O>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const int cols = g.N + (MODE == kTN && g.bias != nullptr ? 1 : 0);
   const dim3 grid((cols + kBN - 1) / kBN, (g.M + kBM - 1) / kBM, splits);
-  gemm_bwd_kernel<MODE, EPI><<<grid, kGemmThreads, bytes, stream>>>(g);
+  gemm_bwd_kernel<MODE, EPI, S, O><<<grid, kGemmThreads, bytes, stream>>>(g);
   return cudaGetLastError();
 }
 
 // y1 = LN1(x), y2 = LN2(x2) (blockIdx.y selects) with the forward's
 // statistics; M x D each, D a multiple of 4.
+template <typename S>
 struct LnApply {
-  const float *x, *mu, *inv, *s, *b;
-  float* y;
+  const S* x;
+  const float *mu, *inv;
+  const S *s, *b;
+  S* y;
 };
 
-__global__ void ln_apply_kernel(LnApply p0, LnApply p1, int M, int D) {
-  const LnApply& p = blockIdx.y == 0 ? p0 : p1;
+template <typename S>
+__global__ void ln_apply_kernel(LnApply<S> p0, LnApply<S> p1, int M, int D) {
+  const LnApply<S>& p = blockIdx.y == 0 ? p0 : p1;
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int d4 = D / 4;
   if (i >= static_cast<size_t>(M) * d4) return;
   const int r = static_cast<int>(i / d4), c = static_cast<int>(i % d4) * 4;
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p.x) + i);
-  const float4 s = __ldg(reinterpret_cast<const float4*>(p.s + c));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p.b + c));
-  reinterpret_cast<float4*>(p.y)[i] = ln_apply4(v, p.mu[r], p.inv[r], s, b);
+  const float4 v = ldg4(p.x + 4 * i);
+  const float4 s = ldg4(p.s + c);
+  const float4 b = ldg4(p.b + c);
+  st4g(p.y + 4 * i, ln_apply4(v, p.mu[r], p.inv[r], s, b));
 }
 
 // LayerNorm backward, one warp per row (rows warp + k x (warps of the
@@ -589,13 +833,14 @@ __global__ void ln_apply_kernel(LnApply p0, LnApply p1, int M, int D) {
 // out = res + inv (dxh - mean(dxh) - xh mean(dxh xh)); the thread block's
 // sums of dy xh and dy per column go to part[blockIdx.x] (2D floats), each
 // warp gathering its rows' in its own row of shared memory (kWarps x 2D).
+template <typename S>
 __global__ void __launch_bounds__(kLnThreads)
     ln_bwd_rows_kernel(const float* __restrict__ dy,
-                       const float* __restrict__ x,
+                       const S* __restrict__ x,
                        const float* __restrict__ mu,
                        const float* __restrict__ inv,
-                       const float* __restrict__ s,
-                       const float* __restrict__ res, float* __restrict__ out,
+                       const S* __restrict__ s,
+                       const S* __restrict__ res, S* __restrict__ out,
                        float* __restrict__ part, int M, int D) {
   extern __shared__ __align__(16) float red[];
   constexpr int kWarps = kLnThreads / 32;
@@ -605,16 +850,16 @@ __global__ void __launch_bounds__(kLnThreads)
   for (int c = lane; c < 2 * d4; c += 32)
     mine[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
-  const float4* s4 = reinterpret_cast<const float4*>(s);
   for (int row = blockIdx.x * kWarps + warp; row < M;
        row += gridDim.x * kWarps) {
     const size_t base = static_cast<size_t>(row) * D;
-    const float4* d4p = reinterpret_cast<const float4*>(dy + base);
-    const float4* x4p = reinterpret_cast<const float4*>(x + base);
+    const float* dp = dy + base;
+    const S* xp = x + base;
     const float m = mu[row], iv = inv[row];
     float s1 = 0.f, s2 = 0.f;
     for (int k = lane; k < d4; k += 32) {
-      const float4 d = __ldg(d4p + k), v = __ldg(x4p + k), sc = __ldg(s4 + k);
+      const float4 d = ldg4(dp + 4 * k), v = ldg4(xp + 4 * k),
+                   sc = ldg4(s + 4 * k);
       const float e0 = d.x * sc.x, e1 = d.y * sc.y, e2 = d.z * sc.z,
                   e3 = d.w * sc.w;
       s1 += (e0 + e1) + (e2 + e3);
@@ -626,17 +871,18 @@ __global__ void __launch_bounds__(kLnThreads)
       s2 += __shfl_xor_sync(0xffffffffu, s2, o);
     }
     const float m1 = s1 / D, m2 = s2 / D;
-    const float4* r4 = reinterpret_cast<const float4*>(res + base);
-    float4* o4 = reinterpret_cast<float4*>(out + base);
+    const S* rp = res + base;
+    S* op = out + base;
     for (int k = lane; k < d4; k += 32) {
-      const float4 d = __ldg(d4p + k), v = __ldg(x4p + k), sc = __ldg(s4 + k),
-                   r = __ldg(r4 + k);
+      const float4 d = ldg4(dp + 4 * k), v = ldg4(xp + 4 * k),
+                   sc = ldg4(s + 4 * k), r = ldg4(rp + 4 * k);
       const float4 xh = make_float4((v.x - m) * iv, (v.y - m) * iv,
                                     (v.z - m) * iv, (v.w - m) * iv);
-      o4[k] = make_float4(r.x + iv * (d.x * sc.x - m1 - xh.x * m2),
-                          r.y + iv * (d.y * sc.y - m1 - xh.y * m2),
-                          r.z + iv * (d.z * sc.z - m1 - xh.z * m2),
-                          r.w + iv * (d.w * sc.w - m1 - xh.w * m2));
+      st4g(op + 4 * k,
+           make_float4(r.x + iv * (d.x * sc.x - m1 - xh.x * m2),
+                       r.y + iv * (d.y * sc.y - m1 - xh.y * m2),
+                       r.z + iv * (d.z * sc.z - m1 - xh.z * m2),
+                       r.w + iv * (d.w * sc.w - m1 - xh.w * m2)));
       float4 a = mine[k];
       mine[k] = make_float4(fmaf(d.x, xh.x, a.x), fmaf(d.y, xh.y, a.y),
                             fmaf(d.z, xh.z, a.z), fmaf(d.w, xh.w, a.w));
@@ -656,24 +902,25 @@ __global__ void __launch_bounds__(kLnThreads)
 // | v] and do (N*T) x D -> dqkv (N*T) x 3D, the probabilities recomputed as
 // attention_kernel computes them. Dynamic shared memory: q, k, v, do (T x
 // hd each), p and ds (T x T), attn_bwd_bytes.
+template <typename S>
 __global__ void __launch_bounds__(kAttnThreads)
-    attention_bwd_kernel(const float* __restrict__ qkv,
+    attention_bwd_kernel(const S* __restrict__ qkv,
                          const float* __restrict__ dout,
-                         float* __restrict__ dqkv, int T, int D, int H,
+                         S* __restrict__ dqkv, int T, int D, int H,
                          float scale) {
   extern __shared__ __align__(16) float smem[];
   const int n = blockIdx.x / H, h = blockIdx.x % H;
   const int hd = D / H;
   float *q = smem, *k = q + T * hd, *v = k + T * hd, *dov = v + T * hd,
         *p = dov + T * hd, *ds = p + T * T;
-  const float* base = qkv + static_cast<size_t>(n) * T * 3 * D + h * hd;
+  const S* base = qkv + static_cast<size_t>(n) * T * 3 * D + h * hd;
   const float* dbase = dout + static_cast<size_t>(n) * T * D + h * hd;
   for (int idx = threadIdx.x; idx < T * hd; idx += kAttnThreads) {
     const int t = idx / hd, c = idx % hd;
-    const float* row = base + static_cast<size_t>(t) * 3 * D + c;
-    q[idx] = __ldg(row) * scale;
-    k[idx] = __ldg(row + D);
-    v[idx] = __ldg(row + 2 * D);
+    const S* row = base + static_cast<size_t>(t) * 3 * D + c;
+    q[idx] = ldg1(row) * scale;
+    k[idx] = ldg1(row + D);
+    v[idx] = ldg1(row + 2 * D);
     dov[idx] = __ldg(dbase + static_cast<size_t>(t) * D + c);
   }
   __syncthreads();
@@ -706,7 +953,7 @@ __global__ void __launch_bounds__(kAttnThreads)
     for (int j = 0; j < T; ++j) drow[j] = row[j] * (drow[j] - cdp);
   }
   __syncthreads();
-  float* dst = dqkv + static_cast<size_t>(n) * T * 3 * D + h * hd;
+  S* dst = dqkv + static_cast<size_t>(n) * T * 3 * D + h * hd;
   for (int idx = threadIdx.x; idx < T * hd; idx += kAttnThreads) {
     const int i = idx / hd, c = idx % hd;
     float dq = 0.f, dk = 0.f, dv = 0.f;
@@ -715,33 +962,36 @@ __global__ void __launch_bounds__(kAttnThreads)
       dk = fmaf(ds[j * T + i], q[j * hd + c], dk);
       dv = fmaf(p[j * T + i], dov[j * hd + c], dv);
     }
-    float* row = dst + static_cast<size_t>(i) * 3 * D + c;
-    row[0] = dq * scale;
-    row[D] = dk;
-    row[2 * D] = dv;
+    S* row = dst + static_cast<size_t>(i) * 3 * D + c;
+    put(row, dq * scale);
+    put(row + D, dk);
+    put(row + 2 * D, dv);
   }
 }
 
 // out[e] = sum over p < parts, in order, of part[p stride + e], e < len,
 // for each segment (blockIdx.y).
+template <typename S>
 struct Segment {
   const float* part;
-  float* out;
+  S* out;
   int parts, len, stride;
 };
 constexpr int kMaxSegments = 12;
+template <typename S>
 struct Segments {
-  Segment s[kMaxSegments];
+  Segment<S> s[kMaxSegments];
 };
 
-__global__ void reduce_segments_kernel(Segments segs) {
-  const Segment& sg = segs.s[blockIdx.y];
+template <typename S>
+__global__ void reduce_segments_kernel(Segments<S> segs) {
+  const Segment<S>& sg = segs.s[blockIdx.y];
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= sg.len) return;
   float v = 0.f;
   for (int p = 0; p < sg.parts; ++p)
     v += sg.part[static_cast<size_t>(p) * sg.stride + e];
-  sg.out[e] = v;
+  put(sg.out + e, v);
 }
 
 // How a weight gradient of rows x cols (+ a bias column) over K summed rows
@@ -801,6 +1051,195 @@ bool valid(int n, int T, int D, int H, int hidden) {
          (n * T + kBM - 1) / kBM <= 65535;
 }
 
+template <typename S>
+int launch_block(const S* x, S* out, const S* ln1_s, const S* ln1_b,
+                 const S* qkv_w, const S* qkv_b, const S* proj_w,
+                 const S* proj_b, const S* ln2_s, const S* ln2_b,
+                 const S* fc1_w, const S* fc1_b, const S* fc2_w,
+                 const S* fc2_b, float* stats, S* qkv, S* attn, S* x2, S* mlp,
+                 S* h, int n, int T, int D, int H, int hidden, float scale,
+                 cudaStream_t stream) {
+  const int M = n * T;
+  if (M <= 0) return 0;
+  if (!valid(n, T, D, H, hidden) || out == x)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float *mu1 = stats, *inv1 = stats + M, *mu2 = stats + 2 * M,
+        *inv2 = stats + 3 * M;
+  S* y = out;  // y1, then y2: each dead before the next is written
+  const int ln_blocks = (M + kStatsThreads / 32 - 1) / (kStatsThreads / 32);
+  const int attn_bytes = attn_fwd_bytes(T, D / H);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+#define PV2C_STEP(call) \
+  if (err == cudaSuccess) err = (call)
+
+  ln_fwd_kernel<S><<<ln_blocks, kStatsThreads, 0, stream>>>(
+      x, ln1_s, ln1_b, M, D, mu1, inv1, y);
+  err = cudaGetLastError();
+  PV2C_STEP(gemm_fwd<kBias>(
+      FwdGemm<S>{y, qkv_w, qkv_b, nullptr, qkv, nullptr, M, 3 * D, D},
+      stream));
+  if (err == cudaSuccess) {
+    attention_kernel<S><<<n * H, kAttnThreads, attn_bytes, stream>>>(
+        qkv, attn, T, D, H, scale);
+    err = cudaGetLastError();
+  }
+  PV2C_STEP(gemm_fwd<kResidual>(
+      FwdGemm<S>{attn, proj_w, proj_b, x, x2, nullptr, M, D, D}, stream));
+  if (err == cudaSuccess) {
+    ln_fwd_kernel<S><<<ln_blocks, kStatsThreads, 0, stream>>>(
+        x2, ln2_s, ln2_b, M, D, mu2, inv2, y);
+    err = cudaGetLastError();
+  }
+  PV2C_STEP(gemm_fwd<kGelu>(
+      FwdGemm<S>{y, fc1_w, fc1_b, nullptr, mlp, h, M, hidden, D}, stream));
+  PV2C_STEP(gemm_fwd<kResidual>(
+      FwdGemm<S>{mlp, fc2_w, fc2_b, x2, out, nullptr, M, D, hidden},
+      stream));
+#undef PV2C_STEP
+  return static_cast<int>(err);
+}
+
+template <typename S>
+int launch_block_bwd(const S* x, const S* ln1_s, const S* ln1_b,
+                     const S* qkv_w, const S* proj_w, const S* ln2_s,
+                     const S* ln2_b, const S* fc1_w, const S* fc2_w,
+                     const float* stats, const S* qkv, const S* attn,
+                     const S* x2, const S* h, const S* mlp, const S* g, S* dx,
+                     S* grads, S* dh, float* dy, S* dx2, S* dqkv, S* y1,
+                     S* y2, float* part, int n, int T, int D, int H,
+                     int hidden, float scale, cudaStream_t stream) {
+  const int M = n * T, G = hidden;
+  if (M <= 0) return 0;
+  if (!valid(n, T, D, H, hidden))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float *mu1 = stats, *inv1 = stats + M, *mu2 = stats + 2 * M,
+              *inv2 = stats + 3 * M;
+  // the gradients' offsets in grads, in the weights' order
+  S* g_ln1_s = grads;
+  S* g_ln1_b = g_ln1_s + D;
+  S* g_qkv_w = g_ln1_b + D;
+  S* g_qkv_b = g_qkv_w + 3 * D * D;
+  S* g_proj_w = g_qkv_b + 3 * D;
+  S* g_proj_b = g_proj_w + D * D;
+  S* g_ln2_s = g_proj_b + D;
+  S* g_ln2_b = g_ln2_s + D;
+  S* g_fc1_w = g_ln2_b + D;
+  S* g_fc1_b = g_fc1_w + G * D;
+  S* g_fc2_w = g_fc1_b + G;
+  S* g_fc2_b = g_fc2_w + D * G;
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int lg = ln_grid(sms);
+
+  // part: each dW's split parts and bias parts, then the LayerNorm parts
+  Segments<S> segs{};
+  int nseg = 0;
+  float* free_part = part;
+  struct WGrad {
+    float *w, *b;
+    int splits, k_split;
+  };
+  auto wgrad = [&](int rows, int cols, S* out_w, S* out_b) {
+    WGrad r;
+    split_k(rows, cols, M, sms, &r.splits, &r.k_split);
+    r.w = free_part;
+    r.b = r.w + static_cast<size_t>(r.splits) * rows * cols;
+    free_part = r.b + static_cast<size_t>(r.splits) * rows;
+    segs.s[nseg++] =
+        Segment<S>{r.w, out_w, r.splits, rows * cols, rows * cols};
+    segs.s[nseg++] = Segment<S>{r.b, out_b, r.splits, rows, rows};
+    return r;
+  };
+  const WGrad w2 = wgrad(D, G, g_fc2_w, g_fc2_b);
+  const WGrad w1 = wgrad(G, D, g_fc1_w, g_fc1_b);
+  const WGrad wp = wgrad(D, D, g_proj_w, g_proj_b);
+  const WGrad wq = wgrad(3 * D, D, g_qkv_w, g_qkv_b);
+  float* ln2_part = free_part;
+  float* ln1_part = ln2_part + static_cast<size_t>(lg) * 2 * D;
+  segs.s[nseg++] = Segment<S>{ln2_part, g_ln2_s, lg, D, 2 * D};
+  segs.s[nseg++] = Segment<S>{ln2_part + D, g_ln2_b, lg, D, 2 * D};
+  segs.s[nseg++] = Segment<S>{ln1_part, g_ln1_s, lg, D, 2 * D};
+  segs.s[nseg++] = Segment<S>{ln1_part + D, g_ln1_b, lg, D, 2 * D};
+
+  const int ln_bytes = static_cast<int>(sizeof(float) * (kLnThreads / 32) *
+                                        2 * D);
+  const int abytes = attn_bwd_bytes(T, D / H);
+  err = cudaFuncSetAttribute(ln_bwd_rows_kernel<S>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             ln_bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attention_bwd_kernel<S>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               abytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+#define PV2C_STEP(call) \
+  if (err == cudaSuccess) err = (call)
+
+  // the LayerNorms' outputs, the dW1 and dWqkv products' X
+  const int apply_blocks = (M * (D / 4) + 255) / 256;
+  if (err == cudaSuccess) {
+    ln_apply_kernel<S><<<dim3(apply_blocks, 2), 256, 0, stream>>>(
+        LnApply<S>{x, mu1, inv1, ln1_s, ln1_b, y1},
+        LnApply<S>{x2, mu2, inv2, ln2_s, ln2_b, y2}, M, D);
+    err = cudaGetLastError();
+  }
+  // MLP half: du = g
+  PV2C_STEP((gemm_bwd<kNN, kDGelu>(
+      Gemm<S, S>{g, fc2_w, dh, nullptr, h, M, G, D, 0}, 1, stream)));
+  PV2C_STEP((gemm_bwd<kTN, kSet>(
+      Gemm<S, float>{g, mlp, w2.w, w2.b, nullptr, D, G, M, w2.k_split},
+      w2.splits, stream)));
+  PV2C_STEP((gemm_bwd<kNN, kSet>(
+      Gemm<S, float>{dh, fc1_w, dy, nullptr, nullptr, M, D, G, 0}, 1,
+      stream)));
+  PV2C_STEP((gemm_bwd<kTN, kSet>(
+      Gemm<S, float>{dh, y2, w1.w, w1.b, nullptr, G, D, M, w1.k_split},
+      w1.splits, stream)));
+  if (err == cudaSuccess) {
+    ln_bwd_rows_kernel<S><<<lg, kLnThreads, ln_bytes, stream>>>(
+        dy, x2, mu2, inv2, ln2_s, g, dx2, ln2_part, M, D);
+    err = cudaGetLastError();
+  }
+  // attention half: da = dx2
+  PV2C_STEP((gemm_bwd<kNN, kSet>(
+      Gemm<S, float>{dx2, proj_w, dy, nullptr, nullptr, M, D, D, 0}, 1,
+      stream)));
+  PV2C_STEP((gemm_bwd<kTN, kSet>(
+      Gemm<S, float>{dx2, attn, wp.w, wp.b, nullptr, D, D, M, wp.k_split},
+      wp.splits, stream)));
+  if (err == cudaSuccess) {
+    attention_bwd_kernel<S><<<n * H, kAttnThreads, abytes, stream>>>(
+        qkv, dy, dqkv, T, D, H, scale);
+    err = cudaGetLastError();
+  }
+  PV2C_STEP((gemm_bwd<kNN, kSet>(
+      Gemm<S, float>{dqkv, qkv_w, dy, nullptr, nullptr, M, D, 3 * D, 0}, 1,
+      stream)));
+  PV2C_STEP((gemm_bwd<kTN, kSet>(
+      Gemm<S, float>{dqkv, y1, wq.w, wq.b, nullptr, 3 * D, D, M, wq.k_split},
+      wq.splits, stream)));
+  if (err == cudaSuccess) {
+    ln_bwd_rows_kernel<S><<<lg, kLnThreads, ln_bytes, stream>>>(
+        dy, x, mu1, inv1, ln1_s, dx2, dx, ln1_part, M, D);
+    err = cudaGetLastError();
+  }
+  // every part, summed in order
+  int longest = 0;
+  for (int i = 0; i < nseg; ++i)
+    longest = segs.s[i].len > longest ? segs.s[i].len : longest;
+  if (err == cudaSuccess) {
+    reduce_segments_kernel<S><<<dim3((longest + 255) / 256, nseg), 256, 0,
+                                stream>>>(segs);
+    err = cudaGetLastError();
+  }
+#undef PV2C_STEP
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" {
@@ -823,50 +1262,34 @@ int pv2c_fused_temporal_block(
     const float* fc2_b, float* stats, float* qkv, float* attn, float* x2,
     float* mlp, float* h, int n, int T, int D, int H, int hidden, float scale,
     cudaStream_t stream) {
-  const int M = n * T;
-  if (M <= 0) return 0;
-  if (!valid(n, T, D, H, hidden) || out == x)
-    return static_cast<int>(cudaErrorInvalidValue);
-  float *mu1 = stats, *inv1 = stats + M, *mu2 = stats + 2 * M,
-        *inv2 = stats + 3 * M;
-  float* y = out;  // y1, then y2: each dead before the next is written
-  const int ln_blocks = (M + kStatsThreads / 32 - 1) / (kStatsThreads / 32);
-  const int attn_bytes = attn_fwd_bytes(T, D / H);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      attn_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-#define PV2C_STEP(call) \
-  if (err == cudaSuccess) err = (call)
-
-  ln_fwd_kernel<<<ln_blocks, kStatsThreads, 0, stream>>>(x, ln1_s, ln1_b, M,
-                                                         D, mu1, inv1, y);
-  err = cudaGetLastError();
-  PV2C_STEP(gemm_fwd<kBias>(
-      FwdGemm{y, qkv_w, qkv_b, nullptr, qkv, nullptr, M, 3 * D, D}, stream));
-  if (err == cudaSuccess) {
-    attention_kernel<<<n * H, kAttnThreads, attn_bytes, stream>>>(
-        qkv, attn, T, D, H, scale);
-    err = cudaGetLastError();
-  }
-  PV2C_STEP(gemm_fwd<kResidual>(
-      FwdGemm{attn, proj_w, proj_b, x, x2, nullptr, M, D, D}, stream));
-  if (err == cudaSuccess) {
-    ln_fwd_kernel<<<ln_blocks, kStatsThreads, 0, stream>>>(
-        x2, ln2_s, ln2_b, M, D, mu2, inv2, y);
-    err = cudaGetLastError();
-  }
-  PV2C_STEP(gemm_fwd<kGelu>(
-      FwdGemm{y, fc1_w, fc1_b, nullptr, mlp, h, M, hidden, D}, stream));
-  PV2C_STEP(gemm_fwd<kResidual>(
-      FwdGemm{mlp, fc2_w, fc2_b, x2, out, nullptr, M, D, hidden}, stream));
-#undef PV2C_STEP
-  return static_cast<int>(err);
+  return launch_block<float>(x, out, ln1_s, ln1_b, qkv_w, qkv_b, proj_w,
+                             proj_b, ln2_s, ln2_b, fc1_w, fc1_b, fc2_w,
+                             fc2_b, stats, qkv, attn, x2, mlp, h, n, T, D, H,
+                             hidden, scale, stream);
 }
 
-// Shared memory of one forward GEMM thread block, in bytes (the wrapper's
-// copy of the plan is checked against it).
-int pv2c_temporal_fwd_gemm_smem_bytes() { return kFSmemBytes; }
+// The same in bf16: x, out, the weights and the scratch but stats bf16.
+int pv2c_fused_temporal_block_bf16(
+    const bf16* x, bf16* out, const bf16* ln1_s, const bf16* ln1_b,
+    const bf16* qkv_w, const bf16* qkv_b, const bf16* proj_w,
+    const bf16* proj_b, const bf16* ln2_s, const bf16* ln2_b,
+    const bf16* fc1_w, const bf16* fc1_b, const bf16* fc2_w,
+    const bf16* fc2_b, float* stats, bf16* qkv, bf16* attn, bf16* x2,
+    bf16* mlp, bf16* h, int n, int T, int D, int H, int hidden, float scale,
+    cudaStream_t stream) {
+  return launch_block<bf16>(x, out, ln1_s, ln1_b, qkv_w, qkv_b, proj_w,
+                            proj_b, ln2_s, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b,
+                            stats, qkv, attn, x2, mlp, h, n, T, D, H, hidden,
+                            scale, stream);
+}
+
+// Shared memory of one forward GEMM thread block, in bytes, for elements
+// of element_size bytes (4: float32, 2: bf16); the wrapper's copy of the
+// plan is checked against it.
+int pv2c_temporal_fwd_gemm_smem_bytes(int element_size) {
+  return element_size == 2 ? fwd_gemm_smem_bytes<bf16>()
+                           : fwd_gemm_smem_bytes<float>();
+}
 
 // Floats of the backward's `part` scratch (below), on the current device.
 // Returns minus a CUDA error code on failure.
@@ -894,133 +1317,35 @@ int pv2c_fused_temporal_block_bwd(
     const float* g, float* dx, float* grads, float* dh, float* dy,
     float* dx2, float* dqkv, float* y1, float* y2, float* part, int n, int T,
     int D, int H, int hidden, float scale, cudaStream_t stream) {
-  const int M = n * T, G = hidden;
-  if (M <= 0) return 0;
-  if (!valid(n, T, D, H, hidden))
-    return static_cast<int>(cudaErrorInvalidValue);
   (void)qkv_b;
   (void)proj_b;
   (void)fc1_b;
   (void)fc2_b;
-  const float *mu1 = stats, *inv1 = stats + M, *mu2 = stats + 2 * M,
-              *inv2 = stats + 3 * M;
-  // the gradients' offsets in grads, in the weights' order
-  float* g_ln1_s = grads;
-  float* g_ln1_b = g_ln1_s + D;
-  float* g_qkv_w = g_ln1_b + D;
-  float* g_qkv_b = g_qkv_w + 3 * D * D;
-  float* g_proj_w = g_qkv_b + 3 * D;
-  float* g_proj_b = g_proj_w + D * D;
-  float* g_ln2_s = g_proj_b + D;
-  float* g_ln2_b = g_ln2_s + D;
-  float* g_fc1_w = g_ln2_b + D;
-  float* g_fc1_b = g_fc1_w + G * D;
-  float* g_fc2_w = g_fc1_b + G;
-  float* g_fc2_b = g_fc2_w + D * G;
-  int sms = 0;
-  cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int lg = ln_grid(sms);
+  return launch_block_bwd<float>(
+      x, ln1_s, ln1_b, qkv_w, proj_w, ln2_s, ln2_b, fc1_w, fc2_w, stats, qkv,
+      attn, x2, h, mlp, g, dx, grads, dh, dy, dx2, dqkv, y1, y2, part, n, T,
+      D, H, hidden, scale, stream);
+}
 
-  // part: each dW's split parts and bias parts, then the LayerNorm parts
-  Segments segs{};
-  int nseg = 0;
-  float* free_part = part;
-  struct WGrad {
-    float *w, *b;
-    int splits, k_split;
-  };
-  auto wgrad = [&](int rows, int cols, float* out_w, float* out_b) {
-    WGrad r;
-    split_k(rows, cols, M, sms, &r.splits, &r.k_split);
-    r.w = free_part;
-    r.b = r.w + static_cast<size_t>(r.splits) * rows * cols;
-    free_part = r.b + static_cast<size_t>(r.splits) * rows;
-    segs.s[nseg++] = Segment{r.w, out_w, r.splits, rows * cols, rows * cols};
-    segs.s[nseg++] = Segment{r.b, out_b, r.splits, rows, rows};
-    return r;
-  };
-  const WGrad w2 = wgrad(D, G, g_fc2_w, g_fc2_b);
-  const WGrad w1 = wgrad(G, D, g_fc1_w, g_fc1_b);
-  const WGrad wp = wgrad(D, D, g_proj_w, g_proj_b);
-  const WGrad wq = wgrad(3 * D, D, g_qkv_w, g_qkv_b);
-  float* ln2_part = free_part;
-  float* ln1_part = ln2_part + static_cast<size_t>(lg) * 2 * D;
-  segs.s[nseg++] = Segment{ln2_part, g_ln2_s, lg, D, 2 * D};
-  segs.s[nseg++] = Segment{ln2_part + D, g_ln2_b, lg, D, 2 * D};
-  segs.s[nseg++] = Segment{ln1_part, g_ln1_s, lg, D, 2 * D};
-  segs.s[nseg++] = Segment{ln1_part + D, g_ln1_b, lg, D, 2 * D};
-
-  const int ln_bytes = static_cast<int>(sizeof(float) * (kLnThreads / 32) *
-                                        2 * D);
-  const int abytes = attn_bwd_bytes(T, D / H);
-  err = cudaFuncSetAttribute(ln_bwd_rows_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             ln_bytes);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(attention_bwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               abytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-#define PV2C_STEP(call) \
-  if (err == cudaSuccess) err = (call)
-
-  // the LayerNorms' outputs, the dW1 and dWqkv products' X
-  const int apply_blocks = (M * (D / 4) + 255) / 256;
-  if (err == cudaSuccess) {
-    ln_apply_kernel<<<dim3(apply_blocks, 2), 256, 0, stream>>>(
-        LnApply{x, mu1, inv1, ln1_s, ln1_b, y1},
-        LnApply{x2, mu2, inv2, ln2_s, ln2_b, y2}, M, D);
-    err = cudaGetLastError();
-  }
-  // MLP half: du = g
-  PV2C_STEP((gemm_bwd<kNN, kDGelu>(
-      Gemm{g, fc2_w, dh, nullptr, h, M, G, D, 0}, 1, stream)));
-  PV2C_STEP((gemm_bwd<kTN, kSet>(
-      Gemm{g, mlp, w2.w, w2.b, nullptr, D, G, M, w2.k_split}, w2.splits,
-      stream)));
-  PV2C_STEP((gemm_bwd<kNN, kSet>(
-      Gemm{dh, fc1_w, dy, nullptr, nullptr, M, D, G, 0}, 1, stream)));
-  PV2C_STEP((gemm_bwd<kTN, kSet>(
-      Gemm{dh, y2, w1.w, w1.b, nullptr, G, D, M, w1.k_split}, w1.splits,
-      stream)));
-  if (err == cudaSuccess) {
-    ln_bwd_rows_kernel<<<lg, kLnThreads, ln_bytes, stream>>>(
-        dy, x2, mu2, inv2, ln2_s, g, dx2, ln2_part, M, D);
-    err = cudaGetLastError();
-  }
-  // attention half: da = dx2
-  PV2C_STEP((gemm_bwd<kNN, kSet>(
-      Gemm{dx2, proj_w, dy, nullptr, nullptr, M, D, D, 0}, 1, stream)));
-  PV2C_STEP((gemm_bwd<kTN, kSet>(
-      Gemm{dx2, attn, wp.w, wp.b, nullptr, D, D, M, wp.k_split}, wp.splits,
-      stream)));
-  if (err == cudaSuccess) {
-    attention_bwd_kernel<<<n * H, kAttnThreads, abytes, stream>>>(
-        qkv, dy, dqkv, T, D, H, scale);
-    err = cudaGetLastError();
-  }
-  PV2C_STEP((gemm_bwd<kNN, kSet>(
-      Gemm{dqkv, qkv_w, dy, nullptr, nullptr, M, D, 3 * D, 0}, 1, stream)));
-  PV2C_STEP((gemm_bwd<kTN, kSet>(
-      Gemm{dqkv, y1, wq.w, wq.b, nullptr, 3 * D, D, M, wq.k_split},
-      wq.splits, stream)));
-  if (err == cudaSuccess) {
-    ln_bwd_rows_kernel<<<lg, kLnThreads, ln_bytes, stream>>>(
-        dy, x, mu1, inv1, ln1_s, dx2, dx, ln1_part, M, D);
-    err = cudaGetLastError();
-  }
-  // every part, summed in order
-  int longest = 0;
-  for (int i = 0; i < nseg; ++i)
-    longest = segs.s[i].len > longest ? segs.s[i].len : longest;
-  if (err == cudaSuccess) {
-    reduce_segments_kernel<<<dim3((longest + 255) / 256, nseg), 256, 0,
-                             stream>>>(segs);
-    err = cudaGetLastError();
-  }
-#undef PV2C_STEP
-  return static_cast<int>(err);
+// The same in bf16: every tensor bf16 but stats, dy and part (float32).
+int pv2c_fused_temporal_block_bwd_bf16(
+    const bf16* x, const bf16* ln1_s, const bf16* ln1_b, const bf16* qkv_w,
+    const bf16* qkv_b, const bf16* proj_w, const bf16* proj_b,
+    const bf16* ln2_s, const bf16* ln2_b, const bf16* fc1_w,
+    const bf16* fc1_b, const bf16* fc2_w, const bf16* fc2_b,
+    const float* stats, const bf16* qkv, const bf16* attn, const bf16* x2,
+    const bf16* h, const bf16* mlp, const bf16* g, bf16* dx, bf16* grads,
+    bf16* dh, float* dy, bf16* dx2, bf16* dqkv, bf16* y1, bf16* y2,
+    float* part, int n, int T, int D, int H, int hidden, float scale,
+    cudaStream_t stream) {
+  (void)qkv_b;
+  (void)proj_b;
+  (void)fc1_b;
+  (void)fc2_b;
+  return launch_block_bwd<bf16>(
+      x, ln1_s, ln1_b, qkv_w, proj_w, ln2_s, ln2_b, fc1_w, fc2_w, stats, qkv,
+      attn, x2, h, mlp, g, dx, grads, dh, dy, dx2, dqkv, y1, y2, part, n, T,
+      D, H, hidden, scale, stream);
 }
 
 }  // extern "C"

@@ -69,6 +69,17 @@ __device__ __forceinline__ void mma_tf32(float* d, const unsigned* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// The bf16 forms' operands: a bf16 value widened to fp32 has its low 16
+// bits zero, so it is a TF32 value, and one TF32 product of such operands
+// is exact (bf16's 8-bit significand fits TF32's 10 bits); the sum then
+// stays in the tensor cores, in fp32, as a native bf16 product's does.
+// tf32_of_bf16 rounds x to bf16 (to nearest even) and gives the TF32 bits.
+__device__ __forceinline__ unsigned tf32_of_bf16(float x) {
+  unsigned u = __float_as_uint(x);
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return u & 0xffff0000u;
+}
+
 // d += a b in 3xTF32 on split fragments (see the top of this file): the
 // three products summed in the tensor cores, the small ones first, then
 // added to d in fp32.

@@ -17,6 +17,13 @@ clip, ``param_counts`` and the trainer's anomaly check never see them. An
 update clips the gradients by their global norm over every model
 (``gradient_clip_val``), sets each schedule's lr and steps AdamW, as the
 JAX package's ``clip_by_global_norm`` + ``multi_transform`` chain does.
+
+``precision="bf16"`` (or ``"16"``) is the JAX package's AMP-style mixed
+precision: the parameters (not the running statistics), the inputs and the
+targets are cast to bf16 where a model is applied, by differentiable casts,
+so the gradients reach the float32 parameters as float32; every floating
+output is cast back to float32 before the projection, the losses and the
+metrics. The master weights, AdamW and the geometry stay float32.
 """
 import inspect
 from dataclasses import dataclass, field
@@ -36,6 +43,43 @@ from .output_types import MovementsModelOutputType
 Params = Dict[str, Dict[str, torch.Tensor]]
 
 DEFAULT_SEED = 22742
+
+#: the flows' ``precision`` values (the JAX CLI's ``--precision``); "16"
+#: means bf16, as in the JAX package
+PRECISIONS = ("32", "16", "bf16")
+
+
+def resolve_precision(precision) -> str:
+    """``"bf16"`` for ``"16"`` and ``"bf16"``, ``"32"`` for ``"32"``; any
+    other value raises ``ValueError``."""
+    if str(precision) not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; one of "
+                         f"{PRECISIONS}")
+    return "32" if str(precision) == "32" else "bf16"
+
+
+def cast_floats(tree, dtype: torch.dtype):
+    """Every floating tensor of ``tree`` (a tensor, or dicts, lists and
+    tuples of them; anything else as it is) cast to ``dtype``, by
+    differentiable casts."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    if isinstance(tree, dict):
+        return {k: cast_floats(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_floats(v, dtype) for v in tree)
+    return tree
+
+
+def cast_params(tree: Dict[str, torch.Tensor], buffers: set,
+                dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """A model's parameter dict with its parameters cast to ``dtype`` and
+    its persistent buffers (``buffers``: the running statistics) passed
+    through as the same tensors, so that a training step's in-place update
+    of them lands in the state, in their own dtype (the JAX package keeps
+    its mutables in their original dtype)."""
+    return {k: v if k in buffers else cast_floats(v, dtype)
+            for k, v in tree.items()}
 
 
 @dataclass
@@ -143,11 +187,8 @@ class BaseFlow:
                  seed: int = DEFAULT_SEED,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
-        if str(precision) in ("16", "bf16"):
-            raise NotImplementedError(
-                "the port runs in float32 only; bf16 is not ported yet")
-        if str(precision) != "32":
-            raise ValueError(f"unknown precision {precision!r}")
+        #: "32", or "bf16": the models run in bf16 (module docstring)
+        self.precision = resolve_precision(precision)
         #: global-norm gradient clipping over every model's gradients; 0 is
         #: off
         self.gradient_clip_val = float(gradient_clip_val or 0.0)
@@ -183,6 +224,10 @@ class BaseFlow:
         self._takes_generator = [
             m for m in (self.movements_model, self.trajectory_model)
             if "generator" in inspect.signature(m.forward).parameters]
+        #: each model's persistent buffers, which a bf16 step leaves float32
+        self._buffers = {id(m): buffer_names(m)
+                         for m in (self.movements_model,
+                                   self.trajectory_model)}
         self.metrics = MetricCollection(self.get_metrics())
         self.initial_metrics = MetricCollection(
             {**self.get_metrics(), **self.get_initial_metrics()})
@@ -275,7 +320,15 @@ class BaseFlow:
         kwargs = {"training": training}
         if training and any(model is m for m in self._takes_generator):
             kwargs["generator"] = self.generator
-        return functional_call(model, params, (inputs, targets), kwargs)
+        if self.precision == "bf16":
+            params = cast_params(params, self._buffers[id(model)],
+                                 torch.bfloat16)
+            inputs = cast_floats(inputs, torch.bfloat16)
+            targets = cast_floats(targets, torch.bfloat16)
+        out = functional_call(model, params, (inputs, targets), kwargs)
+        if self.precision == "bf16":
+            out = cast_floats(out, torch.float32)
+        return out
 
     def _inner_step(self, params: Params, batch, training: bool):
         """-> sliced dict. Flow-specific."""

@@ -8,7 +8,9 @@ parameter dict, here ``{"classification": state_dict}``, and trains it with
 one AdamW group (clipped by ``gradient_clip_val``, on its LR schedule if
 enabled). Its baseline, which the trainer logs at the start of a fit, is
 the prevalent class of each batch (``initial_preds``) under the same
-metrics (``initial_metrics``).
+metrics (``initial_metrics``). ``precision="bf16"`` runs the classifier in
+bf16 as the other flows run their models (``flows/base.py``); the logits
+go back to float32 before the loss.
 """
 from typing import Any, Dict, Optional, Tuple
 
@@ -24,7 +26,8 @@ from ..models.base import OptimizerSettings, make_adamw
 from ..models.classification import CLASSIFICATION_MODELS
 from ..utils.device import DeviceLike, resolve_device
 from .base import (DEFAULT_SEED, BaseFlow, FlowState, Params, apply_update,
-                   make_schedules, state_params, trained)
+                   buffer_names, cast_floats, cast_params, make_schedules,
+                   resolve_precision, state_params, trained)
 from .output_types import ClassificationModelOutputType
 
 
@@ -41,12 +44,8 @@ class ClassificationFlow:
                  seed: int = DEFAULT_SEED,
                  device: DeviceLike = None) -> None:
         self.device = resolve_device(device)
-        if str(precision) in ("16", "bf16"):
-            raise NotImplementedError(
-                "the port runs in float32 only; bf16 is not ported yet (see "
-                "ROADMAP.md)")
-        if str(precision) != "32":
-            raise ValueError(f"unknown precision {precision!r}")
+        #: "32", or "bf16": the classifier runs in bf16
+        self.precision = resolve_precision(precision)
         #: global-norm gradient clipping; 0 is off
         self.gradient_clip_val = float(gradient_clip_val or 0.0)
         #: optimizer steps in an epoch, for the LR schedule (set by the
@@ -56,6 +55,7 @@ class ClassificationFlow:
             classification_model = self.get_default_models()[
                 "classification"](generator=torch.Generator().manual_seed(seed))
         self.classification_model = classification_model.to(self.device)
+        self._buffers = buffer_names(self.classification_model)
         self.targets_key = classification_targets_key
         self.outputs_key = classification_targets_key + "_logits"
         self.num_classes = num_classes
@@ -162,10 +162,16 @@ class ClassificationFlow:
 
     # -- steps ----------------------------------------------------------------
     def _apply(self, params: Params, inputs, training: bool) -> torch.Tensor:
-        return functional_call(
-            self.classification_model, params["classification"], (inputs,),
+        params = params["classification"]
+        if self.precision == "bf16":
+            params = cast_params(params, self._buffers, torch.bfloat16)
+            inputs = cast_floats(inputs, torch.bfloat16)
+        logits = functional_call(
+            self.classification_model, params, (inputs,),
             {"training": training,
              "generator": self.generator if training else None})
+        return cast_floats(logits, torch.float32) \
+            if self.precision == "bf16" else logits
 
     def _loss(self, logits: torch.Tensor, targets) -> torch.Tensor:
         labels = targets[self.targets_key].reshape(-1)

@@ -181,6 +181,10 @@ def make_parser(argv: Optional[List[str]] = None) -> argparse.ArgumentParser:
     group.add_argument("--loss_weights", nargs="+", default=[],
                        help="e.g. loc_2d=1.0 loc_3d=1.0 rot_3d=3.0")
     group.add_argument("--mask_missing_joints", type=boolean, default=True)
+    group.add_argument("--precision", default="32",
+                       choices=["32", "16", "bf16"],
+                       help="16/bf16 = AMP-style: bf16 model compute, fp32 "
+                            "master weights and fp32 FK/projection geometry")
     group.add_argument("--movements_output_type", default="pose_changes",
                        choices=[t.name for t in MovementsModelOutputType])
     for i in range(LOSS_PARAMS):
@@ -343,7 +347,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             classification_optimizer=OptimizerSettings.from_kwargs(
                 "classification", vars(args)),
             gradient_clip_val=args.gradient_clip_val,
-            seed=args.seed, device=args.device)
+            precision=args.precision, seed=args.seed, device=args.device)
     else:
         # a model whose output type is fixed takes no flag for it
         mot = MovementsModelOutputType[args.movements_output_type]
@@ -361,6 +365,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             movements_optimizer=OptimizerSettings.from_kwargs("movements",
                                                               vars(args)),
             gradient_clip_val=args.gradient_clip_val,
+            precision=args.precision,
             projection_kernel=args.projection_kernel, seed=args.seed,
             device=args.device)
 

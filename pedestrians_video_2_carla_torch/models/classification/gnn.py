@@ -65,7 +65,9 @@ def laplacian_op(skeleton) -> np.ndarray:
 
 def cheb_stack(op: torch.Tensor, x: torch.Tensor, k: int) -> torch.Tensor:
     """[T_0(op) x, ..., T_{k-1}(op) x] concatenated on the feature axis, by
-    the recurrence on x (x: (..., J, C))."""
+    the recurrence on x (x: (..., J, C)); op in x's dtype, as the JAX
+    package casts it."""
+    op = op.to(x.dtype)
     ts = [x]
     if k > 1:
         ts.append(torch.einsum("ij,...jc->...ic", op, x))
@@ -272,7 +274,7 @@ class _GraphGRUCell:
         wzr = torch.cat([torch.cat([wz[n], wr[n]], dim=1)
                          for n in range(self.k)], dim=1)    # (H, k 2H)
         wh = torch.cat(self._gate(layer, "h", "wh"), dim=1)  # (H, k H)
-        return graph_gru_scan(xg, self.cheb, wzr, wh)
+        return graph_gru_scan(xg, self.cheb.to(xg.dtype), wzr, wh)
 
 
 class GConvGRU(_GraphGRUCell, _GraphGatedRecurrent):
@@ -341,7 +343,7 @@ class GConvLSTM(_GraphGatedRecurrent):
         per_gate = [self._gate(layer, g, "wh") for g in self.GATES]
         w = torch.cat([torch.cat([ws[n] for ws in per_gate], dim=1)
                        for n in range(self.k)], dim=1)   # (H, k 4H)
-        return graph_lstm_scan(xg, self.cheb, w)
+        return graph_lstm_scan(xg, self.cheb.to(xg.dtype), w)
 
 
 class SpatialTemporalGNN(_GraphGRUCell, _GraphGatedRecurrent):
@@ -420,7 +422,7 @@ class _GCNBestPaperBase(ClassificationModel):
 
     def _propagate(self, x: torch.Tensor) -> torch.Tensor:
         """A @ x over the joint axis of (..., J, C)."""
-        return torch.matmul(self.adj, x)
+        return torch.matmul(self.adj.to(x.dtype), x)
 
     def _head(self, h: torch.Tensor, dense: nn.Linear) -> torch.Tensor:
         B, L, J = h.shape[:3]

@@ -11,6 +11,7 @@ from torch import nn
 from ...flows.output_types import MovementsModelOutputType
 from ...skeletons.base import Skeleton
 from ...skeletons.carla import CARLA_SKELETON
+from ...ops.tensors import widen
 from ..base import format_movements_output, movements_output_features
 
 
@@ -79,7 +80,10 @@ class BatchNorm(nn.Module):
     statistics. ``weight`` / ``bias`` are flax's ``scale`` / ``bias``,
     ``running_mean`` / ``running_var`` (persistent buffers) its
     ``batch_stats`` ``mean`` / ``var``. ``nn.BatchNorm1d`` differs: it
-    keeps the unbiased variance and its momentum is 1 - m."""
+    keeps the unbiased variance and its momentum is 1 - m. On a bf16 input
+    (a bf16 flow) it follows flax's rule (``force_float32_reductions``):
+    the statistics, their running update and the normalisation in float32,
+    the result in the input's dtype; the running statistics stay float32."""
 
     def __init__(self, features: int, momentum: float = 0.99,
                  epsilon: float = 1e-5) -> None:
@@ -91,6 +95,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+        dtype = x.dtype
+        x = widen(x)
         if training:
             axes = tuple(range(x.ndim - 1))
             mean = x.mean(axes)
@@ -102,8 +108,8 @@ class BatchNorm(nn.Module):
                 self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
-        return (x - mean) * (torch.rsqrt(var + self.epsilon) * self.weight) \
-            + self.bias
+        return ((x - mean) * (torch.rsqrt(var + self.epsilon) * self.weight)
+                + self.bias).to(dtype)
 
 
 def orthogonal_(tensor: torch.Tensor,

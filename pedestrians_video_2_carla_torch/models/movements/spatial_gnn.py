@@ -41,7 +41,7 @@ class _GraphAutoencoder(FixedOutputModel):
             persistent=False)
 
     def gcn(self, v: torch.Tensor, dense: nn.Linear) -> torch.Tensor:
-        return dense(torch.einsum("ij,...jc->...ic", self.adjacency, v))
+        return dense(torch.einsum("ij,...jc->...ic", self.adjacency.to(v.dtype), v))
 
 
 class SpatialGnn(_GraphAutoencoder):

@@ -107,15 +107,16 @@ def check_launch(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def check_cuda_tensors(fn_name: str, **tensors) -> torch.device:
-    """A kernel takes contiguous float32 tensors on one CUDA device; returns
-    that device."""
+def check_cuda_tensors(fn_name: str, dtypes=(torch.float32,),
+                       **tensors) -> torch.device:
+    """A kernel takes contiguous tensors of ``dtypes`` (float32 unless
+    given) on one CUDA device; returns that device."""
     device = next(iter(tensors.values())).device
     if device.type != "cuda":
         raise ValueError(f"{fn_name} needs CUDA tensors, got {device}")
     for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, not {device}")
         if not t.is_contiguous():

@@ -116,10 +116,19 @@ def _check_scan(xg: torch.Tensor, cheb: torch.Tensor, weights, gates: int
             raise ValueError(f"{name} must be ({H}, {k * group * H}), got "
                              f"{tuple(w.shape)}")
     for t in (xg, cheb, *(w for _, w, _ in weights)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"the graph scans run in float32, got {t.dtype}")
+        if t.dtype not in (torch.float32, torch.bfloat16) \
+                or t.dtype != xg.dtype:
+            raise TypeError(f"the graph scans run in float32 (their plain "
+                            f"versions also in bf16), all tensors in one "
+                            f"dtype; got {t.dtype} beside {xg.dtype}")
         if t.device != xg.device:
             raise ValueError(f"tensors on {t.device} and {xg.device}")
+    if xg.dtype == torch.bfloat16 and xg.device.type != "cpu":
+        raise TypeError(
+            "the graph scan kernels (rows 10-13) run in float32 only: their "
+            "bf16 form is ROADMAP.md M5b step 4, not ported yet; run a bf16 "
+            "classifier or Seq2Seq encoder on the card with "
+            "graph_kernel='plain' / rnn_kernel='plain'")
     return L, B, J, H, k
 
 

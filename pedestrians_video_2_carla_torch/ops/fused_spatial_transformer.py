@@ -26,6 +26,17 @@ from one to the other. Its serving forward is the ``torch.library`` op
 The weights are a 14-tuple: the 12 block weights of ``ops/transformer.py``
 (``BLOCK_WEIGHTS``, nn.Linear layout) each stacked over depth, then the
 final LayerNorm's scale and bias (E,).
+
+Both kernels take float32 or bf16 (x and the weights in one dtype). In
+bf16, as the JAX kernels do with bf16 inputs: the forward rounds each
+product's activation operand to bf16 and runs the product as one TF32
+pass (exact on bf16 values, float32 sums), LayerNorm, attention, GELU and
+the residual stream in float32, the output stored in bf16; the residuals
+the training forward keeps stay float32; the backward runs in float32
+and returns dx and the weight gradients (summed in float32) in bf16. The
+kernels widen bf16 to float32 as they stage it, so their shared memory is
+the same in both dtypes. ``spatial_stack_reference`` is the plain version
+of either.
 """
 import ctypes
 import functools
@@ -35,18 +46,24 @@ import torch
 
 from . import cuda_build
 from .cuda_build import INT as _INT, PTR as _PTR
-from .transformer import (block_reference, check_block_weights, layer_norm,
+from .tensors import round_bf16
+from .transformer import (KERNEL_DTYPES, block_reference,
+                          check_block_weights, check_dtypes, layer_norm,
                           plain_backward)
 
 _SOURCE = cuda_build.CSRC / "fused_spatial_transformer.cu"
 _SIGNATURES = {
     "pv2c_fused_spatial_stack":
         [_PTR] * 22 + [_INT] * 7 + [ctypes.c_float, _PTR],
+    "pv2c_fused_spatial_stack_bf16":
+        [_PTR] * 22 + [_INT] * 7 + [ctypes.c_float, _PTR],
     "pv2c_spatial_stack_smem_bytes": [_INT] * 5,
     "pv2c_spatial_mlp_bwd_smem_bytes": [_INT] * 3,
     "pv2c_spatial_attn_bwd_smem_bytes": [_INT] * 4,
     "pv2c_fused_spatial_stack_bwd":
         [_PTR] * 25 + [_INT] * 9 + [ctypes.c_float, _PTR],
+    "pv2c_fused_spatial_stack_bwd_bf16":
+        [_PTR] * 26 + [_INT] * 9 + [ctypes.c_float, _PTR],
     "pv2c_spatial_stack_bwd_grid": [_INT] * 6,
 }
 
@@ -144,21 +161,27 @@ def check_stack(x: torch.Tensor, weights: Sequence[torch.Tensor],
             raise ValueError(f"{name} must be {(E,)}, got {tuple(w.shape)}")
     if num_heads < 1 or E % num_heads:
         raise ValueError(f"{num_heads} heads do not divide width {E}")
-    for t in (x, *weights):
-        if t.dtype != torch.float32:
-            raise TypeError(f"the spatial stack runs in float32, got {t.dtype}")
-        if t.device != x.device:
-            raise ValueError(f"weights on {t.device}, x on {x.device}")
+    check_dtypes("the spatial stack", x, weights)
     return hidden
 
 
 def spatial_stack_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
                             num_heads: int) -> torch.Tensor:
-    """The plain PyTorch version: (N, J, E) -> (N, J, E)."""
+    """The plain PyTorch version: (N, J, E) -> (N, J, E). In bf16 it
+    computes in float32 on the bf16 values, each product's activation
+    operand rounded to bf16 (the JAX kernel's ``_dense``), and stores the
+    output in bf16; autograd of it is then the float32 backward of the
+    rounded forward, its gradients cast to bf16."""
+    dtype = x.dtype
+    operand = round_bf16 if dtype == torch.bfloat16 else None
+    if operand is not None:
+        x, weights = x.float(), [w.float() for w in weights]
     *blocks, lnf_s, lnf_b = weights
     for d in range(blocks[0].shape[0]):
-        x = block_reference(x, [w[d] for w in blocks], num_heads)
-    return layer_norm(x, lnf_s, lnf_b)
+        block = [w[d] for w in blocks]
+        x = block_reference(x, block, num_heads) if operand is None \
+            else block_reference(x, block, num_heads, operand=operand)
+    return layer_norm(x, lnf_s, lnf_b).to(dtype)
 
 
 def kernel_tiles(J: int, E: int, num_heads: int,
@@ -207,13 +230,15 @@ def saved_shapes(depth: int, M: int, E: int, hidden: int):
 
 def fused_spatial_stack_cuda(x: torch.Tensor, weights: Sequence[torch.Tensor],
                              num_heads: int, keep: bool = False):
-    """Launch the kernel on float32 contiguous CUDA tensors: (N, J, E) ->
-    (N, J, E); with ``keep``, ``(out, saved)``, ``saved`` the residuals the
-    backward takes (``SAVED``, about 260 floats a token row and depth
-    block). Adds one to ``fused_spatial_stack_cuda.launches`` per launch."""
+    """Launch the kernel on float32 or bf16 contiguous CUDA tensors:
+    (N, J, E) -> (N, J, E) in x's dtype; with ``keep``, ``(out, saved)``,
+    ``saved`` the residuals the backward takes (``SAVED``, about 260
+    floats a token row and depth block, float32 in both dtypes). Adds one
+    to ``fused_spatial_stack_cuda.launches`` per launch (and, for bf16, to
+    ``fused_spatial_stack_cuda.bf16_launches``)."""
     hidden = check_stack(x, weights, num_heads)
     device = cuda_build.check_cuda_tensors(
-        "fused_spatial_stack_cuda", x=x,
+        "fused_spatial_stack_cuda", dtypes=KERNEL_DTYPES, x=x,
         **{f"weights[{i}]": w for i, w in enumerate(weights)})
     N, J, E = x.shape
     depth = weights[0].shape[0]
@@ -224,8 +249,11 @@ def fused_spatial_stack_cuda(x: torch.Tensor, weights: Sequence[torch.Tensor],
              for s in saved_shapes(depth, N * J, E, hidden)] if keep else None
     if N:
         lib = _library()
+        bf16 = x.dtype == torch.bfloat16
+        entry = lib.pv2c_fused_spatial_stack_bf16 if bf16 \
+            else lib.pv2c_fused_spatial_stack
         with torch.cuda.device(device):
-            err = lib.pv2c_fused_spatial_stack(
+            err = entry(
                 x.data_ptr(), out.data_ptr(), *(w.data_ptr() for w in weights),
                 *(t.data_ptr() for t in saved) if keep else (None,) * 6,
                 N, J, E, num_heads, hidden, depth, frames,
@@ -233,10 +261,12 @@ def fused_spatial_stack_cuda(x: torch.Tensor, weights: Sequence[torch.Tensor],
                 torch.cuda.current_stream(device).cuda_stream)
         cuda_build.check_launch(err, "pv2c_fused_spatial_stack")
         fused_spatial_stack_cuda.launches += 1
+        fused_spatial_stack_cuda.bf16_launches += bf16
     return (out, saved) if keep else out
 
 
 fused_spatial_stack_cuda.launches = 0
+fused_spatial_stack_cuda.bf16_launches = 0
 
 
 def fused_spatial_stack_cuda_bwd(x: torch.Tensor,
@@ -244,17 +274,21 @@ def fused_spatial_stack_cuda_bwd(x: torch.Tensor,
                                  saved: Sequence[torch.Tensor],
                                  g: torch.Tensor, num_heads: int
                                  ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """Launch the backward on float32 contiguous CUDA tensors: the
+    """Launch the backward on float32 or bf16 contiguous CUDA tensors: the
     forward's input x (N, J, E), its weights, the ``saved`` residuals of
-    ``fused_spatial_stack_cuda(..., keep=True)`` and the output's cotangent
-    g -> ``(dx, [14 weight gradients])``, each gradient in its weight's
-    shape. Adds one to ``fused_spatial_stack_cuda_bwd.launches`` per
-    call."""
+    ``fused_spatial_stack_cuda(..., keep=True)`` (float32) and the output's
+    cotangent g, in x's dtype -> ``(dx, [14 weight gradients])``, each
+    gradient in its weight's shape and x's dtype. Adds one to
+    ``fused_spatial_stack_cuda_bwd.launches`` per call (and, for bf16, to
+    ``.bf16_launches``)."""
     hidden = check_stack(x, weights, num_heads)
     if g.shape != x.shape:
         raise ValueError(f"g must be {tuple(x.shape)}, got {tuple(g.shape)}")
+    check_dtypes("the spatial backward", x, (g,))
+    if any(t.dtype != torch.float32 for t in saved):
+        raise TypeError("the spatial backward's saved residuals are float32")
     device = cuda_build.check_cuda_tensors(
-        "fused_spatial_stack_cuda_bwd", x=x, g=g,
+        "fused_spatial_stack_cuda_bwd", dtypes=KERNEL_DTYPES, x=x, g=g,
         **{f"weights[{i}]": w for i, w in enumerate(weights)})
     N, J, E = x.shape
     depth = weights[0].shape[0]
@@ -271,7 +305,11 @@ def fused_spatial_stack_cuda_bwd(x: torch.Tensor,
     if N == 0:
         return torch.zeros_like(x), [torch.zeros_like(w) for w in weights]
     empty = functools.partial(torch.empty, dtype=torch.float32, device=device)
-    dx, flat = torch.empty_like(x), empty(sum(sizes))
+    bf16 = x.dtype == torch.bfloat16
+    dx, flat = torch.empty_like(x), torch.empty(sum(sizes), dtype=x.dtype,
+                                                device=device)
+    # bf16: the running gradient stays float32 through the depth blocks
+    work = (empty(x.shape),) if bf16 else ()
     lib = _library()
     with torch.cuda.device(device):
         grid = lib.pv2c_spatial_stack_bwd_grid(J, E, num_heads, hidden, rows,
@@ -279,18 +317,23 @@ def fused_spatial_stack_cuda_bwd(x: torch.Tensor,
         if grid < 1:
             cuda_build.check_launch(-grid, "pv2c_spatial_stack_bwd_grid")
         part = empty((grid, sum(sizes)))
-        err = lib.pv2c_fused_spatial_stack_bwd(
+        entry = lib.pv2c_fused_spatial_stack_bwd_bf16 if bf16 \
+            else lib.pv2c_fused_spatial_stack_bwd
+        err = entry(
             x.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            *(t.data_ptr() for t in work),
             *(w.data_ptr() for w in weights), *(t.data_ptr() for t in saved),
             part.data_ptr(), flat.data_ptr(), N, J, E, num_heads, hidden,
             depth, grid, rows, frames, float(E // num_heads) ** -0.5,
             torch.cuda.current_stream(device).cuda_stream)
     cuda_build.check_launch(err, "pv2c_fused_spatial_stack_bwd")
     fused_spatial_stack_cuda_bwd.launches += 1
+    fused_spatial_stack_cuda_bwd.bf16_launches += bf16
     return dx, [t.view_as(w) for t, w in zip(flat.split(sizes), weights)]
 
 
 fused_spatial_stack_cuda_bwd.launches = 0
+fused_spatial_stack_cuda_bwd.bf16_launches = 0
 
 
 @torch.library.custom_op("pv2c::fused_spatial_stack", mutates_args=(),
@@ -349,9 +392,9 @@ class FusedSpatialStack(torch.autograd.Function):
 
 def fused_spatial_stack(x: torch.Tensor, weights: Sequence[torch.Tensor],
                         num_heads: int) -> torch.Tensor:
-    """depth x pre-norm block + final LayerNorm on (N, J, E) float32 token
-    rows, fused; ``weights`` as the module docstring says. Differentiable
-    in x and every weight."""
+    """depth x pre-norm block + final LayerNorm on (N, J, E) float32 or
+    bf16 token rows, fused; ``weights`` as the module docstring says, in
+    x's dtype. Differentiable in x and every weight."""
     keep = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, *weights))
     return FusedSpatialStack.apply(x.contiguous(), num_heads, keep,

@@ -35,6 +35,18 @@ other. The serving forward is the ``torch.library`` op
 The weights of a block are the 12-tuple ``BLOCK_WEIGHTS`` of
 ``ops/transformer.py`` in nn.Linear layout, qkv rows in [q; k; v] x (head,
 dim) order.
+
+Both entries take float32 or bf16 (x and the weights in one dtype). In
+bf16, as the JAX kernels do with bf16 inputs, every buffer between the
+launches is bf16 (y1, qkv, the attention output, x2, y2, GELU's output,
+the output; the pre-GELU h kept for the backward), except the LayerNorm
+statistics and the backward's dy (the gradient reaching the LayerNorms and
+attention), which stay float32; each product runs as one TF32 pass on its
+bf16 operands (exact products, float32 sums); LayerNorm, softmax, GELU and
+the residual adds in float32. The backward returns dx and the weight
+gradients (summed in float32) in bf16. The plain versions
+(``temporal_block_reference``, ``temporal_block_keep_reference``) round
+where the kernels store bf16.
 """
 import ctypes
 import functools
@@ -45,17 +57,23 @@ from torch.nn import functional as F
 
 from . import cuda_build
 from .cuda_build import INT as _INT, PTR as _PTR
-from .transformer import (LN_EPS, attention_heads, block_reference,
-                          check_block_weights, plain_backward)
+from .tensors import round_bf16
+from .transformer import (KERNEL_DTYPES, LN_EPS, block_reference,
+                          check_block_weights, check_dtypes, heads_attention,
+                          plain_backward, same)
 
 _SOURCE = cuda_build.CSRC / "fused_temporal_transformer.cu"
 _SIGNATURES = {
     "pv2c_fused_temporal_block":
         [_PTR] * 20 + [_INT] * 5 + [ctypes.c_float, _PTR],
+    "pv2c_fused_temporal_block_bf16":
+        [_PTR] * 20 + [_INT] * 5 + [ctypes.c_float, _PTR],
     "pv2c_fused_temporal_block_bwd":
         [_PTR] * 29 + [_INT] * 5 + [ctypes.c_float, _PTR],
+    "pv2c_fused_temporal_block_bwd_bf16":
+        [_PTR] * 29 + [_INT] * 5 + [ctypes.c_float, _PTR],
     "pv2c_temporal_block_bwd_part_floats": [_INT] * 4,
-    "pv2c_temporal_fwd_gemm_smem_bytes": [],
+    "pv2c_temporal_fwd_gemm_smem_bytes": [_INT],
 }
 
 #: the kernels' compiled limits (csrc/fused_temporal_transformer.cu), and
@@ -73,17 +91,20 @@ FORWARD_GEMM = {"block": (128, 128), "warp": (64, 64), "k_step": 32,
                 "stages": 3, "blocks_per_sm": 2}
 
 
-def forward_gemm_smem_bytes() -> int:
-    """Dynamic shared memory of one forward GEMM thread block: the ring's
-    stages of an A and a W tile, rows padded by 4 floats."""
+def forward_gemm_smem_bytes(element_size: int = 4) -> int:
+    """Dynamic shared memory of one forward GEMM thread block whose tiles
+    hold ``element_size``-byte elements (4: float32, 2: bf16): the ring's
+    stages of an A and a W tile, rows padded by 16 bytes."""
     plan = FORWARD_GEMM
-    return 4 * plan["stages"] * sum(plan["block"]) * (plan["k_step"] + 4)
+    return plan["stages"] * sum(plan["block"]) * (
+        element_size * plan["k_step"] + 16)
 
 
 def attention_smem_bytes(T: int, head_width: int) -> int:
     """Dynamic shared memory of one thread block (a window and a head) of
     the attention backward, the larger of the two attention launches: q, k,
-    v and do of T x head_width, the T x T probabilities and ds."""
+    v and do of T x head_width, the T x T probabilities and ds, all
+    float32 (bf16 is widened as it is staged)."""
     return 4 * (4 * T * head_width + 2 * T * T)
 
 
@@ -96,18 +117,16 @@ def check_block(x: torch.Tensor, weights: Sequence[torch.Tensor],
     hidden = check_block_weights(weights, D)
     if num_heads < 1 or D % num_heads:
         raise ValueError(f"{num_heads} heads do not divide width {D}")
-    for t in (x, *weights):
-        if t.dtype != torch.float32:
-            raise TypeError(f"the temporal block runs in float32, got "
-                            f"{t.dtype}")
-        if t.device != x.device:
-            raise ValueError(f"weights on {t.device}, x on {x.device}")
+    check_dtypes("the temporal block", x, weights)
     return hidden
 
 
 def temporal_block_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
                              num_heads: int) -> torch.Tensor:
-    """The plain PyTorch version: (N, T, D) -> (N, T, D)."""
+    """The plain PyTorch version: (N, T, D) -> (N, T, D); in bf16 the
+    output of :func:`temporal_block_keep_reference`."""
+    if x.dtype == torch.bfloat16:
+        return temporal_block_keep_reference(x, weights, num_heads)[0]
     return block_reference(x, weights, num_heads)
 
 
@@ -118,7 +137,16 @@ def temporal_block_keep_reference(x: torch.Tensor,
     the scratch ``fused_temporal_block_cuda(..., keep=True)`` keeps, in its
     layout: stats (mu1, inv1, mu2, inv2 of the M = N T rows, 4 M), qkv
     (M, 3D), the attention output before proj (M, D), x2 (M, D), the
-    pre-GELU hidden h and GELU(h) (M, hidden)."""
+    pre-GELU hidden h and GELU(h) (M, hidden). In bf16 it computes in
+    float32 on the bf16 values and rounds to bf16 what the kernels store
+    in bf16 (y1, qkv, the attention output, x2, y2, h, GELU(h), the
+    output; the statistics stay float32), with the identity as the
+    rounding's gradient; out and the kept tensors but the statistics are
+    returned in bf16."""
+    dtype = x.dtype
+    keep = round_bf16 if dtype == torch.bfloat16 else same
+    if dtype == torch.bfloat16:
+        x, weights = x.float(), [w.float() for w in weights]
     (ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b,
      ln2_s, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b) = weights
     N, T, D = x.shape
@@ -128,19 +156,19 @@ def temporal_block_keep_reference(x: torch.Tensor,
         mu = v.mean(-1, keepdim=True)
         inv = torch.rsqrt(((v * v).mean(-1, keepdim=True) - mu * mu
                            ).clamp_min(0.0) + LN_EPS)
-        return (v - mu) * inv * s + b, mu.reshape(M), inv.reshape(M)
+        return keep((v - mu) * inv * s + b), mu.reshape(M), inv.reshape(M)
 
     y1, mu1, inv1 = ln(x, ln1_s, ln1_b)
-    qkv = F.linear(y1, qkv_w, qkv_b)
-    attn = attention_heads(y1, qkv_w, qkv_b, num_heads)
-    x2 = x + F.linear(attn, proj_w, proj_b)
+    qkv = keep(F.linear(y1, qkv_w, qkv_b))
+    attn = keep(heads_attention(qkv, num_heads))
+    x2 = keep(x + F.linear(attn, proj_w, proj_b))
     y2, mu2, inv2 = ln(x2, ln2_s, ln2_b)
     h = F.linear(y2, fc1_w, fc1_b)
-    mlp = F.gelu(h)
-    out = x2 + F.linear(mlp, fc2_w, fc2_b)
-    saved = (torch.cat([mu1, inv1, mu2, inv2]), qkv.reshape(M, 3 * D),
-             attn.reshape(M, D), x2.reshape(M, D), h.reshape(M, -1),
-             mlp.reshape(M, -1))
+    mlp = keep(F.gelu(h))
+    out = keep(x2 + F.linear(mlp, fc2_w, fc2_b)).to(dtype)
+    saved = (torch.cat([mu1, inv1, mu2, inv2]),
+             *(t.reshape(M, -1).to(dtype) for t in (qkv, attn, x2, keep(h),
+                                                     mlp)))
     return out, saved
 
 
@@ -174,27 +202,33 @@ def _library():
 def fused_temporal_block_cuda(x: torch.Tensor,
                               weights: Sequence[torch.Tensor],
                               num_heads: int, keep: bool = False):
-    """Launch the block on float32 contiguous CUDA tensors: (N, T, D) ->
-    (N, T, D); with ``keep``, ``(out, saved)``, ``saved`` the scratch the
-    backward takes (stats (4 N T), qkv (N T, 3D), attn (N T, D), x2
-    (N T, D), h (N T, hidden) before GELU, mlp (N T, hidden) after). Adds
-    one to ``fused_temporal_block_cuda.launches`` per call."""
+    """Launch the block on float32 or bf16 contiguous CUDA tensors:
+    (N, T, D) -> (N, T, D) in x's dtype; with ``keep``, ``(out, saved)``,
+    ``saved`` the scratch the backward takes (stats (4 N T, float32), and
+    in x's dtype qkv (N T, 3D), attn (N T, D), x2 (N T, D), h (N T, hidden)
+    before GELU, mlp (N T, hidden) after). Adds one to
+    ``fused_temporal_block_cuda.launches`` per call (and, for bf16, to
+    ``.bf16_launches``)."""
     hidden = check_block(x, weights, num_heads)
     device = cuda_build.check_cuda_tensors(
-        "fused_temporal_block_cuda", x=x,
+        "fused_temporal_block_cuda", dtypes=KERNEL_DTYPES, x=x,
         **{f"weights[{i}]": w for i, w in enumerate(weights)})
     N, T, D = x.shape
     _check_limits(x, weights, num_heads, hidden)
     out = torch.empty_like(x)
     M = N * T
-    empty = functools.partial(torch.empty, dtype=torch.float32, device=device)
-    stats, qkv, attn, x2, mlp = (empty(4 * M), empty((M, 3 * D)),
-                                 empty((M, D)), empty((M, D)),
-                                 empty((M, hidden)))
+    bf16 = x.dtype == torch.bfloat16
+    empty = functools.partial(torch.empty, dtype=x.dtype, device=device)
+    stats = torch.empty(4 * M, dtype=torch.float32, device=device)
+    qkv, attn, x2, mlp = (empty((M, 3 * D)), empty((M, D)), empty((M, D)),
+                          empty((M, hidden)))
     h = empty((M, hidden)) if keep else None
     if M:
+        lib = _library()
+        entry = lib.pv2c_fused_temporal_block_bf16 if bf16 \
+            else lib.pv2c_fused_temporal_block
         with torch.cuda.device(device):
-            err = _library().pv2c_fused_temporal_block(
+            err = entry(
                 x.data_ptr(), out.data_ptr(),
                 *(w.data_ptr() for w in weights),
                 *(t.data_ptr() for t in (stats, qkv, attn, x2, mlp)),
@@ -203,10 +237,12 @@ def fused_temporal_block_cuda(x: torch.Tensor,
                 torch.cuda.current_stream(device).cuda_stream)
         cuda_build.check_launch(err, "pv2c_fused_temporal_block")
         fused_temporal_block_cuda.launches += 1
+        fused_temporal_block_cuda.bf16_launches += bf16
     return (out, (stats, qkv, attn, x2, h, mlp)) if keep else out
 
 
 fused_temporal_block_cuda.launches = 0
+fused_temporal_block_cuda.bf16_launches = 0
 
 
 def fused_temporal_block_cuda_bwd(x: torch.Tensor,
@@ -214,12 +250,13 @@ def fused_temporal_block_cuda_bwd(x: torch.Tensor,
                                   saved: Sequence[torch.Tensor],
                                   g: torch.Tensor, num_heads: int
                                   ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """Launch the backward on float32 contiguous CUDA tensors: the forward's
-    input x (N, T, D), its weights, the ``saved`` scratch of
+    """Launch the backward on float32 or bf16 contiguous CUDA tensors: the
+    forward's input x (N, T, D), its weights, the ``saved`` scratch of
     ``fused_temporal_block_cuda(..., keep=True)`` and the output's
-    cotangent g -> ``(dx, [12 weight gradients])``, each in its weight's
-    shape. Adds one to ``fused_temporal_block_cuda_bwd.launches`` per
-    call."""
+    cotangent g, in x's dtype (the statistics float32) -> ``(dx, [12
+    weight gradients])``, each in its weight's shape and x's dtype. Adds
+    one to ``fused_temporal_block_cuda_bwd.launches`` per call (and, for
+    bf16, to ``.bf16_launches``)."""
     hidden = check_block(x, weights, num_heads)
     N, T, D = x.shape
     M = N * T
@@ -231,26 +268,35 @@ def fused_temporal_block_cuda_bwd(x: torch.Tensor,
                               saved, shapes):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.dtype != (torch.float32 if name == "stats" else x.dtype):
+            raise TypeError(f"{name} has dtype {t.dtype}")
+    check_dtypes("the temporal backward", x, (g,))
     device = cuda_build.check_cuda_tensors(
-        "fused_temporal_block_cuda_bwd", x=x, g=g,
+        "fused_temporal_block_cuda_bwd", dtypes=KERNEL_DTYPES, x=x, g=g,
         **{f"weights[{i}]": w for i, w in enumerate(weights)},
         **{f"saved[{i}]": t for i, t in enumerate(saved)})
     _check_limits(x, (g, *weights, *saved), num_heads, hidden)
     sizes = [w.numel() for w in weights]
     if M == 0:
         return torch.zeros_like(x), [torch.zeros_like(w) for w in weights]
-    empty = functools.partial(torch.empty, dtype=torch.float32, device=device)
+    bf16 = x.dtype == torch.bfloat16
+    empty = functools.partial(torch.empty, dtype=x.dtype, device=device)
     dx, flat = torch.empty_like(x), empty(sum(sizes))
-    scratch = (empty((M, hidden)), empty((M, D)), empty((M, D)),
-               empty((M, 3 * D)), empty((M, D)), empty((M, D)))
+    # dh, dy (float32), dx2, dqkv, y1, y2
+    scratch = (empty((M, hidden)),
+               torch.empty((M, D), dtype=torch.float32, device=device),
+               empty((M, D)), empty((M, 3 * D)), empty((M, D)),
+               empty((M, D)))
     lib = _library()
     with torch.cuda.device(device):
         floats = lib.pv2c_temporal_block_bwd_part_floats(N, T, D, hidden)
         if floats < 0:
             cuda_build.check_launch(-floats,
                                     "pv2c_temporal_block_bwd_part_floats")
-        part = empty(floats)
-        err = lib.pv2c_fused_temporal_block_bwd(
+        part = torch.empty(floats, dtype=torch.float32, device=device)
+        entry = lib.pv2c_fused_temporal_block_bwd_bf16 if bf16 \
+            else lib.pv2c_fused_temporal_block_bwd
+        err = entry(
             x.data_ptr(), *(w.data_ptr() for w in weights),
             *(t.data_ptr() for t in saved), g.data_ptr(), dx.data_ptr(),
             flat.data_ptr(), *(t.data_ptr() for t in scratch),
@@ -259,10 +305,12 @@ def fused_temporal_block_cuda_bwd(x: torch.Tensor,
             torch.cuda.current_stream(device).cuda_stream)
     cuda_build.check_launch(err, "pv2c_fused_temporal_block_bwd")
     fused_temporal_block_cuda_bwd.launches += 1
+    fused_temporal_block_cuda_bwd.bf16_launches += bf16
     return dx, [t.view_as(w) for t, w in zip(flat.split(sizes), weights)]
 
 
 fused_temporal_block_cuda_bwd.launches = 0
+fused_temporal_block_cuda_bwd.bf16_launches = 0
 
 
 @torch.library.custom_op("pv2c::fused_temporal_block", mutates_args=(),
@@ -320,9 +368,9 @@ class FusedTemporalBlock(torch.autograd.Function):
 
 def fused_temporal_block(x: torch.Tensor, weights: Sequence[torch.Tensor],
                          num_heads: int) -> torch.Tensor:
-    """One pre-norm transformer block on (N, T, D) float32 window tokens,
-    fused; ``weights`` as the module docstring says. Differentiable in x
-    and every weight."""
+    """One pre-norm transformer block on (N, T, D) float32 or bf16 window
+    tokens, fused; ``weights`` as the module docstring says, in x's dtype.
+    Differentiable in x and every weight."""
     keep = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, *weights))
     return FusedTemporalBlock.apply(x.contiguous(), num_heads, keep,

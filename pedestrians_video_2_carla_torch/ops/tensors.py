@@ -56,3 +56,18 @@ def get_missing_joints_mask(common_gt: torch.Tensor,
 
 def nan_to_zero(sample: torch.Tensor) -> torch.Tensor:
     return torch.nan_to_num(sample, nan=0.0, posinf=0.0, neginf=0.0)
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """x in float32 if it is a half-precision float (bf16, fp16), else x
+    itself: the dtype that flax's normalisation statistics and the bf16
+    kernels' arithmetic use."""
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x (float32) rounded to bf16's values and kept float32, with the
+    identity as its gradient: where a bf16 kernel rounds an operand or a
+    stored intermediate, its plain version rounds the value and leaves the
+    backward in float32."""
+    return x + (x.to(torch.bfloat16).float() - x).detach()

@@ -557,10 +557,13 @@ def test_flow_defaults_loss_and_refusals():
     ref = float(optax.sigmoid_binary_cross_entropy(
         jnp.asarray([1.5, -0.5]), jnp.asarray([0.0, 1.0])).mean())
     np.testing.assert_allclose(float(flow._loss(one, labels)), ref, rtol=1e-6)
-    for kwargs, match in ((dict(precision="bf16"), "bf16"),
-                          (dict(precision="16"), "bf16")):
-        with pytest.raises(NotImplementedError, match=match):
-            ClassificationFlow(device="cpu", **kwargs)
+    # bf16 is ported ("16" is bf16, as in the JAX package); other
+    # precisions are refused
+    for precision in ("bf16", "16"):
+        assert ClassificationFlow(device="cpu",
+                                  precision=precision).precision == "bf16"
+    with pytest.raises(ValueError, match="precision"):
+        ClassificationFlow(device="cpu", precision="64")
     # clipping and the LR schedules are ported (held against optax in
     # tests/test_torch_train_options.py)
     scheduled = ClassificationFlow(

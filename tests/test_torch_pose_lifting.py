@@ -336,8 +336,11 @@ def test_slice_matches_jax_flow(port_kernel, jax_kernel):
 
 
 def test_flow_config_errors():
-    with pytest.raises(NotImplementedError):
-        PoseLiftingFlow(LinearAE(), precision="bf16", device="cpu")
+    for precision in ("bf16", "16"):    # "16" is bf16, as in the JAX package
+        assert PoseLiftingFlow(LinearAE(), precision=precision,
+                               device="cpu").precision == "bf16"
+    with pytest.raises(ValueError):
+        PoseLiftingFlow(LinearAE(), precision="float16", device="cpu")
     with pytest.raises(KeyError):
         PoseLiftingFlow(LinearAE(), loss_modes=["heatmaps"], device="cpu")
     # the JAX names of the kernels are not the port's

@@ -275,11 +275,14 @@ def test_training_step_updates_in_place_and_keeps_grads():
 
 
 def test_flow_refuses_what_is_not_ported():
-    """bf16 and the heatmaps loss are not ported (clipping and the LR
+    """The heatmaps loss is not ported (bf16 is: ``"bf16"`` and ``"16"``
+    build a bf16 flow, another precision raises; clipping and the LR
     schedules are: tests/test_torch_train_options.py holds them against
     optax)."""
-    with pytest.raises(NotImplementedError, match="bf16"):
-        _port_flow("plain", precision="bf16")
+    for precision in ("bf16", "16"):
+        assert _port_flow("plain", precision=precision).precision == "bf16"
+    with pytest.raises(ValueError, match="precision"):
+        _port_flow("plain", precision="fp8")
     with pytest.raises(KeyError, match="heatmaps"):
         PoseLiftingFlow(LinearAE(), device="cpu", loss_modes=["heatmaps"])
     flow = PoseLiftingFlow(
