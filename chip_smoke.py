@@ -806,11 +806,12 @@ BF16_ROWS = {"row4_bf16": "fused_spatial_stack",
              "row9_bf16": "fused_temporal_block_bwd"}
 
 
-def bf16_counts():
-    """The bf16 launches of rows 4, 8, 5 and 9 (a part of each wrapper's
-    ``launches``)."""
+def bf16_counts(rows=None):
+    """The bf16 launches of rows 4, 8, 5 and 9, or of ``rows`` (row ->
+    wrapper name): a part of each wrapper's ``launches``."""
     fns = kernel_wrappers()
-    return {row: fns[name].bf16_launches for row, name in BF16_ROWS.items()}
+    return {row: fns[name].bf16_launches
+            for row, name in (rows or BF16_ROWS).items()}
 
 
 def random_rotations(rng, shape):
@@ -3169,7 +3170,7 @@ def phase_kernel_dense_lstm_bwd():
     return max(worst, check_dense_route())
 
 
-def make_cls_flow(name="GConvGRU", lr=LR, **model_kwargs):
+def make_cls_flow(name="GConvGRU", lr=LR, precision="32", **model_kwargs):
     from pedestrians_video_2_carla_torch.flows.classification import \
         ClassificationFlow
     from pedestrians_video_2_carla_torch.models.base import OptimizerSettings
@@ -3179,7 +3180,8 @@ def make_cls_flow(name="GConvGRU", lr=LR, **model_kwargs):
     model = CLASSIFICATION_MODELS[name](
         generator=torch.Generator().manual_seed(SEED), **model_kwargs)
     return ClassificationFlow(
-        model, classification_optimizer=OptimizerSettings(lr=lr), seed=SEED)
+        model, classification_optimizer=OptimizerSettings(lr=lr), seed=SEED,
+        precision=precision)
 
 
 def fit_classifier(flow, dm, steps, val_batches, run_name, expected,
@@ -3361,18 +3363,19 @@ def phase_serve_classification(dm):
 
 
 def scan_bound(cell, shape, hbm_rate, backward=False, with_dcs=False,
-               keep=False, dense=False):
-    """The scan's bound from ops/flops.py at the 3xTF32 rate its products
-    run at (``bound_ms``, which the kernels line takes), and at the fp32
-    peak beside it."""
+               keep=False, dense=False, element_size=4, peak=None):
+    """The scan's bound from ops/flops.py at the rate its products run at
+    (``peak``: the 3xTF32 rate unless given; ``bound_ms``, which the
+    kernels line takes), bytes at ``element_size`` (the kept residuals
+    float32), and at the fp32 peak beside it."""
     from pedestrians_video_2_carla_torch.ops import flops as F
 
     B, L, J, H, k = shape
     nflop = F.graph_scan_flops(cell, B, L, J, H, k, backward)
     nbytes = F.graph_scan_bytes(cell, B, L, J, H, k, backward, with_dcs, keep,
-                                dense)
+                                dense, element_size)
     t_bytes = nbytes / hbm_rate
-    t_tc, t_fp32 = nflop / TF32X3_PEAK, nflop / FP32_PEAK
+    t_tc, t_fp32 = nflop / (peak or TF32X3_PEAK), nflop / FP32_PEAK
     return {"bytes": nbytes, "flop": nflop,
             "bound_ms": max(t_bytes, t_tc) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_tc else "operations",
@@ -3443,17 +3446,18 @@ def time_scan(cell, shape, flush, hbm_rate, rng):
 
 
 def library_lstm(xg, cheb, w, cots):
-    """torch.nn.LSTM (cuDNN, one layer) as the dense LSTM form's library
-    yardstick: fed the scan's own input, the gate pre-activations, through
-    an identity input weight (its gate order is the scan's, i|f|g|o), the
-    scan's hidden weights, zero biases. Held to the plain version within
-    the scan's bar; returns its forward and its backward
-    (torch.autograd.grad alone, both cotangents) as calls, and the
-    error."""
+    """torch.nn.LSTM (cuDNN, one layer) in xg's dtype as the dense LSTM
+    form's library yardstick: fed the scan's own input, the gate
+    pre-activations, through an identity input weight (its gate order is
+    the scan's, i|f|g|o), the scan's hidden weights, zero biases. Held to
+    the plain version within the scan's bar (bf16: within BF16_VS_FP32 of
+    max |plain|, cuDNN rounding where it rounds); returns its forward and
+    its backward (torch.autograd.grad alone, both cotangents) as calls,
+    and the error."""
     from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
 
     H = w.shape[0]
-    lib = torch.nn.LSTM(4 * H, H, num_layers=1).cuda()
+    lib = torch.nn.LSTM(4 * H, H, num_layers=1).cuda().to(xg.dtype)
     with torch.no_grad():
         lib.weight_ih_l0.copy_(torch.eye(4 * H))
         lib.weight_hh_l0.copy_(w.t())
@@ -3462,8 +3466,12 @@ def library_lstm(xg, cheb, w, cots):
     x = xg[:, :, 0].contiguous().requires_grad_(True)
     out, _ = lib(x)
     ref, _ = FG.graph_lstm_scan_reference(xg, cheb, w)
-    err = float((out.detach() - ref[:, :, 0]).abs().max())
-    if err > SCAN_BAR:
+    if xg.dtype == torch.bfloat16:
+        err = bar_err(out.detach().float(), ref[:, :, 0].float())[1]
+        bar = BF16_VS_FP32
+    else:
+        err, bar = float((out.detach() - ref[:, :, 0]).abs().max()), SCAN_BAR
+    if err > bar:
         raise AssertionError(f"torch.nn.LSTM vs the plain version: {err}")
     leaves = [x, lib.weight_hh_l0]
     g = cots[0][:, :, 0].contiguous()
@@ -3615,11 +3623,72 @@ def time_lstm_layers(shape, widths, flush, rng):
     return out
 
 
-def phase_timing_classification(dm, card, hbm_rate):
+def cls_step_split(flow, state, batch, runs=TIMING_RUNS):
+    """A CUDA-event split of a GConvGRU ``training_step``: the body of
+    training_step with events between its parts, around each layer (input
+    convolutions + scan), each scan entry, and each scan's autograd
+    backward; medians of ``runs``."""
     from pedestrians_video_2_carla_torch.models.classification import \
         gnn as TG
     from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
 
+    marks = {"layer": [], "scan": [], "scan_bwd": []}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            marks[name].append((start, end))
+            return out
+        return run
+    model_cls = type(flow.classification_model)
+    saved = (model_cls._layer_fused, TG.graph_gru_scan,
+             FG.GraphGRUScan.backward)
+    model_cls._layer_fused = timed("layer", saved[0])
+    TG.graph_gru_scan = timed("scan", saved[1])
+    FG.GraphGRUScan.backward = staticmethod(timed("scan_bwd", saved[2]))
+    splits = []
+    try:
+        for _ in range(runs):
+            for v in marks.values():
+                v.clear()
+            inputs, targets, _ = batch
+            torch.cuda._sleep(2_000_000)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            loss = flow._loss(flow._apply(state.params, inputs, True),
+                              targets)
+            ev[1].record()
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            ev[2].record()
+            state.optimizer.step()
+            ev[3].record()
+            ev[3].synchronize()
+            spent = {k: sum(a.elapsed_time(b) for a, b in v)
+                     for k, v in marks.items()}
+            total = ev[0].elapsed_time(ev[3])
+            adamw = ev[2].elapsed_time(ev[3])
+            convs = spent["layer"] - spent["scan"]
+            splits.append((total, ev[0].elapsed_time(ev[1]),
+                           ev[1].elapsed_time(ev[2]), convs, spent["scan"],
+                           spent["scan_bwd"], adamw,
+                           total - convs - spent["scan"] - spent["scan_bwd"]
+                           - adamw))
+    finally:
+        model_cls._layer_fused, TG.graph_gru_scan = saved[:2]
+        FG.GraphGRUScan.backward = staticmethod(saved[2])
+    split = dict(zip(("step_ms", "forward_ms", "backward_ms",
+                      "input_convs_forward_ms", "scans_forward_ms",
+                      "scans_backward_ms", "adamw_ms", "rest_ms"),
+                     (statistics.median(c) for c in zip(*splits))))
+    return split
+
+
+def phase_timing_classification(dm, card, hbm_rate):
     rng = np.random.default_rng(SEED + 13)
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
 
@@ -3672,62 +3741,7 @@ def phase_timing_classification(dm, card, hbm_rate):
             "eval_step_ms_host": host_median_ms(
                 lambda: gl_flow.eval_step(gl_params, batch))}
 
-    # a CUDA-event split of a step: the body of training_step with events
-    # between its parts, around each layer (input convolutions + scan),
-    # each scan entry, and each scan's autograd backward
-    marks = {"layer": [], "scan": [], "scan_bwd": []}
-
-    def timed(name, fn):
-        def run(*args, **kwargs):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kwargs)
-            end.record()
-            marks[name].append((start, end))
-            return out
-        return run
-    model_cls = type(flow.classification_model)
-    saved = (model_cls._layer_fused, TG.graph_gru_scan,
-             FG.GraphGRUScan.backward)
-    model_cls._layer_fused = timed("layer", saved[0])
-    TG.graph_gru_scan = timed("scan", saved[1])
-    FG.GraphGRUScan.backward = staticmethod(timed("scan_bwd", saved[2]))
-    splits = []
-    try:
-        for _ in range(TIMING_RUNS):
-            for v in marks.values():
-                v.clear()
-            inputs, targets, _ = batch
-            torch.cuda._sleep(2_000_000)
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-            ev[0].record()
-            loss = flow._loss(flow._apply(state.params, inputs, True),
-                              targets)
-            ev[1].record()
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            ev[2].record()
-            state.optimizer.step()
-            ev[3].record()
-            ev[3].synchronize()
-            spent = {k: sum(a.elapsed_time(b) for a, b in v)
-                     for k, v in marks.items()}
-            total = ev[0].elapsed_time(ev[3])
-            adamw = ev[2].elapsed_time(ev[3])
-            convs = spent["layer"] - spent["scan"]
-            splits.append((total, ev[0].elapsed_time(ev[1]),
-                           ev[1].elapsed_time(ev[2]), convs, spent["scan"],
-                           spent["scan_bwd"], adamw,
-                           total - convs - spent["scan"] - spent["scan_bwd"]
-                           - adamw))
-    finally:
-        model_cls._layer_fused, TG.graph_gru_scan = saved[:2]
-        FG.GraphGRUScan.backward = staticmethod(saved[2])
-    split = dict(zip(("step_ms", "forward_ms", "backward_ms",
-                      "input_convs_forward_ms", "scans_forward_ms",
-                      "scans_backward_ms", "adamw_ms", "rest_ms"),
-                     (statistics.median(c) for c in zip(*splits))))
+    split = cls_step_split(flow, state, batch)
     emit({"phase": "timing_classification", "card": card,
           "B_L_J_H_k": CLS_MAIN, "dense_B_L_J_H_k": CLS_DENSE,
           "kernels": times, "dense_lstm": dense, "graph_lstm_k1": wide,
@@ -5747,22 +5761,375 @@ def phase_config5_bf16(card):
                       "step": step_pairs, "step_split": split}
 
 
-def phase_coverage_bf16():
-    """bf16 beyond config 5, a few steps each on the card: config 4
-    (VideoPose3D, B=64, L=81; no hand-written kernel on its path, its
-    products cuBLAS bf16), config 2 on rnn_kernel="auto" (the loop); and a
-    bf16 CUDA tensor at rows 10-13 raising TypeError (their bf16 form is
-    ROADMAP M5b step 4)."""
-    from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
-        Carla2D3DDataModule
+# -- rows 10-13 in bf16 ------------------------------------------------------
+
+#: rows 10-13's wrappers by the name of their bf16 entry on the kernels line
+#: (the dense form's kernels as row 12's and 13's ``dense_`` fields)
+SCAN_BF16_ROWS = {"row10_bf16": "graph_gru_scan",
+                  "row11_bf16": "graph_gru_scan_bwd",
+                  "row12_bf16": "graph_lstm_scan",
+                  "row13_bf16": "graph_lstm_scan_bwd",
+                  "row12_bf16_dense": "dense_lstm_scan",
+                  "row13_bf16_dense": "dense_lstm_scan_bwd"}
+#: the bf16 scan kernels' checks (B, L, J, H, k): config 3's layer, ragged
+#: B, odd widths (H=3 at k=3; H=233 at k=3, the graph-form LSTM's reverse
+#: scan on its 64-column ring), the GRU's 128-column ring (H=320: z parked
+#: in its float32 scratch), the LSTM's few-rows tiling (J=1, H=128) and,
+#: forward alone, its narrow tiling (H=420, k=3: h read back from bf16 ys)
+GRU_BF16_SHAPES = (CLS_MAIN, (253, CLIP, CLS_J, CLS_H, CLS_K),
+                   (CLS_BATCH, CLIP, CLS_J, 3, 3), (64, CLIP, CLS_J, 320, 2))
+LSTM_BF16_SHAPES = (CLS_MAIN, (CLS_BATCH, CLIP, CLS_J, 3, 3),
+                    (64, CLIP, CLS_J, 233, 3), CLS_WIDE)
+LSTM_BF16_FORWARD_SHAPES = ((16, CLIP, CLS_J, 420, 3),)
+#: the dense kernels in bf16: config 2's layer, ragged B, H=36 (4-byte
+#: staging copies) and H=3 (odd: ordinary loads)
+DENSE_BF16_SHAPES = (CLS_DENSE, (253, CLIP, 1, 64, 1),
+                     (CLS_BATCH, CLIP, 1, 36, 1), (CLS_BATCH, CLIP, 1, 3, 1))
+BF16_CLS_STEPS = 5
+
+
+def bf16_graph_case(rng, cell, shape):
+    """graph_case's inputs in bf16."""
+    xg, cheb, weights, cots = graph_case(rng, cell, shape)
+    return (xg.to(torch.bfloat16), cheb.to(torch.bfloat16),
+            to_bf16(weights), to_bf16(cots))
+
+
+def check_scan_outputs(report, worst, row, what, names, got, again, ref):
+    for name, a, b, r in zip(names, got, again, ref):
+        bf16_check(report, worst, row, f"{what} {name}", a, r, b)
+
+
+def phase_kernel_scan_bf16():
+    """Rows 10-13 in bf16 against their bf16 plain versions
+    (ops/fused_graph_gru.py): the training forwards' outputs and kept
+    residuals against the plain forward with residuals, the backwards from
+    the kernels' residuals against the plain backward from the same (the
+    LSTMs with and without the cell states' cotangent), the same bits
+    twice, the serving forward the training forward's bits; each bf16
+    forward against the fp32 kernel on the same values. -> the largest
+    absolute error of each row against its plain version."""
     from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
 
+    rng = np.random.default_rng(SEED + 43)
+    report, worst, vs_fp32, plans = {}, {}, {}, {}
+
+    def fp32(*ts):
+        return [t.float() for t in ts]
+
+    with torch.no_grad():
+        for shape in GRU_BF16_SHAPES:
+            xg, cheb, w, cots = bf16_graph_case(rng, "gru", shape)
+            what = "x".join(map(str, shape))
+            plans[f"gru {what}"] = [FG.graph_gru_plan(shape[0], shape[2],
+                                                      shape[3], shape[4], b)
+                                    for b in (False, True)]
+            ys, res = FG.graph_gru_scan_cuda_fwd(xg, cheb, *w, keep=True)
+            again = FG.graph_gru_scan_cuda_fwd(xg, cheb, *w, keep=True)
+            ref = FG.graph_gru_scan_keep_reference(xg, cheb, *w)
+            check_scan_outputs(report, worst, "row10_bf16", what,
+                               ("ys",) + FG.GRUResiduals._fields,
+                               (ys, *res), (again[0], *again[1]),
+                               (ref[0], *ref[1]))
+            if not torch.equal(FG.graph_gru_scan_cuda_fwd(xg, cheb, *w), ys):
+                raise AssertionError(f"row 10 bf16 at {shape}: the serving "
+                                     f"forward differs from the training one")
+            bf16_check(report, vs_fp32, "row10_bf16", f"{what} vs fp32 kernel",
+                       ys, FG.graph_gru_scan_cuda_fwd(*fp32(xg, cheb, *w)),
+                       bar=BF16_VS_FP32)
+            got = FG.graph_gru_scan_cuda_bwd(cheb, *w, res, cots[0])
+            again = FG.graph_gru_scan_cuda_bwd(cheb, *w, res, cots[0])
+            ref = FG.graph_gru_scan_bwd_reference(cheb, *w, res, cots[0])
+            check_scan_outputs(report, worst, "row11_bf16", what,
+                               ("dxg", "dwzr", "dwh"), got, again, ref)
+            del res, again, ref, got
+        for shape in LSTM_BF16_SHAPES + LSTM_BF16_FORWARD_SHAPES:
+            xg, cheb, (w,), cots = bf16_graph_case(rng, "lstm", shape)
+            what = "x".join(map(str, shape))
+            plans[f"lstm {what}"] = [FG.graph_lstm_plan(shape[0], shape[2],
+                                                        shape[3], shape[4], b)
+                                     for b in (False, True)]
+            ys, cs, res = FG.graph_lstm_scan_cuda_fwd(xg, cheb, w, keep=True)
+            again = FG.graph_lstm_scan_cuda_fwd(xg, cheb, w, keep=True)
+            ref = FG.graph_lstm_scan_keep_reference(xg, cheb, w)
+            check_scan_outputs(report, worst, "row12_bf16", what,
+                               ("ys", "cs", "gates", "sa"), (ys, cs, *res),
+                               (*again[:2], *again[2]), (*ref[:2], *ref[2]))
+            if not all(torch.equal(a, b) for a, b in zip(
+                    FG.graph_lstm_scan_cuda_fwd(xg, cheb, w), (ys, cs))):
+                raise AssertionError(f"row 12 bf16 at {shape}: the serving "
+                                     f"forward differs from the training one")
+            bf16_check(report, vs_fp32, "row12_bf16", f"{what} vs fp32 kernel",
+                       ys, FG.graph_lstm_scan_cuda_fwd(*fp32(xg, cheb, w))[0],
+                       bar=BF16_VS_FP32)
+            if shape in LSTM_BF16_FORWARD_SHAPES:
+                continue
+            for dcs in (cots[1], None):
+                got = FG.graph_lstm_scan_cuda_bwd(cheb, w, res, cs, cots[0],
+                                                  dcs)
+                again = FG.graph_lstm_scan_cuda_bwd(cheb, w, res, cs,
+                                                    cots[0], dcs)
+                ref = FG.graph_lstm_scan_bwd_reference(cheb, w, res, cs,
+                                                       cots[0], dcs)
+                check_scan_outputs(
+                    report, worst, "row13_bf16",
+                    what + (" with dcs" if dcs is not None else ""),
+                    ("dxg", "dw"), got, again, ref)
+            del res, again, ref, got
+        for shape in DENSE_BF16_SHAPES:
+            xg, _, (w,), cots = bf16_graph_case(rng, "lstm", shape)
+            what = "x".join(map(str, shape))
+            plans[f"dense {what}"] = FG.dense_lstm_plan(shape[0], shape[2],
+                                                        shape[3])
+            kept = FG.dense_lstm_scan_cuda_fwd(xg, w, keep=True)
+            again = FG.dense_lstm_scan_cuda_fwd(xg, w, keep=True)
+            ref = FG.dense_lstm_scan_keep_reference(xg, w)
+            check_scan_outputs(report, worst, "row12_bf16_dense", what,
+                               ("ys", "cs", "gates"), kept, again, ref)
+            served = FG.dense_lstm_scan_cuda_fwd(xg, w.t().contiguous().t())
+            if not all(torch.equal(a, b) for a, b in zip(served, kept)):
+                raise AssertionError(f"dense bf16 at {shape}: the serving "
+                                     f"forward (a stacked weight's transpose)"
+                                     f" differs from the training one")
+            bf16_check(report, vs_fp32, "row12_bf16_dense",
+                       f"{what} vs fp32 kernel", kept[0],
+                       FG.dense_lstm_scan_cuda_fwd(*fp32(xg, w))[0],
+                       bar=BF16_VS_FP32)
+            ys, cs, gates = kept
+            for dcs in (cots[1], None):
+                got = FG.dense_lstm_scan_cuda_bwd(w, gates, ys, cs, cots[0],
+                                                  dcs)
+                again = FG.dense_lstm_scan_cuda_bwd(w, gates, ys, cs,
+                                                    cots[0], dcs)
+                ref = FG.dense_lstm_scan_bwd_reference(w, gates, ys, cs,
+                                                       cots[0], dcs)
+                check_scan_outputs(
+                    report, worst, "row13_bf16_dense",
+                    what + (" with dcs" if dcs is not None else ""),
+                    ("dxg", "dw"), got, again, ref)
+    torch.cuda.synchronize()
+    emit({"phase": "kernel_scan_bf16", "bar": BF16_BAR,
+          "bar_vs_fp32_kernel": BF16_VS_FP32, "checks": report,
+          "worst_scaled": {row: max(v["max_abs_err_over_max_abs_ref"]
+                                    for k, v in report.items()
+                                    if k.startswith(row + " ")
+                                    and "vs fp32" not in k)
+                           for row in SCAN_BF16_ROWS},
+          "worst_scaled_vs_fp32_kernel": {
+              row: max(v["max_abs_err_over_max_abs_ref"]
+                       for k, v in report.items()
+                       if k.startswith(row + " ") and "vs fp32" in k)
+              for row in ("row10_bf16", "row12_bf16", "row12_bf16_dense")},
+          "plans": plans})
+    return worst
+
+
+def phase_timing_scan_bf16(card, hbm_rate):
+    """Rows 10-13 in bf16: the forward (serving) and backward kernels at
+    config 3's layer (the graph form) and config 2's (the dense form), the
+    training forward too, the bf16 plain versions (autograd of them for
+    the backward), and bf16 torch.nn.LSTM (cuDNN) at the dense form and at
+    J=1, H=128 (the graph form at k = 1), alone and in alternating pairs;
+    bounds at bf16's dense tensor-core rate against each tensor's bytes at
+    its element size. -> the entries' times by row."""
+    from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
+
+    rng = np.random.default_rng(SEED + 44)
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+
+    def flush_l2():  # 256 MB write: far more than the 50 MB L2
+        scratch.zero_()
+
+    def bound(cell, shape, backward=False, keep=False, dense=False):
+        return scan_bound(cell, shape, hbm_rate, backward,
+                          backward and cell == "lstm", keep, dense,
+                          element_size=2, peak=BF16_PEAK)
+
+    times, libs = {}, {}
+    for cell, shape, (fwd_row, bwd_row) in (
+            ("gru", CLS_MAIN, ("row10_bf16", "row11_bf16")),
+            ("lstm", CLS_MAIN, ("row12_bf16", "row13_bf16")),
+            ("lstm", CLS_DENSE, ("row12_bf16_dense", "row13_bf16_dense")),
+            ("lstm", CLS_WIDE, ("row12_bf16_k1", "row13_bf16_k1"))):
+        xg, cheb, w, cots = bf16_graph_case(rng, cell, shape)
+        dense = shape == CLS_DENSE
+        if cell == "gru":
+            def fwd(keep=False):
+                return FG.graph_gru_scan_cuda_fwd(xg, cheb, *w, keep=keep)
+            kept = fwd(True)
+
+            def bwd():
+                FG.graph_gru_scan_cuda_bwd(cheb, *w, kept[1], cots[0])
+            plain = FG.graph_gru_scan_reference
+            used = cots[:1]
+        elif dense:
+            def fwd(keep=False):
+                return FG.dense_lstm_scan_cuda_fwd(xg, w[0], keep=keep)
+            kept = fwd(True)
+
+            def bwd():
+                FG.dense_lstm_scan_cuda_bwd(w[0], kept[2], kept[0], kept[1],
+                                            *cots)
+            plain = FG.graph_lstm_scan_reference
+            used = cots
+        else:
+            def fwd(keep=False):
+                return FG.graph_lstm_scan_cuda_fwd(xg, cheb, w[0], keep=keep)
+            kept = fwd(True)
+
+            def bwd():
+                FG.graph_lstm_scan_cuda_bwd(cheb, w[0], kept[2], kept[1],
+                                            *cots)
+            plain = FG.graph_lstm_scan_reference
+            used = cots
+        leaves = [t.detach().clone().requires_grad_(True) for t in (xg, *w)]
+        outs = plain(leaves[0], cheb, *leaves[1:])
+        outs = outs if isinstance(outs, tuple) else (outs,)
+
+        def serve():
+            with torch.no_grad():
+                fwd()
+
+        def plain_fwd():
+            with torch.no_grad():
+                plain(xg, cheb, *w)
+
+        def plain_bwd():
+            torch.autograd.grad(outs, leaves, used, retain_graph=True)
+        times[fwd_row] = {"shape_B_L_J_H_k": shape,
+                          "ms": cuda_median_ms(serve, flush=flush_l2),
+                          "ms_warm_l2": cuda_median_ms(serve),
+                          "plain_ms": cuda_median_ms(plain_fwd),
+                          "keep_ms": cuda_median_ms(lambda: fwd(True),
+                                                    flush=flush_l2),
+                          "keep_bound_ms": bound(cell, shape, keep=True,
+                                                 dense=dense)["bound_ms"],
+                          **bound(cell, shape, dense=dense)}
+        times[bwd_row] = {"shape_B_L_J_H_k": shape,
+                          "ms": cuda_median_ms(bwd, flush=flush_l2),
+                          "ms_warm_l2": cuda_median_ms(bwd),
+                          "plain_ms": cuda_median_ms(plain_bwd),
+                          **bound(cell, shape, True, dense=dense)}
+        if cell == "lstm" and shape != CLS_MAIN:  # cuDNN computes it
+            lib_fwd, lib_bwd, err = library_lstm(xg, cheb, w[0], cots)
+            for row, kernel, lib in ((fwd_row, serve, lib_fwd),
+                                     (bwd_row, bwd, lib_bwd)):
+                times[row].update(
+                    library_ms=cuda_median_ms(lib, flush=flush_l2),
+                    paired_vs_library=paired_ms(kernel, lib, flush_l2),
+                    library_vs_plain_over_max=err)
+        del kept, leaves, outs
+    torch.cuda.empty_cache()
+    emit({"phase": "timing_scan_bf16", "card": card, "kernels": times,
+          "method": "bf16 scan kernels, their bf16 plain versions (autograd "
+                    "of them for the backward) and bf16 torch.nn.LSTM: CUDA "
+                    "events, median of %d single calls after 3 warm-up "
+                    "calls, cold = 256 MB scratch write before each call; "
+                    "pairs: kernel and library alternating, cold, %d each; "
+                    "bounds: ops/flops.py's FLOPs at %.0f TFLOP/s against "
+                    "each input read and each output written once at its "
+                    "element size" % (TIMING_RUNS, TIMING_PAIRS,
+                                      BF16_PEAK / 1e12)})
+    return times
+
+
+def phase_config3_bf16(card):
+    """BASELINE config 3 in bf16 end to end on the card: GConvGRU (hidden
+    128, k=2, 2 layers, the default graph_kernel="auto") at B=256, L=16 on
+    Carla2D3D through Trainer.fit, rows 10 and 11's bf16 launches counted;
+    the eval logits against the fp32 flow's on the same parameters; the
+    parameters and AdamW state float32; training_step and eval_step
+    against fp32 in alternating pairs, and both steps' CUDA-event split.
+    -> (rows 10 and 11's bf16 launches, the step times)."""
+    from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
+        Carla2D3DDataModule
+
+    dm = Carla2D3DDataModule(batch_size=CLS_BATCH, clip_length=CLIP,
+                             val_set_size=VAL_BATCHES * CLS_BATCH, seed=SEED)
+    flows = {p: make_cls_flow(precision=p) for p in ("bf16", "32")}
+    model = flows["bf16"].classification_model
+    if (model.hidden_size, model.k, model.graph_kernel) != (CLS_H, CLS_K,
+                                                           "auto"):
+        raise AssertionError("GConvGRU's defaults changed")
+    batches_run = BF16_CLS_STEPS + VAL_BATCHES
+    expected = {"graph_gru_scan": 2 * batches_run,
+                "graph_gru_scan_bwd": 2 * BF16_CLS_STEPS}
+    counts, losses, epochs, fit_s, _ = fit_classifier(
+        flows["bf16"], dm, BF16_CLS_STEPS, VAL_BATCHES, "cls_bf16", expected)
+    b16 = bf16_counts(SCAN_BF16_ROWS)
+    if (b16["row10_bf16"], b16["row11_bf16"]) != (
+            expected["graph_gru_scan"], expected["graph_gru_scan_bwd"]):
+        raise AssertionError(f"config 3 bf16: bf16 launches {b16}, "
+                             f"expected {expected}")
+    launches = dict(b16)
+
+    batch = next(dm.train_batches(SEED + 7))
+    params = flows["32"].init_params()
+    logits = {p: f.eval_step(params, batch)[1][f.outputs_key]
+              for p, f in flows.items()}
+    err = bar_err(logits["bf16"], logits["32"])[1]
+    if logits["bf16"].dtype != torch.float32 or err > BF16_VS_FP32 \
+            or not torch.isfinite(logits["bf16"]).all():
+        raise AssertionError(f"config 3 bf16 logits vs fp32: {err}")
+    states = {p: f.init_state(params) for p, f in flows.items()}
+    flows["bf16"].training_step(states["bf16"], batch)
+    dtypes = {str(v.dtype) for tree in states["bf16"].params.values()
+              for v in tree.values()} | {
+        str(v.dtype) for st in states["bf16"].optimizer.state.values()
+        for v in st.values() if torch.is_tensor(v) and v.numel() > 1}
+    if dtypes != {"torch.float32"}:
+        raise AssertionError(f"config 3 bf16 state dtypes {dtypes}")
+    step_pairs = paired_host_ms(
+        {"bf16": lambda: flows["bf16"].training_step(states["bf16"], batch),
+         "fp32": lambda: flows["32"].training_step(states["32"], batch)})
+    eval_pairs = paired_host_ms(
+        {"bf16": lambda: flows["bf16"].eval_step(params, batch),
+         "fp32": lambda: flows["32"].eval_step(params, batch)})
+    split = {p: cls_step_split(f, states[p], batch)
+             for p, f in flows.items()}
+    out = {"train_step_ms_host_pairs": step_pairs,
+           "eval_step_ms_host_pairs": eval_pairs,
+           "train_step_split_cuda_events_bf16": split["bf16"],
+           "train_step_split_cuda_events_fp32": split["32"]}
+    emit({"phase": "config3_bf16", "card": card, "B": CLS_BATCH, "L": CLIP,
+          "steps": BF16_CLS_STEPS, "val_batches": VAL_BATCHES,
+          "launches": counts, "bf16_launches": b16, "fit_seconds": fit_s,
+          "train_loss_primary": losses,
+          "val_loss_primary": epochs[-1]["val_loss/primary"],
+          "logits_vs_fp32_over_max": err, "state_dtypes": sorted(dtypes),
+          **out})
+    del flows, states, dm
+    return launches, out
+
+
+def phase_coverage_bf16(card):
+    """bf16 beyond configs 5 and 3, a few steps each on the card: config 4
+    (VideoPose3D, B=64, L=81; no hand-written kernel on its path, its
+    products cuBLAS bf16) and config 2 on rnn_kernel="auto" (the loop), no
+    launch; config 2 on rnn_kernel="fused" (its encoder on the dense bf16
+    kernels), GConvLSTM (the graph-form LSTM kernels) and the LSTM
+    classifier on rnn_kernel="fused" (the dense ones), launches counted; a
+    bf16 GConvGRU exported and served through load_inference, the
+    closure's bits; the CLI's --precision bf16 on a GConvGRU classifier
+    with its default route. -> rows 12 and 13's bf16 launches (graph form
+    and dense form) on these paths."""
+    from pedestrians_video_2_carla_torch import modeling
+    from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
+        Carla2D3DDataModule
+    from pedestrians_video_2_carla_torch.serving import (
+        export_inference, load_inference, make_inference_fn)
+
     out = {}
+    launches = dict.fromkeys(SCAN_BF16_ROWS, 0)
     cases = (("config4_videopose3d", lambda: make_vp_flow(
-                  precision="bf16"), VP_BATCH, VP_CLIP),
+                  precision="bf16"), VP_BATCH, VP_CLIP, {}),
              ("config2_auto", lambda: make_ae_flow("auto", "bf16"),
-              AE_BATCH, CLIP))
-    for name, make, B, L in cases:
+              AE_BATCH, CLIP, {}),
+             ("config2_fused", lambda: make_ae_flow("fused", "bf16"),
+              AE_BATCH, CLIP,
+              {"dense_lstm_scan": AE_LAYERS * BF16_COVERAGE_STEPS,
+               "dense_lstm_scan_bwd": AE_LAYERS * BF16_COVERAGE_STEPS}))
+    for name, make, B, L, expected in cases:
         flow = make()
         dm = Carla2D3DDataModule(batch_size=B, clip_length=L, seed=SEED)
         params = vp_params(flow) if name.startswith("config4") \
@@ -5777,51 +6144,119 @@ def phase_coverage_bf16():
             _, logs = flow.training_step(state, next(stream))
             losses.append(float(logs["train_loss/primary"]))
         torch.cuda.synchronize()
-        counts = kernel_counts()
+        counts, b16 = kernel_counts(), bf16_counts(SCAN_BF16_ROWS)
         dtypes = {str(v.dtype) for v in state.params["movements"].values()}
         moved = all(not torch.equal(state.params["movements"][k], v)
                     for k, v in stats.items())
+        dense_b16 = (b16["row12_bf16_dense"], b16["row13_bf16_dense"])
         if not (np.isfinite(losses).all() and dtypes == {"torch.float32"}
-                and moved and not any(counts.values())):
+                and moved and counts == expected_counts(**expected)
+                and dense_b16 == (expected.get("dense_lstm_scan", 0),
+                                  expected.get("dense_lstm_scan_bwd", 0))):
             raise AssertionError(f"bf16 {name}: losses {losses}, dtypes "
                                  f"{dtypes}, statistics moved {moved}, "
-                                 f"launches {counts}")
+                                 f"launches {counts}, bf16 {b16}")
+        for k in launches:
+            launches[k] += b16[k]
         out[name] = {"losses": losses, "running_statistics": len(stats),
+                     "launches": {k: v for k, v in counts.items() if v},
                      "statistics_moved": moved}
         del flow, state, dm
-    # rows 10-13: a bf16 CUDA tensor raises, on every route
-    rng = np.random.default_rng(SEED + 42)
-    bf = torch.bfloat16
-    xg = bf16_randn(rng, (CLIP, 8, CLS_J, 3 * 16))
-    xl = bf16_randn(rng, (CLIP, 8, CLS_J, 4 * 16))
-    cheb = torch.from_numpy(FG.cheb_matrices(
-        np.eye(CLS_J, dtype=np.float32), 2)).cuda().to(bf)
-    w3 = bf16_randn(rng, (16, 2 * 2 * 16))
-    w1 = bf16_randn(rng, (16, 2 * 16))
-    w4 = bf16_randn(rng, (16, 2 * 4 * 16))
-    w4d = bf16_randn(rng, (16, 4 * 16))
-    refusals = {}
-    for name, call in (
-            ("graph_gru_scan", lambda: FG.graph_gru_scan(xg, cheb, w3, w1)),
-            ("graph_lstm_scan", lambda: FG.graph_lstm_scan(xl, cheb, w4)),
-            ("dense_lstm_scan", lambda: FG.graph_lstm_scan(
-                xl[:, :, :1], cheb[:0, :1, :1], w4d))):
-        try:
-            call()
-        except TypeError as err:
-            if "M5b step 4" not in str(err):
-                raise
-            refusals[name] = str(err)
-            continue
-        raise AssertionError(f"{name} took a bf16 CUDA tensor")
-    emit({"phase": "coverage_bf16", "steps": BF16_COVERAGE_STEPS, **out,
-          "rows_10_13_refuse_bf16": refusals})
+    # config 2's fused step in bf16 beside fp32's from the same weights,
+    # alternating (host clock)
+    flows = {p: make_ae_flow("fused", p) for p in ("bf16", "32")}
+    params = flows["32"].init_params()
+    states = {p: f.init_state(params) for p, f in flows.items()}
+    batch = next(Carla2D3DDataModule(batch_size=AE_BATCH, clip_length=CLIP,
+                                     seed=SEED).train_batches(SEED + 7))
+    out["config2_fused"]["train_step_ms_host_pairs"] = paired_host_ms(
+        {"bf16": lambda: flows["bf16"].training_step(states["bf16"], batch),
+         "fp32": lambda: flows["32"].training_step(states["32"], batch)})
+    del flows, states, batch
+
+    # the classifiers on rows 12 and 13: GConvLSTM (graph form) and the
+    # LSTM classifier on its fused route (dense form)
+    dm = Carla2D3DDataModule(batch_size=CLS_BATCH, clip_length=CLIP,
+                             val_set_size=CLS_BATCH, seed=SEED)
+    steps, val = BF16_COVERAGE_STEPS, 1
+    for name, kwargs, wrappers, rows in (
+            ("gconv_lstm", dict(name="GConvLSTM"),
+             ("graph_lstm_scan", "graph_lstm_scan_bwd"),
+             ("row12_bf16", "row13_bf16")),
+            ("lstm_classifier_fused", dict(name="LSTM", rnn_kernel="fused"),
+             ("dense_lstm_scan", "dense_lstm_scan_bwd"),
+             ("row12_bf16_dense", "row13_bf16_dense"))):
+        expected = {wrappers[0]: 2 * (steps + val), wrappers[1]: 2 * steps}
+        counts, losses, _, _, _ = fit_classifier(
+            make_cls_flow(precision="bf16", **kwargs), dm, steps, val,
+            f"{name}_bf16", expected)
+        b16 = bf16_counts(SCAN_BF16_ROWS)
+        if tuple(b16[r] for r in rows) != tuple(expected.values()):
+            raise AssertionError(f"bf16 {name}: bf16 launches {b16}")
+        for k in launches:
+            launches[k] += b16[k]
+        out[name] = {"losses": losses, "launches": expected}
+
+    # a bf16 GConvGRU exported and served: the closure's bits, the bf16
+    # kernel launched
+    flow = make_cls_flow(precision="bf16")
+    params = flow.init_params()
+    inputs, _, meta = next(iter(dm.val_batches()))
+    agi = meta["age_gender_idx"]
+    closure = make_inference_fn(flow, params)(inputs, agi)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = export_inference(flow, params, inputs, agi,
+                                os.path.join(tmp, "gconvgru_bf16.pt2"))
+        export_s = time.perf_counter() - t0
+        served, _ = load_inference(path)
+        ops = program_ops(path)
+        reset_kernel_counts()
+        got = served(inputs, agi)
+        torch.cuda.synchronize()
+        b16 = bf16_counts(SCAN_BF16_ROWS)
+        del served
+    same = set(got) == set(closure) and all(
+        torch.equal(got[k], v) and v.dtype == torch.float32
+        for k, v in closure.items())
+    if not same or b16["row10_bf16"] != 2 or kernel_counts() != \
+            expected_counts(graph_gru_scan=2):
+        raise AssertionError(f"bf16 GConvGRU program: closure bits {same}, "
+                             f"bf16 launches {b16}")
+    out["gconvgru_export"] = {"export_s": export_s, "ops": ops,
+                              "closure_bits": same, "bf16_launches": b16}
+
+    # the CLI's --precision bf16 on GConvGRU's default route
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_kernel_counts()
+        results = modeling.main([
+            "--flow=classification", "--classification_model_name=GConvGRU",
+            "--precision", "bf16", f"--batch_size={CLI_BATCH}",
+            f"--clip_length={CLIP}", f"--val_set_size={CLI_BATCH}",
+            "--max_epochs=1", "--limit_train_batches=2", f"--root_dir={tmp}",
+            f"--seed={SEED}", "--run_name=cli_bf16"])
+        torch.cuda.synchronize()
+        b16 = bf16_counts(SCAN_BF16_ROWS)
+        leaves = [v for tree in results["trainer"].state.params.values()
+                  for v in tree.values()]
+        val = [float(v) for k, v in results["val_metrics"].items()
+               if "loss" in k]
+        if not (b16["row10_bf16"] > 0 and b16["row11_bf16"] > 0
+                and all(v.dtype == torch.float32 for v in leaves)
+                and val and np.isfinite(val).all()):
+            raise AssertionError(f"the CLI's bf16 GConvGRU: bf16 launches "
+                                 f"{b16}, val losses {val}")
+        out["cli_gconvgru"] = {"bf16_launches": b16, "val_losses": val}
+    emit({"phase": "coverage_bf16", "card": card,
+          "steps": BF16_COVERAGE_STEPS, **out, "bf16_launches": launches})
+    return launches
 
 
 def group_bf16(card, hbm_rate):
-    """bf16 mixed precision on the card: rows 4, 5, 8 and 9 in bf16 against
-    their plain versions, config 5 in bf16 end to end, the rows' times,
-    and coverage. -> the four bf16 rows' kernels-line entries."""
+    """bf16 mixed precision on the card: rows 4, 5, 8 and 9 and rows 10-13
+    in bf16 against their plain versions, configs 5 and 3 in bf16 end to
+    end, the rows' times, and coverage. -> the eight bf16 rows'
+    kernels-line entries."""
     t0 = time.perf_counter()
     errs = phase_kernel_bf16()
     torch.cuda.empty_cache()
@@ -5829,7 +6264,14 @@ def group_bf16(card, hbm_rate):
     torch.cuda.empty_cache()
     times = phase_timing_bf16(card, hbm_rate)
     torch.cuda.empty_cache()
-    phase_coverage_bf16()
+    scan_errs = phase_kernel_scan_bf16()
+    torch.cuda.empty_cache()
+    scan_launches, config3 = phase_config3_bf16(card)
+    torch.cuda.empty_cache()
+    scan_times = phase_timing_scan_bf16(card, hbm_rate)
+    torch.cuda.empty_cache()
+    for k, v in phase_coverage_bf16(card).items():
+        scan_launches[k] += v
     torch.cuda.empty_cache()
     emit({"phase": "group_bf16", "seconds": time.perf_counter() - t0})
     where = {"row4_bf16": ("fused_spatial_transformer.cu",
@@ -5850,6 +6292,46 @@ def group_bf16(card, hbm_rate):
         entry["paired_with_library"] = t["paired_with_library"]
         entries.append(entry)
     entries[0]["config5_bf16"] = e2e
+    entries += scan_bf16_entries(scan_times, scan_launches, scan_errs)
+    entries[-4]["config3_bf16"] = config3
+    return entries
+
+
+def scan_bf16_entries(times, launches, errs):
+    """Rows 10-13's bf16 entries of the kernels line: config 3's layer; rows
+    12 and 13 with the dense form (config 2's layer, ``dense_`` fields) and
+    the graph form at k = 1 (J=1, H=128, ``k1_`` fields) beside cuDNN."""
+    where = {"row10_bf16": "fused_graph_gru.py:251",
+             "row11_bf16": "fused_graph_gru.py:291",
+             "row12_bf16": "fused_graph_gru.py:442",
+             "row13_bf16": "fused_graph_gru.py:486"}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    entries = []
+    for row, replaces in where.items():
+        t = times[row]
+        entry = kernel_entry(row, "fused_graph_gru.cu", replaces,
+                             launches[row], errs[row],
+                             {**{k: t.get(k) for k in keys},
+                              "shape_B_L_J_H_k": t["shape_B_L_J_H_k"]})
+        if "keep_ms" in t:
+            entry.update(keep_ms=t["keep_ms"],
+                         keep_bound_ms=t["keep_bound_ms"])
+        if row in ("row12_bf16", "row13_bf16"):
+            dense, k1 = times[f"{row}_dense"], times[f"{row}_k1"]
+            entry.update(
+                dense_source="pedestrians_video_2_carla_torch/csrc/"
+                             "fused_dense_lstm.cu",
+                dense_shape_B_L_J_H_k=dense["shape_B_L_J_H_k"],
+                dense_launches=launches[f"{row}_dense"],
+                dense_max_abs_err=errs[f"{row}_dense"],
+                **{f"dense_{k}": dense[k] for k in keys},
+                dense_paired_ratio_vs_library=dense["paired_vs_library"][
+                    "ratio_median"],
+                k1_shape_B_L_J_H_k=k1["shape_B_L_J_H_k"], k1_ms=k1["ms"],
+                k1_bound_ms=k1["bound_ms"], k1_library_ms=k1["library_ms"],
+                k1_paired_ratio_vs_library=k1["paired_vs_library"][
+                    "ratio_median"])
+        entries.append(entry)
     return entries
 
 

@@ -4,6 +4,14 @@
 // order: no float atomics, the same bits on every launch. Shared by
 // fused_graph_gru.cu (both GRU weight gradients in one launch) and
 // fused_dense_lstm.cu (the dense LSTM's).
+//
+// Operand types TA and TB: float32, or bf16 (the scans' bf16 forms), whose
+// tiles stay bf16 in shared memory (cp.async copies bytes) and are widened
+// as the fragments are read. Where Bm is bf16 the callers' A holds TF32
+// values (bf16 values, or the bf16 scans' graph terms rounded to TF32), so
+// one TF32 product a step is exact and the sums stay in the tensor cores,
+// in fp32; else 3xTF32. The partial sums are fp32; the sum of the splits is
+// stored in the weight's type.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -12,15 +20,17 @@
 #include <cstddef>
 
 #include "mma_tf32.cuh"
+#include "storage.cuh"
 
 namespace {
 
 // One problem of the weight-gradient launch: part[split] (M x N) = A^T Bm
 // over the split's rows; A (rows x M, row stride lda), Bm (rows x N, row
 // stride ldb).
+template <typename TA, typename TB>
 struct DwProblem {
-  const float* A;
-  const float* Bm;
+  const TA* A;
+  const TB* Bm;
   float* part;
   int lda, M, ldb, N;
 };
@@ -35,15 +45,18 @@ constexpr int kDwStage = 2 * kDwKT * kDwLd;
 constexpr int kDwSmemBytes = kDwStages * kDwStage * sizeof(float);
 
 // Two problems in one launch (blockIdx.x: p0's 128 x 128 tiles, then
-// p1's; blockIdx.y: the split of the rows), 3xTF32 products
-// through a 3-stage cp.async ring. VEC: both operands' rows, strides and
-// widths multiples of 4 floats (16-byte copies), else 4-byte copies.
-template <bool VEC>
+// p1's; blockIdx.y: the split of the rows), 3xTF32 products (bf16 Bm: one
+// TF32 product) through a 3-stage cp.async ring. VEC: both operands' rows,
+// strides and widths multiples of 4 elements (16-byte copies, 8-byte ones
+// of bf16), else 4-byte copies (bf16: ordinary loads).
+template <bool VEC, typename TA, typename TB>
 __global__ void __launch_bounds__(kDwThreads, 2)
-dw_tf32_kernel(DwProblem p0, DwProblem p1, int tiles0, int rows, int chunk) {
-  extern __shared__ __align__(16) float smem[];
+dw_tf32_kernel(DwProblem<TA, TB> p0, DwProblem<TA, TB> p1, int tiles0,
+               int rows, int chunk) {
+  constexpr bool kOnePass = IsBf16<TB>::value;
+  extern __shared__ __align__(16) float smem[];  // A and B tiles, fp32 layout
   const bool first = static_cast<int>(blockIdx.x) < tiles0;
-  const DwProblem p = first ? p0 : p1;
+  const DwProblem<TA, TB> p = first ? p0 : p1;
   const int tile = first ? blockIdx.x : blockIdx.x - tiles0;
   const int tn = (p.N + kDwTile - 1) / kDwTile;
   const int m0 = (tile / tn) * kDwTile, n0 = (tile % tn) * kDwTile;
@@ -51,23 +64,38 @@ dw_tf32_kernel(DwProblem p0, DwProblem p1, int tiles0, int rows, int chunk) {
   const int steps = kend > kbeg ? (kend - kbeg + kDwKT - 1) / kDwKT : 0;
   const int tid = threadIdx.x;
 
-  // 4 floats of a row of X (row stride ld, width W) from column col on
-  const auto copy4 = [](float* dst, const float* X, size_t at, int ld, int W,
+  // 4 elements of a row of X (row stride ld, width W) from column col on
+  const auto copy4 = [](auto* dst, const auto* X, size_t at, int ld, int W,
                         int col, bool in) {
+    constexpr bool kBf = sizeof(*X) == 2;
     if (VEC) {
       const bool ok = in && col < W;
-      cp_async16(dst, ok ? X + at * ld + col : X, ok);
+      if constexpr (kBf)
+        cp_async8(dst, ok ? X + at * ld + col : X, ok);
+      else
+        cp_async16(dst, ok ? X + at * ld + col : X, ok);
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool ok = in && col + e < W;
-        cp_async4(dst + e, ok ? X + at * ld + col + e : X, ok);
+        if constexpr (kBf)
+          put(dst + e, ok ? ldg1(X + at * ld + col + e) : 0.f);
+        else
+          cp_async4(dst + e, ok ? X + at * ld + col + e : X, ok);
       }
     }
   };
+  // a slot's A tile, then its B tile, each kDwKT x kDwLd elements in the
+  // space of as many floats
+  const auto a_tile = [&](int slot) {
+    return reinterpret_cast<TA*>(smem + slot * kDwStage);
+  };
+  const auto b_tile = [&](int slot) {
+    return reinterpret_cast<TB*>(smem + slot * kDwStage + kDwKT * kDwLd);
+  };
   auto load = [&](int slot, int k0) {
-    float* As = smem + slot * kDwStage;
-    float* Bs = As + kDwKT * kDwLd;
+    TA* As = a_tile(slot);
+    TB* Bs = b_tile(slot);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int c = tid + i * kDwThreads;
@@ -99,28 +127,49 @@ dw_tf32_kernel(DwProblem p0, DwProblem p1, int tiles0, int rows, int chunk) {
     const int next = step + kDwStages - 1;
     if (next < steps) load(next % kDwStages, kbeg + next * kDwKT);
     cp_async_commit();
-    const float* As = smem + (step % kDwStages) * kDwStage;
-    const float* Bs = As + kDwKT * kDwLd;
+    const TA* As = a_tile(step % kDwStages);
+    const TB* Bs = b_tile(step % kDwStages);
 #pragma unroll
     for (int ks = 0; ks < kDwKT; ks += 8) {
-      unsigned bb[4][2], bs[4][2];
+      if constexpr (kOnePass) {  // exact TF32 values: one product
+        unsigned bb[4][2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = wn + j * 8 + g;
-        split_tf32(Bs[(ks + t) * kDwLd + n], bb[j][0], bs[j][0]);
-        split_tf32(Bs[(ks + t + 4) * kDwLd + n], bb[j][1], bs[j][1]);
-      }
+        for (int j = 0; j < 4; ++j) {
+          const int n = wn + j * 8 + g;
+          bb[j][0] = __float_as_uint(to_f(Bs[(ks + t) * kDwLd + n]));
+          bb[j][1] = __float_as_uint(to_f(Bs[(ks + t + 4) * kDwLd + n]));
+        }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = wm + i * 16 + g;
-        unsigned ab[4], as[4];
-        split_tf32(As[(ks + t) * kDwLd + m], ab[0], as[0]);
-        split_tf32(As[(ks + t) * kDwLd + m + 8], ab[1], as[1]);
-        split_tf32(As[(ks + t + 4) * kDwLd + m], ab[2], as[2]);
-        split_tf32(As[(ks + t + 4) * kDwLd + m + 8], ab[3], as[3]);
+        for (int i = 0; i < 4; ++i) {
+          const int m = wm + i * 16 + g;
+          const unsigned ab[4] = {
+              __float_as_uint(to_f(As[(ks + t) * kDwLd + m])),
+              __float_as_uint(to_f(As[(ks + t) * kDwLd + m + 8])),
+              __float_as_uint(to_f(As[(ks + t + 4) * kDwLd + m])),
+              __float_as_uint(to_f(As[(ks + t + 4) * kDwLd + m + 8]))};
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma_3xtf32(acc[i][j], ab, as, bb[j], bs[j]);
+          for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], ab, bb[j]);
+        }
+      } else {
+        unsigned bb[4][2], bs[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = wn + j * 8 + g;
+          split_tf32(Bs[(ks + t) * kDwLd + n], bb[j][0], bs[j][0]);
+          split_tf32(Bs[(ks + t + 4) * kDwLd + n], bb[j][1], bs[j][1]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int m = wm + i * 16 + g;
+          unsigned ab[4], as[4];
+          split_tf32(As[(ks + t) * kDwLd + m], ab[0], as[0]);
+          split_tf32(As[(ks + t) * kDwLd + m + 8], ab[1], as[1]);
+          split_tf32(As[(ks + t + 4) * kDwLd + m], ab[2], as[2]);
+          split_tf32(As[(ks + t + 4) * kDwLd + m + 8], ab[3], as[3]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma_3xtf32(acc[i][j], ab, as, bb[j], bs[j]);
+        }
       }
     }
   }
@@ -143,14 +192,15 @@ dw_tf32_kernel(DwProblem p0, DwProblem p1, int tiles0, int rows, int chunk) {
 }
 
 // out0 and out1 = the sums of their parts (splits of count0 and count1
-// floats), each in the order of the splits.
+// floats), each in the order of the splits, stored in St.
+template <typename St>
 __global__ void reduce_two_kernel(const float* __restrict__ part0, int count0,
-                                  float* __restrict__ out0,
+                                  St* __restrict__ out0,
                                   const float* __restrict__ part1, int count1,
-                                  float* __restrict__ out1, int splits) {
+                                  St* __restrict__ out1, int splits) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   const float* part = part0;
-  float* out = out0;
+  St* out = out0;
   int count = count0;
   if (i >= count0) {
     i -= count0;
@@ -162,7 +212,7 @@ __global__ void reduce_two_kernel(const float* __restrict__ part0, int count0,
   float sum = 0.f;
   for (int z = 0; z < splits; ++z)
     sum += part[static_cast<size_t>(z) * count + i];
-  out[i] = sum;
+  put(out + i, sum);
 }
 
 // Thread-block tiles of one problem's M x N output.

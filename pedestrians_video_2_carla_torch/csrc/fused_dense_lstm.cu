@@ -1,6 +1,6 @@
-// The dense LSTM frame scan, forward and backward, for sm_90a, float32: the
-// graph LSTM's case k = 1, which has no graph term, so the B J rows are
-// independent.
+// The dense LSTM frame scan, forward and backward, for sm_90a, float32 or
+// bf16 (see "bf16" below): the graph LSTM's case k = 1, which has no graph
+// term, so the B J rows are independent.
 //
 // Replaces the TPU kernels _lstm_fwd_kernel and _lstm_bwd_kernel of the JAX
 // package's ops/pallas/fused_graph_gru.py (the bodies of _lstm_scan_fwd and
@@ -61,6 +61,20 @@
 // 0 or 1 to 1.8e-35), tanh(v) = 2 sigmoid(2v) - 1: within 1e-6 of the
 // accurate functions, against the port's bar of 1e-5, in fewer
 // instructions on the gating's serial chain.
+//
+// bf16 (the _bf16 entries; the kernels templated on the storage type St of
+// xg, w, ys, cs, dys, dcs, dxg and dw), as the JAX kernel runs on bf16
+// inputs: the products' operands are bf16 values (W; the carry h and the
+// backward's da, rounded as they are stored for the next frame's product),
+// so that the register-resident W keeps only its big TF32 part, the carry
+// and da planes are one plane each, and every product is one exact TF32
+// product with fp32 sums; c, dh, dc and the gating stay fp32; the gates are
+// kept in fp32. W is staged by ordinary loads (once a launch), xg and the
+// backward's cs, dys, dcs stay bf16 in shared memory (cp.async copies
+// bytes: 16 bytes where H is even (xg) or a multiple of 8, 4 where it is
+// even, ordinary loads where it is odd) and are widened as they are read.
+// The launch plans are the fp32 ones (the bf16 buffers use part of their
+// bytes).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -69,6 +83,7 @@
 
 #include "dw_tf32.cuh"
 #include "mma_tf32.cuh"
+#include "storage.cuh"
 
 namespace {
 
@@ -118,9 +133,17 @@ struct AFrag {
   uint4 hi, lo;
 };
 
+// BF: a0..a3 are bf16 values, TF32 values already: hi alone (lo unused).
+template <bool BF>
 __device__ __forceinline__ AFrag split_a(float a0, float a1, float a2,
                                          float a3) {
   AFrag f;
+  if (BF) {
+    f.hi = make_uint4(__float_as_uint(a0), __float_as_uint(a1),
+                      __float_as_uint(a2), __float_as_uint(a3));
+    f.lo = make_uint4(0u, 0u, 0u, 0u);
+    return f;
+  }
   split_tf32(a0, f.hi.x, f.lo.x);
   split_tf32(a1, f.hi.y, f.lo.y);
   split_tf32(a2, f.hi.z, f.lo.z);
@@ -128,66 +151,94 @@ __device__ __forceinline__ AFrag split_a(float a0, float a1, float a2,
   return f;
 }
 
-// d += a b in 3xTF32: a resident A fragment, b a split B fragment.
+// d += a b in 3xTF32: a resident A fragment, b a split B fragment (BF: one
+// TF32 product of exact values; bs unused).
+template <bool BF>
 __device__ __forceinline__ void mma_a(float* d, const AFrag& a,
                                       const unsigned* bb, const unsigned* bs) {
   const unsigned ab[4] = {a.hi.x, a.hi.y, a.hi.z, a.hi.w};
+  if (BF) {
+    mma_tf32(d, ab, bb);
+    return;
+  }
   const unsigned as[4] = {a.lo.x, a.lo.y, a.lo.z, a.lo.w};
   mma_3xtf32(d, ab, as, bb, bs);
 }
 
 // The k8 x n8 B fragment of a split operand stored n-major (row n holds the
-// depth k; at = (n0 + g) ld + k0 + t4): X[n][k], X[n][k + 4].
+// depth k; at = (n0 + g) ld + k0 + t4): X[n][k], X[n][k + 4] (BF: the hi
+// plane alone).
+template <bool BF>
 __device__ __forceinline__ void load_b(const unsigned* hi, const unsigned* lo,
                                        int at, unsigned* bb, unsigned* bs) {
   bb[0] = hi[at];
   bb[1] = hi[at + 4];
+  if (BF) return;
   bs[0] = lo[at];
   bs[1] = lo[at + 4];
 }
 
-// dst[r][c] <- src[r width + c] for r < R, c < width (row stride ld), by
-// cp.async, in flight until the caller waits; zeros for rows >= live or
-// without src. vec: width, ld and src 16-byte multiples (16-byte copies),
-// else 4-byte copies. fallback: any valid address (not read).
-__device__ __forceinline__ void stage_rows(float* dst, int ld,
-                                           const float* src, int R, int live,
-                                           int width, bool vec,
-                                           const float* fallback) {
-  const int step = vec ? 4 : 1, n = R * width;
+// A copy into shared memory of `bytes` (16 or 4 by cp.async, in flight
+// until the caller waits; 2: one bf16 value by an ordinary load) from src,
+// zeros where !ok (src is then not read).
+template <typename St>
+__device__ __forceinline__ void stage_copy(St* dst, const St* src, bool ok,
+                                           int bytes) {
+  if (bytes == 16)
+    cp_async16(reinterpret_cast<float*>(dst),
+               reinterpret_cast<const float*>(src), ok);
+  else if (bytes == 4)
+    cp_async4(reinterpret_cast<float*>(dst),
+              reinterpret_cast<const float*>(src), ok);
+  else
+    put(dst, ok ? ldg1(src) : 0.f);
+}
+
+// dst[r][c] <- src[r width + c] for r < R, c < width (row stride ld), in
+// copies of `bytes` (stage_copy; width, ld and src multiples of them);
+// zeros for rows >= live or without src. fallback: any valid address (not
+// read).
+template <typename St>
+__device__ __forceinline__ void stage_rows(St* dst, int ld, const St* src,
+                                           int R, int live, int width,
+                                           int bytes, const St* fallback) {
+  const int step = bytes / static_cast<int>(sizeof(St)), n = R * width;
   for (int i = threadIdx.x * step; i < n; i += kThreads * step) {
     const int r = i / width, c = i - r * width;
     const bool ok = src != nullptr && r < live;
-    const float* s = ok ? src + i : fallback;
-    if (vec)
-      cp_async16(dst + r * ld + c, s, ok);
-    else
-      cp_async4(dst + r * ld + c, s, ok);
+    stage_copy(dst + r * ld + c, ok ? src + i : fallback, ok, bytes);
   }
 }
 
-// dst[i] <- src[i] for i < n by cp.async, zeros for i >= valid or without
-// src; vec: 16-byte copies (n, valid, src 16-byte multiples).
-__device__ __forceinline__ void stage_flat(float* dst, const float* src,
-                                           int n, int valid, bool vec,
-                                           const float* fallback) {
-  const int step = vec ? 4 : 1;
+// dst[i] <- src[i] for i < n in copies of `bytes` (stage_copy; n, valid
+// and src multiples of them), zeros for i >= valid or without src.
+template <typename St>
+__device__ __forceinline__ void stage_flat(St* dst, const St* src, int n,
+                                           int valid, int bytes,
+                                           const St* fallback) {
+  const int step = bytes / static_cast<int>(sizeof(St));
   for (int i = threadIdx.x * step; i < n; i += kThreads * step) {
     const bool ok = src != nullptr && i < valid;
-    const float* s = ok ? src + i : fallback;
-    if (vec)
-      cp_async16(dst + i, s, ok);
-    else
-      cp_async4(dst + i, s, ok);
+    stage_copy(dst + i, ok ? src + i : fallback, ok, bytes);
   }
 }
 
-// W into shared memory at ws (see StagedW), in flight until the caller
-// waits. vec: the rows are 16-byte multiples and w 16-byte aligned.
-__device__ __forceinline__ StagedW stage_w(float* ws, const float* w, bool wt,
+// W into shared memory at ws (see StagedW), float32 in either storage
+// type: cp.async copies in flight until the caller waits (vec: the rows
+// are 16-byte multiples and w 16-byte aligned), bf16 widened by ordinary
+// loads.
+template <typename St>
+__device__ __forceinline__ StagedW stage_w(float* ws, const St* w, bool wt,
                                            int H, bool vec) {
-  const int width = wt ? H : 4 * H;
-  stage_rows(ws, width + 4, w, wt ? 4 * H : H, wt ? 4 * H : H, width, vec, w);
+  const int width = wt ? H : 4 * H, R = wt ? 4 * H : H;
+  if constexpr (IsBf16<St>::value) {
+    for (int i = threadIdx.x; i < R * width; i += kThreads) {
+      const int r = i / width, c = i - r * width;
+      ws[r * (width + 4) + c] = ldg1(w + i);
+    }
+  } else {
+    stage_rows(ws, width + 4, w, R, R, width, vec ? 16 : 4, w);
+  }
   return {ws, wt, H};
 }
 
@@ -248,19 +299,22 @@ Plan plan_bwd(int rows, int H) {
 // accumulators hold all four gates of its unit for its two batch rows and
 // the gating runs on them. The warp's n8 tiles are w / UG, w / UG + 8 / UG,
 // .. (warps past 8 / UG groups idle). FULL: H = kMaxUnits, so that no
-// k-step, warp or unit is masked.
-template <bool KEEP, bool FULL>
+// k-step, warp or unit is masked. bf16 (St): the xg frames stay bf16 in
+// their slots (row stride 4H + 8), copies of xbytes; h one plane.
+template <bool KEEP, bool FULL, typename St>
 __global__ void __launch_bounds__(kThreads, 1)
-dense_lstm_fwd_kernel(const float* __restrict__ xg,
-                      const float* __restrict__ w, bool wt,
-                      float* __restrict__ ys, float* __restrict__ cs,
+dense_lstm_fwd_kernel(const St* __restrict__ xg, const St* __restrict__ w,
+                      bool wt, St* __restrict__ ys, St* __restrict__ cs,
                       float* __restrict__ gates, int L, int rows, int H,
-                      int NT, bool vec, bool wvec) {
+                      int NT, int xbytes, bool wvec) {
+  constexpr bool kBf = IsBf16<St>::value;
   extern __shared__ __align__(16) float smem[];
   const int Hp = pad8(H), UG = Hp / 8, KS = Hp / 8, M = 8 * NT;
   const int lda = Hp + 4, G4 = 4 * H, ldx = G4 + 4;
+  const int lds = kBf ? G4 + 8 : ldx;  // a staged row's stride, elements
   unsigned* hbuf = reinterpret_cast<unsigned*>(smem);  // [2][hi, lo][M][lda]
   float* xs = smem + 4 * M * lda;                      // [kRing][M][ldx]
+  St* xring = reinterpret_cast<St*>(xs);               // [kRing][M][lds]
   const StagedW weight = stage_w(xs + kRing * M * ldx, w, wt, H, wvec);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -272,9 +326,9 @@ dense_lstm_fwd_kernel(const float* __restrict__ xg,
 
   // xg[t] into ring slot t % kRing
   const auto stage = [&](int t) {
-    stage_rows(xs + (t % kRing) * M * ldx, ldx,
+    stage_rows(xring + (t % kRing) * M * lds, lds,
                xg + (static_cast<size_t>(t) * rows + row0) * G4, M, live, G4,
-               vec, xg);
+               xbytes, xg);
   };
   cp_async_commit();
   stage(0);
@@ -292,9 +346,10 @@ dense_lstm_fwd_kernel(const float* __restrict__ xg,
       const int k0 = ks * 8 + t4, c0 = 2 * j * H + u, c1 = c0 + H;
       const bool ok = FULL || (active && ks < KS && u < H);
       const bool ok0 = ok && (FULL || k0 < H), ok4 = ok && (FULL || k0 + 4 < H);
-      af[j][ks] = split_a(ok0 ? weight(k0, c0) : 0.f, ok0 ? weight(k0, c1) : 0.f,
-                          ok4 ? weight(k0 + 4, c0) : 0.f,
-                          ok4 ? weight(k0 + 4, c1) : 0.f);
+      af[j][ks] = split_a<kBf>(ok0 ? weight(k0, c0) : 0.f,
+                               ok0 ? weight(k0, c1) : 0.f,
+                               ok4 ? weight(k0 + 4, c0) : 0.f,
+                               ok4 ? weight(k0 + 4, c1) : 0.f);
     }
   for (int i = tid; i < 2 * M * lda; i += kThreads) hbuf[i] = 0u;  // h = 0
 
@@ -308,7 +363,7 @@ dense_lstm_fwd_kernel(const float* __restrict__ xg,
                       // reads are done
     if (t + 2 < L) stage(t + 2);  // into frame t-1's slot
     cp_async_commit();
-    const float* x = xs + (t % kRing) * M * ldx;
+    const St* x = xring + (t % kRing) * M * lds;
     const unsigned* Hh = hbuf + (t & 1) * 2 * M * lda;
     const unsigned* Hl = Hh + M * lda;
     unsigned* Nh = hbuf + ((t + 1) & 1) * 2 * M * lda;
@@ -325,17 +380,18 @@ dense_lstm_fwd_kernel(const float* __restrict__ xg,
         for (int jj = 0; jj < 2; ++jj)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            acc[jj][e] = uok ? x[(ra + (e & 1)) * ldx + (2 * jj + (e >> 1)) * H + u]
-                             : 0.f;
+            acc[jj][e] =
+                uok ? to_f(x[(ra + (e & 1)) * lds + (2 * jj + (e >> 1)) * H + u])
+                    : 0.f;
         if (t > 0) {  // (frame 0's h is zero)
           const int b0 = (nt * 8 + g) * lda + t4;
 #pragma unroll
           for (int ks = 0; ks < kMaxKS; ++ks) {
             if (FULL || ks < KS) {
               unsigned bb[2], bs[2];
-              load_b(Hh, Hl, b0 + ks * 8, bb, bs);
-              mma_a(acc[0], af[0][ks], bb, bs);
-              mma_a(acc[1], af[1][ks], bb, bs);
+              load_b<kBf>(Hh, Hl, b0 + ks * 8, bb, bs);
+              mma_a<kBf>(acc[0], af[0][ks], bb, bs);
+              mma_a<kBf>(acc[1], af[1][ks], bb, bs);
             }
           }
         }
@@ -347,11 +403,14 @@ dense_lstm_fwd_kernel(const float* __restrict__ xg,
           const float cn = f * c[j][e] + i * gg;
           const float h = o * tanh_fast(cn);
           c[j][e] = cn;
-          split_tf32(h, Nh[r * lda + u], Nl[r * lda + u]);
+          if (kBf)
+            Nh[r * lda + u] = tf32_of_bf16(h);
+          else
+            split_tf32(h, Nh[r * lda + u], Nl[r * lda + u]);
           if (r < live && uok) {
             const size_t at = frame + r;
-            ys[at * H + u] = h;
-            cs[at * H + u] = cn;
+            put(ys + at * H + u, h);
+            put(cs + at * H + u, cn);
             if (KEEP) {
               float* gp = gates + at * G4 + u;
               gp[0] = i;
@@ -374,15 +433,16 @@ dense_lstm_fwd_kernel(const float* __restrict__ xg,
 // gate). Warp w takes the k-steps w, w + 8, .. for all units; the 8 partial
 // sums meet in shared memory and are summed in a fixed order; then the
 // gating backward runs a thread per 2 units of a row. FULL as in the
-// forward.
-template <bool FULL>
+// forward. bf16 (St): cs, cs[t-1], dys and dcs stay bf16 in their slots,
+// copies of hbytes (the gates: gbytes); da one plane, rounded.
+template <bool FULL, typename St>
 __global__ void __launch_bounds__(kThreads, 1)
-dense_lstm_bwd_kernel(const float* __restrict__ w, bool wt,
+dense_lstm_bwd_kernel(const St* __restrict__ w, bool wt,
                       const float* __restrict__ gates,
-                      const float* __restrict__ cs,
-                      const float* __restrict__ dys,
-                      const float* __restrict__ dcs, float* __restrict__ dxg,
-                      int L, int rows, int H, bool vec, bool wvec) {
+                      const St* __restrict__ cs, const St* __restrict__ dys,
+                      const St* __restrict__ dcs, St* __restrict__ dxg, int L,
+                      int rows, int H, int gbytes, int hbytes, bool wvec) {
+  constexpr bool kBf = IsBf16<St>::value;
   extern __shared__ __align__(16) float smem[];
   const int Hp = pad8(H), KS = Hp / 2, MU = (Hp + 15) / 16, G4 = 4 * H;
   const int lda = 4 * Hp + 4, ldp = part_ld(H);
@@ -398,18 +458,19 @@ dense_lstm_bwd_kernel(const float* __restrict__ w, bool wt,
   const int row0 = blockIdx.x * 8, live = min(8, rows - row0);
   const bool pair = H % 2 == 0;  // two units as one 8-byte access
 
-  // frame t's residuals into ring slot t % kRing: gates [8][4H], then cs,
-  // cs[t-1], dys, dcs [8][H] each (zeros where absent)
+  // frame t's residuals into ring slot t % kRing: gates [8][4H] (float),
+  // then cs, cs[t-1], dys, dcs [8][H] each (St; zeros where absent)
   const auto stage = [&](int t) {
     float* s = ring + (t % kRing) * stage_floats;
+    St* sh = reinterpret_cast<St*>(s + 8 * G4);
     const size_t at = static_cast<size_t>(t) * rows + row0;
-    stage_flat(s, gates + at * G4, 8 * G4, live * G4, vec, gates);
-    stage_flat(s + 8 * G4, cs + at * H, 8 * H, live * H, vec, cs);
-    stage_flat(s + 8 * G4 + 8 * H, t > 0 ? cs + (at - rows) * H : nullptr,
-               8 * H, live * H, vec, cs);
-    stage_flat(s + 8 * G4 + 16 * H, dys + at * H, 8 * H, live * H, vec, dys);
-    stage_flat(s + 8 * G4 + 24 * H, dcs ? dcs + at * H : nullptr, 8 * H,
-               live * H, vec, dys);
+    stage_flat(s, gates + at * G4, 8 * G4, live * G4, gbytes, gates);
+    stage_flat(sh, cs + at * H, 8 * H, live * H, hbytes, cs);
+    stage_flat(sh + 8 * H, t > 0 ? cs + (at - rows) * H : nullptr, 8 * H,
+               live * H, hbytes, cs);
+    stage_flat(sh + 16 * H, dys + at * H, 8 * H, live * H, hbytes, dys);
+    stage_flat(sh + 24 * H, dcs ? dcs + at * H : nullptr, 8 * H, live * H,
+               hbytes, dys);
   };
   cp_async_wait<0>();
   __syncthreads();  // W has landed
@@ -427,10 +488,10 @@ dense_lstm_bwd_kernel(const float* __restrict__ w, bool wt,
       const bool ok = FULL || (ks < KS && mi < MU);
       const bool k0 = ok && (FULL || uq < H), k4 = ok && (FULL || uq + 4 < H);
       const bool n0ok = FULL || n0 < H, n8ok = FULL || n0 + 8 < H;
-      af[j][mi] = split_a(k0 && n0ok ? weight(n0, c0) : 0.f,
-                          k0 && n8ok ? weight(n0 + 8, c0) : 0.f,
-                          k4 && n0ok ? weight(n0, c0 + 4) : 0.f,
-                          k4 && n8ok ? weight(n0 + 8, c0 + 4) : 0.f);
+      af[j][mi] = split_a<kBf>(k0 && n0ok ? weight(n0, c0) : 0.f,
+                               k0 && n8ok ? weight(n0 + 8, c0) : 0.f,
+                               k4 && n0ok ? weight(n0, c0 + 4) : 0.f,
+                               k4 && n8ok ? weight(n0 + 8, c0 + 4) : 0.f);
     }
   __syncthreads();  // W is read: its space is free
   stage(L - 1);
@@ -460,10 +521,10 @@ dense_lstm_bwd_kernel(const float* __restrict__ w, bool wt,
         const int ks = warp + kWarps * j;
         if (FULL || ks < KS) {
           unsigned bb[2], bs[2];
-          load_b(dah, dal, g * lda + ks * 8 + t4, bb, bs);
+          load_b<kBf>(dah, dal, g * lda + ks * 8 + t4, bb, bs);
 #pragma unroll
           for (int mi = 0; mi < kMaxUnits / 16; ++mi)
-            if (FULL || mi < MU) mma_a(acc[mi], af[j][mi], bb, bs);
+            if (FULL || mi < MU) mma_a<kBf>(acc[mi], af[j][mi], bb, bs);
         }
       }
       // acc[mi]: units 16 mi + g (then + 8) at rows 2 t4, 2 t4 + 1
@@ -483,10 +544,10 @@ dense_lstm_bwd_kernel(const float* __restrict__ w, bool wt,
     if (gating) {
       const float* s = ring + (t % kRing) * stage_floats;
       const float* sg = s + er * G4;
-      const float* scs = s + 8 * G4 + er * H;
-      const float* scp = scs + 8 * H;
-      const float* sdy = scp + 8 * H;
-      const float* sdc = sdy + 8 * H;
+      const St* scs = reinterpret_cast<const St*>(s + 8 * G4) + er * H;
+      const St* scp = scs + 8 * H;
+      const St* sdy = scp + 8 * H;
+      const St* sdc = sdy + 8 * H;
       // a pair of values of the units u0, u0 + 1 (zeros past H)
       const auto two = [&](const float* p) {
         if (pair)
@@ -494,6 +555,13 @@ dense_lstm_bwd_kernel(const float* __restrict__ w, bool wt,
                         : make_float2(0.f, 0.f);
         return make_float2(u0 < H ? p[u0] : 0.f,
                            u0 + 1 < H ? p[u0 + 1] : 0.f);
+      };
+      const auto two_st = [&](const St* p) {
+        if constexpr (kBf)
+          return make_float2(u0 < H ? to_f(p[u0]) : 0.f,
+                             u0 + 1 < H ? to_f(p[u0 + 1]) : 0.f);
+        else
+          return two(p);
       };
       float2 dh = make_float2(0.f, 0.f);
       if (t + 1 < L) {
@@ -506,8 +574,9 @@ dense_lstm_bwd_kernel(const float* __restrict__ w, bool wt,
         }
       }
       const float2 p_i = two(sg), p_f = two(sg + H), p_g = two(sg + 2 * H),
-                   p_o = two(sg + 3 * H), p_c = two(scs), p_cp = two(scp),
-                   p_dy = two(sdy), p_dc = two(sdc);
+                   p_o = two(sg + 3 * H), p_c = two_st(scs),
+                   p_cp = two_st(scp), p_dy = two_st(sdy),
+                   p_dc = two_st(sdc);
       float d[4][2];
 #pragma unroll
       for (int v = 0; v < 2; ++v) {
@@ -521,23 +590,31 @@ dense_lstm_bwd_kernel(const float* __restrict__ w, bool wt,
         d[2][v] = dcv * i * (1.f - gg * gg);
         d[3][v] = dhv * tc * o * (1.f - o);
         dc[v] = dcv * f;
+        if (kBf) {  // the product's operand and dxg: bf16 values
+#pragma unroll
+          for (int q = 0; q < 4; ++q) d[q][v] = round_bf(d[q][v]);
+        }
       }
       const size_t at = (static_cast<size_t>(t) * rows + row0 + er) * G4;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        uint2 hi, lo;
-        split_tf32(d[q][0], hi.x, lo.x);
-        split_tf32(d[q][1], hi.y, lo.y);
-        *reinterpret_cast<uint2*>(dah + er * lda + q * Hp + u0) = hi;
-        *reinterpret_cast<uint2*>(dal + er * lda + q * Hp + u0) = lo;
+        if (kBf) {
+          *reinterpret_cast<uint2*>(dah + er * lda + q * Hp + u0) =
+              make_uint2(__float_as_uint(d[q][0]), __float_as_uint(d[q][1]));
+        } else {
+          uint2 hi, lo;
+          split_tf32(d[q][0], hi.x, lo.x);
+          split_tf32(d[q][1], hi.y, lo.y);
+          *reinterpret_cast<uint2*>(dah + er * lda + q * Hp + u0) = hi;
+          *reinterpret_cast<uint2*>(dal + er * lda + q * Hp + u0) = lo;
+        }
         if (er < live) {
-          float* dst = dxg + at + q * H + u0;
+          St* dst = dxg + at + q * H + u0;
           if (pair) {
-            if (u0 < H)
-              *reinterpret_cast<float2*>(dst) = make_float2(d[q][0], d[q][1]);
+            if (u0 < H) st2g(dst, make_float2(d[q][0], d[q][1]));
           } else {
-            if (u0 < H) dst[0] = d[q][0];
-            if (u0 + 1 < H) dst[1] = d[q][1];
+            if (u0 < H) put(dst, d[q][0]);
+            if (u0 + 1 < H) put(dst + 1, d[q][1]);
           }
         }
       }
@@ -563,6 +640,104 @@ bool valid(int L, int B, int J, int H) {
 // The weight gradient's split-K launch: frames 1 .. L-1 of ys and dxg.
 int dw_splits_for(int L, int rows, int H, int sms) {
   return dw_tf32_splits((L - 1) * rows, dw_tiles(H, 4 * H), sms, kDwMinRows);
+}
+
+bool aligned4(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 4 == 0;
+}
+
+// The launches behind the entries below, for either storage type.
+template <typename St>
+int dense_scan_fwd(const St* xg, const St* w, int wt, St* ys, St* cs,
+                   float* gates, int L, int B, int J, int H,
+                   cudaStream_t stream) {
+  if (!valid(L, B, J, H) || !dense_route(H, 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = B * J;
+  const Plan plan = plan_fwd(rows, H, sms);
+  // float32: rows of 4H floats, 16-byte multiples; bf16: 4H values, 16-byte
+  // multiples where H is even, pairs of 4 bytes always
+  const int xbytes = !IsBf16<St>::value
+                         ? (aligned16(xg) ? 16 : 4)
+                         : (aligned16(xg) && H % 2 == 0 ? 16
+                            : aligned4(xg)              ? 4
+                                                        : 2);
+  const bool wvec = aligned16(w) && (wt == 0 || H % 4 == 0);
+  const bool full = H == kMaxUnits;
+  auto kernel = gates ? (full ? dense_lstm_fwd_kernel<true, true, St>
+                              : dense_lstm_fwd_kernel<true, false, St>)
+                      : (full ? dense_lstm_fwd_kernel<false, true, St>
+                              : dense_lstm_fwd_kernel<false, false, St>);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(plan.bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<plan.blocks, kThreads, plan.bytes, stream>>>(
+      xg, w, wt != 0, ys, cs, gates, L, rows, H, plan.NT, xbytes, wvec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename St>
+int dense_scan_bwd(const St* w, int wt, const float* gates, const St* ys,
+                   const St* cs, const St* dys, const St* dcs, St* dxg,
+                   float* part, St* dw, int L, int B, int J, int H,
+                   cudaStream_t stream) {
+  constexpr bool kBf = IsBf16<St>::value;
+  if (!valid(L, B, J, H) || !dense_route(H, 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = B * J;
+  const Plan plan = plan_bwd(rows, H);
+  const bool vec = H % 4 == 0 && aligned16(gates) && aligned16(cs) &&
+                   aligned16(dys) && (!dcs || aligned16(dcs)) &&
+                   aligned16(dxg) && aligned16(ys);
+  // bf16: a frame's [8][H] runs start at t B J H values
+  const bool hvec = aligned16(cs) && aligned16(dys) && (!dcs || aligned16(dcs));
+  const bool h4 = aligned4(cs) && aligned4(dys) && (!dcs || aligned4(dcs));
+  const int gbytes = kBf ? (aligned16(gates) ? 16 : 4) : (vec ? 16 : 4);
+  const int hbytes = !kBf ? (vec ? 16 : 4)
+                     : H % 8 == 0 && hvec ? 16
+                     : H % 2 == 0 && h4   ? 4
+                                          : 2;
+  const bool dvec =
+      kBf ? H % 4 == 0 && aligned16(ys) && aligned16(dxg) : vec;
+  const bool wvec = aligned16(w) && (wt == 0 || H % 4 == 0);
+  auto scan = H == kMaxUnits ? dense_lstm_bwd_kernel<true, St>
+                             : dense_lstm_bwd_kernel<false, St>;
+  err = cudaFuncSetAttribute(scan,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(plan.bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  scan<<<plan.blocks, kThreads, plan.bytes, stream>>>(
+      w, wt != 0, gates, cs, dys, dcs, dxg, L, rows, H, gbytes, hbytes, wvec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (L < 2)
+    return static_cast<int>(cudaMemsetAsync(
+        dw, 0, sizeof(St) * H * 4 * H, stream));
+
+  const int n = (L - 1) * rows, splits = dw_splits_for(L, rows, H, sms);
+  const int chunk = ((n + splits - 1) / splits + kDwKT - 1) / kDwKT * kDwKT;
+  const int tiles = dw_tiles(H, 4 * H);
+  const St* da = dxg + static_cast<size_t>(rows) * 4 * H;  // frames 1 ..
+  const DwProblem<St, St> p{ys, da, part, H, H, 4 * H, 4 * H};
+  auto kernel = dvec ? dw_tf32_kernel<true, St, St>
+                     : dw_tf32_kernel<false, St, St>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kDwSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(tiles, splits), kDwThreads, kDwSmemBytes, stream>>>(
+      p, p, tiles, n, chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int count = H * 4 * H;
+  reduce_two_kernel<St><<<(count + 255) / 256, 256, 0, stream>>>(
+      part, count, dw, part, 0, dw, splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -598,31 +773,19 @@ int pv2c_dense_lstm_plan(int B, int J, int H, int k, int* plan) {
 int pv2c_dense_lstm_scan_fwd(const float* xg, const float* w, int wt,
                              float* ys, float* cs, float* gates, int L, int B,
                              int J, int H, cudaStream_t stream) {
-  if (!valid(L, B, J, H) || !dense_route(H, 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  int sms = 0;
-  cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows = B * J;
-  const Plan plan = plan_fwd(rows, H, sms);
-  const bool vec = aligned16(xg);  // rows of 4H floats: 16-byte multiples
-  const bool wvec = aligned16(w) && (wt == 0 || H % 4 == 0);
-  const bool full = H == kMaxUnits;
-  auto kernel = gates ? (full ? dense_lstm_fwd_kernel<true, true>
-                              : dense_lstm_fwd_kernel<true, false>)
-                      : (full ? dense_lstm_fwd_kernel<false, true>
-                              : dense_lstm_fwd_kernel<false, false>);
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(plan.bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<plan.blocks, kThreads, plan.bytes, stream>>>(
-      xg, w, wt != 0, ys, cs, gates, L, rows, H, plan.NT, vec, wvec);
-  return static_cast<int>(cudaGetLastError());
+  return dense_scan_fwd<float>(xg, w, wt, ys, cs, gates, L, B, J, H, stream);
+}
+
+// The same in bf16 (every tensor but gates, which stays float32).
+int pv2c_dense_lstm_scan_fwd_bf16(const bf16* xg, const bf16* w, int wt,
+                                  bf16* ys, bf16* cs, float* gates, int L,
+                                  int B, int J, int H, cudaStream_t stream) {
+  return dense_scan_fwd<bf16>(xg, w, wt, ys, cs, gates, L, B, J, H, stream);
 }
 
 // Floats of the backward's `part` scratch on the current device (0 for one
-// frame). Returns minus a CUDA error code on failure.
+// frame; float32 in both storage types). Returns minus a CUDA error code on
+// failure.
 int pv2c_dense_lstm_part_floats(int L, int B, int J, int H) {
   int sms = 0;
   const cudaError_t err = sm_count(&sms);
@@ -645,47 +808,18 @@ int pv2c_dense_lstm_scan_bwd(const float* w, int wt, const float* gates,
                              const float* dys, const float* dcs, float* dxg,
                              float* part, float* dw, int L, int B, int J,
                              int H, cudaStream_t stream) {
-  if (!valid(L, B, J, H) || !dense_route(H, 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  int sms = 0;
-  cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows = B * J;
-  const Plan plan = plan_bwd(rows, H);
-  const bool vec = H % 4 == 0 && aligned16(gates) && aligned16(cs) &&
-                   aligned16(dys) && (!dcs || aligned16(dcs)) &&
-                   aligned16(dxg) && aligned16(ys);
-  const bool wvec = aligned16(w) && (wt == 0 || H % 4 == 0);
-  auto scan = H == kMaxUnits ? dense_lstm_bwd_kernel<true>
-                             : dense_lstm_bwd_kernel<false>;
-  err = cudaFuncSetAttribute(scan,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(plan.bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scan<<<plan.blocks, kThreads, plan.bytes, stream>>>(
-      w, wt != 0, gates, cs, dys, dcs, dxg, L, rows, H, vec, wvec);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  if (L < 2)
-    return static_cast<int>(cudaMemsetAsync(
-        dw, 0, sizeof(float) * H * 4 * H, stream));
+  return dense_scan_bwd<float>(w, wt, gates, ys, cs, dys, dcs, dxg, part, dw,
+                               L, B, J, H, stream);
+}
 
-  const int n = (L - 1) * rows, splits = dw_splits_for(L, rows, H, sms);
-  const int chunk = ((n + splits - 1) / splits + kDwKT - 1) / kDwKT * kDwKT;
-  const int tiles = dw_tiles(H, 4 * H);
-  const float* da = dxg + static_cast<size_t>(rows) * 4 * H;  // frames 1 ..
-  const DwProblem p{ys, da, part, H, H, 4 * H, 4 * H};
-  auto kernel = vec ? dw_tf32_kernel<true> : dw_tf32_kernel<false>;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kDwSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(tiles, splits), kDwThreads, kDwSmemBytes, stream>>>(
-      p, p, tiles, n, chunk);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const int count = H * 4 * H;
-  reduce_two_kernel<<<(count + 255) / 256, 256, 0, stream>>>(
-      part, count, dw, part, 0, dw, splits);
-  return static_cast<int>(cudaGetLastError());
+// The same in bf16 (gates and part float32).
+int pv2c_dense_lstm_scan_bwd_bf16(const bf16* w, int wt, const float* gates,
+                                  const bf16* ys, const bf16* cs,
+                                  const bf16* dys, const bf16* dcs, bf16* dxg,
+                                  float* part, bf16* dw, int L, int B, int J,
+                                  int H, cudaStream_t stream) {
+  return dense_scan_bwd<bf16>(w, wt, gates, ys, cs, dys, dcs, dxg, part, dw,
+                              L, B, J, H, stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 // The frame recurrences of the graph-convolutional GRU and LSTM layers
-// (classification GNNs), forward and backward, for sm_90a, float32. The
-// LSTM at k = 1 (no graph term: a dense LSTM over the B J rows) runs on the
-// kernels of fused_dense_lstm.cu where its width fits them (H <= 64); this
-// file's LSTM kernels take k >= 2 and the wider H (the graph form).
+// (classification GNNs), forward and backward, for sm_90a, float32 or bf16
+// (see "bf16" below). The LSTM at k = 1 (no graph term: a dense LSTM over
+// the B J rows) runs on the kernels of fused_dense_lstm.cu where its width
+// fits them (H <= 64); this file's LSTM kernels take k >= 2 and the wider H
+// (the graph form).
 //
 // Replaces the TPU kernels _fwd_kernel, _bwd_kernel, _lstm_fwd_kernel and
 // _lstm_bwd_kernel of the JAX package's ops/pallas/fused_graph_gru.py (the
@@ -44,6 +45,27 @@
 //
 // Numerics: 1 / (1 + expf(-x)), tanhf, no fast math; the products in 3xTF32
 // (fp32 accuracy, mma_tf32.cuh).
+//
+// bf16 (the _bf16 entries; every kernel templated on the storage type St
+// of the caller's tensors), as the JAX kernels run on bf16 inputs: the
+// products' operands where the JAX kernel rounds one to bf16 are rounded to
+// bf16 (the carry, r h, the backward's cotangents da; the weights and graph
+// matrices are bf16 values), and the graph terms, which the JAX kernel
+// forms in another order (its products first, then the graph: the port's
+// T_n h and the transposed products' outputs P_n have no JAX counterpart),
+// to TF32; so one TF32 product a step is exact (a bf16 value is a TF32
+// value) and the sums stay fp32. Graph terms at bf16 instead put a
+// GConvLSTM's bf16 gradient 1.4x as far from its fp32 one as the JAX
+// kernel's (tests/test_torch_bf16.py). The carries (h, the LSTM's c, dh,
+// dc) and every elementwise op stay fp32. Stored in bf16: ys, cs, dxg and
+// the weight gradients (summed in fp32); in fp32: the activated gates,
+// which the JAX backward recomputes in fp32, and the expanded operands sa
+// and sb, whose graph columns are TF32 values. The weight tiles stay bf16
+// in the ring (cp.async copies bytes: 8-byte copies, or ordinary loads
+// where H is not a multiple of 4) and are widened as the fragments are
+// read. Each launch plan is the fp32 one (the bf16 ring uses half its
+// slots' bytes), but the GRU forward's 128-column ring parks z in a float32
+// scratch (zpark, B J H) instead of in ys.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -52,6 +74,7 @@
 
 #include "dw_tf32.cuh"
 #include "mma_tf32.cuh"
+#include "storage.cuh"
 
 namespace {
 
@@ -59,6 +82,19 @@ constexpr int kMaxSmemBytes = 232448;  // 227 KB, a block's limit
 
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
+}
+
+// A product operand as the bf16 forms (BF) round it; fp32 keeps it.
+template <bool BF>
+__device__ __forceinline__ float operand(float v) {
+  return BF ? round_bf(v) : v;
+}
+
+// A graph term (T_n h, or P_n of the backward) as the bf16 forms round it
+// for its product: to TF32.
+template <bool BF>
+__device__ __forceinline__ float graph_term(float v) {
+  return BF ? round_tf32(v) : v;
 }
 
 // ---------------------------------------------------------------------------
@@ -155,14 +191,14 @@ __host__ __device__ constexpr int bwd_slot() { return NT * (kGKT + 4); }
 // a block product over W, K deep and N columns (row-major: K x N by depth,
 // N x K by column, kZR's N = 2H, kGates' 4H): ceil(K / 32) steps a column
 // tile, column tiles of NT, row tiles outermost (they reload the same
-// tiles). vec: 16-byte copies (H a multiple of 4, W 16-byte aligned), else
-// 4-byte ones.
-template <int NT, int LAYOUT>
-__device__ __forceinline__ void load_step(float* ring, int slot, int s,
-                                          const float* __restrict__ W, int K,
+// tiles). vec: 16-byte copies (H a multiple of 4, W 16-byte aligned; bf16:
+// 8-byte ones), else 4-byte ones (bf16: ordinary loads).
+template <int NT, int LAYOUT, typename St>
+__device__ __forceinline__ void load_step(St* ring, int slot, int s,
+                                          const St* __restrict__ W, int K,
                                           int N, int ks, int ct, bool vec) {
   const int k0 = (s % ks) * kGKT, n0 = ((s / ks) % ct) * NT;
-  float* dst = ring + (s % kGStages) * slot;
+  St* dst = ring + (s % kGStages) * slot;
   // the tile as runs of contiguous source floats
   constexpr int kRuns = LAYOUT == kByColumn ? NT : kGKT;
   constexpr int kLen = LAYOUT == kByColumn ? kGKT : NT;
@@ -189,12 +225,19 @@ __device__ __forceinline__ void load_step(float* ring, int slot, int s,
       ok = k0 + r < K && n0 + c < N;
       from = static_cast<size_t>(k0 + r) * N + n0 + c;
     }
-    float* d = dst + r * kLd + at;
-    const float* src = ok ? W + from : W;
-    if (vec)
-      cp_async16(d, src, ok);
-    else
-      cp_async4(d, src, ok);
+    St* d = dst + r * kLd + at;
+    const St* src = ok ? W + from : W;
+    if constexpr (IsBf16<St>::value) {
+      if (vec)
+        cp_async8(d, src, ok);
+      else
+        put(d, ok ? ldg1(src) : 0.f);
+    } else {
+      if (vec)
+        cp_async16(d, src, ok);
+      else
+        cp_async4(d, src, ok);
+    }
   }
 }
 
@@ -204,9 +247,9 @@ __device__ __forceinline__ int row_tiles(int R) {
 
 // The first kGStages - 1 steps of a block product over W for R rows, in
 // flight. Every thread calls it, after a barrier that freed the ring.
-template <int NT, int LAYOUT>
-__device__ __forceinline__ void product_prologue(float* ring, int slot,
-                                                 const float* __restrict__ W,
+template <int NT, int LAYOUT, typename St>
+__device__ __forceinline__ void product_prologue(St* ring, int slot,
+                                                 const St* __restrict__ W,
                                                  int K, int N, int R,
                                                  bool vec) {
   const int ks = (K + kGKT - 1) / kGKT, ct = (N + NT - 1) / NT;
@@ -229,12 +272,14 @@ __device__ __forceinline__ void product_prologue(float* ring, int slot,
 // unit, v) and epi(row, unit, v) with v[4] the gates i, f, g, o of a unit.
 // Both for every row of the row tiles and every column (unit) of the column
 // tiles (they mask). epi runs per tile while other warps may still multiply
-// later tiles, so it must not write A.
-template <int NT, int LAYOUT, int WARPS_N = 8, int MI = 2, class Init,
-          class Epi>
+// later tiles, so it must not write A. bf16 (St): A holds TF32 values
+// (bf16-rounded h, r h or da, TF32-rounded graph terms, rounded as they
+// were written), the ring bf16 tiles: one TF32 product a step.
+template <int NT, int LAYOUT, int WARPS_N = 8, int MI = 2, typename St,
+          class Init, class Epi>
 __device__ __forceinline__ void block_product(const float* A, int lda, int R,
-                                              const float* __restrict__ W,
-                                              int K, int N, float* ring,
+                                              const St* __restrict__ W,
+                                              int K, int N, St* ring,
                                               int slot, bool vec, Init init,
                                               Epi epi) {
   constexpr int WN = NT / WARPS_N;   // columns of a warp
@@ -280,7 +325,7 @@ __device__ __forceinline__ void block_product(const float* A, int lda, int R,
       load_step<NT, LAYOUT>(ring, slot, s + kGStages - 1, W, K, N, ks, ct,
                             vec);
     cp_async_commit();
-    const float* Bs = ring + (s % kGStages) * slot;
+    const St* Bs = ring + (s % kGStages) * slot;
     // the A rows of this thread's fragments; rows past R read row R - 1
     const float* arow[MI][2];
 #pragma unroll
@@ -297,25 +342,44 @@ __device__ __forceinline__ void block_product(const float* A, int lda, int R,
         for (int c = 0; c < 4; ++c) part[i][j][c] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kGKT; kk += 8) {
-      unsigned bb[NJ][2], bs[NJ][2];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float* b = Bs + slot_at<NT, LAYOUT>(wn + j * 8 + g, kk + t);
-        split_tf32(b[0], bb[j][0], bs[j][0]);
-        split_tf32(b[kDeep4], bb[j][1], bs[j][1]);
-      }
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        unsigned ab[4], as[4];
-        split_tf32(arow[i][0][kk], ab[0], as[0]);
-        split_tf32(arow[i][1][kk], ab[1], as[1]);
-        split_tf32(arow[i][0][kk + 4], ab[2], as[2]);
-        split_tf32(arow[i][1][kk + 4], ab[3], as[3]);
+      if constexpr (IsBf16<St>::value) {  // exact TF32 values: one product
+        unsigned bb[NJ][2];
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          mma_tf32(part[i][j], as, bb[j]);
-          mma_tf32(part[i][j], ab, bs[j]);
-          mma_tf32(part[i][j], ab, bb[j]);
+          const St* b = Bs + slot_at<NT, LAYOUT>(wn + j * 8 + g, kk + t);
+          bb[j][0] = __float_as_uint(to_f(b[0]));
+          bb[j][1] = __float_as_uint(to_f(b[kDeep4]));
+        }
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          const unsigned ab[4] = {__float_as_uint(arow[i][0][kk]),
+                                  __float_as_uint(arow[i][1][kk]),
+                                  __float_as_uint(arow[i][0][kk + 4]),
+                                  __float_as_uint(arow[i][1][kk + 4])};
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) mma_tf32(part[i][j], ab, bb[j]);
+        }
+      } else {
+        unsigned bb[NJ][2], bs[NJ][2];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const St* b = Bs + slot_at<NT, LAYOUT>(wn + j * 8 + g, kk + t);
+          split_tf32(b[0], bb[j][0], bs[j][0]);
+          split_tf32(b[kDeep4], bb[j][1], bs[j][1]);
+        }
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          unsigned ab[4], as[4];
+          split_tf32(arow[i][0][kk], ab[0], as[0]);
+          split_tf32(arow[i][1][kk], ab[1], as[1]);
+          split_tf32(arow[i][0][kk + 4], ab[2], as[2]);
+          split_tf32(arow[i][1][kk + 4], ab[3], as[3]);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            mma_tf32(part[i][j], as, bb[j]);
+            mma_tf32(part[i][j], ab, bs[j]);
+            mma_tf32(part[i][j], ab, bb[j]);
+          }
         }
       }
     }
@@ -356,13 +420,14 @@ __device__ __forceinline__ void block_product(const float* A, int lda, int R,
 // Jm + 4.
 __host__ __device__ inline int graph_rows(int J) { return round_up(J, 16); }
 
-__device__ __forceinline__ void load_graph(float* Tp, const float* cheb,
+template <typename St>
+__device__ __forceinline__ void load_graph(float* Tp, const St* cheb,
                                            int J, int k) {
   const int Jm = graph_rows(J), lt = Jm + 4;
   for (int idx = threadIdx.x; idx < (k - 1) * Jm * lt; idx += kGThreads) {
     const int n = idx / (Jm * lt), rem = idx - n * Jm * lt;
     const int i = rem / lt, j = rem - i * lt;
-    Tp[idx] = i < J && j < J ? cheb[(n * J + i) * J + j] : 0.f;
+    Tp[idx] = i < J && j < J ? to_f(cheb[(n * J + i) * J + j]) : 0.f;
   }
 }
 
@@ -376,10 +441,12 @@ __device__ __forceinline__ void load_graph(float* Tp, const float* cheb,
 //   TRANS:  S[c J + i][u k] += sum_n sum_j T_n[j][i] S[c J + j][u k + n]
 //           (the cotangent of the expansion's source, in place: each tile
 //           reads only its own part of the columns u k).
-// For rows < R (whole clips) and units < H. Ends with a barrier.
+// For rows < R (whole clips) and units < H. Ends with a barrier. BF: T
+// holds bf16 values and S's columns are read as TF32 (one product a step);
+// !TRANS rounds its outputs, the operand's graph columns, to TF32.
 constexpr int kGGraphTiles = 4;
 
-template <bool TRANS>
+template <bool TRANS, bool BF>
 __device__ __forceinline__ void graph_product(float* S, int ld, int R, int J,
                                               int H, int k,
                                               const float* Tp) {
@@ -439,11 +506,19 @@ __device__ __forceinline__ void graph_product(float* S, int ld, int R, int J,
           const float b0 = uok && kk + t < J ? src[(kk + t) * ld] : 0.f;
           const float b1 = uok && kk + t + 4 < J ? src[(kk + t + 4) * ld] : 0.f;
           unsigned ab[4], as[4], bb[2], bs[2];
+          if constexpr (BF) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) split_tf32(a[e], ab[e], as[e]);
-          split_tf32(b0, bb[0], bs[0]);
-          split_tf32(b1, bb[1], bs[1]);
-          mma_3xtf32(acc[q], ab, as, bb, bs);
+            for (int e = 0; e < 4; ++e) ab[e] = __float_as_uint(a[e]);
+            bb[0] = __float_as_uint(round_tf32(b0));
+            bb[1] = __float_as_uint(round_tf32(b1));
+            mma_tf32(acc[q], ab, bb);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) split_tf32(a[e], ab[e], as[e]);
+            split_tf32(b0, bb[0], bs[0]);
+            split_tf32(b1, bb[1], bs[1]);
+            mma_3xtf32(acc[q], ab, as, bb, bs);
+          }
         }
       }
     }
@@ -457,7 +532,9 @@ __device__ __forceinline__ void graph_product(float* S, int ld, int R, int J,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int u = u0[q] + 2 * t + e;
-          if (u < H) Sc[q][i * ld + u * k + (TRANS ? 0 : n[q])] = acc[q][2 * h + e];
+          if (u < H)
+            Sc[q][i * ld + u * k + (TRANS ? 0 : n[q])] =
+                TRANS ? acc[q][2 * h + e] : graph_term<BF>(acc[q][2 * h + e]);
         }
       }
     }
@@ -487,13 +564,14 @@ __device__ __forceinline__ void copy_rows(float* dst, int ldd,
 }
 
 // S[row][u k] <- src[row][u] (row strides ld and H) for R rows, H units:
-// the carry (or r h) into the expanded operand's order-0 columns; a warp a
-// row at a time.
+// the carry (or r h) into the expanded operand's order-0 columns, rounded
+// to bf16 where BF; a warp a row at a time.
+template <bool BF, typename T>
 __device__ __forceinline__ void put_units(float* S, int ld, int k,
-                                          const float* src, int R, int H) {
+                                          const T* src, int R, int H) {
   for (int row = threadIdx.x >> 5; row < R; row += kGThreads / 32)
     for (int u = threadIdx.x & 31; u < H; u += 32)
-      S[row * ld + u * k] = src[row * H + u];
+      S[row * ld + u * k] = operand<BF>(to_f(src[row * H + u]));
 }
 
 // Shared memory of a GRU scan with C clips a thread block and a ring of NT
@@ -544,23 +622,31 @@ GruPlan plan_gru(int B, int J, int H, int k, bool bwd, int sms) {
 // KEEP (a gradient will be asked for): also gates (L, B, J, 3H) = z | r |
 // h~ and both expanded operands of every frame, sa and sb (L B J x k H,
 // columns unit-major), which the backward reads instead of recomputing.
-template <bool KEEP, int NT>
+// bf16 (St): z parks in zpark (B J x H, float32) instead of ys.
+template <bool KEEP, int NT, typename St>
 __global__ void __launch_bounds__(kGThreads, 1)
-gru_scan_fwd_kernel(const float* __restrict__ xg,
-                    const float* __restrict__ cheb,
-                    const float* __restrict__ wzr,
-                    const float* __restrict__ wh, float* __restrict__ ys,
-                    float* __restrict__ gates, float* __restrict__ sa,
-                    float* __restrict__ sb, int L, int B, int J, int H, int k,
-                    int C, bool vec) {
+gru_scan_fwd_kernel(const St* __restrict__ xg, const St* __restrict__ cheb,
+                    const St* __restrict__ wzr, const St* __restrict__ wh,
+                    St* __restrict__ ys, float* __restrict__ gates,
+                    float* __restrict__ sa, float* __restrict__ sb,
+                    float* __restrict__ zpark, int L, int B, int J, int H,
+                    int k, int C, bool vec) {
+  constexpr bool kBf = IsBf16<St>::value;
   extern __shared__ __align__(16) float smem[];
   const int b0 = blockIdx.x * C;
   const int R = min(C, B - b0) * J, rows = B * J, row0 = b0 * J;
   const int KH = k * H, ld = kpad(KH) + 4, CJH = C * J * H;
   constexpr int slot = fwd_slot<NT>();
-  float* ring = smem;
-  float* S = ring + kGStages * slot;  // the operand of the product
+  St* ring = reinterpret_cast<St*>(smem);
+  float* S = smem + kGStages * slot;  // the operand of the product
   constexpr bool kZShared = NT == kGWide;
+  // z of (frame at, row, unit) where shared memory has no room for it
+  const auto zpark_at = [&](size_t at, int row, int u) -> float& {
+    if constexpr (kBf)
+      return zpark[(static_cast<size_t>(row0) + row) * H + u];
+    else
+      return ys[(at + row) * H + u];
+  };
   float* hb = S + C * J * ld;         // the carry h
   float* rh = hb + CJH;               // r h
   float* zb = rh + CJH;               // z (kZShared)
@@ -571,11 +657,11 @@ gru_scan_fwd_kernel(const float* __restrict__ xg,
   product_prologue<NT, kZR>(ring, slot, wzr, KH, 2 * H, R, vec);
   for (int t = 0; t < L; ++t) {
     const size_t at = static_cast<size_t>(t) * rows + row0;
-    const float* x = xg + at * 3 * H;
+    const St* x = xg + at * 3 * H;
     if (t > 0) {  // (frame 0's operand is the zeros S starts with)
-      put_units(S, ld, k, hb, R, H);
+      put_units<kBf>(S, ld, k, hb, R, H);
       __syncthreads();
-      graph_product<false>(S, ld, R, J, H, k, Tm);
+      graph_product<false, kBf>(S, ld, R, J, H, k, Tm);
     }
     if (KEEP) copy_rows(sa + at * KH, KH, S, ld, R, KH, vec);
     block_product<NT, kZR>(
@@ -583,8 +669,8 @@ gru_scan_fwd_kernel(const float* __restrict__ xg,
         [&](int row, int col, float& vz, float& vr) {
           const int u = col >> 1;
           const bool in = row < R && u < H;
-          vz = in ? x[row * 3 * H + u] : 0.f;
-          vr = in ? x[row * 3 * H + H + u] : 0.f;
+          vz = in ? to_f(x[row * 3 * H + u]) : 0.f;
+          vr = in ? to_f(x[row * 3 * H + H + u]) : 0.f;
         },
         [&](int row, int col, float vz, float vr) {
           const int u = col >> 1;
@@ -594,7 +680,7 @@ gru_scan_fwd_kernel(const float* __restrict__ xg,
             if (kZShared)
               zb[row * H + u] = z;
             else
-              ys[(at + row) * H + u] = z;
+              zpark_at(at, row, u) = z;
             rh[row * H + u] = r * hb[row * H + u];
             if (KEEP) {
               gates[(at + row) * 3 * H + u] = z;
@@ -604,16 +690,16 @@ gru_scan_fwd_kernel(const float* __restrict__ xg,
         });
     __syncthreads();  // r h and z are written; S and the ring are free
     product_prologue<NT / 2, kByDepth>(ring, slot, wh, KH, H, R, vec);
-    put_units(S, ld, k, rh, R, H);
+    put_units<kBf>(S, ld, k, rh, R, H);
     __syncthreads();
-    graph_product<false>(S, ld, R, J, H, k, Tm);
+    graph_product<false, kBf>(S, ld, R, J, H, k, Tm);
     if (KEEP) copy_rows(sb + at * KH, KH, S, ld, R, KH, vec);
     block_product<NT / 2, kByDepth>(
         S, ld, R, wh, KH, H, ring, slot, vec,
         [&](int row, int col, float& v0, float& v1) {
-          const float* xh = x + row * 3 * H + 2 * H;
-          v0 = row < R && col < H ? xh[col] : 0.f;
-          v1 = row < R && col + 1 < H ? xh[col + 1] : 0.f;
+          const St* xh = x + row * 3 * H + 2 * H;
+          v0 = row < R && col < H ? to_f(xh[col]) : 0.f;
+          v1 = row < R && col + 1 < H ? to_f(xh[col + 1]) : 0.f;
         },
         [&](int row, int col, float v0, float v1) {
           if (row >= R) return;
@@ -623,11 +709,12 @@ gru_scan_fwd_kernel(const float* __restrict__ xg,
             const int u = col + e;
             if (u < H) {
               const float ht = tanhf(v[e]);
-              const float z = kZShared ? zb[row * H + u] : ys[(at + row) * H + u];
+              const float z =
+                  kZShared ? zb[row * H + u] : zpark_at(at, row, u);
               const float h = hb[row * H + u];
               const float hn = z * h + (1.f - z) * ht;
               hb[row * H + u] = hn;
-              ys[(at + row) * H + u] = hn;
+              put(ys + (at + row) * H + u, hn);
               if (KEEP) gates[(at + row) * 3 * H + 2 * H + u] = ht;
             }
           }
@@ -643,22 +730,22 @@ gru_scan_fwd_kernel(const float* __restrict__ xg,
 // P_n; da_r -> dxg; P' = [da_z | da_r] Wzr^T. Two dependent products a frame
 // (the old design recomputed the forward's two first), dh in shared memory;
 // P's columns unit-major (P_n of unit u in column u k + n).
-template <int NT>
+template <int NT, typename St>
 __global__ void __launch_bounds__(kGThreads, 1)
-gru_scan_bwd_kernel(const float* __restrict__ cheb,
-                    const float* __restrict__ wzr,
-                    const float* __restrict__ wh,
+gru_scan_bwd_kernel(const St* __restrict__ cheb, const St* __restrict__ wzr,
+                    const St* __restrict__ wh,
                     const float* __restrict__ gates,
-                    const float* __restrict__ sa,
-                    const float* __restrict__ dys, float* __restrict__ dxg,
-                    int L, int B, int J, int H, int k, int C, bool vec) {
+                    const float* __restrict__ sa, const St* __restrict__ dys,
+                    St* __restrict__ dxg, int L, int B, int J, int H, int k,
+                    int C, bool vec) {
+  constexpr bool kBf = IsBf16<St>::value;
   extern __shared__ __align__(16) float smem[];
   const int b0 = blockIdx.x * C;
   const int R = min(C, B - b0) * J, rows = B * J, row0 = b0 * J;
   const int KH = k * H, ldp = kpad(KH) + 4, ldd = bwd_da_ld(H);
   constexpr int slot = bwd_slot<NT>();
-  float* ring = smem;
-  float* P = ring + kGStages * slot;  // a transposed product's output
+  St* ring = reinterpret_cast<St*>(smem);
+  float* P = smem + kGStages * slot;  // a transposed product's output
   float* da = P + C * J * ldp;        // [da_z | da_r] (da_h before da_r)
   float* dhb = da + C * J * ldd;      // the dh carry
   float* Tm = dhb + C * J * H;
@@ -678,23 +765,23 @@ gru_scan_bwd_kernel(const float* __restrict__ cheb,
     const size_t at = static_cast<size_t>(t) * rows + row0;
     const float* gt = gates + at * 3 * H;
     const float* hp = sa + at * KH;  // the previous hidden state: sa[:, u k]
-    const float* dy = dys + at * H;
-    float* dx = dxg + at * 3 * H;
+    const St* dy = dys + at * H;
+    St* dx = dxg + at * 3 * H;
     // the residuals through the read-only path, several rows' loads in
     // flight at once
 #pragma unroll 4
     for (int idx = threadIdx.x; idx < R * H; idx += kGThreads) {
       const int row = idx / H, u = idx - row * H;
-      float dh = __ldg(dy + idx) + dhb[idx];
+      float dh = ldg1(dy + idx) + dhb[idx];
       if (t < L - 1) dh += P[row * ldp + u * k];
       const float z = __ldg(gt + row * 3 * H + u);
       const float ht = __ldg(gt + row * 3 * H + 2 * H + u);
       const float h = __ldg(hp + row * KH + u * k);
-      const float da_z = dh * (h - ht) * z * (1.f - z);
-      const float da_h = dh * (1.f - z) * (1.f - ht * ht);
+      const float da_z = operand<kBf>(dh * (h - ht) * z * (1.f - z));
+      const float da_h = operand<kBf>(dh * (1.f - z) * (1.f - ht * ht));
       dhb[idx] = dh * z;
-      dx[row * 3 * H + u] = da_z;
-      dx[row * 3 * H + 2 * H + u] = da_h;
+      put(dx + row * 3 * H + u, da_z);
+      put(dx + row * 3 * H + 2 * H + u, da_h);
       da[row * ldd + u] = da_z;
       da[row * ldd + H + u] = da_h;
     }
@@ -703,15 +790,15 @@ gru_scan_bwd_kernel(const float* __restrict__ cheb,
                                  zero, keep_p);
     __syncthreads();  // P is complete; the ring is free
     product_prologue<NT, kByColumn>(ring, slot, wzr, 2 * H, KH, R, vec);
-    graph_product<true>(P, ldp, R, J, H, k, Tm);
+    graph_product<true, kBf>(P, ldp, R, J, H, k, Tm);
 #pragma unroll 4
     for (int idx = threadIdx.x; idx < R * H; idx += kGThreads) {
       const int row = idx / H, u = idx - row * H;
       const float drh = P[row * ldp + u * k];
       const float r = __ldg(gt + row * 3 * H + H + u);
       const float h = __ldg(hp + row * KH + u * k);
-      const float da_r = drh * h * r * (1.f - r);
-      dx[row * 3 * H + H + u] = da_r;
+      const float da_r = operand<kBf>(drh * h * r * (1.f - r));
+      put(dx + row * 3 * H + H + u, da_r);
       da[row * ldd + H + u] = da_r;
       dhb[idx] += drh * r;
     }
@@ -721,7 +808,7 @@ gru_scan_bwd_kernel(const float* __restrict__ cheb,
     __syncthreads();  // P' is complete; the ring is free
     if (t > 0) {
       product_prologue<NT, kByColumn>(ring, slot, wh, H, KH, R, vec);
-      graph_product<true>(P, ldp, R, J, H, k, Tm);
+      graph_product<true, kBf>(P, ldp, R, J, H, k, Tm);
     }
   }
 }
@@ -815,24 +902,24 @@ LstmPlan plan_lstm(int B, int J, int H, int k, bool bwd, int sms) {
 // (L, B, J, 4H) = i | f | g | o and the expanded operand sa (L B J x k H,
 // columns unit-major) of every frame, which the backward reads instead of
 // recomputing.
-template <bool KEEP, int V>
+template <bool KEEP, int V, typename St>
 __global__ void __launch_bounds__(kGThreads, 1)
-lstm_scan_fwd_kernel(const float* __restrict__ xg,
-                     const float* __restrict__ cheb,
-                     const float* __restrict__ w, float* __restrict__ ys,
-                     float* __restrict__ cs, float* __restrict__ gates,
+lstm_scan_fwd_kernel(const St* __restrict__ xg, const St* __restrict__ cheb,
+                     const St* __restrict__ w, St* __restrict__ ys,
+                     St* __restrict__ cs, float* __restrict__ gates,
                      float* __restrict__ sa, int L, int B, int J, int H, int k,
                      int C, bool vec) {
   constexpr LstmTiling kT = lstm_tiling(false, V);
   constexpr int NT = kT.NT;
   constexpr bool kHShared = V != 1;
+  constexpr bool kBf = IsBf16<St>::value;
   extern __shared__ __align__(16) float smem[];
   const int b0 = blockIdx.x * C;
   const int R = min(C, B - b0) * J, rows = B * J, row0 = b0 * J;
   const int KH = k * H, ld = kpad(KH) + 4, CJH = C * J * H;
   constexpr int slot = fwd_slot<NT>();
-  float* ring = smem;
-  float* S = ring + kGStages * slot;  // the operand of the product
+  St* ring = reinterpret_cast<St*>(smem);
+  float* S = smem + kGStages * slot;  // the operand of the product
   float* cb = S + C * J * ld;         // the carry c
   float* hb = cb + CJH;               // the carry h (kHShared)
   float* Tm = hb + (kHShared ? CJH : 0);
@@ -842,11 +929,14 @@ lstm_scan_fwd_kernel(const float* __restrict__ xg,
   product_prologue<NT, kGates>(ring, slot, w, KH, 4 * H, R, vec);
   for (int t = 0; t < L; ++t) {
     const size_t at = static_cast<size_t>(t) * rows + row0;
-    const float* x = xg + at * 4 * H;
+    const St* x = xg + at * 4 * H;
     if (t > 0) {  // (frame 0's operand is the zeros S starts with)
-      put_units(S, ld, k, kHShared ? hb : ys + (at - rows) * H, R, H);
+      if (kHShared)
+        put_units<kBf>(S, ld, k, hb, R, H);
+      else
+        put_units<kBf>(S, ld, k, ys + (at - rows) * H, R, H);
       __syncthreads();
-      graph_product<false>(S, ld, R, J, H, k, Tm);
+      graph_product<false, kBf>(S, ld, R, J, H, k, Tm);
     }
     if (KEEP) copy_rows(sa + at * KH, KH, S, ld, R, KH, vec);
     block_product<NT, kGates, kT.warps_n, kT.mi>(
@@ -855,7 +945,7 @@ lstm_scan_fwd_kernel(const float* __restrict__ xg,
           const bool in = row < R && u < H;
 #pragma unroll
           for (int gate = 0; gate < 4; ++gate)
-            v[gate] = in ? x[row * 4 * H + gate * H + u] : 0.f;
+            v[gate] = in ? to_f(x[row * 4 * H + gate * H + u]) : 0.f;
         },
         [&](int row, int u, const float* v) {
           if (row >= R || u >= H) return;
@@ -866,8 +956,8 @@ lstm_scan_fwd_kernel(const float* __restrict__ xg,
           const float h = o * tanhf(c);
           cb[idx] = c;
           if (kHShared) hb[idx] = h;
-          ys[at * H + idx] = h;
-          cs[at * H + idx] = c;
+          put(ys + at * H + idx, h);
+          put(cs + at * H + idx, c);
           if (KEEP) {
             float* gt = gates + (at + row) * 4 * H + u;
             gt[0] = i;
@@ -887,24 +977,23 @@ lstm_scan_fwd_kernel(const float* __restrict__ xg,
 // kept gates, c and the previous c -> dxg and shared memory; dc f carried;
 // P = da W^T (W by column, P's columns unit-major), then the transposed
 // graph on P. One product a frame, the carries in shared memory.
-template <int V>
+template <int V, typename St>
 __global__ void __launch_bounds__(kGThreads, 1)
-lstm_scan_bwd_kernel(const float* __restrict__ cheb,
-                     const float* __restrict__ w,
+lstm_scan_bwd_kernel(const St* __restrict__ cheb, const St* __restrict__ w,
                      const float* __restrict__ gates,
-                     const float* __restrict__ cs,
-                     const float* __restrict__ dys,
-                     const float* __restrict__ dcs, float* __restrict__ dxg,
-                     int L, int B, int J, int H, int k, int C, bool vec) {
+                     const St* __restrict__ cs, const St* __restrict__ dys,
+                     const St* __restrict__ dcs, St* __restrict__ dxg, int L,
+                     int B, int J, int H, int k, int C, bool vec) {
   constexpr LstmTiling kT = lstm_tiling(true, V);
   constexpr int NT = kT.NT;
+  constexpr bool kBf = IsBf16<St>::value;
   extern __shared__ __align__(16) float smem[];
   const int b0 = blockIdx.x * C;
   const int R = min(C, B - b0) * J, rows = B * J, row0 = b0 * J;
   const int KH = k * H, ldp = kpad(KH) + 4, ldd = kpad(4 * H) + 4;
   constexpr int slot = bwd_slot<NT>();
-  float* ring = smem;
-  float* P = ring + kGStages * slot;  // the transposed product's output
+  St* ring = reinterpret_cast<St*>(smem);
+  float* P = smem + kGStages * slot;  // the transposed product's output
   float* da = P + C * J * ldp;        // the cotangents of a
   float* dcb = da + C * J * ldd;      // the dc carry
   float* Tm = dcb + C * J * H;
@@ -916,11 +1005,11 @@ lstm_scan_bwd_kernel(const float* __restrict__ cheb,
   for (int t = L - 1; t >= 0; --t) {
     const size_t at = static_cast<size_t>(t) * rows + row0;
     const float* gt = gates + at * 4 * H;
-    const float* c_now = cs + at * H;
-    const float* c_prev = t > 0 ? cs + (at - rows) * H : nullptr;
-    const float* dy = dys + at * H;
-    const float* dc_in = dcs ? dcs + at * H : nullptr;
-    float* dx = dxg + at * 4 * H;
+    const St* c_now = cs + at * H;
+    const St* c_prev = t > 0 ? cs + (at - rows) * H : nullptr;
+    const St* dy = dys + at * H;
+    const St* dc_in = dcs ? dcs + at * H : nullptr;
+    St* dx = dxg + at * 4 * H;
     // the residuals through the read-only path, several rows' loads in
     // flight at once
 #pragma unroll 4
@@ -929,17 +1018,19 @@ lstm_scan_bwd_kernel(const float* __restrict__ cheb,
       const float* g4 = gt + row * 4 * H + u;
       const float i = __ldg(g4), f = __ldg(g4 + H), g = __ldg(g4 + 2 * H),
                   o = __ldg(g4 + 3 * H);
-      const float tc = tanhf(__ldg(c_now + idx));
-      const float dh = __ldg(dy + idx) + P[row * ldp + u * k];
+      const float tc = tanhf(ldg1(c_now + idx));
+      const float dh = ldg1(dy + idx) + P[row * ldp + u * k];
       float dc = dh * o * (1.f - tc * tc) + dcb[idx];
-      if (dc_in) dc += __ldg(dc_in + idx);
-      const float cp = c_prev ? __ldg(c_prev + idx) : 0.f;
-      const float d[4] = {dc * g * i * (1.f - i), dc * cp * f * (1.f - f),
-                          dc * i * (1.f - g * g), dh * tc * o * (1.f - o)};
+      if (dc_in) dc += ldg1(dc_in + idx);
+      const float cp = c_prev ? ldg1(c_prev + idx) : 0.f;
+      const float d[4] = {operand<kBf>(dc * g * i * (1.f - i)),
+                          operand<kBf>(dc * cp * f * (1.f - f)),
+                          operand<kBf>(dc * i * (1.f - g * g)),
+                          operand<kBf>(dh * tc * o * (1.f - o))};
       dcb[idx] = dc * f;
 #pragma unroll
       for (int gate = 0; gate < 4; ++gate) {
-        dx[row * 4 * H + gate * H + u] = d[gate];
+        put(dx + row * 4 * H + gate * H + u, d[gate]);
         da[row * ldd + gate * H + u] = d[gate];
       }
     }
@@ -956,7 +1047,7 @@ lstm_scan_bwd_kernel(const float* __restrict__ cheb,
     __syncthreads();  // P is complete; the ring is free
     if (t > 0) {
       product_prologue<NT, kByColumn>(ring, slot, w, 4 * H, KH, R, vec);
-      graph_product<true>(P, ldp, R, J, H, k, Tm);
+      graph_product<true, kBf>(P, ldp, R, J, H, k, Tm);
     }
   }
 }
@@ -999,21 +1090,11 @@ cudaError_t launch_scan(Kernel kernel, int blocks, size_t bytes,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// The GRU scan: xg (L, B, J, 3H) gate pre-activations z|r|h, cheb (k-1, J, J)
-// the matrices T_1 .. T_{k-1}, wzr (H, k 2H) and wh (H, k H) the
-// hidden-side weights as the caller holds them (columns by Chebyshev order,
-// then gate) -> ys (L, B, J, H). With gates, sa and sb (all three or
-// none): the residuals the backward reads (KEEP), gates (L, B, J, 3H) and
-// sa, sb (L B J, k H; columns unit-major). float32, contiguous. One launch on `stream`; returns
-// the first CUDA error, or 0.
-int pv2c_graph_gru_scan_fwd(const float* xg, const float* cheb,
-                            const float* wzr, const float* wh, float* ys,
-                            float* gates, float* sa, float* sb, int L, int B,
-                            int J, int H, int k, cudaStream_t stream) {
+// The launches behind the entries below, for either storage type.
+template <typename St>
+int gru_scan_fwd(const St* xg, const St* cheb, const St* wzr, const St* wh,
+                 St* ys, float* gates, float* sa, float* sb, float* zpark, int L,
+                 int B, int J, int H, int k, cudaStream_t stream) {
   if (!valid(L, B, J, H, k)) return static_cast<int>(cudaErrorInvalidValue);
   const bool keep = gates != nullptr;
   if (keep != (sa != nullptr) || keep != (sb != nullptr))
@@ -1023,22 +1104,161 @@ int pv2c_graph_gru_scan_fwd(const float* xg, const float* cheb,
   if (err != cudaSuccess) return static_cast<int>(err);
   const GruPlan plan = plan_gru(B, J, H, k, false, sms);
   if (plan.C == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (IsBf16<St>::value && plan.NT != kGWide && zpark == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = H % 4 == 0 && aligned16(wzr) && aligned16(wh) &&
                    (!keep || (aligned16(sa) && aligned16(sb)));
   auto kernel = plan.NT == kGWide
-                    ? (keep ? gru_scan_fwd_kernel<true, kGWide>
-                            : gru_scan_fwd_kernel<false, kGWide>)
-                    : (keep ? gru_scan_fwd_kernel<true, kGWide / 2>
-                            : gru_scan_fwd_kernel<false, kGWide / 2>);
+                    ? (keep ? gru_scan_fwd_kernel<true, kGWide, St>
+                            : gru_scan_fwd_kernel<false, kGWide, St>)
+                    : (keep ? gru_scan_fwd_kernel<true, kGWide / 2, St>
+                            : gru_scan_fwd_kernel<false, kGWide / 2, St>);
   return static_cast<int>(launch_scan(
       kernel, (B + plan.C - 1) / plan.C, plan.bytes, stream, xg, cheb, wzr,
-      wh, ys, gates, sa, sb, L, B, J, H, k, plan.C, vec));
+      wh, ys, gates, sa, sb, zpark, L, B, J, H, k, plan.C, vec));
+}
+
+template <typename St>
+int gru_scan_bwd(const St* cheb, const St* wzr, const St* wh,
+                 const float* gates, const float* sa, const float* sb,
+                 const St* dys, St* dxg, float* part, St* dwzr, St* dwh,
+                 int L, int B, int J, int H, int k, cudaStream_t stream) {
+  if (!valid(L, B, J, H, k)) return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const GruPlan plan = plan_gru(B, J, H, k, true, sms);
+  if (plan.C == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = H % 4 == 0 && aligned16(wzr) && aligned16(wh) &&
+                   aligned16(sa) && aligned16(sb) && aligned16(dxg);
+  auto kernel = plan.NT == kGWide ? gru_scan_bwd_kernel<kGWide, St>
+                                  : gru_scan_bwd_kernel<kGWide / 2, St>;
+  err = launch_scan(kernel, (B + plan.C - 1) / plan.C, plan.bytes, stream,
+                    cheb, wzr, wh, gates, sa, dys, dxg, L, B, J, H, k, plan.C,
+                    vec);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int rows = L * B * J, KH = k * H;
+  const int splits = gru_dw_splits(rows, KH, H, sms);
+  const int chunk = round_up((rows + splits - 1) / splits, kDwKT);
+  const int tiles0 = dw_tiles(KH, 2 * H), tiles1 = dw_tiles(KH, H);
+  const DwProblem<float, St> p0{sa, dxg, part, KH, KH, 3 * H, 2 * H};
+  const DwProblem<float, St> p1{
+      sb, dxg + 2 * H, part + static_cast<size_t>(splits) * KH * 2 * H, KH,
+      KH, 3 * H, H};
+  auto dw = vec ? dw_tf32_kernel<true, float, St>
+                : dw_tf32_kernel<false, float, St>;
+  err = cudaFuncSetAttribute(dw, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kDwSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dw<<<dim3(tiles0 + tiles1, splits), kDwThreads, kDwSmemBytes, stream>>>(
+      p0, p1, tiles0, rows, chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int count0 = KH * 2 * H, count1 = KH * H;
+  reduce_two_kernel<St><<<(count0 + count1 + 255) / 256, 256, 0, stream>>>(
+      p0.part, count0, dwzr, p1.part, count1, dwh, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename St>
+int lstm_scan_fwd(const St* xg, const St* cheb, const St* w, St* ys, St* cs,
+                  float* gates, float* sa, int L, int B, int J, int H, int k,
+                  cudaStream_t stream) {
+  if (!valid(L, B, J, H, k)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool keep = gates != nullptr;
+  if (keep != (sa != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const LstmPlan plan = plan_lstm(B, J, H, k, false, sms);
+  if (plan.C == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = H % 4 == 0 && aligned16(w) && (!keep || aligned16(sa));
+  decltype(&lstm_scan_fwd_kernel<true, 0, St>) kernels[2][3] = {
+      {lstm_scan_fwd_kernel<false, 0, St>, lstm_scan_fwd_kernel<false, 1, St>,
+       lstm_scan_fwd_kernel<false, 2, St>},
+      {lstm_scan_fwd_kernel<true, 0, St>, lstm_scan_fwd_kernel<true, 1, St>,
+       lstm_scan_fwd_kernel<true, 2, St>}};
+  return static_cast<int>(launch_scan(
+      kernels[keep][plan.v], (B + plan.C - 1) / plan.C, plan.bytes, stream,
+      xg, cheb, w, ys, cs, gates, sa, L, B, J, H, k, plan.C, vec));
+}
+
+template <typename St>
+int lstm_scan_bwd(const St* cheb, const St* w, const float* gates,
+                  const float* sa, const St* cs, const St* dys, const St* dcs,
+                  St* dxg, float* part, St* dw, int L, int B, int J, int H,
+                  int k, cudaStream_t stream) {
+  if (!valid(L, B, J, H, k)) return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const LstmPlan plan = plan_lstm(B, J, H, k, true, sms);
+  if (plan.C == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec =
+      H % 4 == 0 && aligned16(w) && aligned16(sa) && aligned16(dxg);
+  decltype(&lstm_scan_bwd_kernel<0, St>) kernels[3] = {
+      lstm_scan_bwd_kernel<0, St>, lstm_scan_bwd_kernel<1, St>,
+      lstm_scan_bwd_kernel<2, St>};
+  err = launch_scan(kernels[plan.v], (B + plan.C - 1) / plan.C, plan.bytes,
+                    stream, cheb, w, gates, cs, dys, dcs, dxg, L, B, J, H, k,
+                    plan.C, vec);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int rows = L * B * J, KH = k * H, count = KH * 4 * H;
+  const int splits = lstm_dw_splits(rows, KH, H, sms);
+  const int chunk = round_up((rows + splits - 1) / splits, kDwKT);
+  const int tiles = dw_tiles(KH, 4 * H);
+  const DwProblem<float, St> p{sa, dxg, part, KH, KH, 4 * H, 4 * H};
+  auto dw_kernel = vec ? dw_tf32_kernel<true, float, St>
+                       : dw_tf32_kernel<false, float, St>;
+  err = cudaFuncSetAttribute(dw_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kDwSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dw_kernel<<<dim3(tiles, splits), kDwThreads, kDwSmemBytes, stream>>>(
+      p, p, tiles, rows, chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  reduce_two_kernel<St><<<(count + 255) / 256, 256, 0, stream>>>(
+      part, count, dw, part, 0, dw, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// The GRU scan: xg (L, B, J, 3H) gate pre-activations z|r|h, cheb (k-1, J, J)
+// the matrices T_1 .. T_{k-1}, wzr (H, k 2H) and wh (H, k H) the
+// hidden-side weights as the caller holds them (columns by Chebyshev order,
+// then gate) -> ys (L, B, J, H). With gates, sa and sb (all three or
+// none): the residuals the backward reads (KEEP), gates (L, B, J, 3H) and
+// sa, sb (L B J, k H; columns unit-major). float32, contiguous. One launch
+// on `stream`; returns the first CUDA error, or 0.
+int pv2c_graph_gru_scan_fwd(const float* xg, const float* cheb,
+                            const float* wzr, const float* wh, float* ys,
+                            float* gates, float* sa, float* sb, int L, int B,
+                            int J, int H, int k, cudaStream_t stream) {
+  return gru_scan_fwd<float>(xg, cheb, wzr, wh, ys, gates, sa, sb, nullptr,
+                             L, B, J, H, k, stream);
+}
+
+// The same in bf16 (every tensor but gates, sa and sb, which stay
+// float32); zpark: a float32 scratch of B J H, needed where the plan's ring
+// is 128 columns wide (pv2c_graph_gru_plan), else it may be null.
+int pv2c_graph_gru_scan_fwd_bf16(const bf16* xg, const bf16* cheb,
+                                 const bf16* wzr, const bf16* wh, bf16* ys,
+                                 float* gates, float* sa, float* sb,
+                                 float* zpark, int L, int B, int J, int H,
+                                 int k, cudaStream_t stream) {
+  return gru_scan_fwd<bf16>(xg, cheb, wzr, wh, ys, gates, sa, sb, zpark, L,
+                            B, J, H, k, stream);
 }
 
 // How the GRU scan (bwd = 0) or its reverse scan (bwd = 1) is launched on
-// the current device at this shape: plan[0] clips a thread block, plan[1]
-// the ring's widest tile, plan[2] the shared memory bytes; zeros where one
-// clip does not fit. Returns a CUDA error, or 0.
+// the current device at this shape, in either storage type: plan[0] clips
+// a thread block, plan[1] the ring's widest tile, plan[2] the shared
+// memory bytes; zeros where one clip does not fit. Returns a CUDA error, or
+// 0.
 int pv2c_graph_gru_plan(int B, int J, int H, int k, int bwd, int* plan) {
   if (!valid(1, B, J, H, k)) return static_cast<int>(cudaErrorInvalidValue);
   int sms = 0;
@@ -1052,7 +1272,8 @@ int pv2c_graph_gru_plan(int B, int J, int H, int k, int bwd, int* plan) {
 }
 
 // Floats of the backward's `part` scratch, for gates = 3 (GRU) or 4 (LSTM),
-// on the current device. Returns minus a CUDA error code on failure.
+// on the current device (float32 in both storage types). Returns minus a
+// CUDA error code on failure.
 int pv2c_graph_scan_part_floats(int L, int B, int J, int H, int k, int gates) {
   int sms = 0;
   const cudaError_t err = sm_count(&sms);
@@ -1079,47 +1300,27 @@ int pv2c_graph_gru_scan_bwd(const float* cheb, const float* wzr,
                             const float* dys, float* dxg, float* part,
                             float* dwzr, float* dwh, int L, int B, int J,
                             int H, int k, cudaStream_t stream) {
-  if (!valid(L, B, J, H, k)) return static_cast<int>(cudaErrorInvalidValue);
-  int sms = 0;
-  cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const GruPlan plan = plan_gru(B, J, H, k, true, sms);
-  if (plan.C == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = H % 4 == 0 && aligned16(wzr) && aligned16(wh) &&
-                   aligned16(sa) && aligned16(sb) && aligned16(dxg);
-  auto kernel = plan.NT == kGWide ? gru_scan_bwd_kernel<kGWide>
-                                  : gru_scan_bwd_kernel<kGWide / 2>;
-  err = launch_scan(kernel, (B + plan.C - 1) / plan.C, plan.bytes, stream,
-                    cheb, wzr, wh, gates, sa, dys, dxg, L, B, J, H, k, plan.C,
-                    vec);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  return gru_scan_bwd<float>(cheb, wzr, wh, gates, sa, sb, dys, dxg, part,
+                             dwzr, dwh, L, B, J, H, k, stream);
+}
 
-  const int rows = L * B * J, KH = k * H;
-  const int splits = gru_dw_splits(rows, KH, H, sms);
-  const int chunk = round_up((rows + splits - 1) / splits, kDwKT);
-  const int tiles0 = dw_tiles(KH, 2 * H), tiles1 = dw_tiles(KH, H);
-  const DwProblem p0{sa, dxg, part, KH, KH, 3 * H, 2 * H};
-  const DwProblem p1{sb, dxg + 2 * H,
-                     part + static_cast<size_t>(splits) * KH * 2 * H, KH, KH,
-                     3 * H, H};
-  auto dw = vec ? dw_tf32_kernel<true> : dw_tf32_kernel<false>;
-  err = cudaFuncSetAttribute(dw, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kDwSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dw<<<dim3(tiles0 + tiles1, splits), kDwThreads, kDwSmemBytes, stream>>>(
-      p0, p1, tiles0, rows, chunk);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const int count0 = KH * 2 * H, count1 = KH * H;
-  reduce_two_kernel<<<(count0 + count1 + 255) / 256, 256, 0, stream>>>(
-      p0.part, count0, dwzr, p1.part, count1, dwh, splits);
-  return static_cast<int>(cudaGetLastError());
+// The same in bf16 (gates, sa, sb and part float32).
+int pv2c_graph_gru_scan_bwd_bf16(const bf16* cheb, const bf16* wzr,
+                                 const bf16* wh, const float* gates,
+                                 const float* sa, const float* sb,
+                                 const bf16* dys, bf16* dxg, float* part,
+                                 bf16* dwzr, bf16* dwh, int L, int B, int J,
+                                 int H, int k, cudaStream_t stream) {
+  return gru_scan_bwd<bf16>(cheb, wzr, wh, gates, sa, sb, dys, dxg, part,
+                            dwzr, dwh, L, B, J, H, k, stream);
 }
 
 // How the graph-form LSTM scan (bwd = 0) or its reverse scan (bwd = 1) is
-// launched on the current device at this shape: plan[0] clips a thread
-// block, plan[1] the ring's widest tile, plan[2] the shared memory bytes,
-// plan[3] the rows of a block tile (64, or 16 in the few-rows tiling);
-// zeros where one clip does not fit. Returns a CUDA error, or 0.
+// launched on the current device at this shape, in either storage type:
+// plan[0] clips a thread block, plan[1] the ring's widest tile, plan[2] the
+// shared memory bytes, plan[3] the rows of a block tile (64, or 16 in the
+// few-rows tiling); zeros where one clip does not fit. Returns a CUDA
+// error, or 0.
 int pv2c_graph_lstm_plan(int B, int J, int H, int k, int bwd, int* plan) {
   if (!valid(1, B, J, H, k)) return static_cast<int>(cudaErrorInvalidValue);
   int sms = 0;
@@ -1144,23 +1345,17 @@ int pv2c_graph_lstm_scan_fwd(const float* xg, const float* cheb,
                              const float* w, float* ys, float* cs,
                              float* gates, float* sa, int L, int B, int J,
                              int H, int k, cudaStream_t stream) {
-  if (!valid(L, B, J, H, k)) return static_cast<int>(cudaErrorInvalidValue);
-  const bool keep = gates != nullptr;
-  if (keep != (sa != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  int sms = 0;
-  const cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const LstmPlan plan = plan_lstm(B, J, H, k, false, sms);
-  if (plan.C == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = H % 4 == 0 && aligned16(w) && (!keep || aligned16(sa));
-  decltype(&lstm_scan_fwd_kernel<true, 0>) kernels[2][3] = {
-      {lstm_scan_fwd_kernel<false, 0>, lstm_scan_fwd_kernel<false, 1>,
-       lstm_scan_fwd_kernel<false, 2>},
-      {lstm_scan_fwd_kernel<true, 0>, lstm_scan_fwd_kernel<true, 1>,
-       lstm_scan_fwd_kernel<true, 2>}};
-  return static_cast<int>(launch_scan(
-      kernels[keep][plan.v], (B + plan.C - 1) / plan.C, plan.bytes, stream,
-      xg, cheb, w, ys, cs, gates, sa, L, B, J, H, k, plan.C, vec));
+  return lstm_scan_fwd<float>(xg, cheb, w, ys, cs, gates, sa, L, B, J, H, k,
+                              stream);
+}
+
+// The same in bf16 (every tensor but gates and sa, which stay float32).
+int pv2c_graph_lstm_scan_fwd_bf16(const bf16* xg, const bf16* cheb,
+                                  const bf16* w, bf16* ys, bf16* cs,
+                                  float* gates, float* sa, int L, int B, int J,
+                                  int H, int k, cudaStream_t stream) {
+  return lstm_scan_fwd<bf16>(xg, cheb, w, ys, cs, gates, sa, L, B, J, H, k,
+                             stream);
 }
 
 // The graph-form LSTM scan's backward from the residuals of the KEEP
@@ -1176,38 +1371,19 @@ int pv2c_graph_lstm_scan_bwd(const float* cheb, const float* w,
                              const float* dcs, float* dxg, float* part,
                              float* dw, int L, int B, int J, int H, int k,
                              cudaStream_t stream) {
-  if (!valid(L, B, J, H, k)) return static_cast<int>(cudaErrorInvalidValue);
-  int sms = 0;
-  cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const LstmPlan plan = plan_lstm(B, J, H, k, true, sms);
-  if (plan.C == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec =
-      H % 4 == 0 && aligned16(w) && aligned16(sa) && aligned16(dxg);
-  decltype(&lstm_scan_bwd_kernel<0>) kernels[3] = {
-      lstm_scan_bwd_kernel<0>, lstm_scan_bwd_kernel<1>,
-      lstm_scan_bwd_kernel<2>};
-  err = launch_scan(kernels[plan.v], (B + plan.C - 1) / plan.C, plan.bytes,
-                    stream, cheb, w, gates, cs, dys, dcs, dxg, L, B, J, H, k,
-                    plan.C, vec);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  return lstm_scan_bwd<float>(cheb, w, gates, sa, cs, dys, dcs, dxg, part,
+                              dw, L, B, J, H, k, stream);
+}
 
-  const int rows = L * B * J, KH = k * H, count = KH * 4 * H;
-  const int splits = lstm_dw_splits(rows, KH, H, sms);
-  const int chunk = round_up((rows + splits - 1) / splits, kDwKT);
-  const int tiles = dw_tiles(KH, 4 * H);
-  const DwProblem p{sa, dxg, part, KH, KH, 4 * H, 4 * H};
-  auto dw_kernel = vec ? dw_tf32_kernel<true> : dw_tf32_kernel<false>;
-  err = cudaFuncSetAttribute(dw_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kDwSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dw_kernel<<<dim3(tiles, splits), kDwThreads, kDwSmemBytes, stream>>>(
-      p, p, tiles, rows, chunk);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  reduce_two_kernel<<<(count + 255) / 256, 256, 0, stream>>>(
-      part, count, dw, part, 0, dw, splits);
-  return static_cast<int>(cudaGetLastError());
+// The same in bf16 (gates, sa and part float32).
+int pv2c_graph_lstm_scan_bwd_bf16(const bf16* cheb, const bf16* w,
+                                  const float* gates, const float* sa,
+                                  const bf16* cs, const bf16* dys,
+                                  const bf16* dcs, bf16* dxg, float* part,
+                                  bf16* dw, int L, int B, int J, int H, int k,
+                                  cudaStream_t stream) {
+  return lstm_scan_bwd<bf16>(cheb, w, gates, sa, cs, dys, dcs, dxg, part, dw,
+                             L, B, J, H, k, stream);
 }
 
 }  // extern "C"

@@ -37,6 +37,15 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                "l"(src), "r"(ok ? 4 : 0));
 }
 
+// 8 bytes global -> shared, asynchronously; zeros when !ok (four bf16
+// values: the bf16 forms' tiles, which cp.async copies as bytes).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 8 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -78,6 +87,12 @@ __device__ __forceinline__ unsigned tf32_of_bf16(float x) {
   unsigned u = __float_as_uint(x);
   u += 0x7fffu + ((u >> 16) & 1u);
   return u & 0xffff0000u;
+}
+
+// x rounded to TF32 (10 mantissa bits, ties away from zero: split_tf32's
+// big part), as a float: one TF32 product reads it exactly.
+__device__ __forceinline__ float round_tf32(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
 }
 
 // d += a b in 3xTF32 on split fragments (see the top of this file): the

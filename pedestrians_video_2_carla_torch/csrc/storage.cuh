@@ -32,6 +32,11 @@ __device__ __forceinline__ unsigned short bf16_bits(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 
+// v rounded to bf16 (to nearest even), as a float32.
+__device__ __forceinline__ float round_bf(float v) {
+  return bits_to_float(bf16_bits(v));
+}
+
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 __device__ __forceinline__ void put(bf16* p, float v) {
   *p = __float2bfloat16_rn(v);

@@ -21,7 +21,9 @@ that recurrence runs:
     kernels' launch plans (``graph_gru_plan``, ``graph_lstm_plan``,
     ``dense_lstm_plan``) take the layer's shape, forward and, when a
     gradient will be taken, backward; else plain. The choice is made from
-    the plans before any launch; ``"fused"`` raises where they refuse.
+    the plans before any launch; ``"fused"`` raises where they refuse. The
+    plans and the kernels take float32 and bf16 alike (a flow's
+    ``precision="bf16"``), as the JAX package's ``auto`` does.
 Dropout sits outside the recurrence, so the fused route trains as well.
 
 Parameters carry the flax model's names and (in, out) shapes

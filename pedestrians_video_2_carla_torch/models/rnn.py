@@ -15,9 +15,10 @@ loads through ``models/jax_import.py``.
 "joint" (a plain dense LSTM over the batch rows): the dense LSTM kernels on
 the card (``csrc/fused_dense_lstm.cu``, up to H = 64, which read the stacked
 hidden weight's transpose in place; wider layers take the graph-form
-kernels, which copy it once), their plain version on the CPU. The hidden
-biases ride in the hoisted input product, taken frame-major, so the scan's
-input is that product's output, uncopied. ``"auto"`` keeps the loop in PyTorch
+kernels, which copy it once), in float32 or bf16, their plain version on
+the CPU. The hidden biases ride in the hoisted input product, taken
+frame-major, so the scan's input is that product's output, uncopied.
+``"auto"`` keeps the loop in PyTorch
 ops, as the JAX package's ``auto`` keeps its scan; an explicit
 ``initial_carry`` always takes the loop.
 

@@ -96,36 +96,39 @@ def graph_scan_flops(cell: str, batch: int, clip_length: int, joints: int,
 def graph_scan_bytes(cell: str, batch: int, clip_length: int, joints: int,
                      hidden: int, k: int, backward: bool = False,
                      with_dcs: bool = False, keep: bool = False,
-                     dense: bool = False) -> int:
-    """Bytes a graph scan must move in float32: each input read once and
-    each output written once. Forward: xg in, ys (and the LSTM's cs) out,
-    the weights and graph matrices in; the training forward (``keep``) also
-    writes its residuals: the GRU's gates (3H a row) and both expanded
-    operands (k H a row each), the graph-form LSTM's activated gates (4H a
-    row) and expanded operand (k H), the ``dense`` route's (k = 1) gates
-    alone. Backward: dys (dcs where the caller used cs) and the weights in,
-    dxg and the weight gradients out; the GRU reads its residuals, the
-    LSTM its gates (4H), cs and the expanded operand (the dense route: ys
-    in its place, H a row)."""
+                     dense: bool = False, element_size: int = 4) -> int:
+    """Bytes a graph scan must move: each input read once and each output
+    written once, at ``element_size`` bytes an element (4: float32; 2: the
+    bf16 kernels) but the training forward's residuals (the gates and the
+    expanded operands), float32 in both. Forward: xg in, ys (and the
+    LSTM's cs) out, the weights and graph matrices in; the training forward
+    (``keep``) also writes its residuals: the GRU's gates (3H a row) and
+    both expanded operands (k H a row each), the graph-form LSTM's
+    activated gates (4H a row) and expanded operand (k H), the ``dense``
+    route's (k = 1) gates alone. Backward: dys (dcs where the caller used
+    cs) and the weights in, dxg and the weight gradients out; the GRU reads
+    its residuals, the LSTM its gates (4H), cs and the expanded operand
+    (the dense route: ys in its place, H a row)."""
     gates = SCAN_GATES[cell]
     H = hidden
     rows = batch * clip_length * joints
     weights = k * H * gates * H + (k - 1) * joints * joints
-    residuals = 3 * H + 2 * k * H
     if backward and cell == "gru":
-        floats = rows * (residuals + H + 3 * H) + 2 * weights
+        kept = rows * (3 * H + 2 * k * H)
+        stored = rows * (H + 3 * H) + 2 * weights
     elif backward:
-        operand = H if dense else k * H
-        floats = rows * (2 * gates * H + H * (2 + (1 if with_dcs else 0))
-                         + operand) + 2 * weights
+        kept = rows * (gates * H + (0 if dense else k * H))
+        stored = rows * (gates * H + H * (2 + (1 if with_dcs else 0))
+                         + (H if dense else 0)) + 2 * weights
     else:
         states = 2 if cell == "lstm" else 1
-        floats = rows * (gates * H + states * H) + weights
+        stored = rows * (gates * H + states * H) + weights
+        kept = 0
         if keep and cell == "gru":
-            floats += rows * residuals
+            kept = rows * (3 * H + 2 * k * H)
         elif keep:
-            floats += rows * (gates * H + (0 if dense else k * H))
-    return int(4 * floats)
+            kept = rows * (gates * H + (0 if dense else k * H))
+    return int(4 * kept + element_size * stored)
 
 
 def video_pose_3d_flops(batch: int, clip_length: int, joints: int = 26,

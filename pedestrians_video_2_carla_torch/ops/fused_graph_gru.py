@@ -44,14 +44,29 @@ Routes on the card:
 The route is chosen from the shape before any launch, never because a
 launch failed.
 
+Every entry takes float32 or bf16 (xg, the graph matrices and the weights in
+one dtype; the ``_bf16`` C entries), as the JAX kernels do with bf16
+inputs: in bf16 the products' operands are rounded to bf16 where the JAX
+kernels round one (the carry, r h, the backward's cotangents da) and the
+graph terms (T_n h, and the transposed products' outputs P_n that the
+graph applies to, which the JAX kernels' other order does not form) to
+TF32, so that one TF32 product is exact; the sums, the carries and the
+gating stay float32. The kernels store ys, cs, dxg and the weight
+gradients in bf16, the kept gates and expanded operands sa / sb in
+float32. The plain versions round where the kernels round
+(:func:`~.tensors.round_bf16`, :func:`~.tensors.round_tf32`,
+straight-through, on float32 arithmetic), so that both give the same
+values up to the order of float32 sums; autograd of a bf16 plain version
+returns gradients in bf16.
+
 The wrappers launch the kernels for CUDA tensors and run the plain version
 (and autograd of it) for CPU tensors; there is no fallback from one to the
 other. The serving forwards are the ``torch.library`` ops
 ``pv2c::graph_gru_scan_fwd``, ``pv2c::graph_lstm_scan_fwd`` and
 ``pv2c::dense_lstm_scan_fwd``, each one node of an exported program.
-``graph_gru_scan_cuda_fwd.launches`` etc. count entry calls; an entry is a
-fixed sequence of launches (forward: 1; backward: 3), described in the
-sources.
+``graph_gru_scan_cuda_fwd.launches`` etc. count entry calls (and
+``.bf16_launches`` those in bf16); an entry is a fixed sequence of launches
+(forward: 1; backward: 3), described in the sources.
 """
 import functools
 from typing import NamedTuple, Optional, Tuple
@@ -61,6 +76,7 @@ import torch
 
 from . import cuda_build
 from .cuda_build import INT as _INT, PTR as _PTR
+from .tensors import round_bf16, round_tf32
 
 _SOURCE = cuda_build.CSRC / "fused_graph_gru.cu"
 _DENSE_SOURCE = cuda_build.CSRC / "fused_dense_lstm.cu"
@@ -72,6 +88,10 @@ _SIGNATURES = {
     "pv2c_graph_scan_part_floats": [_INT] * 6,
     "pv2c_graph_gru_plan": [_INT] * 5 + [_PTR],
     "pv2c_graph_lstm_plan": [_INT] * 5 + [_PTR],
+    "pv2c_graph_gru_scan_fwd_bf16": [_PTR] * 9 + [_INT] * 5 + [_PTR],
+    "pv2c_graph_gru_scan_bwd_bf16": [_PTR] * 11 + [_INT] * 5 + [_PTR],
+    "pv2c_graph_lstm_scan_fwd_bf16": [_PTR] * 7 + [_INT] * 5 + [_PTR],
+    "pv2c_graph_lstm_scan_bwd_bf16": [_PTR] * 10 + [_INT] * 5 + [_PTR],
 }
 _DENSE_SIGNATURES = {
     "pv2c_dense_lstm_plan": [_INT] * 4 + [_PTR],
@@ -81,7 +101,15 @@ _DENSE_SIGNATURES = {
     "pv2c_dense_lstm_scan_bwd": [_PTR, _INT] + [_PTR] * 8 + [_INT] * 4
     + [_PTR],
 }
+_DENSE_SIGNATURES.update({
+    f"{name}_bf16": _DENSE_SIGNATURES[name]
+    for name in ("pv2c_dense_lstm_scan_fwd", "pv2c_dense_lstm_scan_bwd")})
 GRU_GATES, LSTM_GATES = 3, 4
+#: the dtypes of the scans (one a call); the kept gates are float32 in both
+SCAN_DTYPES = (torch.float32, torch.bfloat16)
+#: the GRU forward's widest weight ring: a narrower one parks z outside
+#: shared memory (in bf16, in a float32 scratch)
+GRU_WIDE_RING = 256
 
 
 def cheb_matrices(op: np.ndarray, k: int) -> np.ndarray:
@@ -96,10 +124,13 @@ def cheb_matrices(op: np.ndarray, k: int) -> np.ndarray:
     return np.stack(ts[:max(k, 1)])[1:].astype(np.float32)
 
 
-def _check_scan(xg: torch.Tensor, cheb: torch.Tensor, weights, gates: int
+def _check_scan(xg: torch.Tensor, cheb: torch.Tensor, weights, gates: int,
+                dtype: Optional[torch.dtype] = None
                 ) -> Tuple[int, int, int, int, int]:
     """Shapes and types of a scan call; returns (L, B, J, H, k).
-    ``weights``: ((name, tensor, gates in its group), ...)."""
+    ``weights``: ((name, tensor, gates in its group), ...). The tensors are
+    in one of SCAN_DTYPES; with ``dtype`` given, ``xg`` is a backward's kept
+    gates (float32) and cheb and the weights are in ``dtype``."""
     if xg.ndim != 4 or xg.shape[-1] % gates:
         raise ValueError(f"xg must be (L, B, J, {gates} H), got "
                          f"{tuple(xg.shape)}")
@@ -115,21 +146,31 @@ def _check_scan(xg: torch.Tensor, cheb: torch.Tensor, weights, gates: int
         if tuple(w.shape) != (H, k * group * H):
             raise ValueError(f"{name} must be ({H}, {k * group * H}), got "
                              f"{tuple(w.shape)}")
-    for t in (xg, cheb, *(w for _, w, _ in weights)):
-        if t.dtype not in (torch.float32, torch.bfloat16) \
-                or t.dtype != xg.dtype:
-            raise TypeError(f"the graph scans run in float32 (their plain "
-                            f"versions also in bf16), all tensors in one "
-                            f"dtype; got {t.dtype} beside {xg.dtype}")
+    if dtype is not None and xg.dtype != torch.float32:
+        raise TypeError(f"the kept gates are float32, got {xg.dtype}")
+    dtype = xg.dtype if dtype is None else dtype
+    for t in (cheb, *(w for _, w, _ in weights)):
+        if dtype not in SCAN_DTYPES or t.dtype != dtype:
+            raise TypeError(f"the graph scans run in float32 or bf16, all "
+                            f"tensors in one dtype; got {t.dtype} beside "
+                            f"{dtype}")
         if t.device != xg.device:
             raise ValueError(f"tensors on {t.device} and {xg.device}")
-    if xg.dtype == torch.bfloat16 and xg.device.type != "cpu":
-        raise TypeError(
-            "the graph scan kernels (rows 10-13) run in float32 only: their "
-            "bf16 form is ROADMAP.md M5b step 4, not ported yet; run a bf16 "
-            "classifier or Seq2Seq encoder on the card with "
-            "graph_kernel='plain' / rnn_kernel='plain'")
     return L, B, J, H, k
+
+
+def _same(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _arithmetic(dtype: torch.dtype):
+    """How a plain version computes in ``dtype``: (widen, operand,
+    graph_term). bf16: float32 arithmetic on the widened values, each
+    product operand rounded to bf16 and each graph term to TF32 where the
+    kernels round them (straight-through); float32: all the identity."""
+    if dtype == torch.bfloat16:
+        return (lambda t: t.float()), round_bf16, round_tf32
+    return _same, _same, _same
 
 
 def _graph_apply(cheb: torch.Tensor, hw: torch.Tensor, width: int
@@ -148,9 +189,12 @@ def graph_gru_scan_reference(xg: torch.Tensor, cheb: torch.Tensor,
                              ) -> torch.Tensor:
     """The plain PyTorch version of the GRU scan: a loop over frames.
     xg (L, B, J, 3H), cheb (k-1, J, J), wzr (H, k 2H), wh (H, k H) ->
-    ys (L, B, J, H)."""
+    ys (L, B, J, H); in bf16 the output of
+    :func:`graph_gru_scan_keep_reference`."""
     L, B, J, H, _ = _check_scan(xg, cheb, (("wzr", wzr, 2), ("wh", wh, 1)),
                                 GRU_GATES)
+    if xg.dtype == torch.bfloat16:
+        return graph_gru_scan_keep_reference(xg, cheb, wzr, wh)[0]
     h = xg.new_zeros((B, J, H))
     ys = []
     for t in range(L):
@@ -174,22 +218,28 @@ class GRUResiduals(NamedTuple):
     sb: torch.Tensor
 
 
-def _expand(cheb: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+def _expand(cheb: torch.Tensor, h: torch.Tensor, operand=_same,
+            graph_term=_same) -> torch.Tensor:
     """The expanded operand of the GRU kernels: (B, J, H) -> (B, J, k H),
     column u k + n = (T_n h)[..., u] (unit-major), so that the caller's
     (H, k N) weight read as ``w.reshape(k H, N)`` multiplies it (its row
-    u k + n is row u of W_n)."""
-    return torch.stack([h] + [torch.einsum("ij,bjc->bic", t, h)
+    u k + n is row u of W_n). ``operand`` rounds h and ``graph_term`` each
+    T_n h as the bf16 kernels do."""
+    h = operand(h)
+    return torch.stack([h] + [graph_term(torch.einsum("ij,bjc->bic", t, h))
                               for t in cheb], dim=-1).flatten(-2)
 
 
-def _graph_apply_t(cheb: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+def _graph_apply_t(cheb: torch.Tensor, p: torch.Tensor, graph_term=_same
+                   ) -> torch.Tensor:
     """The cotangent of :func:`_expand`'s source from that of its output:
-    (B, J, k H) unit-major -> sum_n T_n^T p_n, (B, J, H)."""
+    (B, J, k H) unit-major -> sum_n T_n^T p_n, (B, J, H); ``graph_term``
+    rounds each p_n (n >= 1) as the bf16 kernels do."""
     p = p.unflatten(-1, (-1, cheb.shape[0] + 1))
     out = p[..., 0]
     for n in range(1, cheb.shape[0] + 1):
-        out = out + torch.einsum("ji,bjc->bic", cheb[n - 1], p[..., n])
+        out = out + torch.einsum("ji,bjc->bic", cheb[n - 1],
+                                 graph_term(p[..., n]))
     return out
 
 
@@ -198,17 +248,22 @@ def graph_gru_scan_keep_reference(xg: torch.Tensor, cheb: torch.Tensor,
                                   ) -> Tuple[torch.Tensor, GRUResiduals]:
     """The plain version of the GRU's training forward: the scan through
     the expanded operands and the weights as the kernel reads them,
-    -> ``(ys, GRUResiduals)``."""
+    -> ``(ys, GRUResiduals)``. In bf16 (:func:`_arithmetic`) the carry
+    stays float32, the expanded operands are rounded, and ys is returned in
+    bf16, the gates and sa / sb in float32."""
     L, B, J, H, k = _check_scan(xg, cheb, (("wzr", wzr, 2), ("wh", wh, 1)),
                                 GRU_GATES)
+    dtype = xg.dtype
+    widen, operand, term = _arithmetic(dtype)
+    xg, cheb, wzr, wh = (widen(t) for t in (xg, cheb, wzr, wh))
     wzr_v, wh_v = wzr.reshape(k * H, 2 * H), wh.reshape(k * H, H)
     h = xg.new_zeros((B, J, H))
     ys, gates, sa, sb = [], [], [], []
     for t in range(L):
-        a = _expand(cheb, h)
+        a = _expand(cheb, h, operand, term)
         zr = torch.sigmoid(xg[t, ..., :2 * H] + a @ wzr_v)
         z, r = zr[..., :H], zr[..., H:]
-        b = _expand(cheb, r * h)
+        b = _expand(cheb, r * h, operand, term)
         ht = torch.tanh(xg[t, ..., 2 * H:] + b @ wh_v)
         h = z * h + (1.0 - z) * ht
         ys.append(h)
@@ -218,8 +273,8 @@ def graph_gru_scan_keep_reference(xg: torch.Tensor, cheb: torch.Tensor,
 
     def rows(ops):
         return torch.stack(ops).reshape(L * B * J, k * H)
-    return torch.stack(ys), GRUResiduals(torch.stack(gates), rows(sa),
-                                         rows(sb))
+    return torch.stack(ys).to(dtype), GRUResiduals(
+        torch.stack(gates), rows(sa), rows(sb))
 
 
 def _check_residuals(res, L: int, B: int, J: int, H: int, k: int) -> None:
@@ -243,12 +298,17 @@ def graph_gru_scan_bwd_reference(cheb: torch.Tensor, wzr: torch.Tensor,
     transposed products a frame (da_h Wh^T, then [da_z | da_r] Wzr^T, the
     weights read as ``w.reshape(k H, N)``), nothing of the forward
     recomputed, then dW = S^T da over all rows -> ``(dxg, dwzr, dwh)``,
-    each in its primal's shape."""
+    each in its primal's shape and dtype. In bf16 the cotangents da are
+    rounded to bf16 and the transposed products' outputs that the graph
+    applies to to TF32, as product operands; dh stays float32."""
     L, B, J, H = dys.shape
     k = cheb.shape[0] + 1
     _check_residuals(res, L, B, J, H, k)
     KH = k * H
-    wzr_v, wh_v = wzr.reshape(KH, 2 * H), wh.reshape(KH, H)
+    dtype = dys.dtype
+    widen, operand, term = _arithmetic(dtype)
+    cheb, dys = widen(cheb), widen(dys)
+    wzr_v, wh_v = widen(wzr).reshape(KH, 2 * H), widen(wh).reshape(KH, H)
     sa = res.sa.reshape(L, B, J, KH)
     sb = res.sb.reshape(L, B, J, KH)
     dh = dys.new_zeros((B, J, H))
@@ -257,18 +317,19 @@ def graph_gru_scan_bwd_reference(cheb: torch.Tensor, wzr: torch.Tensor,
         z, r, ht = res.gates[t].split(H, dim=-1)
         h = sa[t, ..., ::k]
         dh = dh + dys[t]
-        da_z = dh * (h - ht) * z * (1.0 - z)
-        da_h = dh * (1.0 - z) * (1.0 - ht * ht)
-        drh = _graph_apply_t(cheb, da_h @ wh_v.t())
-        da_r = drh * h * r * (1.0 - r)
+        da_z = operand(dh * (h - ht) * z * (1.0 - z))
+        da_h = operand(dh * (1.0 - z) * (1.0 - ht * ht))
+        drh = _graph_apply_t(cheb, da_h @ wh_v.t(), term)
+        da_r = operand(drh * h * r * (1.0 - r))
         dh = dh * z + drh * r + _graph_apply_t(
-            cheb, torch.cat([da_z, da_r], dim=-1) @ wzr_v.t())
+            cheb, torch.cat([da_z, da_r], dim=-1) @ wzr_v.t(), term)
         dxg.append(torch.cat([da_z, da_r, da_h], dim=-1))
     dxg = torch.stack(dxg[::-1])
     flat = dxg.reshape(L * B * J, 3 * H)
     dwzr = sa.reshape(-1, KH).t() @ flat[:, :2 * H]
     dwh = sb.reshape(-1, KH).t() @ flat[:, 2 * H:]
-    return dxg, dwzr.reshape(wzr.shape), dwh.reshape(wh.shape)
+    return (dxg.to(dtype), dwzr.reshape(wzr.shape).to(dtype),
+            dwh.reshape(wh.shape).to(dtype))
 
 
 def graph_lstm_scan_reference(xg: torch.Tensor, cheb: torch.Tensor,
@@ -276,8 +337,11 @@ def graph_lstm_scan_reference(xg: torch.Tensor, cheb: torch.Tensor,
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of the LSTM scan. xg (L, B, J, 4H) in gate
     order i|f|c|o, cheb (k-1, J, J), w (H, k 4H) -> (ys, cs), each
-    (L, B, J, H)."""
+    (L, B, J, H); in bf16 those of
+    :func:`graph_lstm_scan_keep_reference`."""
     L, B, J, H, _ = _check_scan(xg, cheb, (("w", w, 4),), LSTM_GATES)
+    if xg.dtype == torch.bfloat16:
+        return graph_lstm_scan_keep_reference(xg, cheb, w)[:2]
     h = xg.new_zeros((B, J, H))
     c = xg.new_zeros((B, J, H))
     ys, cs = [], []
@@ -294,13 +358,14 @@ def graph_lstm_scan_reference(xg: torch.Tensor, cheb: torch.Tensor,
     return torch.stack(ys), torch.stack(cs)
 
 
-def _check_dense(xg: torch.Tensor, w: torch.Tensor
+def _check_dense(xg: torch.Tensor, w: torch.Tensor,
+                 dtype: Optional[torch.dtype] = None
                  ) -> Tuple[int, int, int, int]:
     """Shapes and types of a dense scan call (k = 1); returns (L, B, J,
-    H)."""
+    H). ``dtype``: as :func:`_check_scan`'s (``xg`` the kept gates)."""
     J = xg.shape[2] if xg.ndim == 4 else 1
-    return _check_scan(xg, xg.new_zeros((0, J, J)), (("w", w, 4),),
-                       LSTM_GATES)[:4]
+    return _check_scan(xg, w.new_zeros((0, J, J)), (("w", w, 4),),
+                       LSTM_GATES, dtype)[:4]
 
 
 class LSTMResiduals(NamedTuple):
@@ -318,14 +383,20 @@ def graph_lstm_scan_keep_reference(xg: torch.Tensor, cheb: torch.Tensor,
                                               LSTMResiduals]:
     """The plain version of the LSTM's training forward: the scan through
     the expanded operand and the weight as the kernels read it, ``w
-    .reshape(k H, 4H)`` -> ``(ys, cs, LSTMResiduals)``."""
+    .reshape(k H, 4H)`` -> ``(ys, cs, LSTMResiduals)``. In bf16
+    (:func:`_arithmetic`) h and c stay float32, the expanded operand is
+    rounded, and ys and cs are returned in bf16, the gates and sa in
+    float32."""
     L, B, J, H, k = _check_scan(xg, cheb, (("w", w, 4),), LSTM_GATES)
+    dtype = xg.dtype
+    widen, operand, term = _arithmetic(dtype)
+    xg, cheb, w = widen(xg), widen(cheb), widen(w)
     w_v = w.reshape(k * H, 4 * H)
     h = xg.new_zeros((B, J, H))
     c = xg.new_zeros((B, J, H))
     ys, cs, gates, sa = [], [], [], []
     for t in range(L):
-        a = _expand(cheb, h)
+        a = _expand(cheb, h, operand, term)
         acts = xg[t] + a @ w_v
         i, f, o = (torch.sigmoid(acts[..., n * H:(n + 1) * H])
                    for n in (0, 1, 3))
@@ -336,8 +407,9 @@ def graph_lstm_scan_keep_reference(xg: torch.Tensor, cheb: torch.Tensor,
         cs.append(c)
         gates.append(torch.cat([i, f, g, o], dim=-1))
         sa.append(a)
-    return torch.stack(ys), torch.stack(cs), LSTMResiduals(
-        torch.stack(gates), torch.stack(sa).reshape(L * B * J, k * H))
+    return torch.stack(ys).to(dtype), torch.stack(cs).to(dtype), \
+        LSTMResiduals(torch.stack(gates),
+                      torch.stack(sa).reshape(L * B * J, k * H))
 
 
 def dense_lstm_scan_keep_reference(xg: torch.Tensor, w: torch.Tensor
@@ -355,12 +427,15 @@ def dense_lstm_scan_keep_reference(xg: torch.Tensor, w: torch.Tensor
 
 def _lstm_reverse(cheb: torch.Tensor, w_v: torch.Tensor, gates: torch.Tensor,
                   cs: torch.Tensor, dys: torch.Tensor,
-                  dcs: Optional[torch.Tensor]) -> torch.Tensor:
+                  dcs: Optional[torch.Tensor], operand=_same,
+                  graph_term=_same) -> torch.Tensor:
     """The LSTM's reverse scan from the kept gates and cs, frame by frame
     as the kernels run it: the gating backward with dc carried (plus
     ``dcs`` where the caller used cs), then one transposed product a frame,
     dh = sum_n T_n^T (da W^T)_n (``w_v`` the (k H, 4H) weight), nothing of
-    the forward recomputed -> dxg (L, B, J, 4H)."""
+    the forward recomputed -> dxg (L, B, J, 4H). ``operand`` rounds da and
+    ``graph_term`` the products' outputs that the graph applies to, as the
+    bf16 kernels do."""
     L, B, J, H = dys.shape
     dh_next = dys.new_zeros((B, J, H))
     dc_next = dys.new_zeros((B, J, H))
@@ -373,12 +448,12 @@ def _lstm_reverse(cheb: torch.Tensor, w_v: torch.Tensor, gates: torch.Tensor,
         if dcs is not None:
             dc = dc + dcs[t]
         c_prev = cs[t - 1] if t > 0 else torch.zeros_like(dc)
-        da = torch.cat([dc * g * i * (1.0 - i),
-                        dc * c_prev * f * (1.0 - f),
-                        dc * i * (1.0 - g * g),
-                        dh * tc * o * (1.0 - o)], dim=-1)
+        da = operand(torch.cat([dc * g * i * (1.0 - i),
+                                dc * c_prev * f * (1.0 - f),
+                                dc * i * (1.0 - g * g),
+                                dh * tc * o * (1.0 - o)], dim=-1))
         dc_next = dc * f
-        dh_next = _graph_apply_t(cheb, da @ w_v.t())
+        dh_next = _graph_apply_t(cheb, da @ w_v.t(), graph_term)
         das.append(da)
     return torch.stack(das[::-1])
 
@@ -391,14 +466,18 @@ def graph_lstm_scan_bwd_reference(cheb: torch.Tensor, w: torch.Tensor,
     """The plain version of the graph-form LSTM's backward from the
     training forward's residuals and cs (:func:`_lstm_reverse`, the weight
     read as ``w.reshape(k H, 4H)``), then dW = S^T dxg over all rows ->
-    ``(dxg, dw)``, dw in w's shape."""
+    ``(dxg, dw)``, dw in w's shape, both in dys's dtype (bf16: rounded as
+    the kernels round)."""
     L, B, J, H = dys.shape
     k = cheb.shape[0] + 1
     _check_residuals(res, L, B, J, H, k)
-    dxg = _lstm_reverse(cheb, w.reshape(k * H, 4 * H), res.gates, cs, dys,
-                        dcs)
+    dtype = dys.dtype
+    widen, operand, term = _arithmetic(dtype)
+    dxg = _lstm_reverse(widen(cheb), widen(w).reshape(k * H, 4 * H),
+                        res.gates, widen(cs), widen(dys),
+                        None if dcs is None else widen(dcs), operand, term)
     dw = res.sa.t() @ dxg.reshape(-1, 4 * H)
-    return dxg, dw.reshape(w.shape)
+    return dxg.to(dtype), dw.reshape(w.shape).to(dtype)
 
 
 def dense_lstm_scan_bwd_reference(w: torch.Tensor, gates: torch.Tensor,
@@ -408,11 +487,16 @@ def dense_lstm_scan_bwd_reference(w: torch.Tensor, gates: torch.Tensor,
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of the dense LSTM's backward from the training
     forward's gates, ys and cs: :func:`_lstm_reverse` at k = 1, then dW =
-    sum over frames t >= 1 of ys[t-1]^T da[t] -> ``(dxg, dw)``."""
+    sum over frames t >= 1 of ys[t-1]^T da[t] -> ``(dxg, dw)``, both in
+    dys's dtype (bf16: rounded as the kernels round)."""
     L, B, J, H = dys.shape
-    dxg = _lstm_reverse(dys.new_zeros((0, J, J)), w, gates, cs, dys, dcs)
-    dw = ys[:-1].reshape(-1, H).t() @ dxg[1:].reshape(-1, 4 * H)
-    return dxg, dw
+    dtype = dys.dtype
+    widen, operand, _ = _arithmetic(dtype)
+    dxg = _lstm_reverse(gates.new_zeros((0, J, J)), widen(w), gates,
+                        widen(cs), widen(dys),
+                        None if dcs is None else widen(dcs), operand)
+    dw = widen(ys)[:-1].reshape(-1, H).t() @ dxg[1:].reshape(-1, 4 * H)
+    return dxg.to(dtype), dw.to(dtype)
 
 
 def _library():
@@ -456,34 +540,55 @@ def _device_index(device) -> int:
     return torch.cuda.current_device() if index is None else index
 
 
+def _float32(device):
+    return functools.partial(torch.empty, dtype=torch.float32, device=device)
+
+
 def graph_gru_scan_cuda_fwd(xg: torch.Tensor, cheb: torch.Tensor,
                             wzr: torch.Tensor, wh: torch.Tensor,
                             keep: bool = False):
-    """Launch the GRU scan on float32 contiguous CUDA tensors -> ys
-    (L, B, J, H); with ``keep``, ``(ys, GRUResiduals)`` for
-    :func:`graph_gru_scan_cuda_bwd`. Adds one to
-    ``graph_gru_scan_cuda_fwd.launches`` per call."""
+    """Launch the GRU scan on float32 or bf16 contiguous CUDA tensors -> ys
+    (L, B, J, H) in xg's dtype; with ``keep``, ``(ys, GRUResiduals)`` for
+    :func:`graph_gru_scan_cuda_bwd` (the gates, sa and sb float32). Adds
+    one to ``graph_gru_scan_cuda_fwd.launches`` per call (and,
+    for bf16, to ``.bf16_launches``)."""
     L, B, J, H, k = _check_scan(xg, cheb, (("wzr", wzr, 2), ("wh", wh, 1)),
                                 GRU_GATES)
     device = cuda_build.check_cuda_tensors(
-        "graph_gru_scan_cuda_fwd", xg=xg, cheb=cheb, wzr=wzr, wh=wh)
-    empty = functools.partial(torch.empty, dtype=torch.float32, device=device)
+        "graph_gru_scan_cuda_fwd", dtypes=(xg.dtype,), xg=xg, cheb=cheb,
+        wzr=wzr, wh=wh)
+    bf16 = xg.dtype == torch.bfloat16
+    empty = functools.partial(torch.empty, dtype=xg.dtype, device=device)
     ys = empty((L, B, J, H))
-    res = GRUResiduals(empty((L, B, J, 3 * H)), empty((L * B * J, k * H)),
-                       empty((L * B * J, k * H))) if keep else None
+    kept = _float32(device)
+    res = GRUResiduals(kept((L, B, J, 3 * H)), kept((L * B * J, k * H)),
+                       kept((L * B * J, k * H))) if keep else None
     if ys.numel():
+        outs = (ys, *(res if keep else (None,) * 3))
+        ptrs = [None if t is None else t.data_ptr() for t in outs]
         with torch.cuda.device(device):
-            err = _library().pv2c_graph_gru_scan_fwd(
-                xg.data_ptr(), cheb.data_ptr(), wzr.data_ptr(),
-                wh.data_ptr(), ys.data_ptr(),
-                *((t.data_ptr() for t in res) if keep else (None,) * 3),
-                L, B, J, H, k, _stream(device))
+            lib = _library()
+            if bf16:   # z's scratch where the plan's ring is the narrow one
+                narrow = graph_gru_plan(B, J, H, k, False,
+                                        device)[1] != GRU_WIDE_RING
+                zpark = _float32(device)(B * J * H) if narrow else None
+                err = lib.pv2c_graph_gru_scan_fwd_bf16(
+                    xg.data_ptr(), cheb.data_ptr(), wzr.data_ptr(),
+                    wh.data_ptr(), *ptrs,
+                    None if zpark is None else zpark.data_ptr(),
+                    L, B, J, H, k, _stream(device))
+            else:
+                err = lib.pv2c_graph_gru_scan_fwd(
+                    xg.data_ptr(), cheb.data_ptr(), wzr.data_ptr(),
+                    wh.data_ptr(), *ptrs, L, B, J, H, k, _stream(device))
         cuda_build.check_launch(err, "pv2c_graph_gru_scan_fwd")
         graph_gru_scan_cuda_fwd.launches += 1
+        graph_gru_scan_cuda_fwd.bf16_launches += bf16
     return (ys, res) if keep else ys
 
 
 graph_gru_scan_cuda_fwd.launches = 0
+graph_gru_scan_cuda_fwd.bf16_launches = 0
 
 
 def graph_gru_scan_cuda_bwd(cheb: torch.Tensor, wzr: torch.Tensor,
@@ -491,29 +596,34 @@ def graph_gru_scan_cuda_bwd(cheb: torch.Tensor, wzr: torch.Tensor,
                             dys: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
-    """Launch the GRU scan's backward on float32 contiguous CUDA tensors:
-    the graph matrices, the weights, the residuals of
+    """Launch the GRU scan's backward on float32 or bf16 contiguous CUDA
+    tensors: the graph matrices, the weights, the residuals of
     ``graph_gru_scan_cuda_fwd(..., keep=True)`` and the cotangent dys
-    (L, B, J, H) -> ``(dxg, dwzr, dwh)``, each in its primal's shape. Adds
-    one to ``graph_gru_scan_cuda_bwd.launches`` per call."""
+    (L, B, J, H) -> ``(dxg, dwzr, dwh)``, each in its primal's shape and
+    dys's dtype. Adds one to ``graph_gru_scan_cuda_bwd.launches`` per call
+    (and, for bf16, to ``.bf16_launches``)."""
     if dys.ndim != 4:
         raise ValueError(f"dys must be (L, B, J, H), got {tuple(dys.shape)}")
     L, B, J, H = dys.shape
     k = cheb.shape[0] + 1
-    _check_scan(res.gates, cheb, (("wzr", wzr, 2), ("wh", wh, 1)), GRU_GATES)
+    _check_scan(res.gates, cheb, (("wzr", wzr, 2), ("wh", wh, 1)), GRU_GATES,
+                dys.dtype)
     _check_residuals(res, L, B, J, H, k)
     device = cuda_build.check_cuda_tensors(
-        "graph_gru_scan_cuda_bwd", dys=dys, cheb=cheb, wzr=wzr, wh=wh,
-        gates=res.gates, sa=res.sa, sb=res.sb)
+        "graph_gru_scan_cuda_bwd", dtypes=(dys.dtype,), dys=dys, cheb=cheb,
+        wzr=wzr, wh=wh)
+    cuda_build.check_cuda_tensors("graph_gru_scan_cuda_bwd", **res._asdict())
+    bf16 = dys.dtype == torch.bfloat16
+    dxg = torch.empty(res.gates.shape, dtype=dys.dtype, device=device)
     if not dys.numel():
-        return (torch.zeros_like(res.gates), torch.zeros_like(wzr),
-                torch.zeros_like(wh))
-    dxg = torch.empty_like(res.gates)
+        return dxg.zero_(), torch.zeros_like(wzr), torch.zeros_like(wh)
     dwzr, dwh = torch.empty_like(wzr), torch.empty_like(wh)
     lib = _library()
     with torch.cuda.device(device):
         part = _part(lib, device, L, B, J, H, k, GRU_GATES)
-        err = lib.pv2c_graph_gru_scan_bwd(
+        entry = lib.pv2c_graph_gru_scan_bwd_bf16 if bf16 \
+            else lib.pv2c_graph_gru_scan_bwd
+        err = entry(
             cheb.data_ptr(), wzr.data_ptr(), wh.data_ptr(),
             res.gates.data_ptr(), res.sa.data_ptr(), res.sb.data_ptr(),
             dys.data_ptr(), dxg.data_ptr(), part.data_ptr(),
@@ -521,10 +631,12 @@ def graph_gru_scan_cuda_bwd(cheb: torch.Tensor, wzr: torch.Tensor,
             _stream(device))
     cuda_build.check_launch(err, "pv2c_graph_gru_scan_bwd")
     graph_gru_scan_cuda_bwd.launches += 1
+    graph_gru_scan_cuda_bwd.bf16_launches += bf16
     return dxg, dwzr, dwh
 
 
 graph_gru_scan_cuda_bwd.launches = 0
+graph_gru_scan_cuda_bwd.bf16_launches = 0
 
 
 def graph_lstm_plan(B: int, J: int, H: int, k: int, backward: bool = False,
@@ -540,30 +652,39 @@ def graph_lstm_plan(B: int, J: int, H: int, k: int, backward: bool = False,
 
 def graph_lstm_scan_cuda_fwd(xg: torch.Tensor, cheb: torch.Tensor,
                              w: torch.Tensor, keep: bool = False):
-    """Launch the graph-form LSTM scan on float32 contiguous CUDA tensors
-    -> ``(ys, cs)``, each (L, B, J, H); with ``keep``, ``(ys, cs,
-    LSTMResiduals)`` for :func:`graph_lstm_scan_cuda_bwd`. Adds one to
-    ``graph_lstm_scan_cuda_fwd.launches`` per call."""
+    """Launch the graph-form LSTM scan on float32 or bf16 contiguous CUDA
+    tensors -> ``(ys, cs)``, each (L, B, J, H) in xg's dtype; with
+    ``keep``, ``(ys, cs, LSTMResiduals)`` for
+    :func:`graph_lstm_scan_cuda_bwd` (the gates and sa float32). Adds one
+    to ``graph_lstm_scan_cuda_fwd.launches`` per call (and, for bf16, to
+    ``.bf16_launches``)."""
     L, B, J, H, k = _check_scan(xg, cheb, (("w", w, 4),), LSTM_GATES)
     device = cuda_build.check_cuda_tensors(
-        "graph_lstm_scan_cuda_fwd", xg=xg, cheb=cheb, w=w)
-    empty = functools.partial(torch.empty, dtype=torch.float32, device=device)
+        "graph_lstm_scan_cuda_fwd", dtypes=(xg.dtype,), xg=xg, cheb=cheb,
+        w=w)
+    bf16 = xg.dtype == torch.bfloat16
+    empty = functools.partial(torch.empty, dtype=xg.dtype, device=device)
     ys, cs = empty((L, B, J, H)), empty((L, B, J, H))
-    res = LSTMResiduals(empty((L, B, J, 4 * H)),
-                        empty((L * B * J, k * H))) if keep else None
+    res = LSTMResiduals(_float32(device)((L, B, J, 4 * H)),
+                        _float32(device)((L * B * J, k * H))) if keep else None
     if ys.numel():
+        lib = _library()
+        entry = lib.pv2c_graph_lstm_scan_fwd_bf16 if bf16 \
+            else lib.pv2c_graph_lstm_scan_fwd
         with torch.cuda.device(device):
-            err = _library().pv2c_graph_lstm_scan_fwd(
+            err = entry(
                 xg.data_ptr(), cheb.data_ptr(), w.data_ptr(), ys.data_ptr(),
                 cs.data_ptr(),
                 *((t.data_ptr() for t in res) if keep else (None,) * 2),
                 L, B, J, H, k, _stream(device))
         cuda_build.check_launch(err, "pv2c_graph_lstm_scan_fwd")
         graph_lstm_scan_cuda_fwd.launches += 1
+        graph_lstm_scan_cuda_fwd.bf16_launches += bf16
     return (ys, cs, res) if keep else (ys, cs)
 
 
 graph_lstm_scan_cuda_fwd.launches = 0
+graph_lstm_scan_cuda_fwd.bf16_launches = 0
 
 
 def graph_lstm_scan_cuda_bwd(cheb: torch.Tensor, w: torch.Tensor,
@@ -571,17 +692,18 @@ def graph_lstm_scan_cuda_bwd(cheb: torch.Tensor, w: torch.Tensor,
                              dys: torch.Tensor,
                              dcs: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the graph-form LSTM scan's backward on float32 contiguous
-    CUDA tensors: the graph matrices, the weight, the residuals of
-    ``graph_lstm_scan_cuda_fwd(..., keep=True)``, its cell states cs, the
-    cotangent dys and, where the caller used cs, its cotangent dcs ->
-    ``(dxg, dw)``, each in its primal's shape. Adds one to
-    ``graph_lstm_scan_cuda_bwd.launches`` per call."""
+    """Launch the graph-form LSTM scan's backward on float32 or bf16
+    contiguous CUDA tensors: the graph matrices, the weight, the residuals
+    of ``graph_lstm_scan_cuda_fwd(..., keep=True)``, its cell states cs,
+    the cotangent dys and, where the caller used cs, its cotangent dcs ->
+    ``(dxg, dw)``, each in its primal's shape and dys's dtype. Adds one to
+    ``graph_lstm_scan_cuda_bwd.launches`` per call (and, for bf16, to
+    ``.bf16_launches``)."""
     if dys.ndim != 4:
         raise ValueError(f"dys must be (L, B, J, H), got {tuple(dys.shape)}")
     L, B, J, H = dys.shape
     k = cheb.shape[0] + 1
-    _check_scan(res.gates, cheb, (("w", w, 4),), LSTM_GATES)
+    _check_scan(res.gates, cheb, (("w", w, 4),), LSTM_GATES, dys.dtype)
     _check_residuals(res, L, B, J, H, k)
     given = {"cs": cs, "dys": dys}
     if dcs is not None:
@@ -591,26 +713,33 @@ def graph_lstm_scan_cuda_bwd(cheb: torch.Tensor, w: torch.Tensor,
             raise ValueError(f"{name} must be {(L, B, J, H)}, got "
                              f"{tuple(t.shape)}")
     device = cuda_build.check_cuda_tensors(
-        "graph_lstm_scan_cuda_bwd", cheb=cheb, w=w, gates=res.gates,
-        sa=res.sa, **given)
+        "graph_lstm_scan_cuda_bwd", dtypes=(dys.dtype,), cheb=cheb, w=w,
+        **given)
+    cuda_build.check_cuda_tensors("graph_lstm_scan_cuda_bwd",
+                                  gates=res.gates, sa=res.sa)
+    bf16 = dys.dtype == torch.bfloat16
+    dxg = torch.empty(res.gates.shape, dtype=dys.dtype, device=device)
     if not dys.numel():
-        return torch.zeros_like(res.gates), torch.zeros_like(w)
-    dxg = torch.empty_like(res.gates)
+        return dxg.zero_(), torch.zeros_like(w)
     dw = torch.empty_like(w)
     lib = _library()
     with torch.cuda.device(device):
         part = _part(lib, device, L, B, J, H, k, LSTM_GATES)
-        err = lib.pv2c_graph_lstm_scan_bwd(
+        entry = lib.pv2c_graph_lstm_scan_bwd_bf16 if bf16 \
+            else lib.pv2c_graph_lstm_scan_bwd
+        err = entry(
             cheb.data_ptr(), w.data_ptr(), res.gates.data_ptr(),
             res.sa.data_ptr(), cs.data_ptr(), dys.data_ptr(),
             None if dcs is None else dcs.data_ptr(), dxg.data_ptr(),
             part.data_ptr(), dw.data_ptr(), L, B, J, H, k, _stream(device))
     cuda_build.check_launch(err, "pv2c_graph_lstm_scan_bwd")
     graph_lstm_scan_cuda_bwd.launches += 1
+    graph_lstm_scan_cuda_bwd.bf16_launches += bf16
     return dxg, dw
 
 
 graph_lstm_scan_cuda_bwd.launches = 0
+graph_lstm_scan_cuda_bwd.bf16_launches = 0
 
 
 def _dense_library():
@@ -653,31 +782,39 @@ def _weight_transposed(fn_name: str, w: torch.Tensor) -> int:
 
 def dense_lstm_scan_cuda_fwd(xg: torch.Tensor, w: torch.Tensor,
                              keep: bool = False):
-    """Launch the dense LSTM scan (k = 1) on float32 CUDA tensors: xg
-    (L, B, J, 4H) contiguous, w (H, 4H) contiguous or the transpose of a
-    contiguous (4H, H) -> ``(ys, cs)``; with ``keep`` ``(ys, cs, gates)``
-    for :func:`dense_lstm_scan_cuda_bwd`. Raises where
-    :func:`dense_lstm_plan` does not take the shape. Adds one to
-    ``dense_lstm_scan_cuda_fwd.launches`` per call."""
+    """Launch the dense LSTM scan (k = 1) on float32 or bf16 CUDA tensors:
+    xg (L, B, J, 4H) contiguous, w (H, 4H) contiguous or the transpose of a
+    contiguous (4H, H) -> ``(ys, cs)`` in xg's dtype; with ``keep`` ``(ys,
+    cs, gates)`` (the gates float32) for :func:`dense_lstm_scan_cuda_bwd`.
+    Raises where :func:`dense_lstm_plan` does not take the shape. Adds one
+    to ``dense_lstm_scan_cuda_fwd.launches`` per call (and, for bf16, to
+    ``.bf16_launches``)."""
     L, B, J, H = _check_dense(xg, w)
     wt = _weight_transposed("dense_lstm_scan_cuda_fwd", w)
-    device = cuda_build.check_cuda_tensors("dense_lstm_scan_cuda_fwd", xg=xg,
-                                           w=w.t() if wt else w)
-    empty = functools.partial(torch.empty, dtype=torch.float32, device=device)
+    device = cuda_build.check_cuda_tensors(
+        "dense_lstm_scan_cuda_fwd", dtypes=(xg.dtype,), xg=xg,
+        w=w.t() if wt else w)
+    bf16 = xg.dtype == torch.bfloat16
+    empty = functools.partial(torch.empty, dtype=xg.dtype, device=device)
     ys, cs = empty((L, B, J, H)), empty((L, B, J, H))
-    gates = empty((L, B, J, 4 * H)) if keep else None
+    gates = _float32(device)((L, B, J, 4 * H)) if keep else None
     if ys.numel():
+        lib = _dense_library()
+        entry = lib.pv2c_dense_lstm_scan_fwd_bf16 if bf16 \
+            else lib.pv2c_dense_lstm_scan_fwd
         with torch.cuda.device(device):
-            err = _dense_library().pv2c_dense_lstm_scan_fwd(
+            err = entry(
                 xg.data_ptr(), w.data_ptr(), wt, ys.data_ptr(), cs.data_ptr(),
                 gates.data_ptr() if keep else None, L, B, J, H,
                 _stream(device))
         cuda_build.check_launch(err, "pv2c_dense_lstm_scan_fwd")
         dense_lstm_scan_cuda_fwd.launches += 1
+        dense_lstm_scan_cuda_fwd.bf16_launches += bf16
     return (ys, cs, gates) if keep else (ys, cs)
 
 
 dense_lstm_scan_cuda_fwd.launches = 0
+dense_lstm_scan_cuda_fwd.bf16_launches = 0
 
 
 def dense_lstm_scan_cuda_bwd(w: torch.Tensor, gates: torch.Tensor,
@@ -685,12 +822,14 @@ def dense_lstm_scan_cuda_bwd(w: torch.Tensor, gates: torch.Tensor,
                              dys: torch.Tensor,
                              dcs: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dense LSTM scan's backward on float32 CUDA tensors: the
-    weight (as :func:`dense_lstm_scan_cuda_fwd` takes it), the ``keep``
-    forward's gates, ys and cs, the cotangent dys and, where the caller
-    used cs, its cotangent dcs -> ``(dxg, dw)``, dw (H, 4H) contiguous.
-    Adds one to ``dense_lstm_scan_cuda_bwd.launches`` per call."""
-    L, B, J, H = _check_dense(gates, w)
+    """Launch the dense LSTM scan's backward on float32 or bf16 CUDA
+    tensors: the weight (as :func:`dense_lstm_scan_cuda_fwd` takes it), the
+    ``keep`` forward's gates (float32), ys and cs, the cotangent dys and,
+    where the caller used cs, its cotangent dcs -> ``(dxg, dw)`` in dys's
+    dtype, dw (H, 4H) contiguous. Adds one to
+    ``dense_lstm_scan_cuda_bwd.launches`` per call (and, for bf16, to
+    ``.bf16_launches``)."""
+    L, B, J, H = _check_dense(gates, w, dys.dtype)
     given = {"ys": ys, "cs": cs, "dys": dys}
     if dcs is not None:
         given["dcs"] = dcs
@@ -700,29 +839,35 @@ def dense_lstm_scan_cuda_bwd(w: torch.Tensor, gates: torch.Tensor,
                              f"{tuple(t.shape)}")
     wt = _weight_transposed("dense_lstm_scan_cuda_bwd", w)
     device = cuda_build.check_cuda_tensors(
-        "dense_lstm_scan_cuda_bwd", gates=gates, w=w.t() if wt else w,
+        "dense_lstm_scan_cuda_bwd", dtypes=(dys.dtype,), w=w.t() if wt else w,
         **given)
-    dw = torch.empty((H, 4 * H), dtype=torch.float32, device=device)
+    cuda_build.check_cuda_tensors("dense_lstm_scan_cuda_bwd", gates=gates)
+    bf16 = dys.dtype == torch.bfloat16
+    dw = torch.empty((H, 4 * H), dtype=dys.dtype, device=device)
+    dxg = torch.empty(gates.shape, dtype=dys.dtype, device=device)
     if not ys.numel():
-        return torch.zeros_like(gates), dw.zero_()
-    dxg = torch.empty_like(gates)
+        return dxg.zero_(), dw.zero_()
     lib = _dense_library()
     with torch.cuda.device(device):
         floats = lib.pv2c_dense_lstm_part_floats(L, B, J, H)
         if floats < 0:
             cuda_build.check_launch(-floats, "pv2c_dense_lstm_part_floats")
-        part = torch.empty(floats, dtype=torch.float32, device=device)
-        err = lib.pv2c_dense_lstm_scan_bwd(
+        part = _float32(device)(floats)
+        entry = lib.pv2c_dense_lstm_scan_bwd_bf16 if bf16 \
+            else lib.pv2c_dense_lstm_scan_bwd
+        err = entry(
             w.data_ptr(), wt, gates.data_ptr(), ys.data_ptr(), cs.data_ptr(),
             dys.data_ptr(), None if dcs is None else dcs.data_ptr(),
             dxg.data_ptr(), part.data_ptr(), dw.data_ptr(), L, B, J, H,
             _stream(device))
     cuda_build.check_launch(err, "pv2c_dense_lstm_scan_bwd")
     dense_lstm_scan_cuda_bwd.launches += 1
+    dense_lstm_scan_cuda_bwd.bf16_launches += bf16
     return dxg, dw
 
 
 dense_lstm_scan_cuda_bwd.launches = 0
+dense_lstm_scan_cuda_bwd.bf16_launches = 0
 
 
 def _plain_backward(reference, inputs, cotangents):

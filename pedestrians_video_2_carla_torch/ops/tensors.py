@@ -71,3 +71,12 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     stored intermediate, its plain version rounds the value and leaves the
     backward in float32."""
     return x + (x.to(torch.bfloat16).float() - x).detach()
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """x (float32) rounded to TF32's 10 mantissa bits (ties away from zero,
+    as the kernels' split of an operand rounds), kept float32, with the
+    identity as its gradient: the bf16 scans' graph terms."""
+    bits = x.detach().contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & ~0x1fff).view(torch.float32)
+    return x + (rounded.view_as(x) - x).detach()

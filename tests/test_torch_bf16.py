@@ -11,9 +11,17 @@ bf16 on the same seeded numpy inputs and weights (``models/jax_import.py``):
   output, dx and every weight gradient against ``jax.vjp`` of the JAX
   ``fused_spatial_stack`` / ``fused_temporal_block`` on bf16 inputs (their
   Pallas kernels in interpret mode);
-* ``--precision bf16`` through the port's CLI, a bf16 PoseFormer exported
-  and served on the CPU, ``torch.library.opcheck`` of the two ops in bf16,
-  the graph scans refusing bf16 CUDA tensors;
+* the bf16 plain versions of the scan kernels (rows 10-13: the graph-GRU
+  and graph-LSTM at k=2, the dense LSTM at k=1, J=1), through autograd
+  and as the kernels' algorithm (the training forward with residuals,
+  the backward from them), against the JAX ``graph_gru_scan`` /
+  ``graph_lstm_scan`` and ``jax.vjp`` on bf16 inputs at L=16, where the
+  rounding compounds; where they keep float32 and where they round; the
+  classifiers' fused routes (GConvGRU, GConvLSTM, the LSTM classifier)
+  against the JAX flows on ``pallas``;
+* ``--precision bf16`` through the port's CLI, a bf16 PoseFormer and a
+  bf16 GConvGRU exported and served on the CPU, ``torch.library.opcheck``
+  of the five ops in bf16, the graph scans taking bf16 CUDA tensors;
 * on a CUDA card only, the bf16 kernels against their plain versions.
 
 Bars. Both packages compute in bf16 but round at other places, so values
@@ -57,6 +65,7 @@ from pedestrians_video_2_carla_tpu.models.classification import \
 from pedestrians_video_2_carla_tpu.models.movements import \
     MOVEMENTS_MODELS as J_MODELS
 from pedestrians_video_2_carla_tpu.models.movements import transformers as JT
+from pedestrians_video_2_carla_tpu.ops.pallas import fused_graph_gru as JG
 from pedestrians_video_2_carla_tpu.ops.pallas import \
     fused_spatial_transformer as JS
 from pedestrians_video_2_carla_tpu.ops.pallas import \
@@ -76,6 +85,7 @@ from pedestrians_video_2_carla_torch.models.jax_import import \
     import_flow_params
 from pedestrians_video_2_carla_torch.models.movements import MOVEMENTS_MODELS
 from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
+from pedestrians_video_2_carla_torch.skeletons.carla import CARLA_SKELETON
 from pedestrians_video_2_carla_torch.ops import fused_spatial_transformer as FS
 from pedestrians_video_2_carla_torch.ops import \
     fused_temporal_transformer as FT
@@ -127,11 +137,20 @@ CASES = {
 }
 FLOWS = {"pose_lifting": (JPoseLiftingFlow, PoseLiftingFlow),
          "autoencoder": (JAutoencoderFlow, AutoencoderFlow)}
-#: the classifiers: (model, arguments of both packages, the route field)
-CLASSIFIERS = {"GConvGRU": (dict(hidden_size=16, p_dropout=0.0),
-                            "graph_kernel"),
-               "LSTM": (dict(hidden_size=16, embeddings_size=12, p_dropout=0.0),
-                        "rnn_kernel")}
+#: the classifiers: case -> (model, arguments of both packages, the route
+#: field, the port's route: "plain" against the JAX "xla", "fused" against
+#: its "pallas" kernels in interpret mode)
+GNN_ARGS = dict(hidden_size=16, p_dropout=0.0)
+LSTM_ARGS = dict(hidden_size=16, embeddings_size=12, p_dropout=0.0)
+CLASSIFIERS = {"GConvGRU": ("GConvGRU", GNN_ARGS, "graph_kernel", "plain"),
+               "LSTM": ("LSTM", LSTM_ARGS, "rnn_kernel", "plain"),
+               "GConvGRU_fused": ("GConvGRU", GNN_ARGS, "graph_kernel",
+                                  "fused"),
+               "GConvLSTM": ("GConvLSTM", GNN_ARGS, "graph_kernel", "plain"),
+               "GConvLSTM_fused": ("GConvLSTM", GNN_ARGS, "graph_kernel",
+                                   "fused"),
+               "LSTM_fused": ("LSTM", LSTM_ARGS, "rnn_kernel", "fused")}
+JAX_ROUTES = {"plain": "xla", "fused": "pallas"}
 
 
 @pytest.fixture
@@ -317,10 +336,11 @@ def _classifier_batch():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_classifier(name):
-    kwargs, field = CLASSIFIERS[name]
+def _jax_classifier(case):
+    name, kwargs, field, route = CLASSIFIERS[case]
     flow, flow32 = (JClassificationFlow(
-        classification_model=J_CLASSIFIERS[name](**{field: "xla"}, **kwargs),
+        classification_model=J_CLASSIFIERS[name](
+            **{field: JAX_ROUTES[route]}, **kwargs),
         classification_optimizer=JOptimizerSettings(lr=LR),
         precision=precision) for precision in ("bf16", "32"))
     batch = _classifier_batch()
@@ -344,9 +364,9 @@ def _jax_classifier(name):
 @pytest.mark.parametrize("name", list(CLASSIFIERS))
 def test_classifier_matches_jax_in_bf16(name):
     j_params, j_logits, j_loss, j_grads, j_grads32 = _jax_classifier(name)
-    kwargs, field = CLASSIFIERS[name]
+    model, kwargs, field, route = CLASSIFIERS[name]
     flow = ClassificationFlow(
-        CLASSIFICATION_MODELS[name](**{field: "plain"}, **kwargs),
+        CLASSIFICATION_MODELS[model](**{field: route}, **kwargs),
         classification_optimizer=OptimizerSettings(lr=LR), precision="bf16",
         device="cpu")
     params = import_flow_params(j_params, device="cpu")
@@ -484,6 +504,236 @@ def test_bf16_plain_versions_round_where_the_kernels_store():
         FT.check_block(x.to(torch.bfloat16), w, TH)
 
 
+# -- the bf16 plain versions of rows 10-13 -------------------------------------
+
+#: cell -> (B, L, J, H, k): B=6 pads to the TPU layout's multiple of 4,
+#: L=16 as config 3's clips, where bf16's rounding compounds frame by frame
+SCAN_CASES = {"gru": (6, 16, 26, 16, 2), "lstm": (6, 16, 26, 16, 2),
+              "dense": (6, 16, 1, 16, 1)}
+
+
+def _scan_operator(J):
+    return -CARLA_SKELETON.get_adjacency_matrix(
+        normalized=True, self_loops=False) if J == 26 else np.zeros((J, J))
+
+
+def _scan_inputs(cell):
+    """Seeded bf16 values (as float32 numpy): xg, the weights, the
+    cotangents of ys (and cs)."""
+    B, L, J, H, k = SCAN_CASES[cell]
+    rng = np.random.default_rng(sum(map(ord, "bf16" + cell)))
+
+    def rnd(*shape, scale=1.0):
+        return _bf((scale * rng.standard_normal(shape)).astype(np.float32))
+    gates = 3 if cell == "gru" else 4
+    groups = (2, 1) if cell == "gru" else (4,)
+    xg = rnd(L, B, J, gates * H)
+    weights = tuple(rnd(H, k * g * H, scale=H ** -0.5) for g in groups)
+    cots = tuple(rnd(L, B, J, H) for _ in range(1 if cell == "gru" else 2))
+    return xg, weights, cots
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_scan_bf16(cell):
+    """One JAX call per cell: the Pallas kernel (interpret mode) on bf16
+    inputs, its outputs in the port's layout and ``jax.vjp``."""
+    B, L, J, H, k = SCAN_CASES[cell]
+    xg, weights, cots = _scan_inputs(cell)
+    a_ops = jnp.asarray(JG.kron_cheb_ops(_scan_operator(J), k), BF)
+    R = J * JG.BBR
+
+    def to_port(ys):                        # (L, rows, H) -> (L, B, J, H)
+        return jnp.swapaxes(JG.from_slabs(ys, B, J), 0, 1)
+
+    def run(xg_, *ws):
+        xs, _ = JG.to_slabs(jnp.swapaxes(xg_, 0, 1))
+        bg = JG.pick_block_groups(xs.shape[1] // R)
+        if cell == "gru":
+            return (to_port(JG.graph_gru_scan(xs, a_ops, *ws, k, R, bg)),)
+        ys, cs = JG.graph_lstm_scan(xs, a_ops, *ws, k, R, bg, True)
+        return to_port(ys), to_port(cs)
+
+    def fwd_vjp(xg_, ws, cts):
+        outs, vjp = jax.vjp(run, xg_, *ws)
+        return outs, vjp(cts)
+    outs, grads = jax.jit(fwd_vjp)(
+        jnp.asarray(xg, BF), tuple(jnp.asarray(w, BF) for w in weights),
+        tuple(jnp.asarray(c, BF) for c in cots))
+    assert all(o.dtype == BF for o in outs) and grads[0].dtype == BF
+    return ([np.asarray(o, np.float32) for o in outs],
+            [np.asarray(g, np.float32) for g in grads])
+
+
+def _port_scan_bf16(cell, xg, weights, cots):
+    """The port's scan on CPU bf16 tensors through autograd (its CUDA
+    route's entry): outputs and gradients of xg and the weights."""
+    k = SCAN_CASES[cell][4]
+    J = xg.shape[2]
+    cheb = _t(FG.cheb_matrices(_scan_operator(J), k)).to(torch.bfloat16)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (xg, *weights)]
+    if cell == "gru":
+        outs = (FG.graph_gru_scan(leaves[0], cheb, *leaves[1:]),)
+    else:
+        outs = FG.graph_lstm_scan(leaves[0], cheb, leaves[1], with_c=True)
+    grads = torch.autograd.grad(outs, leaves, cots)
+    return outs, grads, cheb
+
+
+def _kernel_algorithm_bf16(cell, xg, cheb, weights, cots):
+    """The bf16 kernels' algorithm in plain PyTorch: the training forward
+    with its residuals, then the backward from them."""
+    if cell == "gru":
+        ys, res = FG.graph_gru_scan_keep_reference(xg, cheb, *weights)
+        return (ys,), FG.graph_gru_scan_bwd_reference(cheb, *weights, res,
+                                                      cots[0])
+    if cell == "dense":
+        ys, cs, gates = FG.dense_lstm_scan_keep_reference(xg, *weights)
+        return (ys, cs), FG.dense_lstm_scan_bwd_reference(
+            *weights, gates, ys, cs, *cots)
+    ys, cs, res = FG.graph_lstm_scan_keep_reference(xg, cheb, *weights)
+    return (ys, cs), FG.graph_lstm_scan_bwd_reference(cheb, *weights, res,
+                                                      cs, *cots)
+
+
+@pytest.mark.parametrize("cell", list(SCAN_CASES))
+def test_bf16_scan_plain_versions_match_the_jax_kernels(cell):
+    """Rows 10-13's bf16 plain versions against the JAX kernels in bf16:
+    through autograd (the entry's CPU route), and as the CUDA kernels'
+    algorithm (training forward with residuals, backward from them);
+    outputs, dxg and the weight gradients in bf16."""
+    xg, weights, cots = _scan_inputs(cell)
+    ref_outs, ref_grads = _jax_scan_bf16(cell)
+    bf = torch.bfloat16
+    xg_t, w_t = _t(xg).to(bf), [_t(w).to(bf) for w in weights]
+    cots_t = tuple(_t(c).to(bf) for c in cots)
+    outs, grads, cheb = _port_scan_bf16(cell, xg_t, w_t, cots_t)
+    algo_outs, algo_grads = _kernel_algorithm_bf16(cell, xg_t, cheb, w_t,
+                                                   cots_t)
+    for what, os_, gs in (("autograd", outs, grads),
+                          ("kernel algorithm", algo_outs, algo_grads)):
+        assert all(o.dtype == bf for o in os_)
+        assert all(g.dtype == bf for g in gs)
+        for i, (o, ref) in enumerate(zip(os_, ref_outs)):
+            _assert_close(o.detach().float().numpy(), ref, KERNEL_OUT_BAR,
+                          f"{cell} {what} output {i}")
+        for i, (g, ref) in enumerate(zip(gs, ref_grads)):
+            _assert_close(g.float().numpy(), ref, KERNEL_GRAD_BAR,
+                          f"{cell} {what} gradient {i}")
+
+
+def test_bf16_scan_plain_versions_keep_the_carry_in_float32():
+    """The bf16 plain versions round what the kernels round and keep
+    float32 what they keep: a hand-written GRU and LSTM frame loop with the
+    carry (and c) in float32, h and r h rounded to bf16 and the graph terms
+    T_n h to TF32 (10 mantissa bits, ties away from zero) as product
+    operands gives their bits; the same loop with a bf16 carry does not.
+    ys and cs come out bf16, the gates and the expanded operands
+    float32."""
+    rng = np.random.default_rng(12)
+    B, L, J, H, k = 3, 4, 26, 8, 2
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return _t((scale * rng.standard_normal(shape)).astype(
+            np.float32)).to(bf)
+    cheb = _t(FG.cheb_matrices(_scan_operator(J), k)).to(bf)
+
+    def rounded(x):
+        return x.to(bf).float()
+
+    def tf32(x):
+        bits = x.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1fff).view(torch.float32)
+
+    def expand(h):
+        h = rounded(h)
+        return torch.stack([h] + [tf32(torch.einsum(
+            "ij,bjc->bic", cheb[0].float(), h))], dim=-1).flatten(-2)
+
+    def gru(carry_rounded):
+        xg, wzr, wh = rnd(L, B, J, 3 * H), rnd(H, k * 2 * H, scale=0.3), \
+            rnd(H, k * H, scale=0.3)
+        h, ys = torch.zeros(B, J, H), []
+        for t in range(L):
+            x = xg[t].float()
+            zr = torch.sigmoid(x[..., :2 * H]
+                               + expand(h) @ wzr.float().reshape(k * H, -1))
+            z, r = zr[..., :H], zr[..., H:]
+            ht = torch.tanh(x[..., 2 * H:]
+                            + expand(r * h) @ wh.float().reshape(k * H, -1))
+            h = z * h + (1 - z) * ht
+            h = rounded(h) if carry_rounded else h
+            ys.append(h.to(bf))
+        return (xg, wzr, wh), torch.stack(ys)
+
+    for carry_rounded in (False, True):
+        rng = np.random.default_rng(12)
+        inputs, want = gru(carry_rounded)
+        ys, res = FG.graph_gru_scan_keep_reference(inputs[0], cheb,
+                                                   *inputs[1:])
+        assert ys.dtype == bf
+        assert res.gates.dtype == res.sa.dtype == res.sb.dtype \
+            == torch.float32
+        assert torch.equal(ys, want) != carry_rounded
+        assert torch.equal(FG.graph_gru_scan_reference(inputs[0], cheb,
+                                                       *inputs[1:]), ys)
+
+    def lstm(c_rounded):
+        xg, w = rnd(L, B, J, 4 * H), rnd(H, k * 4 * H, scale=0.3)
+        h, c, ys, cs = torch.zeros(B, J, H), torch.zeros(B, J, H), [], []
+        for t in range(L):
+            a = xg[t].float() + expand(h) @ w.float().reshape(k * H, -1)
+            i, f, g, o = a.split(H, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            c = rounded(c) if c_rounded else c
+            h = torch.sigmoid(o) * torch.tanh(c)
+            ys.append(h.to(bf))
+            cs.append(c.to(bf))
+        return (xg, w), torch.stack(ys), torch.stack(cs)
+
+    for c_rounded in (False, True):
+        rng = np.random.default_rng(13)
+        (xg, w), want_ys, want_cs = lstm(c_rounded)
+        ys, cs, res = FG.graph_lstm_scan_keep_reference(xg, cheb, w)
+        assert ys.dtype == cs.dtype == bf
+        assert res.gates.dtype == res.sa.dtype == torch.float32
+        assert (torch.equal(ys, want_ys) and torch.equal(cs, want_cs)) \
+            != c_rounded
+    # float32 is unchanged: the keep versions' outputs are the plain ones'
+    x32, w32 = xg.float(), w.float()
+    np.testing.assert_allclose(
+        FG.graph_lstm_scan_keep_reference(x32, cheb.float(), w32)[0].numpy(),
+        FG.graph_lstm_scan_reference(x32, cheb.float(), w32)[0].numpy(),
+        rtol=0, atol=1e-6)
+    # the backward's cotangents are rounded where the kernels store them:
+    # dxg and the weight gradients come out bf16, bf16 values
+    dxg, dw = FG.graph_lstm_scan_bwd_reference(
+        cheb, w, res, cs, rnd(L, B, J, H), rnd(L, B, J, H))
+    assert dxg.dtype == dw.dtype == bf
+
+
+def test_bf16_scan_byte_counts():
+    """The bf16 scans' bytes (``ops/flops.py``): bf16 tensors at 2 bytes,
+    the training forward's residuals (gates and expanded operands) at 4 in
+    both dtypes; float32's counts are the element size 4 ones."""
+    from pedestrians_video_2_carla_torch.ops import flops as TF
+    rows, weights = 256 * 16 * 26, 256 * 384 + 26 * 26
+    count = functools.partial(TF.graph_scan_bytes, "gru", 256, 16, 26, 128, 2)
+    assert count(element_size=2) == 2 * (rows * 512 + weights)
+    # kept: gates 3H = 384, sa and sb k H = 256 each, a row
+    assert count(keep=True, element_size=2) \
+        == 4 * rows * (384 + 512) + 2 * (rows * 512 + weights)
+    assert count(backward=True, element_size=2) \
+        == 4 * rows * (384 + 512) + 2 * (rows * (128 + 384) + 2 * weights)
+    for kw in ({}, {"keep": True}, {"backward": True}):
+        assert count(**kw) == count(element_size=4, **kw)
+    # the dense form's backward reads its kept gates and, in place of the
+    # expanded operand, ys at the element size
+    dense = TF.graph_scan_bytes("lstm", 4, 2, 1, 8, 1, backward=True,
+                                with_dcs=True, dense=True, element_size=2)
+    assert dense == 4 * 8 * 32 + 2 * (8 * (32 + 8 * 3 + 8) + 2 * 8 * 32)
+
+
 # -- the CLI, serving, the ops -------------------------------------------------
 
 @pytest.mark.parametrize("flags", [
@@ -491,6 +741,8 @@ def test_bf16_plain_versions_round_where_the_kernels_store():
      "--loss_modes", "loc_2d_3d"],
     ["--flow=classification", "--classification_model_name=GConvGRU",
      "--hidden_size=8", "--graph_kernel=plain"],
+    ["--flow=classification", "--classification_model_name=GConvGRU",
+     "--hidden_size=8", "--graph_kernel=fused"],
 ])
 def test_cli_trains_in_bf16(tmp_path, flags):
     results = modeling.main(flags + [
@@ -537,6 +789,31 @@ def test_bf16_pose_former_exports_and_serves_on_the_cpu(tmp_path):
     assert any("_to_copy" in t or "to.dtype" in t for t in targets)
 
 
+def test_bf16_gconvgru_exports_and_serves_on_the_cpu(tmp_path):
+    """A bf16 GConvGRU on its fused route: the program carries the bf16
+    scan op, fp32 in and out, the closure's bits."""
+    model = CLASSIFICATION_MODELS["GConvGRU"](
+        hidden_size=16, graph_kernel="fused",
+        generator=torch.Generator().manual_seed(0))
+    flow = ClassificationFlow(model, precision="bf16", device="cpu")
+    params = flow.init_params()
+    inputs = _t(_classifier_batch()[0])
+    agi = torch.zeros(B, dtype=torch.int64)
+    closure = serving.make_inference_fn(flow, params)(inputs, agi)
+    path = serving.export_inference(flow, params, inputs, agi,
+                                    str(tmp_path / "gru.pt2"))
+    infer, _ = serving.load_inference(path, device="cpu")
+    served = infer(inputs, agi)
+    assert set(served) == set(closure)
+    for k, v in closure.items():
+        assert served[k].dtype == v.dtype == torch.float32, k
+        torch.testing.assert_close(served[k], v, rtol=0, atol=0)
+    program = torch.export.load(path)
+    targets = [str(n.target) for n in program.graph.nodes
+               if n.op == "call_function"]
+    assert sum("pv2c.graph_gru_scan_fwd" in t for t in targets) == 2
+
+
 def test_ops_pass_opcheck_in_bf16():
     rng = np.random.default_rng(9)
     bf = torch.bfloat16
@@ -549,13 +826,32 @@ def test_ops_pass_opcheck_in_bf16():
     torch.library.opcheck(FT.fused_temporal_block_op, (xt, wt, TH))
     assert FS.fused_spatial_stack_op(x, w, SH).dtype == bf
     assert FT.fused_temporal_block_op(xt, wt, TH).dtype == bf
+    # the scans (rows 10 and 12, graph and dense form)
+    H = 8
+    cheb = _t(FG.cheb_matrices(_scan_operator(26), 2)).to(bf)
+
+    def rnd(*shape):
+        return _t((0.3 * rng.standard_normal(shape)).astype(
+            np.float32)).to(bf)
+    cases = ((FG.graph_gru_scan_fwd_op, (rnd(3, 2, 26, 3 * H), cheb,
+                                         rnd(H, 4 * H), rnd(H, 2 * H))),
+             (FG.graph_lstm_scan_fwd_op, (rnd(3, 2, 26, 4 * H), cheb,
+                                          rnd(H, 8 * H))),
+             (FG.dense_lstm_scan_fwd_op, (rnd(3, 5, 1, 4 * H),
+                                          rnd(H, 4 * H))))
+    for op, args in cases:
+        torch.library.opcheck(op, args)
+        outs = op(*args)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        assert all(o.dtype == bf for o in outs)
 
 
 def test_graph_scans_run_bf16_on_the_cpu_and_refuse_it_on_the_card():
-    """Rows 10-13 have no bf16 kernel yet (ROADMAP M5b step 4): their plain
-    versions run bf16 on the CPU; a bf16 CUDA tensor raises TypeError
-    naming the step and the plain route, on every route. The card is
-    stood in for by a meta tensor of type cuda, which no kernel reads."""
+    """Rows 10-13 run bf16 on both devices (ROADMAP M5b step 4, which
+    lifted the refusal this test once pinned): their plain versions run
+    bf16 on the CPU; a bf16 CUDA tensor passes the scans' checks on every
+    route, one dtype a call. The card is stood in for by meta tensors of
+    type cuda, which no kernel reads."""
     rng = np.random.default_rng(4)
     xg = _t(rng.standard_normal((3, 2, 26, 3 * 8)).astype(np.float32))
     cheb = _t(FG.cheb_matrices(np.eye(26, dtype=np.float32), 2))
@@ -566,10 +862,22 @@ def test_graph_scans_run_bf16_on_the_cpu_and_refuse_it_on_the_card():
     ref = FG.graph_gru_scan(xg, cheb, wzr, wh)
     assert ys.dtype == bf
     _assert_close(ys.float().numpy(), ref.numpy(), 2e-2, "bf16 GRU scan")
-    with pytest.raises(TypeError, match="M5b step 4.*'plain'"):
-        FG._check_scan(xg.to(bf).to("meta"), cheb.to(bf).to("meta"),
-                       (("wzr", wzr.to(bf).to("meta"), 2),
-                        ("wh", wh.to(bf).to("meta"), 1)), FG.GRU_GATES)
+    meta = [t.to(bf).to("meta") for t in (xg, cheb, wzr, wh)]
+    assert FG._check_scan(meta[0], meta[1], (("wzr", meta[2], 2),
+                                             ("wh", meta[3], 1)),
+                          FG.GRU_GATES) == (3, 2, 26, 8, 2)
+    # the backward's kept gates are float32 beside bf16 weights
+    gates = torch.empty((3, 2, 26, 3 * 8), device="meta")
+    assert FG._check_scan(gates, meta[1], (("wzr", meta[2], 2),
+                                           ("wh", meta[3], 1)),
+                          FG.GRU_GATES, bf) == (3, 2, 26, 8, 2)
+    w4 = torch.empty((8, 4 * 8), dtype=bf, device="meta")
+    assert FG._check_dense(torch.empty((3, 2, 1, 32), dtype=bf,
+                                       device="meta"), w4) == (3, 2, 1, 8)
+    with pytest.raises(TypeError, match="one dtype"):   # one dtype a call
+        FG._check_scan(meta[0], cheb.to("meta"), (("wzr", meta[2], 2),
+                                                  ("wh", meta[3], 1)),
+                       FG.GRU_GATES)
 
 
 # -- on the card ---------------------------------------------------------------
@@ -579,6 +887,41 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the bf16 kernels run only there")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", list(SCAN_CASES))
+def test_bf16_scan_kernels_match_their_plain_versions(cuda_device, cell):
+    """Rows 10-13's bf16 kernels (the training forward, the backward from
+    its residuals) against the kernels' algorithm in plain PyTorch."""
+    xg, weights, cots = _scan_inputs(cell)
+    bf = torch.bfloat16
+    args = [_t(xg).to(bf), [_t(w).to(bf) for w in weights],
+            tuple(_t(c).to(bf) for c in cots)]
+    k = SCAN_CASES[cell][4]
+    cheb = _t(FG.cheb_matrices(_scan_operator(xg.shape[2]), k)).to(bf)
+    ref_outs, ref_grads = _kernel_algorithm_bf16(cell, args[0], cheb,
+                                                 *args[1:])
+    cuda = lambda t: t.to(cuda_device)
+    xg_c, w_c, cots_c, cheb_c = cuda(args[0]), [cuda(w) for w in args[1]], \
+        tuple(cuda(c) for c in args[2]), cuda(cheb)
+    if cell == "gru":
+        ys, res = FG.graph_gru_scan_cuda_fwd(xg_c, cheb_c, *w_c, keep=True)
+        outs, grads = (ys,), FG.graph_gru_scan_cuda_bwd(cheb_c, *w_c, res,
+                                                        cots_c[0])
+    elif cell == "dense":
+        ys, cs, gates = FG.dense_lstm_scan_cuda_fwd(xg_c, *w_c, keep=True)
+        outs, grads = (ys, cs), FG.dense_lstm_scan_cuda_bwd(
+            *w_c, gates, ys, cs, *cots_c)
+    else:
+        ys, cs, res = FG.graph_lstm_scan_cuda_fwd(xg_c, cheb_c, *w_c,
+                                                  keep=True)
+        outs, grads = (ys, cs), FG.graph_lstm_scan_cuda_bwd(
+            cheb_c, *w_c, res, cs, *cots_c)
+    for got, ref in zip((*outs, *grads), (*ref_outs, *ref_grads)):
+        assert got.dtype == bf
+        _assert_close(got.float().cpu().numpy(), ref.float().numpy(),
+                      KERNEL_OUT_BAR, cell)
 
 
 @pytest.mark.cuda

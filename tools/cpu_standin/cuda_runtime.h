@@ -1,0 +1,110 @@
+// CPU stand-in of the CUDA runtime for rehearsing kernels: a thread block
+// is blockDim OS threads, blocks run one after another.
+#pragma once
+#include <barrier>
+#include <cmath>
+#include <math.h>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <functional>
+#include <memory>
+#include <thread>
+#include <vector>
+#include <algorithm>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __restrict__
+#define __launch_bounds__(...)
+#define __align__(n) alignas(n)
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
+struct uint2 { unsigned x, y; };
+struct uint4 { unsigned x, y, z, w; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+
+struct StandinBlock {
+  std::barrier<>* bar;
+  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  std::vector<float> smem;
+  // mma exchange: per warp, 32 lanes x (4 a + 2 b)
+  std::vector<unsigned> xa, xb;
+};
+inline thread_local StandinBlock* standin_block = nullptr;
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
+
+inline void __syncthreads() { standin_block->bar->arrive_and_wait(); }
+inline void __syncwarp() {
+  standin_block->warps[threadIdx.x / 32]->arrive_and_wait();
+}
+inline float* standin_smem() { return standin_block->smem.data(); }
+
+inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline float __expf(float x) { return std::exp(x); }
+inline float __fdividef(float a, float b) { return a / b; }
+using std::min;
+using std::max;
+using std::fminf;
+using std::fmaxf;
+
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  const char* e = std::getenv("STANDIN_SMS");
+  *v = e ? std::atoi(e) : 4;
+  return cudaSuccess;
+}
+template <class K>
+inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return cudaSuccess; }
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return cudaSuccess;
+}
+
+template <class K, class... A>
+inline void standin_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t,
+                           K kernel, A... args) {
+  const unsigned n = block.x * block.y * block.z;
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; ++bx) {
+        std::barrier<> bar(n);
+        StandinBlock blk;
+        blk.bar = &bar;
+        for (unsigned w = 0; w < (n + 31) / 32; ++w)
+          blk.warps.emplace_back(new std::barrier<>(std::min(32u, n - 32 * w)));
+        blk.smem.assign(smem / 4 + 16, std::nanf(""));
+        blk.xa.assign(((n + 31) / 32) * 32 * 4, 0);
+        blk.xb.assign(((n + 31) / 32) * 32 * 2, 0);
+        std::vector<std::thread> ts;
+        for (unsigned t = 0; t < n; ++t)
+          ts.emplace_back([&, t] {
+            standin_block = &blk;
+            threadIdx = dim3(t % block.x, t / block.x, 0);
+            blockIdx = dim3(bx, by, bz);
+            blockDim = block;
+            gridDim = grid;
+            kernel(args...);
+          });
+        for (auto& th : ts) th.join();
+      }
+}
