@@ -430,6 +430,42 @@ precision="bf16"):
                      rnn_kernel="auto" (the loop): finite losses, no
                      kernel launched; rows 10-13 each refusing a bf16 CUDA
                      tensor with a TypeError naming ROADMAP M5b step 4.
+Then group_recorded (the recorded data and the resident epoch):
+ 43. resident_batches -- BASELINE config 1's data (LinearAE, B=1024, L=16)
+                     as CarlaRecorded-format subsets made in memory
+                     (recorded_subset: Carla2D3D's random poses through the
+                     port's FK and projection; 32,768 train and 2,000
+                     validation clips, 64 KB a clip), fed through
+                     add_subset: 4 train batches and both validation
+                     batches (the second padded by wrap-around) of the
+                     resident per-batch gather equal to the streamed ones
+                     bit for bit; the hoisted deterministic path within
+                     1e-6 (+ 1e-7 relative).
+ 44. epoch_config1 -- one epoch (32 steps, 2 validation batches) of config
+                     1 on fused_train by five routes from one initial state:
+                     (a) streamed, (b) through the prefetcher (host
+                     batches copied and preprocessed on its side stream),
+                     (c) through the native gather, (d) resident eager,
+                     (e) resident as CUDA graphs; (e) equal to (d) and
+                     (a)-(c) to one another bit for bit (final params,
+                     every step's logs, dropout 0.5 on); (d) equal bit for
+                     bit to (a) with the capturable AdamW, one capturable
+                     AdamW step within CAPTURABLE_BAR (1e-6 of each
+                     parameter's largest magnitude) of the host step, and
+                     (d) over the epoch within EPOCH_PARAM_BAR (2.8e-5) and
+                     EPOCH_LOSS_BAR (1.75e-5) of (a); each route's
+                     launches; then a
+                     2-epoch fit of each route logging once an epoch: the
+                     second epoch's ms a step, clips/s and seconds (host
+                     clock to the epoch's last logs read); torch.profiler
+                     traces of 4 steps of (a) and (e): busy share, rows 2-3
+                     kernels by name against replays x captured.
+ 45. epoch_config3 -- GConvGRU (B=256, L=16) on config 3's OpenPose subsets
+                     with flip and rotation, resident: 16 steps eager
+                     against graphed, bit for bit (params and logs, flip,
+                     rotation and dropout drawing); ms a step streamed,
+                     resident eager and resident graphed; rows 10-11's
+                     graphed launches against the profiler's kernel names.
 Then the card line, the kernels line (config 2's, the train-options
 phase's, group_openpose's and group_serving's launches beside the dense
 LSTM, projection-training, graph-GRU and the other forward entries; the
@@ -761,25 +797,13 @@ def forward_gemm_sass(library):
 
 
 def kernel_wrappers():
-    from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
-    from pedestrians_video_2_carla_torch.ops import fused_projection as FP
-    from pedestrians_video_2_carla_torch.ops import \
-        fused_spatial_transformer as FS
-    from pedestrians_video_2_carla_torch.ops import \
-        fused_temporal_transformer as FT
-    return {"fused_projection": FP.fused_projection_cuda,
-            "fused_projection_train_fwd": FP.fused_projection_train_cuda_fwd,
-            "fused_projection_train_bwd": FP.fused_projection_train_cuda_bwd,
-            "fused_spatial_stack": FS.fused_spatial_stack_cuda,
-            "fused_temporal_block": FT.fused_temporal_block_cuda,
-            "fused_spatial_stack_bwd": FS.fused_spatial_stack_cuda_bwd,
-            "fused_temporal_block_bwd": FT.fused_temporal_block_cuda_bwd,
-            "graph_gru_scan": FG.graph_gru_scan_cuda_fwd,
-            "graph_gru_scan_bwd": FG.graph_gru_scan_cuda_bwd,
-            "graph_lstm_scan": FG.graph_lstm_scan_cuda_fwd,
-            "graph_lstm_scan_bwd": FG.graph_lstm_scan_cuda_bwd,
-            "dense_lstm_scan": FG.dense_lstm_scan_cuda_fwd,
-            "dense_lstm_scan_bwd": FG.dense_lstm_scan_cuda_bwd}
+    """Every kernel wrapper that counts its launches, by name: the
+    registry the wrappers enter where they are defined."""
+    from pedestrians_video_2_carla_torch.ops import (  # noqa: F401
+        fused_graph_gru, fused_projection, fused_spatial_transformer,
+        fused_temporal_transformer)
+    from pedestrians_video_2_carla_torch.ops.cuda_build import COUNTED
+    return dict(COUNTED)
 
 
 def kernel_counts():
@@ -4749,11 +4773,12 @@ def openpose_clips(rng, n):
     return detections, clean, targets, meta
 
 
-def openpose_datamodule():
+def openpose_datamodule(device_resident=False):
     """The port's Hdf5DataModule on the card with in-memory subsets
     (add_subset; the card's machine has no h5py): BODY_25 detections
     remapped to the CARLA skeleton, hips_neck, flip and rotation in
-    training. Returns it and the test subset's clean clips."""
+    training; the subsets on the card with ``device_resident``. Returns it
+    and the test subset's clean clips."""
     from pedestrians_video_2_carla_torch.data.base.hdf5_datamodule import \
         Hdf5DataModule
     from pedestrians_video_2_carla_torch.skeletons import (BODY_25_SKELETON,
@@ -4763,6 +4788,7 @@ def openpose_datamodule():
                         data_nodes=BODY_25_SKELETON,
                         input_nodes=CARLA_SKELETON, augment_flip=True,
                         augment_rotate=True, seed=SEED,
+                        device_resident=device_resident,
                         outputs_dir=tempfile.gettempdir())
     rng = np.random.default_rng(SEED + 16)
     for name, batches in (("train", OP_TRAIN_BATCHES),
@@ -6335,6 +6361,490 @@ def scan_bf16_entries(times, launches, errs):
     return entries
 
 
+#: group_recorded: config 1's CarlaRecorded-format subsets (train batches,
+#: validation clips: the second validation batch is padded)
+REC_TRAIN_BATCHES, REC_VAL_CLIPS = 32, 2000
+#: the train batches phase 43 compares
+REC_CHECK_BATCHES = 4
+#: the hoisted deterministic path's bar (numpy's assert_allclose)
+HOIST_ATOL, HOIST_RTOL = 1e-6, 1e-7
+#: the capturable AdamW's bar: one step of it from the host-stepped AdamW's
+#: state, on the same batch and dropout draws, within this share of each
+#: parameter's largest magnitude
+CAPTURABLE_BAR = 1e-6
+#: the steps at which phase 44 takes that step
+CAPTURABLE_STEPS = 4
+#: the resident eager epoch's drift from the streamed one (the two AdamW
+#: forms' rounding compounding over REC_TRAIN_BATCHES steps): the largest
+#: |difference| of a parameter over its largest magnitude, and of a logged
+#: train loss over its value; between the sound route's readings and those
+#: of routes known to be wrong (PERF.md section 2,
+#: tools/resident_drift_bar.py)
+EPOCH_PARAM_BAR, EPOCH_LOSS_BAR = 2.8e-5, 1.75e-5
+#: the steps a profiled window of phases 44-45 runs
+REC_PROFILE_STEPS = 4
+ROUTES = ("streamed", "prefetched", "native", "resident_eager",
+          "resident_graphed")
+ROW2_KERNELS = ("fk_forward_kernel",)
+ROW3_KERNELS = ("fused_projection_train_bwd_kernel",)
+
+
+def recorded_clips(n, seed):
+    """``n`` CarlaRecorded-format clips (``recorded_subset``): Carla2D3D's
+    random poses (B=1024 at a time, on the card) through the port's FK
+    and projection, with their relative, absolute and world targets, ages
+    and genders."""
+    from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
+        Carla2D3DDataModule
+    from pedestrians_video_2_carla_torch.data.carla.carla_recorded import \
+        recorded_subset
+    from pedestrians_video_2_carla_torch.skeletons import AGE_GENDER_KEYS
+
+    keys = ("projection_2d", "relative_pose_loc", "relative_pose_rot",
+            "absolute_pose_loc", "absolute_pose_rot", "world_loc",
+            "world_rot", "crossing")
+    stream = Carla2D3DDataModule(batch_size=BATCH, clip_length=CLIP,
+                                 seed=seed).train_batches(seed)
+    parts = []
+    for _ in range(-(-n // BATCH)):
+        _, targets, meta = next(stream)
+        parts.append({**{k: targets[k].cpu().numpy() for k in keys},
+                      "kind": meta["age_gender_idx"].cpu().numpy()})
+    c = {k: np.concatenate([p[k] for p in parts])[:n] for k in parts[0]}
+    ages, genders = zip(*(AGE_GENDER_KEYS[i].split("_") for i in c["kind"]))
+    return recorded_subset(
+        c["projection_2d"], (c["relative_pose_loc"], c["relative_pose_rot"]),
+        (c["absolute_pose_loc"], c["absolute_pose_rot"]),
+        world=(c["world_loc"], c["world_rot"]), crossing=c["crossing"],
+        age=ages, gender=genders)
+
+
+def recorded_datamodule(subsets, resident=False, native_dir=None):
+    """CarlaRecordedDataModule (B=1024, L=16) over the in-memory subsets;
+    the subsets on the card with ``resident``, the streamed batches
+    gathered from flat binary caches under ``native_dir`` with it."""
+    from pedestrians_video_2_carla_torch.data.carla.carla_recorded import \
+        CarlaRecordedDataModule
+
+    dm = CarlaRecordedDataModule(batch_size=BATCH, clip_length=CLIP,
+                                 seed=SEED, device_resident=resident,
+                                 outputs_dir=tempfile.gettempdir())
+    for name, subset in subsets.items():
+        dm.add_subset(name, *subset)
+        if native_dir is not None:
+            dm.build_native_cache(name, os.path.join(native_dir,
+                                                     f"{name}.hdf5"))
+            if name not in dm._native_caches:
+                raise AssertionError("the native batch loader is not built")
+    return dm
+
+
+def batches_equal(a, b):
+    """Whether two batches hold the same keys and the same bits."""
+    return torch.equal(a[0], b[0]) and all(
+        set(x) == set(y) and all(torch.equal(x[k], y[k]) for k in x)
+        for x, y in zip(a[1:], b[1:]))
+
+
+def phase_resident_batches(streamed, resident):
+    """Resident batches (the per-batch gather and preprocessing) against
+    the streamed ones, bit for bit; the hoisted deterministic path (what
+    an epoch of config 1 gathers) within HOIST_ATOL + HOIST_RTOL."""
+    worst = 0.0
+    checked = {}
+    for name, shuffle, training, count in (
+            ("train", True, True, REC_CHECK_BATCHES),
+            ("val", False, False, None)):
+        spec = resident.resident_scan_inputs(name, shuffle, training, SEED)
+        gather = resident._resident_gather(training)
+        it = streamed._iter_subset(name, shuffle, training, SEED)
+        count = count or spec.num_batches
+        for b in range(count):
+            ref = next(it)
+            got = gather(None, spec.order, b, *resident._resident[name])
+            if not batches_equal(ref, got):
+                raise AssertionError(f"resident {name} batch {b} differs "
+                                     f"from the streamed one")
+            hoisted = spec.gather(None, spec.order, b, *spec.trees)
+            for x, y in [(hoisted[0], ref[0])] + [
+                    (hoisted[i][k], ref[i][k]) for i in (1, 2)
+                    for k in ref[i]]:
+                x, y = x.double(), y.double()
+                if not bool(((x - y).abs() <= HOIST_ATOL
+                             + HOIST_RTOL * y.abs()).all()):
+                    raise AssertionError(f"hoisted {name} batch {b}")
+                worst = max(worst, float((x - y).abs().max()))
+        checked[name] = count
+    emit({"phase": "resident_batches", "B": BATCH, "L": CLIP,
+          "batches_checked": checked,
+          "val_padded_clips": REC_VAL_CLIPS % BATCH and
+          BATCH - REC_VAL_CLIPS % BATCH,
+          "resident_equal_streamed_bits": True,
+          "hoisted_max_abs_err": worst,
+          "hoisted_bar": [HOIST_ATOL, HOIST_RTOL]})
+
+
+def fit_route(route, dm, tmp, epochs=1, every=1, validate=True,
+              make_flow=None, limit=None, capturable=False):
+    """Trainer.fit of a fresh flow (make_train_flow("fused_train") unless
+    given) by ``route``, its AdamW in the capturable form from the start
+    with ``capturable``: (trainer, launches, step records, epoch
+    records). The trainer's own choices are the prefetched and the
+    resident graphed routes; the others patch its module for the fit: no
+    prefetcher (``PREFETCH_DEPTH`` 0), the resident runner without graphs
+    (``build_scan_runner(..., graphs=False)``)."""
+    from pedestrians_video_2_carla_torch.models.base import set_capturable
+    from pedestrians_video_2_carla_torch.runtime import resident_scan
+    from pedestrians_video_2_carla_torch.training import trainer as T
+
+    flow = make_flow() if make_flow else make_train_flow("fused_train")
+    run = f"{route}-{epochs}-{every}-{int(capturable)}"
+    trainer = T.Trainer(flow, dm, T.TrainerConfig(
+        max_epochs=epochs, log_every_n_steps=every, seed=SEED,
+        limit_train_batches=limit, logs_dir=tmp, run_name=run,
+        check_val_every_n_epoch=1 if validate else 10 ** 6))
+    if capturable:
+        trainer._init_state()
+        set_capturable(trainer.state.optimizer, True)
+    reset_kernel_counts()
+    saved = T.PREFETCH_DEPTH, T.build_scan_runner
+    try:
+        if route != "prefetched":
+            T.PREFETCH_DEPTH = 0
+        if route == "resident_eager":
+            T.build_scan_runner = functools.partial(
+                resident_scan.build_scan_runner, graphs=False)
+        trainer.fit()
+    finally:
+        T.PREFETCH_DEPTH, T.build_scan_runner = saved
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    with open(os.path.join(tmp, run, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    # a step record without its wall-clock time
+    steps = [{k: v for k, v in r.items() if k != "time"} for r in records
+             if any(k.startswith("lr-") for k in r)]
+    epochs_ = [r for r in records if "epoch" in r]
+    bad = {k: v for r in records for k, v in r.items()
+           if "_loss/" in k and not np.isfinite(v)}
+    if bad:
+        raise AssertionError(f"{route}: non-finite logged losses {bad}")
+    return trainer, counts, steps, epochs_
+
+
+def params_equal(a, b):
+    return all(torch.equal(a[n][k], v) for n, tree in b.items()
+               for k, v in tree.items())
+
+
+def epoch_drift(params, steps, ref_params, ref_steps):
+    """How far an epoch (its final parameters and step records) is from a
+    reference one: the largest |difference| of a parameter over its
+    largest magnitude, and the largest relative difference of a logged
+    train loss."""
+    worst_param = max(
+        float((params[n][k] - v).detach().abs().max())
+        / max(float(v.detach().abs().max()), 1e-30)
+        for n, tree in ref_params.items() for k, v in tree.items())
+    worst_loss = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                     for a, b in zip(steps, ref_steps)
+                     for k in b if k.startswith("train_loss/"))
+    return worst_param, worst_loss
+
+
+def profile_window(fn):
+    """One call of ``fn`` under torch.profiler (after one unprofiled
+    call): the device busy share over the window from the first to the
+    last event, and the device kernels' names."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    device = [e for e in events
+              if getattr(e, "device_type", None) is not None
+              and e.device_type.name == "CUDA"]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    window = max(e.time_range.end for e in events) \
+        - min(e.time_range.start for e in events)
+    return {"window_ms": window / 1e3, "device_events": len(device),
+            "device_busy_share": busy / window if device else None}, \
+        [e.name for e in device]
+
+
+def named(names, parts):
+    return sum(any(p in n for p in parts) for n in names)
+
+
+def profiled_launches(fn, rows):
+    """A profiled window of ``fn`` and, per wrapper of ``rows`` (wrapper
+    -> kernel name parts), its counted launches and its kernels in the
+    trace."""
+    trace, names = profile_window(fn)
+    before = kernel_counts()
+    fn()
+    torch.cuda.synchronize()
+    after = kernel_counts()
+    # the counts of one call (the profiled call is the second of three)
+    counted = {w: after[w] - before[w] for w in rows}
+    return trace, {w: {"counted": counted[w],
+                       "profiler": named(names, parts)}
+                   for w, parts in rows.items()}
+
+
+def capturable_step_move(dm):
+    """How far the capturable AdamW moves a step from the host-stepped
+    one: at each of CAPTURABLE_STEPS streamed steps, a copy of the state
+    switched to the capturable form takes the same step (the same batch,
+    the same dropout draws); the largest |difference| of a parameter over
+    its largest magnitude, the worst over the steps."""
+    import copy
+
+    from pedestrians_video_2_carla_torch.models.base import set_capturable
+
+    flow = make_train_flow("fused_train")
+    state = flow.init_state()
+    batches = dm.train_batches(SEED + 5)
+    worst = []
+    for _ in range(CAPTURABLE_STEPS):
+        batch = next(batches)
+        twin = copy.deepcopy(state)
+        set_capturable(twin.optimizer, True)
+        draws = flow.generator.get_state()
+        flow.training_step(state, batch)
+        flow.generator.set_state(draws)
+        flow.training_step(twin, batch)
+        worst.append(max(
+            float((twin.params[n][k] - v).detach().abs().max())
+            / max(float(v.detach().abs().max()), 1e-30)
+            for n, tree in state.params.items() for k, v in tree.items()))
+    return worst
+
+
+def phase_epoch_config1(subsets, card):
+    """Config 1 by the five routes (module docstring, phase 44)."""
+    rows = {"fused_projection_train_fwd": ROW2_KERNELS,
+            "fused_projection_train_bwd": ROW3_KERNELS}
+    expected = expected_counts(
+        fused_projection_train_fwd=REC_TRAIN_BATCHES + 2,
+        fused_projection_train_bwd=REC_TRAIN_BATCHES)
+    with tempfile.TemporaryDirectory() as tmp:
+        dms = {"streamed": recorded_datamodule(subsets),
+               "native": recorded_datamodule(subsets, native_dir=tmp),
+               "resident": recorded_datamodule(subsets, resident=True)}
+        dm_of = {"streamed": dms["streamed"], "prefetched": dms["streamed"],
+                 "native": dms["native"],
+                 "resident_eager": dms["resident"],
+                 "resident_graphed": dms["resident"]}
+        fits, graphed = {}, {}
+        for route in ROUTES + ("streamed_capturable",):
+            trainer, counts, steps, epochs = fit_route(
+                route, dm_of.get(route, dms["streamed"]), tmp,
+                capturable=route == "streamed_capturable")
+            if counts != expected:
+                raise AssertionError(f"{route} launches {counts}, expected "
+                                     f"{expected}")
+            if len(steps) != REC_TRAIN_BATCHES or "val_loss/primary" \
+                    not in epochs[-1]:
+                raise AssertionError(f"{route}: {len(steps)} step records")
+            fits[route] = (trainer.state.params, steps,
+                           epochs[-1]["val_loss/primary"], counts)
+            if route == "resident_graphed":
+                runner = trainer.runner
+                graphed = {w: runner.replays * runner.captured.get(
+                    (w, "launches"), 0) for w in rows}
+                graphed_info = {"replays": runner.replays,
+                                "warmup_steps": runner.warmup,
+                                "captured": {w: runner.captured.get(
+                                    (w, "launches"), 0) for w in rows}}
+            del trainer
+        ref_params, ref_steps = fits["streamed"][:2]
+        for route in ("prefetched", "native"):
+            if not (params_equal(fits[route][0], ref_params)
+                    and fits[route][1] == ref_steps):
+                raise AssertionError(f"{route} differs from streamed")
+        eager_params, eager_steps = fits["resident_eager"][:2]
+        if not (params_equal(fits["resident_graphed"][0], eager_params)
+                and fits["resident_graphed"][1] == eager_steps):
+            raise AssertionError("the graphed epoch differs from the "
+                                 "resident eager one")
+        # the resident epoch is the streamed one with the capturable AdamW,
+        # bit for bit; the AdamW's form moves a step by CAPTURABLE_BAR at
+        # most, and the epochs of the two forms drift apart from there
+        if not (params_equal(fits["streamed_capturable"][0], eager_params)
+                and fits["streamed_capturable"][1] == eager_steps):
+            raise AssertionError("the resident eager epoch differs from the "
+                                 "streamed one with the capturable AdamW")
+        step_move = capturable_step_move(dms["streamed"])
+        if not max(step_move) <= CAPTURABLE_BAR:
+            raise AssertionError(f"a capturable AdamW step moves a parameter "
+                                 f"{step_move} of its largest magnitude")
+        worst_param, worst_loss = epoch_drift(eager_params, eager_steps,
+                                              ref_params, ref_steps)
+        if not (worst_param <= EPOCH_PARAM_BAR
+                and worst_loss <= EPOCH_LOSS_BAR):
+            raise AssertionError(
+                f"the resident eager epoch drifts {worst_param} (params), "
+                f"{worst_loss} (losses) from the streamed one; bars "
+                f"{EPOCH_PARAM_BAR}, {EPOCH_LOSS_BAR}")
+        if sum(graphed.values()) != 2 * (REC_TRAIN_BATCHES
+                                         - graphed_info["warmup_steps"]):
+            raise AssertionError(f"graphed launches {graphed}")
+
+        # step time: a 2-epoch fit of each route logging once an epoch,
+        # the second epoch timed
+        timing, trainers = {}, {}
+        for route in ROUTES:
+            trainer, _, _, epochs = fit_route(
+                route, dm_of[route], tmp, epochs=2, every=REC_TRAIN_BATCHES,
+                validate=False)
+            secs = epochs[-1]["epoch_time_s"]
+            timing[route] = {"ms_per_step": 1e3 * secs / REC_TRAIN_BATCHES,
+                             "clips_per_s": REC_TRAIN_BATCHES * BATCH / secs,
+                             "epoch_s": secs}
+            if route in ("streamed", "resident_graphed"):
+                trainers[route] = trainer
+        # busy share and rows 2-3 by name: 4 streamed steps, 4 replays
+        st = trainers["streamed"]
+        batches = st.dm.train_batches(SEED + 99)
+
+        def streamed_steps():
+            for _ in range(REC_PROFILE_STEPS):
+                st.flow.training_step(st.state, next(batches))
+        gt = trainers["resident_graphed"]
+        profiles = {"streamed": profiled_launches(streamed_steps, rows),
+                    "resident_graphed": profiled_launches(
+                        lambda: gt.runner(gt.state, 0, REC_PROFILE_STEPS),
+                        rows)}
+        for route, (_, launches) in profiles.items():
+            for w, n in launches.items():
+                if n["counted"] != REC_PROFILE_STEPS \
+                        or n["profiler"] != n["counted"]:
+                    raise AssertionError(f"{route} {w}: {n}")
+        del trainers, st, gt, dms, dm_of
+    emit({"phase": "epoch_config1", "card": card, "B": BATCH, "L": CLIP,
+          "steps": REC_TRAIN_BATCHES, "train_clips": REC_TRAIN_BATCHES * BATCH,
+          "routes": list(ROUTES),
+          "launches": {r: {k: v for k, v in f[3].items() if v}
+                       for r, f in fits.items()},
+          "graphed": graphed_info, "graphed_launches": graphed,
+          "graphed_equal_eager_bits": True,
+          "streamed_prefetched_native_equal_bits": True,
+          "resident_eager_equal_streamed_capturable_bits": True,
+          "capturable_step_move_max_param_share": step_move,
+          "capturable_bar": CAPTURABLE_BAR,
+          "resident_eager_vs_streamed_epoch_max_param_share": worst_param,
+          "resident_eager_vs_streamed_epoch_max_loss_rel": worst_loss,
+          "epoch_bars": [EPOCH_PARAM_BAR, EPOCH_LOSS_BAR],
+          "val_loss_primary": {r: f[2] for r, f in fits.items()},
+          "timing": timing,
+          "profiles": {r: {**trace, "rows": launches}
+                       for r, (trace, launches) in profiles.items()},
+          "method": "ms a step and clips/s: the second epoch of a 2-epoch "
+                    "Trainer.fit logging once an epoch, host clock from the "
+                    "epoch's start to its last logs read (which waits for "
+                    "the card); busy share: torch.profiler over 4 steps"})
+    return graphed
+
+
+def phase_epoch_config3(card):
+    """GConvGRU resident on config 3's subsets (phase 45)."""
+    rows = {"graph_gru_scan": ROW10_KERNELS,
+            "graph_gru_scan_bwd": ROW11_SCAN_KERNELS}
+    steps = OP_TRAIN_BATCHES
+    resident, _ = openpose_datamodule(device_resident=True)
+    streamed, _ = openpose_datamodule()
+    with tempfile.TemporaryDirectory() as tmp:
+        fits = {}
+        for route in ("resident_eager", "resident_graphed"):
+            trainer, counts, logs, _ = fit_route(
+                route, resident, tmp, validate=False, make_flow=make_cls_flow)
+            if counts != expected_counts(graph_gru_scan=2 * steps,
+                                         graph_gru_scan_bwd=2 * steps):
+                raise AssertionError(f"{route} launches {counts}")
+            fits[route] = (trainer, logs, counts)
+        (eager, eager_logs, _), (graph, graph_logs, _) = (
+            fits["resident_eager"], fits["resident_graphed"])
+        if not (params_equal(graph.state.params, eager.state.params)
+                and graph_logs == eager_logs and len(eager_logs) == steps):
+            raise AssertionError("config 3: the graphed epoch differs from "
+                                 "the resident eager one")
+        runner = graph.runner
+        replays = runner.replays  # the fit's, before the profiled windows
+        graphed = {w: replays * runner.captured.get((w, "launches"), 0)
+                   for w in rows}
+        profiles = {
+            route: profiled_launches(
+                lambda t=t: t.runner(t.state, 0, REC_PROFILE_STEPS), rows)
+            for route, t in (("resident_eager", eager),
+                             ("resident_graphed", graph))}
+        for w in rows:
+            e, g = (profiles[r][1][w] for r in ("resident_eager",
+                                                "resident_graphed"))
+            if e != g or g["profiler"] != g["counted"] or not g["counted"]:
+                raise AssertionError(f"config 3 {w}: eager {e}, graphed {g}")
+        del fits, eager, graph
+        timing = {}
+        for route, dm in (("streamed", streamed),
+                          ("resident_eager", resident),
+                          ("resident_graphed", resident)):
+            _, _, _, epochs = fit_route(route, dm, tmp, epochs=2,
+                                        every=steps, validate=False,
+                                        make_flow=make_cls_flow)
+            secs = epochs[-1]["epoch_time_s"]
+            timing[route] = {"ms_per_step": 1e3 * secs / steps,
+                             "epoch_s": secs}
+    emit({"phase": "epoch_config3", "card": card, "B_L_J_H_k": CLS_MAIN,
+          "steps": steps, "augment": ["flip", "rotate"],
+          "graphed_equal_eager_bits": True,
+          "graphed": {"replays": replays, "warmup_steps": runner.warmup,
+                      "captured": {w: runner.captured.get((w, "launches"), 0)
+                                   for w in rows}},
+          "graphed_launches": graphed,
+          "profiles": {r: {**trace, "rows": launches}
+                       for r, (trace, launches) in profiles.items()},
+          "timing": timing,
+          "method": "ms a step: the second epoch of a 2-epoch Trainer.fit "
+                    "logging once an epoch, host clock to its last logs "
+                    "read"})
+    return graphed
+
+
+def group_recorded(card, hbm_rate):
+    """The recorded data and the resident epoch (phases 43-45) -> the
+    graphed launches of rows 2, 3, 10 and 11."""
+    t0 = time.perf_counter()
+    subsets = {"train": recorded_clips(REC_TRAIN_BATCHES * BATCH, SEED + 20),
+               "val": recorded_clips(REC_VAL_CLIPS, SEED + 21)}
+    phase_resident_batches(recorded_datamodule(subsets),
+                           recorded_datamodule(subsets, resident=True))
+    torch.cuda.empty_cache()
+    config1 = phase_epoch_config1(subsets, card)
+    del subsets
+    torch.cuda.empty_cache()
+    config3 = phase_epoch_config3(card)
+    torch.cuda.empty_cache()
+    emit({"phase": "group_recorded", "seconds": time.perf_counter() - t0})
+    return {**{w: {"launches_recorded_graphed": n}
+               for w, n in config1.items()},
+            **{w: {"launches_recorded_graphed": n}
+               for w, n in config3.items()}}
+
+
 def kernel_entry(name, source, replaces, launches, max_err, times):
     """One entry of the kernels line; ``replaces`` is the TPU kernel's
     ``file:line`` under the JAX package's ops/pallas/."""
@@ -6483,6 +6993,11 @@ def main():
     for name, extra in group_serving(card, hbm_rate).items():
         entry = next(e for e in kernels if e["name"] == name)
         entry["launches"] += extra["launches_serving_artifacts"]
+        entry.update(extra)
+    # rows 2, 3, 10 and 11 launched from the resident epoch's graphs
+    for name, extra in group_recorded(card, hbm_rate).items():
+        entry = next(e for e in kernels if e["name"] == name)
+        entry["launches"] += extra["launches_recorded_graphed"]
         entry.update(extra)
 
     print(card, flush=True)

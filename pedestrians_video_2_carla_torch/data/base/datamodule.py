@@ -7,7 +7,8 @@ meta)`` batches of tensors on its device.
   projection's reference-skeleton gather
 """
 import os
-from typing import Any, Dict, Iterator, List, Optional, Tuple, Type
+from typing import (Any, Callable, Dict, Iterator, List, Optional,
+                    Tuple, Type)
 
 import numpy as np
 import torch
@@ -72,6 +73,15 @@ class BaseDataModule:
 
     def train_batches(self, seed: int = 0) -> Iterator[Batch]:
         raise NotImplementedError
+
+    def train_stream(self, seed: int = 0
+                     ) -> Tuple[Iterator, Optional[Callable]]:
+        """The train batches in two halves for the trainer's prefetcher:
+        an iterator of each batch's host half (CPU tensors) and
+        ``finish(host) -> batch``, which makes the batch on the device;
+        here the whole batches and None, for a datamodule that makes its
+        batches on its device."""
+        return self.train_batches(seed), None
 
     def val_batches(self) -> Iterator[Batch]:
         raise NotImplementedError

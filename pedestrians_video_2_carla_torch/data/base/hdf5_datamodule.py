@@ -5,8 +5,23 @@ The preparation pipeline (``_read_data -> _clean_filter_sort_data ->
 _extract_clips -> _extract_additional_data -> _clean_filter_sort_clips ->
 _split_and_save_clips``) and the digest-keyed cache layout are the JAX
 package's, so the subsets on disk are interchangeable. Each batch is
-sliced from the in-memory numpy subset, copied to the datamodule's device
-and pushed through ``ops.preprocessing.process_batch`` there.
+sliced from the in-memory numpy subset on the host (or gathered from the
+subset's flat binary cache by the native loader,
+``runtime/native_loader.py``, where :meth:`Hdf5DataModule.build_native_cache`
+made one), copied to the datamodule's device and pushed through
+``ops.preprocessing.process_batch`` there. ``train_stream`` hands the two
+halves to the trainer apart, so that its prefetcher makes the copies and
+the preprocessing of the next batches on a side stream.
+
+With ``device_resident`` every numeric subset is put on the device once,
+and a batch is a row gather there: ``resident_scan_inputs`` gives an
+epoch's spec (the gather, the seed stream, the order on the device, the
+number of batches and the resident tensors), which per-batch iteration and
+the epoch runner (``runtime/resident_scan.py``) share. The batch index may
+be a device tensor, so that a CUDA graph of the gather reads it at each
+replay. Resident batches draw their randomness from the streamed path's
+seeds and equal its batches bit for bit; where preprocessing draws nothing
+it runs once over the whole subset and an epoch only gathers rows.
 
 ``setup`` hands each subset it loads to :meth:`Hdf5DataModule.add_subset`,
 which takes plain numpy arrays, so a caller can also feed subsets made in
@@ -14,9 +29,11 @@ memory (a machine without h5py). ``yaml`` and ``h5py`` are imported only
 where the settings file and the subsets are read or written.
 """
 import copy
+import functools
 import hashlib
 import os
-from typing import Any, Dict, Iterator, List, Optional
+from typing import (Any, Callable, Dict, Iterator, List, NamedTuple,
+                    Optional, Tuple)
 
 import numpy as np
 import torch
@@ -31,17 +48,51 @@ SUBSETS_BASE = "subsets"
 SETS = ("train", "val", "test")
 
 
-def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A numpy batch array on ``device``; float64 becomes float32, as the
+def _host(a: np.ndarray) -> torch.Tensor:
+    """A numpy batch array as a CPU tensor; float64 becomes float32, as the
     JAX package's arrays are."""
     t = torch.from_numpy(np.ascontiguousarray(a))
-    if t.dtype == torch.float64:
-        t = t.float()
-    return t.to(device)
+    return t.float() if t.dtype == torch.float64 else t
+
+
+def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A numpy array on ``device`` (:func:`_host`)."""
+    return _host(a).to(device)
 
 
 def _numeric(a) -> bool:
     return isinstance(a, np.ndarray) and a.dtype.kind in "biuf"
+
+
+class ResidentSpec(NamedTuple):
+    """One epoch over a device-resident subset.
+
+    ``gather(generator, order, b, *trees)`` makes batch ``b`` (an int or a
+    (1,) int64 tensor on the device) from the resident ``trees``;
+    ``generator`` is seeded with ``batch_seed(stream, b)`` where ``draws``
+    (else it may be None). ``order`` holds ``num_batches * batch_size``
+    row indices on the device."""
+    gather: Callable
+    stream: int
+    order: torch.Tensor
+    num_batches: int
+    trees: tuple
+    draws: bool
+
+
+def _batch_rows(order: torch.Tensor, b, batch_size: int) -> torch.Tensor:
+    """Batch ``b``'s rows of ``order``, read on the device: a tensor index
+    is not baked into a captured graph as a Python slice would be."""
+    if not isinstance(b, torch.Tensor):
+        b = torch.full((1,), int(b), dtype=torch.int64, device=order.device)
+    return order.view(-1, batch_size).index_select(0, b.view(1)).view(-1)
+
+
+def _clip_size(meta: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
+    if "clip_width" not in meta:
+        return None
+    return torch.stack([meta["clip_width"], meta["clip_height"]],
+                       dim=-1).float()
 
 
 class Hdf5DataModule(BaseDataModule):
@@ -57,14 +108,18 @@ class Hdf5DataModule(BaseDataModule):
                  augment_flip=False,
                  augment_rotate=False,
                  seed: int = 22742,
+                 fast_dev_run: bool = False,
                  device_resident: bool = False,
                  **kwargs) -> None:
-        if device_resident:
-            raise NotImplementedError(
-                "device_resident subsets (the JAX package's on-device "
-                "gather and epoch scan) are not ported yet: they belong to "
-                "M6 of ROADMAP.md")
         super().__init__(**kwargs)
+        #: keep each numeric subset on the device (module docstring)
+        self.device_resident = device_resident
+        #: read only the start of the source data (the CSV's first 18,000
+        #: rows, ``PandasDataModuleMixin._read_data``)
+        self._fast_dev_run = fast_dev_run
+        self._resident: Dict[str, tuple] = {}
+        self._resident_pre: Dict[tuple, tuple] = {}
+        self._native_caches: Dict[str, Any] = {}
         self.outputs_dir = outputs_dir
         self.clip_offset = clip_offset if clip_offset is not None \
             else self.clip_length
@@ -192,6 +247,36 @@ class Hdf5DataModule(BaseDataModule):
             if os.path.exists(path) and name not in self._subsets:
                 self.add_subset(name, *load_subset(path))
 
+    def build_native_cache(self, name: str, hdf5_path: str) -> None:
+        """Render subset ``name`` (projection_2d and its numeric targets)
+        into the flat binary cache ``<hdf5_path without .hdf5>.bin`` with
+        its JSON sidecar, unless one newer than ``hdf5_path`` is there, and
+        gather the subset's streamed batches from it with the native loader.
+        Where the loader cannot be built, a warning, and the batches are
+        sliced with numpy (the same values). Only a caller that asks for it
+        takes this path: on the card it is slower than numpy's slice of the
+        subset in memory (``PERF.md``), and the cache is a second copy of
+        the subset on disk."""
+        from ...runtime.native_loader import (BinarySubsetCache,
+                                              native_loader_available)
+        if not native_loader_available():
+            return
+        projection_2d, targets, _ = self._subsets[name]
+        if not len(projection_2d):
+            return
+        bin_path = hdf5_path[:-len(".hdf5")] + ".bin" \
+            if hdf5_path.endswith(".hdf5") else hdf5_path + ".bin"
+        stale = not (os.path.exists(bin_path)
+                     and os.path.exists(bin_path + ".json")) or (
+            os.path.exists(hdf5_path)
+            and os.path.getmtime(bin_path) < os.path.getmtime(hdf5_path))
+        if stale:
+            BinarySubsetCache.write(bin_path, {
+                "projection_2d": projection_2d,
+                **{f"targets/{k}": v for k, v in targets.items()
+                   if _numeric(v)}})
+        self._native_caches[name] = BinarySubsetCache(bin_path)
+
     def add_subset(self, name: str, projection_2d: np.ndarray,
                    targets: Dict[str, np.ndarray],
                    meta: Dict[str, Any]) -> None:
@@ -207,15 +292,77 @@ class Hdf5DataModule(BaseDataModule):
                 meta.get("gender", ["female"] * n))], dtype=np.int64)
         self._subsets[name] = (projection_2d, dict(targets), meta)
         self._set_size[name] = n
+        self._native_caches.pop(name, None)
+        self._resident.pop(name, None)
+        for key in [k for k in self._resident_pre if k[0] == name]:
+            del self._resident_pre[key]
+        if self.device_resident and n:
+            # one host -> device copy of the subset; its numeric targets
+            # and metas only
+            self._resident[name] = (
+                _tensor(projection_2d, self.device),
+                {k: _tensor(v, self.device) for k, v in targets.items()
+                 if _numeric(v)},
+                {k: _tensor(v, self.device) for k, v in meta.items()
+                 if _numeric(v)})
 
-    def _iter_subset(self, name: str, shuffle: bool, training: bool,
-                     seed: int = 0) -> Iterator:
-        if name not in self._subsets:
-            return
-        projection_2d, targets, meta = self._subsets[name]
-        n = len(projection_2d)
-        if n == 0:
-            return
+    # -- the resident epoch ------------------------------------------------
+    def _resident_gather(self, training: bool) -> Callable:
+        """``(generator, order, b, proj, targets, meta) -> batch``: batch
+        ``b``'s rows gathered from the resident subset and preprocessed
+        with ``generator``, as the streamed path makes it."""
+        cfg = self.preprocessing
+        batch_size = self.batch_size
+
+        def gather(generator, order, b, proj, targets, meta):
+            idx = _batch_rows(order, b, batch_size)
+            batch_targets = {k: v.index_select(0, idx)
+                             for k, v in targets.items()}
+            batch_meta = {k: v.index_select(0, idx) for k, v in meta.items()}
+            inputs, proc_targets = process_batch(
+                generator, proj.index_select(0, idx), cfg, training,
+                bboxes=batch_targets.get("bboxes"),
+                clip_size=_clip_size(batch_meta))
+            batch_targets.update(proc_targets)
+            return inputs, batch_targets, batch_meta
+
+        return gather
+
+    def _resident_preprocessed(self, name: str, training: bool) -> tuple:
+        """The resident subset with the preprocessing run once over all of
+        it, for a configuration that draws nothing: every step of
+        ``process_batch`` is then a map of each clip on its own, so an
+        epoch only gathers rows (within float rounding of the per-batch
+        path: a reduction over a clip may group its sums otherwise at
+        another batch size)."""
+        key = (name, training)
+        if key not in self._resident_pre:
+            proj, targets, meta = self._resident[name]
+            inputs, proc_targets = process_batch(
+                None, proj, self.preprocessing, training,
+                bboxes=targets.get("bboxes"), clip_size=_clip_size(meta))
+            self._resident_pre[key] = (inputs, {**targets, **proc_targets},
+                                       meta)
+        return self._resident_pre[key]
+
+    def _resident_gather_pre(self) -> Callable:
+        """Row gather over the preprocessed resident subset (the signature
+        of :meth:`_resident_gather`; the generator is unused)."""
+        batch_size = self.batch_size
+
+        def gather(generator, order, b, inputs, targets, meta):
+            idx = _batch_rows(order, b, batch_size)
+            return (inputs.index_select(0, idx),
+                    {k: v.index_select(0, idx) for k, v in targets.items()},
+                    {k: v.index_select(0, idx) for k, v in meta.items()})
+
+        return gather
+
+    def _epoch_order(self, n: int, shuffle: bool, training: bool,
+                     seed: int):
+        """(order, seed stream, number of batches) of an epoch over ``n``
+        clips: the shuffle, the batch seeds and the padding that the
+        streamed and the resident paths share."""
         order = np.arange(n)
         if shuffle:
             np.random.default_rng(self.seed + seed).shuffle(order)
@@ -228,30 +375,107 @@ class Hdf5DataModule(BaseDataModule):
             # unless the whole set is smaller than one batch
             num_batches += 1
             order = np.resize(order, num_batches * self.batch_size)
-        cfg = self.preprocessing
-        draws = not is_deterministic(cfg, training)
+        return order[:num_batches * self.batch_size], stream, num_batches
+
+    def resident_scan_inputs(self, name: str, shuffle: bool, training: bool,
+                             seed: int = 0) -> Optional[ResidentSpec]:
+        """The spec of one epoch over the resident subset ``name``
+        (:class:`ResidentSpec`), or None where it is not resident (an
+        empty subset is never resident). Its order, seeds and padding are
+        the streamed path's."""
+        if name not in self._resident:
+            return None
+        order, stream, num_batches = self._epoch_order(
+            len(self._subsets[name][0]), shuffle, training, seed)
+        order_d = torch.from_numpy(order.astype(np.int64)).to(self.device)
+        if is_deterministic(self.preprocessing, training):
+            return ResidentSpec(self._resident_gather_pre(), stream, order_d,
+                                num_batches,
+                                self._resident_preprocessed(name, training),
+                                False)
+        return ResidentSpec(self._resident_gather(training), stream, order_d,
+                            num_batches, self._resident[name], True)
+
+    def _iter_subset_resident(self, name: str, shuffle: bool,
+                              training: bool, seed: int = 0) -> Iterator:
+        spec = self.resident_scan_inputs(name, shuffle, training, seed)
+        if spec is None:
+            return
+        for b in range(spec.num_batches):
+            generator = None
+            if spec.draws:
+                generator = torch.Generator(device=self.device)
+                generator.manual_seed(batch_seed(spec.stream, b))
+            yield spec.gather(generator, spec.order, b, *spec.trees)
+
+    def _host_batches(self, name: str, shuffle: bool, training: bool,
+                      seed: int = 0) -> Iterator:
+        """The host half of the streamed batches of subset ``name``:
+        ``(raw, targets, meta, seed)`` each, CPU tensors of the batch's
+        rows (numeric targets and metas only), and the seed of the batch's
+        preprocessing where it draws (else None)."""
+        projection_2d, targets, meta = self._subsets[name]
+        n = len(projection_2d)
+        if n == 0:
+            return
+        order, stream, num_batches = self._epoch_order(n, shuffle, training,
+                                                       seed)
+        draws = not is_deterministic(self.preprocessing, training)
+        native = self._native_caches.get(name)
         for b in range(num_batches):
             idx = order[b * self.batch_size:(b + 1) * self.batch_size]
-            generator = None
-            if draws:
-                generator = torch.Generator(device=self.device)
-                generator.manual_seed(batch_seed(stream, b))
-            batch_targets = {k: _tensor(v[idx], self.device)
-                             for k, v in targets.items() if _numeric(v)}
-            # only numeric meta goes to the device
-            batch_meta = {k: _tensor(v[idx], self.device)
-                          for k, v in meta.items() if _numeric(v)}
-            clip_size = None
-            if "clip_width" in batch_meta:
-                clip_size = torch.stack([batch_meta["clip_width"],
-                                         batch_meta["clip_height"]],
-                                        dim=-1).float()
-            inputs, proc_targets = process_batch(
-                generator, _tensor(projection_2d[idx], self.device), cfg,
-                training, bboxes=batch_targets.get("bboxes"),
-                clip_size=clip_size)
-            batch_targets.update(proc_targets)
-            yield inputs, batch_targets, batch_meta
+            if native is not None:
+                gathered = native.gather(idx)
+                raw = gathered["projection_2d"]
+                batch_targets = {k: _host(gathered[f"targets/{k}"])
+                                 for k, v in targets.items() if _numeric(v)}
+            else:
+                raw = projection_2d[idx]
+                batch_targets = {k: _host(v[idx]) for k, v in targets.items()
+                                 if _numeric(v)}
+            batch_meta = {k: _host(v[idx]) for k, v in meta.items()
+                          if _numeric(v)}
+            yield (_host(raw), batch_targets, batch_meta,
+                   batch_seed(stream, b) if draws else None)
+
+    def _finish(self, host: tuple, training: bool):
+        """A host batch (:meth:`_host_batches`) on the device (where it is
+        not there yet), through ``process_batch`` with the batch's own
+        generator."""
+        raw, targets, meta, seed = host
+        device = self.device
+        targets = {k: v.to(device) for k, v in targets.items()}
+        meta = {k: v.to(device) for k, v in meta.items()}
+        generator = None
+        if seed is not None:
+            generator = torch.Generator(device=device)
+            generator.manual_seed(seed)
+        inputs, proc_targets = process_batch(
+            generator, raw.to(device), self.preprocessing, training,
+            bboxes=targets.get("bboxes"), clip_size=_clip_size(meta))
+        targets.update(proc_targets)
+        return inputs, targets, meta
+
+    def _iter_subset(self, name: str, shuffle: bool, training: bool,
+                     seed: int = 0) -> Iterator:
+        if name not in self._subsets:
+            return
+        if name in self._resident:
+            yield from self._iter_subset_resident(name, shuffle, training,
+                                                  seed)
+            return
+        for host in self._host_batches(name, shuffle, training, seed):
+            yield self._finish(host, training)
+
+    def train_stream(self, seed: int = 0) -> Tuple[Iterator,
+                                                   Optional[Callable]]:
+        """The streamed train batches in their two halves
+        (``BaseDataModule.train_stream``); a resident subset's batches are
+        made whole on the device."""
+        if "train" not in self._subsets or "train" in self._resident:
+            return super().train_stream(seed)
+        return (self._host_batches("train", True, True, seed),
+                functools.partial(self._finish, training=True))
 
     def train_batches(self, seed: int = 0) -> Iterator:
         return self._iter_subset("train", shuffle=True, training=True,

@@ -55,6 +55,8 @@ class PandasDataModuleMixin:
             usecols=self.df_usecols,
             index_col=self.primary_index,
             converters=self.converters,
+            # fast_dev_run reads the first 18,000 rows
+            nrows=18000 if getattr(self, "_fast_dev_run", False) else None,
         )
         for k, v in self.extra_cols.items():
             df[k] = pd.Series(dtype=v)

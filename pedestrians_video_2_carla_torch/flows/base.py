@@ -35,7 +35,7 @@ from torch.func import functional_call
 from ..losses import (LossContext, LossModes, calculate_losses, primary_loss,
                       resolve_loss_modes)
 from ..metrics.base import MetricCollection
-from ..models.base import LRSchedule, OptimizerSettings, make_adamw
+from ..models.base import LRSchedule, OptimizerSettings, make_adamw, set_lr
 from ..models.trajectory.zero import ZeroTrajectory
 from ..utils.device import DeviceLike, resolve_device
 from .output_types import MovementsModelOutputType
@@ -149,20 +149,35 @@ def clip_by_global_norm(params: Iterable[torch.Tensor],
     return norm
 
 
-def apply_update(state: FlowState, primary: torch.Tensor,
-                 gradient_clip_val: float = 0.0) -> None:
-    """The optimizer half of a training step, after the backward: clip
-    the gradients by their global norm over every model (where
-    ``gradient_clip_val > 0``), set each scheduled group's lr for this
-    step (ReduceLROnPlateau reads ``primary``), step AdamW, count the
-    step."""
+def clip_gradients(state: FlowState, gradient_clip_val: float = 0.0) -> None:
+    """The first part of the update, after the backward: clip the
+    gradients by their global norm over every model, where
+    ``gradient_clip_val > 0``. Device work only, so a CUDA graph of the
+    step captures it."""
     if gradient_clip_val > 0:
         clip_by_global_norm((p for tree in state.params.values()
                              for p in trained(tree)), gradient_clip_val)
+
+
+def set_lrs(state: FlowState, primary: torch.Tensor) -> Dict[str, float]:
+    """Set each scheduled group's lr for this step (ReduceLROnPlateau reads
+    ``primary``), on the host; returns the lrs set, by ``lr-<group>``."""
+    lrs = {}
     for group in state.optimizer.param_groups:
         schedule = state.schedules.get(group["name"])
         if schedule is not None:
-            group["lr"] = schedule.lr(state.step, primary)
+            lr = schedule.lr(state.step, primary)
+            set_lr(group, lr)
+            lrs[f"lr-{group['name']}"] = lr
+    return lrs
+
+
+def optimizer_update(state: FlowState, primary: torch.Tensor) -> None:
+    """The rest of the update: the schedules' lrs (:func:`set_lrs`), the
+    AdamW step, the step count. The resident epoch's graphs run the same
+    parts: :func:`set_lrs` between two replays, the AdamW step as the second
+    graph."""
+    set_lrs(state, primary)
     state.optimizer.step()
     state.step += 1
 
@@ -304,8 +319,9 @@ class BaseFlow:
         """Per-model learning rates, for step logging: the lr the last
         update took (before the first, the first's). The JAX package's
         ``current_lrs`` gives the same for ReduceLROnPlateau and the next
-        update's for the step-based schedules."""
-        return {f"lr-{group['name']}": group["lr"]
+        update's for the step-based schedules. A capturable group's lr is
+        read from the device."""
+        return {f"lr-{group['name']}": float(group["lr"])
                 for group in state.optimizer.param_groups}
 
     @staticmethod
@@ -349,22 +365,31 @@ class BaseFlow:
     # -- steps -------------------------------------------------------------
     def training_step(self, state: FlowState, batch
                       ) -> Tuple[FlowState, Dict[str, torch.Tensor]]:
-        """One AdamW step on ``batch``, in place: forward, losses, the
-        primary loss's backward, the update (:func:`apply_update`: clipping,
-        the schedules' lrs, AdamW), ``step += 1``. Returns
-        the state and the logs ``train_loss/<mode>`` and
+        """One AdamW step on ``batch``, in place: :meth:`backward_step`
+        (forward, losses, the primary loss's backward, clipping), then
+        :func:`optimizer_update` (the schedules' lrs, AdamW, ``step +=
+        1``). Returns the state and the logs ``train_loss/<mode>`` and
         ``train_loss/primary``, as tensors on the device (reading them
         synchronises with the card). The gradients stay in the parameters'
         ``.grad`` until the next step."""
+        logs = self.backward_step(state, batch)
+        optimizer_update(state, logs["train_loss/primary"])
+        return state, logs
+
+    def backward_step(self, state: FlowState, batch
+                      ) -> Dict[str, torch.Tensor]:
+        """The device half of a training step: forward, losses, the
+        gradients (set to None first, so that a graph captures their
+        memory), clipping; returns the step's logs."""
         sliced = self._inner_step(state.params, batch, training=True)
         loss_dict = self._compute_losses(sliced, sliced["targets"])
         _, primary = primary_loss(loss_dict, self.requested_loss_modes)
         state.optimizer.zero_grad(set_to_none=True)
         primary.backward()
-        apply_update(state, primary.detach(), self.gradient_clip_val)
+        clip_gradients(state, self.gradient_clip_val)
         logs = {f"train_loss/{k}": v.detach() for k, v in loss_dict.items()}
         logs["train_loss/primary"] = primary.detach()
-        return state, logs
+        return logs
 
     @torch.no_grad()
     def eval_step(self, params: Params, batch):

@@ -25,9 +25,10 @@ from ..metrics.classification import (AUROC, Accuracy, ConfusionMatrixMetric,
 from ..models.base import OptimizerSettings, make_adamw
 from ..models.classification import CLASSIFICATION_MODELS
 from ..utils.device import DeviceLike, resolve_device
-from .base import (DEFAULT_SEED, BaseFlow, FlowState, Params, apply_update,
-                   buffer_names, cast_floats, cast_params, make_schedules,
-                   resolve_precision, state_params, trained)
+from .base import (DEFAULT_SEED, BaseFlow, FlowState, Params, buffer_names,
+                   cast_floats, cast_params, clip_gradients, make_schedules,
+                   optimizer_update, resolve_precision, state_params,
+                   trained)
 from .output_types import ClassificationModelOutputType
 
 
@@ -182,15 +183,23 @@ class ClassificationFlow:
 
     def training_step(self, state: FlowState, batch
                       ) -> Tuple[FlowState, Dict[str, torch.Tensor]]:
-        """One AdamW step on ``batch``, in place (clipped and scheduled as
-        :func:`~.base.apply_update` says); returns the state and
+        """One AdamW step on ``batch``, in place (:meth:`backward_step`, then
+        :func:`~.base.optimizer_update`); returns the state and
         ``{"train_loss/primary": loss}`` (a tensor on the device)."""
+        logs = self.backward_step(state, batch)
+        optimizer_update(state, logs["train_loss/primary"])
+        return state, logs
+
+    def backward_step(self, state: FlowState, batch
+                      ) -> Dict[str, torch.Tensor]:
+        """The device half of :meth:`training_step`: forward, loss,
+        gradients, clipping (``BaseFlow.backward_step``)."""
         inputs, targets, _ = batch
         loss = self._loss(self._apply(state.params, inputs, True), targets)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        apply_update(state, loss.detach(), self.gradient_clip_val)
-        return state, {"train_loss/primary": loss.detach()}
+        clip_gradients(state, self.gradient_clip_val)
+        return {"train_loss/primary": loss.detach()}
 
     @torch.no_grad()
     def eval_step(self, params: Params, batch):

@@ -249,6 +249,11 @@ def add_datamodule_args(parser: argparse.ArgumentParser) -> None:
     group.add_argument("--classification_targets_key", default=None)
     group.add_argument("--tte", nargs=2, type=int, default=[30, 60],
                        help="the benchmark's time-to-event window")
+    group.add_argument("--device_resident", type=boolean, default=False,
+                       help="keep the HDF5 subsets on the device: batches "
+                            "are gathered and preprocessed there, and a "
+                            "training epoch runs as the resident epoch "
+                            "(CUDA graph replays on the card)")
 
 
 def add_optimizer_args(group, prefix: str) -> None:
@@ -384,7 +389,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         iou_threshold=args.iou_threshold, sample_type=args.sample_type,
         augment_flip=args.augment_flip, augment_rotate=args.augment_rotate,
         balance_classes=args.balance_classes, label_frames=args.label_frames,
-        num_classes=args.num_classes, tte=tuple(args.tte), device=args.device)
+        num_classes=args.num_classes, tte=tuple(args.tte),
+        device_resident=args.device_resident, device=args.device)
     if args.classification_targets_key:
         dm_kwargs["classification_targets_key"] = \
             args.classification_targets_key

@@ -95,11 +95,52 @@ def make_adamw(groups: Dict[str, Tuple[OptimizerSettings,
     """One AdamW with a parameter group per name, each with its own
     settings (the JAX package's per-model ``optax.multi_transform``):
     betas (0.9, 0.999), eps 1e-8, decay ``lr * weight_decay * param`` per
-    step, decoupled from the gradient."""
+    step, decoupled from the gradient. It steps on the host
+    (``capturable=False``) until :func:`set_capturable` says otherwise."""
     return torch.optim.AdamW(
         [settings.param_group(params, name)
          for name, (settings, params) in groups.items()],
         betas=ADAM_BETAS, eps=ADAM_EPS)
+
+
+def set_capturable(optimizer: torch.optim.Optimizer,
+                   capturable: bool) -> None:
+    """Switch an AdamW in place between its host-stepped form and the form
+    a CUDA graph can capture (``capturable=True``): there each group's lr is
+    a float32 tensor on its parameters' device, which :func:`set_lr` writes
+    between graph replays, and each parameter's step count a device tensor,
+    so the bias corrections are computed on the device (in float32, where
+    the host form computes them in float64: the trajectories differ by
+    rounding). The moments are kept."""
+    for group in optimizer.param_groups:
+        device = group["params"][0].device
+        group["capturable"] = capturable
+        lr = group["lr"]
+        if capturable:
+            group["lr"] = lr.to(device) if isinstance(lr, torch.Tensor) \
+                else torch.tensor(float(lr), dtype=torch.float32,
+                                  device=device)
+        else:
+            group["lr"] = float(lr)
+        for p in group["params"]:
+            state = optimizer.state.get(p, {})
+            if "step" in state:
+                state["step"] = state["step"].to(
+                    device=device if capturable else "cpu",
+                    dtype=torch.float32)
+
+
+def is_capturable(optimizer: torch.optim.Optimizer) -> bool:
+    return all(g.get("capturable", False) for g in optimizer.param_groups)
+
+
+def set_lr(group: Dict[str, Any], value: float) -> None:
+    """Set a parameter group's lr: in place on the device for a capturable
+    group (a graph reads the same tensor), else as a float."""
+    if isinstance(group["lr"], torch.Tensor):
+        group["lr"].fill_(value)
+    else:
+        group["lr"] = value
 
 
 SCHEDULER_TYPES = ("ReduceLROnPlateau", "StepLR",

@@ -14,7 +14,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 import torch
 
@@ -29,6 +29,9 @@ PTR, INT = ctypes.c_void_p, ctypes.c_int
 
 #: loaded libraries, by source path
 _loaded: Dict[Path, ctypes.CDLL] = {}
+
+#: the kernel wrappers that count their launches, by name (:func:`counted`)
+COUNTED: Dict[str, Callable] = {}
 
 
 def nvcc() -> str:
@@ -98,6 +101,18 @@ def load_library(source: Path, signatures: Dict[str, List]) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _loaded[source] = lib
     return _loaded[source]
+
+
+def counted(name: str, wrapper: Callable, bf16: bool = False) -> None:
+    """Register ``wrapper``, which adds one to its ``.launches`` (and, with
+    ``bf16``, to ``.bf16_launches`` for a bf16 call) where it launches its
+    kernel, as ``COUNTED[name]``, its counts at 0. Whoever reads or adjusts
+    the counts (the resident epoch runner, ``chip_smoke.py``) reads
+    ``COUNTED``."""
+    wrapper.launches = 0
+    if bf16:
+        wrapper.bf16_launches = 0
+    COUNTED[name] = wrapper
 
 
 def check_launch(err: int, name: str) -> None:

@@ -587,8 +587,7 @@ def graph_gru_scan_cuda_fwd(xg: torch.Tensor, cheb: torch.Tensor,
     return (ys, res) if keep else ys
 
 
-graph_gru_scan_cuda_fwd.launches = 0
-graph_gru_scan_cuda_fwd.bf16_launches = 0
+cuda_build.counted("graph_gru_scan", graph_gru_scan_cuda_fwd, bf16=True)
 
 
 def graph_gru_scan_cuda_bwd(cheb: torch.Tensor, wzr: torch.Tensor,
@@ -635,8 +634,7 @@ def graph_gru_scan_cuda_bwd(cheb: torch.Tensor, wzr: torch.Tensor,
     return dxg, dwzr, dwh
 
 
-graph_gru_scan_cuda_bwd.launches = 0
-graph_gru_scan_cuda_bwd.bf16_launches = 0
+cuda_build.counted("graph_gru_scan_bwd", graph_gru_scan_cuda_bwd, bf16=True)
 
 
 def graph_lstm_plan(B: int, J: int, H: int, k: int, backward: bool = False,
@@ -683,8 +681,7 @@ def graph_lstm_scan_cuda_fwd(xg: torch.Tensor, cheb: torch.Tensor,
     return (ys, cs, res) if keep else (ys, cs)
 
 
-graph_lstm_scan_cuda_fwd.launches = 0
-graph_lstm_scan_cuda_fwd.bf16_launches = 0
+cuda_build.counted("graph_lstm_scan", graph_lstm_scan_cuda_fwd, bf16=True)
 
 
 def graph_lstm_scan_cuda_bwd(cheb: torch.Tensor, w: torch.Tensor,
@@ -738,8 +735,7 @@ def graph_lstm_scan_cuda_bwd(cheb: torch.Tensor, w: torch.Tensor,
     return dxg, dw
 
 
-graph_lstm_scan_cuda_bwd.launches = 0
-graph_lstm_scan_cuda_bwd.bf16_launches = 0
+cuda_build.counted("graph_lstm_scan_bwd", graph_lstm_scan_cuda_bwd, bf16=True)
 
 
 def _dense_library():
@@ -813,8 +809,7 @@ def dense_lstm_scan_cuda_fwd(xg: torch.Tensor, w: torch.Tensor,
     return (ys, cs, gates) if keep else (ys, cs)
 
 
-dense_lstm_scan_cuda_fwd.launches = 0
-dense_lstm_scan_cuda_fwd.bf16_launches = 0
+cuda_build.counted("dense_lstm_scan", dense_lstm_scan_cuda_fwd, bf16=True)
 
 
 def dense_lstm_scan_cuda_bwd(w: torch.Tensor, gates: torch.Tensor,
@@ -866,8 +861,7 @@ def dense_lstm_scan_cuda_bwd(w: torch.Tensor, gates: torch.Tensor,
     return dxg, dw
 
 
-dense_lstm_scan_cuda_bwd.launches = 0
-dense_lstm_scan_cuda_bwd.bf16_launches = 0
+cuda_build.counted("dense_lstm_scan_bwd", dense_lstm_scan_cuda_bwd, bf16=True)
 
 
 def _plain_backward(reference, inputs, cotangents):

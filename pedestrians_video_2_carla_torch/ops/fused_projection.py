@@ -147,7 +147,7 @@ def fused_projection_cuda(pose_changes: torch.Tensor, rel_loc: torch.Tensor,
     return out
 
 
-fused_projection_cuda.launches = 0
+cuda_build.counted("fused_projection", fused_projection_cuda)
 
 
 def fused_projection_reference(pose_changes, rel_loc, rel_rot,
@@ -408,7 +408,8 @@ def fused_projection_train_cuda_fwd(pose_changes: torch.Tensor,
     return proj, abs_loc, states
 
 
-fused_projection_train_cuda_fwd.launches = 0
+cuda_build.counted("fused_projection_train_fwd",
+                   fused_projection_train_cuda_fwd)
 
 
 def fused_projection_train_cuda_bwd(pose_changes: torch.Tensor,
@@ -449,7 +450,8 @@ def fused_projection_train_cuda_bwd(pose_changes: torch.Tensor,
     return d_changes, d_rel_loc, d_rel_rot
 
 
-fused_projection_train_cuda_bwd.launches = 0
+cuda_build.counted("fused_projection_train_bwd",
+                   fused_projection_train_cuda_bwd)
 
 
 @torch.library.custom_op("pv2c::fused_projection_train_fwd", mutates_args=(),

@@ -265,8 +265,7 @@ def fused_spatial_stack_cuda(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return (out, saved) if keep else out
 
 
-fused_spatial_stack_cuda.launches = 0
-fused_spatial_stack_cuda.bf16_launches = 0
+cuda_build.counted("fused_spatial_stack", fused_spatial_stack_cuda, bf16=True)
 
 
 def fused_spatial_stack_cuda_bwd(x: torch.Tensor,
@@ -332,8 +331,8 @@ def fused_spatial_stack_cuda_bwd(x: torch.Tensor,
     return dx, [t.view_as(w) for t, w in zip(flat.split(sizes), weights)]
 
 
-fused_spatial_stack_cuda_bwd.launches = 0
-fused_spatial_stack_cuda_bwd.bf16_launches = 0
+cuda_build.counted("fused_spatial_stack_bwd", fused_spatial_stack_cuda_bwd,
+                   bf16=True)
 
 
 @torch.library.custom_op("pv2c::fused_spatial_stack", mutates_args=(),

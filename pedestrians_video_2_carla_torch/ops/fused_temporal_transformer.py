@@ -241,8 +241,8 @@ def fused_temporal_block_cuda(x: torch.Tensor,
     return (out, (stats, qkv, attn, x2, h, mlp)) if keep else out
 
 
-fused_temporal_block_cuda.launches = 0
-fused_temporal_block_cuda.bf16_launches = 0
+cuda_build.counted("fused_temporal_block", fused_temporal_block_cuda,
+                   bf16=True)
 
 
 def fused_temporal_block_cuda_bwd(x: torch.Tensor,
@@ -309,8 +309,8 @@ def fused_temporal_block_cuda_bwd(x: torch.Tensor,
     return dx, [t.view_as(w) for t, w in zip(flat.split(sizes), weights)]
 
 
-fused_temporal_block_cuda_bwd.launches = 0
-fused_temporal_block_cuda_bwd.bf16_launches = 0
+cuda_build.counted("fused_temporal_block_bwd", fused_temporal_block_cuda_bwd,
+                   bf16=True)
 
 
 @torch.library.custom_op("pv2c::fused_temporal_block", mutates_args=(),

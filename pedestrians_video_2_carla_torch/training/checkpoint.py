@@ -8,6 +8,9 @@ An archive is the port's own format: ``torch.save`` of ``{"params",
 "optimizer", "schedules", "step"}`` (the parameter dict with the models'
 running statistics, the optimizer's ``state_dict()``, the LR schedules'
 states and the step count), loaded with ``weights_only=True``.
+An optimizer restores into the form it has (``models/base.py::
+set_capturable``): a capturable AdamW's step counts and lrs, device
+tensors, come back on the device, a host-stepped one's as before.
 Saves are synchronous: the host copy and the file write finish before
 ``save`` returns. Every file is written to a temporary name and
 ``os.replace``d into place, so a crash never leaves a torn checkpoint.
@@ -19,6 +22,7 @@ from typing import Dict, Optional
 import torch
 
 from ..flows.base import FlowState
+from ..models.base import is_capturable, set_capturable
 
 SUFFIX = ".pt"
 #: the metric whose lowest value makes the best checkpoint
@@ -123,7 +127,9 @@ class CheckpointManager:
                 for k, v in tree.items():
                     v.copy_(loaded[k])
         if not weights_only:
+            capturable = is_capturable(state.optimizer)
             state.optimizer.load_state_dict(data["optimizer"])
+            set_capturable(state.optimizer, capturable)
             schedules = data.get("schedules", {})
             if set(schedules) != set(state.schedules):
                 raise ValueError(f"{path}: LR schedules {sorted(schedules)}, "

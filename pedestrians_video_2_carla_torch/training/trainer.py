@@ -9,10 +9,21 @@ is left out; classification metrics are also drawn as PNGs
 initial metrics of its baseline predictions, over the validation set, into
 ``hparams.json``), sets the flow's ``steps_per_epoch`` (for the LR
 schedules) from the data module before the optimizer is built, and calls
-the flow's ``on_epoch_start`` before each epoch. The port has no mesh, no
-host->device prefetcher (batches are made or preprocessed on the
-datamodule's device), no device-resident scan and no video logger. Logs stay on the device between log intervals; the host
-synchronises once per log interval and once per evaluation pass.
+the flow's ``on_epoch_start`` before each epoch. The port has no mesh and
+no video logger.
+
+An epoch takes one of two routes. Where the datamodule keeps its train
+subset on the device (``resident_scan_inputs`` gives a spec), it runs as
+the resident epoch (``runtime/resident_scan.py``): chunks of K =
+``log_every_n_steps`` steps, on the card as CUDA graph replays, whose
+per-step logs stay on the device until the chunk's log steps read them.
+Otherwise the datamodule's batches stream through the background
+prefetcher (``runtime/prefetcher.py``) into one ``training_step`` each:
+its worker makes the host half of the next batches and copies and
+finishes them on a side stream (``BaseDataModule.train_stream``).
+Either way each log step logs its own values and lrs, and the host
+synchronises once per log interval and once per evaluation pass;
+evaluation iterates the batches one by one (resident ones too).
 """
 import itertools
 import json
@@ -27,6 +38,8 @@ import torch
 
 from ..flows.base import BaseFlow, FlowState
 from ..models.torch_import import import_torch_checkpoint
+from ..runtime.prefetcher import DevicePrefetcher, device_put
+from ..runtime.resident_scan import build_scan_runner
 from ..utils.device import DeviceLike, resolve_device
 from .checkpoint import CheckpointManager
 from .loggers import MetricsLogger
@@ -49,6 +62,10 @@ class TrainerConfig:
     #: the card unless the caller asks for the CPU (``"cpu"``); the flow and
     #: the datamodule must be on the same device
     device: DeviceLike = None
+
+
+#: batches the streamed epoch's prefetcher makes ahead
+PREFETCH_DEPTH = 4
 
 
 def _to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -103,6 +120,8 @@ class Trainer:
         self.logger = MetricsLogger(self.log_dir)
         self.checkpoints = CheckpointManager(
             os.path.join(self.log_dir, "checkpoints"))
+        #: the resident epoch's runner, kept across epochs
+        self.runner = None
 
     def _init_state(self) -> None:
         if self.state is None:  # keep a state restored via --ckpt_path
@@ -142,14 +161,25 @@ class Trainer:
         global_step = 0
         summary: Dict[str, Any] = {}
         for epoch in range(self.config.max_epochs):
-            self.flow.on_epoch_start(epoch)
+            if self.flow.on_epoch_start(epoch):
+                self.runner = None  # the graphs hold the old model
             epoch_start = time.perf_counter()
-            last_logs, global_step = self._fit_epoch_streamed(
-                limit, global_step, epoch)
+            spec = None
+            spec_fn = getattr(self.dm, "resident_scan_inputs", None)
+            if spec_fn is not None:
+                spec = spec_fn("train", shuffle=True, training=True,
+                               seed=self.config.seed + epoch)
+            if spec is not None:
+                last_logs, global_step = self._fit_epoch_scanned(
+                    spec, limit, global_step)
+            else:
+                last_logs, global_step = self._fit_epoch_streamed(
+                    limit, global_step, epoch)
+            # reading the last logs waits for the epoch's device work
+            host_last = _to_host(last_logs) if last_logs is not None else {}
             summary = {"epoch": epoch,
-                       "epoch_time_s": time.perf_counter() - epoch_start}
-            if last_logs is not None:
-                summary.update(_to_host(last_logs))
+                       "epoch_time_s": time.perf_counter() - epoch_start,
+                       **host_last}
             if (epoch + 1) % self.config.check_val_every_n_epoch == 0:
                 val_metrics = self.evaluate("val",
                                             self.config.limit_val_batches)
@@ -161,11 +191,20 @@ class Trainer:
         return self.state
 
     def _fit_epoch_streamed(self, limit, global_step: int, epoch: int):
-        """One train step per batch of the datamodule's stream. Only the
-        latest step's logs are kept, on the device."""
-        train_iter = self.dm.train_batches(self.config.seed + epoch)
+        """One train step per batch of the datamodule's stream, made
+        ``PREFETCH_DEPTH`` batches ahead on the prefetcher's worker thread:
+        the host half of each batch, then its copies and its device half
+        on a side stream (``BaseDataModule.train_stream``). Only the latest
+        step's logs are kept, on the device."""
+        host, finish = self.dm.train_stream(self.config.seed + epoch)
         if limit is not None:
-            train_iter = itertools.islice(train_iter, limit)
+            host = itertools.islice(host, limit)
+        if PREFETCH_DEPTH > 0:
+            train_iter = DevicePrefetcher(
+                host, put_fn=device_put(self.device, finish),
+                depth=PREFETCH_DEPTH)
+        else:
+            train_iter = host if finish is None else map(finish, host)
         last_logs = None
         for batch in train_iter:
             self.state, logs = self.flow.training_step(self.state, batch)
@@ -178,6 +217,37 @@ class Trainer:
                     {**host_logs, **self.flow.current_lrs(self.state)})
                 if self.config.detect_anomaly:
                     self._check_anomaly(host_logs, global_step)
+        return last_logs, global_step
+
+    def _fit_epoch_scanned(self, spec, limit, global_step: int):
+        """The resident epoch: chunks of K = ``log_every_n_steps`` steps
+        through the runner (module docstring). Each chunk's logs come back
+        stacked on the device; the host reads them once, at a chunk with a
+        log step, and logs each log step's own values and lrs (and runs
+        ``--detect_anomaly`` on them)."""
+        every = self.config.log_every_n_steps
+        nb = spec.num_batches if limit is None \
+            else min(limit, spec.num_batches)
+        K = max(1, min(every, nb))
+        if self.runner is None:
+            self.runner = build_scan_runner(self.flow, spec)
+        else:
+            self.runner.set_epoch(spec)
+        last_logs = None
+        for b0 in range(0, nb, K):
+            k = min(K, nb - b0)
+            self.state, logs, lrs = self.runner(self.state, b0, k)
+            hits = [j for j in range(k) if (global_step + j + 1) % every == 0]
+            if hits:
+                rows = torch.stack(list(logs.values()), dim=1).tolist()
+                for j in hits:
+                    step_logs = dict(zip(logs, rows[j]))
+                    self.logger.log_scalars(global_step + j + 1,
+                                            {**step_logs, **lrs[j]})
+                    if self.config.detect_anomaly:
+                        self._check_anomaly(step_logs, global_step + j + 1)
+            global_step += k
+            last_logs = {key: v[-1] for key, v in logs.items()}
         return last_logs, global_step
 
     def _check_anomaly(self, host_logs: Dict[str, float],

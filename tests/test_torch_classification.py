@@ -713,7 +713,7 @@ def test_cli_trains_a_classifier_on_the_cpu(tmp_path, flags):
     assert np.isfinite(tested["test_metrics"]["test_loss/primary"])
 
 
-@pytest.mark.parametrize("flag", ["--data_module_name=CarlaRecorded",
+@pytest.mark.parametrize("flag", ["--data_module_name=CarlaRecordedVideo",
                                   "--data_module_name=AMASS",
                                   "--data_module_name=MPII"])
 def test_cli_names_what_is_not_ported(flag, tmp_path):

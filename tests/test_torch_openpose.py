@@ -11,7 +11,8 @@ the other's subsets to the same arrays; the validation batches of a
 deterministic configuration agree to 1e-5 (rtol 1e-6 beside it for pixel
 values). Also: the IoU matching, the strong-points filter,
 ``label_frames``, ``balance_classes``, the benchmark's time-to-event
-window, ``device_resident`` refused, and a 2-step CLI fit on the CPU.
+window, ``device_resident`` batches equal to the streamed ones, and a
+2-step CLI fit on the CPU.
 """
 import json
 import os
@@ -337,11 +338,27 @@ def test_benchmark_window_matches_jax(tmp_path, datasets, pose_data):
             assert start >= event - CLIP_LEN - 4 and end - 1 <= event - 1
 
 
-def test_device_resident_names_m6(datasets, tmp_path):
-    with pytest.raises(NotImplementedError, match="M6"):
-        TD.JAADOpenPoseDataModule(datasets_dir=datasets,
-                                  outputs_dir=str(tmp_path),
-                                  device_resident=True, device="cpu")
+def test_device_resident_names_m6(jaad, datasets, tmp_path):
+    """M6 ported ``device_resident``: the JAAD subsets kept on the device
+    give the streamed batches, bit for bit, also where flip and rotation
+    draw in training."""
+    port, _ = jaad
+    streamed, resident = (TD.JAADOpenPoseDataModule(
+        datasets_dir=datasets, outputs_dir=port.outputs_dir,
+        augment_flip=True, augment_rotate=True, device_resident=flag,
+        device="cpu", **COMMON) for flag in (False, True))
+    for dm in (streamed, resident):
+        dm.prepare_data()
+        dm.setup()
+    assert set(resident._resident) == {"train", "val", "test"}
+    for a, b in zip(list(streamed.train_batches(5))
+                    + list(streamed.val_batches()),
+                    list(resident.train_batches(5))
+                    + list(resident.val_batches())):
+        assert torch.equal(a[0], b[0])
+        assert set(a[1]) == set(b[1])
+        assert all(torch.equal(a[1][k], b[1][k]) for k in a[1])
+        assert all(torch.equal(a[2][k], b[2][k]) for k in a[2])
 
 
 def test_in_memory_subsets_batch_like_loaded_ones(jaad, tmp_path, datasets):

@@ -518,7 +518,7 @@ def test_cli_test_mode_evaluates_a_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     "--flow=pose_estimation", "--data_module_name=AMASS",
-    "--data_module_name=CarlaRecorded",
+    "--data_module_name=CarlaRecordedVideo",
     "--data_module_name=MPII",
     "--loss_modes=heatmaps"])
 def test_cli_names_what_is_not_ported(flags):
