@@ -466,9 +466,28 @@ Then group_recorded (the recorded data and the resident epoch):
                      rotation and dropout drawing); ms a step streamed,
                      resident eager and resident graphed; rows 10-11's
                      graphed launches against the profiler's kernel names.
+ 46. m7_cli_logs_profile -- BASELINE config 1 (LinearAE, fused_train,
+                     B=1024, L=16) through modeling.main: 2 epochs of 4
+                     steps with --lr, --logs_dir, --check_val_every_n_epoch
+                     2, --skip_initial_metrics, --logger wandb and -v,
+                     in 3 alternating pairs without and with --profile.
+                     The AdamW groups at --lr; no fit-start pass and no
+                     epoch-1 validation (hparams.json, metrics.jsonl, 9
+                     and 8 launches of rows 2 and 3 a fit); the W&B
+                     files parse (config.yaml as JSON: no PyYAML here);
+                     the trace's kernels of rows 2 and 3 by name equal
+                     the counted launches. Then the profiled fit with
+                     --device_resident on CarlaRecorded-format subsets in
+                     memory: what its trace shows of the graph replays
+                     (kernels by name, graph launches) beside the counts,
+                     printed and not checked. ms a step of each fit
+                     (the median gap between an epoch's step records). The
+                     video renderers need cv2, which the card's machine
+                     lacks: a line says they are tested on the CPU only.
 Then the card line, the kernels line (config 2's, the train-options
-phase's, group_openpose's and group_serving's launches beside the dense
-LSTM, projection-training, graph-GRU and the other forward entries; the
+phase's, group_openpose's, group_serving's, group_recorded's and phase
+46's launches beside the dense LSTM, projection-training, graph-GRU and
+the other forward entries; the
 four bf16 rows as entries of their own, row4_bf16 ... row9_bf16, their
 launches those of the bf16 path of phases 38-40), and the contract line
 last. Any failure raises and ends the run with a
@@ -476,6 +495,7 @@ non-zero exit.
 """
 import ctypes
 import functools
+import glob
 import json
 import os
 import re
@@ -6845,6 +6865,218 @@ def group_recorded(card, hbm_rate):
                for w, n in config3.items()}}
 
 
+#: m7_cli_logs_profile: train batches an epoch (B=1024, L=16), the lr
+#: the CLI's bare --lr sets, and the unprofiled-profiled pairs of fits
+M7_STEPS, M7_LR, M7_PAIRS = 4, 3e-4, 3
+#: the kernels of rows 2 and 3 by their names in a trace
+M7_ROWS = {
+    "fused_projection_train_fwd": ("fk_forward_kernel<true>",),
+    "fused_projection_train_bwd": ("fused_projection_train_bwd_kernel",)}
+
+
+def trace_kernel_names(path):
+    """The CUDA kernels' names in a Chrome trace ``torch.profiler``
+    wrote, and its count of CUDA graph launches."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    graph_launches = sum(e.get("cat") == "cuda_runtime"
+                         and "GraphLaunch" in e.get("name", "")
+                         for e in events)
+    return kernels, graph_launches
+
+
+def cli_fit(argv):
+    """``modeling.main(argv)``'s trainer, and the launches of its fit: the
+    counts after main less those of the evaluation main runs after the
+    fit (measured by running it again)."""
+    from pedestrians_video_2_carla_torch import modeling
+
+    reset_kernel_counts()
+    trainer = modeling.main(argv)["trainer"]
+    torch.cuda.synchronize()
+    after_main = kernel_counts()
+    trainer.evaluate("val", trainer.config.limit_val_batches)
+    torch.cuda.synchronize()
+    again = kernel_counts()
+    return trainer, {w: 2 * after_main[w] - again[w] for w in after_main}
+
+
+def step_gap_ms(log_dir):
+    """ms a step: the median gap between consecutive step records of one
+    epoch in ``metrics.jsonl``. Each record's host time is taken after its
+    step's logs are read, which waits for the card (``log_every_n_steps``
+    1), so the gaps leave out each epoch's start-up (its first step, the
+    prefetcher's start) and its validation."""
+    gaps, prev = [], None
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        for record in map(json.loads, f):
+            if "epoch" in record or record["step"] < 0:
+                prev = None
+                continue
+            if prev is not None:
+                gaps.append(record["time"] - prev)
+            prev = record["time"]
+    return 1e3 * statistics.median(gaps)
+
+
+def phase_m7_cli_logs_profile(card):
+    """Phase 46: BASELINE config 1 through the CLI with the JAX CLI's
+    flags the port used to drop and M7's logging and tracing flags (module
+    docstring)."""
+    from pedestrians_video_2_carla_torch import modeling
+    from pedestrians_video_2_carla_torch.data.carla.carla_recorded import \
+        CarlaRecordedDataModule
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        common = [
+            "--flow=pose_lifting", "--movements_model_name=LinearAE",
+            "--loss_modes", "loc_2d_3d", "--projection_kernel=fused_train",
+            f"--batch_size={BATCH}", f"--clip_length={CLIP}",
+            f"--val_set_size={BATCH}", "--max_epochs=2",
+            f"--limit_train_batches={M7_STEPS}", "--log_every_n_steps=1",
+            f"--lr={M7_LR}", f"--logs_dir={tmp}/logs",
+            "--check_val_every_n_epoch=2", "--skip_initial_metrics=true",
+            f"--seed={SEED}"]
+        logged = common + ["--logger=wandb", "-v"]
+        profiled = logged + ["--profile"]
+        # no fit-start pass, validation at epoch 2 only: M7_STEPS x 2
+        # steps and one validation batch
+        want = expected_counts(fused_projection_train_fwd=2 * M7_STEPS + 1,
+                               fused_projection_train_bwd=2 * M7_STEPS)
+        # the profiler's cost: fits that differ only in --profile, in
+        # alternating pairs
+        steps = {"plain": [], "profiled": []}
+        seconds = {"plain": [], "profiled": []}
+        for pair in range(M7_PAIRS):
+            for run, argv in (("plain", logged), ("profiled", profiled)):
+                t = time.perf_counter()
+                trainer, launches = cli_fit(argv
+                                            + [f"--run_name={run}{pair}"])
+                seconds[run].append(time.perf_counter() - t)
+                steps[run].append(step_gap_ms(trainer.log_dir))
+                if launches != want:
+                    raise AssertionError(f"CLI fit launches {launches}, "
+                                         f"expected {want}")
+        log_dir = trainer.log_dir
+        # the bare --lr reaches every AdamW group
+        lrs = {g["name"]: g["lr"]
+               for g in trainer.state.optimizer.param_groups}
+        if set(lrs.values()) != {M7_LR}:
+            raise AssertionError(f"--lr {M7_LR}: the AdamW groups' lrs {lrs}")
+        with open(os.path.join(log_dir, "hparams.json")) as f:
+            hparams = json.load(f)
+        with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+            epochs = [r for r in map(json.loads, f) if "epoch" in r]
+        if any(k.startswith("initial_") for k in hparams) or [
+                "val_loss/primary" in r for r in epochs] != [False, True]:
+            raise AssertionError(f"a fit-start pass or an epoch-1 "
+                                 f"validation ran: {sorted(hparams)}, "
+                                 f"{epochs}")
+        # the W&B offline run directory, read without PyYAML
+        (files,) = [os.path.join(d, "files") for d in glob.glob(
+            os.path.join(log_dir, "wandb", "offline-run-*"))]
+        with open(os.path.join(files, "config.yaml")) as f:
+            config = json.load(f)   # JSON text is YAML 1.2
+        with open(os.path.join(files, "wandb-summary.json")) as f:
+            summary = json.load(f)
+        with open(os.path.join(files, "wandb-history.jsonl")) as f:
+            history = [json.loads(line) for line in f]
+        with open(os.path.join(files, "wandb-metadata.json")) as f:
+            json.load(f)
+        if not (config["batch_size"]["value"] == BATCH
+                and summary["_step"] == 2 * M7_STEPS
+                and len(history) == 2 * M7_STEPS + 2):
+            raise AssertionError(f"W&B files: {config}, {summary}, "
+                                 f"{len(history)} rows")
+        # the trace's kernels of rows 2 and 3 against the counters
+        kernels, graph_launches = trace_kernel_names(
+            os.path.join(log_dir, "trace", "trace.json"))
+        in_trace = {w: named(kernels, parts) for w, parts in M7_ROWS.items()}
+        if in_trace != {w: launches[w] for w in M7_ROWS}:
+            raise AssertionError(f"the trace's kernels {in_trace}, counted "
+                                 f"{launches}")
+        out["streamed"] = {
+            "lrs": lrs, "launches": {w: launches[w] for w in M7_ROWS},
+            "trace_kernels": in_trace, "trace_kernel_events": len(kernels),
+            "trace_graph_launches": graph_launches,
+            "trace_mb": os.path.getsize(os.path.join(
+                log_dir, "trace", "trace.json")) / 1e6,
+            "wandb_history_rows": len(history),
+            "ms_per_step": steps,
+            "profiled_over_plain": [p / q for p, q in zip(
+                steps["profiled"], steps["plain"])],
+            "fit_seconds": seconds}
+        del trainer
+
+        # the same fit with --device_resident: config 1's CarlaRecorded-
+        # format subsets in memory, the epoch as CUDA graph replays
+        subsets = {"train": recorded_clips(M7_STEPS * BATCH, SEED + 30),
+                   "val": recorded_clips(BATCH, SEED + 31)}
+
+        class InMemoryRecorded(CarlaRecordedDataModule):
+            def __init__(self, **kwargs):
+                super().__init__(**kwargs)
+                for name, subset in subsets.items():
+                    self.add_subset(name, *subset)
+
+            def prepare_data(self):
+                pass
+        saved = dict(modeling.DATA_MODULES)
+        modeling.DATA_MODULES["CarlaRecorded"] = InMemoryRecorded
+        t = time.perf_counter()
+        try:
+            trainer, launches = cli_fit(profiled + [
+                "--data_module_name=CarlaRecorded", "--device_resident=true",
+                f"--outputs_dir={tmp}", "--run_name=graphed"])
+        finally:
+            modeling.DATA_MODULES.clear()
+            modeling.DATA_MODULES.update(saved)
+        seconds = time.perf_counter() - t
+        kernels, graph_launches = trace_kernel_names(
+            os.path.join(trainer.log_dir, "trace", "trace.json"))
+        runner = trainer.runner
+        out["resident_graphed"] = {
+            "launches": {w: launches[w] for w in M7_ROWS},
+            "replays": runner.replays, "warmup_steps": runner.warmup,
+            "captured": {w: runner.captured.get((w, "launches"), 0)
+                         for w in M7_ROWS},
+            "trace_kernels": {w: named(kernels, parts)
+                              for w, parts in M7_ROWS.items()},
+            "trace_kernel_events": len(kernels),
+            "trace_graph_launches": graph_launches,
+            "ms_per_step": step_gap_ms(trainer.log_dir),
+            "fit_seconds": seconds}
+        del trainer, runner, subsets
+    emit({"phase": "m7_cli_logs_profile", "card": card, "B": BATCH,
+          "L": CLIP, "steps_per_epoch": M7_STEPS, "epochs": 2, **out,
+          "seconds": time.perf_counter() - t0,
+          "method": "modeling.main with --lr, --logs_dir, "
+                    "--check_val_every_n_epoch 2, --skip_initial_metrics, "
+                    "--logger wandb and -v, in alternating pairs without "
+                    "and with --profile (the last profiled fit's files "
+                    "checked); ms a step: the median gap between "
+                    "consecutive step records of an epoch (host clock, "
+                    "each step's logs read)"})
+    return {w: {"launches_cli_profiled": out["streamed"]["launches"][w]
+                + out["resident_graphed"]["launches"][w]}
+            for w in M7_ROWS}
+
+
+def group_m7(card):
+    """The CLI's repaired flags, its loggers and its trace (phase 46) ->
+    rows 2 and 3's launches in its profiled fits. The video renderers draw
+    with cv2, which the card's machine lacks: they are tested on the CPU
+    only (tests/test_torch_loggers.py)."""
+    emit({"phase": "m7_renderers", "on_card": False,
+          "reason": "the renderers need cv2, which this machine lacks; "
+                    "tests/test_torch_loggers.py holds them to the JAX "
+                    "package's frames on the CPU"})
+    return phase_m7_cli_logs_profile(card)
+
+
 def kernel_entry(name, source, replaces, launches, max_err, times):
     """One entry of the kernels line; ``replaces`` is the TPU kernel's
     ``file:line`` under the JAX package's ops/pallas/."""
@@ -6998,6 +7230,11 @@ def main():
     for name, extra in group_recorded(card, hbm_rate).items():
         entry = next(e for e in kernels if e["name"] == name)
         entry["launches"] += extra["launches_recorded_graphed"]
+        entry.update(extra)
+    # rows 2 and 3 in the CLI's profiled fits
+    for name, extra in group_m7(card).items():
+        entry = next(e for e in kernels if e["name"] == name)
+        entry["launches"] += extra["launches_cli_profiled"]
         entry.update(extra)
 
     print(card, flush=True)

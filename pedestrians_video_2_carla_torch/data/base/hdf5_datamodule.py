@@ -154,12 +154,19 @@ class Hdf5DataModule(BaseDataModule):
     # -- settings digest ---------------------------------------------------
     @property
     def settings(self) -> Dict[str, Any]:
-        return {
+        """What the subsets depend on: its digest names their directory.
+        A ``fast_dev_run`` prepare reads a cut of the data, so it is in
+        the settings when it is true, and full-run settings (and digests)
+        stay the JAX package's."""
+        settings = {
             "data_module_name": type(self).__name__,
             "clip_length": self.clip_length,
             "clip_offset": self.clip_offset,
             "data_nodes": self.data_nodes.__name__,
         }
+        if self._fast_dev_run:
+            settings["fast_dev_run"] = True
+        return settings
 
     def _calculate_settings_digest(self) -> str:
         settings = {k: self.settings[k] for k in sorted(self.settings)}

@@ -247,6 +247,11 @@ class BaseFlow:
         self.initial_metrics = MetricCollection(
             {**self.get_metrics(), **self.get_initial_metrics()})
 
+    @property
+    def needs_confidence(self) -> bool:
+        """Whether the data module's inputs carry a confidence channel."""
+        return getattr(self.movements_model, "needs_confidence", False)
+
     # -- metrics -----------------------------------------------------------
     def get_metrics(self) -> Dict[str, Any]:
         """The metrics accumulated over every evaluation pass."""

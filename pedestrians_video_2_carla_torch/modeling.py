@@ -18,8 +18,10 @@ The chosen model's constructor arguments are flags as well
 data module and the model), as the JAX CLI adds one per model field; so are
 the training options (``--gradient_clip_val``, ``--loss_weights``,
 ``--loss_params_{i}``, ``--{prefix}_enable_lr_scheduler`` and the
-``--{prefix}_scheduler_*`` family). Logs
-and checkpoints go to ``<root_dir>/logs/<flow>/<run_name>/``; a
+``--{prefix}_scheduler_*`` family; ``--lr`` sets the lr of every model
+type whose ``--{type}_lr`` is not given). Logs and checkpoints go to
+``<logs_dir>/<run_name>/`` (``--logs_dir``, by default
+``<root_dir>/logs/<flow>``); a
 ``--ckpt_path`` ending in ``.ckpt``, ``.pth`` or ``.pt`` that is not the
 port's own archive is a reference torch checkpoint, whose movements-model
 weights load through ``Trainer.restore_torch``. The data
@@ -32,6 +34,15 @@ loss or renderer that the JAX package has but the port does not yet raises
 ``NotImplementedError`` naming ``ROADMAP.md``; flags the chosen flow and
 model do not take are ignored with a warning, as in the JAX CLI.
 
+Logging and tracing: ``--logger wandb`` also writes a W&B offline run
+directory under the run's; ``--renderers input_points projection_points``
+(``zeros``, ``target_points``, ``source_videos`` too) write mp4s under
+``<log_dir>/videos`` (``--max_videos``,
+``--video_saving_frequency_reduction``, ``--merging_method``,
+``--source_videos_*``); ``--profile`` writes a ``torch.profiler`` trace of
+the fit to ``<log_dir>/trace/trace.json`` and prints the timings;
+``-v`` / ``-vv`` set the logging level to INFO / DEBUG.
+
 The JAX CLI's five modes: ``train`` and ``tune`` fit, then evaluate the
 validation set; ``test`` evaluates the test set; ``predict`` runs
 ``Trainer.predict`` over each of ``--predict_sets`` (``results
@@ -42,6 +53,7 @@ mode but ``train`` a ``--ckpt_path`` restores the weights alone.
 """
 import argparse
 import inspect
+import logging
 import os
 import sys
 import warnings
@@ -55,18 +67,23 @@ from .flows.autoencoder import AutoencoderFlow
 from .flows.classification import ClassificationFlow
 from .flows.output_types import MovementsModelOutputType
 from .flows.pose_lifting import PoseLiftingFlow
+from .loggers.pedestrian_logger import PedestrianLogger
+from .loggers.pedestrian_writer import RENDERERS, check_renderers
 from .losses import LossModes
 from .models.base import SCHEDULER_TYPES, OptimizerSettings
 from .models.classification import CLASSIFICATION_MODELS
 from .models.classification.common import ClassificationModel
 from .models.movements import MOVEMENTS_MODELS
 from .models.movements.common import MovementsModel
+from .models.trajectory import TRAJECTORY_MODELS
 from .ops.projection import KERNELS
 from .serving import export_inference
 from .skeletons.base import get_skeleton_type_by_name
+from .skeletons.carla import CARLA_SKELETON
 from .training.checkpoint import is_archive
-from .training.trainer import Trainer, TrainerConfig
+from .training.trainer import LOGGERS, Trainer, TrainerConfig
 from .utils.naming import unique_run_name
+from .utils.profiling import device_trace, print_timing, timed
 
 DEFAULT_SEED = 22742
 
@@ -93,28 +110,47 @@ def _ported(kind: str, name: str, available) -> None:
             f"{sorted(available)}; see ROADMAP.md)")
 
 
-#: model constructor arguments that are not flags
-_NOT_FLAGS = ("generator", "input_nodes", "output_nodes", "needs_confidence")
+#: model constructor arguments that are not flags (``num_classes`` is the
+#: classification flow's flag, which also feeds the model)
+_NOT_FLAGS = ("generator", "input_nodes", "output_nodes", "num_classes")
+#: what the model flags that change nothing in the port are
+MODEL_FLAG_HELP = {
+    "remat": "the JAX package's rematerialisation of the transformer "
+             "blocks under the gradient; the port keeps the activations "
+             "and computes the same numbers whatever it is",
+    "unroll": "the JAX package's scan unroll factor of the recurrences; "
+              "the port runs one frame a step and computes the same "
+              "numbers whatever it is",
+    "scan_unroll": "the JAX package's unroll factor of the graph scans; "
+                   "the port's scans run one frame a step, in its kernels "
+                   "or its plain loop, and compute the same numbers "
+                   "whatever it is",
+    "needs_confidence": "the data carries a confidence channel: models that "
+                        "read every channel take (x, y, confidence)",
+}
+#: the model types a flow trains, each with its ``--{type}_model_name``,
+#: ``--{type}_lr`` and optimizer flags
+MODEL_TYPES = ("movements", "classification", "trajectory")
 #: the number of ``--loss_params_{i}`` and
 #: ``--missing_joint_probabilities_{i}`` flags: one per CARLA joint
 LOSS_PARAMS = 26
 
 
 def model_params(model_cls) -> Dict[str, Any]:
-    """The constructor arguments of ``model_cls`` and of its bases up to
-    the framework's model bases (a Seq2Seq variant's own and Seq2Seq's)
-    that flags set (those with a bool, int, float or str default), and
-    their defaults (a subclass's default first)."""
+    """The constructor arguments of ``model_cls`` and of its bases down to
+    the framework's model base (a Seq2Seq variant's own, Seq2Seq's and
+    ``MovementsModel``'s) that flags set (those with a bool, int, float or
+    str default), and their defaults (a subclass's default first)."""
     params: Dict[str, Any] = {}
     for cls in model_cls.__mro__:
+        if "__init__" in vars(cls):
+            for name, p in inspect.signature(
+                    cls.__init__).parameters.items():
+                if name not in _NOT_FLAGS and name not in params \
+                        and isinstance(p.default, (bool, int, float, str)):
+                    params[name] = p.default
         if cls in (MovementsModel, ClassificationModel):
             break
-        if "__init__" not in vars(cls):
-            continue
-        for name, p in inspect.signature(cls.__init__).parameters.items():
-            if name not in _NOT_FLAGS and name not in params \
-                    and isinstance(p.default, (bool, int, float, str)):
-                params[name] = p.default
     return params
 
 
@@ -127,7 +163,8 @@ def add_model_args(parser: argparse.ArgumentParser, model_cls) -> None:
     for name, default in model_params(model_cls).items():
         kind = boolean if isinstance(default, bool) else type(default)
         try:
-            group.add_argument(f"--{name}", type=kind, default=default)
+            group.add_argument(f"--{name}", type=kind, default=default,
+                               help=MODEL_FLAG_HELP.get(name))
         except argparse.ArgumentError:
             pass
 
@@ -151,17 +188,19 @@ def make_parser(argv: Optional[List[str]] = None) -> argparse.ArgumentParser:
                              "symbolic batch dimension: one artifact serves "
                              "any batch size; requires --projection_kernel "
                              "plain")
-    parser.add_argument("--renderers", nargs="*", default=["none"],
-                        help="only 'none': the renderers are not ported "
-                             "(ROADMAP.md M7)")
-    parser.add_argument("--movements_model_name", default="LinearAE")
+    parser.add_argument("--movements_model_name", default="LSTM")
     parser.add_argument("--classification_model_name", default="LSTM")
+    parser.add_argument("--trajectory_model_name", default="ZeroTrajectory")
     parser.add_argument("--seed", type=int, default=DEFAULT_SEED)
     parser.add_argument("--root_dir", default="outputs")
+    parser.add_argument("--logs_dir", default=None,
+                        help="where the run directories go (default "
+                             "<root_dir>/logs/<flow>)")
     parser.add_argument("--run_name", default=None)
     parser.add_argument("--ckpt_path", default=None)
     parser.add_argument("--device", default=None,
                         help="cuda (the default) or cpu")
+    add_logging_args(parser)
 
     group = parser.add_argument_group("Trainer")
     group.add_argument("--max_epochs", type=int, default=1)
@@ -169,6 +208,10 @@ def make_parser(argv: Optional[List[str]] = None) -> argparse.ArgumentParser:
     group.add_argument("--limit_val_batches", type=int, default=None)
     group.add_argument("--limit_test_batches", type=int, default=None)
     group.add_argument("--log_every_n_steps", type=int, default=50)
+    group.add_argument("--check_val_every_n_epoch", type=int, default=1)
+    group.add_argument("--skip_initial_metrics", type=boolean, default=False,
+                       help="skip the fit-start pass of the initial "
+                            "(inputs as predictions) metrics")
     group.add_argument("--detect_anomaly", type=boolean, nargs="?",
                        const=True, default=False)
     group.add_argument("--gradient_clip_val", type=float, default=0.0,
@@ -203,7 +246,10 @@ def make_parser(argv: Optional[List[str]] = None) -> argparse.ArgumentParser:
     group.add_argument("--num_classes", type=int, default=2)
 
     group = parser.add_argument_group("optimizers")
-    for prefix in ("movements", "classification"):
+    group.add_argument("--lr", type=float, default=None,
+                       help="the lr of every model type whose --{type}_lr "
+                            "is not given")
+    for prefix in MODEL_TYPES:
         add_optimizer_args(group, prefix)
 
     chosen, _ = parser.parse_known_args(argv)
@@ -211,6 +257,46 @@ def make_parser(argv: Optional[List[str]] = None) -> argparse.ArgumentParser:
     if name in models:
         add_model_args(parser, models[name])
     return parser
+
+
+def add_logging_args(parser: argparse.ArgumentParser) -> None:
+    """The JAX CLI's logging, video and tracing flags."""
+    parser.add_argument("--logger", default="auto", choices=list(LOGGERS),
+                        help="'wandb' also writes a W&B offline run "
+                             "directory (no network, no wandb package)")
+    parser.add_argument("--prefer_tensorboard", action="store_true",
+                        help="the JAX CLI's flag: every logger already "
+                             "writes TensorBoard events where "
+                             "torch.utils.tensorboard imports")
+    parser.add_argument("--profile", action="store_true",
+                        help="write a torch.profiler trace of the fit "
+                             "(CUDA kernels too on the card) to "
+                             "{log_dir}/trace/trace.json and print the "
+                             "timings")
+    parser.add_argument("--verbose", "-v", action="store_true",
+                        help="logging level INFO")
+    parser.add_argument("--very_verbose", "-vv", action="store_true",
+                        help="logging level DEBUG")
+    parser.add_argument("--renderers", nargs="*", default=["none"],
+                        help=f"the video renderers: {list(RENDERERS)}, or "
+                             f"none")
+    parser.add_argument("--source_videos_overlay_skeletons", type=boolean,
+                        default=False,
+                        help="draw the skeletons in the source_videos "
+                             "renderer")
+    parser.add_argument("--source_videos_overlay_bboxes", type=boolean,
+                        default=False)
+    parser.add_argument("--source_videos_overlay_classes", type=boolean,
+                        default=False,
+                        help="write the class label on the source_videos "
+                             "renderer's frames")
+    parser.add_argument("--max_videos", type=int, default=4)
+    parser.add_argument("--video_saving_frequency_reduction", type=int,
+                        default=10,
+                        help="a training step logs videos every "
+                             "log_every_n_steps times this many steps")
+    parser.add_argument("--merging_method", default="square",
+                        choices=["square", "horizontal", "vertical"])
 
 
 def add_datamodule_args(parser: argparse.ArgumentParser) -> None:
@@ -223,13 +309,23 @@ def add_datamodule_args(parser: argparse.ArgumentParser) -> None:
                        type=get_skeleton_type_by_name)
     group.add_argument("--input_nodes", default=None,
                        type=get_skeleton_type_by_name)
+    group.add_argument("--output_nodes", default=None,
+                       type=get_skeleton_type_by_name)
     group.add_argument("--transform", default="hips_neck",
                        choices=["hips_neck", "hips_neck_bbox", "bbox", "none"])
     group.add_argument("--val_set_size", type=int, default=64)
     group.add_argument("--test_set_size", type=int, default=64)
+    group.add_argument("--random_changes_each_frame", type=int, default=3)
+    group.add_argument("--max_change_in_deg", type=float, default=5.0)
+    group.add_argument("--max_world_rot_change_in_deg", type=float,
+                       default=0.0)
+    group.add_argument("--max_initial_world_rot_change_in_deg", type=float,
+                       default=0.0)
     group.add_argument("--noise", default="zero",
                        choices=["zero", "gaussian", "uniform"])
     group.add_argument("--noise_param", type=float, default=1.0)
+    group.add_argument("--data_variant", default=None)
+    group.add_argument("--source_videos_dir", default=None)
     for i in range(LOSS_PARAMS):
         group.add_argument(f"--missing_joint_probabilities_{i}", type=float,
                            default=None)
@@ -312,34 +408,42 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         # another flow's or model's flags: the chaining scripts pass one
         # argument list through every stage
         warnings.warn(f"ignoring unrecognized arguments: {unknown}")
+    if args.very_verbose or args.verbose:
+        logging.basicConfig(
+            level=logging.DEBUG if args.very_verbose else logging.INFO)
     _ported("flow", args.flow, FLOWS)
     _ported("mode", args.mode, MODES)
     _ported("data module", args.data_module_name, DATA_MODULES)
     models, model_name = chosen_model(args)
     _ported("classification model" if args.flow == "classification"
             else "movements model", model_name, models)
+    _ported("trajectory model", args.trajectory_model_name,
+            TRAJECTORY_MODELS)
     for mode in args.loss_modes:
         _ported("loss mode", mode, LossModes.__members__)
-    renderers = [r for r in args.renderers or [] if r != "none"]
-    if renderers:
-        raise NotImplementedError(
-            f"renderers {renderers} are not ported to PyTorch yet (only "
-            f"'none'; see ROADMAP.md M7)")
+    renderers = check_renderers(args.renderers)
+    # the bare --lr: every model type without its own --{type}_lr
+    for model_type in MODEL_TYPES:
+        if getattr(args, f"{model_type}_lr") is None:
+            setattr(args, f"{model_type}_lr", args.lr)
 
     # the JAX CLI's rule: the datamodule's own skeleton unless
-    # --data_nodes names one; the model reads --input_nodes, else that
+    # --data_nodes names one; the model reads --input_nodes, else that,
+    # and outputs --output_nodes, else its input skeleton
     dm_cls = DATA_MODULES[args.data_module_name]
     data_nodes = args.data_nodes or getattr(dm_cls, "default_data_nodes",
                                             None)
     input_nodes = args.input_nodes or data_nodes
+    output_nodes = args.output_nodes or input_nodes
     model_cls = models[model_name]
     model_kwargs = {k: getattr(args, k) for k in model_params(model_cls)}
-    if input_nodes is not None:
-        takes = set().union(*(inspect.signature(c.__init__).parameters
-                              for c in model_cls.__mro__
-                              if "__init__" in vars(c)))
-        model_kwargs.update({k: input_nodes for k in
-                             ("input_nodes", "output_nodes") if k in takes})
+    takes = set().union(*(inspect.signature(c.__init__).parameters
+                          for c in model_cls.__mro__
+                          if "__init__" in vars(c)))
+    for key, nodes in (("input_nodes", input_nodes),
+                       ("output_nodes", output_nodes)):
+        if nodes is not None and key in takes:
+            model_kwargs[key] = nodes
     generator = torch.Generator().manual_seed(args.seed)
     if args.flow == "classification":
         flow = ClassificationFlow(
@@ -359,8 +463,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         supported = model_cls.supported_output_types()
         if len(supported) > 1 and mot in supported:
             model_kwargs["movements_output_type"] = mot
+        trajectory = {}
+        if args.flow == "pose_lifting":  # the JAX flow with a trajectory
+            trajectory = dict(
+                trajectory_model=TRAJECTORY_MODELS[
+                    args.trajectory_model_name](),
+                trajectory_optimizer=OptimizerSettings.from_kwargs(
+                    "trajectory", vars(args)))
         flow = FLOWS[args.flow](
-            model_cls(generator=generator, **model_kwargs),
+            model_cls(generator=generator, **model_kwargs), **trajectory,
             loss_modes=args.loss_modes,
             loss_weights={k: float(v) for k, v in (
                 w.split("=") for w in args.loss_weights)},
@@ -379,6 +490,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         transform=args.transform,
         needs_confidence=getattr(flow, "needs_confidence", False),
         val_set_size=args.val_set_size, test_set_size=args.test_set_size,
+        random_changes_each_frame=args.random_changes_each_frame,
+        max_change_in_deg=args.max_change_in_deg,
+        max_world_rot_change_in_deg=args.max_world_rot_change_in_deg,
+        max_initial_world_rot_change_in_deg=(
+            args.max_initial_world_rot_change_in_deg),
         noise=args.noise, noise_param=args.noise_param,
         missing_joint_probabilities=flat_list(
             args, "missing_joint_probabilities"),
@@ -394,6 +510,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     if args.classification_targets_key:
         dm_kwargs["classification_targets_key"] = \
             args.classification_targets_key
+    if args.data_variant:
+        dm_kwargs["data_variant"] = args.data_variant
+    if args.source_videos_dir:
+        dm_kwargs["source_videos_dir"] = args.source_videos_dir
     if data_nodes is not None:
         dm_kwargs["data_nodes"] = data_nodes
     if input_nodes is not None:
@@ -404,21 +524,41 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         dm_cls = SubsetsDataModule
     dm = dm_cls(**dm_kwargs)
 
-    logs_dir = os.path.join(args.root_dir, "logs", args.flow)
+    logs_dir = args.logs_dir or os.path.join(args.root_dir, "logs",
+                                             args.flow)
     config = TrainerConfig(
         max_epochs=args.max_epochs,
         limit_train_batches=args.limit_train_batches,
         limit_val_batches=args.limit_val_batches,
         limit_test_batches=args.limit_test_batches,
         log_every_n_steps=args.log_every_n_steps,
+        check_val_every_n_epoch=args.check_val_every_n_epoch,
         seed=args.seed,
         logs_dir=logs_dir,
         # an unnamed run reserves its own directory (never one in use)
         run_name=args.run_name or unique_run_name(
             logs_dir, prefix=f"{args.data_module_name}-"),
+        skip_initial_metrics=args.skip_initial_metrics,
         detect_anomaly=args.detect_anomaly,
+        logger=args.logger,
         device=args.device)
-    trainer = Trainer(flow, dm, config)
+    video_logger = None
+    if renderers:
+        video_logger = PedestrianLogger(
+            save_dir=os.path.join(logs_dir, config.run_name, "videos"),
+            renderers=renderers,
+            input_nodes=input_nodes or CARLA_SKELETON,
+            output_nodes=output_nodes or CARLA_SKELETON,
+            log_every_n_steps=args.log_every_n_steps,
+            max_videos=args.max_videos,
+            video_saving_frequency_reduction=(
+                args.video_saving_frequency_reduction),
+            merging_method=args.merging_method,
+            source_videos_dir=args.source_videos_dir,
+            overlay_skeletons=args.source_videos_overlay_skeletons,
+            overlay_bboxes=args.source_videos_overlay_bboxes,
+            overlay_classes=args.source_videos_overlay_classes)
+    trainer = Trainer(flow, dm, config, video_logger=video_logger)
     dm.prepare_data()
     dm.setup(args.mode)
 
@@ -430,7 +570,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             trainer.restore(args.ckpt_path,
                             weights_only=(args.mode != "train"))
     if args.mode in ("train", "tune"):
-        trainer.fit()
+        if args.profile:
+            with device_trace(os.path.join(trainer.log_dir, "trace"),
+                              device=trainer.device), timed("Trainer.fit"):
+                trainer.fit()
+            print_timing()
+        else:
+            trainer.fit()
         results["val_metrics"] = trainer.evaluate(
             "val", config.limit_val_batches)
     elif args.mode == "test":

@@ -33,6 +33,14 @@ class ClassificationModel(nn.Module):
         self.needs_confidence = needs_confidence
 
     @property
+    def data_features(self) -> int:
+        """Channels per joint of the flow's inputs: (x, y), and the
+        confidence when ``needs_confidence``. A model that reads every
+        channel is this wide per joint; one that keeps the first
+        ``input_features`` is at most that wide."""
+        return 3 if self.needs_confidence else 2
+
+    @property
     def output_type(self) -> ClassificationModelOutputType:
         return ClassificationModelOutputType.multiclass
 

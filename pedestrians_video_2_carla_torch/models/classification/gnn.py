@@ -87,8 +87,12 @@ class _GraphGatedRecurrent(ClassificationModel):
 
     def __init__(self, hidden_size: int = 128, p_dropout: float = 0.2,
                  k: int = 2, graph_kernel: str = "auto",
+                 scan_unroll: int = 16,
                  generator: Optional[torch.Generator] = None,
                  **kwargs) -> None:
+        """``scan_unroll`` is the JAX package's unroll factor of its frame
+        scans: the port's scans run one frame a step, in its kernels or in
+        the plain loop, whatever it is."""
         super().__init__(**kwargs)
         if graph_kernel in ("xla", "pallas"):
             raise ValueError(
@@ -101,11 +105,13 @@ class _GraphGatedRecurrent(ClassificationModel):
         self.p_dropout = p_dropout
         self.k = k
         self.graph_kernel = graph_kernel
+        self.scan_unroll = scan_unroll
         op = np.asarray(self._operator(), np.float32)
         self.register_buffer("op", torch.from_numpy(op), persistent=False)
         self.register_buffer("cheb", torch.from_numpy(cheb_matrices(op, k)),
                              persistent=False)
-        in_features = self.input_features
+        # the forward keeps the first input_features channels of the data
+        in_features = min(self.input_features, self.data_features)
         for layer in self.LAYERS:
             for gate in self.GATES:
                 self._add_gate_params(layer, gate, in_features)
@@ -310,6 +316,9 @@ class GConvLSTM(_GraphGatedRecurrent):
     """Chebyshev graph-conv LSTM (torch_geometric_temporal GConvLSTM): all
     four gates convolve h, so a frame is one fused product."""
     GATES = ("i", "f", "c", "o")
+
+    def __init__(self, *args, scan_unroll: int = 1, **kwargs) -> None:
+        super().__init__(*args, scan_unroll=scan_unroll, **kwargs)
 
     def _hidden_weights(self, layer):
         return {"i": (torch.cat([torch.cat(self._gate(layer, g, "wh"), dim=0)

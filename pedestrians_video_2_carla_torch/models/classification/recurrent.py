@@ -30,7 +30,7 @@ class _RecurrentClassifier(ClassificationModel):
         self.embeddings_size = embeddings_size
         self.p_dropout = p_dropout
         self.rnn_kernel = rnn_kernel
-        width = len(self.input_nodes) * self.input_features
+        width = len(self.input_nodes) * self.data_features
         denses = []
         if embeddings_size:
             denses.append(nn.Linear(width, embeddings_size))

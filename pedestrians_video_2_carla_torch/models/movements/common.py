@@ -185,11 +185,15 @@ class MovementsModel(nn.Module):
     def __init__(self, input_nodes: Type[Skeleton] = CARLA_SKELETON,
                  output_nodes: Type[Skeleton] = CARLA_SKELETON,
                  movements_output_type: MovementsModelOutputType =
-                 MovementsModelOutputType.pose_changes) -> None:
+                 MovementsModelOutputType.pose_changes,
+                 needs_confidence: bool = False) -> None:
         super().__init__()
         self.input_nodes = input_nodes
         self.output_nodes = output_nodes
         self.movements_output_type = movements_output_type
+        #: the flow's data then carries a confidence channel: a model that
+        #: reads every channel is ``input_features`` wide per joint
+        self.needs_confidence = needs_confidence
 
     @property
     def output_type(self) -> MovementsModelOutputType:
@@ -199,6 +203,12 @@ class MovementsModel(nn.Module):
     def eval_slice(self):
         """Frame slice valid for evaluation."""
         return slice(None)
+
+    @property
+    def input_features(self) -> int:
+        """Channels per joint of the inputs: (x, y), and the confidence
+        when ``needs_confidence``."""
+        return 3 if self.needs_confidence else 2
 
     @property
     def output_features(self) -> int:

@@ -14,8 +14,9 @@ class Linear(MovementsModel):
     def __init__(self, generator: Optional[torch.Generator] = None,
                  **kwargs) -> None:
         super().__init__(**kwargs)
-        self.Dense_0 = nn.Linear(len(self.input_nodes) * 2,
-                                 len(self.output_nodes) * self.output_features)
+        width = len(self.input_nodes) * self.input_features
+        self.Dense_0 = nn.Linear(width, len(self.output_nodes)
+                                 * self.output_features)
         lecun_normal_(self.Dense_0.weight, generator)
         nn.init.zeros_(self.Dense_0.bias)
 

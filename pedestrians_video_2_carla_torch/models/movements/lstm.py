@@ -25,7 +25,7 @@ class LSTM(MovementsModel):
         self.num_layers = num_layers
         self.embeddings_size = embeddings_size
         self.rnn_kernel = rnn_kernel
-        width = len(self.input_nodes) * 2
+        width = len(self.input_nodes) * self.input_features
         denses = []
         if embeddings_size:
             denses.append(nn.Linear(width, embeddings_size))

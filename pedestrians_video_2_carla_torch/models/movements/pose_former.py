@@ -101,13 +101,16 @@ class PoseFormer(FixedOutputModel):
     """Predicts absolute joint locations (B, L, J, 3); the first and last
     ``receptive_frames // 2`` frames, which no window centres on, stay
     zeros and ``eval_slice`` leaves them out. ``clip_length`` only sets
-    ``eval_slice``, as in the JAX model."""
+    ``eval_slice``, as in the JAX model. ``remat`` is the JAX package's
+    rematerialisation of the transformer blocks under the gradient: the
+    port keeps the activations whatever it is."""
     OUTPUT_TYPE = MovementsModelOutputType.absolute_loc
 
     def __init__(self, clip_length: int = 30, receptive_frames: int = 9,
                  single_joint_embeddings_size: int = 32, depth: int = 4,
                  num_heads: int = 8, mlp_ratio: float = 2.0,
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
+                 remat: bool = False,
                  spatial_kernel: str = "auto", temporal_kernel: str = "auto",
                  generator: Optional[torch.Generator] = None,
                  **kwargs) -> None:
@@ -126,6 +129,7 @@ class PoseFormer(FixedOutputModel):
         self.num_heads = num_heads
         self.drop_rate = drop_rate
         self.attn_drop_rate = attn_drop_rate
+        self.remat = remat
         self.spatial_kernel = spatial_kernel
         self.temporal_kernel = temporal_kernel
         joints = len(self.input_nodes)

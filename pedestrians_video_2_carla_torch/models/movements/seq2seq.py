@@ -106,19 +106,26 @@ class _Decoder(nn.Module):
 class Seq2Seq(MovementsModel):
     """LSTM encoder -> autoregressive LSTM decoder with teacher forcing.
     ``rnn_kernel`` ("auto" | "plain" | "fused") goes to the encoder's
-    layers (``models/rnn.py``)."""
-    RESIDUAL = "none"
+    layers (``models/rnn.py``). ``residual`` is how the decoder's step
+    output meets its previous input: "none", "keep" (ResidualA), "pure"
+    (ResidualB) or "rot_mul" (ResidualC), each variant's own by default.
+    ``unroll`` is the JAX package's scan unroll factor: the port's
+    recurrences run one frame a step whatever it is."""
 
     def __init__(self, hidden_size: int = 64, num_layers: int = 2,
                  p_dropout: float = 0.2, teacher_mode: str = "no_force",
                  teacher_force_ratio: float = 0.2,
                  teacher_force_drop: float = 0.02,
                  invert_sequence: bool = False, bidirectional: bool = False,
+                 residual: str = "none", unroll: int = 1,
                  rnn_kernel: str = "auto",
                  generator: Optional[torch.Generator] = None,
                  **kwargs) -> None:
         super().__init__(**kwargs)
         TeacherMode[teacher_mode]  # an unknown mode raises here
+        if residual not in RESIDUALS:
+            raise ValueError(f"unknown residual {residual!r}; one of "
+                             f"{RESIDUALS}")
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.p_dropout = p_dropout
@@ -128,7 +135,8 @@ class Seq2Seq(MovementsModel):
         self.invert_sequence = invert_sequence
         self.bidirectional = bidirectional
         self.rnn_kernel = rnn_kernel
-        self.residual = self.RESIDUAL
+        self.residual = residual
+        self.unroll = unroll
         self.output_size = len(self.output_nodes) * self.output_features
         if self.residual == "rot_mul" and self.output_size % 6:
             raise ValueError("ResidualC composes 6D rotations: its output "
@@ -152,7 +160,7 @@ class Seq2Seq(MovementsModel):
     # -- input embedding (variants override) -------------------------------
     def _build_embedding(self, generator) -> int:
         """Build the embedding's parameters; -> the encoder's input width."""
-        return len(self.input_nodes) * 2
+        return len(self.input_nodes) * self.input_features
 
     def _format_input(self, x: torch.Tensor) -> torch.Tensor:
         """(B, L, J, C) -> (B, L, E)."""
@@ -272,7 +280,7 @@ class Seq2SeqFlatEmbeddings(Seq2Seq):
         super().__init__(*args, **kwargs)
 
     def _build_embedding(self, generator) -> int:
-        width = len(self.input_nodes) * 2
+        width = len(self.input_nodes) * self.input_features
         for i, out in enumerate(self.embeddings_size):
             dense = nn.Linear(width, out)
             lecun_normal_(dense.weight, generator)
@@ -290,12 +298,15 @@ class Seq2SeqFlatEmbeddings(Seq2Seq):
 
 
 class Seq2SeqResidualA(Seq2SeqEmbeddings):
-    RESIDUAL = "keep"
+    def __init__(self, *args, residual: str = "keep", **kwargs) -> None:
+        super().__init__(*args, residual=residual, **kwargs)
 
 
 class Seq2SeqResidualB(Seq2SeqEmbeddings):
-    RESIDUAL = "pure"
+    def __init__(self, *args, residual: str = "pure", **kwargs) -> None:
+        super().__init__(*args, residual=residual, **kwargs)
 
 
 class Seq2SeqResidualC(Seq2SeqEmbeddings):
-    RESIDUAL = "rot_mul"
+    def __init__(self, *args, residual: str = "rot_mul", **kwargs) -> None:
+        super().__init__(*args, residual=residual, **kwargs)

@@ -1,6 +1,7 @@
 """Absolute poses of the four CARLA reference skeletons, their screen
-projections, and denormalization of predicted 3D poses onto them (the
-``absolute_loc*`` movements outputs)."""
+projections, and denormalization onto them: of predicted 3D poses (the
+``absolute_loc*`` movements outputs) and of normalized 2D poses (the
+video logger's drawings)."""
 from functools import lru_cache
 
 import numpy as np
@@ -39,6 +40,19 @@ def _hips_neck_ss(reference: torch.Tensor, ndim_target: int) -> N.ShiftScale:
     while ss.shift.ndim < ndim_target - 1:
         ss = N.ShiftScale(ss.shift[:, None], ss.scale[:, None])
     return ss
+
+
+def denormalize_from_projection(frames: torch.Tensor,
+                                age_gender_idx: torch.Tensor) -> torch.Tensor:
+    """Scale/shift normalized 2D poses onto the screen projection of each
+    clip's reference skeleton.
+
+    :param frames: (B, L, J, 2) normalized 2D pose coordinates.
+    :param age_gender_idx: (B,) int index into AGE_GENDER_KEYS.
+    """
+    ref = torch.as_tensor(reference_projections()[..., :2],
+                          device=frames.device)[age_gender_idx]
+    return N.denormalize(frames, _hips_neck_ss(ref, frames.ndim), dim=2)
 
 
 def denormalize_from_abs(frames: torch.Tensor,

@@ -56,6 +56,9 @@ def _carla_flip_mask() -> Tuple[int, ...]:
 
 
 CARLA_SKELETON.get_flip_mask = classmethod(lambda cls: _carla_flip_mask())
+# one green for every joint, as the video renderers draw CARLA skeletons
+CARLA_SKELETON.get_colors = classmethod(
+    lambda cls: {k: (0, 255, 0, 255) for k in CARLA_SKELETON})
 CARLA_SKELETON.get_edges = classmethod(lambda cls: [
     (CARLA_SKELETON(int(PARENTS[i])), CARLA_SKELETON(i))
     for i in range(NUM_BONES) if PARENTS[i] >= 0])

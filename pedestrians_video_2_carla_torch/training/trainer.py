@@ -7,14 +7,20 @@ evaluation pass and logged beside the losses; a metric that no batch fed
 is left out; classification metrics are also drawn as PNGs
 (``training/plots.py``). A fit starts with the flow's baseline pass (its
 initial metrics of its baseline predictions, over the validation set, into
-``hparams.json``), sets the flow's ``steps_per_epoch`` (for the LR
-schedules) from the data module before the optimizer is built, and calls
-the flow's ``on_epoch_start`` before each epoch. The port has no mesh and
-no video logger.
+``hparams.json``) unless ``skip_initial_metrics``, sets the flow's
+``steps_per_epoch`` (for the LR schedules) from the data module before the
+optimizer is built, and calls the flow's ``on_epoch_start`` before each
+epoch. The port has no mesh. ``logger`` "wandb" also writes a W&B offline
+run directory (``training/loggers.py``). A ``video_logger``
+(``loggers/pedestrian_logger.py``) renders the first validation batch of
+each evaluation and, at its throttle's steps, the training batch through
+an extra evaluation forward; a rendering that fails is a warning, never
+the end of the run.
 
 An epoch takes one of two routes. Where the datamodule keeps its train
-subset on the device (``resident_scan_inputs`` gives a spec), it runs as
-the resident epoch (``runtime/resident_scan.py``): chunks of K =
+subset on the device (``resident_scan_inputs`` gives a spec) and no video
+logger needs the training batches on the host, it runs as the resident
+epoch (``runtime/resident_scan.py``): chunks of K =
 ``log_every_n_steps`` steps, on the card as CUDA graph replays, whose
 per-step logs stay on the device until the chunk's log steps read them.
 Otherwise the datamodule's batches stream through the background
@@ -29,6 +35,7 @@ import itertools
 import json
 import math
 import os
+import sys
 import time
 import warnings
 from dataclasses import dataclass
@@ -42,7 +49,7 @@ from ..runtime.prefetcher import DevicePrefetcher, device_put
 from ..runtime.resident_scan import build_scan_runner
 from ..utils.device import DeviceLike, resolve_device
 from .checkpoint import CheckpointManager
-from .loggers import MetricsLogger
+from .loggers import MetricsLogger, WandbOfflineLogger
 
 
 @dataclass
@@ -56,14 +63,21 @@ class TrainerConfig:
     seed: int = 22742
     logs_dir: str = "outputs/logs"
     run_name: str = "run"
+    #: leave out the fit-start baseline pass (its ``initial_*`` metrics)
+    skip_initial_metrics: bool = False
     #: Lightning's --detect_anomaly: at every log interval, abort with a
     #: report if a logged loss or a parameter is not finite
     detect_anomaly: bool = False
+    #: "auto" or "tensorboard": the ``MetricsLogger`` files (and TensorBoard
+    #: where it imports); "wandb": a W&B offline run directory as well
+    logger: str = "auto"
     #: the card unless the caller asks for the CPU (``"cpu"``); the flow and
     #: the datamodule must be on the same device
     device: DeviceLike = None
 
 
+#: the loggers a ``TrainerConfig`` names
+LOGGERS = ("auto", "tensorboard", "wandb")
 #: batches the streamed epoch's prefetcher makes ahead
 PREFETCH_DEPTH = 4
 
@@ -105,7 +119,8 @@ def _flatten_metrics(computed: Dict[str, Any], stage: str) -> Dict[str, Any]:
 
 
 class Trainer:
-    def __init__(self, flow: BaseFlow, datamodule, config: TrainerConfig):
+    def __init__(self, flow: BaseFlow, datamodule, config: TrainerConfig,
+                 video_logger=None):
         self.device = resolve_device(config.device)
         for name, obj in (("flow", flow), ("datamodule", datamodule)):
             if obj.device != self.device:
@@ -117,7 +132,14 @@ class Trainer:
         self.state: Optional[FlowState] = None
         self.log_dir = os.path.join(config.logs_dir, config.run_name)
         os.makedirs(self.log_dir, exist_ok=True)
-        self.logger = MetricsLogger(self.log_dir)
+        if config.logger not in LOGGERS:
+            raise ValueError(f"unknown logger {config.logger!r}; one of "
+                             f"{LOGGERS}")
+        self.logger = WandbOfflineLogger(
+            self.log_dir, run_id=config.run_name, argv=sys.argv) \
+            if config.logger == "wandb" else MetricsLogger(self.log_dir)
+        #: a ``PedestrianLogger`` or None
+        self.video_logger = video_logger
         self.checkpoints = CheckpointManager(
             os.path.join(self.log_dir, "checkpoints"))
         #: the resident epoch's runner, kept across epochs
@@ -153,8 +175,10 @@ class Trainer:
         counts = self.flow.param_counts(self.state)
         print("  | model      | params\n  " + "\n  ".join(
             f"| {k:<10} | {v:,}" for k, v in counts.items()))
+        initial = {} if self.config.skip_initial_metrics \
+            else self.initial_metrics()
         self.logger.log_hparams({
-            **self.dm.hparams, **self.initial_metrics(),
+            **self.dm.hparams, **initial,
             **{f"params/{k}": v for k, v in counts.items()}})
 
         limit = self._resolve_train_batches()
@@ -166,7 +190,7 @@ class Trainer:
             epoch_start = time.perf_counter()
             spec = None
             spec_fn = getattr(self.dm, "resident_scan_inputs", None)
-            if spec_fn is not None:
+            if spec_fn is not None and self.video_logger is None:
                 spec = spec_fn("train", shuffle=True, training=True,
                                seed=self.config.seed + epoch)
             if spec is not None:
@@ -206,7 +230,7 @@ class Trainer:
         else:
             train_iter = host if finish is None else map(finish, host)
         last_logs = None
-        for batch in train_iter:
+        for batch_idx, batch in enumerate(train_iter):
             self.state, logs = self.flow.training_step(self.state, batch)
             global_step += 1
             last_logs = logs
@@ -217,6 +241,10 @@ class Trainer:
                     {**host_logs, **self.flow.current_lrs(self.state)})
                 if self.config.detect_anomaly:
                     self._check_anomaly(host_logs, global_step)
+            if self.video_logger is not None \
+                    and self.video_logger.should_log(global_step):
+                self._log_videos(batch, None, global_step, batch_idx,
+                                 "train")
         return last_logs, global_step
 
     def _fit_epoch_scanned(self, spec, limit, global_step: int):
@@ -272,6 +300,36 @@ class Trainer:
             f"{'...' if len(bad_params) > 5 else ''} "
             f"(full report in {self.log_dir}/anomaly.json)")
 
+    def _tb_video_callback(self, step: int):
+        """Hands each rendered clip to the logger's TensorBoard channel
+        too."""
+        def cb(video, clip_idx, fps, stage, meta):
+            self.logger.log_video(f"{stage}/video_{clip_idx}", video,
+                                  step, fps)
+        return cb
+
+    def _log_videos(self, batch, outputs, step: int, batch_idx: int,
+                    stage: str) -> None:
+        """The video logger's clips of ``batch``, from the eval step's
+        ``(preds, targets)`` in ``outputs`` (computed here when None, as
+        for a training batch). A failure is a warning: the videos never
+        end a run."""
+        try:
+            if outputs is None:
+                _, preds, targets = self.flow.eval_step(self.state.params,
+                                                        batch)
+            else:
+                preds, targets = outputs
+            self.video_logger.log_videos(
+                inputs=_host_tree(batch[0]), targets=_host_tree(targets),
+                projections=_host_tree({k: v for k, v in preds.items()
+                                        if v is not None}),
+                meta=_host_tree(batch[2]), step=step, batch_idx=batch_idx,
+                stage=stage, force=True,
+                vid_callback=self._tb_video_callback(step))
+        except Exception as e:
+            warnings.warn(f"{stage} video logging failed: {e!r}")
+
     # ------------------------------------------------------------------
     def evaluate(self, stage: str = "val",
                  limit: Optional[int] = None) -> Dict[str, Any]:
@@ -298,6 +356,9 @@ class Trainer:
                 loss_sums[k] = v if k not in loss_sums else loss_sums[k] + v
             if collection:
                 mstate = collection.update(mstate, preds, targets)
+            if count == 0 and self.video_logger is not None:
+                self._log_videos(batch, (preds, targets),
+                                 int(self.state.step), 0, stage)
             count += 1
         results: Dict[str, Any] = {}
         if count:

@@ -137,8 +137,37 @@ def test_port_has_the_serving_slice():
 
 
 #: what the card's machine lacks; the port imports them only where it reads
-#: or writes the data that needs them
-CPU_ONLY = ("pandas", "h5py", "yaml", "matplotlib")
+#: or writes the data that needs them, or draws (cv2)
+CPU_ONLY = ("pandas", "h5py", "yaml", "matplotlib", "cv2")
+
+
+def test_port_has_the_logging_slice():
+    """The loggers, renderers and tracing: each module at its JAX relative
+    path, walked by the isolation checks; every module of the port imports
+    in a fresh process with the CPU-only packages and tensorboard blocked
+    (the renderers import cv2, the TensorBoard channel tensorboard, only
+    where they draw or write)."""
+    modules = _port_modules()
+    slice_ = ("utils.profiling", "training.loggers", "renderers.renderer",
+              "renderers.points_renderer", "renderers.source_videos_renderer",
+              "data.base.video_mixin", "loggers.pedestrian_writer",
+              "loggers.pedestrian_logger")
+    for name in slice_:
+        assert f"pedestrians_video_2_carla_torch.{name}" in modules
+        path = name.replace(".", os.sep) + ".py"
+        assert os.path.exists(os.path.join(
+            REPO, "pedestrians_video_2_carla_tpu", path)), path
+    code = (
+        "import importlib, sys\n"
+        f"for name in {CPU_ONLY + ('tensorboard',)!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "print('IMPORTED')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "IMPORTED" in proc.stdout
 
 
 def _chip_smoke_imports():

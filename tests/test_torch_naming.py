@@ -37,7 +37,8 @@ def test_unnamed_runs_in_one_second_get_two_directories(tmp_path,
     import time
     monkeypatch.setattr(time, "time", lambda: 1.7e9)
     monkeypatch.setattr(time, "strftime", lambda *a: "20231114-221320")
-    argv = ["--mode=train", "--batch_size=2", "--clip_length=3",
+    argv = ["--mode=train", "--movements_model_name=LinearAE",
+            "--batch_size=2", "--clip_length=3",
             "--max_epochs=1", "--limit_train_batches=1", "--val_set_size=2",
             "--loss_modes", "loc_2d_3d", "--log_every_n_steps=1",
             "--device=cpu", f"--root_dir={tmp_path}"]

@@ -277,7 +277,12 @@ def test_cli_tune_and_export_modes(tmp_path):
 
 
 def test_cli_refuses_renderers(tmp_path):
-    with pytest.raises(NotImplementedError, match="M7"):
+    """The renderers that need CARLA or SMPL (M8) are not ported; a name
+    that no package renders is refused too."""
+    with pytest.raises(NotImplementedError, match="M8"):
+        modeling.main(["--renderers", "carla", "--device=cpu",
+                       f"--root_dir={tmp_path}"])
+    with pytest.raises(ValueError, match="unknown renderer"):
         modeling.main(["--renderers", "points", "--device=cpu",
                        f"--root_dir={tmp_path}"])
 

@@ -679,7 +679,8 @@ def test_trainer_sets_steps_per_epoch(tmp_path):
      "--loss_params_25=1.0"]],
     ids=["plateau_weighted", "steplr_clipped", "cosine_per_joint"])
 def test_cli_training_options(flags, tmp_path):
-    out = modeling.main(["--batch_size=2", "--clip_length=3",
+    out = modeling.main(["--movements_model_name=LinearAE",
+                         "--batch_size=2", "--clip_length=3",
                          "--max_epochs=2", "--limit_train_batches=2",
                          "--val_set_size=2", "--log_every_n_steps=1",
                          "--device=cpu", f"--root_dir={tmp_path}",

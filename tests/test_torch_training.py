@@ -503,8 +503,9 @@ def test_cli_trains_on_the_cpu(tmp_path):
 
 
 def test_cli_test_mode_evaluates_a_checkpoint(tmp_path):
-    common = ["--batch_size=2", "--clip_length=3", "--device=cpu",
-              "--loss_modes", "loc_2d_3d", f"--root_dir={tmp_path}"]
+    common = ["--movements_model_name=LinearAE", "--batch_size=2",
+              "--clip_length=3", "--device=cpu", "--loss_modes", "loc_2d_3d",
+              f"--root_dir={tmp_path}"]
     trained = modeling.main(["--mode=train", "--max_epochs=1",
                              "--limit_train_batches=2", "--run_name=a",
                              *common])
