@@ -484,6 +484,37 @@ Then group_recorded (the recorded data and the resident epoch):
                      (the median gap between an epoch's step records). The
                      video renderers need cv2, which the card's machine
                      lacks: a line says they are tested on the CPU only.
+ 47. train_pose_estimation -- group_pose_estimation: UniPoseLSTM at the
+                     JAX defaults (ResNet-101, output stride 16, heatmaps
+                     at stride 8, sigma 3, 64 ConvLSTM features; 256 x 256
+                     frames, 27 maps of 32 x 32), seeded weights drawn on
+                     the card: Trainer.fit of 10 steps (B=2, L=16) with
+                     the heatmaps loss on clips made on the card
+                     (CardClips: frames, keypoints, their heatmaps by the
+                     port's gaussian_heatmaps); finite losses, every
+                     parameter with a gradient and every running
+                     statistic moved; the step's ms; a validation
+                     batch's loss.
+ 48. serve_pose_estimation -- 8 requests of B=4 x L=16 frames through
+                     make_inference_fn: keypoints finite and in the frame;
+                     host-clock ms each and their median, the median
+                     under cuDNN TF32, and a CUDA-event split of one
+                     request (backbone; WASP, decoder and resizes; the
+                     ConvLSTM loop; head and argmax); the convolutions'
+                     FLOPs (unipose_conv_flops) and their rate.
+ 49. pe_card_vs_cpu -- one B=1 x L=2 batch through UniPoseLSTM on the
+                     card and on the CPU, at the seeded init and at the
+                     fit's weights: each output's deviation over max |CPU
+                     float64| (the card with cuDNN's TF32 off, cuDNN off,
+                     torch's default flags; the CPU in float32). Held: at
+                     the init the card's float32 within 1e-4 of the CPU's
+                     float32; the fit's (ill-conditioned: maps of 1e5,
+                     every float32 1e-4 to 1e-3 from float64) printed.
+ 50. pe_coverage  -- 3-step fits of P0, AvPedestrianPoseTransformer and
+                     Linear (B=2, L=8, loc_2d), an eval_step twice the
+                     same bits. The group's line: no pv2c kernel launched
+                     (no TPU kernel lies on this path) and its peak
+                     memory.
 Then the card line, the kernels line (config 2's, the train-options
 phase's, group_openpose's, group_serving's, group_recorded's and phase
 46's launches beside the dense LSTM, projection-training, graph-GRU and
@@ -7077,6 +7108,427 @@ def group_m7(card):
     return phase_m7_cli_logs_profile(card)
 
 
+#: the pose-estimation flow (group_pose_estimation): UniPoseLSTM at the JAX
+#: defaults (ResNet-101 at output stride 16, heatmaps at stride 8, sigma 3,
+#: 64 ConvLSTM features) on 256 x 256 frames, J = 26 (27 maps of 32 x 32):
+#: requests of B=4 x L=16, a fit of B=2 x L=16, the other models' fits at
+#: B=2 x L=8, the card-against-CPU batch of B=1 x L=2 and its bar
+PE_SIZE, PE_STRIDE, PE_SIGMA = 256, 8, 3.0
+PE_BATCH, PE_CLIP, PE_REQUESTS = 4, 16, REQUESTS
+PE_TRAIN_BATCH, PE_STEPS = 2, 10
+PE_COVER_BATCH, PE_COVER_CLIP, PE_COVER_STEPS = 2, 8, 3
+PE_CPU_BATCH, PE_CPU_CLIP, PE_BAR = 1, 2, 1e-4
+PE_TIMING_RUNS = 10
+
+
+class CardClips:
+    """A data module of clips made on the card, for the pose-estimation
+    flow without a video decode: frames N(0, 1) (B, L, 3, H, W), keypoints
+    drawn in the frame's middle, their heatmaps at the model's canvas by
+    the port's ``gaussian_heatmaps`` and their hips-neck normalised form."""
+
+    def __init__(self, batch_size, clip_length, train, val, seed):
+        from pedestrians_video_2_carla_torch.ops.heatmaps import \
+            gaussian_heatmaps
+        from pedestrians_video_2_carla_torch.ops.normalization import \
+            normalize_with
+        from pedestrians_video_2_carla_torch.skeletons.carla import \
+            CARLA_SKELETON
+
+        self.device = torch.device("cuda", torch.cuda.current_device())
+        self.batch_size, self.clip_length = batch_size, clip_length
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        canvas = PE_SIZE // PE_STRIDE
+
+        def batch():
+            shape = (batch_size, clip_length)
+            frames = torch.randn(shape + (3, PE_SIZE, PE_SIZE),
+                                 generator=gen, device=self.device)
+            kp = PE_SIZE * (0.25 + 0.5 * torch.rand(
+                shape + (len(CARLA_SKELETON), 2), generator=gen,
+                device=self.device))
+            targets = {
+                "projection_2d": kp,
+                "projection_2d_transformed": normalize_with(
+                    kp, CARLA_SKELETON, extractor="hips_neck")[0],
+                "heatmaps": gaussian_heatmaps(kp / PE_STRIDE,
+                                              (canvas, canvas), PE_SIGMA)}
+            meta = {"age_gender_idx": torch.zeros(
+                batch_size, dtype=torch.int64, device=self.device)}
+            return frames, targets, meta
+        self._train = [batch() for _ in range(train)]
+        self._val = [batch() for _ in range(val)]
+        self.train_set_size = train * batch_size
+        self.val_set_size = val * batch_size
+        self.hparams = {"card_clips": True}
+
+    @staticmethod
+    def uses_infinite_train_set():
+        return False
+
+    def train_batches(self, seed=0):
+        return iter(self._train)
+
+    def train_stream(self, seed=0):
+        return self.train_batches(seed), None
+
+    def val_batches(self):
+        return iter(self._val)
+
+
+def make_pe_flow(name="UniPoseLSTM", loss="heatmaps", device=None):
+    """The pose-estimation flow of ``name`` at its defaults (Linear at the
+    group's frame size), weights drawn on the card from the seed."""
+    from pedestrians_video_2_carla_torch.flows.pose_estimation import \
+        PoseEstimationFlow
+    from pedestrians_video_2_carla_torch.models.base import OptimizerSettings
+    from pedestrians_video_2_carla_torch.models.pose_estimation import \
+        POSE_ESTIMATION_MODELS
+
+    kwargs = {"video_size": (PE_SIZE, PE_SIZE)} if name == "Linear" else {}
+    model = POSE_ESTIMATION_MODELS[name](
+        generator=torch.Generator(device="cuda").manual_seed(SEED), **kwargs)
+    if name == "UniPoseLSTM" and (
+            model.backbone, model.output_stride, model.stride, model.sigma,
+            model.lstm_features) != ("resnet101", 16, PE_STRIDE, PE_SIGMA,
+                                     64):
+        raise AssertionError("UniPoseLSTM's defaults changed")
+    return PoseEstimationFlow(model, loss_modes=[loss],
+                              movements_optimizer=OptimizerSettings(lr=LR),
+                              seed=SEED, device=device)
+
+
+def pe_stats(tree):
+    return {k: v for k, v in tree.items() if "running_" in k}
+
+
+def phase_train_pose_estimation():
+    """Trainer.fit of UniPoseLSTM with the heatmaps loss on card clips
+    (no validation pass in the fit, so no checkpoint of its 0.6 GB is
+    written): finite losses, every parameter whose gradient is not all
+    zero moved, every running statistic moved; the step's ms (the median
+    gap between the fit's step records) and a validation batch's loss."""
+    from pedestrians_video_2_carla_torch.training.trainer import (
+        Trainer, TrainerConfig)
+
+    t0 = time.perf_counter()
+    flow = make_pe_flow()
+    dm = CardClips(PE_TRAIN_BATCH, PE_CLIP, PE_STEPS, 1, SEED + 31)
+    start = {k: v.clone() for k, v in flow.init_params()["movements"]
+             .items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(flow, dm, TrainerConfig(
+            max_epochs=1, limit_train_batches=PE_STEPS,
+            check_val_every_n_epoch=2, log_every_n_steps=1, seed=SEED,
+            logs_dir=tmp, run_name="pe", skip_initial_metrics=True))
+        t_fit = time.perf_counter()
+        state = trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t_fit
+        run = os.path.join(tmp, "pe")
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        step_ms = step_gap_ms(run)
+    losses = [r["train_loss/heatmaps"] for r in records
+              if "lr-movements" in r]
+    val_loss = float(flow.eval_step(state.params, dm._val[0])[0][
+        "heatmaps"])
+    if len(losses) != PE_STEPS or not all(np.isfinite(losses)) \
+            or not np.isfinite(val_loss):
+        raise AssertionError(f"pose-estimation fit: losses {losses}, "
+                             f"validation {val_loss}")
+    tree = state.params["movements"]
+    trained = {k for k, v in tree.items() if v.requires_grad}
+    # a leaf whose gradient is exactly 0 (WASP's branch projections'
+    # biases, whose constant the BatchNorm after the fusing conv takes
+    # out) need not move; every other must
+    unmoved = sorted(k for k in trained if torch.equal(tree[k], start[k])
+                     and tree[k].grad is not None and tree[k].grad.any())
+    zero_grad = sorted(k for k in trained if tree[k].grad is None
+                       or not tree[k].grad.any())
+    stats_moved = {k: float((v - start[k]).abs().max())
+                   for k, v in pe_stats(tree).items()}
+    if unmoved or len(zero_grad) > 4 \
+            or min(stats_moved.values()) <= 0.0:
+        raise AssertionError(f"unmoved parameters {unmoved[:5]}, zero "
+                             f"gradients {zero_grad[:5]}, running "
+                             f"statistics {min(stats_moved.values())}")
+    emit({"phase": "train_pose_estimation", "B": PE_TRAIN_BATCH,
+          "L": PE_CLIP, "frames": PE_TRAIN_BATCH * PE_CLIP, "steps": PE_STEPS,
+          "losses": losses, "val_batch_loss": val_loss,
+          "parameters": len(trained), "zero_gradient_leaves": zero_grad,
+          "running_stats": len(stats_moved),
+          "running_stats_moved_min": min(stats_moved.values()),
+          "fit_s": fit_s, "train_step_ms_host": step_ms,
+          "method": "the step: the median gap between the fit's step "
+                    "records (host clock, each after its logs are read)",
+          "seconds": time.perf_counter() - t0})
+    return flow, state
+
+
+def request_split(model, params, inputs):
+    """CUDA events between a request's stages, medians over
+    PE_TIMING_RUNS passes: the backbone; WASP, the decoder and the resizes;
+    the ConvLSTM loop; the head and the argmax decode."""
+    from torch.func import functional_call
+
+    from pedestrians_video_2_carla_torch.models.pose_estimation import \
+        unipose_lstm as U
+    from pedestrians_video_2_carla_torch.ops.heatmaps import \
+        keypoints_from_heatmaps
+
+    names = ("backbone", "wasp_decoder_resizes", "conv_lstm",
+             "head_argmax")
+    B, L, C, H, W = inputs.shape
+    hh, ww = H // model.stride, W // model.stride
+
+    def sub(name):
+        prefix = f"{name}."
+        return {k[len(prefix):]: v for k, v in params.items()
+                if k.startswith(prefix)}
+    subs = {n: sub(n) for n in ("ResNet_0", "WASP_0", "Decoder_0",
+                                "conv_lstm", "head")}
+
+    def call(name, *args):
+        return functional_call(getattr(model, name), subs[name], args)
+
+    def stages():
+        frames = inputs.reshape(B * L, C, H, W)
+        centre = model.centermap(H, W, inputs.device)
+        frames = torch.cat([frames, centre.expand(B * L, 1, H, W)], dim=1)
+        high, low = call("ResNet_0", frames)
+        yield
+        maps = call("Decoder_0", call("WASP_0", high), low)
+        maps = U.resize_bilinear(maps, (hh, ww))
+        yield
+        smoothed = call("conv_lstm", maps.reshape(B, L, -1, hh, ww))
+        yield
+        out = call("head", smoothed.reshape(B * L, -1, hh, ww))
+        keypoints_from_heatmaps(out.reshape(B, L, -1, hh, ww))
+        yield
+
+    split = {n: [] for n in names}
+    with torch.no_grad():
+        for run in range(PE_TIMING_RUNS + 2):
+            events = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(len(names) + 1)]
+            events[0].record()
+            for i, _ in enumerate(stages()):
+                events[i + 1].record()
+            events[-1].synchronize()
+            if run >= 2:
+                for i, n in enumerate(names):
+                    split[n].append(events[i].elapsed_time(events[i + 1]))
+    return {n: statistics.median(v) for n, v in split.items()}
+
+
+def unipose_conv_flops(model, run, B, L, H, W):
+    """The FLOPs (2 x multiply-adds) of every convolution of one UniPoseLSTM
+    forward over B x L frames of H x W: the ``nn.Conv2d`` modules ``run``
+    calls, counted by forward hooks from their outputs' shapes, and the
+    ConvLSTM's products (its input half and its hidden half over every
+    frame), which call ``F.conv2d`` on slices of its weight. BatchNorm, the resizes and the gating are left out."""
+    total = [0]
+
+    def hook(module, inputs, out):
+        kh, kw = module.kernel_size
+        total[0] += 2 * out.numel() * module.in_channels // module.groups \
+            * kh * kw
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, torch.nn.Conv2d) and m is not
+               model.conv_lstm.Conv_0]
+    try:
+        run()
+    finally:
+        for h in handles:
+            h.remove()
+    C = model.lstm_features
+    hw = (H // model.stride) * (W // model.stride)
+    lstm = 2 * 9 * C * 4 * C * hw * 2 * B * L
+    return total[0] + lstm
+
+
+def phase_serve_pose_estimation(flow, params, card, hbm_rate):
+    """8 requests of B=4 x L=16 frames through make_inference_fn (the
+    script's flags, TF32 off): keypoints in the frame, finite; the host
+    clock's median, the same under torch's default flags (cuDNN TF32 on),
+    and a CUDA-event split of one request."""
+    from pedestrians_video_2_carla_torch.serving import make_inference_fn
+
+    t0 = time.perf_counter()
+    dm = CardClips(PE_BATCH, PE_CLIP, 0, PE_REQUESTS, SEED + 37)
+    infer = make_inference_fn(flow, params)
+    times = []
+    for inputs, _, meta in dm.val_batches():
+        t = time.perf_counter()
+        preds = infer(inputs, meta["age_gender_idx"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        kp = preds["projection_2d"]
+        if kp.shape != (PE_BATCH, PE_CLIP, 26, 2) \
+                or not torch.isfinite(kp).all() or kp.min() < 0 \
+                or kp.max() >= PE_SIZE \
+                or set(preds) != {"projection_2d",
+                                  "projection_2d_transformed"}:
+            raise AssertionError(f"request: {tuple(kp.shape)}, "
+                                 f"{sorted(preds)}")
+    inputs, _, meta = dm._val[0]
+    request = functools.partial(infer, inputs, meta["age_gender_idx"])
+    flags = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True    # torch's default
+    try:
+        tf32_ms = host_median_ms(request, runs=PE_TIMING_RUNS)
+    finally:
+        torch.backends.cudnn.allow_tf32 = flags
+    split = request_split(flow.movements_model, params["movements"], inputs)
+    request_ms_cuda = cuda_median_ms(request, runs=PE_TIMING_RUNS)
+    flops = unipose_conv_flops(flow.movements_model, request, PE_BATCH,
+                               PE_CLIP, PE_SIZE, PE_SIZE)
+    emit({"phase": "serve_pose_estimation", "card": card, "B": PE_BATCH,
+          "L": PE_CLIP, "frames": PE_BATCH * PE_CLIP, "size": PE_SIZE,
+          "requests": len(times), "request_ms_host_each": times,
+          "request_ms_host_median": statistics.median(times),
+          "request_ms_cuda_events": request_ms_cuda,
+          "request_ms_host_median_cudnn_tf32": tf32_ms,
+          "split_ms_cuda_events": split,
+          "split_sum_ms": sum(split.values()),
+          "conv_gflop_per_request": flops / 1e9,
+          "conv_gflop_per_frame": flops / 1e9 / (PE_BATCH * PE_CLIP),
+          "conv_tflops_fp32": flops / request_ms_cuda / 1e9,
+          "conv_tflops_cudnn_tf32": flops / tf32_ms / 1e9,
+          "bound_ms_fp32_peak": flops / FP32_PEAK * 1e3,
+          "method": "host clock to torch.cuda.synchronize() around each "
+                    "request; the TF32 time and the CUDA-event times are "
+                    "medians of %d after warm-ups; the split records an "
+                    "event after each stage of the model run stage by "
+                    "stage; FLOPs: unipose_conv_flops; the TF32 rate over "
+                    "the host clock's median" % PE_TIMING_RUNS,
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_pe_card_vs_cpu(flow, weights):
+    """One B=1 x L=2 batch through UniPoseLSTM on the card and on the CPU
+    with the same weights, ``weights`` by name: the seeded init and the
+    fit's. Each output's largest deviation over max |CPU float64|, on the
+    card with cuDNN's TF32 off, with cuDNN off and under torch's default
+    flags (cuDNN TF32 on), and on the CPU in float32. Held: at the init,
+    the card's float32 within PE_BAR of the CPU's float32. Printed: the
+    rest, and the fit's weights, whose evaluation is ill-conditioned (10
+    steps leave the running statistics 90 % their init, the decoder's
+    maps reach 1e5, and every float32 result lands 1e-4 to 1e-3 from
+    float64, the CPU's too, by how the fit's steps fell)."""
+    import copy
+
+    from torch.func import functional_call
+
+    t0 = time.perf_counter()
+    model = flow.movements_model
+    x = torch.randn(PE_CPU_BATCH, PE_CPU_CLIP, 3, PE_SIZE, PE_SIZE,
+                    generator=torch.Generator().manual_seed(SEED + 41))
+    cpu32 = copy.deepcopy(model).cpu()
+    cpu64 = copy.deepcopy(model).cpu().double()
+    report = {}
+    with torch.no_grad():
+        for wname, tree in weights.items():
+            ref = functional_call(cpu64, {k: v.cpu().double() for k, v in
+                                          tree.items()}, (x.double(),))
+            outs = {"cpu_fp32": functional_call(
+                cpu32, {k: v.cpu() for k, v in tree.items()}, (x,))}
+            flags = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cudnn.enabled)
+            try:
+                for name, tf32, enabled in (
+                        ("card_fp32", False, True),
+                        ("card_fp32_cudnn_off", False, False),
+                        ("card_torch_default_flags", True, True)):
+                    torch.backends.cudnn.allow_tf32 = tf32
+                    torch.backends.cudnn.enabled = enabled
+                    outs[name] = functional_call(model, tree,
+                                                 (x.cuda(),)).cpu()
+            finally:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cudnn.enabled) = flags
+            if not all(torch.isfinite(o).all() for o in outs.values()):
+                raise AssertionError(f"{wname}: not finite")
+            scale = float(ref.abs().max())
+            errs = {n: float((o.double() - ref).abs().max()) / scale
+                    for n, o in outs.items()}
+            errs["card_fp32_vs_cpu_fp32"] = float(
+                (outs["card_fp32"] - outs["cpu_fp32"]).abs().max()
+                / outs["cpu_fp32"].abs().max())
+            errs["max_abs_f64"] = scale
+            report[wname] = errs
+    if report["init"]["card_fp32_vs_cpu_fp32"] > PE_BAR:
+        raise AssertionError(f"UniPoseLSTM card vs CPU: {report}")
+    emit({"phase": "pe_card_vs_cpu", "B": PE_CPU_BATCH, "L": PE_CPU_CLIP,
+          "size": PE_SIZE, "max_err_over_max_f64": report, "bar": PE_BAR,
+          "held": "init: card_fp32_vs_cpu_fp32 <= bar; the rest printed",
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_pe_coverage():
+    """3-step fits of P0, AvPedestrianPoseTransformer and Linear at B=2 x
+    L=8 on card clips with loc_2d: finite losses; an eval_step twice, the
+    same bits."""
+    t0 = time.perf_counter()
+    models = {}
+    for name in ("P0", "AvPedestrianPoseTransformer", "Linear"):
+        t = time.perf_counter()
+        flow = make_pe_flow(name, loss="loc_2d")
+        dm = CardClips(PE_COVER_BATCH, PE_COVER_CLIP, PE_COVER_STEPS, 1,
+                       SEED + 43)
+        state = flow.init_state()
+        losses = [float(flow.training_step(state, b)[1]["train_loss/loc_2d"])
+                  for b in dm.train_batches()]
+        batch = dm._val[0]
+        first = flow.eval_step(state.params, batch)[1]
+        second = flow.eval_step(state.params, batch)[1]
+        if not all(np.isfinite(losses)) or any(
+                not torch.equal(first[k], second[k]) for k in first
+                if first[k] is not None):
+            raise AssertionError(f"{name}: losses {losses}")
+        models[name] = {"losses": losses,
+                        "params": flow.param_counts(state)["movements"],
+                        "seconds": time.perf_counter() - t}
+        del flow, state, dm
+        torch.cuda.empty_cache()
+    emit({"phase": "pe_coverage", "B": PE_COVER_BATCH, "L": PE_COVER_CLIP,
+          "size": PE_SIZE, "models": models,
+          "seconds": time.perf_counter() - t0})
+
+
+def group_pose_estimation(card, hbm_rate):
+    """The pose-estimation flow (no TPU kernel on its path: the JAX
+    package runs its convolutions, BatchNorms, resizes and ConvLSTM
+    outside Pallas, and the port on cuDNN and PyTorch's ops): UniPoseLSTM
+    at full width trained, served and held to the CPU, the other models'
+    short fits; no pv2c kernel launches; the group's peak memory."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    flow, state = phase_train_pose_estimation()
+    params = {n: {k: v.detach() for k, v in t.items()}
+              for n, t in state.params.items()}
+    del state
+    torch.cuda.empty_cache()
+    phase_serve_pose_estimation(flow, params, card, hbm_rate)
+    phase_pe_card_vs_cpu(flow, {"init": flow.init_params()["movements"],
+                                "fit": params["movements"]})
+    del flow, params
+    torch.cuda.empty_cache()
+    phase_pe_coverage()
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    if counts != expected_counts():
+        raise AssertionError(f"the pose-estimation path launched {counts}")
+    emit({"phase": "group_pose_estimation", "kernel_launches": counts,
+          "max_memory_allocated_gib":
+              torch.cuda.max_memory_allocated() / 2 ** 30,
+          "seconds": time.perf_counter() - t0})
+
+
 def kernel_entry(name, source, replaces, launches, max_err, times):
     """One entry of the kernels line; ``replaces`` is the TPU kernel's
     ``file:line`` under the JAX package's ops/pallas/."""
@@ -7236,6 +7688,7 @@ def main():
         entry = next(e for e in kernels if e["name"] == name)
         entry["launches"] += extra["launches_cli_profiled"]
         entry.update(extra)
+    group_pose_estimation(card, hbm_rate)
 
     print(card, flush=True)
     emit({"kernels": kernels})

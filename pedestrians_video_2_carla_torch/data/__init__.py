@@ -11,19 +11,24 @@ def register_datamodule(name: str, cls: type) -> None:
 
 def discover() -> Dict[str, type]:
     """Import the ported datamodule packages and register them. None of
-    them imports pandas, h5py or yaml before it reads or writes data."""
+    them imports pandas, h5py, yaml or cv2 before it reads or writes
+    data."""
     from .carla.carla_2d3d import Carla2D3DDataModule
     from .carla.carla_recorded import (CarlaBenchmarkDataModule,
-                                       CarlaRecordedDataModule)
+                                       CarlaRecordedDataModule,
+                                       CarlaRecordedVideoDataModule)
     from .openpose.datamodules import (JAADBenchmarkDataModule,
                                        JAADOpenPoseDataModule,
                                        PIEBenchmarkDataModule,
                                        PIEOpenPoseDataModule)
+    from .unipose.jaad_unipose import JAADUniPoseDataModule
     register_datamodule("Carla2D3D", Carla2D3DDataModule)
     register_datamodule("CarlaRecorded", CarlaRecordedDataModule)
     register_datamodule("CarlaBenchmark", CarlaBenchmarkDataModule)
+    register_datamodule("CarlaRecordedVideo", CarlaRecordedVideoDataModule)
     register_datamodule("JAADOpenPose", JAADOpenPoseDataModule)
     register_datamodule("PIEOpenPose", PIEOpenPoseDataModule)
     register_datamodule("JAADBenchmark", JAADBenchmarkDataModule)
     register_datamodule("PIEBenchmark", PIEBenchmarkDataModule)
+    register_datamodule("JAADUniPose", JAADUniPoseDataModule)
     return dict(DATA_MODULES)

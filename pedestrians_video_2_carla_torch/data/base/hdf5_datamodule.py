@@ -114,6 +114,10 @@ class Hdf5DataModule(BaseDataModule):
         super().__init__(**kwargs)
         #: keep each numeric subset on the device (module docstring)
         self.device_resident = device_resident
+        #: the streamed batches' metas also carry the string metas (as
+        #: numpy arrays, on the host), for a consumer that reads them
+        #: before the batch reaches the model (the video data modules)
+        self._keep_string_meta = False
         #: read only the start of the source data (the CSV's first 18,000
         #: rows, ``PandasDataModuleMixin._read_data``)
         self._fast_dev_run = fast_dev_run
@@ -442,6 +446,10 @@ class Hdf5DataModule(BaseDataModule):
                                  if _numeric(v)}
             batch_meta = {k: _host(v[idx]) for k, v in meta.items()
                           if _numeric(v)}
+            if self._keep_string_meta:
+                batch_meta.update({k: np.asarray(v)[idx]
+                                   for k, v in meta.items()
+                                   if not _numeric(v)})
             yield (_host(raw), batch_targets, batch_meta,
                    batch_seed(stream, b) if draws else None)
 
@@ -452,7 +460,8 @@ class Hdf5DataModule(BaseDataModule):
         raw, targets, meta, seed = host
         device = self.device
         targets = {k: v.to(device) for k, v in targets.items()}
-        meta = {k: v.to(device) for k, v in meta.items()}
+        meta = {k: v.to(device) if isinstance(v, torch.Tensor) else v
+                for k, v in meta.items()}
         generator = None
         if seed is not None:
             generator = torch.Generator(device=device)

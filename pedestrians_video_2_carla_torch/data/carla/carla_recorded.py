@@ -6,7 +6,8 @@ bboxes and the pose's locations and rotations as targets (the last three
 columns of a transform are euler degrees, turned into "XYZ" matrices
 without the CARLA -> PyTorch3D negation, as in the JAX package).
 ``CarlaBenchmarkDataModule`` adds each video's ``crossing_point`` and
-``crossing``. ``pandas`` is imported only where the CSV is read and the
+``crossing``; ``CarlaRecordedVideoDataModule`` feeds the clips' decoded
+frames (``data/base/video_mixin.py``). ``pandas`` is imported only where the CSV is read and the
 clips are split.
 
 :func:`recorded_subset` builds a subset in memory with the fields, shapes
@@ -25,6 +26,7 @@ from ..base.classification_mixin import (BenchmarkDataModuleMixin,
                                          ClassificationDataModuleMixin)
 from ..base.hdf5_datamodule import Hdf5DataModule
 from ..base.pandas_mixin import PandasDataModuleMixin
+from ..base.video_mixin import VideoDataModuleMixin
 
 CARLA_RECORDED_DEFAULT_SET_NAME = "default"
 #: the classification label of the recorded clips
@@ -254,3 +256,9 @@ class CarlaBenchmarkDataModule(BenchmarkDataModuleMixin,
             df = df.groupby(level=list(range(len(self.primary_index))),
                             group_keys=False).apply(per_video)
         return df
+
+
+class CarlaRecordedVideoDataModule(VideoDataModuleMixin,
+                                   CarlaRecordedDataModule):
+    """CarlaRecorded with the clips' frames, decoded from the recordings
+    beside ``data.csv``, as inputs."""

@@ -252,6 +252,11 @@ class BaseFlow:
         """Whether the data module's inputs carry a confidence channel."""
         return getattr(self.movements_model, "needs_confidence", False)
 
+    @property
+    def needs_heatmaps(self) -> bool:
+        """Whether the data module's targets carry heatmaps."""
+        return getattr(self.movements_model, "needs_heatmaps", False)
+
     # -- metrics -----------------------------------------------------------
     def get_metrics(self) -> Dict[str, Any]:
         """The metrics accumulated over every evaluation pass."""

@@ -1,10 +1,10 @@
 """Loss registry with dependency resolution: the primitives ``loc_2d``
 (and its alias ``common_loc_2d``), ``loc_3d``, ``rot_3d``,
-``cum_pose_changes``, ``pose_changes`` and ``per_joint_loc_2d``, and the
-composite sums of the JAX package's ``losses/__init__.py``. Losses are pure
-functions of a ``LossContext``; "loss not available" (a missing target key
-or a None tensor) is decided from the batch's keys, before any arithmetic.
-``heatmaps`` is not ported yet (see ``ROADMAP.md``)."""
+``cum_pose_changes``, ``pose_changes``, ``per_joint_loc_2d`` and
+``heatmaps``, and the composite sums of the JAX package's
+``losses/__init__.py``. Losses are pure functions of a ``LossContext``;
+"loss not available" (a missing target key or a None tensor) is decided
+from the batch's keys, before any arithmetic."""
 from dataclasses import dataclass, field
 from enum import Enum
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
@@ -191,6 +191,29 @@ def loss_per_joint_loc_2d(ctx: LossContext) -> Optional[torch.Tensor]:
     return (per_joint * weights).sum()
 
 
+def loss_heatmaps(ctx: LossContext) -> Optional[torch.Tensor]:
+    """The per-frame MSE of the heatmaps (B, L, C, h, w), the background
+    channel included, summed over the frames' mean over the clips. With
+    ``mask_missing_joints`` a channel whose target map is all zero (a
+    missing joint) is left out of its frame's mean."""
+    pred = ctx.sliced.get("heatmaps")
+    gt = ctx.targets.get("heatmaps")
+    if pred is None or gt is None:
+        return None
+    sq = (pred - gt) ** 2
+    frame_dims = tuple(range(2, sq.ndim))
+    if ctx.mask_missing_joints:
+        present = (gt != 0).any(dim=-1).any(dim=-1)  # (B, L, C)
+        m = present[..., None, None].to(sq.dtype)
+        counts = present.to(sq.dtype).sum(dim=-1) \
+            * (sq.shape[-2] * sq.shape[-1])
+        per_frame = (sq * m).sum(dim=frame_dims) \
+            / torch.clamp(counts, min=1.0)
+    else:
+        per_frame = sq.mean(dim=frame_dims)
+    return per_frame.mean(dim=0).sum()
+
+
 def _composite(names: Sequence[str], weighted: bool = False):
     def fn(ctx: LossContext) -> Optional[torch.Tensor]:
         try:
@@ -220,6 +243,7 @@ class LossModes(Enum):
         ("loc_2d", "loc_3d", "rot_3d"))
     loc_rot_3d = (_composite(("loc_3d", "rot_3d")), ("loc_3d", "rot_3d"))
     per_joint_loc_2d = (loss_per_joint_loc_2d, ())
+    heatmaps = (loss_heatmaps, ())
 
 
 def resolve_loss_modes(loss_modes: Sequence) -> List[LossModes]:

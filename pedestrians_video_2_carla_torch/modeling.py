@@ -12,6 +12,11 @@
         --movements_output_type=pose_2d --loss_modes loc_2d \
         --rnn_kernel fused ...
 
+    python -m pedestrians_video_2_carla_torch --flow=pose_estimation \
+        --data_module_name=CarlaRecordedVideo \
+        --movements_model_name=UniPoseLSTM --loss_modes heatmaps \
+        --video_size 256 256 --heatmaps_stride 8 ...
+
 The chosen model's constructor arguments are flags as well
 (``--receptive_frames``, ``--depth``, ``--hidden_size``, ``--k``,
 ``--graph_kernel``, ``--rnn_kernel``, ...; ``--clip_length`` feeds both the
@@ -25,9 +30,15 @@ type whose ``--{type}_lr`` is not given). Logs and checkpoints go to
 ``--ckpt_path`` ending in ``.ckpt``, ``.pth`` or ``.pt`` that is not the
 port's own archive is a reference torch checkpoint, whose movements-model
 weights load through ``Trainer.restore_torch``. The data
-modules are the JAX CLI's by name (``Carla2D3D``, ``JAADOpenPose``,
-``PIEOpenPose``, ``JAADBenchmark``, ``PIEBenchmark``; ``--subsets_dir``
-trains on an existing HDF5 subsets tree), with its DataModule flags. An
+modules are the JAX CLI's by name (``Carla2D3D``, ``CarlaRecorded``,
+``CarlaBenchmark``, ``CarlaRecordedVideo``, ``JAADOpenPose``,
+``PIEOpenPose``, ``JAADBenchmark``, ``PIEBenchmark``, ``JAADUniPose``;
+``--subsets_dir`` trains on an existing HDF5 subsets tree), with its
+DataModule flags. The pose-estimation flow takes clips of frames from a
+video data module (``--video_size``, ``--crop_to_bbox``,
+``--heatmaps_sigma``, ``--heatmaps_stride``), and only it does;
+``--pretrained_backbone_path`` grafts a local torchvision ResNet file onto
+its model's backbone before any ``--ckpt_path``. An
 unnamed run gets a directory of its own (``utils/naming.py``). It runs
 on the card unless ``--device cpu`` is given. A flow, data module, model,
 loss or renderer that the JAX package has but the port does not yet raises
@@ -65,7 +76,9 @@ from . import data as data_registry
 from .data.base.subsets_datamodule import SubsetsDataModule
 from .flows.autoencoder import AutoencoderFlow
 from .flows.classification import ClassificationFlow
+from .data.base.video_mixin import VideoDataModuleMixin
 from .flows.output_types import MovementsModelOutputType
+from .flows.pose_estimation import PoseEstimationFlow
 from .flows.pose_lifting import PoseLiftingFlow
 from .loggers.pedestrian_logger import PedestrianLogger
 from .loggers.pedestrian_writer import RENDERERS, check_renderers
@@ -75,6 +88,8 @@ from .models.classification import CLASSIFICATION_MODELS
 from .models.classification.common import ClassificationModel
 from .models.movements import MOVEMENTS_MODELS
 from .models.movements.common import MovementsModel
+from .models.pose_estimation import POSE_ESTIMATION_MODELS
+from .models.pose_estimation.linear import PoseEstimationModel
 from .models.trajectory import TRAJECTORY_MODELS
 from .ops.projection import KERNELS
 from .serving import export_inference
@@ -89,7 +104,10 @@ DEFAULT_SEED = 22742
 
 FLOWS = {"pose_lifting": PoseLiftingFlow,
          "classification": ClassificationFlow,
-         "autoencoder": AutoencoderFlow}
+         "autoencoder": AutoencoderFlow,
+         "pose_estimation": PoseEstimationFlow}
+#: each flow's default model, as the JAX flows' ``get_default_models``
+DEFAULT_MODELS = {"pose_estimation": "UniPoseLSTM"}
 DATA_MODULES = data_registry.discover()
 MODES = ("train", "tune", "test", "predict", "export")
 
@@ -149,7 +167,8 @@ def model_params(model_cls) -> Dict[str, Any]:
                 if name not in _NOT_FLAGS and name not in params \
                         and isinstance(p.default, (bool, int, float, str)):
                     params[name] = p.default
-        if cls in (MovementsModel, ClassificationModel):
+        if cls in (MovementsModel, ClassificationModel,
+                   PoseEstimationModel):
             break
     return params
 
@@ -177,6 +196,7 @@ def make_parser(argv: Optional[List[str]] = None) -> argparse.ArgumentParser:
         prog="pedestrians_video_2_carla_torch",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     parser.add_argument("--flow", default="pose_lifting")
+    flow = parser.parse_known_args(argv)[0].flow
     parser.add_argument("--mode", default="train")
     parser.add_argument("--data_module_name", default="Carla2D3D")
     parser.add_argument("--predict_sets", nargs="+", default=["test"])
@@ -188,7 +208,8 @@ def make_parser(argv: Optional[List[str]] = None) -> argparse.ArgumentParser:
                              "symbolic batch dimension: one artifact serves "
                              "any batch size; requires --projection_kernel "
                              "plain")
-    parser.add_argument("--movements_model_name", default="LSTM")
+    parser.add_argument("--movements_model_name",
+                        default=DEFAULT_MODELS.get(flow, "LSTM"))
     parser.add_argument("--classification_model_name", default="LSTM")
     parser.add_argument("--trajectory_model_name", default="ZeroTrajectory")
     parser.add_argument("--seed", type=int, default=DEFAULT_SEED)
@@ -198,6 +219,10 @@ def make_parser(argv: Optional[List[str]] = None) -> argparse.ArgumentParser:
                              "<root_dir>/logs/<flow>)")
     parser.add_argument("--run_name", default=None)
     parser.add_argument("--ckpt_path", default=None)
+    parser.add_argument("--pretrained_backbone_path", default=None,
+                        help="a local torchvision ResNet-50/101 state_dict "
+                             "(.pth) grafted onto the pose-estimation "
+                             "model's backbone")
     parser.add_argument("--device", default=None,
                         help="cuda (the default) or cpu")
     add_logging_args(parser)
@@ -345,6 +370,13 @@ def add_datamodule_args(parser: argparse.ArgumentParser) -> None:
     group.add_argument("--classification_targets_key", default=None)
     group.add_argument("--tte", nargs=2, type=int, default=[30, 60],
                        help="the benchmark's time-to-event window")
+    group.add_argument("--video_size", nargs=2, type=int, default=[256, 256],
+                       help="the decoded frames' size (H W)")
+    group.add_argument("--crop_to_bbox", type=boolean, default=True,
+                       help="square-crop the frames to the pedestrian's "
+                            "bbox")
+    group.add_argument("--heatmaps_sigma", type=float, default=3.0)
+    group.add_argument("--heatmaps_stride", type=int, default=8)
     group.add_argument("--device_resident", type=boolean, default=False,
                        help="keep the HDF5 subsets on the device: batches "
                             "are gathered and preprocessed there, and a "
@@ -398,7 +430,25 @@ def chosen_model(args):
     """(the registry, the name) of the model the chosen flow trains."""
     if args.flow == "classification":
         return CLASSIFICATION_MODELS, args.classification_model_name
+    if args.flow == "pose_estimation":
+        return POSE_ESTIMATION_MODELS, args.movements_model_name
     return MOVEMENTS_MODELS, args.movements_model_name
+
+
+def check_inputs(flow: str, dm_cls) -> None:
+    """Frames feed the pose-estimation flow, and it takes nothing else: a
+    video data module with another flow, or the pose-estimation flow on
+    keypoints, raises ``ValueError`` before any model is built."""
+    videos = isinstance(dm_cls, type) \
+        and issubclass(dm_cls, VideoDataModuleMixin)
+    if videos != (flow == "pose_estimation"):
+        video_modules = sorted(n for n, c in DATA_MODULES.items()
+                               if issubclass(c, VideoDataModuleMixin))
+        raise ValueError(
+            f"--flow={flow} with --data_module_name={dm_cls.__name__}: "
+            f"the pose-estimation flow takes the frames of a video data "
+            f"module ({video_modules}), and the other flows take "
+            f"keypoints")
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
@@ -431,6 +481,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     # --data_nodes names one; the model reads --input_nodes, else that,
     # and outputs --output_nodes, else its input skeleton
     dm_cls = DATA_MODULES[args.data_module_name]
+    check_inputs(args.flow, SubsetsDataModule if args.subsets_dir
+                 else dm_cls)
     data_nodes = args.data_nodes or getattr(dm_cls, "default_data_nodes",
                                             None)
     input_nodes = args.input_nodes or data_nodes
@@ -440,10 +492,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     takes = set().union(*(inspect.signature(c.__init__).parameters
                           for c in model_cls.__mro__
                           if "__init__" in vars(c)))
-    for key, nodes in (("input_nodes", input_nodes),
-                       ("output_nodes", output_nodes)):
-        if nodes is not None and key in takes:
-            model_kwargs[key] = nodes
+    for key, value in (("input_nodes", input_nodes),
+                       ("output_nodes", output_nodes),
+                       ("video_size", tuple(args.video_size))):
+        if value is not None and key in takes:
+            model_kwargs[key] = value
     generator = torch.Generator().manual_seed(args.seed)
     if args.flow == "classification":
         flow = ClassificationFlow(
@@ -489,6 +542,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         batch_size=args.batch_size, clip_length=args.clip_length,
         transform=args.transform,
         needs_confidence=getattr(flow, "needs_confidence", False),
+        needs_heatmaps=getattr(flow, "needs_heatmaps", False),
+        video_size=tuple(args.video_size), crop_to_bbox=args.crop_to_bbox,
+        heatmaps_sigma=args.heatmaps_sigma,
+        heatmaps_stride=args.heatmaps_stride,
         val_set_size=args.val_set_size, test_set_size=args.test_set_size,
         random_changes_each_frame=args.random_changes_each_frame,
         max_change_in_deg=args.max_change_in_deg,
@@ -563,6 +620,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     dm.setup(args.mode)
 
     results: Dict[str, Any] = {"trainer": trainer, "flow": flow, "dm": dm}
+    if args.pretrained_backbone_path:
+        # before any checkpoint, which then wins
+        trainer.restore_pretrained_backbone(args.pretrained_backbone_path)
     if args.ckpt_path:
         if is_reference_checkpoint(args.ckpt_path):
             trainer.restore_torch(args.ckpt_path, args.movements_model_name)

@@ -26,11 +26,14 @@ def _weight(kernel: np.ndarray, attention: Optional[str], path: str
     """A flax kernel -> the port's ``weight``: nn.Linear's (out, in) for a
     Dense kernel (in, out) and for an attention projection's (query, key,
     value: (in, heads, head_dim); out: (heads, head_dim, out)); Conv1d's
-    (out, in, width) for a temporal conv's (width, in, out)."""
+    (out, in, width) for a temporal conv's (width, in, out); Conv2d's
+    (out, in, kh, kw) for an image conv's (kh, kw, in, out)."""
     if attention == "out":
         return kernel.reshape(-1, kernel.shape[-1]).T
     if attention is not None:
         return kernel.reshape(kernel.shape[0], -1).T
+    if kernel.ndim == 4:
+        return kernel.transpose(3, 2, 0, 1)
     if kernel.ndim not in (2, 3):
         raise ValueError(f"{path}: no layout for a kernel of shape "
                          f"{kernel.shape}")
@@ -227,8 +230,9 @@ def import_flow_params(flax_params: Mapping[str, Any],
     :func:`import_classification`, a PoseFormer tree through
     :func:`import_pose_former`, a Seq2Seq-family tree (it has a
     ``decoder``) through :func:`import_seq2seq`, any other (LinearAE,
-    VideoPose3D, the transformer, the GNNs, the trajectory models) through
-    :func:`flax_to_state_dict`. A model's ``batch_stats`` join its
+    VideoPose3D, the transformer, the GNNs, the trajectory models, the
+    pose-estimation models with their convolutions and the scanned
+    ConvLSTM's ``conv_lstm/Conv_0``) through :func:`flax_to_state_dict`. A model's ``batch_stats`` join its
     parameters as running statistics (:func:`batch_stats_to_state_dict`);
     another mutable collection raises."""
     device = resolve_device(device)

@@ -72,7 +72,8 @@ def kaiming_normal_(tensor: torch.Tensor,
 
 
 class BatchNorm(nn.Module):
-    """flax's ``nn.BatchNorm`` over the last axis, reducing over every other
+    """flax's ``nn.BatchNorm`` over the last axis (or ``axis``: 1 for an
+    NCHW feature map, which flax holds NHWC), reducing over every other
     one. Training normalises by the batch's mean and biased variance
     (``mean(x^2) - mean(x)^2``, clipped at 0: flax's fast variance) and
     updates the running statistics in place, ``r = m r + (1 - m) stat``
@@ -86,9 +87,9 @@ class BatchNorm(nn.Module):
     the result in the input's dtype; the running statistics stay float32."""
 
     def __init__(self, features: int, momentum: float = 0.99,
-                 epsilon: float = 1e-5) -> None:
+                 epsilon: float = 1e-5, axis: int = -1) -> None:
         super().__init__()
-        self.momentum, self.epsilon = momentum, epsilon
+        self.momentum, self.epsilon, self.axis = momentum, epsilon, axis
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -97,8 +98,9 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
         dtype = x.dtype
         x = widen(x)
+        axis = self.axis % x.ndim
         if training:
-            axes = tuple(range(x.ndim - 1))
+            axes = tuple(d for d in range(x.ndim) if d != axis)
             mean = x.mean(axes)
             var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
             m = self.momentum
@@ -108,8 +110,10 @@ class BatchNorm(nn.Module):
                 self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
-        return ((x - mean) * (torch.rsqrt(var + self.epsilon) * self.weight)
-                + self.bias).to(dtype)
+        shape = (-1,) + (1,) * (x.ndim - 1 - axis)
+        scale = torch.rsqrt(var + self.epsilon) * self.weight
+        return ((x - mean.view(shape)) * scale.view(shape)
+                + self.bias.view(shape)).to(dtype)
 
 
 def orthogonal_(tensor: torch.Tensor,

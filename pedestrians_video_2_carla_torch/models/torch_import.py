@@ -1,7 +1,9 @@
 """Reference torch checkpoints -> the port's parameter dicts: the port's
 counterpart of the JAX package's ``models/torch_import.py``, for the
 BASELINE weight-compatibility set (``LinearAE``, ``Seq2SeqEmbeddings``,
-the VideoPose3D ``TemporalModel`` and PoseFormer).
+the VideoPose3D ``TemporalModel`` and PoseFormer), and a torchvision
+ResNet grafted onto a pose-estimation model's backbone
+(:func:`graft_resnet_backbone`).
 
 Each importer maps a reference ``state_dict`` (numpy) onto the flax tree
 the JAX package's importer builds, with the same conventions: torch Linear
@@ -196,6 +198,43 @@ IMPORTERS = {
     "VideoPose3D": import_video_pose_3d,
     "PoseFormer": import_pose_former,
 }
+
+
+def graft_resnet_backbone(state_dict: Dict[str, np.ndarray],
+                          params: Dict[str, torch.Tensor],
+                          module_name: str = "ResNet_0"
+                          ) -> Dict[str, torch.Tensor]:
+    """A torchvision ResNet-50 or -101 ``state_dict`` (numpy; a
+    ``layer3.10.`` key makes it a 101) grafted onto a pose-estimation
+    model's parameter dict (UniPoseLSTM, P0, AvPedestrianPoseTransformer):
+    returns a new dict whose ``<module_name>.*`` entries, running
+    statistics included, are the torchvision ones. Where the model's
+    ``conv1`` takes more channels than torchvision's 3 (UniPose's centre
+    map is a 4th), the RGB slice is torchvision's and the others keep the
+    model's. The other entries are ``params``' own tensors."""
+    from .backbones.resnet import (RESNET50_STAGES, RESNET101_STAGES,
+                                   import_torchvision_resnet)
+    stages = RESNET101_STAGES if any(
+        k.startswith("layer3.10.") for k in state_dict) else RESNET50_STAGES
+    backbone = import_torchvision_resnet(state_dict, stages)
+    prefix = f"{module_name}."
+    target = params[f"{prefix}conv1.weight"]
+    conv1 = backbone["conv1.weight"]
+    if target.shape[1] != conv1.shape[1]:
+        merged = target.detach().cpu().clone()
+        merged[:, :conv1.shape[1]] = conv1
+        backbone["conv1.weight"] = merged
+    own = {k for k in params if k.startswith(prefix)}
+    grafted = {prefix + k for k in backbone}
+    if own != grafted:
+        raise ValueError(
+            f"the torchvision ResNet does not fit {module_name}: missing "
+            f"{sorted(own - grafted)[:4]}, unexpected "
+            f"{sorted(grafted - own)[:4]}")
+    out = {k: v for k, v in params.items() if k not in own}
+    out.update({prefix + k: v.to(params[prefix + k].device)
+                for k, v in backbone.items()})
+    return out
 
 
 def import_torch_checkpoint(path: str, model_name: str

@@ -70,7 +70,8 @@ def make_inference_fn(flow, params, output_keys=None
     models' running statistics included: evaluation normalises by them):
     ``infer(inputs, age_gender_idx) -> preds``. Runs on the flow's device
     (the card, unless the flow was built with ``device="cpu"``). Works for
-    the flows with an ``_inner_step`` (pose lifting, autoencoder) and for
+    the flows with an ``_inner_step`` (pose lifting, autoencoder, pose
+    estimation: clips of frames in, the decoded keypoints out) and for
     ``ClassificationFlow`` (``{flow.outputs_key: logits}``).
 
     ``output_keys`` restricts the returned dict of the former; unknown

@@ -44,7 +44,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..flows.base import BaseFlow, FlowState
-from ..models.torch_import import import_torch_checkpoint
+from ..models.torch_import import (graft_resnet_backbone,
+                                   import_torch_checkpoint,
+                                   load_torch_checkpoint)
 from ..runtime.prefetcher import DevicePrefetcher, device_put
 from ..runtime.resident_scan import build_scan_runner
 from ..utils.device import DeviceLike, resolve_device
@@ -434,6 +436,22 @@ class Trainer:
         keeps a fresh optimizer state and step count."""
         self._init_state()
         self.checkpoints.restore(self.state, path, weights_only=weights_only)
+
+    def restore_pretrained_backbone(self, path: str,
+                                    module_name: str = "ResNet_0") -> None:
+        """Graft a torchvision ResNet-50/101 ``state_dict`` file (a local
+        ``.pth``; nothing is fetched) onto the pose-estimation model's
+        backbone, in place (``models/torch_import.py::
+        graft_resnet_backbone``): the backbone's weights and running
+        statistics, conv1's RGB slice. The optimizer state stays fresh."""
+        self._init_state()
+        tree = self.state.params["movements"]
+        grafted = graft_resnet_backbone(load_torch_checkpoint(path), tree,
+                                        module_name)
+        with torch.no_grad():
+            for k, v in tree.items():
+                if k.startswith(f"{module_name}."):
+                    v.copy_(grafted[k])
 
     def restore_torch(self, path: str, model_name: str) -> None:
         """Load a reference torch or Lightning checkpoint's movements-model

@@ -1,9 +1,10 @@
 """The port's CLI against the JAX CLI, on the CPU.
 
-* Flag parity: for every flow the port has and every model of its
-  registries, the option strings the JAX CLI defines and the port's does
-  not are exactly ``M8_FLAGS`` (pose estimation, mixed data and multi-card
-  flags, which come with their modules).
+* Flag parity: for every flow the port has (pose estimation among them)
+  and every model of its registries, the option strings the JAX CLI
+  defines and the port's does not are exactly ``M8_FLAGS`` (the mixed
+  data's proportions and the multi-card flags, which come with their
+  modules).
 * Value parity: both CLIs on one argument list, stopped where they would
   make the trainer. The flows' optimizer settings (the bare ``--lr``
   among them), the trainer's configuration, the data module's settings
@@ -35,10 +36,8 @@ from pedestrians_video_2_carla_torch.data.carla import \
 from pedestrians_video_2_carla_torch.models.jax_import import \
     import_flow_params
 
-#: the JAX CLI's flags that come with M8's modules
-M8_FLAGS = {"--crop_to_bbox", "--heatmaps_sigma", "--heatmaps_stride",
-            "--video_size", "--pretrained_backbone_path",
-            "--train_proportions", "--val_proportions", "--test_proportions",
+#: the JAX CLI's flags that come with M8's modules not yet ported
+M8_FLAGS = {"--train_proportions", "--val_proportions", "--test_proportions",
             "--num_devices", "--model_devices"}
 OUT_ATOL = 1e-5
 
@@ -112,11 +111,11 @@ def test_shared_flags_have_the_jax_defaults(flow, model_type, name):
 def test_verbosity_flags_swallow_nothing():
     parser = modeling.make_parser([])
     args, unknown = parser.parse_known_args(
-        ["-vv", "--lr", "0.1", "--video_size", "64", "64", "--max_videos",
-         "2"])
+        ["-vv", "--lr", "0.1", "--train_proportions", "0.5", "0.5",
+         "--max_videos", "2"])
     assert args.very_verbose and not args.verbose
     assert args.lr == 0.1 and args.max_videos == 2
-    assert unknown == ["--video_size", "64", "64"]
+    assert unknown == ["--train_proportions", "0.5", "0.5"]
     args, unknown = parser.parse_known_args(["-v", "--num_devices", "1"])
     assert args.verbose and not args.very_verbose
     assert unknown == ["--num_devices", "1"]
@@ -179,6 +178,27 @@ ARGVS = {
     "poseformer": [
         "--flow=pose_lifting", "--movements_model_name=PoseFormer",
         "--remat", "true", "--depth", "1", "--run_name", "r"],
+    "pose_estimation_unipose": [
+        "--flow=pose_estimation", "--data_module_name=CarlaRecordedVideo",
+        "--movements_model_name=UniPoseLSTM", "--backbone", "resnet50",
+        "--stride", "4", "--output_stride", "8", "--sigma", "2.0",
+        "--lstm_features", "16", "--video_size", "128", "96",
+        "--crop_to_bbox", "false", "--heatmaps_sigma", "2.5",
+        "--heatmaps_stride", "4", "--loss_modes", "heatmaps",
+        "--run_name", "r"],
+    "pose_estimation_p0": [
+        "--flow=pose_estimation", "--data_module_name=CarlaRecordedVideo",
+        "--movements_model_name=P0", "--loss_modes", "loc_2d",
+        "--transform", "none", "--run_name", "r"],
+    "pose_estimation_transformer": [
+        "--flow=pose_estimation", "--data_module_name=CarlaRecordedVideo",
+        "--movements_model_name=AvPedestrianPoseTransformer",
+        "--num_layers", "2", "--n_heads", "2", "--needs_confidence", "true",
+        "--run_name", "r"],
+    "pose_estimation_linear": [
+        "--flow=pose_estimation", "--data_module_name=CarlaRecordedVideo",
+        "--movements_model_name=Linear", "--video_size", "32", "48",
+        "--run_name", "r"],
 }
 #: the model fields each argument list's models must agree on
 FIELDS = {
@@ -188,7 +208,17 @@ FIELDS = {
     "carla2d3d": ("needs_confidence", "input_features"),
     "seq2seq": ("residual", "unroll", "hidden_size", "teacher_mode"),
     "poseformer": ("remat", "depth"),
+    "pose_estimation_unipose": ("backbone", "stride", "output_stride",
+                                "sigma", "lstm_features", "needs_confidence",
+                                "needs_heatmaps"),
+    "pose_estimation_p0": ("dilations", "needs_confidence"),
+    "pose_estimation_transformer": ("num_layers", "n_heads",
+                                    "needs_confidence"),
+    "pose_estimation_linear": ("needs_confidence", "needs_heatmaps"),
 }
+#: the video data modules' settings that the flags set
+VIDEO_SETTINGS = ("video_size", "crop_to_bbox", "needs_heatmaps",
+                  "heatmaps_sigma", "heatmaps_stride")
 
 
 @pytest.mark.parametrize("group", list(ARGVS))
@@ -225,6 +255,19 @@ def test_both_clis_build_the_same_run(group, tmp_path, monkeypatch):
         assert _fields(pmodel, FIELDS[group]) \
             == _fields(jmodel, FIELDS[group])
     assert port["flow"].needs_confidence == ref["flow"].needs_confidence
+    if group.startswith("pose_estimation"):
+        assert type(port["flow"]).__name__ == type(ref["flow"]).__name__ \
+            == "PoseEstimationFlow"
+        assert port["flow"].needs_heatmaps == ref["flow"].needs_heatmaps
+        assert [m.name for m in port["flow"].requested_loss_modes] \
+            == [m.name for m in ref["flow"].requested_loss_modes]
+        assert port["flow"].transform == ref["flow"].transform
+        assert type(port["dm"]).__name__ == type(ref["dm"]).__name__ \
+            == "CarlaRecordedVideoDataModule"
+        for key in VIDEO_SETTINGS:
+            assert getattr(port["dm"], key) == getattr(ref["dm"], key), key
+        if group == "pose_estimation_linear":  # the port's frame size
+            assert pmodel.Dense_0.in_features == 32 * 48 * 3
 
 
 def test_bare_lr_trains_every_model_type_at_it(tmp_path, monkeypatch):

@@ -170,6 +170,41 @@ def test_port_has_the_logging_slice():
     assert "IMPORTED" in proc.stdout
 
 
+def test_port_has_the_pose_estimation_slice():
+    """Pose estimation: each module at its JAX relative path, walked by
+    the isolation checks, importable in a fresh process with the CPU-only
+    packages blocked (cv2 is imported where frames are decoded or drawn),
+    and the JAX registries' names in the port's."""
+    modules = _port_modules()
+    slice_ = ("ops.heatmaps", "models.backbones.resnet",
+              "models.pose_estimation.linear",
+              "models.pose_estimation.regular",
+              "models.pose_estimation.unipose_lstm",
+              "flows.pose_estimation", "data.base.video_mixin",
+              "data.unipose.jaad_unipose", "utils.visualize_heatmaps")
+    for name in slice_:
+        assert f"pedestrians_video_2_carla_torch.{name}" in modules
+        path = name.replace(".", os.sep) + ".py"
+        assert os.path.exists(os.path.join(
+            REPO, "pedestrians_video_2_carla_tpu", path)), path
+    code = (
+        "import importlib, sys\n"
+        f"for name in {CPU_ONLY!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"for name in {slice_ + ('modeling', 'data')!r}:\n"
+        "    importlib.import_module('pedestrians_video_2_carla_torch.' + "
+        "name)\n"
+        "from pedestrians_video_2_carla_torch import modeling\n"
+        "assert 'pose_estimation' in modeling.FLOWS\n"
+        "assert {'CarlaRecordedVideo', 'JAADUniPose'} <= set("
+        "modeling.DATA_MODULES)\n"
+        "print('IMPORTED')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "IMPORTED" in proc.stdout
+
+
 def _chip_smoke_imports():
     """The port imports of chip_smoke.py, at any depth, as statements."""
     with open(os.path.join(REPO, "chip_smoke.py")) as f:

@@ -271,8 +271,9 @@ def test_bridge_layouts_and_refusals():
     """The flax layouts the new models bring: a temporal conv's (width, in,
     out) kernel -> Conv1d's (out, in, width), attention's DenseGeneral
     kernels and biases -> nn.Linear's, a norm's scale -> weight, the batch
-    statistics -> running_mean / running_var; a mutable collection or a
-    kernel with no counterpart raises."""
+    statistics -> running_mean / running_var, an image conv's kernel ->
+    Conv2d's; a mutable collection or a kernel with no counterpart
+    raises."""
     _, vp = _jax_variables("VideoPose3D")
     sd = flax_to_state_dict(vp["params"])
     kernel = vp["params"]["layer0_conv1"]["kernel"]
@@ -295,8 +296,14 @@ def test_bridge_layouts_and_refusals():
                            mutables={"movements": {"cache": {}}})
     with pytest.raises(ValueError, match="BatchNorm statistic"):
         batch_stats_to_state_dict({"BatchNorm_0": {"count": np.zeros(1)}})
+    # an image conv's (kh, kw, in, out) kernel -> Conv2d's (out, in, kh,
+    # kw) (the pose-estimation models); a 5-D kernel has no counterpart
+    image = np.arange(24, dtype=np.float32).reshape(1, 2, 3, 4)
+    np.testing.assert_array_equal(
+        flax_to_state_dict({"conv": {"kernel": image}})["conv.weight"]
+        .numpy(), image.transpose(3, 2, 0, 1))
     with pytest.raises(ValueError, match="kernel"):
-        flax_to_state_dict({"conv": {"kernel": np.zeros((1, 2, 3, 4))}})
+        flax_to_state_dict({"conv": {"kernel": np.zeros((1, 2, 3, 4, 5))}})
 
 
 def test_registry_matches_jax():

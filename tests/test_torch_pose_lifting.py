@@ -341,8 +341,16 @@ def test_flow_config_errors():
                                device="cpu").precision == "bf16"
     with pytest.raises(ValueError):
         PoseLiftingFlow(LinearAE(), precision="float16", device="cpu")
-    with pytest.raises(KeyError):
-        PoseLiftingFlow(LinearAE(), loss_modes=["heatmaps"], device="cpu")
+    # the heatmaps loss is ported: the flow takes it, and its step finds
+    # no heatmaps to compare, as the JAX flow's does
+    heatmaps = PoseLiftingFlow(
+        LinearAE(generator=torch.Generator().manual_seed(0)),
+        loss_modes=["heatmaps"], device="cpu")
+    cfg = TD.Carla2D3DConfig(batch_size=2, clip_length=3)
+    batch = TD.render_batch(
+        cfg, TD.draw_batch(cfg, torch.Generator().manual_seed(0), "cpu"))
+    with pytest.raises(RuntimeError, match="Couldn't calculate any loss"):
+        heatmaps.training_step(heatmaps.init_state(), batch)
     # the JAX names of the kernels are not the port's
     for jax_name in ("xla", "pallas", "pallas_train"):
         with pytest.raises(ValueError):
