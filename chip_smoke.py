@@ -6603,22 +6603,42 @@ def epoch_drift(params, steps, ref_params, ref_steps):
     return worst_param, worst_loss
 
 
+#: the host's pause between profile_window's guard call and its measured
+#: one, seconds: the two calls' device records are told apart by time
+PROFILE_GUARD_GAP_S = 0.01
+
+
 def profile_window(fn):
-    """One call of ``fn`` under torch.profiler (after one unprofiled
-    call): the device busy share over the window from the first to the
-    last event, and the device kernels' names."""
+    """One call of ``fn`` under torch.profiler, after a guard call of it
+    in the same trace: the device busy share over the measured call's
+    window (from its first to its last event), the device kernels' names,
+    and the guard's count of device records. The guard is there because
+    the profiler now and then loses a leading block of a trace's device
+    records (about 150 records in 1 of 40 graphed windows, kineto's raw
+    records too: PERF.md section 6, tools/phase45_profile_repeats.py);
+    the measured call's records are those after the guard's, which end
+    PROFILE_GUARD_GAP_S before it starts."""
+    from torch.autograd.profiler import record_function
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_GUARD_GAP_S)
+        with record_function("profile_window_measured"):
+            fn()
+            torch.cuda.synchronize()
     events = list(prof.events())
-    device = [e for e in events
-              if getattr(e, "device_type", None) is not None
-              and e.device_type.name == "CUDA"]
+    start = next(e for e in events
+                 if e.name == "profile_window_measured").time_range.start
+    # the range's own mirror on the device timeline is no device work
+    all_device = [e for e in events
+                  if getattr(e, "device_type", None) is not None
+                  and e.device_type.name == "CUDA"
+                  and e.name != "profile_window_measured"]
+    device = [e for e in all_device if e.time_range.start >= start]
+    events = [e for e in events if e.time_range.start >= start]
     spans = sorted((e.time_range.start, e.time_range.end) for e in device)
     busy, cur_s, cur_e = 0.0, None, None
     for a, b in spans:
@@ -6633,6 +6653,7 @@ def profile_window(fn):
     window = max(e.time_range.end for e in events) \
         - min(e.time_range.start for e in events)
     return {"window_ms": window / 1e3, "device_events": len(device),
+            "guard_device_events": len(all_device) - len(device),
             "device_busy_share": busy / window if device else None}, \
         [e.name for e in device]
 
@@ -7529,6 +7550,361 @@ def group_pose_estimation(card, hbm_rate):
           "seconds": time.perf_counter() - t0})
 
 
+#: SMPL, AMASS and the mixed data modules (group_smpl_mixed): a synthetic
+#: body model at SMPL-X's sizes (vertices, joints, faces; cut to the 22
+#: body joints), the poses the body-model phase runs, the synthetic mocaps
+#: (156-wide axis-angle poses at 60 fps) and their clips (MIX_MOCAP_FRAMES
+#: = 2 * CLIP * 101: 100 clips a mocap at clip offset CLIP); the bars of
+#: the card against the CPU: the body model within SMPL_BAR of max |out|,
+#: the AMASS projections within XY_TOL_PX, the rest within SMPL_BAR
+SMPL_VERTS, SMPL_JOINTS, SMPL_FACES, SMPL_KEPT = 10475, 55, 20908, 22
+SMPL_POSES, SMPL_CPU_POSES, SMPL_BAR = 4096, 256, 1e-5
+#: SMPL-X's first 22 parents (as the JAX package's AMASS test writes
+#: them), then a chain
+SMPLX_PARENTS = (-1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14,
+                 16, 17, 18, 19) + tuple(range(20, 53))
+MIX_MOCAPS, MIX_MOCAP_FRAMES = 32, 2 * 16 * 101
+#: config 2 on CarlaRecAMASS: the CARLA member's clips, the AMASS member's
+#: validation clips (the rest of phase 2's train), the proportions; GConvGRU
+#: on JAADCarlaRec: each member's train and validation batches and its
+#: fit's steps
+MIX_CARLA_TRAIN, MIX_CARLA_VAL, MIX_AMASS_VAL = 4096, 512, 640
+MIX_PROPORTIONS = [0.5, 0.5]
+MIX_CLS_TRAIN_BATCHES, MIX_CLS_VAL_BATCHES, MIX_CLS_STEPS = 8, 2, 5
+
+
+def smpl_body_model(tmp):
+    """A seeded SMPL-X-sized ``model.npz`` written under ``tmp`` and loaded
+    by the port's loader, cut to SMPL_KEPT joints: a template of
+    SMPL_VERTS vertices, a sparse joint regressor (each joint the mean of
+    8 vertices), Dirichlet skin weights over the 55 joints (folded into
+    the kept ones by the loader) and SMPL_FACES random faces."""
+    from pedestrians_video_2_carla_torch.data.smpl.body_model import \
+        load_body_model_npz
+
+    rng = np.random.default_rng(SEED + 30)
+    v_template = rng.normal(scale=0.3, size=(SMPL_VERTS, 3))
+    j_regressor = np.zeros((SMPL_JOINTS, SMPL_VERTS))
+    for j in range(SMPL_JOINTS):
+        j_regressor[j, rng.choice(SMPL_VERTS, 8, replace=False)] = 1 / 8
+    kintree = np.zeros((2, SMPL_JOINTS), dtype=np.int64)
+    kintree[0] = SMPLX_PARENTS
+    path = os.path.join(tmp, "model.npz")
+    np.savez(path, v_template=v_template, J_regressor=j_regressor,
+             kintree_table=kintree,
+             weights=rng.dirichlet(np.full(SMPL_JOINTS, 0.3), SMPL_VERTS),
+             f=rng.integers(0, SMPL_VERTS, size=(SMPL_FACES, 3)))
+    return load_body_model_npz(path, num_joints=SMPL_KEPT)
+
+
+def phase_smpl_body_model(model):
+    """Posed joints and skinned vertices of SMPL_POSES poses on the card:
+    the same bits twice, the first SMPL_CPU_POSES within SMPL_BAR of max
+    |out| of the CPU's (the CPU's vertices at the full count take tens of
+    seconds), and each's time (CUDA events)."""
+    from pedestrians_video_2_carla_torch.data.smpl.body_model import (
+        joint_locations, vertex_locations)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 31)
+    body = rng.normal(scale=0.4, size=(SMPL_POSES, (SMPL_KEPT - 1) * 3))
+    root = rng.normal(scale=0.4, size=(SMPL_POSES, 3))
+    body, root = (torch.from_numpy(a.astype(np.float32)) for a in (body, root))
+    body_d, root_d = body.cuda(), root.cuda()
+    out = {}
+    for name, fn in (("joint_locations", joint_locations),
+                     ("vertex_locations", vertex_locations)):
+        got = fn(model, body_d, root_d)
+        again = fn(model, body_d, root_d)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: not the same bits twice")
+        n = SMPL_CPU_POSES
+        err, rel = bar_err(got[:n].cpu(), fn(model, body[:n], root[:n]))
+        if not (torch.isfinite(got).all() and rel <= SMPL_BAR):
+            raise AssertionError(f"{name}: card vs CPU {rel}")
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        start.record()
+        for _ in range(3):
+            fn(model, body_d, root_d)
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = {"shape": list(got.shape), "max_err": err,
+                     "max_err_over_max_cpu": rel,
+                     "ms": start.elapsed_time(end) / 3}
+        del got, again
+    torch.cuda.empty_cache()
+    emit({"phase": "smpl_body_model", "poses": SMPL_POSES,
+          "vertices": SMPL_VERTS, "joints": f"{SMPL_JOINTS} -> {SMPL_KEPT}",
+          "faces": SMPL_FACES, "cpu_poses_compared": SMPL_CPU_POSES,
+          **out, "same_bits_twice": True,
+          "seconds": time.perf_counter() - t0})
+
+
+def smpl_mocaps():
+    """MIX_MOCAPS seeded mocaps of MIX_MOCAP_FRAMES 156-wide axis-angle
+    poses at 60 fps (small motions around a root turned a quarter about
+    x, a slow yaw), alternately female and male."""
+    rng = np.random.default_rng(SEED + 32)
+    poses = []
+    for i in range(MIX_MOCAPS):
+        p = rng.normal(scale=0.1, size=(MIX_MOCAP_FRAMES, 156))
+        p[:, 0] += np.pi / 2
+        p[:, 2] += np.linspace(0, 0.02 * i, MIX_MOCAP_FRAMES)
+        poses.append(p)
+    return poses, [("female", "male")[i % 2] for i in range(MIX_MOCAPS)]
+
+
+def phase_amass_subsets(model):
+    """``amass_subset`` of the mocaps on the card against the CPU: the
+    projections within XY_TOL_PX, every other array within SMPL_BAR, the
+    metas equal; the build's clips a second (host clock, copies in and
+    out included). Returns the card's subset."""
+    from pedestrians_video_2_carla_torch.data.smpl.amass import amass_subset
+
+    t0 = time.perf_counter()
+    poses, genders = smpl_mocaps()
+
+    def build(device):
+        return amass_subset(poses, genders, CLIP, CLIP,
+                            body_model=lambda gender: model, device=device)
+    build("cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    card = build("cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cpu = build("cpu")
+    cpu_s = time.perf_counter() - t
+    n = len(card[0])
+    if n != MIX_MOCAPS * (MIX_MOCAP_FRAMES // (2 * CLIP) - 1):
+        raise AssertionError(f"{n} clips")
+    errs = {"projection_2d": float(np.abs(card[0] - cpu[0]).max())}
+    if not (np.isfinite(card[0]).all() and errs["projection_2d"]
+            <= XY_TOL_PX):
+        raise AssertionError(f"projections: card vs CPU {errs}")
+    for k, v in cpu[1].items():
+        errs[k] = float(np.abs(card[1][k] - v).max())
+        if not (np.isfinite(card[1][k]).all() and errs[k] <= SMPL_BAR):
+            raise AssertionError(f"{k}: card vs CPU {errs[k]}")
+    for k, v in cpu[2].items():
+        if not np.array_equal(np.asarray(card[2][k]), np.asarray(v)):
+            raise AssertionError(f"meta {k} differs")
+    emit({"phase": "amass_subsets", "mocaps": MIX_MOCAPS,
+          "frames_60fps": MIX_MOCAP_FRAMES, "clips": n, "L": CLIP,
+          "clip_offset": CLIP, "max_err": errs,
+          "card_clips_per_s": n / card_s, "cpu_clips_per_s": n / cpu_s,
+          "card_s": card_s, "cpu_s": cpu_s,
+          "projection_px_range": [float(card[0].min()),
+                                  float(card[0].max())],
+          "seconds": time.perf_counter() - t0})
+    return card
+
+
+def subset_rows(subset, rows):
+    """Rows ``rows`` (a slice) of a (projection_2d, targets, meta) subset."""
+    proj, targets, meta = subset
+    return (proj[rows], {k: v[rows] for k, v in targets.items()},
+            {k: v[rows] for k, v in meta.items()})
+
+
+def mix_sources(dm, seed):
+    """(the member of each of ``dm``'s train batches, the members as
+    ``_mix`` draws them from numpy's ``default_rng(1234 + seed)`` for the
+    members' batch counts, those counts). A batch's member is told by a
+    target key only that member has (not NaN in the batch); a member
+    without one owns the batches where no other member's key is set."""
+    keys = [[dm.mappings.get(k, k) for k in next(iter(
+        m.train_batches(seed)))[1]] for m in dm.members]
+    own = []
+    for i, mine in enumerate(keys):
+        others = set().union(*(set(k) for j, k in enumerate(keys) if j != i))
+        own.append(next((k for k in mine if k not in others), None))
+    got = []
+    for _, targets, _ in dm.train_batches(seed):
+        set_ = [i for i, k in enumerate(own) if k is not None
+                and not torch.isnan(targets[k].float()).all()]
+        got.append(set_[0] if len(set_) == 1 else own.index(None))
+    counts = [sum(1 for _ in m.train_batches(seed)) for m in dm.members]
+    props = dm.requested_train_proportions
+    weights = np.asarray([max(p, 0) if p >= 0 else 1.0 for p in props])
+    weights = weights / weights.sum()
+    rng = np.random.default_rng(1234 + seed)
+    left, alive, want = list(counts), [c > 0 for c in counts], []
+    while any(alive):
+        choices = np.nonzero(alive)[0]
+        i = int(rng.choice(choices, p=weights[choices]
+                           / weights[choices].sum()))
+        want.append(i)
+        left[i] -= 1
+        alive[i] = left[i] > 0
+    return got, want, counts
+
+
+def phase_config2_carlarec_amass(amass):
+    """BASELINE config 2 (Seq2SeqEmbeddings, pose_2d, loc_2d, B=256,
+    L=16) on CarlaRecAMASS: the CARLA member from ``recorded_subset``, the
+    AMASS member from phase 2's subset, MIX_PROPORTIONS. The interleave
+    against numpy's draws; a Trainer.fit fused twice (the same losses,
+    rows 12-13's launches exact) and plain (within LOSS_RTOL)."""
+    from pedestrians_video_2_carla_torch.data.mixed.mixed import \
+        CarlaRecAMASSDataModule
+
+    t0 = time.perf_counter()
+    dm = CarlaRecAMASSDataModule(
+        batch_size=AE_BATCH, clip_length=CLIP, seed=SEED,
+        outputs_dir=tempfile.gettempdir(),
+        train_proportions=MIX_PROPORTIONS)
+    carla, smpl = dm.members
+    recorded = recorded_clips(MIX_CARLA_TRAIN + MIX_CARLA_VAL, SEED + 33)
+    carla.add_subset("train", *subset_rows(recorded,
+                                           slice(0, MIX_CARLA_TRAIN)))
+    carla.add_subset("val", *subset_rows(recorded,
+                                         slice(MIX_CARLA_TRAIN, None)))
+    n = len(amass[0])
+    smpl.add_subset("train", *subset_rows(amass, slice(0, n - MIX_AMASS_VAL)))
+    smpl.add_subset("val", *subset_rows(amass, slice(n - MIX_AMASS_VAL, None)))
+    got, want, counts = mix_sources(dm, SEED)
+    if got != want:
+        raise AssertionError(f"interleave {got} against numpy's {want}")
+    batches = AE_TRAIN_STEPS + AE_VAL_BATCHES
+    fused = {"dense_lstm_scan": AE_LAYERS * batches,
+             "dense_lstm_scan_bwd": AE_LAYERS * AE_TRAIN_STEPS}
+    fits = {"fused": fit_autoencoder(make_ae_flow("fused"), dm, "mix", fused),
+            "fused_again": fit_autoencoder(make_ae_flow("fused"), dm,
+                                           "mix_again", fused),
+            "plain": fit_autoencoder(make_ae_flow("plain"), dm, "mix_plain",
+                                     {})}
+    if fits["fused"]["losses"] != fits["fused_again"]["losses"]:
+        raise AssertionError("the fused fit did not repeat its losses")
+    worst = max(abs(a - b) / abs(b) for a, b in zip(
+        fits["fused"]["losses"], fits["plain"]["losses"]))
+    if worst > LOSS_RTOL:
+        raise AssertionError(f"fused vs plain losses {worst}")
+    emit({"phase": "config2_carlarec_amass", "B": AE_BATCH, "L": CLIP,
+          "proportions": MIX_PROPORTIONS, "member_train_batches": counts,
+          "interleave_first_steps": got[:AE_TRAIN_STEPS],
+          "interleave_equals_numpy": True,
+          "steps": AE_TRAIN_STEPS, "val_batches": AE_VAL_BATCHES,
+          "launches": fits["fused"]["counts"],
+          "fit_seconds": {r: v["fit_s"] for r, v in fits.items()},
+          # the second fused fit's: the first pays the first use of the
+          # process's kernels and allocations
+          "fit_ms_per_step": {r: 1e3 * fits[r]["fit_s"] / AE_TRAIN_STEPS
+                              for r in ("fused_again", "plain")},
+          "train_loss_primary": {r: fits[r]["losses"]
+                                 for r in ("fused", "plain")},
+          "fused_vs_plain_max_rel": worst, "same_bits_twice": True,
+          "val": {r: fits[r]["val"] for r in ("fused", "plain")},
+          "seconds": time.perf_counter() - t0})
+    return fits["fused"]["counts"]
+
+
+def phase_gconvgru_jaad_carlarec():
+    """Config 3's GConvGRU (B=256, L=16, H=128, k=2) on JAADCarlaRec: the
+    JAAD member's BODY_25 clips from ``openpose_clips``, the CARLA
+    member's from ``recorded_subset``, both mapped to CARLA; the recorded
+    clips' ``frame.pedestrian.is_crossing`` reaches ``crossing``; a
+    MIX_CLS_STEPS-step fit with dropout 0 fused (rows 10-11's launches
+    exact) and plain, their losses within LOSS_RTOL."""
+    from pedestrians_video_2_carla_torch.data.mixed.mixed import \
+        JAADCarlaRecDataModule
+
+    t0 = time.perf_counter()
+    dm = JAADCarlaRecDataModule(
+        batch_size=CLS_BATCH, clip_length=CLIP, seed=SEED,
+        outputs_dir=tempfile.gettempdir(),
+        train_proportions=MIX_PROPORTIONS)
+    jaad, carla = dm.members
+    rng = np.random.default_rng(SEED + 34)
+    sizes = {"train": MIX_CLS_TRAIN_BATCHES * CLS_BATCH,
+             "val": MIX_CLS_VAL_BATCHES * CLS_BATCH}
+    recorded = recorded_clips(sum(sizes.values()), SEED + 35)
+    start = 0
+    for name, n in sizes.items():
+        detections, _, targets, meta = openpose_clips(rng, n)
+        jaad.add_subset(name, detections, targets, meta)
+        carla.add_subset(name, *subset_rows(recorded, slice(start,
+                                                            start + n)))
+        start += n
+    got, want, counts = mix_sources(dm, SEED)
+    if got != want:
+        raise AssertionError(f"interleave {got} against numpy's {want}")
+    # the recorded batches' labels are the subset's, under "crossing"
+    seen = []
+    for (inputs, targets, _), member in zip(dm.train_batches(SEED), got):
+        if "frame.pedestrian.is_crossing" in targets \
+                or not torch.isfinite(targets["crossing"].float()).all():
+            raise AssertionError("the crossing label is not mapped")
+        if inputs.shape[2] != CLS_J:
+            raise AssertionError(f"inputs {tuple(inputs.shape)}")
+        if member == 1:
+            seen.append(targets["crossing"].reshape(-1).cpu().numpy())
+    labels = recorded[1]["frame.pedestrian.is_crossing"][:sizes["train"]]
+    if not np.array_equal(np.sort(np.concatenate(seen)), np.sort(labels)):
+        raise AssertionError("the recorded clips' labels did not reach "
+                             "crossing")
+    batches = MIX_CLS_STEPS + VAL_BATCHES
+    fits = {}
+    for route, expected in (
+            ("fused", {"graph_gru_scan": 2 * batches,
+                       "graph_gru_scan_bwd": 2 * MIX_CLS_STEPS}),
+            ("plain", {})):
+        counts_, losses, epochs, fit_s, _ = fit_classifier(
+            make_cls_flow(p_dropout=0.0, graph_kernel=route), dm,
+            MIX_CLS_STEPS, VAL_BATCHES, f"mix_cls_{route}", expected)
+        fits[route] = {"counts": {k: v for k, v in counts_.items() if v},
+                       "losses": losses, "fit_s": fit_s,
+                       "val": {k: v for k, v in epochs[-1].items()
+                               if k.startswith("val_") and not any(
+                                   c in k for c in ("Matrix", "ROC",
+                                                    "Curve"))}}
+    worst = max(abs(a - b) / abs(b) for a, b in zip(
+        fits["fused"]["losses"], fits["plain"]["losses"]))
+    if worst > LOSS_RTOL:
+        raise AssertionError(f"fused vs plain losses {worst}")
+    emit({"phase": "gconvgru_jaad_carlarec", "B_L_J_H_k": CLS_MAIN,
+          "proportions": MIX_PROPORTIONS, "member_train_batches": counts,
+          "interleave_first_steps": got[:MIX_CLS_STEPS],
+          "interleave_equals_numpy": True, "crossing_mapped": True,
+          "steps": MIX_CLS_STEPS, "val_batches": VAL_BATCHES,
+          "launches": fits["fused"]["counts"],
+          "train_loss_primary": {r: v["losses"] for r, v in fits.items()},
+          "fused_vs_plain_max_rel": worst,
+          "fit_seconds": {r: v["fit_s"] for r, v in fits.items()},
+          "val": {r: v["val"] for r, v in fits.items()},
+          "seconds": time.perf_counter() - t0})
+    return fits["fused"]["counts"]
+
+
+def group_smpl_mixed(card, hbm_rate):
+    """The SMPL body model and AMASS's subset build on the card against
+    the CPU (no TPU kernel: the JAX package runs them outside Pallas),
+    then config 2 on CarlaRecAMASS (rows 12-13) and GConvGRU on
+    JAADCarlaRec (rows 10-11): the rows' launches on these paths, by
+    wrapper name."""
+    t0 = time.perf_counter()
+    reset_kernel_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        model = smpl_body_model(tmp)
+    phase_smpl_body_model(model)
+    amass = phase_amass_subsets(model)
+    if kernel_counts() != expected_counts():
+        raise AssertionError(f"the body model launched {kernel_counts()}")
+    config2 = phase_config2_carlarec_amass(amass)
+    del amass
+    torch.cuda.empty_cache()
+    gconv = phase_gconvgru_jaad_carlarec()
+    torch.cuda.empty_cache()
+    emit({"phase": "group_smpl_mixed", "card": card,
+          "seconds": time.perf_counter() - t0})
+    return {**{name: {"launches_mixed_carlarec_amass": n}
+               for name, n in config2.items()},
+            **{name: {"launches_mixed_jaad_carlarec": n}
+               for name, n in gconv.items()}}
+
+
 def kernel_entry(name, source, replaces, launches, max_err, times):
     """One entry of the kernels line; ``replaces`` is the TPU kernel's
     ``file:line`` under the JAX package's ops/pallas/."""
@@ -7689,6 +8065,11 @@ def main():
         entry["launches"] += extra["launches_cli_profiled"]
         entry.update(extra)
     group_pose_estimation(card, hbm_rate)
+    # rows 10-13 on the mixed data modules' paths
+    for name, extra in group_smpl_mixed(card, hbm_rate).items():
+        entry = next(e for e in kernels if e["name"] == name)
+        entry["launches"] += sum(extra.values())
+        entry.update(extra)
 
     print(card, flush=True)
     emit({"kernels": kernels})

@@ -4,9 +4,11 @@ into one and written as mp4s with cv2.
 
 The renderers by name: ``zeros`` (black frames), ``input_points`` (the
 inputs), ``target_points`` (the target projections), ``projection_points``
-(the predicted projections) and ``source_videos`` (the source video's
-frames, with the ``overlay_*`` drawings). ``carla``, ``source_carla`` and
-``smpl`` draw through CARLA and SMPL renderers that are not ported: they
+(the predicted projections), ``source_videos`` (the source video's
+frames, with the ``overlay_*`` drawings) and ``smpl`` (the body mesh of
+the targets' ``amass_body_pose``, or the SMPL points of their
+projections; ``renderers/smpl_renderer.py``). ``carla`` and
+``source_carla`` draw through CARLA's renderer, which is not ported: they
 raise ``NotImplementedError``, as any other name raises ``ValueError``."""
 import os
 from typing import Dict, Iterable, List, Optional, Tuple
@@ -22,9 +24,9 @@ from ..skeletons.carla import CARLA_SKELETON
 DEFAULT_RENDERERS = ("input_points", "projection_points")
 #: the renderers the writer has
 RENDERERS = ("zeros", "input_points", "target_points", "projection_points",
-             "source_videos")
-#: the JAX package's renderers that need CARLA's or SMPL's renderers
-UNPORTED_RENDERERS = ("carla", "source_carla", "smpl")
+             "source_videos", "smpl")
+#: the JAX package's renderers that need CARLA's renderer
+UNPORTED_RENDERERS = ("carla", "source_carla")
 
 
 def check_renderers(names: Iterable[str]) -> List[str]:
@@ -34,8 +36,8 @@ def check_renderers(names: Iterable[str]) -> List[str]:
     for name in names:
         if name in UNPORTED_RENDERERS:
             raise NotImplementedError(
-                f"renderer {name!r} needs the CARLA and SMPL renderers, "
-                f"which are not ported to PyTorch yet (ported: "
+                f"renderer {name!r} needs the CARLA renderer, which is "
+                f"not ported to PyTorch yet (ported: "
                 f"{list(RENDERERS)}; see ROADMAP.md M8)")
         if name not in RENDERERS:
             raise ValueError(f"unknown renderer {name!r}; one of "
@@ -109,6 +111,12 @@ class PedestrianWriter:
             pts = self._predicted(projections, agi)
             return list(self._output_renderer.render(pts)) \
                 if pts is not None else list(self._zeros.render(frames=inputs))
+        if name == "smpl":
+            from ..renderers.smpl_renderer import SMPLRenderer
+            return list(SMPLRenderer().render(
+                amass_body_pose=targets.get("amass_body_pose"),
+                projection_2d=targets.get("projection_2d"),
+                meta=meta))
         # source_videos
         from ..renderers.source_videos_renderer import SourceVideosRenderer
         rendered = list(SourceVideosRenderer(

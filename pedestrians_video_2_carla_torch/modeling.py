@@ -370,6 +370,14 @@ def add_datamodule_args(parser: argparse.ArgumentParser) -> None:
     group.add_argument("--classification_targets_key", default=None)
     group.add_argument("--tte", nargs=2, type=int, default=[30, 60],
                        help="the benchmark's time-to-event window")
+    group.add_argument("--train_proportions", nargs="+", type=float,
+                       default=None,
+                       help="a mixed data module's members' proportions "
+                            "(summing to 1, or each -1 or 0)")
+    group.add_argument("--val_proportions", nargs="+", type=float,
+                       default=None)
+    group.add_argument("--test_proportions", nargs="+", type=float,
+                       default=None)
     group.add_argument("--video_size", nargs=2, type=int, default=[256, 256],
                        help="the decoded frames' size (H W)")
     group.add_argument("--crop_to_bbox", type=boolean, default=True,
@@ -564,6 +572,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         balance_classes=args.balance_classes, label_frames=args.label_frames,
         num_classes=args.num_classes, tte=tuple(args.tte),
         device_resident=args.device_resident, device=args.device)
+    for prop in ("train_proportions", "val_proportions",
+                 "test_proportions"):
+        if getattr(args, prop) is not None:
+            dm_kwargs[prop] = getattr(args, prop)
     if args.classification_targets_key:
         dm_kwargs["classification_targets_key"] = \
             args.classification_targets_key

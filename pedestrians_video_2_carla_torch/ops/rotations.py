@@ -58,6 +58,27 @@ def euler_angles_to_matrix(euler_angles: torch.Tensor,
     return mm(mm(matrices[0], matrices[1]), matrices[2])
 
 
+def axis_angle_to_matrix(axis_angle: torch.Tensor) -> torch.Tensor:
+    """Rodrigues: (..., 3) axis-angle -> (..., 3, 3) rotation matrices in
+    the **column-vector** convention (the one SMPL body models use). The
+    norm is the square root of the clamped sum of squares, so that a zero
+    vector gives the identity with a finite (zero) gradient."""
+    angle = torch.sqrt(torch.clamp(
+        (axis_angle * axis_angle).sum(-1, keepdim=True), min=1e-24))
+    axis = axis_angle / torch.clamp(angle, min=1e-12)
+    x, y, z = axis.unbind(-1)
+    zero = torch.zeros_like(x)
+    K = torch.stack([
+        torch.stack([zero, -z, y], -1),
+        torch.stack([z, zero, -x], -1),
+        torch.stack([-y, x, zero], -1),
+    ], -2)
+    a = angle[..., None]
+    eye = torch.eye(3, dtype=axis_angle.dtype,
+                    device=axis_angle.device).expand(K.shape)
+    return eye + torch.sin(a) * K + (1.0 - torch.cos(a)) * mm(K, K)
+
+
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a0, a1, a2 = a.unbind(-1)
     b0, b1, b2 = b.unbind(-1)

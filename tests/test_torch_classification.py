@@ -717,13 +717,30 @@ def test_cli_trains_a_classifier_on_the_cpu(tmp_path, flags):
                                   "--data_module_name=AMASS",
                                   "--data_module_name=MPII"])
 def test_cli_names_what_is_not_ported(flag, tmp_path):
-    """AMASS and MPII are not ported; CarlaRecordedVideo is, and feeds the
-    pose-estimation flow alone: a classifier is refused its frames."""
+    """CarlaRecordedVideo feeds the pose-estimation flow alone: a
+    classifier is refused its frames. AMASS and MPII are ported and carry
+    no crossing label: on synthetic files the classification flow fails at
+    its first step in both CLIs alike, looking up ``crossing``."""
     argv = ["--flow=classification", flag, "--device=cpu",
             f"--root_dir={tmp_path}"]
     if flag.endswith("CarlaRecordedVideo"):
         with pytest.raises(ValueError, match="video data module"):
             modeling.main(argv)
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            modeling.main(argv)
+        from pedestrians_video_2_carla_tpu import modeling as jmodeling
+        from tests.test_torch_amass_mpii_mixed import (write_mocaps,
+                                                       write_mpii)
+        write_mocaps(tmp_path / "datasets", frames=40)
+        write_mpii(tmp_path / "datasets")
+        common = ["--flow=classification", flag,
+                  f"--datasets_dir={tmp_path / 'datasets'}",
+                  "--classification_model_name=GConvGRU", "--hidden_size=8",
+                  "--batch_size=2", "--clip_length=3", "--max_epochs=1",
+                  "--limit_train_batches=1", "--renderers", "none"]
+        for side, main, extra in (
+                ("port", modeling.main, ["--device=cpu"]),
+                ("jax", jmodeling.main, [])):
+            with pytest.raises(KeyError, match="crossing"):
+                main(common + extra + [
+                    f"--root_dir={tmp_path / side}",
+                    f"--outputs_dir={tmp_path / side / 'outputs'}"])

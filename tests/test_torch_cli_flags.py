@@ -2,9 +2,8 @@
 
 * Flag parity: for every flow the port has (pose estimation among them)
   and every model of its registries, the option strings the JAX CLI
-  defines and the port's does not are exactly ``M8_FLAGS`` (the mixed
-  data's proportions and the multi-card flags, which come with their
-  modules).
+  defines and the port's does not are exactly ``M8_FLAGS`` (the
+  multi-card flags, which come with their modules).
 * Value parity: both CLIs on one argument list, stopped where they would
   make the trainer. The flows' optimizer settings (the bare ``--lr``
   among them), the trainer's configuration, the data module's settings
@@ -36,9 +35,9 @@ from pedestrians_video_2_carla_torch.data.carla import \
 from pedestrians_video_2_carla_torch.models.jax_import import \
     import_flow_params
 
-#: the JAX CLI's flags that come with M8's modules not yet ported
-M8_FLAGS = {"--train_proportions", "--val_proportions", "--test_proportions",
-            "--num_devices", "--model_devices"}
+#: the JAX CLI's flags that come with M8's modules not yet ported (the
+#: multi-card ones)
+M8_FLAGS = {"--num_devices", "--model_devices"}
 OUT_ATOL = 1e-5
 
 
@@ -112,10 +111,11 @@ def test_verbosity_flags_swallow_nothing():
     parser = modeling.make_parser([])
     args, unknown = parser.parse_known_args(
         ["-vv", "--lr", "0.1", "--train_proportions", "0.5", "0.5",
-         "--max_videos", "2"])
+         "--model_devices", "2", "--max_videos", "2"])
     assert args.very_verbose and not args.verbose
     assert args.lr == 0.1 and args.max_videos == 2
-    assert unknown == ["--train_proportions", "0.5", "0.5"]
+    assert args.train_proportions == [0.5, 0.5]
+    assert unknown == ["--model_devices", "2"]
     args, unknown = parser.parse_known_args(["-v", "--num_devices", "1"])
     assert args.verbose and not args.very_verbose
     assert unknown == ["--num_devices", "1"]

@@ -205,6 +205,36 @@ def test_port_has_the_pose_estimation_slice():
     assert "IMPORTED" in proc.stdout
 
 
+def test_port_has_the_smpl_and_mixed_slice():
+    """SMPL, AMASS, MPII, the mixed data modules and the SMPL renderer:
+    each module at its JAX relative path, walked by the isolation checks,
+    importable in a fresh process with the CPU-only packages blocked, and
+    the JAX registry's fifteen data modules all in the port's."""
+    modules = _port_modules()
+    slice_ = ("skeletons.smpl", "skeletons.mpii", "data.smpl.body_model",
+              "data.smpl.amass", "data.mpii.mpii", "data.mixed.mixed",
+              "renderers.smpl_renderer")
+    for name in slice_:
+        assert f"pedestrians_video_2_carla_torch.{name}" in modules
+        path = name.replace(".", os.sep) + ".py"
+        assert os.path.exists(os.path.join(
+            REPO, "pedestrians_video_2_carla_tpu", path)), path
+    code = (
+        "import importlib, sys\n"
+        f"for name in {CPU_ONLY!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"for name in {slice_ + ('modeling', 'data')!r}:\n"
+        "    importlib.import_module('pedestrians_video_2_carla_torch.' + "
+        "name)\n"
+        "from pedestrians_video_2_carla_torch import modeling\n"
+        "print(sorted(modeling.DATA_MODULES))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    from pedestrians_video_2_carla_tpu.data import discover
+    assert proc.stdout.strip() == str(sorted(discover()))
+
+
 def _chip_smoke_imports():
     """The port imports of chip_smoke.py, at any depth, as statements."""
     with open(os.path.join(REPO, "chip_smoke.py")) as f:

@@ -11,7 +11,8 @@ package's, and the CLI's logging, video and tracing flags, on the CPU.
   array, before they are encoded (the mp4 bytes are not compared).
 * The CLI with ``--renderers`` writes training and validation mp4s under
   the run's ``videos/``; ``--profile`` writes a trace and prints timings;
-  the renderers that need CARLA or SMPL raise at argument time.
+  the renderers that need CARLA raise at argument time. ``smpl`` draws
+  the JAX writer's arrays and the CLI writes the JAX CLI's videos with it.
 """
 import glob
 import json
@@ -273,9 +274,23 @@ def test_source_videos_renderer_equals_jax(tmp_path):
 
 
 def test_writer_refuses_renderers_it_does_not_have(tmp_path):
-    for name in ("carla", "source_carla", "smpl"):
+    for name in ("carla", "source_carla"):
         with pytest.raises(NotImplementedError, match="M8"):
             TWriter.PedestrianWriter(str(tmp_path), renderers=[name])
+    # smpl is ported: without a body model file it draws the targets'
+    # projections on the SMPL skeleton, as the JAX writer does
+    batch = _writer_batch(np.random.default_rng(5))
+    clips = [[], []]
+    for seen, (name, module) in zip(clips, (("port", TWriter),
+                                            ("jax", JWriter))):
+        module.PedestrianWriter(
+            str(tmp_path / name), renderers=["smpl"], max_videos=2
+        ).log_videos(*batch, stage="val", force=True,
+                     vid_callback=lambda v, *a: seen.append(v))
+    assert len(clips[0]) == len(clips[1]) == 2
+    for got, want in zip(*clips):
+        np.testing.assert_array_equal(got, want)
+        assert got.any()
     with pytest.raises(ValueError, match="unknown renderer"):
         TWriter.PedestrianWriter(str(tmp_path), renderers=["points"])
     assert TWriter.PedestrianWriter(
@@ -305,12 +320,27 @@ def test_cli_renderers_write_mp4s(tmp_path):
 
 def test_cli_refuses_unported_renderers_before_building(tmp_path):
     for name, error in (("carla", NotImplementedError),
-                        ("smpl", NotImplementedError),
                         ("points", ValueError)):
         with pytest.raises(error):
             modeling.main(CLI + [f"--root_dir={tmp_path}", "--renderers",
                                  name])
     assert not (tmp_path / "logs").exists()
+    # --renderers smpl runs, and writes the videos the JAX CLI writes
+    from pedestrians_video_2_carla_tpu import modeling as jmodeling
+    argv = CLI + ["--renderers", "smpl", "--max_videos", "1",
+                  "--video_saving_frequency_reduction", "1"]
+    names = []
+    for side, main, drop in (("port", modeling.main, []),
+                             ("jax", jmodeling.main, ["--device=cpu"])):
+        results = main([a for a in argv if a not in drop]
+                       + [f"--root_dir={tmp_path / side}"])
+        videos = glob.glob(os.path.join(str(tmp_path / side), "logs",
+                                        "pose_lifting", "r", "videos",
+                                        "*.mp4"))
+        assert videos and all(os.path.getsize(v) > 0 for v in videos)
+        assert results["val_metrics"]
+        names.append(sorted(os.path.basename(v) for v in videos))
+    assert names[0] == names[1]
 
 
 def test_cli_profile_writes_a_trace_and_prints_timings(tmp_path, capsys):

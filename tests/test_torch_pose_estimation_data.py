@@ -293,7 +293,9 @@ def test_registry_names_the_video_modules():
     modules = discover()
     assert modules["CarlaRecordedVideo"] is TC.CarlaRecordedVideoDataModule
     assert modules["JAADUniPose"] is JAADUniPoseDataModule
-    assert len(modules) == 9
+    # every name of the JAX registry (the mixed and SMPL modules too)
+    from pedestrians_video_2_carla_tpu.data import discover as j_discover
+    assert set(modules) == set(j_discover()) and len(modules) == 15
 
 
 def test_jaad_unipose_extracts_frame_pixel_keypoints(tmp_path,

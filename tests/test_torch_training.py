@@ -550,12 +550,14 @@ def test_cli_test_mode_evaluates_a_checkpoint(tmp_path):
     "--data_module_name=MPII",
     "--loss_modes=heatmaps"])
 def test_cli_names_what_is_not_ported(flags, tmp_path):
-    """AMASS and MPII are not ported. The pose-estimation flow, the video
-    data modules and the heatmaps loss are: the flow on keypoints (the
-    default Carla2D3D) and a video module under the pose-lifting flow are
-    refused before any model is built, and the heatmaps loss of a
-    pose-lifting run finds nothing to compute in its first step, as in
-    the JAX CLI."""
+    """The pose-estimation flow, the video data modules, the heatmaps loss,
+    AMASS and MPII are ported: the flow on keypoints (the default
+    Carla2D3D) and a video module under the pose-lifting flow are refused
+    before any model is built, and the heatmaps loss of a pose-lifting run
+    finds nothing to compute in its first step, as in the JAX CLI. AMASS
+    and MPII (on synthetic files) under the default pose-lifting flow fail
+    at the first step in both CLIs alike: the projection refuses their 22
+    and 16 joints (F14)."""
     argv = flags.split() + ["--device=cpu", f"--root_dir={tmp_path}"]
     if flags in ("--flow=pose_estimation",
                  "--data_module_name=CarlaRecordedVideo"):
@@ -568,5 +570,22 @@ def test_cli_names_what_is_not_ported(flags, tmp_path):
                                   "--val_set_size=2",
                                   "--skip_initial_metrics=true"])
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            modeling.main(argv)
+        from pedestrians_video_2_carla_tpu import modeling as jmodeling
+        from tests.test_torch_amass_mpii_mixed import (write_mocaps,
+                                                       write_mpii)
+        write_mocaps(tmp_path / "datasets", frames=40)
+        write_mpii(tmp_path / "datasets")
+        joints = 22 if flags.endswith("AMASS") else 16
+        common = flags.split() + [
+            f"--datasets_dir={tmp_path / 'datasets'}", "--batch_size=2",
+            "--clip_length=3", "--max_epochs=1", "--limit_train_batches=1",
+            "--renderers", "none"]
+        for side, main, extra in (
+                ("port", modeling.main, ["--device=cpu"]),
+                ("jax", jmodeling.main, [])):
+            with pytest.raises(RuntimeError, match=(
+                    f"^pose_changes input has {joints} joints, skeleton "
+                    f"has 26")):
+                main(common + extra + [
+                    f"--root_dir={tmp_path / side}",
+                    f"--outputs_dir={tmp_path / side / 'outputs'}"])
