@@ -515,10 +515,41 @@ Then group_recorded (the recorded data and the resident epoch):
                      same bits. The group's line: no pv2c kernel launched
                      (no TPU kernel lies on this path) and its peak
                      memory.
+ 51-54. group_smpl_mixed -- the SMPL body model and AMASS's subsets on the
+                     card against the CPU, config 2 on CarlaRecAMASS (rows
+                     12-13) and GConvGRU on JAADCarlaRec (rows 10-11).
+ 55. carla_control_request -- group_carla_control: BASELINE config 1's
+                     request (LinearAE, B=1024, L=16, "fused": one row-1
+                     launch); its relative_pose_rot as CARLA rotations by
+                     the batched conversion on the card against the CPU
+                     (the gap in degrees printed; the round trip to
+                     matrices within CARLA_RT_BAR); the batched conversion
+                     and copy against one a frame, host clock.
+ 56. carla_fake_world -- CarlaRenderer.render_clip of 4 of those clips on
+                     a fake world (FakeWorld: it records set_bones,
+                     set_transform and tick, its camera gives seeded
+                     frames) from the card's tensors and from their CPU
+                     copies: the same bones, teleports and frames; each
+                     frame's bones the clip's rotations; the CARLA route's
+                     points (PoseProjection on the card) against the
+                     kernel's projection_2d within CARLA_PX_BAR.
+ 57. sensitivity  -- missing_joints_sensitivity.main with --joints
+                     crl_hand__L: two CLI fits of config 3's GConvGRU
+                     (B=256, L=16, H=128, k=2, 3 steps): rows 10-11's
+                     launches, finite metrics, the joint missing.
+ 58. sweep_compare -- a 2-trial sweep of configs/sweep/carla2d3d_linear_ae
+                     .yaml (cut: 1 epoch, sets of 256 clips, 4 steps) in
+                     process, the trials' parameters the sampler's on the
+                     CPU, finite objectives; the first variant of
+                     configs/compare/carla2d3d_models.yaml (cut the same
+                     way) through compare.work, a CLI subprocess started
+                     before phase 55 and run beside phases 55-58, whose
+                     output holds its metrics.
 Then the card line, the kernels line (config 2's, the train-options
 phase's, group_openpose's, group_serving's, group_recorded's and phase
-46's launches beside the dense LSTM, projection-training, graph-GRU and
-the other forward entries; the
+46's, the mixed modules' and group_carla_control's launches beside the
+dense LSTM, projection-training, graph-GRU and the other forward
+entries; the
 four bf16 rows as entries of their own, row4_bf16 ... row9_bf16, their
 launches those of the bf16 path of phases 38-40), and the contract line
 last. Any failure raises and ends the run with a
@@ -7905,6 +7936,501 @@ def group_smpl_mixed(card, hbm_rate):
                for name, n in gconv.items()}}
 
 
+#: CARLA control and the orchestration scripts (group_carla_control): the
+#: clips the CARLA path drives (CARLA_CLIPS of the request's B=1024), the
+#: fake world's frame size, the bars: the round trip of a rotation through
+#: CARLA's angles on the card (float32 asin loses up to sqrt(2 * 2**-24),
+#: 3.5e-4 rad, where |M[0, 2]| -> 1; 2.9e-5 on the CPU at B=64) and the
+#: CARLA route's points against the kernel's projection_2d (the JAX
+#: package's two routes agree within 1.2e-4 px on the CPU,
+#: tests/test_torch_carla_control.py holds them at 1e-3 px; 2.4e-4 px on
+#: the CPU at B=64)
+CARLA_CLIPS, CARLA_FRAME = 4, (80, 60)
+CARLA_RT_BAR, CARLA_PX_BAR = 1e-3, 1e-2
+#: the sensitivity study's joint and fits (config 3's GConvGRU at B=256,
+#: L=16, H=128, k=2, dropout 0), the sweep's trials and the cuts of the
+#: sweep's and the compare variant's runs (epochs 5 -> 1, the sets 512 ->
+#: 256 clips, the train epoch LIMIT_STEPS batches)
+SENS_JOINT, SENS_STEPS, SENS_VAL = "crl_hand__L", 3, 256
+SWEEP_TRIALS, LIMIT_STEPS = 2, 4
+#: configs/sweep/carla2d3d_linear_ae.yaml and
+#: configs/compare/carla2d3d_models.yaml as dicts (the card's machine has
+#: no PyYAML)
+SWEEP_CONFIG = {
+    "method": "random",
+    "metric": {"goal": "maximize", "name": "hp/PCKhn@01"},
+    "parameters": {
+        "mode": {"value": "train"}, "flow": {"value": "autoencoder"},
+        "data_module_name": {"value": "Carla2D3D"},
+        "movements_model_name": {"value": "LinearAE2D"},
+        "max_epochs": {"value": 5}, "batch_size": {"value": 256},
+        "clip_length": {"value": 16}, "val_set_size": {"value": 512},
+        "test_set_size": {"value": 512}, "renderers": {"value": ["none"]},
+        "lr": {"min": 0.0005, "max": 0.01, "distribution": "log_uniform"},
+        "transform": {"value": "hips_neck_bbox"},
+        "noise": {"value": "gaussian"}, "noise_param": {"value": 1.0},
+        "missing_joint_probabilities_0": {"value": 0.1}}}
+COMPARE_CONFIG = {
+    "common_params": {
+        "flow": "pose_lifting", "mode": "train",
+        "data_module_name": "Carla2D3D", "batch_size": 256,
+        "clip_length": 16, "max_epochs": 5, "loss_modes": ["loc_2d_3d"],
+        "renderers": ["none"], "logs_dir": "compare_logs"},
+    "compare_params": {
+        "movements_model_name": ["LinearAE", "LSTM", "Seq2SeqEmbeddings"],
+        "noise": ["zero", "gaussian"]},
+    "compare_model": {"LSTM": {"hidden_size": [64, 128]}},
+    "common_model": {"Seq2SeqEmbeddings": {"single_joint_embeddings_size":
+                                           64}}}
+
+
+class FakeCarla:
+    """A stand-in of the carla package with a world that records what the
+    renderer does to it: the mock's types, a bone control, a client."""
+
+    class Location:
+        def __init__(self, x=0.0, y=0.0, z=0.0):
+            self.x, self.y, self.z = float(x), float(y), float(z)
+
+    class Rotation:
+        def __init__(self, pitch=0.0, yaw=0.0, roll=0.0):
+            self.pitch, self.yaw, self.roll = (float(pitch), float(yaw),
+                                               float(roll))
+
+    class Transform:
+        def __init__(self, location=None, rotation=None):
+            self.location = location or FakeCarla.Location()
+            self.rotation = rotation or FakeCarla.Rotation()
+
+    class WalkerBoneControlIn:
+        bone_transforms = None
+
+    class World:
+        pass
+
+
+class FakeActor:
+    """A walker or a camera of the fake world."""
+
+    def __init__(self, world, attributes, transform):
+        self.world, self.attributes = world, attributes
+        self.transform, self.callback = transform, None
+
+    def get_transform(self):
+        return self.transform
+
+    def set_transform(self, t):
+        self.transform = t
+        loc, rot = t.location, t.rotation
+        self.world.log.append(("set_transform", loc.x, loc.y, loc.z,
+                               rot.pitch, rot.yaw, rot.roll))
+
+    def set_bones(self, control):
+        self.world.log.append(("set_bones", [
+            (name, t.location.x, t.location.y, t.location.z,
+             t.rotation.pitch, t.rotation.yaw, t.rotation.roll)
+            for name, t in control.bone_transforms]))
+
+    def listen(self, callback):
+        self.callback = callback
+
+    def stop(self):
+        self.callback = None
+
+    def set_simulate_physics(self, enabled=True):
+        pass
+
+    def blend_pose(self, blend):
+        pass
+
+    def destroy(self):
+        pass
+
+
+class FakeBlueprint(dict):
+    def get_attribute(self, name):
+        return self.get(name)
+
+    def has_attribute(self, name):
+        return name in self
+
+    def set_attribute(self, name, value):
+        self[name] = value
+
+
+class FakeWorld:
+    """Records set_bones, set_transform and tick; each tick hands every
+    listening camera a seeded BGRA frame of its blueprint's size."""
+
+    def __init__(self, seed):
+        self.rng = np.random.default_rng(seed)
+        self.log, self.cameras = [], []
+
+    def tick(self):
+        self.log.append(("tick",))
+        for camera in self.cameras:
+            if camera.callback is not None:
+                w = int(camera.attributes["image_size_x"])
+                h = int(camera.attributes["image_size_y"])
+                camera.callback(type("Image", (), {
+                    "width": w, "height": h, "raw_data": self.rng.integers(
+                        0, 256, (h, w, 4), dtype=np.uint8).tobytes()})())
+        return len(self.log)
+
+    def get_blueprint_library(self):
+        class Library:
+            def filter(self, pattern):
+                return [FakeBlueprint(age=a, gender=g, is_invincible="true")
+                        for a in ("adult", "child")
+                        for g in ("female", "male")]
+
+            def find(self, name):
+                return FakeBlueprint(name=name)
+        return Library()
+
+    def get_random_location_from_navigation(self):
+        return FakeCarla.Location(*self.rng.uniform(-50, 50, 3).tolist())
+
+    def try_spawn_actor(self, bp, transform):
+        return FakeActor(self, bp, transform)
+
+    def spawn_actor(self, bp, transform):
+        camera = FakeActor(self, bp, transform)
+        self.cameras.append(camera)
+        return camera
+
+
+def angle_gap(a, b):
+    """The largest difference of two arrays of degrees, wrapped to
+    [-180, 180)."""
+    d = (np.asarray(a, np.float64) - np.asarray(b, np.float64)
+         + 180.0) % 360.0 - 180.0
+    return float(np.abs(d).max())
+
+
+def phase_carla_control_request():
+    """BASELINE config 1's serving request (LinearAE, seeded init,
+    Carla2D3D B=1024, L=16, projection_kernel="fused"): one row-1 launch;
+    its relative_pose_rot as CARLA rotations by the batched conversion on
+    the card against the same function on the CPU (the largest gap in
+    degrees printed; both sets back to matrices on the CPU within
+    CARLA_RT_BAR of each other) and back to matrices on the card within
+    CARLA_RT_BAR of the request's; the conversion and its one copy to the
+    host timed against a conversion and a copy a frame (the JAX package's
+    loop) for CARLA_CLIPS clips."""
+    from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
+        Carla2D3DDataModule
+    from pedestrians_video_2_carla_torch.ops.rotations import (
+        carla_rotation_to_matrix, matrix_to_carla_rotation)
+    from pedestrians_video_2_carla_torch.renderers.carla_renderer import \
+        carla_rotations
+    from pedestrians_video_2_carla_torch.serving import make_inference_fn
+
+    t0 = time.perf_counter()
+    flow, _ = make_flows()
+    dm = Carla2D3DDataModule(batch_size=BATCH, clip_length=CLIP,
+                             test_set_size=BATCH, seed=SEED)
+    inputs, targets, meta = next(iter(dm.test_batches()))
+    infer = make_inference_fn(flow, flow.init_params())
+    reset_kernel_counts()
+    preds = infer(inputs, meta["age_gender_idx"])
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    if counts != expected_counts(fused_projection=1):
+        raise AssertionError(f"the CARLA-control request launched {counts}")
+    rot = preds["relative_pose_rot"]
+    if rot.shape != (BATCH, CLIP, 26, 3, 3) or not torch.isfinite(rot).all():
+        raise AssertionError(f"relative_pose_rot {tuple(rot.shape)}")
+    pyr = matrix_to_carla_rotation(rot)
+    pyr_cpu = matrix_to_carla_rotation(rot.cpu())
+    gap_deg = angle_gap(pyr.cpu().numpy(), pyr_cpu.numpy())
+    round_trip = float((carla_rotation_to_matrix(pyr) - rot).abs().max())
+    same_rotations = float((carla_rotation_to_matrix(pyr.cpu().double())
+                            - carla_rotation_to_matrix(pyr_cpu.double())
+                            ).abs().max())
+    if not (round_trip <= CARLA_RT_BAR and same_rotations <= CARLA_RT_BAR):
+        raise AssertionError(f"CARLA rotations: round trip {round_trip}, "
+                             f"card vs CPU {same_rotations}")
+    clips = rot[:CARLA_CLIPS]
+
+    def batched():
+        return carla_rotations(clips)
+
+    def per_frame():
+        return [matrix_to_carla_rotation(clips[c, t]).cpu().numpy()
+                for c in range(CARLA_CLIPS) for t in range(CLIP)]
+    times = {}
+    for name, fn in (("batched_ms", batched), ("per_frame_ms", per_frame)):
+        fn()
+        runs = []
+        for _ in range(TIMING_RUNS):
+            t = time.perf_counter()
+            fn()
+            runs.append(1e3 * (time.perf_counter() - t))
+        times[name] = statistics.median(runs)
+    emit({"phase": "carla_control_request", "B": BATCH, "L": CLIP,
+          "launches": counts["fused_projection"],
+          "max_gap_deg_card_vs_cpu": gap_deg,
+          "round_trip_max_abs_err": round_trip,
+          "card_vs_cpu_rotations_max_abs_err": same_rotations,
+          "max_abs_m02": float(rot[..., 0, 2].abs().max()),
+          "bar": CARLA_RT_BAR, "clips": CARLA_CLIPS,
+          "host_ms_median": times, "seconds": time.perf_counter() - t0})
+    return preds, meta, counts["fused_projection"]
+
+
+def render_on_fake_world(rot, world_loc):
+    """CarlaRenderer.render_clip of each clip on a fake world bound as
+    ``carla``: the worlds' logs and the clips' frames."""
+    from pedestrians_video_2_carla_torch.renderers.carla_renderer import \
+        CarlaRenderer
+    from pedestrians_video_2_carla_torch.walker_control import carla_utils
+
+    renderer = CarlaRenderer(image_size=CARLA_FRAME)
+    saved = carla_utils.carla
+    carla_utils.carla = FakeCarla
+    try:
+        worlds, frames = [], []
+        for c in range(len(rot)):
+            world = FakeWorld(SEED + c)
+            frames.append(renderer.render_clip(
+                world, None, rot[c], world_loc[c], None, "adult", "female"))
+            worlds.append(world)
+    finally:
+        carla_utils.carla = saved
+    return worlds, frames
+
+
+def phase_carla_fake_world(preds, meta):
+    """The CARLA path on CARLA_CLIPS clips of the request: render_clip on a
+    fake world with the card's tensors and with their CPU copies (the
+    same bone transforms within 1e-4 degrees, the same teleports, ticks
+    and frames); each frame's bones the clip's rotations; then
+    PoseProjection.current_pose_to_points of each frame's pose on the
+    card against the kernel's projection_2d (CARLA_PX_BAR)."""
+    from pedestrians_video_2_carla_torch.ops.rotations import \
+        matrix_to_carla_rotation
+    from pedestrians_video_2_carla_torch.skeletons.carla import (
+        AGE_GENDER_KEYS, BONE_NAMES)
+    from pedestrians_video_2_carla_torch.walker_control import carla_utils
+    from pedestrians_video_2_carla_torch.walker_control.controlled_pedestrian \
+        import ControlledPedestrian
+    from pedestrians_video_2_carla_torch.walker_control.pose_projection \
+        import PoseProjection
+
+    t0 = time.perf_counter()
+    rot = preds["relative_pose_rot"][:CARLA_CLIPS]
+    world_loc = torch.from_numpy(np.random.default_rng(SEED + 40).uniform(
+        -0.05, 0.05, (CARLA_CLIPS, CLIP, 3)).cumsum(1).astype(
+        np.float32)).to(rot.device)
+    t = time.perf_counter()
+    card_worlds, card_frames = render_on_fake_world(rot, world_loc)
+    render_s = time.perf_counter() - t
+    cpu_worlds, cpu_frames = render_on_fake_world(rot.cpu(), world_loc.cpu())
+    bones_gap = moves_gap = 0.0
+    pyr_ref = matrix_to_carla_rotation(rot.cpu()).numpy()
+    for c, (a, b) in enumerate(zip(card_worlds, cpu_worlds)):
+        if [e[0] for e in a.log] != [e[0] for e in b.log]:
+            raise AssertionError(f"clip {c}: the fake worlds' calls differ")
+        bones = [e[1] for e in a.log if e[0] == "set_bones"]
+        # ticks: the spawn, the bind's pose, the camera, then one a frame
+        ticks = sum(e[0] == "tick" for e in a.log)
+        if len(bones) != 1 + CLIP or ticks != 3 + CLIP:
+            raise AssertionError(f"clip {c}: {len(bones)} poses, {ticks} "
+                                 f"ticks")
+        for ea, eb in zip(a.log, b.log):
+            if ea[0] == "set_bones":
+                bones_gap = max(bones_gap, angle_gap(
+                    [r[4:] for r in ea[1]], [r[4:] for r in eb[1]]))
+                if [r[:4] for r in ea[1]] != [r[:4] for r in eb[1]]:
+                    raise AssertionError("bone names or locations differ")
+            elif ea[0] == "set_transform":
+                moves_gap = max(moves_gap, float(np.abs(
+                    np.subtract(ea[1:], eb[1:])).max()))
+        # frame i's bones are the clip's rotations at frame i (the hips
+        # and the root carry the root<->hips transform)
+        for i, frame_bones in enumerate(bones[1:]):
+            got = {r[0]: r[4:] for r in frame_bones}
+            for j, name in enumerate(BONE_NAMES):
+                if name not in ("crl_root", "crl_hips__C") and angle_gap(
+                        got[name], pyr_ref[c, i, j]) > 1e-4:
+                    raise AssertionError(f"clip {c} frame {i} {name}")
+        if not np.array_equal(card_frames[c], cpu_frames[c]) \
+                or card_frames[c].shape != (CLIP, CARLA_FRAME[1],
+                                            CARLA_FRAME[0], 3):
+            raise AssertionError(f"clip {c}: frames differ")
+    teleports = sum(e[0] == "set_transform" for e in card_worlds[0].log)
+    if bones_gap > 1e-4 or moves_gap > 1e-5 or teleports != CLIP:
+        raise AssertionError(f"card vs CPU route: bones {bones_gap} deg, "
+                             f"teleports {moves_gap} m, {teleports}")
+
+    # the CARLA route's points against the kernel's projection_2d
+    pyr = matrix_to_carla_rotation(rot).cpu().numpy()
+    px_gap, t = 0.0, time.perf_counter()
+    for c in range(CARLA_CLIPS):
+        key = AGE_GENDER_KEYS[int(meta["age_gender_idx"][c])]
+        ped = ControlledPedestrian(None, *key.split("_"))
+        projection = PoseProjection(ped, device=rot.device)
+        kernel = preds["projection_2d"][c, :, :, :2].cpu().numpy()
+        for i in range(CLIP):
+            pose = ped.current_pose.relative
+            for j, name in enumerate(BONE_NAMES):
+                pose[name].rotation = carla_utils.carla.Rotation(
+                    *pyr[c, i, j].tolist())
+            ped.current_pose.relative = pose
+            px_gap = max(px_gap, float(np.abs(
+                projection.current_pose_to_points() - kernel[i]).max()))
+    points_s = time.perf_counter() - t
+    if not px_gap <= CARLA_PX_BAR:
+        raise AssertionError(f"CARLA route vs the kernel: {px_gap} px")
+    emit({"phase": "carla_fake_world", "clips": CARLA_CLIPS, "L": CLIP,
+          "frame": CARLA_FRAME, "bones_gap_deg_card_vs_cpu": bones_gap,
+          "teleport_gap_m_card_vs_cpu": moves_gap,
+          "frames_equal": True, "poses_per_clip": 1 + CLIP,
+          "render_seconds": render_s,
+          "points_vs_kernel_max_gap_px": px_gap, "px_bar": CARLA_PX_BAR,
+          "points_seconds": points_s,
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_sensitivity(tmp):
+    """missing_joints_sensitivity.main with --joints SENS_JOINT: the
+    baseline and one joint missing, two CLI fits of config 3's GConvGRU
+    on the card; rows 10-11's launches counted, the metrics finite, the
+    joint missing from the second fit's deformed points and present in
+    the first's."""
+    from pedestrians_video_2_carla_torch import \
+        missing_joints_sensitivity as sens
+    from pedestrians_video_2_carla_torch.skeletons.carla import BONE_NAMES
+
+    t0 = time.perf_counter()
+    fits = []
+    run = sens.modeling_main
+
+    def keep(args):
+        fits.append(run(args))
+        return fits[-1]
+    sens.modeling_main = keep
+    reset_kernel_counts()
+    try:
+        metrics = sens.main([
+            "--data_module_name=Carla2D3D",
+            "--classification_model_name=GConvGRU",
+            f"--hidden_size={CLS_H}", f"--k={CLS_K}", "--p_dropout=0.0",
+            "--graph_kernel=fused", f"--batch_size={CLS_BATCH}",
+            f"--clip_length={CLIP}", "--max_epochs=1",
+            f"--limit_train_batches={SENS_STEPS}",
+            f"--val_set_size={SENS_VAL}", "--skip_initial_metrics=true",
+            f"--root_dir={tmp}", "--joints", SENS_JOINT])
+    finally:
+        sens.modeling_main = run
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernel_counts().items() if v}
+    if set(counts) != {"graph_gru_scan", "graph_gru_scan_bwd"}:
+        raise AssertionError(f"the sensitivity fits launched {counts}")
+    if list(metrics) != ["baseline", SENS_JOINT] or not all(
+            np.isfinite(v) for m in metrics.values() for v in m.values()):
+        raise AssertionError(f"sensitivity metrics {metrics}")
+    hand = BONE_NAMES.index(SENS_JOINT)
+    for results, missing in zip(fits, (False, True)):
+        points = next(iter(results["dm"].train_batches(0)))[1][
+            "projection_2d_deformed"]
+        if bool((points[..., hand, :] == 0).all()) is not missing:
+            raise AssertionError(f"{SENS_JOINT} missing: {not missing}")
+    emit({"phase": "sensitivity", "joint": SENS_JOINT, "fits": len(fits),
+          "B_L_J_H_k": CLS_MAIN, "steps": SENS_STEPS,
+          "val_clips": SENS_VAL, "launches": counts,
+          "val_F1Score": {k: m.get("val_F1Score") for k, m in
+                          metrics.items()},
+          "seconds": time.perf_counter() - t0})
+    return counts
+
+
+def start_compare(tmp, pool):
+    """The first compare.work variant of configs/compare/carla2d3d_models
+    .yaml (LinearAE, noise zero), cut (epochs 5 -> 1, validation 512 ->
+    256 clips, LIMIT_STEPS steps), started on ``pool``: the CLI in a
+    subprocess on the card, beside the phases that follow."""
+    from pedestrians_video_2_carla_torch import compare
+
+    variant = compare.variants_for(COMPARE_CONFIG, tmp)[0]
+    logs_dir = compare.logs_dir_for(COMPARE_CONFIG, tmp)
+    variant.update(max_epochs=1, val_set_size=256,
+                   limit_train_batches=LIMIT_STEPS, logs_dir=logs_dir)
+    os.makedirs(os.path.join(logs_dir, "stdout"))
+    return variant, time.perf_counter(), pool.submit(compare.work, variant,
+                                                     logs_dir)
+
+
+def phase_sweep_compare(tmp, compare_run):
+    """A SWEEP_TRIALS-trial sweep of configs/sweep/carla2d3d_linear_ae.yaml
+    in process on the card, cut (epochs 5 -> 1, sets 512 -> 256 clips,
+    LIMIT_STEPS steps): the trials' parameters those of the sampler on the
+    CPU for the seed, the objectives and the results file finite; then
+    the compare variant's output file (start_compare): the CLI's finite
+    validation metrics."""
+    from pedestrians_video_2_carla_torch import compare, sweep
+
+    t0 = time.perf_counter()
+    config = json.loads(json.dumps(SWEEP_CONFIG))
+    cuts = {"max_epochs": 1, "val_set_size": 256, "test_set_size": 256}
+    for k, v in cuts.items():
+        config["parameters"][k] = {"value": v}
+    logs = os.path.join(tmp, "sweeps")
+    best, history = sweep.run_sweep(
+        config, count=SWEEP_TRIALS, seed=SEED, logs_dir=logs,
+        extra_args=(f"--limit_train_batches={LIMIT_STEPS}",
+                    f"--root_dir={tmp}"))
+    suggest = sweep.make_sampler(config, 1.0, SEED)
+    want = [suggest([]) for _ in range(SWEEP_TRIALS)]
+    with open(os.path.join(logs, "sweep_results.jsonl")) as f:
+        written = [json.loads(line) for line in f]
+    if [h["params"] for h in history] != want or len(written) \
+            != SWEEP_TRIALS or not all(np.isfinite(r.get("objective", np.nan))
+                                       for r in written):
+        raise AssertionError(f"sweep {written}, expected params {want}")
+    sweep_s = time.perf_counter() - t0
+
+    variant, started, future = compare_run
+    with open(future.result()) as f:
+        out = f.read()
+    compare_s = time.perf_counter() - started
+    values = {line.split()[0]: line.split()[-1] for line in out.splitlines()
+              if line.strip().startswith("val_")}
+    if "val metrics:" not in out or "val_MPJPE" not in values:
+        raise AssertionError(f"compare output: {out[-2000:]}")
+    emit({"phase": "sweep_compare", "trials": SWEEP_TRIALS,
+          "cuts": {**cuts, "limit_train_batches": LIMIT_STEPS},
+          "params": want, "objectives": [h["objective"] for h in history],
+          "sweep_seconds": sweep_s,
+          "compare_variant": compare._arg_list(variant),
+          "compare_val_lines": len(values),
+          "compare_seconds_from_its_start": compare_s,
+          "seconds": time.perf_counter() - t0})
+
+
+def group_carla_control(card, hbm_rate):
+    """CARLA control (row 1 in its request), the sensitivity study (rows
+    10-11) and the sweep and compare scripts: the rows' launches on these
+    paths, by wrapper name."""
+    t0 = time.perf_counter()
+    # the compare variant's CLI subprocess runs beside the group's phases
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
+        compare_run = start_compare(tmp, pool)
+        preds, meta, launches = phase_carla_control_request()
+        phase_carla_fake_world(preds, meta)
+        del preds
+        torch.cuda.empty_cache()
+        sensitivity = phase_sensitivity(tmp)
+        phase_sweep_compare(tmp, compare_run)
+    torch.cuda.empty_cache()
+    emit({"phase": "group_carla_control", "card": card,
+          "seconds": time.perf_counter() - t0})
+    return {"fused_projection": {"launches_carla_control": launches},
+            **{name: {"launches_sensitivity": n}
+               for name, n in sensitivity.items()}}
+
+
 def kernel_entry(name, source, replaces, launches, max_err, times):
     """One entry of the kernels line; ``replaces`` is the TPU kernel's
     ``file:line`` under the JAX package's ops/pallas/."""
@@ -8067,6 +8593,12 @@ def main():
     group_pose_estimation(card, hbm_rate)
     # rows 10-13 on the mixed data modules' paths
     for name, extra in group_smpl_mixed(card, hbm_rate).items():
+        entry = next(e for e in kernels if e["name"] == name)
+        entry["launches"] += sum(extra.values())
+        entry.update(extra)
+    # row 1 in the CARLA-control request, rows 10-11 in the sensitivity
+    # study's fits
+    for name, extra in group_carla_control(card, hbm_rate).items():
         entry = next(e for e in kernels if e["name"] == name)
         entry["launches"] += sum(extra.values())
         entry.update(extra)

@@ -7,9 +7,14 @@ inputs), ``target_points`` (the target projections), ``projection_points``
 (the predicted projections), ``source_videos`` (the source video's
 frames, with the ``overlay_*`` drawings) and ``smpl`` (the body mesh of
 the targets' ``amass_body_pose``, or the SMPL points of their
-projections; ``renderers/smpl_renderer.py``). ``carla`` and
-``source_carla`` draw through CARLA's renderer, which is not ported: they
-raise ``NotImplementedError``, as any other name raises ``ValueError``."""
+projections; ``renderers/smpl_renderer.py``), ``source_carla`` (the
+targets' ``relative_pose_rot`` through CARLA's renderer) and ``carla``
+(the predictions' ``relative_pose_rot`` with the targets'
+``relative_pose_loc`` through it; ``renderers/carla_renderer.py``). Under
+the mock CARLA client the last two give black frames; where their
+``relative_pose_rot`` is missing, ``source_carla`` draws the inputs' points
+and ``carla`` the predicted projections'. Any other name raises
+``ValueError``."""
 import os
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -24,9 +29,7 @@ from ..skeletons.carla import CARLA_SKELETON
 DEFAULT_RENDERERS = ("input_points", "projection_points")
 #: the renderers the writer has
 RENDERERS = ("zeros", "input_points", "target_points", "projection_points",
-             "source_videos", "smpl")
-#: the JAX package's renderers that need CARLA's renderer
-UNPORTED_RENDERERS = ("carla", "source_carla")
+             "source_videos", "smpl", "carla", "source_carla")
 
 
 def check_renderers(names: Iterable[str]) -> List[str]:
@@ -34,11 +37,6 @@ def check_renderers(names: Iterable[str]) -> List[str]:
     render."""
     names = [r for r in names or [] if r and r != "none"]
     for name in names:
-        if name in UNPORTED_RENDERERS:
-            raise NotImplementedError(
-                f"renderer {name!r} needs the CARLA renderer, which is "
-                f"not ported to PyTorch yet (ported: "
-                f"{list(RENDERERS)}; see ROADMAP.md M8)")
         if name not in RENDERERS:
             raise ValueError(f"unknown renderer {name!r}; one of "
                              f"{list(RENDERERS)} or 'none'")
@@ -107,7 +105,25 @@ class PedestrianWriter:
             pts = self._denormalize(targets.get("projection_2d"), agi, False)
             return list(self._input_renderer.render(pts)) \
                 if pts is not None else list(self._zeros.render(frames=inputs))
-        if name == "projection_points":
+        if name == "source_carla":
+            if targets.get("relative_pose_rot") is None:
+                pts = self._denormalize(inputs, agi, normalized)
+                return list(self._input_renderer.render(pts))
+            from ..renderers.carla_renderer import CarlaRenderer
+            return list(CarlaRenderer().render(
+                relative_pose_loc=targets.get("relative_pose_loc"),
+                relative_pose_rot=targets["relative_pose_rot"],
+                world_loc=targets.get("world_loc"),
+                world_rot=targets.get("world_rot"), meta=meta))
+        if name == "carla" \
+                and projections.get("relative_pose_rot") is not None:
+            from ..renderers.carla_renderer import CarlaRenderer
+            return list(CarlaRenderer().render(
+                relative_pose_loc=targets.get("relative_pose_loc"),
+                relative_pose_rot=projections["relative_pose_rot"],
+                world_loc=projections.get("world_loc"),
+                world_rot=projections.get("world_rot"), meta=meta))
+        if name in ("projection_points", "carla"):
             pts = self._predicted(projections, agi)
             return list(self._output_renderer.render(pts)) \
                 if pts is not None else list(self._zeros.render(frames=inputs))

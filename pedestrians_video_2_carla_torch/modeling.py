@@ -29,7 +29,9 @@ type whose ``--{type}_lr`` is not given). Logs and checkpoints go to
 ``<root_dir>/logs/<flow>``); a
 ``--ckpt_path`` ending in ``.ckpt``, ``.pth`` or ``.pt`` that is not the
 port's own archive is a reference torch checkpoint, whose movements-model
-weights load through ``Trainer.restore_torch``. The data
+weights load through ``Trainer.restore_torch``; a ``file://`` or
+``wandb://`` path is first resolved to a local one
+(``training/checkpoint.py::resolve_ckpt_path``). The data
 modules are the JAX CLI's by name (``Carla2D3D``, ``CarlaRecorded``,
 ``CarlaBenchmark``, ``CarlaRecordedVideo``, ``JAADOpenPose``,
 ``PIEOpenPose``, ``JAADBenchmark``, ``PIEBenchmark``, ``JAADUniPose``;
@@ -47,7 +49,8 @@ model do not take are ignored with a warning, as in the JAX CLI.
 
 Logging and tracing: ``--logger wandb`` also writes a W&B offline run
 directory under the run's; ``--renderers input_points projection_points``
-(``zeros``, ``target_points``, ``source_videos`` too) write mp4s under
+(``zeros``, ``target_points``, ``source_videos``, ``smpl``, ``carla``,
+``source_carla`` too) write mp4s under
 ``<log_dir>/videos`` (``--max_videos``,
 ``--video_saving_frequency_reduction``, ``--merging_method``,
 ``--source_videos_*``); ``--profile`` writes a ``torch.profiler`` trace of
@@ -95,9 +98,11 @@ from .ops.projection import KERNELS
 from .serving import export_inference
 from .skeletons.base import get_skeleton_type_by_name
 from .skeletons.carla import CARLA_SKELETON
-from .training.checkpoint import is_archive
+from .training.checkpoint import is_archive, resolve_ckpt_path
 from .training.trainer import LOGGERS, Trainer, TrainerConfig
+from .utils.argparse import boolean, flat_args_as_list_arg
 from .utils.naming import unique_run_name
+from .utils.printing import print_metrics
 from .utils.profiling import device_trace, print_timing, timed
 
 DEFAULT_SEED = 22742
@@ -110,15 +115,6 @@ FLOWS = {"pose_lifting": PoseLiftingFlow,
 DEFAULT_MODELS = {"pose_estimation": "UniPoseLSTM"}
 DATA_MODULES = data_registry.discover()
 MODES = ("train", "tune", "test", "predict", "export")
-
-
-def boolean(v) -> bool:
-    """The JAX CLI's boolean flag values: yes/true/t/y/1, no/false/f/n/0."""
-    if str(v).lower() in ("yes", "true", "t", "y", "1"):
-        return True
-    if str(v).lower() in ("no", "false", "f", "n", "0"):
-        return False
-    raise argparse.ArgumentTypeError(f"Boolean value expected, got {v!r}.")
 
 
 def _ported(kind: str, name: str, available) -> None:
@@ -413,19 +409,6 @@ def add_optimizer_args(group, prefix: str) -> None:
     group.add_argument(f"--{prefix}_weight_decay", type=float, default=1e-8)
 
 
-def flat_list(args, name: str) -> Optional[List[float]]:
-    """The ``--{name}_{i}`` given, as a dense list (0 where a lower index
-    is missing); None when none is."""
-    given = {i: getattr(args, f"{name}_{i}") for i in range(LOSS_PARAMS)
-             if getattr(args, f"{name}_{i}") is not None}
-    if not given:
-        return None
-    out = [0.0] * (max(given) + 1)
-    for i, v in given.items():
-        out[i] = v
-    return out
-
-
 def is_reference_checkpoint(path: str) -> bool:
     """Whether ``--ckpt_path`` names a reference torch or Lightning
     checkpoint (``.ckpt``, ``.pth``, or a ``.pt`` that is not the port's
@@ -536,7 +519,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             loss_modes=args.loss_modes,
             loss_weights={k: float(v) for k, v in (
                 w.split("=") for w in args.loss_weights)},
-            loss_params=flat_list(args, "loss_params"),
+            loss_params=flat_args_as_list_arg(vars(args), "loss_params"),
             mask_missing_joints=args.mask_missing_joints,
             transform=args.transform,
             movements_optimizer=OptimizerSettings.from_kwargs("movements",
@@ -561,8 +544,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         max_initial_world_rot_change_in_deg=(
             args.max_initial_world_rot_change_in_deg),
         noise=args.noise, noise_param=args.noise_param,
-        missing_joint_probabilities=flat_list(
-            args, "missing_joint_probabilities"),
+        missing_joint_probabilities=flat_args_as_list_arg(
+            vars(args), "missing_joint_probabilities"),
         seed=args.seed, datasets_dir=args.datasets_dir,
         outputs_dir=args.outputs_dir, subsets_dir=args.subsets_dir,
         clip_offset=args.clip_offset, val_set_frac=args.val_set_frac,
@@ -636,10 +619,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         # before any checkpoint, which then wins
         trainer.restore_pretrained_backbone(args.pretrained_backbone_path)
     if args.ckpt_path:
-        if is_reference_checkpoint(args.ckpt_path):
-            trainer.restore_torch(args.ckpt_path, args.movements_model_name)
+        ckpt_path = resolve_ckpt_path(args.ckpt_path)
+        if is_reference_checkpoint(ckpt_path):
+            trainer.restore_torch(ckpt_path, args.movements_model_name)
         else:
-            trainer.restore(args.ckpt_path,
+            trainer.restore(ckpt_path,
                             weights_only=(args.mode != "train"))
     if args.mode in ("train", "tune"):
         if args.profile:
@@ -671,4 +655,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
 
 def run():
-    main()
+    """The CLI: ``main`` of the command line, then the run's scalar
+    validation (or test) metrics printed, so that a captured output (the
+    files of ``compare.py``) holds the results."""
+    results = main()
+    for stage in ("val", "test"):
+        metrics = {k: v for k, v in results.get(f"{stage}_metrics",
+                                                {}).items()
+                   if isinstance(v, float)}
+        if metrics:
+            print_metrics(metrics, header=f"{stage} metrics:")

@@ -121,6 +121,13 @@ def forward_kinematics(rel_loc: torch.Tensor, rel_rot: torch.Tensor,
     return torch.stack(abs_loc, dim=-1), _pack9(abs_rot)
 
 
+def move(changes_matrix: torch.Tensor,
+         prev_relative_rot: torch.Tensor) -> torch.Tensor:
+    """Per-bone rotation changes applied to relative rotations:
+    ``new_rel = change @ prev_rel``."""
+    return mm(changes_matrix, prev_relative_rot)
+
+
 def accumulate9(changes9, init9):
     """9 (B, L, J) change planes + 9 (B, 1, J) initial planes -> 9 (B, L, J)
     relative-rotation planes: frame t holds ``C_t @ ... @ C_0 @ R_init``.

@@ -108,3 +108,54 @@ def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
 def matrix_to_rotation_6d(matrix: torch.Tensor) -> torch.Tensor:
     """First two rows of the rotation matrix, flattened to (..., 6)."""
     return matrix[..., :2, :].reshape(matrix.shape[:-2] + (6,))
+
+
+def matrix_to_euler_angles(matrix: torch.Tensor,
+                           convention: str = "XYZ") -> torch.Tensor:
+    """Inverse of :func:`euler_angles_to_matrix` for the "XYZ" convention:
+    ``(atan2(-M[1,2], M[2,2]), asin(M[0,2]), atan2(-M[0,1], M[0,0]))``."""
+    if convention != "XYZ":
+        raise NotImplementedError(
+            "only the XYZ convention is used in this codebase")
+    central = torch.asin(torch.clamp(matrix[..., 0, 2], -1.0, 1.0))
+    first = torch.atan2(-matrix[..., 1, 2], matrix[..., 2, 2])
+    third = torch.atan2(-matrix[..., 0, 1], matrix[..., 0, 0])
+    return torch.stack([first, central, third], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# CARLA convention bridge
+# ---------------------------------------------------------------------------
+# CARLA/UE4 rotations are degrees (pitch, yaw, roll) in a left-handed
+# system; the tensor core works in the right-handed P3D convention where z
+# and all angles are negated:
+# matrix = euler_to_matrix(deg2rad(-roll, -pitch, -yaw), "XYZ").
+
+def carla_rotation_to_matrix(pitch_yaw_roll_deg: torch.Tensor
+                             ) -> torch.Tensor:
+    """(..., 3) degrees (pitch, yaw, roll) -> (..., 3, 3) P3D matrices."""
+    pyr = torch.deg2rad(pitch_yaw_roll_deg)
+    angles = torch.stack([-pyr[..., 2], -pyr[..., 0], -pyr[..., 1]], dim=-1)
+    return euler_angles_to_matrix(angles, "XYZ")
+
+
+def matrix_to_carla_rotation(matrix: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) P3D matrices -> (..., 3) degrees (pitch, yaw, roll), on
+    the matrices' device."""
+    angles = -torch.rad2deg(matrix_to_euler_angles(matrix, "XYZ"))
+    return torch.stack([angles[..., 1], angles[..., 2], angles[..., 0]],
+                       dim=-1)
+
+
+def carla_location_to_p3d(xyz: torch.Tensor) -> torch.Tensor:
+    return torch.stack([xyz[..., 0], xyz[..., 1], -xyz[..., 2]], dim=-1)
+
+
+p3d_location_to_carla = carla_location_to_p3d  # an involution
+
+
+def eye_batch(shape, n: int = 3, dtype=torch.float32,
+              device=None) -> torch.Tensor:
+    """Batched identity matrices: ``shape + (n, n)``."""
+    return torch.eye(n, dtype=dtype, device=device).expand(
+        tuple(shape) + (n, n))

@@ -81,6 +81,10 @@ def _reference_poses_raw() -> Dict[str, dict]:
 AGE_GENDER_KEYS = ("adult_female", "adult_male", "child_female", "child_male")
 
 
+def reference_pose_key(age: str, gender: str) -> str:
+    return f"{age}_{gender}"
+
+
 @lru_cache(maxsize=None)
 def load_reference_pose_carla(key: str = "adult_female"):
     """Reference relative pose in **CARLA units/convention**:

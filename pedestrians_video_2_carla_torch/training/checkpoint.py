@@ -138,3 +138,30 @@ class CheckpointManager:
                 schedule.load_state_dict(schedules[name])
             state.step = int(data["step"])
         return state
+
+
+def resolve_ckpt_path(path: str, search_root: str = "outputs") -> str:
+    """A ``--ckpt_path`` with a scheme -> a local path. ``file://x`` is
+    ``x``. ``wandb://entity/project/run[:version]`` names a W&B artifact,
+    which would need the network; it is looked up locally instead: the
+    run's directory under ``search_root`` (or ``$WANDB_ARTIFACTS_DIR``),
+    and in its ``checkpoints/`` the newest ``best*`` archive, else the
+    newest archive, without its suffix. Any other path is returned as it
+    is."""
+    if path.startswith("file://"):
+        return path[len("file://"):]
+    if not path.startswith("wandb://"):
+        return path
+    import glob
+
+    run = path[len("wandb://"):].rstrip("/").split("/")[-1].split(":")[0]
+    root = os.environ.get("WANDB_ARTIFACTS_DIR", search_root)
+    hits = sorted(glob.glob(os.path.join(root, "**", run, "checkpoints",
+                                         "*" + SUFFIX), recursive=True),
+                  key=os.path.getmtime)
+    best = [h for h in hits if os.path.basename(h).startswith("best")]
+    if best or hits:
+        return (best or hits)[-1][:-len(SUFFIX)]
+    raise FileNotFoundError(
+        f"no local checkpoint for {path!r} under {root!r} (looked for "
+        f"**/{run}/checkpoints/*{SUFFIX})")

@@ -235,6 +235,50 @@ def test_port_has_the_smpl_and_mixed_slice():
     assert proc.stdout.strip() == str(sorted(discover()))
 
 
+def test_port_has_the_carla_control_and_orchestration_slice():
+    """CARLA control, the gym environment, the orchestration scripts and
+    the helpers: each module at its JAX relative path, walked by the
+    isolation checks; every one but the gym package imports in a fresh
+    process with the CPU-only packages, gymnasium and carla blocked (the
+    scripts import PyYAML where they read a file; the mock stands in for
+    carla), and the gym package with the CPU-only packages blocked."""
+    modules = _port_modules()
+    slice_ = ("walker_control", "walker_control.carla_utils",
+              "walker_control.pose", "walker_control.pose_projection",
+              "walker_control.controlled_pedestrian",
+              "renderers.carla_renderer", "compare", "sweep",
+              "missing_joints_sensitivity", "utils.argparse", "utils.paths",
+              "utils.printing", "utils.term", "utils.exceptions")
+    gym = ("gym_carla_pedestrians", "gym_carla_pedestrians.envs",
+           "gym_carla_pedestrians.wrappers")
+    for name in slice_ + gym:
+        assert f"pedestrians_video_2_carla_torch.{name}" in modules
+        path = name.replace(".", os.sep)
+        assert any(os.path.exists(os.path.join(
+            REPO, "pedestrians_video_2_carla_tpu", path + suffix))
+            for suffix in (".py", os.sep + "__init__.py")), path
+    for blocked, names in ((CPU_ONLY + ("gymnasium", "carla"), slice_),
+                           (CPU_ONLY, gym)):
+        code = (
+            "import importlib, sys\n"
+            f"for name in {blocked!r}:\n"
+            "    sys.modules[name] = None\n"
+            f"for name in {names!r}:\n"
+            "    importlib.import_module('pedestrians_video_2_carla_torch.' + "
+            "name)\n"
+            "from pedestrians_video_2_carla_torch.walker_control import "
+            "carla_utils\n"
+            "assert carla_utils.using_mock_carla()\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "assert not bad, bad\n"
+            "print('IMPORTED')\n")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                              capture_output=True, text=True, timeout=180)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        assert "IMPORTED" in proc.stdout
+
+
 def _chip_smoke_imports():
     """The port imports of chip_smoke.py, at any depth, as statements."""
     with open(os.path.join(REPO, "chip_smoke.py")) as f:

@@ -11,8 +11,9 @@ package's, and the CLI's logging, video and tracing flags, on the CPU.
   array, before they are encoded (the mp4 bytes are not compared).
 * The CLI with ``--renderers`` writes training and validation mp4s under
   the run's ``videos/``; ``--profile`` writes a trace and prints timings;
-  the renderers that need CARLA raise at argument time. ``smpl`` draws
-  the JAX writer's arrays and the CLI writes the JAX CLI's videos with it.
+  an unknown renderer raises at argument time. ``smpl``, ``carla`` and
+  ``source_carla`` draw the JAX writer's arrays and the CLI writes the JAX
+  CLI's videos with them.
 """
 import glob
 import json
@@ -274,23 +275,25 @@ def test_source_videos_renderer_equals_jax(tmp_path):
 
 
 def test_writer_refuses_renderers_it_does_not_have(tmp_path):
-    for name in ("carla", "source_carla"):
-        with pytest.raises(NotImplementedError, match="M8"):
-            TWriter.PedestrianWriter(str(tmp_path), renderers=[name])
-    # smpl is ported: without a body model file it draws the targets'
-    # projections on the SMPL skeleton, as the JAX writer does
+    # smpl: without a body model file it draws the targets' projections on
+    # the SMPL skeleton; carla and source_carla: where the predictions and
+    # the targets lack relative_pose_rot, the predicted projections' and
+    # the inputs' points (black frames under the mock CARLA client where
+    # they have it, tests/test_torch_carla_control.py); each as the JAX
+    # writer does
     batch = _writer_batch(np.random.default_rng(5))
-    clips = [[], []]
-    for seen, (name, module) in zip(clips, (("port", TWriter),
-                                            ("jax", JWriter))):
-        module.PedestrianWriter(
-            str(tmp_path / name), renderers=["smpl"], max_videos=2
-        ).log_videos(*batch, stage="val", force=True,
-                     vid_callback=lambda v, *a: seen.append(v))
-    assert len(clips[0]) == len(clips[1]) == 2
-    for got, want in zip(*clips):
-        np.testing.assert_array_equal(got, want)
-        assert got.any()
+    for renderers in (["smpl"], ["carla"], ["source_carla"]):
+        clips = [[], []]
+        for seen, (name, module) in zip(clips, (("port", TWriter),
+                                                ("jax", JWriter))):
+            module.PedestrianWriter(
+                str(tmp_path / name), renderers=renderers, max_videos=2
+            ).log_videos(*batch, stage="val", force=True,
+                         vid_callback=lambda v, *a: seen.append(v))
+        assert len(clips[0]) == len(clips[1]) == 2
+        for got, want in zip(*clips):
+            np.testing.assert_array_equal(got, want)
+            assert got.any()
     with pytest.raises(ValueError, match="unknown renderer"):
         TWriter.PedestrianWriter(str(tmp_path), renderers=["points"])
     assert TWriter.PedestrianWriter(
@@ -319,15 +322,15 @@ def test_cli_renderers_write_mp4s(tmp_path):
 
 
 def test_cli_refuses_unported_renderers_before_building(tmp_path):
-    for name, error in (("carla", NotImplementedError),
-                        ("points", ValueError)):
-        with pytest.raises(error):
-            modeling.main(CLI + [f"--root_dir={tmp_path}", "--renderers",
-                                 name])
+    with pytest.raises(ValueError, match="unknown renderer"):
+        modeling.main(CLI + [f"--root_dir={tmp_path}", "--renderers",
+                             "points"])
     assert not (tmp_path / "logs").exists()
-    # --renderers smpl runs, and writes the videos the JAX CLI writes
+    # --renderers smpl carla source_carla runs, and writes the videos the
+    # JAX CLI writes
     from pedestrians_video_2_carla_tpu import modeling as jmodeling
-    argv = CLI + ["--renderers", "smpl", "--max_videos", "1",
+    argv = CLI + ["--renderers", "smpl", "carla", "source_carla",
+                  "--max_videos", "1",
                   "--video_saving_frequency_reduction", "1"]
     names = []
     for side, main, drop in (("port", modeling.main, []),
