@@ -545,9 +545,28 @@ Then group_recorded (the recorded data and the resident epoch):
                      way) through compare.work, a CLI subprocess started
                      before phase 55 and run beside phases 55-58, whose
                      output holds its metrics.
+ 59. parallel_nccl_world1 -- group_parallel: config 1's resident epoch (8
+                     steps of B=1024, L=16 on CarlaRecorded-format
+                     subsets), graphed, in a process group of one over
+                     NCCL (parallel/: the gradient all-reduce captured in
+                     the graphs) against the same epoch with no group: the
+                     same bits; the gradient all-reduce called eagerly in
+                     the 2 warm-up steps, then once under the capture;
+                     rows 2-3 launched from the replays; two profiled
+                     replays; the all-reduce's time.
+ 60. parallel_gloo_two_ranks -- two processes on the one card over gloo
+                     (parallel.launch on cards [0, 0]), each on its half
+                     of LinearAE's fused_train batch (B=1024) and of
+                     GConvGRU's (B=256, fused): rank 0's loss, gradients
+                     and parameters after a step against one process's on
+                     the whole batch (PAR_*: rel 1e-5, 1e-4, 1e-5), the
+                     ranks' parameters equal, each rank's launches one
+                     process's; the steps' and the gradient all-reduce's
+                     times.
 Then the card line, the kernels line (config 2's, the train-options
 phase's, group_openpose's, group_serving's, group_recorded's and phase
-46's, the mixed modules' and group_carla_control's launches beside the
+46's, the mixed modules', group_carla_control's and group_parallel's
+launches beside the
 dense LSTM, projection-training, graph-GRU and the other forward
 entries; the
 four bf16 rows as entries of their own, row4_bf16 ... row9_bf16, their
@@ -8431,6 +8450,324 @@ def group_carla_control(card, hbm_rate):
                for name, n in sensitivity.items()}}
 
 
+#: group_parallel: config 1's resident epoch at world 1 over NCCL (steps:
+#: 2 eager warm-up steps, then replays), the steps timed a route in the
+#: two gloo ranks and in one process, the bars of the two ranks' step
+#: against one process's (tests/test_torch_parallel.py's against JAX)
+PAR_STEPS, PAR_TIMED = 6, 3
+#: the seconds a gloo rank waits for phase 59 to end before its steps
+PAR_WAIT_S = 600
+PAR_LOSS_RTOL, PAR_GRAD_ATOL, PAR_PARAM_ATOL = 1e-5, 1e-4, 1e-5
+
+
+def parallel_cases():
+    """Check (ii)'s cases: (flow maker, batch) on the card: LinearAE
+    ``fused_train`` at config 1's batch (B=1024, L=16), GConvGRU at
+    config 3's (B=256, L=16, H=128, k=2), each a seeded Carla2D3D batch
+    (the same on every rank and in the parent)."""
+    from pedestrians_video_2_carla_torch.data.carla.carla_2d3d import \
+        Carla2D3DDataModule
+
+    lifting = Carla2D3DDataModule(batch_size=BATCH, clip_length=CLIP,
+                                  seed=SEED)
+    cls = Carla2D3DDataModule(batch_size=CLS_BATCH, clip_length=CLIP,
+                              seed=SEED)
+    return {"fused_train": (lambda: make_train_flow("fused_train"),
+                            next(lifting.train_batches(SEED + 40))),
+            "gconvgru": (lambda: make_cls_flow(p_dropout=0.0,
+                                               graph_kernel="fused"),
+                         next(cls.train_batches(SEED + 41)))}
+
+
+def parallel_step(flow, batch, mesh=None):
+    """One training step of ``flow`` from its seeded init on ``batch``
+    (this rank's rows under ``mesh``): the loss, the gradients and the
+    parameters after it (on the host), the kernels it launched; then
+    PAR_TIMED more steps, host clock to ``synchronize`` (ms each), and
+    over ``mesh`` the gradient all-reduce alone on the same gradients
+    (ms each)."""
+    from pedestrians_video_2_carla_torch.flows.base import (optimizer_update,
+                                                            trained)
+    from pedestrians_video_2_carla_torch.parallel.mesh import (all_reduce_,
+                                                               shard_batch)
+
+    def host(tree):
+        return {f"{n}.{k}": v.detach().cpu().clone()
+                for n, t in tree.items() for k, v in t.items()}
+    state = flow.init_state(flow.init_params())
+    local = shard_batch(mesh, batch)
+    reset_kernel_counts()
+    logs = flow.backward_step(state, local)
+    grads = {f"{n}.{k}": v.grad.detach().cpu().clone()
+             for n, t in state.params.items() for k, v in t.items()
+             if v.grad is not None}
+    optimizer_update(state, logs["train_loss/primary"])
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernel_counts().items() if v}
+    out = {"loss": float(logs["train_loss/primary"]), "grads": grads,
+           "params": host(state.params), "launches": counts}
+    step_ms, reduce_ms = [], []
+    for _ in range(PAR_TIMED):
+        t = time.perf_counter()
+        flow.training_step(state, local)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+    if mesh is not None:
+        grads = [p.grad for tree in state.params.values()
+                 for p in trained(tree) if p.grad is not None]
+        for _ in range(PAR_TIMED):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            all_reduce_(grads, mesh.data_group)
+            torch.cuda.synchronize()
+            reduce_ms.append(1e3 * (time.perf_counter() - t))
+        out["grad_bytes"] = sum(g.numel() * g.element_size() for g in grads)
+    out.update(step_ms=step_ms, all_reduce_ms=reduce_ms)
+    return out
+
+
+def parallel_rank(tmp, t0):
+    """A rank of check (ii): its group and cases made, it waits for
+    ``tmp/go`` (the end of phase 59, so that the card runs one phase at a
+    time while the rank's start hides behind it), then both cases' steps
+    on its half of the batch; its results to ``tmp``."""
+    from pedestrians_video_2_carla_torch.parallel import MeshConfig, make_mesh
+
+    started = time.time() - t0
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase_device
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(MeshConfig())
+    cases = parallel_cases()
+    ready = time.time() - t0
+    go = os.path.join(tmp, "go")
+    while not os.path.exists(go):
+        if time.time() - t0 > PAR_WAIT_S:
+            raise TimeoutError("phase 59 did not end")
+        time.sleep(0.05)
+    out = {"mesh": repr(mesh), "device": str(torch.cuda.current_device()),
+           "started_s": started, "ready_s": ready,
+           "go_s": time.time() - t0}
+    for name, (make, batch) in cases.items():
+        out[name] = parallel_step(make(), batch, mesh)
+    out["done_s"] = time.time() - t0
+    torch.save(out, os.path.join(tmp, f"rank{mesh.rank}.pt"))
+
+
+def step_errors(got, ref):
+    """The largest relative loss gap, gradient gap and parameter gap
+    (the parameters where the gradient is not tiny against its leaf's
+    largest: Adam's first step is about lr * sign(g), so a tiny g's sign,
+    which rounding can flip, moves a parameter by up to 2 lr; those are
+    held to 2 lr + 1e-6) of two steps."""
+    loss = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    grad = param = 0.0
+    for k, g in ref["grads"].items():
+        grad = max(grad, float((got["grads"][k] - g).abs().max()))
+        diff = (got["params"][k] - ref["params"][k]).abs()
+        big = g.abs() > 1e-3 * g.abs().max()
+        param = max(param, float(diff[big].max()) if big.any() else 0.0)
+        if bool((diff[~big] > 2 * LR + 1e-6).any()):
+            raise AssertionError(f"{k}: a tiny gradient's parameter moved "
+                                 f"over 2 lr")
+    return {"loss_rel": loss, "grad_abs": grad, "param_abs": param}
+
+
+def phase_parallel_nccl_world1(card):
+    """Check (i): config 1's graphed resident epoch (PAR_STEPS steps of
+    B=1024, L=16 on CarlaRecorded-format subsets) in a process group of
+    one over NCCL, whose graphs capture the gradient all-reduce, against
+    the same epoch with no group: the same step records and parameters,
+    bit for bit; the all-reduce called under the capture; rows 2-3
+    counted from the replays; replays timed with and without the
+    group."""
+    import torch.distributed as dist
+
+    subsets = {"train": recorded_clips(PAR_STEPS * BATCH, SEED + 30),
+               "val": recorded_clips(BATCH, SEED + 31)}
+    dm = recorded_datamodule(subsets, resident=True)
+    rows = {"fused_projection_train_fwd": ROW2_KERNELS,
+            "fused_projection_train_bwd": ROW3_KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        alone, alone_counts, alone_steps, alone_epochs = fit_route(
+            "resident_graphed", dm, os.path.join(tmp, "alone"),
+            validate=False)
+        if alone.mesh is not None:
+            raise AssertionError("a trainer alone built a mesh")
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        # each all-reduce the port calls, and whether a capture was on
+        calls, all_reduce = [], dist.all_reduce
+
+        def counted(*args, **kwargs):
+            calls.append(torch.cuda.is_current_stream_capturing())
+            return all_reduce(*args, **kwargs)
+        dist.all_reduce = counted
+        try:
+            try:
+                grouped, counts, steps, epochs = fit_route(
+                    "resident_graphed", dm, os.path.join(tmp, "group"),
+                    validate=False)
+            finally:
+                dist.all_reduce = all_reduce
+            runner = grouped.runner
+            if grouped.mesh is None or grouped.mesh.backend != "nccl" \
+                    or not runner.graphs or runner.mesh is not grouped.mesh:
+                raise AssertionError(f"not the graphed NCCL route: "
+                                     f"{grouped.mesh}, {runner.graphs}")
+            if not (params_equal(grouped.state.params, alone.state.params)
+                    and steps == alone_steps and counts == alone_counts
+                    and len(steps) == PAR_STEPS):
+                raise AssertionError("the world-1 NCCL graphed epoch differs "
+                                     "from the epoch with no group")
+            replays, warmup = runner.replays, runner.warmup
+            graphed = {w: replays * runner.captured.get((w, "launches"), 0)
+                       for w in rows}
+            if sum(graphed.values()) != 2 * (PAR_STEPS - runner.warmup):
+                raise AssertionError(f"graphed launches {graphed}")
+            # one all-reduce a step (the gradients, one dtype): eager in
+            # the warm-up steps, then once under the capture, none after
+            if calls != [False] * warmup + [True]:
+                raise AssertionError(f"all-reduces (capturing?): {calls}")
+            # replays a step with and without the group, in alternating
+            # pairs (NCCL over one rank copies on the device, no kernel)
+            replay_ms = {"no_group": [], "nccl_world1": []}
+            for _ in range(PAR_TIMED):
+                for key, trainer in (("no_group", alone),
+                                     ("nccl_world1", grouped)):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    trainer.runner(trainer.state, 0, 2)
+                    torch.cuda.synchronize()
+                    replay_ms[key].append(
+                        1e3 * (time.perf_counter() - t) / 2)
+            # the all-reduce alone, NCCL at world 1, on the step's
+            # gradients
+            from pedestrians_video_2_carla_torch.flows.base import trained
+            from pedestrians_video_2_carla_torch.parallel.mesh import \
+                all_reduce_
+            grads = [p.grad for tree in grouped.state.params.values()
+                     for p in trained(tree) if p.grad is not None]
+            reduce_ms = []
+            for _ in range(PAR_TIMED):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                all_reduce_(grads, grouped.mesh.data_group)
+                torch.cuda.synchronize()
+                reduce_ms.append(1e3 * (time.perf_counter() - t))
+        finally:
+            dist.destroy_process_group()
+        del grouped, alone, runner
+    emit({"phase": "parallel_nccl_world1", "card": card, "B": BATCH,
+          "L": CLIP, "steps": PAR_STEPS, "warmup_steps": warmup,
+          "replays": replays, "graphed_launches": graphed,
+          "graphed_equal_no_group_bits": True,
+          "all_reduce_calls_eager_captured": [calls.count(False),
+                                              calls.count(True)],
+          "replay_ms_per_step_pairs": replay_ms,
+          "replay_ms_per_step_median": {
+              k: statistics.median(v) for k, v in replay_ms.items()},
+          "epoch_ms_per_step": {
+              "no_group": 1e3 * alone_epochs[-1]["epoch_time_s"] / PAR_STEPS,
+              "nccl_world1": 1e3 * epochs[-1]["epoch_time_s"] / PAR_STEPS},
+          "grad_all_reduce_ms": reduce_ms,
+          "method": "epoch ms a step: the one epoch (2 eager warm-up steps "
+                    "and the capture included; the first fit of the phase "
+                    "pays the cold start), host clock to its last logs "
+                    "read; replays: 2 a call after both fits, the two "
+                    "trainers in alternating pairs, host clock to "
+                    "synchronize; the all-reduce: host clock around it "
+                    "and synchronize, NCCL at world 1"})
+    return graphed
+
+
+def start_gloo_ranks(tmp):
+    """Check (ii)'s two processes on the one card over gloo, started on
+    a thread (they wait for ``tmp/go``): the future of their launch."""
+    from pedestrians_video_2_carla_torch.parallel import launch
+
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(launch, parallel_rank, 2, (tmp, time.time()),
+                         backend="gloo", devices=[0, 0],
+                         init_method=f"file://{tmp}/store")
+    pool.shutdown(wait=False)
+    return future
+
+
+def phase_parallel_gloo_two_ranks(card, tmp, ranks_done):
+    """Check (ii): the two gloo ranks (``start_gloo_ranks``; the rows of
+    each rank's half through the host), each running LinearAE
+    ``fused_train`` and GConvGRU steps; rank 0's step held against one
+    process's on the whole batch; both ranks' kernel launches."""
+    ranks_done.result()
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    report, launches = {}, {}
+    for name, (make, batch) in parallel_cases().items():
+        one = parallel_step(make(), batch)
+        errs = step_errors(ranks[0][name], one)
+        if not (errs["loss_rel"] <= PAR_LOSS_RTOL
+                and errs["grad_abs"] <= PAR_GRAD_ATOL
+                and errs["param_abs"] <= PAR_PARAM_ATOL):
+            raise AssertionError(f"{name}: two gloo ranks against one "
+                                 f"process: {errs}")
+        if ranks[1][name]["params"].keys() != ranks[0][name]["params"].keys() \
+                or any(not torch.equal(v, ranks[1][name]["params"][k])
+                       for k, v in ranks[0][name]["params"].items()):
+            raise AssertionError(f"{name}: the ranks' parameters differ")
+        for r in ranks:
+            if r[name]["launches"] != one["launches"] \
+                    or not one["launches"]:
+                raise AssertionError(f"{name}: a rank launched "
+                                     f"{r[name]['launches']}, one process "
+                                     f"{one['launches']}")
+            for w, n in r[name]["launches"].items():
+                launches[w] = launches.get(w, 0) + n
+        report[name] = {
+            **errs, "launches_a_rank": one["launches"],
+            "step_ms_two_ranks": [statistics.median(r[name]["step_ms"])
+                                  for r in ranks],
+            "step_ms_one_process": statistics.median(one["step_ms"]),
+            "grad_all_reduce_ms": [statistics.median(r[name]
+                                                     ["all_reduce_ms"])
+                                   for r in ranks],
+            "grad_bytes": ranks[0][name]["grad_bytes"]}
+    emit({"phase": "parallel_gloo_two_ranks", "card": card,
+          "ranks": [r["mesh"] for r in ranks],
+          "rank_devices": [r["device"] for r in ranks],
+          "rank_seconds": [{k: r[k] for k in ("started_s", "ready_s",
+                                              "go_s", "done_s")}
+                           for r in ranks], "cases": report,
+          "bars": [PAR_LOSS_RTOL, PAR_GRAD_ATOL, PAR_PARAM_ATOL],
+          "method": "ms: median of 3 steps (host clock to synchronize) "
+                    "after the checked one; the all-reduce: the gradients "
+                    "of the last step, gloo through the host, median of 3; "
+                    "rank seconds since the launch: the rank's function "
+                    "started, its group and cases made, phase 59 over, its "
+                    "steps done"})
+    return launches
+
+
+def group_parallel(card, hbm_rate):
+    """Multi-card training on the one card (phases 59-60) -> the launches
+    of rows 2, 3, 10 and 11."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the gloo ranks start beside phase 59 and step after it
+        ranks_done = start_gloo_ranks(tmp)
+        try:
+            graphed = phase_parallel_nccl_world1(card)
+        finally:
+            open(os.path.join(tmp, "go"), "w").close()
+        torch.cuda.empty_cache()
+        gloo = phase_parallel_gloo_two_ranks(card, tmp, ranks_done)
+    emit({"phase": "group_parallel", "seconds": time.perf_counter() - t0})
+    out = {w: {"launches_parallel_nccl_graphed": n}
+           for w, n in graphed.items()}
+    for w, n in gloo.items():
+        out.setdefault(w, {})["launches_parallel_gloo"] = n
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, max_err, times):
     """One entry of the kernels line; ``replaces`` is the TPU kernel's
     ``file:line`` under the JAX package's ops/pallas/."""
@@ -8599,6 +8936,12 @@ def main():
     # row 1 in the CARLA-control request, rows 10-11 in the sensitivity
     # study's fits
     for name, extra in group_carla_control(card, hbm_rate).items():
+        entry = next(e for e in kernels if e["name"] == name)
+        entry["launches"] += sum(extra.values())
+        entry.update(extra)
+    # rows 2-3 from the world-1 NCCL graphed epoch's replays, rows 2, 3,
+    # 10 and 11 in the two gloo ranks' steps
+    for name, extra in group_parallel(card, hbm_rate).items():
         entry = next(e for e in kernels if e["name"] == name)
         entry["launches"] += sum(extra.values())
         entry.update(extra)

@@ -18,6 +18,15 @@ update clips the gradients by their global norm over every model
 (``gradient_clip_val``), sets each schedule's lr and steps AdamW, as the
 JAX package's ``clip_by_global_norm`` + ``multi_transform`` chain does.
 
+On a batch sharded over a multi-card run's ``data`` axis
+(``parallel/mesh.py::shard_batch``) a step makes the whole batch's
+numbers: the models run on this rank's rows (BatchNorm with the global
+batch's statistics), the losses are computed on the outputs all-gathered
+over ``data``, and the gradients, this rank's rows' share of the global
+loss's, are summed over ``data`` before the clipping. A state sharded
+over ``model`` (``parallel/mesh.py::shard_state``) updates its slices of
+the large kernels and all-gathers them whole after the AdamW step.
+
 ``precision="bf16"`` (or ``"16"``) is the JAX package's AMP-style mixed
 precision: the parameters (not the running statistics), the inputs and the
 targets are cast to bf16 where a model is applied, by differentiable casts,
@@ -37,6 +46,8 @@ from ..losses import (LossContext, LossModes, calculate_losses, primary_loss,
 from ..metrics.base import MetricCollection
 from ..models.base import LRSchedule, OptimizerSettings, make_adamw, set_lr
 from ..models.trajectory.zero import ZeroTrajectory
+from ..parallel.mesh import (DataShard, all_reduce_, data_parallel,
+                             data_shard, gather_rows)
 from ..utils.device import DeviceLike, resolve_device
 from .output_types import MovementsModelOutputType
 
@@ -89,11 +100,14 @@ class FlowState:
     statistics are not; :func:`state_params`), the AdamW optimizer over
     the parameters, the LR
     schedule of each parameter group that has one, and the number of steps
-    taken. ``training_step`` updates it in place."""
+    taken. ``training_step`` updates it in place. ``sharding`` is the
+    state's tensor-parallel slices (``parallel/mesh.py::ModelShards``), or
+    None."""
     params: Params
     optimizer: torch.optim.Optimizer
     step: int = 0
     schedules: Dict[str, LRSchedule] = field(default_factory=dict)
+    sharding: Any = None
 
 
 def buffer_names(model: torch.nn.Module) -> set:
@@ -159,6 +173,32 @@ def clip_gradients(state: FlowState, gradient_clip_val: float = 0.0) -> None:
                              for p in trained(tree)), gradient_clip_val)
 
 
+def backward(state: FlowState, loss: torch.Tensor,
+             shard: Optional[DataShard], gradient_clip_val: float) -> None:
+    """The gradients of ``loss``: set to None first (so that a graph
+    captures their memory), the backward, on a sharded batch the sum of
+    the ranks' shares over ``data``, the clipping (:func:`clip_gradients`)
+    and, for a state sharded over ``model``, each slice's gradient."""
+    leaves = [p for tree in state.params.values() for p in trained(tree)]
+    for p in leaves:  # the slices' gradients come from these
+        p.grad = None
+    loss.backward()
+    if shard is not None:
+        all_reduce_([p.grad for p in leaves if p.grad is not None],
+                    shard.mesh.data_group)
+    clip_gradients(state, gradient_clip_val)
+    if state.sharding is not None:
+        state.sharding.slice_gradients()
+
+
+def optimizer_step(state: FlowState) -> None:
+    """The AdamW step, then, for a state sharded over ``model``, the
+    slices all-gathered into the whole tensors the forward reads."""
+    state.optimizer.step()
+    if state.sharding is not None:
+        state.sharding.gather_parameters()
+
+
 def set_lrs(state: FlowState, primary: torch.Tensor) -> Dict[str, float]:
     """Set each scheduled group's lr for this step (ReduceLROnPlateau reads
     ``primary``), on the host; returns the lrs set, by ``lr-<group>``."""
@@ -175,10 +215,10 @@ def set_lrs(state: FlowState, primary: torch.Tensor) -> Dict[str, float]:
 def optimizer_update(state: FlowState, primary: torch.Tensor) -> None:
     """The rest of the update: the schedules' lrs (:func:`set_lrs`), the
     AdamW step, the step count. The resident epoch's graphs run the same
-    parts: :func:`set_lrs` between two replays, the AdamW step as the second
-    graph."""
+    parts: :func:`set_lrs` between two replays, :func:`optimizer_step` as
+    the second graph."""
     set_lrs(state, primary)
-    state.optimizer.step()
+    optimizer_step(state)
     state.step += 1
 
 
@@ -389,23 +429,29 @@ class BaseFlow:
     def backward_step(self, state: FlowState, batch
                       ) -> Dict[str, torch.Tensor]:
         """The device half of a training step: forward, losses, the
-        gradients (set to None first, so that a graph captures their
-        memory), clipping; returns the step's logs."""
-        sliced = self._inner_step(state.params, batch, training=True)
+        gradients (:func:`backward`: on a sharded batch those of the whole
+        batch's losses), clipping; returns the step's logs."""
+        shard = data_shard(batch)
+        with data_parallel(shard):
+            sliced = self._inner_step(state.params, batch, training=True)
+        sliced = gather_rows(sliced, shard)
         loss_dict = self._compute_losses(sliced, sliced["targets"])
         _, primary = primary_loss(loss_dict, self.requested_loss_modes)
-        state.optimizer.zero_grad(set_to_none=True)
-        primary.backward()
-        clip_gradients(state, self.gradient_clip_val)
+        backward(state, primary, shard, self.gradient_clip_val)
         logs = {f"train_loss/{k}": v.detach() for k, v in loss_dict.items()}
         logs["train_loss/primary"] = primary.detach()
         return logs
 
     @torch.no_grad()
     def eval_step(self, params: Params, batch):
-        """-> (loss dict, preds, targets) for metric accumulation."""
-        sliced = self._inner_step(params, batch, training=False)
-        loss_dict = self._compute_losses(sliced, sliced["targets"])
+        """-> (loss dict, preds, targets) for metric accumulation. On a
+        sharded batch the losses are the whole batch's and the preds and
+        targets this rank's rows'."""
+        shard = data_shard(batch)
+        with data_parallel(shard):
+            sliced = self._inner_step(params, batch, training=False)
+        whole = gather_rows(sliced, shard)
+        loss_dict = self._compute_losses(whole, whole["targets"])
         preds = self._metric_preds(sliced)
         return loss_dict, preds, sliced["targets"]
 

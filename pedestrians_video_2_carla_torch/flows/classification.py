@@ -25,8 +25,9 @@ from ..metrics.classification import (AUROC, Accuracy, ConfusionMatrixMetric,
 from ..models.base import OptimizerSettings, make_adamw
 from ..models.classification import CLASSIFICATION_MODELS
 from ..utils.device import DeviceLike, resolve_device
-from .base import (DEFAULT_SEED, BaseFlow, FlowState, Params, buffer_names,
-                   cast_floats, cast_params, clip_gradients, make_schedules,
+from ..parallel.mesh import data_parallel, data_shard, gather_rows
+from .base import (DEFAULT_SEED, BaseFlow, FlowState, Params, backward,
+                   buffer_names, cast_floats, cast_params, make_schedules,
                    optimizer_update, resolve_precision, state_params,
                    trained)
 from .output_types import ClassificationModelOutputType
@@ -193,19 +194,24 @@ class ClassificationFlow:
     def backward_step(self, state: FlowState, batch
                       ) -> Dict[str, torch.Tensor]:
         """The device half of :meth:`training_step`: forward, loss,
-        gradients, clipping (``BaseFlow.backward_step``)."""
+        gradients, clipping (``BaseFlow.backward_step``; on a sharded
+        batch the loss is the whole batch's)."""
         inputs, targets, _ = batch
-        loss = self._loss(self._apply(state.params, inputs, True), targets)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        clip_gradients(state, self.gradient_clip_val)
+        shard = data_shard(batch)
+        with data_parallel(shard):
+            logits = self._apply(state.params, inputs, True)
+        logits, targets = gather_rows((logits, targets), shard)
+        loss = self._loss(logits, targets)
+        backward(state, loss, shard, self.gradient_clip_val)
         return {"train_loss/primary": loss.detach()}
 
     @torch.no_grad()
     def eval_step(self, params: Params, batch):
-        """-> (loss dict, preds, targets) for metric accumulation."""
+        """-> (loss dict, preds, targets) for metric accumulation (on a
+        sharded batch the loss of the whole batch, the logits and targets
+        of this rank's rows)."""
         inputs, targets, _ = batch
         logits = self._apply(params, inputs, False)
-        loss = self._loss(logits, targets)
+        loss = self._loss(*gather_rows((logits, targets), data_shard(batch)))
         return ({"classification": loss, "primary": loss},
                 {self.outputs_key: logits}, targets)

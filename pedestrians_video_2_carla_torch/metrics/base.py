@@ -1,10 +1,14 @@
 """Metric framework: stateless metric objects whose accumulator state is an
 additive dict of tensors on the device (the JAX package's
-``metrics/base.py``; its cross-device ``psum`` has no counterpart on one
-card)."""
-from typing import Any, Dict
+``metrics/base.py``). The JAX package's cross-device ``psum`` and
+host-side ``tree_sum`` are :meth:`MetricCollection.all_reduce` (a sum
+over a process group, as a multi-card run's ``data`` ranks hold their
+rows' states) and :meth:`MetricCollection.tree_sum`."""
+from typing import Any, Dict, List
 
 import torch
+
+from ..parallel.mesh import all_reduce_
 
 
 class Metric:
@@ -43,6 +47,28 @@ class MetricCollection:
     def compute(self, state: Dict[str, Any]) -> Dict[str, Any]:
         return {name: m.compute(state[name])
                 for name, m in self.metrics.items()}
+
+    @torch.no_grad()
+    def all_reduce(self, state: Dict[str, Any], group=None
+                   ) -> Dict[str, Any]:
+        """The states summed over the ranks of ``group`` (every rank calls
+        it): a copy of each accumulator, all-reduced in one collective a
+        dtype."""
+        out = {name: {k: v.clone() for k, v in st.items()}
+               for name, st in state.items()}
+        all_reduce_([v for st in out.values() for v in st.values()], group)
+        return out
+
+    @staticmethod
+    def tree_sum(states: List[Dict[str, Any]]) -> Dict[str, Any]:
+        """The sum of several states (of the same collection), on one
+        host."""
+        out = {name: dict(st) for name, st in states[0].items()}
+        for other in states[1:]:
+            for name, st in other.items():
+                for k, v in st.items():
+                    out[name][k] = out[name][k] + v
+        return out
 
     def compute_moved(self, state: Dict[str, Any], device=None
                       ) -> Dict[str, Any]:

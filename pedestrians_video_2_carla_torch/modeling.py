@@ -57,6 +57,16 @@ directory under the run's; ``--renderers input_points projection_points``
 the fit to ``<log_dir>/trace/trace.json`` and prints the timings;
 ``-v`` / ``-vv`` set the logging level to INFO / DEBUG.
 
+Several cards: ``--num_devices N --model_devices M`` trains on N x M
+processes, one device each (``parallel/``): the batch is split over the N
+data-parallel ranks, the large dense kernels over the M tensor-parallel
+ones. Run alone, the CLI starts the processes itself
+(``torch.multiprocessing.spawn``, after drawing the run's name once);
+under ``torchrun --nproc_per_node N*M -m pedestrians_video_2_carla_torch
+...`` each process joins torchrun's group. ``--num_devices`` defaults to
+every card present (1 with ``--device cpu``, where the ranks talk over
+gloo); more ranks than cards raises, and a rank that fails ends the run.
+
 The JAX CLI's five modes: ``train`` and ``tune`` fit, then evaluate the
 validation set; ``test`` evaluates the test set; ``predict`` runs
 ``Trainer.predict`` over each of ``--predict_sets`` (``results
@@ -95,6 +105,8 @@ from .models.pose_estimation import POSE_ESTIMATION_MODELS
 from .models.pose_estimation.linear import PoseEstimationModel
 from .models.trajectory import TRAJECTORY_MODELS
 from .ops.projection import KERNELS
+from .parallel.launcher import check_world, in_rank, launch, world_size
+from .parallel.mesh import MeshConfig
 from .serving import export_inference
 from .skeletons.base import get_skeleton_type_by_name
 from .skeletons.carla import CARLA_SKELETON
@@ -237,6 +249,17 @@ def make_parser(argv: Optional[List[str]] = None) -> argparse.ArgumentParser:
                        const=True, default=False)
     group.add_argument("--gradient_clip_val", type=float, default=0.0,
                        help="global-norm gradient clipping (0 = off)")
+    group.add_argument("--num_devices", type=int, default=None,
+                       help="data-parallel ranks: the run trains on "
+                            "num_devices x model_devices processes, one "
+                            "card each, each on its rows of every batch "
+                            "(default: every card present; 1 with --device "
+                            "cpu, where the ranks use gloo)")
+    group.add_argument("--model_devices", type=int, default=1,
+                       help="tensor-parallel ranks: the large dense kernels "
+                            "are split over them, each rank updating its "
+                            "slice (default 1 = pure data parallel, the "
+                            "reference's DDP)")
 
     add_datamodule_args(parser)
 
@@ -442,9 +465,37 @@ def check_inputs(flow: str, dm_cls) -> None:
             f"keypoints")
 
 
+def _run_name(args, logs_dir: str) -> str:
+    """``--run_name``, or a directory of its own drawn once: before the
+    spawn, or on rank 0 of torchrun's group, which tells the others."""
+    if args.run_name:
+        return args.run_name
+    names = [None]
+    if not in_rank() or torch.distributed.get_rank() == 0:
+        names[0] = unique_run_name(logs_dir,
+                                   prefix=f"{args.data_module_name}-")
+    if in_rank():
+        torch.distributed.broadcast_object_list(names, src=0)
+    return names[0]
+
+
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     argv = sys.argv[1:] if argv is None else argv
     args, unknown = make_parser(argv).parse_known_args(argv)
+    mesh = MeshConfig(data_axis_size=args.num_devices,
+                      model_axis_size=args.model_devices)
+    ranks = world_size(mesh, args.device)
+    logs_dir = args.logs_dir or os.path.join(args.root_dir, "logs",
+                                             args.flow)
+    if ranks > 1 and not in_rank():
+        check_world(ranks, args.device)
+        # the ranks agree on one run directory
+        if not args.run_name and "RANK" not in os.environ:
+            args.run_name = _run_name(args, logs_dir)
+            argv = [*argv, f"--run_name={args.run_name}"]
+        out = launch(main, ranks, (argv,), device=args.device)
+        return out if out is not None \
+            else {"world_size": ranks, "run_name": args.run_name}
     if unknown:
         # another flow's or model's flags: the chaining scripts pass one
         # argument list through every stage
@@ -576,8 +627,6 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         dm_cls = SubsetsDataModule
     dm = dm_cls(**dm_kwargs)
 
-    logs_dir = args.logs_dir or os.path.join(args.root_dir, "logs",
-                                             args.flow)
     config = TrainerConfig(
         max_epochs=args.max_epochs,
         limit_train_batches=args.limit_train_batches,
@@ -588,12 +637,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         seed=args.seed,
         logs_dir=logs_dir,
         # an unnamed run reserves its own directory (never one in use)
-        run_name=args.run_name or unique_run_name(
-            logs_dir, prefix=f"{args.data_module_name}-"),
+        run_name=_run_name(args, logs_dir),
         skip_initial_metrics=args.skip_initial_metrics,
         detect_anomaly=args.detect_anomaly,
         logger=args.logger,
-        device=args.device)
+        device=args.device,
+        mesh=mesh)
     video_logger = None
     if renderers:
         video_logger = PedestrianLogger(
@@ -626,7 +675,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             trainer.restore(ckpt_path,
                             weights_only=(args.mode != "train"))
     if args.mode in ("train", "tune"):
-        if args.profile:
+        if args.profile and trainer.is_main_process:  # rank 0's trace
             with device_trace(os.path.join(trainer.log_dir, "trace"),
                               device=trainer.device), timed("Trainer.fit"):
                 trainer.fit()
@@ -641,7 +690,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         results["predictions"] = {set_name: trainer.predict(set_name)
                                   for set_name in args.predict_sets}
     else:  # export: the (restored) weights baked into a serving artifact
-        trainer._init_state()
+        trainer._init_state()  # on every rank: rank 0's weights broadcast
+    if args.mode == "export" and trainer.is_main_process:
         inputs, _, meta = next(iter(dm.val_batches()), None) \
             or next(iter(dm.train_batches(args.seed)))
         path = os.path.join(trainer.log_dir, "exported", "model.pt2")

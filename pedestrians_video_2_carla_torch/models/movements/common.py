@@ -9,6 +9,7 @@ import torch
 from torch import nn
 
 from ...flows.output_types import MovementsModelOutputType
+from ...parallel.mesh import active_shard, global_moments
 from ...skeletons.base import Skeleton
 from ...skeletons.carla import CARLA_SKELETON
 from ...ops.tensors import widen
@@ -84,7 +85,11 @@ class BatchNorm(nn.Module):
     keeps the unbiased variance and its momentum is 1 - m. On a bf16 input
     (a bf16 flow) it follows flax's rule (``force_float32_reductions``):
     the statistics, their running update and the normalisation in float32,
-    the result in the input's dtype; the running statistics stay float32."""
+    the result in the input's dtype; the running statistics stay float32.
+    In a data-parallel step (``parallel/mesh.py::data_parallel``) the
+    statistics are the global batch's, as under GSPMD: the sums, the sums
+    of squares and the count are all-reduced over ``data``, so every rank
+    normalises alike and keeps the same running statistics."""
 
     def __init__(self, features: int, momentum: float = 0.99,
                  epsilon: float = 1e-5, axis: int = -1) -> None:
@@ -101,8 +106,13 @@ class BatchNorm(nn.Module):
         axis = self.axis % x.ndim
         if training:
             axes = tuple(d for d in range(x.ndim) if d != axis)
-            mean = x.mean(axes)
-            var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+            shard = active_shard()
+            if shard is not None:
+                mean, var = global_moments(x, axes, shard)
+            else:
+                mean = x.mean(axes)
+                var = torch.clamp((x * x).mean(axes) - mean * mean,
+                                  min=0.0)
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.copy_(m * self.running_mean

@@ -11,7 +11,10 @@ same stream, the consumer's stream waits on the stream's event when it
 takes the batch, and ``record_stream`` keeps the caching allocator from
 reusing the batch's memory before the consumer's stream is done with it.
 Tensors already on the device pass through unchanged, as do whole batches
-on the CPU (where ``finish`` runs on the worker too).
+on the CPU (where ``finish`` runs on the worker too). In a multi-card run
+the trainer's ``finish`` ends with this rank's rows of the batch
+(``parallel/mesh.py::shard_batch``), so the shard is taken on the worker,
+as the JAX package's ``put_fn`` shards the batch there.
 """
 import queue
 import threading

@@ -28,15 +28,25 @@ of each call.
 
 On the CPU (``graphs=False``, and the only choice there) the same steps
 run eagerly.
+
+In a multi-card run (``mesh``, ``parallel/mesh.py``) each step takes this
+rank's rows of the gathered batch (``shard_batch``: the batch is gathered
+and preprocessed whole, so its draws are the one-device run's), and the
+step's collectives (the gradient all-reduce over ``data``, the slices'
+all-gather over ``model``) run inside the steps. Over an NCCL group the
+graphs capture them (NCCL allows it; the eager warm-up steps create the
+communicators first). A gloo group cannot be captured: over one the
+runner takes the eager route, and ``graphs=True`` raises.
 """
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..data.base.datamodule import batch_seed
-from ..flows.base import set_lrs
+from ..flows.base import optimizer_step, set_lrs
 from ..models.base import set_capturable
 from ..ops.cuda_build import COUNTED
+from ..parallel.mesh import Mesh, shard_batch
 
 
 _COUNTERS = ("launches", "bf16_launches")
@@ -61,14 +71,23 @@ class ResidentRunner:
     (state, logs, lrs)``, the logs of each step stacked along a first axis
     of ``k`` on the device, and each step's lrs (``lr-<group>``) as host
     floats. ``graphs`` defaults to True on the card; the CPU takes only
-    False. :meth:`set_epoch` hands over the next epoch's spec; a new state
-    (or a restored optimizer) is captured anew."""
+    False, and so does a gloo ``mesh``. :meth:`set_epoch` hands over the
+    next epoch's spec; a new state (or a restored optimizer) is captured
+    anew."""
 
-    def __init__(self, flow, spec, graphs: Optional[bool] = None):
+    def __init__(self, flow, spec, graphs: Optional[bool] = None,
+                 mesh: Optional[Mesh] = None):
         device = spec.order.device
-        self.graphs = device.type == "cuda" if graphs is None else graphs
+        gloo = mesh is not None and mesh.backend == "gloo"
+        if graphs and gloo:
+            raise ValueError("a gloo group's collectives cannot be captured "
+                             "in a CUDA graph; the resident epoch runs "
+                             "eagerly over gloo")
+        self.graphs = device.type == "cuda" and not gloo \
+            if graphs is None else graphs
         if self.graphs and device.type != "cuda":
             raise ValueError("CUDA graphs need the subset on a CUDA device")
+        self.mesh = mesh
         self.flow = flow
         self.device = device
         self.warmup = WARMUP_STEPS
@@ -100,8 +119,8 @@ class ResidentRunner:
 
     # -- the step ----------------------------------------------------------
     def _batch(self):
-        return self.gather(self.generator, self.order, self.index,
-                           *self.trees)
+        return shard_batch(self.mesh, self.gather(
+            self.generator, self.order, self.index, *self.trees))
 
     def _start(self, b: int) -> None:
         """What the host does before a step: the batch index on the device
@@ -115,7 +134,7 @@ class ResidentRunner:
         logs = self.flow.backward_step(state, self._batch())
         vec = torch.stack(list(logs.values()))
         lrs = set_lrs(state, logs["train_loss/primary"])
-        state.optimizer.step()
+        optimizer_step(state)
         state.step += 1
         return list(logs), vec, lrs
 
@@ -147,7 +166,7 @@ class ResidentRunner:
             self._vec = torch.stack(list(self._logs.values()))
         with torch.cuda.graph(g2, pool=pool,
                               capture_error_mode="thread_local"):
-            state.optimizer.step()
+            optimizer_step(state)
         torch.cuda.synchronize()
         after = _counts()
         self.captured = {k: after[k] - before.get(k, 0) for k in after
@@ -215,8 +234,8 @@ class ResidentRunner:
         return state, logs, lrs
 
 
-def build_scan_runner(flow, spec, graphs: Optional[bool] = None
-                      ) -> ResidentRunner:
+def build_scan_runner(flow, spec, graphs: Optional[bool] = None,
+                      mesh: Optional[Mesh] = None) -> ResidentRunner:
     """The runner of ``flow``'s steps over the resident epoch ``spec``
-    (:class:`ResidentRunner`)."""
-    return ResidentRunner(flow, spec, graphs=graphs)
+    (:class:`ResidentRunner`), on this rank's rows of ``mesh``."""
+    return ResidentRunner(flow, spec, graphs=graphs, mesh=mesh)

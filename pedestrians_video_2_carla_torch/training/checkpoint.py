@@ -14,6 +14,13 @@ tensors, come back on the device, a host-stepped one's as before.
 Saves are synchronous: the host copy and the file write finish before
 ``save`` returns. Every file is written to a temporary name and
 ``os.replace``d into place, so a crash never leaves a torn checkpoint.
+
+In a multi-card run every rank calls ``save`` and ``restore``: an archive
+holds the whole state (a state sharded over ``model`` has its slices'
+AdamW moments gathered first, ``parallel/mesh.py::ModelShards``), which
+only the manager of rank 0 (``enabled``) writes; a restore loads the
+whole state on every rank and slices it again. So an archive of a 2 x 2
+run restores into one process, and one process's into a 2 x 2 run.
 """
 import json
 import os
@@ -30,11 +37,14 @@ MONITOR = "val_loss/primary"
 
 
 def _snapshot(state: FlowState) -> Dict:
-    """A host copy of everything a resumed run needs."""
+    """A host copy of everything a resumed run needs (the whole state of
+    a sharded one)."""
+    optimizer = state.optimizer.state_dict() if state.sharding is None \
+        else state.sharding.whole_optimizer_state(state.optimizer)
     return {"params": {name: {k: v.detach().cpu().clone()
                               for k, v in tree.items()}
                        for name, tree in state.params.items()},
-            "optimizer": _to_cpu(state.optimizer.state_dict()),
+            "optimizer": _to_cpu(optimizer),
             "schedules": {name: _to_cpu(s.state_dict())
                           for name, s in state.schedules.items()},
             "step": int(state.step)}
@@ -65,11 +75,15 @@ def _write(path: str, obj) -> None:
 
 
 class CheckpointManager:
-    def __init__(self, dirpath: str):
+    def __init__(self, dirpath: str, enabled: bool = True):
         self.dirpath = dirpath
+        #: False: take part in the saves' collectives, write nothing (a
+        #: rank other than the first of a multi-card run)
+        self.enabled = enabled
         self.best_value: Optional[float] = None
         self.best_path: Optional[str] = None
-        os.makedirs(dirpath, exist_ok=True)
+        if enabled:
+            os.makedirs(dirpath, exist_ok=True)
 
     def wait(self) -> None:
         """Saves are synchronous: nothing is ever pending."""
@@ -83,6 +97,12 @@ class CheckpointManager:
         value = metrics.get(MONITOR)
         improved = value is not None and (self.best_value is None
                                           or value < self.best_value)
+        if not self.enabled:
+            if improved:
+                self.best_value = float(value)
+                self.best_path = os.path.join(self.dirpath,
+                                              f"best-step{step}")
+            return improved
         if improved:
             prev = self.best_path
             self.best_value = float(value)
@@ -126,9 +146,15 @@ class CheckpointManager:
                         f"{sorted(tree)}")
                 for k, v in tree.items():
                     v.copy_(loaded[k])
+        if state.sharding is not None:
+            state.sharding.refresh()
         if not weights_only:
             capturable = is_capturable(state.optimizer)
-            state.optimizer.load_state_dict(data["optimizer"])
+            if state.sharding is None:
+                state.optimizer.load_state_dict(data["optimizer"])
+            else:
+                state.sharding.load_whole_optimizer_state(state.optimizer,
+                                                          data["optimizer"])
             set_capturable(state.optimizer, capturable)
             schedules = data.get("schedules", {})
             if set(schedules) != set(state.schedules):

@@ -10,7 +10,7 @@ initial metrics of its baseline predictions, over the validation set, into
 ``hparams.json``) unless ``skip_initial_metrics``, sets the flow's
 ``steps_per_epoch`` (for the LR schedules) from the data module before the
 optimizer is built, and calls the flow's ``on_epoch_start`` before each
-epoch. The port has no mesh. ``logger`` "wandb" also writes a W&B offline
+epoch. ``logger`` "wandb" also writes a W&B offline
 run directory (``training/loggers.py``). A ``video_logger``
 (``loggers/pedestrian_logger.py``) renders the first validation batch of
 each evaluation and, at its throttle's steps, the training batch through
@@ -30,6 +30,17 @@ finishes them on a side stream (``BaseDataModule.train_stream``).
 Either way each log step logs its own values and lrs, and the host
 synchronises once per log interval and once per evaluation pass;
 evaluation iterates the batches one by one (resident ones too).
+
+In a multi-card run (a process group, ``parallel/launcher.py``) the trainer
+builds the mesh of ``TrainerConfig.mesh`` (``parallel/mesh.py``), as the
+JAX package's does: the initial state is broadcast from rank 0 and
+sharded over ``model``; every batch (streamed, on the prefetcher's
+worker; resident, inside the runner's step; evaluated, tested and
+predicted) gives each rank its rows of the global batch; metric states
+are summed over ``data`` at the end of an evaluation pass; ``predict``
+gathers the rows back, in order. Only rank 0 (``is_main_process``) logs,
+draws and writes checkpoints; every rank takes part in the saves'
+collectives. Without a process group the trainer runs alone, as before.
 """
 import itertools
 import json
@@ -38,15 +49,18 @@ import os
 import sys
 import time
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..flows.base import BaseFlow, FlowState
 from ..models.torch_import import (graft_resnet_backbone,
                                    import_torch_checkpoint,
                                    load_torch_checkpoint)
+from ..parallel.mesh import (MeshConfig, data_shard, gather_rows,
+                             make_mesh, replicate, shard_batch, shard_state)
 from ..runtime.prefetcher import DevicePrefetcher, device_put
 from ..runtime.resident_scan import build_scan_runner
 from ..utils.device import DeviceLike, resolve_device
@@ -76,6 +90,10 @@ class TrainerConfig:
     #: the card unless the caller asks for the CPU (``"cpu"``); the flow and
     #: the datamodule must be on the same device
     device: DeviceLike = None
+    #: the ``data`` x ``model`` layout of a multi-card run; it takes effect
+    #: inside a process group (``parallel/launcher.py``), whose size must be
+    #: ``data * model``; alone, a trainer takes only a one-device layout
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 #: the loggers a ``TrainerConfig`` names
@@ -132,18 +150,32 @@ class Trainer:
         self.dm = datamodule
         self.config = config
         self.state: Optional[FlowState] = None
+        #: this rank's place in a multi-card run, None alone
+        self.mesh = None
+        if dist.is_available() and dist.is_initialized():
+            self.mesh = make_mesh(config.mesh)
+        elif config.mesh.axis_sizes(1) != (1, 1):
+            raise ValueError(
+                f"{config.mesh} needs a process group of its size: start "
+                f"the ranks with parallel.launch or torchrun")
+        #: rank 0 of a multi-card run (or the only process): it alone logs
+        #: and writes checkpoints
+        self.is_main_process = self.mesh is None or self.mesh.is_main
+        main = self.is_main_process
         self.log_dir = os.path.join(config.logs_dir, config.run_name)
-        os.makedirs(self.log_dir, exist_ok=True)
+        if main:
+            os.makedirs(self.log_dir, exist_ok=True)
         if config.logger not in LOGGERS:
             raise ValueError(f"unknown logger {config.logger!r}; one of "
                              f"{LOGGERS}")
         self.logger = WandbOfflineLogger(
-            self.log_dir, run_id=config.run_name, argv=sys.argv) \
-            if config.logger == "wandb" else MetricsLogger(self.log_dir)
-        #: a ``PedestrianLogger`` or None
-        self.video_logger = video_logger
+            self.log_dir, enabled=main, run_id=config.run_name,
+            argv=sys.argv) if config.logger == "wandb" \
+            else MetricsLogger(self.log_dir, enabled=main)
+        #: a ``PedestrianLogger`` or None; it renders on rank 0 alone
+        self.video_logger = video_logger if main else None
         self.checkpoints = CheckpointManager(
-            os.path.join(self.log_dir, "checkpoints"))
+            os.path.join(self.log_dir, "checkpoints"), enabled=main)
         #: the resident epoch's runner, kept across epochs
         self.runner = None
 
@@ -161,6 +193,10 @@ class Trainer:
                 if spe:
                     self.flow.steps_per_epoch = max(1, int(spe))
             self.state = self.flow.init_state()
+            if self.mesh is not None:
+                # every rank starts from rank 0's weights
+                replicate(self.mesh, self.state.params)
+                shard_state(self.mesh, self.state)
 
     def _resolve_train_batches(self) -> Optional[int]:
         """Steps per epoch: ``limit_train_batches``, or for an infinite
@@ -175,10 +211,11 @@ class Trainer:
     def fit(self) -> FlowState:
         self._init_state()
         counts = self.flow.param_counts(self.state)
-        print("  | model      | params\n  " + "\n  ".join(
-            f"| {k:<10} | {v:,}" for k, v in counts.items()))
+        if self.is_main_process:
+            print("  | model      | params\n  " + "\n  ".join(
+                f"| {k:<10} | {v:,}" for k, v in counts.items()))
         initial = {} if self.config.skip_initial_metrics \
-            else self.initial_metrics()
+            or not self.is_main_process else self.initial_metrics()
         self.logger.log_hparams({
             **self.dm.hparams, **initial,
             **{f"params/{k}": v for k, v in counts.items()}})
@@ -225,6 +262,9 @@ class Trainer:
         host, finish = self.dm.train_stream(self.config.seed + epoch)
         if limit is not None:
             host = itertools.islice(host, limit)
+        if self.mesh is not None:
+            # the rank's rows, taken on the worker once the batch is whole
+            finish = self._sharded(finish)
         if PREFETCH_DEPTH > 0:
             train_iter = DevicePrefetcher(
                 host, put_fn=device_put(self.device, finish),
@@ -249,6 +289,13 @@ class Trainer:
                                  "train")
         return last_logs, global_step
 
+    def _sharded(self, finish):
+        """``finish`` (or the identity), then this rank's rows."""
+        def put(batch):
+            return shard_batch(self.mesh, finish(batch) if finish is not None
+                               else batch)
+        return put
+
     def _fit_epoch_scanned(self, spec, limit, global_step: int):
         """The resident epoch: chunks of K = ``log_every_n_steps`` steps
         through the runner (module docstring). Each chunk's logs come back
@@ -260,7 +307,7 @@ class Trainer:
             else min(limit, spec.num_batches)
         K = max(1, min(every, nb))
         if self.runner is None:
-            self.runner = build_scan_runner(self.flow, spec)
+            self.runner = build_scan_runner(self.flow, spec, mesh=self.mesh)
         else:
             self.runner.set_epoch(spec)
         last_logs = None
@@ -294,8 +341,9 @@ class Trainer:
             return
         report = {"step": global_step, "non_finite_losses": bad_losses,
                   "non_finite_params": bad_params[:50]}
-        with open(os.path.join(self.log_dir, "anomaly.json"), "w") as f:
-            json.dump(report, f, indent=1)
+        if self.is_main_process:
+            with open(os.path.join(self.log_dir, "anomaly.json"), "w") as f:
+                json.dump(report, f, indent=1)
         raise RuntimeError(
             f"detect_anomaly: non-finite at step {global_step}: "
             f"losses={bad_losses} params={bad_params[:5]}"
@@ -317,9 +365,9 @@ class Trainer:
         for a training batch). A failure is a warning: the videos never
         end a run."""
         try:
-            if outputs is None:
+            if outputs is None:  # this rank's rows alone: no collective
                 _, preds, targets = self.flow.eval_step(self.state.params,
-                                                        batch)
+                                                        tuple(batch))
             else:
                 preds, targets = outputs
             self.video_logger.log_videos(
@@ -341,7 +389,11 @@ class Trainer:
         ``<stage>_<Metric>`` as well (a scalar as a float, a curve or a
         matrix as a list, a dict-valued metric as
         ``<stage>_<Metric>/<key>``). Sums and metric states stay on the
-        device; the host reads them once at the end."""
+        device; the host reads them once at the end. In a multi-card run
+        each rank evaluates its rows of each batch (the losses are the
+        whole batch's) and the metric states are summed over ``data``; a
+        batch that does not split is run whole by every rank and counted
+        by the first rank of ``data`` alone."""
         self._init_state()
         batches = self.dm.val_batches() if stage == "val" \
             else self.dm.test_batches()
@@ -352,11 +404,13 @@ class Trainer:
         loss_sums: Dict[str, torch.Tensor] = {}
         count = 0
         for batch in batches:
+            batch = shard_batch(self.mesh, batch)
             loss_dict, preds, targets = self.flow.eval_step(
                 self.state.params, batch)
             for k, v in loss_dict.items():
                 loss_sums[k] = v if k not in loss_sums else loss_sums[k] + v
-            if collection:
+            if collection and (self.mesh is None or data_shard(batch)
+                               or self.mesh.data_rank == 0):
                 mstate = collection.update(mstate, preds, targets)
             if count == 0 and self.video_logger is not None:
                 self._log_videos(batch, (preds, targets),
@@ -372,9 +426,13 @@ class Trainer:
             if primary and f"{stage}_loss/primary" not in results:
                 results[f"{stage}_loss/primary"] = results[primary]
             if collection:
+                if self.mesh is not None and self.mesh.data > 1:
+                    mstate = collection.all_reduce(mstate,
+                                                   self.mesh.data_group)
                 computed = collection.compute_moved(mstate, self.device)
                 results.update(_flatten_metrics(computed, stage))
-                self._save_plots(computed, stage)
+                if self.is_main_process:
+                    self._save_plots(computed, stage)
         return results
 
     def _save_plots(self, computed: Dict[str, Any], stage: str) -> None:
@@ -422,11 +480,16 @@ class Trainer:
         """The flow's eval step over ``dm.predict_batches(set_name)``: one
         ``(preds, targets, meta)`` of host numpy arrays per batch (a
         prediction the flow leaves out stays ``None``), as the JAX
-        package's ``Trainer.predict`` gives them."""
+        package's ``Trainer.predict`` gives them. In a multi-card run each
+        rank predicts its rows and the rows are all-gathered back, in
+        order, so every rank (rank 0 among them) returns the whole
+        batches."""
         self._init_state()
         outputs = []
         for batch in self.dm.predict_batches(set_name):
-            _, preds, targets = self.flow.eval_step(self.state.params, batch)
+            local = shard_batch(self.mesh, batch)
+            _, preds, targets = self.flow.eval_step(self.state.params, local)
+            preds, targets = gather_rows((preds, targets), data_shard(local))
             outputs.append(tuple(_host_tree(t)
                                  for t in (preds, targets, batch[2])))
         return outputs
@@ -436,6 +499,7 @@ class Trainer:
         keeps a fresh optimizer state and step count."""
         self._init_state()
         self.checkpoints.restore(self.state, path, weights_only=weights_only)
+        shard_state(self.mesh, self.state)
 
     def restore_pretrained_backbone(self, path: str,
                                     module_name: str = "ResNet_0") -> None:
@@ -452,6 +516,7 @@ class Trainer:
             for k, v in tree.items():
                 if k.startswith(f"{module_name}."):
                     v.copy_(grafted[k])
+        shard_state(self.mesh, self.state)
 
     def restore_torch(self, path: str, model_name: str) -> None:
         """Load a reference torch or Lightning checkpoint's movements-model
@@ -473,3 +538,4 @@ class Trainer:
         with torch.no_grad():
             for k, v in tree.items():
                 v.copy_(loaded[k])
+        shard_state(self.mesh, self.state)

@@ -2,12 +2,12 @@
 
 * Flag parity: for every flow the port has (pose estimation among them)
   and every model of its registries, the option strings the JAX CLI
-  defines and the port's does not are exactly ``M8_FLAGS`` (the
-  multi-card flags, which come with their modules).
+  defines and the port's does not are exactly ``M8_FLAGS``, now none
+  (the multi-card flags came with ``parallel/``).
 * Value parity: both CLIs on one argument list, stopped where they would
   make the trainer. The flows' optimizer settings (the bare ``--lr``
-  among them), the trainer's configuration, the data module's settings
-  and the models' fields are equal.
+  among them), the trainer's configuration (its ``mesh`` among them), the
+  data module's settings and the models' fields are equal.
 * The models that ``--residual``, ``--needs_confidence`` and
   ``--input_features`` change give the JAX models' outputs on the same
   inputs and weights (atol 1e-5, ``tests/ops/test_pallas_graph_gru.py``'s
@@ -35,9 +35,9 @@ from pedestrians_video_2_carla_torch.data.carla import \
 from pedestrians_video_2_carla_torch.models.jax_import import \
     import_flow_params
 
-#: the JAX CLI's flags that come with M8's modules not yet ported (the
-#: multi-card ones)
-M8_FLAGS = {"--num_devices", "--model_devices"}
+#: the JAX CLI's flags that come with M8's modules not yet ported: none
+#: since the multi-card ones came with ``parallel/``
+M8_FLAGS = set()
 OUT_ATOL = 1e-5
 
 
@@ -115,10 +115,10 @@ def test_verbosity_flags_swallow_nothing():
     assert args.very_verbose and not args.verbose
     assert args.lr == 0.1 and args.max_videos == 2
     assert args.train_proportions == [0.5, 0.5]
-    assert unknown == ["--model_devices", "2"]
+    assert args.model_devices == 2 and unknown == []
     args, unknown = parser.parse_known_args(["-v", "--num_devices", "1"])
     assert args.verbose and not args.very_verbose
-    assert unknown == ["--num_devices", "1"]
+    assert args.num_devices == 1 and unknown == []
 
 
 class _Stop(Exception):
@@ -155,7 +155,8 @@ ARGVS = {
         "--flow=pose_lifting", "--movements_model_name=LinearAE",
         "--lr", "0.01", "--check_val_every_n_epoch", "3",
         "--skip_initial_metrics", "true", "--logger", "wandb",
-        "--logs_dir", "{tmp}/elsewhere", "--run_name", "r"],
+        "--logs_dir", "{tmp}/elsewhere", "--run_name", "r",
+        "--num_devices", "1", "--model_devices", "1"],
     "lr_beside_a_typed_lr": [
         "--flow=pose_lifting", "--movements_model_name=LinearAE",
         "--lr", "0.01", "--movements_lr", "0.02",
@@ -240,6 +241,8 @@ def test_both_clis_build_the_same_run(group, tmp_path, monkeypatch):
                 "seed", "detect_anomaly"):
         assert getattr(port["config"], key) == getattr(ref["config"], key), \
             key
+    assert dataclasses.asdict(port["config"].mesh) \
+        == dataclasses.asdict(ref["config"].mesh)
     # the data module's settings
     assert port["dm"].hparams == ref["dm"].hparams
     if hasattr(ref["dm"], "config"):

@@ -279,6 +279,34 @@ def test_port_has_the_carla_control_and_orchestration_slice():
         assert "IMPORTED" in proc.stdout
 
 
+def test_port_has_the_parallel_slice():
+    """Multi-card training: ``parallel`` and ``parallel.mesh`` at their
+    JAX relative paths (``parallel.launcher`` is the port's own), walked by
+    the isolation checks, and importing in a fresh process with the
+    CPU-only packages blocked."""
+    modules = _port_modules()
+    for name in ("parallel", "parallel.mesh", "parallel.launcher"):
+        assert f"pedestrians_video_2_carla_torch.{name}" in modules
+    for path in ("parallel/__init__.py", "parallel/mesh.py"):
+        assert os.path.exists(os.path.join(
+            REPO, "pedestrians_video_2_carla_tpu", path)), path
+    code = (
+        "import importlib, sys\n"
+        f"for name in {CPU_ONLY!r}:\n"
+        "    sys.modules[name] = None\n"
+        "for name in ('parallel', 'parallel.mesh', 'parallel.launcher'):\n"
+        "    importlib.import_module('pedestrians_video_2_carla_torch.' + "
+        "name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('IMPORTED')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "IMPORTED" in proc.stdout
+
+
 def _chip_smoke_imports():
     """The port imports of chip_smoke.py, at any depth, as statements."""
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
