@@ -11,9 +11,10 @@ Phases, each printing one JSON line:
                      projection's serving source
                      (projection_fwd_phase_split), in parallel; their ptxas
                      summaries; that the temporal forward's products are
-                     tensor-core code (its three GEMM entries and no
-                     CUDA-core GEMM among the library's entries, and each
-                     entry's HMMA instructions in the SASS, by cuobjdump).
+                     tensor-core code (its three float32 GEMM entries and
+                     no CUDA-core GEMM among the library's entries, and
+                     each entry's HMMA instructions in the SASS, by
+                     cuobjdump).
   3. kernel       -- the serving kernel against its plain PyTorch version
                      and against its algorithm in plain PyTorch
                      (fused_projection_fwd_algorithm) on the card, on seeded
@@ -401,7 +402,12 @@ precision="bf16"):
                      gradient), the same bits twice; the bf16 forwards
                      within 5e-2 of max |fp32| of the fp32 kernels on the
                      same values; the bf16 GEMM's shared memory against
-                     the wrapper's copy.
+                     the wrapper's copy; rows 8 and 9 also at
+                     BF16_EDGE_SHAPES (63 rows at D=208, hidden 416, 2
+                     heads; T=81 at D=208 and at D=832), where the bf16
+                     GEMM's 128 x 128 tiles are partial: forward, kept
+                     scratch, dx and every weight gradient, two backward
+                     calls' bits.
  38. serve_poseformer_bf16 -- config 5 in bf16 (seed 22742), 8 requests at
                      B=256 through make_inference_fn: 1 bf16 row-4 and 4
                      bf16 row-8 launches a request and no other, float32
@@ -418,13 +424,17 @@ precision="bf16"):
                      losses that fall, float32 params and AdamW state; the
                      step beside fp32's in 10 alternating pairs, and both
                      steps' CUDA-event splits.
- 41. timing_bf16 -- rows 4 and 8 at B=256, 5 and 9 at B=1024 in bf16:
-                     kernel (cold L2), bf16 plain version, bf16
+ 41. timing_bf16 -- first, on a line of its own (timing_bf16_sass), that
+                     the temporal library's bf16 GEMM entries hold HGMMA
+                     (wgmma) in their SASS and no TF32 GEMM entry takes
+                     bf16; then rows 4 and 8 at B=256, 5 and 9 at B=1024
+                     in bf16: kernel (cold L2), bf16 plain version, bf16
                      TransformerEncoderLayer yardstick and the kernel
-                     against it in 10 alternating pairs, row 9's launch
-                     split; bounds at bf16's dense 989 TFLOP/s against each
-                     tensor's bytes at its element size (row 5 also at the
-                     fp32 peak of the CUDA cores it runs on).
+                     against it in 10 alternating pairs, rows 8 and 9's
+                     launch splits; bounds at bf16's dense 989 TFLOP/s
+                     against each tensor's bytes at its element size (row
+                     5 also at the fp32 peak of the CUDA cores it runs
+                     on).
  42. coverage_bf16 -- 3 bf16 steps of config 4 (VideoPose3D, B=64, L=81;
                      running statistics float32 and moved) and config 2 on
                      rnn_kernel="auto" (the loop): finite losses, no
@@ -866,35 +876,78 @@ def phase_build():
           "temporal_forward_tensor_cores": forward_gemm_sass(temporal)})
 
 
-def forward_gemm_sass(library):
-    """That the temporal forward's products run on the tensor cores: its
-    library holds the forward GEMM's entries and no CUDA-core GEMM
-    (ptxas's entry list), and, where the toolkit has cuobjdump, each
-    forward GEMM entry's count of tensor-core instructions (HMMA) in the
-    built SASS."""
-    log = library.with_suffix(".log").read_text()
-    entries = re.findall(r"Compiling entry function '(\w+)'", log)
-    # the fp32 GEMM's three epilogues, and the bf16 GEMM's
-    fwd = [e for e in entries if "gemm_fwd_kernel" in e
-           or "gemm_fwd_bf16_kernel" in e]
-    if len(fwd) != 6 or any("gemm_kernel" in e for e in entries):
-        raise AssertionError(f"temporal library entries: {entries}")
+def sass_of(library):
+    """cuobjdump's SASS of a built library, or None where the toolkit has
+    no cuobjdump."""
     from pedestrians_video_2_carla_torch.ops import cuda_build
     tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
     if not os.path.exists(tool):
-        return {"gemm_fwd_entries": len(fwd), "hmma": "no cuobjdump"}
-    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+        return None
+    return subprocess.run([tool, "-sass", str(library)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    hmma, current = {}, None
+
+
+def count_sass(sass, entries, opcode):
+    """Instructions whose text holds ``opcode`` in each of ``entries``."""
+    counts, current = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             current = line.split("Function :")[1].strip()
-        elif current in fwd and "HMMA" in line:
-            hmma[current] = hmma.get(current, 0) + 1
+        elif current in entries and opcode in line:
+            counts[current] = counts.get(current, 0) + 1
+    return counts
+
+
+def forward_gemm_sass(library):
+    """That the temporal forward's float32 products run on the tensor
+    cores: its library holds the fp32 forward GEMM's three entries and no
+    CUDA-core GEMM (ptxas's entry list), and, where the toolkit has
+    cuobjdump, each one's count of tensor-core instructions (HMMA) in the
+    built SASS. (The bf16 products' GEMM: ``bf16_gemm_sass``.)"""
+    log = library.with_suffix(".log").read_text()
+    entries = re.findall(r"Compiling entry function '(\w+)'", log)
+    fwd = [e for e in entries if "gemm_fwd_kernel" in e]
+    if len(fwd) != 3 or any("gemm_kernel" in e for e in entries):
+        raise AssertionError(f"temporal library entries: {entries}")
+    sass = sass_of(library)
+    if sass is None:
+        return {"gemm_fwd_entries": len(fwd), "hmma": "no cuobjdump"}
+    hmma = count_sass(sass, fwd, "HMMA")
     if sorted(hmma) != sorted(fwd):
         raise AssertionError(f"forward GEMM entries without HMMA: {hmma}")
-    return {"gemm_fwd_entries_fp32_and_bf16": len(fwd),
+    return {"gemm_fwd_entries_fp32": len(fwd),
             "hmma_per_entry": sorted(hmma.values())}
+
+
+#: the bf16 GEMM's entries in the temporal library: the forward's three
+#: epilogues, dh's dGELU, dX's plain fp32 and dW's split parts
+BF16_GEMM_ENTRIES = 6
+
+
+def bf16_gemm_sass(library):
+    """That rows 8 and 9 run their bf16 products on Hopper's bf16 tensor
+    cores: the temporal library's SASS holds warpgroup MMA instructions
+    (HGMMA) in each of the bf16 GEMM's entries (wgmma_bf16_kernel), and no
+    entry of the TF32 GEMMs (gemm_fwd_kernel, gemm_bwd_kernel) takes bf16
+    operands. Raises otherwise, or where the toolkit has no cuobjdump."""
+    log = library.with_suffix(".log").read_text()
+    entries = re.findall(r"Compiling entry function '(\w+)'", log)
+    wgmma = [e for e in entries if "wgmma_bf16_kernel" in e]
+    tf32_bf16 = [e for e in entries if ("gemm_fwd" in e or "gemm_bwd" in e)
+                 and "bfloat16" in e]
+    if len(wgmma) != BF16_GEMM_ENTRIES or tf32_bf16:
+        raise AssertionError(f"temporal library: bf16 GEMM entries {wgmma}, "
+                             f"TF32 GEMM entries on bf16 {tf32_bf16}")
+    sass = sass_of(library)
+    if sass is None:
+        raise AssertionError("no cuobjdump to read the temporal library's "
+                             "SASS with")
+    hgmma = count_sass(sass, wgmma, "HGMMA")
+    if sorted(hgmma) != sorted(wgmma):
+        raise AssertionError(f"bf16 GEMM entries without HGMMA: {hgmma}")
+    return {"library": library.name, "bf16_gemm_entries": len(wgmma),
+            "hgmma_per_entry": sorted(hgmma.values()),
+            "tf32_gemm_entries_on_bf16": len(tf32_bf16)}
 
 
 def kernel_wrappers():
@@ -5490,12 +5543,50 @@ def bf16_check(report, worst, row, what, got, ref, again=None,
     worst[row] = max(worst.get(row, 0.0), err)
 
 
+#: (n, T, D, heads, hidden) where the bf16 GEMM's 128 x 128 tiles are
+#: partial: n T = 63 rows at D=208 (1.625 column tiles), hidden 416; T=81
+BF16_EDGE_SHAPES = ((7, 9, 208, 2, 416), (3, 81, 208, 2, 416),
+                    (61, 81, PF_DIM, PF_HEADS, 2 * PF_DIM))
+
+
+def check_temporal_bf16_edges(rng, report, worst):
+    """Rows 8 and 9 in bf16 at BF16_EDGE_SHAPES against their bf16 plain
+    versions: the forward, the training forward's output and kept scratch,
+    dx and every weight gradient, two backward calls' bits."""
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_temporal_transformer as FT
+
+    for n, T, D, heads, hidden in BF16_EDGE_SHAPES:
+        what = f"edge n={n} T={T} D={D} hidden={hidden}"
+        w = to_bf16(random_block_weights(rng, D, hidden=hidden))
+        x = bf16_randn(rng, (n, T, D))
+        g = bf16_randn(rng, (n, T, D))
+        with torch.no_grad():
+            out = FT.fused_temporal_block_cuda(x, w, heads)
+            out_k, saved = FT.fused_temporal_block_cuda(x, w, heads,
+                                                        keep=True)
+            dx, dws = FT.fused_temporal_block_cuda_bwd(x, w, saved, g, heads)
+            dx2, dws2 = FT.fused_temporal_block_cuda_bwd(x, w, saved, g,
+                                                         heads)
+            ref_k, ref_saved = FT.temporal_block_keep_reference(x, w, heads)
+        bf16_check(report, worst, "row8_bf16", what, out, ref_k)
+        for name, got, want in zip(("out",) + FT_SAVED, (out_k, *saved),
+                                   (ref_k, *ref_saved)):
+            bf16_check(report, worst, "row8_bf16", f"{what} keep {name}",
+                       got, want)
+        ref = plain_grads(lambda t: FT.temporal_block_reference(
+            t[0], t[1:], heads), [x, *w], g)
+        for i, (a, b, r) in enumerate(zip((dx, *dws), (dx2, *dws2), ref)):
+            bf16_check(report, worst, "row9_bf16",
+                       f"{what} {SPATIAL_NAMES[i]}", a, r, b)
+
+
 def phase_kernel_bf16():
-    """Rows 4, 5, 8 and 9 in bf16 at the main path's shapes against their
-    bf16 plain versions: outputs, dx and every weight gradient, the
-    training forwards' kept scratch, the same bits twice; the bf16 forwards
-    against the fp32 kernels on the same values. -> the largest absolute
-    error of each row."""
+    """Rows 4, 5, 8 and 9 in bf16 at the main path's shapes, and rows 8 and
+    9 at BF16_EDGE_SHAPES, against their bf16 plain versions: outputs, dx
+    and every weight gradient, the training forwards' kept scratch, the
+    same bits twice; the bf16 forwards against the fp32 kernels on the
+    same values. -> the largest absolute error of each row."""
     from pedestrians_video_2_carla_torch.ops import \
         fused_spatial_transformer as FS
     from pedestrians_video_2_carla_torch.ops import \
@@ -5510,6 +5601,7 @@ def phase_kernel_bf16():
     ws = to_bf16(random_spatial_weights(rng))
     wt = to_bf16(random_block_weights(rng, PF_DIM))
     report, worst = {}, {}
+    check_temporal_bf16_edges(rng, report, worst)
     with torch.no_grad():
         # row 4: serving (B=256, L=16) and the training forward (B=1024)
         for n in (PF_BATCH * CLIP, BATCH * CLIP):
@@ -5587,13 +5679,19 @@ def phase_timing_bf16(card, hbm_rate):
     """Rows 4, 5, 8 and 9 in bf16 at the main path's shapes: the kernel
     (cold L2), its bf16 plain version, the bf16 TransformerEncoderLayer
     yardstick and the kernel against it in alternating pairs; bounds at
-    bf16's dense tensor-core rate against each tensor's bytes."""
+    bf16's dense tensor-core rate against each tensor's bytes; rows 8 and
+    9's launches split (``launch_split``). First, on a line of its own,
+    that the temporal library's bf16 products are HGMMA
+    (``bf16_gemm_sass``)."""
+    from pedestrians_video_2_carla_torch.ops import cuda_build
     from pedestrians_video_2_carla_torch.ops import flops as F
     from pedestrians_video_2_carla_torch.ops import \
         fused_spatial_transformer as FS
     from pedestrians_video_2_carla_torch.ops import \
         fused_temporal_transformer as FT
 
+    emit({"phase": "timing_bf16_sass",
+          "bf16_gemm": bf16_gemm_sass(cuda_build.build_library(FT._SOURCE))})
     rng = np.random.default_rng(SEED + 41)
     ws = to_bf16(random_spatial_weights(rng))
     wt = to_bf16(random_block_weights(rng, PF_DIM))
@@ -5691,6 +5789,11 @@ def phase_timing_bf16(card, hbm_rate):
                        "bytes": nb, "flop": nflop}
     times["row9_bf16"]["launch_split"] = launch_split(
         backwards["row9_bf16"][0], ROW9_STEPS)
+    xt = bf16_randn(rng, (PF_BATCH * (CLIP - PF_RF + 1), PF_RF, PF_DIM))
+    with torch.no_grad():
+        times["row8_bf16"]["launch_split"] = launch_split(
+            lambda: FT.fused_temporal_block_cuda(xt, wt, PF_HEADS),
+            ROW8_STEPS)
     del backwards, plain_s, plain_t, lib_s, lib_t, saved_s, saved_t
     for name, t in times.items():
         t_bytes, t_flop = t["bytes"] / hbm_rate, t["flop"] / BF16_PEAK
@@ -6417,6 +6520,9 @@ def group_bf16(card, hbm_rate):
                                                 "library_ms", "bound_ms",
                                                 "bound_by")})
         entry["paired_with_library"] = t["paired_with_library"]
+        if row in ("row8_bf16", "row9_bf16"):
+            entry["gemm_source"] = ("pedestrians_video_2_carla_torch/csrc/"
+                                    "wgmma_bf16.cuh")
         entries.append(entry)
     entries[0]["config5_bf16"] = e2e
     entries += scan_bf16_entries(scan_times, scan_launches, scan_errs)

@@ -55,24 +55,26 @@
 // fp32 128 x 128 x 8 GEMM on the CUDA cores, LayerNorm applied as A was
 // loaded) took 5.85 ms a block at B=256.
 //
-// bf16 (the `_bf16` entries; every kernel is a template on the storage type
-// S, float or bf16): x, the weights, the output and every buffer between
-// the launches are bf16 (y1, qkv, the attention output, x2, y2, GELU's
-// output, and h when training), as the JAX kernels keep their slabs and
-// residuals in the compute dtype; the LayerNorm statistics stay float32.
-// The GEMM's tiles are bf16 in shared memory (16-byte cp.async chunks of 8
-// elements, rows padded by 8, so a thread block takes 60 KB instead of 108
-// KB), widened to TF32 bits as the fragments are read, and each product is
-// one TF32 mma.sync pass, exact on bf16 values, its sum in fp32 in the
-// tensor cores (mma_tf32.cuh); LayerNorm, softmax, GELU and the residual
-// adds run in float32, as in the JAX kernel, and each stored value is
-// rounded to bf16 to nearest even. Bound at B=256 (the same 204.7 GFLOP at
-// bf16's dense 989 TFLOP/s): 0.207 ms.
+// bf16 (the `_bf16` entries; every kernel but the products is a template
+// on the storage type S, float or bf16): x, the weights, the output and
+// every buffer between the launches are bf16 (y1, qkv, the attention
+// output, x2, y2, GELU's output, and h when training), as the JAX kernels
+// keep their slabs and residuals in the compute dtype; the LayerNorm
+// statistics stay float32. The four products are the bf16 GEMM of
+// wgmma_bf16.cuh: Hopper's bf16 tensor cores (wgmma, fp32 sums in
+// registers) on tiles that TMA brings into a 128-byte-swizzled ring, the
+// same epilogues in fp32; LayerNorm, softmax, GELU and the residual adds run
+// in float32, as in the JAX kernel, and each stored value is rounded to
+// bf16 to nearest even. Bound at B=256 (the same 204.7 GFLOP at bf16's
+// dense 989 TFLOP/s): 0.207 ms. The earlier bf16 design (this file's TF32
+// GEMM on bf16 tiles widened to TF32, one mma.sync pass a product) took
+// 1.716 ms at B=256.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "mma_tf32.cuh"
 #include "storage.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -84,7 +86,6 @@ constexpr int kMaxHd = 128;   // head width
 constexpr int kMaxSmem = 232448;  // shared memory of one thread block
 constexpr int kAttnThreads = 128;
 constexpr float kEps = 1e-5f;
-constexpr float kSqrtHalf = 0.70710678118654752440f;
 
 // The forward GEMM's plan (mirrored in ops/fused_temporal_transformer.py,
 // FORWARD_GEMM): thread-block tile, warp tile, k-step, ring depth, thread
@@ -99,22 +100,19 @@ constexpr int kFThreads = 32 * kFWarps;
 constexpr int kFLd = kFBK + 4;  // staged tile row stride
 constexpr int kFStageFloats = (kFBM + kFBN) * kFLd;  // an A and a W tile
 constexpr int kFSmemBytes = 4 * kFStages * kFStageFloats;
-// The same in bf16: rows of kFBK elements padded by 8 (16 bytes)
-constexpr int kFLdBf = kFBK + 8;
-constexpr int kFStageBf = (kFBM + kFBN) * kFLdBf;
-constexpr int kFSmemBytesBf = 2 * kFStages * kFStageBf;
 
+// Dynamic shared memory of one forward GEMM thread block: the fp32 plan's,
+// or the bf16 GEMM's (wgmma_bf16.cuh, BF16_GEMM in the wrapper).
 template <typename S>
 constexpr int fwd_gemm_smem_bytes() {
-  return IsBf16<S>::value ? kFSmemBytesBf : kFSmemBytes;
+  return IsBf16<S>::value ? wg::kSmemBytes : kFSmemBytes;
 }
 static_assert(kFBK % 8 == 0 && kFBM % kFWM == 0 && kFBN % kFWN == 0 &&
                   kFWM % 16 == 0 && kFWN % 16 == 0,
               "forward GEMM plan");
 
-__device__ __forceinline__ float gelu(float v) {
-  return 0.5f * v * (1.0f + erff(v * kSqrtHalf));
-}
+using wg::dgelu;  // exact GELU and its derivative, shared with the bf16 GEMM
+using wg::gelu;
 
 // (v - mu) inv s + b on four features of a row
 __device__ __forceinline__ float4 ln_apply4(float4 v, float mu, float inv,
@@ -278,125 +276,27 @@ __global__ void __launch_bounds__(kFThreads, kFMinBlocks)
     }
 }
 
-// The bf16 form of gemm_fwd_kernel: the same plan and epilogues, its tiles
-// bf16 in the ring (rows of kFBK elements padded by 8), each fragment
-// element widened to TF32 bits (exact) and one TF32 mma.sync a product,
-// summed in the tensor cores in fp32; the epilogue's arithmetic in fp32,
-// its stores rounded to bf16.
-template <int EPI>
-__global__ void __launch_bounds__(kFThreads, kFMinBlocks)
-    gemm_fwd_bf16_kernel(FwdGemm<bf16> g) {
-  extern __shared__ __align__(16) float smem_bf[];
-  unsigned short* tiles = reinterpret_cast<unsigned short*>(smem_bf);
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * kFBM, n0 = blockIdx.x * kFBN;
-  const int steps = (g.K + kFBK - 1) / kFBK;
-
-  // one k-step's tiles into ring slot s: rows of kFBK elements in 16-byte
-  // chunks of 8, zeros past M, N or K
-  auto load = [&](int s, int k0) {
-    unsigned short* At = tiles + s * kFStageBf;
-    unsigned short* Wt = At + kFBM * kFLdBf;
-    constexpr int kChunks = kFBK / 8;
-    for (int c = tid; c < (kFBM + kFBN) * kChunks; c += kFThreads) {
-      const int r = c / kChunks, kc = (c % kChunks) * 8;
-      const bool is_a = r < kFBM;
-      const int row = is_a ? m0 + r : n0 + r - kFBM;
-      const bool ok = row < (is_a ? g.M : g.N) && k0 + kc < g.K;
-      const bf16* src = is_a ? g.A : g.W;
-      cp_async16(reinterpret_cast<float*>(
-                     (is_a ? At + r * kFLdBf : Wt + (r - kFBM) * kFLdBf) +
-                     kc),
-                 reinterpret_cast<const float*>(
-                     ok ? src + static_cast<size_t>(row) * g.K + k0 + kc
-                        : src),
-                 ok);
-    }
-  };
-
-  constexpr int kMT = kFWM / 16, kNT = kFWN / 8;
-  const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
-  const int wm = (warp / (kFBN / kFWN)) * kFWM;
-  const int wn = (warp % (kFBN / kFWN)) * kFWN;
-  float sums[kMT][kNT][4] = {};
-
-#pragma unroll
-  for (int s = 0; s < kFStages - 1; ++s) {
-    if (s < steps) load(s, s * kFBK);
-    cp_async_commit();
-  }
-  for (int step = 0; step < steps; ++step) {
-    cp_async_wait<kFStages - 2>();
-    __syncthreads();  // k-step `step` has landed; slot step - 1 is free
-    const int next = step + kFStages - 1;
-    if (next < steps) load(next % kFStages, next * kFBK);
-    cp_async_commit();
-    const unsigned short* At = tiles + (step % kFStages) * kFStageBf;
-    const unsigned short* Wt = At + kFBM * kFLdBf;
-#pragma unroll
-    for (int ks = 0; ks < kFBK; ks += 8) {
-      unsigned wb[kNT][2];
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const unsigned short* w = Wt + (wn + j * 8 + gq) * kFLdBf + ks + tq;
-        wb[j][0] = static_cast<unsigned>(w[0]) << 16;
-        wb[j][1] = static_cast<unsigned>(w[4]) << 16;
-      }
-#pragma unroll
-      for (int i = 0; i < kMT; ++i) {
-        const unsigned short* a = At + (wm + i * 16 + gq) * kFLdBf + ks + tq;
-        const unsigned ab[4] = {static_cast<unsigned>(a[0]) << 16,
-                                static_cast<unsigned>(a[8 * kFLdBf]) << 16,
-                                static_cast<unsigned>(a[4]) << 16,
-                                static_cast<unsigned>(a[8 * kFLdBf + 4])
-                                    << 16};
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) mma_tf32(sums[i][j], ab, wb[j]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm + i * 16 + gq + 8 * h;
-      if (m >= g.M) continue;
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const int n = n0 + wn + j * 8 + 2 * tq;  // and n + 1 (N is even)
-        if (n >= g.N) continue;
-        const float2 bv = ldg2(g.bias + n);
-        float2 v = make_float2(sums[i][j][2 * h] + bv.x,
-                               sums[i][j][2 * h + 1] + bv.y);
-        const size_t at = static_cast<size_t>(m) * g.N + n;
-        if (EPI == kGelu) {
-          if (g.H != nullptr) st2g(g.H + at, v);
-          v = make_float2(gelu(v.x), gelu(v.y));
-        } else if (EPI == kResidual) {
-          const float2 r = ldg2(g.R + at);
-          v = make_float2(r.x + v.x, r.y + v.y);
-        }
-        st2g(g.C + at, v);
-      }
-    }
-}
-
 template <int EPI, typename S>
 cudaError_t gemm_fwd(const FwdGemm<S>& g, cudaStream_t stream) {
-  constexpr int bytes = fwd_gemm_smem_bytes<S>();
-  void (*kernel)(FwdGemm<S>);
-  if constexpr (IsBf16<S>::value)
-    kernel = gemm_fwd_bf16_kernel<EPI>;
-  else
-    kernel = gemm_fwd_kernel<EPI>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((g.N + kFBN - 1) / kFBN, (g.M + kFBM - 1) / kFBM);
-  kernel<<<grid, kFThreads, bytes, stream>>>(g);
-  return cudaGetLastError();
+  if constexpr (IsBf16<S>::value) {
+    constexpr int epi = EPI == kBias ? wg::kBias
+                        : EPI == kGelu ? wg::kGelu
+                                       : wg::kResidual;
+    return wg::gemm<false, false, epi>(
+        g.A, g.W,
+        wg::Epi<bf16>{g.C, g.bias, g.R, g.H, nullptr, nullptr, g.M, g.N, g.K,
+                      g.K},
+        1, stream);
+  } else {
+    constexpr int bytes = fwd_gemm_smem_bytes<S>();
+    cudaError_t err = cudaFuncSetAttribute(
+        gemm_fwd_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((g.N + kFBN - 1) / kFBN, (g.M + kFBM - 1) / kFBM);
+    gemm_fwd_kernel<EPI><<<grid, kFThreads, bytes, stream>>>(g);
+    return cudaGetLastError();
+  }
 }
 
 // One thread block per (window, head). qkv: (N*T) x 3D rows [q | k | v],
@@ -508,19 +408,20 @@ int attn_bwd_bytes(int T, int hd) {
 // calls give the same bits. Attention backward, one thread block per
 // (window, head): the probabilities recomputed from qkv, ds = p (dp - sum_j
 // dp p), dq scaled by hd^-0.5; T x T scores in dynamic shared memory, T <=
-// 81.
+// 81. In bf16 the eight products are the bf16 GEMM of wgmma_bf16.cuh
+// instead: dX = dY W reads dY K-major and W (K x N) MN-major, dW = dY^T X
+// reads both MN-major, from the same TMA tiles; the bias gradients are dY's
+// column sums, taken from its tiles in shared memory by the first column
+// tile's consumers (no column of ones); the dW parts are multiples of that
+// GEMM's 64-row k-step. The earlier bf16 design (this file's GEMM on bf16
+// tiles widened to TF32, one mma.sync pass a product) took 15.04 ms at
+// B=1024.
 
-constexpr float kInvSqrt2Pi = 0.39894228040143267794f;
 constexpr int kBK2 = 16;               // k-step of the backward GEMM
 constexpr int kStages = 3;             // cp.async ring depth
 constexpr int kLdRow = kBK2 + 4;       // row-major A tile: row stride
 constexpr int kLdCol = kBN + 8;        // k-major tiles: row stride
 constexpr int kLnThreads = 256;
-
-__device__ __forceinline__ float dgelu(float v) {
-  return 0.5f * (1.0f + erff(v * kSqrtHalf)) + v * expf(-0.5f * v * v) *
-                                                   kInvSqrt2Pi;
-}
 
 enum BwdMode { kNN, kTN };
 enum BwdEpilogue { kSet, kDGelu };
@@ -537,82 +438,32 @@ struct Gemm {
   int k_split;     // kTN: rows of K per split (blockIdx.z)
 };
 
-// The row-major A tile's row stride, in elements: 16 bytes of padding.
-template <typename S>
-__host__ __device__ constexpr int ld_row() {
-  return kBK2 + 16 / static_cast<int>(sizeof(S));
-}
-
-// Elements of a ring stage (an A and a B tile).
-template <typename S>
-__host__ __device__ inline int gemm_stage_elems(int mode) {
-  return (mode == kNN ? kBM * ld_row<S>() : kBK2 * kLdCol) + kBK2 * kLdCol;
+// Floats of a ring stage (an A and a B tile).
+__host__ __device__ inline int gemm_stage_floats(int mode) {
+  return (mode == kNN ? kBM * kLdRow : kBK2 * kLdCol) + kBK2 * kLdCol;
 }
 
 // kNN: C = epi(A B); kTN: C[split] = A^T B over the split's rows of K, and
 // with bias, bias[split] = the column sums of A over them (B's column N
 // read as ones). M, N multiples of 4, K (kNN) a multiple of 4, pointers
-// 16-byte aligned. S = bf16: bf16 tiles (M, N and K multiples of 8), one
-// TF32 pass a product, as in the forward.
+// 16-byte aligned. S = float: bf16 operands go to the bf16 GEMM
+// (wgmma_bf16.cuh) instead.
 template <int MODE, int EPI, typename S, typename O>
 __global__ void __launch_bounds__(kGemmThreads, 2)
     gemm_bwd_kernel(Gemm<S, O> g) {
   extern __shared__ __align__(16) float smem_f[];
-  constexpr bool kBf = IsBf16<S>::value;
-  constexpr int kLdR = ld_row<S>();
   const int tid = threadIdx.x;
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
   const int kbeg = MODE == kTN ? blockIdx.z * g.k_split : 0;
   const int kend = MODE == kTN ? min(g.K, kbeg + g.k_split) : g.K;
   const int steps = (kend - kbeg + kBK2 - 1) / kBK2;
-  const int a_floats = MODE == kNN ? kBM * kLdR : kBK2 * kLdCol;
+  const int a_floats = MODE == kNN ? kBM * kLdRow : kBK2 * kLdCol;
   const int stage = a_floats + kBK2 * kLdCol;
   const bool ones = MODE == kTN && g.bias != nullptr && n0 <= g.N &&
                     g.N < n0 + kBN;
-  S* smem = reinterpret_cast<S*>(smem_f);
-
-  // bf16: one k-step's tiles into ring slot s, 256 16-byte chunks (8
-  // elements) each of A and B, 1 a thread
-  auto load_bf = [&](int s, int k0) {
-    S* As = smem + s * stage;
-    S* Bs = As + a_floats;
-    const int c = tid;
-    if (MODE == kNN) {
-      const int r = c >> 1, kc = (c & 1) * 8;
-      const bool ok = m0 + r < g.M && k0 + kc < kend;
-      cp_async16(reinterpret_cast<float*>(As + r * kLdR + kc),
-                 reinterpret_cast<const float*>(
-                     ok ? g.A + static_cast<size_t>(m0 + r) * g.K + k0 + kc
-                        : g.A),
-                 ok);
-    } else {
-      const int r = c >> 4, col = (c & 15) * 8;
-      const bool ok = k0 + r < kend && m0 + col < g.M;
-      cp_async16(reinterpret_cast<float*>(As + r * kLdCol + col),
-                 reinterpret_cast<const float*>(
-                     ok ? g.A + static_cast<size_t>(k0 + r) * g.M + m0 + col
-                        : g.A),
-                 ok);
-    }
-    const int r = c >> 4, col = (c & 15) * 8;
-    S* dst = Bs + r * kLdCol + col;
-    if (ones && n0 + col == g.N) {
-      unsigned short* d16 = reinterpret_cast<unsigned short*>(dst);
-      d16[0] = k0 + r < kend ? 0x3f80 : 0;  // bf16 1.0
-      for (int e = 1; e < 8; ++e) d16[e] = 0;
-    } else {
-      const bool ok = k0 + r < kend && n0 + col < g.N;
-      cp_async16(reinterpret_cast<float*>(dst),
-                 reinterpret_cast<const float*>(
-                     ok ? g.B + static_cast<size_t>(k0 + r) * g.N + n0 + col
-                        : g.B),
-                 ok);
-    }
-  };
-
-  // float32: one k-step's tiles into ring slot s: 512 16-byte chunks each
-  // of A and B, 2 a thread
-  auto load_f32 = [&](int s, int k0) {
+  // one k-step's tiles into ring slot s: 512 16-byte chunks each of A and
+  // B, 2 a thread
+  auto load = [&](int s, int k0) {
     float* As = smem_f + s * stage;
     float* Bs = As + a_floats;
 #pragma unroll
@@ -650,12 +501,6 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
       }
     }
   };
-  auto load = [&](int s, int k0) {
-    if constexpr (kBf)
-      load_bf(s, k0);
-    else
-      load_f32(s, k0);
-  };
 
   // 8 warps as 2 (rows) x 4 (columns), each a 64 x 32 tile of 4 x 4
   // mma tiles of 16 x 8
@@ -680,47 +525,6 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
     const int next = step + kStages - 1;
     if (next < steps) load(next % kStages, kbeg + next * kBK2);
     cp_async_commit();
-    if constexpr (kBf) {
-      const unsigned short* Ab =
-          reinterpret_cast<const unsigned short*>(smem + (step % kStages) *
-                                                             stage);
-      const unsigned short* Bb = Ab + a_floats;
-#pragma unroll
-      for (int ks = 0; ks < kBK2; ks += 8) {
-        unsigned bb[4][2];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = wn + j * 8 + gq;
-          bb[j][0] = static_cast<unsigned>(Bb[(ks + tq) * kLdCol + n]) << 16;
-          bb[j][1] = static_cast<unsigned>(Bb[(ks + tq + 4) * kLdCol + n])
-                     << 16;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int m = wm + i * 16 + gq;
-          unsigned short a[4];
-          if (MODE == kNN) {
-            a[0] = Ab[m * kLdR + ks + tq];
-            a[1] = Ab[(m + 8) * kLdR + ks + tq];
-            a[2] = Ab[m * kLdR + ks + tq + 4];
-            a[3] = Ab[(m + 8) * kLdR + ks + tq + 4];
-          } else {
-            a[0] = Ab[(ks + tq) * kLdCol + m];
-            a[1] = Ab[(ks + tq) * kLdCol + m + 8];
-            a[2] = Ab[(ks + tq + 4) * kLdCol + m];
-            a[3] = Ab[(ks + tq + 4) * kLdCol + m + 8];
-          }
-          const unsigned ab[4] = {
-              static_cast<unsigned>(a[0]) << 16,
-              static_cast<unsigned>(a[1]) << 16,
-              static_cast<unsigned>(a[2]) << 16,
-              static_cast<unsigned>(a[3]) << 16};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], ab, bb[j]);
-        }
-      }
-      continue;
-    }
     const float* As = smem_f + (step % kStages) * stage;
     const float* Bs = As + a_floats;
 #pragma unroll
@@ -793,16 +597,28 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
 
 template <int MODE, int EPI, typename S, typename O>
 cudaError_t gemm_bwd(const Gemm<S, O>& g, int splits, cudaStream_t stream) {
-  const int bytes = static_cast<int>(sizeof(S) * kStages *
-                                     gemm_stage_elems<S>(MODE));
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_bwd_kernel<MODE, EPI, S, O>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const int cols = g.N + (MODE == kTN && g.bias != nullptr ? 1 : 0);
-  const dim3 grid((cols + kBN - 1) / kBN, (g.M + kBM - 1) / kBM, splits);
-  gemm_bwd_kernel<MODE, EPI, S, O><<<grid, kGemmThreads, bytes, stream>>>(g);
-  return cudaGetLastError();
+  if constexpr (IsBf16<S>::value) {
+    // dX = dY W: dY K-major, W (K x N) MN-major; dW = dY^T X: both
+    // MN-major, the bias gradients from dY's tiles
+    return wg::gemm<MODE == kTN, true, EPI == kDGelu ? wg::kDGelu
+                                                     : wg::kPlain>(
+        g.A, g.B,
+        wg::Epi<O>{g.C, nullptr, nullptr, nullptr, g.aux, g.bias, g.M, g.N,
+                   g.K, MODE == kTN ? g.k_split : g.K},
+        splits, stream);
+  } else {
+    const int bytes = static_cast<int>(sizeof(float) * kStages *
+                                       gemm_stage_floats(MODE));
+    cudaError_t err = cudaFuncSetAttribute(
+        gemm_bwd_kernel<MODE, EPI, S, O>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    const int cols = g.N + (MODE == kTN && g.bias != nullptr ? 1 : 0);
+    const dim3 grid((cols + kBN - 1) / kBN, (g.M + kBM - 1) / kBM, splits);
+    gemm_bwd_kernel<MODE, EPI, S, O><<<grid, kGemmThreads, bytes, stream>>>(
+        g);
+    return cudaGetLastError();
+  }
 }
 
 // y1 = LN1(x), y2 = LN2(x2) (blockIdx.y selects) with the forward's
@@ -994,13 +810,18 @@ __global__ void reduce_segments_kernel(Segments<S> segs) {
   put(sg.out + e, v);
 }
 
-// How a weight gradient of rows x cols (+ a bias column) over K summed rows
-// is split: the fewest parts (at least 1024 rows each) whose thread blocks
-// fill the card's waves (two thread blocks an SM) to 90 % or more, else the
-// count that fills them best, so that the last wave is not left mostly
-// empty.
-void split_k(int rows, int cols, int K, int sms, int* splits, int* k_split) {
-  const int tiles = ((rows + kBM - 1) / kBM) * ((cols + 1 + kBN - 1) / kBN);
+// How a weight gradient of rows x cols over K summed rows is split: the
+// fewest parts (at least 1024 rows each) whose thread blocks fill the card's
+// waves (two thread blocks an SM) to 90 % or more, else the count that
+// fills them best, so that the last wave is not left mostly empty. float32:
+// the tiles of rows x (cols + a bias column), parts a multiple of the
+// k-step kBK2; bf16: the tiles of rows x cols (the bias from dY's tiles),
+// parts a multiple of the bf16 GEMM's k-step, which TMA loads whole.
+void split_k(int rows, int cols, int K, int sms, bool bf, int* splits,
+             int* k_split) {
+  const int tiles = ((rows + kBM - 1) / kBM) *
+                    ((cols + (bf ? 0 : 1) + kBN - 1) / kBN);
+  const int granule = bf ? wg::kBK : kBK2;
   const int slots = 2 * sms;
   const int most = K / (kBK2 * 64) > 1 ? K / (kBK2 * 64) : 1;
   int best = 1;
@@ -1016,7 +837,7 @@ void split_k(int rows, int cols, int K, int sms, int* splits, int* k_split) {
     }
     if (fill >= 0.9) break;
   }
-  *k_split = (((K + best - 1) / best) + kBK2 - 1) / kBK2 * kBK2;
+  *k_split = (((K + best - 1) / best) + granule - 1) / granule * granule;
   *splits = (K + *k_split - 1) / *k_split;
 }
 
@@ -1026,12 +847,12 @@ int ln_grid(int sms) { return 2 * sms; }
 // The backward's `part` scratch for M rows, in floats: each weight
 // gradient's split parts and bias parts, then the two LayerNorm launches'
 // partial rows. shapes[i] = (rows, cols) of dW2, dW1, dWp, dWqkv.
-int part_floats(int M, int D, int hidden, int sms) {
+int part_floats(int M, int D, int hidden, int sms, bool bf) {
   const int shapes[4][2] = {{D, hidden}, {hidden, D}, {D, D}, {3 * D, D}};
   long total = 2L * ln_grid(sms) * 2 * D;
   for (const auto& rc : shapes) {
     int splits, k_split;
-    split_k(rc[0], rc[1], M, sms, &splits, &k_split);
+    split_k(rc[0], rc[1], M, sms, bf, &splits, &k_split);
     total += static_cast<long>(splits) * rc[0] * (rc[1] + 1);
   }
   return static_cast<int>(total);
@@ -1145,7 +966,8 @@ int launch_block_bwd(const S* x, const S* ln1_s, const S* ln1_b,
   };
   auto wgrad = [&](int rows, int cols, S* out_w, S* out_b) {
     WGrad r;
-    split_k(rows, cols, M, sms, &r.splits, &r.k_split);
+    split_k(rows, cols, M, sms, IsBf16<S>::value, &r.splits,
+            &r.k_split);
     r.w = free_part;
     r.b = r.w + static_cast<size_t>(r.splits) * rows * cols;
     free_part = r.b + static_cast<size_t>(r.splits) * rows;
@@ -1268,7 +1090,9 @@ int pv2c_fused_temporal_block(
                              hidden, scale, stream);
 }
 
-// The same in bf16: x, out, the weights and the scratch but stats bf16.
+// The same in bf16: x, out, the weights and the scratch but stats bf16;
+// the products on the bf16 tensor cores (wgmma_bf16.cuh). Also requires a
+// CUDA driver with cuTensorMapEncodeTiled (12.0 or later).
 int pv2c_fused_temporal_block_bf16(
     const bf16* x, bf16* out, const bf16* ln1_s, const bf16* ln1_b,
     const bf16* qkv_w, const bf16* qkv_b, const bf16* proj_w,
@@ -1291,13 +1115,15 @@ int pv2c_temporal_fwd_gemm_smem_bytes(int element_size) {
                            : fwd_gemm_smem_bytes<float>();
 }
 
-// Floats of the backward's `part` scratch (below), on the current device.
-// Returns minus a CUDA error code on failure.
-int pv2c_temporal_block_bwd_part_floats(int n, int T, int D, int hidden) {
+// Floats of the backward's `part` scratch (below), on the current device,
+// for elements of element_size bytes (4: float32, 2: bf16). Returns minus
+// a CUDA error code on failure.
+int pv2c_temporal_block_bwd_part_floats(int n, int T, int D, int hidden,
+                                        int element_size) {
   int sms = 0;
   const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  return part_floats(n * T, D, hidden, sms);
+  return part_floats(n * T, D, hidden, sms, element_size == 2);
 }
 
 // The backward of pv2c_fused_temporal_block on its input x, its weights,
@@ -1327,7 +1153,8 @@ int pv2c_fused_temporal_block_bwd(
       D, H, hidden, scale, stream);
 }
 
-// The same in bf16: every tensor bf16 but stats, dy and part (float32).
+// The same in bf16: every tensor bf16 but stats, dy and part (float32);
+// the products on the bf16 tensor cores (wgmma_bf16.cuh).
 int pv2c_fused_temporal_block_bwd_bf16(
     const bf16* x, const bf16* ln1_s, const bf16* ln1_b, const bf16* qkv_w,
     const bf16* qkv_b, const bf16* proj_w, const bf16* proj_b,

@@ -41,9 +41,10 @@ bf16, as the JAX kernels do with bf16 inputs, every buffer between the
 launches is bf16 (y1, qkv, the attention output, x2, y2, GELU's output,
 the output; the pre-GELU h kept for the backward), except the LayerNorm
 statistics and the backward's dy (the gradient reaching the LayerNorms and
-attention), which stay float32; each product runs as one TF32 pass on its
-bf16 operands (exact products, float32 sums); LayerNorm, softmax, GELU and
-the residual adds in float32. The backward returns dx and the weight
+attention), which stay float32; the twelve products run on the bf16 tensor
+cores (wgmma, float32 sums; ``csrc/wgmma_bf16.cuh``, its plan mirrored in
+``BF16_GEMM``); LayerNorm, softmax, GELU and the residual adds in
+float32. The backward returns dx and the weight
 gradients (summed in float32) in bf16. The plain versions
 (``temporal_block_reference``, ``temporal_block_keep_reference``) round
 where the kernels store bf16.
@@ -72,7 +73,7 @@ _SIGNATURES = {
         [_PTR] * 29 + [_INT] * 5 + [ctypes.c_float, _PTR],
     "pv2c_fused_temporal_block_bwd_bf16":
         [_PTR] * 29 + [_INT] * 5 + [ctypes.c_float, _PTR],
-    "pv2c_temporal_block_bwd_part_floats": [_INT] * 4,
+    "pv2c_temporal_block_bwd_part_floats": [_INT] * 5,
     "pv2c_temporal_fwd_gemm_smem_bytes": [_INT],
 }
 
@@ -85,16 +86,38 @@ MAX_SMEM_BYTES = 232448
 #: thread block
 SM_SMEM_BYTES, BLOCK_RESERVED_BYTES = 233472, 1024
 
-#: the forward GEMM's plan (the source's kF* constants): thread-block tile,
-#: warp tile, k-step, cp.async ring depth, thread blocks an SM
+#: the float32 forward GEMM's plan (the source's kF* constants):
+#: thread-block tile, warp tile, k-step, cp.async ring depth, thread blocks
+#: an SM
 FORWARD_GEMM = {"block": (128, 128), "warp": (64, 64), "k_step": 32,
                 "stages": 3, "blocks_per_sm": 2}
 
+#: the bf16 GEMM's plan, all twelve bf16 products (``csrc/wgmma_bf16.cuh``,
+#: its wg::k* constants): thread-block tile, consumer warpgroups (64 rows
+#: each, wgmma m64n128k16) and the producer warp's threads, k-step (128
+#: bytes: the 128-byte swizzle's width), TMA ring depth, thread blocks an
+#: SM, and the shared memory beside the ring (alignment slack to the
+#: swizzle's 1024-byte period, the ring's mbarriers, the bias column sums'
+#: rows)
+BF16_GEMM = {"block": (128, 128), "consumer_warpgroups": 2, "threads": 288,
+             "k_step": 64, "stages": 3, "blocks_per_sm": 2,
+             "extra_bytes": (1024, 2 * 3 * 8, 2 * 4 * 64 * 4)}
+
+
+def bf16_gemm_smem_bytes() -> int:
+    """Dynamic shared memory of one bf16 GEMM thread block: the ring's
+    stages of an A and a B tile of bf16 and what lies beside it."""
+    plan = BF16_GEMM
+    return (plan["stages"] * sum(plan["block"]) * plan["k_step"] * 2
+            + sum(plan["extra_bytes"]))
+
 
 def forward_gemm_smem_bytes(element_size: int = 4) -> int:
-    """Dynamic shared memory of one forward GEMM thread block whose tiles
-    hold ``element_size``-byte elements (4: float32, 2: bf16): the ring's
-    stages of an A and a W tile, rows padded by 16 bytes."""
+    """Dynamic shared memory of one forward GEMM thread block for
+    ``element_size``-byte elements: float32's (4) ring of an A and a W tile
+    a stage, rows padded by 16 bytes; bf16's (2) is the bf16 GEMM's."""
+    if element_size == 2:
+        return bf16_gemm_smem_bytes()
     plan = FORWARD_GEMM
     return plan["stages"] * sum(plan["block"]) * (
         element_size * plan["k_step"] + 16)
@@ -172,9 +195,13 @@ def temporal_block_keep_reference(x: torch.Tensor,
     return out, saved
 
 
-def check_limits(T: int, D: int, num_heads: int, hidden: int) -> None:
-    """The kernels' limits on a block's shape; raises ValueError for one
-    they do not take."""
+def check_limits(T: int, D: int, num_heads: int, hidden: int,
+                 element_size: int = 4) -> None:
+    """The kernels' limits on a block's shape for ``element_size``-byte
+    elements (4: float32, 2: bf16); raises ValueError for one they do not
+    take. Widths are multiples of 8 for both: 16-byte rows for the
+    float32 GEMMs' 16-byte copies and for the bf16 GEMM's TMA tensor maps,
+    whose row strides are multiples of 16 bytes."""
     hd = D // num_heads
     if T > MAX_TOKENS or hd > MAX_HEAD_WIDTH or D % 8 or hidden % 8:
         raise ValueError(
@@ -186,11 +213,15 @@ def check_limits(T: int, D: int, num_heads: int, hidden: int) -> None:
         raise ValueError(f"T={T} at head width {hd} needs {smem} bytes of "
                          f"shared memory for the attention backward, more "
                          f"than {MAX_SMEM_BYTES}")
+    gemm = forward_gemm_smem_bytes(element_size)
+    if gemm > MAX_SMEM_BYTES:
+        raise ValueError(f"the GEMM's ring needs {gemm} bytes of shared "
+                         f"memory, more than {MAX_SMEM_BYTES}")
 
 
 def _check_limits(x, tensors, num_heads, hidden) -> None:
     T, D = x.shape[1:]
-    check_limits(T, D, num_heads, hidden)
+    check_limits(T, D, num_heads, hidden, x.element_size())
     if any(t.data_ptr() % 16 for t in (x, *tensors)):
         raise ValueError("the temporal kernel needs 16-byte aligned tensors")
 
@@ -289,7 +320,8 @@ def fused_temporal_block_cuda_bwd(x: torch.Tensor,
                empty((M, D)))
     lib = _library()
     with torch.cuda.device(device):
-        floats = lib.pv2c_temporal_block_bwd_part_floats(N, T, D, hidden)
+        floats = lib.pv2c_temporal_block_bwd_part_floats(
+            N, T, D, hidden, x.element_size())
         if floats < 0:
             cuda_build.check_launch(-floats,
                                     "pv2c_temporal_block_bwd_part_floats")

@@ -54,6 +54,9 @@ from pedestrians_video_2_carla_torch.skeletons import smpl as TSMPL
 
 from tests.test_torch_carla_recorded import carla_csv  # noqa: F401
 from tests.test_torch_openpose import datasets  # noqa: F401
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 N_MOCAPS, MOCAP_FRAMES, CLIP_LEN = 4, 60, 6
 ATOL, RTOL = 1e-5, 1e-6

@@ -33,6 +33,9 @@ from pedestrians_video_2_carla_torch.data.smpl import body_model as TB
 from tests.test_torch_amass_mpii_mixed import (write_body_models,
                                                write_mocaps, write_mpii)
 from tests.test_torch_carla_recorded import carla_csv  # noqa: F401
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 
 @pytest.fixture(scope="module")

@@ -47,6 +47,9 @@ from pedestrians_video_2_carla_torch.models.jax_import import (
 from pedestrians_video_2_carla_torch.models import rnn as R
 from pedestrians_video_2_carla_torch.models.movements import MOVEMENTS_MODELS
 from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 B, L, H = 3, 5, 8
 LR = 1e-3

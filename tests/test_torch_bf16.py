@@ -91,6 +91,9 @@ from pedestrians_video_2_carla_torch.ops import \
     fused_temporal_transformer as FT
 
 from .test_torch_transformer_kernels import _block_weights, _to_port
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 B, L = 3, 9
 LR = 1e-3
@@ -463,21 +466,82 @@ def test_bf16_plain_versions_match_the_jax_kernels(kind):
 
 
 def test_bf16_forward_gemm_plan_mirrors_the_source():
-    """The bf16 forward GEMM's tiles (rows of kFBK bf16 elements padded by
-    8) as ``forward_gemm_smem_bytes(2)`` counts them; the float32 count
-    is unchanged."""
+    """The bf16 GEMM's plan (``csrc/wgmma_bf16.cuh``, its wg::k*
+    constants) as ``BF16_GEMM`` mirrors it, and its shared memory as
+    ``forward_gemm_smem_bytes(2)`` counts it: the ring's stages of a 128 x
+    64 A and B tile of bf16, the swizzle's alignment slack, two mbarriers a
+    stage and the bias column sums' rows; the float32 count is
+    unchanged."""
     import re
     src = FT._SOURCE.read_text()
+    hdr = (FT._SOURCE.parent / "wgmma_bf16.cuh").read_text()
 
-    def const(name):
-        return int(re.search(rf"\b{name} = (\w+)", src).group(1))
-    assert re.search(r"\bkFLdBf = kFBK \+ 8;", src)
-    plan = FT.FORWARD_GEMM
-    rows = sum(plan["block"])
-    assert FT.forward_gemm_smem_bytes(2) == 2 * plan["stages"] * rows * (
-        plan["k_step"] + 8) == 61440
+    def const(text, name):
+        return int(re.search(rf"\b{name} = (\w+)", text).group(1))
+    plan = FT.BF16_GEMM
+    assert plan["block"] == (const(hdr, "kBM"), const(hdr, "kBN"))
+    assert (plan["k_step"], plan["stages"], plan["blocks_per_sm"],
+            plan["consumer_warpgroups"]) == (
+        const(hdr, "kBK"), const(hdr, "kStages"), const(hdr, "kMinBlocks"),
+        const(hdr, "kConsumers"))
+    assert plan["threads"] == 128 * plan["consumer_warpgroups"] + 32
+    assert re.search(r"constexpr int kAlign = 1024;", hdr)
+    assert re.search(r"kBarrierBytes = 2 \* kStages \* 8;", hdr)
+    assert re.search(r"kColsumBytes = kConsumers \* 4 \* 64 \* 4;", hdr)
+    assert plan["extra_bytes"] == (1024, 2 * plan["stages"] * 8,
+                                   plan["consumer_warpgroups"] * 4 * 64 * 4)
+    assert FT.forward_gemm_smem_bytes(2) == FT.bf16_gemm_smem_bytes() == \
+        2 * plan["stages"] * sum(plan["block"]) * plan["k_step"] + \
+        sum(plan["extra_bytes"]) == 101424
+    fp32 = FT.FORWARD_GEMM
     assert FT.forward_gemm_smem_bytes(4) == FT.forward_gemm_smem_bytes() \
-        == 4 * const("kFStages") * rows * (const("kFBK") + 4)
+        == 4 * const(src, "kFStages") * sum(fp32["block"]) * (
+            const(src, "kFBK") + 4)
+
+
+def test_bf16_gemm_ring_fits_the_thread_blocks_of_an_sm():
+    """Two bf16 GEMM thread blocks an SM: each within one thread block's
+    shared memory, both with what the hardware keeps for each within the
+    SM's, and a third would not fit."""
+    plan, smem = FT.BF16_GEMM, FT.bf16_gemm_smem_bytes()
+    assert smem <= FT.MAX_SMEM_BYTES
+    per_block = smem + FT.BLOCK_RESERVED_BYTES
+    assert plan["blocks_per_sm"] * per_block <= FT.SM_SMEM_BYTES
+    assert (plan["blocks_per_sm"] + 1) * per_block > FT.SM_SMEM_BYTES
+
+
+@pytest.mark.parametrize("shape, what", [
+    ((9, 836, 8, 1664), "multiples of 8"),      # D: a 16-byte TMA row stride
+    ((9, 832, 8, 1660), "multiples of 8"),      # hidden
+    ((82, 832, 8, 1664), "T <= 81"),
+    ((9, 832, 4, 1664), "head width <= 128"),
+])
+def test_temporal_limits_refuse_what_the_bf16_kernels_cannot_take(shape,
+                                                                   what):
+    """``check_limits`` for bf16 elements raises a clear ValueError for the
+    shapes the kernels refuse, and takes the main path's and the edge
+    shapes the card's tests run."""
+    T, D, heads, hidden = shape
+    with pytest.raises(ValueError, match=what):
+        FT.check_limits(T, D, heads, hidden, element_size=2)
+    for ok in ((9, 832, 8, 1664), (9, 208, 2, 416), (81, 208, 2, 416),
+               (81, 832, 8, 1664)):
+        FT.check_limits(*ok, element_size=2)
+
+
+def test_bf16_products_go_to_the_wgmma_gemm():
+    """The bf16 entries' twelve products are the wgmma GEMM's: the source
+    has no TF32 GEMM on bf16 tiles left, its forward and backward GEMM
+    dispatch bf16 to ``wg::gemm``, and that template issues wgmma on tiles
+    TMA loads, with no other product."""
+    src = FT._SOURCE.read_text()
+    hdr = (FT._SOURCE.parent / "wgmma_bf16.cuh").read_text()
+    assert "gemm_fwd_bf16_kernel" not in src and "load_bf" not in src
+    assert '#include "wgmma_bf16.cuh"' in src
+    assert src.count("return wg::gemm<") == 2
+    assert "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16" in hdr
+    assert "cp.async.bulk.tensor.2d" in hdr
+    assert "mma.sync" not in hdr and "mma_tf32" not in hdr
 
 
 def test_bf16_plain_versions_round_where_the_kernels_store():
@@ -941,3 +1005,47 @@ def test_bf16_kernels_match_their_plain_versions(cuda_device, kind):
                 out, leaves, _t(g).to(torch.bfloat16).to(device))])
     for got, ref in zip(grads[1], grads[0]):
         _assert_close(got.numpy(), ref.numpy(), KERNEL_GRAD_BAR, kind)
+
+
+#: (n, T, D, heads, hidden) whose M = n T and N leave partial tiles of the
+#: bf16 GEMM's 128 x 128: 63 rows at D=208 (1.625 tiles), hidden 416; T=81
+EDGE_SHAPES = ((7, 9, 208, 2, 416), (3, 81, 208, 2, 416))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_bf16_temporal_kernels_match_their_plain_versions_at_edge_shapes(
+        cuda_device, shape):
+    """Rows 8 and 9 in bf16 where the GEMM's tiles are partial: the
+    forward, the training forward's kept scratch and the backward against
+    the bf16 plain versions on the same values, and two backward calls'
+    bits."""
+    n, T, D, heads, hidden = shape
+    rng = np.random.default_rng(2720)
+    w = [a.to(torch.bfloat16) for a in _to_port(_block_weights(
+        rng, D, hidden=hidden))]
+    x = _t(rng.standard_normal((n, T, D)).astype(np.float32)).to(
+        torch.bfloat16)
+    g = _t(rng.standard_normal((n, T, D)).astype(np.float32)).to(
+        torch.bfloat16)
+    cw = [t.to(cuda_device) for t in w]
+    with torch.no_grad():
+        out = FT.fused_temporal_block_cuda(x.to(cuda_device), cw, heads)
+        out_k, saved = FT.fused_temporal_block_cuda(x.to(cuda_device), cw,
+                                                    heads, keep=True)
+        dx, dws = FT.fused_temporal_block_cuda_bwd(
+            x.to(cuda_device), cw, saved, g.to(cuda_device), heads)
+        dx2, dws2 = FT.fused_temporal_block_cuda_bwd(
+            x.to(cuda_device), cw, saved, g.to(cuda_device), heads)
+    ref_out, ref_saved = FT.temporal_block_keep_reference(x, w, heads)
+    for got, ref in zip((out, out_k, *saved), (ref_out, ref_out,
+                                               *ref_saved)):
+        _assert_close(got.float().cpu().numpy(), ref.float().numpy(),
+                      KERNEL_OUT_BAR, f"{shape} forward")
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, *w)]
+    ref = torch.autograd.grad(FT.temporal_block_reference(
+        leaves[0], leaves[1:], heads), leaves, g)
+    for got, again, want in zip((dx, *dws), (dx2, *dws2), ref):
+        assert torch.equal(got, again)
+        _assert_close(got.float().cpu().numpy(), want.float().numpy(),
+                      KERNEL_GRAD_BAR, f"{shape} backward")

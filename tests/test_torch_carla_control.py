@@ -60,6 +60,9 @@ from pedestrians_video_2_carla_torch.walker_control import \
 from pedestrians_video_2_carla_torch.walker_control import pose as TPose
 from pedestrians_video_2_carla_torch.walker_control import \
     pose_projection as TPP
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 MAT_TOL, DEG_TOL, F64_TOL, PX_TOL = 1e-6, 1e-4, 1e-9, 1e-3
 

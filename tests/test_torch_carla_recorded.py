@@ -32,6 +32,9 @@ from pedestrians_video_2_carla_torch.data import discover
 from pedestrians_video_2_carla_torch.data.base import hdf5_utils as TU
 from pedestrians_video_2_carla_torch.data.base import pandas_mixin as TP
 from pedestrians_video_2_carla_torch.data.carla import carla_recorded as TC
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 N_VIDEOS, N_FRAMES, CLIP_LEN = 4, 40, 8
 COMMON = dict(batch_size=4, clip_length=CLIP_LEN, clip_offset=4,

@@ -46,6 +46,9 @@ from pedestrians_video_2_carla_torch.models.torch_import import (
 from pedestrians_video_2_carla_torch.serving import make_inference_fn
 from pedestrians_video_2_carla_torch.training.trainer import (Trainer,
                                                               TrainerConfig)
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 J, B, L = 26, 2, 5
 SMALL_VP = {"filter_widths": (3, 3), "channels": 16}

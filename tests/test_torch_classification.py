@@ -54,6 +54,9 @@ from pedestrians_video_2_carla_torch.models.rnn import HoistedLSTM
 from pedestrians_video_2_carla_torch.skeletons.carla import CARLA_SKELETON
 from pedestrians_video_2_carla_torch.training.trainer import (Trainer,
                                                               TrainerConfig)
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 B, L, J, H = 6, 5, 26, 16       # as tests/ops/test_pallas_graph_gru.py
 LR = 1e-3

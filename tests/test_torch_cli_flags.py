@@ -34,6 +34,9 @@ from pedestrians_video_2_carla_torch.data.carla import \
     carla_recorded as TRecorded
 from pedestrians_video_2_carla_torch.models.jax_import import \
     import_flow_params
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 #: the JAX CLI's flags that come with M8's modules not yet ported: none
 #: since the multi-card ones came with ``parallel/``

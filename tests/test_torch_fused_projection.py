@@ -34,6 +34,9 @@ from pedestrians_video_2_carla_torch.skeletons.carla import (BONE_DEPTHS,
                                                              PARENTS)
 
 from .ops.np_reference import random_rotation_matrices
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 B, L = 5, 4
 

@@ -25,6 +25,9 @@ from pedestrians_video_2_carla_torch.ops import rotations as TR
 from pedestrians_video_2_carla_torch.skeletons import carla as TS
 
 from .ops.np_reference import random_rotation_matrices
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
                       "sk_female_absolute.json")

@@ -35,6 +35,9 @@ from pedestrians_video_2_carla_torch.ops import cuda_build
 from pedestrians_video_2_carla_torch.ops import flops as TF
 from pedestrians_video_2_carla_torch.ops import fused_graph_gru as G
 from pedestrians_video_2_carla_torch.skeletons.carla import CARLA_SKELETON
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 J = 26
 #: (B, L, H, k): B=6 pads to the TPU layout's multiple of 4 with two groups,

@@ -16,6 +16,9 @@ import pytest
 import torch
 
 import pedestrians_video_2_carla_torch as port
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pedestrians_video_2_carla_tpu")

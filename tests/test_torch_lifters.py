@@ -58,6 +58,9 @@ from pedestrians_video_2_carla_torch.models.jax_import import (
 from pedestrians_video_2_carla_torch.models.movements import MOVEMENTS_MODELS
 from pedestrians_video_2_carla_torch.models.movements.common import BatchNorm
 from pedestrians_video_2_carla_torch.ops.flops import video_pose_3d_flops
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 B, L = 3, 9
 LR = 1e-3

@@ -44,6 +44,9 @@ from pedestrians_video_2_carla_torch.renderers.source_videos_renderer \
     import SourceVideosRenderer
 from pedestrians_video_2_carla_torch.skeletons.carla import CARLA_SKELETON
 from pedestrians_video_2_carla_torch.training import loggers as TL
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HPARAMS = {"batch_size": 16, "lr": 1e-3, "tiny": 1e-8, "big": 1.5e20,

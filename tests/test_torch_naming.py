@@ -10,6 +10,9 @@ from pedestrians_video_2_carla_tpu.utils import naming as J
 
 from pedestrians_video_2_carla_torch import modeling
 from pedestrians_video_2_carla_torch.utils import naming as T
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 
 def test_names_are_the_jax_packages(tmp_path):

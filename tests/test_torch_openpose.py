@@ -39,6 +39,9 @@ from pedestrians_video_2_carla_torch.skeletons import (BODY_25_SKELETON,
                                                        CARLA_SKELETON,
                                                        COCO_SKELETON,
                                                        map_pose)
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 N_VIDEOS, N_FRAMES, CLIP_LEN, CLIP_OFFSET = 4, 24, 6, 3
 CROSSING_POINT = N_FRAMES - 4

@@ -47,6 +47,9 @@ from pedestrians_video_2_carla_torch.utils import exceptions as TExc
 from pedestrians_video_2_carla_torch.utils import paths as TPaths
 from pedestrians_video_2_carla_torch.utils import printing as TPrinting
 from pedestrians_video_2_carla_torch.utils import term as TTerm
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COMPARE_CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "compare",

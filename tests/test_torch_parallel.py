@@ -74,6 +74,9 @@ from pedestrians_video_2_carla_torch.training.checkpoint import \
     CheckpointManager
 from pedestrians_video_2_carla_torch.training.trainer import (Trainer,
                                                               TrainerConfig)
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 1e-3

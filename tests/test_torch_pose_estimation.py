@@ -75,6 +75,9 @@ from pedestrians_video_2_carla_torch.models.jax_import import (
 from pedestrians_video_2_carla_torch.models.pose_estimation import \
     POSE_ESTIMATION_MODELS as T_MODELS
 from pedestrians_video_2_carla_torch.ops import heatmaps as TH
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 OUT_BAR = 1e-4
 STATS_ATOL = 1e-5

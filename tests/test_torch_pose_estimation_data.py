@@ -46,6 +46,9 @@ from .test_torch_pose_estimation import (HEATMAP_ATOL, MODEL_CASES,
                                          SMALL_STAGES, _frames, _port_flow)
 from .test_torch_pose_estimation import \
     small_backbone  # noqa: F401 (fixture)
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 
 # -- the weight importers -------------------------------------------------------

@@ -35,6 +35,9 @@ from pedestrians_video_2_carla_torch.models.jax_import import (
 from pedestrians_video_2_carla_torch.models.movements.pose_former import (
     PoseFormer, PoseFormerRot)
 from pedestrians_video_2_carla_torch.serving import make_inference_fn
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 B, L = 2, 5
 #: a small PoseFormer: frame_dim 26 x 8 = 208, MLP hidden 416

@@ -52,6 +52,9 @@ from pedestrians_video_2_carla_torch.training.checkpoint import \
     CheckpointManager
 
 from .test_torch_transformer_kernels import _block_weights, _to_port
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 J, E, H_S, DEPTH = 26, 8, 4, 2        # spatial: head width 2
 T, D, H_T, N_T = 3, 208, 4, 7         # temporal: frame_dim 26 x 8

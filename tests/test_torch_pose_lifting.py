@@ -29,6 +29,9 @@ from pedestrians_video_2_carla_torch.models.movements.linear_ae import LinearAE
 from pedestrians_video_2_carla_torch.ops import deformation as TDef
 from pedestrians_video_2_carla_torch.ops import projection as TP
 from pedestrians_video_2_carla_torch.serving import make_inference_fn
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 B, L = 4, 4
 

@@ -60,6 +60,9 @@ from pedestrians_video_2_carla_torch.training.checkpoint import \
     CheckpointManager
 from pedestrians_video_2_carla_torch.training.trainer import (Trainer,
                                                               TrainerConfig)
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 BATCH, L = 4, 6
 #: clips a set: not a multiple of the batch, so evaluation wraps around

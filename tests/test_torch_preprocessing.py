@@ -36,6 +36,9 @@ from pedestrians_video_2_carla_torch.ops import preprocessing as P
 from pedestrians_video_2_carla_torch.ops.tensors import get_bboxes
 from pedestrians_video_2_carla_torch.skeletons import (BODY_25_SKELETON,
                                                        CARLA_SKELETON)
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 B, L = 3, 5
 ATOL, RTOL = 1e-5, 1e-6

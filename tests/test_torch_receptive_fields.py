@@ -32,6 +32,9 @@ from pedestrians_video_2_carla_torch.models.movements.pose_former import \
 from pedestrians_video_2_carla_torch.ops import fused_spatial_transformer as FS
 from pedestrians_video_2_carla_torch.ops import \
     fused_temporal_transformer as FT
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 B, L = 2, 29
 #: receptive field 27 (3 windows a clip), depth 1, frame_dim 26 x 8 = 208

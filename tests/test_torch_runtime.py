@@ -36,6 +36,9 @@ from pedestrians_video_2_carla_torch.training.checkpoint import \
     CheckpointManager
 from pedestrians_video_2_carla_torch.training.trainer import (Trainer,
                                                               TrainerConfig)
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 STOCHASTIC = dict(noise="gaussian", missing_joint_probabilities=[0.1] * 26,
                   augment_flip=True, augment_rotate=True)

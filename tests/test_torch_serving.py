@@ -50,6 +50,9 @@ from pedestrians_video_2_carla_torch.ops import \
     fused_spatial_transformer as FS
 from pedestrians_video_2_carla_torch.ops import \
     fused_temporal_transformer as FT
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, L = 4, 9

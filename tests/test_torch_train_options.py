@@ -55,6 +55,9 @@ from pedestrians_video_2_carla_torch.training.trainer import (Trainer,
                                                               TrainerConfig)
 
 from .ops.np_reference import random_rotation_matrices
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 B, L, J = 2, 4, 26
 LR = 1e-3

@@ -48,6 +48,9 @@ from pedestrians_video_2_carla_torch.training.trainer import (Trainer,
                                                               TrainerConfig)
 
 from .ops.np_reference import random_rotation_matrices
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, L = 4, 4

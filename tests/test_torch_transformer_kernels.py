@@ -25,6 +25,9 @@ from pedestrians_video_2_carla_torch.ops import fused_spatial_transformer as FS
 from pedestrians_video_2_carla_torch.ops import \
     fused_temporal_transformer as FT
 from pedestrians_video_2_carla_torch.ops import cuda_build
+from .torch_threads import limit_torch_threads
+
+limit_torch_threads()
 
 ATOL = 1e-5
 J, E, H_S, DEPTH = 26, 8, 4, 2        # spatial: head width 2
