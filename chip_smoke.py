@@ -641,11 +641,13 @@ SPATIAL_WIDE_NS = (1024, 1021)
 SPATIAL_EDGE, SPATIAL_EDGE_N = ((32, 12, 3, 864), (32, 12, 1, 860)), 67
 #: row 4's phase split: a copy of a forward source with a clock64() stamp by
 #: lane 0 of each warp at the forward kernel's start, after every barrier of
-#: block_fwd and of the kernel, and at its end (instrument_spatial_forward);
-#: the phases that a depth block's stamps end, by the forward's design
-#: ("warp": a warp a frame, warp barriers; "block": the earlier CUDA-core
-#: design, thread-block barriers only) and by keep, between "load" and
-#: "final_ln", "store"
+#: the depth block's function and of the kernel, and at its end
+#: (instrument_spatial_forward); the phases that a depth block's stamps end,
+#: by the forward's design ("warp": a warp a frame, warp barriers; "block":
+#: the earlier CUDA-core design, thread-block barriers only; "warp_widen":
+#: the warp design instantiated for bf16 before the bf16 forward had a
+#: kernel of its own, whose final LayerNorm stages its vectors behind two
+#: more barriers) and by keep, between "load" and SPLIT_TAIL's phases
 SPLIT_SLOTS = 64
 SPLIT_PHASES = {
     "warp": dict.fromkeys((False, True), (
@@ -655,10 +657,20 @@ SPLIT_PHASES = {
                       "fc1_gelu", "fc2"),
               True: ("stage", "ln1", "qkv", "attention", "proj", "ln2",
                      "fc1", "gelu_h", "fc2", "xs")}}
-_SPLIT_SECTION = (
-    "__device__ void block_fwd(",
-    "// ---------------------------------------------------------------------------\n// Backward")
+SPLIT_PHASES["warp_widen"] = SPLIT_PHASES["warp"]
+SPLIT_TAIL = {"warp_widen": ("lnf_wait", "lnf_stage", "final_ln", "store")}
+#: the sections of the source that hold a forward: (the depth block's
+#: function, the end), the float32 (and template) forward's and the bf16
+#: forward's; a source without the bf16 section (an earlier design's) ends
+#: its forward at the backward's marker
+_SPLIT_BACKWARD = ("// ---------------------------------------------------"
+                   "------------------------\n// Backward: dx")
+_SPLIT_BF16 = ("// ---------------------------------------------------"
+               "------------------------\n// Forward, bf16")
+_SPLIT_SECTION = ("__device__ void block_fwd(", _SPLIT_BF16)
+_SPLIT_SECTION_BF16 = ("__device__ void block_fwd_bf16(", _SPLIT_BACKWARD)
 _SPLIT_TOP = "  extern __shared__ __align__(16) float smem[];\n"
+_SPLIT_TOP_BF16 = "  extern __shared__ __align__(16) unsigned char smem_raw[];\n"
 _SPLIT_HELPERS = """
 __device__ long long* g_split_clk = nullptr;
 __shared__ int g_split_i[32];
@@ -853,6 +865,7 @@ def phase_build():
     sources = (FP._SOURCE, FP._TRAIN_SOURCE, FS._SOURCE, FT._SOURCE,
                FG._SOURCE, FG._DENSE_SOURCE,
                spatial_split_source(FS._SOURCE)[0],  # row 4's phase split
+               spatial_split_source(FS._SOURCE, bf16=True)[0],  # in bf16
                fk_split_source(FP._SOURCE))          # row 1's
 
     def build(source):
@@ -1901,6 +1914,10 @@ FT_SAVED = ("stats", "qkv", "attn", "x2", "h", "mlp")
 #: of synchronised calls into calls (a call's launches run back to back)
 LAUNCH_GAP_US = 20.0
 ROW8_KERNELS = ("ln_fwd_kernel", "gemm_fwd_kernel", "attention_kernel")
+#: row 5's launches at depth PF_DEPTH, in launch order
+ROW5_STEPS = (("final_ln_bwd",) + tuple(
+    f"{half}_bwd_b{b}" for b in range(PF_DEPTH - 1, -1, -1)
+    for half in ("mlp", "attn")) + ("reduce", "to_storage"))
 ROW9_STEPS = ("ln_apply", "dh", "dW2", "dy2", "dW1", "ln2_bwd", "do", "dWp",
               "attention_bwd", "dy1", "dWqkv", "ln1_bwd", "reduce")
 
@@ -2360,37 +2377,50 @@ def spatial_flops(frames, F):
     return dense, total - dense
 
 
-def instrument_spatial_forward(text):
+def instrument_spatial_forward(text, bf16=False):
     """A row 4 source (this one or an earlier design's) with the phase
-    stamps (SPLIT_PHASES); returns it and the forward's design."""
-    for anchor in _SPLIT_SECTION + ("namespace {\n",):
+    stamps (SPLIT_PHASES) in its float32 forward, or with ``bf16`` in its
+    bf16 forward (the template's where the source has no bf16 kernel);
+    returns it and the forward's design."""
+    own = bf16 and _SPLIT_BF16 in text
+    if own:
+        section, top = _SPLIT_SECTION_BF16, _SPLIT_TOP_BF16
+    else:
+        section = (_SPLIT_SECTION[0], _SPLIT_BF16 if _SPLIT_BF16 in text
+                   else _SPLIT_BACKWARD)
+        top = _SPLIT_TOP
+    for anchor in section + ("namespace {\n",):
         if text.count(anchor) != 1:
             raise ValueError(f"{anchor!r} is not one place of the source")
-    head, rest = text.split(_SPLIT_SECTION[0])
-    fwd, tail = rest.split(_SPLIT_SECTION[1])
-    if fwd.count(_SPLIT_TOP) != 1:
+    head, rest = text.split(section[0])
+    fwd, tail = rest.split(section[1])
+    if fwd.count(top) != 1:
         raise ValueError("the forward kernel's start is not one place")
     design = "warp" if "__syncwarp();" in fwd else "block"
+    if bf16 and not own:
+        design += "_widen" if design == "warp" else ""
     for barrier in ("__syncthreads();", "__syncwarp();"):
         fwd = fwd.replace(barrier, barrier + " split_stamp();")
-    fwd = fwd.replace(_SPLIT_TOP, _SPLIT_TOP + (
+    fwd = fwd.replace(top, top + (
         "  if ((threadIdx.x & 31) == 0) g_split_i[threadIdx.x >> 5] = 0;\n"
         "  split_stamp();\n"))
     end = fwd.rindex("\n}")
     fwd = fwd[:end] + "\n  split_stamp();" + fwd[end:]
     head = head.replace("namespace {\n", "namespace {\n" + _SPLIT_HELPERS)
-    return (head + _SPLIT_SECTION[0] + fwd + _SPLIT_SECTION[1] + tail
-            + _SPLIT_SET, design)
+    return (head + section[0] + fwd + section[1] + tail + _SPLIT_SET,
+            design)
 
 
-def spatial_split_source(source):
+def spatial_split_source(source, bf16=False):
     """The instrumented copy of row 4's ``source`` (with the headers it
-    includes) under build/spatial_split/; returns its path and the
+    includes) under build/spatial_split/ (build/spatial_split_bf16/ with
+    ``bf16``, its bf16 forward instrumented); returns its path and the
     forward's design."""
     from pedestrians_video_2_carla_torch.ops import cuda_build
 
-    text, design = instrument_spatial_forward(source.read_text())
-    d = cuda_build.BUILD_DIR.parent / "spatial_split"
+    text, design = instrument_spatial_forward(source.read_text(), bf16)
+    d = cuda_build.BUILD_DIR.parent / (
+        "spatial_split_bf16" if bf16 else "spatial_split")
     d.mkdir(parents=True, exist_ok=True)
     copy = d / source.name
     copy.write_text(text)
@@ -2408,15 +2438,16 @@ def spatial_library(source):
         fused_spatial_transformer as FS
 
     lib = ctypes.CDLL(str(cuda_build.build_library(source)))
-    lib.pv2c_fused_spatial_stack.argtypes = FS._SIGNATURES[
-        "pv2c_fused_spatial_stack"]
+    for entry in ("pv2c_fused_spatial_stack",
+                  "pv2c_fused_spatial_stack_bf16"):
+        getattr(lib, entry).argtypes = FS._SIGNATURES[entry]
     return lib
 
 
 def spatial_launch(lib, x, ws, heads, frames, keep):
-    """One launch of a row 4 library's C entry at ``frames`` frames a
-    thread block (with ``keep``, into fresh residuals); returns the
-    output."""
+    """One launch of a row 4 library's C entry for x's dtype at ``frames``
+    frames a thread block (with ``keep``, into fresh residuals); returns
+    the output."""
     from pedestrians_video_2_carla_torch.ops import cuda_build
     from pedestrians_video_2_carla_torch.ops import \
         fused_spatial_transformer as FS
@@ -2427,7 +2458,9 @@ def spatial_launch(lib, x, ws, heads, frames, keep):
     saved = [torch.empty(s, dtype=torch.float32, device="cuda")
              for s in FS.saved_shapes(depth, N * J, E, hidden)] if keep \
         else [None] * 6
-    cuda_build.check_launch(lib.pv2c_fused_spatial_stack(
+    entry = lib.pv2c_fused_spatial_stack_bf16 \
+        if x.dtype == torch.bfloat16 else lib.pv2c_fused_spatial_stack
+    cuda_build.check_launch(entry(
         x.data_ptr(), out.data_ptr(), *(w.data_ptr() for w in ws),
         *(t if t is None else t.data_ptr() for t in saved), N, J, E, heads,
         hidden, depth, frames, float(E // heads) ** -0.5,
@@ -2454,7 +2487,7 @@ def spatial_phase_split(copy, design, x, ws, heads, frames, keep, ms):
     torch.cuda.synchronize()
     cuda_build.check_launch(lib.pv2c_split_set(None), "pv2c_split_set")
     names = (["load"] + list(SPLIT_PHASES[design][keep]) * ws[0].shape[0]
-             + ["final_ln", "store"])
+             + list(SPLIT_TAIL.get(design, ("final_ln", "store"))))
     stamps = len(names) + 1
     if bool((clk[:, stamps:] != 0).any()):
         raise AssertionError(f"more than {stamps} stamps a warp: "
@@ -5513,6 +5546,12 @@ def group_serving(card, hbm_rate):
 #: BF16_VS_FP32 of max |fp32|, the JAX bf16 kernel tests' bar
 #: (tests/ops/test_pallas_spatial.py:103-111)
 BF16_BAR, BF16_VS_FP32 = 2e-2, 5e-2
+#: row 5 bf16's second bar: its dx and weight gradients against the
+#: backward's plain algorithm in float32 from the same residuals
+#: (``spatial_stack_bwd_reference``), over max |that|: one bf16 rounding
+#: (half an ulp, at most 2^-8 of the largest value) of fp32-accurate
+#: results, which products on bf16 operands would not meet
+BF16_BWD_BAR = 2.0 ** -8
 #: bf16's dense tensor-core rate on an H100 SXM (NVIDIA's data sheet)
 BF16_PEAK = 989e12
 BF16_COVERAGE_STEPS = 3
@@ -5581,12 +5620,98 @@ def check_temporal_bf16_edges(rng, report, worst):
                        f"{what} {SPATIAL_NAMES[i]}", a, r, b)
 
 
+def check_spatial_bf16(report, worst, x, ws, heads, g, what):
+    """Rows 4 and 5 in bf16 at one shape: serving and the training forward
+    (the same output) against the bf16 plain version, the kept residuals
+    against the plain training forward's (spatial_stack_keep_reference);
+    with g, dx and every weight gradient against autograd of the bf16
+    plain version (BF16_BAR) and against the backward's plain algorithm in
+    float32 from the same residuals (BF16_BWD_BAR), two calls' bits."""
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_spatial_transformer as FS
+
+    with torch.no_grad():
+        out = FS.fused_spatial_stack_cuda(x, ws, heads)
+        kept, saved = FS.fused_spatial_stack_cuda(x, ws, heads, keep=True)
+        ref, ref_saved = FS.spatial_stack_keep_reference(x, ws, heads)
+    bf16_check(report, worst, "row4_bf16", what, out, ref)
+    if not torch.equal(kept, out):
+        raise AssertionError(f"row 4 bf16 {what}: the training forward's "
+                             f"output differs from serving's")
+    for name, a, b in zip(FS.SAVED, saved, ref_saved):
+        bf16_check(report, worst, "row4_bf16", f"{what} keep {name}", a, b)
+    del ref_saved
+    if g is None:
+        return
+    with torch.no_grad():
+        dx, dws = FS.fused_spatial_stack_cuda_bwd(x, ws, saved, g, heads)
+        dx2, dws2 = FS.fused_spatial_stack_cuda_bwd(x, ws, saved, g, heads)
+        exact = FS.spatial_stack_bwd_reference(x, ws, saved, g, heads)
+    del saved
+    ref = plain_grads(lambda t: FS.spatial_stack_reference(
+        t[0], t[1:], heads), [x, *ws], g)
+    for name, a, b, r, e in zip(SPATIAL_NAMES, (dx, *dws), (dx2, *dws2), ref,
+                                (exact[0], *exact[1])):
+        bf16_check(report, worst, "row5_bf16", f"{what} {name}", a, r, b)
+        bf16_check(report, {}, "row5_bf16",
+                   f"{what} {name} vs fp32 algorithm", a, e,
+                   bar=BF16_BWD_BAR)
+
+
+def check_spatial_bf16_layouts():
+    """The wrapper's copies of the bf16 kernels' shared-memory layouts
+    against the library's, at the bf16 tiles of every spatial shape the
+    checks run; returns the tiles."""
+    from pedestrians_video_2_carla_torch.ops import \
+        fused_spatial_transformer as FS
+
+    lib, tiles = FS._library(), {}
+    for J, emb, heads, hid in [(PF_JOINTS, e, h, 2 * e) for e, h in (
+            (PF_EMB, PF_HEADS),) + SPATIAL_WIDE] + list(SPATIAL_EDGE):
+        fwd, rows, frames = FS.kernel_tiles(J, emb, heads, hid,
+                                            element_size=2)
+        pairs = ((lib.pv2c_spatial_stack_bf16_smem_bytes(J, emb, heads, hid,
+                                                         fwd),
+                  FS.bf16_forward_smem_bytes(J, emb, hid, fwd)),
+                 (lib.pv2c_spatial_mlp_bwd_bf16_smem_bytes(emb, hid, rows),
+                  FS.mlp_bwd_bf16_smem_bytes(emb, hid, rows)),
+                 (lib.pv2c_spatial_attn_bwd_bf16_smem_bytes(J, emb, heads,
+                                                            frames),
+                  FS.attn_bwd_bf16_smem_bytes(J, emb, heads, frames)))
+        if any(a != b for a, b in pairs):
+            raise AssertionError(f"bf16 J={J}, E={emb}, {heads} heads, "
+                                 f"hidden {hid}: shared memory library vs "
+                                 f"wrapper {pairs}")
+        tiles[f"J{J}_E{emb}_H{heads}_hidden{hid}"] = {
+            "forward_frames": fwd, "mlp_bwd_rows": rows,
+            "attn_bwd_frames": frames, "smem_bytes": [a for a, _ in pairs]}
+    return tiles
+
+
+def check_spatial_bf16_edges(rng, report, worst):
+    """Rows 4 and 5 in bf16 (check_spatial_bf16) at SPATIAL_WIDE's widths
+    (J=26, hidden 2E) at SPATIAL_WIDE_NS frames and at SPATIAL_EDGE's
+    shapes at SPATIAL_EDGE_N frames."""
+    shapes = [(n, PF_JOINTS, e, h, 2 * e) for e, h in SPATIAL_WIDE
+              for n in SPATIAL_WIDE_NS] + [
+        (SPATIAL_EDGE_N, J, e, h, hid) for J, e, h, hid in SPATIAL_EDGE]
+    for n, J, emb, heads, hid in shapes:
+        ws = to_bf16(random_spatial_weights(rng, emb, hid))
+        x = bf16_randn(rng, (n, J, emb))
+        check_spatial_bf16(report, worst, x, ws, heads,
+                           bf16_randn(rng, (n, J, emb)),
+                           f"N={n} J={J} E={emb} heads={heads} hidden={hid}")
+
+
 def phase_kernel_bf16():
-    """Rows 4, 5, 8 and 9 in bf16 at the main path's shapes, and rows 8 and
-    9 at BF16_EDGE_SHAPES, against their bf16 plain versions: outputs, dx
-    and every weight gradient, the training forwards' kept scratch, the
-    same bits twice; the bf16 forwards against the fp32 kernels on the
-    same values. -> the largest absolute error of each row."""
+    """Rows 4, 5, 8 and 9 in bf16 at the main path's shapes, rows 8 and 9
+    at BF16_EDGE_SHAPES and rows 4 and 5 at the spatial wide and edge
+    shapes, against their bf16 plain versions: outputs, dx and every
+    weight gradient, the training forwards' kept scratch, the same bits
+    twice; row 5 also against its plain algorithm in float32
+    (BF16_BWD_BAR); the bf16 forwards against the fp32 kernels on the
+    same values; the bf16 spatial plans against the library's. -> the
+    largest absolute error of each row."""
     from pedestrians_video_2_carla_torch.ops import \
         fused_spatial_transformer as FS
     from pedestrians_video_2_carla_torch.ops import \
@@ -5597,11 +5722,13 @@ def phase_kernel_bf16():
     if smem[0] != smem[1]:
         raise AssertionError(f"bf16 forward GEMM shared memory: library vs "
                              f"wrapper {smem}")
+    spatial_tiles = check_spatial_bf16_layouts()
     rng = np.random.default_rng(SEED + 40)
     ws = to_bf16(random_spatial_weights(rng))
     wt = to_bf16(random_block_weights(rng, PF_DIM))
     report, worst = {}, {}
     check_temporal_bf16_edges(rng, report, worst)
+    check_spatial_bf16_edges(rng, report, worst)
     with torch.no_grad():
         # row 4: serving (B=256, L=16) and the training forward (B=1024)
         for n in (PF_BATCH * CLIP, BATCH * CLIP):
@@ -5614,10 +5741,17 @@ def phase_kernel_bf16():
                 x.float(), [w.float() for w in ws], PF_HEADS)
             bf16_check(report, worst, "row4_bf16", f"N={n} vs fp32 kernel",
                        out, out32, bar=BF16_VS_FP32)
-            keep, _ = FS.fused_spatial_stack_cuda(x, ws, PF_HEADS, keep=True)
+            keep, saved = FS.fused_spatial_stack_cuda(x, ws, PF_HEADS,
+                                                      keep=True)
             if not torch.equal(keep, out):
                 raise AssertionError("row 4 bf16: the training forward's "
                                      "output differs from serving's")
+            for name, a, b in zip(FS.SAVED, saved,
+                                  FS.spatial_stack_keep_reference(
+                                      x, ws, PF_HEADS)[1]):
+                bf16_check(report, worst, "row4_bf16", f"N={n} keep {name}",
+                           a, b)
+            del saved
         # row 8: B=256 and B=1024 (8 windows a clip), and rf 81 (B=64)
         for n, T in ((PF_BATCH * (CLIP - PF_RF + 1), PF_RF),
                      (BATCH * (CLIP - PF_RF + 1), PF_RF), (RF81_BATCH, 81)):
@@ -5647,11 +5781,16 @@ def phase_kernel_bf16():
         dx, dws = FS.fused_spatial_stack_cuda_bwd(x, ws, saved, g, PF_HEADS)
         dx2, dws2 = FS.fused_spatial_stack_cuda_bwd(x, ws, saved, g,
                                                     PF_HEADS)
+        exact = FS.spatial_stack_bwd_reference(x, ws, saved, g, PF_HEADS)
     ref = plain_grads(lambda t: FS.spatial_stack_reference(
         t[0], t[1:], PF_HEADS), [x, *ws], g)
-    for i, (a, b, r) in enumerate(zip((dx, *dws), (dx2, *dws2), ref)):
+    for i, (a, b, r, e) in enumerate(zip((dx, *dws), (dx2, *dws2), ref,
+                                         (exact[0], *exact[1]))):
         bf16_check(report, worst, "row5_bf16", SPATIAL_NAMES[i], a, r, b)
-    del saved, ref
+        bf16_check(report, {}, "row5_bf16",
+                   f"{SPATIAL_NAMES[i]} vs fp32 algorithm", a, e,
+                   bar=BF16_BWD_BAR)
+    del saved, ref, exact
     x = bf16_randn(rng, (BATCH * (CLIP - PF_RF + 1), PF_RF, PF_DIM))
     g = bf16_randn(rng, tuple(x.shape))
     with torch.no_grad():
@@ -5666,12 +5805,18 @@ def phase_kernel_bf16():
     del saved, ref
     torch.cuda.synchronize()
     emit({"phase": "kernel_bf16", "bar": BF16_BAR,
-          "bar_vs_fp32_kernel": BF16_VS_FP32, "checks": report,
+          "bar_vs_fp32_kernel": BF16_VS_FP32,
+          "row5_bar_vs_fp32_algorithm": BF16_BWD_BAR, "checks": report,
           "worst_scaled": {row: max(v["max_abs_err_over_max_abs_ref"]
                                     for k, v in report.items()
-                                    if k.startswith(row))
+                                    if k.startswith(row)
+                                    and "fp32 algorithm" not in k)
                            for row in BF16_ROWS},
-          "smem_bytes_bf16_forward_gemm": smem})
+          "row5_worst_vs_fp32_algorithm": max(
+              v["max_abs_err_over_max_abs_ref"] for k, v in report.items()
+              if "fp32 algorithm" in k),
+          "smem_bytes_bf16_forward_gemm": smem,
+          "spatial_bf16_tiles": spatial_tiles})
     return worst
 
 
@@ -5751,8 +5896,37 @@ def phase_timing_bf16(card, hbm_rate):
                                                             flush_l2),
                            "bytes": nb, "flop": nflop}
         del forwards
+        # row 4 bf16's phases (the stamps of its instrumented copy, which
+        # computes the same bits), serving at B=256 and keep at B=1024
+        split_copy = spatial_split_source(FS._SOURCE, bf16=True)
+        frames = FS.kernel_tiles(PF_JOINTS, PF_EMB, PF_HEADS, 2 * PF_EMB,
+                                 element_size=2)[0]
+        split, stamped = spatial_phase_split(
+            *split_copy, xs, ws, PF_HEADS, frames, False,
+            times["row4_bf16"]["ms"])
+        if not torch.equal(stamped, FS.fused_spatial_stack_cuda(xs, ws,
+                                                                PF_HEADS)):
+            raise AssertionError("row 4 bf16's instrumented copy computes "
+                                 "other bits than the kernel")
+        times["row4_bf16"]["phase_split"] = split
     # the backwards at B=1024, L=16, from their training forwards' residuals
     xs = bf16_randn(rng, (BATCH * CLIP, PF_JOINTS, PF_EMB))
+    with torch.no_grad():
+        # row 4 bf16's training forward at B=1024 (the residuals written
+        # in float32): its time, bound and phases
+        keep = {"ms": cuda_median_ms(lambda: FS.fused_spatial_stack_cuda(
+            xs, ws, PF_HEADS, keep=True), flush=flush_l2)}
+        saved_bytes = sum(4 * int(np.prod(shape)) for shape in
+                          FS.saved_shapes(PF_DEPTH, xs.shape[0] * PF_JOINTS,
+                                          PF_EMB, 2 * PF_EMB))
+        keep.update(bytes=2 * nbytes(xs) + nbytes(*ws) + saved_bytes,
+                    flop=sum(spatial_flops(xs.shape[0], F)))
+        t_bytes, t_flop = keep["bytes"] / hbm_rate, keep["flop"] / BF16_PEAK
+        keep.update(bound_ms=max(t_bytes, t_flop) * 1e3,
+                    bound_by="bytes" if t_bytes >= t_flop else "operations")
+        keep["phase_split"] = spatial_phase_split(
+            *split_copy, xs, ws, PF_HEADS, frames, True, keep["ms"])[0]
+        times["row4_bf16"]["keep_B1024"] = keep
     xt = bf16_randn(rng, (BATCH * (CLIP - PF_RF + 1), PF_RF, PF_DIM))
     gs, gt = bf16_randn(rng, tuple(xs.shape)), bf16_randn(rng, tuple(xt.shape))
     with torch.no_grad():
@@ -5789,6 +5963,8 @@ def phase_timing_bf16(card, hbm_rate):
                        "bytes": nb, "flop": nflop}
     times["row9_bf16"]["launch_split"] = launch_split(
         backwards["row9_bf16"][0], ROW9_STEPS)
+    times["row5_bf16"]["launch_split"] = launch_split(
+        backwards["row5_bf16"][0], ROW5_STEPS)
     xt = bf16_randn(rng, (PF_BATCH * (CLIP - PF_RF + 1), PF_RF, PF_DIM))
     with torch.no_grad():
         times["row8_bf16"]["launch_split"] = launch_split(
@@ -5806,9 +5982,15 @@ def phase_timing_bf16(card, hbm_rate):
         dense_flop=dense_s, attention_flop=attn_s,
         bound_ms_by_unit=max(times["row4_bf16"]["bytes"] / hbm_rate,
                              dense_s / BF16_PEAK + attn_s / FP32_PEAK) * 1e3)
-    times["row5_bf16"]["bound_ms_fp32_cores"] = max(
-        times["row5_bf16"]["bytes"] / hbm_rate,
-        times["row5_bf16"]["flop"] / FP32_PEAK) * 1e3
+    # row 5 bf16's products run as fp32-accurate 3xTF32 tensor-core tiles,
+    # as the JAX kernel's backward dots are fp32: its bound at that rate
+    t5 = times["row5_bf16"]
+    t_bytes, t_flop = t5["bytes"] / hbm_rate, t5["flop"] / TF32X3_PEAK
+    t5.update(bound_ms=max(t_bytes, t_flop) * 1e3,
+              bound_by="bytes" if t_bytes >= t_flop else "operations",
+              bound_ms_operations_3xtf32=t_flop * 1e3,
+              bound_ms_bytes=t_bytes * 1e3,
+              bound_ms_fp32_cores=max(t_bytes, t5["flop"] / FP32_PEAK) * 1e3)
     emit({"phase": "timing_bf16", "card": card, "kernels": times,
           "method": "bf16 kernels, their bf16 plain versions and bf16 "
                     "TransformerEncoderLayer yardsticks (norm_first, GELU, "
@@ -5816,9 +5998,11 @@ def phase_timing_bf16(card, hbm_rate):
                     "after 3 warm-up calls, cold = 256 MB scratch write "
                     "before each call; pairs: kernel and library "
                     "alternating, cold, %d each; bounds: ops/flops.py's "
-                    "FLOPs at %.0f TFLOP/s against each input read and "
-                    "each output written once at its element size"
-                    % (TIMING_RUNS, TIMING_PAIRS, BF16_PEAK / 1e12)})
+                    "FLOPs at %.0f TFLOP/s (row 5: at 3xTF32's %.0f, the "
+                    "rate of its fp32-accurate products) against each "
+                    "input read and each output written once at its "
+                    "element size" % (TIMING_RUNS, TIMING_PAIRS,
+                                      BF16_PEAK / 1e12, TF32X3_PEAK / 1e12)})
     return times
 
 

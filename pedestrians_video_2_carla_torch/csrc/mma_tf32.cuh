@@ -1,5 +1,6 @@
 // The pieces of the 3xTF32 tensor-core products and their cp.async rings,
-// shared by fused_temporal_transformer.cu and fused_graph_gru.cu.
+// shared by fused_temporal_transformer.cu, fused_graph_gru.cu and
+// fused_spatial_transformer.cu (which also takes mma_bf16, at the end).
 //
 // An fp32 operand is split into a TF32 value and a TF32 remainder, and
 // a b = a_small b_big + a_big b_small + a_big b_big (3xTF32), which keeps
@@ -108,4 +109,18 @@ __device__ __forceinline__ void mma_3xtf32(float* d, const unsigned* ab,
   mma_tf32(t, ab, bb);
 #pragma unroll
   for (int c = 0; c < 4; ++c) d[c] += t[c];
+}
+
+// d += a b on one 16 x 8 x 16 tile in the tensor cores, bf16 inputs and an
+// fp32 sum; in the fragment layout of the PTX ISA's mma.m16n8k16 (g = lane
+// / 4, t = lane % 4; each register two bf16 neighbours along k, the lower k
+// in the low half): a = A[g][2t..], A[g + 8][2t..], A[g][2t + 8..], A[g +
+// 8][2t + 8..]; b = B[2t..][g], B[2t + 8..][g]; d as mma_tf32's.
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
+                                         const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }

@@ -988,9 +988,19 @@ def test_bf16_scan_kernels_match_their_plain_versions(cuda_device, cell):
                       KERNEL_OUT_BAR, cell)
 
 
+#: the spatial bf16 backward against its plain algorithm in float32 from
+#: the same residuals: one bf16 rounding of fp32-accurate results
+SPATIAL_BWD_BAR = 2.0 ** -8
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["spatial", "temporal"])
 def test_bf16_kernels_match_their_plain_versions(cuda_device, kind):
+    """The bf16 kernels through autograd against the bf16 plain versions;
+    the spatial backward's dx and weight gradients also within 2^-8 of
+    max |plain| of its plain algorithm in float32
+    (``spatial_stack_bwd_reference``) from the kernel forward's
+    residuals: its products stayed fp32-accurate."""
     x, weights, g, _, _, _ = _kernel_case(kind)
     fn = (lambda x, w: FS.fused_spatial_stack(x, w, SH)) \
         if kind == "spatial" else \
@@ -1005,6 +1015,19 @@ def test_bf16_kernels_match_their_plain_versions(cuda_device, kind):
                 out, leaves, _t(g).to(torch.bfloat16).to(device))])
     for got, ref in zip(grads[1], grads[0]):
         _assert_close(got.numpy(), ref.numpy(), KERNEL_GRAD_BAR, kind)
+    if kind != "spatial":
+        return
+    xc = _t(x).to(torch.bfloat16).to(cuda_device)
+    gc = _t(g).to(torch.bfloat16).to(cuda_device)
+    wc = [w.to(cuda_device) for w in weights]
+    with torch.no_grad():
+        _, saved = FS.fused_spatial_stack_cuda(xc, wc, SH, keep=True)
+        dx, dws = FS.fused_spatial_stack_cuda_bwd(xc, wc, saved, gc, SH)
+        exact = FS.spatial_stack_bwd_reference(xc, wc, saved, gc, SH)
+    for got, want in zip((dx, *dws), (exact[0], *exact[1])):
+        want = want.cpu().numpy()
+        err = np.abs(got.float().cpu().numpy() - want).max()
+        assert err <= SPATIAL_BWD_BAR * np.abs(want).max(), err
 
 
 #: (n, T, D, heads, hidden) whose M = n T and N leave partial tiles of the

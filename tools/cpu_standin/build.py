@@ -73,6 +73,10 @@ def rewrite_launches(text):
 def prepare(text, smem_limit=None):
     text = re.sub(r"extern __shared__ __align__\(16\) float (\w+)\[\];",
                   r"float* \1 = standin_smem();", text)
+    text = re.sub(
+        r"extern __shared__ __align__\(16\) unsigned char (\w+)\[\];",
+        r"unsigned char* \1 = reinterpret_cast<unsigned char*>("
+        r"standin_smem());", text)
     if smem_limit is not None:
         text = re.sub(r"(constexpr int kMaxSmemBytes = )\d+;",
                       rf"\g<1>{smem_limit};", text)

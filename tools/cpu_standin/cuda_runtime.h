@@ -20,6 +20,9 @@
 #define __restrict__
 #define __launch_bounds__(...)
 #define __align__(n) alignas(n)
+// a kernel's static shared array: one per kernel, which the threads of a
+// block share (blocks run one after another)
+#define __shared__ static
 
 struct dim3 {
   unsigned x, y, z;
@@ -44,8 +47,10 @@ struct StandinBlock {
   std::barrier<>* bar;
   std::vector<std::unique_ptr<std::barrier<>>> warps;
   std::vector<float> smem;
-  // mma exchange: per warp, 32 lanes x (4 a + 2 b)
+  // mma exchange: per warp, 32 lanes x (4 a + 2 b); shuffle exchange: per
+  // warp, 32 lanes
   std::vector<unsigned> xa, xb;
+  std::vector<float> xf;
 };
 inline thread_local StandinBlock* standin_block = nullptr;
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
@@ -60,6 +65,16 @@ inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); retu
 inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __expf(float x) { return std::exp(x); }
+inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
+inline float __shfl_xor_sync(unsigned, float v, int mask) {
+  float* x = &standin_block->xf[(threadIdx.x / 32) * 32];
+  const unsigned lane = threadIdx.x % 32;
+  x[lane] = v;
+  __syncwarp();
+  const float r = x[lane ^ mask];
+  __syncwarp();
+  return r;
+}
 inline float __fdividef(float a, float b) { return a / b; }
 using std::min;
 using std::max;
@@ -75,6 +90,12 @@ inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
 template <class K>
 inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <class K>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* n, K, int, size_t) {
+  *n = 2;
+  return cudaSuccess;
+}
 inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   std::memset(p, v, n);
   return cudaSuccess;
@@ -95,6 +116,7 @@ inline void standin_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t,
         blk.smem.assign(smem / 4 + 16, std::nanf(""));
         blk.xa.assign(((n + 31) / 32) * 32 * 4, 0);
         blk.xb.assign(((n + 31) / 32) * 32 * 2, 0);
+        blk.xf.assign(((n + 31) / 32) * 32, 0.f);
         std::vector<std::thread> ts;
         for (unsigned t = 0; t < n; ++t)
           ts.emplace_back([&, t] {

@@ -71,3 +71,37 @@ inline void mma_3xtf32(float* d, const unsigned* ab, const unsigned* as,
   mma_tf32(t, ab, bb);
   for (int c = 0; c < 4; ++c) d[c] += t[c];
 }
+
+// m16n8k16 with bf16 inputs (two a register, the lower k in the low half):
+// the same exchange.
+inline float standin_bf16(unsigned r, int half) {
+  return __uint_as_float(((r >> (16 * half)) & 0xffffu) << 16);
+}
+
+inline void mma_bf16(float* d, const unsigned* a, const unsigned* b) {
+  StandinBlock* blk = standin_block;
+  const unsigned lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  unsigned* xa = &blk->xa[w * 32 * 4];
+  unsigned* xb = &blk->xb[w * 32 * 2];
+  for (int e = 0; e < 4; ++e) xa[lane * 4 + e] = a[e];
+  xb[lane * 2] = b[0];
+  xb[lane * 2 + 1] = b[1];
+  __syncwarp();
+  const auto A = [&](int m, int k) {
+    return standin_bf16(
+        xa[((m % 8) * 4 + (k % 8) / 2) * 4 + m / 8 + 2 * (k / 8)], k % 2);
+  };
+  const auto B = [&](int k, int n) {
+    return standin_bf16(xb[(n * 4 + (k % 8) / 2) * 2 + k / 8], k % 2);
+  };
+  const int g = lane / 4, t = lane % 4;
+  float out[4];
+  for (int c = 0; c < 4; ++c) {
+    const int m = g + 8 * (c / 2), n = 2 * t + (c % 2);
+    double s = 0;
+    for (int k = 0; k < 16; ++k) s += double(A(m, k)) * double(B(k, n));
+    out[c] = float(s);
+  }
+  __syncwarp();
+  for (int c = 0; c < 4; ++c) d[c] += out[c];
+}
