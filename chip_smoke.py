@@ -6186,15 +6186,26 @@ SCAN_BF16_ROWS = {"row10_bf16": "graph_gru_scan",
                   "row12_bf16_dense": "dense_lstm_scan",
                   "row13_bf16_dense": "dense_lstm_scan_bwd"}
 #: the bf16 scan kernels' checks (B, L, J, H, k): config 3's layer, ragged
-#: B, odd widths (H=3 at k=3; H=233 at k=3, the graph-form LSTM's reverse
-#: scan on its 64-column ring), the GRU's 128-column ring (H=320: z parked
-#: in its float32 scratch), the LSTM's few-rows tiling (J=1, H=128) and,
-#: forward alone, its narrow tiling (H=420, k=3: h read back from bf16 ys)
+#: B, odd widths (H=3 at k=3), the GRU's 128-column ring (H=320: z parked
+#: in its float32 scratch). The graph-form LSTM's bf16 kernels at every
+#: kind of launch plan (graph_lstm_bf16_plan): GConvLSTM's layer and ragged
+#: B (the forward's weight resident over clusters of two, a partial last
+#: cluster; the backward's streamed, m16 pairs), H=3 at k=3 (resident in one
+#: thread block, m16 pairs), H=233 at k=3 (both streamed, odd H: ordinary
+#: loads), J=1 at H=128 (resident, one m16 tile) and H=256 (streamed, one
+#: m16 tile), and, forward alone, H=420 at k=3 (streamed, 7 passes)
 GRU_BF16_SHAPES = (CLS_MAIN, (253, CLIP, CLS_J, CLS_H, CLS_K),
                    (CLS_BATCH, CLIP, CLS_J, 3, 3), (64, CLIP, CLS_J, 320, 2))
-LSTM_BF16_SHAPES = (CLS_MAIN, (CLS_BATCH, CLIP, CLS_J, 3, 3),
-                    (64, CLIP, CLS_J, 233, 3), CLS_WIDE)
+LSTM_BF16_SHAPES = (CLS_MAIN, (253, CLIP, CLS_J, CLS_H, CLS_K),
+                    (CLS_BATCH, CLIP, CLS_J, 3, 3),
+                    (64, CLIP, CLS_J, 233, 3), CLS_WIDE,
+                    (CLS_BATCH, CLIP, 1, 256, 1))
 LSTM_BF16_FORWARD_SHAPES = ((16, CLIP, CLS_J, 420, 3),)
+#: the kinds of launch plan those shapes must take, (pass, thread blocks a
+#: cluster, weight resident, m16 tiles of an item's rows)
+LSTM_BF16_PLAN_KINDS = {("fwd", 2, 1, 2), ("fwd", 1, 1, 2), ("fwd", 1, 1, 1),
+                        ("fwd", 1, 0, 2), ("fwd", 1, 0, 1), ("bwd", 1, 1, 2),
+                        ("bwd", 1, 1, 1), ("bwd", 1, 0, 2), ("bwd", 1, 0, 1)}
 #: the dense kernels in bf16: config 2's layer, ragged B, H=36 (4-byte
 #: staging copies) and H=3 (odd: ordinary loads)
 DENSE_BF16_SHAPES = (CLS_DENSE, (253, CLIP, 1, 64, 1),
@@ -6257,12 +6268,17 @@ def phase_kernel_scan_bf16():
             check_scan_outputs(report, worst, "row11_bf16", what,
                                ("dxg", "dwzr", "dwh"), got, again, ref)
             del res, again, ref, got
+        kinds = set()
         for shape in LSTM_BF16_SHAPES + LSTM_BF16_FORWARD_SHAPES:
             xg, cheb, (w,), cots = bf16_graph_case(rng, "lstm", shape)
             what = "x".join(map(str, shape))
-            plans[f"lstm {what}"] = [FG.graph_lstm_plan(shape[0], shape[2],
-                                                        shape[3], shape[4], b)
-                                     for b in (False, True)]
+            B, _, J, H, k = shape
+            plans[f"lstm bf16 {what}"] = [
+                FG.graph_lstm_bf16_plan(B, J, H, k, b) for b in (False, True)]
+            for p, plan in zip(("fwd", "bwd"), plans[f"lstm bf16 {what}"]):
+                if plan[0] and (p == "fwd"
+                                or shape not in LSTM_BF16_FORWARD_SHAPES):
+                    kinds.add((p, plan[1], plan[2], plan[4]))
             ys, cs, res = FG.graph_lstm_scan_cuda_fwd(xg, cheb, w, keep=True)
             again = FG.graph_lstm_scan_cuda_fwd(xg, cheb, w, keep=True)
             ref = FG.graph_lstm_scan_keep_reference(xg, cheb, w)
@@ -6276,8 +6292,20 @@ def phase_kernel_scan_bf16():
             bf16_check(report, vs_fp32, "row12_bf16", f"{what} vs fp32 kernel",
                        ys, FG.graph_lstm_scan_cuda_fwd(*fp32(xg, cheb, w))[0],
                        bar=BF16_VS_FP32)
+            # a stacked weight's transpose, read in place: the same bits
+            wt = w.t().contiguous().t()
+            if not all(torch.equal(a, b) for a, b in zip(
+                    FG.graph_lstm_scan_cuda_fwd(xg, cheb, wt, keep=True)[:2],
+                    (ys, cs))):
+                raise AssertionError(f"row 12 bf16 at {shape}: a transposed "
+                                     f"weight gives other bits")
             if shape in LSTM_BF16_FORWARD_SHAPES:
                 continue
+            if not all(torch.equal(a, b) for a, b in zip(
+                    FG.graph_lstm_scan_cuda_bwd(cheb, wt, res, cs, *cots),
+                    FG.graph_lstm_scan_cuda_bwd(cheb, w, res, cs, *cots))):
+                raise AssertionError(f"row 13 bf16 at {shape}: a transposed "
+                                     f"weight gives other bits")
             for dcs in (cots[1], None):
                 got = FG.graph_lstm_scan_cuda_bwd(cheb, w, res, cs, cots[0],
                                                   dcs)
@@ -6321,6 +6349,9 @@ def phase_kernel_scan_bf16():
                     report, worst, "row13_bf16_dense",
                     what + (" with dcs" if dcs is not None else ""),
                     ("dxg", "dw"), got, again, ref)
+        if kinds != LSTM_BF16_PLAN_KINDS:
+            raise AssertionError(f"bf16 LSTM plans taken {sorted(kinds)}, "
+                                 f"want {sorted(LSTM_BF16_PLAN_KINDS)}")
     torch.cuda.synchronize()
     emit({"phase": "kernel_scan_bf16", "bar": BF16_BAR,
           "bar_vs_fp32_kernel": BF16_VS_FP32, "checks": report,
@@ -6334,8 +6365,40 @@ def phase_kernel_scan_bf16():
                        for k, v in report.items()
                        if k.startswith(row + " ") and "vs fp32" in k)
               for row in ("row10_bf16", "row12_bf16", "row12_bf16_dense")},
-          "plans": plans})
+          "plans": plans, "lstm_bf16_sass": lstm_bf16_sass()})
     return worst
+
+
+def lstm_bf16_sass():
+    """That rows 12 and 13 in bf16 run on their own kernels and Hopper's
+    bf16 tensor cores: the graph-scan library holds the bf16 LSTM kernels'
+    entries (lstm_bf16_fwd_kernel, lstm_bf16_bwd_kernel,
+    lstm_bf16_dw_kernel), no entry of the float32 template's LSTM kernels
+    on bf16, and, where the toolkit has cuobjdump, bf16 HMMA
+    (HMMA.16816.F32.BF16) in each bf16 LSTM entry and no TF32 HMMA but in
+    the reverse scan's transposed graph. Raises otherwise."""
+    from pedestrians_video_2_carla_torch.ops import cuda_build
+    from pedestrians_video_2_carla_torch.ops import fused_graph_gru as FG
+
+    library = cuda_build.library_path(FG._SOURCE)
+    log = library.with_suffix(".log").read_text()
+    entries = re.findall(r"Compiling entry function '(\w+)'", log)
+    new = [e for e in entries if "lstm_bf16_" in e]
+    old_bf16 = [e for e in entries if "lstm_scan_" in e and "bfloat16" in e]
+    if len(new) != 14 or old_bf16:
+        raise AssertionError(f"bf16 LSTM entries {new}, float32 template's "
+                             f"on bf16 {old_bf16}")
+    sass = sass_of(library)
+    if sass is None:
+        return {"bf16_lstm_entries": len(new), "hmma": "no cuobjdump"}
+    bf = count_sass(sass, new, "HMMA.16816.F32.BF16")
+    tf = count_sass(sass, new, ".TF32")
+    if sorted(bf) != sorted(new) or any(v for k, v in tf.items()
+                                        if "bwd" not in k):
+        raise AssertionError(f"bf16 LSTM entries' HMMA: bf16 {bf}, TF32 {tf}")
+    return {"bf16_lstm_entries": len(new),
+            "bf16_hmma_per_entry": sorted(bf.values()),
+            "tf32_hmma_backward_graph": sorted(tf.values())}
 
 
 def phase_timing_scan_bf16(card, hbm_rate):
@@ -6610,6 +6673,17 @@ def phase_coverage_bf16(card):
         for k in launches:
             launches[k] += b16[k]
         out[name] = {"losses": losses, "launches": expected}
+    # GConvLSTM's training step in bf16 (rows 12 and 13 bf16's kernels)
+    # beside fp32's from the same weights, alternating (host clock)
+    flows = {p: make_cls_flow(precision=p, name="GConvLSTM")
+             for p in ("bf16", "32")}
+    params = flows["32"].init_params()
+    states = {p: f.init_state(params) for p, f in flows.items()}
+    batch = next(dm.train_batches(SEED + 7))
+    out["gconv_lstm"]["train_step_ms_host_pairs"] = paired_host_ms(
+        {"bf16": lambda: flows["bf16"].training_step(states["bf16"], batch),
+         "fp32": lambda: flows["32"].training_step(states["32"], batch)})
+    del flows, states, batch
 
     # a bf16 GConvGRU exported and served: the closure's bits, the bf16
     # kernel launched

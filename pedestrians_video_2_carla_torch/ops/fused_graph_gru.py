@@ -35,12 +35,16 @@ Routes on the card:
   It reads the weight as given or as the transpose of a contiguous (4H, H)
   tensor (a stacked ``nn.Linear`` weight), without a copy.
 - the LSTM otherwise (the graph form: k >= 2, or wider H):
-  ``csrc/fused_graph_gru.cu``'s LSTM kernels, on the GRU's tensor-core
-  design (3xTF32 products, the caller's weight read in place); its training
-  forward (``keep``) writes the residuals its backward reads
-  (:class:`LSTMResiduals`): the activated gates and the expanded operand of
-  every frame. At k = 1 a stacked weight's transpose is copied once per
-  call (``w.contiguous()``; H x 4H floats).
+  ``csrc/fused_graph_gru.cu``'s LSTM kernels, in float32 on the GRU's
+  tensor-core design (3xTF32 products, the caller's weight read in place;
+  at k = 1 a stacked weight's transpose is copied once per call,
+  ``w.contiguous()``), in bf16 on kernels of their own (bf16 tensor-core
+  products, the weight held in shared memory across frames where it fits,
+  split over a cluster of two thread blocks at GConvLSTM's layer, read in
+  place as given or as a stacked weight's transpose:
+  :func:`graph_lstm_bf16_plan`); its training forward (``keep``) writes
+  the residuals its backward reads (:class:`LSTMResiduals`): the activated
+  gates and the expanded operand of every frame.
 The route is chosen from the shape before any launch, never because a
 launch failed.
 
@@ -50,10 +54,13 @@ inputs: in bf16 the products' operands are rounded to bf16 where the JAX
 kernels round one (the carry, r h, the backward's cotangents da) and the
 graph terms (T_n h, and the transposed products' outputs P_n that the
 graph applies to, which the JAX kernels' other order does not form) to
-TF32, so that one TF32 product is exact; the sums, the carries and the
+TF32, so that one TF32 product is exact, but the LSTM forward's T_n h,
+which its bf16 kernel takes as two bf16 parts (hi + lo, 16 significant
+bits: :func:`~.tensors.round_bf16x2`); the sums, the carries and the
 gating stay float32. The kernels store ys, cs, dxg and the weight
 gradients in bf16, the kept gates and expanded operands sa / sb in
-float32. The plain versions round where the kernels round
+float32 (the LSTM's sa with its graph columns rounded to TF32, which dW's
+one TF32 pass reads exactly). The plain versions round where the kernels round
 (:func:`~.tensors.round_bf16`, :func:`~.tensors.round_tf32`,
 straight-through, on float32 arithmetic), so that both give the same
 values up to the order of float32 sums; autograd of a bf16 plain version
@@ -76,7 +83,7 @@ import torch
 
 from . import cuda_build
 from .cuda_build import INT as _INT, PTR as _PTR
-from .tensors import round_bf16, round_tf32
+from .tensors import round_bf16, round_bf16x2, round_tf32
 
 _SOURCE = cuda_build.CSRC / "fused_graph_gru.cu"
 _DENSE_SOURCE = cuda_build.CSRC / "fused_dense_lstm.cu"
@@ -90,8 +97,11 @@ _SIGNATURES = {
     "pv2c_graph_lstm_plan": [_INT] * 5 + [_PTR],
     "pv2c_graph_gru_scan_fwd_bf16": [_PTR] * 9 + [_INT] * 5 + [_PTR],
     "pv2c_graph_gru_scan_bwd_bf16": [_PTR] * 11 + [_INT] * 5 + [_PTR],
-    "pv2c_graph_lstm_scan_fwd_bf16": [_PTR] * 7 + [_INT] * 5 + [_PTR],
-    "pv2c_graph_lstm_scan_bwd_bf16": [_PTR] * 10 + [_INT] * 5 + [_PTR],
+    "pv2c_graph_lstm_scan_fwd_bf16": [_PTR] * 3 + [_INT] + [_PTR] * 4
+    + [_INT] * 5 + [_PTR],
+    "pv2c_graph_lstm_scan_bwd_bf16": [_PTR] * 2 + [_INT] + [_PTR] * 8
+    + [_INT] * 5 + [_PTR],
+    "pv2c_graph_lstm_bf16_plan": [_INT] * 5 + [_PTR],
 }
 _DENSE_SIGNATURES = {
     "pv2c_dense_lstm_plan": [_INT] * 4 + [_PTR],
@@ -385,11 +395,13 @@ def graph_lstm_scan_keep_reference(xg: torch.Tensor, cheb: torch.Tensor,
     the expanded operand and the weight as the kernels read it, ``w
     .reshape(k H, 4H)`` -> ``(ys, cs, LSTMResiduals)``. In bf16
     (:func:`_arithmetic`) h and c stay float32, the expanded operand is
-    rounded, and ys and cs are returned in bf16, the gates and sa in
-    float32."""
+    rounded (h to bf16, each graph term to two bf16 parts), ys and cs are
+    returned in bf16, the gates and sa in float32, sa's graph columns
+    rounded to TF32."""
     L, B, J, H, k = _check_scan(xg, cheb, (("w", w, 4),), LSTM_GATES)
     dtype = xg.dtype
-    widen, operand, term = _arithmetic(dtype)
+    widen, operand, kept_term = _arithmetic(dtype)
+    term = round_bf16x2 if dtype == torch.bfloat16 else _same
     xg, cheb, w = widen(xg), widen(cheb), widen(w)
     w_v = w.reshape(k * H, 4 * H)
     h = xg.new_zeros((B, J, H))
@@ -406,7 +418,9 @@ def graph_lstm_scan_keep_reference(xg: torch.Tensor, cheb: torch.Tensor,
         ys.append(h)
         cs.append(c)
         gates.append(torch.cat([i, f, g, o], dim=-1))
-        sa.append(a)
+        sa.append(torch.cat([a.unflatten(-1, (H, k))[..., :1],
+                             kept_term(a.unflatten(-1, (H, k))[..., 1:])],
+                            dim=-1).flatten(-2))
     return torch.stack(ys).to(dtype), torch.stack(cs).to(dtype), \
         LSTMResiduals(torch.stack(gates),
                       torch.stack(sa).reshape(L * B * J, k * H))
@@ -648,33 +662,146 @@ def graph_lstm_plan(B: int, J: int, H: int, k: int, backward: bool = False,
                       _device_index(device))
 
 
+def graph_lstm_bf16_plan(B: int, J: int, H: int, k: int,
+                         backward: bool = False, device=None
+                         ) -> Tuple[int, ...]:
+    """How the bf16 graph-form LSTM kernels launch at this shape on a CUDA
+    device: (clips a cluster, thread blocks a cluster (1, or 2 where the
+    forward splits the weight's units over a cluster), 1 where the weight
+    stays in shared memory across frames and 0 where it streams, units a
+    pass (backward: weight rows a pass), m16 tiles of an item's rows,
+    shared memory bytes, thread blocks), zeros where one clip does not fit
+    (the launch then raises). :func:`lstm_bf16_plan` is its copy."""
+    return _scan_plan("pv2c_graph_lstm_bf16_plan", 7, B, J, H, k,
+                      bool(backward), _device_index(device))
+
+
+#: the bf16 LSTM kernels' constants (csrc/fused_graph_gru.cu): a thread
+#: block's shared memory, its warps, a warp's items where their sums live
+#: across weight tiles, a streamed weight tile's depth and the ring's
+#: tiles, a bf16 row's padding
+BF16_LSTM_SMEM, BF16_LSTM_WARPS, BF16_LSTM_ITEMS = 232448, 16, 2
+BF16_LSTM_KT, BF16_LSTM_STAGES, BF16_LSTM_PAD = 64, 2, 8
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def bf16_lstm_bytes(C: int, J: int, H: int, k: int, backward: bool,
+                    resident: bool, up: int) -> int:
+    """Shared memory of a bf16 LSTM kernel (the source's LstmBf16Fwd and
+    LstmBf16Bwd): C clips a thread block, the weight resident or streamed,
+    ``up`` units a pass (backward: weight rows a pass)."""
+    R, Hp, pad = C * J, _round_up(H, 16), BF16_LSTM_PAD
+    if not backward:
+        lda, ldw = (2 * k - 1) * Hp + pad, 4 * _round_up(up, 8) + pad
+        Jp = _round_up(J, 16)
+        return (2 * R * lda
+                + 2 * (k * Hp if resident
+                       else BF16_LSTM_STAGES * BF16_LSTM_KT) * ldw
+                + 2 * (k - 1) * Jp * (Jp + pad)
+                + (0 if resident else 4 * R * H))
+    C4, Jm = _round_up(4 * H, 16), _round_up(J, 16)
+    ldp = _round_up(k * H, 32) + 4
+    t = _round_up(4 * R * ldp + 4 * R * H, 16)
+    w = _round_up(t + 4 * (k - 1) * Jm * (Jm + 4), 16)
+    ldw = C4 + pad if resident else BF16_LSTM_KT + pad
+    rows = _round_up(k * Hp, 32) if resident else BF16_LSTM_STAGES * up
+    return w + 2 * rows * ldw + 2 * R * (C4 + pad)
+
+
+def lstm_bf16_plan(B: int, J: int, H: int, k: int, backward: bool, sms: int,
+                   clusters: int) -> Tuple[int, ...]:
+    """The bf16 LSTM kernels' launch plan as the source computes it
+    (``plan_lstm_bf16``) for a card of ``sms`` SMs running ``clusters``
+    clusters of two at once: :func:`graph_lstm_bf16_plan`'s seven numbers.
+    The forward holds the weight in one thread block where it fits, else
+    over a cluster of two (H a multiple of 16), else streams it; the
+    backward holds it where it fits, else streams it."""
+    most = BF16_LSTM_WARPS * BF16_LSTM_ITEMS
+
+    def mi(C):
+        return 2 if C * J > 16 else 1
+
+    def groups(C):
+        return -(-C * J // (16 * mi(C)))
+
+    def plan(C, ns, res, up):
+        nbytes = bf16_lstm_bytes(C, J, H, k, backward, res, up)
+        return (C, ns, int(res), up, mi(C), nbytes, -(-B // C) * ns)
+    C1 = max(1, -(-B // sms))
+    if backward:
+        KB = _round_up(k * _round_up(H, 16), 32)
+        if bf16_lstm_bytes(C1, J, H, k, True, True, 0) <= BF16_LSTM_SMEM:
+            return plan(C1, 1, True, KB)
+        for C in range(C1, 0, -1):
+            for nt in range(min(KB, 32 * (most // groups(C))), 0, -32):
+                if bf16_lstm_bytes(C, J, H, k, True, False, nt) \
+                        <= BF16_LSTM_SMEM:
+                    return plan(C, 1, False, nt)
+        return (0,) * 7
+    if groups(C1) * -(-H // 8) <= most and \
+            bf16_lstm_bytes(C1, J, H, k, False, True, H) <= BF16_LSTM_SMEM:
+        return plan(C1, 1, True, H)
+    if H % 16 == 0 and clusters > 0:
+        C = max(1, -(-B // clusters))
+        if groups(C) * (H // 16) <= most and bf16_lstm_bytes(
+                C, J, H, k, False, True, H // 2) <= BF16_LSTM_SMEM:
+            return plan(C, 2, True, H // 2)
+    for C in range(C1, 0, -1):
+        for up in range(min(_round_up(H, 8), 8 * (most // groups(C))), 0,
+                        -8):
+            if bf16_lstm_bytes(C, J, H, k, False, False, up) \
+                    <= BF16_LSTM_SMEM:
+                return plan(C, 1, False, up)
+    return (0,) * 7
+
+
+def _lstm_weight(fn_name: str, w: torch.Tensor, bf16: bool) -> int:
+    """How the graph-form kernels read w: 0 as given (contiguous); in bf16
+    also 1, the transpose of a contiguous (k 4H, H) tensor, read in
+    place. Anything else raises."""
+    if bf16:
+        return _weight_transposed(fn_name, w)
+    if not w.is_contiguous():
+        raise ValueError(f"{fn_name}: w must be contiguous")
+    return 0
+
+
 def graph_lstm_scan_cuda_fwd(xg: torch.Tensor, cheb: torch.Tensor,
                              w: torch.Tensor, keep: bool = False):
-    """Launch the graph-form LSTM scan on float32 or bf16 contiguous CUDA
-    tensors -> ``(ys, cs)``, each (L, B, J, H) in xg's dtype; with
-    ``keep``, ``(ys, cs, LSTMResiduals)`` for
+    """Launch the graph-form LSTM scan on float32 or bf16 CUDA tensors (w
+    contiguous or, in bf16, the transpose of a contiguous (k 4H, H); the
+    others contiguous) -> ``(ys, cs)``, each (L, B, J, H) in xg's dtype;
+    with ``keep``, ``(ys, cs, LSTMResiduals)`` for
     :func:`graph_lstm_scan_cuda_bwd` (the gates and sa float32). Adds one
     to ``graph_lstm_scan_cuda_fwd.launches`` per call (and, for bf16, to
     ``.bf16_launches``)."""
     L, B, J, H, k = _check_scan(xg, cheb, (("w", w, 4),), LSTM_GATES)
+    bf16 = xg.dtype == torch.bfloat16
+    wt = _lstm_weight("graph_lstm_scan_cuda_fwd", w, bf16)
     device = cuda_build.check_cuda_tensors(
         "graph_lstm_scan_cuda_fwd", dtypes=(xg.dtype,), xg=xg, cheb=cheb,
-        w=w)
-    bf16 = xg.dtype == torch.bfloat16
+        w=w.t() if wt else w)
     empty = functools.partial(torch.empty, dtype=xg.dtype, device=device)
     ys, cs = empty((L, B, J, H)), empty((L, B, J, H))
     res = LSTMResiduals(_float32(device)((L, B, J, 4 * H)),
                         _float32(device)((L * B * J, k * H))) if keep else None
     if ys.numel():
         lib = _library()
-        entry = lib.pv2c_graph_lstm_scan_fwd_bf16 if bf16 \
-            else lib.pv2c_graph_lstm_scan_fwd
+        kept = (t.data_ptr() for t in res) if keep else (None,) * 2
         with torch.cuda.device(device):
-            err = entry(
-                xg.data_ptr(), cheb.data_ptr(), w.data_ptr(), ys.data_ptr(),
-                cs.data_ptr(),
-                *((t.data_ptr() for t in res) if keep else (None,) * 2),
-                L, B, J, H, k, _stream(device))
+            if bf16:
+                err = lib.pv2c_graph_lstm_scan_fwd_bf16(
+                    xg.data_ptr(), cheb.data_ptr(), w.data_ptr(), wt,
+                    ys.data_ptr(), cs.data_ptr(), *kept, L, B, J, H, k,
+                    _stream(device))
+            else:
+                err = lib.pv2c_graph_lstm_scan_fwd(
+                    xg.data_ptr(), cheb.data_ptr(), w.data_ptr(),
+                    ys.data_ptr(), cs.data_ptr(), *kept, L, B, J, H, k,
+                    _stream(device))
         cuda_build.check_launch(err, "pv2c_graph_lstm_scan_fwd")
         graph_lstm_scan_cuda_fwd.launches += 1
         graph_lstm_scan_cuda_fwd.bf16_launches += bf16
@@ -690,12 +817,13 @@ def graph_lstm_scan_cuda_bwd(cheb: torch.Tensor, w: torch.Tensor,
                              dcs: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the graph-form LSTM scan's backward on float32 or bf16
-    contiguous CUDA tensors: the graph matrices, the weight, the residuals
-    of ``graph_lstm_scan_cuda_fwd(..., keep=True)``, its cell states cs,
-    the cotangent dys and, where the caller used cs, its cotangent dcs ->
-    ``(dxg, dw)``, each in its primal's shape and dys's dtype. Adds one to
-    ``graph_lstm_scan_cuda_bwd.launches`` per call (and, for bf16, to
-    ``.bf16_launches``)."""
+    contiguous CUDA tensors (w as :func:`graph_lstm_scan_cuda_fwd` takes
+    it): the graph matrices, the weight, the residuals of
+    ``graph_lstm_scan_cuda_fwd(..., keep=True)``, its cell states cs, the
+    cotangent dys and, where the caller used cs, its cotangent dcs ->
+    ``(dxg, dw)``, each in its primal's shape and dys's dtype (dw
+    contiguous). Adds one to ``graph_lstm_scan_cuda_bwd.launches`` per call
+    (and, for bf16, to ``.bf16_launches``)."""
     if dys.ndim != 4:
         raise ValueError(f"dys must be (L, B, J, H), got {tuple(dys.shape)}")
     L, B, J, H = dys.shape
@@ -709,26 +837,30 @@ def graph_lstm_scan_cuda_bwd(cheb: torch.Tensor, w: torch.Tensor,
         if tuple(t.shape) != (L, B, J, H):
             raise ValueError(f"{name} must be {(L, B, J, H)}, got "
                              f"{tuple(t.shape)}")
+    bf16 = dys.dtype == torch.bfloat16
+    wt = _lstm_weight("graph_lstm_scan_cuda_bwd", w, bf16)
     device = cuda_build.check_cuda_tensors(
-        "graph_lstm_scan_cuda_bwd", dtypes=(dys.dtype,), cheb=cheb, w=w,
-        **given)
+        "graph_lstm_scan_cuda_bwd", dtypes=(dys.dtype,), cheb=cheb,
+        w=w.t() if wt else w, **given)
     cuda_build.check_cuda_tensors("graph_lstm_scan_cuda_bwd",
                                   gates=res.gates, sa=res.sa)
-    bf16 = dys.dtype == torch.bfloat16
     dxg = torch.empty(res.gates.shape, dtype=dys.dtype, device=device)
+    dw = torch.empty(tuple(w.shape), dtype=w.dtype, device=device)
     if not dys.numel():
-        return dxg.zero_(), torch.zeros_like(w)
-    dw = torch.empty_like(w)
+        return dxg.zero_(), dw.zero_()
     lib = _library()
     with torch.cuda.device(device):
         part = _part(lib, device, L, B, J, H, k, LSTM_GATES)
-        entry = lib.pv2c_graph_lstm_scan_bwd_bf16 if bf16 \
-            else lib.pv2c_graph_lstm_scan_bwd
-        err = entry(
-            cheb.data_ptr(), w.data_ptr(), res.gates.data_ptr(),
-            res.sa.data_ptr(), cs.data_ptr(), dys.data_ptr(),
-            None if dcs is None else dcs.data_ptr(), dxg.data_ptr(),
-            part.data_ptr(), dw.data_ptr(), L, B, J, H, k, _stream(device))
+        rest = (res.gates.data_ptr(), res.sa.data_ptr(), cs.data_ptr(),
+                dys.data_ptr(), None if dcs is None else dcs.data_ptr(),
+                dxg.data_ptr(), part.data_ptr(), dw.data_ptr(), L, B, J, H,
+                k, _stream(device))
+        if bf16:
+            err = lib.pv2c_graph_lstm_scan_bwd_bf16(
+                cheb.data_ptr(), w.data_ptr(), wt, *rest)
+        else:
+            err = lib.pv2c_graph_lstm_scan_bwd(cheb.data_ptr(), w.data_ptr(),
+                                               *rest)
     cuda_build.check_launch(err, "pv2c_graph_lstm_scan_bwd")
     graph_lstm_scan_cuda_bwd.launches += 1
     graph_lstm_scan_cuda_bwd.bf16_launches += bf16
@@ -993,7 +1125,9 @@ class GraphLSTMScan(torch.autograd.Function):
     are differentiable. On the card k = 1 takes the dense kernels where
     :func:`dense_lstm_plan` takes the shape, else the graph-form kernels;
     with ``keep`` either training forward keeps its residuals (the dense
-    one its gates)."""
+    one its gates). The bf16 graph-form kernels, like the dense ones, read
+    a stacked weight's transpose in place; the float32 graph form copies
+    it."""
 
     @staticmethod
     def forward(ctx, xg, cheb, keep, w):
@@ -1014,7 +1148,8 @@ class GraphLSTMScan(torch.autograd.Function):
             ys, cs, gates = dense_lstm_scan_cuda_fwd(xg, w, keep=True)
             ctx.save_for_backward(w, gates, ys, cs)
             return ys, cs
-        w = w.contiguous()
+        if not (xg.dtype == torch.bfloat16 and w.t().is_contiguous()):
+            w = w.contiguous()   # (bf16 reads a stacked weight's transpose)
         if not keep:
             return graph_lstm_scan_fwd_op(xg, cheb, w)
         ys, cs, res = graph_lstm_scan_cuda_fwd(xg, cheb, w, keep=True)
@@ -1064,7 +1199,8 @@ def graph_lstm_scan(xg: torch.Tensor, cheb: torch.Tensor, w: torch.Tensor,
     cell states as well, ``(ys, cs)``. J = 1 with an empty cheb is a dense
     LSTM over B rows. Differentiable in xg and w. The transpose of a
     contiguous (4H, H) w (a stacked ``nn.Linear`` weight) is read in place
-    where the dense kernels take the shape."""
+    where the dense kernels take the shape, and by the bf16 graph-form
+    kernels."""
     keep = torch.is_grad_enabled() and any(
         t.requires_grad for t in (xg, w))
     ys, cs = GraphLSTMScan.apply(xg.contiguous(), cheb.contiguous(), keep, w)

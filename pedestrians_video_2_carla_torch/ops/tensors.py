@@ -73,6 +73,16 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x + (x.to(torch.bfloat16).float() - x).detach()
 
 
+def round_bf16x2(x: torch.Tensor) -> torch.Tensor:
+    """x (float32) as the sum of two bf16 values, hi = bf16(x) and lo =
+    bf16(x - hi) (16 significant bits), kept float32, with the identity as
+    its gradient: the bf16 LSTM kernels' graph terms, a product operand in
+    two bf16 parts."""
+    hi = x.detach().to(torch.bfloat16).float()
+    lo = (x.detach() - hi).to(torch.bfloat16).float()
+    return x + (hi + lo - x).detach()
+
+
 def round_tf32(x: torch.Tensor) -> torch.Tensor:
     """x (float32) rounded to TF32's 10 mantissa bits (ties away from zero,
     as the kernels' split of an operand rounds), kept float32, with the

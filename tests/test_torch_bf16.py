@@ -689,10 +689,11 @@ def test_bf16_scan_plain_versions_keep_the_carry_in_float32():
     """The bf16 plain versions round what the kernels round and keep
     float32 what they keep: a hand-written GRU and LSTM frame loop with the
     carry (and c) in float32, h and r h rounded to bf16 and the graph terms
-    T_n h to TF32 (10 mantissa bits, ties away from zero) as product
-    operands gives their bits; the same loop with a bf16 carry does not.
-    ys and cs come out bf16, the gates and the expanded operands
-    float32."""
+    T_n h as product operands to TF32 (10 mantissa bits, ties away from
+    zero; the GRU) or to two bf16 parts, bf16(T_n h) + bf16(the rest) (the
+    LSTM, whose bf16 kernels take them so) gives their bits; the same loop
+    with a bf16 carry does not. ys and cs come out bf16, the gates and the
+    expanded operands float32."""
     rng = np.random.default_rng(12)
     B, L, J, H, k = 3, 4, 26, 8, 2
     bf = torch.bfloat16
@@ -709,9 +710,13 @@ def test_bf16_scan_plain_versions_keep_the_carry_in_float32():
         bits = x.contiguous().view(torch.int32)
         return ((bits + 0x1000) & ~0x1fff).view(torch.float32)
 
-    def expand(h):
+    def two_bf16(x):
+        hi = rounded(x)
+        return hi + rounded(x - hi)
+
+    def expand(h, term=tf32):
         h = rounded(h)
-        return torch.stack([h] + [tf32(torch.einsum(
+        return torch.stack([h] + [term(torch.einsum(
             "ij,bjc->bic", cheb[0].float(), h))], dim=-1).flatten(-2)
 
     def gru(carry_rounded):
@@ -746,7 +751,8 @@ def test_bf16_scan_plain_versions_keep_the_carry_in_float32():
         xg, w = rnd(L, B, J, 4 * H), rnd(H, k * 4 * H, scale=0.3)
         h, c, ys, cs = torch.zeros(B, J, H), torch.zeros(B, J, H), [], []
         for t in range(L):
-            a = xg[t].float() + expand(h) @ w.float().reshape(k * H, -1)
+            a = xg[t].float() + expand(h, two_bf16) @ w.float().reshape(
+                k * H, -1)
             i, f, g, o = a.split(H, dim=-1)
             c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
             c = rounded(c) if c_rounded else c

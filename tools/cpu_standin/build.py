@@ -1,7 +1,8 @@
 """Build a CUDA source of ``pedestrians_video_2_carla_torch/csrc`` for the
 CPU, against the stand-in headers beside this file (a thread block as
-blockDim OS threads, ``mma.sync`` as a per-warp exchange, ``cp.async`` as a
-synchronous copy), into a shared library that ``ctypes`` loads: a way to
+blockDim OS threads, ``mma.sync`` and ``ldmatrix`` as per-warp exchanges,
+``cp.async`` as a synchronous copy, a cluster's blocks as threads over each
+other's shared memory), into a shared library that ``ctypes`` loads: a way to
 run a kernel's logic without a card. It shows wrong indices, races that a
 barrier should order and wrong results; not compile errors of ``nvcc``,
 timing, or a missing ``cp.async`` wait.
@@ -91,10 +92,10 @@ def main():
     args = parser.parse_args()
     out = Path(args.out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    for header in CSRC.glob("*.cuh"):      # the stand-in replaces mma_tf32
-        if header.name != "mma_tf32.cuh":
-            (out / header.name).write_text(prepare(header.read_text()))
-    (out / "mma_tf32.cuh").write_text((HERE / "mma_tf32.cuh").read_text())
+    for header in CSRC.glob("*.cuh"):  # the stand-in's own where it has one
+        own = HERE / header.name
+        (out / header.name).write_text(
+            own.read_text() if own.exists() else prepare(header.read_text()))
     name = Path(args.source).name
     src = out / name
     src.write_text(prepare((CSRC / name).read_text(), args.smem_limit))

@@ -1,5 +1,6 @@
 // CPU stand-in of the CUDA runtime for rehearsing kernels: a thread block
-// is blockDim OS threads, blocks run one after another.
+// is blockDim OS threads, blocks run one after another (a cluster's blocks
+// together, cudaLaunchKernelEx).
 #pragma once
 #include <barrier>
 #include <cmath>
@@ -48,9 +49,15 @@ struct StandinBlock {
   std::vector<std::unique_ptr<std::barrier<>>> warps;
   std::vector<float> smem;
   // mma exchange: per warp, 32 lanes x (4 a + 2 b); shuffle exchange: per
-  // warp, 32 lanes
+  // warp, 32 lanes; ldmatrix exchange: per warp, 32 row addresses
   std::vector<unsigned> xa, xb;
   std::vector<float> xf;
+  std::vector<const void*> xp;
+  // the cluster: this block's rank, a barrier of all its threads, each
+  // block's shared memory by rank
+  unsigned rank = 0;
+  std::barrier<>* cluster_bar = nullptr;
+  std::vector<float*>* cluster_smem = nullptr;
 };
 inline thread_local StandinBlock* standin_block = nullptr;
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
@@ -101,32 +108,97 @@ inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   return cudaSuccess;
 }
 
+inline void standin_setup(StandinBlock& blk, std::barrier<>& bar, unsigned n,
+                         size_t smem) {
+  blk.bar = &bar;
+  for (unsigned w = 0; w < (n + 31) / 32; ++w)
+    blk.warps.emplace_back(new std::barrier<>(std::min(32u, n - 32 * w)));
+  blk.smem.assign(smem / 4 + 16, std::nanf(""));
+  blk.xa.assign(((n + 31) / 32) * 32 * 4, 0);
+  blk.xb.assign(((n + 31) / 32) * 32 * 2, 0);
+  blk.xf.assign(((n + 31) / 32) * 32, 0.f);
+  blk.xp.assign(((n + 31) / 32) * 32, nullptr);
+}
+
+// Clusters of ns blocks along x, one cluster after another, the threads of
+// a cluster's blocks together.
 template <class K, class... A>
-inline void standin_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t,
-                           K kernel, A... args) {
+inline void standin_launch_cluster(dim3 grid, dim3 block, size_t smem,
+                                   unsigned ns, K kernel, A... args) {
   const unsigned n = block.x * block.y * block.z;
   for (unsigned bz = 0; bz < grid.z; ++bz)
     for (unsigned by = 0; by < grid.y; ++by)
-      for (unsigned bx = 0; bx < grid.x; ++bx) {
-        std::barrier<> bar(n);
-        StandinBlock blk;
-        blk.bar = &bar;
-        for (unsigned w = 0; w < (n + 31) / 32; ++w)
-          blk.warps.emplace_back(new std::barrier<>(std::min(32u, n - 32 * w)));
-        blk.smem.assign(smem / 4 + 16, std::nanf(""));
-        blk.xa.assign(((n + 31) / 32) * 32 * 4, 0);
-        blk.xb.assign(((n + 31) / 32) * 32 * 2, 0);
-        blk.xf.assign(((n + 31) / 32) * 32, 0.f);
+      for (unsigned c0 = 0; c0 < grid.x; c0 += ns) {
+        std::barrier<> cbar(n * ns);
+        std::vector<std::unique_ptr<std::barrier<>>> bars;
+        std::vector<std::unique_ptr<StandinBlock>> blks;
+        std::vector<float*> smems;
+        for (unsigned r = 0; r < ns; ++r) {
+          bars.emplace_back(new std::barrier<>(n));
+          blks.emplace_back(new StandinBlock);
+          standin_setup(*blks[r], *bars[r], n, smem);
+          blks[r]->rank = r;
+          blks[r]->cluster_bar = &cbar;
+          smems.push_back(blks[r]->smem.data());
+        }
+        for (auto& b : blks) b->cluster_smem = &smems;
         std::vector<std::thread> ts;
-        for (unsigned t = 0; t < n; ++t)
-          ts.emplace_back([&, t] {
-            standin_block = &blk;
-            threadIdx = dim3(t % block.x, t / block.x, 0);
-            blockIdx = dim3(bx, by, bz);
-            blockDim = block;
-            gridDim = grid;
-            kernel(args...);
-          });
+        for (unsigned r = 0; r < ns; ++r)
+          for (unsigned t = 0; t < n; ++t)
+            ts.emplace_back([&, r, t] {
+              standin_block = blks[r].get();
+              threadIdx = dim3(t % block.x, t / block.x, 0);
+              blockIdx = dim3(c0 + r, by, bz);
+              blockDim = block;
+              gridDim = grid;
+              kernel(args...);
+            });
         for (auto& th : ts) th.join();
       }
+}
+
+template <class K, class... A>
+inline void standin_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t,
+                           K kernel, A... args) {
+  standin_launch_cluster(grid, block, smem, 1, kernel, args...);
+}
+
+// cudaLaunchKernelEx with a cluster dimension (along x) as its only
+// attribute that the stand-in reads.
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttributeValue {
+  struct { unsigned x, y, z; } clusterDim;
+};
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  cudaLaunchAttributeValue val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+inline unsigned standin_cluster(const cudaLaunchConfig_t* cfg) {
+  unsigned ns = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension)
+      ns = cfg->attrs[i].val.clusterDim.x;
+  return ns;
+}
+template <class... E, class... A>
+inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
+                                      void (*kernel)(E...), A&&... args) {
+  standin_launch_cluster(cfg->gridDim, cfg->blockDim, cfg->dynamicSmemBytes,
+                         standin_cluster(cfg), kernel, E(args)...);
+  return cudaSuccess;
+}
+template <class K>
+inline cudaError_t cudaOccupancyMaxActiveClusters(
+    int* n, K, const cudaLaunchConfig_t* cfg) {
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
+  *n = sms / static_cast<int>(standin_cluster(cfg));
+  return cudaSuccess;
 }
